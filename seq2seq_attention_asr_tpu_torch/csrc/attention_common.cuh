@@ -1,0 +1,142 @@
+// One content-attention GRU decoder step for K rows of one batch row
+// (the math of attention_scan.py _step_core :91), in pieces shared by
+// the beam step (attention_step.cu, K hypotheses) and the teacher-forced
+// scan (attention_scan.cu, K = 1, forward and the backward's recompute):
+//
+//   attend        ws = s_prev @ Ws + b; e = w_e . tanh(vh + ws); alpha =
+//                 masked softmax of e (NEG_INF on padding, times the mask)
+//   context       c = alpha^T h
+//   decoder_cell  r = dec_in(concat(c_in(c), yin)); the bias-free GRU on
+//                 concat(s_prev, r), reset gate before the candidate
+//                 product (cells.py:56-63)
+//
+// vh and h (L*S and L*A floats per row, 295 KB each at L = 144 and
+// flagship width) do not fit in shared memory: they are read from global
+// memory (L2) in every step, once for all K rows.
+
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+constexpr float kNegInf = -1e30f;  // ops/masking.py NEG_INF
+
+struct StepWeights {
+  const float *ws_w, *ws_b, *c_w, *c_b, *dec_w, *dec_b, *w_zr, *w_h;
+};
+
+// Shared-memory buffers of a step, each [K][width].
+struct StepBufs {
+  float* sp;       // [St]     s_prev
+  float* ws;       // [S]      s_prev @ Ws + b
+  float* al;       // [L]      energies, then alpha
+  float* rin;      // [2St]    c_in(c) | yin
+  float* sr;       // [2St]    s_prev | r
+  float* zr;       // [2St]    update gate | reset gate
+  float* rhr;      // [2St]    reset gate * s_prev | r (the candidate's input)
+  float* xo;       // [St+A]   s_new | c
+  float* cand;     // [St]     candidate
+  float* we;       // [S]      w_e (not per row)
+  float* msk;      // [L]      encoder mask (not per row)
+  float* scratch;  // [kThreads * 4 * K]
+};
+
+// alpha into bufs.al from bufs.sp. The caller has loaded sp, we and msk
+// and passed a barrier; ends with a barrier.
+__device__ void attend(const StepWeights& w, const StepBufs& m, const float* vhb, int K, int L,
+                       int S, int St) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  matvec<kNone>(w.ws_w, w.ws_b, St, S, m.sp, St, m.ws, S, K, m.scratch);
+
+  // Energies: a warp per encoder position, vh read once for all K rows.
+  for (int l = warp; l < L; l += kWarps) {
+    float acc[kMaxK];
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) acc[k] = 0.f;
+    const float* vr = vhb + (size_t)l * S;
+#pragma unroll 4
+    for (int s = lane; s < S; s += 32) {
+      const float v = vr[s], wv = m.we[s];
+#pragma unroll
+      for (int k = 0; k < kMaxK; ++k)
+        if (k < K) acc[k] = fmaf(fast_tanh(v + m.ws[k * S + s]), wv, acc[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) {
+      if (k < K) {
+        const float e = warp_sum(acc[k]);
+        if (lane == 0) m.al[k * L + l] = e;
+      }
+    }
+  }
+  __syncthreads();
+
+  // Masked softmax, a warp per row (attention_scan.py:118-121).
+  if (warp < K) {
+    float* e = m.al + warp * L;
+    float mx = kNegInf;
+    for (int l = lane; l < L; l += 32) {
+      const float v = m.msk[l] > 0.f ? e[l] : kNegInf;
+      e[l] = v;
+      mx = fmaxf(mx, v);
+    }
+    mx = warp_max(mx);
+    float z = 0.f;
+    for (int l = lane; l < L; l += 32) {
+      const float p = m.msk[l] > 0.f ? expf(e[l] - mx) : 0.f;
+      e[l] = p;
+      z += p;
+    }
+    z = fmaxf(warp_sum(z), 1e-30f);  // ops/masking.py: a row with no valid position gets 0
+    for (int l = lane; l < L; l += 32) e[l] = e[l] / z;
+  }
+  __syncthreads();
+}
+
+// c[k] = alpha[k]^T h into bufs.xo[k][St:], h read once for all K rows.
+// Ends with a barrier.
+__device__ void context(const StepBufs& m, const float* hb, int K, int L, int A, int St) {
+  const int XO = St + A;
+  for (int j = threadIdx.x; j < A; j += kThreads) {
+    float acc[kMaxK];
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) acc[k] = 0.f;
+#pragma unroll 8
+    for (int l = 0; l < L; ++l) {
+      const float hv = hb[(size_t)l * A + j];
+#pragma unroll
+      for (int k = 0; k < kMaxK; ++k)
+        if (k < K) acc[k] = fmaf(m.al[k * L + l], hv, acc[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k)
+      if (k < K) m.xo[k * XO + St + j] = acc[k];
+  }
+  __syncthreads();
+}
+
+// The decoder input and the GRU cell: from c (xo[:, St:]), yin (rin[:,
+// St:]) and s_prev (sp and sr[:, :St]) to rin, sr, zr, rhr, cand and
+// s_new (xo[:, :St]). Ends with a barrier.
+__device__ void decoder_cell(const StepWeights& w, const StepBufs& m, int K, int A, int St) {
+  const int St2 = 2 * St, XO = St + A;
+  matvec<kNone>(w.c_w, w.c_b, A, St, m.xo + St, XO, m.rin, St2, K, m.scratch);
+  matvec<kNone>(w.dec_w, w.dec_b, St2, St, m.rin, St2, m.sr + St, St2, K, m.scratch);
+  matvec<kSigmoid>(w.w_zr, nullptr, St2, St2, m.sr, St2, m.zr, St2, K, m.scratch);
+  for (int i = threadIdx.x; i < K * St; i += kThreads) {
+    const int k = i / St, j = i % St;
+    m.rhr[k * St2 + j] = m.zr[k * St2 + St + j] * m.sp[i];
+    m.rhr[k * St2 + St + j] = m.sr[k * St2 + St + j];
+  }
+  __syncthreads();
+  matvec<kTanh>(w.w_h, nullptr, St2, St, m.rhr, St2, m.cand, St, K, m.scratch);
+  for (int i = threadIdx.x; i < K * St; i += kThreads) {
+    const int k = i / St, j = i % St;
+    const float zg = m.zr[k * St2 + j];
+    m.xo[k * XO + j] = (1.f - zg) * m.sp[i] + zg * m.cand[i];
+  }
+  __syncthreads();
+}
+
+}  // namespace

@@ -21,15 +21,11 @@
 // matrix-vector products over a cluster of blocks is the way past the
 // one-SM L2 rate.
 
-#include <cuda_runtime.h>
 #include <math.h>
 
-namespace {
+#include "attention_common.cuh"
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxK = 8;
-constexpr float kNegInf = -1e30f;  // ops/masking.py NEG_INF
+namespace {
 
 struct Args {
   const float *vh, *h, *mask, *yin, *sprev;
@@ -38,111 +34,6 @@ struct Args {
   float *alpha, *c, *s, *logp;
   int B, K, L, S, A, St, M, W, V;
 };
-
-enum Act { kNone, kSigmoid, kTanh };
-
-template <int act>
-__device__ __forceinline__ float activate(float x) {
-  if (act == kSigmoid) return 1.f / (1.f + expf(-x));
-  if (act == kTanh) return tanhf(x);
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Energies use tanh(x) = 1 - 2 / (1 + e^(2x)) with the fast exponential:
-// absolute error ~1e-7, a quarter of tanhf's instructions.
-__device__ __forceinline__ float fast_tanh(float x) {
-  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * x));
-}
-
-// y[k*ys + j] = act(sum_i x[k*xs + i] * w[i*out + j] + bias[j]) for k < K, j < out.
-// w is input-major (in, out) in global memory and read once for all K
-// rows, VW consecutive columns per load (16-byte loads when VW = 4); x
-// and y are in shared memory. Latency, not L2 bandwidth, limits one
-// block's weight stream, so when there are fewer column groups than
-// threads the input range is split over kThreads / (out / VW) thread
-// groups, which keeps more loads in flight; their partial sums meet in
-// `scratch` (kThreads * 4 * K floats). Ends with a block barrier.
-template <int act, int VW>
-__device__ void matvec_vw(const float* __restrict__ w, const float* __restrict__ bias, int in,
-                          int out, const float* x, int xs, float* y, int ys, int K,
-                          float* scratch) {
-  const int tid = threadIdx.x;
-  const int q = out / VW;
-  const int parts = q >= kThreads ? 1 : kThreads / q;
-  const int p = tid / q;
-  if (p < parts) {
-    for (int jq = tid - p * q; jq < q; jq += kThreads) {
-      float acc[kMaxK][VW];
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k)
-#pragma unroll
-        for (int v = 0; v < VW; ++v) acc[k][v] = 0.f;
-#pragma unroll 4
-      for (int i = p; i < in; i += parts) {
-        const float* wp = w + (size_t)i * out + VW * jq;
-        float wv[VW];
-        if constexpr (VW == 4) {
-          const float4 t = __ldg(reinterpret_cast<const float4*>(wp));
-          wv[0] = t.x, wv[1] = t.y, wv[2] = t.z, wv[3] = t.w;
-        } else {
-          wv[0] = __ldg(wp);
-        }
-#pragma unroll
-        for (int k = 0; k < kMaxK; ++k) {
-          if (k < K) {
-            const float xv = x[k * xs + i];
-#pragma unroll
-            for (int v = 0; v < VW; ++v) acc[k][v] = fmaf(xv, wv[v], acc[k][v]);
-          }
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k) {
-        if (k < K) {
-#pragma unroll
-          for (int v = 0; v < VW; ++v) {
-            const int j = VW * jq + v;
-            if (parts == 1)
-              y[k * ys + j] = activate<act>(acc[k][v] + (bias ? bias[j] : 0.f));
-            else
-              scratch[(p * K + k) * out + j] = acc[k][v];
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-  if (parts == 1) return;
-  for (int idx = tid; idx < K * out; idx += kThreads) {
-    const int k = idx / out, j = idx % out;
-    float sum = 0.f;
-    for (int r = 0; r < parts; ++r) sum += scratch[(r * K + k) * out + j];
-    y[k * ys + j] = activate<act>(sum + (bias ? bias[j] : 0.f));
-  }
-  __syncthreads();
-}
-
-template <int act>
-__device__ void matvec(const float* __restrict__ w, const float* __restrict__ bias, int in,
-                       int out, const float* x, int xs, float* y, int ys, int K,
-                       float* scratch) {
-  if ((out & 3) == 0 && (reinterpret_cast<size_t>(w) & 15) == 0)
-    matvec_vw<act, 4>(w, bias, in, out, x, xs, y, ys, K, scratch);
-  else
-    matvec_vw<act, 1>(w, bias, in, out, x, xs, y, ys, K, scratch);
-}
 
 __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args a) {
   extern __shared__ float sm[];
@@ -179,93 +70,15 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
   for (int i = tid; i < L; i += kThreads) msk[i] = a.mask[(size_t)b * L + i];
   __syncthreads();
 
-  matvec<kNone>(a.ws_w, a.ws_b, St, S, sp, St, ws, S, K, scratch);
-
-  // Energies e[k][l] = sum_s tanh(vh[l][s] + ws[k][s]) * w_e[s]: a warp
-  // per encoder position, vh read once for all K hypotheses.
-  const float* vhb = a.vh + (size_t)b * L * S;
-  for (int l = warp; l < L; l += kWarps) {
-    float acc[kMaxK];
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k) acc[k] = 0.f;
-    const float* vr = vhb + (size_t)l * S;
-#pragma unroll 4
-    for (int s = lane; s < S; s += 32) {
-      const float v = vr[s], wv = we[s];
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k)
-        if (k < K) acc[k] = fmaf(fast_tanh(v + ws[k * S + s]), wv, acc[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      if (k < K) {
-        const float e = warp_sum(acc[k]);
-        if (lane == 0) al[k * L + l] = e;
-      }
-    }
-  }
-  __syncthreads();
-
-  // Masked softmax, a warp per hypothesis (attention_scan.py:118-121).
-  if (warp < K) {
-    float* e = al + warp * L;
-    float m = kNegInf;
-    for (int l = lane; l < L; l += 32) {
-      const float v = msk[l] > 0.f ? e[l] : kNegInf;
-      e[l] = v;
-      m = fmaxf(m, v);
-    }
-    m = warp_max(m);
-    float z = 0.f;
-    for (int l = lane; l < L; l += 32) {
-      const float p = msk[l] > 0.f ? expf(e[l] - m) : 0.f;
-      e[l] = p;
-      z += p;
-    }
-    z = fmaxf(warp_sum(z), 1e-30f);  // ops/masking.py: a row with no valid position gets 0
-    for (int l = lane; l < L; l += 32) e[l] = e[l] / z;
-  }
-  __syncthreads();
-
-  // Context c[k] = alpha[k]^T h, h read once for all K hypotheses.
-  const float* hb = a.h + (size_t)b * L * A;
-  for (int j = tid; j < A; j += kThreads) {
-    float acc[kMaxK];
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k) acc[k] = 0.f;
-#pragma unroll 8
-    for (int l = 0; l < L; ++l) {
-      const float hv = hb[(size_t)l * A + j];
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k)
-        if (k < K) acc[k] = fmaf(al[k * L + l], hv, acc[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k)
-      if (k < K) xo[k * XO + St + j] = acc[k];
-  }
-  __syncthreads();
-
-  // Decoder input r = dec_in(concat(c_in(c), yin)), then the GRU cell on
-  // concat(s_prev, r) (cells.py:56-63: reset gate before the matmul).
-  matvec<kNone>(a.c_w, a.c_b, A, St, xo + St, XO, rin, St2, K, scratch);
-  matvec<kNone>(a.dec_w, a.dec_b, St2, St, rin, St2, sr + St, St2, K, scratch);
-  matvec<kSigmoid>(a.w_zr, nullptr, St2, St2, sr, St2, zr, St2, K, scratch);
+  const StepWeights w{a.ws_w, a.ws_b, a.c_w, a.c_b, a.dec_w, a.dec_b, a.w_zr, a.w_h};
+  const StepBufs bufs{sp, ws, al, rin, sr, zr, rhr, xo, cand, we, msk, scratch};
+  attend(w, bufs, a.vh + (size_t)b * L * S, K, L, S, St);
+  context(bufs, a.h + (size_t)b * L * A, K, L, A, St);
+  decoder_cell(w, bufs, K, A, St);
   for (int i = tid; i < K * St; i += kThreads) {
     const int k = i / St, j = i % St;
-    rhr[k * St2 + j] = zr[k * St2 + St + j] * sp[i];
-    rhr[k * St2 + St + j] = sr[k * St2 + St + j];
+    a.s[(row + k) * St + j] = xo[k * XO + j];
   }
-  __syncthreads();
-  matvec<kTanh>(a.w_h, nullptr, St2, St, rhr, St2, cand, St, K, scratch);
-  for (int i = tid; i < K * St; i += kThreads) {
-    const int k = i / St, j = i % St;
-    const float zg = zr[k * St2 + j];
-    const float sn = (1.f - zg) * sp[i] + zg * cand[i];
-    xo[k * XO + j] = sn;
-    a.s[(row + k) * St + j] = sn;
-  }
-  __syncthreads();
 
   // Readout: maxout over `W`-wide groups, linear, f32 log_softmax.
   matvec<kNone>(a.mo_w, a.mo_b, XO, M * W, xo, XO, mop, M * W, K, scratch);

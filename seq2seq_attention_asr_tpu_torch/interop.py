@@ -17,14 +17,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
+from .tree import tree_map
 
 
 def to_torch(tree: Any, device="cuda") -> Any:
@@ -36,9 +29,9 @@ def to_torch(tree: Any, device="cuda") -> Any:
             return a.to(dev)
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
-    return _map(leaf, tree)
+    return tree_map(leaf, tree)
 
 
 def to_numpy(tree: Any) -> Any:
     """Tensor leaves -> numpy arrays (on the host), dtype kept."""
-    return _map(lambda t: t.detach().cpu().numpy(), tree)
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)

@@ -4,6 +4,8 @@ with a GRU cell and a maxout readout (seq2seq_attention_asr_tpu/models/chorowski
 Flagship widths are the TIMIT recipe's (train/experiment.py:69-95 of
 the JAX package): 123 -> 256 per direction (annotations 512), score
 depth 512, state 256, maxout(64, window 7) -> 62 phones.
+``forward`` is the training forward: encode, then the teacher-forced
+decoder scan.
 """
 
 from __future__ import annotations
@@ -28,7 +30,13 @@ class ChorowskiConfig:
     state_depth: int = 256
     mlp_depth: int = 64
     output_depth: int = 62
-    dropout: float = 0.0  # a readout layer in training only; identity here
+    dropout: float = 0.0  # a readout layer: the identity in eval mode, refused in train mode
+    # Attention options, with the JAX package's names; the port refuses
+    # feature_maps > 0 and, in training, mono_align with penalty_lambda > 0.
+    feature_maps: int = 0
+    filt_size: int = 10
+    mono_align: bool = True
+    penalty_lambda: float = 0.0
 
     @property
     def annotation_depth(self) -> int:
@@ -43,6 +51,10 @@ class ChorowskiConfig:
             annotation_depth=self.annotation_depth,
             output_depth=self.output_depth,
             readout=tuple(ro),
+            feature_maps=self.feature_maps,
+            filt_size=self.filt_size,
+            mono_align=self.mono_align,
+            penalty_lambda=self.penalty_lambda,
         )
 
 
@@ -67,3 +79,13 @@ def encode(params: Params, cfg: ChorowskiConfig, x: torch.Tensor, lengths: torch
     h = rnn.bigru_layer(enc["bigru1"], x, lengths)
     h = rnn.bigru_layer(enc["bigru2"], h, lengths)
     return rnn.bigru_layer(enc["bigru3"], h, lengths)
+
+
+def forward(params: Params, cfg: ChorowskiConfig, x: torch.Tensor, x_lengths: torch.Tensor,
+            labels_onehot: torch.Tensor, dec_mask: torch.Tensor, *,
+            train: bool = False) -> Dict[str, torch.Tensor]:
+    """Encode, then teacher-forced decode (model_chorowski_baseline.lua:
+    73-75). Returns logprobs (B, T, V), alpha (B, T, L), penalty (B, T)."""
+    h = encode(params, cfg, x, x_lengths)
+    return attention.decode_teacher_forced(params["decoder"], cfg.attention_config(), h,
+                                           x_lengths, labels_onehot, dec_mask, train=train)

@@ -1,7 +1,9 @@
-"""Model facade (seq2seq_attention_asr_tpu/models/registry.py): the
-surface serving needs, for the one family ported so far.
+"""Model facade (seq2seq_attention_asr_tpu/models/registry.py), for the
+one family ported so far:
 
   init(generator, device) -> params
+  forward(params, x, x_len, labels_onehot, dec_mask, *, train)
+      -> dict(logprobs, alpha, penalty)
   encode(params, x, x_len) -> (annotations, annotation_lengths)
   attention_cfg  (for decoding)
 """
@@ -19,8 +21,13 @@ class Model:
     name: str
     cfg: Any
     init: Callable
+    forward: Callable
     encode: Callable
     attention_cfg: Any
+
+    @property
+    def output_depth(self) -> int:
+        return self.cfg.output_depth
 
 
 def build(name: str, **overrides) -> Model:
@@ -32,6 +39,7 @@ def build(name: str, **overrides) -> Model:
         name=name,
         cfg=cfg,
         init=lambda generator, device="cuda": chorowski.init(cfg, generator, device),
+        forward=lambda p, x, xl, oh, dm, **kw: chorowski.forward(p, cfg, x, xl, oh, dm, **kw),
         encode=lambda p, x, xl: (chorowski.encode(p, cfg, x, xl), xl),
         attention_cfg=cfg.attention_config(),
     )

@@ -62,6 +62,7 @@ def fused_attention_step(params, cfg, state, y_prev, vh, h, enc_mask):
     one-hot (B,K,V); vh (B,L,S); h (B,L,A); enc_mask (B,L). Returns
     (new_state, {"s", "c", "alpha", "logp"}); mem passes through.
     CPU tensors take the plain version; CUDA tensors the kernel."""
+    attention.check_ported(cfg)
     alpha_prev, s_prev, mem = state
     if build.on_cpu(s_prev, y_prev, vh, h, enc_mask):
         return fused_attention_step_plain(params, cfg, state, y_prev, vh, h, enc_mask)

@@ -3,9 +3,11 @@
 Each source in ``seq2seq_attention_asr_tpu_torch/csrc/`` has a plain C
 interface and is compiled by nvcc for ``sm_90a`` into its own shared
 library under ``seq2seq_attention_asr_tpu_torch/_build/`` (listed in
-.gitignore), at first use. The library name carries a digest of the
-source and flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is. ``build_all`` starts one nvcc per source at once.
+.gitignore), at first use; kernels whose entry points share a source
+share its library. The library name carries a digest of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edit rebuilds it
+and an unchanged one is loaded as it is. ``build_all`` starts one nvcc
+per source at once.
 
 Every C entry point takes device pointers, sizes and the caller's CUDA
 stream, launches on that stream without synchronising, and returns
@@ -60,32 +62,11 @@ class Kernel:
         self._fn = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha1(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:12]
-        return BUILD_DIR / f"lib{self.name}-{digest}.so"
-
-    def _start_build(self):
-        """Start nvcc for this kernel, or return None if it is built."""
-        out = self.library_path()
-        if out.exists():
-            return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        return proc, tmp, out, time.perf_counter()
-
-    def _finish_build(self, started) -> None:
-        proc, tmp, out, t0 = started
-        log, _ = proc.communicate()
-        self.build_log = log
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {self.source.name}:\n{log}")
-        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-        self.build_seconds = time.perf_counter() - t0
+        text = self.source.read_bytes()
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            text += header.read_bytes()
+        digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        return BUILD_DIR / f"lib{self.source.stem}-{digest}.so"
 
     def _bind(self):
         if self._fn is None:
@@ -107,21 +88,38 @@ class Kernel:
         self.launches += 1
 
 
+def _start_build(source: Path, out: Path):
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, time.perf_counter()
+
+
 def build_all(kernels: Iterable[Kernel]) -> List[Kernel]:
-    """Build every kernel that is not built yet, one nvcc each, all
-    started together; then load them all."""
+    """Build every library that is not built yet, one nvcc per source,
+    all started together; then load every kernel."""
     kernels = list(kernels)
-    started = [(k, k._start_build()) for k in kernels]
-    try:
-        for k, s in started:
-            if s is not None:
-                k._finish_build(s)
-    finally:
-        for _, s in started:
-            if s is not None and s[0].poll() is None:
-                s[0].kill()
-                s[0].wait()
+    started = {}
     for k in kernels:
+        out = k.library_path()
+        if out not in started and not out.exists():
+            started[out] = (k.source, _start_build(k.source, out))
+    built = {}
+    try:
+        for out, (source, (proc, tmp, t0)) in started.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {source.name}:\n{log}")
+            os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+            built[out] = (time.perf_counter() - t0, log)
+    finally:
+        for _, (_, (proc, _, _)) in started.items():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for k in kernels:
+        k.build_seconds, k.build_log = built.get(k.library_path(), (None, ""))
         k._bind()
     return kernels
 

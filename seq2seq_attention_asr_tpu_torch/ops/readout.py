@@ -2,8 +2,9 @@
 (seq2seq_attention_asr_tpu/ops/readout.py).
 
 Maxout follows the reference (Maxout.lua:14-19): Linear(in -> out*win)
-then a max over each consecutive `win`-wide group of outputs. Decoding
-never trains, so a dropout layer is the identity here.
+then a max over each consecutive `win`-wide group of outputs. A dropout
+layer is the identity in eval mode; train-mode dropout is not ported
+yet and is refused.
 """
 
 from __future__ import annotations
@@ -55,8 +56,10 @@ def stack_init(generator: torch.Generator, dim_in: int, specs: Sequence[LayerSpe
     return params
 
 
-def stack_apply(params: List[Params], specs: Sequence[LayerSpec], x: torch.Tensor) -> torch.Tensor:
-    """Apply the stack (eval mode), then log_softmax in float32."""
+def stack_apply(params: List[Params], specs: Sequence[LayerSpec], x: torch.Tensor,
+                *, train: bool = False) -> torch.Tensor:
+    """Apply the stack, then log_softmax in float32. In train mode a
+    dropout layer with rate > 0 raises NotImplementedError."""
     for p, spec in zip(params, specs):
         kind = spec[0]
         if kind == "linear":
@@ -65,4 +68,6 @@ def stack_apply(params: List[Params], specs: Sequence[LayerSpec], x: torch.Tenso
             x = maxout_apply(p, x, spec[2])
         elif kind == "relu":
             x = torch.relu(x)
+        elif kind == "dropout" and train and spec[1] > 0.0:
+            raise NotImplementedError("train-mode dropout is not ported yet")
     return torch.log_softmax(x.float(), dim=-1)

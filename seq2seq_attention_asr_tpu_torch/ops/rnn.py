@@ -24,7 +24,9 @@ def bigru_layer(params: Params, x: torch.Tensor, lengths: Optional[torch.Tensor]
     """concat(fwd, bwd) GRU states along features: (B, L, I) -> (B, L, 2H).
 
     Both directions run in one flip-free scan (kernel K1,
-    ops/cuda/gru_scan.py). With `lengths`, the input and the output
+    ops/cuda/gru_scan.py), whose gradient is kernel K6; the input
+    projection and the stacking of the recurrent weights are plain
+    tensor ops that autograd differentiates. With `lengths`, the input and the output
     are zeroed past each row's length: the bias-free GRU then holds
     h = 0 through the padding, which lets the backward direction scan
     the natural-order array; valid positions equal a per-row reverse
@@ -38,7 +40,7 @@ def bigru_layer(params: Params, x: torch.Tensor, lengths: Optional[torch.Tensor]
     xb = cells.gru_input_proj(params["bwd"], x).contiguous()
     wzr2 = torch.stack([params["fwd"]["w_zr"][:h_dim], params["bwd"]["w_zr"][:h_dim]])
     wh2 = torch.stack([params["fwd"]["w_h"][:h_dim], params["bwd"]["w_h"][:h_dim]])
-    fwd, bwd = gru_scan.bigru_scan2(xf, xb, wzr2, wh2)
+    fwd, bwd = gru_scan.BiGRUScan2.apply(xf, xb, wzr2, wh2)
     ys = torch.cat([fwd, bwd], dim=-1)
     if lengths is not None:
         ys = ys * mask

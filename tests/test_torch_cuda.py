@@ -22,6 +22,7 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -140,3 +141,103 @@ def test_transcriber_on_the_card_matches_the_cpu(card, exact):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.ids, w.ids)
         assert abs(g.score - w.score) <= 1e-3
+
+
+def _bwd_close(got, want, name):
+    """Backward outputs: max|got - plain| <= 5e-4 * max|plain| + 5e-5
+    (sums over B*L or B*T rows taken in another order)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        assert err <= 5e-4 * scale + 5e-5, (name, i, err, scale)
+
+
+@pytest.mark.parametrize("b,l,h", [(3, 13, 8), (16, 144, 256)])
+def test_bigru_scan2_bwd_kernel(card, b, l, h):
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan
+
+    gen = torch.Generator().manual_seed(b * 7 + h)
+    lens = torch.randint(1, l + 1, (b,), generator=gen).cuda()
+    valid = (torch.arange(l, device=card)[None] < lens[:, None]).float()[:, :, None]
+    xf = _rand(gen, b, l, 3 * h) * valid
+    xb = _rand(gen, b, l, 3 * h) * valid
+    wzr2 = _rand(gen, 2, h, 2 * h, scale=h ** -0.5)
+    wh2 = _rand(gen, 2, h, h, scale=h ** -0.5)
+    ysf, ysb = gru_scan.bigru_scan2_plain(xf, xb, wzr2, wh2)
+    dysf, dysb = _rand(gen, b, l, h) * valid, _rand(gen, b, l, h) * valid
+    args = (xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb)
+    before = gru_scan.KERNEL_BWD.launches
+    got = gru_scan.bigru_scan2_bwd(*args)
+    want = gru_scan.bigru_scan2_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert gru_scan.KERNEL_BWD.launches == before + 1
+    _bwd_close(got, want, "bigru_scan2_bwd")
+
+
+def _scan_case(card, gen, b, l, t, s, a, st):
+    """Decoder-scan inputs with ragged encoder lengths, weights at the
+    scale of torch's default init."""
+    lens = torch.randint(1, l + 1, (b,), generator=gen).cuda()
+    mask = (torch.arange(l, device=card)[None] < lens[:, None]).float()
+    h = _rand(gen, b, l, a, scale=0.5) * mask[:, :, None]
+    u = lambda *shape: _rand(gen, *shape, scale=shape[0] ** -0.5)
+    vh = (h @ u(a, s)).contiguous()
+    weights = (u(st, s), u(st, s)[0], u(s, s)[0], u(a, st), u(a, st)[0], u(2 * st, st),
+               u(2 * st, st)[0], u(2 * st, 2 * st), u(2 * st, st))
+    return vh, h, mask, _rand(gen, b, t, st, scale=0.5), tuple(w.contiguous() for w in weights)
+
+
+@pytest.mark.parametrize("b,l,t,dims", [(3, 13, 5, (16, 24, 8)), (16, 144, 56, (512, 512, 256))])
+def test_attention_decode_scan_kernels(card, b, l, t, dims):
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    s, a, st = dims
+    gen = torch.Generator().manual_seed(b * 13 + l)
+    vh, h, mask, yin, weights = _scan_case(card, gen, b, l, t, s, a, st)
+    fwd, bwd = attention_scan.KERNEL_FWD.launches, attention_scan.KERNEL_BWD.launches
+    got = attention_scan.attention_decode_scan(vh, h, mask, yin, *weights)
+    want = attention_scan.attention_decode_scan_plain(vh, h, mask, yin, *weights)
+    torch.cuda.synchronize()
+    assert attention_scan.KERNEL_FWD.launches == fwd + 1
+    assert _max_err(got, want) <= TOL
+    cot = (_rand(gen, b, t, st), _rand(gen, b, t, a), _rand(gen, b, t, l))
+    args = (vh, h, mask, yin, *weights, want[0], want[1], *cot)
+    got = attention_scan.attention_decode_scan_bwd(*args)
+    want = attention_scan.attention_decode_scan_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert attention_scan.KERNEL_BWD.launches == bwd + 1
+    _bwd_close(got, want, "attention_decode_scan_bwd")
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan, gru_scan
+    from seq2seq_attention_asr_tpu_torch.train import experiment, optim, trainer
+
+    exp = experiment.timit_chorowski_normnll_colnorm()
+    exp.model_kwargs.update(input_frame_size=10, hidden_frame_size=32, output_frame_size=32,
+                            score_depth=32, state_depth=32, mlp_depth=16, output_depth=9)
+    model = exp.build_model()
+    params = exp.init_params(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.RandomState(0)
+    batch = (torch.from_numpy(rng.randn(4, 24, 10).astype(np.float32)),
+             torch.tensor([24, 17, 9, 20]), torch.from_numpy(rng.randint(0, 9, (4, 6))),
+             (torch.arange(6)[None] < torch.tensor([6, 3, 5, 1])[:, None]).float())
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tx = optim.build_optimizer(exp.optim)
+        init_fn, step_fn = trainer.make_train_step(model.forward, tx, exp.optim, exp.train,
+                                                   model.output_depth)
+        state = init_fn(interop.to_torch(params, dev), torch.Generator().manual_seed(1))
+        kernels = (gru_scan.KERNEL, gru_scan.KERNEL_BWD, attention_scan.KERNEL_FWD,
+                   attention_scan.KERNEL_BWD)
+        runs[dev] = []
+        for _ in range(2):
+            before = [k.launches for k in kernels]
+            state, m = step_fn(state, tuple(x.to(dev) for x in batch))
+            torch.cuda.synchronize()
+            launched = [k.launches - n for k, n in zip(kernels, before)]
+            assert launched == ([3, 3, 1, 1] if dev == "cuda" else [0, 0, 0, 0])
+            runs[dev].append({k: float(v) for k, v in m.items()})
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        for key in ("loss", "nll", "grad_norm", "param_norm"):
+            assert abs(got[key] - want[key]) <= 1e-4 * abs(want[key]), (key, got, want)

@@ -23,7 +23,9 @@ def _imported(tree):
 
 def test_port_files_are_found():
     names = {p.name for p in PORT_FILES}
-    assert {"serve.py", "beam.py", "features.py", "chip_smoke.py", "gru_scan.py"} <= names
+    assert {"serve.py", "beam.py", "features.py", "chip_smoke.py", "gru_scan.py",
+            "attention_scan.py", "trainer.py", "optim.py", "initializers.py", "experiment.py",
+            "loss.py", "tree.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -59,10 +61,22 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 def test_kernel_wrappers_take_cpu_or_cuda_tensors_only():
     """A tensor that is neither on the CPU nor on a card is refused, not
     quietly computed with the plain version."""
-    from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan, logmel
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan, gru_scan, logmel
 
     meta = lambda *s: torch.empty(*s, device="meta")
+    gru = (meta(1, 2, 12), meta(1, 2, 12), meta(2, 4, 8), meta(2, 4, 4))
     with pytest.raises(ValueError):
-        gru_scan.bigru_scan2(meta(1, 2, 12), meta(1, 2, 12), meta(2, 4, 8), meta(2, 4, 4))
+        gru_scan.bigru_scan2(*gru)
+    with pytest.raises(ValueError):
+        gru_scan.bigru_scan2_bwd(*gru, *[meta(1, 2, 4)] * 4)
     with pytest.raises(ValueError):
         logmel.stft_logmel_power(meta(1, 4096), 16000)
+    b, t, l, s, a, st = 1, 2, 3, 4, 5, 6
+    scan = (meta(b, l, s), meta(b, l, a), meta(b, l), meta(b, t, st), meta(st, s), meta(s),
+            meta(s), meta(a, st), meta(st), meta(2 * st, st), meta(st), meta(2 * st, 2 * st),
+            meta(2 * st, st))
+    with pytest.raises(ValueError):
+        attention_scan.attention_decode_scan(*scan)
+    with pytest.raises(ValueError):
+        attention_scan.attention_decode_scan_bwd(*scan, meta(b, t, st), meta(b, t, a),
+                                                 meta(b, t, st), meta(b, t, a), meta(b, t, l))

@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU: PCM -> text serving
-and training of the flagship Chorowski model through its six CUDA
-kernels.
+and training of the flagship Chorowski model, and PCM -> text serving of
+the conv+BiLSTM TIMIT model, through their eight CUDA kernels.
 
     python3 chip_smoke.py
 
 Phases, each fatal when it fails:
   1. the card's name and power limit (nvidia-smi);
-  2. build the six kernels from csrc/ (one nvcc per source, in parallel);
+  2. build the eight kernels from csrc/ (one nvcc per source, in parallel);
   3. hold each kernel to its plain PyTorch version through its public
-     wrapper: K1-K3 at the serving shapes, batch 1 and 8 (max abs error
-     1e-4); K4 (1e-4 abs) and K5, K6 (max|got - plain| <= 5e-4 *
-     max|plain| + 5e-5 for each output) at the training shape, B = 16,
+     wrapper: K1-K3 at the flagship's serving shapes, batch 1 and 8 (max
+     abs error 1e-4); K4 (1e-4 abs) and K5, K6 (max|got - plain| <= 5e-4
+     * max|plain| + 5e-5 for each output) at the training shape, B = 16,
      L = 144, T = 56, encoder lengths ragged in 96-144 and label lengths
-     in 20-56;
+     in 20-56; K7 on the conv stack's output of the 3.5 s PCM (the
+     conv+BiLSTM recipe's only BiLSTM layer, L' = 14) and K8 at K = 5 in
+     its three instances: the recipe's decoder (LSTM, location-aware,
+     filter 5), the flagship's widths with location-aware attention
+     (GRU, filter 10, 16 feature maps, maxout readout) and the recipe's
+     widths without the location term (LSTM), batch 1 and 8 (1e-4 abs);
+     and K8's content-only GRU instance on K2's inputs;
   4. serve 3.5 s of PCM with seeded random flagship weights: exact=False
      at batch 1 and 8 (kernels K1, K2, K3), exact=True at batch 1 (K1,
      K2), with the launch counts zeroed just before each request;
@@ -21,7 +27,12 @@ Phases, each fatal when it fails:
      one fused_attention_step launch per beam step the CPU run took; then
      two more requests at exact=False batch 8 with the readout's eos
      bias raised, so that hypotheses finish on eos and the beam stops
-     early;
+     early; then the same for the conv+BiLSTM recipe
+     (timit_conv_bilstm, orthogonal init from the seed): exact=False at
+     batch 1 and 8 (K3, K7, K8), exact=True at batch 1 (K7, K8) and one
+     exact=False batch 8 request with the eos bias raised until a
+     hypothesis finishes on eos, each with exactly one K7 launch and one
+     K8 launch per beam step of the CPU run;
   6. train the recipe timit_chorowski_normnll_colnorm at full width
      (orthogonal init from seed 0, one seeded batch at the training
      shape): 3 steps on the card with the launch counts zeroed before
@@ -29,9 +40,14 @@ Phases, each fatal when it fails:
      (none of K2, K3) after it, the same 3 steps on the CPU (loss, nll,
      grad_norm and param_norm within rtol 1e-3), then 30 more card steps,
      the last with a lower loss than the first;
-  7. kernel (device), wrapper-call, plain-version and bound times per kernel;
-  8. the p50 request latency over 10 requests, and the device idle share:
-     1 - (device time of one request) / p50; the p50 train step over 10
+  7. kernel (device), wrapper-call, plain-version and bound times per
+     kernel; for K7 also cuDNN's bidirectional LSTM on the same input
+     (library_ms: the device time of every op it starts; a yardstick the
+     port never calls) and K7 with its two input projections; K2 beside
+     K8's instance on K2's inputs;
+  8. the p50 request latency over 10 requests of each model, and the
+     device idle share: 1 - (device time of one request) / p50; the p50
+     train step over 10
      steps after 3 warm-up steps at B = 16 and 128, audio seconds per
      second, the device time of one step and its idle share;
   9. one {"kernels": [...]} JSON line, the card line, and the last line
@@ -43,6 +59,7 @@ It exits nonzero without a card, and imports nothing of the JAX package.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import statistics
@@ -79,7 +96,12 @@ MORE_STEPS = 30
 HOP = 512  # samples per frame at 16 kHz: audio seconds of a batch = B * L * HOP / SR
 STEP_LAUNCHES = {"bigru_scan2": 3, "bigru_scan2_bwd": 3, "attention_decode_scan_fwd": 1,
                  "attention_decode_scan_bwd": 1, "fused_attention_step": 0,
-                 "stft_logmel_power": 0}
+                 "stft_logmel_power": 0, "bilstm_scan": 0, "fused_attention_step_loc_lstm": 0}
+CB_PAD_LEN = 130  # encoder frames of the 3.5 s PCM: 110, padded to 112, plus 2 x 10 pad frames
+# Tried in turn on the CPU for the conv+BiLSTM eos request, smallest
+# first: with seed 0, 0.02 ends 2 of 8 best hypotheses on eos while the
+# beam runs on to max_steps for the others; 0.06 and up end all of them.
+CB_EOS_BIASES = (0.01, 0.02, 0.04, 0.08, 0.16, 0.32, 0.64)
 # Device kernels of a train step, by the name each carries in a trace.
 STEP_KERNELS = ("bigru_scan2_bwd_kernel", "bigru_scan2_kernel", "scan_fwd_kernel",
                 "scan_bwd_kernel", "atb_kernel")
@@ -91,6 +113,8 @@ REPLACES = {
     "bigru_scan2_bwd": "seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:716",
     "attention_decode_scan_fwd": "seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:355",
     "attention_decode_scan_bwd": "seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:851",
+    "bilstm_scan": "seq2seq_attention_asr_tpu/ops/pallas/lstm_scan.py:107",
+    "fused_attention_step_loc_lstm": "seq2seq_attention_asr_tpu/ops/pallas/attention_step.py:371",
 }
 SOURCES = {
     "bigru_scan2": "seq2seq_attention_asr_tpu_torch/csrc/bigru_scan2.cu",
@@ -99,6 +123,8 @@ SOURCES = {
     "bigru_scan2_bwd": "seq2seq_attention_asr_tpu_torch/csrc/bigru_scan2_bwd.cu",
     "attention_decode_scan_fwd": "seq2seq_attention_asr_tpu_torch/csrc/attention_scan.cu",
     "attention_decode_scan_bwd": "seq2seq_attention_asr_tpu_torch/csrc/attention_scan.cu",
+    "bilstm_scan": "seq2seq_attention_asr_tpu_torch/csrc/bilstm_scan.cu",
+    "fused_attention_step_loc_lstm": "seq2seq_attention_asr_tpu_torch/csrc/attention_step.cu",
 }
 NO_LIBRARY = {
     "bigru_scan2": "cuDNN's GRU carries biases and applies the reset gate after its matmul",
@@ -107,6 +133,8 @@ NO_LIBRARY = {
     "bigru_scan2_bwd": "no PyTorch call computes the bias-free, reset-before-matmul GRU backward",
     "attention_decode_scan_fwd": "no PyTorch call computes the attention decoder scan",
     "attention_decode_scan_bwd": "no PyTorch call computes the attention decoder scan's backward",
+    "fused_attention_step_loc_lstm": "no PyTorch call computes the location-aware or LSTM "
+                                     "attention step with its readout",
 }
 
 
@@ -153,8 +181,9 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
 def device_ms(fn, symbols, iters: int) -> float:
     """Mean device time of one call of `fn`, from a profiler trace of
     `iters` calls: the summed time of the device kernels whose names hold
-    one of `symbols` (a C entry point may start more than one), without
-    the Python wrapper's time between launches."""
+    one of `symbols` (a C entry point may start more than one), or of
+    every device op the call starts when `symbols` is None, without the
+    host's time between launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -164,6 +193,9 @@ def device_ms(fn, symbols, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    if symbols is None:
+        return sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / iters / 1e3
     ms = 0.0
     for symbol in symbols:
         durs = [e.time_range.elapsed_us() for e in prof.events()
@@ -217,11 +249,15 @@ def bwd_err(got, want) -> float:
 class Case:
     """Inputs of one kernel at the shapes of its path, its wrapper, its
     plain version, the device kernels its entry point starts, and what
-    the work costs at the least. A backward case is held to bwd_err."""
+    the work costs at the least. A backward case is held to bwd_err.
+    `label` names an instance of a kernel that has several; `library`,
+    where one PyTorch call computes the same function, is that call."""
 
-    def __init__(self, name, symbols, kernel, plain, args, flops, nbytes, backward=False):
+    def __init__(self, name, symbols, kernel, plain, args, flops, nbytes, backward=False,
+                 label=None, library=None):
         self.name, self.symbols, self.kernel, self.plain, self.args = name, symbols, kernel, plain, args
         self.flops, self.nbytes, self.backward = flops, nbytes, backward
+        self.label, self.library = label or name, library
 
     def check(self, got, want, tag: str) -> float:
         """Max abs error of the kernel against the plain version; exits
@@ -233,13 +269,15 @@ class Case:
             ok, tol = excess <= 5e-5, f"max|plain| * 5e-4 + 5e-5, excess {excess:.3e}"
         else:
             ok, tol = err <= TOL, f"{TOL}"
-        print(f"parity {self.name} {tag}: max_abs_err={err:.3e} (tol {tol}), finite={finite}")
+        print(f"parity {self.label} {tag}: max_abs_err={err:.3e} (tol {tol}), finite={finite}")
         if not finite or not ok:
-            raise SystemExit(f"{self.name} {tag} disagrees with its plain version")
+            raise SystemExit(f"{self.label} {tag} disagrees with its plain version")
         return err
 
 
-def cases(params, cfg, b: int, gen: torch.Generator):
+def cases(params, cfg, loc_dec, b: int, gen: torch.Generator):
+    """K1-K3 at the flagship's serving shapes, and K8 on the flagship's
+    widths with location-aware attention (decoder weights `loc_dec`)."""
     from seq2seq_attention_asr_tpu_torch.ops import attention, cells
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step, gru_scan, logmel
 
@@ -311,12 +349,149 @@ def cases(params, cfg, b: int, gen: torch.Generator):
         flops=b * frames * (fft + 3 * 1025 + 2 * int((melw != 0).sum()) + 1025 + 2 * 128),
         nbytes=4 * (yp.numel() + 2048 + taps + lo.numel() + hi.numel() + b * frames * 129),
     )
-    return [k1, k2, k3]
+    # K8's content-only GRU instance on K2's inputs (the wrapper routes
+    # this configuration to K2), to set the two kernels side by side.
+    k8_gru = Case(
+        "fused_attention_step_loc_lstm", ("attention_step_loc_lstm_kernel",),
+        lambda *args: _step_outputs(k8_direct(*args)), k2.plain, step_args, k2.flops, k2.nbytes,
+        label="fused_attention_step_loc_lstm[gru]",
+    )
+    loc_cfg = dataclasses.replace(acfg, feature_maps=16, filt_size=10)
+    return [k1, k2, k3, k8_gru, step_case("gru+loc", loc_dec, loc_cfg, h, valid, gen)]
+
+
+def k8_direct(params, cfg, state, y_prev, vh, h, enc_mask):
+    """fused_attention_step through K8 whatever the configuration: the
+    wrapper's yin, then K8's launch."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    b, k, st = state[1].shape
+    yin = (y_prev.reshape(b * k, -1) @ params["y_in"]["w"] + params["y_in"]["b"]).reshape(b, k, st)
+    return attention_step._step_k8(params, cfg, state, yin, vh, h, enc_mask)
+
+
+def step_case(variant, dec, acfg, h, valid, gen):
+    """K8 at a beam step of K = BEAM_K hypotheses on annotations h (B, L,
+    A) with mask `valid`, for the decoder `dec` of config `acfg`."""
+    from seq2seq_attention_asr_tpu_torch.ops import attention
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    b, l, a = h.shape
+    dev = h.device
+    s_dim, st, v = acfg.score_depth, acfg.state_depth, acfg.output_depth
+    lstm, fm, f = acfg.cell == "lstm", acfg.feature_maps, acfg.filt_size
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    vh = attention.precompute_vh(dec, h).contiguous()
+    state = (torch.softmax(rnd(b, BEAM_K, l), -1), rnd(b, BEAM_K, st) * 0.3,
+             rnd(b, BEAM_K, st) * 0.3)
+    y = torch.nn.functional.one_hot(
+        torch.randint(0, v, (b, BEAM_K), generator=gen), v).float().to(dev)
+    # The weights the kernel reads; y_in is applied by the wrapper, and
+    # its output yin (K x St a row) is counted in state_floats.
+    read = [dec["ws"]["w"], dec["ws"]["b"], dec["w_e"], dec["c_in"]["w"], dec["c_in"]["b"],
+            dec["dec_in"]["w"], dec["dec_in"]["b"], *dec["cell"].values(),
+            *[t for layer in dec["readout"] for t in layer.values()]]
+    if fm:
+        read += [dec["loc_conv"]["w"], dec["loc_conv"]["b"], dec["u"]]
+    # One hypothesis's weight products as multiply-adds: s -> Ws, c_in,
+    # dec_in, the cell's gates (and the GRU's candidate), the readout.
+    ro_mv = sum(layer["w"].numel() for layer in dec["readout"] if "w" in layer)
+    cell_mv = 2 * st * 4 * st if lstm else 2 * st * 2 * st + 2 * st * st
+    mvs = st * s_dim + a * st + 2 * st * st + cell_mv + ro_mv
+    # Per hypothesis: energies 4 L S, the location term (conv 2 L FM f,
+    # feat . U 2 L S FM), context 2 L A, the products, softmax and cell.
+    per_hyp = 4 * l * s_dim + 2 * l * a + 2 * mvs + 5 * l + 10 * st
+    if fm:
+        per_hyp += 2 * l * fm * f + 2 * l * s_dim * fm
+    state_floats = BEAM_K * (2 * st + (st if lstm else 0) + (l if fm else 0))  # yin, s, mem, alpha
+    out_floats = BEAM_K * (l + a + st + v + (st if lstm else 0))
+    return Case(
+        "fused_attention_step_loc_lstm", ("attention_step_loc_lstm_kernel",),
+        lambda *args: _step_outputs(attention_step.fused_attention_step(*args)),
+        lambda *args: _step_outputs(attention_step.fused_attention_step_plain(*args)),
+        (dec, acfg, state, y, vh, h, valid),
+        flops=b * BEAM_K * per_hyp,
+        nbytes=4 * (b * (l * (s_dim + a + 1) + state_floats + out_floats)
+                    + sum(t.numel() for t in read)),
+        label=f"fused_attention_step_loc_lstm[{variant}]",
+    )
+
+
+def cudnn_bilstm(p, x):
+    """One bidirectional torch.nn.LSTM layer (cuDNN) holding the weights
+    of the BiLSTM `p`, as a call on x (B, L, I). PyTorch's gate order is
+    also (in, forget, cell, out): weight_ih = w_x^T, weight_hh = w_h^T,
+    bias_ih = b, bias_hh = 0. On rows that all run to L its output is
+    bilstm_layer's. A yardstick only: the port never calls cuDNN."""
+    dim_in, hd = p["fwd"]["w_x"].shape[0], p["fwd"]["w_h"].shape[0]
+    lstm = torch.nn.LSTM(dim_in, hd, batch_first=True, bidirectional=True).to(x.device)
+    with torch.no_grad():
+        for sfx, d in (("", "fwd"), ("_reverse", "bwd")):
+            getattr(lstm, f"weight_ih_l0{sfx}").copy_(p[d]["w_x"].T)
+            getattr(lstm, f"weight_hh_l0{sfx}").copy_(p[d]["w_h"].T)
+            getattr(lstm, f"bias_ih_l0{sfx}").copy_(p[d]["b"])
+            getattr(lstm, f"bias_hh_l0{sfx}").zero_()
+    return lambda: lstm(x)[0]
+
+
+def conv_bilstm_cases(cb_params, cb_cfg, noloc_dec, feats, gen):
+    """K7 on the conv stack's output of `feats` (B, 110, 123), padded as
+    the Transcriber pads them (bucket 112 frames, 10 zero frames at both
+    ends), and K8 at a beam step on the BiLSTM's output: the recipe's
+    decoder and the recipe's widths without the location term
+    (`noloc_dec`). Returns (cases, the K7 call with its two input
+    projections)."""
+    from seq2seq_attention_asr_tpu_torch.models import conv_bilstm
+    from seq2seq_attention_asr_tpu_torch.ops import cells, conv
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import lstm_scan
+    from seq2seq_attention_asr_tpu_torch.ops.masking import flip_sequences, length_mask
+
+    b, n, _ = feats.shape
+    x = torch.nn.functional.pad(feats, (0, 0, PAD_FRAMES, -(-n // 16) * 16 - n + PAD_FRAMES))
+    enc = cb_params["encoder"]
+    p = enc["bilstm"]
+    with torch.no_grad():
+        hc = x
+        for name in ("conv1", "conv2", "conv3"):
+            hc = conv.temporal_max_pool(torch.relu(conv.temporal_conv(enc[name], hc)), 2)
+        lens = conv_bilstm.encode_lengths(
+            cb_cfg, torch.full((b,), n + 2 * PAD_FRAMES, device=x.device))
+
+        def projections():
+            return torch.stack([cells.lstm_input_proj(p["fwd"], hc),
+                                cells.lstm_input_proj(p["bwd"], flip_sequences(hc, lens))])
+
+        xproj2 = projections().contiguous()
+        hd = p["fwd"]["w_h"].shape[0]
+        z2 = hc.new_zeros((2, b, hd))
+        wh2 = torch.stack([p["fwd"]["w_h"], p["bwd"]["w_h"]]).contiguous()
+        hs, _ = lstm_scan.bilstm_scan_plain(xproj2, z2, z2, wh2)
+        h_enc = torch.cat([hs[0], flip_sequences(hs[1], lens)], dim=-1).contiguous()
+        cudnn = cudnn_bilstm(p, hc)
+        lib_err = float((cudnn() - h_enc).abs().max())
+    l = hc.shape[1]
+    print(f"K7 input B={b}: conv stack output {tuple(hc.shape)}, lengths {lens.tolist()}; cuDNN's "
+          f"LSTM on it differs from the port's BiLSTM layer by {lib_err:.3e} (max abs)")
+    k7 = Case(
+        "bilstm_scan", ("bilstm_scan_kernel",), lstm_scan.bilstm_scan, lstm_scan.bilstm_scan_plain,
+        (xproj2, z2, z2, wh2),
+        # Per row, step and direction: h @ W_h (8 H^2) and ~30 H elementwise.
+        flops=2 * b * l * (8 * hd * hd + 30 * hd),
+        nbytes=4 * (2 * b * l * 4 * hd + 4 * b * hd + 2 * hd * 4 * hd  # inputs
+                    + 2 * 2 * b * l * hd),  # hidden and cell states
+        library=cudnn,
+    )
+    valid = length_mask(lens, l)
+    acfg = cb_cfg.attention_config()
+    noloc_cfg = dataclasses.replace(acfg, feature_maps=0)
+    with_proj = lambda: lstm_scan.bilstm_scan(projections().contiguous(), z2, z2, wh2)
+    return [k7, step_case("lstm+loc", cb_params["decoder"], acfg, h_enc, valid, gen),
+            step_case("lstm", noloc_dec, noloc_cfg, h_enc, valid, gen)], with_proj
 
 
 def _step_outputs(res):
-    (_, _, _), out = res
-    return out["alpha"], out["c"], out["s"], out["logp"]
+    (_, _, mem), out = res
+    return out["alpha"], out["c"], out["s"], mem, out["logp"]
 
 
 def train_batch(b: int, seed: int):
@@ -523,80 +698,18 @@ def train_timing(params_cpu, b: int, card: str) -> None:
         for key, (n, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1])))
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
+def serve_requests(label, model, weights, requests, pcms, kw, kernels, launches, max_steps):
+    """Phases 4 and 5 for one model: each request (weights name, exact,
+    b) on the card with the launch counts zeroed just before it, then on
+    the CPU; tokens equal, scores within SCORE_TOL, and the counts equal
+    to launches(exact, beam steps of the CPU run) (every other kernel 0).
+    A request on weights other than "random" must finish at least one
+    best hypothesis on eos. Returns the counts of the first request and
+    the beam steps of each eos request."""
     from seq2seq_attention_asr_tpu_torch import interop, serve
-    from seq2seq_attention_asr_tpu_torch.data import features
-    from seq2seq_attention_asr_tpu_torch.models import registry
-    from seq2seq_attention_asr_tpu_torch.ops.cuda import (attention_scan, attention_step, build,
-                                                          gru_scan, logmel)
-    from seq2seq_attention_asr_tpu_torch.train import experiment
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(f"device: {torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} visible")
-
-    kernels = {k.name: k for k in (gru_scan.KERNEL, attention_step.KERNEL, logmel.KERNEL,
-                                   gru_scan.KERNEL_BWD, attention_scan.KERNEL_FWD,
-                                   attention_scan.KERNEL_BWD)}
-    t0 = time.perf_counter()
-    build.build_all(kernels.values())
-    print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(kernels)} kernels")
-    for k in kernels.values():
-        took = "already built" if k.build_seconds is None else f"{k.build_seconds:.1f} s"
-        print(f"build {k.name} ({k.source.name}): {took}")
-        for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("  " + line.strip())
-
-    model = registry.build("chorowski")
-    cfg = model.cfg
-    params = model.init(torch.Generator().manual_seed(SEED), device="cuda")
-    # The training recipe's weights: orthogonal init from the seed, on the CPU.
-    train_params = experiment.timit_chorowski_normnll_colnorm().init_params(
-        torch.Generator().manual_seed(SEED), device="cpu")
-
-    # Phase 3: each kernel against its plain version, at the serving
-    # shapes (K1-K3) and at the training shape (K4-K6).
-    errs = {name: 0.0 for name in kernels}
-    timing = {}
-    gen = torch.Generator().manual_seed(SEED + 1)
-    all_cases = {b: cases(params, cfg, b, gen) for b in (1, 8)}
-    recipe = experiment.timit_chorowski_normnll_colnorm()
-    all_cases["train"] = train_cases(interop.to_torch(train_params, "cuda"),
-                                     recipe.build_model().cfg, train_batch(TRAIN_B, SEED + 3), gen)
-    for b, cs in all_cases.items():
-        for c in cs:
-            with torch.no_grad():
-                got = c.kernel(*c.args)
-                want = c.plain(*c.args)
-            torch.cuda.synchronize()
-            tag = f"B={b}" if b != "train" else f"B={TRAIN_B} L={TRAIN_L} T={TRAIN_T}"
-            errs[c.name] = max(errs[c.name], c.check(got, want, tag))
-
-    # Phases 4 and 5: serve on the card, then the same requests on the CPU.
-    # The "eos" weights raise the readout's bias at eos, so that
-    # hypotheses finish on eos; the seeded random weights alone never
-    # pick eos.
-    pcms = make_pcm(8, SEED + 2)
-    feats = features.logmel_rfft(torch.from_numpy(np.stack(pcms)), SR)
-    mean = feats.mean(dim=(0, 1)).numpy()
-    std = feats.std(dim=(0, 1)).numpy()
-    kw = dict(eos_id=EOS_ID, mean=mean, std=std, beam_k=BEAM_K)
-    weights = {"random": params}
-    for bias in EOS_BIASES:
-        weights[f"eos+{bias}"] = copy.deepcopy(params)
-        weights[f"eos+{bias}"]["decoder"]["readout"][-1]["b"][EOS_ID] += bias
-    # A hypothesis forced to finish at max_steps holds max_steps + 1 tokens.
-    max_steps = features.frames_for_samples(len(pcms[0])) + 2 * PAD_FRAMES
-    main_launches, eos_steps = None, []
-    runs = [(False, 1), (False, 8), (True, 1)]
-    eos_runs = [(f"eos+{bias}", False, 8) for bias in EOS_BIASES]
-    for name, exact, b in [("random", *r) for r in runs] + eos_runs:
+    first, eos_steps = None, []
+    for name, exact, b in requests:
         tr = serve.Transcriber(model, weights[name], exact=exact, pad_frames=PAD_FRAMES, **kw)
         for k in kernels.values():
             k.launches = 0
@@ -604,15 +717,14 @@ def main() -> int:
             out = tr.transcribe(pcms[:b])
         torch.cuda.synchronize()
         counts = {n: k.launches for n, k in kernels.items()}
-        tag = f"serve {name} exact={exact} b={b}"
+        tag = f"serve {label} {name} exact={exact} b={b}"
         print(f"{tag}: launches {counts}, tokens {[len(r.ids) for r in out]}, "
               f"scores {[round(r.score, 3) for r in out]}")
         if not all(np.isfinite(r.score) and r.ids.ndim == 1 and
-                   (r.ids.size == 0 or 0 <= r.ids.min() and r.ids.max() < cfg.output_depth)
+                   (r.ids.size == 0 or 0 <= r.ids.min() and r.ids.max() < model.output_depth)
                    for r in out):
             raise SystemExit(f"{tag}: malformed transcription")
-        if (name, exact, b) == ("random", False, 1):
-            main_launches = counts
+        first = first or counts
         ref = serve.Transcriber(model, interop.to_torch(weights[name], "cpu"), exact=exact,
                                 pad_frames=PAD_FRAMES, device="cpu", **kw)
         ref_out, steps = cpu_transcribe(ref, pcms[:b])
@@ -623,8 +735,7 @@ def main() -> int:
         if not same or not dscore <= SCORE_TOL:
             raise SystemExit(f"{tag}: the card disagrees with the CPU run")
         want = dict.fromkeys(kernels, 0)
-        want.update({"bigru_scan2": 3, "fused_attention_step": steps,
-                     "stft_logmel_power": 0 if exact else 1})
+        want.update(launches(exact, steps))
         if counts != want:
             raise SystemExit(f"{tag}: launch counts {counts}, expected {want}")
         if name != "random":
@@ -634,41 +745,37 @@ def main() -> int:
             if not on_eos:
                 raise SystemExit(f"{tag}: no hypothesis finished on eos")
             eos_steps.append(steps)
-    if min(eos_steps) > max_steps:
-        raise SystemExit("serve eos: the beam never left its loop before max_steps")
+    return first, eos_steps
 
-    # Phase 6: train on the card, against the CPU.
-    train_launches = train_phase(kernels, train_params, card)
 
-    # Phase 7: times at the shapes of each kernel's path, kernel and plain in turns.
-    iters = {"bigru_scan2": 20, "fused_attention_step": 200, "stft_logmel_power": 200,
-             "bigru_scan2_bwd": 10, "attention_decode_scan_fwd": 10,
-             "attention_decode_scan_bwd": 10}
-    for b, cs in all_cases.items():
-        for c in cs:
-            n = iters[c.name]
-            with torch.no_grad():
-                call_ms = time_ms(lambda: c.kernel(*c.args), n)
-                plain_ms = time_ms(lambda: c.plain(*c.args), max(3, n // 10))
-                ms = device_ms(lambda: c.kernel(*c.args), c.symbols, n)
-            b_ms, b_by = bound(c.flops, c.nbytes)
-            timing[(c.name, b)] = (ms, plain_ms, b_ms, b_by)
-            tag = f"B={b}" if b != "train" else f"B={TRAIN_B} L={TRAIN_L} T={TRAIN_T}"
-            print(f"time {c.name} {tag}: kernel {ms:.4f} ms on the device ({call_ms:.4f} ms "
-                  f"per wrapper call), plain {plain_ms:.4f} ms per call, bound {b_ms:.4f} ms "
-                  f"({b_by}: {c.flops:.3e} flop, {c.nbytes:.3e} B), library null ({card})")
-    for name, why in NO_LIBRARY.items():
-        print(f"library null for {name}: {why}")
-    print("the recurrences' bounds ignore the dependency chain of their steps; every time is "
-          "warm (back-to-back launches, weights resident in L2, as in the beam loop and the "
-          "train step); kernel times are device times from the profiler, per-call times are "
-          "CUDA events over back-to-back calls and include the host's work between launches")
+def with_eos_bias(params, bias):
+    """A copy of `params` whose readout favours eos by `bias`."""
+    out = copy.deepcopy(params)
+    out["decoder"]["readout"][-1]["b"][EOS_ID] += bias
+    return out
 
-    # Phase 8: request latency and train-step time, each with the
-    # device's idle share: the device time of one request or step,
-    # traced with a device-only profiler, over the unprofiled p50.
+
+def pick_eos_bias(model, params_cpu, pcms, kw, max_steps):
+    """The first of CB_EOS_BIASES with which a batch-8 exact=False
+    request on the CPU finishes at least one best hypothesis on eos."""
+    from seq2seq_attention_asr_tpu_torch import serve
+
+    for bias in CB_EOS_BIASES:
+        tr = serve.Transcriber(model, with_eos_bias(params_cpu, bias), exact=False,
+                               pad_frames=PAD_FRAMES, device="cpu", **kw)
+        out, _ = cpu_transcribe(tr, pcms[:8])
+        if any(len(r.ids) < max_steps for r in out):
+            return bias
+    raise SystemExit(f"serve conv_bilstm: no eos bias in {CB_EOS_BIASES} ends a hypothesis on eos")
+
+
+def serve_timing(label, model, params, pcms, kw, runs, card):
+    """Phase 8 for serving: p50 of 10 requests after one warm-up and the
+    device idle share, 1 - (device time of one profiled request) / p50."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from seq2seq_attention_asr_tpu_torch import serve
 
     for exact, b in runs:
         tr = serve.Transcriber(model, params, exact=exact, pad_frames=PAD_FRAMES, **kw)
@@ -687,22 +794,198 @@ def main() -> int:
         dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
         idle = f"{1 - busy / p50:.4f}" if dev_events else "not measured"
-        print(f"serve exact={exact} b={b}: p50 {p50:.2f} ms (min {min(lat):.2f}, max "
+        print(f"serve {label} exact={exact} b={b}: p50 {p50:.2f} ms (min {min(lat):.2f}, max "
               f"{max(lat):.2f}) over 10 sequential requests of {PCM_SECONDS} s PCM; device "
               f"busy {busy:.2f} ms in {len(dev_events)} device ops of one profiled request "
               f"({wall:.2f} ms wall under the profiler), idle share 1 - busy/p50 = {idle} "
               f"({card})")
+
+
+# The instance of each kernel whose numbers stand in the {"kernels"} line:
+# the one on its main path, at batch 1 (serving) or the training shape.
+MAIN_LABEL = {"fused_attention_step_loc_lstm": "fused_attention_step_loc_lstm[lstm+loc]"}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.data import features
+    from seq2seq_attention_asr_tpu_torch.models import conv_bilstm, registry
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import (attention_scan, attention_step, build,
+                                                          gru_scan, logmel, lstm_scan)
+    from seq2seq_attention_asr_tpu_torch.train import experiment
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"device: {torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} visible")
+
+    kernels = {k.name: k for k in (gru_scan.KERNEL, attention_step.KERNEL, logmel.KERNEL,
+                                   gru_scan.KERNEL_BWD, attention_scan.KERNEL_FWD,
+                                   attention_scan.KERNEL_BWD, lstm_scan.KERNEL,
+                                   attention_step.KERNEL_LOC_LSTM)}
+    t0 = time.perf_counter()
+    build.build_all(kernels.values())
+    print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(kernels)} kernels")
+    for k in kernels.values():
+        took = "already built" if k.build_seconds is None else f"{k.build_seconds:.1f} s"
+        print(f"build {k.name} ({k.source.name}): {took}")
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  " + line.strip())
+
+    model = registry.build("chorowski")
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(SEED), device="cuda")
+    # The training recipe's weights: orthogonal init from the seed, on the CPU.
+    train_params = experiment.timit_chorowski_normnll_colnorm().init_params(
+        torch.Generator().manual_seed(SEED), device="cpu")
+    # The conv+BiLSTM recipe's weights (orthogonal init, LSTM branch
+    # included), and the decoders of K8's other two instances.
+    cb_recipe = experiment.timit_conv_bilstm()
+    cb_model = cb_recipe.build_model()
+    cb_params_cpu = cb_recipe.init_params(torch.Generator().manual_seed(SEED), device="cpu")
+    cb_params = interop.to_torch(cb_params_cpu, "cuda")
+    loc_dec = registry.build("chorowski", feature_maps=16, filt_size=10).init(
+        torch.Generator().manual_seed(SEED))["decoder"]
+    noloc_dec = registry.build("conv_bilstm", feature_maps=0).init(
+        torch.Generator().manual_seed(SEED))["decoder"]
+
+    pcms = make_pcm(8, SEED + 2)
+    feats = features.logmel_rfft(torch.from_numpy(np.stack(pcms)), SR)
+    mean = feats.mean(dim=(0, 1)).numpy()
+    std = feats.std(dim=(0, 1)).numpy()
+    norm_feats = ((feats - torch.from_numpy(mean)) / torch.from_numpy(std)).cuda()
+
+    # Phase 3: each kernel against its plain version, at the serving
+    # shapes (K1-K3, K7, K8) and at the training shape (K4-K6).
+    errs = {name: 0.0 for name in kernels}
+    timing, with_proj = {}, {}
+    gen = torch.Generator().manual_seed(SEED + 1)
+    all_cases = {}
+    for b in (1, 8):
+        cb_cases, with_proj[b] = conv_bilstm_cases(cb_params, cb_model.cfg, noloc_dec,
+                                                   norm_feats[:b], gen)
+        all_cases[b] = cases(params, cfg, loc_dec, b, gen) + cb_cases
+    recipe = experiment.timit_chorowski_normnll_colnorm()
+    all_cases["train"] = train_cases(interop.to_torch(train_params, "cuda"),
+                                     recipe.build_model().cfg, train_batch(TRAIN_B, SEED + 3), gen)
+    for b, cs in all_cases.items():
+        for c in cs:
+            with torch.no_grad():
+                got = c.kernel(*c.args)
+                want = c.plain(*c.args)
+            torch.cuda.synchronize()
+            tag = f"B={b}" if b != "train" else f"B={TRAIN_B} L={TRAIN_L} T={TRAIN_T}"
+            errs[c.name] = max(errs[c.name], c.check(got, want, tag))
+
+    # Phases 4 and 5: serve on the card, then the same requests on the CPU.
+    # The "eos" weights raise the readout's bias at eos, so that
+    # hypotheses finish on eos; the seeded random weights alone never
+    # pick eos.
+    kw = dict(eos_id=EOS_ID, mean=mean, std=std, beam_k=BEAM_K)
+    weights = {"random": params}
+    for bias in EOS_BIASES:
+        weights[f"eos+{bias}"] = with_eos_bias(params, bias)
+    # A hypothesis forced to finish at max_steps holds max_steps + 1 tokens.
+    max_steps = features.frames_for_samples(len(pcms[0])) + 2 * PAD_FRAMES
+    runs = [(False, 1), (False, 8), (True, 1)]
+    main_launches, eos_steps = serve_requests(
+        "chorowski", model, weights,
+        [("random", *r) for r in runs] + [(f"eos+{bias}", False, 8) for bias in EOS_BIASES],
+        pcms, kw, kernels,
+        lambda exact, steps: {"bigru_scan2": 3, "fused_attention_step": steps,
+                              "stft_logmel_power": 0 if exact else 1},
+        max_steps)
+    if min(eos_steps) > max_steps:
+        raise SystemExit("serve eos: the beam never left its loop before max_steps")
+    # The conv+BiLSTM recipe: the beam runs for the encoder's lengths.
+    cb_steps = int(conv_bilstm.encode_lengths(cb_model.cfg, torch.tensor(CB_PAD_LEN)))
+    bias = pick_eos_bias(cb_model, cb_params_cpu, pcms, kw, cb_steps)
+    print(f"serve conv_bilstm: eos bias {bias} (the first of {CB_EOS_BIASES} that ends a "
+          f"hypothesis on eos on the CPU), beam steps capped at {cb_steps}")
+    cb_weights = {"random": cb_params, f"eos+{bias}": with_eos_bias(cb_params, bias)}
+    cb_launches, _ = serve_requests(
+        "conv_bilstm", cb_model, cb_weights,
+        [("random", *r) for r in runs] + [(f"eos+{bias}", False, 8)], pcms, kw, kernels,
+        lambda exact, steps: {"bilstm_scan": 1, "fused_attention_step_loc_lstm": steps,
+                              "stft_logmel_power": 0 if exact else 1},
+        cb_steps)
+
+    # Phase 6: train on the card, against the CPU.
+    train_launches = train_phase(kernels, train_params, card)
+
+    # Phase 7: times at the shapes of each kernel's path, kernel and plain in turns.
+    iters = {"bigru_scan2": 20, "fused_attention_step": 200, "stft_logmel_power": 200,
+             "bigru_scan2_bwd": 10, "attention_decode_scan_fwd": 10,
+             "attention_decode_scan_bwd": 10, "bilstm_scan": 200,
+             "fused_attention_step_loc_lstm": 100}
+    library = {}
+    for b, cs in all_cases.items():
+        for c in cs:
+            n = iters[c.name]
+            with torch.no_grad():
+                call_ms = time_ms(lambda: c.kernel(*c.args), n)
+                plain_ms = time_ms(lambda: c.plain(*c.args), max(3, n // 10))
+                ms = device_ms(lambda: c.kernel(*c.args), c.symbols, n)
+                # The library call as the kernel is timed: the device time
+                # of every device op it starts.
+                lib_ms = device_ms(c.library, None, n) if c.library else None
+            b_ms, b_by = bound(c.flops, c.nbytes)
+            timing[(c.label, b)] = (ms, plain_ms, b_ms, b_by)
+            tag = f"B={b}" if b != "train" else f"B={TRAIN_B} L={TRAIN_L} T={TRAIN_T}"
+            lib = "null" if lib_ms is None else f"{lib_ms:.4f} ms on the device"
+            print(f"time {c.label} {tag}: kernel {ms:.4f} ms on the device ({call_ms:.4f} ms "
+                  f"per wrapper call), plain {plain_ms:.4f} ms per call, bound {b_ms:.4f} ms "
+                  f"({b_by}: {c.flops:.3e} flop, {c.nbytes:.3e} B), library {lib} ({card})")
+            if lib_ms is not None:
+                library[(c.name, b)] = lib_ms
+                with torch.no_grad():
+                    proj_dev = device_ms(with_proj[b], None, n)
+                    proj_call = time_ms(with_proj[b], n)
+                    lib_call = time_ms(c.library, n)
+                print(f"time bilstm_scan {tag} with its two input projections, the flip and "
+                      f"the stack (the work of cuDNN's call): {proj_dev:.4f} ms on the device, "
+                      f"{proj_call:.4f} ms per call; cuDNN bidirectional LSTM (TF32 off) "
+                      f"{lib_ms:.4f} ms on the device, {lib_call:.4f} ms per call; K7 alone "
+                      f"{call_ms:.4f} ms per wrapper call ({card})")
+    for b in (1, 8):
+        k2_ms, k8_ms = timing[("fused_attention_step", b)][0], \
+            timing[("fused_attention_step_loc_lstm[gru]", b)][0]
+        print(f"time K2 and K8's content-only GRU instance on K2's inputs B={b}: K2 {k2_ms:.4f} "
+              f"ms, K8 {k8_ms:.4f} ms on the device, K8 / K2 = {k8_ms / k2_ms:.3f} ({card})")
+    for name, why in NO_LIBRARY.items():
+        print(f"library null for {name}: {why}")
+    print("the recurrences' bounds ignore the dependency chain of their steps; every time is "
+          "warm (back-to-back launches, weights resident in L2, as in the beam loop and the "
+          "train step); kernel times are device times from the profiler, per-call times are "
+          "CUDA events over back-to-back calls and include the host's work between launches")
+
+    # Phase 8: request latency and train-step time, each with the
+    # device's idle share: the device time of one request or step,
+    # traced with a device-only profiler, over the unprofiled p50.
+    serve_timing("chorowski", model, params, pcms, kw, runs, card)
+    serve_timing("conv_bilstm", cb_model, cb_params, pcms, kw, [(False, 1), (False, 8)], card)
     for b in (TRAIN_B, BIG_B):
         train_timing(train_params, b, card)
 
     report = []
     for name in kernels:
-        ms, plain_ms, b_ms, b_by = timing.get((name, 1)) or timing[(name, "train")]
-        launches = (main_launches if (name, 1) in timing else train_launches)[name]
+        label = MAIN_LABEL.get(name, name)
+        ms, plain_ms, b_ms, b_by = timing.get((label, 1)) or timing[(label, "train")]
+        if (label, 1) not in timing:
+            launches = train_launches[name]
+        else:
+            launches = (cb_launches if name in ("bilstm_scan", "fused_attention_step_loc_lstm")
+                        else main_launches)[name]
         report.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches, "max_abs_err": errs[name], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library.get((name, 1)),
         })
     print(json.dumps({"kernels": report}))
     print(card)

@@ -1,7 +1,9 @@
-// One content-attention GRU decoder step for K rows of one batch row
-// (the math of attention_scan.py _step_core :91), in pieces shared by
-// the beam step (attention_step.cu, K hypotheses) and the teacher-forced
-// scan (attention_scan.cu, K = 1, forward and the backward's recompute):
+// One attention decoder step for K rows of one batch row (the math of
+// attention_scan.py _step_core :91), in pieces shared by
+// the beam steps (attention_step.cu, K hypotheses) and the teacher-forced
+// scan (attention_scan.cu, K = 1, forward and the backward's recompute),
+// with the location term (attend_loc) and the LSTM cell (lstm_cell) of
+// the location-aware / LSTM beam step:
 //
 //   attend        ws = s_prev @ Ws + b; e = w_e . tanh(vh + ws); alpha =
 //                 masked softmax of e (NEG_INF on padding, times the mask)
@@ -42,6 +44,31 @@ struct StepBufs {
   float* scratch;  // [kThreads * 4 * K]
 };
 
+// Masked softmax of the energies in bufs.al, in place, a warp per row
+// (attention_scan.py:118-121). Ends with a barrier.
+__device__ __forceinline__ void softmax_rows(const StepBufs& m, int K, int L) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp < K) {
+    float* e = m.al + warp * L;
+    float mx = kNegInf;
+    for (int l = lane; l < L; l += 32) {
+      const float v = m.msk[l] > 0.f ? e[l] : kNegInf;
+      e[l] = v;
+      mx = fmaxf(mx, v);
+    }
+    mx = warp_max(mx);
+    float z = 0.f;
+    for (int l = lane; l < L; l += 32) {
+      const float p = m.msk[l] > 0.f ? expf(e[l] - mx) : 0.f;
+      e[l] = p;
+      z += p;
+    }
+    z = fmaxf(warp_sum(z), 1e-30f);  // ops/masking.py: a row with no valid position gets 0
+    for (int l = lane; l < L; l += 32) e[l] = e[l] / z;
+  }
+  __syncthreads();
+}
+
 // alpha into bufs.al from bufs.sp. The caller has loaded sp, we and msk
 // and passed a barrier; ends with a barrier.
 __device__ void attend(const StepWeights& w, const StepBufs& m, const float* vhb, int K, int L,
@@ -71,27 +98,7 @@ __device__ void attend(const StepWeights& w, const StepBufs& m, const float* vhb
     }
   }
   __syncthreads();
-
-  // Masked softmax, a warp per row (attention_scan.py:118-121).
-  if (warp < K) {
-    float* e = m.al + warp * L;
-    float mx = kNegInf;
-    for (int l = lane; l < L; l += 32) {
-      const float v = m.msk[l] > 0.f ? e[l] : kNegInf;
-      e[l] = v;
-      mx = fmaxf(mx, v);
-    }
-    mx = warp_max(mx);
-    float z = 0.f;
-    for (int l = lane; l < L; l += 32) {
-      const float p = m.msk[l] > 0.f ? expf(e[l] - mx) : 0.f;
-      e[l] = p;
-      z += p;
-    }
-    z = fmaxf(warp_sum(z), 1e-30f);  // ops/masking.py: a row with no valid position gets 0
-    for (int l = lane; l < L; l += 32) e[l] = e[l] / z;
-  }
-  __syncthreads();
+  softmax_rows(m, K, L);
 }
 
 // c[k] = alpha[k]^T h into bufs.xo[k][St:], h read once for all K rows.
@@ -135,6 +142,98 @@ __device__ void decoder_cell(const StepWeights& w, const StepBufs& m, int K, int
     const int k = i / St, j = i % St;
     const float zg = m.zr[k * St2 + j];
     m.xo[k * XO + j] = (1.f - zg) * m.sp[i] + zg * m.cand[i];
+  }
+  __syncthreads();
+}
+
+// The location term of location-aware attention (attention_scan.py
+// _location_term :62): feat = conv1d(alpha_prev) + b over FM feature
+// maps, then UF = feat @ U into score space.
+struct LocBufs {
+  const float* ap;  // [K][L + F - 1]  alpha_prev, zero-padded as the reference pads
+  const float* u;   // [FM][S]
+  const float* cw;  // [F][FM]         conv taps
+  const float* cb;  // [FM]            conv bias
+  float* feat;      // [kWarps][K][FM] one position's features, per warp
+  int F, FM;
+};
+
+// attend with the location term: e = w_e . tanh(vh + ws + UF). UF is
+// never stored as (L, S): each warp forms the K x FM features of its
+// position l and adds feat[k] . U[:, s] inside the energy loop. Same
+// contract as attend; the caller has also loaded ap, u, cw and cb.
+__device__ void attend_loc(const StepWeights& w, const StepBufs& m, const LocBufs& loc,
+                           const float* vhb, int K, int L, int S, int St) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int LP = L + loc.F - 1, FM = loc.FM;
+  matvec<kNone>(w.ws_w, w.ws_b, St, S, m.sp, St, m.ws, S, K, m.scratch);
+
+  float* feat = loc.feat + warp * K * FM;
+  for (int l = warp; l < L; l += kWarps) {
+    for (int i = lane; i < K * FM; i += 32) {
+      const int k = i / FM, q = i % FM;
+      const float* a = loc.ap + k * LP + l;
+      float f = 0.f;
+      for (int j = 0; j < loc.F; ++j) f = fmaf(a[j], loc.cw[j * FM + q], f);
+      feat[i] = f + loc.cb[q];
+    }
+    __syncwarp();
+    float acc[kMaxK];
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) acc[k] = 0.f;
+    const float* vr = vhb + (size_t)l * S;
+    for (int s = lane; s < S; s += 32) {
+      float uf[kMaxK];
+#pragma unroll
+      for (int k = 0; k < kMaxK; ++k) uf[k] = 0.f;
+      for (int q = 0; q < FM; ++q) {
+        const float uv = loc.u[q * S + s];
+#pragma unroll
+        for (int k = 0; k < kMaxK; ++k)
+          if (k < K) uf[k] = fmaf(feat[k * FM + q], uv, uf[k]);
+      }
+      const float v = vr[s], wv = m.we[s];
+#pragma unroll
+      for (int k = 0; k < kMaxK; ++k)
+        if (k < K) acc[k] = fmaf(fast_tanh(v + m.ws[k * S + s] + uf[k]), wv, acc[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) {
+      if (k < K) {
+        const float e = warp_sum(acc[k]);
+        if (lane == 0) m.al[k * L + l] = e;
+      }
+    }
+    __syncwarp();  // feat is rewritten for the warp's next position
+  }
+  __syncthreads();
+  softmax_rows(m, K, L);
+}
+
+// The decoder input and the LSTM cell without peepholes (attention_scan.py
+// _step_core :131-141): r as in decoder_cell, then gates = s_prev @ w_h +
+// r @ w_x + b (concat(s_prev, r) @ concat(w_h, w_x) + b in two products),
+// gate order (in, forget, cell, out); mem (the cell state, [K][St]) is
+// updated in place and s_new goes to xo[:, :St]. gates ([K][4St]) may
+// alias bufs.rin. s_prev is read from sr[:, :St]. Ends with a barrier.
+__device__ void lstm_cell(const StepWeights& w, const StepBufs& m, const float* w_h,
+                          const float* w_x, const float* gb, float* gates, float* mem, int K,
+                          int A, int St) {
+  const int St2 = 2 * St, St4 = 4 * St, XO = St + A;
+  matvec<kNone>(w.c_w, w.c_b, A, St, m.xo + St, XO, m.rin, St2, K, m.scratch);
+  matvec<kNone>(w.dec_w, w.dec_b, St2, St, m.rin, St2, m.sr + St, St2, K, m.scratch);
+  matvec<kNone>(w_h, gb, St, St4, m.sr, St2, gates, St4, K, m.scratch);
+  matvec<kNone, true>(w_x, nullptr, St, St4, m.sr + St, St2, gates, St4, K, m.scratch);
+  for (int i = threadIdx.x; i < K * St; i += kThreads) {
+    const int k = i / St, j = i % St;
+    const float* g = gates + k * St4;
+    const float ig = activate<kSigmoid>(g[j]);
+    const float fg = activate<kSigmoid>(g[St + j]);
+    const float gg = tanhf(g[2 * St + j]);
+    const float og = activate<kSigmoid>(g[3 * St + j]);
+    const float c = fg * mem[i] + ig * gg;
+    mem[i] = c;
+    m.xo[k * XO + j] = og * tanhf(c);
   }
   __syncthreads();
 }

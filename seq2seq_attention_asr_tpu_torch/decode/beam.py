@@ -15,12 +15,15 @@ Parent-pointer formulation of the reference search
   - max_steps counts the steps after the first, so a force-finished
     hypothesis holds max_steps + 1 tokens.
 
-Each step is one fused decoder-step launch (kernel K2) plus a few small
-tensor ops; ``torch.topk`` runs on the device, the history keeps one
-packed (token, parent) row per step, and the tokens are recovered once
-at the end by walking the parent pointers on the device. The loop ends
-when every sample's pool is full or the longest max_steps is reached,
-which costs one host read per step.
+Each step is one fused decoder-step launch (kernel K2, or K8 for the
+location-aware and LSTM decoders) plus a few small tensor ops; the top
+K (a stable descending sort, so that equal scores rank by flat index as
+in ``lax.top_k``) runs on the device, the state (alpha, s, mem) follows
+each pick's parent, the history keeps one packed (token, parent) row
+per step, and the tokens are recovered once at the end by walking the
+parent pointers on the device. The loop ends when every sample's pool
+is full or the longest max_steps is reached, which costs one host read
+per step.
 """
 
 from __future__ import annotations
@@ -102,7 +105,10 @@ def beam_search(params, cfg: attention.AttentionConfig, h: torch.Tensor, enc_len
         live = slots < live_count[:, None]
         exp_scores = torch.where(live[:, :, None], scores[:, :, None] + logp,
                                  torch.full_like(logp, NEG_INF))
-        val, idx = torch.topk(exp_scores.reshape(b, k * v), k, dim=1)
+        # Top K with the lower flat index first among equal scores, as
+        # lax.top_k orders them; torch.topk promises no order for ties.
+        val, idx = torch.sort(exp_scores.reshape(b, k * v), dim=1, descending=True, stable=True)
+        val, idx = val[:, :k], idx[:, :k]
         parent = idx // v
         token = idx % v
 

@@ -31,8 +31,9 @@ class ChorowskiConfig:
     mlp_depth: int = 64
     output_depth: int = 62
     dropout: float = 0.0  # a readout layer: the identity in eval mode, refused in train mode
-    # Attention options, with the JAX package's names; the port refuses
-    # feature_maps > 0 and, in training, mono_align with penalty_lambda > 0.
+    # Attention options, with the JAX package's names. Serving takes
+    # feature_maps > 0; training refuses it and mono_align with
+    # penalty_lambda > 0.
     feature_maps: int = 0
     filt_size: int = 10
     mono_align: bool = True

@@ -1,5 +1,5 @@
 """Model facade (seq2seq_attention_asr_tpu/models/registry.py), for the
-one family ported so far:
+families ported so far:
 
   init(generator, device) -> params
   forward(params, x, x_len, labels_onehot, dec_mask, *, train)
@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
-from . import chorowski
+from . import chorowski, conv_bilstm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,15 +31,28 @@ class Model:
 
 
 def build(name: str, **overrides) -> Model:
-    """name: chorowski. Overrides are ChorowskiConfig fields."""
-    if name != "chorowski":
-        raise ValueError(f"unknown or not yet ported model {name!r}")
-    cfg = chorowski.ChorowskiConfig(**overrides)
-    return Model(
-        name=name,
-        cfg=cfg,
-        init=lambda generator, device="cuda": chorowski.init(cfg, generator, device),
-        forward=lambda p, x, xl, oh, dm, **kw: chorowski.forward(p, cfg, x, xl, oh, dm, **kw),
-        encode=lambda p, x, xl: (chorowski.encode(p, cfg, x, xl), xl),
-        attention_cfg=cfg.attention_config(),
-    )
+    """name: chorowski | conv_bilstm. Overrides are fields of the
+    family's config dataclass. conv_bilstm serves only: its forward
+    (training) raises NotImplementedError."""
+    if name == "chorowski":
+        cfg = chorowski.ChorowskiConfig(**overrides)
+        return Model(
+            name=name,
+            cfg=cfg,
+            init=lambda generator, device="cuda": chorowski.init(cfg, generator, device),
+            forward=lambda p, x, xl, oh, dm, **kw: chorowski.forward(p, cfg, x, xl, oh, dm, **kw),
+            encode=lambda p, x, xl: (chorowski.encode(p, cfg, x, xl), xl),
+            attention_cfg=cfg.attention_config(),
+        )
+    if name == "conv_bilstm":
+        cfg = conv_bilstm.ConvBiLSTMConfig(**overrides)
+        return Model(
+            name=name,
+            cfg=cfg,
+            init=lambda generator, device="cuda": conv_bilstm.init(cfg, generator, device),
+            forward=lambda p, x, xl, oh, dm, **kw: conv_bilstm.forward(p, cfg, x, xl, oh, dm,
+                                                                       **kw),
+            encode=lambda p, x, xl: conv_bilstm.encode(p, cfg, x, xl),
+            attention_cfg=cfg.attention_config(),
+        )
+    raise ValueError(f"unknown or not yet ported model {name!r}")

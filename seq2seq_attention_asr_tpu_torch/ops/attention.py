@@ -1,18 +1,20 @@
-"""Content-based attention decoder (seq2seq_attention_asr_tpu/ops/attention.py).
+"""Attention decoder (seq2seq_attention_asr_tpu/ops/attention.py).
 
-The port has the flagship decoder: content-only attention
-(``feature_maps == 0``) with a GRU cell whose mem passes through
-untouched (model_chorowski_baseline.lua:48-51), for beam search one
-step at a time and for training as a teacher-forced scan
-(``decode_teacher_forced``, kernels K4 and K5). One step:
+One step, for beam search (the fused step, kernels K2 and K8) and as
+the plain model of the kernels:
 
-  e     = w_e . tanh(Vh + s_prev @ Ws + b_s)        (Attention.lua:103-113)
+  e     = w_e . tanh(Vh + s_prev @ Ws + b_s [+ UF])  (Attention.lua:103-113)
+  UF    = conv(alpha_prev) @ U, location-aware attention only
+          (feature_maps > 0, Attention.lua:73-99)
   alpha = masked softmax of e over encoder positions
   c     = alpha^T h                                 (Attention.lua:129-136)
   r     = Linear(2S->S)(concat(Linear(c), Linear(y_prev)))
-  s     = GRU(r, s_prev)
+  s     = GRU(r, s_prev), mem passing through (model_chorowski_baseline.lua:
+          48-51), or (s, mem) = LSTM(r, (s_prev, mem_prev)) (timit.lua:137)
 
-and the readout decoder_mlp(concat(s, c)) -> log-probs.
+and the readout decoder_mlp(concat(s, c)) -> log-probs. Training runs
+the teacher-forced scan (``decode_teacher_forced``, kernels K4 and K5),
+which the port has for the content-only GRU decoder only.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import cells, readout
 from .cells import torch_linear_init
@@ -33,9 +36,10 @@ Params = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class AttentionConfig:
     """The decoder's widths, readout and attention options, with the JAX
-    package's names. Location-aware attention (feature_maps > 0), the
-    LSTM cell and the monotonic penalty in training (mono_align and
-    penalty_lambda > 0) are not ported yet and are refused."""
+    package's names. LSTM peepholes are not ported and are refused;
+    training (the teacher-forced scan) also refuses location-aware
+    attention (feature_maps > 0), the LSTM cell and the monotonic penalty
+    (mono_align and penalty_lambda > 0)."""
 
     score_depth: int
     state_depth: int
@@ -45,17 +49,32 @@ class AttentionConfig:
     feature_maps: int = 0
     filt_size: int = 10
     cell: str = "gru"
+    peepholes: bool = False
     mono_align: bool = True
     penalty_lambda: float = 0.0
 
 
-def check_ported(cfg: AttentionConfig, train: bool = False) -> None:
-    """Raise NotImplementedError for what the port cannot compute yet.
-    The monotonic penalty acts on training only."""
+def check_ported(cfg: AttentionConfig) -> None:
+    """Raise for a decoder the port cannot step: LSTM peepholes, or a
+    cell other than gru and lstm."""
+    if cfg.cell not in ("gru", "lstm"):
+        raise ValueError(f"unknown decoder cell {cfg.cell!r}")
+    if cfg.cell == "lstm" and cfg.peepholes:
+        raise NotImplementedError("LSTM peepholes are not ported")
+
+
+def check_scan_ported(cfg: AttentionConfig, train: bool = False) -> None:
+    """Raise NotImplementedError for what the teacher-forced scan cannot
+    compute yet, in train and eval mode alike: its kernels (K4, K5) are
+    the content-only GRU decoder's, and would silently drop a location
+    term or an LSTM cell. The monotonic penalty acts on training only."""
+    check_ported(cfg)
     if cfg.feature_maps > 0:
-        raise NotImplementedError("location-aware attention (feature_maps > 0) is not ported yet")
+        raise NotImplementedError("the teacher-forced scan with location-aware attention "
+                                  "(feature_maps > 0) is not ported yet")
     if cfg.cell != "gru":
-        raise NotImplementedError(f"decoder cell {cfg.cell!r} is not ported yet; only 'gru' is")
+        raise NotImplementedError(f"the teacher-forced scan with decoder cell {cfg.cell!r} is "
+                                  "not ported yet; only 'gru' is")
     if train and cfg.mono_align and cfg.penalty_lambda > 0.0:
         raise NotImplementedError("the monotonic alignment penalty (penalty_lambda > 0) is not "
                                   "ported yet")
@@ -64,19 +83,30 @@ def check_ported(cfg: AttentionConfig, train: bool = False) -> None:
 def attention_init(generator: torch.Generator, cfg: AttentionConfig) -> Params:
     check_ported(cfg)
     a, s, st = cfg.annotation_depth, cfg.score_depth, cfg.state_depth
-    return {
+    p = {
         "v": torch_linear_init(generator, a, (a, s)),
         "ws": {
             "w": torch_linear_init(generator, st, (st, s)),
             "b": torch_linear_init(generator, st, (s,)),
         },
+    }
+    if cfg.feature_maps > 0:
+        f, fm = cfg.filt_size, cfg.feature_maps
+        # F: TemporalConvolution(1, featMaps, filtSize) with bias; U:
+        # zero-bias 1x1 convolution featMaps -> scoreDepth.
+        p["loc_conv"] = {"w": torch_linear_init(generator, f, (f, 1, fm)),
+                         "b": torch_linear_init(generator, f, (fm,))}
+        p["u"] = torch_linear_init(generator, fm, (fm, s))
+    p.update({
         "w_e": torch_linear_init(generator, s, (s,)),
         "c_in": readout.linear_init(generator, a, st),
         "y_in": readout.linear_init(generator, cfg.output_depth, st),
         "dec_in": readout.linear_init(generator, 2 * st, st),
-        "cell": cells.gru_init(generator, st, st),
+        "cell": (cells.gru_init(generator, st, st) if cfg.cell == "gru"
+                 else cells.lstm_init(generator, st, st, cfg.peepholes)),
         "readout": readout.stack_init(generator, st + a, cfg.readout),
-    }
+    })
+    return p
 
 
 def precompute_vh(params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -93,18 +123,49 @@ def init_state(cfg: AttentionConfig, batch: int, enc_len: int, device=None, dtyp
     )
 
 
-def attention_weights(params: Params, s_prev, vh, enc_mask) -> torch.Tensor:
-    """alpha (B, L) for one step of content-only attention."""
+def conv_pads(filt_size: int) -> Tuple[int, int]:
+    """The location convolution's (left, right) zero padding
+    (Attention.lua:77-85): an odd filter pads (f-1)/2 on both sides, an
+    even one f/2 on the left and f/2-1 on the right, so that L positions
+    come out."""
+    if filt_size % 2 == 1:
+        return (filt_size - 1) // 2, (filt_size - 1) // 2
+    return filt_size // 2, filt_size // 2 - 1
+
+
+def location_features(params: Params, cfg: AttentionConfig, alpha_prev: torch.Tensor) -> torch.Tensor:
+    """UF = (conv1d(alpha_prev) + b) @ U: (B, L) -> (B, L, score_depth)."""
+    w = params["loc_conv"]["w"][:, 0, :]  # (f, FM)
+    l = alpha_prev.shape[1]
+    ap = F.pad(alpha_prev, conv_pads(cfg.filt_size))
+    feat = sum(ap[:, j : j + l, None] * w[j] for j in range(w.shape[0]))
+    return (feat + params["loc_conv"]["b"]) @ params["u"]
+
+
+def attention_weights(params: Params, cfg: AttentionConfig, s_prev, alpha_prev, vh,
+                      enc_mask) -> torch.Tensor:
+    """alpha (B, L) for one step, with the location term when feature_maps > 0."""
     ws = s_prev @ params["ws"]["w"] + params["ws"]["b"]
-    e = torch.tanh(vh + ws[:, None, :]) @ params["w_e"]
-    return masked_softmax(e, enc_mask)
+    z = vh + ws[:, None, :]
+    if cfg.feature_maps > 0:
+        z = z + location_features(params, cfg, alpha_prev)
+    return masked_softmax(torch.tanh(z) @ params["w_e"], enc_mask)
 
 
-def attention_step(params: Params, state, y_prev, vh, h, enc_mask):
+def _cell_step(params: Params, cfg: AttentionConfig, r, s, mem):
+    """decoder_recurrent: (s_new, mem_new). The GRU passes mem through;
+    the LSTM's (s, mem) is its (h, c)."""
+    if cfg.cell == "gru":
+        return cells.gru_step(params["cell"], r, s), mem
+    return cells.lstm_step(params["cell"], r, (s, mem))
+
+
+def attention_step(params: Params, cfg: AttentionConfig, state, y_prev, vh, h, enc_mask):
     """One decoder step. state = (alpha_prev, s_prev, mem_prev); y_prev
     one-hot (B, V). Returns the new state and {s, c, alpha}."""
-    _, s_prev, mem = state
-    alpha = attention_weights(params, s_prev, vh, enc_mask)
+    check_ported(cfg)
+    alpha_prev, s_prev, mem = state
+    alpha = attention_weights(params, cfg, s_prev, alpha_prev, vh, enc_mask)
     c = torch.einsum("bl,bld->bd", alpha, h)
     r = readout.linear_apply(
         params["dec_in"],
@@ -113,7 +174,7 @@ def attention_step(params: Params, state, y_prev, vh, h, enc_mask):
             dim=-1,
         ),
     )
-    s = cells.gru_step(params["cell"], r, s_prev)
+    s, mem = _cell_step(params, cfg, r, s_prev, mem)
     return (alpha, s, mem), {"s": s, "c": c, "alpha": alpha}
 
 
@@ -136,7 +197,7 @@ def decode_teacher_forced(params: Params, cfg: AttentionConfig, h: torch.Tensor,
     is one AttentionDecodeScan (kernels K4 and K5) and the readout runs
     once over the stacked (s, c). Returns logprobs (B, T, V), alpha (B,
     T, L) and penalty (B, T), all zeros: the penalty is not ported."""
-    check_ported(cfg, train=train)
+    check_scan_ported(cfg, train=train)
     enc_mask = length_mask(enc_lengths, h.shape[1], h.dtype)
     vh = precompute_vh(params, h)
     y_prev = torch.cat([torch.zeros_like(labels_onehot[:, :1]), labels_onehot[:, :-1]], dim=1)

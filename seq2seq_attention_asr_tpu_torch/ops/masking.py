@@ -1,4 +1,5 @@
-"""Length masks and the masked softmax (seq2seq_attention_asr_tpu/ops/masking.py)."""
+"""Length masks, per-row flips and the masked softmax
+(seq2seq_attention_asr_tpu/ops/masking.py)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,18 @@ def length_mask(lengths: torch.Tensor, max_len: int, dtype=torch.float32) -> tor
     """(B,) int lengths -> (B, max_len) {0,1} mask."""
     pos = torch.arange(max_len, device=lengths.device)
     return (pos[None, :] < lengths[:, None]).to(dtype)
+
+
+def flip_sequences(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Reverse each row of x (B, L, ...) about its true length, keeping
+    the padding in place: y[b, t] = x[b, len_b - 1 - t] for t < len_b,
+    x[b, t] otherwise. Lengths above L count as L. Its own inverse."""
+    max_len = x.shape[1]
+    lengths = torch.clamp(lengths.to(x.device).long(), max=max_len)[:, None]
+    idx = torch.arange(max_len, device=x.device)[None, :]
+    gather = torch.where(idx < lengths, lengths - 1 - idx, idx)
+    gather = gather.reshape(gather.shape + (1,) * (x.ndim - 2)).expand(x.shape)
+    return torch.gather(x, 1, gather)
 
 
 def masked_softmax(e: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Bidirectional GRU layer (seq2seq_attention_asr_tpu/ops/rnn.py:131-188)."""
+"""Bidirectional GRU and LSTM layers (seq2seq_attention_asr_tpu/ops/rnn.py)."""
 
 from __future__ import annotations
 
@@ -7,8 +7,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from . import cells
-from .cuda import gru_scan
-from .masking import length_mask
+from .cuda import gru_scan, lstm_scan
+from .masking import flip_sequences, length_mask
 
 Params = Dict[str, Any]
 
@@ -45,3 +45,59 @@ def bigru_layer(params: Params, x: torch.Tensor, lengths: Optional[torch.Tensor]
     if lengths is not None:
         ys = ys * mask
     return ys
+
+
+def _flip(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    return x.flip(1) if lengths is None else flip_sequences(x, lengths)
+
+
+def lstm_layer(params: Params, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+               reverse: bool = False) -> torch.Tensor:
+    """One LSTM direction over a padded batch, (B, L, I) -> (B, L, H), a
+    Python loop over time. reverse=True flips the input about each row's
+    length, scans, and flips the output back, so padding stays in place."""
+    h_dim = params["w_h"].shape[0]
+    if reverse:
+        x = _flip(x, lengths)
+    xproj = cells.lstm_input_proj(params, x)
+    state = (x.new_zeros((x.shape[0], h_dim)), x.new_zeros((x.shape[0], h_dim)))
+    ys = []
+    for t in range(x.shape[1]):
+        state = cells.lstm_step_preproj(params, xproj[:, t], state)
+        ys.append(state[0])
+    ys = torch.stack(ys, dim=1) if ys else x.new_zeros((x.shape[0], 0, h_dim))
+    return _flip(ys, lengths) if reverse else ys
+
+
+def bilstm_init(generator: torch.Generator, dim_in: int, dim_out: int) -> Params:
+    return {
+        "fwd": cells.lstm_init(generator, dim_in, dim_out),
+        "bwd": cells.lstm_init(generator, dim_in, dim_out),
+    }
+
+
+def bilstm_layer(params: Params, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """concat(fwd, bwd) LSTM states along features: (B, L, I) -> (B, L, 2H).
+
+    The LSTM has biases, so h = 0 is no fixed point under zero input and
+    the backward direction cannot walk the padded array from its tail,
+    as the flip-free BiGRU does. As the JAX package's fused branch does:
+    flip the backward direction's input about the lengths, project both
+    directions, run one direction-stacked scan from zero states (kernel
+    K7, ops/cuda/lstm_scan.py), then flip the backward outputs back. The
+    outputs are not masked: the forward direction runs on into the
+    padding, as in the JAX package. Forward only; K7's backward comes
+    with the training slice, so under autograd this raises."""
+    if "w_peep" in params["fwd"] or "w_peep" in params["bwd"]:
+        raise NotImplementedError("LSTM peepholes are not ported")
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for p in params.values() for t in p.values())):
+        raise NotImplementedError("bilstm_layer has no gradient yet: the BiLSTM scan's backward "
+                                  "(lstm_scan.py:145 of the JAX package) is not ported")
+    h_dim = params["fwd"]["w_h"].shape[0]
+    xproj2 = torch.stack([cells.lstm_input_proj(params["fwd"], x),
+                          cells.lstm_input_proj(params["bwd"], _flip(x, lengths))])
+    zeros = x.new_zeros((2, x.shape[0], h_dim))
+    wh2 = torch.stack([params["fwd"]["w_h"], params["bwd"]["w_h"]])
+    hs, _ = lstm_scan.bilstm_scan(xproj2.contiguous(), zeros, zeros, wh2.contiguous())
+    return torch.cat([hs[0], _flip(hs[1], lengths)], dim=-1)

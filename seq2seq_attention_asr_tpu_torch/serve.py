@@ -1,8 +1,12 @@
 """PCM -> text serving (seq2seq_attention_asr_tpu/serve.py).
 
 Raw PCM -> log-mel front end (kernel K3, or the exact rfft path) ->
-3x BiGRU encoder (kernel K1) -> batched beam search (kernel K2 per
-step) -> token ids; only detokenization is on the host.
+the model's encoder -> batched beam search -> token ids; only
+detokenization is on the host. For the flagship Chorowski model the
+encoder is 3x BiGRU (kernel K1) and each beam step kernel K2; for the
+conv+BiLSTM model (registry "conv_bilstm") the encoder is three
+conv + pool blocks (8x shorter in time) and a BiLSTM (kernel K7), each
+beam step kernel K8, and the beam runs for the encoder's lengths.
 
 PCM lengths are bucketed so that the encoder length of a bucket is a
 multiple of ``frame_bucket`` frames, as in the JAX package.

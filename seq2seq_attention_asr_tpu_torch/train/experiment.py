@@ -1,7 +1,8 @@
 """Experiment configs (seq2seq_attention_asr_tpu/train/experiment.py): a
 model choice with its kwargs, a TrainConfig and an OptimConfig, and the
 initialization the recipe asks for. The port has the canonical TIMIT
-recipe; the others come with their model families."""
+recipe and the conv+BiLSTM TIMIT recipe (served, not trained yet); the
+others come with their model families."""
 
 from __future__ import annotations
 
@@ -61,5 +62,28 @@ def timit_chorowski_normnll_colnorm() -> Experiment:
         train=TrainConfig(normalize_nll=True),
         optim=OptimConfig(rho=0.95, eps=1e-8, maxnorm=1e20, weight_decay=0.0,
                           gradnoise_eta=0.0, colnorm=True, colnorm_maxval=1.0),
+        orthogonalize=True,
+    )
+
+
+def timit_conv_bilstm() -> Experiment:
+    """The reference's inline TIMIT conv+BiLSTM model (timit/timit.lua:
+    98-169): 3 x (conv k=3 + ReLU + maxpool 2), an 8x downsampling of
+    time, BiLSTM(256, 128), location-aware attention (16 feature maps,
+    filter 5) with an LSTM decoder of state 400; adadelta(0.95, 1e-8),
+    normalized NLL, orthogonal init. The port serves this model; its
+    training forward is not ported yet. The recipe's batch 16, 100 epochs
+    and beam K=5 belong to the trainer loop and the eval beam, which are
+    not ported yet."""
+    return Experiment(
+        name="exp_timit_conv_bilstm",
+        model="conv_bilstm",
+        model_kwargs=dict(
+            input_frame_size=123, hidden_frame_size=256, output_frame_size=128,
+            kw=3, score_depth=150, filt_size=5, feature_maps=16,
+            state_depth=400, output_depth=62,
+        ),
+        train=TrainConfig(normalize_nll=True),
+        optim=OptimConfig(rho=0.95, eps=1e-8, maxnorm=1e20),
         orthogonalize=True,
     )

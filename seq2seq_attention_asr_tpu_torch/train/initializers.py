@@ -7,7 +7,7 @@ orthogonalizer (TrainUtils.lua:5-26) QR-decomposes each module's weight
 matrix, with the bias appended as a column, in Torch's (out, in) layout,
 transposing first when rows < cols. Weights here are (..., fan_in, out),
 so the (out, fan_in[+1]) matrix is orthogonalized and scattered back;
-fused GRU gate kernels are orthogonalized per gate. The QR runs in numpy
+fused GRU and LSTM gate kernels are orthogonalized per gate. The QR runs in numpy
 on the leaves' own dtype, as the JAX package's does, so the same weights
 give the same result.
 """
@@ -74,8 +74,10 @@ def orthogonalize_params(params):
         (k*in, out) first);
       - GRU cells: w_zr as two (fan_in, H) matrices, w_h as one, no bias
         (LinearZeroBias, GRU.lua:23-26);
+      - LSTM cells: w_x per gate with its (summed) gate bias, w_h per gate
+        without bias;
       - bare 2-D leaves v and u: plain QR; 1-D leaves (w_e) untouched.
-    LSTM cells are not ported and are refused."""
+    LSTM peepholes are not ported and are refused."""
 
     def as_np(t):
         return t.detach().cpu().numpy()
@@ -86,7 +88,12 @@ def orthogonalize_params(params):
     def walk(node):
         if isinstance(node, dict):
             if "w_x" in node:
-                raise NotImplementedError("LSTM cells are not ported yet")
+                if "w_peep" in node:
+                    raise NotImplementedError("LSTM peepholes are not ported")
+                w_x, b = _orth_blocks(as_np(node["w_x"]), 4, as_np(node["b"]))
+                w_h, _ = _orth_blocks(as_np(node["w_h"]), 4)
+                return dict(node, w_x=back(w_x, node["w_x"]), b=back(b, node["b"]),
+                            w_h=back(w_h, node["w_h"]))
             if "w_zr" in node:
                 w_zr, _ = _orth_blocks(as_np(node["w_zr"]), 2)
                 w_h, _ = _orthogonalize_matrix(as_np(node["w_h"]))

@@ -241,3 +241,139 @@ def test_train_step_on_the_card_matches_the_cpu(card):
     for got, want in zip(runs["cuda"], runs["cpu"]):
         for key in ("loss", "nll", "grad_norm", "param_norm"):
             assert abs(got[key] - want[key]) <= 1e-4 * abs(want[key]), (key, got, want)
+
+
+@pytest.mark.parametrize("b,l,h", [(1, 14, 128), (8, 14, 128), (3, 9, 40), (5, 20, 256)])
+def test_bilstm_scan_kernel(card, b, l, h):
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import lstm_scan
+
+    gen = torch.Generator().manual_seed(b * 31 + h)
+    xproj2 = _rand(gen, 2, b, l, 4 * h)
+    h02, c02 = _rand(gen, 2, b, h, scale=0.5), _rand(gen, 2, b, h, scale=0.5)
+    wh2 = _rand(gen, 2, h, 4 * h, scale=h ** -0.5)
+    before = lstm_scan.KERNEL.launches
+    got = lstm_scan.bilstm_scan(xproj2, h02, c02, wh2)
+    want = lstm_scan.bilstm_scan_plain(xproj2, h02, c02, wh2)
+    torch.cuda.synchronize()
+    assert lstm_scan.KERNEL.launches == before + 1
+    assert _max_err(got, want) <= TOL
+
+
+# (cell, feature_maps, filt_size, (S, St, A, V), readout): the conv+BiLSTM
+# recipe's decoder, the flagship's widths with location-aware attention
+# (an even filter), the recipe without the location term, and small odd
+# widths of each.
+LOC_LSTM_CASES = [
+    ("lstm", 16, 5, (150, 400, 256, 62), (("linear", 124), ("relu",), ("linear", 62))),
+    ("gru", 16, 10, (512, 256, 512, 62), (("dropout", 0.5), ("maxout", 64, 7), ("linear", 62))),
+    ("lstm", 0, 5, (150, 400, 256, 62), (("linear", 124), ("relu",), ("linear", 62))),
+    ("lstm", 3, 4, (13, 10, 18, 7), (("maxout", 5, 3), ("relu",), ("linear", 7))),
+    ("gru", 0, 5, (16, 12, 20, 6), (("linear", 9), ("relu",), ("linear", 6))),
+]
+
+
+@pytest.mark.parametrize("case", range(len(LOC_LSTM_CASES)))
+@pytest.mark.parametrize("b,k,l", [(1, 5, 14), (8, 5, 14), (3, 8, 37), (1, 8, 144)])
+def test_fused_attention_step_loc_lstm_kernel(card, case, b, k, l):
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.ops import attention
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    cell, fm, f, (s_dim, st, a, v), ro = LOC_LSTM_CASES[case]
+    cfg = attention.AttentionConfig(score_depth=s_dim, state_depth=st, annotation_depth=a,
+                                    output_depth=v, readout=ro, feature_maps=fm, filt_size=f,
+                                    cell=cell)
+    gen = torch.Generator().manual_seed(b * 100 + k * 10 + case)
+    params = interop.to_torch(attention.attention_init(gen, cfg), card)
+    lens = torch.randint(1, l + 1, (b,), generator=gen).cuda()
+    mask = (torch.arange(l, device=card)[None] < lens[:, None]).float()
+    h = _rand(gen, b, l, a)
+    vh = attention.precompute_vh(params, h).contiguous()
+    state = (torch.softmax(_rand(gen, b, k, l), -1), _rand(gen, b, k, st, scale=0.3),
+             _rand(gen, b, k, st, scale=0.3))
+    y = torch.nn.functional.one_hot(torch.randint(0, v, (b, k), generator=gen), v).float().cuda()
+    k2, k8 = attention_step.KERNEL.launches, attention_step.KERNEL_LOC_LSTM.launches
+    (ga, gs, gm), got = attention_step.fused_attention_step(params, cfg, state, y, vh, h, mask)
+    (_, _, wm), want = attention_step.fused_attention_step_plain(params, cfg, state, y, vh, h,
+                                                                 mask)
+    torch.cuda.synchronize()
+    assert attention_step.KERNEL_LOC_LSTM.launches == k8 + 1
+    assert attention_step.KERNEL.launches == k2
+    for key in ("alpha", "c", "s", "logp"):
+        assert _max_err([got[key]], [want[key]]) <= TOL, key
+    assert _max_err([gm], [wm]) <= TOL
+    assert (gm is state[2]) == (cell == "gru")
+
+
+def test_fused_attention_step_loc_lstm_refuses_what_does_not_fit(card):
+    """K8's shared memory holds K <= 8 hypotheses at both widths up to a
+    few hundred encoder positions; a longer one is refused at launch."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.ops import attention
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    cell, fm, f, (s_dim, st, a, v), ro = LOC_LSTM_CASES[0]
+    cfg = attention.AttentionConfig(score_depth=s_dim, state_depth=st, annotation_depth=a,
+                                    output_depth=v, readout=ro, feature_maps=fm, filt_size=f,
+                                    cell=cell)
+    gen = torch.Generator().manual_seed(0)
+    params = interop.to_torch(attention.attention_init(gen, cfg), card)
+    b, k, l = 1, 8, 4000
+    h = _rand(gen, b, l, a)
+    state = (torch.softmax(_rand(gen, b, k, l), -1), _rand(gen, b, k, st), _rand(gen, b, k, st))
+    y = torch.zeros(b, k, v, device=card)
+    before = attention_step.KERNEL_LOC_LSTM.launches
+    with pytest.raises(RuntimeError):
+        attention_step.fused_attention_step(params, cfg, state, y,
+                                            attention.precompute_vh(params, h).contiguous(), h,
+                                            torch.ones(b, l, device=card))
+    assert attention_step.KERNEL_LOC_LSTM.launches == before
+
+
+def test_beam_search_ties_on_the_card_match_the_cpu(card):
+    """A zeroed last readout layer makes every log-prob tie: the card's
+    beam picks the same tokens as its CPU run (lower flat index first)."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.decode import beam
+    from seq2seq_attention_asr_tpu_torch.ops import attention
+
+    cfg = attention.AttentionConfig(score_depth=16, state_depth=16, annotation_depth=24,
+                                    output_depth=62, readout=(("maxout", 8, 3), ("linear", 62)))
+    params = attention.attention_init(torch.Generator().manual_seed(0), cfg)
+    params["readout"][-1] = {key: torch.zeros_like(t) for key, t in params["readout"][-1].items()}
+    h = torch.randn(2, 12, 24, generator=torch.Generator().manual_seed(1))
+    lens = torch.tensor([12, 7])
+    got = beam.beam_search(interop.to_torch(params, card), cfg, h.cuda(), lens.cuda(), 61, k=5)
+    want = beam.beam_search(params, cfg, h, lens, 61, k=5, device="cpu")
+    assert torch.equal(got.tokens.cpu(), want.tokens)
+    assert torch.equal(got.lengths.cpu(), want.lengths)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_conv_bilstm_transcriber_on_the_card_matches_the_cpu(card, exact):
+    from seq2seq_attention_asr_tpu_torch import serve
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step, gru_scan, logmel, lstm_scan
+    from seq2seq_attention_asr_tpu_torch.train import experiment
+
+    exp = experiment.timit_conv_bilstm()
+    exp.model_kwargs.update(hidden_frame_size=32, output_frame_size=16, score_depth=24,
+                            feature_maps=4, state_depth=32, output_depth=9)
+    model = exp.build_model()
+    params = exp.init_params(torch.Generator().manual_seed(0), device="cpu")
+    params["decoder"]["readout"][-1]["b"][8] -= 2.0  # keep eos from ending every hypothesis at once
+    rng = np.random.RandomState(0)
+    pcms = [(0.1 * rng.randn(n)).astype(np.float32) for n in (9000, 20000, 9500)]
+    kw = dict(eos_id=8, pad_frames=10, beam_k=3, exact=exact)
+    kernels = (gru_scan.KERNEL, attention_step.KERNEL, attention_step.KERNEL_LOC_LSTM,
+               logmel.KERNEL, lstm_scan.KERNEL)
+    for kern in kernels:
+        kern.launches = 0
+    got = serve.Transcriber(model, params, **kw).transcribe(pcms)
+    assert lstm_scan.KERNEL.launches == 2  # two frame buckets
+    assert logmel.KERNEL.launches == (0 if exact else 2)
+    assert gru_scan.KERNEL.launches == attention_step.KERNEL.launches == 0
+    assert attention_step.KERNEL_LOC_LSTM.launches >= 2
+    want = serve.Transcriber(model, params, device="cpu", **kw).transcribe(pcms)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.ids, w.ids)
+        assert abs(g.score - w.score) <= 1e-3

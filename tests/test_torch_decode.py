@@ -110,3 +110,26 @@ def test_beam_search_stops_when_every_pool_is_full(model, monkeypatch):
     np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
     np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
     np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores), rtol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_beam_search_ties_rank_by_index_as_in_jax(backend):
+    """With the last readout layer zeroed every log-prob ties (-log V),
+    and every expansion score ties with its row's: the picks are then
+    fixed by the tie order alone. lax.top_k ranks equal scores by lower
+    flat index; so must the port (torch.topk promises no order)."""
+    dims = dict(DIMS, output_depth=62)
+    jmodel = jregistry.build("chorowski", **dims)
+    params = jax.tree.map(np.array, jmodel.init(jax.random.PRNGKey(1)))["decoder"]
+    params["readout"][-1] = jax.tree.map(np.zeros_like, params["readout"][-1])
+    rng = np.random.RandomState(7)
+    h = rng.randn(3, 12, 32).astype(np.float32)
+    lens = np.array([12, 8, 5], np.int32)
+    want = jbeam.beam_search(params, jmodel.attention_cfg, jnp.asarray(h), jnp.asarray(lens), 61,
+                             k=5, backend=backend)
+    got = beam.beam_search(interop.to_torch(params, "cpu"),
+                           registry.build("chorowski", **dims).attention_cfg,
+                           torch.from_numpy(h), torch.from_numpy(lens), 61, k=5, device="cpu")
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores), rtol=1e-5)

@@ -25,7 +25,7 @@ def test_port_files_are_found():
     names = {p.name for p in PORT_FILES}
     assert {"serve.py", "beam.py", "features.py", "chip_smoke.py", "gru_scan.py",
             "attention_scan.py", "trainer.py", "optim.py", "initializers.py", "experiment.py",
-            "loss.py", "tree.py"} <= names
+            "loss.py", "tree.py", "lstm_scan.py", "conv.py", "conv_bilstm.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -61,7 +61,9 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 def test_kernel_wrappers_take_cpu_or_cuda_tensors_only():
     """A tensor that is neither on the CPU nor on a card is refused, not
     quietly computed with the plain version."""
-    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan, gru_scan, logmel
+    from seq2seq_attention_asr_tpu_torch.ops import attention
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import (attention_scan, attention_step, gru_scan,
+                                                          logmel, lstm_scan)
 
     meta = lambda *s: torch.empty(*s, device="meta")
     gru = (meta(1, 2, 12), meta(1, 2, 12), meta(2, 4, 8), meta(2, 4, 4))
@@ -80,3 +82,15 @@ def test_kernel_wrappers_take_cpu_or_cuda_tensors_only():
     with pytest.raises(ValueError):
         attention_scan.attention_decode_scan_bwd(*scan, meta(b, t, st), meta(b, t, a),
                                                  meta(b, t, st), meta(b, t, a), meta(b, t, l))
+    with pytest.raises(ValueError):
+        lstm_scan.bilstm_scan(meta(2, 1, 3, 16), meta(2, 1, 4), meta(2, 1, 4), meta(2, 4, 16))
+    cfg = attention.AttentionConfig(score_depth=s, state_depth=st, annotation_depth=a,
+                                    output_depth=3, readout=(("linear", 4), ("relu",),
+                                                             ("linear", 3)),
+                                    feature_maps=2, filt_size=3, cell="lstm")
+    params = attention.attention_init(torch.Generator().manual_seed(0), cfg)
+    assert not attention_step.uses_k2(cfg)  # K8's configuration
+    with pytest.raises(ValueError):
+        attention_step.fused_attention_step(
+            params, cfg, (meta(b, 2, l), meta(b, 2, st), meta(b, 2, st)), meta(b, 2, 3),
+            meta(b, l, s), meta(b, l, a), meta(b, l))

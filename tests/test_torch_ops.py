@@ -137,7 +137,7 @@ def test_attention_step_and_readout(att_case):
         params, jcfg, jstate, jnp.asarray(d["y"]), vh_want, jnp.asarray(d["h"]),
         jnp.asarray(d["mask"]), ramp=None)
     state = (torch.zeros(b, l), t["s"], torch.from_numpy(zeros))
-    (ga, gs, gm), got = attention.attention_step(tp, state, t["y"], vh_got, t["h"], t["mask"])
+    (ga, gs, gm), got = attention.attention_step(tp, cfg, state, t["y"], vh_got, t["h"], t["mask"])
     for key in ("alpha", "s", "c"):
         close(got[key], want[key])
     close(gs, ws)

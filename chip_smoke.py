@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU: PCM -> text serving
-and training of the flagship Chorowski model, and PCM -> text serving of
-the conv+BiLSTM TIMIT model, through their eight CUDA kernels.
+and training of the flagship Chorowski model and of the conv+BiLSTM
+TIMIT model, through their eleven CUDA kernels.
 
     python3 chip_smoke.py
 
 Phases, each fatal when it fails:
   1. the card's name and power limit (nvidia-smi);
-  2. build the eight kernels from csrc/ (one nvcc per source, in parallel);
+  2. build the eleven kernels from csrc/ (one nvcc per source, in parallel);
   3. hold each kernel to its plain PyTorch version through its public
      wrapper: K1-K3 at the flagship's serving shapes, batch 1 and 8 (max
      abs error 1e-4); K4 (1e-4 abs) and K5, K6 (max|got - plain| <= 5e-4
@@ -19,7 +19,10 @@ Phases, each fatal when it fails:
      filter 5), the flagship's widths with location-aware attention
      (GRU, filter 10, 16 feature maps, maxout readout) and the recipe's
      widths without the location term (LSTM), batch 1 and 8 (1e-4 abs);
-     and K8's content-only GRU instance on K2's inputs;
+     and K8's content-only GRU instance on K2's inputs; K9 and K11 (the
+     backward tolerance) and K10 (1e-4 abs) at the conv+BiLSTM recipe's
+     training shape, B = 16, 144 frames (L' = 16), T = 56, on the conv
+     stack's and the encoder's output of the same batch;
   4. serve 3.5 s of PCM with seeded random flagship weights: exact=False
      at batch 1 and 8 (kernels K1, K2, K3), exact=True at batch 1 (K1,
      K2), with the launch counts zeroed just before each request;
@@ -39,17 +42,22 @@ Phases, each fatal when it fails:
      each step and exactly 3 / 3 / 1 / 1 launches of K1 / K6 / K4 / K5
      (none of K2, K3) after it, the same 3 steps on the CPU (loss, nll,
      grad_norm and param_norm within rtol 1e-3), then 30 more card steps,
-     the last with a lower loss than the first;
+     the last with a lower loss than the first; then the same for the
+     recipe timit_conv_bilstm (orthogonal init from seed 0), with exactly
+     one launch each of K7, K9, K10 and K11 per step and none of K1-K6,
+     K8;
   7. kernel (device), wrapper-call, plain-version and bound times per
      kernel; for K7 also cuDNN's bidirectional LSTM on the same input
      (library_ms: the device time of every op it starts; a yardstick the
-     port never calls) and K7 with its two input projections; K2 beside
-     K8's instance on K2's inputs;
+     port never calls) and K7 with its two input projections; for K9
+     cuDNN's bidirectional LSTM backward on the same shapes (the device
+     time of every op that autograd.grad on its output starts); K2
+     beside K8's instance on K2's inputs;
   8. the p50 request latency over 10 requests of each model, and the
      device idle share: 1 - (device time of one request) / p50; the p50
-     train step over 10
+     train step of each recipe over 10
      steps after 3 warm-up steps at B = 16 and 128, audio seconds per
-     second, the device time of one step and its idle share;
+     second, the device time of one step by kernel and its idle share;
   9. one {"kernels": [...]} JSON line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
@@ -58,6 +66,7 @@ It exits nonzero without a card, and imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -95,16 +104,21 @@ TRAIN_RTOL = 1e-3  # card vs CPU train-step metrics
 MORE_STEPS = 30
 HOP = 512  # samples per frame at 16 kHz: audio seconds of a batch = B * L * HOP / SR
 STEP_LAUNCHES = {"bigru_scan2": 3, "bigru_scan2_bwd": 3, "attention_decode_scan_fwd": 1,
-                 "attention_decode_scan_bwd": 1, "fused_attention_step": 0,
-                 "stft_logmel_power": 0, "bilstm_scan": 0, "fused_attention_step_loc_lstm": 0}
+                 "attention_decode_scan_bwd": 1}
+CB_STEP_LAUNCHES = {"bilstm_scan": 1, "bilstm_scan_bwd": 1,
+                    "attention_decode_scan_loc_lstm_fwd": 1,
+                    "attention_decode_scan_loc_lstm_bwd": 1}
 CB_PAD_LEN = 130  # encoder frames of the 3.5 s PCM: 110, padded to 112, plus 2 x 10 pad frames
 # Tried in turn on the CPU for the conv+BiLSTM eos request, smallest
 # first: with seed 0, 0.02 ends 2 of 8 best hypotheses on eos while the
 # beam runs on to max_steps for the others; 0.06 and up end all of them.
 CB_EOS_BIASES = (0.01, 0.02, 0.04, 0.08, 0.16, 0.32, 0.64)
-# Device kernels of a train step, by the name each carries in a trace.
+# Device kernels of each recipe's train step, by the name each carries in
+# a trace.
 STEP_KERNELS = ("bigru_scan2_bwd_kernel", "bigru_scan2_kernel", "scan_fwd_kernel",
                 "scan_bwd_kernel", "atb_kernel")
+CB_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "bilstm_scan_kernel", "loc_lstm_fwd_kernel",
+                   "loc_lstm_bwd_kernel", "atb_kernel")
 
 REPLACES = {
     "bigru_scan2": "seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:666",
@@ -115,6 +129,11 @@ REPLACES = {
     "attention_decode_scan_bwd": "seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:851",
     "bilstm_scan": "seq2seq_attention_asr_tpu/ops/pallas/lstm_scan.py:107",
     "fused_attention_step_loc_lstm": "seq2seq_attention_asr_tpu/ops/pallas/attention_step.py:371",
+    "bilstm_scan_bwd": "seq2seq_attention_asr_tpu/ops/pallas/lstm_scan.py:145",
+    "attention_decode_scan_loc_lstm_fwd":
+        "seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:254",
+    "attention_decode_scan_loc_lstm_bwd":
+        "seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:624",
 }
 SOURCES = {
     "bigru_scan2": "seq2seq_attention_asr_tpu_torch/csrc/bigru_scan2.cu",
@@ -125,6 +144,11 @@ SOURCES = {
     "attention_decode_scan_bwd": "seq2seq_attention_asr_tpu_torch/csrc/attention_scan.cu",
     "bilstm_scan": "seq2seq_attention_asr_tpu_torch/csrc/bilstm_scan.cu",
     "fused_attention_step_loc_lstm": "seq2seq_attention_asr_tpu_torch/csrc/attention_step.cu",
+    "bilstm_scan_bwd": "seq2seq_attention_asr_tpu_torch/csrc/bilstm_scan_bwd.cu",
+    "attention_decode_scan_loc_lstm_fwd":
+        "seq2seq_attention_asr_tpu_torch/csrc/attention_scan_loc_lstm.cu",
+    "attention_decode_scan_loc_lstm_bwd":
+        "seq2seq_attention_asr_tpu_torch/csrc/attention_scan_loc_lstm.cu",
 }
 NO_LIBRARY = {
     "bigru_scan2": "cuDNN's GRU carries biases and applies the reset gate after its matmul",
@@ -135,6 +159,10 @@ NO_LIBRARY = {
     "attention_decode_scan_bwd": "no PyTorch call computes the attention decoder scan's backward",
     "fused_attention_step_loc_lstm": "no PyTorch call computes the location-aware or LSTM "
                                      "attention step with its readout",
+    "attention_decode_scan_loc_lstm_fwd": "no PyTorch call computes the location-aware LSTM "
+                                          "attention decoder scan",
+    "attention_decode_scan_loc_lstm_bwd": "no PyTorch call computes the location-aware LSTM "
+                                          "attention decoder scan's backward",
 }
 
 
@@ -178,33 +206,62 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+# A device op near either end of a profiler trace may be left out of it:
+# the device's timestamps, mapped to the host's clock, can fall outside
+# the window the host opened. A host pause after the trace opens and
+# before it closes keeps every launch inside the window.
+TRACE_PAD_S = 0.02
+
+
+@contextlib.contextmanager
+def traced(activities):
+    """A profiler trace of the block, with TRACE_PAD_S of host pause at
+    each end; the block's device work is synchronised before it closes."""
+    from torch.profiler import profile
+
+    with profile(activities=activities) as prof:
+        time.sleep(TRACE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+
+
 def device_ms(fn, symbols, iters: int) -> float:
     """Mean device time of one call of `fn`, from a profiler trace of
     `iters` calls: the summed time of the device kernels whose names hold
-    one of `symbols` (a C entry point may start more than one), or of
-    every device op the call starts when `symbols` is None, without the
-    host's time between launches."""
+    one of `symbols` (a C entry point may start more than one; a symbol
+    listed n times is launched n times a call), or of every device op the
+    call starts when `symbols` is None, without the host's time between
+    launches. A trace that kept fewer than nine tenths of the launches is
+    taken again, at most twice."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    if symbols is None:
-        return sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA) / iters / 1e3
-    ms = 0.0
-    for symbol in symbols:
-        durs = [e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA and symbol in e.name]
-        # The trace may drop a record now and then; the mean is over those kept.
-        if not 0.9 * iters <= len(durs) <= iters:
-            raise SystemExit(f"profiler saw {len(durs)} launches of {symbol}, expected {iters}")
-        ms += sum(durs) / len(durs) / 1e3
-    return ms
+    for attempt in range(3):
+        with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if symbols is None:
+            return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
+        ms, short = 0.0, []
+        for symbol in dict.fromkeys(symbols):
+            per_call = symbols.count(symbol)
+            durs = [e.time_range.elapsed_us() for e in events if symbol in e.name]
+            if len(durs) > iters * per_call:
+                raise SystemExit(f"profiler saw {len(durs)} launches of {symbol}, expected "
+                                 f"{iters * per_call}")
+            if len(durs) < 0.9 * iters * per_call:
+                short.append(f"{len(durs)} launches of {symbol}, expected {iters * per_call}")
+                continue
+            # The mean is over the records the trace kept.
+            ms += per_call * sum(durs) / len(durs) / 1e3
+        if not short:
+            return ms
+        print(f"device_ms: trace {attempt + 1} kept {'; '.join(short)}")
+    raise SystemExit(f"profiler saw {'; '.join(short)} in each of 3 traces")
 
 
 def bound(flops: float, nbytes: float):
@@ -417,21 +474,40 @@ def step_case(variant, dec, acfg, h, valid, gen):
     )
 
 
-def cudnn_bilstm(p, x):
+def cudnn_lstm(p, device):
     """One bidirectional torch.nn.LSTM layer (cuDNN) holding the weights
-    of the BiLSTM `p`, as a call on x (B, L, I). PyTorch's gate order is
-    also (in, forget, cell, out): weight_ih = w_x^T, weight_hh = w_h^T,
-    bias_ih = b, bias_hh = 0. On rows that all run to L its output is
-    bilstm_layer's. A yardstick only: the port never calls cuDNN."""
+    of the BiLSTM `p`. PyTorch's gate order is also (in, forget, cell,
+    out): weight_ih = w_x^T, weight_hh = w_h^T, bias_ih = b, bias_hh = 0.
+    On rows that all run to L its output is bilstm_layer's. A yardstick
+    only: the port never calls cuDNN."""
     dim_in, hd = p["fwd"]["w_x"].shape[0], p["fwd"]["w_h"].shape[0]
-    lstm = torch.nn.LSTM(dim_in, hd, batch_first=True, bidirectional=True).to(x.device)
+    lstm = torch.nn.LSTM(dim_in, hd, batch_first=True, bidirectional=True).to(device)
     with torch.no_grad():
         for sfx, d in (("", "fwd"), ("_reverse", "bwd")):
             getattr(lstm, f"weight_ih_l0{sfx}").copy_(p[d]["w_x"].T)
             getattr(lstm, f"weight_hh_l0{sfx}").copy_(p[d]["w_h"].T)
             getattr(lstm, f"bias_ih_l0{sfx}").copy_(p[d]["b"])
             getattr(lstm, f"bias_hh_l0{sfx}").zero_()
+    return lstm
+
+
+def cudnn_bilstm(p, x):
+    """cuDNN's bidirectional LSTM with the weights of `p`, as a call on x (B, L, I)."""
+    lstm = cudnn_lstm(p, x.device)
     return lambda: lstm(x)[0]
+
+
+def cudnn_bilstm_bwd(p, x, dy):
+    """cuDNN's backward of its bidirectional LSTM with the weights of `p`
+    on x (B, L, I), given the output's cotangent dy (B, L, 2H), as a call:
+    autograd.grad of the output for the input and every weight. Besides
+    what K9 computes it forms dx and the input weights' gradient."""
+    lstm = cudnn_lstm(p, x.device)
+    xin = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = lstm(xin)[0]
+    wrt = [xin, *lstm.parameters()]
+    return lambda: torch.autograd.grad(out, wrt, dy, retain_graph=True)
 
 
 def conv_bilstm_cases(cb_params, cb_cfg, noloc_dec, feats, gen):
@@ -487,6 +563,15 @@ def conv_bilstm_cases(cb_params, cb_cfg, noloc_dec, feats, gen):
     with_proj = lambda: lstm_scan.bilstm_scan(projections().contiguous(), z2, z2, wh2)
     return [k7, step_case("lstm+loc", cb_params["decoder"], acfg, h_enc, valid, gen),
             step_case("lstm", noloc_dec, noloc_cfg, h_enc, valid, gen)], with_proj
+
+
+def shape_tag(key) -> str:
+    """The shape a case ran at: its batch, or a training shape."""
+    if key == "train":
+        return f"B={TRAIN_B} L={TRAIN_L} T={TRAIN_T}"
+    if key == "cbtrain":
+        return f"B={TRAIN_B} {TRAIN_L} frames T={TRAIN_T}"
+    return f"B={key}"
 
 
 def _step_outputs(res):
@@ -598,13 +683,122 @@ def train_cases(params, cfg, batch, gen: torch.Generator):
     return [k6, k4, k5]
 
 
-def make_trainer(params_cpu, device: str):
-    """The recipe's train state and step on `device`, from the CPU
-    weights `params_cpu`."""
-    from seq2seq_attention_asr_tpu_torch import interop
-    from seq2seq_attention_asr_tpu_torch.train import experiment, optim, trainer
+def cb_train_cases(params, cfg, batch, gen: torch.Generator):
+    """K9, K10 and K11 at the conv+BiLSTM recipe's training shape, for the
+    model of `cfg` with weights `params`: K9 on the BiLSTM's projections
+    of the batch's conv-stack output (h_prev and c_prev from K7's plain
+    forward, shifted as BiLSTMScan shifts them), K10 and K11 on the
+    batch's encoder output (computed without gradient). The cotangents
+    are random and zero past each row's length; K11 gets them on s, c
+    and alpha (so that alpha's carry through the location term runs) and
+    none on mem, as on the path."""
+    from seq2seq_attention_asr_tpu_torch.models import conv_bilstm
+    from seq2seq_attention_asr_tpu_torch.ops import attention, cells, conv, readout
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan, lstm_scan
+    from seq2seq_attention_asr_tpu_torch.ops.masking import flip_sequences, length_mask
 
-    exp = experiment.timit_chorowski_normnll_colnorm()
+    dev = torch.device("cuda")
+    x, x_len, y, dec_mask = (t.to(dev) for t in batch)
+    b, t_len = y.shape
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    enc = params["encoder"]
+    p = enc["bilstm"]
+    with torch.no_grad():
+        hc = x
+        for name in ("conv1", "conv2", "conv3"):
+            hc = conv.temporal_max_pool(torch.relu(conv.temporal_conv(enc[name], hc)), 2)
+        lens = conv_bilstm.encode_lengths(cfg, x_len)
+        l = hc.shape[1]
+        enc_mask = length_mask(lens, l)
+        xproj2 = torch.stack([cells.lstm_input_proj(p["fwd"], hc),
+                              cells.lstm_input_proj(p["bwd"], flip_sequences(hc, lens))])
+        xproj2 = xproj2.contiguous()
+        hd = p["fwd"]["w_h"].shape[0]
+        z2 = hc.new_zeros((2, b, hd))
+        wh2 = torch.stack([p["fwd"]["w_h"], p["bwd"]["w_h"]]).contiguous()
+        hs, cs = lstm_scan.bilstm_scan_plain(xproj2, z2, z2, wh2)
+        h_prev = torch.cat([z2[:, :, None], hs[:, :, :-1]], dim=2)
+        c_prev = torch.cat([z2[:, :, None], cs[:, :, :-1]], dim=2)
+        h_enc = torch.cat([hs[0], flip_sequences(hs[1], lens)], dim=-1).contiguous()
+    print(f"K9-K11 input B={b}: conv stack output {tuple(hc.shape)}, encoder lengths "
+          f"{lens.tolist()}")
+    dys = rnd(2, b, l, hd) * enc_mask[None, :, :, None]
+    rows = b * l
+    k9 = Case(
+        "bilstm_scan_bwd", ("bilstm_scan_bwd_kernel", "atb_kernel"), lstm_scan.bilstm_scan_bwd,
+        lstm_scan.bilstm_scan_bwd_plain, (xproj2, h_prev, c_prev, dys, wh2),
+        # Per row, step and direction: the recompute product h_prev @ W_h,
+        # the transposed product da @ W_h^T and the weight-gradient outer
+        # product (8 H^2 each), and ~40 H elementwise.
+        flops=2 * rows * (24 * hd * hd + 40 * hd),
+        nbytes=4 * (2 * rows * 4 * hd + 3 * 2 * rows * hd + 2 * 4 * hd * hd  # inputs
+                    + 2 * rows * 4 * hd + 2 * 2 * b * hd + 2 * 4 * hd * hd),  # dxproj2, dh0, dc0, dW_h
+        backward=True,
+        library=cudnn_bilstm_bwd(p, hc, torch.cat([dys[0], dys[1]], dim=-1)),
+    )
+
+    dec = params["decoder"]
+    with torch.no_grad():
+        vh = attention.precompute_vh(dec, h_enc).contiguous()
+        onehot = (torch.nn.functional.one_hot(y.long(), cfg.output_depth).float()
+                  * dec_mask[..., None])
+        y_prev = torch.cat([torch.zeros_like(onehot[:, :1]), onehot[:, :-1]], dim=1)
+        yin = readout.linear_apply(dec["y_in"], y_prev).contiguous()
+    cell = dec["cell"]
+    weights = (dec["ws"]["w"], dec["ws"]["b"], dec["w_e"], dec["c_in"]["w"], dec["c_in"]["b"],
+               dec["dec_in"]["w"], dec["dec_in"]["b"], cell["w_h"], cell["w_x"], cell["b"],
+               dec["loc_conv"]["w"][:, 0, :], dec["loc_conv"]["b"], dec["u"])
+    s_dim, a, st = vh.shape[2], h_enc.shape[2], yin.shape[2]
+    fm, f = dec["u"].shape[0], weights[10].shape[0]
+    scan_args = (vh, h_enc, enc_mask, yin, *weights)
+    w_floats = sum(w.numel() for w in weights)
+    steps = b * t_len
+    # One step's weight products (s -> Ws, c_in, dec_in, the LSTM's two
+    # gate products), as multiply-adds; the location features and UF.
+    step_mv = st * s_dim + a * st + 2 * st * st + 8 * st * st
+    loc_flops = 2 * l * fm * f + 2 * l * s_dim * fm
+    in_floats = b * l * (s_dim + a + 1) + steps * st + w_floats
+    k10 = Case(
+        "attention_decode_scan_loc_lstm_fwd", ("loc_lstm_fwd_kernel",),
+        attention_scan.attention_decode_scan_loc_lstm,
+        attention_scan.attention_decode_scan_loc_lstm_plain, scan_args,
+        # Per step: energies (add, tanh, multiply-add) 4 L S, the location
+        # term, context 2 L A, the weight products, softmax ~5 L and ~10 St
+        # elementwise.
+        flops=steps * (4 * l * s_dim + loc_flops + 2 * l * a + 2 * step_mv + 5 * l + 10 * st),
+        nbytes=4 * (in_floats + steps * (2 * st + a + l)),
+    )
+    with torch.no_grad():
+        saved = attention_scan.attention_decode_scan_loc_lstm_plain(*scan_args)
+    m = dec_mask[..., None]
+    cot = (rnd(b, t_len, st) * m, rnd(b, t_len, a) * m, rnd(b, t_len, l) * m, None)
+    k11 = Case(
+        "attention_decode_scan_loc_lstm_bwd",
+        ("loc_lstm_bwd_kernel", "atb_kernel", "atb_kernel"),
+        attention_scan.attention_decode_scan_loc_lstm_bwd,
+        attention_scan.attention_decode_scan_loc_lstm_bwd_plain, (*scan_args, *saved, *cot),
+        # Per step: the recompute (the weight products, the location
+        # features and UF), the energies' backward (~8 L S), dfeat and
+        # alpha_prev's cotangent, the context's backward (4 L A), the
+        # softmax's (~4 L), ~30 St elementwise, the transposed products and
+        # the weight-gradient outer products (2 x 2 step_mv), dU and dwconv.
+        flops=steps * (6 * step_mv + 8 * l * s_dim + 3 * loc_flops + 4 * l * a + 4 * l
+                       + 30 * st),
+        nbytes=4 * (in_floats + steps * (2 * st + a + l)  # inputs and saved sequences
+                    + steps * (st + a + l)  # the cotangents of s, c and alpha
+                    + b * l * (s_dim + a) + steps * st + w_floats),  # dvh, dh, dyin, dW
+        backward=True,
+    )
+    return [k9, k10, k11]
+
+
+def make_trainer(recipe, params_cpu, device: str):
+    """The train state and step of `recipe` (an experiment) on `device`,
+    from the CPU weights `params_cpu`."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.train import optim, trainer
+
+    exp = recipe()
     model = exp.build_model()
     tx = optim.build_optimizer(exp.optim)
     init_fn, step_fn = trainer.make_train_step(model.forward, tx, exp.optim, exp.train,
@@ -612,14 +806,18 @@ def make_trainer(params_cpu, device: str):
     return init_fn(interop.to_torch(params_cpu, device), torch.Generator().manual_seed(SEED)), step_fn
 
 
-def train_phase(kernels, params_cpu, card: str):
-    """Phase 6: 3 steps on the card and on the CPU, the launch counts of
-    each card step, then 30 more card steps. Returns the launch counts
-    of the first card step."""
+def train_phase(kernels, recipe, params_cpu, expected, label: str):
+    """Phase 6 for one recipe: 3 steps on the card and on the CPU, the
+    launch counts of each card step (`expected`, every other kernel 0),
+    then 30 more card steps. Returns the launch counts of the first card
+    step."""
     batch = train_batch(TRAIN_B, SEED + 3)
     runs, first_counts = {}, None
+    want = dict.fromkeys(kernels, 0)
+    want.update(expected)
     for dev in ("cuda", "cpu"):
-        state, step_fn = make_trainer(params_cpu, dev)
+        state, step_fn = make_trainer(recipe, params_cpu, dev)
+        t0 = time.perf_counter()
         b = tuple(t.to(dev) for t in batch)
         runs[dev] = []
         for i in range(3):
@@ -629,39 +827,42 @@ def train_phase(kernels, params_cpu, card: str):
             if dev == "cuda":
                 torch.cuda.synchronize()
                 counts = {n: k.launches for n, k in kernels.items()}
-                print(f"train step {i + 1} on the card: launches {counts}")
-                if counts != STEP_LAUNCHES:
-                    raise SystemExit(f"train step: launch counts {counts}, expected {STEP_LAUNCHES}")
+                print(f"train {label} step {i + 1} on the card: launches {counts}")
+                if counts != want:
+                    raise SystemExit(f"train {label} step: launch counts {counts}, expected {want}")
                 first_counts = first_counts or counts
             runs[dev].append({k: float(v) for k, v in m.items()})
+        print(f"train {label}: 3 steps on {dev} took {time.perf_counter() - t0:.1f} s wall")
         if dev == "cuda":
             card_state, card_step, card_batch = state, step_fn, b
-    for i, (got, want) in enumerate(zip(runs["cuda"], runs["cpu"])):
-        rel = {k: abs(got[k] - want[k]) / abs(want[k])
+    for i, (got, ref) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        rel = {k: abs(got[k] - ref[k]) / abs(ref[k])
                for k in ("loss", "nll", "grad_norm", "param_norm")}
-        print(f"train step {i + 1}: card {got}, CPU {want}, relative differences "
+        print(f"train {label} step {i + 1}: card {got}, CPU {ref}, relative differences "
               f"{ {k: f'{v:.2e}' for k, v in rel.items()} } (tol {TRAIN_RTOL})")
         if not all(np.isfinite(v) for v in got.values()) or max(rel.values()) > TRAIN_RTOL:
-            raise SystemExit(f"train step {i + 1}: the card disagrees with the CPU run")
+            raise SystemExit(f"train {label} step {i + 1}: the card disagrees with the CPU run")
     losses = [r["loss"] for r in runs["cuda"]]
     for _ in range(MORE_STEPS):
         card_state, m = card_step(card_state, card_batch)
         losses.append(float(m["loss"]))
-    print(f"train: loss over {len(losses)} card steps on one batch: first {losses[0]:.6f}, "
-          f"last {losses[-1]:.6f}, every fifth {[round(v, 6) for v in losses[::5]]}")
+    print(f"train {label}: loss over {len(losses)} card steps on one batch: first "
+          f"{losses[0]:.6f}, last {losses[-1]:.6f}, every fifth "
+          f"{[round(v, 6) for v in losses[::5]]}")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise SystemExit("train: the loss did not fall")
+        raise SystemExit(f"train {label}: the loss did not fall")
     return first_counts
 
 
-def train_timing(params_cpu, b: int, card: str) -> None:
+def train_timing(recipe, params_cpu, b: int, card: str, step_kernels, label: str) -> None:
     """Phase 8 for training: p50 of 10 steps after 3 warm-up steps, audio
     seconds per second, the device time of one profiled step (device
-    activity only) and the idle share 1 - device / p50."""
+    activity only) by kernel (`step_kernels`, by trace name) and the idle
+    share 1 - device / p50."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    state, step_fn = make_trainer(params_cpu, "cuda")
+    state, step_fn = make_trainer(recipe, params_cpu, "cuda")
     batch = tuple(t.cuda() for t in train_batch(b, SEED + 5))
     torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
@@ -673,29 +874,41 @@ def train_timing(params_cpu, b: int, card: str) -> None:
         state, _ = step_fn(state, batch)
         torch.cuda.synchronize()
         lat.append(1e3 * (time.perf_counter() - t0))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced([ProfilerActivity.CUDA]) as prof:
         state, _ = step_fn(state, batch)
-        torch.cuda.synchronize()
     p50 = statistics.median(lat)
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
     idle = f"{1 - busy / p50:.4f}" if dev_events else "not measured"
     audio_s = b * TRAIN_L * HOP / SR
-    print(f"train step B={b} L={TRAIN_L} T={TRAIN_T}: p50 {p50:.2f} ms (min {min(lat):.2f}, "
+    print(f"train {label} step B={b} L={TRAIN_L} T={TRAIN_T}: p50 {p50:.2f} ms (min {min(lat):.2f}, "
           f"max {max(lat):.2f}) over 10 steps; {audio_s / (p50 / 1e3):.1f} audio s/s "
           f"({audio_s:.3f} s of audio per step); device busy {busy:.2f} ms in {len(dev_events)} "
           f"device ops of one profiled step, idle share 1 - busy/p50 = {idle}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB ({card})")
     # The step's device time by kernel; atb_kernel is the weight-gradient
-    # reduction of both K5 (one launch) and K6 (three).
+    # reduction of the backward kernels (K5 one launch and K6 three; K9
+    # one and K11 two).
     groups = {}
     for e in dev_events:
-        key = next((s for s in STEP_KERNELS if s in e.name), "other device ops")
+        key = next((s for s in step_kernels if s in e.name), "other device ops")
         n, ms = groups.get(key, (0, 0.0))
         groups[key] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
-    print(f"train step B={b}: device time by kernel: " + ", ".join(
+    print(f"train {label} step B={b}: device time by kernel: " + ", ".join(
         f"{key} {ms:.2f} ms in {n} ({ms / busy:.1%})"
         for key, (n, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1])))
+    # One more step traced on the host too: the CUDA runtime calls it
+    # makes, by name; a call that waits for the device shows here.
+    with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, batch)
+    calls = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("cuda"):
+            n, ms = calls.get(e.name, (0, 0.0))
+            calls[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    print(f"train {label} step B={b}: host CUDA runtime calls of one step traced on the host: "
+          + ", ".join(f"{name} {n}x {ms:.2f} ms" for name, (n, ms) in
+                      sorted(calls.items(), key=lambda kv: -kv[1][1])[:6]))
 
 
 def serve_requests(label, model, weights, requests, pcms, kw, kernels, launches, max_steps):
@@ -773,7 +986,7 @@ def serve_timing(label, model, params, pcms, kw, runs, card):
     """Phase 8 for serving: p50 of 10 requests after one warm-up and the
     device idle share, 1 - (device time of one profiled request) / p50."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from seq2seq_attention_asr_tpu_torch import serve
 
@@ -786,7 +999,7 @@ def serve_timing(label, model, params, pcms, kw, runs, card):
                 t0 = time.perf_counter()
                 tr.transcribe(pcms[:b])
                 lat.append(1e3 * (time.perf_counter() - t0))
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with traced([ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 tr.transcribe(pcms[:b])
                 wall = 1e3 * (time.perf_counter() - t0)
@@ -826,7 +1039,9 @@ def main() -> int:
     kernels = {k.name: k for k in (gru_scan.KERNEL, attention_step.KERNEL, logmel.KERNEL,
                                    gru_scan.KERNEL_BWD, attention_scan.KERNEL_FWD,
                                    attention_scan.KERNEL_BWD, lstm_scan.KERNEL,
-                                   attention_step.KERNEL_LOC_LSTM)}
+                                   attention_step.KERNEL_LOC_LSTM, lstm_scan.KERNEL_BWD,
+                                   attention_scan.KERNEL_LOC_LSTM_FWD,
+                                   attention_scan.KERNEL_LOC_LSTM_BWD)}
     t0 = time.perf_counter()
     build.build_all(kernels.values())
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(kernels)} kernels")
@@ -861,7 +1076,8 @@ def main() -> int:
     norm_feats = ((feats - torch.from_numpy(mean)) / torch.from_numpy(std)).cuda()
 
     # Phase 3: each kernel against its plain version, at the serving
-    # shapes (K1-K3, K7, K8) and at the training shape (K4-K6).
+    # shapes (K1-K3, K7, K8) and at the training shapes (K4-K6 for the
+    # flagship, K9-K11 for the conv+BiLSTM recipe).
     errs = {name: 0.0 for name in kernels}
     timing, with_proj = {}, {}
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -873,14 +1089,15 @@ def main() -> int:
     recipe = experiment.timit_chorowski_normnll_colnorm()
     all_cases["train"] = train_cases(interop.to_torch(train_params, "cuda"),
                                      recipe.build_model().cfg, train_batch(TRAIN_B, SEED + 3), gen)
+    all_cases["cbtrain"] = cb_train_cases(cb_params, cb_model.cfg, train_batch(TRAIN_B, SEED + 3),
+                                          gen)
     for b, cs in all_cases.items():
         for c in cs:
             with torch.no_grad():
                 got = c.kernel(*c.args)
                 want = c.plain(*c.args)
             torch.cuda.synchronize()
-            tag = f"B={b}" if b != "train" else f"B={TRAIN_B} L={TRAIN_L} T={TRAIN_T}"
-            errs[c.name] = max(errs[c.name], c.check(got, want, tag))
+            errs[c.name] = max(errs[c.name], c.check(got, want, shape_tag(b)))
 
     # Phases 4 and 5: serve on the card, then the same requests on the CPU.
     # The "eos" weights raise the readout's bias at eos, so that
@@ -915,14 +1132,18 @@ def main() -> int:
                               "stft_logmel_power": 0 if exact else 1},
         cb_steps)
 
-    # Phase 6: train on the card, against the CPU.
-    train_launches = train_phase(kernels, train_params, card)
+    # Phase 6: train each recipe on the card, against the CPU.
+    train_launches = train_phase(kernels, experiment.timit_chorowski_normnll_colnorm,
+                                 train_params, STEP_LAUNCHES, "chorowski")
+    cb_train_launches = train_phase(kernels, experiment.timit_conv_bilstm, cb_params_cpu,
+                                    CB_STEP_LAUNCHES, "conv_bilstm")
 
     # Phase 7: times at the shapes of each kernel's path, kernel and plain in turns.
     iters = {"bigru_scan2": 20, "fused_attention_step": 200, "stft_logmel_power": 200,
              "bigru_scan2_bwd": 10, "attention_decode_scan_fwd": 10,
              "attention_decode_scan_bwd": 10, "bilstm_scan": 200,
-             "fused_attention_step_loc_lstm": 100}
+             "fused_attention_step_loc_lstm": 100, "bilstm_scan_bwd": 100,
+             "attention_decode_scan_loc_lstm_fwd": 10, "attention_decode_scan_loc_lstm_bwd": 10}
     library = {}
     for b, cs in all_cases.items():
         for c in cs:
@@ -936,13 +1157,21 @@ def main() -> int:
                 lib_ms = device_ms(c.library, None, n) if c.library else None
             b_ms, b_by = bound(c.flops, c.nbytes)
             timing[(c.label, b)] = (ms, plain_ms, b_ms, b_by)
-            tag = f"B={b}" if b != "train" else f"B={TRAIN_B} L={TRAIN_L} T={TRAIN_T}"
+            tag = shape_tag(b)
             lib = "null" if lib_ms is None else f"{lib_ms:.4f} ms on the device"
             print(f"time {c.label} {tag}: kernel {ms:.4f} ms on the device ({call_ms:.4f} ms "
                   f"per wrapper call), plain {plain_ms:.4f} ms per call, bound {b_ms:.4f} ms "
                   f"({b_by}: {c.flops:.3e} flop, {c.nbytes:.3e} B), library {lib} ({card})")
             if lib_ms is not None:
                 library[(c.name, b)] = lib_ms
+            if c.name == "bilstm_scan_bwd":
+                with torch.no_grad():
+                    lib_call = time_ms(c.library, n)
+                print(f"time bilstm_scan_bwd {tag}: cuDNN bidirectional LSTM backward (TF32 off; "
+                      f"dx and the input weights' gradient too) {lib_ms:.4f} ms on the device, "
+                      f"{lib_call:.4f} ms per call; K9 {ms:.4f} ms on the device, {call_ms:.4f} "
+                      f"ms per wrapper call ({card})")
+            elif lib_ms is not None:
                 with torch.no_grad():
                     proj_dev = device_ms(with_proj[b], None, n)
                     proj_call = time_ms(with_proj[b], n)
@@ -969,23 +1198,29 @@ def main() -> int:
     # traced with a device-only profiler, over the unprofiled p50.
     serve_timing("chorowski", model, params, pcms, kw, runs, card)
     serve_timing("conv_bilstm", cb_model, cb_params, pcms, kw, [(False, 1), (False, 8)], card)
-    for b in (TRAIN_B, BIG_B):
-        train_timing(train_params, b, card)
+    for recipe, weights_cpu, step_kernels, label in (
+            (experiment.timit_chorowski_normnll_colnorm, train_params, STEP_KERNELS, "chorowski"),
+            (experiment.timit_conv_bilstm, cb_params_cpu, CB_STEP_KERNELS, "conv_bilstm")):
+        for b in (TRAIN_B, BIG_B):
+            train_timing(recipe, weights_cpu, b, card, step_kernels, label)
 
+    # Each kernel's numbers at batch 1 (serving) or its training shape,
+    # and its launches in the run of its main path.
     report = []
     for name in kernels:
         label = MAIN_LABEL.get(name, name)
-        ms, plain_ms, b_ms, b_by = timing.get((label, 1)) or timing[(label, "train")]
-        if (label, 1) not in timing:
-            launches = train_launches[name]
+        key = next(k for k in (1, "train", "cbtrain") if (label, k) in timing)
+        ms, plain_ms, b_ms, b_by = timing[(label, key)]
+        if key == 1:
+            served = name in ("bilstm_scan", "fused_attention_step_loc_lstm")
+            launches = (cb_launches if served else main_launches)[name]
         else:
-            launches = (cb_launches if name in ("bilstm_scan", "fused_attention_step_loc_lstm")
-                        else main_launches)[name]
+            launches = (train_launches if key == "train" else cb_train_launches)[name]
         report.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches, "max_abs_err": errs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library.get((name, 1)),
+            "library_ms": library.get((name, key)),
         })
     print(json.dumps({"kernels": report}))
     print(card)

@@ -1,9 +1,10 @@
 // One attention decoder step for K rows of one batch row (the math of
 // attention_scan.py _step_core :91), in pieces shared by
 // the beam steps (attention_step.cu, K hypotheses) and the teacher-forced
-// scan (attention_scan.cu, K = 1, forward and the backward's recompute),
-// with the location term (attend_loc) and the LSTM cell (lstm_cell) of
-// the location-aware / LSTM beam step:
+// scans (attention_scan.cu and attention_scan_loc_lstm.cu, K = 1, forward
+// and the backward's recompute), with the location term (attend_loc) and
+// the LSTM cell (lstm_preacts, lstm_cell) of the location-aware / LSTM
+// decoders:
 //
 //   attend        ws = s_prev @ Ws + b; e = w_e . tanh(vh + ws); alpha =
 //                 masked softmax of e (NEG_INF on padding, times the mask)
@@ -210,20 +211,30 @@ __device__ void attend_loc(const StepWeights& w, const StepBufs& m, const LocBuf
   softmax_rows(m, K, L);
 }
 
-// The decoder input and the LSTM cell without peepholes (attention_scan.py
-// _step_core :131-141): r as in decoder_cell, then gates = s_prev @ w_h +
-// r @ w_x + b (concat(s_prev, r) @ concat(w_h, w_x) + b in two products),
-// gate order (in, forget, cell, out); mem (the cell state, [K][St]) is
-// updated in place and s_new goes to xo[:, :St]. gates ([K][4St]) may
-// alias bufs.rin. s_prev is read from sr[:, :St]. Ends with a barrier.
-__device__ void lstm_cell(const StepWeights& w, const StepBufs& m, const float* w_h,
-                          const float* w_x, const float* gb, float* gates, float* mem, int K,
-                          int A, int St) {
+// The decoder input and the LSTM's gate pre-activations without
+// peepholes (attention_scan.py _step_core :131-136): r as in
+// decoder_cell, then gates = s_prev @ w_h + r @ w_x + b (concat(s_prev,
+// r) @ concat(w_h, w_x) + b in two products), gate order (in, forget,
+// cell, out), into gates ([K][4St], which may alias bufs.rin). s_prev is
+// read from sr[:, :St], c from xo[:, St:]. Ends with a barrier.
+__device__ void lstm_preacts(const StepWeights& w, const StepBufs& m, const float* w_h,
+                             const float* w_x, const float* gb, float* gates, int K, int A,
+                             int St) {
   const int St2 = 2 * St, St4 = 4 * St, XO = St + A;
   matvec<kNone>(w.c_w, w.c_b, A, St, m.xo + St, XO, m.rin, St2, K, m.scratch);
   matvec<kNone>(w.dec_w, w.dec_b, St2, St, m.rin, St2, m.sr + St, St2, K, m.scratch);
   matvec<kNone>(w_h, gb, St, St4, m.sr, St2, gates, St4, K, m.scratch);
   matvec<kNone, true>(w_x, nullptr, St, St4, m.sr + St, St2, gates, St4, K, m.scratch);
+}
+
+// The decoder input and the LSTM cell (attention_scan.py _step_core
+// :131-141): lstm_preacts, then mem (the cell state, [K][St]) is updated
+// in place and s_new goes to xo[:, :St]. Ends with a barrier.
+__device__ void lstm_cell(const StepWeights& w, const StepBufs& m, const float* w_h,
+                          const float* w_x, const float* gb, float* gates, float* mem, int K,
+                          int A, int St) {
+  const int St4 = 4 * St, XO = St + A;
+  lstm_preacts(w, m, w_h, w_x, gb, gates, K, A, St);
   for (int i = threadIdx.x; i < K * St; i += kThreads) {
     const int k = i / St, j = i % St;
     const float* g = gates + k * St4;

@@ -1,0 +1,536 @@
+// Teacher-forced location-aware LSTM decoder scan: forward (kernel K10,
+// entry point attention_decode_scan_loc_lstm_fwd) and backward (kernel
+// K11, entry point attention_decode_scan_loc_lstm_bwd).
+//
+// Replaces the Pallas kernel attention_decode_scan_loc_lstm
+// (seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:1292): forward
+// pallas_call :355 (_run_fwd :290, _fwd_kernel_loc_lstm :254,
+// _location_term :62, _step_core :91), backward pallas_call :945
+// (_run_bwd_loc :891, _bwd_kernel_loc_lstm :624, the LSTM branch of
+// _bwd_core :474-504). Plain PyTorch twins: ops/cuda/attention_scan.py
+// attention_decode_scan_loc_lstm_plain and
+// attention_decode_scan_loc_lstm_bwd_plain.
+//
+// Both kernels are templated on the cell (LSTM or GRU) and on the
+// location term, as K8 is; only the LSTM with the location term, the
+// conv+BiLSTM recipe's decoder, is instantiated. The GRU cell's scan is
+// K4/K5 (attention_scan.cu).
+//
+// What bounds them: the T steps are a chain, and every step reads the
+// step's weights from L2: the LSTM's gates (w_h and w_x, 2 x 400 x 1600
+// floats at the recipe), dec_in, c_in and Ws, about 7 MB, which no SM
+// holds; the backward reads them twice (the recompute and the transposed
+// products). One block per batch row keeps the state and every
+// intermediate of a step in shared memory and runs the step from the
+// pieces the beam step K8 uses (attention_common.cuh: attend_loc, which
+// forms the location features per encoder position and never stores UF;
+// context; lstm_preacts, whose gates are s_prev @ w_h plus r @ w_x
+// accumulated in place). With one block per row, a step's time is one
+// SM's L2 read rate over those bytes; batching rows per block cuts the
+// bytes but not that time, and splitting a step's products over a
+// cluster of blocks is the way past it.
+//
+// The backward walks t = T-1..0. It recomputes the step from s_prev,
+// mem_prev and alpha_prev (the saved sequences shifted by one, zero at
+// step 0) and the saved c, and takes alpha itself from the saved alpha
+// sequence, so it runs no softmax; then it backprops the LSTM (ds and the
+// dmem chain carried in shared memory), the decoder-input MLP, the
+// context, the masked softmax, the energies and the location term,
+// whose input alpha_prev is the previous step's output: that cotangent
+// is carried into step t-1. dvh and dh are summed over the steps in
+// global memory, each row's slice by its own block. The weight gradients
+// are sums of outer products over the B*T steps, and dU, dwconv and
+// dbconv over the B*T*L (step, encoder position) pairs: the walk writes
+// each step's operands and cotangents to a stash, and reduce_atb.cuh
+// forms the products and the bias sums afterwards, deterministically.
+
+#include "attention_common.cuh"
+#include "reduce_atb.cuh"
+
+namespace {
+
+struct Weights {
+  const float *ws_w, *ws_b, *w_e, *c_w, *c_b, *dec_w, *dec_b, *w_h, *w_x, *b, *wconv, *bconv, *u;
+  __host__ __device__ StepWeights step() const {
+    return StepWeights{ws_w, ws_b, c_w, c_b, dec_w, dec_b, nullptr, nullptr};
+  }
+};
+
+struct Dims {
+  int B, T, L, S, A, St, FM, F;
+};
+
+// Hands out consecutive shared-memory buffers; with a null base it only
+// counts, which is how the host sizes the launch.
+struct Carver {
+  float* base;
+  size_t off;
+  __host__ __device__ float* take(size_t n) {
+    float* p = base ? base + off : nullptr;
+    off += n;
+    return p;
+  }
+};
+
+// The location term's constants and buffers (kLoc only).
+struct LocShared {
+  float *ap, *u, *cw, *cb;  // alpha_prev zero-padded [L+F-1]; U [FM][S]; taps [F][FM]; bias [FM]
+};
+
+template <bool kLoc>
+__host__ __device__ LocShared carve_loc(Carver& c, const Dims& d) {
+  LocShared s{};
+  if (kLoc) {
+    s.ap = c.take(d.L + d.F - 1);
+    s.u = c.take((size_t)d.FM * d.S);
+    s.cw = c.take((size_t)d.F * d.FM);
+    s.cb = c.take(d.FM);
+  }
+  return s;
+}
+
+template <bool kLoc>
+__device__ void load_constants(const Weights& w, const float* mask, const StepBufs& m,
+                               const LocShared& loc, const Dims& d, int b) {
+  for (int i = threadIdx.x; i < d.S; i += kThreads) m.we[i] = w.w_e[i];
+  for (int i = threadIdx.x; i < d.L; i += kThreads) m.msk[i] = mask[(size_t)b * d.L + i];
+  if (kLoc) {
+    for (int i = threadIdx.x; i < d.L + d.F - 1; i += kThreads) loc.ap[i] = 0.f;
+    for (int i = threadIdx.x; i < d.FM * d.S; i += kThreads) loc.u[i] = w.u[i];
+    for (int i = threadIdx.x; i < d.F * d.FM; i += kThreads) loc.cw[i] = w.wconv[i];
+    for (int i = threadIdx.x; i < d.FM; i += kThreads) loc.cb[i] = w.bconv[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K10: the forward.
+
+struct FwdArgs {
+  const float *vh, *h, *mask, *yin;
+  Weights w;
+  float *s_seq, *c_seq, *alpha_seq, *mem_seq;
+  Dims d;
+};
+
+struct FwdShared {
+  StepBufs m;
+  LocShared loc;
+  float *gates, *mem, *feat;
+};
+
+template <bool kLoc>
+__host__ __device__ FwdShared carve_fwd(float* sm, const Dims& d, size_t* floats) {
+  Carver c{sm, 0};
+  const int St = d.St;
+  FwdShared s{};
+  s.m.sp = c.take(St);
+  s.m.ws = c.take(d.S);
+  s.m.al = c.take(d.L);
+  s.m.rin = c.take(2 * St);
+  s.m.sr = c.take(2 * St);
+  s.m.xo = c.take(St + d.A);
+  s.m.we = c.take(d.S);
+  s.m.msk = c.take(d.L);
+  s.gates = c.take(4 * St);
+  s.mem = c.take(St);
+  s.loc = carve_loc<kLoc>(c, d);
+  s.feat = kLoc ? c.take((size_t)kWarps * d.FM) : nullptr;
+  s.m.scratch = c.take(kThreads * 4);
+  *floats = c.off;
+  return s;
+}
+
+template <bool kLstm, bool kLoc>
+__global__ void __launch_bounds__(kThreads, 1) loc_lstm_fwd_kernel(const FwdArgs a) {
+  static_assert(kLstm, "the GRU decoder's scan is K4/K5 (attention_scan.cu)");
+  extern __shared__ float sm[];
+  const Dims& d = a.d;
+  const int b = blockIdx.x, St = d.St, A = d.A, L = d.L, pad = d.F / 2;
+  size_t floats;
+  const FwdShared s = carve_fwd<kLoc>(sm, d, &floats);
+  const StepBufs& m = s.m;
+  const StepWeights w = a.w.step();
+  const float* vhb = a.vh + (size_t)b * L * d.S;
+  const float* hb = a.h + (size_t)b * L * A;
+
+  load_constants<kLoc>(a.w, a.mask, m, s.loc, d, b);
+  for (int j = threadIdx.x; j < St; j += kThreads) m.sp[j] = m.sr[j] = s.mem[j] = 0.f;
+  for (int t = 0; t < d.T; ++t) {
+    const size_t n = (size_t)b * d.T + t;
+    for (int j = threadIdx.x; j < St; j += kThreads) m.rin[St + j] = a.yin[n * St + j];
+    __syncthreads();
+    if constexpr (kLoc)
+      attend_loc(w, m, LocBufs{s.loc.ap, s.loc.u, s.loc.cw, s.loc.cb, s.feat, d.F, d.FM}, vhb,
+                 1, L, d.S, St);
+    else
+      attend(w, m, vhb, 1, L, d.S, St);
+    context(m, hb, 1, L, A, St);
+    lstm_cell(w, m, a.w.w_h, a.w.w_x, a.w.b, s.gates, s.mem, 1, A, St);
+    for (int j = threadIdx.x; j < St; j += kThreads) {
+      const float v = m.xo[j];
+      a.s_seq[n * St + j] = v;
+      a.mem_seq[n * St + j] = s.mem[j];
+      m.sp[j] = m.sr[j] = v;
+    }
+    for (int j = threadIdx.x; j < A; j += kThreads) a.c_seq[n * A + j] = m.xo[St + j];
+    for (int l = threadIdx.x; l < L; l += kThreads) {
+      a.alpha_seq[n * L + l] = m.al[l];
+      if (kLoc) s.loc.ap[pad + l] = m.al[l];  // the next step's alpha_prev
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K11: the backward.
+
+// Per-step operands and cotangents the weight-gradient reductions read,
+// carved from the caller's scratch in this order: (B*T) rows of rr (2St),
+// r (St), dws (S), dcc (St), dr (St), dgates (4St) and the step's w_e
+// partial (S); then (B*T*L) rows of feat (FM), the conv's input window
+// (F), dz (S) and dfeat (FM).
+struct Stash {
+  float *rr, *r, *dws, *dcc, *dr, *dg, *dwe, *feat, *win, *dz, *dfeat;
+};
+
+Stash carve_stash(float* p, const Dims& d) {
+  const size_t rows = (size_t)d.B * d.T, rows_l = rows * d.L, St = d.St, S = d.S;
+  Stash s;
+  s.rr = p;
+  s.r = s.rr + rows * 2 * St;
+  s.dws = s.r + rows * St;
+  s.dcc = s.dws + rows * S;
+  s.dr = s.dcc + rows * St;
+  s.dg = s.dr + rows * St;
+  s.dwe = s.dg + rows * 4 * St;
+  s.feat = s.dwe + rows * S;
+  s.win = s.feat + rows_l * d.FM;
+  s.dz = s.win + rows_l * d.F;
+  s.dfeat = s.dz + rows_l * S;
+  return s;
+}
+
+struct BwdArgs {
+  const float *vh, *h, *mask, *yin;
+  Weights w;
+  const float *s_seq, *c_seq, *alpha_seq, *mem_seq;
+  const float *ds_seq, *dc_seq, *dalpha_seq, *dmem_seq;  // each may be null: zeros
+  float *dvh, *dh, *dyin;
+  Stash st;
+  Dims d;
+};
+
+struct BwdShared {
+  StepBufs m;  // sp, ws, al (alpha), rin (cc | yin), sr (s_prev | r), xo (c at [St:]), we, msk
+  LocShared loc;
+  float *mp;                    // [St]   mem_prev
+  float *gates, *dg;            // [4St]  gate pre-activations; their cotangents
+  float *dsp, *dr, *drr, *tmp;  // [St]   dg @ w_h^T; dg @ w_x^T; [2St] dr @ dec_w^T; [St] dws @ ws_w^T
+  float *carry_s, *carry_m;     // [St]   ds and dmem carried to the previous step
+  float *dc;                    // [A]
+  float *dal, *de;              // [L]
+  float *dws;                   // [S]
+  float *feat, *dfeat;          // [L][FM]
+  float *dal_carry;             // [L]    the cotangent of this step's alpha from step t+1
+  float *red;                   // [kWarps]
+};
+
+template <bool kLoc>
+__host__ __device__ BwdShared carve_bwd(float* sm, const Dims& d, size_t* floats) {
+  Carver c{sm, 0};
+  const int St = d.St;
+  BwdShared s{};
+  s.m.sp = c.take(St);
+  s.m.ws = c.take(d.S);
+  s.m.al = c.take(d.L);
+  s.m.rin = c.take(2 * St);
+  s.m.sr = c.take(2 * St);
+  s.m.xo = c.take(St + d.A);
+  s.m.we = c.take(d.S);
+  s.m.msk = c.take(d.L);
+  s.mp = c.take(St);
+  s.gates = c.take(4 * St);
+  s.dg = c.take(4 * St);
+  s.dsp = c.take(St);
+  s.dr = c.take(St);
+  s.drr = c.take(2 * St);
+  s.tmp = c.take(St);
+  s.carry_s = c.take(St);
+  s.carry_m = c.take(St);
+  s.dc = c.take(d.A);
+  s.dal = c.take(d.L);
+  s.de = c.take(d.L);
+  s.dws = c.take(d.S);
+  s.loc = carve_loc<kLoc>(c, d);
+  if (kLoc) {
+    s.feat = c.take((size_t)d.L * d.FM);
+    s.dfeat = c.take((size_t)d.L * d.FM);
+    s.dal_carry = c.take(d.L);
+  }
+  s.red = c.take(kWarps);
+  s.m.scratch = c.take(kThreads * 4);
+  *floats = c.off;
+  return s;
+}
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// p[i], or 0 where the cotangent p is absent.
+__device__ __forceinline__ float cot(const float* p, size_t i) { return p ? p[i] : 0.f; }
+
+template <bool kLstm, bool kLoc>
+__global__ void __launch_bounds__(kThreads, 1) loc_lstm_bwd_kernel(const BwdArgs a) {
+  static_assert(kLstm, "the GRU decoder's scan is K4/K5 (attention_scan.cu)");
+  extern __shared__ float sm[];
+  const Dims& d = a.d;
+  const int b = blockIdx.x, St = d.St, St2 = 2 * St, St4 = 4 * St, A = d.A, L = d.L, S = d.S;
+  const int FM = d.FM, F = d.F, pad = F / 2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  size_t floats;
+  const BwdShared s = carve_bwd<kLoc>(sm, d, &floats);
+  const StepBufs& m = s.m;
+  const StepWeights w = a.w.step();
+  const float* vhb = a.vh + (size_t)b * L * S;
+  const float* hb = a.h + (size_t)b * L * A;
+  float* dvhb = a.dvh + (size_t)b * L * S;
+  float* dhb = a.dh + (size_t)b * L * A;
+
+  load_constants<kLoc>(a.w, a.mask, m, s.loc, d, b);
+  for (int j = tid; j < St; j += kThreads) s.carry_s[j] = s.carry_m[j] = 0.f;
+  if (kLoc)
+    for (int l = tid; l < L; l += kThreads) s.dal_carry[l] = 0.f;
+  for (int t = d.T - 1; t >= 0; --t) {
+    const size_t n = (size_t)b * d.T + t;
+    const bool last = t == d.T - 1;  // the first step of the walk writes dvh and dh
+    // The step's saved state: s_prev, mem_prev and alpha_prev (zero at
+    // step 0), c and alpha.
+    for (int j = tid; j < St; j += kThreads) {
+      const float v = t > 0 ? a.s_seq[(n - 1) * St + j] : 0.f;
+      m.sp[j] = m.sr[j] = v;
+      s.mp[j] = t > 0 ? a.mem_seq[(n - 1) * St + j] : 0.f;
+      m.rin[St + j] = a.yin[n * St + j];
+    }
+    for (int j = tid; j < A; j += kThreads) m.xo[St + j] = a.c_seq[n * A + j];
+    for (int l = tid; l < L; l += kThreads) {
+      m.al[l] = a.alpha_seq[n * L + l];
+      if (kLoc) s.loc.ap[pad + l] = t > 0 ? a.alpha_seq[(n - 1) * L + l] : 0.f;
+    }
+    __syncthreads();
+    // Recompute ws, r and the gates; and the location features, as
+    // attend_loc forms them.
+    matvec<kNone>(w.ws_w, w.ws_b, St, S, m.sp, St, m.ws, S, 1, m.scratch);
+    lstm_preacts(w, m, a.w.w_h, a.w.w_x, a.w.b, s.gates, 1, A, St);
+    if (kLoc) {
+      for (int i = tid; i < L * FM; i += kThreads) {
+        const int l = i / FM, q = i % FM;
+        float f = 0.f;
+        for (int j = 0; j < F; ++j) f = fmaf(s.loc.ap[l + j], s.loc.cw[j * FM + q], f);
+        f += s.loc.cb[q];
+        s.feat[i] = f;
+        a.st.feat[n * L * FM + i] = f;
+      }
+      for (int i = tid; i < L * F; i += kThreads)
+        a.st.win[n * L * F + i] = s.loc.ap[i / F + i % F];
+    }
+    // The LSTM: the gates, then their cotangents and the dmem chain.
+    for (int j = tid; j < St; j += kThreads) {
+      const float ig = sigmoid(s.gates[j]), fg = sigmoid(s.gates[St + j]);
+      const float gg = tanhf(s.gates[2 * St + j]), og = sigmoid(s.gates[3 * St + j]);
+      const float mprev = s.mp[j];
+      const float tm = tanhf(fg * mprev + ig * gg);
+      const float ds = cot(a.ds_seq, n * St + j) + s.carry_s[j];
+      const float dm = ds * og * (1.f - tm * tm) + cot(a.dmem_seq, n * St + j) + s.carry_m[j];
+      s.dg[j] = dm * gg * ig * (1.f - ig);
+      s.dg[St + j] = dm * mprev * fg * (1.f - fg);
+      s.dg[2 * St + j] = dm * ig * (1.f - gg * gg);
+      s.dg[3 * St + j] = ds * tm * og * (1.f - og);
+      s.carry_m[j] = dm * fg;
+    }
+    __syncthreads();
+    matvec_t<1>(a.w.w_h, St, St4, s.dg, 0, s.dsp, 0);
+    matvec_t<1>(a.w.w_x, St, St4, s.dg, 0, s.dr, 0);
+    __syncthreads();
+    // The decoder-input MLP.
+    matvec_t<1>(w.dec_w, St2, St, s.dr, 0, s.drr, 0);
+    __syncthreads();
+    for (int j = tid; j < St; j += kThreads) a.dyin[n * St + j] = s.drr[St + j];
+    matvec_t<1>(w.c_w, A, St, s.drr, 0, s.dc, 0);
+    __syncthreads();
+    for (int j = tid; j < A; j += kThreads) s.dc[j] += cot(a.dc_seq, n * A + j);
+    __syncthreads();
+
+    // The context: dalpha = h dc + dalpha_seq (+ the carry from step t+1),
+    // dh += alpha dc^T.
+    for (int l = warp; l < L; l += kWarps) {
+      const float* hr = hb + (size_t)l * A;
+      float acc = 0.f;
+      for (int j = lane; j < A; j += 32) acc = fmaf(s.dc[j], hr[j], acc);
+      acc = warp_sum(acc);
+      if (lane == 0)
+        s.dal[l] = acc + cot(a.dalpha_seq, n * L + l) + (kLoc ? s.dal_carry[l] : 0.f);
+    }
+    for (int j = tid; j < A; j += kThreads) {
+      const float dcj = s.dc[j];
+      for (int l = 0; l < L; ++l) {
+        const float v = m.al[l] * dcj;
+        float* o = dhb + (size_t)l * A + j;
+        *o = last ? v : *o + v;
+      }
+    }
+    __syncthreads();
+    // The masked softmax.
+    float part = 0.f;
+    for (int l = tid; l < L; l += kThreads) part += s.dal[l] * m.al[l];
+    const float dot = block_sum(part, s.red);
+    for (int l = tid; l < L; l += kThreads) s.de[l] = m.al[l] * (s.dal[l] - dot);
+    __syncthreads();
+    // The energies: dz = de w_e (1 - tanh(z)^2), a thread per score unit,
+    // z recomputed as attend_loc forms it.
+    for (int sc = tid; sc < S; sc += kThreads) {
+      const float wsv = m.ws[sc], wev = m.we[sc];
+      float gws = 0.f, gwe = 0.f;
+      for (int l = 0; l < L; ++l) {
+        float uf = 0.f;
+        if (kLoc)
+          for (int q = 0; q < FM; ++q) uf = fmaf(s.feat[l * FM + q], s.loc.u[q * S + sc], uf);
+        const float av = fast_tanh(vhb[(size_t)l * S + sc] + wsv + uf);
+        const float dz = s.de[l] * wev * (1.f - av * av);
+        float* o = dvhb + (size_t)l * S + sc;
+        *o = last ? dz : *o + dz;
+        if (kLoc) a.st.dz[(n * L + l) * S + sc] = dz;
+        gws += dz;
+        gwe = fmaf(av, s.de[l], gwe);
+      }
+      s.dws[sc] = gws;
+      a.st.dwe[n * S + sc] = gwe;
+    }
+    __syncthreads();
+    if (kLoc) {
+      // dfeat = dz @ U^T, from the stash this block has just written.
+      for (int i = tid; i < L * FM; i += kThreads) {
+        const int l = i / FM, q = i % FM;
+        const float* dzl = a.st.dz + (n * L + l) * S;
+        const float* uq = s.loc.u + q * S;
+        float acc = 0.f;
+        for (int sc = 0; sc < S; ++sc) acc = fmaf(dzl[sc], uq[sc], acc);
+        s.dfeat[i] = acc;
+        a.st.dfeat[n * L * FM + i] = acc;
+      }
+      __syncthreads();
+      // The cotangent of alpha_prev, for step t-1: alpha_prev[k] enters
+      // feat[l] through tap j = k + pad - l.
+      for (int k = tid; k < L; k += kThreads) {
+        float acc = 0.f;
+        for (int j = 0; j < F; ++j) {
+          const int l = k + pad - j;
+          if (l < 0 || l >= L) continue;
+          for (int q = 0; q < FM; ++q) acc = fmaf(s.dfeat[l * FM + q], s.loc.cw[j * FM + q], acc);
+        }
+        s.dal_carry[k] = acc;
+      }
+    }
+    matvec_t<1>(w.ws_w, St, S, s.dws, 0, s.tmp, 0);
+    __syncthreads();
+    for (int j = tid; j < St; j += kThreads) {
+      s.carry_s[j] = s.dsp[j] + s.tmp[j];
+      a.st.r[n * St + j] = m.sr[St + j];
+      a.st.dcc[n * St + j] = s.drr[j];
+      a.st.dr[n * St + j] = s.dr[j];
+    }
+    for (int j = tid; j < St2; j += kThreads) a.st.rr[n * St2 + j] = m.rin[j];
+    for (int j = tid; j < St4; j += kThreads) a.st.dg[n * St4 + j] = s.dg[j];
+    for (int sc = tid; sc < S; sc += kThreads) a.st.dws[n * S + sc] = s.dws[sc];
+    __syncthreads();
+  }
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (bytes > (size_t)limit) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+bool valid(const Dims& d) {
+  return d.B >= 1 && d.T >= 1 && d.L >= 1 && d.S >= 1 && d.A >= 1 && d.St >= 1 && d.FM >= 1 &&
+         d.F >= 1;
+}
+
+}  // namespace
+
+extern "C" int attention_decode_scan_loc_lstm_fwd(
+    const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
+    const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
+    const float* dec_b, const float* w_h, const float* w_x, const float* b, const float* wconv,
+    const float* bconv, const float* u, float* s_seq, float* c_seq, float* alpha_seq,
+    float* mem_seq, int B, int T, int L, int S, int A, int St, int FM, int F,
+    cudaStream_t stream) {
+  const Dims d{B, T, L, S, A, St, FM, F};
+  if (!valid(d)) return (int)cudaErrorInvalidValue;
+  size_t floats;
+  carve_fwd<true>(nullptr, d, &floats);
+  const size_t bytes = floats * sizeof(float);
+  cudaError_t err = set_smem(loc_lstm_fwd_kernel<true, true>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const FwdArgs a{vh, h, mask, yin,
+                  Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_h, w_x, b, wconv, bconv, u},
+                  s_seq, c_seq, alpha_seq, mem_seq, d};
+  loc_lstm_fwd_kernel<true, true><<<B, kThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ds_seq, dc_seq, dalpha_seq and dmem_seq may be NULL (no cotangent).
+extern "C" int attention_decode_scan_loc_lstm_bwd(
+    const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
+    const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
+    const float* dec_b, const float* w_h, const float* w_x, const float* b, const float* wconv,
+    const float* bconv, const float* u, const float* s_seq, const float* c_seq,
+    const float* alpha_seq, const float* mem_seq, const float* ds_seq, const float* dc_seq,
+    const float* dalpha_seq, const float* dmem_seq, float* dvh, float* dh, float* dyin,
+    float* dws_w, float* dws_b, float* dw_e, float* dc_w, float* dc_b, float* ddec_w,
+    float* ddec_b, float* dw_h, float* dw_x, float* db, float* dwconv, float* dbconv, float* du,
+    float* scratch, int B, int T, int L, int S, int A, int St, int FM, int F,
+    cudaStream_t stream) {
+  const Dims d{B, T, L, S, A, St, FM, F};
+  if (!valid(d)) return (int)cudaErrorInvalidValue;
+  size_t floats;
+  carve_bwd<true>(nullptr, d, &floats);
+  const size_t bytes = floats * sizeof(float);
+  cudaError_t err = set_smem(loc_lstm_bwd_kernel<true, true>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const Stash st = carve_stash(scratch, d);
+  const BwdArgs a{vh, h, mask, yin,
+                  Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_h, w_x, b, wconv, bconv, u},
+                  s_seq, c_seq, alpha_seq, mem_seq, ds_seq, dc_seq, dalpha_seq, dmem_seq,
+                  dvh, dh, dyin, st, d};
+  loc_lstm_bwd_kernel<true, true><<<B, kThreads, bytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // Weight gradients over the B*T steps (s_prev = s_seq shifted by one).
+  const int St2 = 2 * St, St4 = 4 * St;
+  AtbBatch steps{};
+  steps.count = 6;
+  steps.rows = B * T;
+  steps.period = T;
+  steps.p[0] = AtbProblem{s_seq, St, -1, st.dws, S, dws_w, dws_b, St, S};
+  steps.p[1] = AtbProblem{c_seq, A, 0, st.dcc, St, dc_w, dc_b, A, St};
+  steps.p[2] = AtbProblem{st.rr, St2, 0, st.dr, St, ddec_w, ddec_b, St2, St};
+  steps.p[3] = AtbProblem{s_seq, St, -1, st.dg, St4, dw_h, db, St, St4};
+  steps.p[4] = AtbProblem{st.r, St, 0, st.dg, St4, dw_x, nullptr, St, St4};
+  steps.p[5] = AtbProblem{nullptr, 0, 0, st.dwe, S, nullptr, dw_e, 0, S};
+  err = launch_atb(steps, stream);
+  if (err != cudaSuccess) return (int)err;
+  // The location term's, over the B*T*L (step, encoder position) pairs:
+  // dU = sum feat^T dz, dwconv = sum window^T dfeat, dbconv = sum dfeat.
+  AtbBatch pos{};
+  pos.count = 2;
+  pos.rows = B * T * L;
+  pos.period = L;
+  pos.p[0] = AtbProblem{st.feat, FM, 0, st.dz, S, du, nullptr, FM, S};
+  pos.p[1] = AtbProblem{st.win, F, 0, st.dfeat, FM, dwconv, dbconv, F, FM};
+  return (int)launch_atb(pos, stream);
+}

@@ -6,8 +6,10 @@ TemporalMaxPooling(2, 2), an 8x downsampling of time, then a BiLSTM
 256 -> 128 per direction (kernel K7). Decoder: location-aware attention
 (score depth 150, 16 feature maps, filter width 5) with an LSTM cell of
 state 400, and the readout linear(656 -> 124) -> ReLU -> linear(-> 62)
-(kernel K8 in the beam). Serving only: training needs K7's backward and
-the location-aware LSTM decoder scan, which are not ported yet.
+(kernel K8 in the beam). Training runs ``forward``: the encoder, whose
+BiLSTM's backward is kernel K9 and whose conv stack autograd
+differentiates, then the teacher-forced location-aware LSTM decoder
+scan (kernels K10 and K11).
 """
 
 from __future__ import annotations
@@ -95,8 +97,8 @@ def encode(params: Params, cfg: ConvBiLSTMConfig, x: torch.Tensor, lengths: torc
 
 def forward(params: Params, cfg: ConvBiLSTMConfig, x: torch.Tensor, x_lengths: torch.Tensor,
             labels_onehot: torch.Tensor, dec_mask: torch.Tensor, *, train: bool = False):
-    """The training forward is not ported yet."""
-    raise NotImplementedError(
-        "conv_bilstm forward (training) is not ported yet: it needs the BiLSTM scan's backward "
-        "and the location-aware LSTM decoder scan (attention_decode_scan_loc_lstm), the next "
-        "slice of the port")
+    """encode, then the teacher-forced decoder over the annotations'
+    lengths: dict(logprobs (B, T, V), alpha (B, T, L'), penalty (B, T))."""
+    h, enc_lengths = encode(params, cfg, x, x_lengths)
+    return attention.decode_teacher_forced(params["decoder"], cfg.attention_config(), h,
+                                           enc_lengths, labels_onehot, dec_mask, train=train)

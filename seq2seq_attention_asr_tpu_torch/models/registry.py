@@ -32,8 +32,7 @@ class Model:
 
 def build(name: str, **overrides) -> Model:
     """name: chorowski | conv_bilstm. Overrides are fields of the
-    family's config dataclass. conv_bilstm serves only: its forward
-    (training) raises NotImplementedError."""
+    family's config dataclass."""
     if name == "chorowski":
         cfg = chorowski.ChorowskiConfig(**overrides)
         return Model(

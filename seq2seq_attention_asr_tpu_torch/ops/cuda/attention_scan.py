@@ -1,6 +1,8 @@
-"""Teacher-forced attention-decoder scan: forward (kernel K4) and
-backward (kernel K5), joined by the autograd function
-``AttentionDecodeScan``.
+"""Teacher-forced attention-decoder scans, each a forward kernel and a
+backward kernel joined by an autograd function: the content-only GRU
+decoder's (K4 and K5, ``AttentionDecodeScan``) and the location-aware
+LSTM decoder's (K10 and K11, ``AttentionDecodeScanLocLSTM``, at the end
+of this module).
 
 Replaces the Pallas kernel ``attention_decode_scan`` for the content-only
 GRU decoder (seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:1156):
@@ -226,4 +228,265 @@ class AttentionDecodeScan(torch.autograd.Function):
         dvh, dh, dyin, *dw = attention_decode_scan_bwd(
             vh, h, enc_mask, yin, *rest,
             ds_seq.contiguous(), dc_seq.contiguous(), dalpha_seq.contiguous())
+        return (dvh, dh, None, dyin, *dw)
+
+
+# --- The location-aware LSTM decoder scan (kernels K10 and K11) ----------------------------
+#
+# Replaces the Pallas kernel ``attention_decode_scan_loc_lstm``
+# (seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:1292): its
+# forward (pallas_call :355 in ``_run_fwd`` :290, body
+# ``_fwd_kernel_loc_lstm`` :254 with ``_location_term`` :62 and
+# ``_step_core`` :91) and its backward (pallas_call :945 in
+# ``_run_bwd_loc`` :891, body ``_bwd_kernel_loc_lstm`` :624 with
+# ``_bwd_core`` :419). Both kernels are in ``csrc/attention_scan_loc_lstm.cu``.
+# One step, from zero s, mem and alpha:
+#
+#   UF    = (conv1d(alpha_prev) + bconv) @ u          (B, L, S)
+#   alpha = masked softmax of w_e . tanh(vh + s_prev @ ws_w + ws_b + UF)
+#   c     = alpha^T h;  r = concat(c @ c_w + c_b, yin_t) @ dec_w + dec_b
+#   (s, mem) = LSTM(r, (s_prev, mem_prev)): gates s_prev @ w_h + r @ w_x + b
+#
+# The LSTM's w_h, w_x and b are the port's parameter leaves; the JAX
+# package's concat([w_h, w_x]) is never built.
+
+KERNEL_LOC_LSTM_FWD = build.Kernel(
+    "attention_decode_scan_loc_lstm_fwd", "attention_scan_loc_lstm.cu",
+    "attention_decode_scan_loc_lstm_fwd",
+    [ctypes.c_void_p] * 21 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+)
+KERNEL_LOC_LSTM_BWD = build.Kernel(
+    "attention_decode_scan_loc_lstm_bwd", "attention_scan_loc_lstm.cu",
+    "attention_decode_scan_loc_lstm_bwd",
+    [ctypes.c_void_p] * 42 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+)
+WEIGHTS_LOC_LSTM = ("ws_w", "ws_b", "w_e", "c_w", "c_b", "dec_w", "dec_b", "w_h", "w_x", "b",
+                    "wconv", "bconv", "u")
+
+
+def _loc_features(alpha_prev, wconv, bconv):
+    """conv1d(alpha_prev) + bconv: (B, L) -> (B, L, FM), zero-padded as the
+    reference pads (Attention.lua:77-85): f // 2 on the left and the
+    rest on the right, for odd and even filter widths alike."""
+    f = wconv.shape[0]
+    l = alpha_prev.shape[1]
+    ap = torch.nn.functional.pad(alpha_prev, (f // 2, f - 1 - f // 2))
+    return sum(ap[:, j: j + l, None] * wconv[j] for j in range(f)) + bconv
+
+
+def attention_decode_scan_loc_lstm_plain(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b,
+                                         dec_w, dec_b, w_h, w_x, b, wconv, bconv, u):
+    """Plain PyTorch twin of K10: the step above looped over the T steps.
+    Returns (s_seq, c_seq, alpha_seq, mem_seq)."""
+    bsz, t_len, st = yin.shape
+    s = yin.new_zeros((bsz, st))
+    mem = torch.zeros_like(s)
+    alpha = vh.new_zeros(vh.shape[:2])
+    outs = ([], [], [], [])
+    for t in range(t_len):
+        uf = _loc_features(alpha, wconv, bconv) @ u
+        e = torch.tanh(vh + (s @ ws_w + ws_b)[:, None, :] + uf) @ w_e
+        alpha = masked_softmax(e, enc_mask)
+        c = torch.einsum("bl,bla->ba", alpha, h)
+        r = torch.cat([c @ c_w + c_b, yin[:, t]], dim=-1) @ dec_w + dec_b
+        g_in, g_forget, g_cell, g_out = (s @ w_h + r @ w_x + b).chunk(4, dim=-1)
+        mem = torch.sigmoid(g_forget) * mem + torch.sigmoid(g_in) * torch.tanh(g_cell)
+        s = torch.sigmoid(g_out) * torch.tanh(mem)
+        for seq, v in zip(outs, (s, c, alpha, mem)):
+            seq.append(v)
+    return tuple(torch.stack(x, dim=1) for x in outs)
+
+
+def attention_decode_scan_loc_lstm_bwd_plain(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b,
+                                             dec_w, dec_b, w_h, w_x, b, wconv, bconv, u, s_seq,
+                                             c_seq, alpha_seq, mem_seq, ds_seq, dc_seq,
+                                             dalpha_seq, dmem_seq):
+    """Plain PyTorch twin of K11, step for step: a reverse-time loop that
+    recomputes each step's energies, decoder input and gates from the
+    saved s, mem and alpha (shifted by one, zero at step 0) and the saved
+    c, takes alpha itself from alpha_seq, and carries ds, dmem and the
+    cotangent of alpha_prev (the location term's input) to the step
+    before. A cotangent given as None counts as zeros. Returns (dvh, dh,
+    dyin, dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dw_h, dw_x,
+    db, dwconv, dbconv, du)."""
+    bsz, t_len, st = yin.shape
+    f = wconv.shape[0]
+    pad_l = f // 2
+    cot = lambda seq, t, like: like.new_zeros(like.shape) if seq is None else seq[:, t]
+    ds_carry = yin.new_zeros((bsz, st))
+    dmem_carry = torch.zeros_like(ds_carry)
+    dal_carry = vh.new_zeros(vh.shape[:2])
+    dvh, dh = torch.zeros_like(vh), torch.zeros_like(h)
+    dyin = torch.empty_like(yin)
+    dw = [torch.zeros_like(w) for w in (ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_h, w_x, b,
+                                        wconv, bconv, u)]
+    for t in range(t_len - 1, -1, -1):
+        prev = (lambda seq: seq[:, t - 1]) if t > 0 else (lambda seq: torch.zeros_like(seq[:, 0]))
+        s_prev, mem_prev, alpha_prev = prev(s_seq), prev(mem_seq), prev(alpha_seq)
+        alpha, c_saved = alpha_seq[:, t], c_seq[:, t]
+        feat = _loc_features(alpha_prev, wconv, bconv)
+        ws = s_prev @ ws_w + ws_b
+        a = torch.tanh(vh + ws[:, None, :] + feat @ u)
+        cc = c_saved @ c_w + c_b
+        rr = torch.cat([cc, yin[:, t]], dim=-1)
+        r = rr @ dec_w + dec_b
+        g_in, g_forget, g_cell, g_out = (s_prev @ w_h + r @ w_x + b).chunk(4, dim=-1)
+        i, fg, o = torch.sigmoid(g_in), torch.sigmoid(g_forget), torch.sigmoid(g_out)
+        g = torch.tanh(g_cell)
+        tm = torch.tanh(fg * mem_prev + i * g)
+
+        # The LSTM.
+        ds = cot(ds_seq, t, ds_carry) + ds_carry
+        dmem = ds * o * (1.0 - tm * tm) + cot(dmem_seq, t, ds_carry) + dmem_carry
+        dgates = torch.cat([dmem * g * i * (1.0 - i), dmem * mem_prev * fg * (1.0 - fg),
+                            dmem * i * (1.0 - g * g), ds * tm * o * (1.0 - o)], dim=-1)
+        dmem_carry = dmem * fg
+        ds_prev = dgates @ w_h.T
+        dr = dgates @ w_x.T
+        # The decoder-input MLP and the context.
+        drr = dr @ dec_w.T
+        dcc = drr[:, :st]
+        dyin[:, t] = drr[:, st:]
+        dc = dcc @ c_w.T + cot(dc_seq, t, c_saved)
+        dalpha = torch.einsum("ba,bla->bl", dc, h) + cot(dalpha_seq, t, alpha) + dal_carry
+        dh += alpha[:, :, None] * dc[:, None, :]
+        # The masked softmax and the energies.
+        de = alpha * (dalpha - torch.sum(dalpha * alpha, dim=-1, keepdim=True))
+        dz = de[:, :, None] * w_e * (1.0 - a * a)
+        dvh += dz
+        dws = torch.sum(dz, dim=1)
+        ds_carry = ds_prev + dws @ ws_w.T
+        # The location term: UF = feat @ u, feat = conv(alpha_prev) + bconv.
+        dfeat = dz @ u.T
+        ap = torch.nn.functional.pad(alpha_prev, (pad_l, f - 1 - pad_l))
+        l = alpha.shape[1]
+        dap = torch.zeros_like(ap)
+        for j in range(f):
+            dap[:, j: j + l] += dfeat @ wconv[j]
+        dal_carry = dap[:, pad_l: pad_l + l]
+        dwconv = torch.stack([torch.einsum("bl,blq->q", ap[:, j: j + l], dfeat)
+                              for j in range(f)])
+
+        for acc, step in zip(dw, (
+            s_prev.T @ dws, dws.sum(0), torch.einsum("bls,bl->s", a, de),
+            c_saved.T @ dcc, dcc.sum(0), rr.T @ dr, dr.sum(0), s_prev.T @ dgates,
+            r.T @ dgates, dgates.sum(0), dwconv, dfeat.sum((0, 1)),
+            torch.einsum("blq,bls->qs", feat, dz),
+        )):
+            acc += step
+    return (dvh, dh, dyin, *dw)
+
+
+def _loc_dims(vh, h, yin, wconv):
+    b, l, s_dim = vh.shape
+    return b, yin.shape[1], l, s_dim, h.shape[2], yin.shape[2], wconv.shape[1], wconv.shape[0]
+
+
+def _check_loc_lstm_inputs(vh, h, enc_mask, yin, weights):
+    b, t_len, l, s_dim, a_dim, st, fm, f = _loc_dims(vh, h, yin, weights[10])
+    dev = vh.device
+    shapes = [(b, l, s_dim), (b, l, a_dim), (b, l), (b, t_len, st), (st, s_dim), (s_dim,),
+              (s_dim,), (a_dim, st), (st,), (2 * st, st), (st,), (st, 4 * st), (st, 4 * st),
+              (4 * st,), (f, fm), (fm,), (fm, s_dim)]
+    names = ("vh", "h", "enc_mask", "yin") + WEIGHTS_LOC_LSTM
+    for name, t, shape in zip(names, (vh, h, enc_mask, yin, *weights), shapes):
+        build.check(name, t, shape, dev)
+
+
+def attention_decode_scan_loc_lstm(vh, h, enc_mask, yin, *weights):
+    """vh (B,L,S); h (B,L,A); enc_mask (B,L); yin (B,T,St); weights ws_w
+    (St,S), ws_b (S,), w_e (S,), c_w (A,St), c_b (St,), dec_w (2St,St),
+    dec_b (St,), w_h (St,4St), w_x (St,4St), b (4St,), wconv (F,FM),
+    bconv (FM,), u (FM,S). Returns (s_seq (B,T,St), c_seq (B,T,A),
+    alpha_seq (B,T,L), mem_seq (B,T,St)).
+
+    CPU tensors take the plain version; CUDA tensors the kernel."""
+    if build.on_cpu(vh, h, enc_mask, yin, *weights):
+        return attention_decode_scan_loc_lstm_plain(vh, h, enc_mask, yin, *weights)
+    _check_loc_lstm_inputs(vh, h, enc_mask, yin, weights)
+    b, t_len, l, s_dim, a_dim, st, fm, f = _loc_dims(vh, h, yin, weights[10])
+    f32 = dict(device=vh.device, dtype=torch.float32)
+    outs = (torch.empty((b, t_len, st), **f32), torch.empty((b, t_len, a_dim), **f32),
+            torch.empty((b, t_len, l), **f32), torch.empty((b, t_len, st), **f32))
+    if b * t_len == 0:
+        return outs
+    KERNEL_LOC_LSTM_FWD.launch(
+        *[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *outs)],
+        b, t_len, l, s_dim, a_dim, st, fm, f, build.stream_of(vh),
+    )
+    return outs
+
+
+def loc_lstm_scratch_floats(b: int, t_len: int, l: int, s_dim: int, st: int, fm: int,
+                            f: int) -> int:
+    """Floats of K11's stash: (B*T) rows of rr (2St), r (St), dws (S),
+    dcc, dr (St each), dgates (4St) and the per-step w_e partial (S), then
+    (B*T*L) rows of feat (FM), the conv's input windows (F), dz (S) and
+    dfeat (FM), in that order."""
+    return b * t_len * (9 * st + 2 * s_dim) + b * t_len * l * (2 * fm + f + s_dim)
+
+
+def attention_decode_scan_loc_lstm_bwd(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b, dec_w,
+                                       dec_b, w_h, w_x, b, wconv, bconv, u, s_seq, c_seq,
+                                       alpha_seq, mem_seq, ds_seq, dc_seq, dalpha_seq,
+                                       dmem_seq):
+    """Cotangents of attention_decode_scan_loc_lstm's differentiable
+    inputs given its inputs, its four outputs and their cotangents (each
+    None where there is none: it counts as zeros): (dvh, dh, dyin, dws_w,
+    dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dw_h, dw_x, db, dwconv,
+    dbconv, du).
+
+    CPU tensors take the plain version; CUDA tensors the kernel."""
+    weights = (ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_h, w_x, b, wconv, bconv, u)
+    saved = (s_seq, c_seq, alpha_seq, mem_seq)
+    cots = (ds_seq, dc_seq, dalpha_seq, dmem_seq)
+    given = [t for t in cots if t is not None]
+    if build.on_cpu(vh, h, enc_mask, yin, *weights, *saved, *given):
+        return attention_decode_scan_loc_lstm_bwd_plain(vh, h, enc_mask, yin, *weights, *saved,
+                                                        *cots)
+    _check_loc_lstm_inputs(vh, h, enc_mask, yin, weights)
+    bsz, t_len, l, s_dim, a_dim, st, fm, f = _loc_dims(vh, h, yin, wconv)
+    dev = vh.device
+    seq_shapes = [(bsz, t_len, st), (bsz, t_len, a_dim), (bsz, t_len, l), (bsz, t_len, st)]
+    for name, t, shape in zip(("s_seq", "c_seq", "alpha_seq", "mem_seq"), saved, seq_shapes):
+        build.check(name, t, shape, dev)
+    for name, t, shape in zip(("ds_seq", "dc_seq", "dalpha_seq", "dmem_seq"), cots, seq_shapes):
+        if t is not None:
+            build.check(name, t, shape, dev)
+    f32 = dict(device=dev, dtype=torch.float32)
+    grads = [torch.empty_like(vh), torch.empty_like(h), torch.empty_like(yin)]
+    grads += [torch.empty(w.shape, **f32) for w in weights]
+    if bsz * t_len == 0:
+        return tuple(g.zero_() for g in grads)
+    scratch = torch.empty(loc_lstm_scratch_floats(bsz, t_len, l, s_dim, st, fm, f), **f32)
+    KERNEL_LOC_LSTM_BWD.launch(
+        *[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *saved)],
+        *[None if t is None else build.ptr(t) for t in cots],
+        *[build.ptr(t) for t in (*grads, scratch)],
+        bsz, t_len, l, s_dim, a_dim, st, fm, f, build.stream_of(vh),
+    )
+    return tuple(grads)
+
+
+class AttentionDecodeScanLocLSTM(torch.autograd.Function):
+    """attention_decode_scan_loc_lstm with its gradient: K10 forward, K11
+    backward (the plain versions on CPU tensors). Saves the four output
+    sequences, as the JAX VJP does (:1308-1326). enc_mask gets no
+    gradient; a missing cotangent (mem_seq's always, on the training
+    path, and alpha_seq's unless the loss reads alpha) reaches the
+    backward as None and counts as zeros."""
+
+    @staticmethod
+    def forward(ctx, vh, h, enc_mask, yin, *weights):
+        outs = attention_decode_scan_loc_lstm(vh, h, enc_mask, yin, *weights)
+        ctx.save_for_backward(vh, h, enc_mask, yin, *weights, *outs)
+        ctx.set_materialize_grads(False)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *cots):
+        vh, h, enc_mask, yin, *rest = ctx.saved_tensors
+        cots = [None if c is None else c.contiguous() for c in cots]
+        dvh, dh, dyin, *dw = attention_decode_scan_loc_lstm_bwd(vh, h, enc_mask, yin, *rest,
+                                                                *cots)
         return (dvh, dh, None, dyin, *dw)

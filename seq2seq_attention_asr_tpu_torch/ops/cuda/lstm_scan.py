@@ -1,16 +1,20 @@
-"""Bidirectional LSTM scan, forward (kernel K7).
+"""Bidirectional LSTM scan: forward (kernel K7) and backward (kernel
+K9), joined by the autograd function ``BiLSTMScan``.
 
-Replaces the forward of the Pallas kernel ``bilstm_scan``
+K7 replaces the forward of the Pallas kernel ``bilstm_scan``
 (seq2seq_attention_asr_tpu/ops/pallas/lstm_scan.py:178, ``_run_fwd``
-:103, ``pallas_call`` :107, body ``_fwd_kernel`` :36). CUDA source
-``csrc/bilstm_scan.cu``; ``bilstm_scan_plain`` below is the same
-function in plain PyTorch.
+:103, ``pallas_call`` :107, body ``_fwd_kernel`` :36), CUDA source
+``csrc/bilstm_scan.cu``; K9 replaces its backward (``_run_bwd`` :139,
+``pallas_call`` :145, body ``_bwd_kernel`` :58), CUDA source
+``csrc/bilstm_scan_bwd.cu``. ``bilstm_scan_plain`` and
+``bilstm_scan_bwd_plain`` below are the same functions in plain
+PyTorch.
 
 Both directions run in one launch over the direction-stacked input
 projections; direction 1 arrives already flipped into its scan order
-(ops/rnn.py::bilstm_layer does the flips). The cell-state sequence is
-written beside the hidden states, as ``_run_fwd`` does, for the
-backward pass of a later slice.
+(ops/rnn.py::bilstm_layer does the flips). The forward writes the
+cell-state sequence beside the hidden states, as ``_run_fwd`` does, so
+that the backward recomputes the gates from the saved states.
 """
 
 from __future__ import annotations
@@ -25,7 +29,11 @@ KERNEL = build.Kernel(
     "bilstm_scan", "bilstm_scan.cu", "bilstm_scan_fwd",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 )
-MAX_H = 1024  # csrc/bilstm_scan.cu refuses wider states
+KERNEL_BWD = build.Kernel(
+    "bilstm_scan_bwd", "bilstm_scan_bwd.cu", "bilstm_scan_bwd",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+)
+MAX_H = 1024  # csrc/bilstm_scan.cu and csrc/bilstm_scan_bwd.cu refuse wider states
 
 
 def bilstm_scan_plain(xproj2, h02, c02, wh2):
@@ -45,6 +53,14 @@ def bilstm_scan_plain(xproj2, h02, c02, wh2):
     return hs, cs
 
 
+def _hidden(xproj2) -> int:
+    h4 = xproj2.shape[3]
+    h = h4 // 4
+    if h4 != 4 * h or not 1 <= h <= MAX_H:
+        raise ValueError(f"bilstm_scan: hidden size {h4 / 4} not in [1, {MAX_H}]")
+    return h
+
+
 def bilstm_scan(xproj2, h02, c02, wh2):
     """xproj2 (2, B, L, 4H): ``x @ w_x + b`` per direction, direction 1
     in its scan order; h02, c02 (2, B, H) initial states; wh2 (2, H, 4H)
@@ -54,10 +70,8 @@ def bilstm_scan(xproj2, h02, c02, wh2):
     CPU tensors take the plain version; CUDA tensors the kernel."""
     if build.on_cpu(xproj2, h02, c02, wh2):
         return bilstm_scan_plain(xproj2, h02, c02, wh2)
-    _, b, l, h4 = xproj2.shape
-    h = h4 // 4
-    if h4 != 4 * h or not 1 <= h <= MAX_H:
-        raise ValueError(f"bilstm_scan: hidden size {h4 / 4} not in [1, {MAX_H}]")
+    _, b, l, _ = xproj2.shape
+    h = _hidden(xproj2)
     dev = xproj2.device
     for name, t, shape in (("xproj2", xproj2, (2, b, l, 4 * h)), ("h02", h02, (2, b, h)),
                            ("c02", c02, (2, b, h)), ("wh2", wh2, (2, h, 4 * h))):
@@ -71,3 +85,82 @@ def bilstm_scan(xproj2, h02, c02, wh2):
         build.ptr(hs), build.ptr(cs), b, l, h, build.stream_of(xproj2),
     )
     return hs, cs
+
+
+def bilstm_scan_bwd_plain(xproj2, h_prev2, c_prev2, dys2, wh2):
+    """Plain PyTorch twin of K9: a reverse-time loop of the gate math of
+    ``_bwd_kernel``, both directions stacked, that recomputes each step
+    from the previous states; then dW_h = sum h_prev^T da over (b, t),
+    as the kernel's reduction forms it."""
+    _, b, l, h4 = xproj2.shape
+    h_dim = h4 // 4
+    dh = xproj2.new_zeros((2, b, h_dim))
+    dc = xproj2.new_zeros((2, b, h_dim))
+    dxproj2 = torch.empty_like(xproj2)
+    wh_t = wh2.transpose(1, 2)
+    for t in range(l - 1, -1, -1):
+        c_prev = c_prev2[:, :, t]
+        gates = xproj2[:, :, t] + torch.bmm(h_prev2[:, :, t], wh2)
+        g_in, g_forget, g_cell, g_out = gates.chunk(4, dim=-1)
+        i, f, o = torch.sigmoid(g_in), torch.sigmoid(g_forget), torch.sigmoid(g_out)
+        g = torch.tanh(g_cell)
+        tc = torch.tanh(f * c_prev + i * g)
+        dh = dys2[:, :, t] + dh
+        dc = dc + dh * o * (1.0 - tc * tc)
+        da = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
+                        dc * i * (1.0 - g * g), dh * tc * o * (1.0 - o)], dim=-1)
+        dxproj2[:, :, t] = da
+        dh = torch.bmm(da, wh_t)
+        dc = dc * f
+    dwh2 = torch.bmm(h_prev2.reshape(2, b * l, h_dim).transpose(1, 2),
+                     dxproj2.reshape(2, b * l, h4))
+    return dxproj2, dh, dc, dwh2
+
+
+def bilstm_scan_bwd(xproj2, h_prev2, c_prev2, dys2, wh2):
+    """Cotangents of bilstm_scan's inputs given its input projections,
+    the hidden and cell states before each step (h_prev2[:, :, t] is the
+    state step t starts from: h02 at t = 0), the cotangent of the hidden
+    states and the recurrent weights: (dxproj2, dh02, dc02, dwh2).
+
+    CPU tensors take the plain version; CUDA tensors the kernel."""
+    args = (xproj2, h_prev2, c_prev2, dys2, wh2)
+    if build.on_cpu(*args):
+        return bilstm_scan_bwd_plain(*args)
+    _, b, l, _ = xproj2.shape
+    h = _hidden(xproj2)
+    dev = xproj2.device
+    shapes = [(2, b, l, 4 * h)] + [(2, b, l, h)] * 3 + [(2, h, 4 * h)]
+    for name, t, shape in zip(("xproj2", "h_prev2", "c_prev2", "dys2", "wh2"), args, shapes):
+        build.check(name, t, shape, dev)
+    dxproj2 = torch.empty((2, b, l, 4 * h), device=dev, dtype=torch.float32)
+    dh02 = torch.empty((2, b, h), device=dev, dtype=torch.float32)
+    dc02 = torch.empty_like(dh02)
+    dwh2 = torch.empty((2, h, 4 * h), device=dev, dtype=torch.float32)
+    if b * l == 0:
+        return dxproj2, dh02.zero_(), dc02.zero_(), dwh2.zero_()
+    KERNEL_BWD.launch(
+        *[build.ptr(t) for t in (*args, dxproj2, dh02, dc02, dwh2)], b, l, h,
+        build.stream_of(xproj2),
+    )
+    return dxproj2, dh02, dc02, dwh2
+
+
+class BiLSTMScan(torch.autograd.Function):
+    """bilstm_scan with its gradient: K7 forward, K9 backward (the plain
+    versions on CPU tensors). Returns the hidden states; saves them with
+    the cell states, and the backward shifts both by one step with the
+    initial state in front, as the JAX VJP does (``_vjp_bwd`` :194)."""
+
+    @staticmethod
+    def forward(ctx, xproj2, h02, c02, wh2):
+        hs, cs = bilstm_scan(xproj2, h02, c02, wh2)
+        ctx.save_for_backward(xproj2, h02, c02, wh2, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        xproj2, h02, c02, wh2, hs, cs = ctx.saved_tensors
+        h_prev2 = torch.cat([h02[:, :, None], hs[:, :, :-1]], dim=2)
+        c_prev2 = torch.cat([c02[:, :, None], cs[:, :, :-1]], dim=2)
+        return bilstm_scan_bwd(xproj2, h_prev2, c_prev2, dhs.contiguous(), wh2)

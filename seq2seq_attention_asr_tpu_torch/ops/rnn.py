@@ -84,20 +84,17 @@ def bilstm_layer(params: Params, x: torch.Tensor, lengths: Optional[torch.Tensor
     as the flip-free BiGRU does. As the JAX package's fused branch does:
     flip the backward direction's input about the lengths, project both
     directions, run one direction-stacked scan from zero states (kernel
-    K7, ops/cuda/lstm_scan.py), then flip the backward outputs back. The
-    outputs are not masked: the forward direction runs on into the
-    padding, as in the JAX package. Forward only; K7's backward comes
-    with the training slice, so under autograd this raises."""
+    K7 forward, kernel K9 backward: ops/cuda/lstm_scan.py), then flip the
+    backward outputs back. The flips are gathers and the projections
+    matmuls, which autograd differentiates. The outputs are not masked:
+    the forward direction runs on into the padding, as in the JAX
+    package."""
     if "w_peep" in params["fwd"] or "w_peep" in params["bwd"]:
         raise NotImplementedError("LSTM peepholes are not ported")
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            t.requires_grad for p in params.values() for t in p.values())):
-        raise NotImplementedError("bilstm_layer has no gradient yet: the BiLSTM scan's backward "
-                                  "(lstm_scan.py:145 of the JAX package) is not ported")
     h_dim = params["fwd"]["w_h"].shape[0]
     xproj2 = torch.stack([cells.lstm_input_proj(params["fwd"], x),
                           cells.lstm_input_proj(params["bwd"], _flip(x, lengths))])
     zeros = x.new_zeros((2, x.shape[0], h_dim))
     wh2 = torch.stack([params["fwd"]["w_h"], params["bwd"]["w_h"]])
-    hs, _ = lstm_scan.bilstm_scan(xproj2.contiguous(), zeros, zeros, wh2.contiguous())
+    hs = lstm_scan.BiLSTMScan.apply(xproj2.contiguous(), zeros, zeros, wh2.contiguous())
     return torch.cat([hs[0], _flip(hs[1], lengths)], dim=-1)

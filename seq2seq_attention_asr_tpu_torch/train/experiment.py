@@ -1,7 +1,7 @@
 """Experiment configs (seq2seq_attention_asr_tpu/train/experiment.py): a
 model choice with its kwargs, a TrainConfig and an OptimConfig, and the
 initialization the recipe asks for. The port has the canonical TIMIT
-recipe and the conv+BiLSTM TIMIT recipe (served, not trained yet); the
+recipe and the conv+BiLSTM TIMIT recipe, both served and trained; the
 others come with their model families."""
 
 from __future__ import annotations
@@ -71,10 +71,9 @@ def timit_conv_bilstm() -> Experiment:
     98-169): 3 x (conv k=3 + ReLU + maxpool 2), an 8x downsampling of
     time, BiLSTM(256, 128), location-aware attention (16 feature maps,
     filter 5) with an LSTM decoder of state 400; adadelta(0.95, 1e-8),
-    normalized NLL, orthogonal init. The port serves this model; its
-    training forward is not ported yet. The recipe's batch 16, 100 epochs
-    and beam K=5 belong to the trainer loop and the eval beam, which are
-    not ported yet."""
+    normalized NLL, orthogonal init. The port serves and trains this
+    model. The recipe's batch 16, 100 epochs and beam K=5 belong to the
+    trainer loop and the eval beam, which are not ported yet."""
     return Experiment(
         name="exp_timit_conv_bilstm",
         model="conv_bilstm",

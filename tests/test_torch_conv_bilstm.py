@@ -1,8 +1,13 @@
-"""The port's conv+BiLSTM model (serving) against the JAX package on the
-CPU: the temporal conv ops, the encoder, the recipe and PCM -> text.
+"""The port's conv+BiLSTM model against the JAX package on the CPU: the
+temporal conv ops, the encoder, the recipe and PCM -> text; the
+location-aware LSTM decoder's teacher-forced scan and the model's
+training forward, with their gradients.
 
 Tolerances: float32 forward rtol 2e-5 (atol 2e-6), the JAX package's
-parity tolerance; beam tokens identical, scores rtol 1e-5 (atol 1e-5).
+parity tolerance; beam tokens identical, scores rtol 1e-5 (atol 1e-5);
+teacher-forced logprobs and alpha rtol 1e-4 (atol 1e-5) and gradients of
+nll + 0.1 * sum(alpha^2) rtol 2e-4 (atol 2e-5), as
+tests/test_torch_train.py holds the flagship's.
 """
 
 import jax
@@ -14,11 +19,12 @@ import torch
 from seq2seq_attention_asr_tpu import serve as jserve
 from seq2seq_attention_asr_tpu.models import conv_bilstm as jcb
 from seq2seq_attention_asr_tpu.models import registry as jregistry
+from seq2seq_attention_asr_tpu.ops import attention as jatt
 from seq2seq_attention_asr_tpu.ops import conv as jconv
 from seq2seq_attention_asr_tpu.train import experiment as jexperiment
 from seq2seq_attention_asr_tpu_torch import interop, serve
 from seq2seq_attention_asr_tpu_torch.models import conv_bilstm, registry
-from seq2seq_attention_asr_tpu_torch.ops import conv
+from seq2seq_attention_asr_tpu_torch.ops import attention, conv
 from seq2seq_attention_asr_tpu_torch.train import experiment
 
 RTOL, ATOL = 2e-5, 2e-6
@@ -129,8 +135,94 @@ def test_recipe_matches_jax_and_initialises():
     torch.testing.assert_close(w_h @ w_h.T, torch.eye(4), rtol=0, atol=1e-5)
 
 
-def test_training_is_refused(models):
+def _objective(out, oh, dm):
+    nll = -(oh * out["logprobs"] * dm[..., None]).sum()
+    return nll + 0.1 * (out["alpha"] ** 2).sum()
+
+
+def _labels(b, t, v, label_lens, seed):
+    rng = np.random.RandomState(seed)
+    dm = (np.arange(t)[None] < np.asarray(label_lens)[:, None]).astype(np.float32)
+    return np.eye(v, dtype=np.float32)[rng.randint(0, v, (b, t))] * dm[..., None], dm
+
+
+def _check_grads(tree, grads, want, extra=()):
+    leaves = jax.tree.leaves(tree)
+    assert len(grads) == len(leaves) + len(extra)
+    for got, w in zip(grads, jax.tree.leaves(want) + list(extra)):
+        close(got, w, 2e-4, 2e-5)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_decode_teacher_forced_loc_lstm_matches_jax(backend):
+    """The recipe's decoder at small widths (LSTM, 4 feature maps, filter
+    5, linear -> relu -> linear readout); JAX's "pallas" backend is its
+    fused loc-LSTM scan in interpret mode (B = 8, L = 16)."""
+    kw = dict(score_depth=12, filt_size=5, feature_maps=4, state_depth=16, annotation_depth=16,
+              output_depth=7, cell="lstm", readout=(("linear", 14), ("relu",), ("linear", 7)))
+    jcfg, cfg = jatt.AttentionConfig(**kw), attention.AttentionConfig(**kw)
+    params = jax.tree.map(np.asarray, jatt.attention_init(jax.random.PRNGKey(4), jcfg))
+    lens = np.array([16, 11, 5, 16, 1, 9, 13, 16], np.int32)
+    h = (np.random.RandomState(5).randn(8, 16, 16) * 0.5).astype(np.float32)
+    oh, dm = _labels(8, 6, 7, [6, 3, 6, 1, 5, 6, 2, 4], 6)
+
+    def jloss_fn(p, hh):
+        out = jatt.decode_teacher_forced(p, jcfg, hh, jnp.asarray(lens), jnp.asarray(oh),
+                                         jnp.asarray(dm), backend=backend)
+        return _objective(out, oh, dm), out
+
+    (_, want), (wgp, wgh) = jax.value_and_grad(jloss_fn, argnums=(0, 1), has_aux=True)(
+        params, jnp.asarray(h))
+    tp = jax.tree.map(lambda t: t.requires_grad_(True), port(params))
+    th = torch.from_numpy(h).requires_grad_(True)
+    got = attention.decode_teacher_forced(tp, cfg, th, torch.from_numpy(lens),
+                                          torch.from_numpy(oh), torch.from_numpy(dm), train=True)
+    for key in ("logprobs", "alpha", "penalty"):
+        close(got[key].detach(), want[key], 1e-4, 1e-5)
+    grads = torch.autograd.grad(_objective(got, torch.from_numpy(oh), torch.from_numpy(dm)),
+                                jax.tree.leaves(tp) + [th])
+    _check_grads(tp, grads, wgp, [wgh])
+
+
+def _pool_ties(params, x):
+    """Max-pool windows, over the three conv blocks, whose two inputs
+    are equal and nonzero after the ReLU."""
+    ties, hh = 0, torch.from_numpy(x)
+    for name in ("conv1", "conv2", "conv3"):
+        r = torch.relu(conv.temporal_conv(params["encoder"][name], hh))
+        pairs = r[:, : r.shape[1] // 2 * 2].reshape(r.shape[0], -1, 2, r.shape[2])
+        ties += int(((pairs[:, :, 0] == pairs[:, :, 1]) & (pairs[:, :, 0] > 0)).sum())
+        hh = conv.temporal_max_pool(r, 2)
+    return ties
+
+
+def test_forward_matches_jax(models):
+    """The training forward, the JAX model through its Pallas BiLSTM and
+    loc-LSTM scans (interpret mode; 144 frames give L' = 16). The frames
+    past each row's length are zero, as the serving front end pads them,
+    so the conv stack gives equal positive values in the padding and the
+    max pools see ties. There the port's amax splits the gradient evenly
+    and JAX's reduce_window sends it to one input; the gradients agree
+    all the same, because the padding's cotangent is zero."""
     _, pmodel, params = models
-    with pytest.raises(NotImplementedError):
-        pmodel.forward(port(params), torch.zeros(1, 70, 123), torch.tensor([70]),
-                       torch.zeros(1, 3, 7), torch.ones(1, 3))
+    rng = np.random.RandomState(7)
+    lens = np.array([144, 101, 130, 96, 144, 117, 122, 99], np.int32)
+    x = rng.randn(8, 144, 123).astype(np.float32)
+    x *= (np.arange(144)[None, :, None] < lens[:, None, None])
+    oh, dm = _labels(8, 9, 7, [9, 5, 9, 2, 7, 9, 4, 6], 8)
+    assert _pool_ties(port(params), x) > 0
+    jcfg = jcb.ConvBiLSTMConfig(**DIMS, rnn_backend="pallas", attn_backend="pallas")
+
+    def jloss_fn(p):
+        out = jcb.forward(p, jcfg, *map(jnp.asarray, (x, lens, oh, dm)), train=True)
+        return _objective(out, oh, dm), out
+
+    (_, want), wg = jax.value_and_grad(jloss_fn, has_aux=True)(params)
+    tp = jax.tree.map(lambda t: t.requires_grad_(True), port(params))
+    got = pmodel.forward(tp, *map(torch.from_numpy, (x, lens, oh, dm)), train=True)
+    assert got["alpha"].shape == (8, 9, 16)
+    for key in ("logprobs", "alpha"):
+        close(got[key].detach(), want[key], 1e-4, 1e-5)
+    grads = torch.autograd.grad(_objective(got, torch.from_numpy(oh), torch.from_numpy(dm)),
+                                jax.tree.leaves(tp))
+    _check_grads(tp, grads, wg)

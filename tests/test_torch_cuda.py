@@ -105,7 +105,7 @@ def test_stft_logmel_power_kernel(card, b, n):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
-    from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan, logmel
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan, gru_scan, logmel, lstm_scan
 
     x = torch.zeros(2, 4, 12, device=card)
     w1, w2 = torch.zeros(2, 4, 8, device=card), torch.zeros(2, 4, 4, device=card)
@@ -117,6 +117,27 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         gru_scan.bigru_scan2(x, x.cpu(), w1, w2)
     with pytest.raises(ValueError):
         logmel.stft_logmel_power(torch.zeros(1, 100, device=card), 16000)
+    gen = torch.Generator().manual_seed(0)
+    x, hp, dys, wh = (_rand(gen, 2, 2, 3, 16), _rand(gen, 2, 2, 3, 4), _rand(gen, 2, 2, 3, 4),
+                      _rand(gen, 2, 4, 16))
+    with pytest.raises(TypeError):
+        lstm_scan.bilstm_scan_bwd(x.double(), hp.double(), hp.double(), dys.double(), wh.double())
+    with pytest.raises(ValueError):
+        lstm_scan.bilstm_scan_bwd(x, hp, hp, dys[:, :, :2].contiguous(), wh)
+    with pytest.raises(ValueError):
+        lstm_scan.bilstm_scan_bwd(x, hp, hp.cpu(), dys, wh)
+    vh, h, mask, yin, weights = _loc_lstm_case(card, gen, 2, 5, 3, 6, 4, 3, 2, 3)
+    with pytest.raises(TypeError):
+        attention_scan.attention_decode_scan_loc_lstm(vh, h, mask.double(), yin, *weights)
+    with pytest.raises(ValueError):
+        attention_scan.attention_decode_scan_loc_lstm(vh, h, mask, yin, *weights[:-1],
+                                                      weights[-1][:, :5].contiguous())
+    with pytest.raises(ValueError):
+        attention_scan.attention_decode_scan_loc_lstm(vh, h.cpu(), mask, yin, *weights)
+    outs = attention_scan.attention_decode_scan_loc_lstm_plain(vh, h, mask, yin, *weights)
+    with pytest.raises(ValueError):
+        attention_scan.attention_decode_scan_loc_lstm_bwd(
+            vh, h, mask, yin, *weights, *outs, outs[0][:, :2].contiguous(), None, None, None)
 
 
 @pytest.mark.parametrize("exact", [False, True])
@@ -377,3 +398,112 @@ def test_conv_bilstm_transcriber_on_the_card_matches_the_cpu(card, exact):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.ids, w.ids)
         assert abs(g.score - w.score) <= 1e-3
+
+
+@pytest.mark.parametrize("b,l,h", [(16, 16, 128), (3, 9, 40)])
+def test_bilstm_scan_bwd_kernel(card, b, l, h):
+    """K9 from nonzero initial states, h_prev and c_prev from K7's plain
+    forward shifted by one step, as BiLSTMScan forms them."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import lstm_scan
+
+    gen = torch.Generator().manual_seed(b * 17 + h)
+    xproj2 = _rand(gen, 2, b, l, 4 * h)
+    h02, c02 = _rand(gen, 2, b, h, scale=0.5), _rand(gen, 2, b, h, scale=0.5)
+    wh2 = _rand(gen, 2, h, 4 * h, scale=h ** -0.5)
+    hs, cs = lstm_scan.bilstm_scan_plain(xproj2, h02, c02, wh2)
+    h_prev = torch.cat([h02[:, :, None], hs[:, :, :-1]], dim=2)
+    c_prev = torch.cat([c02[:, :, None], cs[:, :, :-1]], dim=2)
+    args = (xproj2, h_prev, c_prev, _rand(gen, 2, b, l, h), wh2)
+    before = lstm_scan.KERNEL_BWD.launches
+    got = lstm_scan.bilstm_scan_bwd(*args)
+    want = lstm_scan.bilstm_scan_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert lstm_scan.KERNEL_BWD.launches == before + 1
+    _bwd_close(got, want, "bilstm_scan_bwd")
+
+
+def _loc_lstm_case(card, gen, b, l, t, s, a, st, fm, f):
+    """Loc-LSTM scan inputs with ragged encoder lengths, weights at the
+    scale of torch's default init."""
+    lens = torch.randint(1, l + 1, (b,), generator=gen).cuda()
+    lens[0] = l
+    mask = (torch.arange(l, device=card)[None] < lens[:, None]).float()
+    h = _rand(gen, b, l, a, scale=0.5) * mask[:, :, None]
+    u = lambda *shape: _rand(gen, *shape, scale=shape[0] ** -0.5)
+    vh = (h @ u(a, s)).contiguous()
+    weights = (u(st, s), u(st, s)[0], u(s, s)[0], u(a, st), u(a, st)[0], u(2 * st, st),
+               u(2 * st, st)[0], u(st, 4 * st), u(st, 4 * st), u(st, 4 * st)[0], u(f, fm),
+               u(f, fm)[0], u(fm, s))
+    return vh, h, mask, _rand(gen, b, t, st, scale=0.5), tuple(w.contiguous() for w in weights)
+
+
+# (B, L, T, (S, A, St, FM, F)): the conv+BiLSTM recipe's training shape,
+# and small odd widths with an even filter.
+LOC_LSTM_SCAN_CASES = [(16, 16, 56, (150, 256, 400, 16, 5)), (3, 13, 5, (17, 12, 9, 3, 4))]
+
+
+@pytest.mark.parametrize("case", range(len(LOC_LSTM_SCAN_CASES)))
+def test_attention_decode_scan_loc_lstm_kernels(card, case):
+    """K10 against its plain version (1e-4 abs), then K11 with cotangents
+    on s, c and alpha (and on mem, or none), against its plain version."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    b, l, t, (s, a, st, fm, f) = LOC_LSTM_SCAN_CASES[case]
+    gen = torch.Generator().manual_seed(b * 29 + l)
+    vh, h, mask, yin, weights = _loc_lstm_case(card, gen, b, l, t, s, a, st, fm, f)
+    fwd = attention_scan.KERNEL_LOC_LSTM_FWD.launches
+    bwd = attention_scan.KERNEL_LOC_LSTM_BWD.launches
+    got = attention_scan.attention_decode_scan_loc_lstm(vh, h, mask, yin, *weights)
+    want = attention_scan.attention_decode_scan_loc_lstm_plain(vh, h, mask, yin, *weights)
+    torch.cuda.synchronize()
+    assert attention_scan.KERNEL_LOC_LSTM_FWD.launches == fwd + 1
+    assert _max_err(got, want) <= TOL
+    for dmem in (None, _rand(gen, b, t, st)):
+        cot = (_rand(gen, b, t, st), _rand(gen, b, t, a), _rand(gen, b, t, l), dmem)
+        args = (vh, h, mask, yin, *weights, *want, *cot)
+        got_b = attention_scan.attention_decode_scan_loc_lstm_bwd(*args)
+        want_b = attention_scan.attention_decode_scan_loc_lstm_bwd_plain(*args)
+        torch.cuda.synchronize()
+        _bwd_close(got_b, want_b, "attention_decode_scan_loc_lstm_bwd")
+    assert attention_scan.KERNEL_LOC_LSTM_BWD.launches == bwd + 2
+
+
+def test_conv_bilstm_train_step_on_the_card_matches_the_cpu(card):
+    """Two steps of timit_conv_bilstm at small widths: one launch each of
+    K7, K9, K10 and K11 per card step and no other kernel; metrics within
+    1e-4 relative of the CPU run."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import (attention_scan, attention_step,
+                                                          gru_scan, logmel, lstm_scan)
+    from seq2seq_attention_asr_tpu_torch.train import experiment, optim, trainer
+
+    exp = experiment.timit_conv_bilstm()
+    exp.model_kwargs.update(input_frame_size=10, hidden_frame_size=32, output_frame_size=16,
+                            score_depth=24, feature_maps=4, state_depth=32, output_depth=9)
+    model = exp.build_model()
+    params = exp.init_params(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.RandomState(0)
+    batch = (torch.from_numpy(rng.randn(4, 80, 10).astype(np.float32)),
+             torch.tensor([80, 61, 72, 50]), torch.from_numpy(rng.randint(0, 9, (4, 6))),
+             (torch.arange(6)[None] < torch.tensor([6, 3, 5, 1])[:, None]).float())
+    kernels = (lstm_scan.KERNEL, lstm_scan.KERNEL_BWD, attention_scan.KERNEL_LOC_LSTM_FWD,
+               attention_scan.KERNEL_LOC_LSTM_BWD, gru_scan.KERNEL, gru_scan.KERNEL_BWD,
+               attention_scan.KERNEL_FWD, attention_scan.KERNEL_BWD, attention_step.KERNEL,
+               attention_step.KERNEL_LOC_LSTM, logmel.KERNEL)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tx = optim.build_optimizer(exp.optim)
+        init_fn, step_fn = trainer.make_train_step(model.forward, tx, exp.optim, exp.train,
+                                                   model.output_depth)
+        state = init_fn(interop.to_torch(params, dev), torch.Generator().manual_seed(1))
+        runs[dev] = []
+        for _ in range(2):
+            before = [k.launches for k in kernels]
+            state, m = step_fn(state, tuple(x.to(dev) for x in batch))
+            torch.cuda.synchronize()
+            launched = [k.launches - n for k, n in zip(kernels, before)]
+            assert launched == ([1, 1, 1, 1] + [0] * 7 if dev == "cuda" else [0] * 11)
+            runs[dev].append({k: float(v) for k, v in m.items()})
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        for key in ("loss", "nll", "grad_norm", "param_norm"):
+            assert abs(got[key] - want[key]) <= 1e-4 * abs(want[key]), (key, got, want)

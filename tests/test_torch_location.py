@@ -1,12 +1,17 @@
 """The port's location-aware attention and LSTM decoder against the JAX
 package on the CPU: the location term, the plain step, the plain
 version of the beam step (kernel K8's twin) against the Pallas kernel in
-interpret mode, and the beam search; and what the teacher-forced scan
-still refuses.
+interpret mode, and the beam search; the plain versions of the
+location-aware LSTM decoder scan (kernels K10 and K11) against the
+Pallas kernels in interpret mode (called directly with block_b=8, B = 8
+and L a multiple of 8) and autograd, and its autograd function against
+finite differences; and what the teacher-forced scan still refuses.
 
 Tolerances: float32 forward rtol 2e-5 (atol 2e-6), the JAX package's
 parity tolerance (tests/test_pallas.py); beam tokens and lengths
-identical, scores rtol 1e-5.
+identical, scores rtol 1e-5; the scan forward rtol 1e-4 (atol 1e-5) and
+its backward rtol 2e-4 (atol 2e-5), as tests/test_torch_train_kernels.py
+holds K4 and K5 (sums over steps and rows taken in another order).
 """
 
 import dataclasses
@@ -19,11 +24,12 @@ import torch
 
 from seq2seq_attention_asr_tpu.decode import beam as jbeam
 from seq2seq_attention_asr_tpu.ops import attention as jatt
+from seq2seq_attention_asr_tpu.ops.pallas import attention_scan as jas
 from seq2seq_attention_asr_tpu.ops.pallas import attention_step as jstep
 from seq2seq_attention_asr_tpu_torch import interop
 from seq2seq_attention_asr_tpu_torch.decode import beam
 from seq2seq_attention_asr_tpu_torch.ops import attention
-from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan, attention_step
 
 RTOL, ATOL = 2e-5, 2e-6
 MAXOUT = (("maxout", 8, 3), ("linear", 6))
@@ -150,11 +156,118 @@ def test_beam_search_lstm_location_matches_jax():
     assert len(set(got.lengths.tolist())) > 1
 
 
+# The location-aware LSTM decoder scan: B = 8 and L = 16 make JAX's
+# kernel run as the kernel.
+B, L, T, S, A, ST, FM = 8, 16, 6, 32, 24, 16, 4
+
+
+def _loc_scan_inputs(dtype=np.float32, b=B, l=L, t=T, s=S, a=A, st=ST, fm=FM, f=5,
+                     seed=0):
+    """(vh, h, enc_mask, yin, 13 weights) with ragged encoder lengths; the
+    weights as the port keeps them (1-D biases and w_e, LSTM w_h, w_x, b
+    apart, the conv taps (f, FM))."""
+    rng = np.random.RandomState(seed)
+    lens = np.array([l, l - 3, 5, l, 1, l - 7, 9, l][:b])
+    mask = (np.arange(l)[None] < lens[:, None]).astype(dtype)
+    h = rng.randn(b, l, a) * 0.5 * mask[:, :, None]
+    u = lambda *shape: rng.uniform(-1, 1, shape) / np.sqrt(shape[0])
+    vh = h @ u(a, s)
+    yin = rng.randn(b, t, st) * 0.5
+    weights = [u(st, s), u(st, s)[0], u(s, s)[0], u(a, st), u(a, st)[0], u(2 * st, st),
+               u(2 * st, st)[0], u(st, 4 * st), u(st, 4 * st), u(st, 4 * st)[0],
+               rng.uniform(-1, 1, (f, fm)) * 2, u(fm, fm)[0], u(fm, s)]
+    return [np.asarray(x, dtype) for x in (vh, h, mask, yin, *weights)]
+
+
+def _jax_loc_args(inputs):
+    """The JAX kernel's arguments: (1, X) biases and w_e, the LSTM's
+    concat([w_h, w_x]) and its bias row, then (wconv, bconv, u)."""
+    (vh, h, mask, yin, ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_h, w_x, b, wconv, bconv,
+     u) = map(jnp.asarray, inputs)
+    return (vh, h, mask, yin, ws_w, ws_b[None], w_e[None], c_w, c_b[None], dec_w, dec_b[None],
+            jnp.concatenate([w_h, w_x]), b[None], wconv, bconv[None], u)
+
+
+@pytest.mark.parametrize("filt", [5, 4])
+def test_loc_lstm_scan_plain_matches_pallas(filt):
+    """K10's plain version; filter 5 pads 2 and 2, filter 4 pads 2 and 1."""
+    inputs = _loc_scan_inputs(f=filt)
+    want = jas.attention_decode_scan_loc_lstm(*_jax_loc_args(inputs), 8, True)
+    got = attention_scan.attention_decode_scan_loc_lstm(*map(torch.from_numpy, inputs))
+    for name, g, w in zip(("s_seq", "c_seq", "alpha_seq", "mem_seq"), got, want):
+        close(g, w, 1e-4, 1e-5)
+    assert not got[2].numpy()[np.broadcast_to(inputs[2][:, None] == 0, got[2].shape)].any()
+
+
+def _grad_names():
+    return ("dvh", "dh", "dyin") + attention_scan.WEIGHTS_LOC_LSTM
+
+
+@pytest.mark.parametrize("reference", ["pallas_interpret", "torch_autograd"])
+def test_loc_lstm_scan_bwd_plain_matches(reference):
+    """K11's plain version with nonzero cotangents on s, c, alpha and mem
+    (the alpha one runs the cross-step carry through the location term),
+    against _run_bwd_loc in interpret mode on the Pallas forward's saved
+    sequences, and against autograd through the plain forward."""
+    inputs = _loc_scan_inputs(seed=1)
+    rng = np.random.RandomState(2)
+    cot = [rng.randn(B, T, n).astype(np.float32) for n in (ST, A, L, ST)]
+    tin = list(map(torch.from_numpy, inputs))
+    if reference == "pallas_interpret":
+        jargs = _jax_loc_args(inputs)
+        saved = jas.attention_decode_scan_loc_lstm(*jargs, 8, True)
+        s_seq, c_seq, alpha_seq, mem_seq = saved
+        want = list(jas._run_bwd_loc(*jargs, s_seq, c_seq, alpha_seq,
+                                     *map(jnp.asarray, cot[:3]), 8, True, cell="lstm",
+                                     mem_seq=mem_seq, dmem_seq=jnp.asarray(cot[3])))
+        dcell_w1, dcell_w2 = np.asarray(want[10]), np.asarray(want[11])
+        want[10:12] = [dcell_w1[:ST], dcell_w1[ST:], dcell_w2[0]]
+        saved = [torch.tensor(np.asarray(x)) for x in saved]
+    else:
+        args = [x.clone().requires_grad_(i != 2) for i, x in enumerate(tin)]
+        outs = attention_scan.attention_decode_scan_loc_lstm_plain(*args)
+        loss = sum((o * torch.from_numpy(c)).sum() for o, c in zip(outs, cot))
+        want = torch.autograd.grad(loss, [a for i, a in enumerate(args) if i != 2])
+        saved = [o.detach() for o in outs]
+    got = attention_scan.attention_decode_scan_loc_lstm_bwd(*tin, *saved,
+                                                            *map(torch.from_numpy, cot))
+    assert len(got) == len(want) == 16
+    for name, g, w in zip(_grad_names(), got, want):
+        close(g, np.asarray(w).reshape(g.shape), 2e-4, 2e-5)
+
+
+def test_loc_lstm_scan_autograd_function_passes_gradcheck():
+    inputs = _loc_scan_inputs(np.float64, b=2, l=5, t=3, s=4, a=3, st=2, fm=2, f=3, seed=3)
+    args = [torch.from_numpy(x) for x in inputs]
+    for i, x in enumerate(args):
+        if i != 2:  # enc_mask takes no gradient
+            x.requires_grad_(True)
+    assert torch.autograd.gradcheck(attention_scan.AttentionDecodeScanLocLSTM.apply, args)
+
+
+def test_loc_lstm_scan_missing_cotangents_count_as_zeros():
+    """The training loss reads s and c only: the unused alpha_seq and
+    mem_seq reach the backward as None and give the gradient of explicit
+    zero cotangents."""
+    inputs = _loc_scan_inputs(b=2, l=8, t=3, s=8, a=8, st=4, fm=3, seed=4)
+    args = [torch.from_numpy(x).requires_grad_(i != 2) for i, x in enumerate(inputs)]
+    diff = [a for i, a in enumerate(args) if i != 2]
+    s_seq, c_seq, alpha_seq, mem_seq = attention_scan.AttentionDecodeScanLocLSTM.apply(*args)
+    got = torch.autograd.grad(s_seq.square().sum() + c_seq.sum(), diff)
+    outs = attention_scan.AttentionDecodeScanLocLSTM.apply(*args)
+    want = torch.autograd.grad(outs[0].square().sum() + outs[1].sum() + 0 * outs[2].sum()
+                               + 0 * outs[3].sum(), diff)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("train", [False, True])
-@pytest.mark.parametrize("cell,fm", [("gru", 4), ("lstm", 0), ("lstm", 4)])
+@pytest.mark.parametrize("cell,fm", [("gru", 4), ("lstm", 0)])
 def test_teacher_forced_scan_refuses_location_and_lstm(cell, fm, train):
-    """K4/K5 are the content-only GRU scan: a location-aware or LSTM
-    decoder must be refused, not run without its location term or cell."""
+    """The scan kernels are the content-only GRU's (K4, K5) and the
+    location-aware LSTM's (K10, K11): a location-aware GRU or a
+    content-only LSTM decoder must be refused, not run without its
+    location term or with the wrong cell."""
     _, cfg = configs(cell, fm)
     params = attention.attention_init(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(NotImplementedError):

@@ -1,12 +1,14 @@
 """The port's LSTM pieces against the JAX package on the CPU: per-row
-flips, the LSTM cell and layer, the plain version of the BiLSTM scan
-(kernel K7's twin) against the Pallas kernel in interpret mode, the
-BiLSTM layer against both JAX backends, and the LSTM branch of the
-orthogonal init.
+flips, the LSTM cell and layer, the plain versions of the BiLSTM scan
+(kernel K7's twin) and of its backward (kernel K9's twin) against the
+Pallas kernels in interpret mode, ``BiLSTMScan`` against finite
+differences, the BiLSTM layer and its gradient against both JAX
+backends, and the LSTM branch of the orthogonal init.
 
 Tolerances: float32 forward rtol 2e-5 (atol 2e-6), the JAX package's
-parity tolerance (tests/test_pallas.py:210-221); orthogonalization
-within 1e-6.
+parity tolerance (tests/test_pallas.py:210-221); gradients rtol 2e-4
+(atol 2e-5), sums over B*L rows taken in another order;
+orthogonalization within 1e-6.
 """
 
 import jax
@@ -26,6 +28,7 @@ from seq2seq_attention_asr_tpu_torch.ops.cuda import lstm_scan
 from seq2seq_attention_asr_tpu_torch.train import initializers
 
 RTOL, ATOL = 2e-5, 2e-6
+GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5
 
 
 def port(tree):
@@ -110,13 +113,75 @@ def test_bilstm_layer_matches_jax(backend):
     close(got, want)
 
 
-def test_bilstm_layer_refuses_autograd():
-    params = port(jrnn.bilstm_init(jax.random.PRNGKey(7), 4, 8))
-    x = torch.zeros(2, 3, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        rnn.bilstm_layer(params, x, torch.tensor([3, 2]))
-    with torch.no_grad():
-        assert rnn.bilstm_layer(params, x, torch.tensor([3, 2])).shape == (2, 3, 16)
+def _scan_bwd_inputs(dtype=np.float32, b=3, l=9, h=16, seed=6):
+    """(xproj2, h02, c02, wh2) and a cotangent of the hidden states."""
+    rng = np.random.RandomState(seed)
+    xproj2 = rng.randn(2, b, l, 4 * h)
+    h02 = rng.randn(2, b, h) * 0.5
+    c02 = rng.randn(2, b, h) * 0.5
+    wh2 = rng.randn(2, h, 4 * h) * 0.25
+    dys2 = rng.randn(2, b, l, h)
+    return [a.astype(dtype) for a in (xproj2, h02, c02, wh2)], dys2.astype(dtype)
+
+
+def _shifted(first, seq):
+    """The state each step starts from: `first` at step 0, seq[t-1] after."""
+    return np.concatenate([np.asarray(first)[:, :, None], np.asarray(seq)[:, :, :-1]], axis=2)
+
+
+@pytest.mark.parametrize("reference", ["pallas_interpret", "torch_autograd"])
+def test_bilstm_scan_bwd_plain_matches(reference):
+    """K9's plain version from nonzero initial states: against the Pallas
+    backward (_run_bwd) on the Pallas forward's saved states, and against
+    autograd through the plain forward."""
+    inputs, dys2 = _scan_bwd_inputs()
+    xproj2, h02, c02, wh2 = inputs
+    if reference == "pallas_interpret":
+        hs, cs = jls._run_fwd(*map(jnp.asarray, inputs), interpret=True)
+        h_prev, c_prev = _shifted(h02, hs), _shifted(c02, cs)
+        want = jls._run_bwd(*map(jnp.asarray, (xproj2, h_prev, c_prev, dys2, wh2)),
+                            interpret=True)
+    else:
+        args = [torch.from_numpy(a).requires_grad_(True) for a in inputs]
+        hs, cs = lstm_scan.bilstm_scan_plain(*args)
+        want = torch.autograd.grad((hs * torch.from_numpy(dys2)).sum(), args)
+        h_prev, c_prev = _shifted(h02, hs.detach()), _shifted(c02, cs.detach())
+    got = lstm_scan.bilstm_scan_bwd(*map(torch.from_numpy, (xproj2, h_prev, c_prev, dys2, wh2)))
+    for name, g, w in zip(("dxproj2", "dh02", "dc02", "dwh2"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   err_msg=name)
+
+
+def test_bilstm_scan_autograd_function_passes_gradcheck():
+    inputs, _ = _scan_bwd_inputs(np.float64, b=2, l=4, h=3, seed=7)
+    args = [torch.from_numpy(a).requires_grad_(True) for a in inputs]
+    assert torch.autograd.gradcheck(lstm_scan.BiLSTMScan.apply, args)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_bilstm_layer_gradient_matches_jax(backend):
+    """The gradient of sum(y * w) for a random w, with ragged lengths,
+    with respect to the input and every weight, against jax.grad of the
+    JAX layer; w reaches the padding, so the cotangent is nonzero there
+    too."""
+    params = jrnn.bilstm_init(jax.random.PRNGKey(9), 16, 128)
+    rng = np.random.RandomState(10)
+    x = rng.randn(8, 6, 16).astype(np.float32)
+    w = rng.randn(8, 6, 256).astype(np.float32)
+    lens = np.array([6, 4, 3, 6, 5, 2, 6, 1], np.int32)
+
+    def jloss(p, xx):
+        return jnp.sum(jrnn.bilstm_layer(p, xx, jnp.asarray(lens), backend=backend) * w)
+
+    wgp, wgx = jax.grad(jloss, argnums=(0, 1))(params, jnp.asarray(x))
+    tp = jax.tree.map(lambda t: t.requires_grad_(True), port(params))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    y = rnn.bilstm_layer(tp, tx, torch.from_numpy(lens))
+    leaves = jax.tree.leaves(tp)
+    grads = torch.autograd.grad((y * torch.from_numpy(w)).sum(), leaves + [tx])
+    close(grads[-1], wgx, GRAD_RTOL, GRAD_ATOL)
+    for g, want in zip(grads[:-1], jax.tree.leaves(wgp)):
+        close(g, want, GRAD_RTOL, GRAD_ATOL)
 
 
 def test_lstm_orthogonalization_matches_jax():

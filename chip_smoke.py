@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU: PCM -> text serving
 and training of the flagship Chorowski model and of the conv+BiLSTM
-TIMIT model, through their eleven CUDA kernels.
+TIMIT model, and training of each with the other decoder (the flagship
+with location-aware attention, the conv+BiLSTM model without it),
+through their fifteen CUDA kernels.
 
     python3 chip_smoke.py
 
 Phases, each fatal when it fails:
   1. the card's name and power limit (nvidia-smi);
-  2. build the eleven kernels from csrc/ (one nvcc per source, in parallel);
+  2. build the fifteen kernels from csrc/ (one nvcc per source, in parallel);
   3. hold each kernel to its plain PyTorch version through its public
      wrapper: K1-K3 at the flagship's serving shapes, batch 1 and 8 (max
      abs error 1e-4); K4 (1e-4 abs) and K5, K6 (max|got - plain| <= 5e-4
@@ -22,7 +24,13 @@ Phases, each fatal when it fails:
      and K8's content-only GRU instance on K2's inputs; K9 and K11 (the
      backward tolerance) and K10 (1e-4 abs) at the conv+BiLSTM recipe's
      training shape, B = 16, 144 frames (L' = 16), T = 56, on the conv
-     stack's and the encoder's output of the same batch;
+     stack's and the encoder's output of the same batch; K12 (1e-4 abs)
+     and K13 (the backward tolerance), the location-aware GRU decoder
+     scan, at the flagship's training shape on the encoder output of the
+     flagship with 16 feature maps of filter 10 (flagship_loc), and K14
+     and K15, the content-only LSTM decoder scan, at the conv+BiLSTM
+     recipe's training shape on the encoder output of that recipe without
+     the location term (conv_bilstm_content);
   4. serve 3.5 s of PCM with seeded random flagship weights: exact=False
      at batch 1 and 8 (kernels K1, K2, K3), exact=True at batch 1 (K1,
      K2), with the launch counts zeroed just before each request;
@@ -45,7 +53,10 @@ Phases, each fatal when it fails:
      the last with a lower loss than the first; then the same for the
      recipe timit_conv_bilstm (orthogonal init from seed 0), with exactly
      one launch each of K7, K9, K10 and K11 per step and none of K1-K6,
-     K8;
+     K8; then for flagship_loc (the first recipe with
+     model_kwargs["feature_maps"] = 16), 3 / 3 / 1 / 1 launches of K1 /
+     K6 / K12 / K13; and for conv_bilstm_content (the second with
+     model_kwargs["feature_maps"] = 0), one each of K7, K9, K14 and K15;
   7. kernel (device), wrapper-call, plain-version and bound times per
      kernel; for K7 also cuDNN's bidirectional LSTM on the same input
      (library_ms: the device time of every op it starts; a yardstick the
@@ -57,7 +68,9 @@ Phases, each fatal when it fails:
      device idle share: 1 - (device time of one request) / p50; the p50
      train step of each recipe over 10
      steps after 3 warm-up steps at B = 16 and 128, audio seconds per
-     second, the device time of one step by kernel and its idle share;
+     second, the device time of one step by kernel, each weight-gradient
+     reduction's, and its idle share, for each of the four trained
+     configurations;
   9. one {"kernels": [...]} JSON line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
@@ -108,6 +121,10 @@ STEP_LAUNCHES = {"bigru_scan2": 3, "bigru_scan2_bwd": 3, "attention_decode_scan_
 CB_STEP_LAUNCHES = {"bilstm_scan": 1, "bilstm_scan_bwd": 1,
                     "attention_decode_scan_loc_lstm_fwd": 1,
                     "attention_decode_scan_loc_lstm_bwd": 1}
+LOC_STEP_LAUNCHES = {"bigru_scan2": 3, "bigru_scan2_bwd": 3, "attention_decode_scan_loc_fwd": 1,
+                     "attention_decode_scan_loc_bwd": 1}
+CBC_STEP_LAUNCHES = {"bilstm_scan": 1, "bilstm_scan_bwd": 1, "attention_decode_scan_lstm_fwd": 1,
+                     "attention_decode_scan_lstm_bwd": 1}
 CB_PAD_LEN = 130  # encoder frames of the 3.5 s PCM: 110, padded to 112, plus 2 x 10 pad frames
 # Tried in turn on the CPU for the conv+BiLSTM eos request, smallest
 # first: with seed 0, 0.02 ends 2 of 8 best hypotheses on eos while the
@@ -119,6 +136,10 @@ STEP_KERNELS = ("bigru_scan2_bwd_kernel", "bigru_scan2_kernel", "scan_fwd_kernel
                 "scan_bwd_kernel", "atb_kernel")
 CB_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "bilstm_scan_kernel", "loc_lstm_fwd_kernel",
                    "loc_lstm_bwd_kernel", "atb_kernel")
+LOC_STEP_KERNELS = ("bigru_scan2_bwd_kernel", "bigru_scan2_kernel", "scan_loc_gru_fwd_kernel",
+                    "scan_loc_gru_bwd_kernel", "atb_kernel")
+CBC_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "bilstm_scan_kernel", "scan_lstm_fwd_kernel",
+                    "scan_lstm_bwd_kernel", "atb_kernel")
 
 REPLACES = {
     "bigru_scan2": "seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:666",
@@ -134,6 +155,10 @@ REPLACES = {
         "seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:254",
     "attention_decode_scan_loc_lstm_bwd":
         "seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:624",
+    "attention_decode_scan_loc_fwd": "seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:219",
+    "attention_decode_scan_loc_bwd": "seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:710",
+    "attention_decode_scan_lstm_fwd": "seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:189",
+    "attention_decode_scan_lstm_bwd": "seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:577",
 }
 SOURCES = {
     "bigru_scan2": "seq2seq_attention_asr_tpu_torch/csrc/bigru_scan2.cu",
@@ -149,6 +174,14 @@ SOURCES = {
         "seq2seq_attention_asr_tpu_torch/csrc/attention_scan_loc_lstm.cu",
     "attention_decode_scan_loc_lstm_bwd":
         "seq2seq_attention_asr_tpu_torch/csrc/attention_scan_loc_lstm.cu",
+    "attention_decode_scan_loc_fwd":
+        "seq2seq_attention_asr_tpu_torch/csrc/attention_scan_loc_lstm.cu",
+    "attention_decode_scan_loc_bwd":
+        "seq2seq_attention_asr_tpu_torch/csrc/attention_scan_loc_lstm.cu",
+    "attention_decode_scan_lstm_fwd":
+        "seq2seq_attention_asr_tpu_torch/csrc/attention_scan_loc_lstm.cu",
+    "attention_decode_scan_lstm_bwd":
+        "seq2seq_attention_asr_tpu_torch/csrc/attention_scan_loc_lstm.cu",
 }
 NO_LIBRARY = {
     "bigru_scan2": "cuDNN's GRU carries biases and applies the reset gate after its matmul",
@@ -163,6 +196,13 @@ NO_LIBRARY = {
                                           "attention decoder scan",
     "attention_decode_scan_loc_lstm_bwd": "no PyTorch call computes the location-aware LSTM "
                                           "attention decoder scan's backward",
+    "attention_decode_scan_loc_fwd": "no PyTorch call computes the location-aware GRU attention "
+                                     "decoder scan",
+    "attention_decode_scan_loc_bwd": "no PyTorch call computes the location-aware GRU attention "
+                                     "decoder scan's backward",
+    "attention_decode_scan_lstm_fwd": "no PyTorch call computes the LSTM attention decoder scan",
+    "attention_decode_scan_lstm_bwd": "no PyTorch call computes the LSTM attention decoder scan's "
+                                      "backward",
 }
 
 
@@ -569,8 +609,10 @@ def shape_tag(key) -> str:
     """The shape a case ran at: its batch, or a training shape."""
     if key == "train":
         return f"B={TRAIN_B} L={TRAIN_L} T={TRAIN_T}"
-    if key == "cbtrain":
+    if key in ("cbtrain", "cbctrain"):
         return f"B={TRAIN_B} {TRAIN_L} frames T={TRAIN_T}"
+    if key == "loctrain":
+        return f"B={TRAIN_B} L={TRAIN_L} T={TRAIN_T}, 16 maps, filter 10"
     return f"B={key}"
 
 
@@ -693,8 +735,8 @@ def cb_train_cases(params, cfg, batch, gen: torch.Generator):
     and alpha (so that alpha's carry through the location term runs) and
     none on mem, as on the path."""
     from seq2seq_attention_asr_tpu_torch.models import conv_bilstm
-    from seq2seq_attention_asr_tpu_torch.ops import attention, cells, conv, readout
-    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan, lstm_scan
+    from seq2seq_attention_asr_tpu_torch.ops import cells, conv
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import lstm_scan
     from seq2seq_attention_asr_tpu_torch.ops.masking import flip_sequences, length_mask
 
     dev = torch.device("cuda")
@@ -737,46 +779,82 @@ def cb_train_cases(params, cfg, batch, gen: torch.Generator):
         library=cudnn_bilstm_bwd(p, hc, torch.cat([dys[0], dys[1]], dim=-1)),
     )
 
-    dec = params["decoder"]
+    return [k9] + decoder_scan_cases("loc_lstm", params["decoder"], cfg.output_depth, h_enc,
+                                     enc_mask, y, dec_mask, gen)
+
+
+# The kernels of each teacher-forced decoder scan that shares
+# attention_scan_loc_lstm.cu: (forward name, its trace symbols, backward
+# name, its trace symbols: the walk, then one reduction over the steps
+# and, with the location term, one over the (step, position) pairs).
+DECODER_SCANS = {
+    "loc_lstm": ("attention_decode_scan_loc_lstm_fwd", ("loc_lstm_fwd_kernel",),
+                 "attention_decode_scan_loc_lstm_bwd",
+                 ("loc_lstm_bwd_kernel", "atb_kernel", "atb_kernel")),
+    "loc": ("attention_decode_scan_loc_fwd", ("scan_loc_gru_fwd_kernel",),
+            "attention_decode_scan_loc_bwd",
+            ("scan_loc_gru_bwd_kernel", "atb_kernel", "atb_kernel")),
+    "lstm": ("attention_decode_scan_lstm_fwd", ("scan_lstm_fwd_kernel",),
+             "attention_decode_scan_lstm_bwd", ("scan_lstm_bwd_kernel", "atb_kernel")),
+}
+
+
+def decoder_scan_cases(kind, dec, output_depth, h, enc_mask, y, dec_mask, gen):
+    """The forward and backward kernels of the decoder scan `kind` (a key
+    of DECODER_SCANS: K10 and K11, K12 and K13, or K14 and K15) on the
+    annotations h (B, L, A) of a training batch (labels y, mask dec_mask),
+    for the decoder weights `dec`. The backward gets random cotangents on
+    s, c and alpha, zero past each row's label length (alpha's runs the
+    carry through the location term), and none on mem, as on the path."""
+    from seq2seq_attention_asr_tpu_torch.ops import attention, readout
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    b, l, a = h.shape
+    t_len = y.shape[1]
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(h.device)
+    lstm, loc = kind != "loc", kind != "lstm"
     with torch.no_grad():
-        vh = attention.precompute_vh(dec, h_enc).contiguous()
-        onehot = (torch.nn.functional.one_hot(y.long(), cfg.output_depth).float()
+        vh = attention.precompute_vh(dec, h).contiguous()
+        onehot = (torch.nn.functional.one_hot(y.long(), output_depth).float()
                   * dec_mask[..., None])
         y_prev = torch.cat([torch.zeros_like(onehot[:, :1]), onehot[:, :-1]], dim=1)
         yin = readout.linear_apply(dec["y_in"], y_prev).contiguous()
     cell = dec["cell"]
     weights = (dec["ws"]["w"], dec["ws"]["b"], dec["w_e"], dec["c_in"]["w"], dec["c_in"]["b"],
-               dec["dec_in"]["w"], dec["dec_in"]["b"], cell["w_h"], cell["w_x"], cell["b"],
-               dec["loc_conv"]["w"][:, 0, :], dec["loc_conv"]["b"], dec["u"])
-    s_dim, a, st = vh.shape[2], h_enc.shape[2], yin.shape[2]
-    fm, f = dec["u"].shape[0], weights[10].shape[0]
-    scan_args = (vh, h_enc, enc_mask, yin, *weights)
+               dec["dec_in"]["w"], dec["dec_in"]["b"])
+    weights += (cell["w_h"], cell["w_x"], cell["b"]) if lstm else (cell["w_zr"], cell["w_h"])
+    if loc:
+        weights += (dec["loc_conv"]["w"][:, 0, :], dec["loc_conv"]["b"], dec["u"])
+    s_dim, st = vh.shape[2], yin.shape[2]
+    fm, f = (dec["u"].shape[0], dec["loc_conv"]["w"].shape[0]) if loc else (0, 0)
+    scan_args = (vh, h, enc_mask, yin, *weights)
     w_floats = sum(w.numel() for w in weights)
     steps = b * t_len
     # One step's weight products (s -> Ws, c_in, dec_in, the LSTM's two
-    # gate products), as multiply-adds; the location features and UF.
-    step_mv = st * s_dim + a * st + 2 * st * st + 8 * st * st
+    # gate products or the GRU's gates and candidate), as multiply-adds;
+    # the location features and UF.
+    step_mv = st * s_dim + a * st + 2 * st * st + (8 * st * st if lstm else 6 * st * st)
     loc_flops = 2 * l * fm * f + 2 * l * s_dim * fm
     in_floats = b * l * (s_dim + a + 1) + steps * st + w_floats
-    k10 = Case(
-        "attention_decode_scan_loc_lstm_fwd", ("loc_lstm_fwd_kernel",),
-        attention_scan.attention_decode_scan_loc_lstm,
-        attention_scan.attention_decode_scan_loc_lstm_plain, scan_args,
+    out_floats = steps * ((2 if lstm else 1) * st + a + l)  # s, c, alpha, and mem
+    fwd_name, fwd_symbols, bwd_name, bwd_symbols = DECODER_SCANS[kind]
+    fwd = Case(
+        fwd_name, fwd_symbols, getattr(attention_scan, fwd_name[:-4]),
+        getattr(attention_scan, fwd_name[:-4] + "_plain"), scan_args,
         # Per step: energies (add, tanh, multiply-add) 4 L S, the location
         # term, context 2 L A, the weight products, softmax ~5 L and ~10 St
         # elementwise.
         flops=steps * (4 * l * s_dim + loc_flops + 2 * l * a + 2 * step_mv + 5 * l + 10 * st),
-        nbytes=4 * (in_floats + steps * (2 * st + a + l)),
+        nbytes=4 * (in_floats + out_floats),
     )
     with torch.no_grad():
-        saved = attention_scan.attention_decode_scan_loc_lstm_plain(*scan_args)
+        saved = fwd.plain(*scan_args)
     m = dec_mask[..., None]
-    cot = (rnd(b, t_len, st) * m, rnd(b, t_len, a) * m, rnd(b, t_len, l) * m, None)
-    k11 = Case(
-        "attention_decode_scan_loc_lstm_bwd",
-        ("loc_lstm_bwd_kernel", "atb_kernel", "atb_kernel"),
-        attention_scan.attention_decode_scan_loc_lstm_bwd,
-        attention_scan.attention_decode_scan_loc_lstm_bwd_plain, (*scan_args, *saved, *cot),
+    cot = (rnd(b, t_len, st) * m, rnd(b, t_len, a) * m, rnd(b, t_len, l) * m,
+           None)[:4 if lstm else 3]
+    bwd = Case(
+        bwd_name, bwd_symbols, getattr(attention_scan, bwd_name),
+        getattr(attention_scan, bwd_name + "_plain"), (*scan_args, *saved, *cot),
         # Per step: the recompute (the weight products, the location
         # features and UF), the energies' backward (~8 L S), dfeat and
         # alpha_prev's cotangent, the context's backward (4 L A), the
@@ -784,12 +862,59 @@ def cb_train_cases(params, cfg, batch, gen: torch.Generator):
         # the weight-gradient outer products (2 x 2 step_mv), dU and dwconv.
         flops=steps * (6 * step_mv + 8 * l * s_dim + 3 * loc_flops + 4 * l * a + 4 * l
                        + 30 * st),
-        nbytes=4 * (in_floats + steps * (2 * st + a + l)  # inputs and saved sequences
+        nbytes=4 * (in_floats + out_floats  # inputs and saved sequences
                     + steps * (st + a + l)  # the cotangents of s, c and alpha
                     + b * l * (s_dim + a) + steps * st + w_floats),  # dvh, dh, dyin, dW
         backward=True,
     )
-    return [k9, k10, k11]
+    return [fwd, bwd]
+
+
+def loc_train_cases(params, cfg, batch, gen: torch.Generator):
+    """K12 and K13 at the flagship's training shape, for the flagship_loc
+    model of `cfg` with weights `params`, on the batch's encoder output
+    (computed without gradient)."""
+    from seq2seq_attention_asr_tpu_torch.models import chorowski
+    from seq2seq_attention_asr_tpu_torch.ops.masking import length_mask
+
+    x, x_len, y, dec_mask = (t.cuda() for t in batch)
+    with torch.no_grad():
+        h = chorowski.encode(params, cfg, x, x_len).contiguous()
+    return decoder_scan_cases("loc", params["decoder"], cfg.output_depth, h,
+                              length_mask(x_len, x.shape[1]), y, dec_mask, gen)
+
+
+def cbc_train_cases(params, cfg, batch, gen: torch.Generator):
+    """K14 and K15 at the conv+BiLSTM recipe's training shape, for the
+    conv_bilstm_content model of `cfg` with weights `params`, on the
+    batch's encoder output (computed without gradient)."""
+    from seq2seq_attention_asr_tpu_torch.models import conv_bilstm
+    from seq2seq_attention_asr_tpu_torch.ops.masking import length_mask
+
+    x, x_len, y, dec_mask = (t.cuda() for t in batch)
+    with torch.no_grad():
+        h, lens = conv_bilstm.encode(params, cfg, x, x_len)
+    return decoder_scan_cases("lstm", params["decoder"], cfg.output_depth, h.contiguous(),
+                              length_mask(lens, h.shape[1]), y, dec_mask, gen)
+
+
+def flagship_loc():
+    """The flagship recipe with location-aware attention: 16 feature maps,
+    the recipe's filter of 10, column-norm on."""
+    from seq2seq_attention_asr_tpu_torch.train import experiment
+
+    exp = experiment.timit_chorowski_normnll_colnorm()
+    exp.model_kwargs["feature_maps"] = 16
+    return exp
+
+
+def conv_bilstm_content():
+    """The conv+BiLSTM recipe without the location term."""
+    from seq2seq_attention_asr_tpu_torch.train import experiment
+
+    exp = experiment.timit_conv_bilstm()
+    exp.model_kwargs["feature_maps"] = 0
+    return exp
 
 
 def make_trainer(recipe, params_cpu, device: str):
@@ -888,7 +1013,7 @@ def train_timing(recipe, params_cpu, b: int, card: str, step_kernels, label: str
           f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB ({card})")
     # The step's device time by kernel; atb_kernel is the weight-gradient
     # reduction of the backward kernels (K5 one launch and K6 three; K9
-    # one and K11 two).
+    # one and K11 two; K13 two and K6 three; K9 and K15 one each).
     groups = {}
     for e in dev_events:
         key = next((s for s in step_kernels if s in e.name), "other device ops")
@@ -897,6 +1022,13 @@ def train_timing(recipe, params_cpu, b: int, card: str, step_kernels, label: str
     print(f"train {label} step B={b}: device time by kernel: " + ", ".join(
         f"{key} {ms:.2f} ms in {n} ({ms / busy:.1%})"
         for key, (n, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1])))
+    # Each reduction in launch order: the decoder's backward comes first
+    # (its reduction over the steps, then, with the location term, the
+    # one over the (step, position) pairs), then the encoder's.
+    atb = sorted((e for e in dev_events if "atb_kernel" in e.name),
+                 key=lambda e: e.time_range.start)
+    print(f"train {label} step B={b}: atb_kernel launches in order: "
+          + ", ".join(f"{e.time_range.elapsed_us() / 1e3:.3f}" for e in atb) + " ms")
     # One more step traced on the host too: the CUDA runtime calls it
     # makes, by name; a call that waits for the device shows here.
     with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1041,7 +1173,10 @@ def main() -> int:
                                    attention_scan.KERNEL_BWD, lstm_scan.KERNEL,
                                    attention_step.KERNEL_LOC_LSTM, lstm_scan.KERNEL_BWD,
                                    attention_scan.KERNEL_LOC_LSTM_FWD,
-                                   attention_scan.KERNEL_LOC_LSTM_BWD)}
+                                   attention_scan.KERNEL_LOC_LSTM_BWD,
+                                   attention_scan.KERNEL_LOC_FWD, attention_scan.KERNEL_LOC_BWD,
+                                   attention_scan.KERNEL_LSTM_FWD,
+                                   attention_scan.KERNEL_LSTM_BWD)}
     t0 = time.perf_counter()
     build.build_all(kernels.values())
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(kernels)} kernels")
@@ -1068,6 +1203,10 @@ def main() -> int:
         torch.Generator().manual_seed(SEED))["decoder"]
     noloc_dec = registry.build("conv_bilstm", feature_maps=0).init(
         torch.Generator().manual_seed(SEED))["decoder"]
+    # The two recipes with the other decoder, their orthogonal init from the seed.
+    loc_params_cpu = flagship_loc().init_params(torch.Generator().manual_seed(SEED), device="cpu")
+    cbc_params_cpu = conv_bilstm_content().init_params(torch.Generator().manual_seed(SEED),
+                                                       device="cpu")
 
     pcms = make_pcm(8, SEED + 2)
     feats = features.logmel_rfft(torch.from_numpy(np.stack(pcms)), SR)
@@ -1077,7 +1216,8 @@ def main() -> int:
 
     # Phase 3: each kernel against its plain version, at the serving
     # shapes (K1-K3, K7, K8) and at the training shapes (K4-K6 for the
-    # flagship, K9-K11 for the conv+BiLSTM recipe).
+    # flagship, K9-K11 for the conv+BiLSTM recipe, K12 and K13 for
+    # flagship_loc, K14 and K15 for conv_bilstm_content).
     errs = {name: 0.0 for name in kernels}
     timing, with_proj = {}, {}
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -1091,6 +1231,12 @@ def main() -> int:
                                      recipe.build_model().cfg, train_batch(TRAIN_B, SEED + 3), gen)
     all_cases["cbtrain"] = cb_train_cases(cb_params, cb_model.cfg, train_batch(TRAIN_B, SEED + 3),
                                           gen)
+    all_cases["loctrain"] = loc_train_cases(interop.to_torch(loc_params_cpu, "cuda"),
+                                            flagship_loc().build_model().cfg,
+                                            train_batch(TRAIN_B, SEED + 3), gen)
+    all_cases["cbctrain"] = cbc_train_cases(interop.to_torch(cbc_params_cpu, "cuda"),
+                                            conv_bilstm_content().build_model().cfg,
+                                            train_batch(TRAIN_B, SEED + 3), gen)
     for b, cs in all_cases.items():
         for c in cs:
             with torch.no_grad():
@@ -1137,13 +1283,19 @@ def main() -> int:
                                  train_params, STEP_LAUNCHES, "chorowski")
     cb_train_launches = train_phase(kernels, experiment.timit_conv_bilstm, cb_params_cpu,
                                     CB_STEP_LAUNCHES, "conv_bilstm")
+    loc_train_launches = train_phase(kernels, flagship_loc, loc_params_cpu, LOC_STEP_LAUNCHES,
+                                     "flagship_loc")
+    cbc_train_launches = train_phase(kernels, conv_bilstm_content, cbc_params_cpu,
+                                     CBC_STEP_LAUNCHES, "conv_bilstm_content")
 
     # Phase 7: times at the shapes of each kernel's path, kernel and plain in turns.
     iters = {"bigru_scan2": 20, "fused_attention_step": 200, "stft_logmel_power": 200,
              "bigru_scan2_bwd": 10, "attention_decode_scan_fwd": 10,
              "attention_decode_scan_bwd": 10, "bilstm_scan": 200,
              "fused_attention_step_loc_lstm": 100, "bilstm_scan_bwd": 100,
-             "attention_decode_scan_loc_lstm_fwd": 10, "attention_decode_scan_loc_lstm_bwd": 10}
+             "attention_decode_scan_loc_lstm_fwd": 10, "attention_decode_scan_loc_lstm_bwd": 10,
+             "attention_decode_scan_loc_fwd": 10, "attention_decode_scan_loc_bwd": 10,
+             "attention_decode_scan_lstm_fwd": 10, "attention_decode_scan_lstm_bwd": 10}
     library = {}
     for b, cs in all_cases.items():
         for c in cs:
@@ -1200,7 +1352,9 @@ def main() -> int:
     serve_timing("conv_bilstm", cb_model, cb_params, pcms, kw, [(False, 1), (False, 8)], card)
     for recipe, weights_cpu, step_kernels, label in (
             (experiment.timit_chorowski_normnll_colnorm, train_params, STEP_KERNELS, "chorowski"),
-            (experiment.timit_conv_bilstm, cb_params_cpu, CB_STEP_KERNELS, "conv_bilstm")):
+            (experiment.timit_conv_bilstm, cb_params_cpu, CB_STEP_KERNELS, "conv_bilstm"),
+            (flagship_loc, loc_params_cpu, LOC_STEP_KERNELS, "flagship_loc"),
+            (conv_bilstm_content, cbc_params_cpu, CBC_STEP_KERNELS, "conv_bilstm_content")):
         for b in (TRAIN_B, BIG_B):
             train_timing(recipe, weights_cpu, b, card, step_kernels, label)
 
@@ -1209,13 +1363,15 @@ def main() -> int:
     report = []
     for name in kernels:
         label = MAIN_LABEL.get(name, name)
-        key = next(k for k in (1, "train", "cbtrain") if (label, k) in timing)
+        key = next(k for k in (1, "train", "cbtrain", "loctrain", "cbctrain")
+                   if (label, k) in timing)
         ms, plain_ms, b_ms, b_by = timing[(label, key)]
         if key == 1:
             served = name in ("bilstm_scan", "fused_attention_step_loc_lstm")
             launches = (cb_launches if served else main_launches)[name]
         else:
-            launches = (train_launches if key == "train" else cb_train_launches)[name]
+            launches = {"train": train_launches, "cbtrain": cb_train_launches,
+                        "loctrain": loc_train_launches, "cbctrain": cbc_train_launches}[key][name]
         report.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches, "max_abs_err": errs[name], "ms": ms,

@@ -4,7 +4,8 @@
 // scans (attention_scan.cu and attention_scan_loc_lstm.cu, K = 1, forward
 // and the backward's recompute), with the location term (attend_loc) and
 // the LSTM cell (lstm_preacts, lstm_cell) of the location-aware / LSTM
-// decoders:
+// decoders, and the GRU cell's backward (gru_cell_bwd) that the scans'
+// backward kernels K5 and K13 share:
 //
 //   attend        ws = s_prev @ Ws + b; e = w_e . tanh(vh + ws); alpha =
 //                 masked softmax of e (NEG_INF on padding, times the mask)
@@ -143,6 +144,52 @@ __device__ void decoder_cell(const StepWeights& w, const StepBufs& m, int K, int
     const int k = i / St, j = i % St;
     const float zg = m.zr[k * St2 + j];
     m.xo[k * XO + j] = (1.f - zg) * m.sp[i] + zg * m.cand[i];
+  }
+  __syncthreads();
+}
+
+// Cotangent buffers of gru_cell_bwd, each in shared memory.
+struct GruGrads {
+  float* ds;       // [St]   the cotangent of s_new
+  float* da_cand;  // [St]   of the candidate's pre-activation
+  float* dcin;     // [2St]  da_cand @ w_h^T: of rhr = (reset gate * s_prev | r)
+  float* da_zr;    // [2St]  of the gates' pre-activations
+  float* dsr;      // [2St]  da_zr @ w_zr^T: of (s_prev | r)
+};
+
+// The backward of decoder_cell's GRU for one row (K = 1), the cell part
+// of attention_scan.py _bwd_core :506-530: from the cotangent of s_new,
+// ds = ds_in (a global row, or null for none) + carry, and the step's
+// recomputed zr, cand and s_prev (bufs.sp), to the cell's part of the
+// cotangent of s_prev (ds_prev; it may alias carry) and the cotangent of
+// r (dr). The reset gate acts before the candidate product, so its
+// cotangent is dcin[:St] * s_prev. The caller has passed a barrier since
+// the recompute; ends with a barrier.
+__device__ void gru_cell_bwd(const float* w_zr, const float* w_h, const StepBufs& m,
+                             const float* ds_in, const float* carry, const GruGrads& g,
+                             float* ds_prev, float* dr, int St) {
+  const int tid = threadIdx.x, St2 = 2 * St;
+  for (int j = tid; j < St; j += kThreads) {
+    const float ds = (ds_in ? ds_in[j] : 0.f) + carry[j];
+    const float cv = m.cand[j];
+    g.ds[j] = ds;
+    g.da_cand[j] = ds * m.zr[j] * (1.f - cv * cv);
+  }
+  __syncthreads();
+  matvec_t<1>(w_h, St2, St, g.da_cand, 0, g.dcin, 0);
+  __syncthreads();
+  for (int j = tid; j < St; j += kThreads) {
+    const float zg = m.zr[j], rg = m.zr[St + j], s = m.sp[j];
+    const float dzg = g.ds[j] * (m.cand[j] - s);
+    g.da_zr[j] = dzg * zg * (1.f - zg);
+    g.da_zr[St + j] = g.dcin[j] * s * rg * (1.f - rg);
+  }
+  __syncthreads();
+  matvec_t<1>(w_zr, St2, St2, g.da_zr, 0, g.dsr, 0);
+  __syncthreads();
+  for (int j = tid; j < St; j += kThreads) {
+    ds_prev[j] = g.dsr[j] + g.dcin[j] * m.zr[St + j] + g.ds[j] * (1.f - m.zr[j]);
+    dr[j] = g.dcin[St + j] + g.dsr[St + j];
   }
   __syncthreads();
 }

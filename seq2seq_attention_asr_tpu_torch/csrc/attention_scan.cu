@@ -21,8 +21,10 @@
 //
 // The backward walks t = T-1..0. It recomputes the step from s_prev (the
 // saved s sequence shifted by one, zero at step 0) and the saved c, then
-// backprops the GRU, the decoder-input MLP, the context, the masked
-// softmax and the energies as _bwd_core :506-573 does, with ds carried
+// backprops the GRU (gru_cell_bwd in attention_common.cuh, which the
+// location-aware GRU scan's backward K13 shares), the decoder-input MLP,
+// the context, the masked softmax and the energies as _bwd_core
+// :506-573 does, with ds carried
 // in shared memory. dvh and dh are summed over the steps in global
 // memory, each row's slice by its own block. The nine weight gradients
 // are sums over the B*T steps of outer products: the loop writes each
@@ -191,29 +193,8 @@ __global__ void __launch_bounds__(kThreads, 1) scan_bwd_kernel(const BwdArgs a) 
     decoder_cell(w, m, 1, A, St);
 
     // The GRU.
-    for (int j = tid; j < St; j += kThreads) {
-      const float ds = a.ds_seq[n * St + j] + carry[j];
-      const float cv = m.cand[j];
-      dsv[j] = ds;
-      da_cand[j] = ds * m.zr[j] * (1.f - cv * cv);
-    }
-    __syncthreads();
-    matvec_t<1>(a.w.w_h, St2, St, da_cand, 0, dcin, 0);
-    __syncthreads();
-    for (int j = tid; j < St; j += kThreads) {
-      const float zg = m.zr[j], rg = m.zr[St + j], s = m.sp[j];
-      const float dzg = dsv[j] * (m.cand[j] - s);
-      da_zr[j] = dzg * zg * (1.f - zg);
-      da_zr[St + j] = dcin[j] * s * rg * (1.f - rg);
-    }
-    __syncthreads();
-    matvec_t<1>(a.w.w_zr, St2, St2, da_zr, 0, dsr, 0);
-    __syncthreads();
-    for (int j = tid; j < St; j += kThreads) {
-      carry[j] = dsr[j] + dcin[j] * m.zr[St + j] + dsv[j] * (1.f - m.zr[j]);
-      dr[j] = dcin[St + j] + dsr[St + j];
-    }
-    __syncthreads();
+    gru_cell_bwd(a.w.w_zr, a.w.w_h, m, a.ds_seq + n * St, carry,
+                 GruGrads{dsv, da_cand, dcin, da_zr, dsr}, carry, dr, St);
     // The decoder-input MLP.
     matvec_t<1>(a.w.dec_w, St2, St, dr, 0, drr, 0);
     __syncthreads();

@@ -1,67 +1,89 @@
-// Teacher-forced location-aware LSTM decoder scan: forward (kernel K10,
-// entry point attention_decode_scan_loc_lstm_fwd) and backward (kernel
-// K11, entry point attention_decode_scan_loc_lstm_bwd).
+// Teacher-forced attention decoder scans with the location term or the
+// LSTM cell, each a forward and a backward kernel over one templated
+// body (scan_fwd<kLstm, kLoc>, scan_bwd<kLstm, kLoc>):
 //
-// Replaces the Pallas kernel attention_decode_scan_loc_lstm
-// (seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:1292): forward
-// pallas_call :355 (_run_fwd :290, _fwd_kernel_loc_lstm :254,
-// _location_term :62, _step_core :91), backward pallas_call :945
-// (_run_bwd_loc :891, _bwd_kernel_loc_lstm :624, the LSTM branch of
-// _bwd_core :474-504). Plain PyTorch twins: ops/cuda/attention_scan.py
-// attention_decode_scan_loc_lstm_plain and
-// attention_decode_scan_loc_lstm_bwd_plain.
+//   <LSTM, location>  K10 loc_lstm_fwd_kernel, K11 loc_lstm_bwd_kernel;
+//                     entry points attention_decode_scan_loc_lstm_{fwd,bwd}
+//   <GRU, location>   K12 scan_loc_gru_fwd_kernel, K13 scan_loc_gru_bwd_kernel;
+//                     entry points attention_decode_scan_loc_{fwd,bwd}
+//   <LSTM, content>   K14 scan_lstm_fwd_kernel, K15 scan_lstm_bwd_kernel;
+//                     entry points attention_decode_scan_lstm_{fwd,bwd}
 //
-// Both kernels are templated on the cell (LSTM or GRU) and on the
-// location term, as K8 is; only the LSTM with the location term, the
-// conv+BiLSTM recipe's decoder, is instantiated. The GRU cell's scan is
-// K4/K5 (attention_scan.cu).
+// Each instance's kernels are thin __global__ functions of their own, so
+// that a profiler trace names which instance ran. The content-only GRU
+// decoder's scan is K4/K5 (attention_scan.cu).
+//
+// They replace the Pallas kernels of
+// seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py, whose forwards
+// share pallas_call :355 (_run_fwd :290) and whose backwards are
+// pallas_call :945 (_run_bwd_loc :891) for the location-aware ones and
+// :851 (_run_bwd :800) for the content-only LSTM:
+//   K10/K11  attention_decode_scan_loc_lstm :1292, _fwd_kernel_loc_lstm
+//            :254, _bwd_kernel_loc_lstm :624;
+//   K12/K13  attention_decode_scan_loc :984, _fwd_kernel_loc :219,
+//            _bwd_kernel_loc :710;
+//   K14/K15  attention_decode_scan_lstm :1226, _fwd_kernel_lstm :189,
+//            _bwd_kernel_lstm :577;
+// with _location_term :62, _step_core :91 and _bwd_core :419. Plain
+// PyTorch twins: ops/cuda/attention_scan.py attention_decode_scan_{loc_lstm,
+// loc,lstm}_plain and their _bwd_plain.
 //
 // What bounds them: the T steps are a chain, and every step reads the
-// step's weights from L2: the LSTM's gates (w_h and w_x, 2 x 400 x 1600
-// floats at the recipe), dec_in, c_in and Ws, about 7 MB, which no SM
-// holds; the backward reads them twice (the recompute and the transposed
-// products). One block per batch row keeps the state and every
-// intermediate of a step in shared memory and runs the step from the
-// pieces the beam step K8 uses (attention_common.cuh: attend_loc, which
-// forms the location features per encoder position and never stores UF;
-// context; lstm_preacts, whose gates are s_prev @ w_h plus r @ w_x
-// accumulated in place). With one block per row, a step's time is one
-// SM's L2 read rate over those bytes; batching rows per block cuts the
-// bytes but not that time, and splitting a step's products over a
-// cluster of blocks is the way past it.
+// step's weights from L2: at the conv+BiLSTM recipe the LSTM's gates
+// (w_h and w_x, 2 x 400 x 1600 floats), dec_in, c_in and Ws, about 7 MB;
+// at the flagship's widths the GRU's w_zr and w_h, dec_in, c_in and Ws,
+// about 2.6 MB. No SM holds them; the backward reads them twice (the
+// recompute and the transposed products). One block per batch row keeps
+// the state and every intermediate of a step in shared memory and runs
+// the step from the pieces the beam step K8 uses (attention_common.cuh:
+// attend or attend_loc, which forms the location features per encoder
+// position and never stores UF; context; decoder_cell for the GRU;
+// lstm_preacts, whose gates are s_prev @ w_h plus r @ w_x accumulated in
+// place). With one block per row, a step's time is one SM's L2 read rate
+// over those bytes; batching rows per block cuts the bytes but not that
+// time, and splitting a step's products over a cluster of blocks is the
+// way past it.
 //
 // The backward walks t = T-1..0. It recomputes the step from s_prev,
-// mem_prev and alpha_prev (the saved sequences shifted by one, zero at
-// step 0) and the saved c, and takes alpha itself from the saved alpha
-// sequence, so it runs no softmax; then it backprops the LSTM (ds and the
-// dmem chain carried in shared memory), the decoder-input MLP, the
-// context, the masked softmax, the energies and the location term,
-// whose input alpha_prev is the previous step's output: that cotangent
-// is carried into step t-1. dvh and dh are summed over the steps in
-// global memory, each row's slice by its own block. The weight gradients
-// are sums of outer products over the B*T steps, and dU, dwconv and
-// dbconv over the B*T*L (step, encoder position) pairs: the walk writes
-// each step's operands and cotangents to a stash, and reduce_atb.cuh
-// forms the products and the bias sums afterwards, deterministically.
+// mem_prev (LSTM) and alpha_prev (location term), the saved sequences
+// shifted by one and zero at step 0, and the saved c, and takes alpha
+// itself from the saved alpha sequence, so it runs no softmax; then it
+// backprops the cell (the LSTM with the dmem chain carried in shared
+// memory; the GRU through gru_cell_bwd, which K5 shares), the
+// decoder-input MLP, the context, the masked softmax, the energies and
+// the location term, whose input alpha_prev is the previous step's
+// output: that cotangent is carried into step t-1. ds is carried in
+// shared memory. dvh and dh are summed over the steps in global memory,
+// each row's slice by its own block. The weight gradients are sums of
+// outer products over the B*T steps, and dU, dwconv and dbconv over the
+// B*T*L (step, encoder position) pairs: the walk writes each step's
+// operands and cotangents to a stash, and reduce_atb.cuh forms the
+// products and the bias sums afterwards, deterministically: one launch
+// over the steps, and one more over the positions with the location term.
 
 #include "attention_common.cuh"
 #include "reduce_atb.cuh"
 
 namespace {
 
+// The cell's weights are the GRU's w_zr (2St, 2St) and w_h (2St, St), or
+// the LSTM's w_h, w_x (St, 4St) and b (4St); the location term's are null
+// without it.
 struct Weights {
-  const float *ws_w, *ws_b, *w_e, *c_w, *c_b, *dec_w, *dec_b, *w_h, *w_x, *b, *wconv, *bconv, *u;
+  const float *ws_w, *ws_b, *w_e, *c_w, *c_b, *dec_w, *dec_b;
+  const float *w_zr, *w_h, *w_x, *b;
+  const float *wconv, *bconv, *u;
   __host__ __device__ StepWeights step() const {
-    return StepWeights{ws_w, ws_b, c_w, c_b, dec_w, dec_b, nullptr, nullptr};
+    return StepWeights{ws_w, ws_b, c_w, c_b, dec_w, dec_b, w_zr, w_h};
   }
 };
 
 struct Dims {
-  int B, T, L, S, A, St, FM, F;
+  int B, T, L, S, A, St, FM, F;  // FM = F = 0 without the location term
 };
 
-// Hands out consecutive shared-memory buffers; with a null base it only
-// counts, which is how the host sizes the launch.
+// Hands out consecutive buffers; with a null base it only counts, which
+// is how the host sizes the launch.
 struct Carver {
   float* base;
   size_t off;
@@ -89,6 +111,28 @@ __host__ __device__ LocShared carve_loc(Carver& c, const Dims& d) {
   return s;
 }
 
+// The buffers of one step that the forward and the backward share (the
+// GRU's zr, rhr and cand too).
+template <bool kLstm>
+__host__ __device__ StepBufs carve_step(Carver& c, const Dims& d) {
+  const int St = d.St;
+  StepBufs m{};
+  m.sp = c.take(St);
+  m.ws = c.take(d.S);
+  m.al = c.take(d.L);
+  m.rin = c.take(2 * St);
+  m.sr = c.take(2 * St);
+  m.xo = c.take(St + d.A);
+  m.we = c.take(d.S);
+  m.msk = c.take(d.L);
+  if (!kLstm) {
+    m.zr = c.take(2 * St);
+    m.rhr = c.take(2 * St);
+    m.cand = c.take(St);
+  }
+  return m;
+}
+
 template <bool kLoc>
 __device__ void load_constants(const Weights& w, const float* mask, const StepBufs& m,
                                const LocShared& loc, const Dims& d, int b) {
@@ -103,12 +147,12 @@ __device__ void load_constants(const Weights& w, const float* mask, const StepBu
 }
 
 // ---------------------------------------------------------------------------
-// K10: the forward.
+// K10, K12, K14: the forward.
 
 struct FwdArgs {
   const float *vh, *h, *mask, *yin;
   Weights w;
-  float *s_seq, *c_seq, *alpha_seq, *mem_seq;
+  float *s_seq, *c_seq, *alpha_seq, *mem_seq;  // mem_seq: LSTM only
   Dims d;
 };
 
@@ -118,21 +162,15 @@ struct FwdShared {
   float *gates, *mem, *feat;
 };
 
-template <bool kLoc>
+template <bool kLstm, bool kLoc>
 __host__ __device__ FwdShared carve_fwd(float* sm, const Dims& d, size_t* floats) {
   Carver c{sm, 0};
-  const int St = d.St;
   FwdShared s{};
-  s.m.sp = c.take(St);
-  s.m.ws = c.take(d.S);
-  s.m.al = c.take(d.L);
-  s.m.rin = c.take(2 * St);
-  s.m.sr = c.take(2 * St);
-  s.m.xo = c.take(St + d.A);
-  s.m.we = c.take(d.S);
-  s.m.msk = c.take(d.L);
-  s.gates = c.take(4 * St);
-  s.mem = c.take(St);
+  s.m = carve_step<kLstm>(c, d);
+  if (kLstm) {
+    s.gates = c.take(4 * d.St);
+    s.mem = c.take(d.St);
+  }
   s.loc = carve_loc<kLoc>(c, d);
   s.feat = kLoc ? c.take((size_t)kWarps * d.FM) : nullptr;
   s.m.scratch = c.take(kThreads * 4);
@@ -141,20 +179,21 @@ __host__ __device__ FwdShared carve_fwd(float* sm, const Dims& d, size_t* floats
 }
 
 template <bool kLstm, bool kLoc>
-__global__ void __launch_bounds__(kThreads, 1) loc_lstm_fwd_kernel(const FwdArgs a) {
-  static_assert(kLstm, "the GRU decoder's scan is K4/K5 (attention_scan.cu)");
-  extern __shared__ float sm[];
+__device__ __forceinline__ void scan_fwd(float* sm, const FwdArgs& a) {
   const Dims& d = a.d;
   const int b = blockIdx.x, St = d.St, A = d.A, L = d.L, pad = d.F / 2;
   size_t floats;
-  const FwdShared s = carve_fwd<kLoc>(sm, d, &floats);
+  const FwdShared s = carve_fwd<kLstm, kLoc>(sm, d, &floats);
   const StepBufs& m = s.m;
   const StepWeights w = a.w.step();
   const float* vhb = a.vh + (size_t)b * L * d.S;
   const float* hb = a.h + (size_t)b * L * A;
 
   load_constants<kLoc>(a.w, a.mask, m, s.loc, d, b);
-  for (int j = threadIdx.x; j < St; j += kThreads) m.sp[j] = m.sr[j] = s.mem[j] = 0.f;
+  for (int j = threadIdx.x; j < St; j += kThreads) {
+    m.sp[j] = m.sr[j] = 0.f;
+    if (kLstm) s.mem[j] = 0.f;
+  }
   for (int t = 0; t < d.T; ++t) {
     const size_t n = (size_t)b * d.T + t;
     for (int j = threadIdx.x; j < St; j += kThreads) m.rin[St + j] = a.yin[n * St + j];
@@ -165,11 +204,14 @@ __global__ void __launch_bounds__(kThreads, 1) loc_lstm_fwd_kernel(const FwdArgs
     else
       attend(w, m, vhb, 1, L, d.S, St);
     context(m, hb, 1, L, A, St);
-    lstm_cell(w, m, a.w.w_h, a.w.w_x, a.w.b, s.gates, s.mem, 1, A, St);
+    if constexpr (kLstm)
+      lstm_cell(w, m, a.w.w_h, a.w.w_x, a.w.b, s.gates, s.mem, 1, A, St);
+    else
+      decoder_cell(w, m, 1, A, St);
     for (int j = threadIdx.x; j < St; j += kThreads) {
       const float v = m.xo[j];
       a.s_seq[n * St + j] = v;
-      a.mem_seq[n * St + j] = s.mem[j];
+      if (kLstm) a.mem_seq[n * St + j] = s.mem[j];
       m.sp[j] = m.sr[j] = v;
     }
     for (int j = threadIdx.x; j < A; j += kThreads) a.c_seq[n * A + j] = m.xo[St + j];
@@ -180,39 +222,71 @@ __global__ void __launch_bounds__(kThreads, 1) loc_lstm_fwd_kernel(const FwdArgs
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 1) loc_lstm_fwd_kernel(const FwdArgs a) {
+  extern __shared__ float sm[];
+  scan_fwd<true, true>(sm, a);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) scan_loc_gru_fwd_kernel(const FwdArgs a) {
+  extern __shared__ float sm[];
+  scan_fwd<false, true>(sm, a);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) scan_lstm_fwd_kernel(const FwdArgs a) {
+  extern __shared__ float sm[];
+  scan_fwd<true, false>(sm, a);
+}
+
 // ---------------------------------------------------------------------------
-// K11: the backward.
+// K11, K13, K15: the backward.
 
 // Per-step operands and cotangents the weight-gradient reductions read,
-// carved from the caller's scratch in this order: (B*T) rows of rr (2St),
-// r (St), dws (S), dcc (St), dr (St), dgates (4St) and the step's w_e
-// partial (S); then (B*T*L) rows of feat (FM), the conv's input window
-// (F), dz (S) and dfeat (FM).
+// carved from the caller's scratch in this order: (B*T) rows of rr (2St);
+// for the LSTM r (St); for the GRU sr and cand_in (2St each); then dws
+// (S), dcc (St), dr (St); for the LSTM dgates (4St), for the GRU da_zr
+// (2St) and da_cand (St); the step's w_e partial (S); then, with the
+// location term, (B*T*L) rows of feat (FM), the conv's input window (F),
+// dz (S) and dfeat (FM).
 struct Stash {
-  float *rr, *r, *dws, *dcc, *dr, *dg, *dwe, *feat, *win, *dz, *dfeat;
+  float *rr, *r, *sr, *cand_in, *dws, *dcc, *dr, *dg, *da_zr, *da_cand, *dwe;
+  float *feat, *win, *dz, *dfeat;
 };
 
+template <bool kLstm, bool kLoc>
 Stash carve_stash(float* p, const Dims& d) {
   const size_t rows = (size_t)d.B * d.T, rows_l = rows * d.L, St = d.St, S = d.S;
-  Stash s;
-  s.rr = p;
-  s.r = s.rr + rows * 2 * St;
-  s.dws = s.r + rows * St;
-  s.dcc = s.dws + rows * S;
-  s.dr = s.dcc + rows * St;
-  s.dg = s.dr + rows * St;
-  s.dwe = s.dg + rows * 4 * St;
-  s.feat = s.dwe + rows * S;
-  s.win = s.feat + rows_l * d.FM;
-  s.dz = s.win + rows_l * d.F;
-  s.dfeat = s.dz + rows_l * S;
+  Carver c{p, 0};
+  Stash s{};
+  s.rr = c.take(rows * 2 * St);
+  if (kLstm) {
+    s.r = c.take(rows * St);
+  } else {
+    s.sr = c.take(rows * 2 * St);
+    s.cand_in = c.take(rows * 2 * St);
+  }
+  s.dws = c.take(rows * S);
+  s.dcc = c.take(rows * St);
+  s.dr = c.take(rows * St);
+  if (kLstm) {
+    s.dg = c.take(rows * 4 * St);
+  } else {
+    s.da_zr = c.take(rows * 2 * St);
+    s.da_cand = c.take(rows * St);
+  }
+  s.dwe = c.take(rows * S);
+  if (kLoc) {
+    s.feat = c.take(rows_l * d.FM);
+    s.win = c.take(rows_l * d.F);
+    s.dz = c.take(rows_l * S);
+    s.dfeat = c.take(rows_l * d.FM);
+  }
   return s;
 }
 
 struct BwdArgs {
   const float *vh, *h, *mask, *yin;
   Weights w;
-  const float *s_seq, *c_seq, *alpha_seq, *mem_seq;
+  const float *s_seq, *c_seq, *alpha_seq, *mem_seq;       // mem_seq: LSTM only
   const float *ds_seq, *dc_seq, *dalpha_seq, *dmem_seq;  // each may be null: zeros
   float *dvh, *dh, *dyin;
   Stash st;
@@ -220,12 +294,16 @@ struct BwdArgs {
 };
 
 struct BwdShared {
-  StepBufs m;  // sp, ws, al (alpha), rin (cc | yin), sr (s_prev | r), xo (c at [St:]), we, msk
+  StepBufs m;  // sp, ws, al (alpha), rin (cc | yin), sr (s_prev | r), xo (c at [St:]), we, msk;
+               // the GRU's zr, rhr and cand
   LocShared loc;
-  float *mp;                    // [St]   mem_prev
-  float *gates, *dg;            // [4St]  gate pre-activations; their cotangents
-  float *dsp, *dr, *drr, *tmp;  // [St]   dg @ w_h^T; dg @ w_x^T; [2St] dr @ dec_w^T; [St] dws @ ws_w^T
-  float *carry_s, *carry_m;     // [St]   ds and dmem carried to the previous step
+  float *mp;                    // LSTM [St]   mem_prev
+  float *gates, *dg;            // LSTM [4St]  gate pre-activations; their cotangents
+  float *carry_m;               // LSTM [St]   dmem carried to the previous step
+  GruGrads g;                   // GRU
+  float *dsp, *dr;              // [St]   the cell's part of ds_prev; dr
+  float *drr, *tmp;             // [2St]  dr @ dec_w^T; [St] dws @ ws_w^T
+  float *carry_s;               // [St]   ds carried to the previous step
   float *dc;                    // [A]
   float *dal, *de;              // [L]
   float *dws;                   // [S]
@@ -234,28 +312,29 @@ struct BwdShared {
   float *red;                   // [kWarps]
 };
 
-template <bool kLoc>
+template <bool kLstm, bool kLoc>
 __host__ __device__ BwdShared carve_bwd(float* sm, const Dims& d, size_t* floats) {
   Carver c{sm, 0};
   const int St = d.St;
   BwdShared s{};
-  s.m.sp = c.take(St);
-  s.m.ws = c.take(d.S);
-  s.m.al = c.take(d.L);
-  s.m.rin = c.take(2 * St);
-  s.m.sr = c.take(2 * St);
-  s.m.xo = c.take(St + d.A);
-  s.m.we = c.take(d.S);
-  s.m.msk = c.take(d.L);
-  s.mp = c.take(St);
-  s.gates = c.take(4 * St);
-  s.dg = c.take(4 * St);
+  s.m = carve_step<kLstm>(c, d);
+  if (kLstm) {
+    s.mp = c.take(St);
+    s.gates = c.take(4 * St);
+    s.dg = c.take(4 * St);
+    s.carry_m = c.take(St);
+  } else {
+    s.g.ds = c.take(St);
+    s.g.da_cand = c.take(St);
+    s.g.dcin = c.take(2 * St);
+    s.g.da_zr = c.take(2 * St);
+    s.g.dsr = c.take(2 * St);
+  }
   s.dsp = c.take(St);
   s.dr = c.take(St);
   s.drr = c.take(2 * St);
   s.tmp = c.take(St);
   s.carry_s = c.take(St);
-  s.carry_m = c.take(St);
   s.dc = c.take(d.A);
   s.dal = c.take(d.L);
   s.de = c.take(d.L);
@@ -278,15 +357,13 @@ __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)
 __device__ __forceinline__ float cot(const float* p, size_t i) { return p ? p[i] : 0.f; }
 
 template <bool kLstm, bool kLoc>
-__global__ void __launch_bounds__(kThreads, 1) loc_lstm_bwd_kernel(const BwdArgs a) {
-  static_assert(kLstm, "the GRU decoder's scan is K4/K5 (attention_scan.cu)");
-  extern __shared__ float sm[];
+__device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
   const Dims& d = a.d;
   const int b = blockIdx.x, St = d.St, St2 = 2 * St, St4 = 4 * St, A = d.A, L = d.L, S = d.S;
   const int FM = d.FM, F = d.F, pad = F / 2;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   size_t floats;
-  const BwdShared s = carve_bwd<kLoc>(sm, d, &floats);
+  const BwdShared s = carve_bwd<kLstm, kLoc>(sm, d, &floats);
   const StepBufs& m = s.m;
   const StepWeights w = a.w.step();
   const float* vhb = a.vh + (size_t)b * L * S;
@@ -295,7 +372,10 @@ __global__ void __launch_bounds__(kThreads, 1) loc_lstm_bwd_kernel(const BwdArgs
   float* dhb = a.dh + (size_t)b * L * A;
 
   load_constants<kLoc>(a.w, a.mask, m, s.loc, d, b);
-  for (int j = tid; j < St; j += kThreads) s.carry_s[j] = s.carry_m[j] = 0.f;
+  for (int j = tid; j < St; j += kThreads) {
+    s.carry_s[j] = 0.f;
+    if (kLstm) s.carry_m[j] = 0.f;
+  }
   if (kLoc)
     for (int l = tid; l < L; l += kThreads) s.dal_carry[l] = 0.f;
   for (int t = d.T - 1; t >= 0; --t) {
@@ -306,7 +386,7 @@ __global__ void __launch_bounds__(kThreads, 1) loc_lstm_bwd_kernel(const BwdArgs
     for (int j = tid; j < St; j += kThreads) {
       const float v = t > 0 ? a.s_seq[(n - 1) * St + j] : 0.f;
       m.sp[j] = m.sr[j] = v;
-      s.mp[j] = t > 0 ? a.mem_seq[(n - 1) * St + j] : 0.f;
+      if (kLstm) s.mp[j] = t > 0 ? a.mem_seq[(n - 1) * St + j] : 0.f;
       m.rin[St + j] = a.yin[n * St + j];
     }
     for (int j = tid; j < A; j += kThreads) m.xo[St + j] = a.c_seq[n * A + j];
@@ -315,10 +395,14 @@ __global__ void __launch_bounds__(kThreads, 1) loc_lstm_bwd_kernel(const BwdArgs
       if (kLoc) s.loc.ap[pad + l] = t > 0 ? a.alpha_seq[(n - 1) * L + l] : 0.f;
     }
     __syncthreads();
-    // Recompute ws, r and the gates; and the location features, as
-    // attend_loc forms them.
+    // Recompute ws, r and the cell (the LSTM's gates; the GRU's gates,
+    // candidate and rhr); and the location features, as attend_loc forms
+    // them.
     matvec<kNone>(w.ws_w, w.ws_b, St, S, m.sp, St, m.ws, S, 1, m.scratch);
-    lstm_preacts(w, m, a.w.w_h, a.w.w_x, a.w.b, s.gates, 1, A, St);
+    if constexpr (kLstm)
+      lstm_preacts(w, m, a.w.w_h, a.w.w_x, a.w.b, s.gates, 1, A, St);
+    else
+      decoder_cell(w, m, 1, A, St);
     if (kLoc) {
       for (int i = tid; i < L * FM; i += kThreads) {
         const int l = i / FM, q = i % FM;
@@ -331,24 +415,29 @@ __global__ void __launch_bounds__(kThreads, 1) loc_lstm_bwd_kernel(const BwdArgs
       for (int i = tid; i < L * F; i += kThreads)
         a.st.win[n * L * F + i] = s.loc.ap[i / F + i % F];
     }
-    // The LSTM: the gates, then their cotangents and the dmem chain.
-    for (int j = tid; j < St; j += kThreads) {
-      const float ig = sigmoid(s.gates[j]), fg = sigmoid(s.gates[St + j]);
-      const float gg = tanhf(s.gates[2 * St + j]), og = sigmoid(s.gates[3 * St + j]);
-      const float mprev = s.mp[j];
-      const float tm = tanhf(fg * mprev + ig * gg);
-      const float ds = cot(a.ds_seq, n * St + j) + s.carry_s[j];
-      const float dm = ds * og * (1.f - tm * tm) + cot(a.dmem_seq, n * St + j) + s.carry_m[j];
-      s.dg[j] = dm * gg * ig * (1.f - ig);
-      s.dg[St + j] = dm * mprev * fg * (1.f - fg);
-      s.dg[2 * St + j] = dm * ig * (1.f - gg * gg);
-      s.dg[3 * St + j] = ds * tm * og * (1.f - og);
-      s.carry_m[j] = dm * fg;
+    if constexpr (kLstm) {
+      // The LSTM: the gates, then their cotangents and the dmem chain.
+      for (int j = tid; j < St; j += kThreads) {
+        const float ig = sigmoid(s.gates[j]), fg = sigmoid(s.gates[St + j]);
+        const float gg = tanhf(s.gates[2 * St + j]), og = sigmoid(s.gates[3 * St + j]);
+        const float mprev = s.mp[j];
+        const float tm = tanhf(fg * mprev + ig * gg);
+        const float ds = cot(a.ds_seq, n * St + j) + s.carry_s[j];
+        const float dm = ds * og * (1.f - tm * tm) + cot(a.dmem_seq, n * St + j) + s.carry_m[j];
+        s.dg[j] = dm * gg * ig * (1.f - ig);
+        s.dg[St + j] = dm * mprev * fg * (1.f - fg);
+        s.dg[2 * St + j] = dm * ig * (1.f - gg * gg);
+        s.dg[3 * St + j] = ds * tm * og * (1.f - og);
+        s.carry_m[j] = dm * fg;
+      }
+      __syncthreads();
+      matvec_t<1>(a.w.w_h, St, St4, s.dg, 0, s.dsp, 0);
+      matvec_t<1>(a.w.w_x, St, St4, s.dg, 0, s.dr, 0);
+      __syncthreads();
+    } else {
+      gru_cell_bwd(a.w.w_zr, a.w.w_h, m, a.ds_seq ? a.ds_seq + n * St : nullptr, s.carry_s,
+                   s.g, s.dsp, s.dr, St);
     }
-    __syncthreads();
-    matvec_t<1>(a.w.w_h, St, St4, s.dg, 0, s.dsp, 0);
-    matvec_t<1>(a.w.w_x, St, St4, s.dg, 0, s.dr, 0);
-    __syncthreads();
     // The decoder-input MLP.
     matvec_t<1>(w.dec_w, St2, St, s.dr, 0, s.drr, 0);
     __syncthreads();
@@ -384,7 +473,7 @@ __global__ void __launch_bounds__(kThreads, 1) loc_lstm_bwd_kernel(const BwdArgs
     for (int l = tid; l < L; l += kThreads) s.de[l] = m.al[l] * (s.dal[l] - dot);
     __syncthreads();
     // The energies: dz = de w_e (1 - tanh(z)^2), a thread per score unit,
-    // z recomputed as attend_loc forms it.
+    // z recomputed as attend or attend_loc forms it.
     for (int sc = tid; sc < S; sc += kThreads) {
       const float wsv = m.ws[sc], wev = m.we[sc];
       float gws = 0.f, gwe = 0.f;
@@ -432,16 +521,43 @@ __global__ void __launch_bounds__(kThreads, 1) loc_lstm_bwd_kernel(const BwdArgs
     __syncthreads();
     for (int j = tid; j < St; j += kThreads) {
       s.carry_s[j] = s.dsp[j] + s.tmp[j];
-      a.st.r[n * St + j] = m.sr[St + j];
       a.st.dcc[n * St + j] = s.drr[j];
       a.st.dr[n * St + j] = s.dr[j];
+      if (kLstm) a.st.r[n * St + j] = m.sr[St + j];
+      else a.st.da_cand[n * St + j] = s.g.da_cand[j];
     }
-    for (int j = tid; j < St2; j += kThreads) a.st.rr[n * St2 + j] = m.rin[j];
-    for (int j = tid; j < St4; j += kThreads) a.st.dg[n * St4 + j] = s.dg[j];
+    for (int j = tid; j < St2; j += kThreads) {
+      a.st.rr[n * St2 + j] = m.rin[j];
+      if (!kLstm) {
+        a.st.sr[n * St2 + j] = m.sr[j];
+        a.st.cand_in[n * St2 + j] = m.rhr[j];
+        a.st.da_zr[n * St2 + j] = s.g.da_zr[j];
+      }
+    }
+    if (kLstm)
+      for (int j = tid; j < St4; j += kThreads) a.st.dg[n * St4 + j] = s.dg[j];
     for (int sc = tid; sc < S; sc += kThreads) a.st.dws[n * S + sc] = s.dws[sc];
     __syncthreads();
   }
 }
+
+__global__ void __launch_bounds__(kThreads, 1) loc_lstm_bwd_kernel(const BwdArgs a) {
+  extern __shared__ float sm[];
+  scan_bwd<true, true>(sm, a);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) scan_loc_gru_bwd_kernel(const BwdArgs a) {
+  extern __shared__ float sm[];
+  scan_bwd<false, true>(sm, a);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) scan_lstm_bwd_kernel(const BwdArgs a) {
+  extern __shared__ float sm[];
+  scan_bwd<true, false>(sm, a);
+}
+
+// ---------------------------------------------------------------------------
+// Host side.
 
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
@@ -454,12 +570,84 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+template <bool kLoc>
 bool valid(const Dims& d) {
-  return d.B >= 1 && d.T >= 1 && d.L >= 1 && d.S >= 1 && d.A >= 1 && d.St >= 1 && d.FM >= 1 &&
-         d.F >= 1;
+  return d.B >= 1 && d.T >= 1 && d.L >= 1 && d.S >= 1 && d.A >= 1 && d.St >= 1 &&
+         (!kLoc || (d.FM >= 1 && d.F >= 1));
+}
+
+template <bool kLstm, bool kLoc>
+int launch_fwd(void (*kernel)(const FwdArgs), const FwdArgs& a, cudaStream_t stream) {
+  if (!valid<kLoc>(a.d)) return (int)cudaErrorInvalidValue;
+  size_t floats;
+  carve_fwd<kLstm, kLoc>(nullptr, a.d, &floats);
+  const size_t bytes = floats * sizeof(float);
+  cudaError_t err = set_smem(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<a.d.B, kThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The weight gradients; the cell's are the GRU's dw_zr and dw_h, or the
+// LSTM's dw_h, dw_x and db.
+struct Grads {
+  float *dws_w, *dws_b, *dw_e, *dc_w, *dc_b, *ddec_w, *ddec_b;
+  float *dw_zr, *dw_h, *dw_x, *db;
+  float *dwconv, *dbconv, *du;
+};
+
+// The backward kernel, then the weight gradients over the B*T steps
+// (s_prev = s_seq shifted by one) and, with the location term, over the
+// B*T*L (step, encoder position) pairs: dU = sum feat^T dz, dwconv = sum
+// window^T dfeat, dbconv = sum dfeat.
+template <bool kLstm, bool kLoc>
+int launch_bwd(void (*kernel)(const BwdArgs), BwdArgs a, const Grads& g, float* scratch,
+               cudaStream_t stream) {
+  const Dims& d = a.d;
+  if (!valid<kLoc>(d)) return (int)cudaErrorInvalidValue;
+  size_t floats;
+  carve_bwd<kLstm, kLoc>(nullptr, d, &floats);
+  const size_t bytes = floats * sizeof(float);
+  cudaError_t err = set_smem(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  a.st = carve_stash<kLstm, kLoc>(scratch, d);
+  kernel<<<d.B, kThreads, bytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const Stash& st = a.st;
+  const int St = d.St, St2 = 2 * St, St4 = 4 * St, S = d.S, A = d.A;
+  AtbBatch steps{};
+  steps.count = 6;
+  steps.rows = d.B * d.T;
+  steps.period = d.T;
+  steps.p[0] = AtbProblem{a.s_seq, St, -1, st.dws, S, g.dws_w, g.dws_b, St, S};
+  steps.p[1] = AtbProblem{a.c_seq, A, 0, st.dcc, St, g.dc_w, g.dc_b, A, St};
+  steps.p[2] = AtbProblem{st.rr, St2, 0, st.dr, St, g.ddec_w, g.ddec_b, St2, St};
+  if (kLstm) {
+    steps.p[3] = AtbProblem{a.s_seq, St, -1, st.dg, St4, g.dw_h, g.db, St, St4};
+    steps.p[4] = AtbProblem{st.r, St, 0, st.dg, St4, g.dw_x, nullptr, St, St4};
+  } else {
+    steps.p[3] = AtbProblem{st.sr, St2, 0, st.da_zr, St2, g.dw_zr, nullptr, St2, St2};
+    steps.p[4] = AtbProblem{st.cand_in, St2, 0, st.da_cand, St, g.dw_h, nullptr, St2, St};
+  }
+  steps.p[5] = AtbProblem{nullptr, 0, 0, st.dwe, S, nullptr, g.dw_e, 0, S};
+  err = launch_atb(steps, stream);
+  if (err != cudaSuccess || !kLoc) return (int)err;
+  AtbBatch pos{};
+  pos.count = 2;
+  pos.rows = d.B * d.T * d.L;
+  pos.period = d.L;
+  pos.p[0] = AtbProblem{st.feat, d.FM, 0, st.dz, S, g.du, nullptr, d.FM, S};
+  pos.p[1] = AtbProblem{st.win, d.F, 0, st.dfeat, d.FM, g.dwconv, g.dbconv, d.F, d.FM};
+  return (int)launch_atb(pos, stream);
 }
 
 }  // namespace
+
+// ---------------------------------------------------------------------------
+// Entry points. The backward ones take ds_seq, dc_seq, dalpha_seq (and
+// dmem_seq) as NULL where there is no cotangent.
 
 extern "C" int attention_decode_scan_loc_lstm_fwd(
     const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
@@ -468,21 +656,13 @@ extern "C" int attention_decode_scan_loc_lstm_fwd(
     const float* bconv, const float* u, float* s_seq, float* c_seq, float* alpha_seq,
     float* mem_seq, int B, int T, int L, int S, int A, int St, int FM, int F,
     cudaStream_t stream) {
-  const Dims d{B, T, L, S, A, St, FM, F};
-  if (!valid(d)) return (int)cudaErrorInvalidValue;
-  size_t floats;
-  carve_fwd<true>(nullptr, d, &floats);
-  const size_t bytes = floats * sizeof(float);
-  cudaError_t err = set_smem(loc_lstm_fwd_kernel<true, true>, bytes);
-  if (err != cudaSuccess) return (int)err;
   const FwdArgs a{vh, h, mask, yin,
-                  Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_h, w_x, b, wconv, bconv, u},
-                  s_seq, c_seq, alpha_seq, mem_seq, d};
-  loc_lstm_fwd_kernel<true, true><<<B, kThreads, bytes, stream>>>(a);
-  return (int)cudaGetLastError();
+                  Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h, w_x, b, wconv,
+                          bconv, u},
+                  s_seq, c_seq, alpha_seq, mem_seq, Dims{B, T, L, S, A, St, FM, F}};
+  return launch_fwd<true, true>(loc_lstm_fwd_kernel, a, stream);
 }
 
-// ds_seq, dc_seq, dalpha_seq and dmem_seq may be NULL (no cotangent).
 extern "C" int attention_decode_scan_loc_lstm_bwd(
     const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
     const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
@@ -494,43 +674,77 @@ extern "C" int attention_decode_scan_loc_lstm_bwd(
     float* ddec_b, float* dw_h, float* dw_x, float* db, float* dwconv, float* dbconv, float* du,
     float* scratch, int B, int T, int L, int S, int A, int St, int FM, int F,
     cudaStream_t stream) {
-  const Dims d{B, T, L, S, A, St, FM, F};
-  if (!valid(d)) return (int)cudaErrorInvalidValue;
-  size_t floats;
-  carve_bwd<true>(nullptr, d, &floats);
-  const size_t bytes = floats * sizeof(float);
-  cudaError_t err = set_smem(loc_lstm_bwd_kernel<true, true>, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const Stash st = carve_stash(scratch, d);
   const BwdArgs a{vh, h, mask, yin,
-                  Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_h, w_x, b, wconv, bconv, u},
+                  Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h, w_x, b, wconv,
+                          bconv, u},
                   s_seq, c_seq, alpha_seq, mem_seq, ds_seq, dc_seq, dalpha_seq, dmem_seq,
-                  dvh, dh, dyin, st, d};
-  loc_lstm_bwd_kernel<true, true><<<B, kThreads, bytes, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+                  dvh, dh, dyin, Stash{}, Dims{B, T, L, S, A, St, FM, F}};
+  const Grads g{dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, nullptr, dw_h, dw_x, db,
+                dwconv, dbconv, du};
+  return launch_bwd<true, true>(loc_lstm_bwd_kernel, a, g, scratch, stream);
+}
 
-  // Weight gradients over the B*T steps (s_prev = s_seq shifted by one).
-  const int St2 = 2 * St, St4 = 4 * St;
-  AtbBatch steps{};
-  steps.count = 6;
-  steps.rows = B * T;
-  steps.period = T;
-  steps.p[0] = AtbProblem{s_seq, St, -1, st.dws, S, dws_w, dws_b, St, S};
-  steps.p[1] = AtbProblem{c_seq, A, 0, st.dcc, St, dc_w, dc_b, A, St};
-  steps.p[2] = AtbProblem{st.rr, St2, 0, st.dr, St, ddec_w, ddec_b, St2, St};
-  steps.p[3] = AtbProblem{s_seq, St, -1, st.dg, St4, dw_h, db, St, St4};
-  steps.p[4] = AtbProblem{st.r, St, 0, st.dg, St4, dw_x, nullptr, St, St4};
-  steps.p[5] = AtbProblem{nullptr, 0, 0, st.dwe, S, nullptr, dw_e, 0, S};
-  err = launch_atb(steps, stream);
-  if (err != cudaSuccess) return (int)err;
-  // The location term's, over the B*T*L (step, encoder position) pairs:
-  // dU = sum feat^T dz, dwconv = sum window^T dfeat, dbconv = sum dfeat.
-  AtbBatch pos{};
-  pos.count = 2;
-  pos.rows = B * T * L;
-  pos.period = L;
-  pos.p[0] = AtbProblem{st.feat, FM, 0, st.dz, S, du, nullptr, FM, S};
-  pos.p[1] = AtbProblem{st.win, F, 0, st.dfeat, FM, dwconv, dbconv, F, FM};
-  return (int)launch_atb(pos, stream);
+extern "C" int attention_decode_scan_loc_fwd(
+    const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
+    const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
+    const float* dec_b, const float* w_zr, const float* w_h, const float* wconv,
+    const float* bconv, const float* u, float* s_seq, float* c_seq, float* alpha_seq, int B,
+    int T, int L, int S, int A, int St, int FM, int F, cudaStream_t stream) {
+  const FwdArgs a{vh, h, mask, yin,
+                  Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_zr, w_h, nullptr, nullptr,
+                          wconv, bconv, u},
+                  s_seq, c_seq, alpha_seq, nullptr, Dims{B, T, L, S, A, St, FM, F}};
+  return launch_fwd<false, true>(scan_loc_gru_fwd_kernel, a, stream);
+}
+
+extern "C" int attention_decode_scan_loc_bwd(
+    const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
+    const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
+    const float* dec_b, const float* w_zr, const float* w_h, const float* wconv,
+    const float* bconv, const float* u, const float* s_seq, const float* c_seq,
+    const float* alpha_seq, const float* ds_seq, const float* dc_seq, const float* dalpha_seq,
+    float* dvh, float* dh, float* dyin, float* dws_w, float* dws_b, float* dw_e, float* dc_w,
+    float* dc_b, float* ddec_w, float* ddec_b, float* dw_zr, float* dw_h, float* dwconv,
+    float* dbconv, float* du, float* scratch, int B, int T, int L, int S, int A, int St, int FM,
+    int F, cudaStream_t stream) {
+  const BwdArgs a{vh, h, mask, yin,
+                  Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_zr, w_h, nullptr, nullptr,
+                          wconv, bconv, u},
+                  s_seq, c_seq, alpha_seq, nullptr, ds_seq, dc_seq, dalpha_seq, nullptr,
+                  dvh, dh, dyin, Stash{}, Dims{B, T, L, S, A, St, FM, F}};
+  const Grads g{dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dw_zr, dw_h, nullptr, nullptr,
+                dwconv, dbconv, du};
+  return launch_bwd<false, true>(scan_loc_gru_bwd_kernel, a, g, scratch, stream);
+}
+
+extern "C" int attention_decode_scan_lstm_fwd(
+    const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
+    const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
+    const float* dec_b, const float* w_h, const float* w_x, const float* b, float* s_seq,
+    float* c_seq, float* alpha_seq, float* mem_seq, int B, int T, int L, int S, int A, int St,
+    cudaStream_t stream) {
+  const FwdArgs a{vh, h, mask, yin,
+                  Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h, w_x, b, nullptr,
+                          nullptr, nullptr},
+                  s_seq, c_seq, alpha_seq, mem_seq, Dims{B, T, L, S, A, St, 0, 0}};
+  return launch_fwd<true, false>(scan_lstm_fwd_kernel, a, stream);
+}
+
+extern "C" int attention_decode_scan_lstm_bwd(
+    const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
+    const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
+    const float* dec_b, const float* w_h, const float* w_x, const float* b, const float* s_seq,
+    const float* c_seq, const float* alpha_seq, const float* mem_seq, const float* ds_seq,
+    const float* dc_seq, const float* dalpha_seq, const float* dmem_seq, float* dvh, float* dh,
+    float* dyin, float* dws_w, float* dws_b, float* dw_e, float* dc_w, float* dc_b,
+    float* ddec_w, float* ddec_b, float* dw_h, float* dw_x, float* db, float* scratch, int B,
+    int T, int L, int S, int A, int St, cudaStream_t stream) {
+  const BwdArgs a{vh, h, mask, yin,
+                  Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h, w_x, b, nullptr,
+                          nullptr, nullptr},
+                  s_seq, c_seq, alpha_seq, mem_seq, ds_seq, dc_seq, dalpha_seq, dmem_seq,
+                  dvh, dh, dyin, Stash{}, Dims{B, T, L, S, A, St, 0, 0}};
+  const Grads g{dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, nullptr, dw_h, dw_x, db,
+                nullptr, nullptr, nullptr};
+  return launch_bwd<true, false>(scan_lstm_bwd_kernel, a, g, scratch, stream);
 }

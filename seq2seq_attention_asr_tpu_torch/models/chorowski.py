@@ -31,9 +31,10 @@ class ChorowskiConfig:
     mlp_depth: int = 64
     output_depth: int = 62
     dropout: float = 0.0  # a readout layer: the identity in eval mode, refused in train mode
-    # Attention options, with the JAX package's names. Serving takes
-    # feature_maps > 0; training refuses it and mono_align with
-    # penalty_lambda > 0.
+    # Attention options, with the JAX package's names. Serving and
+    # training take feature_maps > 0 (training then runs the
+    # location-aware GRU scan, kernels K12 and K13); training refuses
+    # mono_align with penalty_lambda > 0.
     feature_maps: int = 0
     filt_size: int = 10
     mono_align: bool = True

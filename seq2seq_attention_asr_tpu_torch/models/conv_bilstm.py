@@ -9,7 +9,8 @@ state 400, and the readout linear(656 -> 124) -> ReLU -> linear(-> 62)
 (kernel K8 in the beam). Training runs ``forward``: the encoder, whose
 BiLSTM's backward is kernel K9 and whose conv stack autograd
 differentiates, then the teacher-forced location-aware LSTM decoder
-scan (kernels K10 and K11).
+scan (kernels K10 and K11), or with feature_maps = 0 the content-only
+LSTM decoder scan (kernels K14 and K15).
 """
 
 from __future__ import annotations

@@ -13,9 +13,10 @@ the plain model of the kernels:
           48-51), or (s, mem) = LSTM(r, (s_prev, mem_prev)) (timit.lua:137)
 
 and the readout decoder_mlp(concat(s, c)) -> log-probs. Training runs
-the teacher-forced scan (``decode_teacher_forced``), which the port has
-for two decoders: the content-only GRU decoder (kernels K4 and K5) and
-the location-aware LSTM decoder (kernels K10 and K11).
+the teacher-forced scan (``decode_teacher_forced``), one pair of kernels
+for each decoder: the content-only GRU (K4 and K5), the location-aware
+LSTM (K10 and K11), the location-aware GRU (K12 and K13) and the
+content-only LSTM (K14 and K15).
 """
 
 from __future__ import annotations
@@ -38,9 +39,8 @@ Params = Dict[str, Any]
 class AttentionConfig:
     """The decoder's widths, readout and attention options, with the JAX
     package's names. LSTM peepholes are not ported and are refused.
-    The teacher-forced scan (training) takes the content-only GRU
-    decoder and the location-aware (feature_maps > 0) LSTM decoder; it
-    refuses the location-aware GRU, the content-only LSTM and the
+    The teacher-forced scan takes either cell with or without the
+    location term (feature_maps > 0); in training it refuses the
     monotonic penalty (mono_align and penalty_lambda > 0)."""
 
     score_depth: int
@@ -67,18 +67,9 @@ def check_ported(cfg: AttentionConfig) -> None:
 
 def check_scan_ported(cfg: AttentionConfig, train: bool = False) -> None:
     """Raise NotImplementedError for what the teacher-forced scan cannot
-    compute yet, in train and eval mode alike. Its kernels are the
-    content-only GRU decoder's (K4, K5) and the location-aware LSTM
-    decoder's (K10, K11); either would silently drop the location term of
-    a location-aware GRU or run a content-only LSTM with the wrong step.
-    The monotonic penalty acts on training only."""
+    compute yet: LSTM peepholes (check_ported), and in training the
+    monotonic penalty, which acts on training only."""
     check_ported(cfg)
-    if cfg.cell == "gru" and cfg.feature_maps > 0:
-        raise NotImplementedError("the teacher-forced scan of the location-aware GRU decoder "
-                                  "(feature_maps > 0, cell 'gru') is not ported yet")
-    if cfg.cell == "lstm" and cfg.feature_maps == 0:
-        raise NotImplementedError("the teacher-forced scan of the content-only LSTM decoder "
-                                  "(feature_maps = 0, cell 'lstm') is not ported yet")
     if train and cfg.mono_align and cfg.penalty_lambda > 0.0:
         raise NotImplementedError("the monotonic alignment penalty (penalty_lambda > 0) is not "
                                   "ported yet")
@@ -198,11 +189,15 @@ def decode_teacher_forced(params: Params, cfg: AttentionConfig, h: torch.Tensor,
     h (B, L, A) annotations; labels_onehot (B, T, V); dec_mask (B, T).
     y_prev is the zero vector at step 0 and the label of step t-1 after
     (RNNAttention.lua:153-156, 174); the state starts at zero. The scan
-    is one AttentionDecodeScan (kernels K4 and K5) for the content-only
-    GRU decoder, or one AttentionDecodeScanLocLSTM (kernels K10 and K11)
-    for the location-aware LSTM decoder, and the readout runs once over
-    the stacked (s, c). Returns logprobs (B, T, V), alpha (B, T, L) and
-    penalty (B, T), all zeros: the penalty is not ported."""
+    is one autograd function, chosen on (cell, feature_maps > 0) as the
+    JAX package chooses its kernel (ops/attention.py:374-387):
+    AttentionDecodeScan (K4, K5) for the content-only GRU,
+    AttentionDecodeScanLoc (K12, K13) for the location-aware GRU,
+    AttentionDecodeScanLSTM (K14, K15) for the content-only LSTM and
+    AttentionDecodeScanLocLSTM (K10, K11) for the location-aware LSTM;
+    the readout runs once over the stacked (s, c). Returns logprobs (B, T,
+    V), alpha (B, T, L) and penalty (B, T), all zeros: the penalty is not
+    ported."""
     check_scan_ported(cfg, train=train)
     enc_mask = length_mask(enc_lengths, h.shape[1], h.dtype)
     vh = precompute_vh(params, h)
@@ -212,13 +207,16 @@ def decode_teacher_forced(params: Params, cfg: AttentionConfig, h: torch.Tensor,
               params["ws"]["w"], params["ws"]["b"], params["w_e"], params["c_in"]["w"],
               params["c_in"]["b"], params["dec_in"]["w"], params["dec_in"]["b"])
     cell = params["cell"]
+    loc = ((params["loc_conv"]["w"][:, 0, :], params["loc_conv"]["b"], params["u"])
+           if cfg.feature_maps > 0 else ())
     if cfg.cell == "lstm":
-        s_seq, c_seq, alpha_seq, _ = attention_scan.AttentionDecodeScanLocLSTM.apply(
-            *common, cell["w_h"], cell["w_x"], cell["b"], params["loc_conv"]["w"][:, 0, :],
-            params["loc_conv"]["b"], params["u"])
+        scan = (attention_scan.AttentionDecodeScanLocLSTM if loc
+                else attention_scan.AttentionDecodeScanLSTM)
+        s_seq, c_seq, alpha_seq, _ = scan.apply(*common, cell["w_h"], cell["w_x"], cell["b"],
+                                                *loc)
     else:
-        s_seq, c_seq, alpha_seq = attention_scan.AttentionDecodeScan.apply(
-            *common, cell["w_zr"], cell["w_h"])
+        scan = attention_scan.AttentionDecodeScanLoc if loc else attention_scan.AttentionDecodeScan
+        s_seq, c_seq, alpha_seq = scan.apply(*common, cell["w_zr"], cell["w_h"], *loc)
     return {
         "logprobs": apply_readout(params, cfg, s_seq, c_seq, train=train),
         "alpha": alpha_seq,

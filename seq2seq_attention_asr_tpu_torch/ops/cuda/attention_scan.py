@@ -1,8 +1,10 @@
 """Teacher-forced attention-decoder scans, each a forward kernel and a
 backward kernel joined by an autograd function: the content-only GRU
-decoder's (K4 and K5, ``AttentionDecodeScan``) and the location-aware
-LSTM decoder's (K10 and K11, ``AttentionDecodeScanLocLSTM``, at the end
-of this module).
+decoder's (K4 and K5, ``AttentionDecodeScan``), and at the end of this
+module the location-aware LSTM decoder's (K10 and K11,
+``AttentionDecodeScanLocLSTM``), the location-aware GRU decoder's (K12
+and K13, ``AttentionDecodeScanLoc``) and the content-only LSTM decoder's
+(K14 and K15, ``AttentionDecodeScanLSTM``).
 
 Replaces the Pallas kernel ``attention_decode_scan`` for the content-only
 GRU decoder (seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:1156):
@@ -171,13 +173,6 @@ def attention_decode_scan(vh, h, enc_mask, yin, *weights):
     return s_seq, c_seq, alpha_seq
 
 
-def scratch_floats(b: int, t_len: int, s_dim: int, st: int) -> int:
-    """Floats of K5's per-step operand and cotangent stash, (B*T) rows of
-    rr, sr, cand_in (2St each), dws (S), dcc, dr (St each), da_zr (2St),
-    da_cand (St) and the per-step w_e partial (S), in that order."""
-    return b * t_len * (11 * st + 2 * s_dim)
-
-
 def attention_decode_scan_bwd(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b,
                               gru_wzr, gru_wh, s_seq, c_seq, ds_seq, dc_seq, dalpha_seq):
     """Cotangents of attention_decode_scan's differentiable inputs given
@@ -202,7 +197,8 @@ def attention_decode_scan_bwd(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b, d
     grads += [torch.empty(w.shape, **f32) for w in weights]
     if b * t_len == 0:
         return tuple(g.zero_() for g in grads)
-    scratch = torch.empty(scratch_floats(b, t_len, s_dim, st), **f32)
+    # K5's stash is the GRU's of stash_floats, without the location term.
+    scratch = torch.empty(stash_floats(False, b, t_len, l, s_dim, st), **f32)
     KERNEL_BWD.launch(
         *[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *saved, *grads, scratch)],
         b, t_len, l, s_dim, a_dim, st, build.stream_of(vh),
@@ -231,24 +227,33 @@ class AttentionDecodeScan(torch.autograd.Function):
         return (dvh, dh, None, dyin, *dw)
 
 
-# --- The location-aware LSTM decoder scan (kernels K10 and K11) ----------------------------
+# --- The location-aware and LSTM decoder scans (kernels K10-K15) -------------------------
 #
-# Replaces the Pallas kernel ``attention_decode_scan_loc_lstm``
-# (seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:1292): its
-# forward (pallas_call :355 in ``_run_fwd`` :290, body
-# ``_fwd_kernel_loc_lstm`` :254 with ``_location_term`` :62 and
-# ``_step_core`` :91) and its backward (pallas_call :945 in
-# ``_run_bwd_loc`` :891, body ``_bwd_kernel_loc_lstm`` :624 with
-# ``_bwd_core`` :419). Both kernels are in ``csrc/attention_scan_loc_lstm.cu``.
-# One step, from zero s, mem and alpha:
+# Three decoders, each a forward and a backward kernel over one templated
+# body in ``csrc/attention_scan_loc_lstm.cu``:
 #
-#   UF    = (conv1d(alpha_prev) + bconv) @ u          (B, L, S)
-#   alpha = masked softmax of w_e . tanh(vh + s_prev @ ws_w + ws_b + UF)
+#   location-aware LSTM  K10, K11  attention_decode_scan_loc_lstm (:1292)
+#   location-aware GRU   K12, K13  attention_decode_scan_loc (:984)
+#   content-only LSTM    K14, K15  attention_decode_scan_lstm (:1226)
+#
+# (seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py). Their
+# forwards replace pallas_call :355 (``_run_fwd`` :290) with the bodies
+# ``_fwd_kernel_loc_lstm`` :254, ``_fwd_kernel_loc`` :219 and
+# ``_fwd_kernel_lstm`` :189 (``_location_term`` :62, ``_step_core``
+# :91); their backwards pallas_call :945 (``_run_bwd_loc`` :891, bodies
+# ``_bwd_kernel_loc_lstm`` :624 and ``_bwd_kernel_loc`` :710) and :851
+# (``_run_bwd`` :800, body ``_bwd_kernel_lstm`` :577), with
+# ``_bwd_core`` :419. One step, from zero s, mem and alpha:
+#
+#   UF    = (conv1d(alpha_prev) + bconv) @ u          (B, L, S), location-aware only
+#   alpha = masked softmax of w_e . tanh(vh + s_prev @ ws_w + ws_b [+ UF])
 #   c     = alpha^T h;  r = concat(c @ c_w + c_b, yin_t) @ dec_w + dec_b
 #   (s, mem) = LSTM(r, (s_prev, mem_prev)): gates s_prev @ w_h + r @ w_x + b
+#   or    s  = GRU(r, s_prev), as in the content-only GRU scan above
 #
 # The LSTM's w_h, w_x and b are the port's parameter leaves; the JAX
-# package's concat([w_h, w_x]) is never built.
+# package's concat([w_h, w_x]) is never built. The LSTM scans also return
+# the cell-state sequence mem, which their backward reads.
 
 KERNEL_LOC_LSTM_FWD = build.Kernel(
     "attention_decode_scan_loc_lstm_fwd", "attention_scan_loc_lstm.cu",
@@ -260,8 +265,29 @@ KERNEL_LOC_LSTM_BWD = build.Kernel(
     "attention_decode_scan_loc_lstm_bwd",
     [ctypes.c_void_p] * 42 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 )
-WEIGHTS_LOC_LSTM = ("ws_w", "ws_b", "w_e", "c_w", "c_b", "dec_w", "dec_b", "w_h", "w_x", "b",
-                    "wconv", "bconv", "u")
+KERNEL_LOC_FWD = build.Kernel(
+    "attention_decode_scan_loc_fwd", "attention_scan_loc_lstm.cu", "attention_decode_scan_loc_fwd",
+    [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+)
+KERNEL_LOC_BWD = build.Kernel(
+    "attention_decode_scan_loc_bwd", "attention_scan_loc_lstm.cu", "attention_decode_scan_loc_bwd",
+    [ctypes.c_void_p] * 38 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+)
+KERNEL_LSTM_FWD = build.Kernel(
+    "attention_decode_scan_lstm_fwd", "attention_scan_loc_lstm.cu",
+    "attention_decode_scan_lstm_fwd",
+    [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+)
+KERNEL_LSTM_BWD = build.Kernel(
+    "attention_decode_scan_lstm_bwd", "attention_scan_loc_lstm.cu",
+    "attention_decode_scan_lstm_bwd",
+    [ctypes.c_void_p] * 36 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+)
+_COMMON = WEIGHTS[:7]
+_LOC = ("wconv", "bconv", "u")
+WEIGHTS_LOC_LSTM = _COMMON + ("w_h", "w_x", "b") + _LOC
+WEIGHTS_LOC = WEIGHTS + _LOC
+WEIGHTS_LSTM = _COMMON + ("w_h", "w_x", "b")
 
 
 def _loc_features(alpha_prev, wconv, bconv):
@@ -274,75 +300,114 @@ def _loc_features(alpha_prev, wconv, bconv):
     return sum(ap[:, j: j + l, None] * wconv[j] for j in range(f)) + bconv
 
 
-def attention_decode_scan_loc_lstm_plain(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b,
-                                         dec_w, dec_b, w_h, w_x, b, wconv, bconv, u):
-    """Plain PyTorch twin of K10: the step above looped over the T steps.
-    Returns (s_seq, c_seq, alpha_seq, mem_seq)."""
+def _split(weights, lstm: bool):
+    """(the seven weights every decoder has, the cell's, the location
+    term's (wconv, bconv, u) or ())."""
+    n_cell = 3 if lstm else 2
+    return weights[:7], weights[7:7 + n_cell], weights[7 + n_cell:]
+
+
+def _scan_plain(vh, h, enc_mask, yin, weights, lstm: bool):
+    """The step above looped over the T steps: (s_seq, c_seq, alpha_seq),
+    and mem_seq for the LSTM."""
+    (ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b), cell_w, loc_w = _split(weights, lstm)
     bsz, t_len, st = yin.shape
     s = yin.new_zeros((bsz, st))
     mem = torch.zeros_like(s)
     alpha = vh.new_zeros(vh.shape[:2])
     outs = ([], [], [], [])
     for t in range(t_len):
-        uf = _loc_features(alpha, wconv, bconv) @ u
-        e = torch.tanh(vh + (s @ ws_w + ws_b)[:, None, :] + uf) @ w_e
-        alpha = masked_softmax(e, enc_mask)
+        z = vh + (s @ ws_w + ws_b)[:, None, :]
+        if loc_w:
+            z = z + _loc_features(alpha, loc_w[0], loc_w[1]) @ loc_w[2]
+        alpha = masked_softmax(torch.tanh(z) @ w_e, enc_mask)
         c = torch.einsum("bl,bla->ba", alpha, h)
         r = torch.cat([c @ c_w + c_b, yin[:, t]], dim=-1) @ dec_w + dec_b
-        g_in, g_forget, g_cell, g_out = (s @ w_h + r @ w_x + b).chunk(4, dim=-1)
-        mem = torch.sigmoid(g_forget) * mem + torch.sigmoid(g_in) * torch.tanh(g_cell)
-        s = torch.sigmoid(g_out) * torch.tanh(mem)
+        if lstm:
+            w_h, w_x, b = cell_w
+            g_in, g_forget, g_cell, g_out = (s @ w_h + r @ w_x + b).chunk(4, dim=-1)
+            mem = torch.sigmoid(g_forget) * mem + torch.sigmoid(g_in) * torch.tanh(g_cell)
+            s = torch.sigmoid(g_out) * torch.tanh(mem)
+        else:
+            gru_wzr, gru_wh = cell_w
+            zr = torch.sigmoid(torch.cat([s, r], dim=-1) @ gru_wzr)
+            zg, rg = zr[:, :st], zr[:, st:]
+            cand = torch.tanh(torch.cat([rg * s, r], dim=-1) @ gru_wh)
+            s = (1.0 - zg) * s + zg * cand
         for seq, v in zip(outs, (s, c, alpha, mem)):
             seq.append(v)
-    return tuple(torch.stack(x, dim=1) for x in outs)
+    return tuple(torch.stack(x, dim=1) for x in outs[:4 if lstm else 3])
 
 
-def attention_decode_scan_loc_lstm_bwd_plain(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b,
-                                             dec_w, dec_b, w_h, w_x, b, wconv, bconv, u, s_seq,
-                                             c_seq, alpha_seq, mem_seq, ds_seq, dc_seq,
-                                             dalpha_seq, dmem_seq):
-    """Plain PyTorch twin of K11, step for step: a reverse-time loop that
-    recomputes each step's energies, decoder input and gates from the
-    saved s, mem and alpha (shifted by one, zero at step 0) and the saved
-    c, takes alpha itself from alpha_seq, and carries ds, dmem and the
-    cotangent of alpha_prev (the location term's input) to the step
-    before. A cotangent given as None counts as zeros. Returns (dvh, dh,
-    dyin, dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dw_h, dw_x,
-    db, dwconv, dbconv, du)."""
+def _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm: bool):
+    """The backward of _scan_plain, step for step as the kernels walk: a
+    reverse-time loop that recomputes each step's energies, decoder input
+    and cell from the saved s, mem and alpha (shifted by one, zero at
+    step 0) and the saved c, takes alpha itself from alpha_seq, and
+    carries ds, dmem and the cotangent of alpha_prev (the location term's
+    input) to the step before. The GRU follows ``_run_bwd_xla`` (:1047).
+    saved is (s_seq, c_seq, alpha_seq[, mem_seq]) and cots their
+    cotangents, each None where there is none: it counts as zeros.
+    Returns (dvh, dh, dyin, then the gradient of each weight)."""
+    (ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b), cell_w, loc_w = _split(weights, lstm)
+    s_seq, c_seq, alpha_seq = saved[:3]
+    ds_seq, dc_seq, dalpha_seq = cots[:3]
+    mem_seq, dmem_seq = (saved[3], cots[3]) if lstm else (None, None)
     bsz, t_len, st = yin.shape
-    f = wconv.shape[0]
-    pad_l = f // 2
     cot = lambda seq, t, like: like.new_zeros(like.shape) if seq is None else seq[:, t]
     ds_carry = yin.new_zeros((bsz, st))
     dmem_carry = torch.zeros_like(ds_carry)
     dal_carry = vh.new_zeros(vh.shape[:2])
     dvh, dh = torch.zeros_like(vh), torch.zeros_like(h)
     dyin = torch.empty_like(yin)
-    dw = [torch.zeros_like(w) for w in (ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_h, w_x, b,
-                                        wconv, bconv, u)]
+    dw = [torch.zeros_like(w) for w in weights]
     for t in range(t_len - 1, -1, -1):
         prev = (lambda seq: seq[:, t - 1]) if t > 0 else (lambda seq: torch.zeros_like(seq[:, 0]))
-        s_prev, mem_prev, alpha_prev = prev(s_seq), prev(mem_seq), prev(alpha_seq)
+        s_prev, alpha_prev = prev(s_seq), prev(alpha_seq)
         alpha, c_saved = alpha_seq[:, t], c_seq[:, t]
-        feat = _loc_features(alpha_prev, wconv, bconv)
         ws = s_prev @ ws_w + ws_b
-        a = torch.tanh(vh + ws[:, None, :] + feat @ u)
+        z = vh + ws[:, None, :]
+        if loc_w:
+            wconv, bconv, u = loc_w
+            feat = _loc_features(alpha_prev, wconv, bconv)
+            z = z + feat @ u
+        a = torch.tanh(z)
         cc = c_saved @ c_w + c_b
         rr = torch.cat([cc, yin[:, t]], dim=-1)
         r = rr @ dec_w + dec_b
-        g_in, g_forget, g_cell, g_out = (s_prev @ w_h + r @ w_x + b).chunk(4, dim=-1)
-        i, fg, o = torch.sigmoid(g_in), torch.sigmoid(g_forget), torch.sigmoid(g_out)
-        g = torch.tanh(g_cell)
-        tm = torch.tanh(fg * mem_prev + i * g)
-
-        # The LSTM.
         ds = cot(ds_seq, t, ds_carry) + ds_carry
-        dmem = ds * o * (1.0 - tm * tm) + cot(dmem_seq, t, ds_carry) + dmem_carry
-        dgates = torch.cat([dmem * g * i * (1.0 - i), dmem * mem_prev * fg * (1.0 - fg),
-                            dmem * i * (1.0 - g * g), ds * tm * o * (1.0 - o)], dim=-1)
-        dmem_carry = dmem * fg
-        ds_prev = dgates @ w_h.T
-        dr = dgates @ w_x.T
+
+        if lstm:
+            w_h, w_x, b = cell_w
+            mem_prev = prev(mem_seq)
+            g_in, g_forget, g_cell, g_out = (s_prev @ w_h + r @ w_x + b).chunk(4, dim=-1)
+            i, fg, o = torch.sigmoid(g_in), torch.sigmoid(g_forget), torch.sigmoid(g_out)
+            g = torch.tanh(g_cell)
+            tm = torch.tanh(fg * mem_prev + i * g)
+            dmem = ds * o * (1.0 - tm * tm) + cot(dmem_seq, t, ds_carry) + dmem_carry
+            dgates = torch.cat([dmem * g * i * (1.0 - i), dmem * mem_prev * fg * (1.0 - fg),
+                                dmem * i * (1.0 - g * g), ds * tm * o * (1.0 - o)], dim=-1)
+            dmem_carry = dmem * fg
+            ds_prev = dgates @ w_h.T
+            dr = dgates @ w_x.T
+            cell_steps = (s_prev.T @ dgates, r.T @ dgates, dgates.sum(0))
+        else:
+            gru_wzr, gru_wh = cell_w
+            sr = torch.cat([s_prev, r], dim=-1)
+            zr = torch.sigmoid(sr @ gru_wzr)
+            zg, rg = zr[:, :st], zr[:, st:]
+            cand_in = torch.cat([rg * s_prev, r], dim=-1)
+            cand = torch.tanh(cand_in @ gru_wh)
+            dzg = ds * (cand - s_prev)
+            da_cand = ds * zg * (1.0 - cand * cand)
+            dcand_in = da_cand @ gru_wh.T
+            drgs, dr = dcand_in[:, :st], dcand_in[:, st:]
+            da_zr = torch.cat([dzg * zg * (1.0 - zg), drgs * s_prev * rg * (1.0 - rg)], dim=-1)
+            dsr = da_zr @ gru_wzr.T
+            ds_prev = dsr[:, :st] + drgs * rg + ds * (1.0 - zg)
+            dr = dr + dsr[:, st:]
+            cell_steps = (sr.T @ da_zr, cand_in.T @ da_cand)
+
         # The decoder-input MLP and the context.
         drr = dr @ dec_w.T
         dcc = drr[:, :st]
@@ -356,96 +421,134 @@ def attention_decode_scan_loc_lstm_bwd_plain(vh, h, enc_mask, yin, ws_w, ws_b, w
         dvh += dz
         dws = torch.sum(dz, dim=1)
         ds_carry = ds_prev + dws @ ws_w.T
-        # The location term: UF = feat @ u, feat = conv(alpha_prev) + bconv.
-        dfeat = dz @ u.T
-        ap = torch.nn.functional.pad(alpha_prev, (pad_l, f - 1 - pad_l))
-        l = alpha.shape[1]
-        dap = torch.zeros_like(ap)
-        for j in range(f):
-            dap[:, j: j + l] += dfeat @ wconv[j]
-        dal_carry = dap[:, pad_l: pad_l + l]
-        dwconv = torch.stack([torch.einsum("bl,blq->q", ap[:, j: j + l], dfeat)
-                              for j in range(f)])
-
-        for acc, step in zip(dw, (
-            s_prev.T @ dws, dws.sum(0), torch.einsum("bls,bl->s", a, de),
-            c_saved.T @ dcc, dcc.sum(0), rr.T @ dr, dr.sum(0), s_prev.T @ dgates,
-            r.T @ dgates, dgates.sum(0), dwconv, dfeat.sum((0, 1)),
-            torch.einsum("blq,bls->qs", feat, dz),
-        )):
+        steps = [s_prev.T @ dws, dws.sum(0), torch.einsum("bls,bl->s", a, de),
+                 c_saved.T @ dcc, dcc.sum(0), rr.T @ dr, dr.sum(0), *cell_steps]
+        if loc_w:
+            # The location term: UF = feat @ u, feat = conv(alpha_prev) + bconv.
+            f = wconv.shape[0]
+            pad_l, l = f // 2, alpha.shape[1]
+            dfeat = dz @ u.T
+            ap = torch.nn.functional.pad(alpha_prev, (pad_l, f - 1 - pad_l))
+            dap = torch.zeros_like(ap)
+            for j in range(f):
+                dap[:, j: j + l] += dfeat @ wconv[j]
+            dal_carry = dap[:, pad_l: pad_l + l]
+            steps += [torch.stack([torch.einsum("bl,blq->q", ap[:, j: j + l], dfeat)
+                                   for j in range(f)]),
+                      dfeat.sum((0, 1)), torch.einsum("blq,bls->qs", feat, dz)]
+        for acc, step in zip(dw, steps):
             acc += step
     return (dvh, dh, dyin, *dw)
 
 
-def _loc_dims(vh, h, yin, wconv):
+def attention_decode_scan_loc_lstm_plain(vh, h, enc_mask, yin, *weights):
+    """Plain PyTorch twin of K10: (s_seq, c_seq, alpha_seq, mem_seq)."""
+    return _scan_plain(vh, h, enc_mask, yin, weights, lstm=True)
+
+
+def attention_decode_scan_loc_plain(vh, h, enc_mask, yin, *weights):
+    """Plain PyTorch twin of K12: (s_seq, c_seq, alpha_seq)."""
+    return _scan_plain(vh, h, enc_mask, yin, weights, lstm=False)
+
+
+def attention_decode_scan_lstm_plain(vh, h, enc_mask, yin, *weights):
+    """Plain PyTorch twin of K14: (s_seq, c_seq, alpha_seq, mem_seq)."""
+    return _scan_plain(vh, h, enc_mask, yin, weights, lstm=True)
+
+
+def attention_decode_scan_loc_lstm_bwd_plain(vh, h, enc_mask, yin, *args):
+    """Plain PyTorch twin of K11. args: the 13 weights, (s_seq, c_seq,
+    alpha_seq, mem_seq) and their cotangents (each may be None). Returns
+    (dvh, dh, dyin, dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dw_h,
+    dw_x, db, dwconv, dbconv, du)."""
+    return _scan_bwd_plain(vh, h, enc_mask, yin, args[:13], args[13:17], args[17:], lstm=True)
+
+
+def attention_decode_scan_loc_bwd_plain(vh, h, enc_mask, yin, *args):
+    """Plain PyTorch twin of K13. args: the 12 weights, (s_seq, c_seq,
+    alpha_seq) and their cotangents (each may be None). Returns (dvh, dh,
+    dyin, dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dgru_wzr,
+    dgru_wh, dwconv, dbconv, du)."""
+    return _scan_bwd_plain(vh, h, enc_mask, yin, args[:12], args[12:15], args[15:], lstm=False)
+
+
+def attention_decode_scan_lstm_bwd_plain(vh, h, enc_mask, yin, *args):
+    """Plain PyTorch twin of K15. args: the 10 weights, (s_seq, c_seq,
+    alpha_seq, mem_seq) and their cotangents (each may be None). Returns
+    (dvh, dh, dyin, dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dw_h,
+    dw_x, db)."""
+    return _scan_bwd_plain(vh, h, enc_mask, yin, args[:10], args[10:14], args[14:], lstm=True)
+
+
+def _scan_dims(vh, h, yin, weights, lstm: bool):
+    """(B, T, L, S, A, St) and, with the location term, (FM, F)."""
     b, l, s_dim = vh.shape
-    return b, yin.shape[1], l, s_dim, h.shape[2], yin.shape[2], wconv.shape[1], wconv.shape[0]
+    loc_w = _split(weights, lstm)[2]
+    loc = (loc_w[0].shape[1], loc_w[0].shape[0]) if loc_w else ()
+    return (b, yin.shape[1], l, s_dim, h.shape[2], yin.shape[2]), loc
 
 
-def _check_loc_lstm_inputs(vh, h, enc_mask, yin, weights):
-    b, t_len, l, s_dim, a_dim, st, fm, f = _loc_dims(vh, h, yin, weights[10])
-    dev = vh.device
+def _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm: bool):
+    (b, t_len, l, s_dim, a_dim, st), loc = _scan_dims(vh, h, yin, weights, lstm)
     shapes = [(b, l, s_dim), (b, l, a_dim), (b, l), (b, t_len, st), (st, s_dim), (s_dim,),
-              (s_dim,), (a_dim, st), (st,), (2 * st, st), (st,), (st, 4 * st), (st, 4 * st),
-              (4 * st,), (f, fm), (fm,), (fm, s_dim)]
-    names = ("vh", "h", "enc_mask", "yin") + WEIGHTS_LOC_LSTM
+              (s_dim,), (a_dim, st), (st,), (2 * st, st), (st,)]
+    shapes += ([(st, 4 * st), (st, 4 * st), (4 * st,)] if lstm
+               else [(2 * st, 2 * st), (2 * st, st)])
+    names = ("vh", "h", "enc_mask", "yin") + (WEIGHTS_LSTM if lstm else WEIGHTS)
+    if loc:
+        fm, f = loc
+        shapes += [(f, fm), (fm,), (fm, s_dim)]
+        names += _LOC
+    if len(weights) != len(names) - 4:
+        raise ValueError(f"{len(weights)} weights, expected {len(names) - 4}")
     for name, t, shape in zip(names, (vh, h, enc_mask, yin, *weights), shapes):
-        build.check(name, t, shape, dev)
+        build.check(name, t, shape, vh.device)
 
 
-def attention_decode_scan_loc_lstm(vh, h, enc_mask, yin, *weights):
-    """vh (B,L,S); h (B,L,A); enc_mask (B,L); yin (B,T,St); weights ws_w
-    (St,S), ws_b (S,), w_e (S,), c_w (A,St), c_b (St,), dec_w (2St,St),
-    dec_b (St,), w_h (St,4St), w_x (St,4St), b (4St,), wconv (F,FM),
-    bconv (FM,), u (FM,S). Returns (s_seq (B,T,St), c_seq (B,T,A),
-    alpha_seq (B,T,L), mem_seq (B,T,St)).
-
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+def _scan(kernel, lstm: bool, vh, h, enc_mask, yin, weights):
+    """The forward wrapper of K10, K12 and K14: the plain version on CPU
+    tensors, the kernel on CUDA tensors."""
     if build.on_cpu(vh, h, enc_mask, yin, *weights):
-        return attention_decode_scan_loc_lstm_plain(vh, h, enc_mask, yin, *weights)
-    _check_loc_lstm_inputs(vh, h, enc_mask, yin, weights)
-    b, t_len, l, s_dim, a_dim, st, fm, f = _loc_dims(vh, h, yin, weights[10])
+        return _scan_plain(vh, h, enc_mask, yin, weights, lstm)
+    _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm)
+    (b, t_len, l, s_dim, a_dim, st), loc = _scan_dims(vh, h, yin, weights, lstm)
     f32 = dict(device=vh.device, dtype=torch.float32)
-    outs = (torch.empty((b, t_len, st), **f32), torch.empty((b, t_len, a_dim), **f32),
-            torch.empty((b, t_len, l), **f32), torch.empty((b, t_len, st), **f32))
+    shapes = [(b, t_len, st), (b, t_len, a_dim), (b, t_len, l), (b, t_len, st)]
+    outs = tuple(torch.empty(shape, **f32) for shape in shapes[:4 if lstm else 3])
     if b * t_len == 0:
         return outs
-    KERNEL_LOC_LSTM_FWD.launch(
-        *[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *outs)],
-        b, t_len, l, s_dim, a_dim, st, fm, f, build.stream_of(vh),
-    )
+    kernel.launch(*[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *outs)],
+                  b, t_len, l, s_dim, a_dim, st, *loc, build.stream_of(vh))
     return outs
 
 
-def loc_lstm_scratch_floats(b: int, t_len: int, l: int, s_dim: int, st: int, fm: int,
-                            f: int) -> int:
-    """Floats of K11's stash: (B*T) rows of rr (2St), r (St), dws (S),
-    dcc, dr (St each), dgates (4St) and the per-step w_e partial (S), then
-    (B*T*L) rows of feat (FM), the conv's input windows (F), dz (S) and
-    dfeat (FM), in that order."""
-    return b * t_len * (9 * st + 2 * s_dim) + b * t_len * l * (2 * fm + f + s_dim)
+def stash_floats(lstm: bool, b: int, t_len: int, l: int, s_dim: int, st: int, fm: int = 0,
+                 f: int = 0) -> int:
+    """Floats of the stash of K5, K11, K13 and K15 (``carve_stash``): (B*T)
+    rows of rr (2St), for the LSTM r (St), for the GRU sr and cand_in (2St
+    each), dws (S), dcc and dr (St each), for the LSTM dgates (4St), for
+    the GRU da_zr (2St) and da_cand (St), and the per-step w_e partial
+    (S); then, with the location term (fm > 0), (B*T*L) rows of feat
+    (FM), the conv's input windows (F), dz (S) and dfeat (FM)."""
+    per_step = (9 if lstm else 11) * st + 2 * s_dim
+    return b * t_len * per_step + (b * t_len * l * (2 * fm + f + s_dim) if fm else 0)
 
 
-def attention_decode_scan_loc_lstm_bwd(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b, dec_w,
-                                       dec_b, w_h, w_x, b, wconv, bconv, u, s_seq, c_seq,
-                                       alpha_seq, mem_seq, ds_seq, dc_seq, dalpha_seq,
-                                       dmem_seq):
-    """Cotangents of attention_decode_scan_loc_lstm's differentiable
-    inputs given its inputs, its four outputs and their cotangents (each
-    None where there is none: it counts as zeros): (dvh, dh, dyin, dws_w,
-    dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dw_h, dw_x, db, dwconv,
-    dbconv, du).
-
-    CPU tensors take the plain version; CUDA tensors the kernel."""
-    weights = (ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_h, w_x, b, wconv, bconv, u)
-    saved = (s_seq, c_seq, alpha_seq, mem_seq)
-    cots = (ds_seq, dc_seq, dalpha_seq, dmem_seq)
+def _scan_bwd(kernel, lstm: bool, n_weights: int, vh, h, enc_mask, yin, args):
+    """The backward wrapper of K11, K13 and K15: args are the weights, the
+    saved output sequences and their cotangents (each None where there is
+    none: it counts as zeros)."""
+    n_out = 4 if lstm else 3
+    weights = args[:n_weights]
+    saved = args[n_weights:n_weights + n_out]
+    cots = args[n_weights + n_out:]
+    if len(cots) != n_out:
+        raise ValueError(f"{len(args)} arguments after yin, expected {n_weights + 2 * n_out}")
     given = [t for t in cots if t is not None]
     if build.on_cpu(vh, h, enc_mask, yin, *weights, *saved, *given):
-        return attention_decode_scan_loc_lstm_bwd_plain(vh, h, enc_mask, yin, *weights, *saved,
-                                                        *cots)
-    _check_loc_lstm_inputs(vh, h, enc_mask, yin, weights)
-    bsz, t_len, l, s_dim, a_dim, st, fm, f = _loc_dims(vh, h, yin, wconv)
+        return _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm)
+    _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm)
+    (bsz, t_len, l, s_dim, a_dim, st), loc = _scan_dims(vh, h, yin, weights, lstm)
     dev = vh.device
     seq_shapes = [(bsz, t_len, st), (bsz, t_len, a_dim), (bsz, t_len, l), (bsz, t_len, st)]
     for name, t, shape in zip(("s_seq", "c_seq", "alpha_seq", "mem_seq"), saved, seq_shapes):
@@ -458,14 +561,91 @@ def attention_decode_scan_loc_lstm_bwd(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_
     grads += [torch.empty(w.shape, **f32) for w in weights]
     if bsz * t_len == 0:
         return tuple(g.zero_() for g in grads)
-    scratch = torch.empty(loc_lstm_scratch_floats(bsz, t_len, l, s_dim, st, fm, f), **f32)
-    KERNEL_LOC_LSTM_BWD.launch(
+    scratch = torch.empty(stash_floats(lstm, bsz, t_len, l, s_dim, st, *loc), **f32)
+    kernel.launch(
         *[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *saved)],
         *[None if t is None else build.ptr(t) for t in cots],
         *[build.ptr(t) for t in (*grads, scratch)],
-        bsz, t_len, l, s_dim, a_dim, st, fm, f, build.stream_of(vh),
+        bsz, t_len, l, s_dim, a_dim, st, *loc, build.stream_of(vh),
     )
     return tuple(grads)
+
+
+def attention_decode_scan_loc_lstm(vh, h, enc_mask, yin, *weights):
+    """vh (B,L,S); h (B,L,A); enc_mask (B,L); yin (B,T,St); weights ws_w
+    (St,S), ws_b (S,), w_e (S,), c_w (A,St), c_b (St,), dec_w (2St,St),
+    dec_b (St,), w_h (St,4St), w_x (St,4St), b (4St,), wconv (F,FM),
+    bconv (FM,), u (FM,S). Returns (s_seq (B,T,St), c_seq (B,T,A),
+    alpha_seq (B,T,L), mem_seq (B,T,St)).
+
+    CPU tensors take the plain version; CUDA tensors the kernel (K10)."""
+    return _scan(KERNEL_LOC_LSTM_FWD, True, vh, h, enc_mask, yin, weights)
+
+
+def attention_decode_scan_loc(vh, h, enc_mask, yin, *weights):
+    """As attention_decode_scan_loc_lstm, with the GRU cell: weights ws_w,
+    ws_b, w_e, c_w, c_b, dec_w, dec_b, gru_wzr (2St,2St), gru_wh (2St,St),
+    wconv, bconv, u. Returns (s_seq, c_seq, alpha_seq).
+
+    CPU tensors take the plain version; CUDA tensors the kernel (K12)."""
+    return _scan(KERNEL_LOC_FWD, False, vh, h, enc_mask, yin, weights)
+
+
+def attention_decode_scan_lstm(vh, h, enc_mask, yin, *weights):
+    """As attention_decode_scan_loc_lstm, without the location term:
+    weights ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_h, w_x, b. Returns
+    (s_seq, c_seq, alpha_seq, mem_seq).
+
+    CPU tensors take the plain version; CUDA tensors the kernel (K14)."""
+    return _scan(KERNEL_LSTM_FWD, True, vh, h, enc_mask, yin, weights)
+
+
+def attention_decode_scan_loc_lstm_bwd(vh, h, enc_mask, yin, *args):
+    """Cotangents of attention_decode_scan_loc_lstm's differentiable
+    inputs given its inputs, its four outputs and their cotangents (each
+    None where there is none: it counts as zeros): (dvh, dh, dyin, dws_w,
+    dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dw_h, dw_x, db, dwconv,
+    dbconv, du).
+
+    CPU tensors take the plain version; CUDA tensors the kernel (K11)."""
+    return _scan_bwd(KERNEL_LOC_LSTM_BWD, True, 13, vh, h, enc_mask, yin, args)
+
+
+def attention_decode_scan_loc_bwd(vh, h, enc_mask, yin, *args):
+    """Cotangents of attention_decode_scan_loc's differentiable inputs
+    given its inputs, its three outputs and their cotangents (each may be
+    None): (dvh, dh, dyin, dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b,
+    dgru_wzr, dgru_wh, dwconv, dbconv, du).
+
+    CPU tensors take the plain version; CUDA tensors the kernel (K13)."""
+    return _scan_bwd(KERNEL_LOC_BWD, False, 12, vh, h, enc_mask, yin, args)
+
+
+def attention_decode_scan_lstm_bwd(vh, h, enc_mask, yin, *args):
+    """Cotangents of attention_decode_scan_lstm's differentiable inputs
+    given its inputs, its four outputs and their cotangents (each may be
+    None): (dvh, dh, dyin, dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b,
+    dw_h, dw_x, db).
+
+    CPU tensors take the plain version; CUDA tensors the kernel (K15)."""
+    return _scan_bwd(KERNEL_LSTM_BWD, True, 10, vh, h, enc_mask, yin, args)
+
+
+def _forward(ctx, scan, args):
+    """An autograd forward of one of the scans: saves the inputs and the
+    output sequences, as the JAX VJPs do, and hands a missing cotangent
+    to the backward as None."""
+    outs = scan(*args)
+    ctx.save_for_backward(*args, *outs)
+    ctx.set_materialize_grads(False)
+    return outs
+
+
+def _backward(ctx, scan_bwd, cots):
+    vh, h, enc_mask, yin, *rest = ctx.saved_tensors
+    cots = [None if c is None else c.contiguous() for c in cots]
+    dvh, dh, dyin, *dw = scan_bwd(vh, h, enc_mask, yin, *rest, *cots)
+    return (dvh, dh, None, dyin, *dw)
 
 
 class AttentionDecodeScanLocLSTM(torch.autograd.Function):
@@ -478,15 +658,39 @@ class AttentionDecodeScanLocLSTM(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, vh, h, enc_mask, yin, *weights):
-        outs = attention_decode_scan_loc_lstm(vh, h, enc_mask, yin, *weights)
-        ctx.save_for_backward(vh, h, enc_mask, yin, *weights, *outs)
-        ctx.set_materialize_grads(False)
-        return outs
+        return _forward(ctx, attention_decode_scan_loc_lstm, (vh, h, enc_mask, yin, *weights))
 
     @staticmethod
     def backward(ctx, *cots):
-        vh, h, enc_mask, yin, *rest = ctx.saved_tensors
-        cots = [None if c is None else c.contiguous() for c in cots]
-        dvh, dh, dyin, *dw = attention_decode_scan_loc_lstm_bwd(vh, h, enc_mask, yin, *rest,
-                                                                *cots)
-        return (dvh, dh, None, dyin, *dw)
+        return _backward(ctx, attention_decode_scan_loc_lstm_bwd, cots)
+
+
+class AttentionDecodeScanLoc(torch.autograd.Function):
+    """attention_decode_scan_loc with its gradient: K12 forward, K13
+    backward (the plain versions on CPU tensors). Saves s_seq, c_seq and
+    alpha_seq, as the JAX VJP does (:1001-1017); enc_mask gets no
+    gradient, and a missing cotangent counts as zeros."""
+
+    @staticmethod
+    def forward(ctx, vh, h, enc_mask, yin, *weights):
+        return _forward(ctx, attention_decode_scan_loc, (vh, h, enc_mask, yin, *weights))
+
+    @staticmethod
+    def backward(ctx, *cots):
+        return _backward(ctx, attention_decode_scan_loc_bwd, cots)
+
+
+class AttentionDecodeScanLSTM(torch.autograd.Function):
+    """attention_decode_scan_lstm with its gradient: K14 forward, K15
+    backward (the plain versions on CPU tensors). Saves the four output
+    sequences (the JAX VJP, :1246-1262, saves s, c and mem, and
+    recomputes alpha); enc_mask gets no gradient, and a missing cotangent
+    counts as zeros."""
+
+    @staticmethod
+    def forward(ctx, vh, h, enc_mask, yin, *weights):
+        return _forward(ctx, attention_decode_scan_lstm, (vh, h, enc_mask, yin, *weights))
+
+    @staticmethod
+    def backward(ctx, *cots):
+        return _backward(ctx, attention_decode_scan_lstm_bwd, cots)

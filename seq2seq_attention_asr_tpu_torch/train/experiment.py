@@ -1,8 +1,10 @@
 """Experiment configs (seq2seq_attention_asr_tpu/train/experiment.py): a
 model choice with its kwargs, a TrainConfig and an OptimConfig, and the
 initialization the recipe asks for. The port has the canonical TIMIT
-recipe and the conv+BiLSTM TIMIT recipe, both served and trained; the
-others come with their model families."""
+recipe and the conv+BiLSTM TIMIT recipe, both served and trained, also
+with the attention's location term switched on or off through
+``exp.model_kwargs["feature_maps"]``; the others come with their model
+families."""
 
 from __future__ import annotations
 

@@ -507,3 +507,179 @@ def test_conv_bilstm_train_step_on_the_card_matches_the_cpu(card):
     for got, want in zip(runs["cuda"], runs["cpu"]):
         for key in ("loss", "nll", "grad_norm", "param_norm"):
             assert abs(got[key] - want[key]) <= 1e-4 * abs(want[key]), (key, got, want)
+
+
+def _decoder_case(card, gen, b, l, t, s, a, st, cell, fm=0, f=0):
+    """Decoder-scan inputs for the location-aware GRU (fm > 0) or the
+    content-only LSTM (fm = 0): ragged encoder lengths, weights at the
+    scale of torch's default init."""
+    lens = torch.randint(1, l + 1, (b,), generator=gen).cuda()
+    lens[0] = l
+    mask = (torch.arange(l, device=card)[None] < lens[:, None]).float()
+    h = _rand(gen, b, l, a, scale=0.5) * mask[:, :, None]
+    u = lambda *shape: _rand(gen, *shape, scale=shape[0] ** -0.5)
+    vh = (h @ u(a, s)).contiguous()
+    weights = [u(st, s), u(st, s)[0], u(s, s)[0], u(a, st), u(a, st)[0], u(2 * st, st),
+               u(2 * st, st)[0]]
+    weights += ([u(2 * st, 2 * st), u(2 * st, st)] if cell == "gru"
+                else [u(st, 4 * st), u(st, 4 * st), u(st, 4 * st)[0]])
+    if fm:
+        weights += [u(f, fm), u(f, fm)[0], u(fm, s)]
+    return vh, h, mask, _rand(gen, b, t, st, scale=0.5), tuple(w.contiguous() for w in weights)
+
+
+def _decoder_scans(cell):
+    """(forward, backward, their plain versions, the two kernels) of the
+    location-aware GRU scan (K12, K13) or the content-only LSTM scan
+    (K14, K15)."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan as a
+
+    if cell == "gru":
+        return (a.attention_decode_scan_loc, a.attention_decode_scan_loc_bwd,
+                a.attention_decode_scan_loc_plain, a.attention_decode_scan_loc_bwd_plain,
+                a.KERNEL_LOC_FWD, a.KERNEL_LOC_BWD)
+    return (a.attention_decode_scan_lstm, a.attention_decode_scan_lstm_bwd,
+            a.attention_decode_scan_lstm_plain, a.attention_decode_scan_lstm_bwd_plain,
+            a.KERNEL_LSTM_FWD, a.KERNEL_LSTM_BWD)
+
+
+# (cell, B, L, T, (S, A, St, FM, F)): the location-aware GRU at the
+# flagship's training shape (filter 10) and at small odd widths with
+# filters 4 and 5; the content-only LSTM at the conv+BiLSTM recipe's
+# training shape and at small odd widths.
+DECODER_SCAN_CASES = [
+    ("gru", 16, 144, 56, (512, 512, 256, 16, 10)), ("gru", 3, 13, 5, (17, 12, 9, 3, 4)),
+    ("gru", 5, 40, 9, (40, 24, 33, 4, 5)), ("lstm", 16, 16, 56, (150, 256, 400, 0, 0)),
+    ("lstm", 3, 13, 5, (17, 12, 9, 0, 0)), ("lstm", 4, 37, 9, (64, 40, 33, 0, 0)),
+]
+
+
+@pytest.mark.parametrize("case", range(len(DECODER_SCAN_CASES)))
+def test_decoder_scan_kernels(card, case):
+    """K12 or K14 against its plain version (1e-4 abs), then K13 or K15
+    with cotangents on every output, and with none on alpha (and mem),
+    against its plain version."""
+    cell, b, l, t, (s, a, st, fm, f) = DECODER_SCAN_CASES[case]
+    fwd, bwd, fwd_plain, bwd_plain, k_fwd, k_bwd = _decoder_scans(cell)
+    gen = torch.Generator().manual_seed(b * 31 + l)
+    vh, h, mask, yin, weights = _decoder_case(card, gen, b, l, t, s, a, st, cell, fm, f)
+    n_fwd, n_bwd = k_fwd.launches, k_bwd.launches
+    got = fwd(vh, h, mask, yin, *weights)
+    want = fwd_plain(vh, h, mask, yin, *weights)
+    torch.cuda.synchronize()
+    assert k_fwd.launches == n_fwd + 1
+    assert len(got) == len(want) == (3 if cell == "gru" else 4)
+    assert _max_err(got, want) <= TOL
+    widths = (st, a, l, st)[:len(want)]
+    for partial in (False, True):
+        cot = [_rand(gen, b, t, n) for n in widths]
+        if partial:
+            cot[2:] = [None] * (len(cot) - 2)
+        args = (vh, h, mask, yin, *weights, *want, *cot)
+        got_b = bwd(*args)
+        want_b = bwd_plain(*args)
+        torch.cuda.synchronize()
+        _bwd_close(got_b, want_b, f"{cell} scan bwd")
+    assert k_bwd.launches == n_bwd + 2
+
+
+def test_decoder_scans_refuse_what_does_not_fit(card):
+    """A row's step lives in one block's shared memory (232,448 bytes on
+    an H100). From the kernels' carve functions: at the flagship's widths
+    with 16 maps and filter 10, K13 takes 19,401 + 38 L floats (L <= 1018)
+    and K12 15,033 + 3 L (L <= 14359); at the conv+BiLSTM recipe's widths
+    K15 takes 11,826 + 4 L (L <= 11571). The largest L runs, one more is
+    refused at launch and not counted."""
+    flagship, conv_bilstm = (512, 512, 256), (150, 256, 400)
+    for cell, dims, fm, f, kernel, l_max in (("gru", flagship, 16, 10, "bwd", 1018),
+                                            ("gru", flagship, 16, 10, "fwd", 14359),
+                                            ("lstm", conv_bilstm, 0, 0, "bwd", 11571)):
+        fwd, bwd, fwd_plain, _, k_fwd, k_bwd = _decoder_scans(cell)
+        k = k_bwd if kernel == "bwd" else k_fwd
+        for l in (l_max, l_max + 1):
+            gen = torch.Generator().manual_seed(l)
+            vh, h, mask, yin, weights = _decoder_case(card, gen, 1, l, 1, *dims, cell, fm, f)
+            before = k.launches
+            if kernel == "fwd":
+                call = lambda: fwd(vh, h, mask, yin, *weights)
+            else:
+                saved = fwd_plain(vh, h, mask, yin, *weights)
+                cot = [torch.ones_like(saved[0])] + [None] * (len(saved) - 1)
+                call = lambda: bwd(vh, h, mask, yin, *weights, *saved, *cot)
+            if l == l_max:
+                call()
+                torch.cuda.synchronize()
+                assert k.launches == before + 1, (cell, kernel, l)
+            else:
+                with pytest.raises(RuntimeError):
+                    call()
+                assert k.launches == before, (cell, kernel, l)
+
+
+# name: (recipe, small widths with the changed option, frames of the
+# batch, the kernels that each card step launches once per count).
+LOC_DECODER_RECIPES = {
+    "flagship_loc": ("timit_chorowski_normnll_colnorm",
+                     dict(input_frame_size=10, hidden_frame_size=32, output_frame_size=32,
+                          score_depth=32, state_depth=32, mlp_depth=16, output_depth=9,
+                          feature_maps=4), 24),
+    "conv_bilstm_content": ("timit_conv_bilstm",
+                            dict(input_frame_size=10, hidden_frame_size=32, output_frame_size=16,
+                                 score_depth=24, feature_maps=0, state_depth=32, output_depth=9),
+                            80),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LOC_DECODER_RECIPES))
+def test_loc_decoder_train_step_on_the_card_matches_the_cpu(card, name):
+    """Two steps of the flagship recipe with location-aware attention (K1
+    and K6 three times, K12 and K13 once a step) and of the conv+BiLSTM
+    recipe without the location term (K7, K9, K14 and K15 once a step), at
+    small widths, and no other kernel; metrics within 1e-4 relative of
+    the CPU run."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import (attention_scan, attention_step,
+                                                          gru_scan, logmel, lstm_scan)
+    from seq2seq_attention_asr_tpu_torch.train import experiment, optim, trainer
+
+    recipe, small, frames = LOC_DECODER_RECIPES[name]
+    exp = getattr(experiment, recipe)()
+    exp.model_kwargs.update(small)
+    model = exp.build_model()
+    params = exp.init_params(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.RandomState(0)
+    lens = torch.tensor([frames, frames * 3 // 4, frames // 2, frames * 5 // 8])
+    batch = (torch.from_numpy(rng.randn(4, frames, 10).astype(np.float32)), lens,
+             torch.from_numpy(rng.randint(0, 9, (4, 6))),
+             (torch.arange(6)[None] < torch.tensor([6, 3, 5, 1])[:, None]).float())
+    kernels = {k.name: k for k in (
+        gru_scan.KERNEL, gru_scan.KERNEL_BWD, lstm_scan.KERNEL, lstm_scan.KERNEL_BWD,
+        attention_scan.KERNEL_FWD, attention_scan.KERNEL_BWD, attention_scan.KERNEL_LOC_LSTM_FWD,
+        attention_scan.KERNEL_LOC_LSTM_BWD, attention_scan.KERNEL_LOC_FWD,
+        attention_scan.KERNEL_LOC_BWD, attention_scan.KERNEL_LSTM_FWD,
+        attention_scan.KERNEL_LSTM_BWD, attention_step.KERNEL, attention_step.KERNEL_LOC_LSTM,
+        logmel.KERNEL)}
+    expected = dict.fromkeys(kernels, 0)
+    if name == "flagship_loc":
+        expected.update(bigru_scan2=3, bigru_scan2_bwd=3, attention_decode_scan_loc_fwd=1,
+                        attention_decode_scan_loc_bwd=1)
+    else:
+        expected.update(bilstm_scan=1, bilstm_scan_bwd=1, attention_decode_scan_lstm_fwd=1,
+                        attention_decode_scan_lstm_bwd=1)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tx = optim.build_optimizer(exp.optim)
+        init_fn, step_fn = trainer.make_train_step(model.forward, tx, exp.optim, exp.train,
+                                                   model.output_depth)
+        state = init_fn(interop.to_torch(params, dev), torch.Generator().manual_seed(1))
+        runs[dev] = []
+        for _ in range(2):
+            before = {n: k.launches for n, k in kernels.items()}
+            state, m = step_fn(state, tuple(x.to(dev) for x in batch))
+            torch.cuda.synchronize()
+            launched = {n: k.launches - before[n] for n, k in kernels.items()}
+            assert launched == (expected if dev == "cuda" else dict.fromkeys(kernels, 0))
+            runs[dev].append({k: float(v) for k, v in m.items()})
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        for key in ("loss", "nll", "grad_norm", "param_norm"):
+            assert abs(got[key] - want[key]) <= 1e-4 * abs(want[key]), (key, got, want)

@@ -5,7 +5,8 @@ interpret mode, and the beam search; the plain versions of the
 location-aware LSTM decoder scan (kernels K10 and K11) against the
 Pallas kernels in interpret mode (called directly with block_b=8, B = 8
 and L a multiple of 8) and autograd, and its autograd function against
-finite differences; and what the teacher-forced scan still refuses.
+finite differences; and what the teacher-forced scan still refuses (LSTM
+peepholes, and the monotonic penalty in training).
 
 Tolerances: float32 forward rtol 2e-5 (atol 2e-6), the JAX package's
 parity tolerance (tests/test_pallas.py); beam tokens and lengths
@@ -261,18 +262,19 @@ def test_loc_lstm_scan_missing_cotangents_count_as_zeros():
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("train", [False, True])
-@pytest.mark.parametrize("cell,fm", [("gru", 4), ("lstm", 0)])
-def test_teacher_forced_scan_refuses_location_and_lstm(cell, fm, train):
-    """The scan kernels are the content-only GRU's (K4, K5) and the
-    location-aware LSTM's (K10, K11): a location-aware GRU or a
-    content-only LSTM decoder must be refused, not run without its
-    location term or with the wrong cell."""
-    _, cfg = configs(cell, fm)
-    params = attention.attention_init(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError):
-        attention.decode_teacher_forced(params, cfg, torch.zeros(2, 5, 24), torch.tensor([5, 3]),
-                                        torch.zeros(2, 3, 6), torch.ones(2, 3), train=train)
+def test_teacher_forced_scan_refuses_the_active_penalty():
+    """Of the teacher-forced scan's options only the monotonic penalty is
+    refused, and only in training: it would otherwise train without its
+    gradient."""
+    for cell, fm in (("gru", 0), ("gru", 4), ("lstm", 0), ("lstm", 4)):
+        _, cfg = configs(cell, fm)
+        cfg = dataclasses.replace(cfg, mono_align=True, penalty_lambda=0.5)
+        params = attention.attention_init(torch.Generator().manual_seed(0), cfg)
+        args = (params, cfg, torch.zeros(2, 5, 24), torch.tensor([5, 3]), torch.zeros(2, 3, 6),
+                torch.ones(2, 3))
+        assert attention.decode_teacher_forced(*args, train=False)["logprobs"].shape == (2, 3, 6)
+        with pytest.raises(NotImplementedError):
+            attention.decode_teacher_forced(*args, train=True)
 
 
 def test_peepholes_are_refused():

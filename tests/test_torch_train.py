@@ -287,7 +287,7 @@ def _forward(model, train):
                          train=train)
 
 
-@pytest.mark.parametrize("case", ["awn", "weight", "dropout", "penalty", "feature_maps", "lstm"])
+@pytest.mark.parametrize("case", ["awn", "weight", "dropout", "penalty", "lstm"])
 def test_unported_configurations_are_refused(case):
     if case in ("awn", "weight"):
         with pytest.raises(NotImplementedError):
@@ -299,25 +299,20 @@ def test_unported_configurations_are_refused(case):
         assert _forward(model, train=False)["logprobs"].shape == (2, 3, 7)
         with pytest.raises(NotImplementedError):
             _forward(model, train=True)
-    elif case == "feature_maps":
-        # Such a model initialises and decodes, but its teacher-forced
-        # scan is not ported: K4/K5 would drop the location term.
-        model = registry.build("chorowski", **SMALL, feature_maps=4)
-        for train in (False, True):
-            with pytest.raises(NotImplementedError):
-                _forward(model, train=train)
     else:
+        # The LSTM decoder with peepholes: its weights are not made, and
+        # the teacher-forced scan refuses it.
         cfg = attention.AttentionConfig(score_depth=4, state_depth=4, annotation_depth=4,
                                         output_depth=3, cell="lstm")
         params = attention.attention_init(torch.Generator().manual_seed(0), cfg)
+        peep = dataclasses.replace(cfg, peepholes=True)
         for train in (False, True):
             with pytest.raises(NotImplementedError):
-                attention.decode_teacher_forced(params, cfg, torch.zeros(1, 2, 4),
+                attention.decode_teacher_forced(params, peep, torch.zeros(1, 2, 4),
                                                 torch.tensor([2]), torch.zeros(1, 1, 3),
                                                 torch.ones(1, 1), train=train)
         with pytest.raises(NotImplementedError):
-            attention.attention_init(torch.Generator().manual_seed(0),
-                                     dataclasses.replace(cfg, peepholes=True))
+            attention.attention_init(torch.Generator().manual_seed(0), peep)
 
 
 def test_chorowski_forward_is_encode_then_decode():

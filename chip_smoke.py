@@ -2,14 +2,16 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU: PCM -> text serving
 and training of the flagship Chorowski model and of the conv+BiLSTM
 TIMIT model, and training of each with the other decoder (the flagship
-with location-aware attention, the conv+BiLSTM model without it),
-through their fifteen CUDA kernels.
+with location-aware attention, the conv+BiLSTM model without it), and
+the flagship's encoder by two more BiGRU paths (one GRU layer per
+direction, and the direction-stacked scan), through their nineteen CUDA
+kernels.
 
     python3 chip_smoke.py
 
 Phases, each fatal when it fails:
   1. the card's name and power limit (nvidia-smi);
-  2. build the fifteen kernels from csrc/ (one nvcc per source, in parallel);
+  2. build the nineteen kernels from csrc/ (one nvcc per source, in parallel);
   3. hold each kernel to its plain PyTorch version through its public
      wrapper: K1-K3 at the flagship's serving shapes, batch 1 and 8 (max
      abs error 1e-4); K4 (1e-4 abs) and K5, K6 (max|got - plain| <= 5e-4
@@ -30,7 +32,12 @@ Phases, each fatal when it fails:
      flagship with 16 feature maps of filter 10 (flagship_loc), and K14
      and K15, the content-only LSTM decoder scan, at the conv+BiLSTM
      recipe's training shape on the encoder output of that recipe without
-     the location term (conv_bilstm_content);
+     the location term (conv_bilstm_content); K16-K19, the one-direction
+     GRU scan (K16, K17: direction 0) and the direction-stacked one (K18,
+     K19), on the flagship encoder's first layer from nonzero initial
+     states with a random cotangent, at the training batch (B = 16, L =
+     144) and at B = 1, L = 132 (1e-4 abs forward, the backward tolerance
+     on dxproj, dh0, dWzr and dWh);
   4. serve 3.5 s of PCM with seeded random flagship weights: exact=False
      at batch 1 and 8 (kernels K1, K2, K3), exact=True at batch 1 (K1,
      K2), with the launch counts zeroed just before each request;
@@ -57,21 +64,31 @@ Phases, each fatal when it fails:
      model_kwargs["feature_maps"] = 16), 3 / 3 / 1 / 1 launches of K1 /
      K6 / K12 / K13; and for conv_bilstm_content (the second with
      model_kwargs["feature_maps"] = 0), one each of K7, K9, K14 and K15;
-  7. kernel (device), wrapper-call, plain-version and bound times per
+  7. the flagship encoder (three BiGRU layers, the recipe's weights) on
+     the training batch, forward and the gradient of sum(out * cot) for
+     every encoder weight and the input, by three paths: bigru_layer (K1,
+     K6 3x each), one rnn.gru_layer per direction (K16, K17 6x each) and
+     the stacked scan (K18, K19 3x each), with exact launch counts; each
+     path's output equal to bigru_layer's at valid positions (1e-4 abs)
+     and exactly 0 at masked ones, its gradients to bigru_layer's and
+     each path to its own CPU run (backward tolerance);
+  8. kernel (device), wrapper-call, plain-version and bound times per
      kernel; for K7 also cuDNN's bidirectional LSTM on the same input
      (library_ms: the device time of every op it starts; a yardstick the
      port never calls) and K7 with its two input projections; for K9
      cuDNN's bidirectional LSTM backward on the same shapes (the device
      time of every op that autograd.grad on its output starts); K2
      beside K8's instance on K2's inputs;
-  8. the p50 request latency over 10 requests of each model, and the
+  9. the p50 request latency over 10 requests of each model, and the
      device idle share: 1 - (device time of one request) / p50; the p50
      train step of each recipe over 10
      steps after 3 warm-up steps at B = 16 and 128, audio seconds per
      second, the device time of one step by kernel, each weight-gradient
      reduction's, and its idle share, for each of the four trained
-     configurations;
-  9. one {"kernels": [...]} JSON line, the card line, and the last line
+     configurations; the encoder's forward and backward by each path of
+     phase 7 at B = 16 and 128, its device time, time per call and device
+     time by kernel;
+ 10. one {"kernels": [...]} JSON line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
 It exits nonzero without a card, and imports nothing of the JAX package.
@@ -125,6 +142,7 @@ LOC_STEP_LAUNCHES = {"bigru_scan2": 3, "bigru_scan2_bwd": 3, "attention_decode_s
                      "attention_decode_scan_loc_bwd": 1}
 CBC_STEP_LAUNCHES = {"bilstm_scan": 1, "bilstm_scan_bwd": 1, "attention_decode_scan_lstm_fwd": 1,
                      "attention_decode_scan_lstm_bwd": 1}
+SERVE_L = 132  # encoder frames of the 3.5 s PCM: 110, padded to 112, plus 2 x 10 pad frames
 CB_PAD_LEN = 130  # encoder frames of the 3.5 s PCM: 110, padded to 112, plus 2 x 10 pad frames
 # Tried in turn on the CPU for the conv+BiLSTM eos request, smallest
 # first: with seed 0, 0.02 ends 2 of 8 best hypotheses on eos while the
@@ -133,13 +151,25 @@ CB_EOS_BIASES = (0.01, 0.02, 0.04, 0.08, 0.16, 0.32, 0.64)
 # Device kernels of each recipe's train step, by the name each carries in
 # a trace.
 STEP_KERNELS = ("bigru_scan2_bwd_kernel", "bigru_scan2_kernel", "scan_fwd_kernel",
-                "scan_bwd_kernel", "atb_kernel")
+                "scan_gru_bwd_kernel", "atb_kernel")
 CB_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "bilstm_scan_kernel", "loc_lstm_fwd_kernel",
                    "loc_lstm_bwd_kernel", "atb_kernel")
 LOC_STEP_KERNELS = ("bigru_scan2_bwd_kernel", "bigru_scan2_kernel", "scan_loc_gru_fwd_kernel",
                     "scan_loc_gru_bwd_kernel", "atb_kernel")
 CBC_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "bilstm_scan_kernel", "scan_lstm_fwd_kernel",
                     "scan_lstm_bwd_kernel", "atb_kernel")
+# The flagship encoder's three BiGRU layers by each path (phase 7): the
+# port's flip-free bigru_layer (K1, K6), one gru_layer per direction
+# (K16, K17) and the direction-stacked scan (K18, K19); the launches of
+# one forward and backward, and the device kernels of the paths by trace
+# name.
+ENC_LAYERS = ("bigru1", "bigru2", "bigru3")
+ENC_LAUNCHES = {"bigru_layer": {"bigru_scan2": 3, "bigru_scan2_bwd": 3},
+                "per_direction": {"gru_scan": 6, "gru_scan_bwd": 6},
+                "stacked": {"bigru_scan": 3, "bigru_scan_bwd": 3}}
+ENC_KERNELS = ("bigru_scan2_bwd_kernel", "bigru_scan2_kernel", "gru1_walk_fwd_kernel",
+               "gru1_walk_bwd_kernel", "gru2_stacked_fwd_kernel", "gru2_stacked_bwd_kernel",
+               "atb_kernel")
 
 REPLACES = {
     "bigru_scan2": "seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:666",
@@ -159,6 +189,10 @@ REPLACES = {
     "attention_decode_scan_loc_bwd": "seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:710",
     "attention_decode_scan_lstm_fwd": "seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:189",
     "attention_decode_scan_lstm_bwd": "seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:577",
+    "gru_scan": "seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:147",
+    "gru_scan_bwd": "seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:177",
+    "bigru_scan": "seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:407",
+    "bigru_scan_bwd": "seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:445",
 }
 SOURCES = {
     "bigru_scan2": "seq2seq_attention_asr_tpu_torch/csrc/bigru_scan2.cu",
@@ -182,6 +216,10 @@ SOURCES = {
         "seq2seq_attention_asr_tpu_torch/csrc/attention_scan_loc_lstm.cu",
     "attention_decode_scan_lstm_bwd":
         "seq2seq_attention_asr_tpu_torch/csrc/attention_scan_loc_lstm.cu",
+    "gru_scan": "seq2seq_attention_asr_tpu_torch/csrc/gru_scan.cu",
+    "gru_scan_bwd": "seq2seq_attention_asr_tpu_torch/csrc/gru_scan_bwd.cu",
+    "bigru_scan": "seq2seq_attention_asr_tpu_torch/csrc/gru_scan.cu",
+    "bigru_scan_bwd": "seq2seq_attention_asr_tpu_torch/csrc/gru_scan_bwd.cu",
 }
 NO_LIBRARY = {
     "bigru_scan2": "cuDNN's GRU carries biases and applies the reset gate after its matmul",
@@ -204,6 +242,10 @@ NO_LIBRARY = {
     "attention_decode_scan_lstm_bwd": "no PyTorch call computes the LSTM attention decoder scan's "
                                       "backward",
 }
+_NO_CUDNN_GRU = ("cuDNN's GRU carries biases and applies the reset gate after its product; this "
+                 "GRU is bias-free and applies it before")
+NO_LIBRARY.update({name: _NO_CUDNN_GRU for name in ("gru_scan", "gru_scan_bwd", "bigru_scan",
+                                                    "bigru_scan_bwd")})
 
 
 def card_line() -> str:
@@ -613,6 +655,10 @@ def shape_tag(key) -> str:
         return f"B={TRAIN_B} {TRAIN_L} frames T={TRAIN_T}"
     if key == "loctrain":
         return f"B={TRAIN_B} L={TRAIN_L} T={TRAIN_T}, 16 maps, filter 10"
+    if key == "enc":
+        return f"B={TRAIN_B} L={TRAIN_L} H=256"
+    if key == "enc1":
+        return f"B=1 L={SERVE_L} H=256"
     return f"B={key}"
 
 
@@ -709,7 +755,7 @@ def train_cases(params, cfg, batch, gen: torch.Generator):
     cot = (rnd(b, t_len, st) * dec_mask[..., None], rnd(b, t_len, a) * dec_mask[..., None],
            rnd(b, t_len, l) * dec_mask[..., None])
     k5 = Case(
-        "attention_decode_scan_bwd", ("scan_bwd_kernel", "atb_kernel"),
+        "attention_decode_scan_bwd", ("scan_gru_bwd_kernel", "atb_kernel"),
         attention_scan.attention_decode_scan_bwd, attention_scan.attention_decode_scan_bwd_plain,
         (*scan_args, s_seq, c_seq, *cot),
         # Per step: the recompute (the forward's work without the
@@ -898,6 +944,205 @@ def cbc_train_cases(params, cfg, batch, gen: torch.Generator):
                               length_mask(lens, h.shape[1]), y, dec_mask, gen)
 
 
+def gru_scan_cases(enc, x, lens, gen):
+    """K16-K19 on the first encoder layer (`enc`, on the card) over x (B,
+    L, 123) with lengths `lens`, as the stacked path hands them over: x
+    masked, each direction's projection, direction 1's input flipped into
+    its scan order; nonzero initial states (0.5 randn) and a random
+    cotangent of the outputs. K16 and K17 take direction 0, or K18 and
+    K19 both."""
+    from seq2seq_attention_asr_tpu_torch.ops import cells
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan
+    from seq2seq_attention_asr_tpu_torch.ops.masking import flip_sequences, length_mask
+
+    b, l, _ = x.shape
+    p = enc["bigru1"]
+    hd = p["fwd"]["w_zr"].shape[1] // 2
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(x.device)
+    with torch.no_grad():
+        xm = x * length_mask(lens, l)[:, :, None]
+        xproj2 = torch.stack([cells.gru_input_proj(p["fwd"], xm),
+                              cells.gru_input_proj(p["bwd"], flip_sequences(xm, lens))])
+        xproj2 = xproj2.contiguous()
+        wzr2 = torch.stack([p["fwd"]["w_zr"][:hd], p["bwd"]["w_zr"][:hd]]).contiguous()
+        wh2 = torch.stack([p["fwd"]["w_h"][:hd], p["bwd"]["w_h"][:hd]]).contiguous()
+        h02 = rnd(2, b, hd) * 0.5
+        ys2 = gru_scan.bigru_scan_plain(xproj2, h02, wzr2, wh2)
+        h_prevs2 = torch.cat([h02[:, :, None], ys2[:, :, :-1]], dim=2).contiguous()
+    dys2 = rnd(2, b, l, hd)
+    rows = b * l
+    # One direction: per row and step the two recurrent products (3 H^2
+    # multiply-adds) and ~12 H elementwise; the backward the two
+    # recompute products, the two transposed ones and the weight-gradient
+    # outer products (9 H^2 multiply-adds) and ~30 H elementwise.
+    fwd_flops, bwd_flops = rows * (6 * hd * hd + 12 * hd), rows * (18 * hd * hd + 30 * hd)
+    fwd_bytes = 4 * (rows * 3 * hd + b * hd + 3 * hd * hd + rows * hd)
+    bwd_bytes = 4 * (rows * 3 * hd + 2 * rows * hd + 3 * hd * hd  # xproj, h_prevs, dys, W
+                     + rows * 3 * hd + b * hd + 3 * hd * hd)  # dxproj, dh0, dW
+    one = lambda *ts: tuple(t[0] for t in ts)
+    tup = lambda fn: lambda *a: (fn(*a),)  # forward kernels return one tensor
+    return [
+        Case("gru_scan", ("gru1_walk_fwd_kernel",), tup(gru_scan.gru_scan),
+             tup(gru_scan.gru_scan_plain), one(xproj2, h02, wzr2, wh2), fwd_flops, fwd_bytes),
+        Case("gru_scan_bwd", ("gru1_walk_bwd_kernel", "atb_kernel"), gru_scan.gru_scan_bwd,
+             gru_scan.gru_scan_bwd_plain, one(xproj2, h_prevs2, dys2, wzr2, wh2), bwd_flops,
+             bwd_bytes, backward=True),
+        Case("bigru_scan", ("gru2_stacked_fwd_kernel",), tup(gru_scan.bigru_scan),
+             tup(gru_scan.bigru_scan_plain), (xproj2, h02, wzr2, wh2), 2 * fwd_flops,
+             2 * fwd_bytes),
+        Case("bigru_scan_bwd", ("gru2_stacked_bwd_kernel", "atb_kernel"), gru_scan.bigru_scan_bwd,
+             gru_scan.bigru_scan_bwd_plain, (xproj2, h_prevs2, dys2, wzr2, wh2), 2 * bwd_flops,
+             2 * bwd_bytes, backward=True),
+    ]
+
+
+def per_direction_layer(p, x, lengths):
+    """A BiGRU layer as the JAX package's unfused branch builds it
+    (seq2seq_attention_asr_tpu/ops/rnn.py:160-166, 182-188): mask x, one
+    rnn.gru_layer per direction (K16, K17 on the card), concatenate, mask."""
+    from seq2seq_attention_asr_tpu_torch.ops import rnn
+    from seq2seq_attention_asr_tpu_torch.ops.masking import length_mask
+
+    mask = length_mask(lengths, x.shape[1], x.dtype)[:, :, None]
+    x = x * mask
+    ys = torch.cat([rnn.gru_layer(p["fwd"], x, lengths),
+                    rnn.gru_layer(p["bwd"], x, lengths, reverse=True)], dim=-1)
+    return ys * mask
+
+
+def stacked_layer(p, x, lengths):
+    """A BiGRU layer through gru_scan.BiGRUScan (K18, K19 on the card):
+    mask x, project each direction (the backward one's input flipped into
+    its scan order), scan both from zero states, flip direction 1 back,
+    concatenate, mask."""
+    from seq2seq_attention_asr_tpu_torch.ops import cells
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan
+    from seq2seq_attention_asr_tpu_torch.ops.masking import flip_sequences, length_mask
+
+    mask = length_mask(lengths, x.shape[1], x.dtype)[:, :, None]
+    x = x * mask
+    h = p["fwd"]["w_zr"].shape[1] // 2
+    xproj2 = torch.stack([cells.gru_input_proj(p["fwd"], x),
+                          cells.gru_input_proj(p["bwd"], flip_sequences(x, lengths))])
+    wzr2 = torch.stack([p["fwd"]["w_zr"][:h], p["bwd"]["w_zr"][:h]])
+    wh2 = torch.stack([p["fwd"]["w_h"][:h], p["bwd"]["w_h"][:h]])
+    ys = gru_scan.BiGRUScan.apply(xproj2.contiguous(), x.new_zeros((2, x.shape[0], h)), wzr2, wh2)
+    return torch.cat([ys[0], flip_sequences(ys[1], lengths)], dim=-1) * mask
+
+
+def encoder_call(path, enc, x, lengths, cot):
+    """A call that runs the encoder layers ENC_LAYERS of `enc` on x by
+    `path` (a key of ENC_LAUNCHES) and returns the output and the
+    gradients of sum(out * cot) for every encoder weight, then x."""
+    from seq2seq_attention_asr_tpu_torch.ops import rnn
+
+    layer = {"bigru_layer": rnn.bigru_layer, "per_direction": per_direction_layer,
+             "stacked": stacked_layer}[path]
+    params = {n: {d: {k: v.detach().clone().requires_grad_(True) for k, v in enc[n][d].items()}
+                  for d in ("fwd", "bwd")} for n in ENC_LAYERS}
+    leaves = [v for n in ENC_LAYERS for d in ("fwd", "bwd") for v in params[n][d].values()]
+    xin = x.detach().clone().requires_grad_(True)
+
+    def call():
+        h = xin
+        for n in ENC_LAYERS:
+            h = layer(params[n], h, lengths)
+        return h.detach(), torch.autograd.grad((h * cot).sum(), leaves + [xin])
+
+    return call
+
+
+def encoder_phase(kernels, enc_cpu, batch):
+    """Phase 7: the flagship encoder (weights `enc_cpu`) on the training
+    batch by each path of ENC_LAUNCHES, forward and backward, on the card
+    with the launch counts zeroed just before and read just after (every
+    kernel not in the path's entry 0), then on the CPU. Each path's card
+    output must match bigru_layer's (K1, K6) at valid positions within
+    TOL and be exactly 0 at masked ones, its gradients bigru_layer's
+    within the backward tolerance, and its own CPU run (the plain
+    versions) the same way. Returns the launch counts of each path."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.ops.masking import length_mask
+
+    x, x_len = batch[0], batch[1]
+    b, l, _ = x.shape
+    width = 2 * enc_cpu["bigru3"]["fwd"]["w_h"].shape[1]
+    cot = torch.randn(b, l, width, generator=torch.Generator().manual_seed(SEED + 7))
+    runs, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        enc = interop.to_torch(enc_cpu, dev)
+        for path, expected in ENC_LAUNCHES.items():
+            call = encoder_call(path, enc, x.to(dev), x_len.to(dev), cot.to(dev))
+            for k in kernels.values():
+                k.launches = 0
+            out, grads = call()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts[path] = {n: k.launches for n, k in kernels.items()}
+                want = dict.fromkeys(kernels, 0)
+                want.update(expected)
+                print(f"encoder {path} B={b} L={l}: launches of one forward and backward on the "
+                      f"card { {n: c for n, c in counts[path].items() if c} }")
+                if counts[path] != want:
+                    raise SystemExit(f"encoder {path}: launch counts {counts[path]}, "
+                                     f"expected {want}")
+            runs[(dev, path)] = (out.cpu(), [g.cpu() for g in grads])
+    valid = length_mask(x_len, l)[:, :, None].expand(-1, -1, width).bool()
+    ref_out, ref_grads = runs[("cuda", "bigru_layer")]
+    for path in ENC_LAUNCHES:
+        out, grads = runs[("cuda", path)]
+        cpu_out, cpu_grads = runs[("cpu", path)]
+        finite = bool(torch.isfinite(out).all()) and all(bool(torch.isfinite(g).all())
+                                                         for g in grads)
+        vs_k1 = float((out - ref_out)[valid].abs().max())
+        masked = float(out[~valid].abs().max())
+        g_vs_k1 = bwd_err(grads, ref_grads)
+        vs_cpu, g_vs_cpu = max_err([out], [cpu_out]), bwd_err(grads, cpu_grads)
+        print(f"encoder {path} B={b} L={l}: output vs bigru_layer (K1, K6) at valid positions "
+              f"{vs_k1:.3e} (tol {TOL}), max |output| at masked positions {masked:.3e} (must be "
+              f"0), "
+              f"gradients vs bigru_layer's excess {g_vs_k1:.3e} (tol 5e-5 over 5e-4 * max); vs its "
+              f"CPU run: output {vs_cpu:.3e} (tol {TOL}), gradients excess {g_vs_cpu:.3e}; "
+              f"finite={finite}")
+        if not (finite and vs_k1 <= TOL and masked == 0 and g_vs_k1 <= 5e-5 and vs_cpu <= TOL
+                and g_vs_cpu <= 5e-5):
+            raise SystemExit(f"encoder {path}: disagrees with bigru_layer or with its CPU run")
+    return counts
+
+
+def encoder_timing(enc_cpu, b: int, card: str) -> None:
+    """Phase 9 for the encoder: each path's forward and backward at batch
+    b on a training batch: its device time (every device op of a call,
+    from the profiler), its time per call (CUDA events), and one traced
+    call's device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from seq2seq_attention_asr_tpu_torch import interop
+
+    x, x_len = (t.cuda() for t in train_batch(b, SEED + 5)[:2])
+    enc = interop.to_torch(enc_cpu, "cuda")
+    width = 2 * enc["bigru3"]["fwd"]["w_h"].shape[1]
+    cot = torch.randn(b, TRAIN_L, width, generator=torch.Generator().manual_seed(SEED + 8)).cuda()
+    for path in ENC_LAUNCHES:
+        call = encoder_call(path, enc, x, x_len, cot)
+        call_ms = time_ms(call, 5)
+        dev_ms = device_ms(call, None, 5)
+        with traced([ProfilerActivity.CUDA]) as prof:
+            call()
+        groups = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                key = next((s for s in ENC_KERNELS if s in e.name), "other device ops")
+                n, ms = groups.get(key, (0, 0.0))
+                groups[key] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+        print(f"encoder {path} B={b} L={TRAIN_L}: forward and backward {dev_ms:.4f} ms on the "
+              f"device, {call_ms:.4f} ms per call; one traced call by kernel: " + ", ".join(
+                  f"{key} {ms:.4f} ms in {n} ({ms / n:.4f} ms each)"
+                  for key, (n, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]))
+              + f" ({card})")
+
+
 def flagship_loc():
     """The flagship recipe with location-aware attention: 16 feature maps,
     the recipe's filter of 10, column-norm on."""
@@ -980,7 +1225,7 @@ def train_phase(kernels, recipe, params_cpu, expected, label: str):
 
 
 def train_timing(recipe, params_cpu, b: int, card: str, step_kernels, label: str) -> None:
-    """Phase 8 for training: p50 of 10 steps after 3 warm-up steps, audio
+    """Phase 9 for training: p50 of 10 steps after 3 warm-up steps, audio
     seconds per second, the device time of one profiled step (device
     activity only) by kernel (`step_kernels`, by trace name) and the idle
     share 1 - device / p50."""
@@ -1115,7 +1360,7 @@ def pick_eos_bias(model, params_cpu, pcms, kw, max_steps):
 
 
 def serve_timing(label, model, params, pcms, kw, runs, card):
-    """Phase 8 for serving: p50 of 10 requests after one warm-up and the
+    """Phase 9 for serving: p50 of 10 requests after one warm-up and the
     device idle share, 1 - (device time of one profiled request) / p50."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -1176,7 +1421,9 @@ def main() -> int:
                                    attention_scan.KERNEL_LOC_LSTM_BWD,
                                    attention_scan.KERNEL_LOC_FWD, attention_scan.KERNEL_LOC_BWD,
                                    attention_scan.KERNEL_LSTM_FWD,
-                                   attention_scan.KERNEL_LSTM_BWD)}
+                                   attention_scan.KERNEL_LSTM_BWD, gru_scan.KERNEL_GRU,
+                                   gru_scan.KERNEL_GRU_BWD, gru_scan.KERNEL_BI,
+                                   gru_scan.KERNEL_BI_BWD)}
     t0 = time.perf_counter()
     build.build_all(kernels.values())
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(kernels)} kernels")
@@ -1217,7 +1464,7 @@ def main() -> int:
     # Phase 3: each kernel against its plain version, at the serving
     # shapes (K1-K3, K7, K8) and at the training shapes (K4-K6 for the
     # flagship, K9-K11 for the conv+BiLSTM recipe, K12 and K13 for
-    # flagship_loc, K14 and K15 for conv_bilstm_content).
+    # flagship_loc, K14 and K15 for conv_bilstm_content), K16-K19 at both.
     errs = {name: 0.0 for name in kernels}
     timing, with_proj = {}, {}
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -1237,6 +1484,13 @@ def main() -> int:
     all_cases["cbctrain"] = cbc_train_cases(interop.to_torch(cbc_params_cpu, "cuda"),
                                             conv_bilstm_content().build_model().cfg,
                                             train_batch(TRAIN_B, SEED + 3), gen)
+    # K16-K19 on the flagship encoder's first layer: the training batch,
+    # and one utterance at the serving length.
+    enc_cuda = interop.to_torch(train_params["encoder"], "cuda")
+    x_tr, len_tr = (t.cuda() for t in train_batch(TRAIN_B, SEED + 3)[:2])
+    all_cases["enc"] = gru_scan_cases(enc_cuda, x_tr, len_tr, gen)
+    all_cases["enc1"] = gru_scan_cases(enc_cuda, torch.randn(1, SERVE_L, 123, generator=gen).cuda(),
+                                       torch.tensor([SERVE_L]).cuda(), gen)
     for b, cs in all_cases.items():
         for c in cs:
             with torch.no_grad():
@@ -1288,14 +1542,18 @@ def main() -> int:
     cbc_train_launches = train_phase(kernels, conv_bilstm_content, cbc_params_cpu,
                                      CBC_STEP_LAUNCHES, "conv_bilstm_content")
 
-    # Phase 7: times at the shapes of each kernel's path, kernel and plain in turns.
+    # Phase 7: the flagship encoder by each path, against bigru_layer and the CPU.
+    enc_launches = encoder_phase(kernels, train_params["encoder"], train_batch(TRAIN_B, SEED + 3))
+
+    # Phase 8: times at the shapes of each kernel's path, kernel and plain in turns.
     iters = {"bigru_scan2": 20, "fused_attention_step": 200, "stft_logmel_power": 200,
              "bigru_scan2_bwd": 10, "attention_decode_scan_fwd": 10,
              "attention_decode_scan_bwd": 10, "bilstm_scan": 200,
              "fused_attention_step_loc_lstm": 100, "bilstm_scan_bwd": 100,
              "attention_decode_scan_loc_lstm_fwd": 10, "attention_decode_scan_loc_lstm_bwd": 10,
              "attention_decode_scan_loc_fwd": 10, "attention_decode_scan_loc_bwd": 10,
-             "attention_decode_scan_lstm_fwd": 10, "attention_decode_scan_lstm_bwd": 10}
+             "attention_decode_scan_lstm_fwd": 10, "attention_decode_scan_lstm_bwd": 10,
+             "gru_scan": 20, "gru_scan_bwd": 10, "bigru_scan": 20, "bigru_scan_bwd": 10}
     library = {}
     for b, cs in all_cases.items():
         for c in cs:
@@ -1345,7 +1603,7 @@ def main() -> int:
           "train step); kernel times are device times from the profiler, per-call times are "
           "CUDA events over back-to-back calls and include the host's work between launches")
 
-    # Phase 8: request latency and train-step time, each with the
+    # Phase 9: request latency and train-step time, each with the
     # device's idle share: the device time of one request or step,
     # traced with a device-only profiler, over the unprofiled p50.
     serve_timing("chorowski", model, params, pcms, kw, runs, card)
@@ -1357,18 +1615,22 @@ def main() -> int:
             (conv_bilstm_content, cbc_params_cpu, CBC_STEP_KERNELS, "conv_bilstm_content")):
         for b in (TRAIN_B, BIG_B):
             train_timing(recipe, weights_cpu, b, card, step_kernels, label)
+    for b in (TRAIN_B, BIG_B):
+        encoder_timing(train_params["encoder"], b, card)
 
     # Each kernel's numbers at batch 1 (serving) or its training shape,
     # and its launches in the run of its main path.
     report = []
     for name in kernels:
         label = MAIN_LABEL.get(name, name)
-        key = next(k for k in (1, "train", "cbtrain", "loctrain", "cbctrain")
+        key = next(k for k in (1, "train", "cbtrain", "loctrain", "cbctrain", "enc")
                    if (label, k) in timing)
         ms, plain_ms, b_ms, b_by = timing[(label, key)]
         if key == 1:
             served = name in ("bilstm_scan", "fused_attention_step_loc_lstm")
             launches = (cb_launches if served else main_launches)[name]
+        elif key == "enc":
+            launches = enc_launches["stacked" if name.startswith("bigru") else "per_direction"][name]
         else:
             launches = {"train": train_launches, "cbtrain": cb_train_launches,
                         "loctrain": loc_train_launches, "cbctrain": cbc_train_launches}[key][name]

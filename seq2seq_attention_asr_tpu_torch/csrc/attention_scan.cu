@@ -149,7 +149,7 @@ size_t bwd_floats(const Dims& d) {
   return step_floats(d) + 13 * (size_t)d.St + d.A + 2 * d.L + d.S + kWarps;
 }
 
-__global__ void __launch_bounds__(kThreads, 1) scan_bwd_kernel(const BwdArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) scan_gru_bwd_kernel(const BwdArgs a) {
   extern __shared__ float sm[];
   const Dims& d = a.d;
   const int b = blockIdx.x, St = d.St, St2 = 2 * d.St, A = d.A, L = d.L, S = d.S;
@@ -306,13 +306,13 @@ extern "C" int attention_decode_scan_bwd(
   const Dims d{B, T, L, S, A, St};
   if (!valid(d)) return (int)cudaErrorInvalidValue;
   const size_t bytes = bwd_floats(d) * sizeof(float);
-  cudaError_t err = set_smem(scan_bwd_kernel, bytes);
+  cudaError_t err = set_smem(scan_gru_bwd_kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   const Stash st = carve_stash(scratch, d);
   const BwdArgs a{vh, h, mask, yin,
                   Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_zr, w_h},
                   s_seq, c_seq, ds_seq, dc_seq, dalpha_seq, dvh, dh, dyin, st, d};
-  scan_bwd_kernel<<<B, kThreads, bytes, stream>>>(a);
+  scan_gru_bwd_kernel<<<B, kThreads, bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

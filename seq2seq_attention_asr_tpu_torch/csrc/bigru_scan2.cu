@@ -4,74 +4,17 @@
 // (seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:666, _bi2_fwd_kernel
 // :521). Plain PyTorch twin: ops/cuda/gru_scan.py::bigru_scan2_plain.
 //
-//   zr = sigmoid(h @ Wzr + x[:2H]);  r-gated candidate
-//   c  = tanh((r * h) @ Wh + x[2H:]); h = (1 - z) * h + z * c
-//
 // Direction 0 walks t = 0..L-1, direction 1 walks t = L-1..0 over the
 // same natural-order arrays (zero padding keeps its h at 0 exactly).
 //
-// What bounds it: the L steps form a dependency chain, and each step
-// needs the whole recurrent weight set of its direction (3H^2 floats,
-// 768 KB at H = 256), which does not fit in one SM's shared memory and
-// is read from L2 every step. One block runs one direction for a group
-// of rows, with the state in shared memory, so every weight is read
-// once per step for all the rows of the block. What limits one block's
-// weight stream is load latency, so the loads are 16 bytes wide and
-// the input dimension of each product is split over thread groups,
-// keeping many loads in flight; partial sums meet in shared memory.
-// Splitting a direction's columns over a cluster of blocks, with the
-// state exchanged through distributed shared memory, is the way past
-// the one-SM L2 rate.
+// Each block runs one direction's walk (csrc/gru_walk.cuh, which says
+// what bounds it) for a group of rows. Splitting a direction's columns
+// over a cluster of blocks, with the state exchanged through distributed
+// shared memory, is the way past the one-SM L2 rate.
 
-#include <cuda_runtime.h>
+#include "gru_walk.cuh"
 
 namespace {
-
-constexpr int kThreads = 512;
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-// part[p][r][j] = sum over i = p, p + parts, ... < H of v[r][i] * w[i][j],
-// j < out, for the R rows of the block; VW consecutive columns per load.
-// Returns the number of parts written.
-template <int R, int VW>
-__device__ int partial_products(const float* __restrict__ w, int H, int out, const float* v,
-                                float* part) {
-  const int q = out / VW;
-  const int parts = q >= kThreads ? 1 : kThreads / q;
-  const int p = threadIdx.x / q;
-  if (p < parts) {
-    for (int jq = threadIdx.x - p * q; jq < q; jq += kThreads) {
-      float acc[R][VW];
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int c = 0; c < VW; ++c) acc[r][c] = 0.f;
-#pragma unroll 8
-      for (int i = p; i < H; i += parts) {
-        const float* wp = w + (size_t)i * out + VW * jq;
-        float wv[VW];
-        if constexpr (VW == 4) {
-          const float4 t = __ldg(reinterpret_cast<const float4*>(wp));
-          wv[0] = t.x, wv[1] = t.y, wv[2] = t.z, wv[3] = t.w;
-        } else {
-          wv[0] = __ldg(wp);
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float hv = v[r * H + i];
-#pragma unroll
-          for (int c = 0; c < VW; ++c) acc[r][c] = fmaf(hv, wv[c], acc[r][c]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int c = 0; c < VW; ++c) part[(p * R + r) * out + VW * jq + c] = acc[r][c];
-    }
-  }
-  return parts;
-}
 
 template <int R, int VW>
 __global__ void __launch_bounds__(kThreads)
@@ -79,61 +22,15 @@ bigru_scan2_kernel(const float* __restrict__ xf, const float* __restrict__ xb,
                    const float* __restrict__ wzr2, const float* __restrict__ wh2,
                    float* __restrict__ ysf, float* __restrict__ ysb, int B, int L, int H) {
   extern __shared__ float smem[];
-  float* hs = smem;           // [R][H] state
-  float* z = hs + R * H;      // [R][H] update gate
-  float* rh = z + R * H;      // [R][H] r * h
-  float* part = rh + R * H;   // partial sums
-
   const int d = blockIdx.x;
-  const int b0 = blockIdx.y * R;
-  const int nrows = min(R, B - b0);
-  const float* x = d == 0 ? xf : xb;
-  float* ys = d == 0 ? ysf : ysb;
-  const int H2 = 2 * H;
-  const size_t H3 = 3 * (size_t)H;
-  const float* wzr = wzr2 + (size_t)d * H * H2;
-  const float* wh = wh2 + (size_t)d * H * H;
-
-  for (int i = threadIdx.x; i < R * H; i += kThreads) hs[i] = 0.f;
-  __syncthreads();
-
-  for (int s = 0; s < L; ++s) {
-    const int t = d == 0 ? s : L - 1 - s;
-    // z and r gates: h @ Wzr + x[:2H].
-    int parts = partial_products<R, VW>(wzr, H, H2, hs, part);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < R * H2; idx += kThreads) {
-      const int r = idx / H2, j = idx % H2;
-      float a = r < nrows ? x[((size_t)(b0 + r) * L + t) * H3 + j] : 0.f;
-      for (int q = 0; q < parts; ++q) a += part[(q * R + r) * H2 + j];
-      const float g = sigmoid(a);
-      if (j < H)
-        z[r * H + j] = g;
-      else
-        rh[r * H + j - H] = g * hs[r * H + j - H];
-    }
-    __syncthreads();
-    // Candidate tanh((r * h) @ Wh + x[2H:]) and the update.
-    parts = partial_products<R, VW>(wh, H, H, rh, part);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < R * H; idx += kThreads) {
-      const int r = idx / H, u = idx % H;
-      float a = r < nrows ? x[((size_t)(b0 + r) * L + t) * H3 + H2 + u] : 0.f;
-      for (int q = 0; q < parts; ++q) a += part[(q * R + r) * H + u];
-      const float zg = z[idx];
-      const float hn = (1.f - zg) * hs[idx] + zg * tanhf(a);
-      hs[idx] = hn;
-      if (r < nrows) ys[((size_t)(b0 + r) * L + t) * H + u] = hn;
-    }
-    __syncthreads();
-  }
+  gru_walk_fwd<R, VW>(d == 0 ? xf : xb, nullptr, wzr2 + (size_t)d * H * 2 * H,
+                      wh2 + (size_t)d * H * H, d == 0 ? ysf : ysb, B, L, H, d == 1, smem);
 }
 
 template <int R, int VW>
 cudaError_t launch(const float* xf, const float* xb, const float* wzr2, const float* wh2,
                    float* ysf, float* ysb, int B, int L, int H, cudaStream_t stream) {
-  const int widest = kThreads * VW > 2 * H ? kThreads * VW : 2 * H;
-  const size_t smem = (3 * (size_t)R * H + (size_t)R * widest) * sizeof(float);
+  const size_t smem = gru_fwd_smem_bytes(R, VW, H);
   cudaError_t err = cudaFuncSetAttribute(bigru_scan2_kernel<R, VW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

@@ -1,18 +1,29 @@
-"""Flip-free bidirectional GRU scan: forward (kernel K1) and backward
-(kernel K6), joined by the autograd function ``BiGRUScan2``.
+"""Bias-free GRU scans on the card and their plain PyTorch versions.
 
-K1 replaces the Pallas kernel ``bigru_scan2`` forward
-(seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:666, body
-``_bi2_fwd_kernel`` :521), CUDA source ``csrc/bigru_scan2.cu``; K6
-replaces its backward (:716, body ``_bi2_bwd_kernel`` :567), CUDA
-source ``csrc/bigru_scan2_bwd.cu``. ``bigru_scan2_plain`` and
-``bigru_scan2_bwd_plain`` below are the same functions in plain
-PyTorch.
+- The flip-free bidirectional scan, forward (kernel K1) and backward
+  (kernel K6), joined by the autograd function ``BiGRUScan2``. K1
+  replaces the Pallas kernel ``bigru_scan2`` forward
+  (seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:666, body
+  ``_bi2_fwd_kernel`` :521), CUDA source ``csrc/bigru_scan2.cu``; K6
+  replaces its backward (:716, body ``_bi2_bwd_kernel`` :567), CUDA
+  source ``csrc/bigru_scan2_bwd.cu``. The reference GRU is bias-free, so
+  h = 0 is a fixed point under zero input: the backward direction scans
+  the natural-order array from the zero-padded tail down and holds h = 0
+  through the padding. Callers zero-pad and zero-mask (ops/rnn.py).
+- One direction from a given initial state, forward (kernel K16) and
+  backward (kernel K17), joined by ``GRUScan``: the Pallas kernel
+  ``gru_scan`` (:147, body ``_fwd_kernel`` :38; backward :177, body
+  ``_bwd_kernel`` :71), behind ``ops/rnn.py::gru_layer``.
+- The direction-stacked BiGRU, forward (kernel K18) and backward (kernel
+  K19), joined by ``BiGRUScan``: the Pallas kernel ``bigru_scan`` (:407,
+  body ``_bi_fwd_kernel`` :257; backward :445, body ``_bi_bwd_kernel``
+  :308). Direction 1 arrives flipped into its scan order, so every
+  direction walks t = 0..L-1 from its own initial state; K16/K17 are the
+  same kernels with one direction. CUDA sources ``csrc/gru_scan.cu`` and
+  ``csrc/gru_scan_bwd.cu``.
 
-The reference GRU is bias-free, so h = 0 is a fixed point under zero
-input: the backward direction scans the natural-order array from the
-zero-padded tail down and holds h = 0 through the padding. Callers
-zero-pad and zero-mask (ops/rnn.py).
+Every kernel's plain version (``*_plain``) sits beside its wrapper; all
+the kernels share one walk, ``csrc/gru_walk.cuh``.
 """
 
 from __future__ import annotations
@@ -32,7 +43,13 @@ KERNEL_BWD = build.Kernel(
     "bigru_scan2_bwd", "bigru_scan2_bwd.cu", "bigru_scan2_bwd",
     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 )
-MAX_H = 1024  # csrc/bigru_scan2.cu and csrc/bigru_scan2_bwd.cu refuse wider states
+_FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+KERNEL_GRU = build.Kernel("gru_scan", "gru_scan.cu", "gru_scan_fwd", _FWD_ARGS)
+KERNEL_GRU_BWD = build.Kernel("gru_scan_bwd", "gru_scan_bwd.cu", "gru_scan_bwd", _BWD_ARGS)
+KERNEL_BI = build.Kernel("bigru_scan", "gru_scan.cu", "bigru_scan_fwd", _FWD_ARGS)
+KERNEL_BI_BWD = build.Kernel("bigru_scan_bwd", "gru_scan_bwd.cu", "bigru_scan_bwd", _BWD_ARGS)
+MAX_H = 1024  # every kernel here refuses wider states (csrc/gru_walk.cuh's callers)
 
 
 def bigru_scan2_plain(xf, xb, wzr2, wh2):
@@ -54,11 +71,11 @@ def bigru_scan2_plain(xf, xb, wzr2, wh2):
     return ysf, ysb
 
 
-def _hidden(xf) -> int:
-    h3 = xf.shape[2]
+def _hidden(x, name: str) -> int:
+    h3 = x.shape[-1]
     h = h3 // 3
     if h3 != 3 * h or not 1 <= h <= MAX_H:
-        raise ValueError(f"bigru_scan2: hidden size {h3 / 3} not in [1, {MAX_H}]")
+        raise ValueError(f"{name}: hidden size {h3 / 3} not in [1, {MAX_H}]")
     return h
 
 
@@ -72,7 +89,7 @@ def bigru_scan2(xf, xb, wzr2, wh2):
     if build.on_cpu(xf, xb, wzr2, wh2):
         return bigru_scan2_plain(xf, xb, wzr2, wh2)
     b, l, _ = xf.shape
-    h = _hidden(xf)
+    h = _hidden(xf, KERNEL.name)
     dev = xf.device
     build.check("xf", xf, (b, l, 3 * h), dev)
     build.check("xb", xb, (b, l, 3 * h), dev)
@@ -134,7 +151,7 @@ def bigru_scan2_bwd(xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb):
     if build.on_cpu(*args):
         return bigru_scan2_bwd_plain(*args)
     b, l, _ = xf.shape
-    h = _hidden(xf)
+    h = _hidden(xf, KERNEL_BWD.name)
     dev = xf.device
     shapes = [(b, l, 3 * h)] * 2 + [(2, h, 2 * h), (2, h, h)] + [(b, l, h)] * 4
     for name, t, shape in zip(("xf", "xb", "wzr2", "wh2", "ysf", "ysb", "dysf", "dysb"),
@@ -168,3 +185,188 @@ class BiGRUScan2(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dysf, dysb):
         return bigru_scan2_bwd(*ctx.saved_tensors, dysf.contiguous(), dysb.contiguous())
+
+
+def bigru_scan_plain(xproj2, h02, wzr2, wh2):
+    """Plain PyTorch twin of K18 (and, with one direction, of K16): a
+    Python loop over time of ``_bi_fwd_kernel``'s step, the directions
+    stacked on the leading axis, each from its own initial state."""
+    d, b, l, h3 = xproj2.shape
+    h = h3 // 3
+    hs = h02
+    ys = xproj2.new_empty((d, b, l, h))
+    for t in range(l):
+        x = xproj2[:, :, t]
+        zr = torch.sigmoid(torch.bmm(hs, wzr2) + x[..., : 2 * h])
+        z, r = zr[..., :h], zr[..., h:]
+        c = torch.tanh(torch.bmm(r * hs, wh2) + x[..., 2 * h:])
+        hs = (1.0 - z) * hs + z * c
+        ys[:, :, t] = hs
+    return ys
+
+
+def gru_scan_plain(xproj, h0, w_zr_h, w_h_h):
+    """Plain PyTorch twin of K16: ``_fwd_kernel``'s step in a loop over time."""
+    return bigru_scan_plain(xproj[None], h0[None], w_zr_h[None], w_h_h[None])[0]
+
+
+def bigru_scan_bwd_plain(xproj2, h_prevs2, dys2, wzr2, wh2):
+    """Plain PyTorch twin of K19 (and, with one direction, of K17): the
+    reverse-time loop of ``_bi_bwd_kernel``, which recomputes each step's
+    gates from the state the step started from, h_prevs2[:, :, t], and
+    sums the weight gradients step by step. Returns (dxproj2, dh02,
+    dwzr2, dwh2); dh02 is the carry after step 0."""
+    d, b, l, h3 = xproj2.shape
+    h = h3 // 3
+    carry = xproj2.new_zeros((d, b, h))
+    dxproj2 = torch.empty_like(xproj2)
+    dwzr2, dwh2 = torch.zeros_like(wzr2), torch.zeros_like(wh2)
+    wzr_t, wh_t = wzr2.transpose(1, 2), wh2.transpose(1, 2)
+    for t in range(l - 1, -1, -1):
+        h_prev, x = h_prevs2[:, :, t], xproj2[:, :, t]
+        zr = torch.sigmoid(torch.bmm(h_prev, wzr2) + x[..., : 2 * h])
+        z, r = zr[..., :h], zr[..., h:]
+        rh = r * h_prev
+        c = torch.tanh(torch.bmm(rh, wh2) + x[..., 2 * h:])
+        dh = dys2[:, :, t] + carry
+        da_c = dh * z * (1.0 - c * c)
+        drh = torch.bmm(da_c, wh_t)
+        da_zr = torch.cat([dh * (c - h_prev) * z * (1.0 - z), drh * h_prev * r * (1.0 - r)],
+                          dim=-1)
+        carry = drh * r + torch.bmm(da_zr, wzr_t) + dh * (1.0 - z)
+        dxproj2[:, :, t, : 2 * h] = da_zr
+        dxproj2[:, :, t, 2 * h:] = da_c
+        dwzr2 += torch.bmm(h_prev.transpose(1, 2), da_zr)
+        dwh2 += torch.bmm(rh.transpose(1, 2), da_c)
+    return dxproj2, carry, dwzr2, dwh2
+
+
+def gru_scan_bwd_plain(xproj, h_prevs, dys, w_zr_h, w_h_h):
+    """Plain PyTorch twin of K17: ``_bwd_kernel``'s reverse-time loop."""
+    return tuple(g[0] for g in bigru_scan_bwd_plain(xproj[None], h_prevs[None], dys[None],
+                                                    w_zr_h[None], w_h_h[None]))
+
+
+def _sizes(kernel, lead, xproj):
+    """(B, L, H) of the inputs of a scan whose arrays carry the leading
+    axes `lead`: () for K16/K17, (2,) for K18/K19."""
+    if xproj.dim() != len(lead) + 3:
+        raise ValueError(f"{kernel.name}: xproj has {xproj.dim()} axes, expected {len(lead) + 3}")
+    b, l = xproj.shape[len(lead):len(lead) + 2]
+    return b, l, _hidden(xproj, kernel.name)
+
+
+def _scan_fwd(kernel, lead, xproj, h0, w_zr, w_h):
+    """Check the inputs of K16 or K18 and launch it."""
+    b, l, h = _sizes(kernel, lead, xproj)
+    dev = xproj.device
+    for name, t, shape in (("xproj", xproj, (b, l, 3 * h)), ("h0", h0, (b, h)),
+                           ("w_zr", w_zr, (h, 2 * h)), ("w_h", w_h, (h, h))):
+        build.check(name, t, (*lead, *shape), dev)
+    ys = torch.empty((*lead, b, l, h), device=dev, dtype=torch.float32)
+    if b * l:
+        kernel.launch(build.ptr(xproj), build.ptr(h0), build.ptr(w_zr), build.ptr(w_h),
+                      build.ptr(ys), b, l, h, build.stream_of(xproj))
+    return ys
+
+
+def _scan_bwd(kernel, lead, xproj, h_prevs, dys, w_zr, w_h):
+    """Check the inputs of K17 or K19 and launch it."""
+    b, l, h = _sizes(kernel, lead, xproj)
+    dev = xproj.device
+    for name, t, shape in (("xproj", xproj, (b, l, 3 * h)), ("h_prevs", h_prevs, (b, l, h)),
+                           ("dys", dys, (b, l, h)), ("w_zr", w_zr, (h, 2 * h)),
+                           ("w_h", w_h, (h, h))):
+        build.check(name, t, (*lead, *shape), dev)
+    new = lambda *shape: torch.empty((*lead, *shape), device=dev, dtype=torch.float32)
+    dxproj, dh0, dwzr, dwh = new(b, l, 3 * h), new(b, h), new(h, 2 * h), new(h, h)
+    if b * l == 0:
+        return dxproj, dh0.zero_(), dwzr.zero_(), dwh.zero_()
+    rh = new(b, l, h)  # r * h_prev per step, for the reduction of dWh
+    kernel.launch(*[build.ptr(t) for t in (xproj, h_prevs, dys, w_zr, w_h, dxproj, dh0, dwzr,
+                                           dwh, rh)], b, l, h, build.stream_of(xproj))
+    return dxproj, dh0, dwzr, dwh
+
+
+def gru_scan(xproj, h0, w_zr_h, w_h_h):
+    """One GRU direction over time: xproj (B, L, 3H) the input
+    projections (cells.gru_input_proj), h0 (B, H), the recurrent halves
+    w_zr_h (H, 2H) and w_h_h (H, H). Returns every state (B, L, H).
+
+    CPU tensors take the plain version; CUDA tensors kernel K16."""
+    if build.on_cpu(xproj, h0, w_zr_h, w_h_h):
+        return gru_scan_plain(xproj, h0, w_zr_h, w_h_h)
+    return _scan_fwd(KERNEL_GRU, (), xproj, h0, w_zr_h, w_h_h)
+
+
+def gru_scan_bwd(xproj, h_prevs, dys, w_zr_h, w_h_h):
+    """Cotangents of gru_scan's inputs given its input projections, the
+    state each step started from (h_prevs[:, t]: h0 at t = 0, then the
+    outputs), the outputs' cotangent and the recurrent weights:
+    (dxproj, dh0, dw_zr_h, dw_h_h).
+
+    CPU tensors take the plain version; CUDA tensors kernel K17."""
+    args = (xproj, h_prevs, dys, w_zr_h, w_h_h)
+    if build.on_cpu(*args):
+        return gru_scan_bwd_plain(*args)
+    return _scan_bwd(KERNEL_GRU_BWD, (), *args)
+
+
+def bigru_scan(xproj2, h02, wzr2, wh2):
+    """Both GRU directions over time, stacked: xproj2 (2, B, L, 3H) with
+    direction 1 already flipped into its scan order, h02 (2, B, H), wzr2
+    (2, H, 2H), wh2 (2, H, H). Returns every state (2, B, L, H),
+    direction 1 in scan order (the caller flips it back).
+
+    CPU tensors take the plain version; CUDA tensors kernel K18."""
+    if build.on_cpu(xproj2, h02, wzr2, wh2):
+        return bigru_scan_plain(xproj2, h02, wzr2, wh2)
+    return _scan_fwd(KERNEL_BI, (2,), xproj2, h02, wzr2, wh2)
+
+
+def bigru_scan_bwd(xproj2, h_prevs2, dys2, wzr2, wh2):
+    """bigru_scan's cotangents, as gru_scan_bwd's with the directions
+    stacked: (dxproj2, dh02, dwzr2, dwh2).
+
+    CPU tensors take the plain version; CUDA tensors kernel K19."""
+    args = (xproj2, h_prevs2, dys2, wzr2, wh2)
+    if build.on_cpu(*args):
+        return bigru_scan_bwd_plain(*args)
+    return _scan_bwd(KERNEL_BI_BWD, (2,), *args)
+
+
+class GRUScan(torch.autograd.Function):
+    """gru_scan with its gradient: K16 forward, K17 backward (the plain
+    versions on CPU tensors). The backward puts h0 in front of the
+    outputs for the state each step started from, as the JAX VJP does
+    (``_vjp_bwd`` :223)."""
+
+    @staticmethod
+    def forward(ctx, xproj, h0, w_zr_h, w_h_h):
+        ys = gru_scan(xproj, h0, w_zr_h, w_h_h)
+        ctx.save_for_backward(xproj, h0, w_zr_h, w_h_h, ys)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        xproj, h0, w_zr_h, w_h_h, ys = ctx.saved_tensors
+        h_prevs = torch.cat([h0[:, None], ys[:, :-1]], dim=1)
+        return gru_scan_bwd(xproj, h_prevs, dys.contiguous(), w_zr_h, w_h_h)
+
+
+class BiGRUScan(torch.autograd.Function):
+    """bigru_scan with its gradient: K18 forward, K19 backward (the plain
+    versions on CPU tensors), the states shifted as ``_bi_vjp_bwd`` (:498)
+    shifts them."""
+
+    @staticmethod
+    def forward(ctx, xproj2, h02, wzr2, wh2):
+        ys = bigru_scan(xproj2, h02, wzr2, wh2)
+        ctx.save_for_backward(xproj2, h02, wzr2, wh2, ys)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        xproj2, h02, wzr2, wh2, ys = ctx.saved_tensors
+        h_prevs = torch.cat([h02[:, :, None], ys[:, :, :-1]], dim=2)
+        return bigru_scan_bwd(xproj2, h_prevs, dys.contiguous(), wzr2, wh2)

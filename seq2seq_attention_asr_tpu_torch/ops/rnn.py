@@ -51,6 +51,30 @@ def _flip(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
     return x.flip(1) if lengths is None else flip_sequences(x, lengths)
 
 
+def gru_layer(params: Params, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+              reverse: bool = False, h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One GRU direction over a padded batch, (B, L, I) -> (B, L, H), from
+    h0 (B, H) (zeros when None), through kernel K16 and, for its gradient,
+    K17 (ops/cuda/gru_scan.py::GRUScan). The input projection is one
+    matmul outside the kernel, as in the JAX package.
+
+    `reverse=True` scans each sequence backward over its true length:
+    the input is flipped about `lengths` (the whole time axis when
+    None), scanned forward and flipped back, so output[t] is the state
+    after consuming x[t..len-1]. The outputs are not masked: past a
+    row's length the scan runs on into the padding, and those positions
+    are returned as the JAX package returns them."""
+    h_dim = params["w_zr"].shape[1] // 2
+    if reverse:
+        x = _flip(x, lengths)
+    xproj = cells.gru_input_proj(params, x)
+    if h0 is None:
+        h0 = x.new_zeros((x.shape[0], h_dim))
+    ys = gru_scan.GRUScan.apply(xproj.contiguous(), h0.contiguous(), params["w_zr"][:h_dim],
+                                params["w_h"][:h_dim])
+    return _flip(ys, lengths) if reverse else ys
+
+
 def lstm_layer(params: Params, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                reverse: bool = False) -> torch.Tensor:
     """One LSTM direction over a padded batch, (B, L, I) -> (B, L, H), a

@@ -138,6 +138,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):
         attention_scan.attention_decode_scan_loc_lstm_bwd(
             vh, h, mask, yin, *weights, *outs, outs[0][:, :2].contiguous(), None, None, None)
+    # K16-K19: a state wider than 1024, float64, tensors on two devices.
+    one = (_rand(gen, 2, 3, 12), _rand(gen, 2, 4), _rand(gen, 4, 8), _rand(gen, 4, 4))
+    one_bwd = (one[0], _rand(gen, 2, 3, 4), _rand(gen, 2, 3, 4), *one[2:])
+    two, two_bwd = (tuple(torch.stack([t, t]) for t in a) for a in (one, one_bwd))
+    for fn, args in ((gru_scan.gru_scan, one), (gru_scan.gru_scan_bwd, one_bwd),
+                     (gru_scan.bigru_scan, two), (gru_scan.bigru_scan_bwd, two_bwd)):
+        with pytest.raises(ValueError):
+            fn(torch.zeros(*args[0].shape[:-1], 3 * 1025, device=card), *args[1:])
+        with pytest.raises(TypeError):
+            fn(*[a.double() for a in args])
+        with pytest.raises(ValueError):
+            fn(args[0], args[1].cpu(), *args[2:])
 
 
 @pytest.mark.parametrize("exact", [False, True])
@@ -683,3 +695,68 @@ def test_loc_decoder_train_step_on_the_card_matches_the_cpu(card, name):
     for got, want in zip(runs["cuda"], runs["cpu"]):
         for key in ("loss", "nll", "grad_norm", "param_norm"):
             assert abs(got[key] - want[key]) <= 1e-4 * abs(want[key]), (key, got, want)
+
+
+@pytest.mark.parametrize("b,l,h", [(1, 132, 256), (5, 37, 256), (16, 144, 256), (3, 20, 100)])
+def test_gru_scan_kernels(card, b, l, h):
+    """K16-K19 from nonzero initial states against their plain versions:
+    forward within TOL, backward (dxproj, dh0, dWzr, dWh) within the
+    backward tolerance, one launch each. B = 1 takes one row a block,
+    B = 5 leaves a block of four rows part empty, H = 100 the 1-wide
+    weight loads."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan
+
+    gen = torch.Generator().manual_seed(b * 37 + l)
+    xproj2 = _rand(gen, 2, b, l, 3 * h)
+    h02 = _rand(gen, 2, b, h, scale=0.5)
+    wzr2 = _rand(gen, 2, h, 2 * h, scale=h ** -0.5)
+    wh2 = _rand(gen, 2, h, h, scale=h ** -0.5)
+    dys2 = _rand(gen, 2, b, l, h)
+    kernels = (gru_scan.KERNEL_GRU, gru_scan.KERNEL_GRU_BWD, gru_scan.KERNEL_BI,
+               gru_scan.KERNEL_BI_BWD)
+    before = [k.launches for k in kernels]
+    ys2 = gru_scan.bigru_scan_plain(xproj2, h02, wzr2, wh2)
+    h_prevs2 = torch.cat([h02[:, :, None], ys2[:, :, :-1]], dim=2)
+    one = lambda *ts: [t[0] for t in ts]
+    assert _max_err([gru_scan.gru_scan(*one(xproj2, h02, wzr2, wh2))], [ys2[0]]) <= TOL
+    assert _max_err([gru_scan.bigru_scan(xproj2, h02, wzr2, wh2)], [ys2]) <= TOL
+    bwd = one(xproj2, h_prevs2, dys2, wzr2, wh2)
+    _bwd_close(gru_scan.gru_scan_bwd(*bwd), gru_scan.gru_scan_bwd_plain(*bwd), "gru_scan_bwd")
+    args = (xproj2, h_prevs2, dys2, wzr2, wh2)
+    _bwd_close(gru_scan.bigru_scan_bwd(*args), gru_scan.bigru_scan_bwd_plain(*args),
+               "bigru_scan_bwd")
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(kernels, before)] == [1, 1, 1, 1]
+
+
+@pytest.mark.parametrize("path", ["per_direction", "stacked"])
+def test_encoder_paths_on_the_card_match_bigru_layer(card, path):
+    """Three BiGRU layers at the flagship encoder's widths (123 -> 256 and
+    512 -> 256 per direction), B = 5, L = 37 with ragged lengths, built
+    as chip_smoke.py builds them: one gru_layer per direction (K16 and
+    K17 6x each) or the stacked scan (K18 and K19 3x each), and neither
+    K1 nor K6; output equal to bigru_layer's (K1, K6) at valid positions
+    within TOL and 0 at masked ones, gradients of sum(out * cot) within
+    the backward tolerance."""
+    import chip_smoke
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.ops import rnn
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan
+
+    gen = torch.Generator().manual_seed(11)
+    enc = {n: interop.to_torch(rnn.bigru_init(gen, i, 256), card)
+           for n, i in zip(chip_smoke.ENC_LAYERS, (123, 512, 512))}
+    x, cot = _rand(gen, 5, 37, 123), _rand(gen, 5, 37, 512)
+    lens = torch.tensor([37, 20, 31, 5, 37], device=card)
+    kernels = (gru_scan.KERNEL, gru_scan.KERNEL_BWD, gru_scan.KERNEL_GRU, gru_scan.KERNEL_GRU_BWD,
+               gru_scan.KERNEL_BI, gru_scan.KERNEL_BI_BWD)
+    before = [k.launches for k in kernels]
+    out, grads = chip_smoke.encoder_call(path, enc, x, lens, cot)()
+    torch.cuda.synchronize()
+    launched = [k.launches - n for k, n in zip(kernels, before)]
+    assert launched == ([0, 0, 6, 6, 0, 0] if path == "per_direction" else [0, 0, 0, 0, 3, 3])
+    want, want_grads = chip_smoke.encoder_call("bigru_layer", enc, x, lens, cot)()
+    valid = (torch.arange(37, device=card)[None] < lens[:, None])[:, :, None].expand_as(out)
+    assert float((out - want)[valid].abs().max()) <= TOL
+    assert not out[~valid].any()
+    _bwd_close(grads, want_grads, path)

@@ -71,6 +71,13 @@ def test_kernel_wrappers_take_cpu_or_cuda_tensors_only():
         gru_scan.bigru_scan2(*gru)
     with pytest.raises(ValueError):
         gru_scan.bigru_scan2_bwd(*gru, *[meta(1, 2, 4)] * 4)
+    one = [(1, 2, 12), (1, 4), (4, 8), (4, 4)]
+    one_bwd = [(1, 2, 12), (1, 2, 4), (1, 2, 4), (4, 8), (4, 4)]
+    for fn, shapes in ((gru_scan.gru_scan, one), (gru_scan.gru_scan_bwd, one_bwd),
+                       (gru_scan.bigru_scan, [(2, *s) for s in one]),
+                       (gru_scan.bigru_scan_bwd, [(2, *s) for s in one_bwd])):
+        with pytest.raises(ValueError):
+            fn(*[meta(*s) for s in shapes])
     with pytest.raises(ValueError):
         logmel.stft_logmel_power(meta(1, 4096), 16000)
     b, t, l, s, a, st = 1, 2, 3, 4, 5, 6

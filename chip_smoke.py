@@ -78,7 +78,11 @@ Phases, each fatal when it fails:
      port never calls) and K7 with its two input projections; for K9
      cuDNN's bidirectional LSTM backward on the same shapes (the device
      time of every op that autograd.grad on its output starts); K2
-     beside K8's instance on K2's inputs;
+     beside K8's instance on K2's inputs; for the cluster-walk backwards
+     (K6, K9, K17, K19) the device time by stage (gate pre-pass, walk,
+     reduction), the walk's time per step and the plan it ran (cluster
+     size, rows per cluster, weights resident or streamed), and K6's walk
+     at B = 16 and 128 under each row count the plan can take;
   9. the p50 request latency over 10 requests of each model, and the
      device idle share: 1 - (device time of one request) / p50; the p50
      train step of each recipe over 10
@@ -150,14 +154,17 @@ CB_PAD_LEN = 130  # encoder frames of the 3.5 s PCM: 110, padded to 112, plus 2 
 CB_EOS_BIASES = (0.01, 0.02, 0.04, 0.08, 0.16, 0.32, 0.64)
 # Device kernels of each recipe's train step, by the name each carries in
 # a trace.
-STEP_KERNELS = ("bigru_scan2_bwd_kernel", "bigru_scan2_kernel", "scan_fwd_kernel",
-                "scan_gru_bwd_kernel", "atb_kernel")
-CB_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "bilstm_scan_kernel", "loc_lstm_fwd_kernel",
-                   "loc_lstm_bwd_kernel", "atb_kernel")
-LOC_STEP_KERNELS = ("bigru_scan2_bwd_kernel", "bigru_scan2_kernel", "scan_loc_gru_fwd_kernel",
-                    "scan_loc_gru_bwd_kernel", "atb_kernel")
-CBC_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "bilstm_scan_kernel", "scan_lstm_fwd_kernel",
-                    "scan_lstm_bwd_kernel", "atb_kernel")
+# The backward recurrences K6, K17, K19 (GRU) and K9 (LSTM) start a gate
+# pre-pass (gru_gates_kernel twice, lstm_gates_kernel once), their walk
+# and a reduction (atb_kernel).
+STEP_KERNELS = ("bigru_scan2_bwd_kernel", "gru_gates_kernel", "bigru_scan2_kernel",
+                "scan_fwd_kernel", "scan_gru_bwd_kernel", "atb_kernel")
+CB_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "bilstm_scan_kernel",
+                   "loc_lstm_fwd_kernel", "loc_lstm_bwd_kernel", "atb_kernel")
+LOC_STEP_KERNELS = ("bigru_scan2_bwd_kernel", "gru_gates_kernel", "bigru_scan2_kernel",
+                    "scan_loc_gru_fwd_kernel", "scan_loc_gru_bwd_kernel", "atb_kernel")
+CBC_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "bilstm_scan_kernel",
+                    "scan_lstm_fwd_kernel", "scan_lstm_bwd_kernel", "atb_kernel")
 # The flagship encoder's three BiGRU layers by each path (phase 7): the
 # port's flip-free bigru_layer (K1, K6), one gru_layer per direction
 # (K16, K17) and the direction-stacked scan (K18, K19); the launches of
@@ -169,7 +176,14 @@ ENC_LAUNCHES = {"bigru_layer": {"bigru_scan2": 3, "bigru_scan2_bwd": 3},
                 "stacked": {"bigru_scan": 3, "bigru_scan_bwd": 3}}
 ENC_KERNELS = ("bigru_scan2_bwd_kernel", "bigru_scan2_kernel", "gru1_walk_fwd_kernel",
                "gru1_walk_bwd_kernel", "gru2_stacked_fwd_kernel", "gru2_stacked_bwd_kernel",
-               "atb_kernel")
+               "gru_gates_kernel", "atb_kernel")
+# The redesigned backward walks: each kernel's walk, its pre-pass and the
+# cell its plan is for (ops/cuda/walk.py).
+WALKS = {"bigru_scan2_bwd": ("bigru_scan2_bwd_kernel", "gru_gates_kernel", "gru"),
+         "gru_scan_bwd": ("gru1_walk_bwd_kernel", "gru_gates_kernel", "gru"),
+         "bigru_scan_bwd": ("gru2_stacked_bwd_kernel", "gru_gates_kernel", "gru"),
+         "bilstm_scan_bwd": ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "lstm")}
+GRU_GATES = ("gru_gates_kernel", "gru_gates_kernel")  # two pre-pass launches a call
 
 REPLACES = {
     "bigru_scan2": "seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:666",
@@ -316,6 +330,12 @@ def device_ms(fn, symbols, iters: int) -> float:
     call starts when `symbols` is None, without the host's time between
     launches. A trace that kept fewer than nine tenths of the launches is
     taken again, at most twice."""
+    return sum(device_parts(fn, symbols, iters).values())
+
+
+def device_parts(fn, symbols, iters: int) -> dict:
+    """device_ms by symbol: {symbol: mean device ms of its launches in one
+    call}, or {None: every device op's} when `symbols` is None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
@@ -327,8 +347,8 @@ def device_ms(fn, symbols, iters: int) -> float:
                 fn()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if symbols is None:
-            return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
-        ms, short = 0.0, []
+            return {None: sum(e.time_range.elapsed_us() for e in events) / iters / 1e3}
+        ms, short = {}, []
         for symbol in dict.fromkeys(symbols):
             per_call = symbols.count(symbol)
             durs = [e.time_range.elapsed_us() for e in events if symbol in e.name]
@@ -339,7 +359,7 @@ def device_ms(fn, symbols, iters: int) -> float:
                 short.append(f"{len(durs)} launches of {symbol}, expected {iters * per_call}")
                 continue
             # The mean is over the records the trace kept.
-            ms += per_call * sum(durs) / len(durs) / 1e3
+            ms[symbol] = per_call * sum(durs) / len(durs) / 1e3
         if not short:
             return ms
         print(f"device_ms: trace {attempt + 1} kept {'; '.join(short)}")
@@ -712,11 +732,12 @@ def train_cases(params, cfg, batch, gen: torch.Generator):
     dys = [rnd(b, l, hd) * enc_mask[:, :, None] for _ in range(2)]
     rows = b * l
     k6 = Case(
-        "bigru_scan2_bwd", ("bigru_scan2_bwd_kernel", "atb_kernel"), gru_scan.bigru_scan2_bwd,
+        "bigru_scan2_bwd", ("bigru_scan2_bwd_kernel", *GRU_GATES, "atb_kernel"),
+        gru_scan.bigru_scan2_bwd,
         gru_scan.bigru_scan2_bwd_plain, (xf, xb, wzr2, wh2, ysf, ysb, *dys),
-        # Per row step and direction: the two recompute products (6 H^2),
-        # the two transposed products (6 H^2), the weight-gradient outer
-        # products (6 H^2) and ~30 H elementwise.
+        # Per row step and direction: the pre-pass's two gate products
+        # (6 H^2), the walk's two transposed products (6 H^2), the
+        # weight-gradient outer products (6 H^2) and ~30 H elementwise.
         flops=2 * rows * (18 * hd * hd + 30 * hd),
         nbytes=4 * (2 * rows * 3 * hd + 4 * rows * hd + 2 * 3 * hd * hd  # inputs
                     + 2 * rows * 3 * hd + 2 * 3 * hd * hd),  # dx and dW
@@ -813,11 +834,12 @@ def cb_train_cases(params, cfg, batch, gen: torch.Generator):
     dys = rnd(2, b, l, hd) * enc_mask[None, :, :, None]
     rows = b * l
     k9 = Case(
-        "bilstm_scan_bwd", ("bilstm_scan_bwd_kernel", "atb_kernel"), lstm_scan.bilstm_scan_bwd,
+        "bilstm_scan_bwd", ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "atb_kernel"),
+        lstm_scan.bilstm_scan_bwd,
         lstm_scan.bilstm_scan_bwd_plain, (xproj2, h_prev, c_prev, dys, wh2),
-        # Per row, step and direction: the recompute product h_prev @ W_h,
-        # the transposed product da @ W_h^T and the weight-gradient outer
-        # product (8 H^2 each), and ~40 H elementwise.
+        # Per row, step and direction: the pre-pass's product h_prev @ W_h,
+        # the walk's transposed product da @ W_h^T and the weight-gradient
+        # outer product (8 H^2 each), and ~40 H elementwise.
         flops=2 * rows * (24 * hd * hd + 40 * hd),
         nbytes=4 * (2 * rows * 4 * hd + 3 * 2 * rows * hd + 2 * 4 * hd * hd  # inputs
                     + 2 * rows * 4 * hd + 2 * 2 * b * hd + 2 * 4 * hd * hd),  # dxproj2, dh0, dc0, dW_h
@@ -974,7 +996,8 @@ def gru_scan_cases(enc, x, lens, gen):
     # One direction: per row and step the two recurrent products (3 H^2
     # multiply-adds) and ~12 H elementwise; the backward the two
     # recompute products, the two transposed ones and the weight-gradient
-    # outer products (9 H^2 multiply-adds) and ~30 H elementwise.
+    # outer products (9 H^2 multiply-adds) and ~30 H elementwise: the
+    # recompute is the pre-pass's.
     fwd_flops, bwd_flops = rows * (6 * hd * hd + 12 * hd), rows * (18 * hd * hd + 30 * hd)
     fwd_bytes = 4 * (rows * 3 * hd + b * hd + 3 * hd * hd + rows * hd)
     bwd_bytes = 4 * (rows * 3 * hd + 2 * rows * hd + 3 * hd * hd  # xproj, h_prevs, dys, W
@@ -984,13 +1007,15 @@ def gru_scan_cases(enc, x, lens, gen):
     return [
         Case("gru_scan", ("gru1_walk_fwd_kernel",), tup(gru_scan.gru_scan),
              tup(gru_scan.gru_scan_plain), one(xproj2, h02, wzr2, wh2), fwd_flops, fwd_bytes),
-        Case("gru_scan_bwd", ("gru1_walk_bwd_kernel", "atb_kernel"), gru_scan.gru_scan_bwd,
+        Case("gru_scan_bwd", ("gru1_walk_bwd_kernel", *GRU_GATES, "atb_kernel"),
+             gru_scan.gru_scan_bwd,
              gru_scan.gru_scan_bwd_plain, one(xproj2, h_prevs2, dys2, wzr2, wh2), bwd_flops,
              bwd_bytes, backward=True),
         Case("bigru_scan", ("gru2_stacked_fwd_kernel",), tup(gru_scan.bigru_scan),
              tup(gru_scan.bigru_scan_plain), (xproj2, h02, wzr2, wh2), 2 * fwd_flops,
              2 * fwd_bytes),
-        Case("bigru_scan_bwd", ("gru2_stacked_bwd_kernel", "atb_kernel"), gru_scan.bigru_scan_bwd,
+        Case("bigru_scan_bwd", ("gru2_stacked_bwd_kernel", *GRU_GATES, "atb_kernel"),
+             gru_scan.bigru_scan_bwd,
              gru_scan.bigru_scan_bwd_plain, (xproj2, h_prevs2, dys2, wzr2, wh2), 2 * bwd_flops,
              2 * bwd_bytes, backward=True),
     ]
@@ -1141,6 +1166,66 @@ def encoder_timing(enc_cpu, b: int, card: str) -> None:
                   f"{key} {ms:.4f} ms in {n} ({ms / n:.4f} ms each)"
                   for key, (n, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]))
               + f" ({card})")
+
+
+def walk_split(c, kernel, tag, iters: int, card: str) -> None:
+    """Phase 8 for a redesigned backward (a key of WALKS): its device time
+    by stage (gate pre-pass, walk, reduction), the walk's time per step,
+    and the plan it ran."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import walk
+
+    walk_sym, gates_sym, cell = WALKS[c.name]
+    with torch.no_grad():
+        parts = device_parts(lambda: c.kernel(*c.args), c.symbols, iters)
+    x = c.args[0]
+    lead = x.dim() - 3  # 1 for the direction-stacked inputs of K19 and K9
+    b, l, h = x.shape[lead], x.shape[lead + 1], x.shape[-1] // walk.WIDTH[cell]
+    directions = 1 if c.name == "gru_scan_bwd" else 2
+    smem, clusters = walk.limits(kernel, x.device)
+    plan = walk.plan(b, h, cell, directions, smem, clusters)
+    print(f"time {c.label} {tag} by stage: pre-pass {parts[gates_sym]:.4f} ms, walk "
+          f"{parts[walk_sym]:.4f} ms ({1e3 * parts[walk_sym] / l:.2f} us a step over {l} steps), "
+          f"reduction {parts['atb_kernel']:.4f} ms; plan C={plan.cluster} R={plan.rows} "
+          f"{'resident' if plan.resident else 'streamed'}, {directions * -(-b // plan.rows)} "
+          f"clusters ({clusters} resident at once, {smem} bytes of shared memory a block) ({card})")
+
+
+def k6_plan_sweep(kernel, b: int, card: str) -> None:
+    """Phase 8: K6's walk at B=b, L=TRAIN_L, H=256 under each row count of
+    ops/cuda/walk.py (weights resident), on seeded random inputs: the
+    walk's device time, its time per step, and the waves its clusters take
+    on this card. walk.STEP_ROWS is read from these times."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import build, gru_scan, walk
+
+    h, l, dev = 256, TRAIN_L, torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 9)
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(dev)
+    xf, xb = rnd(b, l, 3 * h), rnd(b, l, 3 * h)
+    wzr2, wh2 = rnd(2, h, 2 * h, scale=h ** -0.5), rnd(2, h, h, scale=h ** -0.5)
+    with torch.no_grad():
+        ysf, ysb = gru_scan.bigru_scan2_plain(xf, xb, wzr2, wh2)
+        ins = (xf, xb, wzr2, wh2, ysf, ysb, rnd(b, l, h), rnd(b, l, h))
+        want = gru_scan.bigru_scan2_bwd_plain(*ins)
+    outs = (torch.empty_like(xf), torch.empty_like(xb), torch.empty_like(wzr2),
+            torch.empty_like(wh2), torch.empty(2, b, l, h, device=dev))
+    smem, clusters = walk.limits(kernel, dev)
+    line = []
+    for rows in walk.ROWS:
+        plan = walk.Plan(8, rows, True)
+        call = lambda: kernel.launch(*[build.ptr(t) for t in ins + outs], b, l, h, *plan.args(),
+                                     build.stream_of(xf))
+        call()
+        torch.cuda.synchronize()
+        excess = bwd_err(outs[:4], want)
+        if excess > 5e-5:
+            raise SystemExit(f"K6 with {plan}: disagrees with its plain version ({excess:.3e})")
+        ms = device_parts(call, ("bigru_scan2_bwd_kernel",), 10)["bigru_scan2_bwd_kernel"]
+        waves = -(-2 * -(-b // rows) // clusters)
+        line.append(f"R={rows} {ms:.4f} ms, {1e3 * ms / l:.2f} us a step in {waves} waves "
+                    f"({1e3 * ms / l / waves:.2f} a wave)")
+    print(f"time K6 walk by rows per cluster B={b} L={l} H={h} (C=8, resident, {clusters} "
+          f"clusters at once; the plan takes R={walk.plan(b, h, 'gru', 2, smem, clusters).rows}): "
+          + "; ".join(line) + f" ({card})")
 
 
 def flagship_loc():
@@ -1574,6 +1659,8 @@ def main() -> int:
                   f"({b_by}: {c.flops:.3e} flop, {c.nbytes:.3e} B), library {lib} ({card})")
             if lib_ms is not None:
                 library[(c.name, b)] = lib_ms
+            if c.name in WALKS:
+                walk_split(c, kernels[c.name], tag, n, card)
             if c.name == "bilstm_scan_bwd":
                 with torch.no_grad():
                     lib_call = time_ms(c.library, n)
@@ -1591,6 +1678,8 @@ def main() -> int:
                       f"{proj_call:.4f} ms per call; cuDNN bidirectional LSTM (TF32 off) "
                       f"{lib_ms:.4f} ms on the device, {lib_call:.4f} ms per call; K7 alone "
                       f"{call_ms:.4f} ms per wrapper call ({card})")
+    for b in (TRAIN_B, BIG_B):
+        k6_plan_sweep(kernels["bigru_scan2_bwd"], b, card)
     for b in (1, 8):
         k2_ms, k8_ms = timing[("fused_attention_step", b)][0], \
             timing[("fused_attention_step_loc_lstm[gru]", b)][0]

@@ -8,13 +8,21 @@
 // h_prev = ysf[t-1]; direction 1 ran t = L-1..0 over the natural-order
 // array, so its backward walks t = 0..L-1 with h_prev = ysb[t+1]
 // (zero where the index leaves [0, L); ysb is exactly 0 on the padded
-// tail). Each block runs one direction's backward walk (csrc/gru_walk.cuh,
-// which gives the step and what bounds it) for a group of rows; the
-// forward's walk reads each step's weights once, the backward's twice
-// (two recompute products and two transposed products per step). The
-// walk writes r * h_prev per step, and a second kernel (reduce_atb.cuh)
-// forms dWzr = sum h_prev^T [da_z | da_r] and dWh = sum (r h_prev)^T da_c
-// over the B*L rows, tiled and deterministic.
+// tail). Three stages (csrc/gru_walk.cuh gives the step):
+//   1. gru_gates_kernel, twice: z, r, c and r * h_prev for all B*L rows of
+//      both directions, as tiled products, off the step chain;
+//   2. bigru_scan2_bwd_kernel: per direction and group of R rows, one
+//      thread-block cluster walks the steps with the weight slices
+//      resident in its blocks' shared memory. What bounds it: the L steps
+//      form a chain, and each costs two cluster barriers, each after a
+//      push of the step's gate cotangents into every block of the cluster;
+//      the products per block and step are R x (H/C) x 3H multiply-adds.
+//      At B = 16, L = 144, H = 256 (R = 4, 8 clusters): pre-pass 0.20 ms,
+//      walk 0.73 ms, reduction 0.39 ms (chip_smoke.py phase 8 on an NVIDIA
+//      H100 80GB HBM3 at 700.00 W);
+//   3. reduce_atb.cuh: dWzr = sum h_prev^T [da_z | da_r] and dWh = sum
+//      (r h_prev)^T da_c over the B*L rows, tiled and deterministic.
+// The plan (C, R, resident) comes from the caller (ops/cuda/walk.py).
 
 #include "gru_walk.cuh"
 #include "reduce_atb.cuh"
@@ -23,61 +31,44 @@ namespace {
 
 template <int R>
 __global__ void __launch_bounds__(kThreads, 1)
-bigru_scan2_bwd_kernel(const float* __restrict__ xf, const float* __restrict__ xb,
-                       const float* __restrict__ wzr2, const float* __restrict__ wh2,
-                       const float* __restrict__ ysf, const float* __restrict__ ysb,
-                       const float* __restrict__ dysf, const float* __restrict__ dysb,
-                       float* __restrict__ dxf, float* __restrict__ dxb,
-                       float* __restrict__ rh_out, int B, int L, int H) {
+bigru_scan2_bwd_kernel(const GruBwd g, int resident) {
   extern __shared__ float smem[];
-  const int d = blockIdx.x;
-  gru_walk_bwd<R>(d == 0 ? xf : xb, wzr2 + (size_t)d * H * 2 * H, wh2 + (size_t)d * H * H,
-                  d == 0 ? ysf : ysb, d == 0 ? -1 : 1, d == 0 ? dysf : dysb, d == 0 ? dxf : dxb,
-                  rh_out + (size_t)d * B * L * H, nullptr, B, L, H, d == 0, smem);
-}
-
-template <int R>
-cudaError_t launch_rows(const float* xf, const float* xb, const float* wzr2, const float* wh2,
-                        const float* ysf, const float* ysb, const float* dysf, const float* dysb,
-                        float* dxf, float* dxb, float* rh, int B, int L, int H,
-                        cudaStream_t stream) {
-  const size_t smem = gru_bwd_smem_bytes(R, H);
-  cudaError_t err = cudaFuncSetAttribute(bigru_scan2_bwd_kernel<R>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(2, (B + R - 1) / R);
-  bigru_scan2_bwd_kernel<R><<<grid, kThreads, smem, stream>>>(xf, xb, wzr2, wh2, ysf, ysb, dysf,
-                                                              dysb, dxf, dxb, rh, B, L, H);
-  return cudaGetLastError();
+  gru_walk_bwd<R>(g.d[blockIdx.y], g.B, g.L, g.H, resident != 0, smem);
 }
 
 }  // namespace
+
+// The device's opt-in shared memory per block and the clusters of
+// `cluster` blocks of the walk that can be resident at that size.
+extern "C" int bigru_scan2_bwd_limits(int cluster, int* smem_limit, int* clusters) {
+  return (int)cluster_limits(bigru_scan2_bwd_kernel<16>, cluster, smem_limit, clusters);
+}
 
 extern "C" int bigru_scan2_bwd(const float* xf, const float* xb, const float* wzr2,
                                const float* wh2, const float* ysf, const float* ysb,
                                const float* dysf, const float* dysb, float* dxf, float* dxb,
                                float* dwzr2, float* dwh2, float* rh, int B, int L, int H,
-                               cudaStream_t stream) {
+                               int cluster, int rows, int resident, cudaStream_t stream) {
   if (B < 1 || L < 1 || H < 1 || H > 1024) return (int)cudaErrorInvalidValue;
-  int per_block = 1;
-  cudaError_t err = gru_bwd_rows(B, H, &per_block);
-  if (err != cudaSuccess) return (int)err;
-  if (per_block == 4)
-    err = launch_rows<4>(xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb, dxf, dxb, rh, B, L, H, stream);
-  else
-    err = launch_rows<1>(xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb, dxf, dxb, rh, B, L, H, stream);
+  const size_t n = (size_t)B * L;
+  GruBwd g{};
+  g.d[0] = GruBwdDir{xf, wzr2, wh2, ysf, dysf, dxf, rh, nullptr, -1, 1};
+  g.d[1] = GruBwdDir{xb, wzr2 + (size_t)H * 2 * H, wh2 + (size_t)H * H, ysb, dysb, dxb,
+                     rh + n * H, nullptr, 1, 0};
+  g.B = B, g.L = L, g.H = H;
+  cudaError_t err = run_gru_bwd(g, 2, WalkPlan{cluster, rows, resident},
+                                GRU_WALK_INSTANCE(bigru_scan2_bwd_kernel, rows), stream);
   if (err != cudaSuccess) return (int)err;
 
   // dWzr[d] = sum over (b, t) of h_prev^T [da_z | da_r]; dWh[d] = sum (r h_prev)^T da_c.
-  const size_t rows = (size_t)B * L;
   AtbBatch batch{};
   batch.count = 4;
-  batch.rows = (int)rows;
+  batch.rows = (int)n;
   batch.period = L;
   batch.p[0] = AtbProblem{ysf, H, -1, dxf, 3 * H, dwzr2, nullptr, H, 2 * H};
   batch.p[1] = AtbProblem{ysb, H, 1, dxb, 3 * H, dwzr2 + (size_t)H * 2 * H, nullptr, H, 2 * H};
   batch.p[2] = AtbProblem{rh, H, 0, dxf + 2 * H, 3 * H, dwh2, nullptr, H, H};
-  batch.p[3] = AtbProblem{rh + rows * H, H, 0, dxb + 2 * H, 3 * H, dwh2 + (size_t)H * H, nullptr,
+  batch.p[3] = AtbProblem{rh + n * H, H, 0, dxb + 2 * H, 3 * H, dwh2 + (size_t)H * H, nullptr,
                           H, H};
   return (int)launch_atb(batch, stream);
 }

@@ -1,0 +1,261 @@
+// Pieces shared by the backward recurrent walks that run on a thread-block
+// cluster: the GRU's (csrc/gru_walk.cuh, kernels K6, K17, K19) and the
+// LSTM's (csrc/bilstm_scan_bwd.cu, kernel K9).
+//
+// Such a backward splits into a gate pre-pass and a walk. Every step's
+// h_prev is an input of the backward, so the gates of all B*L rows come
+// from batched products before the walk (tile_product, 64 x 64 tiles of
+// 4 x 4 per thread as reduce_atb.cuh's), off the step chain. The walk
+// keeps only the transposed products on the chain. One cluster of C
+// blocks runs one direction for R batch rows; block k holds rows
+// [k H / C, (k + 1) H / C) of the direction's recurrent weight (in
+// shared memory when the slice fits, else read from L2 each step) and
+// owns the state units of the same range. A step computes its units'
+// gate cotangents, pushes them into every block's shared memory through
+// distributed shared memory, meets the cluster at a barrier, and forms
+// its units' share of (cotangents) @ W^T from its weight rows.
+
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "common.cuh"
+
+namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int kMaxCluster = 8;  // the largest portable cluster
+constexpr int kTileThreads = 256;
+constexpr int kTile = 64;
+constexpr int kTileK = 32;
+
+// The walk's plan, computed by the caller (ops/cuda/walk.py): blocks of a
+// cluster, batch rows of a cluster, and whether the weight slices are
+// held in shared memory (else read from L2 each step).
+struct WalkPlan {
+  int cluster, rows, resident;
+};
+
+// Shared memory of a walk, in bytes: the weight slice when resident
+// (ceil(H / C) rows of `width` floats), `gathered` copies of the R x width
+// gathered cotangents, two buffers of `staged` per-unit step inputs and
+// `held` per-unit values kept across a step's phases. ops/cuda/walk.py
+// computes the same.
+size_t walk_smem_bytes(const WalkPlan& p, int H, int width, int gathered, int staged, int held) {
+  const size_t hs = (H + p.cluster - 1) / p.cluster;
+  return ((p.resident ? hs * width : 0) + (size_t)gathered * p.rows * width +
+          (size_t)(2 * staged + held) * p.rows * hs) *
+         sizeof(float);
+}
+
+// Whether the plan is one the walk instances take, and fits the device.
+cudaError_t check_plan(const WalkPlan& p, int H, size_t smem) {
+  const bool rows_ok = p.rows == 1 || p.rows == 2 || p.rows == 4 || p.rows == 8 || p.rows == 16;
+  if (!rows_ok || p.cluster < 1 || p.cluster > kMaxCluster || p.cluster > H)
+    return cudaErrorInvalidValue;
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  return smem <= (size_t)limit ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A launch configuration of kThreads-thread blocks in clusters of
+// `cluster` along x (it points into itself: use it where it is built).
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+
+  ClusterLaunch(dim3 grid, int cluster, size_t smem, cudaStream_t stream) : cfg{} {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Launch `kernel` on clusters of `cluster` blocks along x.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int cluster, size_t smem,
+                           cudaStream_t stream, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const ClusterLaunch launch(grid, cluster, smem, stream);
+  err = cudaLaunchKernelEx(&launch.cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The device's opt-in shared memory per block, and how many clusters of
+// `cluster` blocks of `kernel` can be resident at once when each block
+// takes that much (one block to an SM).
+template <typename... Params>
+cudaError_t cluster_limits(void (*kernel)(Params...), int cluster, int* smem_limit,
+                           int* clusters) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_limit);
+  if (err != cudaSuccess) return err;
+  const ClusterLaunch launch(dim3(cluster), cluster, *smem_limit, nullptr);
+  return cudaOccupancyMaxActiveClusters(clusters, reinterpret_cast<const void*>(kernel),
+                                        &launch.cfg);
+}
+
+// Asynchronous copies global -> shared of 4 bytes, or 16 (both addresses
+// 16-byte aligned); copy_async_wait waits for every copy this thread
+// started.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// dst[r * ldd + i] = src[r * lds + i] for r < nrows, i < n by asynchronous
+// copies, and 0 for the rows nrows <= r < R or every row when src is null.
+// With vec (dst, src, ldd, lds and n all multiples of 4 floats) the
+// copies are 16 bytes wide: a quarter of the copy instructions.
+template <int R>
+__device__ void stage_async(float* dst, int ldd, const float* src, size_t lds, int n, int nrows,
+                            bool vec) {
+  const int w = vec ? 4 : 1, nw = n / w;
+  for (int idx = threadIdx.x; idx < R * nw; idx += kThreads) {
+    const int r = idx / nw, i = w * (idx - r * nw);
+    float* d = dst + r * ldd + i;
+    if (src == nullptr || r >= nrows) {
+      for (int q = 0; q < w; ++q) d[q] = 0.f;
+    } else if (vec) {
+      copy_async16(d, src + r * lds + i);
+    } else {
+      copy_async(d, src + r * lds + i);
+    }
+  }
+}
+
+// A cluster barrier in two halves (barrier.cluster): arrive releases this
+// thread's earlier writes, wait returns once every thread of the cluster
+// has arrived and acquires theirs. Work between the two overlaps the
+// barrier's latency.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Sum each of the R values of v over the warp, R a power of two <= 32,
+// in about R shuffles: each level halves the values a lane keeps, the
+// lanes whose bit `mask` is set keeping the upper half. Returns, on every
+// lane, the sum of row `row`; the lanes l < R hold each row once.
+template <int R>
+__device__ __forceinline__ float reduce_rows(float (&v)[R], int& row) {
+  static_assert(R >= 1 && R <= 32 && (R & (R - 1)) == 0, "R is a power of two up to 32");
+  const int lane = threadIdx.x & 31;
+  row = 0;
+#pragma unroll
+  for (int k = R / 2, mask = 1; k >= 1; k /= 2, mask *= 2) {
+    const bool up = lane & mask;
+#pragma unroll
+    for (int j = 0; j < k; ++j) {
+      const float send = up ? v[j] : v[j + k];
+      const float keep = up ? v[j + k] : v[j];
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+    }
+    if (up) row += k;
+  }
+#pragma unroll
+  for (int mask = R; mask < 32; mask *= 2) v[0] += __shfl_xor_sync(0xffffffffu, v[0], mask);
+  return v[0];
+}
+
+// For the rows i < n of w (row stride ldw; shared or global memory): the
+// sums over j < m of w[i][j] v[r * ldv + j] for r < R, then emit(i, r,
+// sum) on lane r' < R for its row r. A warp takes two rows at once,
+// i and i + kWarps, so that each load of v feeds two products. No barrier.
+template <int R, class Emit>
+__device__ __forceinline__ void rows_dot(const float* w, int ldw, int n, const float* v, int ldv,
+                                         int m, Emit emit) {
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x >> 5; i < n; i += 2 * kWarps) {
+    const int i2 = i + kWarps < n ? i + kWarps : i;  // a lone last row is summed twice
+    const float* wa = w + (size_t)i * ldw;
+    const float* wb = w + (size_t)i2 * ldw;
+    float sa[R], sb[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) sa[r] = sb[r] = 0.f;
+#pragma unroll 2
+    for (int j = lane; j < m; j += 32) {
+      const float xa = wa[j], xb = wb[j];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float x = v[r * ldv + j];
+        sa[r] = fmaf(xa, x, sa[r]);
+        sb[r] = fmaf(xb, x, sb[r]);
+      }
+    }
+    int ra, rb;
+    const float suma = reduce_rows<R>(sa, ra);
+    const float sumb = reduce_rows<R>(sb, rb);
+    if (lane < R) {
+      emit(i, ra, suma);
+      if (i2 != i) emit(i2, rb, sumb);
+    }
+  }
+}
+
+// acc[r][c] = sum_{k < K} a(i0 + 4 ty + r, k) * b(k, j0 + 4 tx + c) for
+// the 64 x 64 tile (i0, j0), thread (ty, tx) = (tid / 16, tid % 16) of
+// kTileThreads; a and b return 0 outside their arrays. K is taken 32 at a
+// time through shared memory.
+template <class A, class Bf>
+__device__ void tile_product(float (&acc)[4][4], A a, Bf b, int i0, int j0, int K) {
+  __shared__ float as[kTileK][kTile + 1];
+  __shared__ float bs[kTileK][kTile + 4];
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += kTileK) {
+    for (int idx = tid; idx < kTileK * kTile; idx += kTileThreads) {
+      const int xa = idx / kTileK, ka = idx % kTileK;  // a's rows are contiguous in k
+      as[ka][xa] = k0 + ka < K ? a(i0 + xa, k0 + ka) : 0.f;
+      const int kb = idx / kTile, xb = idx % kTile;  // b's rows are contiguous in j
+      bs[kb][xb] = k0 + kb < K ? b(k0 + kb, j0 + xb) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < kTileK; ++k) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) av[r] = as[k][4 * ty + r], bv[r] = bs[k][4 * tx + r];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace

@@ -12,13 +12,15 @@
 // state each step started from, h_prev (D, B, L, H) (h0 at t = 0: the
 // caller shifts the saved outputs, as the JAX VJP does), the outputs'
 // cotangent dys (D, B, L, H), wzr (D, H, 2H) and wh (D, H, H). Every
-// direction's backward walks t = L-1..0 (csrc/gru_walk.cuh gives the step
-// and what bounds it), writes dxproj and r * h_prev per step, and dh0,
-// the carry after step 0. One reduce_atb.cuh launch then forms dWzr[d] =
-// sum h_prev^T [da_z | da_r] and dWh[d] = sum (r h_prev)^T da_c over the
-// B*L rows. The reduction reads h_prev as it is given (shift 0), so the
-// initial state's term h0^T [da_z | da_r] at t = 0 is in dWzr; reading
-// the outputs shifted by one step, as K6 does, would put a zero row there.
+// direction's backward walks t = L-1..0 in K6's three stages
+// (csrc/gru_walk.cuh; csrc/bigru_scan2_bwd.cu says what bounds each): the
+// gate pre-pass on h_prev as given (shift 0), the cluster walk, which
+// writes dxproj and dh0, the carry after step 0, and one reduce_atb.cuh
+// launch for dWzr[d] = sum h_prev^T [da_z | da_r] and dWh[d] = sum
+// (r h_prev)^T da_c over the B*L rows. The reduction reads h_prev as it
+// is given, so the initial state's term h0^T [da_z | da_r] at t = 0 is in
+// dWzr; reading the outputs shifted by one step, as K6 does, would put a
+// zero row there.
 
 #include "gru_walk.cuh"
 #include "reduce_atb.cuh"
@@ -26,63 +28,38 @@
 namespace {
 
 template <int R>
-__device__ void stacked_walk_bwd(const float* xproj, const float* hprev, const float* dys,
-                                 const float* wzr, const float* wh, float* dxproj, float* dh0,
-                                 float* rh, int B, int L, int H, float* smem) {
-  const size_t d = blockIdx.x, rows = (size_t)B * L;
-  gru_walk_bwd<R>(xproj + d * rows * 3 * H, wzr + d * H * 2 * H, wh + d * H * H,
-                  hprev + d * rows * H, 0, dys + d * rows * H, dxproj + d * rows * 3 * H,
-                  rh + d * rows * H, dh0 + d * B * H, B, L, H, true, smem);
+__global__ void __launch_bounds__(kThreads, 1) gru1_walk_bwd_kernel(const GruBwd g, int resident) {
+  extern __shared__ float smem[];
+  gru_walk_bwd<R>(g.d[blockIdx.y], g.B, g.L, g.H, resident != 0, smem);
 }
 
 template <int R>
 __global__ void __launch_bounds__(kThreads, 1)
-gru1_walk_bwd_kernel(const float* __restrict__ xproj, const float* __restrict__ hprev,
-                     const float* __restrict__ dys, const float* __restrict__ wzr,
-                     const float* __restrict__ wh, float* __restrict__ dxproj,
-                     float* __restrict__ dh0, float* __restrict__ rh, int B, int L, int H) {
+gru2_stacked_bwd_kernel(const GruBwd g, int resident) {
   extern __shared__ float smem[];
-  stacked_walk_bwd<R>(xproj, hprev, dys, wzr, wh, dxproj, dh0, rh, B, L, H, smem);
-}
-
-template <int R>
-__global__ void __launch_bounds__(kThreads, 1)
-gru2_stacked_bwd_kernel(const float* __restrict__ xproj, const float* __restrict__ hprev,
-                        const float* __restrict__ dys, const float* __restrict__ wzr,
-                        const float* __restrict__ wh, float* __restrict__ dxproj,
-                        float* __restrict__ dh0, float* __restrict__ rh, int B, int L, int H) {
-  extern __shared__ float smem[];
-  stacked_walk_bwd<R>(xproj, hprev, dys, wzr, wh, dxproj, dh0, rh, B, L, H, smem);
-}
-
-template <int D, int R>
-cudaError_t launch_rows(const float* xproj, const float* hprev, const float* dys,
-                        const float* wzr, const float* wh, float* dxproj, float* dh0, float* rh,
-                        int B, int L, int H, cudaStream_t stream) {
-  const auto kernel = D == 1 ? gru1_walk_bwd_kernel<R> : gru2_stacked_bwd_kernel<R>;
-  const size_t smem = gru_bwd_smem_bytes(R, H);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(D, (B + R - 1) / R);
-  kernel<<<grid, kThreads, smem, stream>>>(xproj, hprev, dys, wzr, wh, dxproj, dh0, rh, B, L, H);
-  return cudaGetLastError();
+  gru_walk_bwd<R>(g.d[blockIdx.y], g.B, g.L, g.H, resident != 0, smem);
 }
 
 template <int D>
 int run(const float* xproj, const float* hprev, const float* dys, const float* wzr,
         const float* wh, float* dxproj, float* dh0, float* dwzr, float* dwh, float* rh, int B,
-        int L, int H, cudaStream_t stream) {
+        int L, int H, const WalkPlan& plan, cudaStream_t stream) {
   if (B < 1 || L < 1 || H < 1 || H > 1024) return (int)cudaErrorInvalidValue;
-  int per_block = 1;
-  cudaError_t err = gru_bwd_rows(B, H, &per_block);
-  if (err != cudaSuccess) return (int)err;
-  err = per_block == 4
-            ? launch_rows<D, 4>(xproj, hprev, dys, wzr, wh, dxproj, dh0, rh, B, L, H, stream)
-            : launch_rows<D, 1>(xproj, hprev, dys, wzr, wh, dxproj, dh0, rh, B, L, H, stream);
+  const size_t rows = (size_t)B * L;
+  GruBwd g{};
+  for (int d = 0; d < D; ++d)
+    g.d[d] = GruBwdDir{xproj + d * rows * 3 * H, wzr + (size_t)d * H * 2 * H,
+                       wh + (size_t)d * H * H,   hprev + d * rows * H,
+                       dys + d * rows * H,       dxproj + d * rows * 3 * H,
+                       rh + d * rows * H,        dh0 + (size_t)d * B * H,
+                       0,                        1};
+  g.B = B, g.L = L, g.H = H;
+  cudaError_t err =
+      D == 1 ? run_gru_bwd(g, 1, plan, GRU_WALK_INSTANCE(gru1_walk_bwd_kernel, plan.rows), stream)
+             : run_gru_bwd(g, 2, plan, GRU_WALK_INSTANCE(gru2_stacked_bwd_kernel, plan.rows),
+                           stream);
   if (err != cudaSuccess) return (int)err;
 
-  const size_t rows = (size_t)B * L;
   AtbBatch batch{};
   batch.count = 2 * D;
   batch.rows = (int)rows;
@@ -99,21 +76,32 @@ int run(const float* xproj, const float* hprev, const float* dys, const float* w
 
 }  // namespace
 
+// The device's opt-in shared memory per block and the clusters of
+// `cluster` blocks of each walk that can be resident at that size.
+extern "C" int gru_scan_bwd_limits(int cluster, int* smem_limit, int* clusters) {
+  return (int)cluster_limits(gru1_walk_bwd_kernel<16>, cluster, smem_limit, clusters);
+}
+
+extern "C" int bigru_scan_bwd_limits(int cluster, int* smem_limit, int* clusters) {
+  return (int)cluster_limits(gru2_stacked_bwd_kernel<16>, cluster, smem_limit, clusters);
+}
+
 // K17: xproj (B, L, 3H), h_prev (B, L, H), dys (B, L, H), wzr (H, 2H),
 // wh (H, H) -> dxproj (B, L, 3H), dh0 (B, H), dwzr (H, 2H), dwh (H, H);
-// rh (B, L, H) is scratch.
+// rh (B, L, H) is scratch; (cluster, rows, resident) the walk's plan.
 extern "C" int gru_scan_bwd(const float* xproj, const float* hprev, const float* dys,
                             const float* wzr, const float* wh, float* dxproj, float* dh0,
-                            float* dwzr, float* dwh, float* rh, int B, int L, int H,
-                            cudaStream_t stream) {
-  return run<1>(xproj, hprev, dys, wzr, wh, dxproj, dh0, dwzr, dwh, rh, B, L, H, stream);
+                            float* dwzr, float* dwh, float* rh, int B, int L, int H, int cluster,
+                            int rows, int resident, cudaStream_t stream) {
+  return run<1>(xproj, hprev, dys, wzr, wh, dxproj, dh0, dwzr, dwh, rh, B, L, H,
+                WalkPlan{cluster, rows, resident}, stream);
 }
 
 // K19: the same with a leading direction axis of 2.
 extern "C" int bigru_scan_bwd(const float* xproj2, const float* hprev2, const float* dys2,
                               const float* wzr2, const float* wh2, float* dxproj2, float* dh02,
                               float* dwzr2, float* dwh2, float* rh2, int B, int L, int H,
-                              cudaStream_t stream) {
+                              int cluster, int rows, int resident, cudaStream_t stream) {
   return run<2>(xproj2, hprev2, dys2, wzr2, wh2, dxproj2, dh02, dwzr2, dwh2, rh2, B, L, H,
-                stream);
+                WalkPlan{cluster, rows, resident}, stream);
 }

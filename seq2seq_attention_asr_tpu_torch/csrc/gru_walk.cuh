@@ -1,24 +1,39 @@
-// The walk of one bias-free GRU direction over time for a block of R
-// batch rows, forward and backward, shared by the flip-free BiGRU scan
-// (K1 bigru_scan2.cu, K6 bigru_scan2_bwd.cu) and the one-direction and
-// direction-stacked scans (K16/K18 gru_scan.cu, K17/K19 gru_scan_bwd.cu).
-// Each kernel is a thin __global__ function that picks its direction's
-// arrays by blockIdx.x and calls the walk; blockIdx.y picks the rows.
+// The walks of one bias-free GRU direction over time, shared by the
+// flip-free BiGRU scan (K1 bigru_scan2.cu, K6 bigru_scan2_bwd.cu) and the
+// one-direction and direction-stacked scans (K16/K18 gru_scan.cu, K17/K19
+// gru_scan_bwd.cu). Each kernel is a thin __global__ function that picks
+// its direction's arrays and calls a walk.
 //
 //   zr = sigmoid(h @ Wzr + x[:2H]);  c = tanh((r * h) @ Wh + x[2H:])
 //   h' = (1 - z) * h + z * c
 //
-// What bounds a walk: the L steps form a dependency chain, and each step
-// needs the direction's whole recurrent weight set (3H^2 floats, 768 KB
-// at H = 256), which does not fit in one SM's shared memory and is read
-// from L2 every step. The state lives in shared memory, so every weight
-// is read once per step for all the rows of the block. What limits one
-// block's weight stream is load latency, so the loads are 16 bytes wide
-// and the input dimension of each product is split over thread groups,
-// keeping many loads in flight; partial sums meet in shared memory.
+// Forward (gru_walk_fwd): one block walks one direction for R batch rows.
+// The L steps form a dependency chain, and each needs the direction's
+// whole recurrent weight (3H^2 floats, 768 KB at H = 256), read from L2
+// every step; the state lives in shared memory, so each weight is read
+// once per step for all the block's rows. Load latency limits one block's
+// weight stream, so the loads are 16 bytes wide and the input dimension
+// of each product is split over thread groups; partial sums meet in
+// shared memory.
+//
+// Backward (gru_gates_kernel, then gru_walk_bwd on a thread-block
+// cluster; csrc/cluster_walk.cuh gives the scheme): every step's h_prev
+// is an input, so the pre-pass forms z, r, c and r * h_prev for all B*L
+// rows in parallel, and the walk keeps only its two transposed products
+// on the chain. Block k of a cluster of C holds rows [k H / C, (k+1) H / C)
+// of Wzr and Wh (96 KB at H = 256, C = 8) in shared memory, so no step
+// reads a weight from L2. What bounds a step: its two cluster barriers,
+// the distributed-shared-memory pushes before them, and the two
+// transposed products, whose 4-byte shared-memory loads (one per two
+// multiply-adds) grow with R. K6 at B = 16, L = 144, H = 256, R = 4:
+// 5.0 us a step (4.2 at R = 1, 16.3 at R = 16; chip_smoke.py phase 8 on
+// an NVIDIA H100 80GB HBM3 at 700.00 W). Where a slice does not fit (H
+// above ~300 at C = 8), the same walk reads it from L2 each step, each
+// block 1/C of the direction's weight.
 
 #pragma once
 
+#include "cluster_walk.cuh"
 #include "common.cuh"
 
 namespace {
@@ -128,121 +143,220 @@ __device__ void gru_walk_fwd(const float* __restrict__ x, const float* __restric
   }
 }
 
-// Shared memory of the backward walk, in bytes: 12 [R][H] vectors and
-// matvec's scratch.
-size_t gru_bwd_smem_bytes(int R, int H) {
-  return ((size_t)12 * R * H + (size_t)kThreads * 4 * R) * sizeof(float);
+// One direction of a GRU backward.
+struct GruBwdDir {
+  const float* x;     // (B, L, 3H) input projections
+  const float* wzr;   // (H, 2H)
+  const float* wh;    // (H, H)
+  const float* hsrc;  // (B, L, H): step t's h_prev is hsrc[t + shift], 0 outside [0, L)
+  const float* dys;   // (B, L, H) the outputs' cotangent
+  float* dx;          // (B, L, 3H): the pre-pass's z | r | c, then da_z | da_r | da_c
+  float* rho;         // (B, L, H): r * h_prev, for the reduction of dWh
+  float* dh0;         // (B, H), the carry after the last step, or null
+  int shift, down;    // down: the walk runs t = L-1..0, else t = 0..L-1
+};
+
+struct GruBwd {
+  GruBwdDir d[2];
+  int B, L, H;
+};
+
+// Shared memory of the backward walk: the weight slices (3H floats a
+// row), the gathered [da_z | da_r | da_c] (R x 3H), two buffers of five
+// staged step inputs (z, r, c, h_prev, dys) and dh, drh, carry per unit.
+size_t gru_walk_smem_bytes(const WalkPlan& p, int H) {
+  return walk_smem_bytes(p, H, 3 * H, 1, 5, 3);
 }
 
-// Rows per block of the backward walk on the current device: 4 where
-// B > 1 and they fit the opt-in shared memory, else 1; an error when not
-// even one row fits.
-cudaError_t gru_bwd_rows(int B, int H, int* rows) {
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (gru_bwd_smem_bytes(1, H) > (size_t)limit) return cudaErrorInvalidValue;
-  *rows = B > 1 && gru_bwd_smem_bytes(4, H) <= (size_t)limit ? 4 : 1;
-  return cudaSuccess;
+// The gate pre-pass over every (row, step) n of direction blockIdx.y, one
+// 64 x 64 output tile a block. Stage 0: zr = sigmoid(h_prev @ Wzr +
+// x[:2H]) into dx[:, :2H] and rho = r * h_prev; stage 1 (a second launch,
+// after stage 0): c = tanh(rho @ Wh + x[2H:]) into dx[:, 2H:].
+__global__ void __launch_bounds__(kTileThreads) gru_gates_kernel(const GruBwd g, int stage) {
+  const GruBwdDir& a = g.d[blockIdx.y];
+  const int H = g.H, L = g.L, H3 = 3 * H, rows = g.B * g.L;
+  const int i0 = blockIdx.x * kTile, j0 = blockIdx.z * kTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  auto hprev = [&](int n, int k) -> float {
+    const int tp = n % L + a.shift;
+    return tp >= 0 && tp < L ? a.hsrc[(size_t)(n + a.shift) * H + k] : 0.f;
+  };
+  float acc[4][4];
+  if (stage == 0) {
+    tile_product(
+        acc, [&](int n, int k) { return n < rows ? hprev(n, k) : 0.f; },
+        [&](int k, int j) { return j < 2 * H ? a.wzr[(size_t)k * 2 * H + j] : 0.f; }, i0, j0, H);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int n = i0 + 4 * ty + r, j = j0 + 4 * tx + c;
+        if (n >= rows || j >= 2 * H) continue;
+        const float gv = activate<kSigmoid>(acc[r][c] + a.x[(size_t)n * H3 + j]);
+        a.dx[(size_t)n * H3 + j] = gv;
+        if (j >= H) a.rho[(size_t)n * H + j - H] = gv * hprev(n, j - H);
+      }
+  } else {
+    tile_product(
+        acc, [&](int n, int k) { return n < rows ? a.rho[(size_t)n * H + k] : 0.f; },
+        [&](int k, int j) { return j < H ? a.wh[(size_t)k * H + j] : 0.f; }, i0, j0, H);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int n = i0 + 4 * ty + r, j = j0 + 4 * tx + c;
+        if (n < rows && j < H)
+          a.dx[(size_t)n * H3 + 2 * H + j] = tanhf(acc[r][c] + a.x[(size_t)n * H3 + 2 * H + j]);
+      }
+  }
 }
 
-// Backward walk of one direction for the rows b0 = blockIdx.y * R, ...,
-// over t = L-1..0 when `down` (the forward ran t = 0..L-1), else over
-// t = 0..L-1. Each step's h_prev is hsrc[t + shift] (B, L, H), zero
-// where that index leaves [0, L). Each step recomputes the gates from
-// h_prev, then
+// The backward walk of direction `a` for the R batch rows of this block's
+// cluster (group blockIdx.x / C), after the pre-pass. Each step t, from
+// the gates the pre-pass left in dx[t]:
 //
-//   dh = dys[t] + carry;  dz = dh (c - h_prev);  da_c = dh z (1 - c^2)
-//   drh = da_c @ Wh^T;  da_z = dz z (1 - z);  da_r = drh h_prev r (1 - r)
+//   dh = dys[t] + carry;  da_c = dh z (1 - c^2)          [push, barrier]
+//   drh = da_c @ Wh^T;  da_z = dh (c - h_prev) z (1 - z);
+//   da_r = drh h_prev r (1 - r)                          [push, barrier]
+//   (the copies that stage step t+1's inputs start inside this barrier)
 //   carry = drh r + [da_z | da_r] @ Wzr^T + dh (1 - z)
-//   dx[t] = [da_z | da_r | da_c];  rho[t] = r h_prev
+//   dx[t] = [da_z | da_r | da_c]
 //
-// and dh0 (B, H), unless null, gets the carry after the last step. The
-// weight gradients are not summed here (768 KB of accumulators per
-// direction at H = 256 fit in no SM): reduce_atb.cuh forms them from dx,
-// the h_prev sequence and rho. `smem` holds gru_bwd_smem_bytes(R, H).
+// for the block's units, and dh0 (unless null) gets the carry after the
+// last step. A push is each thread storing its units' cotangents into
+// every block's gathered rows, consecutive threads at consecutive
+// addresses. A block overwrites a peer's da_c of step t+1 only after the second
+// barrier of step t, which every peer reaches after reading da_c of step
+// t; likewise for da_z | da_r and the first barrier of step t+1.
+// The weight gradients are not summed here: reduce_atb.cuh forms them from
+// dx, the h_prev sequence and rho. `smem` holds gru_walk_smem_bytes.
 template <int R>
-__device__ void gru_walk_bwd(const float* __restrict__ x, const float* __restrict__ wzr,
-                             const float* __restrict__ wh, const float* __restrict__ hsrc,
-                             int shift, const float* __restrict__ dys, float* __restrict__ dx,
-                             float* __restrict__ rho, float* __restrict__ dh0, int B, int L,
-                             int H, bool down, float* smem) {
-  const int H2 = 2 * H, H3 = 3 * H;
-  float* hp = smem;            // [R][H]   h_prev
-  float* zr = hp + R * H;      // [R][2H]  z | r
-  float* rh = zr + R * H2;     // [R][H]   r * h_prev
-  float* c = rh + R * H;       // [R][H]   candidate
-  float* dh = c + R * H;       // [R][H]
-  float* carry = dh + R * H;   // [R][H]   dh carried to the next step of the walk
-  float* da = carry + R * H;   // [R][3H]  da_z | da_r | da_c
-  float* drh = da + R * H3;    // [R][H]   da_c @ Wh^T
-  float* dsr = drh + R * H;    // [R][H]   [da_z | da_r] @ Wzr^T
-  float* scratch = dsr + R * H;
+__device__ void gru_walk_bwd(const GruBwdDir& a, int B, int L, int H, bool resident,
+                             float* smem) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), k = (int)cluster.block_rank();
+  const int lo = k * H / C, hs = (k + 1) * H / C - lo, hm = (H + C - 1) / C;
+  const int H2 = 2 * H, H3 = 3 * H, RM = R * hm;
+  const int b0 = (blockIdx.x / C) * R, nrows = min(R, B - b0);
+  const size_t lx = (size_t)L * H3, lh = (size_t)L * H;  // batch-row strides
 
-  const int b0 = blockIdx.y * R;
-  const int nrows = min(R, B - b0);
+  float* w_zr = smem;                            // [hm][2H]  resident rows of Wzr
+  float* w_h = w_zr + (resident ? hm * H2 : 0);  // [hm][H]   resident rows of Wh
+  float* gath = w_h + (resident ? hm * H : 0);   // [R][3H]   da_z | da_r | da_c, every unit
+  float* stg = gath + R * H3;                    // [2][5][R][hm]  a step's staged inputs
+  float* dh = stg + 10 * RM;                     // [R][hm]
+  float* drh = dh + RM;                          // [R][hm]
+  float* carry = drh + RM;                       // [R][hm]
 
-  for (int i = threadIdx.x; i < R * H; i += kThreads) carry[i] = 0.f;
+  const float* wzr = a.wzr + (size_t)lo * H2;
+  const float* wh = a.wh + (size_t)lo * H;
+  if (resident) {
+    for (int i = threadIdx.x; i < hs * H2; i += kThreads) w_zr[i] = __ldg(wzr + i);
+    for (int i = threadIdx.x; i < hs * H; i += kThreads) w_h[i] = __ldg(wh + i);
+    wzr = w_zr;
+    wh = w_h;
+  }
+  for (int i = threadIdx.x; i < RM; i += kThreads) carry[i] = 0.f;
+
+  // Stage step s's z, r, c, h_prev and dys of the block's units, 16 bytes
+  // a copy where every slice is 4-float aligned.
+  const bool vec = H % (4 * C) == 0 &&
+                   ((reinterpret_cast<size_t>(a.dx) | reinterpret_cast<size_t>(a.hsrc) |
+                     reinterpret_cast<size_t>(a.dys)) & 15) == 0;
+  auto prefetch = [&](int s) {
+    const int t = a.down ? L - 1 - s : s, tp = t + a.shift;
+    float* q = stg + (s & 1) * 5 * RM;
+    const float* x = a.dx + ((size_t)b0 * L + t) * H3 + lo;
+    stage_async<R>(q, hm, x, lx, hs, nrows, vec);
+    stage_async<R>(q + RM, hm, x + H, lx, hs, nrows, vec);
+    stage_async<R>(q + 2 * RM, hm, x + H2, lx, hs, nrows, vec);
+    stage_async<R>(q + 3 * RM, hm,
+                   tp >= 0 && tp < L ? a.hsrc + ((size_t)b0 * L + tp) * H + lo : nullptr, lh, hs,
+                   nrows, vec);
+    stage_async<R>(q + 4 * RM, hm, a.dys + ((size_t)b0 * L + t) * H + lo, lh, hs, nrows, vec);
+  };
+  prefetch(0);
+  cluster.sync();  // every block of the cluster runs before any push into its shared memory
 
   for (int s = 0; s < L; ++s) {
-    const int t = down ? L - 1 - s : s;
-    const int tp = t + shift;
-    for (int idx = threadIdx.x; idx < R * H; idx += kThreads) {
-      const int r = idx / H, u = idx % H;
-      hp[idx] = r < nrows && tp >= 0 && tp < L ? hsrc[((size_t)(b0 + r) * L + tp) * H + u] : 0.f;
+    const int t = a.down ? L - 1 - s : s;
+    copy_async_wait();
+    __syncthreads();
+    const float* q = stg + (s & 1) * 5 * RM;
+    const float *z = q, *rg = q + RM, *c = q + 2 * RM, *hp = q + 3 * RM, *dy = q + 4 * RM;
+    float* dx = a.dx + ((size_t)b0 * L + t) * H3 + lo;  // batch row r at dx + r * lx
+    for (int idx = threadIdx.x; idx < R * hs; idx += kThreads) {
+      const int r = idx / hs, i = idx - r * hs, o = r * hm + i;
+      const float dhv = dy[o] + carry[o];
+      dh[o] = dhv;
+      const float dac = dhv * z[o] * (1.f - c[o] * c[o]);
+      for (int p = 0; p < C; ++p) cluster.map_shared_rank(gath, p)[r * H3 + H2 + lo + i] = dac;
+      if (r < nrows) dx[r * lx + H2 + i] = dac;
     }
+    cluster.sync();
+    rows_dot<R>(wh, H, hs, gath + H2, H3, H, [&](int i, int r, float v) { drh[r * hm + i] = v; });
     __syncthreads();
-    // Recompute the gates and the candidate.
-    matvec<kNone>(wzr, nullptr, H, H2, hp, H, zr, H2, R, scratch);
-    for (int idx = threadIdx.x; idx < R * H2; idx += kThreads) {
-      const int r = idx / H2, j = idx % H2;
-      const float xv = r < nrows ? x[((size_t)(b0 + r) * L + t) * H3 + j] : 0.f;
-      const float g = activate<kSigmoid>(zr[idx] + xv);
-      zr[idx] = g;
-      if (j >= H) rh[r * H + j - H] = g * hp[r * H + j - H];
+    for (int idx = threadIdx.x; idx < R * hs; idx += kThreads) {
+      const int r = idx / hs, i = idx - r * hs, o = r * hm + i;
+      const float zg = z[o], rv = rg[o], h = hp[o];
+      const float daz = dh[o] * (c[o] - h) * zg * (1.f - zg);
+      const float dar = drh[o] * h * rv * (1.f - rv);
+      for (int p = 0; p < C; ++p) {
+        float* gp = cluster.map_shared_rank(gath, p) + r * H3 + lo + i;
+        gp[0] = daz;
+        gp[H] = dar;
+      }
+      if (r < nrows) {
+        dx[r * lx + i] = daz;
+        dx[r * lx + H + i] = dar;
+      }
     }
-    __syncthreads();
-    matvec<kNone>(wh, nullptr, H, H, rh, H, c, H, R, scratch);
-    for (int idx = threadIdx.x; idx < R * H; idx += kThreads) {
-      const int r = idx / H, u = idx % H;
-      const size_t row = (size_t)(b0 + r) * L + t;
-      const float cv = tanhf(c[idx] + (r < nrows ? x[row * H3 + H2 + u] : 0.f));
-      c[idx] = cv;
-      const float dhv = (r < nrows ? dys[row * H + u] : 0.f) + carry[idx];
-      dh[idx] = dhv;
-      const float z = zr[r * H2 + u];
-      da[r * H3 + H2 + u] = dhv * z * (1.f - cv * cv);
-    }
-    __syncthreads();
-    // Backprop through the candidate product, then the gates.
-    matvec_t<R>(wh, H, H, da + H2, H3, drh, H);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < R * H; idx += kThreads) {
-      const int r = idx / H, u = idx % H;
-      const float z = zr[r * H2 + u], rg = zr[r * H2 + H + u], h = hp[idx];
-      const float dz = dh[idx] * (c[idx] - h);
-      da[r * H3 + u] = dz * z * (1.f - z);
-      da[r * H3 + H + u] = drh[idx] * h * rg * (1.f - rg);
-    }
-    __syncthreads();
-    matvec_t<R>(wzr, H, H2, da, H3, dsr, H);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < R * H; idx += kThreads) {
-      const int r = idx / H, u = idx % H;
-      const float z = zr[r * H2 + u], rg = zr[r * H2 + H + u];
-      carry[idx] = drh[idx] * rg + dsr[idx] + dh[idx] * (1.f - z);
-      if (r < nrows) rho[((size_t)(b0 + r) * L + t) * H + u] = rh[idx];
-    }
-    for (int idx = threadIdx.x; idx < R * H3; idx += kThreads) {
-      const int r = idx / H3, j = idx % H3;
-      if (r < nrows) dx[((size_t)(b0 + r) * L + t) * H3 + j] = da[idx];
-    }
-    __syncthreads();
+    cluster_arrive();
+    if (s + 1 < L) prefetch(s + 1);  // the other staging buffer, read last in step s - 1
+    cluster_wait();
+    rows_dot<R>(wzr, H2, hs, gath, H3, H2, [&](int i, int r, float v) {
+      const int o = r * hm + i;
+      carry[o] = drh[o] * rg[o] + v + dh[o] * (1.f - z[o]);
+    });
   }
-  if (dh0 != nullptr)
-    for (int i = threadIdx.x; i < nrows * H; i += kThreads) dh0[(size_t)b0 * H + i] = carry[i];
+  __syncthreads();
+  if (a.dh0 != nullptr)
+    for (int idx = threadIdx.x; idx < nrows * hs; idx += kThreads) {
+      const int r = idx / hs, i = idx - r * hs;
+      a.dh0[(size_t)(b0 + r) * H + lo + i] = carry[r * hm + i];
+    }
+  cluster.sync();  // no block leaves while its shared memory may still be a peer's target
+}
+
+// The walk instance for R batch rows per cluster, from a source's
+// __global__ template (a function of (GruBwd, int resident)).
+#define GRU_WALK_INSTANCE(kernel, R)                                              \
+  ((R) == 1    ? kernel<1>                                                        \
+   : (R) == 2  ? kernel<2>                                                        \
+   : (R) == 4  ? kernel<4>                                                        \
+   : (R) == 8  ? kernel<8>                                                        \
+   : (R) == 16 ? kernel<16>                                                       \
+               : nullptr)
+
+// Run a GRU backward of D directions without the weight gradients: the
+// two pre-pass launches, then `walk` on clusters of p.cluster blocks,
+// ceil(B / p.rows) clusters per direction.
+cudaError_t run_gru_bwd(const GruBwd& g, int D, const WalkPlan& p,
+                        void (*walk)(const GruBwd, int), cudaStream_t stream) {
+  const size_t smem = gru_walk_smem_bytes(p, g.H);
+  cudaError_t err = check_plan(p, g.H, smem);
+  if (err != cudaSuccess) return err;
+  if (walk == nullptr) return cudaErrorInvalidValue;
+  const int tiles = (g.B * g.L + kTile - 1) / kTile;
+  const dim3 zr_tiles(tiles, D, (2 * g.H + kTile - 1) / kTile);
+  const dim3 c_tiles(tiles, D, (g.H + kTile - 1) / kTile);
+  gru_gates_kernel<<<zr_tiles, kTileThreads, 0, stream>>>(g, 0);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  gru_gates_kernel<<<c_tiles, kTileThreads, 0, stream>>>(g, 1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int groups = (g.B + p.rows - 1) / p.rows;
+  return launch_cluster(walk, dim3(p.cluster * groups, D), p.cluster, smem, stream, g,
+                        p.resident);
 }
 
 }  // namespace

@@ -4,7 +4,9 @@
 // (batch row, step) pairs. The recurrent backward kernels write each
 // step's operand A(n) and cotangent B(n) to global memory; accumulating
 // the outer products inside the recurrence would need M*N accumulators,
-// 768 KB for one BiGRU direction at H = 256, which no SM holds.
+// 768 KB for one BiGRU direction at H = 256, which no SM holds (the
+// backward GRU walk's cluster of 8 holds the weights themselves in that
+// much shared memory).
 //
 // One block per 64 x 64 output tile (of any problem), 32 rows at a time
 // through shared memory, every thread a 4 x 4 sub-tile: deterministic,

@@ -77,6 +77,17 @@ class Kernel:
             self._fn = fn
         return self._fn
 
+    def helper(self, symbol: str, argtypes: list):
+        """Another C function of the same library (building it first if
+        needed), e.g. a query of the device that sizes a launch; calls
+        of it are not launches."""
+        if self._fn is None:
+            build_all([self])
+        fn = getattr(ctypes.CDLL(str(self.library_path())), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
     def launch(self, *args) -> None:
         """Call the C entry point (building it first if needed); raise
         on a launch error, count the launch otherwise."""

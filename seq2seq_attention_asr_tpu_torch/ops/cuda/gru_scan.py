@@ -23,7 +23,9 @@
   ``csrc/gru_scan_bwd.cu``.
 
 Every kernel's plain version (``*_plain``) sits beside its wrapper; all
-the kernels share one walk, ``csrc/gru_walk.cuh``.
+the kernels share the walks of ``csrc/gru_walk.cuh``. The backward ones
+(K6, K17, K19) run a gate pre-pass and then a walk on thread-block
+clusters whose plan (``walk.plan``) the wrappers compute and pass.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import ctypes
 import torch
 
 from .. import cells
-from . import build
+from . import build, walk
 
 KERNEL = build.Kernel(
     "bigru_scan2", "bigru_scan2.cu", "bigru_scan2_fwd",
@@ -41,10 +43,10 @@ KERNEL = build.Kernel(
 )
 KERNEL_BWD = build.Kernel(
     "bigru_scan2_bwd", "bigru_scan2_bwd.cu", "bigru_scan2_bwd",
-    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
 _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 KERNEL_GRU = build.Kernel("gru_scan", "gru_scan.cu", "gru_scan_fwd", _FWD_ARGS)
 KERNEL_GRU_BWD = build.Kernel("gru_scan_bwd", "gru_scan_bwd.cu", "gru_scan_bwd", _BWD_ARGS)
 KERNEL_BI = build.Kernel("bigru_scan", "gru_scan.cu", "bigru_scan_fwd", _FWD_ARGS)
@@ -164,10 +166,11 @@ def bigru_scan2_bwd(xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb):
     rh = torch.empty((2, b, l, h), device=dev, dtype=torch.float32)  # r * h_prev, per step
     if b * l == 0:
         return dxf, dxb, dwzr2.zero_(), dwh2.zero_()
+    plan = walk.plan_on(KERNEL_BWD, b, h, "gru", 2, dev)
     KERNEL_BWD.launch(
         *[build.ptr(t) for t in args],
         build.ptr(dxf), build.ptr(dxb), build.ptr(dwzr2), build.ptr(dwh2), build.ptr(rh),
-        b, l, h, build.stream_of(xf),
+        b, l, h, *plan.args(), build.stream_of(xf),
     )
     return dxf, dxb, dwzr2, dwh2
 
@@ -283,8 +286,10 @@ def _scan_bwd(kernel, lead, xproj, h_prevs, dys, w_zr, w_h):
     if b * l == 0:
         return dxproj, dh0.zero_(), dwzr.zero_(), dwh.zero_()
     rh = new(b, l, h)  # r * h_prev per step, for the reduction of dWh
+    plan = walk.plan_on(kernel, b, h, "gru", lead[0] if lead else 1, dev)
     kernel.launch(*[build.ptr(t) for t in (xproj, h_prevs, dys, w_zr, w_h, dxproj, dh0, dwzr,
-                                           dwh, rh)], b, l, h, build.stream_of(xproj))
+                                           dwh, rh)], b, l, h, *plan.args(),
+                  build.stream_of(xproj))
     return dxproj, dh0, dwzr, dwh
 
 

@@ -14,7 +14,9 @@ Both directions run in one launch over the direction-stacked input
 projections; direction 1 arrives already flipped into its scan order
 (ops/rnn.py::bilstm_layer does the flips). The forward writes the
 cell-state sequence beside the hidden states, as ``_run_fwd`` does, so
-that the backward recomputes the gates from the saved states.
+that the backward forms the gates from the saved states: K9 runs a gate
+pre-pass over every step, then a walk on thread-block clusters whose
+plan (``walk.plan``) the wrapper computes and passes.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, walk
 
 KERNEL = build.Kernel(
     "bilstm_scan", "bilstm_scan.cu", "bilstm_scan_fwd",
@@ -31,7 +33,7 @@ KERNEL = build.Kernel(
 )
 KERNEL_BWD = build.Kernel(
     "bilstm_scan_bwd", "bilstm_scan_bwd.cu", "bilstm_scan_bwd",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
 MAX_H = 1024  # csrc/bilstm_scan.cu and csrc/bilstm_scan_bwd.cu refuse wider states
 
@@ -139,8 +141,10 @@ def bilstm_scan_bwd(xproj2, h_prev2, c_prev2, dys2, wh2):
     dwh2 = torch.empty((2, h, 4 * h), device=dev, dtype=torch.float32)
     if b * l == 0:
         return dxproj2, dh02.zero_(), dc02.zero_(), dwh2.zero_()
+    tc2 = torch.empty((2, b, l, h), device=dev, dtype=torch.float32)  # tanh(c) per step
+    plan = walk.plan_on(KERNEL_BWD, b, h, "lstm", 2, dev)
     KERNEL_BWD.launch(
-        *[build.ptr(t) for t in (*args, dxproj2, dh02, dc02, dwh2)], b, l, h,
+        *[build.ptr(t) for t in (*args, dxproj2, dh02, dc02, dwh2, tc2)], b, l, h, *plan.args(),
         build.stream_of(xproj2),
     )
     return dxproj2, dh02, dc02, dwh2

@@ -184,9 +184,34 @@ def _bwd_close(got, want, name):
         assert err <= 5e-4 * scale + 5e-5, (name, i, err, scale)
 
 
-@pytest.mark.parametrize("b,l,h", [(3, 13, 8), (16, 144, 256)])
-def test_bigru_scan2_bwd_kernel(card, b, l, h):
+def _check_regime(kernel, b, h, cell, directions, regime, device):
+    """The cluster walk's plan for these shapes takes the regime a card
+    case is there for: the weight slices "resident" or "streamed", a last
+    row group only "partial"ly filled, or several "groups" of rows."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import walk
+
+    plan = walk.plan_on(kernel, b, h, cell, directions, device)
+    assert plan.resident == (regime != "streamed"), (regime, plan)
+    if regime == "partial":
+        assert b % plan.rows, plan
+    if regime == "groups":
+        assert b > plan.rows, plan
+
+
+# The backward walks' regimes (csrc/cluster_walk.cuh): more blocks than
+# units, the recipe's shape, B = 1, a partly filled last row group,
+# several groups of 16 rows, and slices streamed from L2 (H above the fit,
+# and the widest H).
+WALK_CASES = [(3, 13, 8, "resident"), (16, 144, 256, "resident"), (1, 30, 256, "resident"),
+              (33, 20, 256, "partial"), (128, 24, 256, "groups"), (3, 9, 400, "streamed"),
+              (4, 11, 1024, "streamed")]
+
+
+@pytest.mark.parametrize("b,l,h,regime", WALK_CASES)
+def test_bigru_scan2_bwd_kernel(card, b, l, h, regime):
     from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan
+
+    _check_regime(gru_scan.KERNEL_BWD, b, h, "gru", 2, regime, card)
 
     gen = torch.Generator().manual_seed(b * 7 + h)
     lens = torch.randint(1, l + 1, (b,), generator=gen).cuda()
@@ -412,11 +437,16 @@ def test_conv_bilstm_transcriber_on_the_card_matches_the_cpu(card, exact):
         assert abs(g.score - w.score) <= 1e-3
 
 
-@pytest.mark.parametrize("b,l,h", [(16, 16, 128), (3, 9, 40)])
-def test_bilstm_scan_bwd_kernel(card, b, l, h):
+@pytest.mark.parametrize("b,l,h,regime", [
+    (16, 16, 128, "resident"), (3, 9, 40, "resident"), (1, 14, 128, "resident"),
+    (33, 7, 128, "partial"), (128, 16, 128, "groups"), (2, 5, 1024, "streamed")])
+def test_bilstm_scan_bwd_kernel(card, b, l, h, regime):
     """K9 from nonzero initial states, h_prev and c_prev from K7's plain
-    forward shifted by one step, as BiLSTMScan forms them."""
+    forward shifted by one step, as BiLSTMScan forms them, in each regime
+    of its cluster walk."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import lstm_scan
+
+    _check_regime(lstm_scan.KERNEL_BWD, b, h, "lstm", 2, regime, card)
 
     gen = torch.Generator().manual_seed(b * 17 + h)
     xproj2 = _rand(gen, 2, b, l, 4 * h)
@@ -697,14 +727,21 @@ def test_loc_decoder_train_step_on_the_card_matches_the_cpu(card, name):
             assert abs(got[key] - want[key]) <= 1e-4 * abs(want[key]), (key, got, want)
 
 
-@pytest.mark.parametrize("b,l,h", [(1, 132, 256), (5, 37, 256), (16, 144, 256), (3, 20, 100)])
-def test_gru_scan_kernels(card, b, l, h):
+@pytest.mark.parametrize("b,l,h,regime", [
+    (1, 132, 256, "resident"), (5, 37, 256, "resident"), (16, 144, 256, "resident"),
+    (3, 20, 100, "resident"), (33, 20, 256, "partial"), (128, 16, 256, "groups"),
+    (3, 9, 1024, "streamed")])
+def test_gru_scan_kernels(card, b, l, h, regime):
     """K16-K19 from nonzero initial states against their plain versions:
     forward within TOL, backward (dxproj, dh0, dWzr, dWh) within the
     backward tolerance, one launch each. B = 1 takes one row a block,
-    B = 5 leaves a block of four rows part empty, H = 100 the 1-wide
-    weight loads."""
+    B = 5 leaves a forward block of four rows part empty, H = 100 the
+    1-wide weight loads; the backward's cluster walk runs in each regime
+    (checked for K17 and K19 alike)."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan
+
+    _check_regime(gru_scan.KERNEL_GRU_BWD, b, h, "gru", 1, regime, card)
+    _check_regime(gru_scan.KERNEL_BI_BWD, b, h, "gru", 2, regime, card)
 
     gen = torch.Generator().manual_seed(b * 37 + l)
     xproj2 = _rand(gen, 2, b, l, 3 * h)

@@ -249,6 +249,7 @@ def test_kernel_trace_names_hold_no_other():
         names |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
                                 path.read_text()))
     assert {"bigru_scan2_kernel", "atb_kernel", "gru1_walk_fwd_kernel", "gru1_walk_bwd_kernel",
-            "gru2_stacked_fwd_kernel", "gru2_stacked_bwd_kernel"} <= names
+            "gru2_stacked_fwd_kernel", "gru2_stacked_bwd_kernel", "gru_gates_kernel",
+            "lstm_gates_kernel", "bilstm_scan_bwd_kernel", "bigru_scan2_bwd_kernel"} <= names
     clashes = [(a, b) for a in names for b in names if a != b and a in b]
     assert not clashes, clashes

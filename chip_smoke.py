@@ -82,7 +82,11 @@ Phases, each fatal when it fails:
      (K6, K9, K17, K19) the device time by stage (gate pre-pass, walk,
      reduction), the walk's time per step and the plan it ran (cluster
      size, rows per cluster, weights resident or streamed), and K6's walk
-     at B = 16 and 128 under each row count the plan can take;
+     at B = 16 and 128 under each row count the plan can take; for K11
+     and K13 at B = 16 and 128 (parity at B = 128 too) the device time by
+     stage (the walk, the reduction over the steps, the sum of the rows'
+     location-term partials), the walk's time a step and the scratch
+     bytes;
   9. the p50 request latency over 10 requests of each model, and the
      device idle share: 1 - (device time of one request) / p50; the p50
      train step of each recipe over 10
@@ -96,15 +100,26 @@ Phases, each fatal when it fails:
      {"ok": true, "device": {...}}.
 
 It exits nonzero without a card, and imports nothing of the JAX package.
+
+    python3 chip_smoke.py --parent DIR
+
+also times another checkout of the repo (DIR, e.g. the parent commit's
+port unpacked by `git archive`) beside this one, each in a process of
+its own in the order DIR, this, this, DIR: the time per call of each
+teacher-forced decoder scan (K4, K5, K10-K15) at its recipe's training
+shape (K13 at B = 128 too) and the p50 train step of each of the four
+trained configurations at B = 16 and 128.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import dataclasses
 import json
 import math
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -184,6 +199,10 @@ WALKS = {"bigru_scan2_bwd": ("bigru_scan2_bwd_kernel", "gru_gates_kernel", "gru"
          "bigru_scan_bwd": ("gru2_stacked_bwd_kernel", "gru_gates_kernel", "gru"),
          "bilstm_scan_bwd": ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "lstm")}
 GRU_GATES = ("gru_gates_kernel", "gru_gates_kernel")  # two pre-pass launches a call
+# The location-aware decoder scans' backwards (K11, K13): each call runs
+# its walk, then atb_kernel over the steps, then atb_kernel over the B
+# rows' location-term partials.
+LOC_BWDS = ("attention_decode_scan_loc_lstm_bwd", "attention_decode_scan_loc_bwd")
 
 REPLACES = {
     "bigru_scan2": "seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:666",
@@ -1190,6 +1209,54 @@ def walk_split(c, kernel, tag, iters: int, card: str) -> None:
           f"clusters ({clusters} resident at once, {smem} bytes of shared memory a block) ({card})")
 
 
+def loc_split(c, tag: str, iters: int, card: str) -> None:
+    """Phase 8 for K11 and K13 (`c`, a case of LOC_BWDS): the device time
+    by stage over `iters` traced calls (the walk, the reduction over the
+    steps, the sum of the rows' location-term partials, told apart by
+    their order in each call), the walk's time a step, and the scratch the
+    call takes (attention_scan.stash_floats)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    walk_sym = c.symbols[0]
+    with torch.no_grad():
+        c.kernel(*c.args)
+        torch.cuda.synchronize()
+        with traced([ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                c.kernel(*c.args)
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and (walk_sym in e.name or "atb_kernel" in e.name)),
+                    key=lambda e: e.time_range.start)
+    stages, prev = {"walk": [], "steps": [], "loc": []}, None
+    for e in events:
+        # A record the trace dropped at its ends leaves the next call's
+        # order intact: an atb_kernel after the walk is the steps'.
+        prev = "walk" if walk_sym in e.name else "steps" if prev == "walk" else "loc"
+        stages[prev].append(e.time_range.elapsed_us() / 1e3)
+    ms = {k: statistics.mean(v) if v else float("nan") for k, v in stages.items()}
+    lstm = c.name == "attention_decode_scan_loc_lstm_bwd"
+    vh, yin = c.args[0], c.args[3]
+    b, l, s_dim = vh.shape
+    t_len, st = yin.shape[1], yin.shape[2]
+    # decoder_scan_cases' order: vh, h, mask, yin, the step's 7 weights,
+    # the cell's (3 for the LSTM, 2 for the GRU), then wconv, bconv, U.
+    at = 4 + 7 + (3 if lstm else 2)
+    wconv, bconv, u = c.args[at:at + 3]
+    f, fm = wconv.shape
+    if tuple(bconv.shape) != (fm,) or tuple(u.shape) != (fm, s_dim):
+        raise SystemExit(f"loc_split: {c.label}'s location-term weights are not where expected")
+    floats = attention_scan.stash_floats(lstm, b, t_len, l, s_dim, st, fm, f)
+    walk_ms = ms["walk"]
+    print(f"time {c.label} {tag} by stage: walk {walk_ms:.4f} ms ({1e3 * walk_ms / t_len:.2f} "
+          f"us a step over {t_len} steps), the steps' reduction {ms['steps']:.4f} ms, the "
+          f"location term's row sums {ms['loc']:.4f} ms (records kept: "
+          f"{', '.join(f'{k} {len(v)}' for k, v in stages.items())} of {iters}); scratch "
+          f"{floats} floats ({4 * floats / 1e6:.1f} MB) ({card})")
+
+
 def k6_plan_sweep(kernel, b: int, card: str) -> None:
     """Phase 8: K6's walk at B=b, L=TRAIN_L, H=256 under each row count of
     ops/cuda/walk.py (weights resident), on seeded random inputs: the
@@ -1309,17 +1376,11 @@ def train_phase(kernels, recipe, params_cpu, expected, label: str):
     return first_counts
 
 
-def train_timing(recipe, params_cpu, b: int, card: str, step_kernels, label: str) -> None:
-    """Phase 9 for training: p50 of 10 steps after 3 warm-up steps, audio
-    seconds per second, the device time of one profiled step (device
-    activity only) by kernel (`step_kernels`, by trace name) and the idle
-    share 1 - device / p50."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-
+def timed_steps(recipe, params_cpu, b: int):
+    """10 card train steps of `recipe` at batch b after 3 warm-up steps:
+    (their host times in ms, the state, the step function, the batch)."""
     state, step_fn = make_trainer(recipe, params_cpu, "cuda")
     batch = tuple(t.cuda() for t in train_batch(b, SEED + 5))
-    torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
         state, _ = step_fn(state, batch)
     torch.cuda.synchronize()
@@ -1329,6 +1390,19 @@ def train_timing(recipe, params_cpu, b: int, card: str, step_kernels, label: str
         state, _ = step_fn(state, batch)
         torch.cuda.synchronize()
         lat.append(1e3 * (time.perf_counter() - t0))
+    return lat, state, step_fn, batch
+
+
+def train_timing(recipe, params_cpu, b: int, card: str, step_kernels, label: str) -> None:
+    """Phase 9 for training: p50 of 10 steps after 3 warm-up steps, audio
+    seconds per second, the device time of one profiled step (device
+    activity only) by kernel (`step_kernels`, by trace name) and the idle
+    share 1 - device / p50."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.reset_peak_memory_stats()
+    lat, state, step_fn, batch = timed_steps(recipe, params_cpu, b)
     with traced([ProfilerActivity.CUDA]) as prof:
         state, _ = step_fn(state, batch)
     p50 = statistics.median(lat)
@@ -1481,7 +1555,57 @@ def serve_timing(label, model, params, pcms, kw, runs, card):
 MAIN_LABEL = {"fused_attention_step_loc_lstm": "fused_attention_step_loc_lstm[lstm+loc]"}
 
 
-def main() -> int:
+def tree_timing() -> dict:
+    """For the port's package first on sys.path: the time per wrapper call
+    (CUDA events; a fresh process's first profiler trace can drop
+    records) of each teacher-forced decoder scan, forward and backward
+    (K4, K5, K10-K15), at its recipe's training shape (B=16; K13 at B=128
+    too), and the p50 train step of each trained configuration at B=16
+    and 128."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.train import experiment
+
+    out = {}
+    gen = torch.Generator().manual_seed(SEED + 1)
+    for recipe, make_cases, label in (
+            (experiment.timit_chorowski_normnll_colnorm, train_cases, "chorowski"),
+            (experiment.timit_conv_bilstm, cb_train_cases, "conv_bilstm"),
+            (flagship_loc, loc_train_cases, "flagship_loc"),
+            (conv_bilstm_content, cbc_train_cases, "conv_bilstm_content")):
+        params_cpu = recipe().init_params(torch.Generator().manual_seed(SEED), device="cpu")
+        params = interop.to_torch(params_cpu, "cuda")
+        for b in (TRAIN_B, BIG_B) if label == "flagship_loc" else (TRAIN_B,):
+            for c in make_cases(params, recipe().build_model().cfg, train_batch(b, SEED + 3), gen):
+                if c.name.startswith("attention_decode_scan") and (b == TRAIN_B or c.backward):
+                    with torch.no_grad():
+                        out[f"{c.name} B={b} ms per call"] = time_ms(lambda: c.kernel(*c.args), 10)
+        del params
+        for b in (TRAIN_B, BIG_B):
+            out[f"{label} step B={b} p50 ms"] = statistics.median(timed_steps(recipe, params_cpu,
+                                                                            b)[0])
+    return out
+
+
+def compare_trees(parent: str, card: str) -> None:
+    """tree_timing of the checkout `parent` and of this one, each in a
+    process of its own, in the order parent, this, this, parent."""
+    here = str(pathlib.Path(__file__).resolve().parent)
+    runs = {parent: [], here: []}
+    torch.cuda.empty_cache()
+    for tree in (parent, here, here, parent):
+        out = subprocess.run([sys.executable, __file__, "--time-tree", tree],
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            raise SystemExit(f"tree timing of {tree} failed ({out.returncode}):\n"
+                             f"{out.stderr[-4000:]}")
+        line = next(x for x in out.stdout.splitlines() if x.startswith("tree-timing "))
+        runs[tree].append(json.loads(line[len("tree-timing "):]))
+    for key in runs[here][0]:
+        print(f"compare {key}: parent {', '.join(f'{r[key]:.4f}' for r in runs[parent])}; "
+              f"this tree {', '.join(f'{r[key]:.4f}' for r in runs[here])} ({card})")
+
+
+def main(parent=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1661,6 +1785,8 @@ def main() -> int:
                 library[(c.name, b)] = lib_ms
             if c.name in WALKS:
                 walk_split(c, kernels[c.name], tag, n, card)
+            if c.name in LOC_BWDS:
+                loc_split(c, tag, n, card)
             if c.name == "bilstm_scan_bwd":
                 with torch.no_grad():
                     lib_call = time_ms(c.library, n)
@@ -1680,6 +1806,21 @@ def main() -> int:
                       f"{call_ms:.4f} ms per wrapper call ({card})")
     for b in (TRAIN_B, BIG_B):
         k6_plan_sweep(kernels["bigru_scan2_bwd"], b, card)
+    # K11 and K13 at B=128: parity, and the device time by stage.
+    big = train_batch(BIG_B, SEED + 3)
+    big_cases = loc_train_cases(interop.to_torch(loc_params_cpu, "cuda"),
+                                flagship_loc().build_model().cfg, big, gen)
+    big_cases += cb_train_cases(cb_params, cb_model.cfg, big, gen)
+    for c in big_cases:
+        if c.name in LOC_BWDS:
+            tag = f"B={BIG_B} L={TRAIN_L} T={TRAIN_T}"
+            with torch.no_grad():
+                got = c.kernel(*c.args)
+                want = c.plain(*c.args)
+            torch.cuda.synchronize()
+            errs[c.name] = max(errs[c.name], c.check(got, want, tag))
+            loc_split(c, tag, 10, card)
+    del big_cases
     for b in (1, 8):
         k2_ms, k8_ms = timing[("fused_attention_step", b)][0], \
             timing[("fused_attention_step_loc_lstm[gru]", b)][0]
@@ -1706,6 +1847,8 @@ def main() -> int:
             train_timing(recipe, weights_cpu, b, card, step_kernels, label)
     for b in (TRAIN_B, BIG_B):
         encoder_timing(train_params["encoder"], b, card)
+    if parent:
+        compare_trees(parent, card)
 
     # Each kernel's numbers at batch 1 (serving) or its training shape,
     # and its launches in the run of its main path.
@@ -1738,4 +1881,16 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one GPU.")
+    ap.add_argument("--parent", help="another checkout of the repo to time beside this one")
+    ap.add_argument("--time-tree", help=argparse.SUPPRESS)  # compare_trees' worker
+    args = ap.parse_args()
+    if args.time_tree:
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        sys.path.insert(0, args.time_tree)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print("tree-timing " + json.dumps(tree_timing()))
+        sys.exit(0)
+    sys.exit(main(args.parent))

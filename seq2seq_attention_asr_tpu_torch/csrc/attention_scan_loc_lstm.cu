@@ -54,12 +54,35 @@
 // the location term, whose input alpha_prev is the previous step's
 // output: that cotangent is carried into step t-1. ds is carried in
 // shared memory. dvh and dh are summed over the steps in global memory,
-// each row's slice by its own block. The weight gradients are sums of
-// outer products over the B*T steps, and dU, dwconv and dbconv over the
-// B*T*L (step, encoder position) pairs: the walk writes each step's
-// operands and cotangents to a stash, and reduce_atb.cuh forms the
-// products and the bias sums afterwards, deterministically: one launch
-// over the steps, and one more over the positions with the location term.
+// each row's slice by its own block. The weight gradients of the step's
+// products are sums of outer products over the B*T steps: the walk
+// writes each step's operands and cotangents to a stash, and
+// reduce_atb.cuh forms the products and the bias sums afterwards,
+// deterministically, in one launch.
+//
+// The location term's weight gradients, dU, dwconv and dbconv, are sums
+// over the B*T*L (step, encoder position) pairs. As the TPU kernel does
+// (_bwd_kernel_loc :779-791, _bwd_kernel_loc_lstm :692-702), each block
+// sums its own row's T*L pairs in the walk, so nothing of length T*L is
+// stored. dU[:, sc] is summed in the energies pass by the thread that
+// forms dz(l, sc), in registers over the step's L positions (FM more
+// FMAs per (l, sc), as many as the UF recompute), and added to the row's
+// partial once a step; where FM is above kLocQ or not a multiple of 4,
+// in a pass of its own, kLocQ maps at a time. dwconv and dbconv are
+// summed once the step's dfeat is in shared memory, a thread per entry,
+// into the row's partial once a step. A second reduce_atb.cuh launch sums the B rows'
+// partials in a fixed order. The step's dz goes to a per-row scratch of
+// L*S floats (L2-resident) for the dfeat pass, whose warps run their
+// lanes along sc. No shared-memory access of the walk is more than 2-way
+// bank-conflicted (matvec_t's reads in common.cuh included), except
+// matvec's stores of the recompute's products, 4 consecutive outputs a
+// lane: 4-way, on about 10,000 floats a step.
+//
+// What bounds the walk now: about half of a step is the recompute and
+// the cell's transposed products, which read the step's weights from L2
+// as K5 does; most of the rest is the energies and dfeat passes, each
+// L*S*FM multiply-adds in float32 on one SM, and the context's dh
+// update, L*A loads and stores to L2.
 
 #include "attention_common.cuh"
 #include "reduce_atb.cuh"
@@ -93,6 +116,9 @@ struct Carver {
     return p;
   }
 };
+
+// Feature maps whose location-term sums one thread keeps in registers.
+constexpr int kLocQ = 16;
 
 // The location term's constants and buffers (kLoc only).
 struct LocShared {
@@ -245,16 +271,17 @@ __global__ void __launch_bounds__(kThreads, 1) scan_lstm_fwd_kernel(const FwdArg
 // for the LSTM r (St); for the GRU sr and cand_in (2St each); then dws
 // (S), dcc (St), dr (St); for the LSTM dgates (4St), for the GRU da_zr
 // (2St) and da_cand (St); the step's w_e partial (S); then, with the
-// location term, (B*T*L) rows of feat (FM), the conv's input window (F),
-// dz (S) and dfeat (FM).
+// location term, per batch row: the step's dz (L*S, rewritten every
+// step), and the row's partial sums of dU (FM*S) and of dwconv and dbconv
+// ((F + 1) * FM).
 struct Stash {
   float *rr, *r, *sr, *cand_in, *dws, *dcc, *dr, *dg, *da_zr, *da_cand, *dwe;
-  float *feat, *win, *dz, *dfeat;
+  float *dz, *pu, *pconv;
 };
 
 template <bool kLstm, bool kLoc>
 Stash carve_stash(float* p, const Dims& d) {
-  const size_t rows = (size_t)d.B * d.T, rows_l = rows * d.L, St = d.St, S = d.S;
+  const size_t rows = (size_t)d.B * d.T, St = d.St, S = d.S;
   Carver c{p, 0};
   Stash s{};
   s.rr = c.take(rows * 2 * St);
@@ -275,10 +302,9 @@ Stash carve_stash(float* p, const Dims& d) {
   }
   s.dwe = c.take(rows * S);
   if (kLoc) {
-    s.feat = c.take(rows_l * d.FM);
-    s.win = c.take(rows_l * d.F);
-    s.dz = c.take(rows_l * S);
-    s.dfeat = c.take(rows_l * d.FM);
+    s.dz = c.take((size_t)d.B * d.L * S);
+    s.pu = c.take((size_t)d.B * d.FM * S);
+    s.pconv = c.take((size_t)d.B * (d.F + 1) * d.FM);
   }
   return s;
 }
@@ -317,6 +343,9 @@ __host__ __device__ BwdShared carve_bwd(float* sm, const Dims& d, size_t* floats
   Carver c{sm, 0};
   const int St = d.St;
   BwdShared s{};
+  // feat first, 16-byte aligned: with FM a multiple of 4 the energies
+  // pass reads a position's maps as float4s.
+  if (kLoc) s.feat = c.take((size_t)d.L * d.FM);
   s.m = carve_step<kLstm>(c, d);
   if (kLstm) {
     s.mp = c.take(St);
@@ -341,7 +370,6 @@ __host__ __device__ BwdShared carve_bwd(float* sm, const Dims& d, size_t* floats
   s.dws = c.take(d.S);
   s.loc = carve_loc<kLoc>(c, d);
   if (kLoc) {
-    s.feat = c.take((size_t)d.L * d.FM);
     s.dfeat = c.take((size_t)d.L * d.FM);
     s.dal_carry = c.take(d.L);
   }
@@ -352,6 +380,44 @@ __host__ __device__ BwdShared carve_bwd(float* sm, const Dims& d, size_t* floats
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// Positions (the context's dh and the energies pass) and score units (the
+// dfeat pass) whose global loads a thread issues together, ahead of the
+// arithmetic that uses them.
+constexpr int kLocRows = 4, kLocCols = 8;
+
+// Where the walk sums dU, from the shapes alone: with FM <= kLocQ and a
+// multiple of 4, in the energies pass, in the registers of the thread
+// that forms dz(l, sc) over the step's L positions; else in a pass of
+// its own, kLocQ maps at a time; either way into the row's partial, read
+// and written once a step.
+__device__ __forceinline__ bool du_inline(const Dims& d) {
+  return d.FM <= kLocQ && d.FM % 4 == 0;
+}
+
+// One stage of warp_sum16: v[0..2W) becomes v[0..W), the half that the
+// lane's bit W << 1 selects plus the partner lane's copy of that half.
+// W is a constant, so v stays in registers.
+template <int W>
+__device__ __forceinline__ void fold_half(float (&v)[kLocQ], int lane) {
+  const bool up = lane & (2 * W);
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const float keep = up ? v[k + W] : v[k], give = up ? v[k] : v[k + W];
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, give, 2 * W);
+  }
+}
+
+// Each of v[0..kLocQ) summed over the warp, in 16 shuffles: the lane
+// gets the sum of v[lane >> 1].
+__device__ __forceinline__ float warp_sum16(float (&v)[kLocQ], int lane) {
+  static_assert(kLocQ == 16, "four halving stages over lane bits 4..1");
+  fold_half<8>(v, lane);
+  fold_half<4>(v, lane);
+  fold_half<2>(v, lane);
+  fold_half<1>(v, lane);
+  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+}
 
 // p[i], or 0 where the cotangent p is absent.
 __device__ __forceinline__ float cot(const float* p, size_t i) { return p ? p[i] : 0.f; }
@@ -376,6 +442,13 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
     s.carry_s[j] = 0.f;
     if (kLstm) s.carry_m[j] = 0.f;
   }
+  // The location term's weight gradients over this row's pairs, in the
+  // row's partials pu (dU) and pconv (dwconv, dbconv).
+  const bool du_in = kLoc && du_inline(d);
+  const int n_conv = (F + 1) * FM;
+  float* dzb = kLoc ? a.st.dz + (size_t)b * L * S : nullptr;
+  float* pub = kLoc ? a.st.pu + (size_t)b * FM * S : nullptr;
+  float* pcb = kLoc ? a.st.pconv + (size_t)b * n_conv : nullptr;
   if (kLoc)
     for (int l = tid; l < L; l += kThreads) s.dal_carry[l] = 0.f;
   for (int t = d.T - 1; t >= 0; --t) {
@@ -395,6 +468,7 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
       if (kLoc) s.loc.ap[pad + l] = t > 0 ? a.alpha_seq[(n - 1) * L + l] : 0.f;
     }
     __syncthreads();
+    // [phase] load
     // Recompute ws, r and the cell (the LSTM's gates; the GRU's gates,
     // candidate and rhr); and the location features, as attend_loc forms
     // them.
@@ -403,17 +477,14 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
       lstm_preacts(w, m, a.w.w_h, a.w.w_x, a.w.b, s.gates, 1, A, St);
     else
       decoder_cell(w, m, 1, A, St);
+    // [phase] recompute
     if (kLoc) {
       for (int i = tid; i < L * FM; i += kThreads) {
         const int l = i / FM, q = i % FM;
         float f = 0.f;
         for (int j = 0; j < F; ++j) f = fmaf(s.loc.ap[l + j], s.loc.cw[j * FM + q], f);
-        f += s.loc.cb[q];
-        s.feat[i] = f;
-        a.st.feat[n * L * FM + i] = f;
+        s.feat[i] = f + s.loc.cb[q];
       }
-      for (int i = tid; i < L * F; i += kThreads)
-        a.st.win[n * L * F + i] = s.loc.ap[i / F + i % F];
     }
     if constexpr (kLstm) {
       // The LSTM: the gates, then their cotangents and the dmem chain.
@@ -438,14 +509,17 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
       gru_cell_bwd(a.w.w_zr, a.w.w_h, m, a.ds_seq ? a.ds_seq + n * St : nullptr, s.carry_s,
                    s.g, s.dsp, s.dr, St);
     }
+    // [phase] cell
     // The decoder-input MLP.
     matvec_t<1>(w.dec_w, St2, St, s.dr, 0, s.drr, 0);
     __syncthreads();
+    // [phase] dec_w^T
     for (int j = tid; j < St; j += kThreads) a.dyin[n * St + j] = s.drr[St + j];
     matvec_t<1>(w.c_w, A, St, s.drr, 0, s.dc, 0);
     __syncthreads();
     for (int j = tid; j < A; j += kThreads) s.dc[j] += cot(a.dc_seq, n * A + j);
     __syncthreads();
+    // [phase] c_w^T
 
     // The context: dalpha = h dc + dalpha_seq (+ the carry from step t+1),
     // dh += alpha dc^T.
@@ -457,68 +531,182 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
       if (lane == 0)
         s.dal[l] = acc + cot(a.dalpha_seq, n * L + l) + (kLoc ? s.dal_carry[l] : 0.f);
     }
+    // dh, the loads of kLocRows positions issued together.
     for (int j = tid; j < A; j += kThreads) {
       const float dcj = s.dc[j];
-      for (int l = 0; l < L; ++l) {
-        const float v = m.al[l] * dcj;
-        float* o = dhb + (size_t)l * A + j;
-        *o = last ? v : *o + v;
+      for (int l0 = 0; l0 < L; l0 += kLocRows) {
+        float o[kLocRows];
+#pragma unroll
+        for (int r = 0; r < kLocRows; ++r)
+          o[r] = l0 + r < L && !last ? dhb[(size_t)(l0 + r) * A + j] : 0.f;
+#pragma unroll
+        for (int r = 0; r < kLocRows; ++r) {
+          const int l = l0 + r;
+          if (l >= L) break;
+          const float v = m.al[l] * dcj;
+          dhb[(size_t)l * A + j] = last ? v : o[r] + v;
+        }
       }
     }
     __syncthreads();
+    // [phase] context
     // The masked softmax.
     float part = 0.f;
     for (int l = tid; l < L; l += kThreads) part += s.dal[l] * m.al[l];
     const float dot = block_sum(part, s.red);
     for (int l = tid; l < L; l += kThreads) s.de[l] = m.al[l] * (s.dal[l] - dot);
     __syncthreads();
+    // [phase] softmax
     // The energies: dz = de w_e (1 - tanh(z)^2), a thread per score unit,
-    // z recomputed as attend or attend_loc forms it.
+    // z recomputed as attend or attend_loc forms it, the loads of
+    // kLocRows positions issued together. With the location term, the
+    // step's dz also goes to the row's scratch, and dU += feat^T dz.
     for (int sc = tid; sc < S; sc += kThreads) {
       const float wsv = m.ws[sc], wev = m.we[sc];
+      float ur[kLocQ], du[kLocQ];  // U[:, sc] and dU[:, sc], where dU is summed here
+      if (du_in)
+#pragma unroll
+        for (int q = 0; q < kLocQ; ++q) {
+          ur[q] = q < FM ? s.loc.u[q * S + sc] : 0.f;
+          du[q] = q < FM && !last ? pub[(size_t)q * S + sc] : 0.f;
+        }
       float gws = 0.f, gwe = 0.f;
-      for (int l = 0; l < L; ++l) {
-        float uf = 0.f;
-        if (kLoc)
-          for (int q = 0; q < FM; ++q) uf = fmaf(s.feat[l * FM + q], s.loc.u[q * S + sc], uf);
-        const float av = fast_tanh(vhb[(size_t)l * S + sc] + wsv + uf);
-        const float dz = s.de[l] * wev * (1.f - av * av);
-        float* o = dvhb + (size_t)l * S + sc;
-        *o = last ? dz : *o + dz;
-        if (kLoc) a.st.dz[(n * L + l) * S + sc] = dz;
-        gws += dz;
-        gwe = fmaf(av, s.de[l], gwe);
+      for (int l0 = 0; l0 < L; l0 += kLocRows) {
+        float vv[kLocRows], dv[kLocRows];
+#pragma unroll
+        for (int r = 0; r < kLocRows; ++r) {
+          const size_t i = (size_t)(l0 + r) * S + sc;
+          vv[r] = l0 + r < L ? vhb[i] : 0.f;
+          dv[r] = l0 + r < L && !last ? dvhb[i] : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < kLocRows; ++r) {
+          const int l = l0 + r;
+          if (l >= L) break;
+          float z = vv[r] + wsv;
+          const float4* f4 = reinterpret_cast<const float4*>(s.feat + l * FM);
+          if constexpr (kLoc) {
+            float uf = 0.f;
+            if (du_in) {
+#pragma unroll
+              for (int q = 0; q < kLocQ; q += 4) {
+                if (q >= FM) break;
+                const float4 f = f4[q / 4];
+                uf = fmaf(f.x, ur[q], uf);
+                uf = fmaf(f.y, ur[q + 1], uf);
+                uf = fmaf(f.z, ur[q + 2], uf);
+                uf = fmaf(f.w, ur[q + 3], uf);
+              }
+            } else {
+              for (int q = 0; q < FM; ++q) uf = fmaf(s.feat[l * FM + q], s.loc.u[q * S + sc], uf);
+            }
+            z += uf;
+          }
+          const float av = fast_tanh(z);
+          const float dz = s.de[l] * wev * (1.f - av * av);
+          const size_t i = (size_t)l * S + sc;
+          dvhb[i] = last ? dz : dv[r] + dz;
+          if constexpr (kLoc) {
+            dzb[i] = dz;
+            if (du_in)
+#pragma unroll
+              for (int q = 0; q < kLocQ; q += 4) {
+                if (q >= FM) break;
+                const float4 f = f4[q / 4];
+                du[q] = fmaf(f.x, dz, du[q]);
+                du[q + 1] = fmaf(f.y, dz, du[q + 1]);
+                du[q + 2] = fmaf(f.z, dz, du[q + 2]);
+                du[q + 3] = fmaf(f.w, dz, du[q + 3]);
+              }
+          }
+          gws += dz;
+          gwe = fmaf(av, s.de[l], gwe);
+        }
       }
       s.dws[sc] = gws;
       a.st.dwe[n * S + sc] = gwe;
+      if (du_in) {
+#pragma unroll
+        for (int q = 0; q < kLocQ; ++q)
+          if (q < FM) pub[(size_t)q * S + sc] = du[q];
+      } else if (kLoc) {
+        // dU[:, sc], kLocQ maps at a time, from the dz this thread has
+        // just written.
+        for (int q0 = 0; q0 < FM; q0 += kLocQ) {
+          float acc[kLocQ];
+#pragma unroll
+          for (int k = 0; k < kLocQ; ++k)
+            acc[k] = last || q0 + k >= FM ? 0.f : pub[(size_t)(q0 + k) * S + sc];
+          for (int l = 0; l < L; ++l) {
+            const float z = dzb[(size_t)l * S + sc];
+#pragma unroll
+            for (int k = 0; k < kLocQ; ++k)
+              if (q0 + k < FM) acc[k] = fmaf(s.feat[l * FM + q0 + k], z, acc[k]);
+          }
+#pragma unroll
+          for (int k = 0; k < kLocQ; ++k)
+            if (q0 + k < FM) pub[(size_t)(q0 + k) * S + sc] = acc[k];
+        }
+      }
     }
     __syncthreads();
+    // [phase] energies
     if (kLoc) {
-      // dfeat = dz @ U^T, from the stash this block has just written.
-      for (int i = tid; i < L * FM; i += kThreads) {
-        const int l = i / FM, q = i % FM;
-        const float* dzl = a.st.dz + (n * L + l) * S;
-        const float* uq = s.loc.u + q * S;
-        float acc = 0.f;
-        for (int sc = 0; sc < S; ++sc) acc = fmaf(dzl[sc], uq[sc], acc);
-        s.dfeat[i] = acc;
-        a.st.dfeat[n * L * FM + i] = acc;
+      // dfeat = dz @ U^T: a warp per position, its lanes along sc (the
+      // reads of dz coalesced, kLocCols of them issued together; those of
+      // U conflict-free), kLocQ maps at a time.
+      for (int l = warp; l < L; l += kWarps) {
+        const float* dzl = dzb + (size_t)l * S;
+        for (int q0 = 0; q0 < FM; q0 += kLocQ) {
+          float acc[kLocQ] = {};
+          for (int sc0 = lane; sc0 < S; sc0 += 32 * kLocCols) {
+            float z[kLocCols];
+#pragma unroll
+            for (int g = 0; g < kLocCols; ++g) z[g] = sc0 + 32 * g < S ? dzl[sc0 + 32 * g] : 0.f;
+#pragma unroll
+            for (int g = 0; g < kLocCols; ++g) {
+              const int sc = sc0 + 32 * g;
+              if (sc >= S) break;
+#pragma unroll
+              for (int k = 0; k < kLocQ; ++k)
+                if (q0 + k < FM) acc[k] = fmaf(z[g], s.loc.u[(q0 + k) * S + sc], acc[k]);
+            }
+          }
+          const float v = warp_sum16(acc, lane);
+          const int q = q0 + (lane >> 1);
+          if (!(lane & 1) && q < FM) s.dfeat[l * FM + q] = v;
+        }
       }
       __syncthreads();
+      // [phase] dfeat
       // The cotangent of alpha_prev, for step t-1: alpha_prev[k] enters
-      // feat[l] through tap j = k + pad - l.
-      for (int k = tid; k < L; k += kThreads) {
+      // feat[l] through tap j = k + pad - l. A warp per k, its lanes
+      // along the taps' (j, q): the rows of dfeat it reads are adjacent.
+      for (int k = warp; k < L; k += kWarps) {
         float acc = 0.f;
-        for (int j = 0; j < F; ++j) {
-          const int l = k + pad - j;
-          if (l < 0 || l >= L) continue;
-          for (int q = 0; q < FM; ++q) acc = fmaf(s.dfeat[l * FM + q], s.loc.cw[j * FM + q], acc);
+        for (int i = lane; i < F * FM; i += 32) {
+          const int j = i / FM, l = k + pad - j;
+          if (l >= 0 && l < L) acc = fmaf(s.dfeat[l * FM + i - j * FM], s.loc.cw[i], acc);
         }
-        s.dal_carry[k] = acc;
+        acc = warp_sum(acc);
+        if (lane == 0) s.dal_carry[k] = acc;
+      }
+      // dwconv[j][q] += sum_l ap[l + j] dfeat[l][q] and dbconv[q] +=
+      // sum_l dfeat[l][q]: a thread per entry.
+      for (int i = tid; i < n_conv; i += kThreads) {
+        float v = 0.f;
+        if (i < F * FM) {
+          const int j = i / FM, q = i - j * FM;
+          for (int l = 0; l < L; ++l) v = fmaf(s.loc.ap[l + j], s.dfeat[l * FM + q], v);
+        } else {
+          for (int l = 0; l < L; ++l) v += s.dfeat[l * FM + i - F * FM];
+        }
+        pcb[i] = last ? v : pcb[i] + v;
       }
     }
     matvec_t<1>(w.ws_w, St, S, s.dws, 0, s.tmp, 0);
     __syncthreads();
+    // [phase] carry, conv, ws_w^T
     for (int j = tid; j < St; j += kThreads) {
       s.carry_s[j] = s.dsp[j] + s.tmp[j];
       a.st.dcc[n * St + j] = s.drr[j];
@@ -538,6 +726,7 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
       for (int j = tid; j < St4; j += kThreads) a.st.dg[n * St4 + j] = s.dg[j];
     for (int sc = tid; sc < S; sc += kThreads) a.st.dws[n * S + sc] = s.dws[sc];
     __syncthreads();
+    // [phase] stash
   }
 }
 
@@ -597,9 +786,8 @@ struct Grads {
 };
 
 // The backward kernel, then the weight gradients over the B*T steps
-// (s_prev = s_seq shifted by one) and, with the location term, over the
-// B*T*L (step, encoder position) pairs: dU = sum feat^T dz, dwconv = sum
-// window^T dfeat, dbconv = sum dfeat.
+// (s_prev = s_seq shifted by one) and, with the location term, dU,
+// dwconv and dbconv as the sums of the B rows' partials.
 template <bool kLstm, bool kLoc>
 int launch_bwd(void (*kernel)(const BwdArgs), BwdArgs a, const Grads& g, float* scratch,
                cudaStream_t stream) {
@@ -634,13 +822,15 @@ int launch_bwd(void (*kernel)(const BwdArgs), BwdArgs a, const Grads& g, float* 
   steps.p[5] = AtbProblem{nullptr, 0, 0, st.dwe, S, nullptr, g.dw_e, 0, S};
   err = launch_atb(steps, stream);
   if (err != cudaSuccess || !kLoc) return (int)err;
-  AtbBatch pos{};
-  pos.count = 2;
-  pos.rows = d.B * d.T * d.L;
-  pos.period = d.L;
-  pos.p[0] = AtbProblem{st.feat, d.FM, 0, st.dz, S, g.du, nullptr, d.FM, S};
-  pos.p[1] = AtbProblem{st.win, d.F, 0, st.dfeat, d.FM, g.dwconv, g.dbconv, d.F, d.FM};
-  return (int)launch_atb(pos, stream);
+  const int FM = d.FM, F = d.F, n_conv = (F + 1) * FM;
+  AtbBatch loc{};
+  loc.count = 3;
+  loc.rows = d.B;
+  loc.period = 1;
+  loc.p[0] = AtbProblem{nullptr, 0, 0, st.pu, FM * S, nullptr, g.du, 0, FM * S};
+  loc.p[1] = AtbProblem{nullptr, 0, 0, st.pconv, n_conv, nullptr, g.dwconv, 0, F * FM};
+  loc.p[2] = AtbProblem{nullptr, 0, 0, st.pconv + F * FM, n_conv, nullptr, g.dbconv, 0, FM};
+  return (int)launch_atb(loc, stream);
 }
 
 }  // namespace

@@ -127,11 +127,14 @@ __device__ void matvec(const float* __restrict__ w, const float* __restrict__ bi
 // y[k*ys + i] = sum_j w[i*out + j] * v[k*vs + j] for k < K, i < in: the
 // product with W^T that a backward step needs. Row i of the input-major
 // W is contiguous, so a warp takes a row and its lanes stride over j
-// with 16-byte loads where the layout allows. No barrier at the end.
+// with 16-byte loads where the layout allows; then a lane reads 4
+// consecutive floats of v, and lanes 8 apart read the two halves in the
+// other order, so that each read is 2-way bank-conflicted, not 4-way
+// (the products are summed in the same order). No barrier at the end.
 template <int K>
 __device__ void matvec_t(const float* __restrict__ w, int in, int out, const float* v, int vs,
                          float* y, int ys) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, swz = (lane >> 2) & 2;
   const bool vec = (out & 3) == 0 && (reinterpret_cast<size_t>(w) & 15) == 0;
   for (int i = warp; i < in; i += kWarps) {
     const float* wr = w + (size_t)i * out;
@@ -145,7 +148,10 @@ __device__ void matvec_t(const float* __restrict__ w, int in, int out, const flo
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           const float* vk = v + k * vs + j;
-          acc[k] = fmaf(t.x, vk[0], fmaf(t.y, vk[1], fmaf(t.z, vk[2], fmaf(t.w, vk[3], acc[k]))));
+          const float a0 = vk[swz], a1 = vk[swz + 1], a2 = vk[swz ^ 2], a3 = vk[(swz ^ 2) + 1];
+          const float v0 = swz ? a2 : a0, v1 = swz ? a3 : a1, v2 = swz ? a0 : a2,
+                      v3 = swz ? a1 : a3;
+          acc[k] = fmaf(t.x, v0, fmaf(t.y, v1, fmaf(t.z, v2, fmaf(t.w, v3, acc[k]))));
         }
       }
     } else {

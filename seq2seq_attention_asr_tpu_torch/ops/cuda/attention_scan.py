@@ -528,10 +528,13 @@ def stash_floats(lstm: bool, b: int, t_len: int, l: int, s_dim: int, st: int, fm
     rows of rr (2St), for the LSTM r (St), for the GRU sr and cand_in (2St
     each), dws (S), dcc and dr (St each), for the LSTM dgates (4St), for
     the GRU da_zr (2St) and da_cand (St), and the per-step w_e partial
-    (S); then, with the location term (fm > 0), (B*T*L) rows of feat
-    (FM), the conv's input windows (F), dz (S) and dfeat (FM)."""
+    (S); then, with the location term (fm > 0), B rows of the step's dz
+    (L*S, which every step rewrites) and of the row's partial sums of dU
+    (FM*S) and of dwconv and dbconv ((F + 1) * FM). The location term's
+    share does not grow with T: the walk sums its weight gradients over
+    the steps itself."""
     per_step = (9 if lstm else 11) * st + 2 * s_dim
-    return b * t_len * per_step + (b * t_len * l * (2 * fm + f + s_dim) if fm else 0)
+    return b * t_len * per_step + (b * (l * s_dim + fm * s_dim + (f + 1) * fm) if fm else 0)
 
 
 def _scan_bwd(kernel, lstm: bool, n_weights: int, vh, h, enc_mask, yin, args):

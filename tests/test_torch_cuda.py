@@ -479,9 +479,19 @@ def _loc_lstm_case(card, gen, b, l, t, s, a, st, fm, f):
     return vh, h, mask, _rand(gen, b, t, st, scale=0.5), tuple(w.contiguous() for w in weights)
 
 
-# (B, L, T, (S, A, St, FM, F)): the conv+BiLSTM recipe's training shape,
-# and small odd widths with an even filter.
-LOC_LSTM_SCAN_CASES = [(16, 16, 56, (150, 256, 400, 16, 5)), (3, 13, 5, (17, 12, 9, 3, 4))]
+# (B, L, T, (S, A, St, FM, F)): the conv+BiLSTM recipe's training shape at
+# its batch, at B=128 and at B=1, and small odd widths with an even
+# filter. The walk sums dU in the energies pass where FM <= 16 is a
+# multiple of 4 (the recipe), else in a pass of its own (FM = 3 here).
+# The last three cases add two score units a thread (S above the block's
+# 512 threads), and more dwconv and dbconv entries than threads with dU
+# inline (FM 16, F 32) and with dU's own pass (FM 20, F 31).
+LOC_LSTM_SCAN_CASES = [
+    (16, 16, 56, (150, 256, 400, 16, 5)), (3, 13, 5, (17, 12, 9, 3, 4)),
+    (128, 16, 56, (150, 256, 400, 16, 5)), (1, 16, 56, (150, 256, 400, 16, 5)),
+    (3, 20, 6, (600, 24, 33, 4, 5)), (2, 40, 5, (64, 24, 33, 16, 32)),
+    (2, 40, 5, (40, 24, 33, 20, 31)),
+]
 
 
 @pytest.mark.parametrize("case", range(len(LOC_LSTM_SCAN_CASES)))
@@ -586,13 +596,18 @@ def _decoder_scans(cell):
 
 
 # (cell, B, L, T, (S, A, St, FM, F)): the location-aware GRU at the
-# flagship's training shape (filter 10) and at small odd widths with
-# filters 4 and 5; the content-only LSTM at the conv+BiLSTM recipe's
-# training shape and at small odd widths.
+# flagship's training shape (filter 10) at its batch, at B=128 and at B=1,
+# and at small odd widths with filters 4 and 5; then the ways the walk
+# sums the location term's weight gradients, as in LOC_LSTM_SCAN_CASES
+# (S above 512; FM 16 with F 32; FM 20 with F 31); the content-only LSTM
+# at the conv+BiLSTM recipe's training shape and at small odd widths.
 DECODER_SCAN_CASES = [
     ("gru", 16, 144, 56, (512, 512, 256, 16, 10)), ("gru", 3, 13, 5, (17, 12, 9, 3, 4)),
     ("gru", 5, 40, 9, (40, 24, 33, 4, 5)), ("lstm", 16, 16, 56, (150, 256, 400, 0, 0)),
     ("lstm", 3, 13, 5, (17, 12, 9, 0, 0)), ("lstm", 4, 37, 9, (64, 40, 33, 0, 0)),
+    ("gru", 128, 144, 56, (512, 512, 256, 16, 10)), ("gru", 1, 144, 56, (512, 512, 256, 16, 10)),
+    ("gru", 3, 20, 6, (600, 24, 33, 4, 5)), ("gru", 2, 40, 5, (64, 24, 33, 16, 32)),
+    ("gru", 2, 40, 5, (40, 24, 33, 20, 31)),
 ]
 
 
@@ -623,6 +638,30 @@ def test_decoder_scan_kernels(card, case):
         torch.cuda.synchronize()
         _bwd_close(got_b, want_b, f"{cell} scan bwd")
     assert k_bwd.launches == n_bwd + 2
+
+
+@pytest.mark.parametrize("kind", ["loc", "loc_lstm"])
+def test_loc_scan_backwards_are_bitwise_deterministic(card, kind):
+    """K13 at flagship_loc's training shape and K11 at the conv+BiLSTM
+    recipe's, twice on the same inputs: every gradient bitwise equal
+    (the location term's sums are taken in a fixed order, no atomics)."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan as a
+
+    gen = torch.Generator().manual_seed(7)
+    if kind == "loc":
+        vh, h, mask, yin, weights = _decoder_case(card, gen, 16, 144, 56, 512, 512, 256, "gru",
+                                                  16, 10)
+        fwd, bwd = a.attention_decode_scan_loc, a.attention_decode_scan_loc_bwd
+    else:
+        vh, h, mask, yin, weights = _loc_lstm_case(card, gen, 16, 16, 56, 150, 256, 400, 16, 5)
+        fwd, bwd = a.attention_decode_scan_loc_lstm, a.attention_decode_scan_loc_lstm_bwd
+    saved = fwd(vh, h, mask, yin, *weights)
+    cot = [_rand(gen, *t.shape) for t in saved]
+    args = (vh, h, mask, yin, *weights, *saved, *cot)
+    first, second = bwd(*args), bwd(*args)
+    torch.cuda.synchronize()
+    for i, (x, y) in enumerate(zip(first, second)):
+        assert torch.equal(x, y), (kind, i)
 
 
 def test_decoder_scans_refuse_what_does_not_fit(card):

@@ -1,5 +1,5 @@
-"""The port stands on its own: no module of it, and not chip_smoke.py,
-imports JAX or the JAX package; its entry points need a card unless
+"""The port stands on its own: no module of it, and neither chip_smoke.py
+nor tools/scan_phases.py, imports JAX or the JAX package; its entry points need a card unless
 asked for the CPU; its kernel wrappers never fall back quietly."""
 
 import ast
@@ -9,7 +9,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "seq2seq_attention_asr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "seq2seq_attention_asr_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "scan_phases.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "seq2seq_attention_asr_tpu")
 
 

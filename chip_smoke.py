@@ -23,7 +23,12 @@ Phases, each fatal when it fails:
      filter 5), the flagship's widths with location-aware attention
      (GRU, filter 10, 16 feature maps, maxout readout) and the recipe's
      widths without the location term (LSTM), batch 1 and 8 (1e-4 abs);
-     and K8's content-only GRU instance on K2's inputs; K9 and K11 (the
+     and K8's content-only GRU instance on K2's inputs; K2 (which runs a
+     batch row on a thread-block cluster, each block taking 1/C of the
+     encoder positions) also at L < C, L not a multiple of C, a batch row
+     with every position masked (alpha and c exactly 0), K = 1 and 8,
+     B = 16 and K = 8 with L = 1500, each with two calls bitwise equal
+     and one launch a call; K9 and K11 (the
      backward tolerance) and K10 (1e-4 abs) at the conv+BiLSTM recipe's
      training shape, B = 16, 144 frames (L' = 16), T = 56, on the conv
      stack's and the encoder's output of the same batch; K12 (1e-4 abs)
@@ -78,7 +83,9 @@ Phases, each fatal when it fails:
      port never calls) and K7 with its two input projections; for K9
      cuDNN's bidirectional LSTM backward on the same shapes (the device
      time of every op that autograd.grad on its output starts); K2
-     beside K8's instance on K2's inputs; for the cluster-walk backwards
+     beside K8's instance on K2's inputs, and K2's plan (cluster size,
+     waves) at b = 1 and 8 with its time on each cluster size that fits;
+     for the cluster-walk backwards
      (K6, K9, K17, K19) the device time by stage (gate pre-pass, walk,
      reduction), the walk's time per step and the plan it ran (cluster
      size, rows per cluster, weights resident or streamed), and K6's walk
@@ -105,10 +112,13 @@ It exits nonzero without a card, and imports nothing of the JAX package.
 
 also times another checkout of the repo (DIR, e.g. the parent commit's
 port unpacked by `git archive`) beside this one, each in a process of
-its own in the order DIR, this, this, DIR: the time per call of each
-teacher-forced decoder scan (K4, K5, K10-K15) at its recipe's training
-shape (K13 at B = 128 too) and the p50 train step of each of the four
-trained configurations at B = 16 and 128.
+its own in the order DIR, this, this, DIR: the time per call and the
+device time of the flagship's beam step K2 and of K8's two instances on
+the flagship's widths at b = 1 and 8, the flagship's serving p50 and device time of
+one request at b = 1 and 8, the time per call of each teacher-forced
+decoder scan (K4, K5, K10-K15) at its recipe's training shape (K13 at
+B = 128 too) and the p50 train step of each of the four trained
+configurations at B = 16 and 128.
 """
 
 from __future__ import annotations
@@ -536,6 +546,98 @@ def cases(params, cfg, loc_dec, b: int, gen: torch.Generator):
     )
     loc_cfg = dataclasses.replace(acfg, feature_maps=16, filt_size=10)
     return [k1, k2, k3, k8_gru, step_case("gru+loc", loc_dec, loc_cfg, h, valid, gen)]
+
+
+# K2's edge shapes on the flagship decoder (phase 3): (B, K, L, a batch
+# row with every position masked or None). Each batch row runs on a
+# cluster of C blocks, each taking 1/C of the encoder positions: L < C,
+# L not a multiple of C, K = 1 and 8, more clusters than one wave of 16
+# holds, and L = 1500 at K = 8, beyond one block's shared memory.
+K2_EDGES = [(2, BEAM_K, 3, None), (3, BEAM_K, 37, 1), (8, 1, SERVE_L, None), (8, 8, SERVE_L, 7),
+            (16, BEAM_K, SERVE_L, None), (1, 8, 1500, None)]
+
+
+def k2_inputs(dec, acfg, b, k, l, gen, dead=None):
+    """fused_attention_step's arguments at a beam step of (B, K, L) on the
+    decoder `dec`: encoder lengths ragged, batch row `dead` fully masked."""
+    from seq2seq_attention_asr_tpu_torch.ops import attention
+
+    dev = torch.device("cuda")
+    a, st, v = acfg.annotation_depth, acfg.state_depth, acfg.output_depth
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    lens = torch.randint(1, l + 1, (b,), generator=gen).to(dev)
+    mask = (torch.arange(l, device=dev)[None] < lens[:, None]).float()
+    if dead is not None:
+        mask[dead] = 0.0
+    h = rnd(b, l, a) * mask[:, :, None]
+    vh = attention.precompute_vh(dec, h).contiguous()
+    s0 = rnd(b, k, st) * 0.3
+    y = torch.nn.functional.one_hot(torch.randint(0, v, (b, k), generator=gen), v).float().to(dev)
+    return dec, acfg, (torch.softmax(rnd(b, k, l), -1), s0, torch.zeros_like(s0)), y, vh, h, mask
+
+
+def k2_edge_phase(dec, acfg, kernel, gen) -> float:
+    """K2 at K2_EDGES: parity with the plain version (TOL), alpha and c
+    exactly 0 on a row with no valid position, two calls bitwise equal,
+    one launch a call. Returns the largest max abs error."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    worst = 0.0
+    for b, k, l, dead in K2_EDGES:
+        args = k2_inputs(dec, acfg, b, k, l, gen, dead)
+        before = kernel.launches
+        with torch.no_grad():
+            got = _step_outputs(attention_step.fused_attention_step(*args))
+            again = _step_outputs(attention_step.fused_attention_step(*args))
+            want = _step_outputs(attention_step.fused_attention_step_plain(*args))
+        torch.cuda.synchronize()
+        launches = kernel.launches - before
+        plan = attention_step.step_plan_on(b, k, l, acfg.score_depth, acfg.annotation_depth,
+                                           acfg.state_depth, *acfg.readout[-2][1:],
+                                           acfg.output_depth, torch.device("cuda"))
+        err = max_err(got, want)
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        same = all(torch.equal(g, w) for g, w in zip(got, again))
+        zero = dead is None or not (got[0][dead].any() or got[1][dead].any())
+        print(f"parity fused_attention_step B={b} K={k} L={l}"
+              f"{'' if dead is None else f' (row {dead} fully masked)'}: max_abs_err={err:.3e} "
+              f"(tol {TOL}), finite={finite}, on clusters of {plan.cluster} in {plan.waves} "
+              f"wave(s), two calls bitwise equal: {same}, masked row 0: {zero}, launches "
+              f"{launches} for 2 calls")
+        if not (err <= TOL and finite and same and zero and launches == 2):
+            raise SystemExit(f"fused_attention_step B={b} K={k} L={l} fails on the card")
+        worst = max(worst, err)
+    return worst
+
+
+def k2_plan_sweep(c, card: str) -> None:
+    """Phase 8: K2's plan at the flagship serving shape (its case `c`),
+    and its device time on each cluster size that fits the device."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    dec, acfg, state, *_ = c.args
+    b, k, st = state[1].shape
+    dims = (acfg.score_depth, acfg.annotation_depth, st, *acfg.readout[-2][1:],
+            acfg.output_depth)
+    dev = torch.device("cuda")
+    smem_limit, resident = attention_step.step_limits(dev)
+    plan = attention_step.step_plan_on(b, k, c.args[4].shape[1], *dims, dev)
+    times = {}
+    default = attention_step.step_plan_on
+    try:
+        for cl in attention_step.CLUSTERS:
+            if resident[cl] < 1:
+                continue
+            attention_step.step_plan_on = lambda *_, cl=cl: attention_step.StepPlan(
+                cl, -(-b // resident[cl]))
+            with torch.no_grad():
+                times[cl] = device_ms(lambda: c.kernel(*c.args), c.symbols, 200)
+    finally:
+        attention_step.step_plan_on = default
+    print(f"plan fused_attention_step B={b} K={k}: clusters of {plan.cluster} in {plan.waves} "
+          f"wave(s) (resident clusters {resident}, {smem_limit} B of shared memory a block); "
+          f"device ms by cluster size: "
+          + ", ".join(f"C={cl} {ms:.4f}" for cl, ms in times.items()) + f" ({card})")
 
 
 def k8_direct(params, cfg, state, y_prev, vh, h, enc_mask):
@@ -1518,14 +1620,16 @@ def pick_eos_bias(model, params_cpu, pcms, kw, max_steps):
     raise SystemExit(f"serve conv_bilstm: no eos bias in {CB_EOS_BIASES} ends a hypothesis on eos")
 
 
-def serve_timing(label, model, params, pcms, kw, runs, card):
+def serve_timing(label, model, params, pcms, kw, runs, card) -> dict:
     """Phase 9 for serving: p50 of 10 requests after one warm-up and the
-    device idle share, 1 - (device time of one profiled request) / p50."""
+    device idle share, 1 - (device time of one profiled request) / p50.
+    Returns {(exact, b): (p50 ms, device ms of one request)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     from seq2seq_attention_asr_tpu_torch import serve
 
+    out = {}
     for exact, b in runs:
         tr = serve.Transcriber(model, params, exact=exact, pad_frames=PAD_FRAMES, **kw)
         lat = []
@@ -1548,6 +1652,8 @@ def serve_timing(label, model, params, pcms, kw, runs, card):
               f"busy {busy:.2f} ms in {len(dev_events)} device ops of one profiled request "
               f"({wall:.2f} ms wall under the profiler), idle share 1 - busy/p50 = {idle} "
               f"({card})")
+        out[(exact, b)] = (p50, busy)
+    return out
 
 
 # The instance of each kernel whose numbers stand in the {"kernels"} line:
@@ -1555,18 +1661,50 @@ def serve_timing(label, model, params, pcms, kw, runs, card):
 MAIN_LABEL = {"fused_attention_step_loc_lstm": "fused_attention_step_loc_lstm[lstm+loc]"}
 
 
+def serve_setup():
+    """The test PCM (8 utterances), its features, and their mean and std."""
+    from seq2seq_attention_asr_tpu_torch.data import features
+
+    pcms = make_pcm(8, SEED + 2)
+    feats = features.logmel_rfft(torch.from_numpy(np.stack(pcms)), SR)
+    return pcms, feats, feats.mean(dim=(0, 1)).numpy(), feats.std(dim=(0, 1)).numpy()
+
+
 def tree_timing() -> dict:
     """For the port's package first on sys.path: the time per wrapper call
     (CUDA events; a fresh process's first profiler trace can drop
-    records) of each teacher-forced decoder scan, forward and backward
-    (K4, K5, K10-K15), at its recipe's training shape (B=16; K13 at B=128
-    too), and the p50 train step of each trained configuration at B=16
-    and 128."""
+    records) and the device time (profiler) of the flagship's beam step
+    K2 and of K8's two instances on the flagship's widths at the serving
+    shape, b=1 and 8; the flagship's
+    serving p50 and device time of one request (exact=False, b=1 and 8);
+    of each teacher-forced decoder scan, forward and backward (K4, K5,
+    K10-K15), at its recipe's training shape (B=16; K13 at B=128 too);
+    and the p50 train step of each trained configuration at B=16 and
+    128."""
     from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.models import registry
     from seq2seq_attention_asr_tpu_torch.train import experiment
 
     out = {}
     gen = torch.Generator().manual_seed(SEED + 1)
+    model = registry.build("chorowski")
+    params = model.init(torch.Generator().manual_seed(SEED), device="cuda")
+    loc_dec = registry.build("chorowski", feature_maps=16, filt_size=10).init(
+        torch.Generator().manual_seed(SEED))["decoder"]
+    for b in (1, 8):
+        for c in cases(params, model.cfg, loc_dec, b, gen):
+            if c.name.startswith("fused_attention_step"):
+                with torch.no_grad():
+                    out[f"{c.label} B={b} ms per call"] = time_ms(lambda: c.kernel(*c.args), 200)
+                    out[f"{c.label} B={b} device ms"] = device_ms(lambda: c.kernel(*c.args),
+                                                                  c.symbols, 200)
+    pcms, _, mean, std = serve_setup()
+    kw = dict(eos_id=EOS_ID, mean=mean, std=std, beam_k=BEAM_K)
+    served = serve_timing("chorowski", model, params, pcms, kw, [(False, 1), (False, 8)], "")
+    for (_, b), (p50, busy) in served.items():
+        out[f"chorowski serve b={b} p50 ms"] = p50
+        out[f"chorowski serve b={b} device ms a request"] = busy
+    del params
     for recipe, make_cases, label in (
             (experiment.timit_chorowski_normnll_colnorm, train_cases, "chorowski"),
             (experiment.timit_conv_bilstm, cb_train_cases, "conv_bilstm"),
@@ -1664,10 +1802,7 @@ def main(parent=None) -> int:
     cbc_params_cpu = conv_bilstm_content().init_params(torch.Generator().manual_seed(SEED),
                                                        device="cpu")
 
-    pcms = make_pcm(8, SEED + 2)
-    feats = features.logmel_rfft(torch.from_numpy(np.stack(pcms)), SR)
-    mean = feats.mean(dim=(0, 1)).numpy()
-    std = feats.std(dim=(0, 1)).numpy()
+    pcms, feats, mean, std = serve_setup()
     norm_feats = ((feats - torch.from_numpy(mean)) / torch.from_numpy(std)).cuda()
 
     # Phase 3: each kernel against its plain version, at the serving
@@ -1707,6 +1842,8 @@ def main(parent=None) -> int:
                 want = c.plain(*c.args)
             torch.cuda.synchronize()
             errs[c.name] = max(errs[c.name], c.check(got, want, shape_tag(b)))
+    errs["fused_attention_step"] = max(errs["fused_attention_step"], k2_edge_phase(
+        params["decoder"], cfg.attention_config(), kernels["fused_attention_step"], gen))
 
     # Phases 4 and 5: serve on the card, then the same requests on the CPU.
     # The "eos" weights raise the readout's bias at eos, so that
@@ -1821,6 +1958,8 @@ def main(parent=None) -> int:
             errs[c.name] = max(errs[c.name], c.check(got, want, tag))
             loc_split(c, tag, 10, card)
     del big_cases
+    for b in (1, 8):
+        k2_plan_sweep(next(c for c in all_cases[b] if c.label == "fused_attention_step"), card)
     for b in (1, 8):
         k2_ms, k8_ms = timing[("fused_attention_step", b)][0], \
             timing[("fused_attention_step_loc_lstm[gru]", b)][0]

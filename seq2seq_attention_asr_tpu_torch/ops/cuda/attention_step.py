@@ -3,7 +3,10 @@
 K2 replaces the Pallas kernel ``fused_attention_step``
 (seq2seq_attention_asr_tpu/ops/pallas/attention_step.py:371, body
 ``_kernel`` :85 with the readout fused by ``_apply_readout_fused`` :40)
-for the content-only GRU decoder with the maxout -> linear readout. K8
+for the content-only GRU decoder with the maxout -> linear readout. It
+runs each batch row on a thread-block cluster of C blocks, C from
+``step_plan``: each block streams 1/C of the step's weight columns and
+1/C of the encoder positions. K8
 replaces its location-aware and LSTM branches (``_kernel_loc`` :116,
 the LSTM branch of ``_kernel``), with the readout given as a layer list
 (linear, maxout, relu; dropout is the identity in eval mode). Both are
@@ -19,6 +22,8 @@ once per batch row for all K hypotheses.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Dict, Tuple
 
 import torch
 
@@ -27,7 +32,7 @@ from . import build
 
 KERNEL = build.Kernel(
     "fused_attention_step", "attention_step.cu", "fused_attention_step",
-    [ctypes.c_void_p] * 22 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 22 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
 )
 KERNEL_LOC_LSTM = build.Kernel(
     "fused_attention_step_loc_lstm", "attention_step.cu", "fused_attention_step_loc_lstm",
@@ -35,8 +40,89 @@ KERNEL_LOC_LSTM = build.Kernel(
     + [ctypes.c_void_p],
 )
 MAX_K = 8  # hypotheses per kernel block (csrc/attention_step.cu)
+CLUSTERS = (16, 8)  # K2's cluster sizes, largest first; 16 is a non-portable size
+WARPS = 16  # warps of a block (csrc/common.cuh: kThreads / 32)
 MAX_LAYERS = 4  # readout layers K8 takes, dropout dropped
 LAYER_KINDS = {"linear": 0, "maxout": 1, "relu": 2}
+
+
+def _cdiv(n: int, d: int) -> int:
+    return -(-n // d)
+
+
+def step_smem_bytes(k: int, l: int, s: int, a: int, st: int, m: int, w: int, v: int,
+                    c: int) -> int:
+    """Shared memory of one block of K2 on clusters of c blocks, as
+    csrc/attention_step.cu's step_smem_floats lays it out (K hypotheses,
+    L positions, score S, annotation A, state St, maxout M groups of W,
+    V outputs): the gathered vectors (s_prev | r, ws, c_in | yin,
+    reset * s_prev | r, s_new | c, maxout, logits), w_e, the block's
+    ceil(L / c) positions' mask and energies, the context partials and
+    softmax statistics the cluster exchanges, the local gates, the
+    block's bias columns, and the products' warp partials."""
+    floats = (k * (7 * st + s + a + m + v) + s + _cdiv(l, c) * (k + 1)
+              + c * k * (_cdiv(a, c) + 3) + k + k * max(2 * _cdiv(st, c), _cdiv(m, c) * w)
+              + _cdiv(s, c) + 2 * _cdiv(st, c) + _cdiv(m, c) * w + v
+              + WARPS * k * min(128, max(_cdiv(s, c), 2 * _cdiv(st, c), _cdiv(m, c) * w, v)))
+    return 4 * floats
+
+
+@dataclasses.dataclass(frozen=True)
+class StepPlan:
+    cluster: int  # blocks of a batch row's cluster
+    waves: int  # rounds of resident clusters the launch takes
+
+
+def step_plan(b: int, smem: Dict[int, int], smem_limit: int,
+              resident: Dict[int, int]) -> StepPlan:
+    """K2's plan for b batch rows: `smem[C]` bytes a block needs on
+    clusters of C, `smem_limit` the device's opt-in bytes a block, and
+    `resident[C]` the clusters of C blocks the device holds at once.
+    The largest C of CLUSTERS whose b clusters fit one wave; else the
+    smallest that fits the device at all, in waves. RuntimeError when no
+    cluster fits."""
+    fits = [c for c in CLUSTERS if resident.get(c, 0) >= 1 and smem[c] <= smem_limit]
+    if not fits:
+        raise RuntimeError(
+            f"fused_attention_step: no cluster of {' or '.join(map(str, CLUSTERS))} blocks fits "
+            f"the device (resident clusters {resident}; shared memory a block {smem} bytes of "
+            f"{smem_limit})")
+    for c in fits:
+        if b <= resident[c]:
+            return StepPlan(c, 1)
+    c = fits[-1]
+    return StepPlan(c, _cdiv(b, resident[c]))
+
+
+_LIMITS: Dict[int, Tuple[int, Dict[int, int]]] = {}
+
+
+def step_limits(device: torch.device) -> Tuple[int, Dict[int, int]]:
+    """(opt-in shared memory of a block, {C: resident clusters of C
+    blocks}) of K2 on `device`, from the ``fused_attention_step_limits``
+    C helper; asked once per device. A cluster size the device refuses
+    counts 0 clusters."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _LIMITS:
+        out = ctypes.POINTER(ctypes.c_int)
+        fn = KERNEL.helper("fused_attention_step_limits", [ctypes.c_int, out, out])
+        smem, resident = 0, {}
+        with torch.cuda.device(index):
+            for c in CLUSTERS:
+                limit, n = ctypes.c_int(0), ctypes.c_int(0)
+                rc = fn(c, ctypes.byref(limit), ctypes.byref(n))
+                resident[c] = n.value if rc == 0 else 0
+                smem = max(smem, limit.value)
+        _LIMITS[index] = (smem, resident)
+    return _LIMITS[index]
+
+
+def step_plan_on(b: int, k: int, l: int, s: int, a: int, st: int, m: int, w: int, v: int,
+                 device: torch.device) -> StepPlan:
+    """The plan K2's wrapper runs for these shapes on `device`."""
+    smem_limit, resident = step_limits(device)
+    smem = {c: step_smem_bytes(k, l, s, a, st, m, w, v, c) for c in CLUSTERS}
+    return step_plan(b, smem, smem_limit, resident)
 
 
 def _readout_layers(params, cfg):
@@ -78,8 +164,9 @@ def fused_attention_step(params, cfg, state, y_prev, vh, h, enc_mask):
     through, the LSTM's new mem is its cell state.
     CPU tensors take the plain version; CUDA tensors kernel K2 (the
     content-only GRU decoder with the maxout -> linear readout) or K8
-    (every other decoder). K8 raises RuntimeError on a shape whose
-    buffers do not fit in one block's shared memory."""
+    (every other decoder). K2 raises RuntimeError where no cluster plan
+    fits the device, K8 on a shape whose buffers do not fit in one
+    block's shared memory."""
     attention.check_ported(cfg)
     alpha_prev, s_prev, mem = state
     if build.on_cpu(alpha_prev, s_prev, mem, y_prev, vh, h, enc_mask):
@@ -130,11 +217,12 @@ def _step_k2(params, cfg, state, yin, vh, h, enc_mask):
     ]
     for name, t, shape in args:
         build.check(name, t, shape, dev)
+    plan = step_plan_on(b, k, l, s_dim, a_dim, st, m, win, v, dev)
     alpha, c, s, logp = _outputs(b, k, l, a_dim, st, v, dev)
     KERNEL.launch(
         *[build.ptr(t) for _, t, _ in args],
         build.ptr(alpha), build.ptr(c), build.ptr(s), build.ptr(logp),
-        b, k, l, s_dim, a_dim, st, m, win, v, build.stream_of(vh),
+        b, k, l, s_dim, a_dim, st, m, win, v, plan.cluster, build.stream_of(vh),
     )
     return (alpha, s, mem), {"s": s, "c": c, "alpha": alpha, "logp": logp}
 

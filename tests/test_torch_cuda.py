@@ -54,16 +54,14 @@ def test_bigru_scan2_kernel(card, b, l, h):
     assert not (got[1] * (1 - valid)).any()  # bwd direction holds 0 on padding
 
 
-@pytest.mark.parametrize("b,k,l,dims", [
-    (1, 1, 8, (16, 16, 24, 6, 8, 3)),
-    (3, 5, 37, (16, 12, 20, 7, 4, 2)),
-    (2, 8, 64, (64, 32, 48, 10, 8, 7)),
-    (8, 5, 132, (512, 256, 512, 62, 64, 7)),
-])
-def test_fused_attention_step_kernel(card, b, k, l, dims):
+FLAGSHIP_STEP = (512, 256, 512, 62, 64, 7)  # score, state, annotation, outputs, maxout
+
+
+def _k2_case(card, b, k, l, dims, dead=None):
+    """Inputs of K2 at (B, K, L) and the widths `dims`, encoder lengths
+    ragged; every position of batch row `dead` masked."""
     from seq2seq_attention_asr_tpu_torch import interop
     from seq2seq_attention_asr_tpu_torch.ops import attention
-    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
 
     s_dim, st, a, v, m, win = dims
     cfg = attention.AttentionConfig(score_depth=s_dim, state_depth=st, annotation_depth=a,
@@ -73,11 +71,36 @@ def test_fused_attention_step_kernel(card, b, k, l, dims):
     params = interop.to_torch(attention.attention_init(gen, cfg), card)
     lens = torch.randint(1, l + 1, (b,), generator=gen).cuda()
     mask = (torch.arange(l, device=card)[None] < lens[:, None]).float()
+    if dead is not None:
+        mask[dead] = 0.0
     h = _rand(gen, b, l, a)
     vh = attention.precompute_vh(params, h).contiguous()
     state = (torch.softmax(_rand(gen, b, k, l), -1), _rand(gen, b, k, st, scale=0.3),
              _rand(gen, b, k, st))
     y = torch.nn.functional.one_hot(torch.randint(0, v, (b, k), generator=gen), v).float().cuda()
+    return params, cfg, (state, y, vh, h, mask)
+
+
+# K2 runs a batch row on a cluster of 16 or 8 blocks, each taking 1/C of
+# the encoder positions: L < C, L not a multiple of C, a row with every
+# position masked, K = 1 and 8, B = 16 (more clusters of 16 than one
+# wave holds), and L = 1500 at K = 8, beyond one block's shared memory.
+@pytest.mark.parametrize("b,k,l,dims,dead", [
+    (1, 1, 8, (16, 16, 24, 6, 8, 3), None),
+    (3, 5, 37, (16, 12, 20, 7, 4, 2), None),
+    (2, 8, 64, (64, 32, 48, 10, 8, 7), None),
+    (8, 5, 132, FLAGSHIP_STEP, None),
+    (2, 5, 3, FLAGSHIP_STEP, None),
+    (3, 5, 37, FLAGSHIP_STEP, 1),
+    (8, 1, 132, FLAGSHIP_STEP, None),
+    (8, 8, 132, FLAGSHIP_STEP, 7),
+    (16, 5, 132, FLAGSHIP_STEP, None),
+    (1, 8, 1500, FLAGSHIP_STEP, None),
+])
+def test_fused_attention_step_kernel(card, b, k, l, dims, dead):
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    params, cfg, (state, y, vh, h, mask) = _k2_case(card, b, k, l, dims, dead)
     before = attention_step.KERNEL.launches
     (ga, gs, gm), got = attention_step.fused_attention_step(params, cfg, state, y, vh, h, mask)
     _, want = attention_step.fused_attention_step_plain(params, cfg, state, y, vh, h, mask)
@@ -86,6 +109,40 @@ def test_fused_attention_step_kernel(card, b, k, l, dims):
     for key in ("alpha", "c", "s", "logp"):
         assert _max_err([got[key]], [want[key]]) <= TOL, key
     assert gm is state[2]
+    if dead is not None:  # no valid position: alpha and the context are 0
+        assert not got["alpha"][dead].any() and not got["c"][dead].any()
+    # Fixed-order sums, no atomics: a second call gives the same bits.
+    _, again = attention_step.fused_attention_step(params, cfg, state, y, vh, h, mask)
+    torch.cuda.synchronize()
+    assert attention_step.KERNEL.launches == before + 2
+    for key in ("alpha", "c", "s", "logp"):
+        assert torch.equal(got[key], again[key]), key
+
+
+def test_fused_attention_step_plan_on_the_card(card):
+    """The card holds clusters of 8 blocks of K2 (and says how many of
+    16); the flagship's serving batches run in one wave."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    smem_limit, resident = attention_step.step_limits(card)
+    assert resident[8] >= 8 and smem_limit >= 227 * 1024, resident
+    for b in (1, 8):
+        plan = attention_step.step_plan_on(b, 5, 132, *FLAGSHIP_STEP[:3], 64, 7, 62, card)
+        assert plan.waves == 1 and plan.cluster in attention_step.CLUSTERS, plan
+
+
+def test_fused_attention_step_refuses_without_a_cluster(card, monkeypatch):
+    """Where no cluster plan fits, a CUDA call raises; it never takes
+    the plain path."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    params, cfg, args = _k2_case(card, 1, 5, 20, FLAGSHIP_STEP)
+    smem_limit, _ = attention_step.step_limits(card)
+    monkeypatch.setattr(attention_step, "step_limits", lambda device: (smem_limit, {16: 0, 8: 0}))
+    before = attention_step.KERNEL.launches
+    with pytest.raises(RuntimeError, match="no cluster"):
+        attention_step.fused_attention_step(params, cfg, *args)
+    assert attention_step.KERNEL.launches == before
 
 
 @pytest.mark.parametrize("b,n", [(1, 8191), (3, 57343)])

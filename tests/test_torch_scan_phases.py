@@ -46,3 +46,53 @@ def test_instrument_reads_the_clock_at_every_phase_of_scan_bwd():
 def test_instrument_refuses_a_source_without_markers():
     with pytest.raises(ValueError, match="no // \\[phase\\] markers"):
         _tool().instrument(re.sub(r"// \[phase\] .*", "", SOURCE.read_text()))
+
+
+K2_SOURCE = ROOT / "seq2seq_attention_asr_tpu_torch" / "csrc" / "attention_step.cu"
+K2_PHASES = ["load", "ws", "energies", "softmax, context partials", "context", "c_in", "dec_in",
+             "gates", "candidate", "maxout", "linear, log_softmax"]
+
+
+def _k2_body(text):
+    return text.split("attention_step_kernel(const Args a) {", 1)[1].split("\n}\n", 1)[0]
+
+
+def test_instrument_k2_reads_the_clock_after_every_cluster_barrier():
+    tool = _tool()
+    src = K2_SOURCE.read_text()
+    text, names = tool.instrument_k2(src)
+    assert names == K2_PHASES
+    assert "// [phase]" not in _k2_body(text)
+    reads = re.findall(r"g_phase_cycles\[(\d+)\] \+= c_ - phase_t0_", text)
+    assert [int(i) for i in reads] == list(range(len(K2_PHASES)))
+    assert _k2_body(text).startswith("\n  long long phase_t0_ = clock64();")
+    # Each marker follows a barrier of the block or of the cluster (the
+    # energies end with one), or ends the body.
+    lines = _k2_body(src).split("\n")
+    for i, line in enumerate(lines):
+        if "// [phase]" in line:
+            before = [x.strip() for x in lines[:i] if x.strip()][-1]
+            assert before in ("cluster.sync();", "cluster_wait();", "__syncthreads();") or \
+                before.startswith("energies<") or "// [phase]" not in "".join(lines[i + 1:]), before
+    assert text.count("cluster.sync();") == src.count("cluster.sync();") == 8
+    # Outside the kernel's body, only the probe is added.
+    head, rest = src.split("attention_step_kernel(const Args a) {", 1)
+    assert text.replace(tool.PROBE + "\n", "", 1).startswith(head)
+    assert text.endswith(rest.split("\n}\n", 1)[1])
+
+
+def test_instrument_k2_marks_a_single_block_step():
+    """A step without markers (the single-block K2 before clusters) gets
+    one after each top-level barrier call, and one at the end."""
+    old = ("namespace {\n__global__ void attention_step_kernel(const Args a) {\n"
+           "  for (int i = tid; i < S; i += kThreads) we[i] = a.w_e[i];\n  __syncthreads();\n"
+           "  attend(w, bufs, vh, K, L, S, St);\n  context(bufs, h, K, L, A, St);\n"
+           "  decoder_cell(w, bufs, K, A, St);\n"
+           "  matvec<kNone>(a.mo_w, a.mo_b, XO, M * W, xo, XO, mop, M * W, K, scratch);\n"
+           "  __syncthreads();\n"
+           "  matvec<kNone>(a.lin_w, a.lin_b, M, V, mo, M, lg, V, K, scratch);\n"
+           "  if (warp < K) {\n    m = warp_max(m);\n  }\n}\n}  // namespace\n")
+    text, names = _tool().instrument_k2(old)
+    assert names == ["__syncthreads", "attend", "context", "decoder_cell", "matvec mo_w",
+                     "__syncthreads 2", "matvec lin_w", "end"]
+    assert len(re.findall(r"g_phase_cycles\[\d+\]", text)) == len(names) + 1  # and the probe's

@@ -1,6 +1,8 @@
-"""Where a step of the decoder-scan backwards K11 and K13 goes, on the card.
+"""Where a step of the decoder-scan backwards K11 and K13, or of the
+flagship's beam step K2, goes, on the card.
 
     python3 tools/scan_phases.py [SOURCE ...]
+    python3 tools/scan_phases.py --k2 [SOURCE ...]
 
 Nsight Compute does not run on every machine, so this measures the walk
 from inside: it copies csrc/attention_scan_loc_lstm.cu (or each SOURCE
@@ -15,6 +17,17 @@ cotangents). It prints the cycles a step of each phase, the time per
 call (CUDA events over 5 calls), and each call's parity with the plain
 version (the backward tolerance). The counter adds two instructions of
 one thread a phase. Exits nonzero without a card.
+
+With --k2 it does the same for attention_step_kernel of
+csrc/attention_step.cu (or each SOURCE), whose markers follow the
+cluster barriers of the step, and runs K2 at the flagship serving shape
+at b=1 (chip_smoke.py's case): the cycles of one step of block 0 of
+cluster 0 by phase, the time per call (CUDA events over 20 calls), and
+the parity with the plain version (1e-4 abs). A source without markers
+in that kernel, such as the single-block step before it ran on a
+cluster, gets one after each top-level statement that ends in a block
+barrier (STEP_BARRIERS), named by its call, and is called without the
+cluster size its C entry point does not take.
 """
 
 from __future__ import annotations
@@ -48,6 +61,14 @@ extern "C" int read_phase_cycles(unsigned long long* out, int reset) {
 }
 '''
 MARK = re.compile(r"^(\s*)// \[phase\] (.+)$", re.M)
+K2_SOURCE = build.CSRC_DIR / "attention_step.cu"
+K2_SIG = "attention_step_kernel(const Args a) {"
+# Calls that end in a barrier of the whole block (or cluster), at the top
+# level of a beam-step kernel's body: a marker after each times what came
+# before it.
+STEP_BARRIERS = ("__syncthreads", "cluster.sync", "cluster_wait", "attend", "context",
+                 "decoder_cell", "matvec")
+STEP_CALL = re.compile(r"^  ([\w.]+)(?:<\w+>)?\((.*)\);$")
 # The entry point each kernel's wrapper calls, by chip_smoke.py's case name.
 ENTRY = {"attention_decode_scan_loc_bwd": ("K13", "KERNEL_LOC_BWD"),
          "attention_decode_scan_loc_lstm_bwd": ("K11", "KERNEL_LOC_LSTM_BWD")}
@@ -75,6 +96,38 @@ def instrument(src: str):
     head = head.replace("namespace {", PROBE + "\nnamespace {", 1)
     return head + "scan_bwd(float* sm, const BwdArgs& a) {" + body + "\n}\n" + tail, \
         [n for _, n in names]
+
+
+def _clock_read(i: int, indent: str) -> str:
+    return (f"{indent}if (threadIdx.x == 0 && blockIdx.x == 0) {{ const long long c_ = "
+            f"clock64(); g_phase_cycles[{i}] += c_ - phase_t0_; phase_t0_ = c_; }}")
+
+
+def instrument_k2(src: str):
+    """The source with a cycle read at each phase marker of
+    attention_step_kernel (markers added after its top-level barrier
+    calls where it has none), and the phases' names in order."""
+    head, rest = src.split(K2_SIG, 1)
+    body, tail = rest.split("\n}\n", 1)
+    if not MARK.search(body):
+        lines, seen = [], {}
+        for line in body.split("\n"):
+            lines.append(line)
+            m = STEP_CALL.match(line)
+            if m and m.group(1) in STEP_BARRIERS:
+                name = m.group(1)
+                if name == "matvec":  # by the weight it reads
+                    name += " " + m.group(2).split(",")[0].replace("a.", "")
+                seen[name] = seen.get(name, 0) + 1
+                lines.append(f"  // [phase] {name}" + (f" {seen[name]}" if seen[name] > 1 else ""))
+        lines.append("  // [phase] end")
+        body = "\n".join(lines)
+    names = [n for _, n in MARK.findall(body)]
+    counter = iter(range(len(names)))
+    body = MARK.sub(lambda m: _clock_read(next(counter), m.group(1)), body)
+    head = head.replace("namespace {", PROBE + "\nnamespace {", 1)
+    return (head + K2_SIG + "\n  long long phase_t0_ = clock64();" + body + "\n}\n" + tail,
+            names)
 
 
 def cases():
@@ -173,5 +226,95 @@ def main(sources) -> int:
     return 0
 
 
+class _NoCluster:
+    """A K2 kernel whose C entry point takes no cluster size (the
+    single-block step): the wrapper's launch with that argument dropped."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+
+    def launch(self, *args):
+        self.kernel.launch(*args[:-2], args[-1])
+
+
+def main_k2(sources) -> int:
+    from seq2seq_attention_asr_tpu_torch.models import registry
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    import chip_smoke as smoke
+
+    if not torch.cuda.is_available():
+        print("scan_phases: no CUDA device is available", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit,clocks.max.sm",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = {}
+    for src in map(pathlib.Path, sources):
+        raw = src.read_text()
+        text, names = instrument_k2(raw)
+        headers = {h.name: h.read_text() for h in sorted(src.parent.glob("*.cuh"))}
+        digest = hashlib.sha1((text + "".join(headers.values())).encode()).hexdigest()[:12]
+        copy = build.BUILD_DIR / "phases" / digest
+        copy.mkdir(parents=True, exist_ok=True)
+        for name, header in headers.items():
+            (copy / name).write_text(header)
+        out = copy / f"{src.stem}_{digest}.cu"
+        out.write_text(text)
+        clustered = "int cluster, cudaStream_t stream" in raw
+        argtypes = attention_step.KERNEL.argtypes
+        k = build.Kernel("K2 phases", str(out), "fused_attention_step",
+                         argtypes if clustered else argtypes[:-2] + argtypes[-1:])
+        kernels[src] = (names, k, k if clustered else _NoCluster(k))
+    t0 = time.perf_counter()
+    build.build_all(k for _, k, _ in kernels.values())
+    print(f"scan_phases: built {len(kernels)} copies in {time.perf_counter() - t0:.1f} s ({card})")
+    model = registry.build("chorowski")
+    params = model.init(torch.Generator().manual_seed(smoke.SEED), device="cuda")
+    loc_dec = registry.build("chorowski", feature_maps=16, filt_size=10).init(
+        torch.Generator().manual_seed(smoke.SEED))["decoder"]
+    c = next(c for c in smoke.cases(params, model.cfg, loc_dec, 1,
+                                    torch.Generator().manual_seed(smoke.SEED + 1))
+             if c.name == "fused_attention_step")
+    with torch.no_grad():
+        want = c.plain(*c.args)
+    default = attention_step.KERNEL
+    for src, (names, k, shim) in kernels.items():
+        for line in k.build_log.splitlines():
+            if "spill" in line or "registers" in line:
+                print(f"scan_phases {src} K2: {line.split(':', 1)[-1].strip()}")
+        attention_step.KERNEL = shim
+        try:
+            read = k.helper("read_phase_cycles", [ctypes.c_void_p, ctypes.c_int])
+            with torch.no_grad():
+                got = c.kernel(*c.args)
+                torch.cuda.synchronize()
+                err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                cycles = (ctypes.c_ulonglong * 32)()
+                read(cycles, 1)
+                c.kernel(*c.args)
+                torch.cuda.synchronize()
+                read(cycles, 1)
+                start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                for _ in range(20):
+                    c.kernel(*c.args)
+                stop.record()
+                torch.cuda.synchronize()
+        finally:
+            attention_step.KERNEL = default
+        print(f"scan_phases {src} K2 B=1 K={smoke.BEAM_K} L={c.args[4].shape[1]}: "
+              f"{start.elapsed_time(stop) / 20:.4f} ms per call, max abs err {err:.3e} "
+              f"({'ok' if err <= smoke.TOL else 'FAILS'}); cycles of the step in block 0: "
+              f"{sum(cycles[:len(names)])} = " + ", ".join(
+                  f"{p} {n}" for p, n in zip(names, cycles[:len(names)])) + f" ({card})")
+        if err > smoke.TOL:
+            return 1
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--k2"]:
+        sys.exit(main_k2(sys.argv[2:] or [str(K2_SOURCE)]))
     sys.exit(main(sys.argv[1:] or [str(SOURCE)]))

@@ -42,7 +42,8 @@ Phases, each fatal when it fails:
      K19), on the flagship encoder's first layer from nonzero initial
      states with a random cotangent, at the training batch (B = 16, L =
      144) and at B = 1, L = 132 (1e-4 abs forward, the backward tolerance
-     on dxproj, dh0, dWzr and dWh);
+     on dxproj, dh0, dWzr and dWh); K1, K16 and K18 also twice, the two
+     calls bitwise equal;
   4. serve 3.5 s of PCM with seeded random flagship weights: exact=False
      at batch 1 and 8 (kernels K1, K2, K3), exact=True at batch 1 (K1,
      K2), with the launch counts zeroed just before each request;
@@ -89,7 +90,12 @@ Phases, each fatal when it fails:
      (K6, K9, K17, K19) the device time by stage (gate pre-pass, walk,
      reduction), the walk's time per step and the plan it ran (cluster
      size, rows per cluster, weights resident or streamed), and K6's walk
-     at B = 16 and 128 under each row count the plan can take; for K11
+     at B = 16 and 128 under each row count the plan can take; for the
+     forward GRU walk (K1, K16, K18) at B = 1, L = 132 and B = 16 and 128,
+     L = 144 (seeded random inputs, H = 256) the parity, the device time,
+     the walk's time per step and the plan it ran (cluster size, rows per
+     cluster, resident or streamed, clusters and waves), and K1 at B = 16
+     and 128 under each row count the plan can take; for K11
      and K13 at B = 16 and 128 (parity at B = 128 too) the device time by
      stage (the walk, the reduction over the steps, the sum of the rows'
      location-term partials), the walk's time a step and the scratch
@@ -113,7 +119,8 @@ It exits nonzero without a card, and imports nothing of the JAX package.
 also times another checkout of the repo (DIR, e.g. the parent commit's
 port unpacked by `git archive`) beside this one, each in a process of
 its own in the order DIR, this, this, DIR: the time per call and the
-device time of the flagship's beam step K2 and of K8's two instances on
+device time of the forward GRU walk's kernels K1, K16 and K18 at B = 1,
+L = 132 and B = 16 and 128, L = 144, of the flagship's beam step K2 and of K8's two instances on
 the flagship's widths at b = 1 and 8, the flagship's serving p50 and device time of
 one request at b = 1 and 8, the time per call of each teacher-forced
 decoder scan (K4, K5, K10-K15) at its recipe's training shape (K13 at
@@ -202,6 +209,14 @@ ENC_LAUNCHES = {"bigru_layer": {"bigru_scan2": 3, "bigru_scan2_bwd": 3},
 ENC_KERNELS = ("bigru_scan2_bwd_kernel", "bigru_scan2_kernel", "gru1_walk_fwd_kernel",
                "gru1_walk_bwd_kernel", "gru2_stacked_fwd_kernel", "gru2_stacked_bwd_kernel",
                "gru_gates_kernel", "atb_kernel")
+# The forward GRU walk's kernels (K1, K16, K18; csrc/gru_walk.cuh): each
+# one's trace symbol and directions, and the shapes phase 8 and --parent
+# time them at: (B, L) of serving one utterance and of the two training
+# batches, at the flagship encoder's width.
+FWD_WALKS = {"bigru_scan2": ("bigru_scan2_kernel", 2), "gru_scan": ("gru1_walk_fwd_kernel", 1),
+             "bigru_scan": ("gru2_stacked_fwd_kernel", 2)}
+FWD_WALK_SHAPES = ((1, SERVE_L), (TRAIN_B, TRAIN_L), (BIG_B, TRAIN_L))
+FWD_WALK_H = 256
 # The redesigned backward walks: each kernel's walk, its pre-pass and the
 # cell its plan is for (ops/cuda/walk.py).
 WALKS = {"bigru_scan2_bwd": ("bigru_scan2_bwd_kernel", "gru_gates_kernel", "gru"),
@@ -1397,6 +1412,84 @@ def k6_plan_sweep(kernel, b: int, card: str) -> None:
           + "; ".join(line) + f" ({card})")
 
 
+def fwd_walk_calls(b: int, l: int):
+    """K1, K16 and K18 at batch b and L steps, H = FWD_WALK_H, on seeded
+    random inputs (weights at 1/sqrt(H), K16/K18 from 0.5 randn initial
+    states): {name: (args, wrapper, plain version)}."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan
+
+    h, dev = FWD_WALK_H, torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 10 + b)
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(dev)
+    x2, h02 = rnd(2, b, l, 3 * h), rnd(2, b, h, scale=0.5)
+    wzr2, wh2 = rnd(2, h, 2 * h, scale=h ** -0.5), rnd(2, h, h, scale=h ** -0.5)
+    return {"bigru_scan2": ((x2[0], x2[1], wzr2, wh2), gru_scan.bigru_scan2,
+                            gru_scan.bigru_scan2_plain),
+            "gru_scan": ((x2[0], h02[0], wzr2[0], wh2[0]), gru_scan.gru_scan,
+                         gru_scan.gru_scan_plain),
+            "bigru_scan": ((x2, h02, wzr2, wh2), gru_scan.bigru_scan, gru_scan.bigru_scan_plain)}
+
+
+def fwd_walk_timing(kernels, errs: dict, card: str) -> None:
+    """Phase 8 for the forward GRU walk: K1, K16 and K18 at each of
+    FWD_WALK_SHAPES, held to their plain versions (1e-4 abs, into `errs`),
+    with the device time, the walk's time a step and the plan each ran
+    (C, R, resident or streamed, its clusters and the waves they take on
+    this card); then K1 at B=16 and 128 under each row count of
+    ops/cuda/walk.py (weights resident), each held to the plain version.
+    walk.STEP_ROWS is read from these times."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import build, walk
+
+    h = FWD_WALK_H
+    for b, l in FWD_WALK_SHAPES:
+        for name, (args, fn, plain) in fwd_walk_calls(b, l).items():
+            symbol, directions = FWD_WALKS[name]
+            with torch.no_grad():
+                got, want = fn(*args), plain(*args)
+                torch.cuda.synchronize()
+                got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+                err = max_err(got, want)
+                print(f"parity {name} B={b} L={l} H={h} (random inputs): max_abs_err={err:.3e} "
+                      f"(tol {TOL})")
+                if err > TOL or not all(bool(torch.isfinite(g).all()) for g in got):
+                    raise SystemExit(f"{name} B={b} L={l} disagrees with its plain version")
+                errs[name] = max(errs[name], err)
+                ms = device_ms(lambda: fn(*args), (symbol,), 20 if b < BIG_B else 10)
+            smem, clusters = walk.limits(kernels[name], args[0].device)
+            plan = walk.plan(b, h, "gru_fwd", directions, smem, clusters)
+            n = directions * -(-b // plan.rows)
+            print(f"time {name} walk B={b} L={l} H={h}: {ms:.4f} ms on the device, "
+                  f"{1e3 * ms / l:.2f} us a step; plan C={plan.cluster} R={plan.rows} "
+                  f"{'resident' if plan.resident else 'streamed'}, {n} clusters in "
+                  f"{-(-n // clusters)} waves ({clusters} resident at once, {smem} bytes of shared "
+                  f"memory a block) ({card})")
+    kernel = kernels["bigru_scan2"]
+    for b in (TRAIN_B, BIG_B):
+        (xf, xb, wzr2, wh2), _, plain = fwd_walk_calls(b, TRAIN_L)["bigru_scan2"]
+        with torch.no_grad():
+            want = plain(xf, xb, wzr2, wh2)
+        ysf, ysb = torch.empty_like(want[0]), torch.empty_like(want[1])
+        smem, clusters = walk.limits(kernel, xf.device)
+        line = []
+        for rows in walk.ROWS:
+            plan = walk.Plan(8, rows, True)
+            call = lambda: kernel.launch(*[build.ptr(t) for t in (xf, xb, wzr2, wh2, ysf, ysb)], b,
+                                         TRAIN_L, h, *plan.args(), build.stream_of(xf))
+            call()
+            torch.cuda.synchronize()
+            err = max_err((ysf, ysb), want)
+            if err > TOL:
+                raise SystemExit(f"K1 with {plan}: disagrees with its plain version ({err:.3e})")
+            ms = device_ms(call, ("bigru_scan2_kernel",), 10)
+            waves = -(-2 * -(-b // rows) // clusters)
+            line.append(f"R={rows} {ms:.4f} ms, {1e3 * ms / TRAIN_L:.2f} us a step in {waves} "
+                        f"waves ({1e3 * ms / TRAIN_L / waves:.2f} a wave)")
+        print(f"time K1 walk by rows per cluster B={b} L={TRAIN_L} H={h} (C=8, resident, "
+              f"{clusters} clusters at once; the plan takes "
+              f"R={walk.plan(b, h, 'gru_fwd', 2, smem, clusters).rows}): " + "; ".join(line)
+              + f" ({card})")
+
+
 def flagship_loc():
     """The flagship recipe with location-aware attention: 16 feature maps,
     the recipe's filter of 10, column-norm on."""
@@ -1673,7 +1766,8 @@ def serve_setup():
 def tree_timing() -> dict:
     """For the port's package first on sys.path: the time per wrapper call
     (CUDA events; a fresh process's first profiler trace can drop
-    records) and the device time (profiler) of the flagship's beam step
+    records) and the device time (profiler) of the forward GRU walk's
+    kernels K1, K16 and K18 at FWD_WALK_SHAPES, of the flagship's beam step
     K2 and of K8's two instances on the flagship's widths at the serving
     shape, b=1 and 8; the flagship's
     serving p50 and device time of one request (exact=False, b=1 and 8);
@@ -1686,6 +1780,12 @@ def tree_timing() -> dict:
     from seq2seq_attention_asr_tpu_torch.train import experiment
 
     out = {}
+    for b, l in FWD_WALK_SHAPES:
+        for name, (args, fn, _) in fwd_walk_calls(b, l).items():
+            with torch.no_grad():
+                out[f"{name} B={b} L={l} ms per call"] = time_ms(lambda: fn(*args), 20)
+                out[f"{name} B={b} L={l} device ms"] = device_ms(lambda: fn(*args),
+                                                                (FWD_WALKS[name][0],), 20)
     gen = torch.Generator().manual_seed(SEED + 1)
     model = registry.build("chorowski")
     params = model.init(torch.Generator().manual_seed(SEED), device="cuda")
@@ -1842,6 +1942,13 @@ def main(parent=None) -> int:
                 want = c.plain(*c.args)
             torch.cuda.synchronize()
             errs[c.name] = max(errs[c.name], c.check(got, want, shape_tag(b)))
+            if c.name in FWD_WALKS:  # fixed-order sums: a second call gives the same bits
+                with torch.no_grad():
+                    again = c.kernel(*c.args)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                    raise SystemExit(f"{c.label} {shape_tag(b)}: two calls differ")
+                print(f"repeat {c.label} {shape_tag(b)}: two calls bitwise equal")
     errs["fused_attention_step"] = max(errs["fused_attention_step"], k2_edge_phase(
         params["decoder"], cfg.attention_config(), kernels["fused_attention_step"], gen))
 
@@ -1943,6 +2050,7 @@ def main(parent=None) -> int:
                       f"{call_ms:.4f} ms per wrapper call ({card})")
     for b in (TRAIN_B, BIG_B):
         k6_plan_sweep(kernels["bigru_scan2_bwd"], b, card)
+    fwd_walk_timing(kernels, errs, card)
     # K11 and K13 at B=128: parity, and the device time by stage.
     big = train_batch(BIG_B, SEED + 3)
     big_cases = loc_train_cases(interop.to_torch(loc_params_cpu, "cuda"),

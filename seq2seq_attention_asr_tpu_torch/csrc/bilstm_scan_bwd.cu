@@ -60,7 +60,7 @@ struct LstmBwd {
 // buffers of the gathered da (R x 4H), two buffers of seven staged step
 // inputs (i, f, g, o, tanh(c), c_prev, dys) and the two carries per unit.
 size_t lstm_walk_smem_bytes(const WalkPlan& p, int H) {
-  return walk_smem_bytes(p, H, 4 * H, 2, 7, 2);
+  return walk_smem_bytes(p, H, 4 * H, 8 * H, 7, 2);
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }

@@ -1,19 +1,24 @@
-// Pieces shared by the backward recurrent walks that run on a thread-block
-// cluster: the GRU's (csrc/gru_walk.cuh, kernels K6, K17, K19) and the
-// LSTM's (csrc/bilstm_scan_bwd.cu, kernel K9).
+// Pieces shared by the recurrent walks that run on a thread-block cluster:
+// the GRU's forward and backward (csrc/gru_walk.cuh, kernels K1, K16, K18
+// and K6, K17, K19) and the LSTM's backward (csrc/bilstm_scan_bwd.cu,
+// kernel K9).
 //
-// Such a backward splits into a gate pre-pass and a walk. Every step's
-// h_prev is an input of the backward, so the gates of all B*L rows come
-// from batched products before the walk (tile_product, 64 x 64 tiles of
-// 4 x 4 per thread as reduce_atb.cuh's), off the step chain. The walk
-// keeps only the transposed products on the chain. One cluster of C
-// blocks runs one direction for R batch rows; block k holds rows
-// [k H / C, (k + 1) H / C) of the direction's recurrent weight (in
-// shared memory when the slice fits, else read from L2 each step) and
-// owns the state units of the same range. A step computes its units'
-// gate cotangents, pushes them into every block's shared memory through
-// distributed shared memory, meets the cluster at a barrier, and forms
-// its units' share of (cotangents) @ W^T from its weight rows.
+// One cluster of C blocks runs one direction's walk for R batch rows;
+// block k owns the state units [k H / C, (k + 1) H / C) and holds the
+// slice of the recurrent weight that forms them (in shared memory when
+// the slice fits, else read from L2 each step). A step forms its units'
+// share of a product from its slice and the gathered vectors (R rows of
+// every unit, in every block's shared memory), pushes the values it
+// forms into every block's gathered copy through distributed shared
+// memory, and waits until the peers' pushes have arrived: at a cluster
+// barrier (the backwards) or on an mbarrier that counts the bytes pushed
+// into the block (the forward).
+//
+// A backward splits into a gate pre-pass and a walk. Every step's h_prev
+// is an input of the backward, so the gates of all B*L rows come from
+// batched products before the walk (tile_product, 64 x 64 tiles of 4 x 4
+// per thread as reduce_atb.cuh's), off the step chain. The walk keeps only
+// the transposed products on the chain, from its rows of the weight.
 
 #pragma once
 
@@ -38,13 +43,13 @@ struct WalkPlan {
 };
 
 // Shared memory of a walk, in bytes: the weight slice when resident
-// (ceil(H / C) rows of `width` floats), `gathered` copies of the R x width
-// gathered cotangents, two buffers of `staged` per-unit step inputs and
-// `held` per-unit values kept across a step's phases. ops/cuda/walk.py
-// computes the same.
+// (ceil(H / C) rows of `width` floats), `gathered` floats a batch row of
+// the vectors gathered from every unit, two buffers of `staged` per-unit
+// step inputs and `held` per-unit values kept across a step's phases.
+// ops/cuda/walk.py computes the same.
 size_t walk_smem_bytes(const WalkPlan& p, int H, int width, int gathered, int staged, int held) {
   const size_t hs = (H + p.cluster - 1) / p.cluster;
-  return ((p.resident ? hs * width : 0) + (size_t)gathered * p.rows * width +
+  return ((p.resident ? hs * width : 0) + (size_t)gathered * p.rows +
           (size_t)(2 * staged + held) * p.rows * hs) *
          sizeof(float);
 }
@@ -95,16 +100,21 @@ cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int cluster, si
   return cudaGetLastError();
 }
 
-// The device's opt-in shared memory per block, and how many clusters of
-// `cluster` blocks of `kernel` can be resident at once when each block
-// takes that much (one block to an SM).
+// The dynamic shared memory a block of `kernel` can take (the device's
+// opt-in shared memory per block less the kernel's static shared memory),
+// and how many clusters of `cluster` blocks of `kernel` can be resident at
+// once when each block takes that much (one block to an SM).
 template <typename... Params>
 cudaError_t cluster_limits(void (*kernel)(Params...), int cluster, int* smem_limit,
                            int* clusters) {
   int dev = 0;
+  cudaFuncAttributes attr{};
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(kernel));
+  if (err != cudaSuccess) return err;
+  *smem_limit -= static_cast<int>(attr.sharedSizeBytes);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_limit);
   if (err != cudaSuccess) return err;
@@ -163,6 +173,66 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// Exchanges through mbarriers instead of cluster barriers: a block stores
+// into a peer's shared memory with st.async, each store counting its bytes
+// on an mbarrier in the peer, and a block waits on its own mbarrier until
+// the bytes it expects have arrived. Unlike barrier.cluster's release, no
+// GPU-wide fence waits for the block's outstanding memory operations.
+//
+// The address of `p` (in this block's shared memory) in the shared-memory
+// window of block `rank` of the cluster.
+__device__ __forceinline__ unsigned cluster_map(const void* p, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier of one arrival a phase; mbar_init_fence makes the inits of
+// this thread visible to the cluster's asynchronous stores.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The phase's arrival, expecting `bytes` of asynchronous stores in it.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of `bar` of this parity has completed; what the
+// stores that completed it wrote is then visible to the thread.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra LAB_WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Store v at `dst`, an address in a block's window of the cluster's shared
+// memory, and count its 4 bytes on the mbarrier at `bar` in the same block.
+__device__ __forceinline__ void st_async(unsigned dst, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(
+                   dst),
+               "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+
 // Sum each of the R values of v over the warp, R a power of two <= 32,
 // in about R shuffles: each level halves the values a lane keeps, the
 // lanes whose bit `mask` is set keeping the upper half. Returns, on every
@@ -188,24 +258,31 @@ __device__ __forceinline__ float reduce_rows(float (&v)[R], int& row) {
   return v[0];
 }
 
-// For the rows i < n of w (row stride ldw; shared or global memory): the
-// sums over j < m of w[i][j] v[r * ldv + j] for r < R, then emit(i, r,
-// sum) on lane r' < R for its row r. A warp takes two rows at once,
-// i and i + kWarps, so that each load of v feeds two products. No barrier.
-template <int R, class Emit>
+// For the rows i < n of w (shared or global memory): the sums over j < m
+// of w[i][j] v[r * ldv + j] for r < R, then emit(i, r, sum) on lane
+// r' < R for its row r. Row i of w starts at w + i * ldw, its elements
+// consecutive; with kColumns, row i is column i of an input-major matrix:
+// w[i][j] at w[j * ldw + i]. A warp takes two rows at once, i and
+// i + kWarps, so that each load of v feeds two products. No barrier.
+template <int R, bool kColumns = false, class Emit>
 __device__ __forceinline__ void rows_dot(const float* w, int ldw, int n, const float* v, int ldv,
                                          int m, Emit emit) {
   const int lane = threadIdx.x & 31;
   for (int i = threadIdx.x >> 5; i < n; i += 2 * kWarps) {
     const int i2 = i + kWarps < n ? i + kWarps : i;  // a lone last row is summed twice
-    const float* wa = w + (size_t)i * ldw;
-    const float* wb = w + (size_t)i2 * ldw;
+    const float* wa = kColumns ? w + i : w + (size_t)i * ldw;
+    const float* wb = kColumns ? w + i2 : w + (size_t)i2 * ldw;
     float sa[R], sb[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) sa[r] = sb[r] = 0.f;
 #pragma unroll 2
     for (int j = lane; j < m; j += 32) {
-      const float xa = wa[j], xb = wb[j];
+      float xa, xb;
+      if constexpr (kColumns) {
+        xa = wa[(size_t)j * ldw], xb = wb[(size_t)j * ldw];
+      } else {
+        xa = wa[j], xb = wb[j];
+      }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float x = v[r * ldv + j];

@@ -11,82 +11,68 @@
 // wzr (D, H, 2H), wh (D, H, H), ys (D, B, L, H), D = 1 for K16 and 2 for
 // K18, whose direction 1 arrives flipped into its scan order by the
 // caller. So every direction walks t = 0..L-1 from its own h0, and both
-// kernels are one walk (csrc/gru_walk.cuh, which says what bounds it)
-// per (direction, R rows) block, as K1 is. Each has a __global__ name of
-// its own so that a profiler trace tells them apart; neither name holds,
-// or is held in, another kernel's.
+// kernels are K1's cluster walk (csrc/gru_walk.cuh, which says what bounds
+// it), one cluster per (direction, R rows), with the plan (C, R, resident)
+// from the caller (ops/cuda/walk.py). Each has a __global__ name of its
+// own so that a profiler trace tells them apart; neither name holds, or
+// is held in, another kernel's.
 
 #include "gru_walk.cuh"
 
 namespace {
 
-template <int R, int VW>
-__device__ void stacked_walk_fwd(const float* xproj, const float* h0, const float* wzr,
-                                 const float* wh, float* ys, int B, int L, int H, float* smem) {
-  const size_t d = blockIdx.x, rows = (size_t)B * L;
-  gru_walk_fwd<R, VW>(xproj + d * rows * 3 * H, h0 + d * B * H, wzr + d * H * 2 * H,
-                      wh + d * H * H, ys + d * rows * H, B, L, H, false, smem);
-}
-
-template <int R, int VW>
-__global__ void __launch_bounds__(kThreads)
-gru1_walk_fwd_kernel(const float* __restrict__ xproj, const float* __restrict__ h0,
-                     const float* __restrict__ wzr, const float* __restrict__ wh,
-                     float* __restrict__ ys, int B, int L, int H) {
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1) gru1_walk_fwd_kernel(const GruFwd g, int resident) {
   extern __shared__ float smem[];
-  stacked_walk_fwd<R, VW>(xproj, h0, wzr, wh, ys, B, L, H, smem);
+  gru_walk_fwd<R>(g.d[blockIdx.y], g.B, g.L, g.H, resident != 0, smem);
 }
 
-template <int R, int VW>
-__global__ void __launch_bounds__(kThreads)
-gru2_stacked_fwd_kernel(const float* __restrict__ xproj, const float* __restrict__ h0,
-                        const float* __restrict__ wzr, const float* __restrict__ wh,
-                        float* __restrict__ ys, int B, int L, int H) {
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+gru2_stacked_fwd_kernel(const GruFwd g, int resident) {
   extern __shared__ float smem[];
-  stacked_walk_fwd<R, VW>(xproj, h0, wzr, wh, ys, B, L, H, smem);
-}
-
-template <int D, int R, int VW>
-cudaError_t launch(const float* xproj, const float* h0, const float* wzr, const float* wh,
-                   float* ys, int B, int L, int H, cudaStream_t stream) {
-  const auto kernel = D == 1 ? gru1_walk_fwd_kernel<R, VW> : gru2_stacked_fwd_kernel<R, VW>;
-  const size_t smem = gru_fwd_smem_bytes(R, VW, H);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(D, (B + R - 1) / R);
-  kernel<<<grid, kThreads, smem, stream>>>(xproj, h0, wzr, wh, ys, B, L, H);
-  return cudaGetLastError();
-}
-
-template <int D, int R>
-cudaError_t launch_rows(const float* xproj, const float* h0, const float* wzr, const float* wh,
-                        float* ys, int B, int L, int H, cudaStream_t stream) {
-  const bool aligned = ((reinterpret_cast<size_t>(wzr) | reinterpret_cast<size_t>(wh)) & 15) == 0;
-  if (H % 4 == 0 && aligned) return launch<D, R, 4>(xproj, h0, wzr, wh, ys, B, L, H, stream);
-  return launch<D, R, 1>(xproj, h0, wzr, wh, ys, B, L, H, stream);
+  gru_walk_fwd<R>(g.d[blockIdx.y], g.B, g.L, g.H, resident != 0, smem);
 }
 
 template <int D>
 int run(const float* xproj, const float* h0, const float* wzr, const float* wh, float* ys, int B,
-        int L, int H, cudaStream_t stream) {
+        int L, int H, const WalkPlan& plan, cudaStream_t stream) {
   if (B < 1 || L < 1 || H < 1 || H > 1024) return (int)cudaErrorInvalidValue;
-  return (int)(B == 1 ? launch_rows<D, 1>(xproj, h0, wzr, wh, ys, B, L, H, stream)
-                      : launch_rows<D, 4>(xproj, h0, wzr, wh, ys, B, L, H, stream));
+  const size_t rows = (size_t)B * L;
+  GruFwd g{};
+  for (int d = 0; d < D; ++d)
+    g.d[d] = GruFwdDir{xproj + d * rows * 3 * H, h0 + (size_t)d * B * H,
+                       wzr + (size_t)d * H * 2 * H, wh + (size_t)d * H * H, ys + d * rows * H, 0};
+  g.B = B, g.L = L, g.H = H;
+  return (int)(D == 1 ? run_gru_fwd(g, 1, plan, GRU_WALK_INSTANCE(gru1_walk_fwd_kernel, plan.rows),
+                                    stream)
+                      : run_gru_fwd(g, 2, plan,
+                                    GRU_WALK_INSTANCE(gru2_stacked_fwd_kernel, plan.rows), stream));
 }
 
 }  // namespace
 
-// K16: xproj (B, L, 3H), h0 (B, H), wzr (H, 2H), wh (H, H) -> ys (B, L, H).
+// The device's opt-in shared memory per block and the clusters of
+// `cluster` blocks of each walk that can be resident at that size.
+extern "C" int gru_scan_fwd_limits(int cluster, int* smem_limit, int* clusters) {
+  return (int)cluster_limits(gru1_walk_fwd_kernel<16>, cluster, smem_limit, clusters);
+}
+
+extern "C" int bigru_scan_fwd_limits(int cluster, int* smem_limit, int* clusters) {
+  return (int)cluster_limits(gru2_stacked_fwd_kernel<16>, cluster, smem_limit, clusters);
+}
+
+// K16: xproj (B, L, 3H), h0 (B, H), wzr (H, 2H), wh (H, H) -> ys (B, L, H);
+// (cluster, rows, resident) the walk's plan.
 extern "C" int gru_scan_fwd(const float* xproj, const float* h0, const float* wzr,
-                            const float* wh, float* ys, int B, int L, int H,
-                            cudaStream_t stream) {
-  return run<1>(xproj, h0, wzr, wh, ys, B, L, H, stream);
+                            const float* wh, float* ys, int B, int L, int H, int cluster, int rows,
+                            int resident, cudaStream_t stream) {
+  return run<1>(xproj, h0, wzr, wh, ys, B, L, H, WalkPlan{cluster, rows, resident}, stream);
 }
 
 // K18: the same with a leading direction axis of 2.
 extern "C" int bigru_scan_fwd(const float* xproj2, const float* h02, const float* wzr2,
-                              const float* wh2, float* ys2, int B, int L, int H,
-                              cudaStream_t stream) {
-  return run<2>(xproj2, h02, wzr2, wh2, ys2, B, L, H, stream);
+                              const float* wh2, float* ys2, int B, int L, int H, int cluster,
+                              int rows, int resident, cudaStream_t stream) {
+  return run<2>(xproj2, h02, wzr2, wh2, ys2, B, L, H, WalkPlan{cluster, rows, resident}, stream);
 }

@@ -2,34 +2,44 @@
 // flip-free BiGRU scan (K1 bigru_scan2.cu, K6 bigru_scan2_bwd.cu) and the
 // one-direction and direction-stacked scans (K16/K18 gru_scan.cu, K17/K19
 // gru_scan_bwd.cu). Each kernel is a thin __global__ function that picks
-// its direction's arrays and calls a walk.
+// its direction's arrays and calls a walk. Both walks run a direction for
+// R batch rows on a thread-block cluster of C blocks (csrc/cluster_walk.cuh
+// gives the scheme); block k owns the state units [k H / C, (k+1) H / C)
+// and holds, in shared memory, the slice of Wzr and Wh that touches them
+// (96 KB at H = 256, C = 8), so no step reads a weight from L2. Where a
+// slice does not fit (at C = 8 and R = 4, H above 376 for the forward and
+// 368 for the backward), the same walk reads it from L2 each step, each
+// block 1/C of the direction's weight. The plan (C, R, resident) comes
+// from the caller (ops/cuda/walk.py).
 //
 //   zr = sigmoid(h @ Wzr + x[:2H]);  c = tanh((r * h) @ Wh + x[2H:])
 //   h' = (1 - z) * h + z * c
 //
-// Forward (gru_walk_fwd): one block walks one direction for R batch rows.
-// The L steps form a dependency chain, and each needs the direction's
-// whole recurrent weight (3H^2 floats, 768 KB at H = 256), read from L2
-// every step; the state lives in shared memory, so each weight is read
-// once per step for all the block's rows. Load latency limits one block's
-// weight stream, so the loads are 16 bytes wide and the input dimension
-// of each product is split over thread groups; partial sums meet in
-// shared memory.
+// Forward (gru_walk_fwd): block k holds its units' columns of Wzr (z and
+// r) and of Wh, transposed as it loads them, one row of H floats per
+// output, so that rows_dot forms each output as a dot product over
+// contiguous floats. A step is two exchanges: z, r and r * h of the units
+// from the gathered h, r * h pushed into every block; then c and h' of the
+// units from the gathered r * h, h' pushed into every block. A push is
+// st.async stores counted on the receiving block's mbarrier, and a block
+// waits on its own mbarrier for the bytes its peers push, not at a cluster
+// barrier, whose release fence (MEMBAR.ALL.GPU) made a step 9-12% slower.
+// What bounds it: the L steps form a chain, each of two pushes and waits,
+// and the products per block and step are R x (H/C) x 3H multiply-adds
+// from shared memory, 58-66% of a step (tools/scan_phases.py --gru-fwd).
+// K1 at B = 1, L = 132, H = 256: 3.4 us a step, 0.45 ms; at B = 16,
+// L = 144 (R = 4) 4.9 us, 0.70 ms (chip_smoke.py phase 8 on an NVIDIA
+// H100 80GB HBM3 at 700.00 W).
 //
-// Backward (gru_gates_kernel, then gru_walk_bwd on a thread-block
-// cluster; csrc/cluster_walk.cuh gives the scheme): every step's h_prev
-// is an input, so the pre-pass forms z, r, c and r * h_prev for all B*L
-// rows in parallel, and the walk keeps only its two transposed products
-// on the chain. Block k of a cluster of C holds rows [k H / C, (k+1) H / C)
-// of Wzr and Wh (96 KB at H = 256, C = 8) in shared memory, so no step
-// reads a weight from L2. What bounds a step: its two cluster barriers,
-// the distributed-shared-memory pushes before them, and the two
+// Backward (gru_gates_kernel, then gru_walk_bwd): every step's h_prev is
+// an input, so the pre-pass forms z, r, c and r * h_prev for all B*L rows
+// in parallel, and the walk keeps only its two transposed products on the
+// chain, from its rows of Wzr and Wh. What bounds a step: its two cluster
+// barriers, the distributed-shared-memory pushes before them, and the two
 // transposed products, whose 4-byte shared-memory loads (one per two
 // multiply-adds) grow with R. K6 at B = 16, L = 144, H = 256, R = 4:
 // 5.0 us a step (4.2 at R = 1, 16.3 at R = 16; chip_smoke.py phase 8 on
-// an NVIDIA H100 80GB HBM3 at 700.00 W). Where a slice does not fit (H
-// above ~300 at C = 8), the same walk reads it from L2 each step, each
-// block 1/C of the direction's weight.
+// an NVIDIA H100 80GB HBM3 at 700.00 W).
 
 #pragma once
 
@@ -38,109 +48,187 @@
 
 namespace {
 
-// part[p][r][j] = sum over i = p, p + parts, ... < H of v[r][i] * w[i][j],
-// j < out, for the R rows of the block; VW consecutive columns per load.
-// Returns the number of parts written.
-template <int R, int VW>
-__device__ int partial_products(const float* __restrict__ w, int H, int out, const float* v,
-                                float* part) {
-  const int q = out / VW;
-  const int parts = q >= kThreads ? 1 : kThreads / q;
-  const int p = threadIdx.x / q;
-  if (p < parts) {
-    for (int jq = threadIdx.x - p * q; jq < q; jq += kThreads) {
-      float acc[R][VW];
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int c = 0; c < VW; ++c) acc[r][c] = 0.f;
-#pragma unroll 8
-      for (int i = p; i < H; i += parts) {
-        const float* wp = w + (size_t)i * out + VW * jq;
-        float wv[VW];
-        if constexpr (VW == 4) {
-          const float4 t = __ldg(reinterpret_cast<const float4*>(wp));
-          wv[0] = t.x, wv[1] = t.y, wv[2] = t.z, wv[3] = t.w;
-        } else {
-          wv[0] = __ldg(wp);
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float hv = v[r * H + i];
-#pragma unroll
-          for (int c = 0; c < VW; ++c) acc[r][c] = fmaf(hv, wv[c], acc[r][c]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int c = 0; c < VW; ++c) part[(p * R + r) * out + VW * jq + c] = acc[r][c];
-    }
-  }
-  return parts;
+// One direction of a GRU forward.
+struct GruFwdDir {
+  const float* x;   // (B, L, 3H) input projections
+  const float* h0;  // (B, H) the initial state, or null for zeros
+  const float* wzr; // (H, 2H)
+  const float* wh;  // (H, H)
+  float* ys;        // (B, L, H)
+  int reverse;      // step s reads and writes t = L-1-s, else t = s
+};
+
+struct GruFwd {
+  GruFwdDir d[2];
+  int B, L, H;
+};
+
+// Shared memory of the forward walk: the weight slices (3H floats a
+// unit), the gathered h and r * h (R x 2H), two buffers of three staged
+// step inputs (x_z, x_r, x_c) and z per unit. Its two mbarriers are
+// static shared memory, which the limits helper takes off the budget.
+size_t gru_fwd_smem_bytes(const WalkPlan& p, int H) {
+  return walk_smem_bytes(p, H, 3 * H, 2 * H, 3, 1);
 }
 
-// Shared memory of the forward walk, in bytes: state, z, r * h, and the
-// partial sums of the wider of the two products.
-size_t gru_fwd_smem_bytes(int R, int VW, int H) {
-  const int widest = kThreads * VW > 2 * H ? kThreads * VW : 2 * H;
-  return (3 * (size_t)R * H + (size_t)R * widest) * sizeof(float);
-}
-
-// Forward walk of one direction for the rows b0 = blockIdx.y * R, ...:
-// x (B, L, 3H) input projections, h0 (B, H) the initial state or null
-// for zeros, wzr (H, 2H), wh (H, H), ys (B, L, H). Step s reads and
-// writes time t = s, or t = L-1-s when `reverse`. `smem` holds
-// gru_fwd_smem_bytes(R, VW, H).
-template <int R, int VW>
-__device__ void gru_walk_fwd(const float* __restrict__ x, const float* __restrict__ h0,
-                             const float* __restrict__ wzr, const float* __restrict__ wh,
-                             float* __restrict__ ys, int B, int L, int H, bool reverse,
+// The forward walk of direction `a` for the R batch rows of this block's
+// cluster (group blockIdx.x / C). Each step s, at t = s (or L-1-s):
+//
+//   z, r = sigmoid(h @ Wzr + x[t, :2H]);  r * h            [push, wait]
+//   c = tanh((r * h) @ Wh + x[t, 2H:]);  h = (1 - z) h + z c;  ys[t] = h
+//                                                          [push, wait]
+//   (the copies that stage step s+1's x start before the second wait)
+//
+// for the block's units. A push is the block's threads storing its units'
+// values into every other block's gathered rows with st.async,
+// consecutive threads at consecutive addresses, after a block barrier
+// that makes the block's own values visible to all its threads. The
+// waits are on this block's mbarriers, one for each exchange, whose phase
+// s completes when the peers' R x (H - hs) floats of step s have landed. Single buffers
+// suffice, by causality: a peer pushes r * h of step s+1 only after it
+// has every block's h of step s, which this block pushes only after a
+// block barrier behind its candidate product's reads of r * h of step s;
+// a peer pushes h of step s only after it has this block's r * h of step
+// s, pushed behind the gate products' reads of h. For the same reason
+// thread 0 arms an mbarrier's next phase as soon as it has seen one
+// complete: no push of that phase can have started. Rows past B keep
+// h = 0, as their staged x is 0. A zero x row and h = 0 give h' = 0
+// exactly, so a zero-padded tail holds h at 0. `smem` holds
+// gru_fwd_smem_bytes.
+template <int R>
+__device__ void gru_walk_fwd(const GruFwdDir& a, int B, int L, int H, bool resident,
                              float* smem) {
-  float* hs = smem;           // [R][H] state
-  float* z = hs + R * H;      // [R][H] update gate
-  float* rh = z + R * H;      // [R][H] r * h
-  float* part = rh + R * H;   // partial sums
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), k = (int)cluster.block_rank();
+  const int lo = k * H / C, hs = (k + 1) * H / C - lo, hm = (H + C - 1) / C;
+  const int H2 = 2 * H, H3 = 3 * H, RM = R * hm;
+  const int b0 = (blockIdx.x / C) * R, nrows = min(R, B - b0);
+  const size_t lx = (size_t)L * H3, lh = (size_t)L * H;  // batch-row strides
 
-  const int b0 = blockIdx.y * R;
-  const int nrows = min(R, B - b0);
-  const int H2 = 2 * H;
-  const size_t H3 = 3 * (size_t)H;
+  float* w_z = smem;                           // [hm][H] resident: unit i's column of Wzr[:, :H]
+  float* w_r = w_z + (resident ? hm * H : 0);  // [hm][H]   ... of Wzr[:, H:]
+  float* w_c = w_r + (resident ? hm * H : 0);  // [hm][H]   ... of Wh
+  float* gh = w_c + (resident ? hm * H : 0);   // [R][H]    h, every unit
+  float* grh = gh + R * H;                     // [R][H]    r * h, every unit
+  float* stg = grh + R * H;                    // [2][3][R][hm]  a step's staged x
+  float* z = stg + 6 * RM;                     // [R][hm]
 
+  if (resident)
+    for (int j = threadIdx.x; j < H; j += kThreads) {
+      const float* wzr = a.wzr + (size_t)j * H2 + lo;
+      const float* wh = a.wh + (size_t)j * H + lo;
+#pragma unroll 4
+      for (int i = 0; i < hs; ++i) {
+        w_z[i * H + j] = __ldg(wzr + i);
+        w_r[i * H + j] = __ldg(wzr + H + i);
+        w_c[i * H + j] = __ldg(wh + i);
+      }
+    }
   for (int i = threadIdx.x; i < R * H; i += kThreads)
-    hs[i] = h0 != nullptr && i / H < nrows ? h0[(size_t)b0 * H + i] : 0.f;
-  __syncthreads();
+    gh[i] = a.h0 != nullptr && i / H < nrows ? a.h0[(size_t)b0 * H + i] : 0.f;
+
+  // The block's units of the product v @ W (v: R x H, gathered), as
+  // rows_dot's rows: the transposed slice in shared memory, or the
+  // columns of W from L2 (`wg`, row stride ldg).
+  auto product = [&](const float* ws, const float* wg, int ldg, const float* v, auto emit) {
+    if (resident)
+      rows_dot<R>(ws, H, hs, v, H, H, emit);
+    else
+      rows_dot<R, true>(wg, ldg, hs, v, H, H, emit);
+  };
+  // Store the block's units of `buf` (R x H, every unit) into every other
+  // block's copy, each store counted on that block's mbarrier `bar`. With
+  // fewer values than threads, the peers are dealt out over `groups` of
+  // threads, so that more warps share the stores (at R = 1 one warp
+  // issuing all 7 x 32 stores made the exchange twice as long).
+  auto push = [&](float* buf, unsigned long long* bar) {
+    const int n = R * hs, groups = max(1, min(C - 1, kThreads / n));
+    for (int idx = threadIdx.x; idx < n * groups; idx += kThreads) {
+      const int g = idx / n, e = idx - g * n, r = e / hs, o = r * H + lo + e - r * hs;
+      const float v = buf[o];
+      for (int q = g; q < C - 1; q += groups) {
+        const int p = q < k ? q : q + 1;
+        st_async(cluster_map(buf + o, p), v, cluster_map(bar, p));
+      }
+    }
+  };
+  // Stage step s's x of the block's units, 16 bytes a copy where every
+  // slice is 4-float aligned.
+  const bool vec = H % (4 * C) == 0 && (reinterpret_cast<size_t>(a.x) & 15) == 0;
+  auto prefetch = [&](int s) {
+    const int t = a.reverse ? L - 1 - s : s;
+    float* q = stg + (s & 1) * 3 * RM;
+    const float* x = a.x + ((size_t)b0 * L + t) * H3 + lo;
+    stage_async<R>(q, hm, x, lx, hs, nrows, vec);
+    stage_async<R>(q + RM, hm, x + H, lx, hs, nrows, vec);
+    stage_async<R>(q + 2 * RM, hm, x + H2, lx, hs, nrows, vec);
+  };
+  // bars[0] counts the r * h the peers push in a step, bars[1] their h:
+  // R x (H - hs) floats each. Thread 0 arms a phase as soon as the one
+  // before it has completed, before this block pushes anything that lets
+  // a peer start the pushes of the next.
+  __shared__ unsigned long long bars[2];
+  const unsigned tx = 4u * R * (H - hs);
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    mbar_init_fence();
+    mbar_expect(&bars[0], tx);
+    mbar_expect(&bars[1], tx);
+  }
+  prefetch(0);
+  cluster.sync();  // every block's mbarriers are armed before any push into it
 
   for (int s = 0; s < L; ++s) {
-    const int t = reverse ? L - 1 - s : s;
-    // z and r gates: h @ Wzr + x[:2H].
-    int parts = partial_products<R, VW>(wzr, H, H2, hs, part);
+    const int t = a.reverse ? L - 1 - s : s;
+    copy_async_wait();
     __syncthreads();
-    for (int idx = threadIdx.x; idx < R * H2; idx += kThreads) {
-      const int r = idx / H2, j = idx % H2;
-      float a = r < nrows ? x[((size_t)(b0 + r) * L + t) * H3 + j] : 0.f;
-      for (int q = 0; q < parts; ++q) a += part[(q * R + r) * H2 + j];
-      const float g = activate<kSigmoid>(a);
-      if (j < H)
-        z[r * H + j] = g;
-      else
-        rh[r * H + j - H] = g * hs[r * H + j - H];
-    }
+    // [phase] staging wait
+    const float* q = stg + (s & 1) * 3 * RM;
+    const float *xz = q, *xr = q + RM, *xc = q + 2 * RM;
+    product(w_z, a.wzr + lo, H2, gh, [&](int i, int r, float v) {
+      z[r * hm + i] = activate<kSigmoid>(v + xz[r * hm + i]);
+    });
+    product(w_r, a.wzr + H + lo, H2, gh, [&](int i, int r, float v) {
+      const int o = r * H + lo + i;
+      grh[o] = activate<kSigmoid>(v + xr[r * hm + i]) * gh[o];
+    });
     __syncthreads();
-    // Candidate tanh((r * h) @ Wh + x[2H:]) and the update.
-    parts = partial_products<R, VW>(wh, H, H, rh, part);
+    // [phase] zr product
+    push(grh, &bars[0]);
+    mbar_wait(&bars[0], s & 1);
+    // [phase] rh push
+    if (threadIdx.x == 0 && s + 1 < L) mbar_expect(&bars[0], tx);
+    float* ys = a.ys + ((size_t)b0 * L + t) * H + lo;  // batch row r at ys + r * lh
+    product(w_c, a.wh + lo, H, grh, [&](int i, int r, float v) {
+      const int o = r * H + lo + i;
+      const float zg = z[r * hm + i];
+      const float hn = (1.f - zg) * gh[o] + zg * tanhf(v + xc[r * hm + i]);
+      gh[o] = hn;
+      if (r < nrows) ys[r * lh + i] = hn;
+    });
     __syncthreads();
-    for (int idx = threadIdx.x; idx < R * H; idx += kThreads) {
-      const int r = idx / H, u = idx % H;
-      float a = r < nrows ? x[((size_t)(b0 + r) * L + t) * H3 + H2 + u] : 0.f;
-      for (int q = 0; q < parts; ++q) a += part[(q * R + r) * H + u];
-      const float zg = z[idx];
-      const float hn = (1.f - zg) * hs[idx] + zg * tanhf(a);
-      hs[idx] = hn;
-      if (r < nrows) ys[((size_t)(b0 + r) * L + t) * H + u] = hn;
-    }
-    __syncthreads();
+    // [phase] candidate product
+    push(gh, &bars[1]);
+    if (s + 1 < L) prefetch(s + 1);  // the other staging buffer, read last in step s - 1
+    mbar_wait(&bars[1], s & 1);
+    // [phase] h push
+    if (threadIdx.x == 0 && s + 1 < L) mbar_expect(&bars[1], tx);
   }
+  cluster.sync();  // no block leaves before the cluster's last pushes have landed
+}
+
+// Run a GRU forward of D directions: `walk` on clusters of p.cluster
+// blocks, ceil(B / p.rows) clusters per direction.
+cudaError_t run_gru_fwd(const GruFwd& g, int D, const WalkPlan& p,
+                        void (*walk)(const GruFwd, int), cudaStream_t stream) {
+  const size_t smem = gru_fwd_smem_bytes(p, g.H);
+  cudaError_t err = check_plan(p, g.H, smem);
+  if (err != cudaSuccess) return err;
+  if (walk == nullptr) return cudaErrorInvalidValue;
+  const int groups = (g.B + p.rows - 1) / p.rows;
+  return launch_cluster(walk, dim3(p.cluster * groups, D), p.cluster, smem, stream, g,
+                        p.resident);
 }
 
 // One direction of a GRU backward.
@@ -165,7 +253,7 @@ struct GruBwd {
 // row), the gathered [da_z | da_r | da_c] (R x 3H), two buffers of five
 // staged step inputs (z, r, c, h_prev, dys) and dh, drh, carry per unit.
 size_t gru_walk_smem_bytes(const WalkPlan& p, int H) {
-  return walk_smem_bytes(p, H, 3 * H, 1, 5, 3);
+  return walk_smem_bytes(p, H, 3 * H, 3 * H, 5, 3);
 }
 
 // The gate pre-pass over every (row, step) n of direction blockIdx.y, one
@@ -329,7 +417,7 @@ __device__ void gru_walk_bwd(const GruBwdDir& a, int B, int L, int H, bool resid
 }
 
 // The walk instance for R batch rows per cluster, from a source's
-// __global__ template (a function of (GruBwd, int resident)).
+// __global__ template (a function of (GruFwd or GruBwd, int resident)).
 #define GRU_WALK_INSTANCE(kernel, R)                                              \
   ((R) == 1    ? kernel<1>                                                        \
    : (R) == 2  ? kernel<2>                                                        \

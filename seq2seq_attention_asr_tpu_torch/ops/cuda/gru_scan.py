@@ -23,9 +23,10 @@
   ``csrc/gru_scan_bwd.cu``.
 
 Every kernel's plain version (``*_plain``) sits beside its wrapper; all
-the kernels share the walks of ``csrc/gru_walk.cuh``. The backward ones
-(K6, K17, K19) run a gate pre-pass and then a walk on thread-block
-clusters whose plan (``walk.plan``) the wrappers compute and pass.
+the kernels share the walks of ``csrc/gru_walk.cuh``, which run on
+thread-block clusters whose plan (``walk.plan``: cell "gru_fwd" for the
+forwards, "gru" for the backwards) the wrappers compute and pass. The
+backward ones (K6, K17, K19) run a gate pre-pass before their walk.
 """
 
 from __future__ import annotations
@@ -39,13 +40,13 @@ from . import build, walk
 
 KERNEL = build.Kernel(
     "bigru_scan2", "bigru_scan2.cu", "bigru_scan2_fwd",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
 KERNEL_BWD = build.Kernel(
     "bigru_scan2_bwd", "bigru_scan2_bwd.cu", "bigru_scan2_bwd",
     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
-_FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 KERNEL_GRU = build.Kernel("gru_scan", "gru_scan.cu", "gru_scan_fwd", _FWD_ARGS)
 KERNEL_GRU_BWD = build.Kernel("gru_scan_bwd", "gru_scan_bwd.cu", "gru_scan_bwd", _BWD_ARGS)
@@ -101,9 +102,10 @@ def bigru_scan2(xf, xb, wzr2, wh2):
     ysb = torch.empty_like(ysf)
     if b * l == 0:
         return ysf, ysb
+    plan = walk.plan_on(KERNEL, b, h, "gru_fwd", 2, dev)
     KERNEL.launch(
         build.ptr(xf), build.ptr(xb), build.ptr(wzr2), build.ptr(wh2),
-        build.ptr(ysf), build.ptr(ysb), b, l, h, build.stream_of(xf),
+        build.ptr(ysf), build.ptr(ysb), b, l, h, *plan.args(), build.stream_of(xf),
     )
     return ysf, ysb
 
@@ -268,8 +270,9 @@ def _scan_fwd(kernel, lead, xproj, h0, w_zr, w_h):
         build.check(name, t, (*lead, *shape), dev)
     ys = torch.empty((*lead, b, l, h), device=dev, dtype=torch.float32)
     if b * l:
+        plan = walk.plan_on(kernel, b, h, "gru_fwd", lead[0] if lead else 1, dev)
         kernel.launch(build.ptr(xproj), build.ptr(h0), build.ptr(w_zr), build.ptr(w_h),
-                      build.ptr(ys), b, l, h, build.stream_of(xproj))
+                      build.ptr(ys), b, l, h, *plan.args(), build.stream_of(xproj))
     return ys
 
 

@@ -1,15 +1,17 @@
-"""The plan of a backward recurrent walk on a thread-block cluster.
+"""The plan of a recurrent walk on a thread-block cluster.
 
-The GRU backward (K6, K17, K19; ``csrc/gru_walk.cuh``) and the LSTM
-backward (K9; ``csrc/bilstm_scan_bwd.cu``) run each direction's walk for
-a group of R batch rows on one cluster of C blocks; block k holds rows
-[k H / C, (k + 1) H / C) of the recurrent weight. The plan fixes C, R
-and whether the weight slices are held in shared memory ("resident") or
-read from L2 each step ("streamed"). It is a plain function of the
-shapes and of two numbers of the device, which ``limits`` asks the
-kernel's library for: the opt-in shared memory of a block and how many
-clusters can be resident when each block takes that much (one block to
-an SM, from ``cudaOccupancyMaxActiveClusters``).
+The GRU forward (K1, K16, K18; cell "gru_fwd") and backward (K6, K17,
+K19; cell "gru"), both in ``csrc/gru_walk.cuh``, and the LSTM backward
+(K9; cell "lstm", ``csrc/bilstm_scan_bwd.cu``) run each direction's walk
+for a group of R batch rows on one cluster of C blocks; block k owns the
+state units [k H / C, (k + 1) H / C) and holds the slice of the
+recurrent weight that touches them. The plan fixes C, R and whether the
+weight slices are held in shared memory ("resident") or read from L2
+each step ("streamed"). It is a plain function of the shapes and of two
+numbers of the device, which ``limits`` asks the kernel's library for:
+the opt-in shared memory of a block and how many clusters can be
+resident when each block takes that much (one block to an SM, from
+``cudaOccupancyMaxActiveClusters``).
 """
 
 from __future__ import annotations
@@ -29,14 +31,22 @@ ROWS = (1, 2, 4, 8, 16)  # batch rows of a cluster: the walk's instances
 # phase 8 on an NVIDIA H100 80GB HBM3 at 700.00 W), and this cost picks the
 # fastest R there and at B=128 (R=8, 3 waves of 15 clusters).
 STEP_ROWS = 4
+# The forward walk's step grows with R faster than that at R = 16 (its
+# registers overflow into a 240-byte stack frame), so its cost is the step
+# and wave K1's walk takes at each R, in us: 3.42, 4.10, 4.89, 6.75 and
+# 18.83 at B=16, 3.64, 4.30, 5.15, 7.07 and 19.20 at B=128, L=144, H=256
+# (chip_smoke.py phase 8 on an NVIDIA H100 80GB HBM3 at 700.00 W).
+STEP_COST = {"gru_fwd": {1: 3.5, 2: 4.2, 4: 5.0, 8: 6.9, 16: 19.0}}
 # Per cell, in floats, what csrc/cluster_walk.cuh's walk_smem_bytes
-# counts: the weight row width in units of H, the copies of the gathered
-# cotangents (R x width), the per-unit inputs staged for a step (two
-# buffers of them) and the per-unit values a step keeps across phases.
-WIDTH = {"gru": 3, "lstm": 4}
-GATHERED = {"gru": 1, "lstm": 2}
-STAGED = {"gru": 5, "lstm": 7}
-HELD = {"gru": 3, "lstm": 2}
+# counts: the weight slice's width a unit and the vectors gathered from
+# every unit a batch row, both in units of H (the backward's gathered
+# cotangents, one or two copies of the weight width; the forward's h and
+# r * h), the per-unit inputs staged for a step (two buffers of them) and
+# the per-unit values a step keeps across phases.
+WIDTH = {"gru": 3, "lstm": 4, "gru_fwd": 3}
+GATHERED = {"gru": 3, "lstm": 8, "gru_fwd": 2}
+STAGED = {"gru": 5, "lstm": 7, "gru_fwd": 3}
+HELD = {"gru": 3, "lstm": 2, "gru_fwd": 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,8 +63,7 @@ class Plan:
 def smem_bytes(cell: str, h: int, cluster: int, rows: int, resident: bool) -> int:
     """Shared memory of one block of the walk, as the kernel lays it out."""
     hs = -(-h // cluster)
-    width = WIDTH[cell] * h
-    floats = ((hs * width if resident else 0) + GATHERED[cell] * rows * width
+    floats = ((hs * WIDTH[cell] * h if resident else 0) + GATHERED[cell] * rows * h
               + (2 * STAGED[cell] + HELD[cell]) * rows * hs)
     return 4 * floats
 
@@ -68,16 +77,18 @@ def plan(b: int, h: int, cell: str, directions: int, smem_limit: int, clusters: 
     - C = CLUSTER, or h where h is narrower (a block owns at least one unit).
     - R takes the fewest step costs: the launch's directions * ceil(b / R)
       clusters run in ceil(that / clusters) waves, each step of a wave
-      costing STEP_ROWS + R; the smallest R of equal cost. Where one wave
-      holds every cluster this is the smallest R that fits one wave, unless
-      a larger R in one wave costs less.
+      costing STEP_COST[cell][R], or STEP_ROWS + R for a cell without a
+      table; the smallest R of equal cost. Where one wave holds every
+      cluster this is the smallest R that fits one wave, unless a larger R
+      in one wave costs less.
     - The weight slices are resident where the blocks' shared memory holds
       them at that R, else streamed; a streamed plan halves R until it fits.
     """
     c = min(CLUSTER, h)
 
     def cost(r):
-        return -(-directions * -(-b // r) // clusters) * (STEP_ROWS + r)
+        step = STEP_COST[cell][r] if cell in STEP_COST else STEP_ROWS + r
+        return -(-directions * -(-b // r) // clusters) * step
 
     rows = min(ROWS, key=lambda r: (cost(r), r))
     if smem_bytes(cell, h, c, rows, True) <= smem_limit:

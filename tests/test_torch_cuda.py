@@ -34,9 +34,26 @@ def _max_err(got, want):
     return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
 
-@pytest.mark.parametrize("b,l,h", [(1, 7, 16), (3, 20, 256), (5, 9, 300), (8, 132, 256)])
-def test_bigru_scan2_kernel(card, b, l, h):
+# The forward walk's regimes (csrc/gru_walk.cuh, plan cell "gru_fwd"):
+# C = 8 blocks of 2 units (H = 16), one row a cluster (B = 1), unequal
+# slices of 37 and 38 units (H = 300) and of 12 and 13 with 4-byte staging
+# (H = 100), a part-empty last row group (B = 33), several waves (B = 128,
+# 32 clusters of 8 rows), fewer units than blocks (H = 5, C = 5), and
+# slices streamed from L2 (H just above the fit, and the widest H).
+FWD_CASES = [(1, 7, 16, "resident"), (3, 20, 256, "resident"), (5, 9, 300, "resident"),
+             (8, 132, 256, "resident"), (1, 132, 256, "resident"), (3, 9, 100, "resident"),
+             (33, 20, 256, "partial"), (128, 16, 256, "groups"), (2, 6, 5, "resident"),
+             (3, 9, 400, "streamed"), (4, 11, 1024, "streamed")]
+
+
+@pytest.mark.parametrize("b,l,h,regime", FWD_CASES)
+def test_bigru_scan2_kernel(card, b, l, h, regime):
+    """K1 against its plain version within TOL, one launch a call, a
+    second call bitwise equal (fixed-order sums), and the backward
+    direction exactly 0 on the zero-padded tail."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan
+
+    _check_regime(gru_scan.KERNEL, b, h, "gru_fwd", 2, regime, card)
 
     gen = torch.Generator().manual_seed(b * 1000 + h)
     lens = torch.randint(1, l + 1, (b,), generator=gen).cuda()
@@ -52,6 +69,10 @@ def test_bigru_scan2_kernel(card, b, l, h):
     assert gru_scan.KERNEL.launches == before + 1
     assert _max_err(got, want) <= TOL
     assert not (got[1] * (1 - valid)).any()  # bwd direction holds 0 on padding
+    again = gru_scan.bigru_scan2(xf, xb, wzr2, wh2)
+    torch.cuda.synchronize()
+    assert gru_scan.KERNEL.launches == before + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 
 
 FLAGSHIP_STEP = (512, 256, 512, 62, 64, 7)  # score, state, annotation, outputs, maxout
@@ -143,6 +164,27 @@ def test_fused_attention_step_refuses_without_a_cluster(card, monkeypatch):
     with pytest.raises(RuntimeError, match="no cluster"):
         attention_step.fused_attention_step(params, cfg, *args)
     assert attention_step.KERNEL.launches == before
+
+
+def test_gru_forward_walks_refuse_without_a_cluster(card, monkeypatch):
+    """Where the device holds no cluster of 8 blocks of a forward walk
+    (K1, K16, K18), a CUDA call raises; it never takes the plain path."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan, walk
+
+    gen = torch.Generator().manual_seed(3)
+    h = 16
+    x, w_zr, w_h = _rand(gen, 2, 2, 5, 3 * h), _rand(gen, 2, h, 2 * h), _rand(gen, 2, h, h)
+    h0 = _rand(gen, 2, 2, h)
+    calls = {gru_scan.KERNEL: lambda: gru_scan.bigru_scan2(x[0], x[1], w_zr, w_h),
+             gru_scan.KERNEL_GRU: lambda: gru_scan.gru_scan(x[0], h0[0], w_zr[0], w_h[0]),
+             gru_scan.KERNEL_BI: lambda: gru_scan.bigru_scan(x, h0, w_zr, w_h)}
+    monkeypatch.setattr(walk, "_LIMITS", {})
+    for kernel, call in calls.items():
+        monkeypatch.setattr(kernel, "helper", lambda symbol, argtypes: lambda *args: 0)
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="no cluster"):
+            call()
+        assert kernel.launches == before
 
 
 @pytest.mark.parametrize("b,n", [(1, 8191), (3, 57343)])
@@ -826,16 +868,19 @@ def test_loc_decoder_train_step_on_the_card_matches_the_cpu(card, name):
 @pytest.mark.parametrize("b,l,h,regime", [
     (1, 132, 256, "resident"), (5, 37, 256, "resident"), (16, 144, 256, "resident"),
     (3, 20, 100, "resident"), (33, 20, 256, "partial"), (128, 16, 256, "groups"),
-    (3, 9, 1024, "streamed")])
+    (3, 9, 1024, "streamed"), (1, 7, 16, "resident"), (5, 9, 300, "resident"),
+    (2, 9, 400, "streamed")])
 def test_gru_scan_kernels(card, b, l, h, regime):
     """K16-K19 from nonzero initial states against their plain versions:
     forward within TOL, backward (dxproj, dh0, dWzr, dWh) within the
-    backward tolerance, one launch each. B = 1 takes one row a block,
-    B = 5 leaves a forward block of four rows part empty, H = 100 the
-    1-wide weight loads; the backward's cluster walk runs in each regime
-    (checked for K17 and K19 alike)."""
+    backward tolerance, one launch each, and a second forward call bitwise
+    equal. B = 1 takes one row a cluster, H = 16 two units a block, H =
+    100 and 300 unequal slices; both walks, forward and backward, run in
+    each regime (checked for K16, K18, K17 and K19 alike)."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan
 
+    _check_regime(gru_scan.KERNEL_GRU, b, h, "gru_fwd", 1, regime, card)
+    _check_regime(gru_scan.KERNEL_BI, b, h, "gru_fwd", 2, regime, card)
     _check_regime(gru_scan.KERNEL_GRU_BWD, b, h, "gru", 1, regime, card)
     _check_regime(gru_scan.KERNEL_BI_BWD, b, h, "gru", 2, regime, card)
 
@@ -851,15 +896,19 @@ def test_gru_scan_kernels(card, b, l, h, regime):
     ys2 = gru_scan.bigru_scan_plain(xproj2, h02, wzr2, wh2)
     h_prevs2 = torch.cat([h02[:, :, None], ys2[:, :, :-1]], dim=2)
     one = lambda *ts: [t[0] for t in ts]
-    assert _max_err([gru_scan.gru_scan(*one(xproj2, h02, wzr2, wh2))], [ys2[0]]) <= TOL
-    assert _max_err([gru_scan.bigru_scan(xproj2, h02, wzr2, wh2)], [ys2]) <= TOL
+    got1 = gru_scan.gru_scan(*one(xproj2, h02, wzr2, wh2))
+    got2 = gru_scan.bigru_scan(xproj2, h02, wzr2, wh2)
+    assert _max_err([got1], [ys2[0]]) <= TOL
+    assert _max_err([got2], [ys2]) <= TOL
+    assert torch.equal(gru_scan.gru_scan(*one(xproj2, h02, wzr2, wh2)), got1)
+    assert torch.equal(gru_scan.bigru_scan(xproj2, h02, wzr2, wh2), got2)
     bwd = one(xproj2, h_prevs2, dys2, wzr2, wh2)
     _bwd_close(gru_scan.gru_scan_bwd(*bwd), gru_scan.gru_scan_bwd_plain(*bwd), "gru_scan_bwd")
     args = (xproj2, h_prevs2, dys2, wzr2, wh2)
     _bwd_close(gru_scan.bigru_scan_bwd(*args), gru_scan.bigru_scan_bwd_plain(*args),
                "bigru_scan_bwd")
     torch.cuda.synchronize()
-    assert [k.launches - n for k, n in zip(kernels, before)] == [1, 1, 1, 1]
+    assert [k.launches - n for k, n in zip(kernels, before)] == [2, 1, 2, 1]
 
 
 @pytest.mark.parametrize("path", ["per_direction", "stacked"])

@@ -96,3 +96,51 @@ def test_instrument_k2_marks_a_single_block_step():
     assert names == ["__syncthreads", "attend", "context", "decoder_cell", "matvec mo_w",
                      "__syncthreads 2", "matvec lin_w", "end"]
     assert len(re.findall(r"g_phase_cycles\[\d+\]", text)) == len(names) + 1  # and the probe's
+
+
+GRU_WALK = ROOT / "seq2seq_attention_asr_tpu_torch" / "csrc" / "gru_walk.cuh"
+GRU_FWD_PHASES = ["staging wait", "zr product", "rh push", "candidate product", "h push"]
+
+
+def _gru_fwd_body(text):
+    return text.split("__device__ void gru_walk_fwd(", 1)[1].split("\n}\n", 1)[0]
+
+
+def test_instrument_gru_fwd_reads_the_clock_after_every_wait():
+    """The forward GRU walk's step: a cycle read after each of its
+    waits (the staging wait's block barrier, the gate products' block
+    barrier, the wait for the peers' r * h, the candidate product's block
+    barrier and the wait for the peers' h), each by thread 0 of block 0 of
+    direction 0, and the clock started once, before the step loop.
+    Outside the walk's body only the probe is added."""
+    tool = _tool()
+    src = GRU_WALK.read_text()
+    text, names = tool.instrument_gru_fwd(src)
+    assert names == GRU_FWD_PHASES
+    body = _gru_fwd_body(text)
+    assert "// [phase]" not in body
+    reads = re.findall(r"blockIdx.y == 0\) \{ const long long c_ = clock64\(\); "
+                       r"g_phase_cycles\[(\d+)\] \+= c_ - phase_t0_", body)
+    assert [int(i) for i in reads] == list(range(len(GRU_FWD_PHASES)))
+    assert body.count("long long phase_t0_ = clock64();") == 1
+    assert body.index("long long phase_t0_ = clock64();") < body.index(tool.GRU_FWD_LOOP)
+    lines = _gru_fwd_body(src).split("\n")
+    marked = [i for i, line in enumerate(lines) if "// [phase]" in line]
+    assert len(marked) == len(GRU_FWD_PHASES)
+    before = [[x.strip() for x in lines[:i] if x.strip()][-1] for i in marked]
+    assert before == ["__syncthreads();", "__syncthreads();", "mbar_wait(&bars[0], s & 1);",
+                      "__syncthreads();", "mbar_wait(&bars[1], s & 1);"]
+    # Every marker is inside the step loop.
+    loop = next(i for i, line in enumerate(lines) if line == tool.GRU_FWD_LOOP)
+    assert all(i > loop for i in marked)
+    head, rest = src.split(tool.GRU_FWD_SIG, 1)
+    assert text.replace(tool.PROBE + "\n", "", 1).startswith(head)
+    assert text.index(tool.PROBE) < text.index("namespace {")
+    assert text.endswith(rest.split("\n}\n", 1)[1])
+    for a, b in ("{}", "()"):
+        assert text.count(a) - text.count(b) == src.count(a) - src.count(b)
+
+
+def test_instrument_gru_fwd_refuses_a_walk_without_markers():
+    with pytest.raises(ValueError, match="no // \\[phase\\] markers in gru_walk_fwd"):
+        _tool().instrument_gru_fwd(re.sub(r"// \[phase\] .*", "", GRU_WALK.read_text()))

@@ -1,8 +1,9 @@
-"""The plan of the cluster walks of the backward recurrences (K6, K17,
-K19 and K9; ops/cuda/walk.py), pinned at the recipes' shapes on the H100's
-numbers: 232,448 bytes of opt-in shared memory a block and 15 resident
-clusters of 8 blocks, as cudaOccupancyMaxActiveClusters gives them on an
-H100 80GB HBM3. The plan is a plain function, so this runs on the CPU."""
+"""The plan of the cluster walks of the recurrences (ops/cuda/walk.py):
+the GRU forward (K1, K16, K18), the GRU backward (K6, K17, K19) and the
+LSTM backward (K9), pinned at the recipes' shapes on the H100's numbers:
+232,448 bytes of opt-in shared memory a block and 15 resident clusters of
+8 blocks, as cudaOccupancyMaxActiveClusters gives them on an H100 80GB
+HBM3. The plan is a plain function, so this runs on the CPU."""
 
 import pathlib
 import re
@@ -12,6 +13,9 @@ import pytest
 from seq2seq_attention_asr_tpu_torch.ops.cuda import walk
 
 SMEM, CLUSTERS = 232448, 15
+# The forward walk's kernels hold their two mbarriers (16 bytes) in static
+# shared memory, which their limits helper takes off the opt-in size.
+SMEM_FWD = SMEM - 16
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "seq2seq_attention_asr_tpu_torch" / "csrc"
 
 
@@ -60,10 +64,88 @@ def test_a_streamed_plan_takes_fewer_rows_until_it_fits():
 
 def test_the_kernels_lay_out_what_the_plan_counts():
     """csrc's walk_smem_bytes calls carry the same per-cell counts as
-    walk.py, so the plan's fit is the kernel's."""
-    for cell, path in (("gru", "gru_walk.cuh"), ("lstm", "bilstm_scan_bwd.cu")):
-        m = re.search(r"walk_smem_bytes\(p, H, (\d) \* H, (\d), (\d), (\d)\)",
-                      (CSRC / path).read_text())
-        assert m, path
+    walk.py, so the plan's fit is the kernel's: the backward GRU walk's
+    (gru_walk_smem_bytes), the forward's (gru_fwd_smem_bytes) and the
+    LSTM's."""
+    for cell, path, fn in (("gru", "gru_walk.cuh", "gru_walk_smem_bytes"),
+                           ("gru_fwd", "gru_walk.cuh", "gru_fwd_smem_bytes"),
+                           ("lstm", "bilstm_scan_bwd.cu", "lstm_walk_smem_bytes")):
+        m = re.search(fn + r"\(const WalkPlan& p, int H\) \{\n  return walk_smem_bytes\(p, H, "
+                      r"(\d) \* H, (\d) \* H, (\d), (\d)\);", (CSRC / path).read_text())
+        assert m, (path, fn)
         assert tuple(int(v) for v in m.groups()) == (walk.WIDTH[cell], walk.GATHERED[cell],
                                                      walk.STAGED[cell], walk.HELD[cell])
+
+
+def test_the_forward_kernels_size_their_launch_by_the_forward_cell():
+    """Each forward source sizes its shared memory with
+    gru_fwd_smem_bytes (through run_gru_fwd), and each wrapper asks
+    walk.py for the "gru_fwd" plan of its directions."""
+    walk_src = (CSRC / "gru_walk.cuh").read_text()
+    run = walk_src.split("cudaError_t run_gru_fwd(", 1)[1].split("\n}\n", 1)[0]
+    assert "gru_fwd_smem_bytes(p, g.H)" in run
+    for source in ("bigru_scan2.cu", "gru_scan.cu"):
+        assert "run_gru_fwd(" in (CSRC / source).read_text(), source
+    wrappers = (CSRC.parent / "ops" / "cuda" / "gru_scan.py").read_text()
+    assert 'walk.plan_on(KERNEL, b, h, "gru_fwd", 2, dev)' in wrappers
+    assert 'walk.plan_on(kernel, b, h, "gru_fwd", lead[0] if lead else 1, dev)' in wrappers
+
+
+# The forward walk (K1 two directions, K16 one, K18 two) at the recipes'
+# batches and H = 256, and at the widths of the card tests. K1 at B=128
+# takes 32 clusters of 8 rows in 3 waves; K16 at B=128 16 clusters of 8
+# rows in 2 waves, not 8 clusters of 16 rows in one (the forward's R = 16
+# step costs 2.8 times its R = 8 step). H = 300 still fits (hm = 38 units a
+# block: 136.8 KB of weights), H = 400 does not (240 KB), nor H = 1024.
+@pytest.mark.parametrize("b,h,directions,want", [
+    (1, 256, 2, walk.Plan(8, 1, True)),      # K1 serving one utterance
+    (8, 256, 2, walk.Plan(8, 2, True)),      # K1 serving a batch of 8
+    (16, 256, 2, walk.Plan(8, 4, True)),     # K1 and K18 at the recipes' batch
+    (128, 256, 2, walk.Plan(8, 8, True)),    # K1 at B=128: 3 waves
+    (1, 256, 1, walk.Plan(8, 1, True)),      # K16, one direction
+    (8, 256, 1, walk.Plan(8, 1, True)),
+    (16, 256, 1, walk.Plan(8, 2, True)),
+    (128, 256, 1, walk.Plan(8, 8, True)),     # K16 at B=128: 2 waves
+    (16, 300, 2, walk.Plan(8, 4, True)),     # unequal slices of 37 and 38 units, resident
+    (3, 400, 2, walk.Plan(8, 1, False)),     # just above the fit: streamed
+    (16, 1024, 2, walk.Plan(8, 4, False)),   # the widest state: streamed
+    (16, 1024, 1, walk.Plan(8, 2, False)),
+    (16, 387, 1, walk.Plan(8, 2, False)),     # resident only up to R = 1 at H = 387
+    (1, 387, 1, walk.Plan(8, 1, True)),
+    (3, 5, 2, walk.Plan(5, 1, True)),        # fewer units than blocks: C = H
+    (16, 7, 1, walk.Plan(7, 2, True)),
+    (5, 16, 2, walk.Plan(8, 1, True)),       # C = 8 blocks of 2 units
+])
+def test_forward_plan_at_the_recipes_shapes(b, h, directions, want):
+    assert walk.plan(b, h, "gru_fwd", directions, SMEM_FWD, CLUSTERS) == want
+
+
+def test_forward_smem_bytes_at_the_flagship_width():
+    """H = 256, C = 8: the 32 units' columns of Wzr and Wh (96 KiB), the
+    gathered h and r * h (R x 2H), two buffers of three staged inputs and
+    z per unit."""
+    assert walk.smem_bytes("gru_fwd", 256, 8, 1, True) == 4 * (32 * 768 + 512 + 7 * 32)
+    assert walk.smem_bytes("gru_fwd", 256, 8, 16, True) == 145408
+    assert walk.smem_bytes("gru_fwd", 256, 8, 16, False) == 145408 - 4 * 32 * 768
+    # The widest resident state at C = 8 is narrower as R grows.
+    fits = lambda h, r: walk.smem_bytes("gru_fwd", h, 8, r, True) <= SMEM_FWD
+    assert fits(387, 1) and not fits(388, 1)
+    assert fits(376, 4) and not fits(377, 4)
+
+
+def test_a_streamed_forward_plan_fits_every_width_the_kernels_take():
+    """Streamed at H = MAX_H, any R the cost picks fits: R x (2H + 7 H/C)
+    floats fit a block at R = 16."""
+    assert walk.smem_bytes("gru_fwd", 1024, 8, 16, False) <= SMEM_FWD
+    assert walk.plan(512, 1024, "gru_fwd", 2, SMEM_FWD, CLUSTERS) == walk.Plan(8, 8, False)
+
+
+@pytest.mark.parametrize("b,clusters,directions,rows", [
+    (128, 15, 1, 8), (128, 15, 2, 8), (256, 15, 1, 8), (16, 15, 2, 4), (16, 15, 1, 2),
+    (8, 15, 2, 2), (16, 2, 2, 8), (16, 1, 2, 8)])
+def test_forward_rows_take_the_fewest_measured_step_costs(b, clusters, directions, rows):
+    """The forward's waves * STEP_COST["gru_fwd"][R]. Doubling R at most
+    halves the waves, and a wave at R = 16 costs 2.75 times one at R = 8,
+    so the plan never takes R = 16: B=16 on one cluster at a time takes
+    R=8 in 4 waves (27.6) over R=16 in 2 (38.0)."""
+    assert walk.plan(b, 256, "gru_fwd", directions, SMEM_FWD, clusters).rows == rows

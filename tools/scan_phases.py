@@ -1,8 +1,10 @@
-"""Where a step of the decoder-scan backwards K11 and K13, or of the
-flagship's beam step K2, goes, on the card.
+"""Where a step of the decoder-scan backwards K11 and K13, of the
+flagship's beam step K2, or of the forward GRU walk behind K1, K16 and
+K18, goes, on the card.
 
     python3 tools/scan_phases.py [SOURCE ...]
     python3 tools/scan_phases.py --k2 [SOURCE ...]
+    python3 tools/scan_phases.py --gru-fwd [HEADER ...]
 
 Nsight Compute does not run on every machine, so this measures the walk
 from inside: it copies csrc/attention_scan_loc_lstm.cu (or each SOURCE
@@ -28,6 +30,18 @@ in that kernel, such as the single-block step before it ran on a
 cluster, gets one after each top-level statement that ends in a block
 barrier (STEP_BARRIERS), named by its call, and is called without the
 cluster size its C entry point does not take.
+
+With --gru-fwd it instruments gru_walk_fwd of csrc/gru_walk.cuh (or of
+each HEADER, a variant with the other headers and bigru_scan2.cu beside
+it), whose markers follow the step's block barriers and its waits for
+the peers' pushes, builds K1
+(bigru_scan2.cu) against the copy, and runs it on seeded random inputs at
+the flagship encoder's width (H = 256) at B = 1, L = 132 (serving) and
+B = 16 and 128, L = 144 (training): the plan it ran, the cycles a step
+of block 0 of cluster 0 of direction 0 by phase (the wait for the staged
+x, the gate products, the r * h push and the wait for the peers', the
+candidate product, the h push and its wait), the time per call (CUDA
+events over 20 calls) and the parity with the plain version (1e-4 abs).
 """
 
 from __future__ import annotations
@@ -130,6 +144,45 @@ def instrument_k2(src: str):
             names)
 
 
+GRU_FWD_SOURCE = build.CSRC_DIR / "gru_walk.cuh"
+GRU_FWD_SIG = ("__device__ void gru_walk_fwd(const GruFwdDir& a, int B, int L, int H, "
+               "bool resident,\n                             float* smem) {")
+GRU_FWD_LOOP = "  for (int s = 0; s < L; ++s) {"
+# K1's shapes in the flagship's paths: (B, L).
+GRU_FWD_SHAPES = ((1, 132), (16, 144), (128, 144))
+
+
+def instrument_gru_fwd(src: str):
+    """The header with a cycle read by thread 0 of block 0 of direction
+    0 at each phase marker of gru_walk_fwd, and the phases' names in
+    order."""
+    head, rest = src.split(GRU_FWD_SIG, 1)
+    body, tail = rest.split("\n}\n", 1)
+    names = MARK.findall(body)
+    if not names:
+        raise ValueError("no // [phase] markers in gru_walk_fwd")
+    counter = iter(range(len(names)))
+
+    def read(m):
+        return (f"{m.group(1)}if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) {{ "
+                f"const long long c_ = clock64(); g_phase_cycles[{next(counter)}] += c_ - "
+                f"phase_t0_; phase_t0_ = c_; }}")
+
+    body = MARK.sub(read, body)
+    if body.count(GRU_FWD_LOOP) != 1:
+        raise ValueError("gru_walk_fwd has no single step loop")
+    body = body.replace(GRU_FWD_LOOP, "  long long phase_t0_ = clock64();\n" + GRU_FWD_LOOP, 1)
+    head = head.replace("namespace {", PROBE + "\nnamespace {", 1)
+    return head + GRU_FWD_SIG + body + "\n}\n" + tail, [n for _, n in names]
+
+
+def _card() -> str:
+    """The card's name, power limit and top SM clock (nvidia-smi)."""
+    return subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit,clocks.max.sm",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
 def cases():
     """chip_smoke.py's K13 cases at flagship_loc's training shape and K11
     cases at the conv+BiLSTM recipe's, at B=16 and 128."""
@@ -155,9 +208,7 @@ def main(sources) -> int:
     if not torch.cuda.is_available():
         print("scan_phases: no CUDA device is available", file=sys.stderr)
         return 1
-    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit,clocks.max.sm",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip()
+    card = _card()
     kernels = {}
     torch.backends.cuda.matmul.allow_tf32 = False
     for src in map(pathlib.Path, sources):
@@ -246,9 +297,7 @@ def main_k2(sources) -> int:
     if not torch.cuda.is_available():
         print("scan_phases: no CUDA device is available", file=sys.stderr)
         return 1
-    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit,clocks.max.sm",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip()
+    card = _card()
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels = {}
     for src in map(pathlib.Path, sources):
@@ -314,7 +363,79 @@ def main_k2(sources) -> int:
     return 0
 
 
+def main_gru_fwd(headers) -> int:
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan, walk
+
+    if not torch.cuda.is_available():
+        print("scan_phases: no CUDA device is available", file=sys.stderr)
+        return 1
+    card = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = {}
+    for src in map(pathlib.Path, headers):
+        text, names = instrument_gru_fwd(src.read_text())
+        others = {h.name: h.read_text() for h in sorted(src.parent.glob("*.cuh")) if h != src}
+        k1 = (src.parent / "bigru_scan2.cu").read_text()
+        digest = hashlib.sha1((text + "".join(others.values()) + k1).encode()).hexdigest()[:12]
+        copy = build.BUILD_DIR / "phases" / digest
+        copy.mkdir(parents=True, exist_ok=True)
+        for name, header in others.items():
+            (copy / name).write_text(header)
+        (copy / "gru_walk.cuh").write_text(text)
+        out = copy / f"bigru_scan2_{digest}.cu"
+        out.write_text(k1)
+        kernels[src] = (names, build.Kernel("K1 phases", str(out), "bigru_scan2_fwd",
+                                            gru_scan.KERNEL.argtypes))
+    t0 = time.perf_counter()
+    build.build_all(k for _, k in kernels.values())
+    print(f"scan_phases: built {len(kernels)} copies in {time.perf_counter() - t0:.1f} s ({card})")
+    h, dev = 256, torch.device("cuda")
+    default = gru_scan.KERNEL
+    for b, l in GRU_FWD_SHAPES:
+        gen = torch.Generator().manual_seed(b * 1000 + l)
+        rnd = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen) * scale).to(dev)
+        args = (rnd(b, l, 3 * h), rnd(b, l, 3 * h), rnd(2, h, 2 * h, scale=h ** -0.5),
+                rnd(2, h, h, scale=h ** -0.5))
+        want = gru_scan.bigru_scan2_plain(*args)
+        for src, (names, k) in kernels.items():
+            for line in k.build_log.splitlines():
+                if b == 1 and ("spill" in line or "registers" in line):
+                    print(f"scan_phases {src} K1: {line.split(':', 1)[-1].strip()}")
+            plan = walk.plan_on(k, b, h, "gru_fwd", 2, dev)
+            gru_scan.KERNEL = k
+            try:
+                read = k.helper("read_phase_cycles", [ctypes.c_void_p, ctypes.c_int])
+                got = gru_scan.bigru_scan2(*args)
+                torch.cuda.synchronize()
+                err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                cycles = (ctypes.c_ulonglong * 32)()
+                read(cycles, 1)
+                gru_scan.bigru_scan2(*args)
+                torch.cuda.synchronize()
+                read(cycles, 1)
+                start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                for _ in range(20):
+                    gru_scan.bigru_scan2(*args)
+                stop.record()
+                torch.cuda.synchronize()
+            finally:
+                gru_scan.KERNEL = default
+            per_step = [n / l for n in cycles[:len(names)]]
+            print(f"scan_phases {src} K1 B={b} L={l} H={h} (plan C={plan.cluster} R={plan.rows} "
+                  f"{'resident' if plan.resident else 'streamed'}): "
+                  f"{start.elapsed_time(stop) / 20:.4f} ms per call, max abs err {err:.3e} "
+                  f"({'ok' if err <= 1e-4 else 'FAILS'}); cycles a step of block 0: "
+                  f"{sum(per_step):.0f} = " + ", ".join(
+                      f"{p} {n:.0f}" for p, n in zip(names, per_step)) + f" ({card})")
+            if err > 1e-4:
+                return 1
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gru-fwd"]:
+        sys.exit(main_gru_fwd(sys.argv[2:] or [str(GRU_FWD_SOURCE)]))
     if sys.argv[1:2] == ["--k2"]:
         sys.exit(main_k2(sys.argv[2:] or [str(K2_SOURCE)]))
     sys.exit(main(sys.argv[1:] or [str(SOURCE)]))

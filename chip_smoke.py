@@ -29,7 +29,8 @@ Phases, each fatal when it fails:
      with every position masked (alpha and c exactly 0), K = 1 and 8,
      B = 16 and K = 8 with L = 1500, each with two calls bitwise equal
      and one launch a call; K9 and K11 (the
-     backward tolerance) and K10 (1e-4 abs) at the conv+BiLSTM recipe's
+     backward tolerance; K11 and K15 also twice, the two calls bitwise
+     equal, one launch each) and K10 (1e-4 abs) at the conv+BiLSTM recipe's
      training shape, B = 16, 144 frames (L' = 16), T = 56, on the conv
      stack's and the encoder's output of the same batch; K12 (1e-4 abs)
      and K13 (the backward tolerance), the location-aware GRU decoder
@@ -95,11 +96,17 @@ Phases, each fatal when it fails:
      L = 144 (seeded random inputs, H = 256) the parity, the device time,
      the walk's time per step and the plan it ran (cluster size, rows per
      cluster, resident or streamed, clusters and waves), and K1 at B = 16
-     and 128 under each row count the plan can take; for K11
-     and K13 at B = 16 and 128 (parity at B = 128 too) the device time by
-     stage (the walk, the reduction over the steps, the sum of the rows'
-     location-term partials), the walk's time a step and the scratch
-     bytes;
+     and 128 under each row count the plan can take; for K13 at B = 16
+     and 128 (parity at B = 128 too) the device time by stage (the walk,
+     the reduction over the steps, the sum of the rows' location-term
+     partials), the walk's time a step and the scratch bytes; for K11 and
+     K15 at B = 16 and 128 (parity, a second call bitwise equal and one
+     launch a call at B = 128 too) the device time by stage (the recompute
+     pre-pass, the walk on thread-block clusters, the reduction over the
+     steps, the one over the walk's partials), the walk's time a step,
+     the plan it ran (C blocks and R rows a cluster, clusters and waves)
+     and the scratch bytes, and the walk under each (C, R) that fits,
+     each held to the plain version and run twice;
   9. the p50 request latency over 10 requests of each model, and the
      device idle share: 1 - (device time of one request) / p50; the p50
      train step of each recipe over 10
@@ -123,9 +130,10 @@ device time of the forward GRU walk's kernels K1, K16 and K18 at B = 1,
 L = 132 and B = 16 and 128, L = 144, of the flagship's beam step K2 and of K8's two instances on
 the flagship's widths at b = 1 and 8, the flagship's serving p50 and device time of
 one request at b = 1 and 8, the time per call of each teacher-forced
-decoder scan (K4, K5, K10-K15) at its recipe's training shape (K13 at
-B = 128 too) and the p50 train step of each of the four trained
-configurations at B = 16 and 128.
+decoder scan (K4, K5, K10-K15) at its recipe's training shape (K11, K13
+and K15 at B = 128 too) and the device time of K11 and K15, and the p50
+train step of each of the four trained configurations at B = 16 and
+128.
 """
 
 from __future__ import annotations
@@ -191,12 +199,16 @@ CB_EOS_BIASES = (0.01, 0.02, 0.04, 0.08, 0.16, 0.32, 0.64)
 # and a reduction (atb_kernel).
 STEP_KERNELS = ("bigru_scan2_bwd_kernel", "gru_gates_kernel", "bigru_scan2_kernel",
                 "scan_fwd_kernel", "scan_gru_bwd_kernel", "atb_kernel")
+# The LSTM decoder scans' backwards (K11, K15) start a recompute pre-pass
+# (lstm_decoder_prepass_kernel three times), their walk and two reductions.
 CB_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "bilstm_scan_kernel",
-                   "loc_lstm_fwd_kernel", "loc_lstm_bwd_kernel", "atb_kernel")
+                   "loc_lstm_fwd_kernel", "loc_lstm_bwd_kernel", "lstm_decoder_prepass_kernel",
+                   "atb_kernel")
 LOC_STEP_KERNELS = ("bigru_scan2_bwd_kernel", "gru_gates_kernel", "bigru_scan2_kernel",
                     "scan_loc_gru_fwd_kernel", "scan_loc_gru_bwd_kernel", "atb_kernel")
 CBC_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "bilstm_scan_kernel",
-                    "scan_lstm_fwd_kernel", "scan_lstm_bwd_kernel", "atb_kernel")
+                    "scan_lstm_fwd_kernel", "scan_lstm_bwd_kernel", "lstm_decoder_prepass_kernel",
+                    "atb_kernel")
 # The flagship encoder's three BiGRU layers by each path (phase 7): the
 # port's flip-free bigru_layer (K1, K6), one gru_layer per direction
 # (K16, K17) and the direction-stacked scan (K18, K19); the launches of
@@ -224,10 +236,16 @@ WALKS = {"bigru_scan2_bwd": ("bigru_scan2_bwd_kernel", "gru_gates_kernel", "gru"
          "bigru_scan_bwd": ("gru2_stacked_bwd_kernel", "gru_gates_kernel", "gru"),
          "bilstm_scan_bwd": ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "lstm")}
 GRU_GATES = ("gru_gates_kernel", "gru_gates_kernel")  # two pre-pass launches a call
-# The location-aware decoder scans' backwards (K11, K13): each call runs
-# its walk, then atb_kernel over the steps, then atb_kernel over the B
-# rows' location-term partials.
-LOC_BWDS = ("attention_decode_scan_loc_lstm_bwd", "attention_decode_scan_loc_bwd")
+# The location-aware GRU decoder scan's backward (K13): each call runs its
+# walk, then atb_kernel over the steps, then atb_kernel over the B rows'
+# location-term partials.
+LOC_BWDS = ("attention_decode_scan_loc_bwd",)
+# The LSTM decoder scans' backwards (K11, K15): each call runs the
+# recompute pre-pass (three launches), the walk on thread-block clusters,
+# then atb_kernel over the steps and atb_kernel over the walk's partials.
+LSTM_BWDS = {"attention_decode_scan_loc_lstm_bwd": "loc_lstm_bwd_kernel",
+             "attention_decode_scan_lstm_bwd": "scan_lstm_bwd_kernel"}
+PREPASS = ("lstm_decoder_prepass_kernel",) * 3
 
 REPLACES = {
     "bigru_scan2": "seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:666",
@@ -435,6 +453,20 @@ def cpu_transcribe(tr, pcms):
     finally:
         beam.fused_attention_step = step
     return out, len(calls)
+
+
+def check_repeat(c, kernel, got, tag: str) -> None:
+    """A second call of case `c` gives the bits of the first (`got`:
+    fixed-order sums), and each call is exactly one launch of `kernel`."""
+    before = kernel.launches
+    with torch.no_grad():
+        again = c.kernel(*c.args)
+    torch.cuda.synchronize()
+    if kernel.launches != before + 1:
+        raise SystemExit(f"{c.label} {tag}: {kernel.launches - before} launches in a call")
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise SystemExit(f"{c.label} {tag}: two calls differ")
+    print(f"repeat {c.label} {tag}: two calls bitwise equal, one launch each")
 
 
 def max_err(got, want) -> float:
@@ -989,17 +1021,20 @@ def cb_train_cases(params, cfg, batch, gen: torch.Generator):
 
 # The kernels of each teacher-forced decoder scan that shares
 # attention_scan_loc_lstm.cu: (forward name, its trace symbols, backward
-# name, its trace symbols: the walk, then one reduction over the steps
-# and, with the location term, one over the (step, position) pairs).
+# name, its trace symbols: for the LSTM the pre-pass, the walk, then one
+# reduction over the steps and one over the walk's partials; for the GRU
+# the walk, the steps' reduction and one over the rows' location-term
+# partials).
 DECODER_SCANS = {
     "loc_lstm": ("attention_decode_scan_loc_lstm_fwd", ("loc_lstm_fwd_kernel",),
                  "attention_decode_scan_loc_lstm_bwd",
-                 ("loc_lstm_bwd_kernel", "atb_kernel", "atb_kernel")),
+                 PREPASS + ("loc_lstm_bwd_kernel", "atb_kernel", "atb_kernel")),
     "loc": ("attention_decode_scan_loc_fwd", ("scan_loc_gru_fwd_kernel",),
             "attention_decode_scan_loc_bwd",
             ("scan_loc_gru_bwd_kernel", "atb_kernel", "atb_kernel")),
     "lstm": ("attention_decode_scan_lstm_fwd", ("scan_lstm_fwd_kernel",),
-             "attention_decode_scan_lstm_bwd", ("scan_lstm_bwd_kernel", "atb_kernel")),
+             "attention_decode_scan_lstm_bwd",
+             PREPASS + ("scan_lstm_bwd_kernel", "atb_kernel", "atb_kernel")),
 }
 
 
@@ -1326,18 +1361,15 @@ def walk_split(c, kernel, tag, iters: int, card: str) -> None:
           f"clusters ({clusters} resident at once, {smem} bytes of shared memory a block) ({card})")
 
 
-def loc_split(c, tag: str, iters: int, card: str) -> None:
-    """Phase 8 for K11 and K13 (`c`, a case of LOC_BWDS): the device time
-    by stage over `iters` traced calls (the walk, the reduction over the
-    steps, the sum of the rows' location-term partials, told apart by
-    their order in each call), the walk's time a step, and the scratch the
-    call takes (attention_scan.stash_floats)."""
+def _stage_times(c, order, iters: int):
+    """Device ms of the stages of one call of `c` over `iters` traced calls:
+    `order` lists (the trace symbol, its stage) of the kernels one call
+    launches, in launch order; a stage's records are told apart by their
+    order in the call. Returns ({stage: mean ms}, {stage: records kept})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
-
-    walk_sym = c.symbols[0]
+    symbols = {sym for sym, _ in order}
     with torch.no_grad():
         c.kernel(*c.args)
         torch.cuda.synchronize()
@@ -1345,33 +1377,123 @@ def loc_split(c, tag: str, iters: int, card: str) -> None:
             for _ in range(iters):
                 c.kernel(*c.args)
     events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                     and (walk_sym in e.name or "atb_kernel" in e.name)),
+                     and any(sym in e.name for sym in symbols)),
                     key=lambda e: e.time_range.start)
-    stages, prev = {"walk": [], "steps": [], "loc": []}, None
+    stages, at = {stage: [] for _, stage in order}, -1
     for e in events:
-        # A record the trace dropped at its ends leaves the next call's
-        # order intact: an atb_kernel after the walk is the steps'.
-        prev = "walk" if walk_sym in e.name else "steps" if prev == "walk" else "loc"
-        stages[prev].append(e.time_range.elapsed_us() / 1e3)
-    ms = {k: statistics.mean(v) if v else float("nan") for k, v in stages.items()}
-    lstm = c.name == "attention_decode_scan_loc_lstm_bwd"
+        # The next position in the call whose symbol this record holds: a
+        # record the trace dropped at its ends leaves the order intact.
+        at = next(k for k in range(at + 1, at + 1 + len(order))
+                  if order[k % len(order)][0] in e.name) % len(order)
+        stages[order[at][1]].append(e.time_range.elapsed_us() / 1e3)
+    n_of = {stage: sum(1 for _, s in order if s == stage) for stage in stages}
+    ms = {k: n_of[k] * statistics.mean(v) if v else float("nan") for k, v in stages.items()}
+    return ms, {k: len(v) for k, v in stages.items()}
+
+
+def loc_split(c, tag: str, iters: int, card: str) -> None:
+    """Phase 8 for K13 (`c`, a case of LOC_BWDS): the device time by stage
+    over `iters` traced calls (the walk, the reduction over the steps, the
+    sum of the rows' location-term partials), the walk's time a step, and
+    the scratch the call takes (attention_scan.stash_floats)."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    ms, kept = _stage_times(c, ((c.symbols[0], "walk"), ("atb_kernel", "steps"),
+                                ("atb_kernel", "loc")), iters)
     vh, yin = c.args[0], c.args[3]
     b, l, s_dim = vh.shape
     t_len, st = yin.shape[1], yin.shape[2]
     # decoder_scan_cases' order: vh, h, mask, yin, the step's 7 weights,
-    # the cell's (3 for the LSTM, 2 for the GRU), then wconv, bconv, U.
-    at = 4 + 7 + (3 if lstm else 2)
-    wconv, bconv, u = c.args[at:at + 3]
+    # the GRU's 2, then wconv, bconv, U.
+    wconv, bconv, u = c.args[13:16]
     f, fm = wconv.shape
     if tuple(bconv.shape) != (fm,) or tuple(u.shape) != (fm, s_dim):
         raise SystemExit(f"loc_split: {c.label}'s location-term weights are not where expected")
-    floats = attention_scan.stash_floats(lstm, b, t_len, l, s_dim, st, fm, f)
-    walk_ms = ms["walk"]
-    print(f"time {c.label} {tag} by stage: walk {walk_ms:.4f} ms ({1e3 * walk_ms / t_len:.2f} "
-          f"us a step over {t_len} steps), the steps' reduction {ms['steps']:.4f} ms, the "
-          f"location term's row sums {ms['loc']:.4f} ms (records kept: "
-          f"{', '.join(f'{k} {len(v)}' for k, v in stages.items())} of {iters}); scratch "
+    floats = attention_scan.stash_floats(False, b, t_len, l, s_dim, st, fm, f)
+    print(f"time {c.label} {tag} by stage: walk {ms['walk']:.4f} ms "
+          f"({1e3 * ms['walk'] / t_len:.2f} us a step over {t_len} steps), the steps' reduction "
+          f"{ms['steps']:.4f} ms, the location term's row sums {ms['loc']:.4f} ms (records kept: "
+          f"{', '.join(f'{k} {n}' for k, n in kept.items())} of {iters}); scratch "
           f"{floats} floats ({4 * floats / 1e6:.1f} MB) ({card})")
+
+
+def lstm_case_dims(c):
+    """(B, L, S, A, St, FM, F) of a K11 or K15 case of decoder_scan_cases."""
+    vh, h, yin = c.args[0], c.args[1], c.args[3]
+    b, l, s_dim = vh.shape
+    fm, f = 0, 0
+    if c.name == "attention_decode_scan_loc_lstm_bwd":
+        f, fm = c.args[14].shape  # after vh, h, mask, yin, the 7 step and 3 cell weights
+    return b, l, s_dim, h.shape[2], yin.shape[2], fm, f
+
+
+def lstm_split(c, kernel, tag: str, iters: int, card: str) -> None:
+    """Phase 8 for K11 and K15 (`c`, a case of LSTM_BWDS): the device time
+    by stage over `iters` traced calls (the recompute pre-pass, the walk,
+    the reduction over the steps, the one over the walk's partials), the
+    walk's time a step, the plan it ran and the scratch the call takes."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    walk_sym = LSTM_BWDS[c.name]
+    ms, kept = _stage_times(c, tuple((sym, "pre-pass") for sym in PREPASS) + (
+        (walk_sym, "walk"), ("atb_kernel", "steps"), ("atb_kernel", "partials")), iters)
+    b, l, s_dim, a, st, fm, f = lstm_case_dims(c)
+    t_len = c.args[3].shape[1]
+    plan = attention_scan.scan_plan_on(kernel, b, l, s_dim, a, st, fm, f, c.args[0].device)
+    smem, resident = attention_scan.scan_limits(kernel, c.args[0].device)
+    floats = attention_scan.stash_floats(True, b, t_len, l, s_dim, st, fm, f, plan.partials(b))
+    print(f"time {c.label} {tag} by stage: pre-pass {ms['pre-pass']:.4f} ms, walk "
+          f"{ms['walk']:.4f} ms ({1e3 * ms['walk'] / t_len:.2f} us a step over {t_len} steps), "
+          f"the steps' reduction {ms['steps']:.4f} ms, the partials' {ms['partials']:.4f} ms "
+          f"(records kept: {', '.join(f'{k} {n}' for k, n in kept.items())} of {iters} calls); "
+          f"plan C={plan.cluster} R={plan.rows}, {-(-b // plan.rows)} clusters in {plan.waves} "
+          f"waves ({resident} resident at once, "
+          f"{attention_scan.walk_smem_bytes(plan.rows, plan.cluster, l, s_dim, a, st, fm, f)} of "
+          f"{smem} bytes of shared memory a block); scratch {floats} floats "
+          f"({4 * floats / 1e6:.1f} MB) ({card})")
+
+
+def lstm_plan_sweep(c, kernel, tag: str, card: str) -> None:
+    """Phase 8: K11 or K15 (`c`) under each (C, R) the walk can take that
+    fits the device, each held to the plain version and run twice with the
+    same bits: the walk's device time, its time a step, and a step and
+    wave. attention_scan.STEP_COST is read from these times."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    walk_sym = LSTM_BWDS[c.name]
+    b, l, s_dim, a, st, fm, f = lstm_case_dims(c)
+    t_len = c.args[3].shape[1]
+    smem, resident = attention_scan.scan_limits(kernel, c.args[0].device)
+    with torch.no_grad():
+        want = c.plain(*c.args)
+    plan = attention_scan.scan_plan_on(kernel, b, l, s_dim, a, st, fm, f, c.args[0].device)
+    call = lambda: c.kernel(*c.args)
+    line = []
+    default = attention_scan.scan_plan_on
+    try:
+        for cluster in attention_scan.WALK_CLUSTERS:
+            for rows in attention_scan.WALK_ROWS:
+                if resident[cluster] < 1 or attention_scan.walk_smem_bytes(
+                        rows, cluster, l, s_dim, a, st, fm, f) > smem:
+                    continue
+                run = attention_scan.ScanPlan(cluster, rows)
+                attention_scan.scan_plan_on = lambda *_, run=run: run
+                with torch.no_grad():
+                    got, again = call(), call()
+                torch.cuda.synchronize()
+                excess = bwd_err(got, want)
+                if excess > 5e-5 or not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise SystemExit(f"{c.label} {tag} with {run}: disagrees with its plain "
+                                     f"version ({excess:.3e}) or between two calls")
+                with torch.no_grad():
+                    ms = device_parts(call, PREPASS + (walk_sym,), 10)[walk_sym]
+                waves = -(-(-(-b // rows)) // resident[cluster])
+                line.append(f"C={cluster} R={rows} {ms:.4f} ms, {1e3 * ms / t_len:.2f} us a step "
+                            f"in {waves} waves ({1e3 * ms / t_len / waves:.2f} a wave)")
+    finally:
+        attention_scan.scan_plan_on = default
+    print(f"time {c.label} walk by plan {tag} (parity and repeat hold at each; the plan takes "
+          f"C={plan.cluster} R={plan.rows}): " + "; ".join(line) + f" ({card})")
 
 
 def k6_plan_sweep(kernel, b: int, card: str) -> None:
@@ -1772,9 +1894,10 @@ def tree_timing() -> dict:
     shape, b=1 and 8; the flagship's
     serving p50 and device time of one request (exact=False, b=1 and 8);
     of each teacher-forced decoder scan, forward and backward (K4, K5,
-    K10-K15), at its recipe's training shape (B=16; K13 at B=128 too);
-    and the p50 train step of each trained configuration at B=16 and
-    128."""
+    K10-K15), at its recipe's training shape (B=16; K11, K13 and K15 at
+    B=128 too), and the device time of K11 and K15 (every device op of a
+    call); and the p50 train step of each trained configuration at B=16
+    and 128."""
     from seq2seq_attention_asr_tpu_torch import interop
     from seq2seq_attention_asr_tpu_torch.models import registry
     from seq2seq_attention_asr_tpu_torch.train import experiment
@@ -1812,11 +1935,14 @@ def tree_timing() -> dict:
             (conv_bilstm_content, cbc_train_cases, "conv_bilstm_content")):
         params_cpu = recipe().init_params(torch.Generator().manual_seed(SEED), device="cpu")
         params = interop.to_torch(params_cpu, "cuda")
-        for b in (TRAIN_B, BIG_B) if label == "flagship_loc" else (TRAIN_B,):
+        for b in (TRAIN_B,) if label == "chorowski" else (TRAIN_B, BIG_B):
             for c in make_cases(params, recipe().build_model().cfg, train_batch(b, SEED + 3), gen):
                 if c.name.startswith("attention_decode_scan") and (b == TRAIN_B or c.backward):
                     with torch.no_grad():
                         out[f"{c.name} B={b} ms per call"] = time_ms(lambda: c.kernel(*c.args), 10)
+                        if c.name in LSTM_BWDS:  # every device op of a call, in either tree
+                            out[f"{c.name} B={b} device ms"] = device_ms(
+                                lambda: c.kernel(*c.args), None, 10)
         del params
         for b in (TRAIN_B, BIG_B):
             out[f"{label} step B={b} p50 ms"] = statistics.median(timed_steps(recipe, params_cpu,
@@ -1942,13 +2068,8 @@ def main(parent=None) -> int:
                 want = c.plain(*c.args)
             torch.cuda.synchronize()
             errs[c.name] = max(errs[c.name], c.check(got, want, shape_tag(b)))
-            if c.name in FWD_WALKS:  # fixed-order sums: a second call gives the same bits
-                with torch.no_grad():
-                    again = c.kernel(*c.args)
-                torch.cuda.synchronize()
-                if not all(torch.equal(g, a) for g, a in zip(got, again)):
-                    raise SystemExit(f"{c.label} {shape_tag(b)}: two calls differ")
-                print(f"repeat {c.label} {shape_tag(b)}: two calls bitwise equal")
+            if c.name in FWD_WALKS or c.name in LSTM_BWDS:
+                check_repeat(c, kernels[c.name], got, shape_tag(b))
     errs["fused_attention_step"] = max(errs["fused_attention_step"], k2_edge_phase(
         params["decoder"], cfg.attention_config(), kernels["fused_attention_step"], gen))
 
@@ -2031,6 +2152,9 @@ def main(parent=None) -> int:
                 walk_split(c, kernels[c.name], tag, n, card)
             if c.name in LOC_BWDS:
                 loc_split(c, tag, n, card)
+            if c.name in LSTM_BWDS:
+                lstm_split(c, kernels[c.name], tag, n, card)
+                lstm_plan_sweep(c, kernels[c.name], tag, card)
             if c.name == "bilstm_scan_bwd":
                 with torch.no_grad():
                     lib_call = time_ms(c.library, n)
@@ -2051,20 +2175,28 @@ def main(parent=None) -> int:
     for b in (TRAIN_B, BIG_B):
         k6_plan_sweep(kernels["bigru_scan2_bwd"], b, card)
     fwd_walk_timing(kernels, errs, card)
-    # K11 and K13 at B=128: parity, and the device time by stage.
+    # K11, K13 and K15 at B=128: parity, the device time by stage and, for
+    # K11 and K15, a second call and the walk under each plan.
     big = train_batch(BIG_B, SEED + 3)
     big_cases = loc_train_cases(interop.to_torch(loc_params_cpu, "cuda"),
                                 flagship_loc().build_model().cfg, big, gen)
     big_cases += cb_train_cases(cb_params, cb_model.cfg, big, gen)
+    big_cases += cbc_train_cases(interop.to_torch(cbc_params_cpu, "cuda"),
+                                 conv_bilstm_content().build_model().cfg, big, gen)
     for c in big_cases:
-        if c.name in LOC_BWDS:
+        if c.name in LOC_BWDS or c.name in LSTM_BWDS:
             tag = f"B={BIG_B} L={TRAIN_L} T={TRAIN_T}"
             with torch.no_grad():
                 got = c.kernel(*c.args)
                 want = c.plain(*c.args)
             torch.cuda.synchronize()
             errs[c.name] = max(errs[c.name], c.check(got, want, tag))
-            loc_split(c, tag, 10, card)
+            if c.name in LOC_BWDS:
+                loc_split(c, tag, 10, card)
+            else:
+                check_repeat(c, kernels[c.name], got, tag)
+                lstm_split(c, kernels[c.name], tag, 10, card)
+                lstm_plan_sweep(c, kernels[c.name], tag, card)
     del big_cases
     for b in (1, 8):
         k2_plan_sweep(next(c for c in all_cases[b] if c.label == "fused_attention_step"), card)

@@ -1,17 +1,19 @@
 // Teacher-forced attention decoder scans with the location term or the
-// LSTM cell, each a forward and a backward kernel over one templated
-// body (scan_fwd<kLstm, kLoc>, scan_bwd<kLstm, kLoc>):
+// LSTM cell, each a forward and a backward kernel:
 //
-//   <LSTM, location>  K10 loc_lstm_fwd_kernel, K11 loc_lstm_bwd_kernel;
+//   <LSTM, location>  K10 loc_lstm_fwd_kernel, K11 loc_lstm_bwd_kernel<R>;
 //                     entry points attention_decode_scan_loc_lstm_{fwd,bwd}
 //   <GRU, location>   K12 scan_loc_gru_fwd_kernel, K13 scan_loc_gru_bwd_kernel;
 //                     entry points attention_decode_scan_loc_{fwd,bwd}
-//   <LSTM, content>   K14 scan_lstm_fwd_kernel, K15 scan_lstm_bwd_kernel;
+//   <LSTM, content>   K14 scan_lstm_fwd_kernel, K15 scan_lstm_bwd_kernel<R>;
 //                     entry points attention_decode_scan_lstm_{fwd,bwd}
 //
-// Each instance's kernels are thin __global__ functions of their own, so
-// that a profiler trace names which instance ran. The content-only GRU
-// decoder's scan is K4/K5 (attention_scan.cu).
+// The forwards are one templated body (scan_fwd<kLstm, kLoc>), K13 has a
+// body of its own (scan_bwd), and K11 and K15 share the LSTM walk on a
+// thread-block cluster (lstm_walk<R, kLoc>). Each instance's kernels are
+// thin __global__ functions of their own, so that a profiler trace names
+// which instance ran. The content-only GRU decoder's scan is K4/K5
+// (attention_scan.cu).
 //
 // They replace the Pallas kernels of
 // seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py, whose forwards
@@ -28,63 +30,87 @@
 // PyTorch twins: ops/cuda/attention_scan.py attention_decode_scan_{loc_lstm,
 // loc,lstm}_plain and their _bwd_plain.
 //
-// What bounds them: the T steps are a chain, and every step reads the
+// The forwards and K13: the T steps are a chain, and every step reads the
 // step's weights from L2: at the conv+BiLSTM recipe the LSTM's gates
 // (w_h and w_x, 2 x 400 x 1600 floats), dec_in, c_in and Ws, about 7 MB;
 // at the flagship's widths the GRU's w_zr and w_h, dec_in, c_in and Ws,
-// about 2.6 MB. No SM holds them; the backward reads them twice (the
-// recompute and the transposed products). One block per batch row keeps
-// the state and every intermediate of a step in shared memory and runs
-// the step from the pieces the beam step K8 uses (attention_common.cuh:
-// attend or attend_loc, which forms the location features per encoder
-// position and never stores UF; context; decoder_cell for the GRU;
-// lstm_preacts, whose gates are s_prev @ w_h plus r @ w_x accumulated in
-// place). With one block per row, a step's time is one SM's L2 read rate
-// over those bytes; batching rows per block cuts the bytes but not that
-// time, and splitting a step's products over a cluster of blocks is the
-// way past it.
+// about 2.6 MB. One block per batch row keeps the state and every
+// intermediate of a step in shared memory and runs the step from the
+// pieces the beam step K8 uses (attention_common.cuh: attend or
+// attend_loc, which forms the location features per encoder position and
+// never stores UF; context; decoder_cell for the GRU; lstm_preacts, whose
+// gates are s_prev @ w_h plus r @ w_x accumulated in place). A step's time
+// is one SM's L2 read rate over those bytes.
 //
-// The backward walks t = T-1..0. It recomputes the step from s_prev,
-// mem_prev (LSTM) and alpha_prev (location term), the saved sequences
-// shifted by one and zero at step 0, and the saved c, and takes alpha
-// itself from the saved alpha sequence, so it runs no softmax; then it
-// backprops the cell (the LSTM with the dmem chain carried in shared
-// memory; the GRU through gru_cell_bwd, which K5 shares), the
-// decoder-input MLP, the context, the masked softmax, the energies and
-// the location term, whose input alpha_prev is the previous step's
-// output: that cotangent is carried into step t-1. ds is carried in
-// shared memory. dvh and dh are summed over the steps in global memory,
-// each row's slice by its own block. The weight gradients of the step's
-// products are sums of outer products over the B*T steps: the walk
-// writes each step's operands and cotangents to a stash, and
-// reduce_atb.cuh forms the products and the bias sums afterwards,
-// deterministically, in one launch.
+// K13 walks t = T-1..0 in one block per row. It recomputes the step from
+// s_prev and alpha_prev, the saved sequences shifted by one and zero at
+// step 0, and the saved c, and takes alpha itself from the saved alpha
+// sequence, so it runs no softmax; then it backprops the GRU cell
+// (gru_cell_bwd, which K5 shares), the decoder-input MLP, the context,
+// the masked softmax, the energies and the location term, whose input
+// alpha_prev is the previous step's output: that cotangent is carried
+// into step t-1. ds is carried in shared memory. dvh and dh are summed
+// over the steps in global memory, each row's slice by its own block.
+// The weight gradients of the step's products are sums of outer products
+// over the B*T steps: the walk writes each step's operands and cotangents
+// to a stash, and reduce_atb.cuh forms the products and the bias sums
+// afterwards, deterministically, in one launch. The location term's
+// weight gradients, dU, dwconv and dbconv, are sums over the B*T*L (step,
+// encoder position) pairs; as the TPU kernel does (_bwd_kernel_loc
+// :779-791), each block sums its own row's T*L pairs in the walk: dU in
+// the energies pass by the thread that forms dz(l, sc), in registers over
+// the step's L positions, where FM is at most kLocQ and a multiple of 4,
+// else in a pass of its own; dwconv and dbconv from the step's dfeat. A
+// second reduce_atb.cuh launch sums the B rows' partials in a fixed
+// order. What bounds K13's walk: about half of a step is the recompute
+// and the cell's transposed products, which read the step's weights from
+// L2 as K5 does; most of the rest is the energies and dfeat passes.
 //
-// The location term's weight gradients, dU, dwconv and dbconv, are sums
-// over the B*T*L (step, encoder position) pairs. As the TPU kernel does
-// (_bwd_kernel_loc :779-791, _bwd_kernel_loc_lstm :692-702), each block
-// sums its own row's T*L pairs in the walk, so nothing of length T*L is
-// stored. dU[:, sc] is summed in the energies pass by the thread that
-// forms dz(l, sc), in registers over the step's L positions (FM more
-// FMAs per (l, sc), as many as the UF recompute), and added to the row's
-// partial once a step; where FM is above kLocQ or not a multiple of 4,
-// in a pass of its own, kLocQ maps at a time. dwconv and dbconv are
-// summed once the step's dfeat is in shared memory, a thread per entry,
-// into the row's partial once a step. A second reduce_atb.cuh launch sums the B rows'
-// partials in a fixed order. The step's dz goes to a per-row scratch of
-// L*S floats (L2-resident) for the dfeat pass, whose warps run their
-// lanes along sc. No shared-memory access of the walk is more than 2-way
-// bank-conflicted (matvec_t's reads in common.cuh included), except
-// matvec's stores of the recompute's products, 4 consecutive outputs a
-// lane: 4-way, on about 10,000 floats a step.
-//
-// What bounds the walk now: about half of a step is the recompute and
-// the cell's transposed products, which read the step's weights from L2
-// as K5 does; most of the rest is the energies and dfeat passes, each
-// L*S*FM multiply-adds in float32 on one SM, and the context's dh
-// update, L*A loads and stores to L2.
+// K11 and K15 run in three stages (launch_lstm_bwd below):
+//   1. a recompute pre-pass off the chain (lstm_decoder_prepass_kernel):
+//      every step's s_prev, c and alpha_prev are saved sequences, so
+//      ws, cc, r = [cc | yin] @ dec_w + dec_b and the gates'
+//      pre-activations s_prev @ w_h + r @ w_x + b of all B*T (row, step)
+//      pairs come from tiled products (cluster_walk.cuh tile_product),
+//      ws and the gates into the stash rows that the walk overwrites
+//      with their cotangents;
+//   2. the walk on thread-block clusters of C blocks (16 or 8), each
+//      cluster taking R batch rows (plan: ops/cuda/attention_scan.py
+//      scan_plan). Block k owns state units [k St / C, (k+1) St / C),
+//      annotation columns [k A / C, ...) and encoder positions
+//      [k L / C, ...). A step's chain is
+//        dg (the LSTM cell's backward, elementwise on its units)   [E1]
+//        dsp = dg w_h^T, dr = dg w_x^T on its units' rows          [E2]
+//        dcc | dyin = dr dec_w^T on its units' rows                 [E3]
+//        dc = dcc c_w^T + dc_seq on its columns' rows              [E4]
+//        dalpha, de (the softmax), dh, the energies (dvh, dz), the
+//        location term (feat, dfeat) on its positions               [E5]
+//        dws = the cluster's sum of the blocks' partials, then
+//        ds_prev = dsp + dws ws_w^T on its units' rows;
+//      at each [E] the block copies what it formed into every peer's
+//      shared memory, counted on the peer's mbarrier, and waits on its
+//      own for the peers' bytes (cluster_walk.cuh; no cluster barrier,
+//      whose release is a GPU-wide fence): a bulk copy (cp.async.bulk)
+//      of each row's share where St and A are multiples of 4, so that
+//      the shares are whole 16-byte groups, else st.async of each
+//      value. E4 also carries each block's share of the softmax's sum
+//      sum_l alpha dalpha = c . dc + sum_l alpha (dalpha_seq + carry),
+//      c being the saved context; E5 the blocks' S-long dws partials
+//      and the dfeat rows within F - 1 positions of a peer's, whose
+//      alpha_prev cotangent reads them. Sums over blocks are in rank
+//      order, no atomics: two calls give the same bits.
+//      The location term's dU, dwconv and dbconv and dw_e are summed
+//      over the block's rows, positions and steps in its shared memory
+//      and written once, a row of partials per block;
+//   3. reduce_atb.cuh over the B*T stash rows, then over the partials.
+// Nothing in a block's shared memory grows with L beyond ceil(L / C)
+// positions and the dfeat halo. What bounds a step: the chain's
+// transposed products read 1/C of about 7 MB of weights from L2 (w_h and
+// w_x are 73% of it), and the five exchanges each cost a round trip
+// through distributed shared memory.
 
 #include "attention_common.cuh"
+#include "cluster_walk.cuh"
 #include "reduce_atb.cuh"
 
 namespace {
@@ -269,18 +295,22 @@ __global__ void __launch_bounds__(kThreads, 1) scan_lstm_fwd_kernel(const FwdArg
 // Per-step operands and cotangents the weight-gradient reductions read,
 // carved from the caller's scratch in this order: (B*T) rows of rr (2St);
 // for the LSTM r (St); for the GRU sr and cand_in (2St each); then dws
-// (S), dcc (St), dr (St); for the LSTM dgates (4St), for the GRU da_zr
-// (2St) and da_cand (St); the step's w_e partial (S); then, with the
-// location term, per batch row: the step's dz (L*S, rewritten every
-// step), and the row's partial sums of dU (FM*S) and of dwconv and dbconv
-// ((F + 1) * FM).
+// (S; for the LSTM the pre-pass's ws until the walk writes dws over it),
+// dcc (St), dr (St); for the LSTM dgates (4St; the pre-pass's gate
+// pre-activations until the walk writes dgates over them), for the GRU
+// da_zr (2St), da_cand (St) and the step's w_e partial (S); then, with
+// the location term, B rows of the step's dz (L*S, rewritten every
+// step). Then the partial sums: for the GRU, with the location term, per
+// batch row, of dU (FM*S) and of dwconv and dbconv ((F + 1) * FM); for
+// the LSTM, per block of the walk (`partials` rows), of dw_e (S) and,
+// with the location term, of dU and of dwconv and dbconv.
 struct Stash {
   float *rr, *r, *sr, *cand_in, *dws, *dcc, *dr, *dg, *da_zr, *da_cand, *dwe;
-  float *dz, *pu, *pconv;
+  float *dz, *pwe, *pu, *pconv;
 };
 
 template <bool kLstm, bool kLoc>
-Stash carve_stash(float* p, const Dims& d) {
+Stash carve_stash(float* p, const Dims& d, int partials) {
   const size_t rows = (size_t)d.B * d.T, St = d.St, S = d.S;
   Carver c{p, 0};
   Stash s{};
@@ -299,12 +329,14 @@ Stash carve_stash(float* p, const Dims& d) {
   } else {
     s.da_zr = c.take(rows * 2 * St);
     s.da_cand = c.take(rows * St);
+    s.dwe = c.take(rows * S);
   }
-  s.dwe = c.take(rows * S);
+  if (kLoc) s.dz = c.take((size_t)d.B * d.L * S);
+  const size_t n = kLstm ? (size_t)partials : (size_t)d.B;
+  if (kLstm) s.pwe = c.take(n * S);
   if (kLoc) {
-    s.dz = c.take((size_t)d.B * d.L * S);
-    s.pu = c.take((size_t)d.B * d.FM * S);
-    s.pconv = c.take((size_t)d.B * (d.F + 1) * d.FM);
+    s.pu = c.take(n * d.FM * S);
+    s.pconv = c.take(n * (d.F + 1) * d.FM);
   }
   return s;
 }
@@ -319,81 +351,13 @@ struct BwdArgs {
   Dims d;
 };
 
-struct BwdShared {
-  StepBufs m;  // sp, ws, al (alpha), rin (cc | yin), sr (s_prev | r), xo (c at [St:]), we, msk;
-               // the GRU's zr, rhr and cand
-  LocShared loc;
-  float *mp;                    // LSTM [St]   mem_prev
-  float *gates, *dg;            // LSTM [4St]  gate pre-activations; their cotangents
-  float *carry_m;               // LSTM [St]   dmem carried to the previous step
-  GruGrads g;                   // GRU
-  float *dsp, *dr;              // [St]   the cell's part of ds_prev; dr
-  float *drr, *tmp;             // [2St]  dr @ dec_w^T; [St] dws @ ws_w^T
-  float *carry_s;               // [St]   ds carried to the previous step
-  float *dc;                    // [A]
-  float *dal, *de;              // [L]
-  float *dws;                   // [S]
-  float *feat, *dfeat;          // [L][FM]
-  float *dal_carry;             // [L]    the cotangent of this step's alpha from step t+1
-  float *red;                   // [kWarps]
-};
-
-template <bool kLstm, bool kLoc>
-__host__ __device__ BwdShared carve_bwd(float* sm, const Dims& d, size_t* floats) {
-  Carver c{sm, 0};
-  const int St = d.St;
-  BwdShared s{};
-  // feat first, 16-byte aligned: with FM a multiple of 4 the energies
-  // pass reads a position's maps as float4s.
-  if (kLoc) s.feat = c.take((size_t)d.L * d.FM);
-  s.m = carve_step<kLstm>(c, d);
-  if (kLstm) {
-    s.mp = c.take(St);
-    s.gates = c.take(4 * St);
-    s.dg = c.take(4 * St);
-    s.carry_m = c.take(St);
-  } else {
-    s.g.ds = c.take(St);
-    s.g.da_cand = c.take(St);
-    s.g.dcin = c.take(2 * St);
-    s.g.da_zr = c.take(2 * St);
-    s.g.dsr = c.take(2 * St);
-  }
-  s.dsp = c.take(St);
-  s.dr = c.take(St);
-  s.drr = c.take(2 * St);
-  s.tmp = c.take(St);
-  s.carry_s = c.take(St);
-  s.dc = c.take(d.A);
-  s.dal = c.take(d.L);
-  s.de = c.take(d.L);
-  s.dws = c.take(d.S);
-  s.loc = carve_loc<kLoc>(c, d);
-  if (kLoc) {
-    s.dfeat = c.take((size_t)d.L * d.FM);
-    s.dal_carry = c.take(d.L);
-  }
-  s.red = c.take(kWarps);
-  s.m.scratch = c.take(kThreads * 4);
-  *floats = c.off;
-  return s;
-}
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+// p[i], or 0 where the cotangent p is absent.
+__device__ __forceinline__ float cot(const float* p, size_t i) { return p ? p[i] : 0.f; }
 
 // Positions (the context's dh and the energies pass) and score units (the
 // dfeat pass) whose global loads a thread issues together, ahead of the
 // arithmetic that uses them.
 constexpr int kLocRows = 4, kLocCols = 8;
-
-// Where the walk sums dU, from the shapes alone: with FM <= kLocQ and a
-// multiple of 4, in the energies pass, in the registers of the thread
-// that forms dz(l, sc) over the step's L positions; else in a pass of
-// its own, kLocQ maps at a time; either way into the row's partial, read
-// and written once a step.
-__device__ __forceinline__ bool du_inline(const Dims& d) {
-  return d.FM <= kLocQ && d.FM % 4 == 0;
-}
 
 // One stage of warp_sum16: v[0..2W) becomes v[0..W), the half that the
 // lane's bit W << 1 selects plus the partner lane's copy of that half.
@@ -419,17 +383,99 @@ __device__ __forceinline__ float warp_sum16(float (&v)[kLocQ], int lane) {
   return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
 }
 
-// p[i], or 0 where the cotangent p is absent.
-__device__ __forceinline__ float cot(const float* p, size_t i) { return p ? p[i] : 0.f; }
+// dfeat[q] = sum_sc dz[sc] U[q][sc] for one encoder position, by one warp:
+// its lanes along sc (the reads of dz coalesced, kLocCols of them issued
+// together; those of U, in shared memory, conflict-free), kLocQ maps at a
+// time; lane 2q' writes map q0 + q'.
+__device__ __forceinline__ void dfeat_of(const float* dz, const float* u, int S, int FM,
+                                         float* dfeat, int lane) {
+  for (int q0 = 0; q0 < FM; q0 += kLocQ) {
+    float acc[kLocQ] = {};
+    for (int sc0 = lane; sc0 < S; sc0 += 32 * kLocCols) {
+      float z[kLocCols];
+#pragma unroll
+      for (int g = 0; g < kLocCols; ++g) z[g] = sc0 + 32 * g < S ? dz[sc0 + 32 * g] : 0.f;
+#pragma unroll
+      for (int g = 0; g < kLocCols; ++g) {
+        const int sc = sc0 + 32 * g;
+        if (sc >= S) break;
+#pragma unroll
+        for (int k = 0; k < kLocQ; ++k)
+          if (q0 + k < FM) acc[k] = fmaf(z[g], u[(q0 + k) * S + sc], acc[k]);
+      }
+    }
+    const float v = warp_sum16(acc, lane);
+    const int q = q0 + (lane >> 1);
+    if (!(lane & 1) && q < FM) dfeat[q] = v;
+  }
+}
 
-template <bool kLstm, bool kLoc>
+// ---------------------------------------------------------------------------
+// K13: the location-aware GRU decoder's backward, one block per batch row.
+
+struct BwdShared {
+  StepBufs m;  // sp, ws, al (alpha), rin (cc | yin), sr (s_prev | r), xo (c at [St:]), we, msk,
+               // zr, rhr, cand
+  LocShared loc;
+  GruGrads g;
+  float *dsp, *dr;              // [St]   the cell's part of ds_prev; dr
+  float *drr, *tmp;             // [2St]  dr @ dec_w^T; [St] dws @ ws_w^T
+  float *carry_s;               // [St]   ds carried to the previous step
+  float *dc;                    // [A]
+  float *dal, *de;              // [L]
+  float *dws;                   // [S]
+  float *feat, *dfeat;          // [L][FM]
+  float *dal_carry;             // [L]    the cotangent of this step's alpha from step t+1
+  float *red;                   // [kWarps]
+};
+
+__host__ __device__ BwdShared carve_bwd(float* sm, const Dims& d, size_t* floats) {
+  Carver c{sm, 0};
+  const int St = d.St;
+  BwdShared s{};
+  // feat first, 16-byte aligned: with FM a multiple of 4 the energies
+  // pass reads a position's maps as float4s.
+  s.feat = c.take((size_t)d.L * d.FM);
+  s.m = carve_step<false>(c, d);
+  s.g.ds = c.take(St);
+  s.g.da_cand = c.take(St);
+  s.g.dcin = c.take(2 * St);
+  s.g.da_zr = c.take(2 * St);
+  s.g.dsr = c.take(2 * St);
+  s.dsp = c.take(St);
+  s.dr = c.take(St);
+  s.drr = c.take(2 * St);
+  s.tmp = c.take(St);
+  s.carry_s = c.take(St);
+  s.dc = c.take(d.A);
+  s.dal = c.take(d.L);
+  s.de = c.take(d.L);
+  s.dws = c.take(d.S);
+  s.loc = carve_loc<true>(c, d);
+  s.dfeat = c.take((size_t)d.L * d.FM);
+  s.dal_carry = c.take(d.L);
+  s.red = c.take(kWarps);
+  s.m.scratch = c.take(kThreads * 4);
+  *floats = c.off;
+  return s;
+}
+
+// Where the walk sums dU, from the shapes alone: with FM <= kLocQ and a
+// multiple of 4, in the energies pass, in the registers of the thread
+// that forms dz(l, sc) over the step's L positions; else in a pass of
+// its own, kLocQ maps at a time; either way into the row's partial, read
+// and written once a step.
+__device__ __forceinline__ bool du_inline(const Dims& d) {
+  return d.FM <= kLocQ && d.FM % 4 == 0;
+}
+
 __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
   const Dims& d = a.d;
-  const int b = blockIdx.x, St = d.St, St2 = 2 * St, St4 = 4 * St, A = d.A, L = d.L, S = d.S;
+  const int b = blockIdx.x, St = d.St, St2 = 2 * St, A = d.A, L = d.L, S = d.S;
   const int FM = d.FM, F = d.F, pad = F / 2;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   size_t floats;
-  const BwdShared s = carve_bwd<kLstm, kLoc>(sm, d, &floats);
+  const BwdShared s = carve_bwd(sm, d, &floats);
   const StepBufs& m = s.m;
   const StepWeights w = a.w.step();
   const float* vhb = a.vh + (size_t)b * L * S;
@@ -437,78 +483,46 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
   float* dvhb = a.dvh + (size_t)b * L * S;
   float* dhb = a.dh + (size_t)b * L * A;
 
-  load_constants<kLoc>(a.w, a.mask, m, s.loc, d, b);
-  for (int j = tid; j < St; j += kThreads) {
-    s.carry_s[j] = 0.f;
-    if (kLstm) s.carry_m[j] = 0.f;
-  }
+  load_constants<true>(a.w, a.mask, m, s.loc, d, b);
+  for (int j = tid; j < St; j += kThreads) s.carry_s[j] = 0.f;
   // The location term's weight gradients over this row's pairs, in the
   // row's partials pu (dU) and pconv (dwconv, dbconv).
-  const bool du_in = kLoc && du_inline(d);
+  const bool du_in = du_inline(d);
   const int n_conv = (F + 1) * FM;
-  float* dzb = kLoc ? a.st.dz + (size_t)b * L * S : nullptr;
-  float* pub = kLoc ? a.st.pu + (size_t)b * FM * S : nullptr;
-  float* pcb = kLoc ? a.st.pconv + (size_t)b * n_conv : nullptr;
-  if (kLoc)
-    for (int l = tid; l < L; l += kThreads) s.dal_carry[l] = 0.f;
+  float* dzb = a.st.dz + (size_t)b * L * S;
+  float* pub = a.st.pu + (size_t)b * FM * S;
+  float* pcb = a.st.pconv + (size_t)b * n_conv;
+  for (int l = tid; l < L; l += kThreads) s.dal_carry[l] = 0.f;
   for (int t = d.T - 1; t >= 0; --t) {
     const size_t n = (size_t)b * d.T + t;
     const bool last = t == d.T - 1;  // the first step of the walk writes dvh and dh
-    // The step's saved state: s_prev, mem_prev and alpha_prev (zero at
-    // step 0), c and alpha.
+    // The step's saved state: s_prev and alpha_prev (zero at step 0), c
+    // and alpha.
     for (int j = tid; j < St; j += kThreads) {
       const float v = t > 0 ? a.s_seq[(n - 1) * St + j] : 0.f;
       m.sp[j] = m.sr[j] = v;
-      if (kLstm) s.mp[j] = t > 0 ? a.mem_seq[(n - 1) * St + j] : 0.f;
       m.rin[St + j] = a.yin[n * St + j];
     }
     for (int j = tid; j < A; j += kThreads) m.xo[St + j] = a.c_seq[n * A + j];
     for (int l = tid; l < L; l += kThreads) {
       m.al[l] = a.alpha_seq[n * L + l];
-      if (kLoc) s.loc.ap[pad + l] = t > 0 ? a.alpha_seq[(n - 1) * L + l] : 0.f;
+      s.loc.ap[pad + l] = t > 0 ? a.alpha_seq[(n - 1) * L + l] : 0.f;
     }
     __syncthreads();
     // [phase] load
-    // Recompute ws, r and the cell (the LSTM's gates; the GRU's gates,
-    // candidate and rhr); and the location features, as attend_loc forms
-    // them.
+    // Recompute ws, r and the cell (the GRU's gates, candidate and rhr);
+    // and the location features, as attend_loc forms them.
     matvec<kNone>(w.ws_w, w.ws_b, St, S, m.sp, St, m.ws, S, 1, m.scratch);
-    if constexpr (kLstm)
-      lstm_preacts(w, m, a.w.w_h, a.w.w_x, a.w.b, s.gates, 1, A, St);
-    else
-      decoder_cell(w, m, 1, A, St);
+    decoder_cell(w, m, 1, A, St);
     // [phase] recompute
-    if (kLoc) {
-      for (int i = tid; i < L * FM; i += kThreads) {
-        const int l = i / FM, q = i % FM;
-        float f = 0.f;
-        for (int j = 0; j < F; ++j) f = fmaf(s.loc.ap[l + j], s.loc.cw[j * FM + q], f);
-        s.feat[i] = f + s.loc.cb[q];
-      }
+    for (int i = tid; i < L * FM; i += kThreads) {
+      const int l = i / FM, q = i % FM;
+      float f = 0.f;
+      for (int j = 0; j < F; ++j) f = fmaf(s.loc.ap[l + j], s.loc.cw[j * FM + q], f);
+      s.feat[i] = f + s.loc.cb[q];
     }
-    if constexpr (kLstm) {
-      // The LSTM: the gates, then their cotangents and the dmem chain.
-      for (int j = tid; j < St; j += kThreads) {
-        const float ig = sigmoid(s.gates[j]), fg = sigmoid(s.gates[St + j]);
-        const float gg = tanhf(s.gates[2 * St + j]), og = sigmoid(s.gates[3 * St + j]);
-        const float mprev = s.mp[j];
-        const float tm = tanhf(fg * mprev + ig * gg);
-        const float ds = cot(a.ds_seq, n * St + j) + s.carry_s[j];
-        const float dm = ds * og * (1.f - tm * tm) + cot(a.dmem_seq, n * St + j) + s.carry_m[j];
-        s.dg[j] = dm * gg * ig * (1.f - ig);
-        s.dg[St + j] = dm * mprev * fg * (1.f - fg);
-        s.dg[2 * St + j] = dm * ig * (1.f - gg * gg);
-        s.dg[3 * St + j] = ds * tm * og * (1.f - og);
-        s.carry_m[j] = dm * fg;
-      }
-      __syncthreads();
-      matvec_t<1>(a.w.w_h, St, St4, s.dg, 0, s.dsp, 0);
-      matvec_t<1>(a.w.w_x, St, St4, s.dg, 0, s.dr, 0);
-      __syncthreads();
-    } else {
-      gru_cell_bwd(a.w.w_zr, a.w.w_h, m, a.ds_seq ? a.ds_seq + n * St : nullptr, s.carry_s,
-                   s.g, s.dsp, s.dr, St);
-    }
+    gru_cell_bwd(a.w.w_zr, a.w.w_h, m, a.ds_seq ? a.ds_seq + n * St : nullptr, s.carry_s, s.g,
+                 s.dsp, s.dr, St);
     // [phase] cell
     // The decoder-input MLP.
     matvec_t<1>(w.dec_w, St2, St, s.dr, 0, s.drr, 0);
@@ -521,15 +535,14 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
     __syncthreads();
     // [phase] c_w^T
 
-    // The context: dalpha = h dc + dalpha_seq (+ the carry from step t+1),
+    // The context: dalpha = h dc + dalpha_seq + the carry from step t+1,
     // dh += alpha dc^T.
     for (int l = warp; l < L; l += kWarps) {
       const float* hr = hb + (size_t)l * A;
       float acc = 0.f;
       for (int j = lane; j < A; j += 32) acc = fmaf(s.dc[j], hr[j], acc);
       acc = warp_sum(acc);
-      if (lane == 0)
-        s.dal[l] = acc + cot(a.dalpha_seq, n * L + l) + (kLoc ? s.dal_carry[l] : 0.f);
+      if (lane == 0) s.dal[l] = acc + cot(a.dalpha_seq, n * L + l) + s.dal_carry[l];
     }
     // dh, the loads of kLocRows positions issued together.
     for (int j = tid; j < A; j += kThreads) {
@@ -558,9 +571,9 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
     __syncthreads();
     // [phase] softmax
     // The energies: dz = de w_e (1 - tanh(z)^2), a thread per score unit,
-    // z recomputed as attend or attend_loc forms it, the loads of
-    // kLocRows positions issued together. With the location term, the
-    // step's dz also goes to the row's scratch, and dU += feat^T dz.
+    // z recomputed as attend_loc forms it, the loads of kLocRows
+    // positions issued together. The step's dz also goes to the row's
+    // scratch, and dU += feat^T dz.
     for (int sc = tid; sc < S; sc += kThreads) {
       const float wsv = m.ws[sc], wev = m.we[sc];
       float ur[kLocQ], du[kLocQ];  // U[:, sc] and dU[:, sc], where dU is summed here
@@ -585,40 +598,36 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
           if (l >= L) break;
           float z = vv[r] + wsv;
           const float4* f4 = reinterpret_cast<const float4*>(s.feat + l * FM);
-          if constexpr (kLoc) {
-            float uf = 0.f;
-            if (du_in) {
+          float uf = 0.f;
+          if (du_in) {
 #pragma unroll
-              for (int q = 0; q < kLocQ; q += 4) {
-                if (q >= FM) break;
-                const float4 f = f4[q / 4];
-                uf = fmaf(f.x, ur[q], uf);
-                uf = fmaf(f.y, ur[q + 1], uf);
-                uf = fmaf(f.z, ur[q + 2], uf);
-                uf = fmaf(f.w, ur[q + 3], uf);
-              }
-            } else {
-              for (int q = 0; q < FM; ++q) uf = fmaf(s.feat[l * FM + q], s.loc.u[q * S + sc], uf);
+            for (int q = 0; q < kLocQ; q += 4) {
+              if (q >= FM) break;
+              const float4 f = f4[q / 4];
+              uf = fmaf(f.x, ur[q], uf);
+              uf = fmaf(f.y, ur[q + 1], uf);
+              uf = fmaf(f.z, ur[q + 2], uf);
+              uf = fmaf(f.w, ur[q + 3], uf);
             }
-            z += uf;
+          } else {
+            for (int q = 0; q < FM; ++q) uf = fmaf(s.feat[l * FM + q], s.loc.u[q * S + sc], uf);
           }
+          z += uf;
           const float av = fast_tanh(z);
           const float dz = s.de[l] * wev * (1.f - av * av);
           const size_t i = (size_t)l * S + sc;
           dvhb[i] = last ? dz : dv[r] + dz;
-          if constexpr (kLoc) {
-            dzb[i] = dz;
-            if (du_in)
+          dzb[i] = dz;
+          if (du_in)
 #pragma unroll
-              for (int q = 0; q < kLocQ; q += 4) {
-                if (q >= FM) break;
-                const float4 f = f4[q / 4];
-                du[q] = fmaf(f.x, dz, du[q]);
-                du[q + 1] = fmaf(f.y, dz, du[q + 1]);
-                du[q + 2] = fmaf(f.z, dz, du[q + 2]);
-                du[q + 3] = fmaf(f.w, dz, du[q + 3]);
-              }
-          }
+            for (int q = 0; q < kLocQ; q += 4) {
+              if (q >= FM) break;
+              const float4 f = f4[q / 4];
+              du[q] = fmaf(f.x, dz, du[q]);
+              du[q + 1] = fmaf(f.y, dz, du[q + 1]);
+              du[q + 2] = fmaf(f.z, dz, du[q + 2]);
+              du[q + 3] = fmaf(f.w, dz, du[q + 3]);
+            }
           gws += dz;
           gwe = fmaf(av, s.de[l], gwe);
         }
@@ -629,7 +638,7 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
 #pragma unroll
         for (int q = 0; q < kLocQ; ++q)
           if (q < FM) pub[(size_t)q * S + sc] = du[q];
-      } else if (kLoc) {
+      } else {
         // dU[:, sc], kLocQ maps at a time, from the dz this thread has
         // just written.
         for (int q0 = 0; q0 < FM; q0 += kLocQ) {
@@ -651,58 +660,34 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
     }
     __syncthreads();
     // [phase] energies
-    if (kLoc) {
-      // dfeat = dz @ U^T: a warp per position, its lanes along sc (the
-      // reads of dz coalesced, kLocCols of them issued together; those of
-      // U conflict-free), kLocQ maps at a time.
-      for (int l = warp; l < L; l += kWarps) {
-        const float* dzl = dzb + (size_t)l * S;
-        for (int q0 = 0; q0 < FM; q0 += kLocQ) {
-          float acc[kLocQ] = {};
-          for (int sc0 = lane; sc0 < S; sc0 += 32 * kLocCols) {
-            float z[kLocCols];
-#pragma unroll
-            for (int g = 0; g < kLocCols; ++g) z[g] = sc0 + 32 * g < S ? dzl[sc0 + 32 * g] : 0.f;
-#pragma unroll
-            for (int g = 0; g < kLocCols; ++g) {
-              const int sc = sc0 + 32 * g;
-              if (sc >= S) break;
-#pragma unroll
-              for (int k = 0; k < kLocQ; ++k)
-                if (q0 + k < FM) acc[k] = fmaf(z[g], s.loc.u[(q0 + k) * S + sc], acc[k]);
-            }
-          }
-          const float v = warp_sum16(acc, lane);
-          const int q = q0 + (lane >> 1);
-          if (!(lane & 1) && q < FM) s.dfeat[l * FM + q] = v;
-        }
+    // dfeat = dz @ U^T: a warp per position.
+    for (int l = warp; l < L; l += kWarps) dfeat_of(dzb + (size_t)l * S, s.loc.u, S, FM,
+                                                    s.dfeat + l * FM, lane);
+    __syncthreads();
+    // [phase] dfeat
+    // The cotangent of alpha_prev, for step t-1: alpha_prev[k] enters
+    // feat[l] through tap j = k + pad - l. A warp per k, its lanes along
+    // the taps' (j, q): the rows of dfeat it reads are adjacent.
+    for (int k = warp; k < L; k += kWarps) {
+      float acc = 0.f;
+      for (int i = lane; i < F * FM; i += 32) {
+        const int j = i / FM, l = k + pad - j;
+        if (l >= 0 && l < L) acc = fmaf(s.dfeat[l * FM + i - j * FM], s.loc.cw[i], acc);
       }
-      __syncthreads();
-      // [phase] dfeat
-      // The cotangent of alpha_prev, for step t-1: alpha_prev[k] enters
-      // feat[l] through tap j = k + pad - l. A warp per k, its lanes
-      // along the taps' (j, q): the rows of dfeat it reads are adjacent.
-      for (int k = warp; k < L; k += kWarps) {
-        float acc = 0.f;
-        for (int i = lane; i < F * FM; i += 32) {
-          const int j = i / FM, l = k + pad - j;
-          if (l >= 0 && l < L) acc = fmaf(s.dfeat[l * FM + i - j * FM], s.loc.cw[i], acc);
-        }
-        acc = warp_sum(acc);
-        if (lane == 0) s.dal_carry[k] = acc;
+      acc = warp_sum(acc);
+      if (lane == 0) s.dal_carry[k] = acc;
+    }
+    // dwconv[j][q] += sum_l ap[l + j] dfeat[l][q] and dbconv[q] +=
+    // sum_l dfeat[l][q]: a thread per entry.
+    for (int i = tid; i < n_conv; i += kThreads) {
+      float v = 0.f;
+      if (i < F * FM) {
+        const int j = i / FM, q = i - j * FM;
+        for (int l = 0; l < L; ++l) v = fmaf(s.loc.ap[l + j], s.dfeat[l * FM + q], v);
+      } else {
+        for (int l = 0; l < L; ++l) v += s.dfeat[l * FM + i - F * FM];
       }
-      // dwconv[j][q] += sum_l ap[l + j] dfeat[l][q] and dbconv[q] +=
-      // sum_l dfeat[l][q]: a thread per entry.
-      for (int i = tid; i < n_conv; i += kThreads) {
-        float v = 0.f;
-        if (i < F * FM) {
-          const int j = i / FM, q = i - j * FM;
-          for (int l = 0; l < L; ++l) v = fmaf(s.loc.ap[l + j], s.dfeat[l * FM + q], v);
-        } else {
-          for (int l = 0; l < L; ++l) v += s.dfeat[l * FM + i - F * FM];
-        }
-        pcb[i] = last ? v : pcb[i] + v;
-      }
+      pcb[i] = last ? v : pcb[i] + v;
     }
     matvec_t<1>(w.ws_w, St, S, s.dws, 0, s.tmp, 0);
     __syncthreads();
@@ -711,38 +696,740 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
       s.carry_s[j] = s.dsp[j] + s.tmp[j];
       a.st.dcc[n * St + j] = s.drr[j];
       a.st.dr[n * St + j] = s.dr[j];
-      if (kLstm) a.st.r[n * St + j] = m.sr[St + j];
-      else a.st.da_cand[n * St + j] = s.g.da_cand[j];
+      a.st.da_cand[n * St + j] = s.g.da_cand[j];
     }
     for (int j = tid; j < St2; j += kThreads) {
       a.st.rr[n * St2 + j] = m.rin[j];
-      if (!kLstm) {
-        a.st.sr[n * St2 + j] = m.sr[j];
-        a.st.cand_in[n * St2 + j] = m.rhr[j];
-        a.st.da_zr[n * St2 + j] = s.g.da_zr[j];
-      }
+      a.st.sr[n * St2 + j] = m.sr[j];
+      a.st.cand_in[n * St2 + j] = m.rhr[j];
+      a.st.da_zr[n * St2 + j] = s.g.da_zr[j];
     }
-    if (kLstm)
-      for (int j = tid; j < St4; j += kThreads) a.st.dg[n * St4 + j] = s.dg[j];
     for (int sc = tid; sc < S; sc += kThreads) a.st.dws[n * S + sc] = s.dws[sc];
     __syncthreads();
     // [phase] stash
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) loc_lstm_bwd_kernel(const BwdArgs a) {
-  extern __shared__ float sm[];
-  scan_bwd<true, true>(sm, a);
-}
-
 __global__ void __launch_bounds__(kThreads, 1) scan_loc_gru_bwd_kernel(const BwdArgs a) {
   extern __shared__ float sm[];
-  scan_bwd<false, true>(sm, a);
+  scan_bwd(sm, a);
 }
 
+// ---------------------------------------------------------------------------
+// K11, K15: the LSTM decoder's backward on thread-block clusters.
+
+constexpr int kMaxWalkCluster = 16;  // a non-portable cluster size on Hopper
+constexpr int kBars = 5;             // the exchanges of a step, an mbarrier each
+
+__host__ __device__ constexpr long long cdiv(long long n, long long d) { return (n + d - 1) / d; }
+
+// n rounded up to whole 16-byte groups of floats.
+__host__ __device__ constexpr long long r4(long long n) { return (n + 3) / 4 * 4; }
+
+// Block k's share [lo, lo + n) of n_all items over C blocks, in whole
+// groups of g items (g divides n_all).
+struct Span {
+  int lo, n;
+  __host__ __device__ Span(int n_all, int C, int k, int g = 1)
+      : lo(g * (n_all / g * k / C)), n(g * (n_all / g * (k + 1) / C) - lo) {}
+};
+
+// The largest share of n items over C blocks: in whole groups of 4 items
+// where 4 divides n (the walk's unit and column shares then start and end
+// on 16-byte boundaries), else of single items.
+__host__ __device__ constexpr long long cspan(long long n, long long C) {
+  return n % 4 ? cdiv(n, C) : 4 * cdiv(n / 4, C);
+}
+
+// Shared memory of one block of the LSTM walk, in floats, for R batch
+// rows on clusters of C blocks, loc 1 with the location term (else 0 and
+// FM = F = 0). carve_walk lays it out, each buffer 16-byte aligned; the
+// plan in ops/cuda/attention_scan.py (walk_smem_bytes) computes the same.
+long long lstm_walk_smem_floats(long long R, long long C, long long L, long long S, long long A,
+                                long long St, long long FM, long long F, long long loc) {
+  return r4(2 * kBars) + r4(4 * R * St) + 2 * r4(R * St) + r4(R * A) + r4(C * R) +
+         r4(C * R * r4(S)) + r4(R * r4(S)) +
+         2 * (r4(4 * R * cspan(St, C)) + 3 * r4(R * cspan(St, C)) + r4(R * r4(S)) +
+              2 * r4(R * cdiv(L, C)) + loc * r4(R * (cdiv(L, C) + F - 1)) +
+              2 * r4(R * cspan(A, C))) +
+         3 * r4(R * cspan(St, C)) + 2 * r4(R * cdiv(L, C)) + 2 * r4(S) +
+         loc * (r4(R * cdiv(L, C) * FM) + r4(R * (cdiv(L, C) + F - 1) * FM) + 2 * r4(FM * S) +
+                r4(F * FM) + r4(FM) + r4((F + 1) * FM));
+}
+
+// A step's inputs of the block's units, positions and columns, staged by
+// asynchronous copies one step ahead, each [R][width].
+struct Staged {
+  float* g;     // [4][R][Stc]  the gates' pre-activations (i, f, g, o)
+  float *mp, *dsq, *dmq;  // [R][Stc]  mem_prev, the cotangents of s and mem
+  float* ws;    // [R][Sp]      s_prev @ ws_w + ws_b, every score unit
+  float *al, *dalq;       // [R][Pc]   alpha and its cotangent
+  float* ap;    // [R][Pw]      alpha_prev at [lo - pad, lo + Pc + F - 1 - pad), 0 off [0, L)
+  float *dcq, *cq;        // [R][Ac]   the cotangent of c, and c
+};
+
+struct WalkShared {
+  unsigned long long* bars;  // [kBars]: the exchanges E1-E5
+  // Gathered: every block holds all of them, each block writing its share.
+  float *gdg;   // [R][4St]     dgates
+  float *gdr;   // [R][St]      dr
+  float *gdcc;  // [R][St]      dcc = drr[:St]
+  float *gdc;   // [R][A]       dc
+  float *dotp;  // [C][R]       the blocks' shares of sum_l alpha dalpha
+  float *dwsp;  // [C][R][Sp]   the blocks' partials of dws
+  float *dws;   // [R][Sp]      dws, their sum
+  Staged stg;      // the first of two staging buffers,
+  long long stage;  // the second `stage` floats on
+  float *carry_s, *carry_m, *dsp;  // [R][Stc]
+  float *dalc, *de;                // [R][Pc]  alpha's cotangent from step t+1; de
+  float *we, *we_acc;              // [S]      w_e; dw_e over the block's rows, steps, positions
+  // The location term.
+  float *feat;   // [R][Pc][FM]
+  float *dfh;    // [R][Pw][FM]  dfeat at [lo + pad - F + 1, lo + Pc - 1 + pad]: the halo's
+  float *u, *pu; // [FM][S]      U; dU over the block's rows, steps and positions
+  float *cw, *cb, *pconv;  // [F][FM], [FM]; dwconv | dbconv likewise, [(F + 1) FM]
+};
+
+__host__ __device__ inline float* take4(Carver& c, long long n) { return c.take((size_t)r4(n)); }
+
+template <bool kLoc>
+__host__ __device__ WalkShared carve_walk(float* sm, const Dims& d, int C, int R, size_t* floats) {
+  Carver c{sm, 0};
+  const long long Stc = cspan(d.St, C), Ac = cspan(d.A, C), Pc = cdiv(d.L, C), Sp = r4(d.S);
+  const long long Pw = Pc + d.F - 1;
+  WalkShared s{};
+  s.bars = reinterpret_cast<unsigned long long*>(take4(c, 2 * kBars));
+  s.gdg = take4(c, 4LL * R * d.St);
+  s.gdr = take4(c, (long long)R * d.St);
+  s.gdcc = take4(c, (long long)R * d.St);
+  s.gdc = take4(c, (long long)R * d.A);
+  s.dotp = take4(c, (long long)C * R);
+  s.dwsp = take4(c, C * R * Sp);
+  s.dws = take4(c, R * Sp);
+  Staged& q = s.stg;
+  const size_t first = c.off;
+  q.g = take4(c, 4 * R * Stc);
+  q.mp = take4(c, R * Stc);
+  q.dsq = take4(c, R * Stc);
+  q.dmq = take4(c, R * Stc);
+  q.ws = take4(c, R * Sp);
+  q.al = take4(c, R * Pc);
+  q.dalq = take4(c, R * Pc);
+  if (kLoc) q.ap = take4(c, R * Pw);
+  q.dcq = take4(c, R * Ac);
+  q.cq = take4(c, R * Ac);
+  s.stage = (long long)(c.off - first);
+  c.take((size_t)s.stage);
+  s.carry_s = take4(c, R * Stc);
+  s.carry_m = take4(c, R * Stc);
+  s.dsp = take4(c, R * Stc);
+  s.dalc = take4(c, R * Pc);
+  s.de = take4(c, R * Pc);
+  s.we = take4(c, d.S);
+  s.we_acc = take4(c, d.S);
+  if (kLoc) {
+    s.feat = take4(c, R * Pc * d.FM);
+    s.dfh = take4(c, R * Pw * d.FM);
+    s.u = take4(c, (long long)d.FM * d.S);
+    s.pu = take4(c, (long long)d.FM * d.S);
+    s.cw = take4(c, (long long)d.F * d.FM);
+    s.cb = take4(c, d.FM);
+    s.pconv = take4(c, (long long)(d.F + 1) * d.FM);
+  }
+  *floats = c.off;
+  return s;
+}
+
+// Staging buffer i of the walk: the first's arrays, i * stage floats on
+// (pointer arithmetic, so that no array of them is indexed at run time).
+__device__ __forceinline__ Staged staged(const WalkShared& sh, int i) {
+  const long long o = i * sh.stage;
+  const Staged& q = sh.stg;
+  return Staged{q.g + o, q.mp + o, q.dsq + o, q.dmq + o, q.ws + o,
+                q.al + o, q.dalq + o, q.ap ? q.ap + o : nullptr, q.dcq + o, q.cq + o};
+}
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// mbar_wait, except that a wait past 2^28 tries (seconds) traps: an
+// exchange whose bytes never all arrive faults the launch instead of
+// hanging the card.
+__device__ __forceinline__ void walk_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  for (unsigned tries = 0; !done; ++tries) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (tries == (1u << 28)) __trap();
+  }
+}
+
+// Makes this thread's earlier writes to shared memory visible to the
+// bulk copies (the async proxy) that a thread starts after a barrier.
+__device__ __forceinline__ void async_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Copy `bytes` (a multiple of 16) of this block's shared memory at `src`
+// to `dst` (where this block's `dst` is) in block `rank` of the cluster,
+// both 16-byte aligned, counted on that block's mbarrier `bar`; bulk_copy
+// copies to the same place.
+__device__ __forceinline__ void bulk_copy_to(const float* src, const float* dst, unsigned bytes,
+                                             unsigned rank, unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(cluster_map(dst, rank)),
+      "r"(smem_addr(src)), "r"(bytes), "r"(cluster_map(bar, rank))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(const float* src, unsigned bytes, unsigned rank,
+                                          unsigned long long* bar) {
+  bulk_copy_to(src, src, bytes, rank, bar);
+}
+
+// Put this block's values buf[r * ld + off + j * seg + i] (r < R, j <
+// nseg, i < n) at the same place of every other block of the cluster,
+// counted on that block's mbarrier `bar`: with `bulk` (every run of n
+// floats 16-byte aligned, n a multiple of 4) a bulk copy a run and peer,
+// else a store a value and peer; either way dealt out over the threads.
+// Reads buf after a block barrier, behind async_fence where bulk.
+template <int R>
+__device__ void push(const float* buf, int ld, int off, int nseg, int seg, int n,
+                     unsigned long long* bar, int C, int k, bool bulk) {
+  const int nv = R * nseg * n;
+  if (nv == 0 || C == 1) return;
+  if (bulk) {
+    for (int idx = threadIdx.x; idx < R * nseg * (C - 1); idx += kThreads) {
+      const int rj = idx / (C - 1), q = idx - rj * (C - 1);
+      bulk_copy(buf + (rj / nseg) * ld + off + (rj % nseg) * seg, 4u * n, q < k ? q : q + 1, bar);
+    }
+    return;
+  }
+  const int groups = max(1, min(C - 1, kThreads / nv));
+  for (int idx = threadIdx.x; idx < nv * groups; idx += kThreads) {
+    const int gq = idx / nv, e = idx - gq * nv, rj = e / n, i = e - rj * n;
+    const float* p = buf + (rj / nseg) * ld + off + (rj % nseg) * seg + i;
+    const float v = *p;
+    for (int q = gq; q < C - 1; q += groups) {
+      const int peer = q < k ? q : q + 1;
+      st_async(cluster_map(p, peer), v, cluster_map(bar, peer));
+    }
+  }
+}
+
+// What a block of the walk works on: its rank in the cluster, its batch
+// rows, its shares of the state units, annotation columns, score units
+// and encoder positions, and the widths of its staged arrays. With St and
+// A multiples of 4 (`bulk`) the unit and column shares are whole 16-byte
+// groups, and the exchanges copy each row's share to a peer in one bulk
+// copy; else a thread stores each value.
+struct WalkCtx {
+  int C, k, b0, nrows, Stc, Ac, Pc, Sp, Pw, pad;
+  bool bulk;
+  Span un, ac, sp, pos;
+  int hlo;  // the first position of the block's dfeat halo
+  __device__ WalkCtx(const Dims& d, int C_, int k_, int R)
+      : C(C_), k(k_), b0(blockIdx.x / C_ * R), nrows(min(R, d.B - b0)),
+        Stc((int)cspan(d.St, C_)), Ac((int)cspan(d.A, C_)), Pc((int)cdiv(d.L, C_)),
+        Sp((int)r4(d.S)), Pw(Pc + d.F - 1), pad(d.F / 2), bulk(d.St % 4 == 0 && d.A % 4 == 0),
+        un(d.St, C_, k_, bulk ? 4 : 1), ac(d.A, C_, k_, bulk ? 4 : 1), sp(d.S, C_, k_),
+        pos(d.L, C_, k_), hlo(pos.lo + pad - d.F + 1) {}
+};
+
+// Stage step t's inputs of the block's units, positions and columns into
+// q by asynchronous copies (zeros for absent cotangents, rows past B and
+// alpha_prev outside [0, L) or at t = 0).
+template <int R, bool kLoc>
+__device__ __forceinline__ void stage_step(const BwdArgs& a, const WalkCtx& c, const Staged& q,
+                                           int t) {
+  const Dims& d = a.d;
+  const int T = d.T, L = d.L, S = d.S, A = d.A, St = d.St, St4 = 4 * St;
+  const size_t n0 = (size_t)c.b0 * T + t;  // (row b0, step t)
+  const Span &un = c.un, &ac = c.ac, &pos = c.pos;
+  for (int gi = 0; gi < 4; ++gi)
+    stage_async<R>(q.g + gi * R * c.Stc, c.Stc, a.st.dg + n0 * St4 + gi * St + un.lo,
+                   (size_t)T * St4, un.n, c.nrows, false);
+  const size_t rs = (size_t)T * St;
+  stage_async<R>(q.mp, c.Stc, t > 0 ? a.mem_seq + (n0 - 1) * St + un.lo : nullptr, rs, un.n,
+                 c.nrows, false);
+  stage_async<R>(q.dsq, c.Stc, a.ds_seq ? a.ds_seq + n0 * St + un.lo : nullptr, rs, un.n,
+                 c.nrows, false);
+  stage_async<R>(q.dmq, c.Stc, a.dmem_seq ? a.dmem_seq + n0 * St + un.lo : nullptr, rs, un.n,
+                 c.nrows, false);
+  stage_async<R>(q.ws, c.Sp, a.st.dws + n0 * S, (size_t)T * S, S, c.nrows, false);
+  stage_async<R>(q.al, c.Pc, a.alpha_seq + n0 * L + pos.lo, (size_t)T * L, pos.n, c.nrows, false);
+  stage_async<R>(q.dalq, c.Pc, a.dalpha_seq ? a.dalpha_seq + n0 * L + pos.lo : nullptr,
+                 (size_t)T * L, pos.n, c.nrows, false);
+  stage_async<R>(q.dcq, c.Ac, a.dc_seq ? a.dc_seq + n0 * A + ac.lo : nullptr, (size_t)T * A,
+                 ac.n, c.nrows, false);
+  stage_async<R>(q.cq, c.Ac, a.c_seq + n0 * A + ac.lo, (size_t)T * A, ac.n, c.nrows, false);
+  if (kLoc)
+    for (int idx = threadIdx.x; idx < R * c.Pw; idx += kThreads) {
+      const int r = idx / c.Pw, i = idx - r * c.Pw, p = pos.lo - c.pad + i;
+      if (t > 0 && r < c.nrows && i < pos.n + d.F - 1 && p >= 0 && p < L)
+        copy_async(q.ap + idx, a.alpha_seq + (n0 + (size_t)r * T - 1) * L + p);
+      else
+        q.ap[idx] = 0.f;
+    }
+}
+
+// The energies on the block's positions: dz = de w_e (1 - tanh(z)^2), a
+// thread per score unit, z = vh + ws (+ feat U), the loads of kLocRows
+// positions issued together; dvh (`last`: the walk's first step writes
+// it), the block's partial of dws, dw_e's sum, and with the location term
+// dU's sum and dz into the scratch, which the dfeat pass reads.
+template <int R, bool kLoc>
+__device__ __forceinline__ void walk_energies(const BwdArgs& a, const WalkCtx& c,
+                                           const WalkShared& sh, const Staged& q, bool last) {
+  const int L = a.d.L, S = a.d.S, FM = a.d.FM, Pc = c.Pc, Sp = c.Sp;
+  const Span& pos = c.pos;
+  for (int sc = threadIdx.x; sc < S; sc += kThreads) {
+    const float wev = sh.we[sc];
+    float gwe = 0.f;
+    for (int r = 0; r < c.nrows; ++r) {
+      const float wsv = q.ws[r * Sp + sc];
+      const size_t base = ((size_t)(c.b0 + r) * L + pos.lo) * S + sc;
+      float gws = 0.f;
+      for (int p0 = 0; p0 < pos.n; p0 += kLocRows) {
+        float vv[kLocRows], dv[kLocRows];
+#pragma unroll
+        for (int x = 0; x < kLocRows; ++x) {
+          const size_t i = base + (size_t)(p0 + x) * S;
+          vv[x] = p0 + x < pos.n ? a.vh[i] : 0.f;
+          dv[x] = p0 + x < pos.n && !last ? a.dvh[i] : 0.f;
+        }
+#pragma unroll
+        for (int x = 0; x < kLocRows; ++x) {
+          const int p = p0 + x;
+          if (p >= pos.n) break;
+          float z = vv[x] + wsv;
+          const float* f = sh.feat + (r * Pc + p) * FM;
+          if (kLoc) {
+            float uf = 0.f;
+            for (int qq = 0; qq < FM; ++qq) uf = fmaf(f[qq], sh.u[qq * S + sc], uf);
+            z += uf;
+          }
+          const float av = fast_tanh(z), de = sh.de[r * Pc + p];
+          const float dz = de * wev * (1.f - av * av);
+          const size_t i = base + (size_t)p * S;
+          a.dvh[i] = last ? dz : dv[x] + dz;
+          if (kLoc) {
+            a.st.dz[i] = dz;
+            for (int qq = 0; qq < FM; ++qq)
+              sh.pu[qq * S + sc] = fmaf(f[qq], dz, sh.pu[qq * S + sc]);
+          }
+          gws += dz;
+          gwe = fmaf(av, de, gwe);
+        }
+      }
+      sh.dwsp[(c.k * R + r) * Sp + sc] = gws;
+    }
+    sh.we_acc[sc] += gwe;
+  }
+}
+
+// dfeat = dz U^T on the block's positions, a warp each, into the halo
+// buffer's rows of the block's own positions.
+template <int R>
+__device__ __forceinline__ void walk_dfeat(const BwdArgs& a, const WalkCtx& c,
+                                           const WalkShared& sh) {
+  const int L = a.d.L, S = a.d.S, FM = a.d.FM, n = c.pos.n;
+  for (int pr = threadIdx.x >> 5; pr < c.nrows * n; pr += kWarps) {
+    const int r = pr / n, p = pr - r * n;
+    dfeat_of(a.st.dz + ((size_t)(c.b0 + r) * L + c.pos.lo + p) * S, sh.u, S, FM,
+             sh.dfh + (r * c.Pw + p + a.d.F - 1 - c.pad) * FM, threadIdx.x & 31);
+  }
+}
+
+// The walk of K11 (kLoc) or K15 for the R batch rows of this block's
+// cluster (group blockIdx.x / C), after the pre-pass; the file's head
+// gives the step. Single buffers suffice for what the exchanges carry,
+// by causality: a peer pushes a step's E1 only after it has passed that
+// step's E5 wait before, which needs this block's E5 push, which this
+// block makes after reading everything E1-E4 brought; and a peer pushes
+// E5 only after its E4 wait, which needs this block's next E4 push, made
+// after this block has read what E5 brought. For the same reason thread
+// 0 arms an mbarrier's next phase as soon as it has seen one complete,
+// and a bulk copy's source is read before the block writes it again.
+// Rows past B have zero inputs, stay zero and write nothing.
+template <int R, bool kLoc>
+__device__ __forceinline__ void lstm_walk(float* sm, const BwdArgs& a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const Dims& d = a.d;
+  const WalkCtx c(d, (int)cluster.num_blocks(), (int)cluster.block_rank(), R);
+  const int C = c.C, k = c.k, b0 = c.b0, nrows = c.nrows, Stc = c.Stc, Ac = c.Ac, Pc = c.Pc;
+  const int Sp = c.Sp, Pw = c.Pw, pad = c.pad;
+  const Span &un = c.un, &ac = c.ac, &sp = c.sp, &pos = c.pos;
+  const int T = d.T, L = d.L, S = d.S, A = d.A, St = d.St, St4 = 4 * St, FM = d.FM, F = d.F;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, n_conv = (F + 1) * FM;
+  size_t floats;
+  const WalkShared sh = carve_walk<kLoc>(sm, d, C, R, &floats);
+
+  for (int i = tid; i < S; i += kThreads) {
+    sh.we[i] = a.w.w_e[i];
+    sh.we_acc[i] = 0.f;
+  }
+  for (int i = tid; i < C * R * Sp; i += kThreads) sh.dwsp[i] = 0.f;
+  for (int i = tid; i < R * Stc; i += kThreads) sh.carry_s[i] = sh.carry_m[i] = 0.f;
+  for (int i = tid; i < R * Pc; i += kThreads) sh.dalc[i] = 0.f;
+  if (kLoc) {
+    for (int i = tid; i < FM * S; i += kThreads) {
+      sh.u[i] = a.w.u[i];
+      sh.pu[i] = 0.f;
+    }
+    for (int i = tid; i < F * FM; i += kThreads) sh.cw[i] = a.w.wconv[i];
+    for (int i = tid; i < FM; i += kThreads) sh.cb[i] = a.w.bconv[i];
+    for (int i = tid; i < n_conv; i += kThreads) sh.pconv[i] = 0.f;
+    // The halo's positions outside [0, L) stay 0.
+    for (int i = tid; i < R * Pw * FM; i += kThreads) sh.dfh[i] = 0.f;
+  }
+  // The bytes the peers push into this block a step, by exchange.
+  int halo = 0;  // positions of other blocks whose dfeat this block reads
+  if (kLoc && pos.n > 0) halo = min(pos.lo + pos.n - 1 + pad, L - 1) - max(c.hlo, 0) + 1 - pos.n;
+  const unsigned tx[kBars] = {
+      16u * R * (St - un.n), 4u * R * (St - un.n), 4u * R * (St - un.n),
+      4u * R * (A - ac.n) + 4u * R * (C - 1), 4u * R * Sp * (C - 1) + 4u * R * FM * halo};
+  if (tid == 0) {
+    for (int i = 0; i < kBars; ++i) mbar_init(&sh.bars[i]);
+    mbar_init_fence();
+    for (int i = 0; i < kBars; ++i) mbar_expect(&sh.bars[i], tx[i]);
+  }
+  const bool vec_g = ((reinterpret_cast<size_t>(a.w.w_h) | reinterpret_cast<size_t>(a.w.w_x)) &
+                      15) == 0;
+  const bool vec_dec = St % 4 == 0 && (reinterpret_cast<size_t>(a.w.dec_w) & 15) == 0;
+  const bool vec_c = St % 4 == 0 && (reinterpret_cast<size_t>(a.w.c_w) & 15) == 0;
+  const bool vec_ws = S % 4 == 0 && (reinterpret_cast<size_t>(a.w.ws_w) & 15) == 0;
+  stage_step<R, kLoc>(a, c, staged(sh, 0), T - 1);
+  cluster.sync();  // every block's mbarriers are armed before any push into it
+
+  for (int s = 0; s < T; ++s) {
+    const int t = T - 1 - s;
+    const bool last = s == 0;  // the first step of the walk writes dvh and dh
+    const size_t n0 = (size_t)b0 * T + t, rs = (size_t)T * St;  // (row b0, step t); a row's stride
+    const Staged q = staged(sh, s & 1);
+    copy_async_wait();
+    __syncthreads();
+    // The other buffer, last read in step s - 1.
+    if (s + 1 < T) stage_step<R, kLoc>(a, c, staged(sh, (s + 1) & 1), t - 1);
+    // [phase] staging wait
+    // The LSTM cell of the block's units: the gates' cotangents and the
+    // dmem chain.
+    for (int idx = tid; idx < R * un.n; idx += kThreads) {
+      const int r = idx / un.n, i = idx - r * un.n, o = r * Stc + i;
+      const float ig = sigmoid(q.g[o]), fg = sigmoid(q.g[R * Stc + o]);
+      const float gg = tanhf(q.g[2 * R * Stc + o]), og = sigmoid(q.g[3 * R * Stc + o]);
+      const float mprev = q.mp[o];
+      const float tm = tanhf(fg * mprev + ig * gg);
+      const float ds = q.dsq[o] + sh.carry_s[o];
+      const float dm = ds * og * (1.f - tm * tm) + q.dmq[o] + sh.carry_m[o];
+      const float dg[4] = {dm * gg * ig * (1.f - ig), dm * mprev * fg * (1.f - fg),
+                           dm * ig * (1.f - gg * gg), ds * tm * og * (1.f - og)};
+      sh.carry_m[o] = dm * fg;
+      float* gd = sh.gdg + r * St4 + un.lo + i;
+      float* stash = a.st.dg + (n0 + (size_t)r * T) * St4 + un.lo + i;
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi) {
+        gd[gi * St] = dg[gi];
+        if (r < nrows) stash[gi * St] = dg[gi];
+      }
+    }
+    async_fence();
+    __syncthreads();
+    push<R>(sh.gdg, St4, un.lo, 4, St, un.n, &sh.bars[0], C, k, c.bulk);
+    if (kLoc)  // the location features of the block's positions, off the chain
+      for (int idx = tid; idx < nrows * pos.n * FM; idx += kThreads) {
+        const int qq = idx % FM, rp = idx / FM, p = rp % pos.n, r = rp / pos.n;
+        float f = 0.f;
+        for (int j = 0; j < F; ++j) f = fmaf(q.ap[r * Pw + p + j], sh.cw[j * FM + qq], f);
+        sh.feat[(r * Pc + p) * FM + qq] = f + sh.cb[qq];
+      }
+    walk_wait(&sh.bars[0], s & 1);
+    if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[0], tx[0]);
+    // [phase] cell, dg exchange
+    // dr = dg w_x^T on the block's units, pushed; then, while it is on
+    // its way, dsp = dg w_h^T, which only the step's carry reads. Each
+    // product's emit takes its outputs' bases by value, formed before its
+    // loop (fewer values live through it than capturing the walk's state).
+    rows_dot<R, false, true>(a.w.w_x + (size_t)un.lo * St4, St4, un.n, sh.gdg, St4, St4,
+                             [y = sh.gdr + un.lo, z = a.st.dr + n0 * St + un.lo, St, rs,
+                              nrows](int i, int r, float v) {
+                               y[r * St + i] = v;
+                               if (r < nrows) z[r * rs + i] = v;
+                             }, vec_g);
+    async_fence();
+    __syncthreads();
+    push<R>(sh.gdr, St, un.lo, 1, 0, un.n, &sh.bars[1], C, k, c.bulk);
+    rows_dot<R, false, true>(a.w.w_h + (size_t)un.lo * St4, St4, un.n, sh.gdg, St4, St4,
+                             [y = sh.dsp, Stc](int i, int r, float v) { y[r * Stc + i] = v; },
+                             vec_g);
+    walk_wait(&sh.bars[1], s & 1);
+    if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[1], tx[1]);
+    // [phase] w_x^T w_h^T, dr exchange
+    // drr = dr dec_w^T on the block's units: dcc, pushed; then dyin.
+    rows_dot<R, false, true>(a.w.dec_w + (size_t)un.lo * St, St, un.n, sh.gdr, St, St,
+                             [y = sh.gdcc + un.lo, z = a.st.dcc + n0 * St + un.lo, St, rs,
+                              nrows](int i, int r, float v) {
+                               y[r * St + i] = v;
+                               if (r < nrows) z[r * rs + i] = v;
+                             }, vec_dec);
+    async_fence();
+    __syncthreads();
+    push<R>(sh.gdcc, St, un.lo, 1, 0, un.n, &sh.bars[2], C, k, c.bulk);
+    rows_dot<R, false, true>(a.w.dec_w + (size_t)(St + un.lo) * St, St, un.n, sh.gdr, St, St,
+                             [z = a.dyin + n0 * St + un.lo, rs, nrows](int i, int r, float v) {
+                               if (r < nrows) z[r * rs + i] = v;
+                             }, vec_dec);
+    walk_wait(&sh.bars[2], s & 1);
+    if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[2], tx[2]);
+    // [phase] dec_w^T, dcc exchange
+    // dc = dcc c_w^T + dc_seq on the block's columns, pushed with the
+    // block's share of sum_l alpha dalpha, a warp a row.
+    rows_dot<R, false, true>(a.w.c_w + (size_t)ac.lo * St, St, ac.n, sh.gdcc, St, St,
+                             [y = sh.gdc + ac.lo, add = q.dcq, A, Ac](int i, int r, float v) {
+                               y[r * A + i] = v + add[r * Ac + i];
+                             }, vec_c);
+    async_fence();
+    __syncthreads();
+    push<R>(sh.gdc, A, ac.lo, 1, 0, ac.n, &sh.bars[3], C, k, c.bulk);
+    if (warp < R) {
+      const int r = warp;
+      float part = 0.f;
+      for (int i = lane; i < ac.n; i += 32)
+        part = fmaf(q.cq[r * Ac + i], sh.gdc[r * A + ac.lo + i], part);
+      for (int p = lane; p < pos.n; p += 32)
+        part = fmaf(q.al[r * Pc + p], q.dalq[r * Pc + p] + (kLoc ? sh.dalc[r * Pc + p] : 0.f),
+                    part);
+      part = warp_sum(part);
+      if (lane == 0) sh.dotp[k * R + r] = part;
+      if (lane < C && lane != k)
+        st_async(cluster_map(sh.dotp + k * R + r, lane), part, cluster_map(&sh.bars[3], lane));
+    }
+    walk_wait(&sh.bars[3], s & 1);
+    if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[3], tx[3]);
+    __syncthreads();  // this block's own share of the sum
+    // [phase] c_w^T, dc exchange
+    // The context on the block's positions: dalpha = h dc + dalpha_seq +
+    // the carry from step t+1 and de = alpha (dalpha - sum_l alpha
+    // dalpha), a warp per (row, position); dh += alpha dc^T.
+    for (int pr = warp; pr < nrows * pos.n; pr += kWarps) {
+      const int r = pr / pos.n, p = pr - r * pos.n;
+      const float* hr = a.h + ((size_t)(b0 + r) * L + pos.lo + p) * A;
+      const float* dc = sh.gdc + r * A;
+      float acc = 0.f;
+      for (int j = lane; j < A; j += 32) acc = fmaf(dc[j], hr[j], acc);
+      acc = warp_sum(acc);
+      if (lane == 0) {
+        float dot = 0.f;
+        for (int j = 0; j < C; ++j) dot += sh.dotp[j * R + r];
+        const float dal = acc + q.dalq[r * Pc + p] + (kLoc ? sh.dalc[r * Pc + p] : 0.f);
+        sh.de[r * Pc + p] = q.al[r * Pc + p] * (dal - dot);
+      }
+    }
+    for (int j = tid; j < A; j += kThreads)
+      for (int r = 0; r < nrows; ++r) {
+        const float dcj = sh.gdc[r * A + j];
+        float* dhr = a.dh + ((size_t)(b0 + r) * L + pos.lo) * A + j;
+        for (int p0 = 0; p0 < pos.n; p0 += kLocRows) {
+          float o[kLocRows];
+          #pragma unroll
+          for (int x = 0; x < kLocRows; ++x)
+            o[x] = p0 + x < pos.n && !last ? dhr[(size_t)(p0 + x) * A] : 0.f;
+          #pragma unroll
+          for (int x = 0; x < kLocRows; ++x) {
+            const int p = p0 + x;
+            if (p >= pos.n) break;
+            const float v = q.al[r * Pc + p] * dcj;
+            dhr[(size_t)p * A] = last ? v : o[x] + v;
+          }
+        }
+      }
+    __syncthreads();
+    // [phase] context
+    walk_energies<R, kLoc>(a, c, sh, q, last);
+    async_fence();
+    __syncthreads();
+    // [phase] energies
+    if (kLoc) {
+      walk_dfeat<R>(a, c, sh);
+      async_fence();
+      __syncthreads();
+    }
+    // [phase] dfeat
+    // E5: the block's dws partial into every peer, a bulk copy each; with
+    // the location term, its dfeat rows into each peer whose alpha_prev
+    // cotangent reads them: a row's positions x0..x0+nx are nx FM
+    // consecutive floats in both blocks' halo buffers, one bulk copy a
+    // row and peer where FM is a multiple of 4, else a store a value.
+    for (int e = tid; e < C - 1; e += kThreads)
+      bulk_copy(sh.dwsp + k * R * Sp, 4u * R * Sp, e < k ? e : e + 1, &sh.bars[4]);
+    if (kLoc)
+      for (int j = 0; j < C; ++j) {
+        const Span pj(L, C, j);
+        if (j == k || pj.n == 0) continue;
+        const int hj = pj.lo + pad - F + 1;
+        const int x0 = max(pos.lo, hj), nx = min(pos.lo + pos.n, pj.lo + pj.n + pad) - x0;
+        if (nx <= 0) continue;
+        if (FM % 4 == 0) {
+          for (int r = tid; r < R; r += kThreads)
+            bulk_copy_to(sh.dfh + (r * Pw + x0 - c.hlo) * FM, sh.dfh + (r * Pw + x0 - hj) * FM,
+                         4u * nx * FM, j, &sh.bars[4]);
+          continue;
+        }
+        const unsigned bar = cluster_map(&sh.bars[4], j);
+        for (int idx = tid; idx < R * nx * FM; idx += kThreads) {
+          const int qq = idx % FM, rx = idx / FM, x = x0 + rx % nx, r = rx / nx;
+          st_async(cluster_map(sh.dfh + (r * Pw + x - hj) * FM + qq, j),
+                   sh.dfh[(r * Pw + x - c.hlo) * FM + qq], bar);
+        }
+      }
+    if (kLoc) {
+      // Off the chain: dwconv[j][q] += sum ap[p + j] dfeat[p][q] and
+      // dbconv[q] += sum dfeat[p][q] over the block's rows and positions,
+      // a thread per entry.
+      for (int idx = tid; idx < n_conv; idx += kThreads) {
+        float v = 0.f;
+        for (int r = 0; r < nrows; ++r) {
+          const float* df = sh.dfh + (r * Pw + F - 1 - pad) * FM;  // the block's first position
+          if (idx < F * FM) {
+            const int j = idx / FM, qq = idx - j * FM;
+            for (int p = 0; p < pos.n; ++p) v = fmaf(q.ap[r * Pw + p + j], df[p * FM + qq], v);
+          } else {
+            for (int p = 0; p < pos.n; ++p) v += df[p * FM + idx - F * FM];
+          }
+        }
+        sh.pconv[idx] += v;
+      }
+    }
+    walk_wait(&sh.bars[4], s & 1);
+    if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[4], tx[4]);
+    // [phase] dws exchange
+    // dws, the blocks' partials in rank order (the same sums in every
+    // block; the owner of a score unit stashes it). With the location
+    // term, the cotangent of alpha_prev for step t-1 on the block's
+    // positions: alpha_prev[x] enters feat[l] through tap j = x + pad - l,
+    // a warp per (row, position), its lanes along the taps' (j, q).
+    for (int idx = tid; idx < R * S; idx += kThreads) {
+      const int r = idx / S, sc = idx - r * S;
+      float v = 0.f;
+      for (int j = 0; j < C; ++j) v += sh.dwsp[(j * R + r) * Sp + sc];
+      sh.dws[r * Sp + sc] = v;
+      if (r < nrows && sc >= sp.lo && sc < sp.lo + sp.n)
+        a.st.dws[(n0 + (size_t)r * T) * S + sc] = v;
+    }
+    if (kLoc)
+      for (int pr = warp; pr < nrows * pos.n; pr += kWarps) {
+        const int r = pr / pos.n, p = pr - r * pos.n;
+        float acc = 0.f;
+        for (int i = lane; i < F * FM; i += 32) {
+          const int j = i / FM;
+          acc = fmaf(sh.dfh[(r * Pw + p + F - 1 - j) * FM + i - j * FM], sh.cw[i], acc);
+        }
+        acc = warp_sum(acc);
+        if (lane == 0) sh.dalc[r * Pc + p] = acc;
+      }
+    __syncthreads();
+    // ds carried to step t-1: dsp + dws ws_w^T on the block's units.
+    rows_dot<R, false, true>(a.w.ws_w + (size_t)un.lo * S, S, un.n, sh.dws, Sp, S,
+                             [y = sh.carry_s, add = sh.dsp, Stc](int i, int r, float v) {
+                               y[r * Stc + i] = v + add[r * Stc + i];
+                             }, vec_ws);
+    __syncthreads();
+    // [phase] ws_w^T
+  }
+  // This block's rows of the partial sums: the cluster's rank k block of
+  // group g is block g C + k.
+  const size_t part = blockIdx.x;
+  for (int i = tid; i < S; i += kThreads) a.st.pwe[part * S + i] = sh.we_acc[i];
+  if (kLoc) {
+    for (int i = tid; i < FM * S; i += kThreads) a.st.pu[part * FM * S + i] = sh.pu[i];
+    for (int i = tid; i < n_conv; i += kThreads) a.st.pconv[part * n_conv + i] = sh.pconv[i];
+  }
+  cluster.sync();  // no block leaves while its shared memory may still be a peer's target
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1) loc_lstm_bwd_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  lstm_walk<R, true>(sm, a);
+}
+
+template <int R>
 __global__ void __launch_bounds__(kThreads, 1) scan_lstm_bwd_kernel(const BwdArgs a) {
-  extern __shared__ float sm[];
-  scan_bwd<true, false>(sm, a);
+  extern __shared__ __align__(16) float sm[];
+  lstm_walk<R, false>(sm, a);
+}
+
+// The recompute pre-pass over every (row, step) n, one 64 x 64 output
+// tile a block. Stage 0: cc = c @ c_w + c_b into rr[:, :St], yin into
+// rr[:, St:] (blockIdx.y below ceil(St / 64)), and ws = s_prev @ ws_w +
+// ws_b into the stash's dws rows (the rest); stage 1: r = rr @ dec_w +
+// dec_b; stage 2: the gates' pre-activations s_prev @ w_h + r @ w_x + b
+// into the stash's dgates rows. Each stage is a launch of its own, after
+// the one it reads, and an instance of its own (tile_product's static
+// shared memory, 17 KB a call site, stays under 48 KB).
+template <int kStage>
+__global__ void __launch_bounds__(kTileThreads) lstm_decoder_prepass_kernel(const BwdArgs a) {
+  const Dims& d = a.d;
+  const Weights& w = a.w;
+  const Stash& st = a.st;
+  const int St = d.St, St2 = 2 * St, St4 = 4 * St, S = d.S, A = d.A, T = d.T;
+  const int rows = d.B * T, i0 = blockIdx.x * kTile, ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  auto sprev = [&](int n, int kk) -> float {
+    return n < rows && n % T > 0 ? a.s_seq[(size_t)(n - 1) * St + kk] : 0.f;
+  };
+  // out(n, j) for the tile's rows n < rows and columns j < N.
+  auto store = [&](const float (&acc)[4][4], int j0, int N, auto out) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int n = i0 + 4 * ty + r, j = j0 + 4 * tx + c;
+        if (n < rows && j < N) out(n, j, acc[r][c]);
+      }
+  };
+  float acc[4][4];
+  const int j0 = blockIdx.y * kTile, cc_tiles = (St + kTile - 1) / kTile;
+  if constexpr (kStage == 0) {
+    if ((int)blockIdx.y < cc_tiles) {
+      tile_product(
+          acc, [&](int n, int kk) { return n < rows ? a.c_seq[(size_t)n * A + kk] : 0.f; },
+          [&](int kk, int j) { return j < St ? w.c_w[(size_t)kk * St + j] : 0.f; }, i0, j0, A);
+      store(acc, j0, St, [&](int n, int j, float v) {
+        st.rr[(size_t)n * St2 + j] = v + w.c_b[j];
+        st.rr[(size_t)n * St2 + St + j] = a.yin[(size_t)n * St + j];
+      });
+    } else {
+      const int js = j0 - cc_tiles * kTile;
+      tile_product(acc, sprev,
+                   [&](int kk, int j) { return j < S ? w.ws_w[(size_t)kk * S + j] : 0.f; }, i0,
+                   js, St);
+      store(acc, js, S, [&](int n, int j, float v) { st.dws[(size_t)n * S + j] = v + w.ws_b[j]; });
+    }
+  } else if constexpr (kStage == 1) {
+    tile_product(
+        acc, [&](int n, int kk) { return n < rows ? st.rr[(size_t)n * St2 + kk] : 0.f; },
+        [&](int kk, int j) { return j < St ? w.dec_w[(size_t)kk * St + j] : 0.f; }, i0, j0, St2);
+    store(acc, j0, St, [&](int n, int j, float v) { st.r[(size_t)n * St + j] = v + w.dec_b[j]; });
+  } else {
+    tile_product(
+        acc,
+        [&](int n, int kk) {
+          return kk < St ? sprev(n, kk) : n < rows ? st.r[(size_t)n * St + kk - St] : 0.f;
+        },
+        [&](int kk, int j) {
+          return j >= St4 ? 0.f : kk < St ? w.w_h[(size_t)kk * St4 + j]
+                                          : w.w_x[(size_t)(kk - St) * St4 + j];
+        },
+        i0, j0, St2);
+    store(acc, j0, St4, [&](int n, int j, float v) { st.dg[(size_t)n * St4 + j] = v + w.b[j]; });
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -785,26 +1472,45 @@ struct Grads {
   float *dwconv, *dbconv, *du;
 };
 
-// The backward kernel, then the weight gradients over the B*T steps
-// (s_prev = s_seq shifted by one) and, with the location term, dU,
-// dwconv and dbconv as the sums of the B rows' partials.
-template <bool kLstm, bool kLoc>
-int launch_bwd(void (*kernel)(const BwdArgs), BwdArgs a, const Grads& g, float* scratch,
-               cudaStream_t stream) {
+// The location term's weight gradients as column sums of `rows` rows of
+// partials, in a fixed order: dU from pu, dwconv and dbconv from pconv;
+// and first, where pwe is given, dw_e.
+cudaError_t reduce_partials(const Stash& st, const Grads& g, const Dims& d, int rows, bool loc,
+                            cudaStream_t stream) {
+  const int FM = d.FM, F = d.F, n_conv = (F + 1) * FM, S = d.S;
+  AtbBatch batch{};
+  batch.rows = rows;
+  batch.period = 1;
+  if (st.pwe) batch.p[batch.count++] = AtbProblem{nullptr, 0, 0, st.pwe, S, nullptr, g.dw_e, 0, S};
+  if (loc) {
+    batch.p[batch.count++] =
+        AtbProblem{nullptr, 0, 0, st.pu, FM * S, nullptr, g.du, 0, FM * S};
+    batch.p[batch.count++] =
+        AtbProblem{nullptr, 0, 0, st.pconv, n_conv, nullptr, g.dwconv, 0, F * FM};
+    batch.p[batch.count++] =
+        AtbProblem{nullptr, 0, 0, st.pconv + F * FM, n_conv, nullptr, g.dbconv, 0, FM};
+  }
+  return launch_atb(batch, stream);
+}
+
+// K13: the backward kernel, then the weight gradients over the B*T steps
+// (s_prev = s_seq shifted by one) and dU, dwconv and dbconv as the sums
+// of the B rows' partials.
+int launch_gru_bwd(BwdArgs a, const Grads& g, float* scratch, cudaStream_t stream) {
   const Dims& d = a.d;
-  if (!valid<kLoc>(d)) return (int)cudaErrorInvalidValue;
+  if (!valid<true>(d)) return (int)cudaErrorInvalidValue;
   size_t floats;
-  carve_bwd<kLstm, kLoc>(nullptr, d, &floats);
+  carve_bwd(nullptr, d, &floats);
   const size_t bytes = floats * sizeof(float);
-  cudaError_t err = set_smem(kernel, bytes);
+  cudaError_t err = set_smem(scan_loc_gru_bwd_kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  a.st = carve_stash<kLstm, kLoc>(scratch, d);
-  kernel<<<d.B, kThreads, bytes, stream>>>(a);
+  a.st = carve_stash<false, true>(scratch, d, 0);
+  scan_loc_gru_bwd_kernel<<<d.B, kThreads, bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const Stash& st = a.st;
-  const int St = d.St, St2 = 2 * St, St4 = 4 * St, S = d.S, A = d.A;
+  const int St = d.St, St2 = 2 * St, S = d.S, A = d.A;
   AtbBatch steps{};
   steps.count = 6;
   steps.rows = d.B * d.T;
@@ -812,32 +1518,95 @@ int launch_bwd(void (*kernel)(const BwdArgs), BwdArgs a, const Grads& g, float* 
   steps.p[0] = AtbProblem{a.s_seq, St, -1, st.dws, S, g.dws_w, g.dws_b, St, S};
   steps.p[1] = AtbProblem{a.c_seq, A, 0, st.dcc, St, g.dc_w, g.dc_b, A, St};
   steps.p[2] = AtbProblem{st.rr, St2, 0, st.dr, St, g.ddec_w, g.ddec_b, St2, St};
-  if (kLstm) {
-    steps.p[3] = AtbProblem{a.s_seq, St, -1, st.dg, St4, g.dw_h, g.db, St, St4};
-    steps.p[4] = AtbProblem{st.r, St, 0, st.dg, St4, g.dw_x, nullptr, St, St4};
-  } else {
-    steps.p[3] = AtbProblem{st.sr, St2, 0, st.da_zr, St2, g.dw_zr, nullptr, St2, St2};
-    steps.p[4] = AtbProblem{st.cand_in, St2, 0, st.da_cand, St, g.dw_h, nullptr, St2, St};
-  }
+  steps.p[3] = AtbProblem{st.sr, St2, 0, st.da_zr, St2, g.dw_zr, nullptr, St2, St2};
+  steps.p[4] = AtbProblem{st.cand_in, St2, 0, st.da_cand, St, g.dw_h, nullptr, St2, St};
   steps.p[5] = AtbProblem{nullptr, 0, 0, st.dwe, S, nullptr, g.dw_e, 0, S};
   err = launch_atb(steps, stream);
-  if (err != cudaSuccess || !kLoc) return (int)err;
-  const int FM = d.FM, F = d.F, n_conv = (F + 1) * FM;
-  AtbBatch loc{};
-  loc.count = 3;
-  loc.rows = d.B;
-  loc.period = 1;
-  loc.p[0] = AtbProblem{nullptr, 0, 0, st.pu, FM * S, nullptr, g.du, 0, FM * S};
-  loc.p[1] = AtbProblem{nullptr, 0, 0, st.pconv, n_conv, nullptr, g.dwconv, 0, F * FM};
-  loc.p[2] = AtbProblem{nullptr, 0, 0, st.pconv + F * FM, n_conv, nullptr, g.dbconv, 0, FM};
-  return (int)launch_atb(loc, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)reduce_partials(st, g, d, d.B, true, stream);
+}
+
+using LstmWalk = void (*)(const BwdArgs);
+
+// The walk instance for R batch rows a cluster, of K11 (kLoc) or K15.
+template <bool kLoc>
+LstmWalk lstm_walk_kernel(int R) {
+  if (kLoc)
+    return R == 1 ? loc_lstm_bwd_kernel<1> : R == 2 ? loc_lstm_bwd_kernel<2>
+         : R == 4 ? loc_lstm_bwd_kernel<4> : R == 8 ? loc_lstm_bwd_kernel<8> : nullptr;
+  return R == 1 ? scan_lstm_bwd_kernel<1> : R == 2 ? scan_lstm_bwd_kernel<2>
+       : R == 4 ? scan_lstm_bwd_kernel<4> : R == 8 ? scan_lstm_bwd_kernel<8> : nullptr;
+}
+
+// K11 and K15: the pre-pass, the walk on clusters of `cluster` blocks,
+// `rows` batch rows a cluster, then the weight gradients over the B*T
+// steps and over the blocks' partials.
+template <bool kLoc>
+int launch_lstm_bwd(BwdArgs a, const Grads& g, float* scratch, int cluster, int rows,
+                    cudaStream_t stream) {
+  const Dims& d = a.d;
+  const auto walk = lstm_walk_kernel<kLoc>(rows);
+  if (!valid<kLoc>(d) || walk == nullptr || cluster < 1 || cluster > kMaxWalkCluster)
+    return (int)cudaErrorInvalidValue;
+  size_t floats;
+  carve_walk<kLoc>(nullptr, d, cluster, rows, &floats);
+  const long long counted = lstm_walk_smem_floats(rows, cluster, d.L, d.S, d.A, d.St, d.FM, d.F,
+                                                  kLoc);
+  if ((long long)floats != counted) return (int)cudaErrorInvalidValue;  // layout and count disagree
+  const int groups = (d.B + rows - 1) / rows;
+  a.st = carve_stash<true, kLoc>(scratch, d, groups * cluster);
+  const int St = d.St, St2 = 2 * St, St4 = 4 * St, S = d.S, A = d.A;
+  // The pre-pass: 64-row tiles of the B*T rows by 64-column tiles of
+  // [cc | ws], of r, of the gates.
+  const int tiles = (d.B * d.T + kTile - 1) / kTile, cc_tiles = (St + kTile - 1) / kTile;
+  const dim3 cc_ws(tiles, cc_tiles + (S + kTile - 1) / kTile), r(tiles, cc_tiles);
+  const dim3 gates(tiles, (St4 + kTile - 1) / kTile);
+  lstm_decoder_prepass_kernel<0><<<cc_ws, kTileThreads, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  lstm_decoder_prepass_kernel<1><<<r, kTileThreads, 0, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  lstm_decoder_prepass_kernel<2><<<gates, kTileThreads, 0, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(walk, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_cluster(walk, dim3(cluster * groups), cluster, floats * sizeof(float), stream, a);
+  if (err != cudaSuccess) return (int)err;
+
+  const Stash& st = a.st;
+  AtbBatch steps{};
+  steps.count = 5;
+  steps.rows = d.B * d.T;
+  steps.period = d.T;
+  steps.p[0] = AtbProblem{a.s_seq, St, -1, st.dws, S, g.dws_w, g.dws_b, St, S};
+  steps.p[1] = AtbProblem{a.c_seq, A, 0, st.dcc, St, g.dc_w, g.dc_b, A, St};
+  steps.p[2] = AtbProblem{st.rr, St2, 0, st.dr, St, g.ddec_w, g.ddec_b, St2, St};
+  steps.p[3] = AtbProblem{a.s_seq, St, -1, st.dg, St4, g.dw_h, g.db, St, St4};
+  steps.p[4] = AtbProblem{st.r, St, 0, st.dg, St4, g.dw_x, nullptr, St, St4};
+  err = launch_atb(steps, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)reduce_partials(st, g, d, groups * cluster, kLoc, stream);
+}
+
+// The opt-in shared memory of a block of the walk and the clusters of
+// `cluster` blocks (8, or 16: a non-portable size) of it that can be
+// resident at once when each block takes that much.
+template <bool kLoc>
+int lstm_walk_limits(int cluster, int* smem_limit, int* clusters) {
+  if (cluster < 1 || cluster > kMaxWalkCluster) return (int)cudaErrorInvalidValue;
+  const auto walk = lstm_walk_kernel<kLoc>(8);
+  cudaError_t err = cudaFuncSetAttribute(walk, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cluster_limits(walk, cluster, smem_limit, clusters);
 }
 
 }  // namespace
 
 // ---------------------------------------------------------------------------
 // Entry points. The backward ones take ds_seq, dc_seq, dalpha_seq (and
-// dmem_seq) as NULL where there is no cotangent.
+// dmem_seq) as NULL where there is no cotangent; those of K11 and K15
+// take the walk's plan, `cluster` blocks a cluster and `rows` batch rows
+// a cluster (1, 2, 4 or 8), from ops/cuda/attention_scan.py scan_plan.
 
 extern "C" int attention_decode_scan_loc_lstm_fwd(
     const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
@@ -853,6 +1622,11 @@ extern "C" int attention_decode_scan_loc_lstm_fwd(
   return launch_fwd<true, true>(loc_lstm_fwd_kernel, a, stream);
 }
 
+extern "C" int attention_decode_scan_loc_lstm_bwd_limits(int cluster, int* smem_limit,
+                                                         int* clusters) {
+  return lstm_walk_limits<true>(cluster, smem_limit, clusters);
+}
+
 extern "C" int attention_decode_scan_loc_lstm_bwd(
     const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
     const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
@@ -862,8 +1636,8 @@ extern "C" int attention_decode_scan_loc_lstm_bwd(
     const float* dalpha_seq, const float* dmem_seq, float* dvh, float* dh, float* dyin,
     float* dws_w, float* dws_b, float* dw_e, float* dc_w, float* dc_b, float* ddec_w,
     float* ddec_b, float* dw_h, float* dw_x, float* db, float* dwconv, float* dbconv, float* du,
-    float* scratch, int B, int T, int L, int S, int A, int St, int FM, int F,
-    cudaStream_t stream) {
+    float* scratch, int B, int T, int L, int S, int A, int St, int FM, int F, int cluster,
+    int rows, cudaStream_t stream) {
   const BwdArgs a{vh, h, mask, yin,
                   Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h, w_x, b, wconv,
                           bconv, u},
@@ -871,7 +1645,7 @@ extern "C" int attention_decode_scan_loc_lstm_bwd(
                   dvh, dh, dyin, Stash{}, Dims{B, T, L, S, A, St, FM, F}};
   const Grads g{dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, nullptr, dw_h, dw_x, db,
                 dwconv, dbconv, du};
-  return launch_bwd<true, true>(loc_lstm_bwd_kernel, a, g, scratch, stream);
+  return launch_lstm_bwd<true>(a, g, scratch, cluster, rows, stream);
 }
 
 extern "C" int attention_decode_scan_loc_fwd(
@@ -904,7 +1678,7 @@ extern "C" int attention_decode_scan_loc_bwd(
                   dvh, dh, dyin, Stash{}, Dims{B, T, L, S, A, St, FM, F}};
   const Grads g{dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dw_zr, dw_h, nullptr, nullptr,
                 dwconv, dbconv, du};
-  return launch_bwd<false, true>(scan_loc_gru_bwd_kernel, a, g, scratch, stream);
+  return launch_gru_bwd(a, g, scratch, stream);
 }
 
 extern "C" int attention_decode_scan_lstm_fwd(
@@ -920,6 +1694,10 @@ extern "C" int attention_decode_scan_lstm_fwd(
   return launch_fwd<true, false>(scan_lstm_fwd_kernel, a, stream);
 }
 
+extern "C" int attention_decode_scan_lstm_bwd_limits(int cluster, int* smem_limit, int* clusters) {
+  return lstm_walk_limits<false>(cluster, smem_limit, clusters);
+}
+
 extern "C" int attention_decode_scan_lstm_bwd(
     const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
     const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
@@ -928,7 +1706,7 @@ extern "C" int attention_decode_scan_lstm_bwd(
     const float* dc_seq, const float* dalpha_seq, const float* dmem_seq, float* dvh, float* dh,
     float* dyin, float* dws_w, float* dws_b, float* dw_e, float* dc_w, float* dc_b,
     float* ddec_w, float* ddec_b, float* dw_h, float* dw_x, float* db, float* scratch, int B,
-    int T, int L, int S, int A, int St, cudaStream_t stream) {
+    int T, int L, int S, int A, int St, int cluster, int rows, cudaStream_t stream) {
   const BwdArgs a{vh, h, mask, yin,
                   Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h, w_x, b, nullptr,
                           nullptr, nullptr},
@@ -936,5 +1714,5 @@ extern "C" int attention_decode_scan_lstm_bwd(
                   dvh, dh, dyin, Stash{}, Dims{B, T, L, S, A, St, 0, 0}};
   const Grads g{dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, nullptr, dw_h, dw_x, db,
                 nullptr, nullptr, nullptr};
-  return launch_bwd<true, false>(scan_lstm_bwd_kernel, a, g, scratch, stream);
+  return launch_lstm_bwd<false>(a, g, scratch, cluster, rows, stream);
 }

@@ -262,11 +262,16 @@ __device__ __forceinline__ float reduce_rows(float (&v)[R], int& row) {
 // of w[i][j] v[r * ldv + j] for r < R, then emit(i, r, sum) on lane
 // r' < R for its row r. Row i of w starts at w + i * ldw, its elements
 // consecutive; with kColumns, row i is column i of an input-major matrix:
-// w[i][j] at w[j * ldw + i]. A warp takes two rows at once, i and
-// i + kWarps, so that each load of v feeds two products. No barrier.
-template <int R, bool kColumns = false, class Emit>
+// w[i][j] at w[j * ldw + i]. With kGlobal, w is read-only global memory,
+// read through the non-coherent cache 4 loads ahead of their use, each
+// lane taking 4 consecutive floats of each row with 16-byte loads where
+// `vec` (m, ldw, ldv, w and v 16-byte aligned). A warp takes two rows at
+// once, i and i + kWarps, so that each load of v feeds two products. No
+// barrier.
+template <int R, bool kColumns = false, bool kGlobal = false, class Emit>
 __device__ __forceinline__ void rows_dot(const float* w, int ldw, int n, const float* v, int ldv,
-                                         int m, Emit emit) {
+                                         int m, Emit emit, bool vec = false) {
+  static_assert(!(kColumns && kGlobal), "kGlobal reads rows");
   const int lane = threadIdx.x & 31;
   for (int i = threadIdx.x >> 5; i < n; i += 2 * kWarps) {
     const int i2 = i + kWarps < n ? i + kWarps : i;  // a lone last row is summed twice
@@ -275,27 +280,60 @@ __device__ __forceinline__ void rows_dot(const float* w, int ldw, int n, const f
     float sa[R], sb[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) sa[r] = sb[r] = 0.f;
-#pragma unroll 2
-    for (int j = lane; j < m; j += 32) {
-      float xa, xb;
-      if constexpr (kColumns) {
-        xa = wa[(size_t)j * ldw], xb = wb[(size_t)j * ldw];
-      } else {
-        xa = wa[j], xb = wb[j];
-      }
+    if constexpr (kGlobal) {
+      if (vec) {
+#pragma unroll 4
+        for (int j = 4 * lane; j < m; j += 128) {
+          const float4 xa = __ldg(reinterpret_cast<const float4*>(wa + j));
+          const float4 xb = __ldg(reinterpret_cast<const float4*>(wb + j));
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float x = v[r * ldv + j];
-        sa[r] = fmaf(xa, x, sa[r]);
-        sb[r] = fmaf(xb, x, sb[r]);
+          for (int r = 0; r < R; ++r) {
+            const float4 x = *reinterpret_cast<const float4*>(v + r * ldv + j);
+            sa[r] = fmaf(xa.w, x.w, fmaf(xa.z, x.z, fmaf(xa.y, x.y, fmaf(xa.x, x.x, sa[r]))));
+            sb[r] = fmaf(xb.w, x.w, fmaf(xb.z, x.z, fmaf(xb.y, x.y, fmaf(xb.x, x.x, sb[r]))));
+          }
+        }
+      } else {
+#pragma unroll 4
+        for (int j = lane; j < m; j += 32) {
+          const float xa = __ldg(wa + j), xb = __ldg(wb + j);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float x = v[r * ldv + j];
+            sa[r] = fmaf(xa, x, sa[r]);
+            sb[r] = fmaf(xb, x, sb[r]);
+          }
+        }
+      }
+    } else {
+#pragma unroll 2
+      for (int j = lane; j < m; j += 32) {
+        float xa, xb;
+        if constexpr (kColumns) {
+          xa = wa[(size_t)j * ldw], xb = wb[(size_t)j * ldw];
+        } else {
+          xa = wa[j], xb = wb[j];
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float x = v[r * ldv + j];
+          sa[r] = fmaf(xa, x, sa[r]);
+          sb[r] = fmaf(xb, x, sb[r]);
+        }
       }
     }
     int ra, rb;
     const float suma = reduce_rows<R>(sa, ra);
     const float sumb = reduce_rows<R>(sb, rb);
     if (lane < R) {
-      emit(i, ra, suma);
-      if (i2 != i) emit(i2, rb, sumb);
+      if constexpr (kGlobal) {  // one copy of emit: the walk's code a step is large
+#pragma unroll 1
+        for (int pass = 0; pass < (i2 != i ? 2 : 1); ++pass)
+          emit(pass ? i2 : i, pass ? rb : ra, pass ? sumb : suma);
+      } else {
+        emit(i, ra, suma);
+        if (i2 != i) emit(i2, rb, sumb);
+      }
     }
   }
 }

@@ -29,6 +29,8 @@ Weights are the port's parameter leaves: biases and w_e are 1-D.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Dict, Tuple
 
 import torch
 
@@ -263,7 +265,7 @@ KERNEL_LOC_LSTM_FWD = build.Kernel(
 KERNEL_LOC_LSTM_BWD = build.Kernel(
     "attention_decode_scan_loc_lstm_bwd", "attention_scan_loc_lstm.cu",
     "attention_decode_scan_loc_lstm_bwd",
-    [ctypes.c_void_p] * 42 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 42 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
 )
 KERNEL_LOC_FWD = build.Kernel(
     "attention_decode_scan_loc_fwd", "attention_scan_loc_lstm.cu", "attention_decode_scan_loc_fwd",
@@ -281,7 +283,7 @@ KERNEL_LSTM_FWD = build.Kernel(
 KERNEL_LSTM_BWD = build.Kernel(
     "attention_decode_scan_lstm_bwd", "attention_scan_loc_lstm.cu",
     "attention_decode_scan_lstm_bwd",
-    [ctypes.c_void_p] * 36 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 36 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 )
 _COMMON = WEIGHTS[:7]
 _LOC = ("wconv", "bconv", "u")
@@ -523,24 +525,158 @@ def _scan(kernel, lstm: bool, vh, h, enc_mask, yin, weights):
 
 
 def stash_floats(lstm: bool, b: int, t_len: int, l: int, s_dim: int, st: int, fm: int = 0,
-                 f: int = 0) -> int:
+                 f: int = 0, partials: int = 0) -> int:
     """Floats of the stash of K5, K11, K13 and K15 (``carve_stash``): (B*T)
     rows of rr (2St), for the LSTM r (St), for the GRU sr and cand_in (2St
     each), dws (S), dcc and dr (St each), for the LSTM dgates (4St), for
-    the GRU da_zr (2St) and da_cand (St), and the per-step w_e partial
-    (S); then, with the location term (fm > 0), B rows of the step's dz
-    (L*S, which every step rewrites) and of the row's partial sums of dU
-    (FM*S) and of dwconv and dbconv ((F + 1) * FM). The location term's
-    share does not grow with T: the walk sums its weight gradients over
-    the steps itself."""
-    per_step = (9 if lstm else 11) * st + 2 * s_dim
-    return b * t_len * per_step + (b * (l * s_dim + fm * s_dim + (f + 1) * fm) if fm else 0)
+    the GRU da_zr (2St), da_cand (St) and the per-step w_e partial (S);
+    then, with the location term (fm > 0), B rows of the step's dz (L*S,
+    which every step rewrites); then the partial sums: for the GRU with
+    the location term, B rows of dU (FM*S) and of dwconv and dbconv ((F +
+    1) * FM); for the LSTM, `partials` rows (one per block of the walk:
+    ScanPlan.partials) of dw_e (S) and, with the location term, of dU and
+    of dwconv and dbconv. Neither the location term's share nor the
+    partials grow with T: the walks sum them over the steps themselves."""
+    loc = b * l * s_dim + b * (fm * s_dim + (f + 1) * fm) if fm else 0
+    if not lstm:
+        return b * t_len * (11 * st + 2 * s_dim) + loc
+    return (b * t_len * (9 * st + s_dim) + (b * l * s_dim if fm else 0)
+            + partials * (s_dim + (fm * s_dim + (f + 1) * fm if fm else 0)))
+
+
+# --- The plan of the LSTM decoder backwards' walk (K11, K15) -------------------------------
+#
+# K11 and K15 walk the steps of R batch rows on a thread-block cluster of C
+# blocks (csrc/attention_scan_loc_lstm.cu, lstm_walk). The plan (C, R) is a
+# plain function of the shapes and of two numbers of the device, which
+# ``scan_limits`` asks the kernel's library for: the opt-in shared memory of
+# a block, and how many clusters of C blocks can be resident at once when
+# each block takes that much (one block to an SM).
+
+WALK_CLUSTERS = (16, 8)  # 16 is a non-portable cluster size on Hopper
+WALK_ROWS = (1, 2, 4, 8)  # the walk's instances
+WALK_BARS = 5  # the mbarriers of a step's exchanges (csrc: kBars)
+# A step of the walk and wave, in us, by (C, R): K11's walk at the
+# conv+BiLSTM recipe's shape (L' = 16, T = 56) under each plan, the mean
+# of B = 16 and 128 (chip_smoke.py phase 8 on an NVIDIA H100 80GB HBM3 at
+# 700.00 W; K15's steps are 0.65-0.75 of these, in the same order).
+STEP_COST = {(16, 1): 33.5, (16, 2): 38.4, (16, 4): 45.8, (16, 8): 65.3,
+             (8, 1): 38.4, (8, 2): 47.2, (8, 4): 61.2, (8, 8): 89.4}
+
+
+def _cdiv(n: int, d: int) -> int:
+    return -(-n // d)
+
+
+def _r4(n: int) -> int:
+    return 4 * _cdiv(n, 4)
+
+
+def _cspan(n: int, c: int) -> int:
+    """The largest of c blocks' shares of n units (csrc's cspan): whole
+    groups of 4 where 4 divides n."""
+    return _cdiv(n, c) if n % 4 else 4 * _cdiv(n // 4, c)
+
+
+def walk_smem_bytes(rows: int, cluster: int, l: int, s_dim: int, a_dim: int, st: int,
+                    fm: int = 0, f: int = 0) -> int:
+    """Shared memory of one block of the walk (fm = f = 0 without the
+    location term), as csrc/attention_scan_loc_lstm.cu's
+    lstm_walk_smem_floats counts it, every buffer a whole number of
+    16-byte groups: the step's mbarriers; the gathered dgates, dr, dcc, dc
+    (R rows of 4St, St, St and A); the blocks' shares of the softmax's sum
+    and their dws partials (C x R and C x R x S); dws; two buffers of a
+    step's staged inputs of the block's units (at most ceil(St/C), in
+    whole groups of 4 where 4 divides St: the gates, mem_prev, the
+    cotangents of s and mem), of ws, of its ceil(L/C) positions (alpha,
+    its cotangent, and alpha_prev with the filter's reach) and of its
+    columns (c and its cotangent; as many as units of A); the
+    carries, dsp, de; w_e and dw_e's sum; and with the location term the
+    positions' features and dfeat (with the halo), U and dU's sum, the
+    filter and the sums of dwconv and dbconv."""
+    r, c, loc = rows, cluster, int(fm > 0)
+    stc, ac, pc, sp = _cspan(st, c), _cspan(a_dim, c), _cdiv(l, c), _r4(s_dim)
+    floats = (_r4(2 * WALK_BARS) + _r4(4 * r * st) + 2 * _r4(r * st) + _r4(r * a_dim)
+              + _r4(c * r) + _r4(c * r * sp) + _r4(r * sp)
+              + 2 * (_r4(4 * r * stc) + 3 * _r4(r * stc) + _r4(r * sp) + 2 * _r4(r * pc)
+                     + loc * _r4(r * (pc + f - 1)) + 2 * _r4(r * ac))
+              + 3 * _r4(r * stc) + 2 * _r4(r * pc) + 2 * _r4(s_dim)
+              + loc * (_r4(r * pc * fm) + _r4(r * (pc + f - 1) * fm) + 2 * _r4(fm * s_dim)
+                       + _r4(f * fm) + _r4(fm) + _r4((f + 1) * fm)))
+    return 4 * floats
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    cluster: int  # blocks of a cluster
+    rows: int  # batch rows of a cluster
+    waves: int = 1  # rounds of resident clusters the launch takes
+
+    def partials(self, b: int) -> int:
+        """Rows of the walk's partial sums at batch b: one per block."""
+        return _cdiv(b, self.rows) * self.cluster
+
+
+def scan_plan(b: int, smem: Dict[Tuple[int, int], int], smem_limit: int,
+              resident: Dict[int, int], cost=STEP_COST) -> ScanPlan:
+    """The walk's plan for b batch rows: `smem[(C, R)]` bytes a block
+    takes on clusters of C blocks with R rows each, `smem_limit` the
+    device's opt-in bytes a block, `resident[C]` the clusters of C blocks
+    the device holds at once. Of the (C, R) that fit, those whose
+    ceil(b / R) clusters fill one wave, if any, else all, by the fewest
+    waves x cost[(C, R)] (a step's time), then the fewer waves, the
+    smaller R, the larger C. RuntimeError when no cluster fits."""
+    fits = [(c, r) for c in WALK_CLUSTERS for r in WALK_ROWS
+            if resident.get(c, 0) >= 1 and smem[(c, r)] <= smem_limit]
+    if not fits:
+        raise RuntimeError(
+            f"LSTM decoder scan backward: no cluster of {' or '.join(map(str, WALK_CLUSTERS))} "
+            f"blocks fits the device (resident clusters {resident}; shared memory a block "
+            f"{min(smem.values())} bytes or more of {smem_limit})")
+    waves = {(c, r): _cdiv(_cdiv(b, r), resident[c]) for c, r in fits}
+    one = [cr for cr in fits if waves[cr] == 1]
+    c, r = min(one or fits, key=lambda cr: (waves[cr] * cost[cr], waves[cr], cr[1], -cr[0]))
+    return ScanPlan(c, r, waves[(c, r)])
+
+
+_LIMITS: Dict[Tuple[str, int], Tuple[int, Dict[int, int]]] = {}
+
+
+def scan_limits(kernel, device: torch.device) -> Tuple[int, Dict[int, int]]:
+    """(opt-in shared memory of a block, {C: resident clusters of C
+    blocks}) of `kernel`'s walk (K11 or K15) on `device`, from its
+    ``<symbol>_limits`` C helper; asked once per kernel and device. A
+    cluster size the device refuses counts 0 clusters."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (kernel.name, index)
+    if key not in _LIMITS:
+        out = ctypes.POINTER(ctypes.c_int)
+        fn = kernel.helper(kernel.symbol + "_limits", [ctypes.c_int, out, out])
+        smem, resident = 0, {}
+        with torch.cuda.device(index):
+            for c in WALK_CLUSTERS:
+                limit, n = ctypes.c_int(0), ctypes.c_int(0)
+                rc = fn(c, ctypes.byref(limit), ctypes.byref(n))
+                resident[c] = n.value if rc == 0 else 0
+                smem = max(smem, limit.value if rc == 0 else 0)
+        _LIMITS[key] = (smem, resident)
+    return _LIMITS[key]
+
+
+def scan_plan_on(kernel, b: int, l: int, s_dim: int, a_dim: int, st: int, fm: int, f: int,
+                 device: torch.device) -> ScanPlan:
+    """The plan `kernel`'s wrapper (K11 or K15) runs for these shapes on
+    `device`."""
+    smem_limit, resident = scan_limits(kernel, device)
+    smem = {(c, r): walk_smem_bytes(r, c, l, s_dim, a_dim, st, fm, f)
+            for c in WALK_CLUSTERS for r in WALK_ROWS}
+    return scan_plan(b, smem, smem_limit, resident)
 
 
 def _scan_bwd(kernel, lstm: bool, n_weights: int, vh, h, enc_mask, yin, args):
     """The backward wrapper of K11, K13 and K15: args are the weights, the
     saved output sequences and their cotangents (each None where there is
-    none: it counts as zeros)."""
+    none: it counts as zeros). K11 and K15 run scan_plan_on's plan."""
     n_out = 4 if lstm else 3
     weights = args[:n_weights]
     saved = args[n_weights:n_weights + n_out]
@@ -564,12 +700,17 @@ def _scan_bwd(kernel, lstm: bool, n_weights: int, vh, h, enc_mask, yin, args):
     grads += [torch.empty(w.shape, **f32) for w in weights]
     if bsz * t_len == 0:
         return tuple(g.zero_() for g in grads)
-    scratch = torch.empty(stash_floats(lstm, bsz, t_len, l, s_dim, st, *loc), **f32)
+    plan_args, partials = (), 0
+    if lstm:
+        plan = scan_plan_on(kernel, bsz, l, s_dim, a_dim, st, *(loc or (0, 0)), dev)
+        plan_args, partials = (plan.cluster, plan.rows), plan.partials(bsz)
+    scratch = torch.empty(stash_floats(lstm, bsz, t_len, l, s_dim, st, *(loc or (0, 0)),
+                                       partials), **f32)
     kernel.launch(
         *[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *saved)],
         *[None if t is None else build.ptr(t) for t in cots],
         *[build.ptr(t) for t in (*grads, scratch)],
-        bsz, t_len, l, s_dim, a_dim, st, *loc, build.stream_of(vh),
+        bsz, t_len, l, s_dim, a_dim, st, *loc, *plan_args, build.stream_of(vh),
     )
     return tuple(grads)
 
@@ -610,7 +751,9 @@ def attention_decode_scan_loc_lstm_bwd(vh, h, enc_mask, yin, *args):
     dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dw_h, dw_x, db, dwconv,
     dbconv, du).
 
-    CPU tensors take the plain version; CUDA tensors the kernel (K11)."""
+    CPU tensors take the plain version; CUDA tensors the kernel (K11), on
+    scan_plan_on's plan; it raises RuntimeError where no cluster fits the
+    device."""
     return _scan_bwd(KERNEL_LOC_LSTM_BWD, True, 13, vh, h, enc_mask, yin, args)
 
 
@@ -630,7 +773,8 @@ def attention_decode_scan_lstm_bwd(vh, h, enc_mask, yin, *args):
     None): (dvh, dh, dyin, dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b,
     dw_h, dw_x, db).
 
-    CPU tensors take the plain version; CUDA tensors the kernel (K15)."""
+    CPU tensors take the plain version; CUDA tensors the kernel (K15), on
+    scan_plan_on's plan as K11's wrapper."""
     return _scan_bwd(KERNEL_LSTM_BWD, True, 10, vh, h, enc_mask, yin, args)
 
 

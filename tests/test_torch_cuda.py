@@ -578,30 +578,64 @@ def _loc_lstm_case(card, gen, b, l, t, s, a, st, fm, f):
     return vh, h, mask, _rand(gen, b, t, st, scale=0.5), tuple(w.contiguous() for w in weights)
 
 
-# (B, L, T, (S, A, St, FM, F)): the conv+BiLSTM recipe's training shape at
-# its batch, at B=128 and at B=1, and small odd widths with an even
-# filter. The walk sums dU in the energies pass where FM <= 16 is a
-# multiple of 4 (the recipe), else in a pass of its own (FM = 3 here).
-# The last three cases add two score units a thread (S above the block's
-# 512 threads), and more dwconv and dbconv entries than threads with dU
-# inline (FM 16, F 32) and with dU's own pass (FM 20, F 31).
+# (B, L, T, (S, A, St, FM, F), plan): the conv+BiLSTM recipe's training
+# shape at its batch, at B=128 (several waves) and at B=1, and small odd
+# widths with an even filter; then two score units a thread (S above the
+# block's 512 threads), more dwconv and dbconv entries than threads (FM
+# 16, F 32; FM 20, F 31), FM = 3, L' = 1, L' = 3 < C, L' = 37 not a
+# multiple of C, and a part-filled last row group (B = 5 on 4 rows a
+# cluster). `plan` is the walk's: a ScanPlan (C, R) to run, or "plan" for
+# the wrapper's own, whose (C, R) at each batch LSTM_PLANS pins.
 LOC_LSTM_SCAN_CASES = [
-    (16, 16, 56, (150, 256, 400, 16, 5)), (3, 13, 5, (17, 12, 9, 3, 4)),
-    (128, 16, 56, (150, 256, 400, 16, 5)), (1, 16, 56, (150, 256, 400, 16, 5)),
-    (3, 20, 6, (600, 24, 33, 4, 5)), (2, 40, 5, (64, 24, 33, 16, 32)),
-    (2, 40, 5, (40, 24, 33, 20, 31)),
+    (16, 16, 56, (150, 256, 400, 16, 5), "plan"), (3, 13, 5, (17, 12, 9, 3, 4), "plan"),
+    (128, 16, 56, (150, 256, 400, 16, 5), "plan"), (1, 16, 56, (150, 256, 400, 16, 5), "plan"),
+    (3, 20, 6, (600, 24, 33, 4, 5), "plan"), (2, 40, 5, (64, 24, 33, 16, 32), "plan"),
+    (2, 40, 5, (40, 24, 33, 20, 31), "plan"), (2, 1, 7, (17, 12, 9, 4, 5), "plan"),
+    (3, 3, 6, (40, 24, 33, 4, 6), (8, 2)), (4, 37, 9, (64, 40, 33, 16, 5), (16, 8)),
+    (5, 16, 9, (150, 256, 400, 16, 5), (8, 4)), (5, 37, 4, (17, 12, 9, 3, 4), (8, 1)),
 ]
+# The wrapper's (C, R) by batch on an H100 (7 resident clusters of 16
+# blocks, 15 of 8).
+LSTM_PLANS = {1: (16, 1), 2: (16, 1), 3: (16, 1), 4: (16, 1), 5: (16, 1), 16: (16, 4), 128: (8, 8)}
+
+
+def _lstm_plan(card, monkeypatch, kernel, b, l, s, a, st, fm, f, run):
+    """The ScanPlan a K11 or K15 case runs: the wrapper's, held to
+    LSTM_PLANS, or `run`'s (C, R), which the wrappers then take in place of
+    scan_plan_on's."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    plan = attention_scan.scan_plan_on(kernel, b, l, s, a, st, fm, f, card)
+    if run == "plan":
+        assert (plan.cluster, plan.rows) == LSTM_PLANS[b], plan
+        return plan
+    plan = attention_scan.ScanPlan(*run)
+    monkeypatch.setattr(attention_scan, "scan_plan_on", lambda *_: plan)
+    return plan
+
+
+def _bwd_twice(bwd, args, plan, name):
+    """bwd's outputs on `args` (run on `plan`), after a second call on the
+    same inputs gave the same bits (sums in a fixed order, no atomics)."""
+    first, second = bwd(*args), bwd(*args)
+    torch.cuda.synchronize()
+    for i, (x, y) in enumerate(zip(first, second)):
+        assert torch.equal(x, y), (name, plan, i)
+    return first
 
 
 @pytest.mark.parametrize("case", range(len(LOC_LSTM_SCAN_CASES)))
-def test_attention_decode_scan_loc_lstm_kernels(card, case):
-    """K10 against its plain version (1e-4 abs), then K11 with cotangents
-    on s, c and alpha (and on mem, or none), against its plain version."""
+def test_attention_decode_scan_loc_lstm_kernels(card, monkeypatch, case):
+    """K10 against its plain version (1e-4 abs), then K11 on its plan with
+    cotangents on s, c and alpha (and on mem, or none), against its plain
+    version, each backward twice with the same bits."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
-    b, l, t, (s, a, st, fm, f) = LOC_LSTM_SCAN_CASES[case]
+    b, l, t, (s, a, st, fm, f), run = LOC_LSTM_SCAN_CASES[case]
     gen = torch.Generator().manual_seed(b * 29 + l)
     vh, h, mask, yin, weights = _loc_lstm_case(card, gen, b, l, t, s, a, st, fm, f)
+    plan = _lstm_plan(card, monkeypatch, attention_scan.KERNEL_LOC_LSTM_BWD, b, l, s, a, st,
+                      fm, f, run)
     fwd = attention_scan.KERNEL_LOC_LSTM_FWD.launches
     bwd = attention_scan.KERNEL_LOC_LSTM_BWD.launches
     got = attention_scan.attention_decode_scan_loc_lstm(vh, h, mask, yin, *weights)
@@ -612,11 +646,44 @@ def test_attention_decode_scan_loc_lstm_kernels(card, case):
     for dmem in (None, _rand(gen, b, t, st)):
         cot = (_rand(gen, b, t, st), _rand(gen, b, t, a), _rand(gen, b, t, l), dmem)
         args = (vh, h, mask, yin, *weights, *want, *cot)
-        got_b = attention_scan.attention_decode_scan_loc_lstm_bwd(*args)
+        got_b = _bwd_twice(attention_scan.attention_decode_scan_loc_lstm_bwd, args, plan, "K11")
         want_b = attention_scan.attention_decode_scan_loc_lstm_bwd_plain(*args)
         torch.cuda.synchronize()
-        _bwd_close(got_b, want_b, "attention_decode_scan_loc_lstm_bwd")
-    assert attention_scan.KERNEL_LOC_LSTM_BWD.launches == bwd + 2
+        _bwd_close(got_b, want_b, f"attention_decode_scan_loc_lstm_bwd {plan}")
+    assert attention_scan.KERNEL_LOC_LSTM_BWD.launches == bwd + 4
+
+
+def test_lstm_scan_backwards_refuse_without_a_cluster(card, monkeypatch):
+    """Where the device holds no cluster of 16 or 8 blocks of K11's or
+    K15's walk, a CUDA call raises; it never takes the plain path."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    gen = torch.Generator().manual_seed(5)
+    vh, h, mask, yin, weights = _loc_lstm_case(card, gen, 2, 7, 3, 17, 12, 9, 4, 5)
+    saved = attention_scan.attention_decode_scan_loc_lstm_plain(vh, h, mask, yin, *weights)
+    cot = (torch.ones_like(saved[0]), None, None, None)
+    calls = {attention_scan.KERNEL_LOC_LSTM_BWD: lambda: attention_scan.
+             attention_decode_scan_loc_lstm_bwd(vh, h, mask, yin, *weights, *saved, *cot),
+             attention_scan.KERNEL_LSTM_BWD: lambda: attention_scan.
+             attention_decode_scan_lstm_bwd(vh, h, mask, yin, *weights[:10], *saved, *cot)}
+    smem_limit, _ = attention_scan.scan_limits(attention_scan.KERNEL_LOC_LSTM_BWD, card)
+    monkeypatch.setattr(attention_scan, "scan_limits",
+                        lambda kernel, device: (smem_limit, {16: 0, 8: 0}))
+    for kernel, call in calls.items():
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="no cluster"):
+            call()
+        assert kernel.launches == before
+
+
+def test_lstm_scan_plan_on_the_card(card):
+    """The card holds clusters of 16 and of 8 blocks of K11's and K15's
+    walks at full shared memory, as LSTM_PLANS assumes."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    for kernel in (attention_scan.KERNEL_LOC_LSTM_BWD, attention_scan.KERNEL_LSTM_BWD):
+        smem_limit, resident = attention_scan.scan_limits(kernel, card)
+        assert smem_limit == 232448 and resident == {16: 7, 8: 15}, (kernel.name, resident)
 
 
 def test_conv_bilstm_train_step_on_the_card_matches_the_cpu(card):
@@ -694,12 +761,16 @@ def _decoder_scans(cell):
             a.KERNEL_LSTM_FWD, a.KERNEL_LSTM_BWD)
 
 
-# (cell, B, L, T, (S, A, St, FM, F)): the location-aware GRU at the
-# flagship's training shape (filter 10) at its batch, at B=128 and at B=1,
-# and at small odd widths with filters 4 and 5; then the ways the walk
-# sums the location term's weight gradients, as in LOC_LSTM_SCAN_CASES
-# (S above 512; FM 16 with F 32; FM 20 with F 31); the content-only LSTM
-# at the conv+BiLSTM recipe's training shape and at small odd widths.
+# (cell, B, L, T, (S, A, St, FM, F)[, plan]): the location-aware GRU at
+# the flagship's training shape (filter 10) at its batch, at B=128 and at
+# B=1, and at small odd widths with filters 4 and 5; then the ways the
+# walk sums the location term's weight gradients, as in
+# LOC_LSTM_SCAN_CASES (S above 512; FM 16 with F 32; FM 20 with F 31); the
+# content-only LSTM at the conv+BiLSTM recipe's training shape at its
+# batch, at B=128 and at B=1, and at small odd widths, on the plan of
+# LOC_LSTM_SCAN_CASES ("plan" where none is given): L' = 1, L' = 3 < C,
+# L' = 37 not a multiple of C, S above 512 threads, a part-filled last row
+# group.
 DECODER_SCAN_CASES = [
     ("gru", 16, 144, 56, (512, 512, 256, 16, 10)), ("gru", 3, 13, 5, (17, 12, 9, 3, 4)),
     ("gru", 5, 40, 9, (40, 24, 33, 4, 5)), ("lstm", 16, 16, 56, (150, 256, 400, 0, 0)),
@@ -707,15 +778,21 @@ DECODER_SCAN_CASES = [
     ("gru", 128, 144, 56, (512, 512, 256, 16, 10)), ("gru", 1, 144, 56, (512, 512, 256, 16, 10)),
     ("gru", 3, 20, 6, (600, 24, 33, 4, 5)), ("gru", 2, 40, 5, (64, 24, 33, 16, 32)),
     ("gru", 2, 40, 5, (40, 24, 33, 20, 31)),
+    ("lstm", 128, 16, 56, (150, 256, 400, 0, 0)), ("lstm", 1, 16, 56, (150, 256, 400, 0, 0)),
+    ("lstm", 2, 1, 7, (17, 12, 9, 0, 0)), ("lstm", 3, 3, 6, (40, 24, 33, 0, 0), (8, 2)),
+    ("lstm", 4, 37, 9, (64, 40, 33, 0, 0), (16, 8)), ("lstm", 3, 20, 6, (600, 24, 33, 0, 0)),
+    ("lstm", 5, 16, 9, (150, 256, 400, 0, 0), (8, 4)),
+    ("lstm", 5, 37, 4, (17, 12, 9, 0, 0), (8, 1)),
 ]
 
 
 @pytest.mark.parametrize("case", range(len(DECODER_SCAN_CASES)))
-def test_decoder_scan_kernels(card, case):
+def test_decoder_scan_kernels(card, monkeypatch, case):
     """K12 or K14 against its plain version (1e-4 abs), then K13 or K15
     with cotangents on every output, and with none on alpha (and mem),
-    against its plain version."""
-    cell, b, l, t, (s, a, st, fm, f) = DECODER_SCAN_CASES[case]
+    against its plain version; K15 on its plan, each backward twice with
+    the same bits."""
+    cell, b, l, t, (s, a, st, fm, f), *run = DECODER_SCAN_CASES[case]
     fwd, bwd, fwd_plain, bwd_plain, k_fwd, k_bwd = _decoder_scans(cell)
     gen = torch.Generator().manual_seed(b * 31 + l)
     vh, h, mask, yin, weights = _decoder_case(card, gen, b, l, t, s, a, st, cell, fm, f)
@@ -727,23 +804,27 @@ def test_decoder_scan_kernels(card, case):
     assert len(got) == len(want) == (3 if cell == "gru" else 4)
     assert _max_err(got, want) <= TOL
     widths = (st, a, l, st)[:len(want)]
+    if cell == "lstm":
+        plan = _lstm_plan(card, monkeypatch, k_bwd, b, l, s, a, st, fm, f,
+                          run[0] if run else "plan")
     for partial in (False, True):
         cot = [_rand(gen, b, t, n) for n in widths]
         if partial:
             cot[2:] = [None] * (len(cot) - 2)
         args = (vh, h, mask, yin, *weights, *want, *cot)
-        got_b = bwd(*args)
+        got_b = _bwd_twice(bwd, args, plan, "K15") if cell == "lstm" else bwd(*args)
         want_b = bwd_plain(*args)
         torch.cuda.synchronize()
         _bwd_close(got_b, want_b, f"{cell} scan bwd")
-    assert k_bwd.launches == n_bwd + 2
+    assert k_bwd.launches == n_bwd + (4 if cell == "lstm" else 2)
 
 
-@pytest.mark.parametrize("kind", ["loc", "loc_lstm"])
+@pytest.mark.parametrize("kind", ["loc", "loc_lstm", "lstm"])
 def test_loc_scan_backwards_are_bitwise_deterministic(card, kind):
-    """K13 at flagship_loc's training shape and K11 at the conv+BiLSTM
-    recipe's, twice on the same inputs: every gradient bitwise equal
-    (the location term's sums are taken in a fixed order, no atomics)."""
+    """K13 at flagship_loc's training shape and K11 and K15 at the
+    conv+BiLSTM recipe's, twice on the same inputs: every gradient bitwise
+    equal (the location term's sums and the walk's sums over a cluster's
+    blocks are taken in a fixed order, no atomics)."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan as a
 
     gen = torch.Generator().manual_seed(7)
@@ -751,9 +832,12 @@ def test_loc_scan_backwards_are_bitwise_deterministic(card, kind):
         vh, h, mask, yin, weights = _decoder_case(card, gen, 16, 144, 56, 512, 512, 256, "gru",
                                                   16, 10)
         fwd, bwd = a.attention_decode_scan_loc, a.attention_decode_scan_loc_bwd
-    else:
+    elif kind == "loc_lstm":
         vh, h, mask, yin, weights = _loc_lstm_case(card, gen, 16, 16, 56, 150, 256, 400, 16, 5)
         fwd, bwd = a.attention_decode_scan_loc_lstm, a.attention_decode_scan_loc_lstm_bwd
+    else:
+        vh, h, mask, yin, weights = _decoder_case(card, gen, 16, 16, 56, 150, 256, 400, "lstm")
+        fwd, bwd = a.attention_decode_scan_lstm, a.attention_decode_scan_lstm_bwd
     saved = fwd(vh, h, mask, yin, *weights)
     cot = [_rand(gen, *t.shape) for t in saved]
     args = (vh, h, mask, yin, *weights, *saved, *cot)
@@ -764,21 +848,35 @@ def test_loc_scan_backwards_are_bitwise_deterministic(card, kind):
 
 
 def test_decoder_scans_refuse_what_does_not_fit(card):
-    """A row's step lives in one block's shared memory (232,448 bytes on
-    an H100). From the kernels' carve functions: at the flagship's widths
-    with 16 maps and filter 10, K13 takes 19,401 + 38 L floats (L <= 1018)
-    and K12 15,033 + 3 L (L <= 14359); at the conv+BiLSTM recipe's widths
-    K15 takes 11,826 + 4 L (L <= 11571). The largest L runs, one more is
-    refused at launch and not counted."""
+    """K12 and K13 keep a row's step in one block's shared memory (232,448
+    bytes on an H100): at the flagship's widths with 16 maps and filter 10
+    K13 takes 19,401 + 38 L floats (L <= 1018) and K12 15,033 + 3 L (L <=
+    14359). K11 and K15 keep ceil(L / C) positions a block: at one batch
+    row (C = 16, R = 1) and the conv+BiLSTM recipe's widths, K11 fits L' <=
+    18640 and K15 L' <= 137856 (walk_smem_bytes; tests/test_torch_scan_plan.py
+    pins them). The largest L runs, one more is refused (K11, K15: by the
+    plan, before a launch) and not counted."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
     flagship, conv_bilstm = (512, 512, 256), (150, 256, 400)
     for cell, dims, fm, f, kernel, l_max in (("gru", flagship, 16, 10, "bwd", 1018),
                                             ("gru", flagship, 16, 10, "fwd", 14359),
-                                            ("lstm", conv_bilstm, 0, 0, "bwd", 11571)):
-        fwd, bwd, fwd_plain, _, k_fwd, k_bwd = _decoder_scans(cell)
-        k = k_bwd if kernel == "bwd" else k_fwd
+                                            ("lstm", conv_bilstm, 0, 0, "bwd", 137856),
+                                            ("loc_lstm", conv_bilstm, 16, 5, "bwd", 18640)):
+        if cell == "loc_lstm":
+            fwd, bwd = (attention_scan.attention_decode_scan_loc_lstm,
+                        attention_scan.attention_decode_scan_loc_lstm_bwd)
+            fwd_plain, k = (attention_scan.attention_decode_scan_loc_lstm_plain,
+                            attention_scan.KERNEL_LOC_LSTM_BWD)
+        else:
+            fwd, bwd, fwd_plain, _, k_fwd, k_bwd = _decoder_scans(cell)
+            k = k_bwd if kernel == "bwd" else k_fwd
         for l in (l_max, l_max + 1):
             gen = torch.Generator().manual_seed(l)
-            vh, h, mask, yin, weights = _decoder_case(card, gen, 1, l, 1, *dims, cell, fm, f)
+            if cell == "loc_lstm":
+                vh, h, mask, yin, weights = _loc_lstm_case(card, gen, 1, l, 1, *dims, fm, f)
+            else:
+                vh, h, mask, yin, weights = _decoder_case(card, gen, 1, l, 1, *dims, cell, fm, f)
             before = k.launches
             if kernel == "fwd":
                 call = lambda: fwd(vh, h, mask, yin, *weights)

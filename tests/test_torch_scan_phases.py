@@ -28,7 +28,9 @@ def test_instrument_reads_the_clock_at_every_phase_of_scan_bwd():
     text, names = tool.instrument(src)
     assert names == PHASES
     assert len(names) <= 32  # g_phase_cycles' length
-    assert "// [phase]" not in text
+    sig = "scan_bwd(float* sm, const BwdArgs& a) {"
+    # Every marker of scan_bwd's body is read (lstm_walk keeps its own).
+    assert "// [phase]" not in text.split(sig, 1)[1].split("\n}\n", 1)[0]
     reads = re.findall(r"g_phase_cycles\[(\d+)\] \+= c_ - phase_t0_", text)
     assert [int(i) for i in reads] == list(range(len(PHASES)))
     assert text.count("long long phase_t0_ = clock64();") == 1
@@ -36,7 +38,6 @@ def test_instrument_reads_the_clock_at_every_phase_of_scan_bwd():
         assert text.count(a) - text.count(b) == src.count(a) - src.count(b)
     # Outside scan_bwd's body, only the probe is added, before the
     # anonymous namespace.
-    sig = "scan_bwd(float* sm, const BwdArgs& a) {"
     head, rest = src.split(sig, 1)
     assert text.replace(tool.PROBE + "\n", "", 1).startswith(head)
     assert text.index(tool.PROBE) < text.index("namespace {")
@@ -144,3 +145,56 @@ def test_instrument_gru_fwd_reads_the_clock_after_every_wait():
 def test_instrument_gru_fwd_refuses_a_walk_without_markers():
     with pytest.raises(ValueError, match="no // \\[phase\\] markers in gru_walk_fwd"):
         _tool().instrument_gru_fwd(re.sub(r"// \[phase\] .*", "", GRU_WALK.read_text()))
+
+
+LSTM_PHASES = ["staging wait", "cell, dg exchange", "w_x^T w_h^T, dr exchange",
+               "dec_w^T, dcc exchange", "c_w^T, dc exchange", "context", "energies", "dfeat",
+               "dws exchange", "ws_w^T"]
+
+
+def _lstm_body(text, tool):
+    return text.split(tool.LSTM_SIG, 1)[1].split("\n}\n", 1)[0]
+
+
+def test_instrument_lstm_reads_the_clock_after_every_wait():
+    """The LSTM walk's step (K11, K15): a cycle read after the staging
+    wait's block barrier, after each exchange's wait for the peers'
+    pushes, and after each block barrier between, by thread 0 of block 0,
+    and the clock started once, before the step loop. Outside the walk's
+    body only the probe is added."""
+    tool = _tool()
+    src = SOURCE.read_text()
+    text, names = tool.instrument_lstm(src)
+    assert names == LSTM_PHASES
+    body = _lstm_body(text, tool)
+    assert "// [phase]" not in body
+    reads = re.findall(r"blockIdx.x == 0\) \{ const long long c_ = clock64\(\); "
+                       r"g_phase_cycles\[(\d+)\] \+= c_ - phase_t0_", body)
+    assert [int(i) for i in reads] == list(range(len(LSTM_PHASES)))
+    assert body.count("long long phase_t0_ = clock64();") == 1
+    assert body.index("long long phase_t0_ = clock64();") < body.index(tool.LSTM_LOOP)
+    lines = _lstm_body(src, tool).split("\n")
+    marked = [i for i, line in enumerate(lines) if "// [phase]" in line]
+    before = [[x.strip() for x in lines[:i] if x.strip() and not x.strip().startswith("//")][-1]
+              for i in marked]
+    waits = [f"if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[{k}], tx[{k}]);" for k in range(5)]
+    assert before == ["if (s + 1 < T) stage_step<R, kLoc>(a, c, staged(sh, (s + 1) & 1), t - 1);",
+                      *waits[:3], "__syncthreads();  // this block's own share of the sum",
+                      "__syncthreads();", "__syncthreads();", "}", waits[4], "__syncthreads();"]
+    loop = next(i for i, line in enumerate(lines) if line == tool.LSTM_LOOP)
+    assert all(i > loop for i in marked)
+    head, rest = src.split(tool.LSTM_SIG, 1)
+    assert text.replace(tool.PROBE + "\n", "", 1).startswith(head)
+    assert text.index(tool.PROBE) < text.index("namespace {")
+    assert text.endswith(rest.split("\n}\n", 1)[1])
+    for a, b in ("{}", "()"):
+        assert text.count(a) - text.count(b) == src.count(a) - src.count(b)
+
+
+def test_instrument_lstm_refuses_a_walk_without_markers():
+    src = SOURCE.read_text()
+    head, rest = src.split(_tool().LSTM_SIG, 1)
+    body, tail = rest.split("\n}\n", 1)
+    with pytest.raises(ValueError, match="no // \\[phase\\] markers in lstm_walk"):
+        _tool().instrument_lstm(head + _tool().LSTM_SIG + re.sub(r"// \[phase\] .*", "", body)
+                                + "\n}\n" + tail)

@@ -1,0 +1,138 @@
+"""The plan of the LSTM decoder scans' backward walk, K11 and K15
+(ops/cuda/attention_scan.py scan_plan): the cluster size C and the batch
+rows R of a cluster, and the shared memory of a block, pinned at the
+conv+BiLSTM recipe's widths. The plan is a plain function of the shapes
+and of two numbers of the device, so this runs on the CPU."""
+
+import pathlib
+import re
+
+import pytest
+
+from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan as scan
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "seq2seq_attention_asr_tpu_torch" / "csrc"
+SMEM = 232448  # opt-in shared memory of a block on an H100
+RESIDENT = {16: 7, 8: 15}  # clusters of 16 and of 8 blocks an H100 holds at full shared memory
+# The conv+BiLSTM recipe's decoder at its training shape: L' = 16 encoder
+# positions (144 frames), score 150, annotation 256, state 400; with the
+# location term (K11) 16 maps of filter 5, without it (K15) none.
+L, S, A, ST = 16, 150, 256, 400
+LOC, CONTENT = (16, 5), (0, 0)
+
+
+def smem_table(l=L, loc=LOC, s=S, a=A, st=ST):
+    return {(c, r): scan.walk_smem_bytes(r, c, l, s, a, st, *loc)
+            for c in scan.WALK_CLUSTERS for r in scan.WALK_ROWS}
+
+
+def plan(b, resident=RESIDENT, smem_limit=SMEM, loc=LOC, l=L):
+    return scan.scan_plan(b, smem_table(l, loc), smem_limit, resident)
+
+
+@pytest.mark.parametrize("loc", [LOC, CONTENT])
+@pytest.mark.parametrize("b,resident,want", [
+    (16, RESIDENT, scan.ScanPlan(16, 4, 1)),    # the recipe's batch: 4 clusters of 16
+    (128, RESIDENT, scan.ScanPlan(8, 8, 2)),    # no plan fills one wave: 16 clusters of 8 in 2
+    (1, RESIDENT, scan.ScanPlan(16, 1, 1)),
+    (5, RESIDENT, scan.ScanPlan(16, 1, 1)),     # 5 clusters of one row each
+    (16, {16: 0, 8: 15}, scan.ScanPlan(8, 2, 1)),  # a card that refuses clusters of 16
+    (128, {16: 8, 8: 16}, scan.ScanPlan(8, 8, 1)),
+])
+def test_plan_at_the_recipes_batches(loc, b, resident, want):
+    assert plan(b, resident, loc=loc) == want
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 5, 7, 8, 16, 28, 56])
+def test_plan_fills_one_wave_where_it_can(b):
+    """Up to 7 clusters of 8 rows or 15 of 8, one wave holds the batch;
+    the plan takes such a one, and the fewest rows of the cost's best."""
+    got = plan(b)
+    assert got.waves == 1
+    assert -(-b // got.rows) <= RESIDENT[got.cluster]
+
+
+def test_plan_takes_fewer_rows_where_a_block_does_not_fit():
+    """At L' = 3000, R = 4 and 8 no longer fit a block (on clusters of 16
+    or of 8); of what does, 8 clusters of 8 blocks with 2 rows each fill
+    one wave."""
+    table = smem_table(l=3000)
+    assert max(table[(c, 4)] for c in scan.WALK_CLUSTERS) > SMEM >= table[(16, 2)]
+    assert scan.scan_plan(16, table, SMEM, RESIDENT) == scan.ScanPlan(8, 2, 1)
+
+
+@pytest.mark.parametrize("resident,smem_limit", [({16: 0, 8: 0}, SMEM), (RESIDENT, 16 * 1024)])
+def test_plan_raises_when_no_cluster_fits(resident, smem_limit):
+    with pytest.raises(RuntimeError, match="no cluster of 16 or 8 blocks fits the device"):
+        plan(1, resident, smem_limit)
+
+
+def test_partials_are_one_row_a_block():
+    assert scan.ScanPlan(16, 4).partials(16) == 64
+    assert scan.ScanPlan(8, 8).partials(128) == 128
+    assert scan.ScanPlan(8, 4).partials(5) == 16  # a part-empty last group has its rows too
+
+
+def test_smem_bytes_at_the_recipe():
+    """K11 and K15 at the recipe's widths, every (C, R): all fit a block."""
+    got = {key: (smem_table(loc=LOC)[key], smem_table(loc=CONTENT)[key])
+           for key in [(8, 1), (8, 8), (16, 1), (16, 4), (16, 8)]}
+    assert got == {(8, 1): (43296, 22752), (8, 8): (197232, 172784), (16, 1): (46176, 25760),
+                   (16, 4): (120624, 98960), (16, 8): (220016, 196656)}
+
+
+@pytest.mark.parametrize("loc", [LOC, CONTENT])
+@pytest.mark.parametrize("c", scan.WALK_CLUSTERS)
+@pytest.mark.parametrize("r", scan.WALK_ROWS)
+def test_no_buffer_grows_with_the_full_length(loc, c, r):
+    """L enters only through a block's ceil(L / C) positions (and the
+    dfeat halo, whose size is fixed): lengths with the same ceil(L / C)
+    take the same bytes, and each further position of a block adds the
+    same few floats a row whatever L is."""
+    smem = lambda l: scan.walk_smem_bytes(r, c, l, S, A, ST, *loc)
+    for p in (1, 2, 5, 40):
+        assert smem(c * (p - 1) + 1) == smem(c * p)
+    per = (smem(c * 400) - smem(c * 200)) / 200
+    assert per == pytest.approx((smem(c * 4000) - smem(c * 2000)) / 2000, rel=0.01)
+    assert per <= 4 * r * (8 + 2 * loc[0]) + 4 * 16
+
+
+# The longest encoder output of one batch row (B = 1: C = 16, R = 1): the
+# largest L' that fits a block, from the formula; the card test runs it
+# and sees L' + 1 refused.
+@pytest.mark.parametrize("loc,l_max", [(LOC, 18640), (CONTENT, 137856)])
+def test_the_longest_encoder_output(loc, l_max):
+    assert scan.walk_smem_bytes(1, 16, l_max, S, A, ST, *loc) <= SMEM
+    assert scan.walk_smem_bytes(1, 16, l_max + 1, S, A, ST, *loc) > SMEM
+    assert plan(1, loc=loc, l=l_max) == scan.ScanPlan(16, 1, 1)
+    with pytest.raises(RuntimeError):
+        plan(1, loc=loc, l=l_max + 1)
+
+
+def _c_smem_floats():
+    """csrc/attention_scan_loc_lstm.cu's lstm_walk_smem_floats as a Python
+    function, from its source, its kBars read from the source and held to
+    WALK_BARS."""
+    src = (CSRC / "attention_scan_loc_lstm.cu").read_text()
+    body = re.search(r"long long lstm_walk_smem_floats\((.*?)\) \{\s*return (.*?);\n\}", src, re.S)
+    assert body, "lstm_walk_smem_floats not found"
+    bars = re.findall(r"constexpr int kBars = (\d+);", src)
+    assert len(bars) == 1, "kBars not found"
+    assert int(bars[0]) == scan.WALK_BARS
+    params = re.findall(r"long long (\w+)", body.group(1))
+    expr = re.sub(r"\bkBars\b", bars[0], body.group(2))
+    return eval(f"lambda {', '.join(params)}: ({expr})",
+                {"cdiv": lambda n, d: -(-n // d), "r4": lambda n: -(-n // 4) * 4,
+                 "cspan": lambda n, c: -(-n // c) if n % 4 else 4 * -(-(n // 4) // c)})
+
+
+@pytest.mark.parametrize("shape", [
+    (L, S, A, ST, 16, 5), (L, S, A, ST, 0, 0), (1, 17, 12, 9, 3, 4), (3, 17, 12, 9, 0, 0),
+    (37, 64, 40, 33, 0, 0), (20, 600, 24, 33, 4, 5), (40, 40, 24, 33, 20, 31),
+    (18640, S, A, ST, 16, 5), (137856, S, A, ST, 0, 0), (37, 64, 42, 36, 0, 0)])
+@pytest.mark.parametrize("c", scan.WALK_CLUSTERS)
+@pytest.mark.parametrize("r", scan.WALK_ROWS)
+def test_the_kernel_lays_out_what_the_plan_counts(shape, c, r):
+    l, s, a, st, fm, f = shape
+    assert 4 * _c_smem_floats()(r, c, l, s, a, st, fm, f, int(fm > 0)) == \
+        scan.walk_smem_bytes(r, c, l, s, a, st, fm, f)

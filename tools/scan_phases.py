@@ -1,8 +1,9 @@
-"""Where a step of the decoder-scan backwards K11 and K13, of the
+"""Where a step of the decoder-scan backwards K11, K13 and K15, of the
 flagship's beam step K2, or of the forward GRU walk behind K1, K16 and
 K18, goes, on the card.
 
     python3 tools/scan_phases.py [SOURCE ...]
+    python3 tools/scan_phases.py --lstm-bwd [SOURCE ...]
     python3 tools/scan_phases.py --k2 [SOURCE ...]
     python3 tools/scan_phases.py --gru-fwd [HEADER ...]
 
@@ -12,13 +13,23 @@ given, a variant of it, with the headers beside it), turns every
 ``// [phase] name`` comment of scan_bwd into a read of the SM's cycle
 counter by thread 0 of block 0 (each marker follows a block barrier, so
 the difference between two reads is the time of the phase between
-them), builds the copy, and runs K13 at flagship_loc's training shape
-and K11 at the conv+BiLSTM recipe's, at B=16 and 128, on chip_smoke.py's
-cases (the recipes' seeded weights, its training batch, random
-cotangents). It prints the cycles a step of each phase, the time per
-call (CUDA events over 5 calls), and each call's parity with the plain
-version (the backward tolerance). The counter adds two instructions of
-one thread a phase. Exits nonzero without a card.
+them), builds the copy, and runs K13 at flagship_loc's training shape,
+at B=16 and 128, on chip_smoke.py's cases (the recipe's seeded weights,
+its training batch, random cotangents). It prints the cycles a step of
+each phase, the time per call (CUDA events over 5 calls), and each
+call's parity with the plain version (the backward tolerance). The
+counter adds two instructions of one thread a phase. Exits nonzero
+without a card.
+
+With --lstm-bwd it instruments lstm_walk, the cluster walk of K11 and
+K15 in the same source (or each SOURCE), whose markers follow the step's
+block barriers and its waits for the peers' pushes, and runs K11 and K15
+at the conv+BiLSTM recipe's training shape (with and without the
+location term) at B=16 and 128 on chip_smoke.py's cases: the plan each
+ran, the cycles a step of block 0 of cluster 0 by phase (the wait for
+the staged inputs, then each exchange with the work before it), the time
+per call (CUDA events over 5 calls) and the parity (the backward
+tolerance).
 
 With --k2 it does the same for attention_step_kernel of
 csrc/attention_step.cu (or each SOURCE), whose markers follow the
@@ -83,9 +94,13 @@ K2_SIG = "attention_step_kernel(const Args a) {"
 STEP_BARRIERS = ("__syncthreads", "cluster.sync", "cluster_wait", "attend", "context",
                  "decoder_cell", "matvec")
 STEP_CALL = re.compile(r"^  ([\w.]+)(?:<\w+>)?\((.*)\);$")
-# The entry point each kernel's wrapper calls, by chip_smoke.py's case name.
+# The kernel attribute of ops/cuda/attention_scan.py each instrumented
+# entry point stands in for, by chip_smoke.py's case name.
 ENTRY = {"attention_decode_scan_loc_bwd": ("K13", "KERNEL_LOC_BWD"),
-         "attention_decode_scan_loc_lstm_bwd": ("K11", "KERNEL_LOC_LSTM_BWD")}
+         "attention_decode_scan_loc_lstm_bwd": ("K11", "KERNEL_LOC_LSTM_BWD"),
+         "attention_decode_scan_lstm_bwd": ("K15", "KERNEL_LSTM_BWD")}
+LSTM_SIG = "__device__ __forceinline__ void lstm_walk(float* sm, const BwdArgs& a) {"
+LSTM_LOOP = "  for (int s = 0; s < T; ++s) {"
 
 
 def instrument(src: str):
@@ -176,6 +191,24 @@ def instrument_gru_fwd(src: str):
     return head + GRU_FWD_SIG + body + "\n}\n" + tail, [n for _, n in names]
 
 
+def instrument_lstm(src: str):
+    """The source with a cycle read by thread 0 of block 0 at each phase
+    marker of lstm_walk (K11's and K15's walk), and the phases' names in
+    order."""
+    head, rest = src.split(LSTM_SIG, 1)
+    body, tail = rest.split("\n}\n", 1)
+    names = MARK.findall(body)
+    if not names:
+        raise ValueError("no // [phase] markers in lstm_walk")
+    counter = iter(range(len(names)))
+    body = MARK.sub(lambda m: _clock_read(next(counter), m.group(1)), body)
+    if body.count(LSTM_LOOP) != 1:
+        raise ValueError("lstm_walk has no single step loop")
+    body = body.replace(LSTM_LOOP, "  long long phase_t0_ = clock64();\n" + LSTM_LOOP, 1)
+    head = head.replace("namespace {", PROBE + "\nnamespace {", 1)
+    return head + LSTM_SIG + body + "\n}\n" + tail, [n for _, n in names]
+
+
 def _card() -> str:
     """The card's name, power limit and top SM clock (nvidia-smi)."""
     return subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit,clocks.max.sm",
@@ -183,36 +216,44 @@ def _card() -> str:
                           check=True).stdout.strip()
 
 
-def cases():
-    """chip_smoke.py's K13 cases at flagship_loc's training shape and K11
-    cases at the conv+BiLSTM recipe's, at B=16 and 128."""
+def cases(lstm: bool):
+    """chip_smoke.py's K13 cases at flagship_loc's training shape, or
+    (lstm) its K11 and K15 cases at the conv+BiLSTM recipe's, with and
+    without the location term; at B=16 and 128."""
     import chip_smoke as smoke
     from seq2seq_attention_asr_tpu_torch import interop
     from seq2seq_attention_asr_tpu_torch.train import experiment
 
     gen = torch.Generator().manual_seed(smoke.SEED + 1)
     out = []
-    for recipe, make in ((smoke.flagship_loc, smoke.loc_train_cases),
-                         (experiment.timit_conv_bilstm, smoke.cb_train_cases)):
+    recipes = (((experiment.timit_conv_bilstm, smoke.cb_train_cases),
+                (smoke.conv_bilstm_content, smoke.cbc_train_cases)) if lstm
+               else ((smoke.flagship_loc, smoke.loc_train_cases),))
+    names = smoke.LSTM_BWDS if lstm else smoke.LOC_BWDS
+    for recipe, make in recipes:
         exp = recipe()
         params = interop.to_torch(
             exp.init_params(torch.Generator().manual_seed(smoke.SEED), device="cpu"), "cuda")
         cfg = exp.build_model().cfg
         for b in (smoke.TRAIN_B, smoke.BIG_B):
             out += [c for c in make(params, cfg, smoke.train_batch(b, smoke.SEED + 3), gen)
-                    if c.name in smoke.LOC_BWDS]
+                    if c.name in names]
     return out
 
 
-def main(sources) -> int:
+def main(sources, lstm: bool = False) -> int:
+    """The default mode (K13's scan_bwd), or with `lstm` the --lstm-bwd
+    mode (K11's and K15's lstm_walk)."""
     if not torch.cuda.is_available():
         print("scan_phases: no CUDA device is available", file=sys.stderr)
         return 1
     card = _card()
     kernels = {}
     torch.backends.cuda.matmul.allow_tf32 = False
+    entries = [e for e in ENTRY if (e != "attention_decode_scan_loc_bwd") == lstm]
+    walks = ("loc_lstm_bwd_kernel", "scan_lstm_bwd_kernel") if lstm else ("scan_loc_gru_bwd",)
     for src in map(pathlib.Path, sources):
-        text, names = instrument(src.read_text())
+        text, names = (instrument_lstm if lstm else instrument)(src.read_text())
         headers = {h.name: h.read_text() for h in sorted(src.parent.glob("*.cuh"))}
         digest = hashlib.sha1((text + "".join(headers.values())).encode()).hexdigest()[:12]
         copy = build.BUILD_DIR / "phases" / digest
@@ -222,22 +263,21 @@ def main(sources) -> int:
         out = copy / f"{src.stem}_{digest}.cu"
         out.write_text(text)
         kernels[src] = (names, {
-            "K13": build.Kernel("K13 phases", str(out), "attention_decode_scan_loc_bwd",
-                                attention_scan.KERNEL_LOC_BWD.argtypes),
-            "K11": build.Kernel("K11 phases", str(out), "attention_decode_scan_loc_lstm_bwd",
-                                attention_scan.KERNEL_LOC_LSTM_BWD.argtypes)})
+            ENTRY[e][0]: build.Kernel(f"{ENTRY[e][0]} phases", str(out), e,
+                                      getattr(attention_scan, ENTRY[e][1]).argtypes)
+            for e in entries})
     t0 = time.perf_counter()
     build.build_all(k for _, ks in kernels.values() for k in ks.values())
     print(f"scan_phases: built {len(kernels)} copies in {time.perf_counter() - t0:.1f} s ({card})")
     for src, (_, ks) in kernels.items():
         # ptxas -v: each kernel's "Compiling entry" line, then its registers and spills.
         kernel = None
-        for line in ks["K13"].build_log.splitlines():
+        for line in next(iter(ks.values())).build_log.splitlines():
             if "Compiling entry" in line:
-                kernel = next((k for k in ("scan_loc_gru_bwd", "loc_lstm_bwd") if k in line), None)
+                kernel = next((k for k in walks if k in line), None)
             elif kernel and ("spill" in line or "registers" in line):
                 print(f"scan_phases {src} {kernel}: {line.split(':', 1)[-1].strip()}")
-    for c in cases():
+    for c in cases(lstm):
         name, attr = ENTRY[c.name]
         vh, yin = c.args[0], c.args[3]
         b, l, t = vh.shape[0], vh.shape[1], yin.shape[1]
@@ -246,7 +286,14 @@ def main(sources) -> int:
         default = getattr(attention_scan, attr)
         for src, (names, ks) in kernels.items():
             setattr(attention_scan, attr, ks[name])
+            plan = ""
             try:
+                if lstm:
+                    fm, f = (c.args[14].shape[1], c.args[14].shape[0]) if name == "K11" else (0, 0)
+                    run = attention_scan.scan_plan_on(ks[name], b, l, vh.shape[2],
+                                                      c.args[1].shape[2], yin.shape[2], fm, f,
+                                                      vh.device)
+                    plan = f" (plan C={run.cluster} R={run.rows}, {run.waves} waves)"
                 read = ks[name].helper("read_phase_cycles", [ctypes.c_void_p, ctypes.c_int])
                 with torch.no_grad():
                     got = c.kernel(*c.args)
@@ -267,7 +314,7 @@ def main(sources) -> int:
             finally:
                 setattr(attention_scan, attr, default)
             per_step = [n / t for n in cycles[:len(names)]]
-            print(f"scan_phases {src} {name} B={b} L={l} T={t}: "
+            print(f"scan_phases {src} {name} B={b} L={l} T={t}{plan}: "
                   f"{start.elapsed_time(stop) / 5:.4f} ms per call, parity excess {excess:.3e} "
                   f"({'ok' if excess <= 5e-5 else 'FAILS'}); cycles a step of block 0: "
                   f"{sum(per_step):.0f} = " + ", ".join(
@@ -438,4 +485,6 @@ if __name__ == "__main__":
         sys.exit(main_gru_fwd(sys.argv[2:] or [str(GRU_FWD_SOURCE)]))
     if sys.argv[1:2] == ["--k2"]:
         sys.exit(main_k2(sys.argv[2:] or [str(K2_SOURCE)]))
+    if sys.argv[1:2] == ["--lstm-bwd"]:
+        sys.exit(main(sys.argv[2:] or [str(SOURCE)], lstm=True))
     sys.exit(main(sys.argv[1:] or [str(SOURCE)]))

@@ -15,7 +15,8 @@ Phases, each fatal when it fails:
   3. hold each kernel to its plain PyTorch version through its public
      wrapper: K1-K3 at the flagship's serving shapes, batch 1 and 8 (max
      abs error 1e-4); K4 (1e-4 abs) and K5, K6 (max|got - plain| <= 5e-4
-     * max|plain| + 5e-5 for each output) at the training shape, B = 16,
+     * max|plain| + 5e-5 for each output; K5 also twice, the two calls
+     bitwise equal, one launch each) at the training shape, B = 16,
      L = 144, T = 56, encoder lengths ragged in 96-144 and label lengths
      in 20-56; K7 on the conv stack's output of the 3.5 s PCM (the
      conv+BiLSTM recipe's only BiLSTM layer, L' = 14) and K8 at K = 5 in
@@ -99,14 +100,16 @@ Phases, each fatal when it fails:
      and 128 under each row count the plan can take; for K13 at B = 16
      and 128 (parity at B = 128 too) the device time by stage (the walk,
      the reduction over the steps, the sum of the rows' location-term
-     partials), the walk's time a step and the scratch bytes; for K11 and
-     K15 at B = 16 and 128 (parity, a second call bitwise equal and one
-     launch a call at B = 128 too) the device time by stage (the recompute
-     pre-pass, the walk on thread-block clusters, the reduction over the
-     steps, the one over the walk's partials), the walk's time a step,
-     the plan it ran (C blocks and R rows a cluster, clusters and waves)
-     and the scratch bytes, and the walk under each (C, R) that fits,
-     each held to the plain version and run twice;
+     partials), the walk's time a step and the scratch bytes; for K5 at
+     the flagship's training shape and K11 and K15 at the conv+BiLSTM
+     recipe's, at B = 16 and 128 (parity, a second call bitwise equal
+     and one launch a call at B = 128 too) the device time by stage (the
+     recompute pre-pass, the walk on thread-block clusters, the reduction
+     over the steps, the one over the walk's partials), the walk's time a
+     step, the plan it ran (C blocks and R rows a cluster, clusters and
+     waves) and the scratch bytes, and the walk under each (C, R) that
+     fits, each held to the plain version and run twice (the sweeps that
+     attention_scan.STEP_COST is read from);
   9. the p50 request latency over 10 requests of each model, and the
      device idle share: 1 - (device time of one request) / p50; the p50
      train step of each recipe over 10
@@ -130,10 +133,10 @@ device time of the forward GRU walk's kernels K1, K16 and K18 at B = 1,
 L = 132 and B = 16 and 128, L = 144, of the flagship's beam step K2 and of K8's two instances on
 the flagship's widths at b = 1 and 8, the flagship's serving p50 and device time of
 one request at b = 1 and 8, the time per call of each teacher-forced
-decoder scan (K4, K5, K10-K15) at its recipe's training shape (K11, K13
-and K15 at B = 128 too) and the device time of K11 and K15, and the p50
-train step of each of the four trained configurations at B = 16 and
-128.
+decoder scan (K4, K5, K10-K15) at its recipe's training shape (K5, K11,
+K13 and K15 at B = 128 too) and the device time of K5, K11 and K15, and
+the p50 train step of each of the four trained configurations at B = 16
+and 128.
 """
 
 from __future__ import annotations
@@ -142,6 +145,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import inspect
 import json
 import math
 import pathlib
@@ -197,10 +201,12 @@ CB_EOS_BIASES = (0.01, 0.02, 0.04, 0.08, 0.16, 0.32, 0.64)
 # The backward recurrences K6, K17, K19 (GRU) and K9 (LSTM) start a gate
 # pre-pass (gru_gates_kernel twice, lstm_gates_kernel once), their walk
 # and a reduction (atb_kernel).
+# The decoder scans' backwards K5, K11 and K15 start a recompute pre-pass
+# (gru_decoder_prepass_kernel four times, lstm_decoder_prepass_kernel
+# three times), their walk and two reductions.
 STEP_KERNELS = ("bigru_scan2_bwd_kernel", "gru_gates_kernel", "bigru_scan2_kernel",
-                "scan_fwd_kernel", "scan_gru_bwd_kernel", "atb_kernel")
-# The LSTM decoder scans' backwards (K11, K15) start a recompute pre-pass
-# (lstm_decoder_prepass_kernel three times), their walk and two reductions.
+                "scan_fwd_kernel", "gru_decoder_prepass_kernel", "content_gru_walk_kernel",
+                "atb_kernel")
 CB_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "bilstm_scan_kernel",
                    "loc_lstm_fwd_kernel", "loc_lstm_bwd_kernel", "lstm_decoder_prepass_kernel",
                    "atb_kernel")
@@ -240,12 +246,15 @@ GRU_GATES = ("gru_gates_kernel", "gru_gates_kernel")  # two pre-pass launches a 
 # walk, then atb_kernel over the steps, then atb_kernel over the B rows'
 # location-term partials.
 LOC_BWDS = ("attention_decode_scan_loc_bwd",)
-# The LSTM decoder scans' backwards (K11, K15): each call runs the
-# recompute pre-pass (three launches), the walk on thread-block clusters,
-# then atb_kernel over the steps and atb_kernel over the walk's partials.
-LSTM_BWDS = {"attention_decode_scan_loc_lstm_bwd": "loc_lstm_bwd_kernel",
-             "attention_decode_scan_lstm_bwd": "scan_lstm_bwd_kernel"}
+# The decoder scans' backwards on thread-block clusters (K5, K11, K15):
+# each call runs the recompute pre-pass (four launches for the GRU, three
+# for the LSTM), the walk, then atb_kernel over the steps and atb_kernel
+# over the walk's partials. Each one's walk and pre-pass by trace name.
 PREPASS = ("lstm_decoder_prepass_kernel",) * 3
+GRU_PREPASS = ("gru_decoder_prepass_kernel",) * 4
+WALK_BWDS = {"attention_decode_scan_bwd": ("content_gru_walk_kernel", GRU_PREPASS),
+             "attention_decode_scan_loc_lstm_bwd": ("loc_lstm_bwd_kernel", PREPASS),
+             "attention_decode_scan_lstm_bwd": ("scan_lstm_bwd_kernel", PREPASS)}
 
 REPLACES = {
     "bigru_scan2": "seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:666",
@@ -276,7 +285,7 @@ SOURCES = {
     "stft_logmel_power": "seq2seq_attention_asr_tpu_torch/csrc/logmel.cu",
     "bigru_scan2_bwd": "seq2seq_attention_asr_tpu_torch/csrc/bigru_scan2_bwd.cu",
     "attention_decode_scan_fwd": "seq2seq_attention_asr_tpu_torch/csrc/attention_scan.cu",
-    "attention_decode_scan_bwd": "seq2seq_attention_asr_tpu_torch/csrc/attention_scan.cu",
+    "attention_decode_scan_bwd": "seq2seq_attention_asr_tpu_torch/csrc/attention_scan_loc_lstm.cu",
     "bilstm_scan": "seq2seq_attention_asr_tpu_torch/csrc/bilstm_scan.cu",
     "fused_attention_step_loc_lstm": "seq2seq_attention_asr_tpu_torch/csrc/attention_step.cu",
     "bilstm_scan_bwd": "seq2seq_attention_asr_tpu_torch/csrc/bilstm_scan_bwd.cu",
@@ -940,20 +949,23 @@ def train_cases(params, cfg, batch, gen: torch.Generator):
         nbytes=4 * (in_floats + steps * (st + a + l)),
     )
     with torch.no_grad():
-        s_seq, c_seq, _ = attention_scan.attention_decode_scan_plain(*scan_args)
+        saved = attention_scan.attention_decode_scan_plain(*scan_args)
+    if "alpha_seq" not in inspect.signature(attention_scan.attention_decode_scan_bwd).parameters:
+        saved = saved[:2]  # a port whose K5 recomputes alpha (--parent may time one)
     cot = (rnd(b, t_len, st) * dec_mask[..., None], rnd(b, t_len, a) * dec_mask[..., None],
            rnd(b, t_len, l) * dec_mask[..., None])
     k5 = Case(
-        "attention_decode_scan_bwd", ("scan_gru_bwd_kernel", "atb_kernel"),
+        "attention_decode_scan_bwd", WALK_BWDS["attention_decode_scan_bwd"][1] + (
+            WALK_BWDS["attention_decode_scan_bwd"][0], "atb_kernel", "atb_kernel"),
         attention_scan.attention_decode_scan_bwd, attention_scan.attention_decode_scan_bwd_plain,
-        (*scan_args, s_seq, c_seq, *cot),
+        (*scan_args, *saved, *cot),
         # Per step: the recompute (the forward's work without the
         # context), the energies' backward (~6 L S), the context's backward
         # (4 L A), the softmax's (~4 L), and the same weight products
         # twice more, transposed and as weight-gradient outer products.
         flops=steps * (4 * l * s_dim + 5 * l + 10 * st + 6 * l * s_dim + 4 * l * a + 4 * l
                        + 3 * 2 * step_mv),
-        nbytes=4 * (in_floats + steps * (2 * st + 2 * a + l)  # inputs, saved and cotangents
+        nbytes=4 * (in_floats + steps * (2 * st + 2 * a + 2 * l)  # inputs, saved and cotangents
                     + b * l * (s_dim + a) + steps * st + w_floats),  # dvh, dh, dyin, dW
         backward=True,
     )
@@ -1417,8 +1429,8 @@ def loc_split(c, tag: str, iters: int, card: str) -> None:
           f"{floats} floats ({4 * floats / 1e6:.1f} MB) ({card})")
 
 
-def lstm_case_dims(c):
-    """(B, L, S, A, St, FM, F) of a K11 or K15 case of decoder_scan_cases."""
+def walk_case_dims(c):
+    """(B, L, S, A, St, FM, F) of a case of WALK_BWDS (K5, K11 or K15)."""
     vh, h, yin = c.args[0], c.args[1], c.args[3]
     b, l, s_dim = vh.shape
     fm, f = 0, 0
@@ -1427,71 +1439,96 @@ def lstm_case_dims(c):
     return b, l, s_dim, h.shape[2], yin.shape[2], fm, f
 
 
-def lstm_split(c, kernel, tag: str, iters: int, card: str) -> None:
-    """Phase 8 for K11 and K15 (`c`, a case of LSTM_BWDS): the device time
-    by stage over `iters` traced calls (the recompute pre-pass, the walk,
-    the reduction over the steps, the one over the walk's partials), the
-    walk's time a step, the plan it ran and the scratch the call takes."""
+def decoder_walk_split(c, kernel, tag: str, iters: int, card: str) -> None:
+    """Phase 8 for K5, K11 and K15 (`c`, a case of WALK_BWDS): the device
+    time by stage over `iters` traced calls (the recompute pre-pass, the
+    walk, the reduction over the steps, the one over the walk's partials),
+    the walk's time a step, the plan it ran and the scratch the call
+    takes."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
-    walk_sym = LSTM_BWDS[c.name]
-    ms, kept = _stage_times(c, tuple((sym, "pre-pass") for sym in PREPASS) + (
+    walk_sym, prepass = WALK_BWDS[c.name]
+    ms, kept = _stage_times(c, tuple((sym, "pre-pass") for sym in prepass) + (
         (walk_sym, "walk"), ("atb_kernel", "steps"), ("atb_kernel", "partials")), iters)
-    b, l, s_dim, a, st, fm, f = lstm_case_dims(c)
+    b, l, s_dim, a, st, fm, f = walk_case_dims(c)
     t_len = c.args[3].shape[1]
+    cell = attention_scan.WALK_CELL[kernel.symbol]
     plan = attention_scan.scan_plan_on(kernel, b, l, s_dim, a, st, fm, f, c.args[0].device)
     smem, resident = attention_scan.scan_limits(kernel, c.args[0].device)
-    floats = attention_scan.stash_floats(True, b, t_len, l, s_dim, st, fm, f, plan.partials(b))
+    floats = attention_scan.stash_floats(cell == "lstm", b, t_len, l, s_dim, st, fm, f,
+                                         plan.partials(b))
     print(f"time {c.label} {tag} by stage: pre-pass {ms['pre-pass']:.4f} ms, walk "
           f"{ms['walk']:.4f} ms ({1e3 * ms['walk'] / t_len:.2f} us a step over {t_len} steps), "
           f"the steps' reduction {ms['steps']:.4f} ms, the partials' {ms['partials']:.4f} ms "
           f"(records kept: {', '.join(f'{k} {n}' for k, n in kept.items())} of {iters} calls); "
           f"plan C={plan.cluster} R={plan.rows}, {-(-b // plan.rows)} clusters in {plan.waves} "
           f"waves ({resident} resident at once, "
-          f"{attention_scan.walk_smem_bytes(plan.rows, plan.cluster, l, s_dim, a, st, fm, f)} of "
-          f"{smem} bytes of shared memory a block); scratch {floats} floats "
+          f"{attention_scan.walk_smem_bytes(cell, plan.rows, plan.cluster, l, s_dim, a, st, fm, f)}"
+          f" of {smem} bytes of shared memory a block); scratch {floats} floats "
           f"({4 * floats / 1e6:.1f} MB) ({card})")
 
 
-def lstm_plan_sweep(c, kernel, tag: str, card: str) -> None:
-    """Phase 8: K11 or K15 (`c`) under each (C, R) the walk can take that
-    fits the device, each held to the plain version and run twice with the
-    same bits: the walk's device time, its time a step, and a step and
-    wave. attention_scan.STEP_COST is read from these times."""
+def decoder_walk_sweep(c, kernel, tag: str, card: str, iters: int = 10) -> None:
+    """Phase 8: K5, K11 or K15 (`c`) under each (C, R) the walk can take
+    that fits the device, each held to the plain version and run twice
+    with the same bits: the walk's device time, its time a step, and a
+    step and wave. attention_scan.STEP_COST is read from these times. One
+    profiler trace holds `iters` calls of every plan in turn, the walk's
+    records told apart by their launch order; a trace that lost one of
+    them is taken again, at most twice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
-    walk_sym = LSTM_BWDS[c.name]
-    b, l, s_dim, a, st, fm, f = lstm_case_dims(c)
+    walk_sym = WALK_BWDS[c.name][0]
+    b, l, s_dim, a, st, fm, f = walk_case_dims(c)
     t_len = c.args[3].shape[1]
+    cell = attention_scan.WALK_CELL[kernel.symbol]
     smem, resident = attention_scan.scan_limits(kernel, c.args[0].device)
     with torch.no_grad():
         want = c.plain(*c.args)
     plan = attention_scan.scan_plan_on(kernel, b, l, s_dim, a, st, fm, f, c.args[0].device)
+    runs = [attention_scan.ScanPlan(cluster, rows) for cluster in attention_scan.WALK_CLUSTERS
+            for rows in attention_scan.WALK_ROWS
+            if resident[cluster] >= 1 and attention_scan.walk_smem_bytes(
+                cell, rows, cluster, l, s_dim, a, st, fm, f) <= smem]
     call = lambda: c.kernel(*c.args)
-    line = []
     default = attention_scan.scan_plan_on
     try:
-        for cluster in attention_scan.WALK_CLUSTERS:
-            for rows in attention_scan.WALK_ROWS:
-                if resident[cluster] < 1 or attention_scan.walk_smem_bytes(
-                        rows, cluster, l, s_dim, a, st, fm, f) > smem:
-                    continue
-                run = attention_scan.ScanPlan(cluster, rows)
-                attention_scan.scan_plan_on = lambda *_, run=run: run
-                with torch.no_grad():
-                    got, again = call(), call()
-                torch.cuda.synchronize()
-                excess = bwd_err(got, want)
-                if excess > 5e-5 or not all(torch.equal(x, y) for x, y in zip(got, again)):
-                    raise SystemExit(f"{c.label} {tag} with {run}: disagrees with its plain "
-                                     f"version ({excess:.3e}) or between two calls")
-                with torch.no_grad():
-                    ms = device_parts(call, PREPASS + (walk_sym,), 10)[walk_sym]
-                waves = -(-(-(-b // rows)) // resident[cluster])
-                line.append(f"C={cluster} R={rows} {ms:.4f} ms, {1e3 * ms / t_len:.2f} us a step "
-                            f"in {waves} waves ({1e3 * ms / t_len / waves:.2f} a wave)")
+        for run in runs:
+            attention_scan.scan_plan_on = lambda *_, run=run: run
+            with torch.no_grad():
+                got, again = call(), call()
+            torch.cuda.synchronize()
+            excess = bwd_err(got, want)
+            if excess > 5e-5 or not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise SystemExit(f"{c.label} {tag} with {run}: disagrees with its plain "
+                                 f"version ({excess:.3e}) or between two calls")
+        for attempt in range(3):
+            with torch.no_grad(), traced([ProfilerActivity.CUDA]) as prof:
+                for run in runs:
+                    attention_scan.scan_plan_on = lambda *_, run=run: run
+                    for _ in range(iters):
+                        call()
+            durs = [e.time_range.elapsed_us() / 1e3 for e in sorted(
+                (e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and walk_sym in e.name),
+                key=lambda e: e.time_range.start)]
+            if len(durs) == iters * len(runs):
+                break
+            print(f"sweep {c.label} {tag}: trace {attempt + 1} kept {len(durs)} of "
+                  f"{iters * len(runs)} walk launches")
+        else:
+            raise SystemExit(f"sweep {c.label} {tag}: every trace lost walk launches")
     finally:
         attention_scan.scan_plan_on = default
+    line = []
+    for i, run in enumerate(runs):
+        ms = statistics.mean(durs[i * iters:(i + 1) * iters])
+        waves = -(-(-(-b // run.rows)) // resident[run.cluster])
+        line.append(f"C={run.cluster} R={run.rows} {ms:.4f} ms, {1e3 * ms / t_len:.2f} us a step "
+                    f"in {waves} waves ({1e3 * ms / t_len / waves:.2f} a wave)")
     print(f"time {c.label} walk by plan {tag} (parity and repeat hold at each; the plan takes "
           f"C={plan.cluster} R={plan.rows}): " + "; ".join(line) + f" ({card})")
 
@@ -1733,8 +1770,8 @@ def train_timing(recipe, params_cpu, b: int, card: str, step_kernels, label: str
           f"device ops of one profiled step, idle share 1 - busy/p50 = {idle}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB ({card})")
     # The step's device time by kernel; atb_kernel is the weight-gradient
-    # reduction of the backward kernels (K5 one launch and K6 three; K9
-    # one and K11 two; K13 two and K6 three; K9 and K15 one each).
+    # reduction of the backward kernels (K5 two launches and K6 three; K9
+    # one and K11 two; K13 two and K6 three; K9 one and K15 two).
     groups = {}
     for e in dev_events:
         key = next((s for s in step_kernels if s in e.name), "other device ops")
@@ -1894,10 +1931,10 @@ def tree_timing() -> dict:
     shape, b=1 and 8; the flagship's
     serving p50 and device time of one request (exact=False, b=1 and 8);
     of each teacher-forced decoder scan, forward and backward (K4, K5,
-    K10-K15), at its recipe's training shape (B=16; K11, K13 and K15 at
-    B=128 too), and the device time of K11 and K15 (every device op of a
-    call); and the p50 train step of each trained configuration at B=16
-    and 128."""
+    K10-K15), at its recipe's training shape (B=16; K5, K11, K13 and K15
+    at B=128 too), and the device time of K5, K11 and K15 (every device
+    op of a call); and the p50 train step of each trained configuration
+    at B=16 and 128."""
     from seq2seq_attention_asr_tpu_torch import interop
     from seq2seq_attention_asr_tpu_torch.models import registry
     from seq2seq_attention_asr_tpu_torch.train import experiment
@@ -1935,12 +1972,12 @@ def tree_timing() -> dict:
             (conv_bilstm_content, cbc_train_cases, "conv_bilstm_content")):
         params_cpu = recipe().init_params(torch.Generator().manual_seed(SEED), device="cpu")
         params = interop.to_torch(params_cpu, "cuda")
-        for b in (TRAIN_B,) if label == "chorowski" else (TRAIN_B, BIG_B):
+        for b in (TRAIN_B, BIG_B):
             for c in make_cases(params, recipe().build_model().cfg, train_batch(b, SEED + 3), gen):
                 if c.name.startswith("attention_decode_scan") and (b == TRAIN_B or c.backward):
                     with torch.no_grad():
                         out[f"{c.name} B={b} ms per call"] = time_ms(lambda: c.kernel(*c.args), 10)
-                        if c.name in LSTM_BWDS:  # every device op of a call, in either tree
+                        if c.name in WALK_BWDS:  # every device op of a call, in either tree
                             out[f"{c.name} B={b} device ms"] = device_ms(
                                 lambda: c.kernel(*c.args), None, 10)
         del params
@@ -2068,7 +2105,7 @@ def main(parent=None) -> int:
                 want = c.plain(*c.args)
             torch.cuda.synchronize()
             errs[c.name] = max(errs[c.name], c.check(got, want, shape_tag(b)))
-            if c.name in FWD_WALKS or c.name in LSTM_BWDS:
+            if c.name in FWD_WALKS or c.name in WALK_BWDS:
                 check_repeat(c, kernels[c.name], got, shape_tag(b))
     errs["fused_attention_step"] = max(errs["fused_attention_step"], k2_edge_phase(
         params["decoder"], cfg.attention_config(), kernels["fused_attention_step"], gen))
@@ -2152,9 +2189,9 @@ def main(parent=None) -> int:
                 walk_split(c, kernels[c.name], tag, n, card)
             if c.name in LOC_BWDS:
                 loc_split(c, tag, n, card)
-            if c.name in LSTM_BWDS:
-                lstm_split(c, kernels[c.name], tag, n, card)
-                lstm_plan_sweep(c, kernels[c.name], tag, card)
+            if c.name in WALK_BWDS:
+                decoder_walk_split(c, kernels[c.name], tag, n, card)
+                decoder_walk_sweep(c, kernels[c.name], tag, card)
             if c.name == "bilstm_scan_bwd":
                 with torch.no_grad():
                     lib_call = time_ms(c.library, n)
@@ -2175,16 +2212,19 @@ def main(parent=None) -> int:
     for b in (TRAIN_B, BIG_B):
         k6_plan_sweep(kernels["bigru_scan2_bwd"], b, card)
     fwd_walk_timing(kernels, errs, card)
-    # K11, K13 and K15 at B=128: parity, the device time by stage and, for
-    # K11 and K15, a second call and the walk under each plan.
+    # K5, K11, K13 and K15 at B=128: parity, the device time by stage and,
+    # for K5, K11 and K15, a second call and the walk under each plan.
     big = train_batch(BIG_B, SEED + 3)
-    big_cases = loc_train_cases(interop.to_torch(loc_params_cpu, "cuda"),
-                                flagship_loc().build_model().cfg, big, gen)
+    big_cases = train_cases(interop.to_torch(train_params, "cuda"),
+                            experiment.timit_chorowski_normnll_colnorm().build_model().cfg, big,
+                            gen)
+    big_cases += loc_train_cases(interop.to_torch(loc_params_cpu, "cuda"),
+                                 flagship_loc().build_model().cfg, big, gen)
     big_cases += cb_train_cases(cb_params, cb_model.cfg, big, gen)
     big_cases += cbc_train_cases(interop.to_torch(cbc_params_cpu, "cuda"),
                                  conv_bilstm_content().build_model().cfg, big, gen)
     for c in big_cases:
-        if c.name in LOC_BWDS or c.name in LSTM_BWDS:
+        if c.name in LOC_BWDS or c.name in WALK_BWDS:
             tag = f"B={BIG_B} L={TRAIN_L} T={TRAIN_T}"
             with torch.no_grad():
                 got = c.kernel(*c.args)
@@ -2195,8 +2235,8 @@ def main(parent=None) -> int:
                 loc_split(c, tag, 10, card)
             else:
                 check_repeat(c, kernels[c.name], got, tag)
-                lstm_split(c, kernels[c.name], tag, 10, card)
-                lstm_plan_sweep(c, kernels[c.name], tag, card)
+                decoder_walk_split(c, kernels[c.name], tag, 10, card)
+                decoder_walk_sweep(c, kernels[c.name], tag, card)
     del big_cases
     for b in (1, 8):
         k2_plan_sweep(next(c for c in all_cases[b] if c.label == "fused_attention_step"), card)

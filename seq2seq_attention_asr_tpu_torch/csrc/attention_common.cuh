@@ -4,8 +4,8 @@
 // scans (attention_scan.cu and attention_scan_loc_lstm.cu, K = 1, forward
 // and the backward's recompute), with the location term (attend_loc) and
 // the LSTM cell (lstm_preacts, lstm_cell) of the location-aware / LSTM
-// decoders, and the GRU cell's backward (gru_cell_bwd) that the scans'
-// backward kernels K5 and K13 share:
+// decoders, and the GRU cell's backward (gru_cell_bwd) of the
+// location-aware GRU scan's backward kernel K13:
 //
 //   attend        ws = s_prev @ Ws + b; e = w_e . tanh(vh + ws); alpha =
 //                 masked softmax of e (NEG_INF on padding, times the mask)

@@ -1,5 +1,6 @@
 // Teacher-forced attention decoder scans with the location term or the
-// LSTM cell, each a forward and a backward kernel:
+// LSTM cell, each a forward and a backward kernel, and the backward of
+// the content-only GRU decoder's scan:
 //
 //   <LSTM, location>  K10 loc_lstm_fwd_kernel, K11 loc_lstm_bwd_kernel<R>;
 //                     entry points attention_decode_scan_loc_lstm_{fwd,bwd}
@@ -7,28 +8,31 @@
 //                     entry points attention_decode_scan_loc_{fwd,bwd}
 //   <LSTM, content>   K14 scan_lstm_fwd_kernel, K15 scan_lstm_bwd_kernel<R>;
 //                     entry points attention_decode_scan_lstm_{fwd,bwd}
+//   <GRU, content>    K5 content_gru_walk_kernel<R>; entry point
+//                     attention_decode_scan_bwd (its forward, K4, is
+//                     attention_scan.cu's)
 //
 // The forwards are one templated body (scan_fwd<kLstm, kLoc>), K13 has a
-// body of its own (scan_bwd), and K11 and K15 share the LSTM walk on a
-// thread-block cluster (lstm_walk<R, kLoc>). Each instance's kernels are
-// thin __global__ functions of their own, so that a profiler trace names
-// which instance ran. The content-only GRU decoder's scan is K4/K5
-// (attention_scan.cu).
+// body of its own (scan_bwd), and K11, K15 and K5 share one walk on a
+// thread-block cluster (decoder_walk<R, kLstm, kLoc>). Each instance's
+// kernels are thin __global__ functions of their own, so that a profiler
+// trace names which instance ran.
 //
 // They replace the Pallas kernels of
 // seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py, whose forwards
 // share pallas_call :355 (_run_fwd :290) and whose backwards are
 // pallas_call :945 (_run_bwd_loc :891) for the location-aware ones and
-// :851 (_run_bwd :800) for the content-only LSTM:
+// :851 (_run_bwd :800) for the content-only ones:
 //   K10/K11  attention_decode_scan_loc_lstm :1292, _fwd_kernel_loc_lstm
 //            :254, _bwd_kernel_loc_lstm :624;
 //   K12/K13  attention_decode_scan_loc :984, _fwd_kernel_loc :219,
 //            _bwd_kernel_loc :710;
 //   K14/K15  attention_decode_scan_lstm :1226, _fwd_kernel_lstm :189,
 //            _bwd_kernel_lstm :577;
+//   K5       attention_decode_scan :1156, _bwd_kernel :376;
 // with _location_term :62, _step_core :91 and _bwd_core :419. Plain
 // PyTorch twins: ops/cuda/attention_scan.py attention_decode_scan_{loc_lstm,
-// loc,lstm}_plain and their _bwd_plain.
+// loc,lstm}_plain and their _bwd_plain, and attention_decode_scan_bwd_plain.
 //
 // The forwards and K13: the T steps are a chain, and every step reads the
 // step's weights from L2: at the conv+BiLSTM recipe the LSTM's gates
@@ -46,9 +50,9 @@
 // s_prev and alpha_prev, the saved sequences shifted by one and zero at
 // step 0, and the saved c, and takes alpha itself from the saved alpha
 // sequence, so it runs no softmax; then it backprops the GRU cell
-// (gru_cell_bwd, which K5 shares), the decoder-input MLP, the context,
-// the masked softmax, the energies and the location term, whose input
-// alpha_prev is the previous step's output: that cotangent is carried
+// (gru_cell_bwd), the decoder-input MLP, the context, the masked softmax,
+// the energies and the location term, whose input alpha_prev is the
+// previous step's output: that cotangent is carried
 // into step t-1. ds is carried in shared memory. dvh and dh are summed
 // over the steps in global memory, each row's slice by its own block.
 // The weight gradients of the step's products are sums of outer products
@@ -64,27 +68,38 @@
 // second reduce_atb.cuh launch sums the B rows' partials in a fixed
 // order. What bounds K13's walk: about half of a step is the recompute
 // and the cell's transposed products, which read the step's weights from
-// L2 as K5 does; most of the rest is the energies and dfeat passes.
+// L2; most of the rest is the energies and dfeat passes.
 //
-// K11 and K15 run in three stages (launch_lstm_bwd below):
-//   1. a recompute pre-pass off the chain (lstm_decoder_prepass_kernel):
-//      every step's s_prev, c and alpha_prev are saved sequences, so
-//      ws, cc, r = [cc | yin] @ dec_w + dec_b and the gates'
-//      pre-activations s_prev @ w_h + r @ w_x + b of all B*T (row, step)
-//      pairs come from tiled products (cluster_walk.cuh tile_product),
-//      ws and the gates into the stash rows that the walk overwrites
-//      with their cotangents;
+// K11, K15 and K5 run in three stages (launch_walk_bwd below):
+//   1. a recompute pre-pass off the chain (lstm_decoder_prepass_kernel,
+//      gru_decoder_prepass_kernel): every step's s_prev, c and alpha_prev
+//      are saved sequences, so ws, cc, r = [cc | yin] @ dec_w + dec_b and
+//      the cell's inputs of all B*T (row, step) pairs come from tiled
+//      products (cluster_walk.cuh tile_product): the LSTM's gate
+//      pre-activations s_prev @ w_h + r @ w_x + b; the GRU's gates
+//      zr = sigmoid([s_prev | r] @ w_zr), then its candidate
+//      tanh([rg s_prev | r] @ w_h), a stage each (the candidate reads the
+//      reset gate). ws and the cell's values go into the stash rows that
+//      the walk overwrites with their cotangents;
 //   2. the walk on thread-block clusters of C blocks (16 or 8), each
 //      cluster taking R batch rows (plan: ops/cuda/attention_scan.py
 //      scan_plan). Block k owns state units [k St / C, (k+1) St / C),
 //      annotation columns [k A / C, ...) and encoder positions
-//      [k L / C, ...). A step's chain is
+//      [k L / C, ...). A step's chain is, for the LSTM,
 //        dg (the LSTM cell's backward, elementwise on its units)   [E1]
 //        dsp = dg w_h^T, dr = dg w_x^T on its units' rows          [E2]
-//        dcc | dyin = dr dec_w^T on its units' rows                 [E3]
-//        dc = dcc c_w^T + dc_seq on its columns' rows              [E4]
+//      and for the GRU (reset gate before the candidate product),
+//        da_cand = ds z (1 - cand^2) on its units                  [E1]
+//        dcin = da_cand w_h^T on its units' rows; da_zr on its units:
+//        the update gate's from ds (cand - s_prev), the reset gate's
+//        from dcin[:St] s_prev                                      [E2]
+//        dsr = da_zr w_zr^T on its units' rows; dsp = dsr[:St] +
+//        dcin[:St] rg + ds (1 - z), dr = dcin[St:] + dsr[St:]       [E3]
+//      then, for both cells,
+//        dcc | dyin = dr dec_w^T on its units' rows                 [E]
+//        dc = dcc c_w^T + dc_seq on its columns' rows              [E]
 //        dalpha, de (the softmax), dh, the energies (dvh, dz), the
-//        location term (feat, dfeat) on its positions               [E5]
+//        location term (feat, dfeat) on its positions               [E]
 //        dws = the cluster's sum of the blocks' partials, then
 //        ds_prev = dsp + dws ws_w^T on its units' rows;
 //      at each [E] the block copies what it formed into every peer's
@@ -93,21 +108,27 @@
 //      whose release is a GPU-wide fence): a bulk copy (cp.async.bulk)
 //      of each row's share where St and A are multiples of 4, so that
 //      the shares are whole 16-byte groups, else st.async of each
-//      value. E4 also carries each block's share of the softmax's sum
-//      sum_l alpha dalpha = c . dc + sum_l alpha (dalpha_seq + carry),
-//      c being the saved context; E5 the blocks' S-long dws partials
-//      and the dfeat rows within F - 1 positions of a peer's, whose
-//      alpha_prev cotangent reads them. Sums over blocks are in rank
-//      order, no atomics: two calls give the same bits.
-//      The location term's dU, dwconv and dbconv and dw_e are summed
-//      over the block's rows, positions and steps in its shared memory
-//      and written once, a row of partials per block;
+//      value. The dc exchange also carries each block's share of the
+//      softmax's sum sum_l alpha dalpha = c . dc + sum_l alpha
+//      (dalpha_seq + carry), c being the saved context; the last the
+//      blocks' S-long dws partials and the dfeat rows within F - 1
+//      positions of a peer's, whose alpha_prev cotangent reads them.
+//      Sums over blocks are in rank order, no atomics: two calls give
+//      the same bits. The location term's dU, dwconv and dbconv and dw_e
+//      are summed over the block's rows, positions and steps in its
+//      shared memory and written once, a row of partials per block;
 //   3. reduce_atb.cuh over the B*T stash rows, then over the partials.
 // Nothing in a block's shared memory grows with L beyond ceil(L / C)
 // positions and the dfeat halo. What bounds a step: the chain's
-// transposed products read 1/C of about 7 MB of weights from L2 (w_h and
-// w_x are 73% of it), and the five exchanges each cost a round trip
-// through distributed shared memory.
+// transposed products read 1/C of the step's weights from L2 (about 7 MB
+// for the LSTM, w_h and w_x 73% of it; about 3 MB for the flagship's
+// GRU), and each exchange costs a round trip through distributed shared
+// memory: five a step for the LSTM, six for the GRU, whose reset gate's
+// cotangent needs w_h^T's output before w_zr^T can start.
+//
+// The source builds two libraries (ops/cuda/attention_scan.py): K10-K15's,
+// and K5's alone, with CONTENT_GRU_BWD_ONLY defined, so that nvcc compiles
+// the GRU walk's instances in a process of its own, beside the rest.
 
 #include "attention_common.cuh"
 #include "cluster_walk.cuh"
@@ -274,6 +295,7 @@ __device__ __forceinline__ void scan_fwd(float* sm, const FwdArgs& a) {
   }
 }
 
+#ifndef CONTENT_GRU_BWD_ONLY
 __global__ void __launch_bounds__(kThreads, 1) loc_lstm_fwd_kernel(const FwdArgs a) {
   extern __shared__ float sm[];
   scan_fwd<true, true>(sm, a);
@@ -288,6 +310,7 @@ __global__ void __launch_bounds__(kThreads, 1) scan_lstm_fwd_kernel(const FwdArg
   extern __shared__ float sm[];
   scan_fwd<true, false>(sm, a);
 }
+#endif
 
 // ---------------------------------------------------------------------------
 // K11, K13, K15: the backward.
@@ -295,15 +318,17 @@ __global__ void __launch_bounds__(kThreads, 1) scan_lstm_fwd_kernel(const FwdArg
 // Per-step operands and cotangents the weight-gradient reductions read,
 // carved from the caller's scratch in this order: (B*T) rows of rr (2St);
 // for the LSTM r (St); for the GRU sr and cand_in (2St each); then dws
-// (S; for the LSTM the pre-pass's ws until the walk writes dws over it),
+// (S; for the walks the pre-pass's ws until the walk writes dws over it),
 // dcc (St), dr (St); for the LSTM dgates (4St; the pre-pass's gate
 // pre-activations until the walk writes dgates over them), for the GRU
-// da_zr (2St), da_cand (St) and the step's w_e partial (S); then, with
-// the location term, B rows of the step's dz (L*S, rewritten every
-// step). Then the partial sums: for the GRU, with the location term, per
-// batch row, of dU (FM*S) and of dwconv and dbconv ((F + 1) * FM); for
-// the LSTM, per block of the walk (`partials` rows), of dw_e (S) and,
-// with the location term, of dU and of dwconv and dbconv.
+// da_zr (2St) and da_cand (St) (for K5 the pre-pass's gates and
+// candidate until the walk writes their cotangents over them), and for
+// K13 the step's w_e partial (S); then, with the location term, B rows
+// of the step's dz (L*S, rewritten every step). Then the partial sums:
+// for K13, per batch row, of dU (FM*S) and of dwconv and dbconv ((F + 1)
+// * FM); for the walks (K11, K15, K5), per block of the walk (`partials`
+// rows), of dw_e (S) and, with the location term, of dU and of dwconv
+// and dbconv.
 struct Stash {
   float *rr, *r, *sr, *cand_in, *dws, *dcc, *dr, *dg, *da_zr, *da_cand, *dwe;
   float *dz, *pwe, *pu, *pconv;
@@ -312,6 +337,7 @@ struct Stash {
 template <bool kLstm, bool kLoc>
 Stash carve_stash(float* p, const Dims& d, int partials) {
   const size_t rows = (size_t)d.B * d.T, St = d.St, S = d.S;
+  const bool walk = kLstm || !kLoc;  // every instance but K13 runs the cluster walk
   Carver c{p, 0};
   Stash s{};
   s.rr = c.take(rows * 2 * St);
@@ -329,11 +355,11 @@ Stash carve_stash(float* p, const Dims& d, int partials) {
   } else {
     s.da_zr = c.take(rows * 2 * St);
     s.da_cand = c.take(rows * St);
-    s.dwe = c.take(rows * S);
   }
+  if (!walk) s.dwe = c.take(rows * S);
   if (kLoc) s.dz = c.take((size_t)d.B * d.L * S);
-  const size_t n = kLstm ? (size_t)partials : (size_t)d.B;
-  if (kLstm) s.pwe = c.take(n * S);
+  const size_t n = walk ? (size_t)partials : (size_t)d.B;
+  if (walk) s.pwe = c.take(n * S);
   if (kLoc) {
     s.pu = c.take(n * d.FM * S);
     s.pconv = c.take(n * (d.F + 1) * d.FM);
@@ -710,16 +736,29 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
   }
 }
 
+#ifndef CONTENT_GRU_BWD_ONLY
 __global__ void __launch_bounds__(kThreads, 1) scan_loc_gru_bwd_kernel(const BwdArgs a) {
   extern __shared__ float sm[];
   scan_bwd(sm, a);
 }
+#endif
 
 // ---------------------------------------------------------------------------
-// K11, K15: the LSTM decoder's backward on thread-block clusters.
+// K11, K15, K5: the decoder backwards on thread-block clusters.
 
 constexpr int kMaxWalkCluster = 16;  // a non-portable cluster size on Hopper
-constexpr int kBars = 5;             // the exchanges of a step, an mbarrier each
+// The exchanges of a step, an mbarrier each: the LSTM's five, the GRU's six.
+constexpr int kBarsLstm = 5, kBarsGru = 6;
+template <bool kLstm>
+constexpr int kBars = kLstm ? kBarsLstm : kBarsGru;
+// The cell's gathered gate cotangents of a row, in units of St: the
+// LSTM's dgates (4), the GRU's da_cand and da_zr (1 + 2).
+template <bool kLstm>
+constexpr int kGates = kLstm ? 4 : 3;
+
+// Annotation columns of a row of h and dh whose loads a lane of the
+// walk's context pass issues together.
+constexpr int kWalkCols = 8;
 
 __host__ __device__ constexpr long long cdiv(long long n, long long d) { return (n + d - 1) / d; }
 
@@ -741,18 +780,20 @@ __host__ __device__ constexpr long long cspan(long long n, long long C) {
   return n % 4 ? cdiv(n, C) : 4 * cdiv(n / 4, C);
 }
 
-// Shared memory of one block of the LSTM walk, in floats, for R batch
-// rows on clusters of C blocks, loc 1 with the location term (else 0 and
-// FM = F = 0). carve_walk lays it out, each buffer 16-byte aligned; the
-// plan in ops/cuda/attention_scan.py (walk_smem_bytes) computes the same.
-long long lstm_walk_smem_floats(long long R, long long C, long long L, long long S, long long A,
-                                long long St, long long FM, long long F, long long loc) {
-  return r4(2 * kBars) + r4(4 * R * St) + 2 * r4(R * St) + r4(R * A) + r4(C * R) +
-         r4(C * R * r4(S)) + r4(R * r4(S)) +
-         2 * (r4(4 * R * cspan(St, C)) + 3 * r4(R * cspan(St, C)) + r4(R * r4(S)) +
-              2 * r4(R * cdiv(L, C)) + loc * r4(R * (cdiv(L, C) + F - 1)) +
+// Shared memory of one block of the walk, in floats, for R batch rows on
+// clusters of C blocks, lstm 1 for the LSTM cell (else 0: the GRU), loc 1
+// with the location term (else 0 and FM = F = 0). carve_walk lays it out,
+// each buffer 16-byte aligned; the plan in ops/cuda/attention_scan.py
+// (walk_smem_bytes) computes the same.
+long long walk_smem_floats(long long R, long long C, long long L, long long S, long long A,
+                           long long St, long long FM, long long F, long long loc,
+                           long long lstm) {
+  return r4(2 * (lstm * kBarsLstm + (1 - lstm) * kBarsGru)) + r4((3 + lstm) * R * St) +
+         2 * r4(R * St) + r4(R * A) + r4(C * R) + r4(C * R * r4(S)) + r4(R * r4(S)) +
+         2 * (r4((3 + lstm) * R * cspan(St, C)) + (2 + lstm) * r4(R * cspan(St, C)) +
+              r4(R * r4(S)) + 2 * r4(R * cdiv(L, C)) + loc * r4(R * (cdiv(L, C) + F - 1)) +
               2 * r4(R * cspan(A, C))) +
-         3 * r4(R * cspan(St, C)) + 2 * r4(R * cdiv(L, C)) + 2 * r4(S) +
+         (4 - lstm) * r4(R * cspan(St, C)) + 2 * r4(R * cdiv(L, C)) + 2 * r4(S) +
          loc * (r4(R * cdiv(L, C) * FM) + r4(R * (cdiv(L, C) + F - 1) * FM) + 2 * r4(FM * S) +
                 r4(F * FM) + r4(FM) + r4((F + 1) * FM));
 }
@@ -760,8 +801,10 @@ long long lstm_walk_smem_floats(long long R, long long C, long long L, long long
 // A step's inputs of the block's units, positions and columns, staged by
 // asynchronous copies one step ahead, each [R][width].
 struct Staged {
-  float* g;     // [4][R][Stc]  the gates' pre-activations (i, f, g, o)
-  float *mp, *dsq, *dmq;  // [R][Stc]  mem_prev, the cotangents of s and mem
+  float* g;     // [kGates][R][Stc]  the LSTM's gate pre-activations (i, f, g, o), or the
+                //                   GRU's update and reset gates and its candidate
+  float *mp, *dsq, *dmq;  // [R][Stc]  the LSTM's mem_prev or the GRU's s_prev, the
+                          //           cotangents of s and (LSTM only) mem
   float* ws;    // [R][Sp]      s_prev @ ws_w + ws_b, every score unit
   float *al, *dalq;       // [R][Pc]   alpha and its cotangent
   float* ap;    // [R][Pw]      alpha_prev at [lo - pad, lo + Pc + F - 1 - pad), 0 off [0, L)
@@ -769,9 +812,9 @@ struct Staged {
 };
 
 struct WalkShared {
-  unsigned long long* bars;  // [kBars]: the exchanges E1-E5
+  unsigned long long* bars;  // [kBars]: the step's exchanges
   // Gathered: every block holds all of them, each block writing its share.
-  float *gdg;   // [R][4St]     dgates
+  float *gdg;   // [R][kGates St]  dgates, or da_cand | da_zr
   float *gdr;   // [R][St]      dr
   float *gdcc;  // [R][St]      dcc = drr[:St]
   float *gdc;   // [R][A]       dc
@@ -780,7 +823,8 @@ struct WalkShared {
   float *dws;   // [R][Sp]      dws, their sum
   Staged stg;      // the first of two staging buffers,
   long long stage;  // the second `stage` floats on
-  float *carry_s, *carry_m, *dsp;  // [R][Stc]
+  float *carry_s, *carry_m, *dsp;  // [R][Stc]  (carry_m: LSTM only)
+  float *dcs, *dcr;                // [R][Stc]  the GRU's dcin = da_cand w_h^T, [:St] and [St:]
   float *dalc, *de;                // [R][Pc]  alpha's cotangent from step t+1; de
   float *we, *we_acc;              // [S]      w_e; dw_e over the block's rows, steps, positions
   // The location term.
@@ -792,14 +836,14 @@ struct WalkShared {
 
 __host__ __device__ inline float* take4(Carver& c, long long n) { return c.take((size_t)r4(n)); }
 
-template <bool kLoc>
+template <bool kLstm, bool kLoc>
 __host__ __device__ WalkShared carve_walk(float* sm, const Dims& d, int C, int R, size_t* floats) {
   Carver c{sm, 0};
   const long long Stc = cspan(d.St, C), Ac = cspan(d.A, C), Pc = cdiv(d.L, C), Sp = r4(d.S);
   const long long Pw = Pc + d.F - 1;
   WalkShared s{};
-  s.bars = reinterpret_cast<unsigned long long*>(take4(c, 2 * kBars));
-  s.gdg = take4(c, 4LL * R * d.St);
+  s.bars = reinterpret_cast<unsigned long long*>(take4(c, 2 * kBars<kLstm>));
+  s.gdg = take4(c, (long long)kGates<kLstm> * R * d.St);
   s.gdr = take4(c, (long long)R * d.St);
   s.gdcc = take4(c, (long long)R * d.St);
   s.gdc = take4(c, (long long)R * d.A);
@@ -808,10 +852,10 @@ __host__ __device__ WalkShared carve_walk(float* sm, const Dims& d, int C, int R
   s.dws = take4(c, R * Sp);
   Staged& q = s.stg;
   const size_t first = c.off;
-  q.g = take4(c, 4 * R * Stc);
+  q.g = take4(c, kGates<kLstm> * R * Stc);
   q.mp = take4(c, R * Stc);
   q.dsq = take4(c, R * Stc);
-  q.dmq = take4(c, R * Stc);
+  if (kLstm) q.dmq = take4(c, R * Stc);
   q.ws = take4(c, R * Sp);
   q.al = take4(c, R * Pc);
   q.dalq = take4(c, R * Pc);
@@ -821,7 +865,12 @@ __host__ __device__ WalkShared carve_walk(float* sm, const Dims& d, int C, int R
   s.stage = (long long)(c.off - first);
   c.take((size_t)s.stage);
   s.carry_s = take4(c, R * Stc);
-  s.carry_m = take4(c, R * Stc);
+  if (kLstm) {
+    s.carry_m = take4(c, R * Stc);
+  } else {
+    s.dcs = take4(c, R * Stc);
+    s.dcr = take4(c, R * Stc);
+  }
   s.dsp = take4(c, R * Stc);
   s.dalc = take4(c, R * Pc);
   s.de = take4(c, R * Pc);
@@ -845,7 +894,7 @@ __host__ __device__ WalkShared carve_walk(float* sm, const Dims& d, int C, int R
 __device__ __forceinline__ Staged staged(const WalkShared& sh, int i) {
   const long long o = i * sh.stage;
   const Staged& q = sh.stg;
-  return Staged{q.g + o, q.mp + o, q.dsq + o, q.dmq + o, q.ws + o,
+  return Staged{q.g + o, q.mp + o, q.dsq + o, q.dmq ? q.dmq + o : nullptr, q.ws + o,
                 q.al + o, q.dalq + o, q.ap ? q.ap + o : nullptr, q.dcq + o, q.cq + o};
 }
 
@@ -945,24 +994,35 @@ struct WalkCtx {
 
 // Stage step t's inputs of the block's units, positions and columns into
 // q by asynchronous copies (zeros for absent cotangents, rows past B and
-// alpha_prev outside [0, L) or at t = 0).
-template <int R, bool kLoc>
+// alpha_prev outside [0, L) or at t = 0). The cell's: the LSTM's gate
+// pre-activations and mem_prev, or the GRU's gates, candidate and s_prev.
+template <int R, bool kLstm, bool kLoc>
 __device__ __forceinline__ void stage_step(const BwdArgs& a, const WalkCtx& c, const Staged& q,
                                            int t) {
   const Dims& d = a.d;
-  const int T = d.T, L = d.L, S = d.S, A = d.A, St = d.St, St4 = 4 * St;
+  const int T = d.T, L = d.L, S = d.S, A = d.A, St = d.St, St2 = 2 * St, St4 = 4 * St;
   const size_t n0 = (size_t)c.b0 * T + t;  // (row b0, step t)
   const Span &un = c.un, &ac = c.ac, &pos = c.pos;
-  for (int gi = 0; gi < 4; ++gi)
-    stage_async<R>(q.g + gi * R * c.Stc, c.Stc, a.st.dg + n0 * St4 + gi * St + un.lo,
-                   (size_t)T * St4, un.n, c.nrows, false);
   const size_t rs = (size_t)T * St;
-  stage_async<R>(q.mp, c.Stc, t > 0 ? a.mem_seq + (n0 - 1) * St + un.lo : nullptr, rs, un.n,
+  if constexpr (kLstm) {
+    for (int gi = 0; gi < 4; ++gi)
+      stage_async<R>(q.g + gi * R * c.Stc, c.Stc, a.st.dg + n0 * St4 + gi * St + un.lo,
+                     (size_t)T * St4, un.n, c.nrows, false);
+  } else {
+    for (int gi = 0; gi < 2; ++gi)
+      stage_async<R>(q.g + gi * R * c.Stc, c.Stc, a.st.da_zr + n0 * St2 + gi * St + un.lo,
+                     (size_t)T * St2, un.n, c.nrows, false);
+    stage_async<R>(q.g + 2 * R * c.Stc, c.Stc, a.st.da_cand + n0 * St + un.lo, rs, un.n,
+                   c.nrows, false);
+  }
+  const float* prev = kLstm ? a.mem_seq : a.s_seq;
+  stage_async<R>(q.mp, c.Stc, t > 0 ? prev + (n0 - 1) * St + un.lo : nullptr, rs, un.n,
                  c.nrows, false);
   stage_async<R>(q.dsq, c.Stc, a.ds_seq ? a.ds_seq + n0 * St + un.lo : nullptr, rs, un.n,
                  c.nrows, false);
-  stage_async<R>(q.dmq, c.Stc, a.dmem_seq ? a.dmem_seq + n0 * St + un.lo : nullptr, rs, un.n,
-                 c.nrows, false);
+  if (kLstm)
+    stage_async<R>(q.dmq, c.Stc, a.dmem_seq ? a.dmem_seq + n0 * St + un.lo : nullptr, rs, un.n,
+                   c.nrows, false);
   stage_async<R>(q.ws, c.Sp, a.st.dws + n0 * S, (size_t)T * S, S, c.nrows, false);
   stage_async<R>(q.al, c.Pc, a.alpha_seq + n0 * L + pos.lo, (size_t)T * L, pos.n, c.nrows, false);
   stage_async<R>(q.dalq, c.Pc, a.dalpha_seq ? a.dalpha_seq + n0 * L + pos.lo : nullptr,
@@ -1048,36 +1108,48 @@ __device__ __forceinline__ void walk_dfeat(const BwdArgs& a, const WalkCtx& c,
   }
 }
 
-// The walk of K11 (kLoc) or K15 for the R batch rows of this block's
-// cluster (group blockIdx.x / C), after the pre-pass; the file's head
-// gives the step. Single buffers suffice for what the exchanges carry,
-// by causality: a peer pushes a step's E1 only after it has passed that
-// step's E5 wait before, which needs this block's E5 push, which this
-// block makes after reading everything E1-E4 brought; and a peer pushes
-// E5 only after its E4 wait, which needs this block's next E4 push, made
-// after this block has read what E5 brought. For the same reason thread
-// 0 arms an mbarrier's next phase as soon as it has seen one complete,
-// and a bulk copy's source is read before the block writes it again.
-// Rows past B have zero inputs, stay zero and write nothing.
-template <int R, bool kLoc>
-__device__ __forceinline__ void lstm_walk(float* sm, const BwdArgs& a) {
+// The walk of K11 (kLstm, kLoc), K15 (kLstm) or K5 (the GRU) for the R
+// batch rows of this block's cluster (group blockIdx.x / C), after the
+// pre-pass; the file's head gives the step. Single buffers suffice for
+// what the exchanges carry, by causality: a peer pushes a step's first
+// exchange only after it has passed that step's last (the dws partials)
+// wait before, which needs this block's last push, which this block makes
+// after reading everything the earlier exchanges brought; and a peer
+// pushes the last only after its wait for the one before (dc), which
+// needs this block's next push of dc, made after this block has read
+// what the last brought. For the same reason thread 0 arms an mbarrier's
+// next phase as soon as it has seen one complete, and a bulk copy's
+// source is read before the block writes it again. Rows past B have zero
+// inputs, stay zero and write nothing.
+template <int R, bool kLstm, bool kLoc>
+__device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {
+  static_assert(kLstm || !kLoc, "the location-aware GRU's backward is K13's scan_bwd");
+  // The exchanges after the cell's: dr, dcc, dc (with the softmax's
+  // shares), the dws partials (with the dfeat halo).
+  constexpr int eDr = kLstm ? 1 : 2, eDcc = eDr + 1, eDc = eDr + 2, eDws = eDr + 3;
+  static_assert(eDws + 1 == kBars<kLstm>, "an mbarrier an exchange");
+  constexpr int kG = kGates<kLstm>;
   cg::cluster_group cluster = cg::this_cluster();
   const Dims& d = a.d;
   const WalkCtx c(d, (int)cluster.num_blocks(), (int)cluster.block_rank(), R);
   const int C = c.C, k = c.k, b0 = c.b0, nrows = c.nrows, Stc = c.Stc, Ac = c.Ac, Pc = c.Pc;
   const int Sp = c.Sp, Pw = c.Pw, pad = c.pad;
   const Span &un = c.un, &ac = c.ac, &sp = c.sp, &pos = c.pos;
-  const int T = d.T, L = d.L, S = d.S, A = d.A, St = d.St, St4 = 4 * St, FM = d.FM, F = d.F;
+  const int T = d.T, L = d.L, S = d.S, A = d.A, St = d.St, St2 = 2 * St, St4 = 4 * St;
+  const int FM = d.FM, F = d.F, Stg = kG * St;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, n_conv = (F + 1) * FM;
   size_t floats;
-  const WalkShared sh = carve_walk<kLoc>(sm, d, C, R, &floats);
+  const WalkShared sh = carve_walk<kLstm, kLoc>(sm, d, C, R, &floats);
 
   for (int i = tid; i < S; i += kThreads) {
     sh.we[i] = a.w.w_e[i];
     sh.we_acc[i] = 0.f;
   }
   for (int i = tid; i < C * R * Sp; i += kThreads) sh.dwsp[i] = 0.f;
-  for (int i = tid; i < R * Stc; i += kThreads) sh.carry_s[i] = sh.carry_m[i] = 0.f;
+  for (int i = tid; i < R * Stc; i += kThreads) {
+    sh.carry_s[i] = 0.f;
+    if (kLstm) sh.carry_m[i] = 0.f;
+  }
   for (int i = tid; i < R * Pc; i += kThreads) sh.dalc[i] = 0.f;
   if (kLoc) {
     for (int i = tid; i < FM * S; i += kThreads) {
@@ -1093,20 +1165,31 @@ __device__ __forceinline__ void lstm_walk(float* sm, const BwdArgs& a) {
   // The bytes the peers push into this block a step, by exchange.
   int halo = 0;  // positions of other blocks whose dfeat this block reads
   if (kLoc && pos.n > 0) halo = min(pos.lo + pos.n - 1 + pad, L - 1) - max(c.hlo, 0) + 1 - pos.n;
-  const unsigned tx[kBars] = {
-      16u * R * (St - un.n), 4u * R * (St - un.n), 4u * R * (St - un.n),
-      4u * R * (A - ac.n) + 4u * R * (C - 1), 4u * R * Sp * (C - 1) + 4u * R * FM * halo};
+  unsigned tx[kBars<kLstm>];
+  if constexpr (kLstm) {
+    tx[0] = 16u * R * (St - un.n);  // dgates
+  } else {
+    tx[0] = 4u * R * (St - un.n);  // da_cand
+    tx[1] = 8u * R * (St - un.n);  // da_zr
+  }
+  tx[eDr] = 4u * R * (St - un.n);
+  tx[eDcc] = 4u * R * (St - un.n);
+  tx[eDc] = 4u * R * (A - ac.n) + 4u * R * (C - 1);
+  tx[eDws] = 4u * R * Sp * (C - 1) + 4u * R * FM * halo;
   if (tid == 0) {
-    for (int i = 0; i < kBars; ++i) mbar_init(&sh.bars[i]);
+    for (int i = 0; i < kBars<kLstm>; ++i) mbar_init(&sh.bars[i]);
     mbar_init_fence();
-    for (int i = 0; i < kBars; ++i) mbar_expect(&sh.bars[i], tx[i]);
+    for (int i = 0; i < kBars<kLstm>; ++i) mbar_expect(&sh.bars[i], tx[i]);
   }
   const bool vec_g = ((reinterpret_cast<size_t>(a.w.w_h) | reinterpret_cast<size_t>(a.w.w_x)) &
                       15) == 0;
+  // The GRU's products read rows of St (w_h) and 2 St (w_zr) floats.
+  const bool vec_h = St % 4 == 0 && (reinterpret_cast<size_t>(a.w.w_h) & 15) == 0;
+  const bool vec_zr = St % 4 == 0 && (reinterpret_cast<size_t>(a.w.w_zr) & 15) == 0;
   const bool vec_dec = St % 4 == 0 && (reinterpret_cast<size_t>(a.w.dec_w) & 15) == 0;
   const bool vec_c = St % 4 == 0 && (reinterpret_cast<size_t>(a.w.c_w) & 15) == 0;
   const bool vec_ws = S % 4 == 0 && (reinterpret_cast<size_t>(a.w.ws_w) & 15) == 0;
-  stage_step<R, kLoc>(a, c, staged(sh, 0), T - 1);
+  stage_step<R, kLstm, kLoc>(a, c, staged(sh, 0), T - 1);
   cluster.sync();  // every block's mbarriers are armed before any push into it
 
   for (int s = 0; s < T; ++s) {
@@ -1117,32 +1200,44 @@ __device__ __forceinline__ void lstm_walk(float* sm, const BwdArgs& a) {
     copy_async_wait();
     __syncthreads();
     // The other buffer, last read in step s - 1.
-    if (s + 1 < T) stage_step<R, kLoc>(a, c, staged(sh, (s + 1) & 1), t - 1);
+    if (s + 1 < T) stage_step<R, kLstm, kLoc>(a, c, staged(sh, (s + 1) & 1), t - 1);
     // [phase] staging wait
-    // The LSTM cell of the block's units: the gates' cotangents and the
-    // dmem chain.
-    for (int idx = tid; idx < R * un.n; idx += kThreads) {
-      const int r = idx / un.n, i = idx - r * un.n, o = r * Stc + i;
-      const float ig = sigmoid(q.g[o]), fg = sigmoid(q.g[R * Stc + o]);
-      const float gg = tanhf(q.g[2 * R * Stc + o]), og = sigmoid(q.g[3 * R * Stc + o]);
-      const float mprev = q.mp[o];
-      const float tm = tanhf(fg * mprev + ig * gg);
-      const float ds = q.dsq[o] + sh.carry_s[o];
-      const float dm = ds * og * (1.f - tm * tm) + q.dmq[o] + sh.carry_m[o];
-      const float dg[4] = {dm * gg * ig * (1.f - ig), dm * mprev * fg * (1.f - fg),
-                           dm * ig * (1.f - gg * gg), ds * tm * og * (1.f - og)};
-      sh.carry_m[o] = dm * fg;
-      float* gd = sh.gdg + r * St4 + un.lo + i;
-      float* stash = a.st.dg + (n0 + (size_t)r * T) * St4 + un.lo + i;
+    if constexpr (kLstm) {
+      // The LSTM cell of the block's units: the gates' cotangents and the
+      // dmem chain.
+      for (int idx = tid; idx < R * un.n; idx += kThreads) {
+        const int r = idx / un.n, i = idx - r * un.n, o = r * Stc + i;
+        const float ig = sigmoid(q.g[o]), fg = sigmoid(q.g[R * Stc + o]);
+        const float gg = tanhf(q.g[2 * R * Stc + o]), og = sigmoid(q.g[3 * R * Stc + o]);
+        const float mprev = q.mp[o];
+        const float tm = tanhf(fg * mprev + ig * gg);
+        const float ds = q.dsq[o] + sh.carry_s[o];
+        const float dm = ds * og * (1.f - tm * tm) + q.dmq[o] + sh.carry_m[o];
+        const float dg[4] = {dm * gg * ig * (1.f - ig), dm * mprev * fg * (1.f - fg),
+                             dm * ig * (1.f - gg * gg), ds * tm * og * (1.f - og)};
+        sh.carry_m[o] = dm * fg;
+        float* gd = sh.gdg + r * St4 + un.lo + i;
+        float* stash = a.st.dg + (n0 + (size_t)r * T) * St4 + un.lo + i;
 #pragma unroll
-      for (int gi = 0; gi < 4; ++gi) {
-        gd[gi * St] = dg[gi];
-        if (r < nrows) stash[gi * St] = dg[gi];
+        for (int gi = 0; gi < 4; ++gi) {
+          gd[gi * St] = dg[gi];
+          if (r < nrows) stash[gi * St] = dg[gi];
+        }
+      }
+    } else {
+      // The GRU's candidate of the block's units: da_cand = ds z (1 -
+      // cand^2), ds the step's cotangent of s plus the carry.
+      for (int idx = tid; idx < R * un.n; idx += kThreads) {
+        const int r = idx / un.n, i = idx - r * un.n, o = r * Stc + i;
+        const float zg = q.g[o], cv = q.g[2 * R * Stc + o];
+        const float dac = (q.dsq[o] + sh.carry_s[o]) * zg * (1.f - cv * cv);
+        sh.gdg[r * Stg + un.lo + i] = dac;
+        if (r < nrows) a.st.da_cand[(n0 + (size_t)r * T) * St + un.lo + i] = dac;
       }
     }
     async_fence();
     __syncthreads();
-    push<R>(sh.gdg, St4, un.lo, 4, St, un.n, &sh.bars[0], C, k, c.bulk);
+    push<R>(sh.gdg, Stg, un.lo, kLstm ? 4 : 1, St, un.n, &sh.bars[0], C, k, c.bulk);
     if (kLoc)  // the location features of the block's positions, off the chain
       for (int idx = tid; idx < nrows * pos.n * FM; idx += kThreads) {
         const int qq = idx % FM, rp = idx / FM, p = rp % pos.n, r = rp / pos.n;
@@ -1152,26 +1247,89 @@ __device__ __forceinline__ void lstm_walk(float* sm, const BwdArgs& a) {
       }
     walk_wait(&sh.bars[0], s & 1);
     if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[0], tx[0]);
-    // [phase] cell, dg exchange
-    // dr = dg w_x^T on the block's units, pushed; then, while it is on
-    // its way, dsp = dg w_h^T, which only the step's carry reads. Each
-    // product's emit takes its outputs' bases by value, formed before its
-    // loop (fewer values live through it than capturing the walk's state).
-    rows_dot<R, false, true>(a.w.w_x + (size_t)un.lo * St4, St4, un.n, sh.gdg, St4, St4,
-                             [y = sh.gdr + un.lo, z = a.st.dr + n0 * St + un.lo, St, rs,
-                              nrows](int i, int r, float v) {
-                               y[r * St + i] = v;
-                               if (r < nrows) z[r * rs + i] = v;
-                             }, vec_g);
-    async_fence();
-    __syncthreads();
-    push<R>(sh.gdr, St, un.lo, 1, 0, un.n, &sh.bars[1], C, k, c.bulk);
-    rows_dot<R, false, true>(a.w.w_h + (size_t)un.lo * St4, St4, un.n, sh.gdg, St4, St4,
-                             [y = sh.dsp, Stc](int i, int r, float v) { y[r * Stc + i] = v; },
-                             vec_g);
-    walk_wait(&sh.bars[1], s & 1);
-    if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[1], tx[1]);
-    // [phase] w_x^T w_h^T, dr exchange
+    // [phase] cell, E1 exchange
+    // Each product's emit takes its outputs' bases by value, formed before
+    // its loop (fewer values live through it than capturing the walk's
+    // state).
+    if constexpr (kLstm) {
+      // dr = dg w_x^T on the block's units, pushed; then, while it is on
+      // its way, dsp = dg w_h^T, which only the step's carry reads.
+      rows_dot<R, false, true>(a.w.w_x + (size_t)un.lo * St4, St4, un.n, sh.gdg, St4, St4,
+                               [y = sh.gdr + un.lo, z = a.st.dr + n0 * St + un.lo, St, rs,
+                                nrows](int i, int r, float v) {
+                                 y[r * St + i] = v;
+                                 if (r < nrows) z[r * rs + i] = v;
+                               }, vec_g);
+      async_fence();
+      __syncthreads();
+      push<R>(sh.gdr, St, un.lo, 1, 0, un.n, &sh.bars[eDr], C, k, c.bulk);
+      rows_dot<R, false, true>(a.w.w_h + (size_t)un.lo * St4, St4, un.n, sh.gdg, St4, St4,
+                               [y = sh.dsp, Stc](int i, int r, float v) { y[r * Stc + i] = v; },
+                               vec_g);
+    } else {
+      // dcin[:St] = da_cand w_h^T on the block's units' rows; then the
+      // gates' cotangents of its units, pushed: the update gate's from
+      // ds (cand - s_prev), the reset gate's from dcin[:St] s_prev (the
+      // gate acts before the candidate product).
+      rows_dot<R, false, true>(a.w.w_h + (size_t)un.lo * St, St, un.n, sh.gdg, Stg, St,
+                               [y = sh.dcs, Stc](int i, int r, float v) { y[r * Stc + i] = v; },
+                               vec_h);
+      __syncthreads();
+      for (int idx = tid; idx < R * un.n; idx += kThreads) {
+        const int r = idx / un.n, i = idx - r * un.n, o = r * Stc + i;
+        const float zg = q.g[o], rg = q.g[R * Stc + o], cv = q.g[2 * R * Stc + o];
+        const float sv = q.mp[o], ds = q.dsq[o] + sh.carry_s[o];
+        const float dz = ds * (cv - sv) * zg * (1.f - zg);
+        const float drg = sh.dcs[o] * sv * rg * (1.f - rg);
+        float* gd = sh.gdg + r * Stg + St + un.lo + i;
+        gd[0] = dz;
+        gd[St] = drg;
+        if (r < nrows) {
+          float* stash = a.st.da_zr + (n0 + (size_t)r * T) * St2 + un.lo + i;
+          stash[0] = dz;
+          stash[St] = drg;
+        }
+      }
+      async_fence();
+      __syncthreads();
+      push<R>(sh.gdg, Stg, St + un.lo, 2, St, un.n, &sh.bars[1], C, k, c.bulk);
+      // While da_zr is on its way: dcin[St:] on the block's units' rows,
+      // which only dr reads.
+      rows_dot<R, false, true>(a.w.w_h + (size_t)(St + un.lo) * St, St, un.n, sh.gdg, Stg, St,
+                               [y = sh.dcr, Stc](int i, int r, float v) { y[r * Stc + i] = v; },
+                               vec_h);
+      walk_wait(&sh.bars[1], s & 1);
+      if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[1], tx[1]);
+      __syncthreads();  // dcin[St:], formed by other warps
+      // [phase] w_h^T, da_zr exchange
+      // dr = dcin[St:] + dsr[St:] on the block's units, dsr = da_zr
+      // w_zr^T, pushed; then, while it is on its way, the cell's part of
+      // ds_prev, dsr[:St] + dcin[:St] rg + ds (1 - z), which only the
+      // step's carry reads.
+      rows_dot<R, false, true>(a.w.w_zr + (size_t)(St + un.lo) * St2, St2, un.n, sh.gdg + St, Stg,
+                               St2,
+                               [y = sh.gdr + un.lo, z = a.st.dr + n0 * St + un.lo, add = sh.dcr,
+                                St, Stc, rs, nrows](int i, int r, float v) {
+                                 const float dr = add[r * Stc + i] + v;
+                                 y[r * St + i] = dr;
+                                 if (r < nrows) z[r * rs + i] = dr;
+                               }, vec_zr);
+      async_fence();
+      __syncthreads();
+      push<R>(sh.gdr, St, un.lo, 1, 0, un.n, &sh.bars[eDr], C, k, c.bulk);
+      rows_dot<R, false, true>(a.w.w_zr + (size_t)un.lo * St2, St2, un.n, sh.gdg + St, Stg, St2,
+                               [y = sh.dsp, Stc](int i, int r, float v) { y[r * Stc + i] = v; },
+                               vec_zr);
+      __syncthreads();
+      for (int idx = tid; idx < R * un.n; idx += kThreads) {
+        const int r = idx / un.n, i = idx - r * un.n, o = r * Stc + i;
+        const float zg = q.g[o], rg = q.g[R * Stc + o], ds = q.dsq[o] + sh.carry_s[o];
+        sh.dsp[o] = sh.dsp[o] + sh.dcs[o] * rg + ds * (1.f - zg);
+      }
+    }
+    walk_wait(&sh.bars[eDr], s & 1);
+    if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[eDr], tx[eDr]);
+    // [phase] cell products, dr exchange
     // drr = dr dec_w^T on the block's units: dcc, pushed; then dyin.
     rows_dot<R, false, true>(a.w.dec_w + (size_t)un.lo * St, St, un.n, sh.gdr, St, St,
                              [y = sh.gdcc + un.lo, z = a.st.dcc + n0 * St + un.lo, St, rs,
@@ -1181,13 +1339,13 @@ __device__ __forceinline__ void lstm_walk(float* sm, const BwdArgs& a) {
                              }, vec_dec);
     async_fence();
     __syncthreads();
-    push<R>(sh.gdcc, St, un.lo, 1, 0, un.n, &sh.bars[2], C, k, c.bulk);
+    push<R>(sh.gdcc, St, un.lo, 1, 0, un.n, &sh.bars[eDcc], C, k, c.bulk);
     rows_dot<R, false, true>(a.w.dec_w + (size_t)(St + un.lo) * St, St, un.n, sh.gdr, St, St,
                              [z = a.dyin + n0 * St + un.lo, rs, nrows](int i, int r, float v) {
                                if (r < nrows) z[r * rs + i] = v;
                              }, vec_dec);
-    walk_wait(&sh.bars[2], s & 1);
-    if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[2], tx[2]);
+    walk_wait(&sh.bars[eDcc], s & 1);
+    if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[eDcc], tx[eDcc]);
     // [phase] dec_w^T, dcc exchange
     // dc = dcc c_w^T + dc_seq on the block's columns, pushed with the
     // block's share of sum_l alpha dalpha, a warp a row.
@@ -1197,7 +1355,7 @@ __device__ __forceinline__ void lstm_walk(float* sm, const BwdArgs& a) {
                              }, vec_c);
     async_fence();
     __syncthreads();
-    push<R>(sh.gdc, A, ac.lo, 1, 0, ac.n, &sh.bars[3], C, k, c.bulk);
+    push<R>(sh.gdc, A, ac.lo, 1, 0, ac.n, &sh.bars[eDc], C, k, c.bulk);
     if (warp < R) {
       const int r = warp;
       float part = 0.f;
@@ -1209,47 +1367,50 @@ __device__ __forceinline__ void lstm_walk(float* sm, const BwdArgs& a) {
       part = warp_sum(part);
       if (lane == 0) sh.dotp[k * R + r] = part;
       if (lane < C && lane != k)
-        st_async(cluster_map(sh.dotp + k * R + r, lane), part, cluster_map(&sh.bars[3], lane));
+        st_async(cluster_map(sh.dotp + k * R + r, lane), part, cluster_map(&sh.bars[eDc], lane));
     }
-    walk_wait(&sh.bars[3], s & 1);
-    if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[3], tx[3]);
+    walk_wait(&sh.bars[eDc], s & 1);
+    if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[eDc], tx[eDc]);
     __syncthreads();  // this block's own share of the sum
     // [phase] c_w^T, dc exchange
-    // The context on the block's positions: dalpha = h dc + dalpha_seq +
-    // the carry from step t+1 and de = alpha (dalpha - sum_l alpha
-    // dalpha), a warp per (row, position); dh += alpha dc^T.
+    // The context on the block's positions, a warp per (row, position):
+    // dalpha = h dc + dalpha_seq + the carry from step t+1, de = alpha
+    // (dalpha - sum_l alpha dalpha), and dh += alpha dc^T in the same
+    // pass over the row of h and dh, kWalkCols of each a lane in flight.
     for (int pr = warp; pr < nrows * pos.n; pr += kWarps) {
       const int r = pr / pos.n, p = pr - r * pos.n;
-      const float* hr = a.h + ((size_t)(b0 + r) * L + pos.lo + p) * A;
+      const size_t row = ((size_t)(b0 + r) * L + pos.lo + p) * A;
+      const float* hr = a.h + row;
+      float* dhr = a.dh + row;
       const float* dc = sh.gdc + r * A;
+      const float al = q.al[r * Pc + p];
       float acc = 0.f;
-      for (int j = lane; j < A; j += 32) acc = fmaf(dc[j], hr[j], acc);
+      for (int j0 = lane; j0 < A; j0 += 32 * kWalkCols) {
+        float hv[kWalkCols], o[kWalkCols];
+#pragma unroll
+        for (int x = 0; x < kWalkCols; ++x) {
+          const int j = j0 + 32 * x;
+          hv[x] = j < A ? hr[j] : 0.f;
+          o[x] = j < A && !last ? dhr[j] : 0.f;
+        }
+#pragma unroll
+        for (int x = 0; x < kWalkCols; ++x) {
+          const int j = j0 + 32 * x;
+          if (j >= A) break;
+          const float dcj = dc[j];
+          acc = fmaf(dcj, hv[x], acc);
+          const float v = al * dcj;
+          dhr[j] = last ? v : o[x] + v;
+        }
+      }
       acc = warp_sum(acc);
       if (lane == 0) {
         float dot = 0.f;
         for (int j = 0; j < C; ++j) dot += sh.dotp[j * R + r];
         const float dal = acc + q.dalq[r * Pc + p] + (kLoc ? sh.dalc[r * Pc + p] : 0.f);
-        sh.de[r * Pc + p] = q.al[r * Pc + p] * (dal - dot);
+        sh.de[r * Pc + p] = al * (dal - dot);
       }
     }
-    for (int j = tid; j < A; j += kThreads)
-      for (int r = 0; r < nrows; ++r) {
-        const float dcj = sh.gdc[r * A + j];
-        float* dhr = a.dh + ((size_t)(b0 + r) * L + pos.lo) * A + j;
-        for (int p0 = 0; p0 < pos.n; p0 += kLocRows) {
-          float o[kLocRows];
-          #pragma unroll
-          for (int x = 0; x < kLocRows; ++x)
-            o[x] = p0 + x < pos.n && !last ? dhr[(size_t)(p0 + x) * A] : 0.f;
-          #pragma unroll
-          for (int x = 0; x < kLocRows; ++x) {
-            const int p = p0 + x;
-            if (p >= pos.n) break;
-            const float v = q.al[r * Pc + p] * dcj;
-            dhr[(size_t)p * A] = last ? v : o[x] + v;
-          }
-        }
-      }
     __syncthreads();
     // [phase] context
     walk_energies<R, kLoc>(a, c, sh, q, last);
@@ -1262,13 +1423,14 @@ __device__ __forceinline__ void lstm_walk(float* sm, const BwdArgs& a) {
       __syncthreads();
     }
     // [phase] dfeat
-    // E5: the block's dws partial into every peer, a bulk copy each; with
+    // The last exchange: the block's dws partial into every peer, a bulk
+    // copy each; with
     // the location term, its dfeat rows into each peer whose alpha_prev
     // cotangent reads them: a row's positions x0..x0+nx are nx FM
     // consecutive floats in both blocks' halo buffers, one bulk copy a
     // row and peer where FM is a multiple of 4, else a store a value.
     for (int e = tid; e < C - 1; e += kThreads)
-      bulk_copy(sh.dwsp + k * R * Sp, 4u * R * Sp, e < k ? e : e + 1, &sh.bars[4]);
+      bulk_copy(sh.dwsp + k * R * Sp, 4u * R * Sp, e < k ? e : e + 1, &sh.bars[eDws]);
     if (kLoc)
       for (int j = 0; j < C; ++j) {
         const Span pj(L, C, j);
@@ -1279,10 +1441,10 @@ __device__ __forceinline__ void lstm_walk(float* sm, const BwdArgs& a) {
         if (FM % 4 == 0) {
           for (int r = tid; r < R; r += kThreads)
             bulk_copy_to(sh.dfh + (r * Pw + x0 - c.hlo) * FM, sh.dfh + (r * Pw + x0 - hj) * FM,
-                         4u * nx * FM, j, &sh.bars[4]);
+                         4u * nx * FM, j, &sh.bars[eDws]);
           continue;
         }
-        const unsigned bar = cluster_map(&sh.bars[4], j);
+        const unsigned bar = cluster_map(&sh.bars[eDws], j);
         for (int idx = tid; idx < R * nx * FM; idx += kThreads) {
           const int qq = idx % FM, rx = idx / FM, x = x0 + rx % nx, r = rx / nx;
           st_async(cluster_map(sh.dfh + (r * Pw + x - hj) * FM + qq, j),
@@ -1307,8 +1469,8 @@ __device__ __forceinline__ void lstm_walk(float* sm, const BwdArgs& a) {
         sh.pconv[idx] += v;
       }
     }
-    walk_wait(&sh.bars[4], s & 1);
-    if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[4], tx[4]);
+    walk_wait(&sh.bars[eDws], s & 1);
+    if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[eDws], tx[eDws]);
     // [phase] dws exchange
     // dws, the blocks' partials in rank order (the same sums in every
     // block; the owner of a score unit stashes it). With the location
@@ -1357,25 +1519,36 @@ __device__ __forceinline__ void lstm_walk(float* sm, const BwdArgs& a) {
 template <int R>
 __global__ void __launch_bounds__(kThreads, 1) loc_lstm_bwd_kernel(const BwdArgs a) {
   extern __shared__ __align__(16) float sm[];
-  lstm_walk<R, true>(sm, a);
+  decoder_walk<R, true, true>(sm, a);
 }
 
 template <int R>
 __global__ void __launch_bounds__(kThreads, 1) scan_lstm_bwd_kernel(const BwdArgs a) {
   extern __shared__ __align__(16) float sm[];
-  lstm_walk<R, false>(sm, a);
+  decoder_walk<R, true, false>(sm, a);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1) content_gru_walk_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  decoder_walk<R, false, false>(sm, a);
 }
 
 // The recompute pre-pass over every (row, step) n, one 64 x 64 output
 // tile a block. Stage 0: cc = c @ c_w + c_b into rr[:, :St], yin into
 // rr[:, St:] (blockIdx.y below ceil(St / 64)), and ws = s_prev @ ws_w +
 // ws_b into the stash's dws rows (the rest); stage 1: r = rr @ dec_w +
-// dec_b; stage 2: the gates' pre-activations s_prev @ w_h + r @ w_x + b
-// into the stash's dgates rows. Each stage is a launch of its own, after
-// the one it reads, and an instance of its own (tile_product's static
-// shared memory, 17 KB a call site, stays under 48 KB).
-template <int kStage>
-__global__ void __launch_bounds__(kTileThreads) lstm_decoder_prepass_kernel(const BwdArgs a) {
+// dec_b, for the LSTM into r, for the GRU into sr[:, St:] and
+// cand_in[:, St:], with s_prev into sr[:, :St]. Then the LSTM's stage 2:
+// the gates' pre-activations s_prev @ w_h + r @ w_x + b into the stash's
+// dgates rows; or the GRU's stage 2: its gates sigmoid(sr @ w_zr) into
+// the da_zr rows, and stage 3: rg s_prev into cand_in[:, :St] and the
+// candidate tanh(cand_in @ w_h) into the da_cand rows. Each stage is a
+// launch of its own, after the one it reads, and an instance of its own
+// (tile_product's static shared memory, 17 KB a call site, stays under
+// 48 KB).
+template <bool kLstm, int kStage>
+__device__ __forceinline__ void decoder_prepass(const BwdArgs& a) {
   const Dims& d = a.d;
   const Weights& w = a.w;
   const Stash& st = a.st;
@@ -1416,8 +1589,17 @@ __global__ void __launch_bounds__(kTileThreads) lstm_decoder_prepass_kernel(cons
     tile_product(
         acc, [&](int n, int kk) { return n < rows ? st.rr[(size_t)n * St2 + kk] : 0.f; },
         [&](int kk, int j) { return j < St ? w.dec_w[(size_t)kk * St + j] : 0.f; }, i0, j0, St2);
-    store(acc, j0, St, [&](int n, int j, float v) { st.r[(size_t)n * St + j] = v + w.dec_b[j]; });
-  } else {
+    if constexpr (kLstm) {
+      store(acc, j0, St,
+            [&](int n, int j, float v) { st.r[(size_t)n * St + j] = v + w.dec_b[j]; });
+    } else {
+      store(acc, j0, St, [&](int n, int j, float v) {
+        const size_t o = (size_t)n * St2 + j;
+        st.sr[o] = sprev(n, j);
+        st.sr[o + St] = st.cand_in[o + St] = v + w.dec_b[j];
+      });
+    }
+  } else if constexpr (kLstm) {
     tile_product(
         acc,
         [&](int n, int kk) {
@@ -1429,7 +1611,38 @@ __global__ void __launch_bounds__(kTileThreads) lstm_decoder_prepass_kernel(cons
         },
         i0, j0, St2);
     store(acc, j0, St4, [&](int n, int j, float v) { st.dg[(size_t)n * St4 + j] = v + w.b[j]; });
+  } else if constexpr (kStage == 2) {
+    tile_product(
+        acc, [&](int n, int kk) { return n < rows ? st.sr[(size_t)n * St2 + kk] : 0.f; },
+        [&](int kk, int j) { return j < St2 ? w.w_zr[(size_t)kk * St2 + j] : 0.f; }, i0, j0,
+        St2);
+    store(acc, j0, St2,
+          [&](int n, int j, float v) { st.da_zr[(size_t)n * St2 + j] = activate<kSigmoid>(v); });
+  } else {
+    // The candidate's input: the reset gate times s_prev, then r.
+    auto cand_in = [&](int n, int kk) -> float {
+      if (n >= rows) return 0.f;
+      const size_t o = (size_t)n * St2;
+      return kk < St ? st.da_zr[o + St + kk] * sprev(n, kk) : st.sr[o + kk];
+    };
+    tile_product(acc, cand_in,
+                 [&](int kk, int j) { return j < St ? w.w_h[(size_t)kk * St + j] : 0.f; }, i0,
+                 j0, St2);
+    store(acc, j0, St, [&](int n, int j, float v) {
+      st.cand_in[(size_t)n * St2 + j] = cand_in(n, j);
+      st.da_cand[(size_t)n * St + j] = activate<kTanh>(v);
+    });
   }
+}
+
+template <int kStage>
+__global__ void __launch_bounds__(kTileThreads) lstm_decoder_prepass_kernel(const BwdArgs a) {
+  decoder_prepass<true, kStage>(a);
+}
+
+template <int kStage>
+__global__ void __launch_bounds__(kTileThreads) gru_decoder_prepass_kernel(const BwdArgs a) {
+  decoder_prepass<false, kStage>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -1493,6 +1706,7 @@ cudaError_t reduce_partials(const Stash& st, const Grads& g, const Dims& d, int 
   return launch_atb(batch, stream);
 }
 
+#ifndef CONTENT_GRU_BWD_ONLY
 // K13: the backward kernel, then the weight gradients over the B*T steps
 // (s_prev = s_seq shifted by one) and dU, dwconv and dbconv as the sums
 // of the B rows' partials.
@@ -1525,55 +1739,77 @@ int launch_gru_bwd(BwdArgs a, const Grads& g, float* scratch, cudaStream_t strea
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_partials(st, g, d, d.B, true, stream);
 }
+#endif
 
-using LstmWalk = void (*)(const BwdArgs);
+using BwdKernel = void (*)(const BwdArgs);
 
-// The walk instance for R batch rows a cluster, of K11 (kLoc) or K15.
-template <bool kLoc>
-LstmWalk lstm_walk_kernel(int R) {
-  if (kLoc)
+// The walk instance for R batch rows a cluster: K11's (kLstm, kLoc),
+// K15's (kLstm) or K5's.
+template <bool kLstm, bool kLoc>
+BwdKernel walk_kernel(int R) {
+  if constexpr (kLstm && kLoc)
     return R == 1 ? loc_lstm_bwd_kernel<1> : R == 2 ? loc_lstm_bwd_kernel<2>
          : R == 4 ? loc_lstm_bwd_kernel<4> : R == 8 ? loc_lstm_bwd_kernel<8> : nullptr;
-  return R == 1 ? scan_lstm_bwd_kernel<1> : R == 2 ? scan_lstm_bwd_kernel<2>
-       : R == 4 ? scan_lstm_bwd_kernel<4> : R == 8 ? scan_lstm_bwd_kernel<8> : nullptr;
+  else if constexpr (kLstm)
+    return R == 1 ? scan_lstm_bwd_kernel<1> : R == 2 ? scan_lstm_bwd_kernel<2>
+         : R == 4 ? scan_lstm_bwd_kernel<4> : R == 8 ? scan_lstm_bwd_kernel<8> : nullptr;
+  else
+    return R == 1 ? content_gru_walk_kernel<1> : R == 2 ? content_gru_walk_kernel<2>
+         : R == 4 ? content_gru_walk_kernel<4> : R == 8 ? content_gru_walk_kernel<8> : nullptr;
 }
 
-// K11 and K15: the pre-pass, the walk on clusters of `cluster` blocks,
-// `rows` batch rows a cluster, then the weight gradients over the B*T
-// steps and over the blocks' partials.
-template <bool kLoc>
-int launch_lstm_bwd(BwdArgs a, const Grads& g, float* scratch, int cluster, int rows,
+// The pre-pass: 64-row tiles of the B*T rows by 64-column tiles of
+// [cc | ws], of r, then of the LSTM's gates, or of the GRU's gates and
+// of its candidate.
+template <bool kLstm>
+cudaError_t launch_prepass(const BwdArgs& a, cudaStream_t stream) {
+  const Dims& d = a.d;
+  const int tiles = (d.B * d.T + kTile - 1) / kTile, cc_tiles = (d.St + kTile - 1) / kTile;
+  const dim3 cc_ws(tiles, cc_tiles + (d.S + kTile - 1) / kTile), r(tiles, cc_tiles);
+  const dim3 gates(tiles, ((kLstm ? 4 : 2) * d.St + kTile - 1) / kTile);
+  BwdKernel stages[4];
+  if constexpr (kLstm) {
+    stages[0] = lstm_decoder_prepass_kernel<0>, stages[1] = lstm_decoder_prepass_kernel<1>;
+    stages[2] = lstm_decoder_prepass_kernel<2>;
+  } else {
+    stages[0] = gru_decoder_prepass_kernel<0>, stages[1] = gru_decoder_prepass_kernel<1>;
+    stages[2] = gru_decoder_prepass_kernel<2>, stages[3] = gru_decoder_prepass_kernel<3>;
+  }
+  const dim3 grid[] = {cc_ws, r, gates, r};
+  for (int i = 0; i < (kLstm ? 3 : 4); ++i) {
+    stages[i]<<<grid[i], kTileThreads, 0, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// K11, K15 and K5: the pre-pass, the walk on clusters of `cluster`
+// blocks, `rows` batch rows a cluster, then the weight gradients over the
+// B*T steps and over the blocks' partials.
+template <bool kLstm, bool kLoc>
+int launch_walk_bwd(BwdArgs a, const Grads& g, float* scratch, int cluster, int rows,
                     cudaStream_t stream) {
   const Dims& d = a.d;
-  const auto walk = lstm_walk_kernel<kLoc>(rows);
+  const auto walk = walk_kernel<kLstm, kLoc>(rows);
   if (!valid<kLoc>(d) || walk == nullptr || cluster < 1 || cluster > kMaxWalkCluster)
     return (int)cudaErrorInvalidValue;
   size_t floats;
-  carve_walk<kLoc>(nullptr, d, cluster, rows, &floats);
-  const long long counted = lstm_walk_smem_floats(rows, cluster, d.L, d.S, d.A, d.St, d.FM, d.F,
-                                                  kLoc);
+  carve_walk<kLstm, kLoc>(nullptr, d, cluster, rows, &floats);
+  const long long counted = walk_smem_floats(rows, cluster, d.L, d.S, d.A, d.St, d.FM, d.F, kLoc,
+                                             kLstm);
   if ((long long)floats != counted) return (int)cudaErrorInvalidValue;  // layout and count disagree
   const int groups = (d.B + rows - 1) / rows;
-  a.st = carve_stash<true, kLoc>(scratch, d, groups * cluster);
-  const int St = d.St, St2 = 2 * St, St4 = 4 * St, S = d.S, A = d.A;
-  // The pre-pass: 64-row tiles of the B*T rows by 64-column tiles of
-  // [cc | ws], of r, of the gates.
-  const int tiles = (d.B * d.T + kTile - 1) / kTile, cc_tiles = (St + kTile - 1) / kTile;
-  const dim3 cc_ws(tiles, cc_tiles + (S + kTile - 1) / kTile), r(tiles, cc_tiles);
-  const dim3 gates(tiles, (St4 + kTile - 1) / kTile);
-  lstm_decoder_prepass_kernel<0><<<cc_ws, kTileThreads, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+  a.st = carve_stash<kLstm, kLoc>(scratch, d, groups * cluster);
+  cudaError_t err = launch_prepass<kLstm>(a, stream);
   if (err != cudaSuccess) return (int)err;
-  lstm_decoder_prepass_kernel<1><<<r, kTileThreads, 0, stream>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  lstm_decoder_prepass_kernel<2><<<gates, kTileThreads, 0, stream>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(walk, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
   err = launch_cluster(walk, dim3(cluster * groups), cluster, floats * sizeof(float), stream, a);
   if (err != cudaSuccess) return (int)err;
 
   const Stash& st = a.st;
+  const int St = d.St, St2 = 2 * St, St4 = 4 * St, S = d.S, A = d.A;
   AtbBatch steps{};
   steps.count = 5;
   steps.rows = d.B * d.T;
@@ -1581,8 +1817,13 @@ int launch_lstm_bwd(BwdArgs a, const Grads& g, float* scratch, int cluster, int 
   steps.p[0] = AtbProblem{a.s_seq, St, -1, st.dws, S, g.dws_w, g.dws_b, St, S};
   steps.p[1] = AtbProblem{a.c_seq, A, 0, st.dcc, St, g.dc_w, g.dc_b, A, St};
   steps.p[2] = AtbProblem{st.rr, St2, 0, st.dr, St, g.ddec_w, g.ddec_b, St2, St};
-  steps.p[3] = AtbProblem{a.s_seq, St, -1, st.dg, St4, g.dw_h, g.db, St, St4};
-  steps.p[4] = AtbProblem{st.r, St, 0, st.dg, St4, g.dw_x, nullptr, St, St4};
+  if (kLstm) {
+    steps.p[3] = AtbProblem{a.s_seq, St, -1, st.dg, St4, g.dw_h, g.db, St, St4};
+    steps.p[4] = AtbProblem{st.r, St, 0, st.dg, St4, g.dw_x, nullptr, St, St4};
+  } else {
+    steps.p[3] = AtbProblem{st.sr, St2, 0, st.da_zr, St2, g.dw_zr, nullptr, St2, St2};
+    steps.p[4] = AtbProblem{st.cand_in, St2, 0, st.da_cand, St, g.dw_h, nullptr, St2, St};
+  }
   err = launch_atb(steps, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_partials(st, g, d, groups * cluster, kLoc, stream);
@@ -1591,10 +1832,10 @@ int launch_lstm_bwd(BwdArgs a, const Grads& g, float* scratch, int cluster, int 
 // The opt-in shared memory of a block of the walk and the clusters of
 // `cluster` blocks (8, or 16: a non-portable size) of it that can be
 // resident at once when each block takes that much.
-template <bool kLoc>
-int lstm_walk_limits(int cluster, int* smem_limit, int* clusters) {
+template <bool kLstm, bool kLoc>
+int walk_limits(int cluster, int* smem_limit, int* clusters) {
   if (cluster < 1 || cluster > kMaxWalkCluster) return (int)cudaErrorInvalidValue;
-  const auto walk = lstm_walk_kernel<kLoc>(8);
+  const auto walk = walk_kernel<kLstm, kLoc>(8);
   cudaError_t err = cudaFuncSetAttribute(walk, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
   return (int)cluster_limits(walk, cluster, smem_limit, clusters);
@@ -1604,10 +1845,11 @@ int lstm_walk_limits(int cluster, int* smem_limit, int* clusters) {
 
 // ---------------------------------------------------------------------------
 // Entry points. The backward ones take ds_seq, dc_seq, dalpha_seq (and
-// dmem_seq) as NULL where there is no cotangent; those of K11 and K15
+// dmem_seq) as NULL where there is no cotangent; those of K11, K15 and K5
 // take the walk's plan, `cluster` blocks a cluster and `rows` batch rows
 // a cluster (1, 2, 4 or 8), from ops/cuda/attention_scan.py scan_plan.
 
+#ifndef CONTENT_GRU_BWD_ONLY
 extern "C" int attention_decode_scan_loc_lstm_fwd(
     const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
     const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
@@ -1624,7 +1866,7 @@ extern "C" int attention_decode_scan_loc_lstm_fwd(
 
 extern "C" int attention_decode_scan_loc_lstm_bwd_limits(int cluster, int* smem_limit,
                                                          int* clusters) {
-  return lstm_walk_limits<true>(cluster, smem_limit, clusters);
+  return walk_limits<true, true>(cluster, smem_limit, clusters);
 }
 
 extern "C" int attention_decode_scan_loc_lstm_bwd(
@@ -1645,7 +1887,7 @@ extern "C" int attention_decode_scan_loc_lstm_bwd(
                   dvh, dh, dyin, Stash{}, Dims{B, T, L, S, A, St, FM, F}};
   const Grads g{dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, nullptr, dw_h, dw_x, db,
                 dwconv, dbconv, du};
-  return launch_lstm_bwd<true>(a, g, scratch, cluster, rows, stream);
+  return launch_walk_bwd<true, true>(a, g, scratch, cluster, rows, stream);
 }
 
 extern "C" int attention_decode_scan_loc_fwd(
@@ -1695,7 +1937,7 @@ extern "C" int attention_decode_scan_lstm_fwd(
 }
 
 extern "C" int attention_decode_scan_lstm_bwd_limits(int cluster, int* smem_limit, int* clusters) {
-  return lstm_walk_limits<false>(cluster, smem_limit, clusters);
+  return walk_limits<true, false>(cluster, smem_limit, clusters);
 }
 
 extern "C" int attention_decode_scan_lstm_bwd(
@@ -1714,5 +1956,30 @@ extern "C" int attention_decode_scan_lstm_bwd(
                   dvh, dh, dyin, Stash{}, Dims{B, T, L, S, A, St, 0, 0}};
   const Grads g{dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, nullptr, dw_h, dw_x, db,
                 nullptr, nullptr, nullptr};
-  return launch_lstm_bwd<false>(a, g, scratch, cluster, rows, stream);
+  return launch_walk_bwd<true, false>(a, g, scratch, cluster, rows, stream);
 }
+
+#else
+extern "C" int attention_decode_scan_bwd_limits(int cluster, int* smem_limit, int* clusters) {
+  return walk_limits<false, false>(cluster, smem_limit, clusters);
+}
+
+extern "C" int attention_decode_scan_bwd(
+    const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
+    const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
+    const float* dec_b, const float* w_zr, const float* w_h, const float* s_seq,
+    const float* c_seq, const float* alpha_seq, const float* ds_seq, const float* dc_seq,
+    const float* dalpha_seq, float* dvh, float* dh, float* dyin, float* dws_w, float* dws_b,
+    float* dw_e, float* dc_w, float* dc_b, float* ddec_w, float* ddec_b, float* dw_zr,
+    float* dw_h, float* scratch, int B, int T, int L, int S, int A, int St, int cluster, int rows,
+    cudaStream_t stream) {
+  const BwdArgs a{vh, h, mask, yin,
+                  Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_zr, w_h, nullptr, nullptr,
+                          nullptr, nullptr, nullptr},
+                  s_seq, c_seq, alpha_seq, nullptr, ds_seq, dc_seq, dalpha_seq, nullptr,
+                  dvh, dh, dyin, Stash{}, Dims{B, T, L, S, A, St, 0, 0}};
+  const Grads g{dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dw_zr, dw_h, nullptr, nullptr,
+                nullptr, nullptr, nullptr};
+  return launch_walk_bwd<false, false>(a, g, scratch, cluster, rows, stream);
+}
+#endif

@@ -10,10 +10,14 @@ Replaces the Pallas kernel ``attention_decode_scan`` for the content-only
 GRU decoder (seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:1156):
 its forward (pallas_call :355 in ``_run_fwd`` :290, body ``_fwd_kernel``
 :165 with ``_step_core`` :91) and its backward (pallas_call :851 in
-``_run_bwd`` :800, body ``_bwd_kernel`` :376 / ``_bwd_core`` :419). Both
-kernels are in ``csrc/attention_scan.cu``. ``attention_decode_scan_plain``
-and ``attention_decode_scan_bwd_plain`` below are the same functions in
-plain PyTorch; the latter follows ``_run_bwd_xla`` (:1047) step by step.
+``_run_bwd`` :800, body ``_bwd_kernel`` :376 / ``_bwd_core`` :419). The
+forward is ``csrc/attention_scan.cu``; the backward is the <GRU, content>
+instance of the decoder backwards' pre-pass, cluster walk and reduction
+in ``csrc/attention_scan_loc_lstm.cu``, on ``scan_plan_on``'s plan as
+K11's and K15's. ``attention_decode_scan_plain`` and
+``attention_decode_scan_bwd_plain`` below are the same functions in
+plain PyTorch; the latter follows ``_run_bwd_xla`` (:1047) step by step,
+except that it takes each step's alpha from the saved alpha sequence.
 
 One step, from the zero state s_0 = 0:
 
@@ -41,9 +45,11 @@ KERNEL_FWD = build.Kernel(
     "attention_decode_scan_fwd", "attention_scan.cu", "attention_decode_scan_fwd",
     [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
+# K5 is built from the decoder scans' source alone, beside K10-K15.
 KERNEL_BWD = build.Kernel(
-    "attention_decode_scan_bwd", "attention_scan.cu", "attention_decode_scan_bwd",
-    [ctypes.c_void_p] * 31 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "attention_decode_scan_bwd", "attention_scan_loc_lstm.cu", "attention_decode_scan_bwd",
+    [ctypes.c_void_p] * 32 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    defines=("CONTENT_GRU_BWD_ONLY",),
 )
 WEIGHTS = ("ws_w", "ws_b", "w_e", "c_w", "c_b", "dec_w", "dec_b", "gru_wzr", "gru_wh")
 
@@ -77,12 +83,15 @@ def attention_decode_scan_plain(vh, h, enc_mask, yin, *weights):
 
 
 def attention_decode_scan_bwd_plain(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b, dec_w,
-                                    dec_b, gru_wzr, gru_wh, s_seq, c_seq, ds_seq, dc_seq,
-                                    dalpha_seq):
+                                    dec_b, gru_wzr, gru_wh, s_seq, c_seq, alpha_seq, ds_seq,
+                                    dc_seq, dalpha_seq):
     """Plain PyTorch twin of K5, step for step ``_run_bwd_xla``: a
     reverse-time loop that recomputes each step from the saved s (shifted
-    by one, zero at step 0) and c sequences. Returns (dvh, dh, dyin,
-    dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dgru_wzr, dgru_wh)."""
+    by one, zero at step 0) and c sequences, and takes the step's alpha
+    from the saved alpha sequence (``_run_bwd_xla`` recomputes it through
+    the softmax, which gives the forward's alpha too). Returns (dvh, dh,
+    dyin, dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dgru_wzr,
+    dgru_wh)."""
     b, t_len, st = yin.shape
     ds_carry = yin.new_zeros((b, st))
     dvh, dh = torch.zeros_like(vh), torch.zeros_like(h)
@@ -93,7 +102,7 @@ def attention_decode_scan_bwd_plain(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, 
         c_saved = c_seq[:, t]
         ws = s_prev @ ws_w + ws_b
         a = torch.tanh(vh + ws[:, None, :])
-        alpha = masked_softmax(a @ w_e, enc_mask)
+        alpha = alpha_seq[:, t]
         cc = c_saved @ c_w + c_b
         rr = torch.cat([cc, yin[:, t]], dim=-1)
         r = rr @ dec_w + dec_b
@@ -176,48 +185,34 @@ def attention_decode_scan(vh, h, enc_mask, yin, *weights):
 
 
 def attention_decode_scan_bwd(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b,
-                              gru_wzr, gru_wh, s_seq, c_seq, ds_seq, dc_seq, dalpha_seq):
+                              gru_wzr, gru_wh, s_seq, c_seq, alpha_seq, ds_seq, dc_seq,
+                              dalpha_seq):
     """Cotangents of attention_decode_scan's differentiable inputs given
-    its inputs, the saved s_seq and c_seq, and the cotangents of (s_seq,
-    c_seq, alpha_seq): (dvh, dh, dyin, dws_w, dws_b, dw_e, dc_w, dc_b,
-    ddec_w, ddec_b, dgru_wzr, dgru_wh).
+    its inputs, the saved (s_seq, c_seq, alpha_seq) and their cotangents:
+    (dvh, dh, dyin, dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b,
+    dgru_wzr, dgru_wh).
 
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain version; CUDA tensors the kernel (K5), on
+    scan_plan_on's plan; it raises RuntimeError where no cluster fits the
+    device."""
     weights = (ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, gru_wzr, gru_wh)
-    saved = (s_seq, c_seq, ds_seq, dc_seq, dalpha_seq)
+    saved = (s_seq, c_seq, alpha_seq, ds_seq, dc_seq, dalpha_seq)
     if build.on_cpu(vh, h, enc_mask, yin, *weights, *saved):
         return attention_decode_scan_bwd_plain(vh, h, enc_mask, yin, *weights, *saved)
-    _check_inputs(vh, h, enc_mask, yin, weights)
-    b, t_len, l, s_dim, a_dim, st = _dims(vh, h, yin)
-    dev = vh.device
-    for name, t, shape in zip(("s_seq", "c_seq", "ds_seq", "dc_seq", "dalpha_seq"), saved,
-                              [(b, t_len, st), (b, t_len, a_dim), (b, t_len, st),
-                               (b, t_len, a_dim), (b, t_len, l)]):
-        build.check(name, t, shape, dev)
-    f32 = dict(device=dev, dtype=torch.float32)
-    grads = [torch.empty_like(vh), torch.empty_like(h), torch.empty_like(yin)]
-    grads += [torch.empty(w.shape, **f32) for w in weights]
-    if b * t_len == 0:
-        return tuple(g.zero_() for g in grads)
-    # K5's stash is the GRU's of stash_floats, without the location term.
-    scratch = torch.empty(stash_floats(False, b, t_len, l, s_dim, st), **f32)
-    KERNEL_BWD.launch(
-        *[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *saved, *grads, scratch)],
-        b, t_len, l, s_dim, a_dim, st, build.stream_of(vh),
-    )
-    return tuple(grads)
+    return _scan_bwd(KERNEL_BWD, False, len(weights), vh, h, enc_mask, yin, (*weights, *saved))
 
 
 class AttentionDecodeScan(torch.autograd.Function):
     """attention_decode_scan with its gradient: K4 forward, K5 backward
-    (the plain versions on CPU tensors). Saves s_seq and c_seq, as the
-    JAX VJP does (:1185-1189); enc_mask gets no gradient, and a missing
-    cotangent of c_seq or alpha_seq counts as zeros."""
+    (the plain versions on CPU tensors). Saves s_seq, c_seq and alpha_seq
+    (the JAX VJP, :1185-1189, saves s and c and recomputes alpha);
+    enc_mask gets no gradient, and a missing cotangent of c_seq or
+    alpha_seq counts as zeros."""
 
     @staticmethod
     def forward(ctx, vh, h, enc_mask, yin, *weights):
         s_seq, c_seq, alpha_seq = attention_decode_scan(vh, h, enc_mask, yin, *weights)
-        ctx.save_for_backward(vh, h, enc_mask, yin, *weights, s_seq, c_seq)
+        ctx.save_for_backward(vh, h, enc_mask, yin, *weights, s_seq, c_seq, alpha_seq)
         return s_seq, c_seq, alpha_seq
 
     @staticmethod
@@ -529,39 +524,51 @@ def stash_floats(lstm: bool, b: int, t_len: int, l: int, s_dim: int, st: int, fm
     """Floats of the stash of K5, K11, K13 and K15 (``carve_stash``): (B*T)
     rows of rr (2St), for the LSTM r (St), for the GRU sr and cand_in (2St
     each), dws (S), dcc and dr (St each), for the LSTM dgates (4St), for
-    the GRU da_zr (2St), da_cand (St) and the per-step w_e partial (S);
-    then, with the location term (fm > 0), B rows of the step's dz (L*S,
-    which every step rewrites); then the partial sums: for the GRU with
-    the location term, B rows of dU (FM*S) and of dwconv and dbconv ((F +
-    1) * FM); for the LSTM, `partials` rows (one per block of the walk:
-    ScanPlan.partials) of dw_e (S) and, with the location term, of dU and
-    of dwconv and dbconv. Neither the location term's share nor the
-    partials grow with T: the walks sum them over the steps themselves."""
-    loc = b * l * s_dim + b * (fm * s_dim + (f + 1) * fm) if fm else 0
-    if not lstm:
-        return b * t_len * (11 * st + 2 * s_dim) + loc
-    return (b * t_len * (9 * st + s_dim) + (b * l * s_dim if fm else 0)
+    the GRU da_zr (2St) and da_cand (St), and for K13 (the GRU with the
+    location term, fm > 0) the per-step w_e partial (S); then, with the
+    location term, B rows of the step's dz (L*S, which every step
+    rewrites); then the partial sums: for K13, B rows of dU (FM*S) and of
+    dwconv and dbconv ((F + 1) * FM); for the cluster walks (K5, K11,
+    K15), `partials` rows (one per block of the walk: ScanPlan.partials)
+    of dw_e (S) and, with the location term, of dU and of dwconv and
+    dbconv. Neither the location term's share nor the partials grow with
+    T: the walks sum them over the steps themselves."""
+    if not lstm and fm:  # K13
+        return b * t_len * (11 * st + 2 * s_dim) + b * l * s_dim + b * (fm * s_dim + (f + 1) * fm)
+    cell = 9 * st if lstm else 11 * st
+    return (b * t_len * (cell + s_dim) + (b * l * s_dim if fm else 0)
             + partials * (s_dim + (fm * s_dim + (f + 1) * fm if fm else 0)))
 
 
-# --- The plan of the LSTM decoder backwards' walk (K11, K15) -------------------------------
+# --- The plan of the decoder backwards' cluster walk (K5, K11, K15) ------------------------
 #
-# K11 and K15 walk the steps of R batch rows on a thread-block cluster of C
-# blocks (csrc/attention_scan_loc_lstm.cu, lstm_walk). The plan (C, R) is a
-# plain function of the shapes and of two numbers of the device, which
-# ``scan_limits`` asks the kernel's library for: the opt-in shared memory of
-# a block, and how many clusters of C blocks can be resident at once when
-# each block takes that much (one block to an SM).
+# K5, K11 and K15 walk the steps of R batch rows on a thread-block cluster of
+# C blocks (csrc/attention_scan_loc_lstm.cu, decoder_walk). The plan (C, R) is
+# a plain function of the shapes, of the cell, and of two numbers of the
+# device, which ``scan_limits`` asks the kernel's library for: the opt-in
+# shared memory of a block, and how many clusters of C blocks can be resident
+# at once when each block takes that much (one block to an SM).
 
 WALK_CLUSTERS = (16, 8)  # 16 is a non-portable cluster size on Hopper
 WALK_ROWS = (1, 2, 4, 8)  # the walk's instances
-WALK_BARS = 5  # the mbarriers of a step's exchanges (csrc: kBars)
-# A step of the walk and wave, in us, by (C, R): K11's walk at the
-# conv+BiLSTM recipe's shape (L' = 16, T = 56) under each plan, the mean
-# of B = 16 and 128 (chip_smoke.py phase 8 on an NVIDIA H100 80GB HBM3 at
-# 700.00 W; K15's steps are 0.65-0.75 of these, in the same order).
-STEP_COST = {(16, 1): 33.5, (16, 2): 38.4, (16, 4): 45.8, (16, 8): 65.3,
-             (8, 1): 38.4, (8, 2): 47.2, (8, 4): 61.2, (8, 8): 89.4}
+# The mbarriers of a step's exchanges, by cell (csrc: kBarsLstm, kBarsGru).
+WALK_BARS = {"lstm": 5, "gru": 6}
+# The walk's cell, by the C entry point of its backward.
+WALK_CELL = {"attention_decode_scan_bwd": "gru", "attention_decode_scan_loc_lstm_bwd": "lstm",
+             "attention_decode_scan_lstm_bwd": "lstm"}
+# A step of the walk and wave, in us, by cell and (C, R), on an NVIDIA H100
+# 80GB HBM3 at 700.00 W (chip_smoke.py phase 8's sweeps): for the LSTM,
+# K11's walk at the conv+BiLSTM recipe's shape (L' = 16, T = 56) under each
+# plan, the mean of B = 16 and 128 (K15's steps are 0.65-0.75 of these, in
+# the same order); for the GRU, K5's at the flagship's (L = 144, T = 56),
+# the mean of B = 16 and 128. R = 8 fits no block of K5 at the flagship's
+# widths: its cost is R = 4's doubled.
+STEP_COST = {
+    "lstm": {(16, 1): 33.5, (16, 2): 38.4, (16, 4): 45.8, (16, 8): 65.3,
+             (8, 1): 38.4, (8, 2): 47.2, (8, 4): 61.2, (8, 8): 89.4},
+    "gru": {(16, 1): 20.3, (16, 2): 28.4, (16, 4): 46.2, (16, 8): 92.4,
+            (8, 1): 23.6, (8, 2): 36.3, (8, 4): 57.6, (8, 8): 115.2},
+}
 
 
 def _cdiv(n: int, d: int) -> int:
@@ -578,29 +585,32 @@ def _cspan(n: int, c: int) -> int:
     return _cdiv(n, c) if n % 4 else 4 * _cdiv(n // 4, c)
 
 
-def walk_smem_bytes(rows: int, cluster: int, l: int, s_dim: int, a_dim: int, st: int,
+def walk_smem_bytes(cell: str, rows: int, cluster: int, l: int, s_dim: int, a_dim: int, st: int,
                     fm: int = 0, f: int = 0) -> int:
-    """Shared memory of one block of the walk (fm = f = 0 without the
-    location term), as csrc/attention_scan_loc_lstm.cu's
-    lstm_walk_smem_floats counts it, every buffer a whole number of
-    16-byte groups: the step's mbarriers; the gathered dgates, dr, dcc, dc
-    (R rows of 4St, St, St and A); the blocks' shares of the softmax's sum
-    and their dws partials (C x R and C x R x S); dws; two buffers of a
-    step's staged inputs of the block's units (at most ceil(St/C), in
-    whole groups of 4 where 4 divides St: the gates, mem_prev, the
-    cotangents of s and mem), of ws, of its ceil(L/C) positions (alpha,
+    """Shared memory of one block of the walk of `cell` ("lstm" or "gru";
+    fm = f = 0 without the location term), as
+    csrc/attention_scan_loc_lstm.cu's walk_smem_floats counts it, every
+    buffer a whole number of 16-byte groups: the step's mbarriers; the
+    gathered gate cotangents (R rows of 4St for the LSTM, 3St for the
+    GRU's da_cand and da_zr), dr, dcc, dc (R rows of St, St and A); the
+    blocks' shares of the softmax's sum and their dws partials (C x R and
+    C x R x S); dws; two buffers of a step's staged inputs of the block's
+    units (at most ceil(St/C), in whole groups of 4 where 4 divides St:
+    the cell's 4 or 3 gate values, mem_prev or s_prev, the cotangent of s
+    and for the LSTM of mem), of ws, of its ceil(L/C) positions (alpha,
     its cotangent, and alpha_prev with the filter's reach) and of its
-    columns (c and its cotangent; as many as units of A); the
-    carries, dsp, de; w_e and dw_e's sum; and with the location term the
-    positions' features and dfeat (with the halo), U and dU's sum, the
-    filter and the sums of dwconv and dbconv."""
-    r, c, loc = rows, cluster, int(fm > 0)
+    columns (c and its cotangent; as many as units of A); the carries and
+    dsp (the LSTM's s and mem carries, the GRU's s carry and its two
+    halves of da_cand w_h^T), de; w_e and dw_e's sum; and with the
+    location term the positions' features and dfeat (with the halo), U
+    and dU's sum, the filter and the sums of dwconv and dbconv."""
+    r, c, loc, lstm = rows, cluster, int(fm > 0), int(cell == "lstm")
     stc, ac, pc, sp = _cspan(st, c), _cspan(a_dim, c), _cdiv(l, c), _r4(s_dim)
-    floats = (_r4(2 * WALK_BARS) + _r4(4 * r * st) + 2 * _r4(r * st) + _r4(r * a_dim)
-              + _r4(c * r) + _r4(c * r * sp) + _r4(r * sp)
-              + 2 * (_r4(4 * r * stc) + 3 * _r4(r * stc) + _r4(r * sp) + 2 * _r4(r * pc)
-                     + loc * _r4(r * (pc + f - 1)) + 2 * _r4(r * ac))
-              + 3 * _r4(r * stc) + 2 * _r4(r * pc) + 2 * _r4(s_dim)
+    floats = (_r4(2 * WALK_BARS[cell]) + _r4((3 + lstm) * r * st) + 2 * _r4(r * st)
+              + _r4(r * a_dim) + _r4(c * r) + _r4(c * r * sp) + _r4(r * sp)
+              + 2 * (_r4((3 + lstm) * r * stc) + (2 + lstm) * _r4(r * stc) + _r4(r * sp)
+                     + 2 * _r4(r * pc) + loc * _r4(r * (pc + f - 1)) + 2 * _r4(r * ac))
+              + (4 - lstm) * _r4(r * stc) + 2 * _r4(r * pc) + 2 * _r4(s_dim)
               + loc * (_r4(r * pc * fm) + _r4(r * (pc + f - 1) * fm) + 2 * _r4(fm * s_dim)
                        + _r4(f * fm) + _r4(fm) + _r4((f + 1) * fm)))
     return 4 * floats
@@ -618,19 +628,20 @@ class ScanPlan:
 
 
 def scan_plan(b: int, smem: Dict[Tuple[int, int], int], smem_limit: int,
-              resident: Dict[int, int], cost=STEP_COST) -> ScanPlan:
+              resident: Dict[int, int], cost: Dict[Tuple[int, int], float]) -> ScanPlan:
     """The walk's plan for b batch rows: `smem[(C, R)]` bytes a block
     takes on clusters of C blocks with R rows each, `smem_limit` the
     device's opt-in bytes a block, `resident[C]` the clusters of C blocks
-    the device holds at once. Of the (C, R) that fit, those whose
-    ceil(b / R) clusters fill one wave, if any, else all, by the fewest
-    waves x cost[(C, R)] (a step's time), then the fewer waves, the
-    smaller R, the larger C. RuntimeError when no cluster fits."""
+    the device holds at once, `cost[(C, R)]` a step's time (STEP_COST of
+    the walk's cell). Of the (C, R) that fit, those whose ceil(b / R)
+    clusters fill one wave, if any, else all, by the fewest waves x
+    cost[(C, R)], then the fewer waves, the smaller R, the larger C.
+    RuntimeError when no cluster fits."""
     fits = [(c, r) for c in WALK_CLUSTERS for r in WALK_ROWS
             if resident.get(c, 0) >= 1 and smem[(c, r)] <= smem_limit]
     if not fits:
         raise RuntimeError(
-            f"LSTM decoder scan backward: no cluster of {' or '.join(map(str, WALK_CLUSTERS))} "
+            f"decoder scan backward: no cluster of {' or '.join(map(str, WALK_CLUSTERS))} "
             f"blocks fits the device (resident clusters {resident}; shared memory a block "
             f"{min(smem.values())} bytes or more of {smem_limit})")
     waves = {(c, r): _cdiv(_cdiv(b, r), resident[c]) for c, r in fits}
@@ -644,7 +655,7 @@ _LIMITS: Dict[Tuple[str, int], Tuple[int, Dict[int, int]]] = {}
 
 def scan_limits(kernel, device: torch.device) -> Tuple[int, Dict[int, int]]:
     """(opt-in shared memory of a block, {C: resident clusters of C
-    blocks}) of `kernel`'s walk (K11 or K15) on `device`, from its
+    blocks}) of `kernel`'s walk (K5, K11 or K15) on `device`, from its
     ``<symbol>_limits`` C helper; asked once per kernel and device. A
     cluster size the device refuses counts 0 clusters."""
     index = device.index if device.index is not None else torch.cuda.current_device()
@@ -665,18 +676,21 @@ def scan_limits(kernel, device: torch.device) -> Tuple[int, Dict[int, int]]:
 
 def scan_plan_on(kernel, b: int, l: int, s_dim: int, a_dim: int, st: int, fm: int, f: int,
                  device: torch.device) -> ScanPlan:
-    """The plan `kernel`'s wrapper (K11 or K15) runs for these shapes on
-    `device`."""
+    """The plan `kernel`'s wrapper (K5, K11 or K15) runs for these shapes
+    on `device`: its walk's cell's (WALK_CELL) shared memory and step
+    costs."""
+    cell = WALK_CELL[kernel.symbol]
     smem_limit, resident = scan_limits(kernel, device)
-    smem = {(c, r): walk_smem_bytes(r, c, l, s_dim, a_dim, st, fm, f)
+    smem = {(c, r): walk_smem_bytes(cell, r, c, l, s_dim, a_dim, st, fm, f)
             for c in WALK_CLUSTERS for r in WALK_ROWS}
-    return scan_plan(b, smem, smem_limit, resident)
+    return scan_plan(b, smem, smem_limit, resident, STEP_COST[cell])
 
 
 def _scan_bwd(kernel, lstm: bool, n_weights: int, vh, h, enc_mask, yin, args):
-    """The backward wrapper of K11, K13 and K15: args are the weights, the
-    saved output sequences and their cotangents (each None where there is
-    none: it counts as zeros). K11 and K15 run scan_plan_on's plan."""
+    """The backward wrapper of K5, K11, K13 and K15: args are the weights,
+    the saved output sequences and their cotangents (each None where there
+    is none: it counts as zeros). The cluster walks (K5, K11, K15) run
+    scan_plan_on's plan."""
     n_out = 4 if lstm else 3
     weights = args[:n_weights]
     saved = args[n_weights:n_weights + n_out]
@@ -701,7 +715,7 @@ def _scan_bwd(kernel, lstm: bool, n_weights: int, vh, h, enc_mask, yin, args):
     if bsz * t_len == 0:
         return tuple(g.zero_() for g in grads)
     plan_args, partials = (), 0
-    if lstm:
+    if kernel.symbol in WALK_CELL:
         plan = scan_plan_on(kernel, bsz, l, s_dim, a_dim, st, *(loc or (0, 0)), dev)
         plan_args, partials = (plan.cluster, plan.rows), plan.partials(bsz)
     scratch = torch.empty(stash_floats(lstm, bsz, t_len, l, s_dim, st, *(loc or (0, 0)),

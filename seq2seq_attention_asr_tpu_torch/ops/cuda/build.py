@@ -6,8 +6,10 @@ library under ``seq2seq_attention_asr_tpu_torch/_build/`` (listed in
 .gitignore), at first use; kernels whose entry points share a source
 share its library. The library name carries a digest of the source, the
 shared headers (``csrc/*.cuh``) and the flags, so an edit rebuilds it
-and an unchanged one is loaded as it is. ``build_all`` starts one nvcc
-per source at once.
+and an unchanged one is loaded as it is. A kernel may name preprocessor
+macros to define, which builds its source into a library of its own
+(part of a large source, compiled beside the rest). ``build_all`` starts
+one nvcc per library at once.
 
 Every C entry point takes device pointers, sizes and the caller's CUDA
 stream, launches on that stream without synchronising, and returns
@@ -49,13 +51,17 @@ def nvcc_path() -> str:
 
 
 class Kernel:
-    """One CUDA source, its C entry point, and a count of its launches."""
+    """One CUDA source (built with the macros `defines` defined), its C
+    entry point, and a count of its launches."""
 
-    def __init__(self, name: str, source: str, symbol: str, argtypes: list):
+    def __init__(self, name: str, source: str, symbol: str, argtypes: list,
+                 defines: tuple = ()):
         self.name = name
         self.source = CSRC_DIR / source
         self.symbol = symbol
         self.argtypes = argtypes
+        self.defines = tuple(defines)
+        self.flags = NVCC_FLAGS + [f"-D{d}" for d in self.defines]
         self.launches = 0
         self.build_seconds: Optional[float] = None
         self.build_log = ""
@@ -65,7 +71,7 @@ class Kernel:
         text = self.source.read_bytes()
         for header in sorted(CSRC_DIR.glob("*.cuh")):
             text += header.read_bytes()
-        digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        digest = hashlib.sha1(text + " ".join(self.flags).encode()).hexdigest()[:12]
         return BUILD_DIR / f"lib{self.source.stem}-{digest}.so"
 
     def _bind(self):
@@ -99,23 +105,23 @@ class Kernel:
         self.launches += 1
 
 
-def _start_build(source: Path, out: Path):
+def _start_build(source: Path, flags: List[str], out: Path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [nvcc_path(), *flags, "-o", str(tmp), str(source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, time.perf_counter()
 
 
 def build_all(kernels: Iterable[Kernel]) -> List[Kernel]:
-    """Build every library that is not built yet, one nvcc per source,
+    """Build every library that is not built yet, one nvcc per library,
     all started together; then load every kernel."""
     kernels = list(kernels)
     started = {}
     for k in kernels:
         out = k.library_path()
         if out not in started and not out.exists():
-            started[out] = (k.source, _start_build(k.source, out))
+            started[out] = (k.source, _start_build(k.source, k.flags, out))
     built = {}
     try:
         for out, (source, (proc, tmp, t0)) in started.items():

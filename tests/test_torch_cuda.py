@@ -357,12 +357,89 @@ def test_attention_decode_scan_kernels(card, b, l, t, dims):
     assert attention_scan.KERNEL_FWD.launches == fwd + 1
     assert _max_err(got, want) <= TOL
     cot = (_rand(gen, b, t, st), _rand(gen, b, t, a), _rand(gen, b, t, l))
-    args = (vh, h, mask, yin, *weights, want[0], want[1], *cot)
+    args = (vh, h, mask, yin, *weights, *want, *cot)
     got = attention_scan.attention_decode_scan_bwd(*args)
     want = attention_scan.attention_decode_scan_bwd_plain(*args)
     torch.cuda.synchronize()
     assert attention_scan.KERNEL_BWD.launches == bwd + 1
     _bwd_close(got, want, "attention_decode_scan_bwd")
+
+
+# K5 on its cluster walk, (B, L, T, (S, A, St), plan): B = 1; a partly
+# filled last row group (B = 5 on 4 rows a cluster); several waves (B =
+# 128 at the flagship's widths); L = 1, L = 3 < C and L = 37 not a
+# multiple of C; S above the block's 512 threads; St not a multiple of 4
+# (the exchanges store a value at a time); then a forced plan for each
+# (C, R). `plan` is a ScanPlan (C, R) to run, or "plan" for the wrapper's
+# own, whose (C, R) the case's last entry pins.
+GRU_SCAN_CASES = [
+    (1, 144, 56, (512, 512, 256), "plan", (16, 1)),
+    (5, 16, 9, (40, 24, 32), (8, 4), None),
+    (128, 144, 56, (512, 512, 256), "plan", (8, 4)),
+    (2, 1, 7, (17, 12, 8), "plan", (16, 1)),
+    (3, 3, 6, (40, 24, 32), "plan", (16, 1)),
+    (4, 37, 9, (64, 40, 36), "plan", (16, 1)),
+    (3, 20, 6, (600, 24, 32), "plan", (16, 1)),
+    (3, 13, 5, (17, 12, 9), "plan", (16, 1)),
+    (5, 37, 4, (17, 12, 9), (8, 2), None),
+] + [(6, 29, 5, (40, 20, 36), (c, r), None) for c in (16, 8) for r in (1, 2, 4, 8)]
+
+
+@pytest.mark.parametrize("case", range(len(GRU_SCAN_CASES)))
+def test_gru_scan_backward_on_its_cluster_walk(card, monkeypatch, case):
+    """K5 on the plan each case names, against its plain version (the
+    backward tolerance), twice with the same bits and one launch a call."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    b, l, t, (s, a, st), run, want = GRU_SCAN_CASES[case]
+    gen = torch.Generator().manual_seed(b * 37 + l + st)
+    vh, h, mask, yin, weights = _scan_case(card, gen, b, l, t, s, a, st)
+    plan = _walk_plan(card, monkeypatch, attention_scan.KERNEL_BWD, b, l, s, a, st, 0, 0, run,
+                      want)
+    saved = attention_scan.attention_decode_scan_plain(vh, h, mask, yin, *weights)
+    cot = (_rand(gen, b, t, st), _rand(gen, b, t, a), _rand(gen, b, t, l))
+    args = (vh, h, mask, yin, *weights, *saved, *cot)
+    before = attention_scan.KERNEL_BWD.launches
+    got = _bwd_twice(attention_scan.attention_decode_scan_bwd, args, plan, "K5")
+    want_b = attention_scan.attention_decode_scan_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert attention_scan.KERNEL_BWD.launches == before + 2
+    _bwd_close(got, want_b, f"attention_decode_scan_bwd {plan}")
+
+
+def test_gru_scan_backward_is_bitwise_deterministic(card):
+    """K5 at the flagship's training shape, twice on the same inputs:
+    every gradient bitwise equal (the walk's sums over a cluster's blocks
+    and the reductions are taken in a fixed order, no atomics)."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    gen = torch.Generator().manual_seed(11)
+    vh, h, mask, yin, weights = _scan_case(card, gen, 16, 144, 56, 512, 512, 256)
+    saved = attention_scan.attention_decode_scan(vh, h, mask, yin, *weights)
+    cot = [_rand(gen, *t.shape) for t in saved]
+    args = (vh, h, mask, yin, *weights, *saved, *cot)
+    first, second = (attention_scan.attention_decode_scan_bwd(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    for i, (x, y) in enumerate(zip(first, second)):
+        assert torch.equal(x, y), i
+
+
+def test_gru_scan_backward_refuses_without_a_cluster(card, monkeypatch):
+    """Where the device holds no cluster of 16 or 8 blocks of K5's walk, a
+    CUDA call raises; it never takes the plain path."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    gen = torch.Generator().manual_seed(6)
+    vh, h, mask, yin, weights = _scan_case(card, gen, 2, 7, 3, 17, 12, 8)
+    saved = attention_scan.attention_decode_scan_plain(vh, h, mask, yin, *weights)
+    cot = [torch.ones_like(x) for x in saved]
+    smem_limit, _ = attention_scan.scan_limits(attention_scan.KERNEL_BWD, card)
+    monkeypatch.setattr(attention_scan, "scan_limits",
+                        lambda kernel, device: (smem_limit, {16: 0, 8: 0}))
+    before = attention_scan.KERNEL_BWD.launches
+    with pytest.raises(RuntimeError, match="no cluster"):
+        attention_scan.attention_decode_scan_bwd(vh, h, mask, yin, *weights, *saved, *cot)
+    assert attention_scan.KERNEL_BWD.launches == before
 
 
 def test_train_step_on_the_card_matches_the_cpu(card):
@@ -599,15 +676,15 @@ LOC_LSTM_SCAN_CASES = [
 LSTM_PLANS = {1: (16, 1), 2: (16, 1), 3: (16, 1), 4: (16, 1), 5: (16, 1), 16: (16, 4), 128: (8, 8)}
 
 
-def _lstm_plan(card, monkeypatch, kernel, b, l, s, a, st, fm, f, run):
-    """The ScanPlan a K11 or K15 case runs: the wrapper's, held to
-    LSTM_PLANS, or `run`'s (C, R), which the wrappers then take in place of
-    scan_plan_on's."""
+def _walk_plan(card, monkeypatch, kernel, b, l, s, a, st, fm, f, run, want=None):
+    """The ScanPlan a K11, K15 or K5 case runs: the wrapper's, held to
+    `want` (for K11 and K15 by default LSTM_PLANS'), or `run`'s (C, R),
+    which the wrappers then take in place of scan_plan_on's."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
     plan = attention_scan.scan_plan_on(kernel, b, l, s, a, st, fm, f, card)
     if run == "plan":
-        assert (plan.cluster, plan.rows) == LSTM_PLANS[b], plan
+        assert (plan.cluster, plan.rows) == (want or LSTM_PLANS[b]), plan
         return plan
     plan = attention_scan.ScanPlan(*run)
     monkeypatch.setattr(attention_scan, "scan_plan_on", lambda *_: plan)
@@ -634,7 +711,7 @@ def test_attention_decode_scan_loc_lstm_kernels(card, monkeypatch, case):
     b, l, t, (s, a, st, fm, f), run = LOC_LSTM_SCAN_CASES[case]
     gen = torch.Generator().manual_seed(b * 29 + l)
     vh, h, mask, yin, weights = _loc_lstm_case(card, gen, b, l, t, s, a, st, fm, f)
-    plan = _lstm_plan(card, monkeypatch, attention_scan.KERNEL_LOC_LSTM_BWD, b, l, s, a, st,
+    plan = _walk_plan(card, monkeypatch, attention_scan.KERNEL_LOC_LSTM_BWD, b, l, s, a, st,
                       fm, f, run)
     fwd = attention_scan.KERNEL_LOC_LSTM_FWD.launches
     bwd = attention_scan.KERNEL_LOC_LSTM_BWD.launches
@@ -677,11 +754,13 @@ def test_lstm_scan_backwards_refuse_without_a_cluster(card, monkeypatch):
 
 
 def test_lstm_scan_plan_on_the_card(card):
-    """The card holds clusters of 16 and of 8 blocks of K11's and K15's
-    walks at full shared memory, as LSTM_PLANS assumes."""
+    """The card holds clusters of 16 and of 8 blocks of K11's, K15's and
+    K5's walks at full shared memory, as LSTM_PLANS and GRU_SCAN_CASES
+    assume."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
-    for kernel in (attention_scan.KERNEL_LOC_LSTM_BWD, attention_scan.KERNEL_LSTM_BWD):
+    for kernel in (attention_scan.KERNEL_LOC_LSTM_BWD, attention_scan.KERNEL_LSTM_BWD,
+                   attention_scan.KERNEL_BWD):
         smem_limit, resident = attention_scan.scan_limits(kernel, card)
         assert smem_limit == 232448 and resident == {16: 7, 8: 15}, (kernel.name, resident)
 
@@ -805,7 +884,7 @@ def test_decoder_scan_kernels(card, monkeypatch, case):
     assert _max_err(got, want) <= TOL
     widths = (st, a, l, st)[:len(want)]
     if cell == "lstm":
-        plan = _lstm_plan(card, monkeypatch, k_bwd, b, l, s, a, st, fm, f,
+        plan = _walk_plan(card, monkeypatch, k_bwd, b, l, s, a, st, fm, f,
                           run[0] if run else "plan")
     for partial in (False, True):
         cot = [_rand(gen, b, t, n) for n in widths]
@@ -853,21 +932,27 @@ def test_decoder_scans_refuse_what_does_not_fit(card):
     K13 takes 19,401 + 38 L floats (L <= 1018) and K12 15,033 + 3 L (L <=
     14359). K11 and K15 keep ceil(L / C) positions a block: at one batch
     row (C = 16, R = 1) and the conv+BiLSTM recipe's widths, K11 fits L' <=
-    18640 and K15 L' <= 137856 (walk_smem_bytes; tests/test_torch_scan_plan.py
-    pins them). The largest L runs, one more is refused (K11, K15: by the
-    plan, before a launch) and not counted."""
+    18640 and K15 L' <= 137856, and K5 at the flagship's widths L <= 120448
+    (walk_smem_bytes; tests/test_torch_scan_plan.py pins them). The largest
+    L runs, one more is refused (K11, K15, K5: by the plan, before a
+    launch) and not counted."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
     flagship, conv_bilstm = (512, 512, 256), (150, 256, 400)
     for cell, dims, fm, f, kernel, l_max in (("gru", flagship, 16, 10, "bwd", 1018),
                                             ("gru", flagship, 16, 10, "fwd", 14359),
                                             ("lstm", conv_bilstm, 0, 0, "bwd", 137856),
-                                            ("loc_lstm", conv_bilstm, 16, 5, "bwd", 18640)):
+                                            ("loc_lstm", conv_bilstm, 16, 5, "bwd", 18640),
+                                            ("content_gru", flagship, 0, 0, "bwd", 120448)):
         if cell == "loc_lstm":
             fwd, bwd = (attention_scan.attention_decode_scan_loc_lstm,
                         attention_scan.attention_decode_scan_loc_lstm_bwd)
             fwd_plain, k = (attention_scan.attention_decode_scan_loc_lstm_plain,
                             attention_scan.KERNEL_LOC_LSTM_BWD)
+        elif cell == "content_gru":
+            fwd, bwd = (attention_scan.attention_decode_scan,
+                        attention_scan.attention_decode_scan_bwd)
+            fwd_plain, k = attention_scan.attention_decode_scan_plain, attention_scan.KERNEL_BWD
         else:
             fwd, bwd, fwd_plain, _, k_fwd, k_bwd = _decoder_scans(cell)
             k = k_bwd if kernel == "bwd" else k_fwd
@@ -876,13 +961,17 @@ def test_decoder_scans_refuse_what_does_not_fit(card):
             if cell == "loc_lstm":
                 vh, h, mask, yin, weights = _loc_lstm_case(card, gen, 1, l, 1, *dims, fm, f)
             else:
-                vh, h, mask, yin, weights = _decoder_case(card, gen, 1, l, 1, *dims, cell, fm, f)
+                kind = "gru" if cell == "content_gru" else cell
+                vh, h, mask, yin, weights = _decoder_case(card, gen, 1, l, 1, *dims, kind, fm, f)
             before = k.launches
             if kernel == "fwd":
                 call = lambda: fwd(vh, h, mask, yin, *weights)
             else:
                 saved = fwd_plain(vh, h, mask, yin, *weights)
-                cot = [torch.ones_like(saved[0])] + [None] * (len(saved) - 1)
+                # K5's wrapper takes every cotangent (its autograd function
+                # materialises them): zeros where the others take None.
+                none = torch.zeros_like if cell == "content_gru" else lambda x: None
+                cot = [torch.ones_like(saved[0])] + [none(x) for x in saved[1:]]
                 call = lambda: bwd(vh, h, mask, yin, *weights, *saved, *cot)
             if l == l_max:
                 call()

@@ -89,7 +89,8 @@ def test_kernel_wrappers_take_cpu_or_cuda_tensors_only():
         attention_scan.attention_decode_scan(*scan)
     with pytest.raises(ValueError):
         attention_scan.attention_decode_scan_bwd(*scan, meta(b, t, st), meta(b, t, a),
-                                                 meta(b, t, st), meta(b, t, a), meta(b, t, l))
+                                                 meta(b, t, l), meta(b, t, st), meta(b, t, a),
+                                                 meta(b, t, l))
     with pytest.raises(ValueError):
         lstm_scan.bilstm_scan(meta(2, 1, 3, 16), meta(2, 1, 4), meta(2, 1, 4), meta(2, 4, 16))
     cfg = attention.AttentionConfig(score_depth=s, state_depth=st, annotation_depth=a,

@@ -147,43 +147,49 @@ def test_instrument_gru_fwd_refuses_a_walk_without_markers():
         _tool().instrument_gru_fwd(re.sub(r"// \[phase\] .*", "", GRU_WALK.read_text()))
 
 
-LSTM_PHASES = ["staging wait", "cell, dg exchange", "w_x^T w_h^T, dr exchange",
-               "dec_w^T, dcc exchange", "c_w^T, dc exchange", "context", "energies", "dfeat",
-               "dws exchange", "ws_w^T"]
+# The walk's phases: the GRU-only "w_h^T, da_zr exchange" reads 0 cycles
+# in an LSTM walk, and the location term's "dfeat" next to nothing
+# without it.
+WALK_PHASES = ["staging wait", "cell, E1 exchange", "w_h^T, da_zr exchange",
+               "cell products, dr exchange", "dec_w^T, dcc exchange", "c_w^T, dc exchange",
+               "context", "energies", "dfeat", "dws exchange", "ws_w^T"]
 
 
-def _lstm_body(text, tool):
-    return text.split(tool.LSTM_SIG, 1)[1].split("\n}\n", 1)[0]
+def _walk_body(text, tool):
+    return text.split(tool.WALK_SIG, 1)[1].split("\n}\n", 1)[0]
 
 
 def test_instrument_lstm_reads_the_clock_after_every_wait():
-    """The LSTM walk's step (K11, K15): a cycle read after the staging
-    wait's block barrier, after each exchange's wait for the peers'
-    pushes, and after each block barrier between, by thread 0 of block 0,
-    and the clock started once, before the step loop. Outside the walk's
-    body only the probe is added."""
+    """The decoder backwards' walk's step (K11, K15 and K5): a cycle read
+    after the staging wait's block barrier, after each exchange's wait for
+    the peers' pushes, and after each block barrier between, by thread 0
+    of block 0, and the clock started once, before the step loop. Outside
+    the walk's body only the probe is added."""
     tool = _tool()
     src = SOURCE.read_text()
-    text, names = tool.instrument_lstm(src)
-    assert names == LSTM_PHASES
-    body = _lstm_body(text, tool)
+    text, names = tool.instrument_walk(src)
+    assert names == WALK_PHASES
+    body = _walk_body(text, tool)
     assert "// [phase]" not in body
     reads = re.findall(r"blockIdx.x == 0\) \{ const long long c_ = clock64\(\); "
                        r"g_phase_cycles\[(\d+)\] \+= c_ - phase_t0_", body)
-    assert [int(i) for i in reads] == list(range(len(LSTM_PHASES)))
+    assert [int(i) for i in reads] == list(range(len(WALK_PHASES)))
     assert body.count("long long phase_t0_ = clock64();") == 1
-    assert body.index("long long phase_t0_ = clock64();") < body.index(tool.LSTM_LOOP)
-    lines = _lstm_body(src, tool).split("\n")
+    assert body.index("long long phase_t0_ = clock64();") < body.index(tool.WALK_LOOP)
+    lines = _walk_body(src, tool).split("\n")
     marked = [i for i, line in enumerate(lines) if "// [phase]" in line]
     before = [[x.strip() for x in lines[:i] if x.strip() and not x.strip().startswith("//")][-1]
               for i in marked]
-    waits = [f"if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[{k}], tx[{k}]);" for k in range(5)]
-    assert before == ["if (s + 1 < T) stage_step<R, kLoc>(a, c, staged(sh, (s + 1) & 1), t - 1);",
-                      *waits[:3], "__syncthreads();  // this block's own share of the sum",
-                      "__syncthreads();", "__syncthreads();", "}", waits[4], "__syncthreads();"]
-    loop = next(i for i, line in enumerate(lines) if line == tool.LSTM_LOOP)
+    waits = [f"if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[{k}], tx[{k}]);"
+             for k in ("0", "eDr", "eDcc", "eDws")]
+    assert before == [
+        "if (s + 1 < T) stage_step<R, kLstm, kLoc>(a, c, staged(sh, (s + 1) & 1), t - 1);",
+        waits[0], "__syncthreads();  // dcin[St:], formed by other warps", waits[1], waits[2],
+        "__syncthreads();  // this block's own share of the sum", "__syncthreads();",
+        "__syncthreads();", "}", waits[3], "__syncthreads();"]
+    loop = next(i for i, line in enumerate(lines) if line == tool.WALK_LOOP)
     assert all(i > loop for i in marked)
-    head, rest = src.split(tool.LSTM_SIG, 1)
+    head, rest = src.split(tool.WALK_SIG, 1)
     assert text.replace(tool.PROBE + "\n", "", 1).startswith(head)
     assert text.index(tool.PROBE) < text.index("namespace {")
     assert text.endswith(rest.split("\n}\n", 1)[1])
@@ -193,8 +199,33 @@ def test_instrument_lstm_reads_the_clock_after_every_wait():
 
 def test_instrument_lstm_refuses_a_walk_without_markers():
     src = SOURCE.read_text()
-    head, rest = src.split(_tool().LSTM_SIG, 1)
+    head, rest = src.split(_tool().WALK_SIG, 1)
     body, tail = rest.split("\n}\n", 1)
-    with pytest.raises(ValueError, match="no // \\[phase\\] markers in lstm_walk"):
-        _tool().instrument_lstm(head + _tool().LSTM_SIG + re.sub(r"// \[phase\] .*", "", body)
+    with pytest.raises(ValueError, match="no // \\[phase\\] markers in decoder_walk"):
+        _tool().instrument_walk(head + _tool().WALK_SIG + re.sub(r"// \[phase\] .*", "", body)
                                 + "\n}\n" + tail)
+
+
+def test_gru_mode_instruments_the_walk_k5_runs():
+    """--gru-bwd times K5: its entry point is in the instrumented source,
+    its walk kernel is an instance of decoder_walk there, and the
+    GRU-only phase (w_h^T before the da_zr exchange) sits in the branch of
+    the walk that only the GRU compiles."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    tool = _tool()
+    (entry,), (walk,) = tool.MODES["gru"]
+    name, attr = tool.ENTRY[entry]
+    kernel = getattr(attention_scan, attr)
+    assert (name, kernel.symbol, kernel.source) == ("K5", entry, tool.SOURCE)
+    src = SOURCE.read_text()
+    assert re.search(r"__global__ void __launch_bounds__\(kThreads, 1\) " + walk +
+                     r"\(const BwdArgs a\) \{\n.*\n  decoder_walk<R, false, false>\(sm, a\);", src)
+    assert f'extern "C" int {entry}(' in src and f'extern "C" int {entry}_limits(' in src
+    body = _walk_body(src, tool)
+    gru = body.index("if constexpr (kLstm) {", body.index("// [phase] cell, E1 exchange"))
+    gru = body.index("} else {", gru)
+    assert gru < body.index("// [phase] w_h^T, da_zr exchange") < body.index(
+        "// [phase] cell products, dr exchange")
+    text, names = tool.instrument_walk(src)
+    assert names.index("w_h^T, da_zr exchange") == 2

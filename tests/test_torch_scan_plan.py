@@ -1,8 +1,9 @@
-"""The plan of the LSTM decoder scans' backward walk, K11 and K15
-(ops/cuda/attention_scan.py scan_plan): the cluster size C and the batch
-rows R of a cluster, and the shared memory of a block, pinned at the
-conv+BiLSTM recipe's widths. The plan is a plain function of the shapes
-and of two numbers of the device, so this runs on the CPU."""
+"""The plan of the decoder scans' backward walk, K11 and K15 (the LSTM
+cell) and K5 (the GRU) (ops/cuda/attention_scan.py scan_plan): the
+cluster size C and the batch rows R of a cluster, and the shared memory
+of a block, pinned at the conv+BiLSTM recipe's widths and at the
+flagship's. The plan is a plain function of the shapes, the cell and two
+numbers of the device, so this runs on the CPU."""
 
 import pathlib
 import re
@@ -19,15 +20,23 @@ RESIDENT = {16: 7, 8: 15}  # clusters of 16 and of 8 blocks an H100 holds at ful
 # location term (K11) 16 maps of filter 5, without it (K15) none.
 L, S, A, ST = 16, 150, 256, 400
 LOC, CONTENT = (16, 5), (0, 0)
+# The flagship's decoder at its training shape (K5): L = 144 frames, score
+# 512, annotation 512 (the BiGRU's two directions of 256), state 256.
+FL, FS, FA, FST = 144, 512, 512, 256
 
 
-def smem_table(l=L, loc=LOC, s=S, a=A, st=ST):
-    return {(c, r): scan.walk_smem_bytes(r, c, l, s, a, st, *loc)
+def smem_table(l=L, loc=LOC, s=S, a=A, st=ST, cell="lstm"):
+    return {(c, r): scan.walk_smem_bytes(cell, r, c, l, s, a, st, *loc)
             for c in scan.WALK_CLUSTERS for r in scan.WALK_ROWS}
 
 
 def plan(b, resident=RESIDENT, smem_limit=SMEM, loc=LOC, l=L):
-    return scan.scan_plan(b, smem_table(l, loc), smem_limit, resident)
+    return scan.scan_plan(b, smem_table(l, loc), smem_limit, resident, scan.STEP_COST["lstm"])
+
+
+def gru_plan(b, resident=RESIDENT, smem_limit=SMEM, l=FL):
+    return scan.scan_plan(b, smem_table(l, CONTENT, FS, FA, FST, "gru"), smem_limit, resident,
+                          scan.STEP_COST["gru"])
 
 
 @pytest.mark.parametrize("loc", [LOC, CONTENT])
@@ -58,7 +67,8 @@ def test_plan_takes_fewer_rows_where_a_block_does_not_fit():
     one wave."""
     table = smem_table(l=3000)
     assert max(table[(c, 4)] for c in scan.WALK_CLUSTERS) > SMEM >= table[(16, 2)]
-    assert scan.scan_plan(16, table, SMEM, RESIDENT) == scan.ScanPlan(8, 2, 1)
+    assert scan.scan_plan(16, table, SMEM, RESIDENT, scan.STEP_COST["lstm"]) == \
+        scan.ScanPlan(8, 2, 1)
 
 
 @pytest.mark.parametrize("resident,smem_limit", [({16: 0, 8: 0}, SMEM), (RESIDENT, 16 * 1024)])
@@ -89,7 +99,7 @@ def test_no_buffer_grows_with_the_full_length(loc, c, r):
     dfeat halo, whose size is fixed): lengths with the same ceil(L / C)
     take the same bytes, and each further position of a block adds the
     same few floats a row whatever L is."""
-    smem = lambda l: scan.walk_smem_bytes(r, c, l, S, A, ST, *loc)
+    smem = lambda l: scan.walk_smem_bytes("lstm", r, c, l, S, A, ST, *loc)
     for p in (1, 2, 5, 40):
         assert smem(c * (p - 1) + 1) == smem(c * p)
     per = (smem(c * 400) - smem(c * 200)) / 200
@@ -102,25 +112,77 @@ def test_no_buffer_grows_with_the_full_length(loc, c, r):
 # and sees L' + 1 refused.
 @pytest.mark.parametrize("loc,l_max", [(LOC, 18640), (CONTENT, 137856)])
 def test_the_longest_encoder_output(loc, l_max):
-    assert scan.walk_smem_bytes(1, 16, l_max, S, A, ST, *loc) <= SMEM
-    assert scan.walk_smem_bytes(1, 16, l_max + 1, S, A, ST, *loc) > SMEM
+    assert scan.walk_smem_bytes("lstm", 1, 16, l_max, S, A, ST, *loc) <= SMEM
+    assert scan.walk_smem_bytes("lstm", 1, 16, l_max + 1, S, A, ST, *loc) > SMEM
     assert plan(1, loc=loc, l=l_max) == scan.ScanPlan(16, 1, 1)
     with pytest.raises(RuntimeError):
         plan(1, loc=loc, l=l_max + 1)
 
 
+@pytest.mark.parametrize("b,resident,want", [
+    (16, RESIDENT, scan.ScanPlan(8, 2, 1)),    # the recipe's batch: 8 clusters of 8
+    (128, RESIDENT, scan.ScanPlan(8, 4, 3)),   # R = 8 fits no block: 32 clusters of 8 in 3
+    (1, RESIDENT, scan.ScanPlan(16, 1, 1)),
+    (5, RESIDENT, scan.ScanPlan(16, 1, 1)),    # 5 clusters of one row each
+    (16, {16: 0, 8: 15}, scan.ScanPlan(8, 2, 1)),
+    (128, {16: 8, 8: 16}, scan.ScanPlan(8, 4, 2)),
+])
+def test_gru_plan_at_the_flagship_batches(b, resident, want):
+    """K5's plan at the flagship's widths, from the GRU walk's step costs."""
+    assert gru_plan(b, resident) == want
+
+
+def test_gru_smem_bytes_at_the_flagship():
+    """K5 at the flagship's widths, every (C, R): R = 8 fits no block (the
+    blocks' dws partials, C x R rows of S = 512 floats, take 256 KB on
+    clusters of 16 and 128 KB on clusters of 8), the rest do."""
+    assert smem_table(FL, CONTENT, FS, FA, FST, "gru") == {
+        (16, 1): 51984, (16, 2): 99728, (16, 4): 195216, (16, 8): 386288,
+        (8, 1): 37168, (8, 2): 70096, (8, 4): 136048, (8, 8): 267952}
+
+
+@pytest.mark.parametrize("resident,smem_limit", [({16: 0, 8: 0}, SMEM), (RESIDENT, 16 * 1024)])
+def test_gru_plan_raises_when_no_cluster_fits(resident, smem_limit):
+    with pytest.raises(RuntimeError, match="no cluster of 16 or 8 blocks fits the device"):
+        gru_plan(1, resident, smem_limit)
+
+
+@pytest.mark.parametrize("c", scan.WALK_CLUSTERS)
+@pytest.mark.parametrize("r", scan.WALK_ROWS)
+def test_no_gru_buffer_grows_with_the_full_length(c, r):
+    """As for the LSTM walk: lengths with the same ceil(L / C) take the same
+    bytes, and each further position of a block adds 6 floats a row (alpha
+    and its cotangent, staged twice; the carry and de)."""
+    smem = lambda l: scan.walk_smem_bytes("gru", r, c, l, FS, FA, FST)
+    for p in (1, 2, 5, 40):
+        assert smem(c * (p - 1) + 1) == smem(c * p)
+    assert (smem(c * 400) - smem(c * 200)) / 200 == pytest.approx(4 * 6 * r, rel=0.01)
+
+
+def test_the_longest_flagship_encoder_output():
+    """K5 at one batch row (C = 16, R = 1) fits L <= 120448 frames (about
+    64 min at 32 ms a frame; the one-block walk it replaces refused L above
+    11836); the card test runs it and sees L + 1 refused."""
+    l_max = 120448
+    assert gru_plan(1, l=l_max) == scan.ScanPlan(16, 1, 1)
+    assert scan.walk_smem_bytes("gru", 1, 16, l_max + 1, FS, FA, FST) > SMEM
+    with pytest.raises(RuntimeError):
+        gru_plan(1, l=l_max + 1)
+
+
 def _c_smem_floats():
-    """csrc/attention_scan_loc_lstm.cu's lstm_walk_smem_floats as a Python
-    function, from its source, its kBars read from the source and held to
-    WALK_BARS."""
+    """csrc/attention_scan_loc_lstm.cu's walk_smem_floats as a Python
+    function, from its source, its per-cell mbarrier counts kBarsLstm and
+    kBarsGru read from the source and held to WALK_BARS."""
     src = (CSRC / "attention_scan_loc_lstm.cu").read_text()
-    body = re.search(r"long long lstm_walk_smem_floats\((.*?)\) \{\s*return (.*?);\n\}", src, re.S)
-    assert body, "lstm_walk_smem_floats not found"
-    bars = re.findall(r"constexpr int kBars = (\d+);", src)
-    assert len(bars) == 1, "kBars not found"
-    assert int(bars[0]) == scan.WALK_BARS
+    body = re.search(r"long long walk_smem_floats\((.*?)\) \{\s*return (.*?);\n\}", src, re.S)
+    assert body, "walk_smem_floats not found"
+    bars = re.findall(r"constexpr int kBarsLstm = (\d+), kBarsGru = (\d+);", src)
+    assert len(bars) == 1, "kBarsLstm, kBarsGru not found"
+    assert {"lstm": int(bars[0][0]), "gru": int(bars[0][1])} == scan.WALK_BARS
     params = re.findall(r"long long (\w+)", body.group(1))
-    expr = re.sub(r"\bkBars\b", bars[0], body.group(2))
+    expr = re.sub(r"\bkBarsLstm\b", bars[0][0], body.group(2))
+    expr = re.sub(r"\bkBarsGru\b", bars[0][1], expr)
     return eval(f"lambda {', '.join(params)}: ({expr})",
                 {"cdiv": lambda n, d: -(-n // d), "r4": lambda n: -(-n // 4) * 4,
                  "cspan": lambda n, c: -(-n // c) if n % 4 else 4 * -(-(n // 4) // c)})
@@ -134,5 +196,40 @@ def _c_smem_floats():
 @pytest.mark.parametrize("r", scan.WALK_ROWS)
 def test_the_kernel_lays_out_what_the_plan_counts(shape, c, r):
     l, s, a, st, fm, f = shape
-    assert 4 * _c_smem_floats()(r, c, l, s, a, st, fm, f, int(fm > 0)) == \
-        scan.walk_smem_bytes(r, c, l, s, a, st, fm, f)
+    assert 4 * _c_smem_floats()(r, c, l, s, a, st, fm, f, int(fm > 0), 1) == \
+        scan.walk_smem_bytes("lstm", r, c, l, s, a, st, fm, f)
+
+
+# The GRU walk (K5) has no location term.
+@pytest.mark.parametrize("shape", [
+    (FL, FS, FA, FST), (L, S, A, ST), (3, 17, 12, 9), (37, 64, 40, 33), (1, 600, 24, 33),
+    (120448, FS, FA, FST), (37, 64, 42, 36), (5, 7, 5, 3)])
+@pytest.mark.parametrize("c", scan.WALK_CLUSTERS)
+@pytest.mark.parametrize("r", scan.WALK_ROWS)
+def test_the_gru_walk_lays_out_what_the_plan_counts(shape, c, r):
+    l, s, a, st = shape
+    assert 4 * _c_smem_floats()(r, c, l, s, a, st, 0, 0, 0, 0) == \
+        scan.walk_smem_bytes("gru", r, c, l, s, a, st)
+
+
+def test_k5_builds_a_library_of_its_own():
+    """K5 shares its source with K10-K15 but builds with CONTENT_GRU_BWD_ONLY
+    defined into a library of its own, which nvcc compiles beside the
+    other's: that build holds K5's two entry points and no other, and the
+    other holds every entry point but K5's."""
+    src = scan.KERNEL_BWD.source.read_text()
+    assert scan.KERNEL_BWD.source == scan.KERNEL_LSTM_BWD.source
+    assert scan.KERNEL_BWD.library_path() != scan.KERNEL_LSTM_BWD.library_path()
+    assert "-DCONTENT_GRU_BWD_ONLY" in scan.KERNEL_BWD.flags
+    assert not any("CONTENT_GRU_BWD_ONLY" in f for f in scan.KERNEL_LSTM_BWD.flags)
+    entries = src[src.index('extern "C"'):]
+    others, k5 = entries.split("\n#else\n")
+    assert others.startswith('extern "C"') and src.rstrip().endswith("#endif")
+    assert src[:src.index('extern "C"')].rstrip().endswith("#ifndef CONTENT_GRU_BWD_ONLY")
+    assert re.findall(r'extern "C" int (\w+)\(', k5) == ["attention_decode_scan_bwd_limits",
+                                                       "attention_decode_scan_bwd"]
+    walks = (scan.KERNEL_LOC_LSTM_BWD, scan.KERNEL_LSTM_BWD)
+    want = {k.symbol for k in (scan.KERNEL_LOC_LSTM_FWD, scan.KERNEL_LOC_FWD,
+                               scan.KERNEL_LOC_BWD, scan.KERNEL_LSTM_FWD, *walks)}
+    want |= {k.symbol + "_limits" for k in walks}
+    assert set(re.findall(r'extern "C" int (\w+)\(', others)) == want

@@ -1,11 +1,12 @@
-"""The global scratch of the decoder-scan backwards K11, K13 and K15
+"""The global scratch of the decoder-scan backwards K5, K11, K13 and K15
 (ops/cuda/attention_scan.py::stash_floats, the host's copy of the
 kernels' carve_stash), pinned at the recipes' training shapes. The walks
 sum the location term's weight gradients themselves, so that term's
 scratch is a per-row dz of L*S floats and partial sums (for K13 a row's,
-for K11 a block's of the cluster walk, with dw_e's, as for K15): it does
-not grow with the number of steps T. Plain arithmetic, so this runs on
-the CPU; the last test holds stash_floats to carve_stash's source."""
+for K11 a block's of the cluster walk, with dw_e's, as for K5 and K15):
+it does not grow with the number of steps T. Plain arithmetic, so this
+runs on the CPU; the last test holds stash_floats to carve_stash's
+source."""
 
 import pathlib
 import re
@@ -22,12 +23,20 @@ SOURCE = (pathlib.Path(__file__).resolve().parents[1] / "seq2seq_attention_asr_t
 # 4 clusters of 16 blocks (64 rows of partials).
 FLAGSHIP_LOC = (False, 56, 144, 512, 256, 16, 10)
 CONV_BILSTM = (True, 56, 16, 150, 400, 16, 5)
+# The flagship recipe itself (K5: the GRU without the location term).
+FLAGSHIP = (False, 56, 144, 512, 256, 0, 0)
 RECIPE_PLAN = ScanPlan(16, 4)
+
+
+def _walks(lstm, fm):
+    """Whether the scan's backward is a cluster walk (K5, K11, K15): every
+    one but K13's."""
+    return lstm or not fm
 
 
 def _floats(shape, b, t_len=None):
     lstm, t, l, s_dim, st, fm, f = shape
-    partials = RECIPE_PLAN.partials(b) if lstm else 0
+    partials = RECIPE_PLAN.partials(b) if _walks(lstm, fm) else 0
     return stash_floats(lstm, b, t_len or t, l, s_dim, st, fm, f, partials)
 
 
@@ -35,6 +44,9 @@ def _floats(shape, b, t_len=None):
     (FLAGSHIP_LOC, 16, 4_754_176),    # 19.0 MB
     (FLAGSHIP_LOC, 128, 38_033_408),  # 152.1 MB
     (CONV_BILSTM, 16, 3_567_744),     # 14.3 MB: no per-step dw_e rows, 64 rows of partials
+    (FLAGSHIP, 16, 3_014_656),        # 12.1 MB: K5 on 4 clusters of 16 (was 3,440,640 with
+                                      # per-step dw_e rows)
+    (FLAGSHIP, 128, 24_117_248),      # 96.5 MB: 32 clusters of 16
 ])
 def test_stash_at_the_recipes_shapes(shape, b, want):
     assert _floats(shape, b) == want
@@ -50,7 +62,11 @@ def test_location_share_does_not_grow_with_the_steps(shape, b):
     walk for K11."""
     lstm, t, l, s_dim, st, fm, f = shape
     partials = RECIPE_PLAN.partials(b) if lstm else 0
-    content = lambda t_len: stash_floats(lstm, b, t_len, l, s_dim, st, partials=partials)
+    # The per-step stash without the location term: K15's for K11; for K13
+    # K5's and the rows of the step's w_e partial, which K13 keeps (K5 sums
+    # dw_e in its walk, into the partials, here none).
+    content = lambda t_len: (stash_floats(lstm, b, t_len, l, s_dim, st, partials=partials)
+                             + (0 if lstm else b * t_len * s_dim))
     for t_len in (1, t, 2 * t):
         assert _floats(shape, b, t_len) - content(t_len) == (
             b * l * s_dim + (partials if lstm else b) * (fm * s_dim + (f + 1) * fm))
@@ -65,6 +81,7 @@ def _carve_stash_floats(lstm, loc, B, T, L, S, St, FM, F, partials):
     for line in body.splitlines():
         line = line.strip().replace("(size_t)", "").replace("d.", "")
         line = line.replace("kLstm", "lstm").replace("kLoc", "loc")
+        line = re.sub(r"//.*", "", line).strip()
         if line in ("Carver c{p, 0};", "Stash s{};", "return s;", ""):
             continue
         pad = "    " * depth
@@ -76,8 +93,10 @@ def _carve_stash_floats(lstm, loc, B, T, L, S, St, FM, F, partials):
         elif m := re.fullmatch(r"if \((\w+)\) \{", line):
             py.append(f"{pad}if {m.group(1)}:")
             depth += 1
-        elif m := re.fullmatch(r"if \((\w+)\) " + take, line):
-            py.append(f"{pad}if {m.group(1)}: total += {m.group(2)}")
+        elif m := re.fullmatch(r"if \((!?)(\w+)\) " + take, line):
+            py.append(f"{pad}if {'not ' * bool(m.group(1))}{m.group(2)}: total += {m.group(3)}")
+        elif m := re.fullmatch(r"const bool (\w+) = (\w+) \|\| !(\w+);", line):
+            py.append(f"{pad}{m.group(1)} = {m.group(2)} or not {m.group(3)}")
         elif m := re.fullmatch(take, line):
             py.append(f"{pad}total += {m.group(1)}")
         elif m := re.fullmatch(r"const size_t (\w+) = (\w+) \? (\w+) : (\w+);", line):
@@ -97,8 +116,10 @@ def _carve_stash_floats(lstm, loc, B, T, L, S, St, FM, F, partials):
     (128, 56, 144, 512, 256, 16, 10, 128),
     (1, 1, 1, 1, 1, 1, 1, 8)])
 def test_stash_floats_is_what_carve_stash_takes(lstm, loc, b, t_len, l, s_dim, st, fm, f, partials):
-    """K5 (the GRU without the location term) carves its own stash in
-    attention_scan.cu and calls stash_floats like the GRU here."""
+    """Every instance: K11 (LSTM, location), K13 (GRU, location), K15
+    (LSTM) and K5 (GRU); the walks' with `partials` rows of partial sums,
+    K13's with B."""
     fm, f = (fm, f) if loc else (0, 0)
     want = _carve_stash_floats(lstm, loc, b, t_len, l, s_dim, st, fm, f, partials)
-    assert stash_floats(lstm, b, t_len, l, s_dim, st, fm, f, partials if lstm else 0) == want
+    got = stash_floats(lstm, b, t_len, l, s_dim, st, fm, f, partials if _walks(lstm, fm) else 0)
+    assert got == want

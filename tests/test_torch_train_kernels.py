@@ -118,7 +118,7 @@ def test_attention_decode_scan_plain_matches_pallas():
 def test_attention_decode_scan_bwd_plain_matches(reference):
     inputs = _scan_inputs()
     jargs = _jax_args(inputs)
-    s_seq, c_seq, _ = jas.attention_decode_scan(*jargs, 8, True)
+    s_seq, c_seq, alpha_seq = jas.attention_decode_scan(*jargs, 8, True)
     rng = np.random.RandomState(5)
     cot = [rng.randn(B, T, n).astype(np.float32) for n in (ST, A, L)]
     saved = (s_seq, c_seq, *map(jnp.asarray, cot))
@@ -126,9 +126,12 @@ def test_attention_decode_scan_bwd_plain_matches(reference):
         want = jas._run_bwd_xla(*jargs, *saved)
     else:
         want = jas._run_bwd(*jargs, *saved, 8, True)
+    # The port's backward takes the forward's alpha, which the JAX backward
+    # recomputes.
     got = attention_scan.attention_decode_scan_bwd(
-        *map(torch.from_numpy, inputs), torch.tensor(np.asarray(s_seq)),
-        torch.tensor(np.asarray(c_seq)), *map(torch.from_numpy, cot))
+        *map(torch.from_numpy, inputs),
+        *(torch.tensor(np.asarray(x)) for x in (s_seq, c_seq, alpha_seq)),
+        *map(torch.from_numpy, cot))
     names = ("dvh", "dh", "dyin") + attention_scan.WEIGHTS
     for name, g, w in zip(names, got, want):
         close(g, np.asarray(w).reshape(g.shape), 2e-4, 2e-5, name)

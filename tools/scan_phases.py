@@ -1,9 +1,10 @@
-"""Where a step of the decoder-scan backwards K11, K13 and K15, of the
+"""Where a step of the decoder-scan backwards K5, K11, K13 and K15, of the
 flagship's beam step K2, or of the forward GRU walk behind K1, K16 and
 K18, goes, on the card.
 
     python3 tools/scan_phases.py [SOURCE ...]
     python3 tools/scan_phases.py --lstm-bwd [SOURCE ...]
+    python3 tools/scan_phases.py --gru-bwd [SOURCE ...]
     python3 tools/scan_phases.py --k2 [SOURCE ...]
     python3 tools/scan_phases.py --gru-fwd [HEADER ...]
 
@@ -21,15 +22,18 @@ call's parity with the plain version (the backward tolerance). The
 counter adds two instructions of one thread a phase. Exits nonzero
 without a card.
 
-With --lstm-bwd it instruments lstm_walk, the cluster walk of K11 and
-K15 in the same source (or each SOURCE), whose markers follow the step's
-block barriers and its waits for the peers' pushes, and runs K11 and K15
-at the conv+BiLSTM recipe's training shape (with and without the
+With --lstm-bwd it instruments decoder_walk, the cluster walk of K11,
+K15 and K5 in the same source (or each SOURCE), whose markers follow the
+step's block barriers and its waits for the peers' pushes, and runs K11
+and K15 at the conv+BiLSTM recipe's training shape (with and without the
 location term) at B=16 and 128 on chip_smoke.py's cases: the plan each
 ran, the cycles a step of block 0 of cluster 0 by phase (the wait for
-the staged inputs, then each exchange with the work before it), the time
-per call (CUDA events over 5 calls) and the parity (the backward
-tolerance).
+the staged inputs, then each exchange with the work before it; a phase
+of the other cell's, which the walk does not run, is left out), the
+time per call (CUDA events over 5 calls) and the parity (the backward
+tolerance). With --gru-bwd it does the same for the GRU instance of the
+walk, K5, at the flagship recipe's training shape (L = 144, T = 56) at
+B=16 and 128.
 
 With --k2 it does the same for attention_step_kernel of
 csrc/attention_step.cu (or each SOURCE), whose markers follow the
@@ -98,9 +102,16 @@ STEP_CALL = re.compile(r"^  ([\w.]+)(?:<\w+>)?\((.*)\);$")
 # entry point stands in for, by chip_smoke.py's case name.
 ENTRY = {"attention_decode_scan_loc_bwd": ("K13", "KERNEL_LOC_BWD"),
          "attention_decode_scan_loc_lstm_bwd": ("K11", "KERNEL_LOC_LSTM_BWD"),
-         "attention_decode_scan_lstm_bwd": ("K15", "KERNEL_LSTM_BWD")}
-LSTM_SIG = "__device__ __forceinline__ void lstm_walk(float* sm, const BwdArgs& a) {"
-LSTM_LOOP = "  for (int s = 0; s < T; ++s) {"
+         "attention_decode_scan_lstm_bwd": ("K15", "KERNEL_LSTM_BWD"),
+         "attention_decode_scan_bwd": ("K5", "KERNEL_BWD")}
+# The mode's entry points, by chip_smoke.py's case name, and the trace
+# names of its instrumented kernels (for ptxas's spill lines).
+MODES = {"k13": (("attention_decode_scan_loc_bwd",), ("scan_loc_gru_bwd",)),
+         "lstm": (("attention_decode_scan_loc_lstm_bwd", "attention_decode_scan_lstm_bwd"),
+                  ("loc_lstm_bwd_kernel", "scan_lstm_bwd_kernel")),
+         "gru": (("attention_decode_scan_bwd",), ("content_gru_walk_kernel",))}
+WALK_SIG = "__device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {"
+WALK_LOOP = "  for (int s = 0; s < T; ++s) {"
 
 
 def instrument(src: str):
@@ -191,22 +202,22 @@ def instrument_gru_fwd(src: str):
     return head + GRU_FWD_SIG + body + "\n}\n" + tail, [n for _, n in names]
 
 
-def instrument_lstm(src: str):
+def instrument_walk(src: str):
     """The source with a cycle read by thread 0 of block 0 at each phase
-    marker of lstm_walk (K11's and K15's walk), and the phases' names in
-    order."""
-    head, rest = src.split(LSTM_SIG, 1)
+    marker of decoder_walk (K11's, K15's and K5's walk), and the phases'
+    names in order."""
+    head, rest = src.split(WALK_SIG, 1)
     body, tail = rest.split("\n}\n", 1)
     names = MARK.findall(body)
     if not names:
-        raise ValueError("no // [phase] markers in lstm_walk")
+        raise ValueError("no // [phase] markers in decoder_walk")
     counter = iter(range(len(names)))
     body = MARK.sub(lambda m: _clock_read(next(counter), m.group(1)), body)
-    if body.count(LSTM_LOOP) != 1:
-        raise ValueError("lstm_walk has no single step loop")
-    body = body.replace(LSTM_LOOP, "  long long phase_t0_ = clock64();\n" + LSTM_LOOP, 1)
+    if body.count(WALK_LOOP) != 1:
+        raise ValueError("decoder_walk has no single step loop")
+    body = body.replace(WALK_LOOP, "  long long phase_t0_ = clock64();\n" + WALK_LOOP, 1)
     head = head.replace("namespace {", PROBE + "\nnamespace {", 1)
-    return head + LSTM_SIG + body + "\n}\n" + tail, [n for _, n in names]
+    return head + WALK_SIG + body + "\n}\n" + tail, [n for _, n in names]
 
 
 def _card() -> str:
@@ -216,20 +227,22 @@ def _card() -> str:
                           check=True).stdout.strip()
 
 
-def cases(lstm: bool):
-    """chip_smoke.py's K13 cases at flagship_loc's training shape, or
-    (lstm) its K11 and K15 cases at the conv+BiLSTM recipe's, with and
-    without the location term; at B=16 and 128."""
+def cases(mode: str):
+    """chip_smoke.py's cases of `mode` at B=16 and 128: K13 at
+    flagship_loc's training shape ("k13"), K11 and K15 at the conv+BiLSTM
+    recipe's, with and without the location term ("lstm"), or K5 at the
+    flagship recipe's ("gru")."""
     import chip_smoke as smoke
     from seq2seq_attention_asr_tpu_torch import interop
     from seq2seq_attention_asr_tpu_torch.train import experiment
 
     gen = torch.Generator().manual_seed(smoke.SEED + 1)
     out = []
-    recipes = (((experiment.timit_conv_bilstm, smoke.cb_train_cases),
-                (smoke.conv_bilstm_content, smoke.cbc_train_cases)) if lstm
-               else ((smoke.flagship_loc, smoke.loc_train_cases),))
-    names = smoke.LSTM_BWDS if lstm else smoke.LOC_BWDS
+    recipes = {"lstm": ((experiment.timit_conv_bilstm, smoke.cb_train_cases),
+                        (smoke.conv_bilstm_content, smoke.cbc_train_cases)),
+               "k13": ((smoke.flagship_loc, smoke.loc_train_cases),),
+               "gru": ((experiment.timit_chorowski_normnll_colnorm, smoke.train_cases),)}[mode]
+    names = MODES[mode][0]
     for recipe, make in recipes:
         exp = recipe()
         params = interop.to_torch(
@@ -241,19 +254,19 @@ def cases(lstm: bool):
     return out
 
 
-def main(sources, lstm: bool = False) -> int:
-    """The default mode (K13's scan_bwd), or with `lstm` the --lstm-bwd
-    mode (K11's and K15's lstm_walk)."""
+def main(sources, mode: str = "k13") -> int:
+    """The default mode ("k13": K13's scan_bwd), or the --lstm-bwd
+    ("lstm": K11 and K15) or --gru-bwd ("gru": K5) mode, on
+    decoder_walk."""
     if not torch.cuda.is_available():
         print("scan_phases: no CUDA device is available", file=sys.stderr)
         return 1
     card = _card()
     kernels = {}
     torch.backends.cuda.matmul.allow_tf32 = False
-    entries = [e for e in ENTRY if (e != "attention_decode_scan_loc_bwd") == lstm]
-    walks = ("loc_lstm_bwd_kernel", "scan_lstm_bwd_kernel") if lstm else ("scan_loc_gru_bwd",)
+    entries, walks = MODES[mode]
     for src in map(pathlib.Path, sources):
-        text, names = (instrument_lstm if lstm else instrument)(src.read_text())
+        text, names = (instrument if mode == "k13" else instrument_walk)(src.read_text())
         headers = {h.name: h.read_text() for h in sorted(src.parent.glob("*.cuh"))}
         digest = hashlib.sha1((text + "".join(headers.values())).encode()).hexdigest()[:12]
         copy = build.BUILD_DIR / "phases" / digest
@@ -264,7 +277,8 @@ def main(sources, lstm: bool = False) -> int:
         out.write_text(text)
         kernels[src] = (names, {
             ENTRY[e][0]: build.Kernel(f"{ENTRY[e][0]} phases", str(out), e,
-                                      getattr(attention_scan, ENTRY[e][1]).argtypes)
+                                      getattr(attention_scan, ENTRY[e][1]).argtypes,
+                                      getattr(attention_scan, ENTRY[e][1]).defines)
             for e in entries})
     t0 = time.perf_counter()
     build.build_all(k for _, ks in kernels.values() for k in ks.values())
@@ -277,7 +291,7 @@ def main(sources, lstm: bool = False) -> int:
                 kernel = next((k for k in walks if k in line), None)
             elif kernel and ("spill" in line or "registers" in line):
                 print(f"scan_phases {src} {kernel}: {line.split(':', 1)[-1].strip()}")
-    for c in cases(lstm):
+    for c in cases(mode):
         name, attr = ENTRY[c.name]
         vh, yin = c.args[0], c.args[3]
         b, l, t = vh.shape[0], vh.shape[1], yin.shape[1]
@@ -288,7 +302,7 @@ def main(sources, lstm: bool = False) -> int:
             setattr(attention_scan, attr, ks[name])
             plan = ""
             try:
-                if lstm:
+                if mode != "k13":
                     fm, f = (c.args[14].shape[1], c.args[14].shape[0]) if name == "K11" else (0, 0)
                     run = attention_scan.scan_plan_on(ks[name], b, l, vh.shape[2],
                                                       c.args[1].shape[2], yin.shape[2], fm, f,
@@ -313,12 +327,14 @@ def main(sources, lstm: bool = False) -> int:
                     torch.cuda.synchronize()
             finally:
                 setattr(attention_scan, attr, default)
-            per_step = [n / t for n in cycles[:len(names)]]
+            # The walk's phases of the other cell never run: left out.
+            ran = [(p, n / t) for p, n in zip(names, cycles[:len(names)])
+                   if n or mode == "k13"]
             print(f"scan_phases {src} {name} B={b} L={l} T={t}{plan}: "
                   f"{start.elapsed_time(stop) / 5:.4f} ms per call, parity excess {excess:.3e} "
                   f"({'ok' if excess <= 5e-5 else 'FAILS'}); cycles a step of block 0: "
-                  f"{sum(per_step):.0f} = " + ", ".join(
-                      f"{p} {n:.0f}" for p, n in zip(names, per_step)) + f" ({card})")
+                  f"{sum(n for _, n in ran):.0f} = " + ", ".join(
+                      f"{p} {n:.0f}" for p, n in ran) + f" ({card})")
             if excess > 5e-5:
                 return 1
     return 0
@@ -486,5 +502,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--k2"]:
         sys.exit(main_k2(sys.argv[2:] or [str(K2_SOURCE)]))
     if sys.argv[1:2] == ["--lstm-bwd"]:
-        sys.exit(main(sys.argv[2:] or [str(SOURCE)], lstm=True))
+        sys.exit(main(sys.argv[2:] or [str(SOURCE)], "lstm"))
+    if sys.argv[1:2] == ["--gru-bwd"]:
+        sys.exit(main(sys.argv[2:] or [str(SOURCE)], "gru"))
     sys.exit(main(sys.argv[1:] or [str(SOURCE)]))

@@ -30,8 +30,8 @@ Phases, each fatal when it fails:
      with every position masked (alpha and c exactly 0), K = 1 and 8,
      B = 16 and K = 8 with L = 1500, each with two calls bitwise equal
      and one launch a call; K9 and K11 (the
-     backward tolerance; K11 and K15 also twice, the two calls bitwise
-     equal, one launch each) and K10 (1e-4 abs) at the conv+BiLSTM recipe's
+     backward tolerance; K10, K11, K14 and K15 also twice, the two calls
+     bitwise equal, one launch each) and K10 (1e-4 abs) at the conv+BiLSTM recipe's
      training shape, B = 16, 144 frames (L' = 16), T = 56, on the conv
      stack's and the encoder's output of the same batch; K12 (1e-4 abs)
      and K13 (the backward tolerance), the location-aware GRU decoder
@@ -45,7 +45,13 @@ Phases, each fatal when it fails:
      states with a random cotangent, at the training batch (B = 16, L =
      144) and at B = 1, L = 132 (1e-4 abs forward, the backward tolerance
      on dxproj, dh0, dWzr and dWh); K1, K16 and K18 also twice, the two
-     calls bitwise equal;
+     calls bitwise equal; K10 and K14 (which run on thread-block clusters
+     of C blocks, R batch rows a cluster) at FWD_EDGES under every plan
+     that fits the card (each C, R and W_cx layout): the recipe's widths
+     at B = 16 and 128, L' < C with St and A not multiples of 4, L' not a
+     multiple of C at B not a multiple of R, each with a fully masked row
+     (alpha and c exactly 0), two calls bitwise equal and one launch a
+     call;
   4. serve 3.5 s of PCM with seeded random flagship weights: exact=False
      at batch 1 and 8 (kernels K1, K2, K3), exact=True at batch 1 (K1,
      K2), with the launch counts zeroed just before each request;
@@ -109,7 +115,13 @@ Phases, each fatal when it fails:
      step, the plan it ran (C blocks and R rows a cluster, clusters and
      waves) and the scratch bytes, and the walk under each (C, R) that
      fits, each held to the plain version and run twice (the sweeps that
-     attention_scan.STEP_COST is read from);
+     attention_scan.STEP_COST is read from); for K10 and K14 at the
+     conv+BiLSTM recipe's training shape at B = 16 and 128 the device time
+     by stage (the pre-pass, the walk), the walk's time a step, its plan
+     (C, R, W_cx resident or streamed, clusters and waves) and the scratch
+     bytes, and the walk under each plan that fits, each held to the plain
+     version and run twice (the sweeps that attention_scan.FWD_STEP_COST is
+     read from);
   9. the p50 request latency over 10 requests of each model, and the
      device idle share: 1 - (device time of one request) / p50; the p50
      train step of each recipe over 10
@@ -133,8 +145,9 @@ device time of the forward GRU walk's kernels K1, K16 and K18 at B = 1,
 L = 132 and B = 16 and 128, L = 144, of the flagship's beam step K2 and of K8's two instances on
 the flagship's widths at b = 1 and 8, the flagship's serving p50 and device time of
 one request at b = 1 and 8, the time per call of each teacher-forced
-decoder scan (K4, K5, K10-K15) at its recipe's training shape (K5, K11,
-K13 and K15 at B = 128 too) and the device time of K5, K11 and K15, and
+decoder scan (K4, K5, K10-K15) at its recipe's training shape (K5, K10,
+K11 and K13-K15 at B = 128 too) and the device time of K5, K10, K11, K14
+and K15, and
 the p50 train step of each of the four trained configurations at B = 16
 and 128.
 """
@@ -208,13 +221,13 @@ STEP_KERNELS = ("bigru_scan2_bwd_kernel", "gru_gates_kernel", "bigru_scan2_kerne
                 "scan_fwd_kernel", "gru_decoder_prepass_kernel", "content_gru_walk_kernel",
                 "atb_kernel")
 CB_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "bilstm_scan_kernel",
-                   "loc_lstm_fwd_kernel", "loc_lstm_bwd_kernel", "lstm_decoder_prepass_kernel",
-                   "atb_kernel")
+                   "loc_lstm_fwd_kernel", "lstm_fwd_prepass_kernel", "loc_lstm_bwd_kernel",
+                   "lstm_decoder_prepass_kernel", "atb_kernel")
 LOC_STEP_KERNELS = ("bigru_scan2_bwd_kernel", "gru_gates_kernel", "bigru_scan2_kernel",
                     "scan_loc_gru_fwd_kernel", "scan_loc_gru_bwd_kernel", "atb_kernel")
 CBC_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "bilstm_scan_kernel",
-                    "scan_lstm_fwd_kernel", "scan_lstm_bwd_kernel", "lstm_decoder_prepass_kernel",
-                    "atb_kernel")
+                    "scan_lstm_fwd_kernel", "lstm_fwd_prepass_kernel", "scan_lstm_bwd_kernel",
+                    "lstm_decoder_prepass_kernel", "atb_kernel")
 # The flagship encoder's three BiGRU layers by each path (phase 7): the
 # port's flip-free bigru_layer (K1, K6), one gru_layer per direction
 # (K16, K17) and the direction-stacked scan (K18, K19); the launches of
@@ -255,6 +268,12 @@ GRU_PREPASS = ("gru_decoder_prepass_kernel",) * 4
 WALK_BWDS = {"attention_decode_scan_bwd": ("content_gru_walk_kernel", GRU_PREPASS),
              "attention_decode_scan_loc_lstm_bwd": ("loc_lstm_bwd_kernel", PREPASS),
              "attention_decode_scan_lstm_bwd": ("scan_lstm_bwd_kernel", PREPASS)}
+# The LSTM decoder forwards on thread-block clusters (K10, K14): each call
+# runs the pre-pass (two launches) and the walk. Each one's walk by trace
+# name.
+FWD_PREPASS = ("lstm_fwd_prepass_kernel",) * 2
+FWD_SCANS = {"attention_decode_scan_loc_lstm_fwd": "loc_lstm_fwd_kernel",
+             "attention_decode_scan_lstm_fwd": "scan_lstm_fwd_kernel"}
 
 REPLACES = {
     "bigru_scan2": "seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:666",
@@ -399,8 +418,9 @@ def device_ms(fn, symbols, iters: int) -> float:
     one of `symbols` (a C entry point may start more than one; a symbol
     listed n times is launched n times a call), or of every device op the
     call starts when `symbols` is None, without the host's time between
-    launches. A trace that kept fewer than nine tenths of the launches is
-    taken again, at most twice."""
+    launches. A trace that kept fewer than nine tenths of the launches (or,
+    for `symbols` None, no device record: nan after three) is taken again,
+    at most twice."""
     return sum(device_parts(fn, symbols, iters).values())
 
 
@@ -418,7 +438,10 @@ def device_parts(fn, symbols, iters: int) -> dict:
                 fn()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if symbols is None:
-            return {None: sum(e.time_range.elapsed_us() for e in events) / iters / 1e3}
+            if events:
+                return {None: sum(e.time_range.elapsed_us() for e in events) / iters / 1e3}
+            print(f"device_ms: trace {attempt + 1} kept no device record")
+            continue
         ms, short = {}, []
         for symbol in dict.fromkeys(symbols):
             per_call = symbols.count(symbol)
@@ -434,6 +457,8 @@ def device_parts(fn, symbols, iters: int) -> dict:
         if not short:
             return ms
         print(f"device_ms: trace {attempt + 1} kept {'; '.join(short)}")
+    if symbols is None:
+        return {None: float("nan")}
     raise SystemExit(f"profiler saw {'; '.join(short)} in each of 3 traces")
 
 
@@ -663,6 +688,98 @@ def k2_edge_phase(dec, acfg, kernel, gen) -> float:
         if not (err <= TOL and finite and same and zero and launches == 2):
             raise SystemExit(f"fused_attention_step B={b} K={k} L={l} fails on the card")
         worst = max(worst, err)
+    return worst
+
+
+# The LSTM decoder forwards' edge shapes (phase 3): (kind, B, L, T, (S, A,
+# St, FM, F)), K10 ("loc") and K14 ("lstm"), the last batch row with
+# every position masked: the conv+BiLSTM recipe's widths at B = 16 and
+# 128; L' = 13 < C with St = 9 and A = 12 (not multiples of 4), FM = 3
+# and an even filter; L' = 37, not a multiple of C, at B = 5, not a
+# multiple of R.
+FWD_EDGES = [("loc", TRAIN_B, 16, TRAIN_T, (150, 256, 400, 16, 5)),
+             ("lstm", TRAIN_B, 16, TRAIN_T, (150, 256, 400, 0, 0)),
+             ("loc", BIG_B, 16, TRAIN_T, (150, 256, 400, 16, 5)),
+             ("lstm", BIG_B, 16, TRAIN_T, (150, 256, 400, 0, 0)),
+             ("loc", 3, 13, 5, (17, 12, 9, 3, 4)), ("lstm", 3, 13, 5, (17, 12, 9, 0, 0)),
+             ("loc", 5, 37, 9, (64, 40, 33, 16, 5)), ("lstm", 5, 37, 9, (64, 40, 33, 0, 0))]
+
+
+def fwd_edge_inputs(kind, b, l, t, dims, gen):
+    """K10's or K14's arguments at (B, L, T) and widths `dims`: encoder
+    lengths ragged, the last row fully masked, weights at the scale of
+    torch's default init."""
+    s_dim, a, st, fm, f = dims
+    dev = torch.device("cuda")
+    rnd = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen) * scale).to(dev)
+    lens = torch.randint(1, l + 1, (b,), generator=gen).to(dev)
+    lens[0] = l
+    mask = (torch.arange(l, device=dev)[None] < lens[:, None]).float()
+    mask[-1] = 0.0
+    h = rnd(b, l, a, scale=0.5) * mask[:, :, None]
+    u = lambda *shape: rnd(*shape, scale=shape[0] ** -0.5)
+    weights = [u(st, s_dim), u(st, s_dim)[0], u(s_dim, s_dim)[0], u(a, st), u(a, st)[0],
+               u(2 * st, st), u(2 * st, st)[0], u(st, 4 * st), u(st, 4 * st), u(st, 4 * st)[0]]
+    if kind == "loc":
+        weights += [u(f, fm), u(f, fm)[0], u(fm, s_dim)]
+    vh = (h @ u(a, s_dim)).contiguous()
+    return (vh, h, mask, rnd(b, t, st, scale=0.5), *(w.contiguous() for w in weights))
+
+
+def fwd_plans(kernel, b, l, s_dim, a, st, fm, f):
+    """The forward walk's plans that fit the card at these shapes: every
+    (C, R) and, where W_cx's slice fits a block, both layouts."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    smem, resident = attention_scan.scan_limits(kernel, torch.device("cuda"))
+    return [attention_scan.FwdPlan(c, r, held) for c in attention_scan.WALK_CLUSTERS
+            for r in attention_scan.WALK_ROWS for held in (False, True)
+            if resident[c] >= 1 and attention_scan.fwd_smem_bytes(
+                r, c, l, s_dim, a, st, fm, f, held) <= smem]
+
+
+def fwd_edge_phase(kernels, gen) -> dict:
+    """K10 and K14 at FWD_EDGES under each plan that fits: parity with the
+    plain version (TOL), alpha and c exactly 0 on the fully masked row,
+    two calls bitwise equal, one launch a call. Returns the largest max
+    abs error of each."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    names = {"loc": "attention_decode_scan_loc_lstm_fwd", "lstm": "attention_decode_scan_lstm_fwd"}
+    worst = dict.fromkeys(names.values(), 0.0)
+    default = attention_scan.fwd_plan_on
+    try:
+        for kind, b, l, t, dims in FWD_EDGES:
+            name = names[kind]
+            fwd = getattr(attention_scan, name[:-4])
+            args = fwd_edge_inputs(kind, b, l, t, dims, gen)
+            with torch.no_grad():
+                want = getattr(attention_scan, name[:-4] + "_plain")(*args)
+            runs = fwd_plans(kernels[name], b, l, *dims)
+            line = []
+            for run in runs:
+                attention_scan.fwd_plan_on = lambda *_, run=run: run
+                before = kernels[name].launches
+                with torch.no_grad():
+                    got, again = fwd(*args), fwd(*args)
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                finite = all(bool(torch.isfinite(g).all()) for g in got)
+                same = all(torch.equal(g, w) for g, w in zip(got, again))
+                zero = not (got[1][-1].any() or got[2][-1].any())
+                launches = kernels[name].launches - before
+                if not (err <= TOL and finite and same and zero and launches == 2):
+                    raise SystemExit(f"{name} B={b} L={l} T={t} {dims} on {run} fails on the "
+                                     f"card: err {err:.3e}, finite {finite}, repeat {same}, "
+                                     f"masked row 0 {zero}, {launches} launches for 2 calls")
+                worst[name] = max(worst[name], err)
+                line.append(f"C={run.cluster} R={run.rows}{' resident' if run.resident else ''} "
+                            f"{err:.3e}")
+            print(f"parity {name} B={b} L={l} T={t} (S, A, St, FM, F)={dims}, last row fully "
+                  f"masked (alpha and c exactly 0), two calls bitwise equal and one launch a "
+                  f"call under each plan, max_abs_err (tol {TOL}): " + "; ".join(line))
+    finally:
+        attention_scan.fwd_plan_on = default
     return worst
 
 
@@ -1032,19 +1149,19 @@ def cb_train_cases(params, cfg, batch, gen: torch.Generator):
 
 
 # The kernels of each teacher-forced decoder scan that shares
-# attention_scan_loc_lstm.cu: (forward name, its trace symbols, backward
-# name, its trace symbols: for the LSTM the pre-pass, the walk, then one
-# reduction over the steps and one over the walk's partials; for the GRU
-# the walk, the steps' reduction and one over the rows' location-term
-# partials).
+# attention_scan_loc_lstm.cu: (forward name, its trace symbols: for the
+# LSTM the pre-pass and the walk; backward name, its trace symbols: for
+# the LSTM the pre-pass, the walk, then one reduction over the steps and
+# one over the walk's partials; for the GRU the walk, the steps'
+# reduction and one over the rows' location-term partials).
 DECODER_SCANS = {
-    "loc_lstm": ("attention_decode_scan_loc_lstm_fwd", ("loc_lstm_fwd_kernel",),
+    "loc_lstm": ("attention_decode_scan_loc_lstm_fwd", FWD_PREPASS + ("loc_lstm_fwd_kernel",),
                  "attention_decode_scan_loc_lstm_bwd",
                  PREPASS + ("loc_lstm_bwd_kernel", "atb_kernel", "atb_kernel")),
     "loc": ("attention_decode_scan_loc_fwd", ("scan_loc_gru_fwd_kernel",),
             "attention_decode_scan_loc_bwd",
             ("scan_loc_gru_bwd_kernel", "atb_kernel", "atb_kernel")),
-    "lstm": ("attention_decode_scan_lstm_fwd", ("scan_lstm_fwd_kernel",),
+    "lstm": ("attention_decode_scan_lstm_fwd", FWD_PREPASS + ("scan_lstm_fwd_kernel",),
              "attention_decode_scan_lstm_bwd",
              PREPASS + ("scan_lstm_bwd_kernel", "atb_kernel", "atb_kernel")),
 }
@@ -1468,47 +1585,42 @@ def decoder_walk_split(c, kernel, tag: str, iters: int, card: str) -> None:
           f"({4 * floats / 1e6:.1f} MB) ({card})")
 
 
-def decoder_walk_sweep(c, kernel, tag: str, card: str, iters: int = 10) -> None:
-    """Phase 8: K5, K11 or K15 (`c`) under each (C, R) the walk can take
-    that fits the device, each held to the plain version and run twice
-    with the same bits: the walk's device time, its time a step, and a
-    step and wave. attention_scan.STEP_COST is read from these times. One
-    profiler trace holds `iters` calls of every plan in turn, the walk's
-    records told apart by their launch order; a trace that lost one of
-    them is taken again, at most twice."""
+def plan_sweep(c, kernel, tag: str, card: str, walk_sym: str, attr: str, runs, plan, describe,
+               check, iters: int = 10) -> None:
+    """Phase 8: the walk of case `c` (of `kernel`) under each plan of
+    `runs`, each set in place of attention_scan.<attr> and held to the
+    plain version (`check`
+    of the kernel's and the plain outputs, True where within tolerance)
+    and run twice with the same bits: the walk's (trace symbol `walk_sym`)
+    device time, its time a step, and a step and wave; `plan` is the
+    wrapper's own, `describe` names a plan. One profiler trace holds
+    `iters` calls of every plan in turn, the walk's records told apart by
+    their launch order; a trace that lost one of them is taken again, at
+    most twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
-    walk_sym = WALK_BWDS[c.name][0]
-    b, l, s_dim, a, st, fm, f = walk_case_dims(c)
-    t_len = c.args[3].shape[1]
-    cell = attention_scan.WALK_CELL[kernel.symbol]
-    smem, resident = attention_scan.scan_limits(kernel, c.args[0].device)
+    b, t_len = c.args[0].shape[0], c.args[3].shape[1]
+    _, resident = attention_scan.scan_limits(kernel, c.args[0].device)
     with torch.no_grad():
         want = c.plain(*c.args)
-    plan = attention_scan.scan_plan_on(kernel, b, l, s_dim, a, st, fm, f, c.args[0].device)
-    runs = [attention_scan.ScanPlan(cluster, rows) for cluster in attention_scan.WALK_CLUSTERS
-            for rows in attention_scan.WALK_ROWS
-            if resident[cluster] >= 1 and attention_scan.walk_smem_bytes(
-                cell, rows, cluster, l, s_dim, a, st, fm, f) <= smem]
     call = lambda: c.kernel(*c.args)
-    default = attention_scan.scan_plan_on
+    default = getattr(attention_scan, attr)
     try:
         for run in runs:
-            attention_scan.scan_plan_on = lambda *_, run=run: run
+            setattr(attention_scan, attr, lambda *_, run=run: run)
             with torch.no_grad():
                 got, again = call(), call()
             torch.cuda.synchronize()
-            excess = bwd_err(got, want)
-            if excess > 5e-5 or not all(torch.equal(x, y) for x, y in zip(got, again)):
+            if not check(got, want) or not all(torch.equal(x, y) for x, y in zip(got, again)):
                 raise SystemExit(f"{c.label} {tag} with {run}: disagrees with its plain "
-                                 f"version ({excess:.3e}) or between two calls")
+                                 f"version ({max_err(got, want):.3e}) or between two calls")
         for attempt in range(3):
             with torch.no_grad(), traced([ProfilerActivity.CUDA]) as prof:
                 for run in runs:
-                    attention_scan.scan_plan_on = lambda *_, run=run: run
+                    setattr(attention_scan, attr, lambda *_, run=run: run)
                     for _ in range(iters):
                         call()
             durs = [e.time_range.elapsed_us() / 1e3 for e in sorted(
@@ -1522,15 +1634,84 @@ def decoder_walk_sweep(c, kernel, tag: str, card: str, iters: int = 10) -> None:
         else:
             raise SystemExit(f"sweep {c.label} {tag}: every trace lost walk launches")
     finally:
-        attention_scan.scan_plan_on = default
+        setattr(attention_scan, attr, default)
     line = []
     for i, run in enumerate(runs):
         ms = statistics.mean(durs[i * iters:(i + 1) * iters])
         waves = -(-(-(-b // run.rows)) // resident[run.cluster])
-        line.append(f"C={run.cluster} R={run.rows} {ms:.4f} ms, {1e3 * ms / t_len:.2f} us a step "
-                    f"in {waves} waves ({1e3 * ms / t_len / waves:.2f} a wave)")
+        line.append(f"{describe(run)} {ms:.4f} ms, {1e3 * ms / t_len:.2f} us a step in {waves} "
+                    f"waves ({1e3 * ms / t_len / waves:.2f} a wave)")
     print(f"time {c.label} walk by plan {tag} (parity and repeat hold at each; the plan takes "
-          f"C={plan.cluster} R={plan.rows}): " + "; ".join(line) + f" ({card})")
+          f"{describe(plan)}): " + "; ".join(line) + f" ({card})")
+
+
+def decoder_walk_sweep(c, kernel, tag: str, card: str) -> None:
+    """Phase 8: K5, K11 or K15 (`c`) under each (C, R) the walk can take
+    that fits the device (plan_sweep, the backward tolerance).
+    attention_scan.STEP_COST is read from these times."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    b, l, s_dim, a, st, fm, f = walk_case_dims(c)
+    cell = attention_scan.WALK_CELL[kernel.symbol]
+    smem, resident = attention_scan.scan_limits(kernel, c.args[0].device)
+    plan = attention_scan.scan_plan_on(kernel, b, l, s_dim, a, st, fm, f, c.args[0].device)
+    runs = [attention_scan.ScanPlan(cluster, rows) for cluster in attention_scan.WALK_CLUSTERS
+            for rows in attention_scan.WALK_ROWS
+            if resident[cluster] >= 1 and attention_scan.walk_smem_bytes(
+                cell, rows, cluster, l, s_dim, a, st, fm, f) <= smem]
+    plan_sweep(c, kernel, tag, card, WALK_BWDS[c.name][0], "scan_plan_on", runs, plan,
+               lambda run: f"C={run.cluster} R={run.rows}",
+               lambda got, want: bwd_err(got, want) <= 5e-5)
+
+
+def fwd_case_dims(c):
+    """(B, L, S, A, St, FM, F) of a case of FWD_SCANS (K10 or K14)."""
+    vh, h, yin = c.args[0], c.args[1], c.args[3]
+    b, l, s_dim = vh.shape
+    fm, f = 0, 0
+    if c.name == "attention_decode_scan_loc_lstm_fwd":
+        f, fm = c.args[14].shape  # after vh, h, mask, yin, the 7 step and 3 cell weights
+    return b, l, s_dim, h.shape[2], yin.shape[2], fm, f
+
+
+def fwd_walk_split(c, kernel, tag: str, iters: int, card: str) -> None:
+    """Phase 8 for K10 and K14 (`c`, a case of FWD_SCANS): the device time
+    by stage over `iters` traced calls (the pre-pass, the walk), the
+    walk's time a step, the plan it ran and the scratch the call takes."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    ms, kept = _stage_times(c, tuple((sym, "pre-pass") for sym in FWD_PREPASS)
+                            + ((FWD_SCANS[c.name], "walk"),), iters)
+    b, l, s_dim, a, st, fm, f = fwd_case_dims(c)
+    t_len = c.args[3].shape[1]
+    plan = attention_scan.fwd_plan_on(kernel, b, l, s_dim, a, st, fm, f, c.args[0].device)
+    smem, resident = attention_scan.scan_limits(kernel, c.args[0].device)
+    floats = attention_scan.fwd_scratch_floats(b, t_len, a, st)
+    block_bytes = attention_scan.fwd_smem_bytes(plan.rows, plan.cluster, l, s_dim, a, st, fm, f,
+                                                plan.resident)
+    print(f"time {c.label} {tag} by stage: pre-pass {ms['pre-pass']:.4f} ms, walk "
+          f"{ms['walk']:.4f} ms ({1e3 * ms['walk'] / t_len:.2f} us a step over {t_len} steps) "
+          f"(records kept: {', '.join(f'{k} {n}' for k, n in kept.items())} of {iters} calls); "
+          f"plan C={plan.cluster} R={plan.rows} W_cx "
+          f"{'resident' if plan.resident else 'streamed'}, {-(-b // plan.rows)} clusters in "
+          f"{plan.waves} waves ({resident} resident at once, "
+          f"{block_bytes} of {smem} bytes of shared memory a block); scratch {floats} floats "
+          f"({4 * floats / 1e6:.1f} MB) ({card})")
+
+
+def fwd_walk_sweep(c, kernel, tag: str, card: str) -> None:
+    """Phase 8: K10 or K14 (`c`) under each plan that fits the device
+    (fwd_plans; plan_sweep, 1e-4 abs). attention_scan.FWD_STEP_COST is
+    read from these times (the resident layout where it fits)."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    b, l, s_dim, a, st, fm, f = fwd_case_dims(c)
+    plan = attention_scan.fwd_plan_on(kernel, b, l, s_dim, a, st, fm, f, c.args[0].device)
+    plan_sweep(c, kernel, tag, card, FWD_SCANS[c.name], "fwd_plan_on",
+               fwd_plans(kernel, b, l, s_dim, a, st, fm, f), plan,
+               lambda run: f"C={run.cluster} R={run.rows} W_cx "
+                           f"{'resident' if run.resident else 'streamed'}",
+               lambda got, want: max_err(got, want) <= TOL)
 
 
 def k6_plan_sweep(kernel, b: int, card: str) -> None:
@@ -1931,10 +2112,10 @@ def tree_timing() -> dict:
     shape, b=1 and 8; the flagship's
     serving p50 and device time of one request (exact=False, b=1 and 8);
     of each teacher-forced decoder scan, forward and backward (K4, K5,
-    K10-K15), at its recipe's training shape (B=16; K5, K11, K13 and K15
-    at B=128 too), and the device time of K5, K11 and K15 (every device
-    op of a call); and the p50 train step of each trained configuration
-    at B=16 and 128."""
+    K10-K15), at its recipe's training shape (B=16; K5, K10, K11 and
+    K13-K15 at B=128 too), and the device time of K5, K10, K11, K14 and
+    K15 (every device op of a call); and the p50 train step of each
+    trained configuration at B=16 and 128."""
     from seq2seq_attention_asr_tpu_torch import interop
     from seq2seq_attention_asr_tpu_torch.models import registry
     from seq2seq_attention_asr_tpu_torch.train import experiment
@@ -1974,10 +2155,11 @@ def tree_timing() -> dict:
         params = interop.to_torch(params_cpu, "cuda")
         for b in (TRAIN_B, BIG_B):
             for c in make_cases(params, recipe().build_model().cfg, train_batch(b, SEED + 3), gen):
-                if c.name.startswith("attention_decode_scan") and (b == TRAIN_B or c.backward):
+                if c.name.startswith("attention_decode_scan") and (
+                        b == TRAIN_B or c.backward or c.name in FWD_SCANS):
                     with torch.no_grad():
                         out[f"{c.name} B={b} ms per call"] = time_ms(lambda: c.kernel(*c.args), 10)
-                        if c.name in WALK_BWDS:  # every device op of a call, in either tree
+                        if c.name in WALK_BWDS or c.name in FWD_SCANS:  # every device op of a call
                             out[f"{c.name} B={b} device ms"] = device_ms(
                                 lambda: c.kernel(*c.args), None, 10)
         del params
@@ -2105,10 +2287,12 @@ def main(parent=None) -> int:
                 want = c.plain(*c.args)
             torch.cuda.synchronize()
             errs[c.name] = max(errs[c.name], c.check(got, want, shape_tag(b)))
-            if c.name in FWD_WALKS or c.name in WALK_BWDS:
+            if c.name in FWD_WALKS or c.name in WALK_BWDS or c.name in FWD_SCANS:
                 check_repeat(c, kernels[c.name], got, shape_tag(b))
     errs["fused_attention_step"] = max(errs["fused_attention_step"], k2_edge_phase(
         params["decoder"], cfg.attention_config(), kernels["fused_attention_step"], gen))
+    for name, err in fwd_edge_phase(kernels, gen).items():
+        errs[name] = max(errs[name], err)
 
     # Phases 4 and 5: serve on the card, then the same requests on the CPU.
     # The "eos" weights raise the readout's bias at eos, so that
@@ -2192,6 +2376,9 @@ def main(parent=None) -> int:
             if c.name in WALK_BWDS:
                 decoder_walk_split(c, kernels[c.name], tag, n, card)
                 decoder_walk_sweep(c, kernels[c.name], tag, card)
+            if c.name in FWD_SCANS:
+                fwd_walk_split(c, kernels[c.name], tag, n, card)
+                fwd_walk_sweep(c, kernels[c.name], tag, card)
             if c.name == "bilstm_scan_bwd":
                 with torch.no_grad():
                     lib_call = time_ms(c.library, n)
@@ -2212,8 +2399,9 @@ def main(parent=None) -> int:
     for b in (TRAIN_B, BIG_B):
         k6_plan_sweep(kernels["bigru_scan2_bwd"], b, card)
     fwd_walk_timing(kernels, errs, card)
-    # K5, K11, K13 and K15 at B=128: parity, the device time by stage and,
-    # for K5, K11 and K15, a second call and the walk under each plan.
+    # K5, K10, K11, K13, K14 and K15 at B=128: parity, the device time by
+    # stage and, for K5, K10, K11, K14 and K15, a second call and the walk
+    # under each plan.
     big = train_batch(BIG_B, SEED + 3)
     big_cases = train_cases(interop.to_torch(train_params, "cuda"),
                             experiment.timit_chorowski_normnll_colnorm().build_model().cfg, big,
@@ -2224,7 +2412,7 @@ def main(parent=None) -> int:
     big_cases += cbc_train_cases(interop.to_torch(cbc_params_cpu, "cuda"),
                                  conv_bilstm_content().build_model().cfg, big, gen)
     for c in big_cases:
-        if c.name in LOC_BWDS or c.name in WALK_BWDS:
+        if c.name in LOC_BWDS or c.name in WALK_BWDS or c.name in FWD_SCANS:
             tag = f"B={BIG_B} L={TRAIN_L} T={TRAIN_T}"
             with torch.no_grad():
                 got = c.kernel(*c.args)
@@ -2233,6 +2421,10 @@ def main(parent=None) -> int:
             errs[c.name] = max(errs[c.name], c.check(got, want, tag))
             if c.name in LOC_BWDS:
                 loc_split(c, tag, 10, card)
+            elif c.name in FWD_SCANS:
+                check_repeat(c, kernels[c.name], got, tag)
+                fwd_walk_split(c, kernels[c.name], tag, 10, card)
+                fwd_walk_sweep(c, kernels[c.name], tag, card)
             else:
                 check_repeat(c, kernels[c.name], got, tag)
                 decoder_walk_split(c, kernels[c.name], tag, 10, card)

@@ -2,21 +2,22 @@
 // LSTM cell, each a forward and a backward kernel, and the backward of
 // the content-only GRU decoder's scan:
 //
-//   <LSTM, location>  K10 loc_lstm_fwd_kernel, K11 loc_lstm_bwd_kernel<R>;
+//   <LSTM, location>  K10 loc_lstm_fwd_kernel<R>, K11 loc_lstm_bwd_kernel<R>;
 //                     entry points attention_decode_scan_loc_lstm_{fwd,bwd}
 //   <GRU, location>   K12 scan_loc_gru_fwd_kernel, K13 scan_loc_gru_bwd_kernel;
 //                     entry points attention_decode_scan_loc_{fwd,bwd}
-//   <LSTM, content>   K14 scan_lstm_fwd_kernel, K15 scan_lstm_bwd_kernel<R>;
+//   <LSTM, content>   K14 scan_lstm_fwd_kernel<R>, K15 scan_lstm_bwd_kernel<R>;
 //                     entry points attention_decode_scan_lstm_{fwd,bwd}
 //   <GRU, content>    K5 content_gru_walk_kernel<R>; entry point
 //                     attention_decode_scan_bwd (its forward, K4, is
 //                     attention_scan.cu's)
 //
-// The forwards are one templated body (scan_fwd<kLstm, kLoc>), K13 has a
-// body of its own (scan_bwd), and K11, K15 and K5 share one walk on a
-// thread-block cluster (decoder_walk<R, kLstm, kLoc>). Each instance's
-// kernels are thin __global__ functions of their own, so that a profiler
-// trace names which instance ran.
+// K12 and K13 have one-block bodies of their own (scan_fwd, scan_bwd);
+// K10 and K14 share a pre-pass and a forward walk on a thread-block
+// cluster (decoder_fwd_walk<R, kLstm, kLoc>), and K11, K15 and K5 a
+// pre-pass and a backward walk on one (decoder_walk<R, kLstm, kLoc>).
+// Each instance's kernels are thin __global__ functions of their own, so
+// that a profiler trace names which instance ran.
 //
 // They replace the Pallas kernels of
 // seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py, whose forwards
@@ -34,17 +35,60 @@
 // PyTorch twins: ops/cuda/attention_scan.py attention_decode_scan_{loc_lstm,
 // loc,lstm}_plain and their _bwd_plain, and attention_decode_scan_bwd_plain.
 //
-// The forwards and K13: the T steps are a chain, and every step reads the
-// step's weights from L2: at the conv+BiLSTM recipe the LSTM's gates
-// (w_h and w_x, 2 x 400 x 1600 floats), dec_in, c_in and Ws, about 7 MB;
-// at the flagship's widths the GRU's w_zr and w_h, dec_in, c_in and Ws,
-// about 2.6 MB. One block per batch row keeps the state and every
-// intermediate of a step in shared memory and runs the step from the
-// pieces the beam step K8 uses (attention_common.cuh: attend or
+// K12 and K13: the T steps are a chain, and every step reads the step's
+// weights from L2: at the flagship's widths the GRU's w_zr and w_h,
+// dec_in, c_in and Ws, about 2.6 MB. One block per batch row keeps the
+// state and every intermediate of a step in shared memory and runs the
+// step from the pieces the beam step K8 uses (attention_common.cuh:
 // attend_loc, which forms the location features per encoder position and
-// never stores UF; context; decoder_cell for the GRU; lstm_preacts, whose
-// gates are s_prev @ w_h plus r @ w_x accumulated in place). A step's time
-// is one SM's L2 read rate over those bytes.
+// never stores UF; context; decoder_cell). A step's time is one SM's L2
+// read rate over those bytes.
+//
+// K10 and K14 run in two stages (launch_fwd_walk below):
+//   1. a pre-pass off the chain (lstm_fwd_prepass_kernel<0, 1>: tiled
+//      products, cluster_walk.cuh tile_product). Teacher forcing gives
+//      every step's yin in advance, and the decoder input and the gates
+//      are linear in c, so the step's gate pre-activations are
+//        s_prev @ w_h + P[n] + c @ W_cx,
+//        P    = ([c_b | yin] @ dec_w + dec_b) @ w_x + b   (B*T, 4St)
+//        W_cx = c_w @ dec_w[:St] @ w_x                    (A, 4St)
+//      which takes c_w, dec_w and w_x off the chain (the products are
+//      reassociated: the rounding differs from the plain version's by
+//      about 1e-7 of a gate). Stage 0 forms [c_b | yin] @ dec_w + dec_b
+//      and c_w @ dec_w[:St], and w_h^T; stage 1 multiplies them by w_x;
+//   2. the walk on thread-block clusters of C blocks (16 or 8), each
+//      cluster taking R batch rows (plan: ops/cuda/attention_scan.py
+//      fwd_plan). Block k owns state units [k St / C, (k+1) St / C) with
+//      their four gate columns of w_h and W_cx and their rows of ws_w,
+//      annotation columns [k A / C, ...) of the output c, and encoder
+//      positions [k L / C, ...). A step:
+//        ws = ws_b + the blocks' partials s_prev[own] @ ws_w[own, :]  [E1]
+//        the energies on its positions (with the location term, the
+//        features from alpha_prev over the filter's window); their
+//        local max m_k, sum and context partial sum_l exp(e_l - m_k) h_l,
+//        pushed with (location term) the energies in a peer's window  [E2]
+//        while E2 flies: s_prev @ w_h + P on its units' gate columns;
+//        then M = max m_k, z = sum_k exp(m_k - M) sum_k, c and alpha on
+//        its positions (and window) in rank order, the masked softmax of
+//        ops/masking.py (NEG_INF on padding, exp times the mask, z
+//        clamped at 1e-30: a row with every position masked gets alpha =
+//        0 and c = 0; an empty or all-masked block adds nothing);
+//        + c @ W_cx, the LSTM cell on its units (mem never leaves the
+//        block); s, mem, its columns of c and alpha written out;
+//        s[own] and its partial s[own] @ ws_w[own, :] pushed          [E1]
+//      At each [E] the block copies what it formed into every peer's
+//      shared memory (a bulk copy of a row's share where St is a
+//      multiple of 4, else st.async a value; always bulk for the S- and
+//      A-long partials, whose slots are whole 16-byte groups), counted on
+//      the peer's mbarrier, and waits on its own. Two exchanges a step;
+//      sums over blocks in rank order, no atomics: two calls give the
+//      same bits. The W_cx slice stays in shared memory where the plan's
+//      block holds it ("resident"), else both products stream their rows
+//      from L2 (w_h^T and W_cx^T, made in the pre-pass in unit order:
+//      a block's gate columns are one run of rows). Nothing in a block's
+//      shared memory grows with L beyond ceil(L / C) positions and the
+//      filter's window. What bounds a step: the two exchanges' round
+//      trips and c @ W_cx, the one product between E2 and the cell.
 //
 // K13 walks t = T-1..0 in one block per row. It recomputes the step from
 // s_prev and alpha_prev, the saved sequences shifted by one and zero at
@@ -126,9 +170,10 @@
 // memory: five a step for the LSTM, six for the GRU, whose reset gate's
 // cotangent needs w_h^T's output before w_zr^T can start.
 //
-// The source builds two libraries (ops/cuda/attention_scan.py): K10-K15's,
-// and K5's alone, with CONTENT_GRU_BWD_ONLY defined, so that nvcc compiles
-// the GRU walk's instances in a process of its own, beside the rest.
+// The source builds three libraries (ops/cuda/attention_scan.py), so that
+// nvcc compiles the walks' instances in processes of their own, side by
+// side: K10's and K14's with LSTM_FWD_ONLY defined, K5's alone with
+// CONTENT_GRU_BWD_ONLY defined, and K11-K13's and K15's.
 
 #include "attention_common.cuh"
 #include "cluster_walk.cuh"
@@ -184,9 +229,7 @@ __host__ __device__ LocShared carve_loc(Carver& c, const Dims& d) {
   return s;
 }
 
-// The buffers of one step that the forward and the backward share (the
-// GRU's zr, rhr and cand too).
-template <bool kLstm>
+// The buffers of one step of the GRU that K12 and K13 share.
 __host__ __device__ StepBufs carve_step(Carver& c, const Dims& d) {
   const int St = d.St;
   StepBufs m{};
@@ -198,11 +241,9 @@ __host__ __device__ StepBufs carve_step(Carver& c, const Dims& d) {
   m.xo = c.take(St + d.A);
   m.we = c.take(d.S);
   m.msk = c.take(d.L);
-  if (!kLstm) {
-    m.zr = c.take(2 * St);
-    m.rhr = c.take(2 * St);
-    m.cand = c.take(St);
-  }
+  m.zr = c.take(2 * St);
+  m.rhr = c.take(2 * St);
+  m.cand = c.take(St);
   return m;
 }
 
@@ -220,7 +261,8 @@ __device__ void load_constants(const Weights& w, const float* mask, const StepBu
 }
 
 // ---------------------------------------------------------------------------
-// K10, K12, K14: the forward.
+// K12: the location-aware GRU decoder's forward, one block per batch row.
+// (K10's and K14's, the LSTM's, are the forward walk further down.)
 
 struct FwdArgs {
   const float *vh, *h, *mask, *yin;
@@ -232,83 +274,57 @@ struct FwdArgs {
 struct FwdShared {
   StepBufs m;
   LocShared loc;
-  float *gates, *mem, *feat;
+  float* feat;
 };
 
-template <bool kLstm, bool kLoc>
 __host__ __device__ FwdShared carve_fwd(float* sm, const Dims& d, size_t* floats) {
   Carver c{sm, 0};
   FwdShared s{};
-  s.m = carve_step<kLstm>(c, d);
-  if (kLstm) {
-    s.gates = c.take(4 * d.St);
-    s.mem = c.take(d.St);
-  }
-  s.loc = carve_loc<kLoc>(c, d);
-  s.feat = kLoc ? c.take((size_t)kWarps * d.FM) : nullptr;
+  s.m = carve_step(c, d);
+  s.loc = carve_loc<true>(c, d);
+  s.feat = c.take((size_t)kWarps * d.FM);
   s.m.scratch = c.take(kThreads * 4);
   *floats = c.off;
   return s;
 }
 
-template <bool kLstm, bool kLoc>
 __device__ __forceinline__ void scan_fwd(float* sm, const FwdArgs& a) {
   const Dims& d = a.d;
   const int b = blockIdx.x, St = d.St, A = d.A, L = d.L, pad = d.F / 2;
   size_t floats;
-  const FwdShared s = carve_fwd<kLstm, kLoc>(sm, d, &floats);
+  const FwdShared s = carve_fwd(sm, d, &floats);
   const StepBufs& m = s.m;
   const StepWeights w = a.w.step();
   const float* vhb = a.vh + (size_t)b * L * d.S;
   const float* hb = a.h + (size_t)b * L * A;
 
-  load_constants<kLoc>(a.w, a.mask, m, s.loc, d, b);
-  for (int j = threadIdx.x; j < St; j += kThreads) {
-    m.sp[j] = m.sr[j] = 0.f;
-    if (kLstm) s.mem[j] = 0.f;
-  }
+  load_constants<true>(a.w, a.mask, m, s.loc, d, b);
+  for (int j = threadIdx.x; j < St; j += kThreads) m.sp[j] = m.sr[j] = 0.f;
   for (int t = 0; t < d.T; ++t) {
     const size_t n = (size_t)b * d.T + t;
     for (int j = threadIdx.x; j < St; j += kThreads) m.rin[St + j] = a.yin[n * St + j];
     __syncthreads();
-    if constexpr (kLoc)
-      attend_loc(w, m, LocBufs{s.loc.ap, s.loc.u, s.loc.cw, s.loc.cb, s.feat, d.F, d.FM}, vhb,
-                 1, L, d.S, St);
-    else
-      attend(w, m, vhb, 1, L, d.S, St);
+    attend_loc(w, m, LocBufs{s.loc.ap, s.loc.u, s.loc.cw, s.loc.cb, s.feat, d.F, d.FM}, vhb, 1, L,
+               d.S, St);
     context(m, hb, 1, L, A, St);
-    if constexpr (kLstm)
-      lstm_cell(w, m, a.w.w_h, a.w.w_x, a.w.b, s.gates, s.mem, 1, A, St);
-    else
-      decoder_cell(w, m, 1, A, St);
+    decoder_cell(w, m, 1, A, St);
     for (int j = threadIdx.x; j < St; j += kThreads) {
       const float v = m.xo[j];
       a.s_seq[n * St + j] = v;
-      if (kLstm) a.mem_seq[n * St + j] = s.mem[j];
       m.sp[j] = m.sr[j] = v;
     }
     for (int j = threadIdx.x; j < A; j += kThreads) a.c_seq[n * A + j] = m.xo[St + j];
     for (int l = threadIdx.x; l < L; l += kThreads) {
       a.alpha_seq[n * L + l] = m.al[l];
-      if (kLoc) s.loc.ap[pad + l] = m.al[l];  // the next step's alpha_prev
+      s.loc.ap[pad + l] = m.al[l];  // the next step's alpha_prev
     }
   }
 }
 
-#ifndef CONTENT_GRU_BWD_ONLY
-__global__ void __launch_bounds__(kThreads, 1) loc_lstm_fwd_kernel(const FwdArgs a) {
-  extern __shared__ float sm[];
-  scan_fwd<true, true>(sm, a);
-}
-
+#if !defined(CONTENT_GRU_BWD_ONLY) && !defined(LSTM_FWD_ONLY)
 __global__ void __launch_bounds__(kThreads, 1) scan_loc_gru_fwd_kernel(const FwdArgs a) {
   extern __shared__ float sm[];
-  scan_fwd<false, true>(sm, a);
-}
-
-__global__ void __launch_bounds__(kThreads, 1) scan_lstm_fwd_kernel(const FwdArgs a) {
-  extern __shared__ float sm[];
-  scan_fwd<true, false>(sm, a);
+  scan_fwd(sm, a);
 }
 #endif
 
@@ -462,7 +478,7 @@ __host__ __device__ BwdShared carve_bwd(float* sm, const Dims& d, size_t* floats
   // feat first, 16-byte aligned: with FM a multiple of 4 the energies
   // pass reads a position's maps as float4s.
   s.feat = c.take((size_t)d.L * d.FM);
-  s.m = carve_step<false>(c, d);
+  s.m = carve_step(c, d);
   s.g.ds = c.take(St);
   s.g.da_cand = c.take(St);
   s.g.dcin = c.take(2 * St);
@@ -736,7 +752,7 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
   }
 }
 
-#ifndef CONTENT_GRU_BWD_ONLY
+#if !defined(CONTENT_GRU_BWD_ONLY) && !defined(LSTM_FWD_ONLY)
 __global__ void __launch_bounds__(kThreads, 1) scan_loc_gru_bwd_kernel(const BwdArgs a) {
   extern __shared__ float sm[];
   scan_bwd(sm, a);
@@ -1645,6 +1661,536 @@ __global__ void __launch_bounds__(kTileThreads) gru_decoder_prepass_kernel(const
   decoder_prepass<false, kStage>(a);
 }
 
+#ifdef LSTM_FWD_ONLY
+// ---------------------------------------------------------------------------
+// K10, K14: the LSTM decoder forwards, a pre-pass and a walk on
+// thread-block clusters (the file's head gives the step).
+
+// The pre-pass's outputs, carved from the caller's scratch in this order,
+// each 16-byte aligned: Z, (B*T + A) rows of St ([c_b | yin] @ dec_w +
+// dec_b for the B*T steps, then c_w @ dec_w[:St]); P, B*T rows of 4St
+// (Z's first B*T rows @ w_x + b); W_cx^T, 4St rows of A (Z's last A rows
+// @ w_x, transposed); w_h^T, 4St rows of St. P's columns and the rows of
+// W_cx^T and w_h^T are in unit order, the gates (i, f, g, o) of unit u at
+// 4u..4u+3, so that a block's units are one run of each.
+struct FwdScratch {
+  float *z, *p, *wcx, *wh;
+};
+
+__host__ __device__ FwdScratch carve_fwd_scratch(float* base, const Dims& d, size_t* floats) {
+  Carver c{base, 0};
+  const long long rows = (long long)d.B * d.T, St = d.St;
+  FwdScratch x{};
+  x.z = take4(c, (rows + d.A) * St);
+  x.p = take4(c, rows * 4 * St);
+  x.wcx = take4(c, 4 * St * d.A);
+  x.wh = take4(c, 4 * St * St);
+  *floats = c.off;
+  return x;
+}
+
+// The scratch's floats, as carve_fwd_scratch lays it out;
+// ops/cuda/attention_scan.py (fwd_scratch_floats) computes the same.
+long long fwd_scratch_floats(long long B, long long T, long long A, long long St) {
+  return r4((B * T + A) * St) + r4(4 * B * T * St) + r4(4 * St * A) + r4(4 * St * St);
+}
+
+// The exchanges of a forward step, an mbarrier each: s_prev with the
+// blocks' ws partials, and the softmax's shares.
+constexpr int kBarsFwd = 2;
+
+// Shared memory of one block of the forward walk, in floats, for R batch
+// rows on clusters of C blocks, loc 1 with the location term (else 0 and
+// FM = F = 0), resident 1 where the block holds its rows of W_cx^T.
+// carve_fwd_walk lays it out, each buffer 16-byte aligned; the plan in
+// ops/cuda/attention_scan.py (fwd_smem_bytes) computes the same.
+long long fwd_smem_floats(long long R, long long C, long long L, long long S, long long A,
+                          long long St, long long FM, long long F, long long loc,
+                          long long resident) {
+  return r4(2 * kBarsFwd) + 2 * r4(R * St) + r4(C * R * r4(S)) + r4(R * r4(S)) +
+         r4(C * R * r4(A + 2)) + r4(R * r4(A)) + r4(R * (C + 2)) +
+         3 * r4(4 * R * cspan(St, C)) + r4(R * cspan(St, C)) + 2 * r4(R * cdiv(L, C)) + r4(S) +
+         r4(cspan(St, C) * S) + resident * r4(4 * cspan(St, C) * A) +
+         (1 - loc) * r4(R * cdiv(L, C)) +
+         loc * (3 * r4(R * (cdiv(L, C) + F - 1)) + r4(FM * S) + r4(F * FM) + r4(FM) +
+                r4(kWarps * FM));
+}
+
+struct FwdWalkShared {
+  unsigned long long* bars;  // [kBarsFwd]: E1 (s and the ws partials), E2 (the softmax's shares)
+  float* sg;     // two [R][St]: s gathered from every block, step t's in buffer t & 1
+  float* wsp;    // [C][R][Sp]  the blocks' partials of s_prev @ ws_w
+  float* ws;     // [R][Sp]     s_prev @ ws_w + ws_b
+  float* st;     // [C][R][Ap]  the blocks' shares: context partial [A], local max, local sum
+  float* c;      // [R][Aq]     the context
+  float* fz;     // [R][C + 2]  the blocks' scales exp(m_k - M), then max(z, 1e-30), then M
+  float* g;      // [R][4Stc]   the gate pre-activations of the block's units, in unit order
+  float* pq;     // two [R][4Stc]: P of the block's units, staged a step ahead
+  float* mem;    // [R][Stc]    the cell state of the block's units
+  float *e, *p;  // [R][Pc]     the energies (NEG_INF where masked), exp(e - m_k)
+  float* mw;     // [R][Pw]     the mask on the window (location term), or [R][Pc] on the positions
+  float *ap, *eh;  // [R][Pw]   alpha_prev on the window, 0 off [0, L); the peers' energies there
+  float* we;     // [S]         w_e
+  float* wsw;    // [Stc][S]    the block's units' rows of ws_w
+  float* wcx;    // [4Stc][A]   the block's rows of W_cx^T (resident plans only)
+  float *u, *cw, *cb, *feat;  // U [FM][S], taps [F][FM], bias [FM], a warp's features [kWarps][FM]
+  long long sgs, pqs;         // the second buffer of sg, of pq, is this many floats on
+};
+
+template <bool kLoc>
+__host__ __device__ FwdWalkShared carve_fwd_walk(float* sm, const Dims& d, int C, int R,
+                                                 int resident, size_t* floats) {
+  Carver c{sm, 0};
+  const long long Stc = cspan(d.St, C), Pc = cdiv(d.L, C), Sp = r4(d.S), Pw = Pc + d.F - 1;
+  FwdWalkShared s{};
+  s.bars = reinterpret_cast<unsigned long long*>(take4(c, 2 * kBarsFwd));
+  s.sgs = r4((long long)R * d.St);
+  s.sg = take4(c, 2 * s.sgs);
+  s.wsp = take4(c, C * R * Sp);
+  s.ws = take4(c, R * Sp);
+  s.st = take4(c, C * R * r4(d.A + 2));
+  s.c = take4(c, R * r4(d.A));
+  s.fz = take4(c, (long long)R * (C + 2));
+  s.g = take4(c, 4 * R * Stc);
+  s.pqs = r4(4 * R * Stc);
+  s.pq = take4(c, 2 * s.pqs);
+  s.mem = take4(c, R * Stc);
+  s.e = take4(c, R * Pc);
+  s.p = take4(c, R * Pc);
+  s.we = take4(c, d.S);
+  s.wsw = take4(c, Stc * d.S);
+  if (resident) s.wcx = take4(c, 4 * Stc * d.A);
+  if (kLoc) {
+    s.mw = take4(c, R * Pw);
+    s.ap = take4(c, R * Pw);
+    s.eh = take4(c, R * Pw);
+    s.u = take4(c, (long long)d.FM * d.S);
+    s.cw = take4(c, (long long)d.F * d.FM);
+    s.cb = take4(c, d.FM);
+    s.feat = take4(c, (long long)kWarps * d.FM);
+  } else {
+    s.mw = take4(c, R * Pc);
+  }
+  *floats = c.off;
+  return s;
+}
+
+// rows_dot<R, false, true> with kRows rows of w a warp at once (rows i,
+// i + kWarps, ..., i + (kRows - 1) kWarps), every load of them issued
+// before any is used. The forward walk streams its slices of w_h^T and
+// W_cx^T from L2 every step, and a pass over a warp's rows costs about one
+// round trip to L2: more rows a pass, fewer passes. The sums are
+// rows_dot's, in the same order. A row past n reads row n - 1 again and
+// is not emitted.
+template <int R>
+constexpr int kL2Rows = R <= 4 ? 4 : 2;
+
+template <int R, class Emit>
+__device__ __forceinline__ void rows_dot_l2(const float* w, int ldw, int n, const float* v,
+                                            int ldv, int m, Emit emit, bool vec) {
+  constexpr int kRows = kL2Rows<R>;
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x >> 5; i < n; i += kRows * kWarps) {
+    const float* wr[kRows];
+    float s[kRows][R];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      wr[q] = w + (size_t)min(i + q * kWarps, n - 1) * ldw;
+#pragma unroll
+      for (int r = 0; r < R; ++r) s[q][r] = 0.f;
+    }
+    if (vec) {
+#pragma unroll 2
+      for (int j = 4 * lane; j < m; j += 128) {
+        float4 x[kRows];
+#pragma unroll
+        for (int q = 0; q < kRows; ++q) x[q] = __ldg(reinterpret_cast<const float4*>(wr[q] + j));
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 y = *reinterpret_cast<const float4*>(v + r * ldv + j);
+#pragma unroll
+          for (int q = 0; q < kRows; ++q)
+            s[q][r] = fmaf(x[q].w, y.w, fmaf(x[q].z, y.z, fmaf(x[q].y, y.y, fmaf(x[q].x, y.x,
+                                                                                s[q][r]))));
+        }
+      }
+    } else {
+#pragma unroll 2
+      for (int j = lane; j < m; j += 32) {
+        float x[kRows];
+#pragma unroll
+        for (int q = 0; q < kRows; ++q) x[q] = __ldg(wr[q] + j);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float y = v[r * ldv + j];
+#pragma unroll
+          for (int q = 0; q < kRows; ++q) s[q][r] = fmaf(x[q], y, s[q][r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      int rr;
+      const float sum = reduce_rows<R>(s[q], rr);
+      if (lane < R && i + q * kWarps < n) emit(i + q * kWarps, rr, sum);
+    }
+  }
+}
+
+// The forward walk of K10 (kLoc) or K14 for the R batch rows of this
+// block's cluster (group blockIdx.x / C), after the pre-pass; x holds the
+// pre-pass's outputs. Single buffers suffice for what E1's partials and
+// E2 carry, and two for the gathered s, by causality: a peer pushes
+// step t + 1's E2 only after its E1 wait of step t + 1, which needs this
+// block's E1 push of step t, made after this block has read E2's shares
+// of step t and summed E1's partials of step t; and it pushes E1 of step
+// t + 1 only after its E2 wait of step t + 1, which needs this block's E2
+// push of step t + 1, made after the ws sum of step t + 1 (s_prev of step
+// t + 1, read while E2 flies, is in the other buffer). For the same
+// reasons thread 0 arms an mbarrier's next phase as soon as it has seen
+// one complete, and a bulk copy's source is read before the block writes
+// it again. Rows past B have zero inputs and write nothing.
+template <int R, bool kLstm, bool kLoc>
+__device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, const FwdScratch& x,
+                                                 int resident) {
+  static_assert(kLstm, "the GRU forwards are K12's scan_fwd and K4's attention_scan.cu");
+  cg::cluster_group cluster = cg::this_cluster();
+  const Dims& d = a.d;
+  const WalkCtx c(d, (int)cluster.num_blocks(), (int)cluster.block_rank(), R);
+  const int C = c.C, k = c.k, b0 = c.b0, nrows = c.nrows, Stc = c.Stc, Pc = c.Pc, Sp = c.Sp;
+  const Span &un = c.un, &ac = c.ac, &pos = c.pos;
+  const int T = d.T, L = d.L, S = d.S, A = d.A, St = d.St, St4 = 4 * St, FM = d.FM, F = d.F;
+  // The block's gate rows (4 a unit) and their stride; the stride of a
+  // row's softmax shares and of c.
+  const int G = 4 * un.n, Gc = 4 * Stc, Ap = (int)r4(A + 2), Aq = (int)r4(A);
+  // The window: alpha_prev's positions that the block's features read
+  // (its own, [pad, pad + pos.n) in it), or without the location term its
+  // own positions; nwin of them are needed.
+  const int pad = kLoc ? c.pad : 0, Pw = kLoc ? c.Pw : Pc, wlo = pos.lo - pad;
+  const int nwin = kLoc ? (pos.n > 0 ? pos.n + F - 1 : 0) : pos.n;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  size_t floats;
+  const FwdWalkShared sh = carve_fwd_walk<kLoc>(sm, d, C, R, resident, &floats);
+
+  for (int i = tid; i < S; i += kThreads) sh.we[i] = a.w.w_e[i];
+  for (int i = tid; i < un.n * S; i += kThreads) sh.wsw[i] = a.w.ws_w[(size_t)un.lo * S + i];
+  if (resident)
+    for (int i = tid; i < G * A; i += kThreads) sh.wcx[i] = x.wcx[(size_t)4 * un.lo * A + i];
+  for (int i = tid; i < R * St; i += kThreads) sh.sg[sh.sgs + i] = 0.f;  // s_prev of step 0
+  for (int i = tid; i < C * R * Sp; i += kThreads) sh.wsp[i] = 0.f;   // its ws partials
+  for (int i = tid; i < R * Stc; i += kThreads) sh.mem[i] = 0.f;
+  for (int i = tid; i < R * Pc; i += kThreads) sh.e[i] = kNegInf;
+  for (int idx = tid; idx < R * Pw; idx += kThreads) {
+    const int r = idx / Pw, i = idx - r * Pw, l = wlo + i;
+    const bool in = r < nrows && l >= 0 && l < L && (kLoc || i < pos.n);
+    sh.mw[idx] = in ? a.mask[(size_t)(b0 + r) * L + l] : 0.f;
+    if (kLoc) sh.ap[idx] = 0.f;  // alpha_prev of step 0
+  }
+  if (kLoc) {
+    for (int i = tid; i < FM * S; i += kThreads) sh.u[i] = a.w.u[i];
+    for (int i = tid; i < F * FM; i += kThreads) sh.cw[i] = a.w.wconv[i];
+    for (int i = tid; i < FM; i += kThreads) sh.cb[i] = a.w.bconv[i];
+  }
+  // The bytes the peers push into this block a step, by exchange: with
+  // the location term, the energies of the window's other positions.
+  int halo = 0;
+  if (kLoc && pos.n > 0) halo = min(wlo + nwin, L) - max(wlo, 0) - pos.n;
+  const unsigned tx1 = 4u * R * (St - un.n) + 4u * R * Sp * (C - 1);
+  const unsigned tx2 = 4u * R * Ap * (C - 1) + 4u * R * halo;
+  if (tid == 0) {
+    for (int i = 0; i < kBarsFwd; ++i) mbar_init(&sh.bars[i]);
+    mbar_init_fence();
+    if (T > 1) mbar_expect(&sh.bars[0], tx1);
+    mbar_expect(&sh.bars[1], tx2);
+  }
+  // P of the block's units of step t into staging buffer i.
+  const auto stage = [&](int t, int i) {
+    stage_async<R>(sh.pq + i * sh.pqs, Gc, x.p + ((size_t)b0 * T + t) * St4 + 4 * un.lo,
+                   (size_t)T * St4, G, nrows, true);
+  };
+  stage(0, 0);
+  // The products' rows: St floats (w_h^T) and A floats (W_cx^T), carved
+  // 16-byte aligned.
+  const bool vec_h = St % 4 == 0, vec_c = A % 4 == 0;
+  cluster.sync();  // every block's mbarriers are armed before any push into it
+
+  for (int t = 0; t < T; ++t) {
+    const size_t n0 = (size_t)b0 * T + t;  // (row b0, step t)
+    const float* sp = sh.sg + ((t + 1) & 1) * sh.sgs;  // s_prev
+    float* sn = sh.sg + (t & 1) * sh.sgs;              // s of this step
+    const float* q = sh.pq + (t & 1) * sh.pqs;
+    copy_async_wait();
+    __syncthreads();
+    // The other buffer, last read in step t - 1.
+    if (t + 1 < T) stage(t + 1, (t + 1) & 1);
+    // [phase] staging wait
+    if (t > 0) {
+      walk_wait(&sh.bars[0], (t - 1) & 1);
+      if (tid == 0 && t + 1 < T) mbar_expect(&sh.bars[0], tx1);
+    }
+    // [phase] E1 exchange
+    // ws: the blocks' partials in rank order, then ws_b.
+    for (int idx = tid; idx < R * S; idx += kThreads) {
+      const int r = idx / S, sc = idx - r * S;
+      float v = 0.f;
+      for (int j = 0; j < C; ++j) v += sh.wsp[(j * R + r) * Sp + sc];
+      sh.ws[r * Sp + sc] = v + a.w.ws_b[sc];
+    }
+    __syncthreads();
+    // The energies on the block's positions, a warp per (row, position):
+    // e = w_e . tanh(vh + ws [+ feat U]), the features from alpha_prev
+    // over the filter's window; NEG_INF where masked.
+    for (int pr = warp; pr < nrows * pos.n; pr += kWarps) {
+      const int r = pr / pos.n, pp = pr - r * pos.n;
+      const float* vr = a.vh + ((size_t)(b0 + r) * L + pos.lo + pp) * S;
+      const float* wsr = sh.ws + r * Sp;
+      float acc = 0.f;
+      if constexpr (kLoc) {
+        float* f = sh.feat + warp * FM;
+        for (int qq = lane; qq < FM; qq += 32) {
+          float v = 0.f;
+          for (int j = 0; j < F; ++j) v = fmaf(sh.ap[r * Pw + pp + j], sh.cw[j * FM + qq], v);
+          f[qq] = v + sh.cb[qq];
+        }
+        __syncwarp();
+        for (int sc = lane; sc < S; sc += 32) {
+          float uf = 0.f;
+          for (int qq = 0; qq < FM; ++qq) uf = fmaf(f[qq], sh.u[qq * S + sc], uf);
+          acc = fmaf(fast_tanh(__ldg(vr + sc) + wsr[sc] + uf), sh.we[sc], acc);
+        }
+        __syncwarp();  // f is rewritten for the warp's next position
+      } else {
+        for (int sc = lane; sc < S; sc += 32)
+          acc = fmaf(fast_tanh(__ldg(vr + sc) + wsr[sc]), sh.we[sc], acc);
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) sh.e[r * Pc + pp] = sh.mw[r * Pw + pad + pp] > 0.f ? acc : kNegInf;
+    }
+    __syncthreads();
+    // [phase] ws, energies
+    // The block's softmax shares, a warp a row: the local max m_k (NEG_INF
+    // where the block has no unmasked position), exp(e - m_k) times the
+    // mask and its sum, then the context partial sum_l exp(e_l - m_k) h_l.
+    if (warp < R) {
+      const int r = warp;
+      float m = kNegInf;
+      for (int pp = lane; pp < pos.n; pp += 32) m = fmaxf(m, sh.e[r * Pc + pp]);
+      m = warp_max(m);
+      float z = 0.f;
+      for (int pp = lane; pp < pos.n; pp += 32) {
+        const float v = sh.mw[r * Pw + pad + pp] > 0.f ? expf(sh.e[r * Pc + pp] - m) : 0.f;
+        sh.p[r * Pc + pp] = v;
+        z += v;
+      }
+      z = warp_sum(z);
+      if (lane == 0) {
+        sh.st[(k * R + r) * Ap + A] = m;
+        sh.st[(k * R + r) * Ap + A + 1] = z;
+      }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < R * A; idx += kThreads) {
+      const int r = idx / A, j = idx - r * A;
+      float v = 0.f;
+      if (r < nrows) {
+        const float* hr = a.h + ((size_t)(b0 + r) * L + pos.lo) * A + j;
+        for (int pp = 0; pp < pos.n; ++pp)
+          v = fmaf(sh.p[r * Pc + pp], __ldg(hr + (size_t)pp * A), v);
+      }
+      sh.st[(k * R + r) * Ap + j] = v;
+    }
+    async_fence();
+    __syncthreads();
+    // [phase] softmax shares
+    // E2: the shares into every peer, a bulk copy each; with the location
+    // term, the block's energies into each peer whose window holds them.
+    for (int e = tid; e < C - 1; e += kThreads)
+      bulk_copy(sh.st + k * R * Ap, 4u * R * Ap, e < k ? e : e + 1, &sh.bars[1]);
+    if (kLoc && pos.n > 0)
+      for (int j = 0; j < C; ++j) {
+        const Span pj(L, C, j);
+        if (j == k || pj.n == 0) continue;
+        const int wj = pj.lo - pad;
+        const int x0 = max(pos.lo, wj), nx = min(pos.lo + pos.n, wj + pj.n + F - 1) - x0;
+        if (nx <= 0) continue;
+        const unsigned bar = cluster_map(&sh.bars[1], j);
+        for (int idx = tid; idx < R * nx; idx += kThreads) {
+          const int r = idx / nx, xx = x0 + idx - r * nx;
+          st_async(cluster_map(sh.eh + r * Pw + xx - wj, j), sh.e[r * Pc + xx - pos.lo], bar);
+        }
+      }
+    // While E2 is on its way: s_prev @ w_h + P on the block's gate columns.
+    rows_dot_l2<R>(x.wh + (size_t)4 * un.lo * St, St, G, sp, St, St,
+                   [y = sh.g, add = q, Gc](int i, int r, float v) {
+                     y[r * Gc + i] = v + add[r * Gc + i];
+                   }, vec_h);
+    walk_wait(&sh.bars[1], t & 1);
+    if (tid == 0 && t + 1 < T) mbar_expect(&sh.bars[1], tx2);
+    // [phase] w_h, E2 exchange
+    // The softmax of the row, a warp a row: M = max m_k, each block's
+    // scale exp(m_k - M), z = sum_k z_k exp(m_k - M) in rank order.
+    if (warp < R) {
+      const int r = warp;
+      float* f = sh.fz + r * (C + 2);
+      float m = kNegInf;
+      for (int j = 0; j < C; ++j) m = fmaxf(m, sh.st[(j * R + r) * Ap + A]);
+      if (lane < C) f[lane] = expf(sh.st[(lane * R + r) * Ap + A] - m);
+      __syncwarp();
+      if (lane == 0) {
+        float z = 0.f;
+        for (int j = 0; j < C; ++j) z = fmaf(sh.st[(j * R + r) * Ap + A + 1], f[j], z);
+        f[C] = fmaxf(z, 1e-30f);
+        f[C + 1] = m;
+      }
+    }
+    __syncthreads();
+    // c = sum_k exp(m_k - M) ctx_k / z in rank order; alpha on the block's
+    // positions, and with the location term on its window, the next
+    // step's alpha_prev.
+    for (int idx = tid; idx < R * A; idx += kThreads) {
+      const int r = idx / A, j = idx - r * A;
+      const float* f = sh.fz + r * (C + 2);
+      float v = 0.f;
+      for (int kk = 0; kk < C; ++kk) v = fmaf(f[kk], sh.st[(kk * R + r) * Ap + j], v);
+      v /= f[C];
+      sh.c[r * Aq + j] = v;
+      if (r < nrows && j >= ac.lo && j < ac.lo + ac.n) a.c_seq[(n0 + (size_t)r * T) * A + j] = v;
+    }
+    for (int idx = tid; idx < R * Pw; idx += kThreads) {
+      const int r = idx / Pw, i = idx - r * Pw, pp = i - pad;
+      const bool own = pp >= 0 && pp < pos.n;
+      float al = 0.f;
+      if (i < nwin && sh.mw[idx] > 0.f) {  // mw: 0 off [0, L) and past the group's rows
+        const float* f = sh.fz + r * (C + 2);
+        al = expf((own ? sh.e[r * Pc + pp] : sh.eh[idx]) - f[C + 1]) / f[C];
+      }
+      if (own && r < nrows) a.alpha_seq[(n0 + (size_t)r * T) * L + pos.lo + pp] = al;
+      if (kLoc) sh.ap[idx] = al;
+    }
+    __syncthreads();
+    // [phase] combine
+    // The gates: + c @ W_cx on the block's gate columns.
+    const auto add_cx = [y = sh.g, Gc](int i, int r, float v) { y[r * Gc + i] += v; };
+    if (resident)
+      rows_dot<R>(sh.wcx, A, G, sh.c, Aq, A, add_cx);
+    else
+      rows_dot_l2<R>(x.wcx + (size_t)4 * un.lo * A, A, G, sh.c, Aq, A, add_cx, vec_c);
+    __syncthreads();
+    // [phase] c W_cx
+    // The LSTM cell on the block's units (gate order i, f, g, o).
+    for (int idx = tid; idx < R * un.n; idx += kThreads) {
+      const int r = idx / un.n, u = idx - r * un.n;
+      const float* gr = sh.g + r * Gc + 4 * u;
+      const float ig = sigmoid(gr[0]), fg = sigmoid(gr[1]), gg = tanhf(gr[2]);
+      const float og = sigmoid(gr[3]);
+      const float mv = fg * sh.mem[r * Stc + u] + ig * gg;
+      const float sv = og * tanhf(mv);
+      sh.mem[r * Stc + u] = mv;
+      sn[r * St + un.lo + u] = sv;
+      if (r < nrows) {
+        const size_t o = (n0 + (size_t)r * T) * St + un.lo + u;
+        a.s_seq[o] = sv;
+        a.mem_seq[o] = mv;
+      }
+    }
+    __syncthreads();
+    // [phase] cell
+    if (t + 1 < T) {
+      // E1: the block's s and its partial s[own] @ ws_w[own, :], a thread
+      // per (row, score unit), into every peer.
+      for (int idx = tid; idx < R * S; idx += kThreads) {
+        const int r = idx / S, sc = idx - r * S;
+        const float* sr = sn + r * St + un.lo;
+        float v = 0.f;
+        for (int u = 0; u < un.n; ++u) v = fmaf(sr[u], sh.wsw[u * S + sc], v);
+        sh.wsp[(k * R + r) * Sp + sc] = v;
+      }
+      async_fence();
+      __syncthreads();
+      push<R>(sn, St, un.lo, 1, 0, un.n, &sh.bars[0], C, k, c.bulk);
+      for (int e = tid; e < C - 1; e += kThreads)
+        bulk_copy(sh.wsp + k * R * Sp, 4u * R * Sp, e < k ? e : e + 1, &sh.bars[0]);
+    }
+    // [phase] ws_w, E1 push
+  }
+  cluster.sync();  // no block leaves while its shared memory may still be a peer's target
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+    loc_lstm_fwd_kernel(const FwdArgs a, const FwdScratch x, int resident) {
+  extern __shared__ __align__(16) float sm[];
+  decoder_fwd_walk<R, true, true>(sm, a, x, resident);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+    scan_lstm_fwd_kernel(const FwdArgs a, const FwdScratch x, int resident) {
+  extern __shared__ __align__(16) float sm[];
+  decoder_fwd_walk<R, true, false>(sm, a, x, resident);
+}
+
+// The pre-pass over the B*T (row, step) pairs and the A rows of c_w, one
+// 64 x 64 output tile a block. Stage 0: Z = [c_b | yin] @ dec_w + dec_b
+// for the pairs and c_w @ dec_w[:St] for c_w's rows; the extra row of
+// blocks (blockIdx.y past Z's tiles) writes w_h^T in unit order. Stage 1:
+// P = Z @ w_x + b for the pairs, W_cx^T = (Z @ w_x)^T for c_w's rows, in
+// unit order. Each stage is a launch of its own, after the one it reads.
+template <int kStage>
+__global__ void __launch_bounds__(kTileThreads)
+    lstm_fwd_prepass_kernel(const FwdArgs a, const FwdScratch x) {
+  const Dims& d = a.d;
+  const Weights& w = a.w;
+  const int St = d.St, St4 = 4 * St, A = d.A, rows = d.B * d.T, all = rows + A;
+  const int i0 = blockIdx.x * kTile, j0 = blockIdx.y * kTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float acc[4][4];
+  if constexpr (kStage == 0) {
+    if ((int)blockIdx.y == (St + kTile - 1) / kTile) {
+      const size_t n = (size_t)St * St4;
+      for (size_t e = (size_t)blockIdx.x * kTileThreads + threadIdx.x; e < n;
+           e += (size_t)gridDim.x * kTileThreads) {
+        const int kk = (int)(e / St4), j = (int)(e - (size_t)kk * St4), gi = j / St;
+        x.wh[(size_t)(4 * (j - gi * St) + gi) * St + kk] = w.w_h[e];
+      }
+      return;
+    }
+    tile_product(
+        acc,
+        [&](int n, int kk) -> float {
+          if (n < rows) return kk < St ? w.c_b[kk] : a.yin[(size_t)n * St + kk - St];
+          return n < all && kk < St ? w.c_w[(size_t)(n - rows) * St + kk] : 0.f;
+        },
+        [&](int kk, int j) { return j < St ? w.dec_w[(size_t)kk * St + j] : 0.f; }, i0, j0,
+        2 * St);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int n = i0 + 4 * ty + r, j = j0 + 4 * tx + cc;
+        if (n < all && j < St) x.z[(size_t)n * St + j] = acc[r][cc] + (n < rows ? w.dec_b[j] : 0.f);
+      }
+  } else {
+    tile_product(
+        acc, [&](int n, int kk) { return n < all ? x.z[(size_t)n * St + kk] : 0.f; },
+        [&](int kk, int j) { return j < St4 ? w.w_x[(size_t)kk * St4 + j] : 0.f; }, i0, j0, St);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int n = i0 + 4 * ty + r, j = j0 + 4 * tx + cc, gi = j / St;
+        const int col = 4 * (j - gi * St) + gi;
+        if (n >= all || j >= St4) continue;
+        if (n < rows)
+          x.p[(size_t)n * St4 + col] = acc[r][cc] + w.b[j];
+        else
+          x.wcx[(size_t)col * A + n - rows] = acc[r][cc];
+      }
+  }
+}
+
+#endif
+
 // ---------------------------------------------------------------------------
 // Host side.
 
@@ -1665,17 +2211,80 @@ bool valid(const Dims& d) {
          (!kLoc || (d.FM >= 1 && d.F >= 1));
 }
 
-template <bool kLstm, bool kLoc>
-int launch_fwd(void (*kernel)(const FwdArgs), const FwdArgs& a, cudaStream_t stream) {
-  if (!valid<kLoc>(a.d)) return (int)cudaErrorInvalidValue;
+#if !defined(CONTENT_GRU_BWD_ONLY) && !defined(LSTM_FWD_ONLY)
+// K12: one block per batch row.
+int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+  if (!valid<true>(a.d)) return (int)cudaErrorInvalidValue;
   size_t floats;
-  carve_fwd<kLstm, kLoc>(nullptr, a.d, &floats);
+  carve_fwd(nullptr, a.d, &floats);
   const size_t bytes = floats * sizeof(float);
-  cudaError_t err = set_smem(kernel, bytes);
+  cudaError_t err = set_smem(scan_loc_gru_fwd_kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<a.d.B, kThreads, bytes, stream>>>(a);
+  scan_loc_gru_fwd_kernel<<<a.d.B, kThreads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
+#endif
+
+#ifdef LSTM_FWD_ONLY
+using FwdKernel = void (*)(const FwdArgs, const FwdScratch, int);
+
+// The forward walk instance for R batch rows a cluster: K10's (kLoc) or
+// K14's.
+template <bool kLoc>
+FwdKernel fwd_walk_kernel(int R) {
+  if constexpr (kLoc)
+    return R == 1 ? loc_lstm_fwd_kernel<1> : R == 2 ? loc_lstm_fwd_kernel<2>
+         : R == 4 ? loc_lstm_fwd_kernel<4> : R == 8 ? loc_lstm_fwd_kernel<8> : nullptr;
+  else
+    return R == 1 ? scan_lstm_fwd_kernel<1> : R == 2 ? scan_lstm_fwd_kernel<2>
+         : R == 4 ? scan_lstm_fwd_kernel<4> : R == 8 ? scan_lstm_fwd_kernel<8> : nullptr;
+}
+
+// K10 and K14: the pre-pass (two launches: Z and w_h^T, then P and
+// W_cx^T), then the walk on clusters of `cluster` blocks, `rows` batch
+// rows a cluster, holding W_cx's slice in shared memory where `resident`.
+template <bool kLoc>
+int launch_fwd_walk(const FwdArgs& a, float* scratch, int cluster, int rows, int resident,
+                    cudaStream_t stream) {
+  const Dims& d = a.d;
+  const auto walk = fwd_walk_kernel<kLoc>(rows);
+  if (!valid<kLoc>(d) || walk == nullptr || cluster < 1 || cluster > kMaxWalkCluster ||
+      (resident != 0 && resident != 1))
+    return (int)cudaErrorInvalidValue;
+  size_t floats, xfloats;
+  carve_fwd_walk<kLoc>(nullptr, d, cluster, rows, resident, &floats);
+  if ((long long)floats !=
+      fwd_smem_floats(rows, cluster, d.L, d.S, d.A, d.St, d.FM, d.F, kLoc, resident))
+    return (int)cudaErrorInvalidValue;  // layout and count disagree
+  const FwdScratch x = carve_fwd_scratch(scratch, d, &xfloats);
+  if ((long long)xfloats != fwd_scratch_floats(d.B, d.T, d.A, d.St))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (d.B * d.T + d.A + kTile - 1) / kTile;
+  const dim3 z_wh(tiles, (d.St + kTile - 1) / kTile + 1);
+  const dim3 p_wcx(tiles, (4 * d.St + kTile - 1) / kTile);
+  lstm_fwd_prepass_kernel<0><<<z_wh, kTileThreads, 0, stream>>>(a, x);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  lstm_fwd_prepass_kernel<1><<<p_wcx, kTileThreads, 0, stream>>>(a, x);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(walk, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  const int groups = (d.B + rows - 1) / rows;
+  return (int)launch_cluster(walk, dim3(cluster * groups), cluster, floats * sizeof(float),
+                             stream, a, x, resident);
+}
+
+// As walk_limits, for the forward walk.
+template <bool kLoc>
+int fwd_limits(int cluster, int* smem_limit, int* clusters) {
+  if (cluster < 1 || cluster > kMaxWalkCluster) return (int)cudaErrorInvalidValue;
+  const auto walk = fwd_walk_kernel<kLoc>(8);
+  cudaError_t err = cudaFuncSetAttribute(walk, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cluster_limits(walk, cluster, smem_limit, clusters);
+}
+#endif
 
 // The weight gradients; the cell's are the GRU's dw_zr and dw_h, or the
 // LSTM's dw_h, dw_x and db.
@@ -1706,7 +2315,7 @@ cudaError_t reduce_partials(const Stash& st, const Grads& g, const Dims& d, int 
   return launch_atb(batch, stream);
 }
 
-#ifndef CONTENT_GRU_BWD_ONLY
+#if !defined(CONTENT_GRU_BWD_ONLY) && !defined(LSTM_FWD_ONLY)
 // K13: the backward kernel, then the weight gradients over the B*T steps
 // (s_prev = s_seq shifted by one) and dU, dwconv and dbconv as the sums
 // of the B rows' partials.
@@ -1847,23 +2456,49 @@ int walk_limits(int cluster, int* smem_limit, int* clusters) {
 // Entry points. The backward ones take ds_seq, dc_seq, dalpha_seq (and
 // dmem_seq) as NULL where there is no cotangent; those of K11, K15 and K5
 // take the walk's plan, `cluster` blocks a cluster and `rows` batch rows
-// a cluster (1, 2, 4 or 8), from ops/cuda/attention_scan.py scan_plan.
+// a cluster (1, 2, 4 or 8), from ops/cuda/attention_scan.py scan_plan,
+// and those of K10 and K14 the forward walk's, with `resident` (W_cx's
+// slice in shared memory), from fwd_plan, and a scratch of
+// fwd_scratch_floats floats.
 
-#ifndef CONTENT_GRU_BWD_ONLY
+#if defined(LSTM_FWD_ONLY)
 extern "C" int attention_decode_scan_loc_lstm_fwd(
     const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
     const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
     const float* dec_b, const float* w_h, const float* w_x, const float* b, const float* wconv,
     const float* bconv, const float* u, float* s_seq, float* c_seq, float* alpha_seq,
-    float* mem_seq, int B, int T, int L, int S, int A, int St, int FM, int F,
-    cudaStream_t stream) {
+    float* mem_seq, float* scratch, int B, int T, int L, int S, int A, int St, int FM, int F,
+    int cluster, int rows, int resident, cudaStream_t stream) {
   const FwdArgs a{vh, h, mask, yin,
                   Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h, w_x, b, wconv,
                           bconv, u},
                   s_seq, c_seq, alpha_seq, mem_seq, Dims{B, T, L, S, A, St, FM, F}};
-  return launch_fwd<true, true>(loc_lstm_fwd_kernel, a, stream);
+  return launch_fwd_walk<true>(a, scratch, cluster, rows, resident, stream);
 }
 
+extern "C" int attention_decode_scan_loc_lstm_fwd_limits(int cluster, int* smem_limit,
+                                                         int* clusters) {
+  return fwd_limits<true>(cluster, smem_limit, clusters);
+}
+
+extern "C" int attention_decode_scan_lstm_fwd(
+    const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
+    const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
+    const float* dec_b, const float* w_h, const float* w_x, const float* b, float* s_seq,
+    float* c_seq, float* alpha_seq, float* mem_seq, float* scratch, int B, int T, int L, int S,
+    int A, int St, int cluster, int rows, int resident, cudaStream_t stream) {
+  const FwdArgs a{vh, h, mask, yin,
+                  Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h, w_x, b, nullptr,
+                          nullptr, nullptr},
+                  s_seq, c_seq, alpha_seq, mem_seq, Dims{B, T, L, S, A, St, 0, 0}};
+  return launch_fwd_walk<false>(a, scratch, cluster, rows, resident, stream);
+}
+
+extern "C" int attention_decode_scan_lstm_fwd_limits(int cluster, int* smem_limit, int* clusters) {
+  return fwd_limits<false>(cluster, smem_limit, clusters);
+}
+
+#elif !defined(CONTENT_GRU_BWD_ONLY)
 extern "C" int attention_decode_scan_loc_lstm_bwd_limits(int cluster, int* smem_limit,
                                                          int* clusters) {
   return walk_limits<true, true>(cluster, smem_limit, clusters);
@@ -1900,7 +2535,7 @@ extern "C" int attention_decode_scan_loc_fwd(
                   Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_zr, w_h, nullptr, nullptr,
                           wconv, bconv, u},
                   s_seq, c_seq, alpha_seq, nullptr, Dims{B, T, L, S, A, St, FM, F}};
-  return launch_fwd<false, true>(scan_loc_gru_fwd_kernel, a, stream);
+  return launch_fwd(a, stream);
 }
 
 extern "C" int attention_decode_scan_loc_bwd(
@@ -1921,19 +2556,6 @@ extern "C" int attention_decode_scan_loc_bwd(
   const Grads g{dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dw_zr, dw_h, nullptr, nullptr,
                 dwconv, dbconv, du};
   return launch_gru_bwd(a, g, scratch, stream);
-}
-
-extern "C" int attention_decode_scan_lstm_fwd(
-    const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
-    const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
-    const float* dec_b, const float* w_h, const float* w_x, const float* b, float* s_seq,
-    float* c_seq, float* alpha_seq, float* mem_seq, int B, int T, int L, int S, int A, int St,
-    cudaStream_t stream) {
-  const FwdArgs a{vh, h, mask, yin,
-                  Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h, w_x, b, nullptr,
-                          nullptr, nullptr},
-                  s_seq, c_seq, alpha_seq, mem_seq, Dims{B, T, L, S, A, St, 0, 0}};
-  return launch_fwd<true, false>(scan_lstm_fwd_kernel, a, stream);
 }
 
 extern "C" int attention_decode_scan_lstm_bwd_limits(int cluster, int* smem_limit, int* clusters) {

@@ -250,12 +250,18 @@ class AttentionDecodeScan(torch.autograd.Function):
 #
 # The LSTM's w_h, w_x and b are the port's parameter leaves; the JAX
 # package's concat([w_h, w_x]) is never built. The LSTM scans also return
-# the cell-state sequence mem, which their backward reads.
+# the cell-state sequence mem, which their backward reads. The LSTM
+# forwards (K10, K14) run a pre-pass that folds c_in and dec_in into the
+# gates (``lstm_fold_plain``), then a walk on thread-block clusters on
+# ``fwd_plan_on``'s plan; K12 runs one block per batch row.
 
+# K10 and K14 are built from the decoder scans' source into a library of
+# their own (the forward walk's instances), beside K11-K13's and K15's.
 KERNEL_LOC_LSTM_FWD = build.Kernel(
     "attention_decode_scan_loc_lstm_fwd", "attention_scan_loc_lstm.cu",
     "attention_decode_scan_loc_lstm_fwd",
-    [ctypes.c_void_p] * 21 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 22 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    defines=("LSTM_FWD_ONLY",),
 )
 KERNEL_LOC_LSTM_BWD = build.Kernel(
     "attention_decode_scan_loc_lstm_bwd", "attention_scan_loc_lstm.cu",
@@ -273,7 +279,8 @@ KERNEL_LOC_BWD = build.Kernel(
 KERNEL_LSTM_FWD = build.Kernel(
     "attention_decode_scan_lstm_fwd", "attention_scan_loc_lstm.cu",
     "attention_decode_scan_lstm_fwd",
-    [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    defines=("LSTM_FWD_ONLY",),
 )
 KERNEL_LSTM_BWD = build.Kernel(
     "attention_decode_scan_lstm_bwd", "attention_scan_loc_lstm.cu",
@@ -295,6 +302,19 @@ def _loc_features(alpha_prev, wconv, bconv):
     l = alpha_prev.shape[1]
     ap = torch.nn.functional.pad(alpha_prev, (f // 2, f - 1 - f // 2))
     return sum(ap[:, j: j + l, None] * wconv[j] for j in range(f)) + bconv
+
+
+def lstm_fold_plain(yin, c_w, c_b, dec_w, dec_b, w_x, b):
+    """The LSTM forwards' pre-pass in plain PyTorch: the decoder input and
+    the gates are linear in c, so the step's gate pre-activations
+    s_prev @ w_h + r @ w_x + b are s_prev @ w_h + P[:, t] + c @ W_cx with
+    P = ([c_b | yin] @ dec_w + dec_b) @ w_x + b (B, T, 4St) and W_cx =
+    c_w @ dec_w[:St] @ w_x (A, 4St), both known before the first step.
+    Returns (P, W_cx), gate-major as w_x (the kernel stores them unit by
+    unit)."""
+    st = dec_w.shape[1]
+    zy = torch.cat([c_b.expand(yin.shape[:-1] + c_b.shape), yin], dim=-1) @ dec_w + dec_b
+    return zy @ w_x + b, (c_w @ dec_w[:st]) @ w_x
 
 
 def _split(weights, lstm: bool):
@@ -504,7 +524,8 @@ def _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm: bool):
 
 def _scan(kernel, lstm: bool, vh, h, enc_mask, yin, weights):
     """The forward wrapper of K10, K12 and K14: the plain version on CPU
-    tensors, the kernel on CUDA tensors."""
+    tensors, the kernel on CUDA tensors (K10 and K14 on fwd_plan_on's
+    plan, with a scratch of fwd_scratch_floats)."""
     if build.on_cpu(vh, h, enc_mask, yin, *weights):
         return _scan_plain(vh, h, enc_mask, yin, weights, lstm)
     _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm)
@@ -514,8 +535,14 @@ def _scan(kernel, lstm: bool, vh, h, enc_mask, yin, weights):
     outs = tuple(torch.empty(shape, **f32) for shape in shapes[:4 if lstm else 3])
     if b * t_len == 0:
         return outs
-    kernel.launch(*[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *outs)],
-                  b, t_len, l, s_dim, a_dim, st, *loc, build.stream_of(vh))
+    if not lstm:
+        kernel.launch(*[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *outs)],
+                      b, t_len, l, s_dim, a_dim, st, *loc, build.stream_of(vh))
+        return outs
+    plan = fwd_plan_on(kernel, b, l, s_dim, a_dim, st, *(loc or (0, 0)), vh.device)
+    scratch = torch.empty(fwd_scratch_floats(b, t_len, a_dim, st), **f32)
+    kernel.launch(*[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *outs, scratch)],
+                  b, t_len, l, s_dim, a_dim, st, *loc, *plan.args(), build.stream_of(vh))
     return outs
 
 
@@ -628,7 +655,8 @@ class ScanPlan:
 
 
 def scan_plan(b: int, smem: Dict[Tuple[int, int], int], smem_limit: int,
-              resident: Dict[int, int], cost: Dict[Tuple[int, int], float]) -> ScanPlan:
+              resident: Dict[int, int], cost: Dict[Tuple[int, int], float],
+              what: str = "decoder scan backward") -> ScanPlan:
     """The walk's plan for b batch rows: `smem[(C, R)]` bytes a block
     takes on clusters of C blocks with R rows each, `smem_limit` the
     device's opt-in bytes a block, `resident[C]` the clusters of C blocks
@@ -636,12 +664,12 @@ def scan_plan(b: int, smem: Dict[Tuple[int, int], int], smem_limit: int,
     the walk's cell). Of the (C, R) that fit, those whose ceil(b / R)
     clusters fill one wave, if any, else all, by the fewest waves x
     cost[(C, R)], then the fewer waves, the smaller R, the larger C.
-    RuntimeError when no cluster fits."""
+    RuntimeError (naming `what`) when no cluster fits."""
     fits = [(c, r) for c in WALK_CLUSTERS for r in WALK_ROWS
             if resident.get(c, 0) >= 1 and smem[(c, r)] <= smem_limit]
     if not fits:
         raise RuntimeError(
-            f"decoder scan backward: no cluster of {' or '.join(map(str, WALK_CLUSTERS))} "
+            f"{what}: no cluster of {' or '.join(map(str, WALK_CLUSTERS))} "
             f"blocks fits the device (resident clusters {resident}; shared memory a block "
             f"{min(smem.values())} bytes or more of {smem_limit})")
     waves = {(c, r): _cdiv(_cdiv(b, r), resident[c]) for c, r in fits}
@@ -655,7 +683,8 @@ _LIMITS: Dict[Tuple[str, int], Tuple[int, Dict[int, int]]] = {}
 
 def scan_limits(kernel, device: torch.device) -> Tuple[int, Dict[int, int]]:
     """(opt-in shared memory of a block, {C: resident clusters of C
-    blocks}) of `kernel`'s walk (K5, K11 or K15) on `device`, from its
+    blocks}) of `kernel`'s walk (K5, K11 or K15, or the forward walk of
+    K10 or K14) on `device`, from its
     ``<symbol>_limits`` C helper; asked once per kernel and device. A
     cluster size the device refuses counts 0 clusters."""
     index = device.index if device.index is not None else torch.cuda.current_device()
@@ -684,6 +713,102 @@ def scan_plan_on(kernel, b: int, l: int, s_dim: int, a_dim: int, st: int, fm: in
     smem = {(c, r): walk_smem_bytes(cell, r, c, l, s_dim, a_dim, st, fm, f)
             for c in WALK_CLUSTERS for r in WALK_ROWS}
     return scan_plan(b, smem, smem_limit, resident, STEP_COST[cell])
+
+
+# --- The plan of the LSTM decoder forwards' cluster walk (K10, K14) ------------------------
+#
+# K10 and K14 walk the steps of R batch rows on a cluster of C blocks
+# (csrc/attention_scan_loc_lstm.cu, decoder_fwd_walk), as the backwards do,
+# with two exchanges a step. The plan (C, R) is chosen as ``scan_plan``
+# chooses the backwards', from the forward's own shared memory and step
+# costs; a block holds its slice of W_cx (4 ceil(St / C) rows of A floats)
+# in shared memory where that still fits ("resident"), else it streams the
+# slice from L2 each step, as it always does w_h's.
+
+FWD_BARS = 2  # the mbarriers of a forward step's exchanges (csrc: kBarsFwd)
+FWD_WARPS = 16  # warps of a block (csrc: kThreads / 32), a feature buffer each
+# A step of the forward walk and wave, in us, by (C, R), on an NVIDIA H100
+# 80GB HBM3 at 700.00 W (chip_smoke.py phase 8's sweeps): K10's walk at the
+# conv+BiLSTM recipe's shape (L' = 16, T = 56) on the plan's layout (W_cx
+# resident where it fits), the mean of B = 16 and 128 (K14's steps are
+# 0.7-0.9 of these, in the same order). R = 8 fits no block on clusters of
+# 16 at the recipe's widths: its cost is R = 4's doubled.
+FWD_STEP_COST = {(16, 1): 16.8, (16, 2): 18.3, (16, 4): 22.1, (16, 8): 44.2,
+                 (8, 1): 20.5, (8, 2): 21.7, (8, 4): 26.7, (8, 8): 40.5}
+
+
+def fwd_smem_bytes(rows: int, cluster: int, l: int, s_dim: int, a_dim: int, st: int,
+                   fm: int = 0, f: int = 0, resident: bool = False) -> int:
+    """Shared memory of one block of the forward walk (fm = f = 0 without
+    the location term), as csrc/attention_scan_loc_lstm.cu's
+    fwd_smem_floats counts it, every buffer a whole number of 16-byte
+    groups: the step's mbarriers; s gathered from every block, two
+    buffers (R rows of St); the blocks' ws partials (C x R x S) and ws;
+    the blocks' softmax shares (C x R rows of A + 2: the context partial,
+    the local max and sum) and c; each row's scales of the blocks and its
+    max and normaliser (C + 2); the gates of the block's units and two
+    buffers of their staged P (R rows of 4 ceil(St/C) each), the cell
+    state; the energies and their exponentials on its ceil(L/C)
+    positions; w_e; its units' rows of ws_w; where resident its rows of
+    W_cx^T (4 ceil(St/C) x A); the mask on its positions, or with the
+    location term the mask, alpha_prev and the peers' energies on the
+    filter's window (ceil(L/C) + F - 1 positions), U, the filter and a
+    feature buffer a warp."""
+    r, c, loc = rows, cluster, int(fm > 0)
+    stc, pc, sp = _cspan(st, c), _cdiv(l, c), _r4(s_dim)
+    floats = (_r4(2 * FWD_BARS) + 2 * _r4(r * st) + _r4(c * r * sp) + _r4(r * sp)
+              + _r4(c * r * _r4(a_dim + 2)) + _r4(r * _r4(a_dim)) + _r4(r * (c + 2))
+              + 3 * _r4(4 * r * stc) + _r4(r * stc) + 2 * _r4(r * pc) + _r4(s_dim)
+              + _r4(stc * s_dim) + int(resident) * _r4(4 * stc * a_dim)
+              + (1 - loc) * _r4(r * pc)
+              + loc * (3 * _r4(r * (pc + f - 1)) + _r4(fm * s_dim) + _r4(f * fm) + _r4(fm)
+                       + _r4(FWD_WARPS * fm)))
+    return 4 * floats
+
+
+def fwd_scratch_floats(b: int, t_len: int, a_dim: int, st: int) -> int:
+    """Floats of the forwards' global scratch (``carve_fwd_scratch``): the
+    pre-pass's [c_b | yin] @ dec_w + dec_b and c_w @ dec_w[:St] ((B*T + A)
+    rows of St), P (B*T rows of 4St), W_cx^T (4St rows of A) and w_h^T
+    (4St rows of St)."""
+    return (_r4((b * t_len + a_dim) * st) + _r4(4 * b * t_len * st) + _r4(4 * st * a_dim)
+            + _r4(4 * st * st))
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    cluster: int  # blocks of a cluster
+    rows: int  # batch rows of a cluster
+    resident: bool  # W_cx's slice in shared memory
+    waves: int = 1  # rounds of resident clusters the launch takes
+
+    def args(self) -> Tuple[int, int, int]:
+        """The C entry points' (cluster, rows, resident) arguments."""
+        return self.cluster, self.rows, int(self.resident)
+
+
+def fwd_plan(b: int, l: int, s_dim: int, a_dim: int, st: int, fm: int, f: int,
+             smem_limit: int, resident: Dict[int, int],
+             cost: Dict[Tuple[int, int], float] = None) -> FwdPlan:
+    """The forward walk's plan for b batch rows at these widths, on a device
+    whose blocks take at most `smem_limit` bytes and that holds
+    `resident[C]` clusters of C blocks at once: of the (C, R) whose
+    streamed layout fits, ``scan_plan``'s choice by `cost` (default
+    FWD_STEP_COST); W_cx's slice resident where that layout fits too.
+    RuntimeError when no cluster fits."""
+    smem = {(c, r): fwd_smem_bytes(r, c, l, s_dim, a_dim, st, fm, f)
+            for c in WALK_CLUSTERS for r in WALK_ROWS}
+    plan = scan_plan(b, smem, smem_limit, resident, cost or FWD_STEP_COST,
+                     "LSTM decoder scan forward")
+    held = fwd_smem_bytes(plan.rows, plan.cluster, l, s_dim, a_dim, st, fm, f, True) <= smem_limit
+    return FwdPlan(plan.cluster, plan.rows, held, plan.waves)
+
+
+def fwd_plan_on(kernel, b: int, l: int, s_dim: int, a_dim: int, st: int, fm: int, f: int,
+                device: torch.device) -> FwdPlan:
+    """The plan `kernel`'s wrapper (K10 or K14) runs for these shapes on
+    `device`."""
+    return fwd_plan(b, l, s_dim, a_dim, st, fm, f, *scan_limits(kernel, device))
 
 
 def _scan_bwd(kernel, lstm: bool, n_weights: int, vh, h, enc_mask, yin, args):
@@ -736,7 +861,9 @@ def attention_decode_scan_loc_lstm(vh, h, enc_mask, yin, *weights):
     bconv (FM,), u (FM,S). Returns (s_seq (B,T,St), c_seq (B,T,A),
     alpha_seq (B,T,L), mem_seq (B,T,St)).
 
-    CPU tensors take the plain version; CUDA tensors the kernel (K10)."""
+    CPU tensors take the plain version; CUDA tensors the kernel (K10), on
+    fwd_plan_on's plan; it raises RuntimeError where no cluster fits the
+    device."""
     return _scan(KERNEL_LOC_LSTM_FWD, True, vh, h, enc_mask, yin, weights)
 
 
@@ -754,7 +881,8 @@ def attention_decode_scan_lstm(vh, h, enc_mask, yin, *weights):
     weights ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_h, w_x, b. Returns
     (s_seq, c_seq, alpha_seq, mem_seq).
 
-    CPU tensors take the plain version; CUDA tensors the kernel (K14)."""
+    CPU tensors take the plain version; CUDA tensors the kernel (K14), on
+    fwd_plan_on's plan as K10's wrapper."""
     return _scan(KERNEL_LSTM_FWD, True, vh, h, enc_mask, yin, weights)
 
 

@@ -705,7 +705,8 @@ def _bwd_twice(bwd, args, plan, name):
 def test_attention_decode_scan_loc_lstm_kernels(card, monkeypatch, case):
     """K10 against its plain version (1e-4 abs), then K11 on its plan with
     cotangents on s, c and alpha (and on mem, or none), against its plain
-    version, each backward twice with the same bits."""
+    version, each backward twice with the same bits; and K11 once more on
+    the sequences K10 saved."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
     b, l, t, (s, a, st, fm, f), run = LOC_LSTM_SCAN_CASES[case]
@@ -727,7 +728,11 @@ def test_attention_decode_scan_loc_lstm_kernels(card, monkeypatch, case):
         want_b = attention_scan.attention_decode_scan_loc_lstm_bwd_plain(*args)
         torch.cuda.synchronize()
         _bwd_close(got_b, want_b, f"attention_decode_scan_loc_lstm_bwd {plan}")
-    assert attention_scan.KERNEL_LOC_LSTM_BWD.launches == bwd + 4
+    args = (vh, h, mask, yin, *weights, *got, *cot)
+    _bwd_close(attention_scan.attention_decode_scan_loc_lstm_bwd(*args),
+               attention_scan.attention_decode_scan_loc_lstm_bwd_plain(*args),
+               f"attention_decode_scan_loc_lstm_bwd on K10's sequences {plan}")
+    assert attention_scan.KERNEL_LOC_LSTM_BWD.launches == bwd + 5
 
 
 def test_lstm_scan_backwards_refuse_without_a_cluster(card, monkeypatch):
@@ -753,14 +758,102 @@ def test_lstm_scan_backwards_refuse_without_a_cluster(card, monkeypatch):
         assert kernel.launches == before
 
 
+# (kind, B, L, T, (S, A, St, FM, F)): the LSTM decoder forwards K10
+# ("loc") and K14 ("lstm") on their cluster walk, each under every plan
+# (C, R, W_cx resident or streamed) that fits: the conv+BiLSTM recipe's
+# training shape at its batch and at B=128; L' = 13 < C with St = 9, A =
+# 12 (not multiples of 4), FM = 3 and an even filter; L' = 37, not a
+# multiple of C, at B = 5 (not a multiple of R) with St = 33; L' = 1; S
+# above the block's 512 threads; a filter of 31 whose window spans many
+# blocks. The last row of every case has every position masked.
+FWD_SCAN_CASES = [
+    ("loc", 16, 16, 56, (150, 256, 400, 16, 5)), ("lstm", 16, 16, 56, (150, 256, 400, 0, 0)),
+    ("loc", 128, 16, 56, (150, 256, 400, 16, 5)), ("lstm", 128, 16, 56, (150, 256, 400, 0, 0)),
+    ("loc", 3, 13, 5, (17, 12, 9, 3, 4)), ("lstm", 3, 13, 5, (17, 12, 9, 0, 0)),
+    ("loc", 5, 37, 9, (64, 40, 33, 16, 5)), ("lstm", 5, 37, 9, (64, 40, 33, 0, 0)),
+    ("lstm", 2, 1, 7, (17, 12, 9, 0, 0)), ("loc", 3, 20, 6, (600, 24, 36, 4, 5)),
+    ("loc", 2, 40, 5, (40, 24, 33, 20, 31)),
+]
+
+
+def _fwd_scan(kind):
+    """(the forward, its plain version, its kernel) of K10 or K14."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan as a
+
+    if kind == "loc":
+        return (a.attention_decode_scan_loc_lstm, a.attention_decode_scan_loc_lstm_plain,
+                a.KERNEL_LOC_LSTM_FWD)
+    return a.attention_decode_scan_lstm, a.attention_decode_scan_lstm_plain, a.KERNEL_LSTM_FWD
+
+
+@pytest.mark.parametrize("case", range(len(FWD_SCAN_CASES)))
+def test_lstm_scan_forwards_on_every_plan(card, monkeypatch, case):
+    """K10 or K14 under each plan that fits the card, forced in place of
+    fwd_plan_on's, against the plain version (1e-4 abs): one launch a
+    call, two calls with the same bits, and alpha and c exactly 0 on the
+    row whose every position is masked; then on the wrapper's own plan."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    kind, b, l, t, (s, a, st, fm, f) = FWD_SCAN_CASES[case]
+    fwd, plain, kernel = _fwd_scan(kind)
+    gen = torch.Generator().manual_seed(b * 37 + l)
+    if kind == "loc":
+        vh, h, mask, yin, weights = _loc_lstm_case(card, gen, b, l, t, s, a, st, fm, f)
+    else:
+        vh, h, mask, yin, weights = _decoder_case(card, gen, b, l, t, s, a, st, "lstm")
+    mask[-1] = 0
+    want = plain(vh, h, mask, yin, *weights)
+    smem_limit, resident = attention_scan.scan_limits(kernel, card)
+    runs = [attention_scan.FwdPlan(c, r, held)
+            for c in attention_scan.WALK_CLUSTERS for r in attention_scan.WALK_ROWS
+            for held in (False, True)
+            if resident[c] >= 1 and attention_scan.fwd_smem_bytes(
+                r, c, l, s, a, st, fm, f, held) <= smem_limit]
+    assert len(runs) >= 4, runs
+    default = attention_scan.fwd_plan_on
+    for run in runs + [None]:
+        monkeypatch.setattr(attention_scan, "fwd_plan_on",
+                            default if run is None else lambda *_, run=run: run)
+        before = kernel.launches
+        got, again = fwd(vh, h, mask, yin, *weights), fwd(vh, h, mask, yin, *weights)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2, run
+        assert _max_err(got, want) <= TOL, (run, _max_err(got, want))
+        for x, y in zip(got, again):
+            assert torch.equal(x, y), run
+        assert not got[1][-1].any() and not got[2][-1].any(), run
+
+
+def test_lstm_scan_forwards_refuse_without_a_cluster(card, monkeypatch):
+    """Where the device holds no cluster of 16 or 8 blocks of K10's or
+    K14's walk, a CUDA call raises; it never takes the plain path."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    gen = torch.Generator().manual_seed(6)
+    vh, h, mask, yin, weights = _loc_lstm_case(card, gen, 2, 7, 3, 17, 12, 9, 4, 5)
+    calls = {attention_scan.KERNEL_LOC_LSTM_FWD: lambda: attention_scan.
+             attention_decode_scan_loc_lstm(vh, h, mask, yin, *weights),
+             attention_scan.KERNEL_LSTM_FWD: lambda: attention_scan.
+             attention_decode_scan_lstm(vh, h, mask, yin, *weights[:10])}
+    smem_limit, _ = attention_scan.scan_limits(attention_scan.KERNEL_LOC_LSTM_FWD, card)
+    monkeypatch.setattr(attention_scan, "scan_limits",
+                        lambda kernel, device: (smem_limit, {16: 0, 8: 0}))
+    for kernel, call in calls.items():
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="no cluster"):
+            call()
+        assert kernel.launches == before
+
+
 def test_lstm_scan_plan_on_the_card(card):
     """The card holds clusters of 16 and of 8 blocks of K11's, K15's and
-    K5's walks at full shared memory, as LSTM_PLANS and GRU_SCAN_CASES
-    assume."""
+    K5's walks, and of K10's and K14's, at full shared memory, as
+    LSTM_PLANS, GRU_SCAN_CASES and tests/test_torch_fwd_plan.py assume."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
     for kernel in (attention_scan.KERNEL_LOC_LSTM_BWD, attention_scan.KERNEL_LSTM_BWD,
-                   attention_scan.KERNEL_BWD):
+                   attention_scan.KERNEL_BWD, attention_scan.KERNEL_LOC_LSTM_FWD,
+                   attention_scan.KERNEL_LSTM_FWD):
         smem_limit, resident = attention_scan.scan_limits(kernel, card)
         assert smem_limit == 232448 and resident == {16: 7, 8: 15}, (kernel.name, resident)
 
@@ -870,7 +963,7 @@ def test_decoder_scan_kernels(card, monkeypatch, case):
     """K12 or K14 against its plain version (1e-4 abs), then K13 or K15
     with cotangents on every output, and with none on alpha (and mem),
     against its plain version; K15 on its plan, each backward twice with
-    the same bits."""
+    the same bits, and once more on the sequences K14 saved."""
     cell, b, l, t, (s, a, st, fm, f), *run = DECODER_SCAN_CASES[case]
     fwd, bwd, fwd_plain, bwd_plain, k_fwd, k_bwd = _decoder_scans(cell)
     gen = torch.Generator().manual_seed(b * 31 + l)
@@ -895,7 +988,10 @@ def test_decoder_scan_kernels(card, monkeypatch, case):
         want_b = bwd_plain(*args)
         torch.cuda.synchronize()
         _bwd_close(got_b, want_b, f"{cell} scan bwd")
-    assert k_bwd.launches == n_bwd + (4 if cell == "lstm" else 2)
+    if cell == "lstm":
+        args = (vh, h, mask, yin, *weights, *got, *cot)
+        _bwd_close(bwd(*args), bwd_plain(*args), "lstm scan bwd on K14's sequences")
+    assert k_bwd.launches == n_bwd + (5 if cell == "lstm" else 2)
 
 
 @pytest.mark.parametrize("kind", ["loc", "loc_lstm", "lstm"])
@@ -933,9 +1029,11 @@ def test_decoder_scans_refuse_what_does_not_fit(card):
     14359). K11 and K15 keep ceil(L / C) positions a block: at one batch
     row (C = 16, R = 1) and the conv+BiLSTM recipe's widths, K11 fits L' <=
     18640 and K15 L' <= 137856, and K5 at the flagship's widths L <= 120448
-    (walk_smem_bytes; tests/test_torch_scan_plan.py pins them). The largest
-    L runs, one more is refused (K11, K15, K5: by the plan, before a
-    launch) and not counted."""
+    (walk_smem_bytes; tests/test_torch_scan_plan.py pins them); so do K10
+    and K14, which fit L' <= 136960 and 243008 (fwd_smem_bytes;
+    tests/test_torch_fwd_plan.py). The largest L runs, one more is refused
+    (K5, K10, K11, K14, K15: by the plan, before a launch) and not
+    counted."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
     flagship, conv_bilstm = (512, 512, 256), (150, 256, 400)
@@ -943,12 +1041,15 @@ def test_decoder_scans_refuse_what_does_not_fit(card):
                                             ("gru", flagship, 16, 10, "fwd", 14359),
                                             ("lstm", conv_bilstm, 0, 0, "bwd", 137856),
                                             ("loc_lstm", conv_bilstm, 16, 5, "bwd", 18640),
+                                            ("lstm", conv_bilstm, 0, 0, "fwd", 243008),
+                                            ("loc_lstm", conv_bilstm, 16, 5, "fwd", 136960),
                                             ("content_gru", flagship, 0, 0, "bwd", 120448)):
         if cell == "loc_lstm":
             fwd, bwd = (attention_scan.attention_decode_scan_loc_lstm,
                         attention_scan.attention_decode_scan_loc_lstm_bwd)
             fwd_plain, k = (attention_scan.attention_decode_scan_loc_lstm_plain,
-                            attention_scan.KERNEL_LOC_LSTM_BWD)
+                            attention_scan.KERNEL_LOC_LSTM_BWD if kernel == "bwd"
+                            else attention_scan.KERNEL_LOC_LSTM_FWD)
         elif cell == "content_gru":
             fwd, bwd = (attention_scan.attention_decode_scan,
                         attention_scan.attention_decode_scan_bwd)

@@ -229,3 +229,66 @@ def test_gru_mode_instruments_the_walk_k5_runs():
         "// [phase] cell products, dr exchange")
     text, names = tool.instrument_walk(src)
     assert names.index("w_h^T, da_zr exchange") == 2
+
+
+# The forward walk's phases (K10, K14).
+FWD_WALK_PHASES = ["staging wait", "E1 exchange", "ws, energies", "softmax shares",
+                   "w_h, E2 exchange", "combine", "c W_cx", "cell", "ws_w, E1 push"]
+
+
+def test_instrument_lstm_fwd_reads_the_clock_after_every_wait():
+    """The LSTM decoder forwards' walk (K10 and K14, --lstm-fwd): a cycle
+    read after the staging wait's block barrier, after each exchange's
+    wait, after each block barrier between and after the last push, by
+    thread 0 of block 0, the clock started once, before the step loop;
+    outside the walk's body only the probe is added."""
+    tool = _tool()
+    src = SOURCE.read_text()
+    text, names = tool.instrument_fwd_walk(src)
+    assert names == FWD_WALK_PHASES
+    body = text.split(tool.FWD_WALK_SIG, 1)[1].split("\n}\n", 1)[0]
+    assert "// [phase]" not in body
+    reads = re.findall(r"blockIdx.x == 0\) \{ const long long c_ = clock64\(\); "
+                       r"g_phase_cycles\[(\d+)\] \+= c_ - phase_t0_", body)
+    assert [int(i) for i in reads] == list(range(len(FWD_WALK_PHASES)))
+    assert body.count("long long phase_t0_ = clock64();") == 1
+    assert body.index("long long phase_t0_ = clock64();") < body.index(tool.FWD_WALK_LOOP)
+    lines = src.split(tool.FWD_WALK_SIG, 1)[1].split("\n}\n", 1)[0].split("\n")
+    marked = [i for i, line in enumerate(lines) if "// [phase]" in line]
+    before = [[x.strip() for x in lines[:i] if x.strip() and not x.strip().startswith("//")][-1]
+              for i in marked]
+    waits = [f"if (tid == 0 && t + 1 < T) mbar_expect(&sh.bars[{k}], tx{k + 1});" for k in (0, 1)]
+    assert before == [
+        "if (t + 1 < T) stage(t + 1, (t + 1) & 1);", "}", "__syncthreads();",
+        "__syncthreads();", waits[1], "__syncthreads();", "__syncthreads();",
+        "__syncthreads();", "}"]
+    assert waits[0] in lines[marked[1] - 2]
+    head, rest = src.split(tool.FWD_WALK_SIG, 1)
+    assert text.replace(tool.PROBE + "\n", "", 1).startswith(head)
+    assert text.endswith(rest.split("\n}\n", 1)[1])
+    for a, b in ("{}", "()"):
+        assert text.count(a) - text.count(b) == src.count(a) - src.count(b)
+
+
+def test_lstm_fwd_mode_instruments_the_walk_k10_and_k14_run():
+    """--lstm-fwd times K10 and K14: their entry points are in the
+    instrumented source, and their walk kernels are instances of
+    decoder_fwd_walk there."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    tool = _tool()
+    entries, walks = tool.MODES["lstm_fwd"]
+    src = SOURCE.read_text()
+    for entry, walk, loc in zip(entries, walks, ("true", "false")):
+        name, attr = tool.ENTRY[entry]
+        kernel = getattr(attention_scan, attr)
+        assert (kernel.symbol, kernel.source) == (entry, tool.SOURCE)
+        assert re.search(r"__global__ void __launch_bounds__\(kThreads, 1\)\n    " + walk +
+                         r"\(const FwdArgs a, const FwdScratch x, int resident\) \{\n.*\n"
+                         r"  decoder_fwd_walk<R, true, " + loc + r">\(sm, a, x, resident\);", src)
+        assert f'extern "C" int {entry}(' in src and f'extern "C" int {entry}_limits(' in src
+    with pytest.raises(ValueError, match="no // \\[phase\\] markers in decoder_fwd_walk"):
+        head, rest = src.split(tool.FWD_WALK_SIG, 1)
+        body, tail = rest.split("\n}\n", 1)
+        tool.instrument_fwd_walk(head + tool.FWD_WALK_SIG + re.sub(r"// \[phase\] .*", "", body)
+                                 + "\n}\n" + tail)

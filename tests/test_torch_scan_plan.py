@@ -212,24 +212,47 @@ def test_the_gru_walk_lays_out_what_the_plan_counts(shape, c, r):
         scan.walk_smem_bytes("gru", r, c, l, s, a, st)
 
 
+def _libraries():
+    """The entry points of each of the source's three builds, by the macro
+    that selects it (None for K11-K13's and K15's), from the source's
+    #if / #elif / #else around its entry points."""
+    src = scan.KERNEL_BWD.source.read_text()
+    entries = src[src.index('extern "C"'):]
+    head = src[:src.index('extern "C"')].rstrip()
+    assert head.endswith("#if defined(LSTM_FWD_ONLY)")
+    fwd, rest = entries.split("\n#elif !defined(CONTENT_GRU_BWD_ONLY)\n")
+    others, k5 = rest.split("\n#else\n")
+    assert src.rstrip().endswith("#endif")
+    names = lambda text: set(re.findall(r'extern "C" int (\w+)\(', text))
+    return {"LSTM_FWD_ONLY": names(fwd), "CONTENT_GRU_BWD_ONLY": names(k5), None: names(others)}
+
+
 def test_k5_builds_a_library_of_its_own():
     """K5 shares its source with K10-K15 but builds with CONTENT_GRU_BWD_ONLY
     defined into a library of its own, which nvcc compiles beside the
-    other's: that build holds K5's two entry points and no other, and the
-    other holds every entry point but K5's."""
-    src = scan.KERNEL_BWD.source.read_text()
+    others: that build holds K5's two entry points and no other; K10's and
+    K14's build (LSTM_FWD_ONLY) their four, and the default build every
+    other entry point."""
     assert scan.KERNEL_BWD.source == scan.KERNEL_LSTM_BWD.source
     assert scan.KERNEL_BWD.library_path() != scan.KERNEL_LSTM_BWD.library_path()
     assert "-DCONTENT_GRU_BWD_ONLY" in scan.KERNEL_BWD.flags
     assert not any("CONTENT_GRU_BWD_ONLY" in f for f in scan.KERNEL_LSTM_BWD.flags)
-    entries = src[src.index('extern "C"'):]
-    others, k5 = entries.split("\n#else\n")
-    assert others.startswith('extern "C"') and src.rstrip().endswith("#endif")
-    assert src[:src.index('extern "C"')].rstrip().endswith("#ifndef CONTENT_GRU_BWD_ONLY")
-    assert re.findall(r'extern "C" int (\w+)\(', k5) == ["attention_decode_scan_bwd_limits",
-                                                       "attention_decode_scan_bwd"]
+    libs = _libraries()
+    assert libs["CONTENT_GRU_BWD_ONLY"] == {"attention_decode_scan_bwd_limits",
+                                            "attention_decode_scan_bwd"}
     walks = (scan.KERNEL_LOC_LSTM_BWD, scan.KERNEL_LSTM_BWD)
-    want = {k.symbol for k in (scan.KERNEL_LOC_LSTM_FWD, scan.KERNEL_LOC_FWD,
-                               scan.KERNEL_LOC_BWD, scan.KERNEL_LSTM_FWD, *walks)}
+    want = {k.symbol for k in (scan.KERNEL_LOC_FWD, scan.KERNEL_LOC_BWD, *walks)}
     want |= {k.symbol + "_limits" for k in walks}
-    assert set(re.findall(r'extern "C" int (\w+)\(', others)) == want
+    assert libs[None] == want
+
+
+def test_k10_and_k14_build_a_library_of_their_own():
+    """K10 and K14 (the forward walk's eight instances and its pre-pass)
+    build with LSTM_FWD_ONLY defined into one library of their own, beside
+    K5's and the rest's; it holds their entry points and limits helpers
+    and no other."""
+    fwds = (scan.KERNEL_LOC_LSTM_FWD, scan.KERNEL_LSTM_FWD)
+    assert all(k.defines == ("LSTM_FWD_ONLY",) for k in fwds)
+    assert fwds[0].library_path() == fwds[1].library_path()
+    assert len({k.library_path() for k in (fwds[0], scan.KERNEL_BWD, scan.KERNEL_LSTM_BWD)}) == 3
+    assert _libraries()["LSTM_FWD_ONLY"] == {k.symbol + x for k in fwds for x in ("", "_limits")}

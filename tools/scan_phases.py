@@ -1,10 +1,11 @@
 """Where a step of the decoder-scan backwards K5, K11, K13 and K15, of the
-flagship's beam step K2, or of the forward GRU walk behind K1, K16 and
-K18, goes, on the card.
+LSTM decoder forwards K10 and K14, of the flagship's beam step K2, or of
+the forward GRU walk behind K1, K16 and K18, goes, on the card.
 
     python3 tools/scan_phases.py [SOURCE ...]
     python3 tools/scan_phases.py --lstm-bwd [SOURCE ...]
     python3 tools/scan_phases.py --gru-bwd [SOURCE ...]
+    python3 tools/scan_phases.py --lstm-fwd [SOURCE ...]
     python3 tools/scan_phases.py --k2 [SOURCE ...]
     python3 tools/scan_phases.py --gru-fwd [HEADER ...]
 
@@ -34,6 +35,17 @@ time per call (CUDA events over 5 calls) and the parity (the backward
 tolerance). With --gru-bwd it does the same for the GRU instance of the
 walk, K5, at the flagship recipe's training shape (L = 144, T = 56) at
 B=16 and 128.
+
+With --lstm-fwd it instruments decoder_fwd_walk, the forward walk of
+K10 and K14 in the same source (or each SOURCE), whose markers follow
+the step's block barriers and its waits for the peers' pushes, and runs
+K10 and K14 at the conv+BiLSTM recipe's training shape at B=16 and 128
+on chip_smoke.py's cases: the plan each ran (C, R, W_cx resident or
+streamed), the cycles a step of block 0 of cluster 0 by phase (the wait
+for the staged P, exchange 1, ws and the energies, the softmax's shares,
+w_h with exchange 2, the combine, c @ W_cx, the cell, the ws partial
+with exchange 1's push), the time per call (CUDA events over 5 calls)
+and the max abs error against the plain version (1e-4).
 
 With --k2 it does the same for attention_step_kernel of
 csrc/attention_step.cu (or each SOURCE), whose markers follow the
@@ -101,6 +113,8 @@ STEP_CALL = re.compile(r"^  ([\w.]+)(?:<\w+>)?\((.*)\);$")
 # The kernel attribute of ops/cuda/attention_scan.py each instrumented
 # entry point stands in for, by chip_smoke.py's case name.
 ENTRY = {"attention_decode_scan_loc_bwd": ("K13", "KERNEL_LOC_BWD"),
+         "attention_decode_scan_loc_lstm_fwd": ("K10", "KERNEL_LOC_LSTM_FWD"),
+         "attention_decode_scan_lstm_fwd": ("K14", "KERNEL_LSTM_FWD"),
          "attention_decode_scan_loc_lstm_bwd": ("K11", "KERNEL_LOC_LSTM_BWD"),
          "attention_decode_scan_lstm_bwd": ("K15", "KERNEL_LSTM_BWD"),
          "attention_decode_scan_bwd": ("K5", "KERNEL_BWD")}
@@ -109,9 +123,15 @@ ENTRY = {"attention_decode_scan_loc_bwd": ("K13", "KERNEL_LOC_BWD"),
 MODES = {"k13": (("attention_decode_scan_loc_bwd",), ("scan_loc_gru_bwd",)),
          "lstm": (("attention_decode_scan_loc_lstm_bwd", "attention_decode_scan_lstm_bwd"),
                   ("loc_lstm_bwd_kernel", "scan_lstm_bwd_kernel")),
-         "gru": (("attention_decode_scan_bwd",), ("content_gru_walk_kernel",))}
+         "gru": (("attention_decode_scan_bwd",), ("content_gru_walk_kernel",)),
+         "lstm_fwd": (("attention_decode_scan_loc_lstm_fwd", "attention_decode_scan_lstm_fwd"),
+                      ("loc_lstm_fwd_kernel", "scan_lstm_fwd_kernel"))}
 WALK_SIG = "__device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {"
 WALK_LOOP = "  for (int s = 0; s < T; ++s) {"
+FWD_WALK_SIG = ("__device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, "
+                "const FwdScratch& x,\n                                                 int "
+                "resident) {")
+FWD_WALK_LOOP = "  for (int t = 0; t < T; ++t) {"
 
 
 def instrument(src: str):
@@ -202,22 +222,30 @@ def instrument_gru_fwd(src: str):
     return head + GRU_FWD_SIG + body + "\n}\n" + tail, [n for _, n in names]
 
 
-def instrument_walk(src: str):
+def instrument_walk(src: str, sig: str = WALK_SIG, loop: str = WALK_LOOP,
+                    name: str = "decoder_walk"):
     """The source with a cycle read by thread 0 of block 0 at each phase
-    marker of decoder_walk (K11's, K15's and K5's walk), and the phases'
-    names in order."""
-    head, rest = src.split(WALK_SIG, 1)
+    marker of decoder_walk (K11's, K15's and K5's walk; or of the walk
+    whose signature and step loop are `sig` and `loop`, named `name`), and
+    the phases' names in order."""
+    head, rest = src.split(sig, 1)
     body, tail = rest.split("\n}\n", 1)
     names = MARK.findall(body)
     if not names:
-        raise ValueError("no // [phase] markers in decoder_walk")
+        raise ValueError(f"no // [phase] markers in {name}")
     counter = iter(range(len(names)))
     body = MARK.sub(lambda m: _clock_read(next(counter), m.group(1)), body)
-    if body.count(WALK_LOOP) != 1:
-        raise ValueError("decoder_walk has no single step loop")
-    body = body.replace(WALK_LOOP, "  long long phase_t0_ = clock64();\n" + WALK_LOOP, 1)
+    if body.count(loop) != 1:
+        raise ValueError(f"{name} has no single step loop")
+    body = body.replace(loop, "  long long phase_t0_ = clock64();\n" + loop, 1)
     head = head.replace("namespace {", PROBE + "\nnamespace {", 1)
-    return head + WALK_SIG + body + "\n}\n" + tail, [n for _, n in names]
+    return head + sig + body + "\n}\n" + tail, [n for _, n in names]
+
+
+def instrument_fwd_walk(src: str):
+    """instrument_walk for decoder_fwd_walk, the forward walk of K10 and
+    K14."""
+    return instrument_walk(src, FWD_WALK_SIG, FWD_WALK_LOOP, "decoder_fwd_walk")
 
 
 def _card() -> str:
@@ -229,17 +257,18 @@ def _card() -> str:
 
 def cases(mode: str):
     """chip_smoke.py's cases of `mode` at B=16 and 128: K13 at
-    flagship_loc's training shape ("k13"), K11 and K15 at the conv+BiLSTM
-    recipe's, with and without the location term ("lstm"), or K5 at the
-    flagship recipe's ("gru")."""
+    flagship_loc's training shape ("k13"), K11 and K15 ("lstm") or K10
+    and K14 ("lstm_fwd") at the conv+BiLSTM recipe's, with and without
+    the location term, or K5 at the flagship recipe's ("gru")."""
     import chip_smoke as smoke
     from seq2seq_attention_asr_tpu_torch import interop
     from seq2seq_attention_asr_tpu_torch.train import experiment
 
     gen = torch.Generator().manual_seed(smoke.SEED + 1)
     out = []
-    recipes = {"lstm": ((experiment.timit_conv_bilstm, smoke.cb_train_cases),
-                        (smoke.conv_bilstm_content, smoke.cbc_train_cases)),
+    lstm = ((experiment.timit_conv_bilstm, smoke.cb_train_cases),
+            (smoke.conv_bilstm_content, smoke.cbc_train_cases))
+    recipes = {"lstm": lstm, "lstm_fwd": lstm,
                "k13": ((smoke.flagship_loc, smoke.loc_train_cases),),
                "gru": ((experiment.timit_chorowski_normnll_colnorm, smoke.train_cases),)}[mode]
     names = MODES[mode][0]
@@ -255,9 +284,9 @@ def cases(mode: str):
 
 
 def main(sources, mode: str = "k13") -> int:
-    """The default mode ("k13": K13's scan_bwd), or the --lstm-bwd
-    ("lstm": K11 and K15) or --gru-bwd ("gru": K5) mode, on
-    decoder_walk."""
+    """The default mode ("k13": K13's scan_bwd), the --lstm-bwd ("lstm":
+    K11 and K15) or --gru-bwd ("gru": K5) mode, on decoder_walk, or the
+    --lstm-fwd mode ("lstm_fwd": K10 and K14), on decoder_fwd_walk."""
     if not torch.cuda.is_available():
         print("scan_phases: no CUDA device is available", file=sys.stderr)
         return 1
@@ -266,7 +295,8 @@ def main(sources, mode: str = "k13") -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     entries, walks = MODES[mode]
     for src in map(pathlib.Path, sources):
-        text, names = (instrument if mode == "k13" else instrument_walk)(src.read_text())
+        text, names = {"k13": instrument, "lstm_fwd": instrument_fwd_walk}.get(
+            mode, instrument_walk)(src.read_text())
         headers = {h.name: h.read_text() for h in sorted(src.parent.glob("*.cuh"))}
         digest = hashlib.sha1((text + "".join(headers.values())).encode()).hexdigest()[:12]
         copy = build.BUILD_DIR / "phases" / digest
@@ -302,17 +332,25 @@ def main(sources, mode: str = "k13") -> int:
             setattr(attention_scan, attr, ks[name])
             plan = ""
             try:
-                if mode != "k13":
-                    fm, f = (c.args[14].shape[1], c.args[14].shape[0]) if name == "K11" else (0, 0)
-                    run = attention_scan.scan_plan_on(ks[name], b, l, vh.shape[2],
-                                                      c.args[1].shape[2], yin.shape[2], fm, f,
-                                                      vh.device)
+                fm, f = ((c.args[14].shape[1], c.args[14].shape[0]) if name in ("K10", "K11")
+                         else (0, 0))
+                dims = (b, l, vh.shape[2], c.args[1].shape[2], yin.shape[2], fm, f, vh.device)
+                if mode == "lstm_fwd":
+                    run = attention_scan.fwd_plan_on(ks[name], *dims)
+                    plan = (f" (plan C={run.cluster} R={run.rows} W_cx "
+                            f"{'resident' if run.resident else 'streamed'}, {run.waves} waves)")
+                elif mode != "k13":
+                    run = attention_scan.scan_plan_on(ks[name], *dims)
                     plan = f" (plan C={run.cluster} R={run.rows}, {run.waves} waves)"
                 read = ks[name].helper("read_phase_cycles", [ctypes.c_void_p, ctypes.c_int])
                 with torch.no_grad():
                     got = c.kernel(*c.args)
                     torch.cuda.synchronize()
-                    excess = max(float((g - w).abs().max()) - 5e-4 * float(w.abs().max())
+                    # The forward's tolerance, 1e-4 abs, as an excess over it; the
+                    # backward's, max|got - plain| <= 5e-4 max|plain| + 5e-5.
+                    fwd = mode == "lstm_fwd"
+                    excess = max(float((g - w).abs().max()) - (1e-4 - 5e-5 if fwd else
+                                                               5e-4 * float(w.abs().max()))
                                  for g, w in zip(got, want))
                     cycles = (ctypes.c_ulonglong * 32)()
                     read(cycles, 1)
@@ -505,4 +543,6 @@ if __name__ == "__main__":
         sys.exit(main(sys.argv[2:] or [str(SOURCE)], "lstm"))
     if sys.argv[1:2] == ["--gru-bwd"]:
         sys.exit(main(sys.argv[2:] or [str(SOURCE)], "gru"))
+    if sys.argv[1:2] == ["--lstm-fwd"]:
+        sys.exit(main(sys.argv[2:] or [str(SOURCE)], "lstm_fwd"))
     sys.exit(main(sys.argv[1:] or [str(SOURCE)]))

@@ -15,8 +15,8 @@ Phases, each fatal when it fails:
   3. hold each kernel to its plain PyTorch version through its public
      wrapper: K1-K3 at the flagship's serving shapes, batch 1 and 8 (max
      abs error 1e-4); K4 (1e-4 abs) and K5, K6 (max|got - plain| <= 5e-4
-     * max|plain| + 5e-5 for each output; K5 also twice, the two calls
-     bitwise equal, one launch each) at the training shape, B = 16,
+     * max|plain| + 5e-5 for each output; K4 and K5 also twice, the two
+     calls bitwise equal, one launch each) at the training shape, B = 16,
      L = 144, T = 56, encoder lengths ragged in 96-144 and label lengths
      in 20-56; K7 on the conv stack's output of the 3.5 s PCM (the
      conv+BiLSTM recipe's only BiLSTM layer, L' = 14) and K8 at K = 5 in
@@ -33,8 +33,9 @@ Phases, each fatal when it fails:
      backward tolerance; K10, K11, K14 and K15 also twice, the two calls
      bitwise equal, one launch each) and K10 (1e-4 abs) at the conv+BiLSTM recipe's
      training shape, B = 16, 144 frames (L' = 16), T = 56, on the conv
-     stack's and the encoder's output of the same batch; K12 (1e-4 abs)
-     and K13 (the backward tolerance), the location-aware GRU decoder
+     stack's and the encoder's output of the same batch; K12 (1e-4 abs;
+     also twice, bitwise equal) and K13 (the backward tolerance), the
+     location-aware GRU decoder
      scan, at the flagship's training shape on the encoder output of the
      flagship with 16 feature maps of filter 10 (flagship_loc), and K14
      and K15, the content-only LSTM decoder scan, at the conv+BiLSTM
@@ -45,13 +46,14 @@ Phases, each fatal when it fails:
      states with a random cotangent, at the training batch (B = 16, L =
      144) and at B = 1, L = 132 (1e-4 abs forward, the backward tolerance
      on dxproj, dh0, dWzr and dWh); K1, K16 and K18 also twice, the two
-     calls bitwise equal; K10 and K14 (which run on thread-block clusters
-     of C blocks, R batch rows a cluster) at FWD_EDGES under every plan
-     that fits the card (each C, R and W_cx layout): the recipe's widths
-     at B = 16 and 128, L' < C with St and A not multiples of 4, L' not a
-     multiple of C at B not a multiple of R, each with a fully masked row
-     (alpha and c exactly 0), two calls bitwise equal and one launch a
-     call;
+     calls bitwise equal; the decoder forwards K10, K14, K12 and K4
+     (which run on thread-block clusters of C blocks, R batch rows a
+     cluster) at FWD_EDGES under every plan that fits the card (each C, R
+     and W_cx layout): the conv+BiLSTM recipe's widths (K10, K14) and the
+     flagship's (K12 with filter 10, K4) at B = 16 and 128, L < C with St
+     and A not multiples of 4 and an even filter, L not a multiple of C at
+     B not a multiple of R, each with a fully masked row (alpha and c
+     exactly 0), two calls bitwise equal and one launch a call;
   4. serve 3.5 s of PCM with seeded random flagship weights: exact=False
      at batch 1 and 8 (kernels K1, K2, K3), exact=True at batch 1 (K1,
      K2), with the launch counts zeroed just before each request;
@@ -120,8 +122,9 @@ Phases, each fatal when it fails:
      by stage (the pre-pass, the walk), the walk's time a step, its plan
      (C, R, W_cx resident or streamed, clusters and waves) and the scratch
      bytes, and the walk under each plan that fits, each held to the plain
-     version and run twice (the sweeps that attention_scan.FWD_STEP_COST is
-     read from);
+     version and run twice (the sweeps that attention_scan.FWD_STEP_COST's
+     LSTM table is read from); the same for K12 at flagship_loc's and K4 at
+     the flagship's training shape (its GRU table);
   9. the p50 request latency over 10 requests of each model, and the
      device idle share: 1 - (device time of one request) / p50; the p50
      train step of each recipe over 10
@@ -145,9 +148,8 @@ device time of the forward GRU walk's kernels K1, K16 and K18 at B = 1,
 L = 132 and B = 16 and 128, L = 144, of the flagship's beam step K2 and of K8's two instances on
 the flagship's widths at b = 1 and 8, the flagship's serving p50 and device time of
 one request at b = 1 and 8, the time per call of each teacher-forced
-decoder scan (K4, K5, K10-K15) at its recipe's training shape (K5, K10,
-K11 and K13-K15 at B = 128 too) and the device time of K5, K10, K11, K14
-and K15, and
+decoder scan (K4, K5, K10-K15) at its recipe's training shape at B = 16
+and 128 and the device time of K4, K5, K10-K12, K14 and K15, and
 the p50 train step of each of the four trained configurations at B = 16
 and 128.
 """
@@ -217,14 +219,17 @@ CB_EOS_BIASES = (0.01, 0.02, 0.04, 0.08, 0.16, 0.32, 0.64)
 # The decoder scans' backwards K5, K11 and K15 start a recompute pre-pass
 # (gru_decoder_prepass_kernel four times, lstm_decoder_prepass_kernel
 # three times), their walk and two reductions.
+# The decoder forwards start a pre-pass (lstm_fwd_prepass_kernel or
+# gru_fwd_prepass_kernel twice) and their walk.
 STEP_KERNELS = ("bigru_scan2_bwd_kernel", "gru_gates_kernel", "bigru_scan2_kernel",
-                "scan_fwd_kernel", "gru_decoder_prepass_kernel", "content_gru_walk_kernel",
-                "atb_kernel")
+                "gru_fwd_prepass_kernel", "content_gru_fwd_kernel", "gru_decoder_prepass_kernel",
+                "content_gru_walk_kernel", "atb_kernel")
 CB_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "bilstm_scan_kernel",
                    "loc_lstm_fwd_kernel", "lstm_fwd_prepass_kernel", "loc_lstm_bwd_kernel",
                    "lstm_decoder_prepass_kernel", "atb_kernel")
 LOC_STEP_KERNELS = ("bigru_scan2_bwd_kernel", "gru_gates_kernel", "bigru_scan2_kernel",
-                    "scan_loc_gru_fwd_kernel", "scan_loc_gru_bwd_kernel", "atb_kernel")
+                    "gru_fwd_prepass_kernel", "loc_gru_fwd_kernel", "scan_loc_gru_bwd_kernel",
+                    "atb_kernel")
 CBC_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "bilstm_scan_kernel",
                     "scan_lstm_fwd_kernel", "lstm_fwd_prepass_kernel", "scan_lstm_bwd_kernel",
                     "lstm_decoder_prepass_kernel", "atb_kernel")
@@ -268,12 +273,15 @@ GRU_PREPASS = ("gru_decoder_prepass_kernel",) * 4
 WALK_BWDS = {"attention_decode_scan_bwd": ("content_gru_walk_kernel", GRU_PREPASS),
              "attention_decode_scan_loc_lstm_bwd": ("loc_lstm_bwd_kernel", PREPASS),
              "attention_decode_scan_lstm_bwd": ("scan_lstm_bwd_kernel", PREPASS)}
-# The LSTM decoder forwards on thread-block clusters (K10, K14): each call
-# runs the pre-pass (two launches) and the walk. Each one's walk by trace
-# name.
+# The decoder forwards on thread-block clusters (K10, K14, K12, K4): each
+# call runs the pre-pass (two launches) and the walk. Each one's walk and
+# pre-pass by trace name.
 FWD_PREPASS = ("lstm_fwd_prepass_kernel",) * 2
-FWD_SCANS = {"attention_decode_scan_loc_lstm_fwd": "loc_lstm_fwd_kernel",
-             "attention_decode_scan_lstm_fwd": "scan_lstm_fwd_kernel"}
+GRU_FWD_PREPASS = ("gru_fwd_prepass_kernel",) * 2
+FWD_SCANS = {"attention_decode_scan_loc_lstm_fwd": ("loc_lstm_fwd_kernel", FWD_PREPASS),
+             "attention_decode_scan_lstm_fwd": ("scan_lstm_fwd_kernel", FWD_PREPASS),
+             "attention_decode_scan_loc_fwd": ("loc_gru_fwd_kernel", GRU_FWD_PREPASS),
+             "attention_decode_scan_fwd": ("content_gru_fwd_kernel", GRU_FWD_PREPASS)}
 
 REPLACES = {
     "bigru_scan2": "seq2seq_attention_asr_tpu/ops/pallas/gru_scan.py:666",
@@ -303,7 +311,8 @@ SOURCES = {
     "fused_attention_step": "seq2seq_attention_asr_tpu_torch/csrc/attention_step.cu",
     "stft_logmel_power": "seq2seq_attention_asr_tpu_torch/csrc/logmel.cu",
     "bigru_scan2_bwd": "seq2seq_attention_asr_tpu_torch/csrc/bigru_scan2_bwd.cu",
-    "attention_decode_scan_fwd": "seq2seq_attention_asr_tpu_torch/csrc/attention_scan.cu",
+    "attention_decode_scan_fwd":
+        "seq2seq_attention_asr_tpu_torch/csrc/attention_scan_loc_lstm.cu",
     "attention_decode_scan_bwd": "seq2seq_attention_asr_tpu_torch/csrc/attention_scan_loc_lstm.cu",
     "bilstm_scan": "seq2seq_attention_asr_tpu_torch/csrc/bilstm_scan.cu",
     "fused_attention_step_loc_lstm": "seq2seq_attention_asr_tpu_torch/csrc/attention_step.cu",
@@ -691,24 +700,34 @@ def k2_edge_phase(dec, acfg, kernel, gen) -> float:
     return worst
 
 
-# The LSTM decoder forwards' edge shapes (phase 3): (kind, B, L, T, (S, A,
-# St, FM, F)), K10 ("loc") and K14 ("lstm"), the last batch row with
-# every position masked: the conv+BiLSTM recipe's widths at B = 16 and
-# 128; L' = 13 < C with St = 9 and A = 12 (not multiples of 4), FM = 3
-# and an even filter; L' = 37, not a multiple of C, at B = 5, not a
-# multiple of R.
+# The decoder forwards' edge shapes (phase 3): (kind, B, L, T, (S, A, St,
+# FM, F)), K10 ("loc"), K14 ("lstm"), K12 ("gru_loc") and K4 ("gru"), the
+# last batch row with every position masked: the conv+BiLSTM recipe's
+# widths (K10, K14) and the flagship's (K12 with its filter of 10, K4) at
+# B = 16 and 128; L = 13 < C with St = 9 and A = 12 (not multiples of 4),
+# FM = 3 and an even filter; L = 37, not a multiple of C, at B = 5, not a
+# multiple of R, with an odd filter.
 FWD_EDGES = [("loc", TRAIN_B, 16, TRAIN_T, (150, 256, 400, 16, 5)),
              ("lstm", TRAIN_B, 16, TRAIN_T, (150, 256, 400, 0, 0)),
              ("loc", BIG_B, 16, TRAIN_T, (150, 256, 400, 16, 5)),
              ("lstm", BIG_B, 16, TRAIN_T, (150, 256, 400, 0, 0)),
              ("loc", 3, 13, 5, (17, 12, 9, 3, 4)), ("lstm", 3, 13, 5, (17, 12, 9, 0, 0)),
-             ("loc", 5, 37, 9, (64, 40, 33, 16, 5)), ("lstm", 5, 37, 9, (64, 40, 33, 0, 0))]
+             ("loc", 5, 37, 9, (64, 40, 33, 16, 5)), ("lstm", 5, 37, 9, (64, 40, 33, 0, 0)),
+             ("gru_loc", TRAIN_B, TRAIN_L, TRAIN_T, (512, 512, 256, 16, 10)),
+             ("gru", TRAIN_B, TRAIN_L, TRAIN_T, (512, 512, 256, 0, 0)),
+             ("gru_loc", BIG_B, TRAIN_L, TRAIN_T, (512, 512, 256, 16, 10)),
+             ("gru", BIG_B, TRAIN_L, TRAIN_T, (512, 512, 256, 0, 0)),
+             ("gru_loc", 3, 13, 5, (17, 12, 9, 3, 4)), ("gru", 3, 13, 5, (17, 12, 9, 0, 0)),
+             ("gru_loc", 5, 37, 9, (64, 40, 33, 16, 5)), ("gru", 5, 37, 9, (64, 40, 33, 0, 0))]
+FWD_EDGE_NAMES = {"loc": "attention_decode_scan_loc_lstm_fwd",
+                  "lstm": "attention_decode_scan_lstm_fwd",
+                  "gru_loc": "attention_decode_scan_loc_fwd", "gru": "attention_decode_scan_fwd"}
 
 
 def fwd_edge_inputs(kind, b, l, t, dims, gen):
-    """K10's or K14's arguments at (B, L, T) and widths `dims`: encoder
-    lengths ragged, the last row fully masked, weights at the scale of
-    torch's default init."""
+    """The arguments of the forward of `kind` (a key of FWD_EDGE_NAMES) at
+    (B, L, T) and widths `dims`: encoder lengths ragged, the last row
+    fully masked, weights at the scale of torch's default init."""
     s_dim, a, st, fm, f = dims
     dev = torch.device("cuda")
     rnd = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen) * scale).to(dev)
@@ -719,8 +738,12 @@ def fwd_edge_inputs(kind, b, l, t, dims, gen):
     h = rnd(b, l, a, scale=0.5) * mask[:, :, None]
     u = lambda *shape: rnd(*shape, scale=shape[0] ** -0.5)
     weights = [u(st, s_dim), u(st, s_dim)[0], u(s_dim, s_dim)[0], u(a, st), u(a, st)[0],
-               u(2 * st, st), u(2 * st, st)[0], u(st, 4 * st), u(st, 4 * st), u(st, 4 * st)[0]]
-    if kind == "loc":
+               u(2 * st, st), u(2 * st, st)[0]]
+    if kind.startswith("gru"):
+        weights += [u(2 * st, 2 * st), u(2 * st, st)]
+    else:
+        weights += [u(st, 4 * st), u(st, 4 * st), u(st, 4 * st)[0]]
+    if fm:
         weights += [u(f, fm), u(f, fm)[0], u(fm, s_dim)]
     vh = (h @ u(a, s_dim)).contiguous()
     return (vh, h, mask, rnd(b, t, st, scale=0.5), *(w.contiguous() for w in weights))
@@ -732,20 +755,21 @@ def fwd_plans(kernel, b, l, s_dim, a, st, fm, f):
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
     smem, resident = attention_scan.scan_limits(kernel, torch.device("cuda"))
+    cell = attention_scan.FWD_CELL[kernel.symbol]
     return [attention_scan.FwdPlan(c, r, held) for c in attention_scan.WALK_CLUSTERS
             for r in attention_scan.WALK_ROWS for held in (False, True)
             if resident[c] >= 1 and attention_scan.fwd_smem_bytes(
-                r, c, l, s_dim, a, st, fm, f, held) <= smem]
+                r, c, l, s_dim, a, st, fm, f, held, cell) <= smem]
 
 
 def fwd_edge_phase(kernels, gen) -> dict:
-    """K10 and K14 at FWD_EDGES under each plan that fits: parity with the
-    plain version (TOL), alpha and c exactly 0 on the fully masked row,
-    two calls bitwise equal, one launch a call. Returns the largest max
-    abs error of each."""
+    """K10, K14, K12 and K4 at FWD_EDGES under each plan that fits: parity
+    with the plain version (TOL), alpha and c exactly 0 on the fully
+    masked row, two calls bitwise equal, one launch a call. Returns the
+    largest max abs error of each."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
-    names = {"loc": "attention_decode_scan_loc_lstm_fwd", "lstm": "attention_decode_scan_lstm_fwd"}
+    names = FWD_EDGE_NAMES
     worst = dict.fromkeys(names.values(), 0.0)
     default = attention_scan.fwd_plan_on
     try:
@@ -1058,7 +1082,8 @@ def train_cases(params, cfg, batch, gen: torch.Generator):
     step_mv = st * s_dim + a * st + 2 * st * st + 4 * st * st + 2 * st * st
     in_floats = b * l * (s_dim + a + 1) + steps * st + w_floats
     k4 = Case(
-        "attention_decode_scan_fwd", ("scan_fwd_kernel",), attention_scan.attention_decode_scan,
+        "attention_decode_scan_fwd", GRU_FWD_PREPASS + ("content_gru_fwd_kernel",),
+        attention_scan.attention_decode_scan,
         attention_scan.attention_decode_scan_plain, scan_args,
         # Per step: energies (add, tanh, multiply-add) 4 L S, context 2 L A,
         # the weight products, softmax ~5 L and ~10 St elementwise.
@@ -1149,16 +1174,16 @@ def cb_train_cases(params, cfg, batch, gen: torch.Generator):
 
 
 # The kernels of each teacher-forced decoder scan that shares
-# attention_scan_loc_lstm.cu: (forward name, its trace symbols: for the
-# LSTM the pre-pass and the walk; backward name, its trace symbols: for
-# the LSTM the pre-pass, the walk, then one reduction over the steps and
-# one over the walk's partials; for the GRU the walk, the steps'
+# attention_scan_loc_lstm.cu: (forward name, its trace symbols: the
+# pre-pass and the walk; backward name, its trace symbols: for the LSTM
+# the pre-pass, the walk, then one reduction over the steps and one over
+# the walk's partials; for the location-aware GRU the walk, the steps'
 # reduction and one over the rows' location-term partials).
 DECODER_SCANS = {
     "loc_lstm": ("attention_decode_scan_loc_lstm_fwd", FWD_PREPASS + ("loc_lstm_fwd_kernel",),
                  "attention_decode_scan_loc_lstm_bwd",
                  PREPASS + ("loc_lstm_bwd_kernel", "atb_kernel", "atb_kernel")),
-    "loc": ("attention_decode_scan_loc_fwd", ("scan_loc_gru_fwd_kernel",),
+    "loc": ("attention_decode_scan_loc_fwd", GRU_FWD_PREPASS + ("loc_gru_fwd_kernel",),
             "attention_decode_scan_loc_bwd",
             ("scan_loc_gru_bwd_kernel", "atb_kernel", "atb_kernel")),
     "lstm": ("attention_decode_scan_lstm_fwd", FWD_PREPASS + ("scan_lstm_fwd_kernel",),
@@ -1665,30 +1690,35 @@ def decoder_walk_sweep(c, kernel, tag: str, card: str) -> None:
 
 
 def fwd_case_dims(c):
-    """(B, L, S, A, St, FM, F) of a case of FWD_SCANS (K10 or K14)."""
+    """(B, L, S, A, St, FM, F) of a case of FWD_SCANS (K10, K14, K12 or K4)."""
     vh, h, yin = c.args[0], c.args[1], c.args[3]
     b, l, s_dim = vh.shape
     fm, f = 0, 0
     if c.name == "attention_decode_scan_loc_lstm_fwd":
         f, fm = c.args[14].shape  # after vh, h, mask, yin, the 7 step and 3 cell weights
+    elif c.name == "attention_decode_scan_loc_fwd":
+        f, fm = c.args[13].shape  # after vh, h, mask, yin, the 7 step and 2 cell weights
     return b, l, s_dim, h.shape[2], yin.shape[2], fm, f
 
 
 def fwd_walk_split(c, kernel, tag: str, iters: int, card: str) -> None:
-    """Phase 8 for K10 and K14 (`c`, a case of FWD_SCANS): the device time
-    by stage over `iters` traced calls (the pre-pass, the walk), the
-    walk's time a step, the plan it ran and the scratch the call takes."""
+    """Phase 8 for K10, K14, K12 and K4 (`c`, a case of FWD_SCANS): the
+    device time by stage over `iters` traced calls (the pre-pass, the
+    walk), the walk's time a step, the plan it ran and the scratch the
+    call takes."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
-    ms, kept = _stage_times(c, tuple((sym, "pre-pass") for sym in FWD_PREPASS)
-                            + ((FWD_SCANS[c.name], "walk"),), iters)
+    walk_sym, prepass = FWD_SCANS[c.name]
+    ms, kept = _stage_times(c, tuple((sym, "pre-pass") for sym in prepass)
+                            + ((walk_sym, "walk"),), iters)
     b, l, s_dim, a, st, fm, f = fwd_case_dims(c)
     t_len = c.args[3].shape[1]
+    cell = attention_scan.FWD_CELL[kernel.symbol]
     plan = attention_scan.fwd_plan_on(kernel, b, l, s_dim, a, st, fm, f, c.args[0].device)
     smem, resident = attention_scan.scan_limits(kernel, c.args[0].device)
-    floats = attention_scan.fwd_scratch_floats(b, t_len, a, st)
+    floats = attention_scan.fwd_scratch_floats(b, t_len, a, st, cell)
     block_bytes = attention_scan.fwd_smem_bytes(plan.rows, plan.cluster, l, s_dim, a, st, fm, f,
-                                                plan.resident)
+                                                plan.resident, cell)
     print(f"time {c.label} {tag} by stage: pre-pass {ms['pre-pass']:.4f} ms, walk "
           f"{ms['walk']:.4f} ms ({1e3 * ms['walk'] / t_len:.2f} us a step over {t_len} steps) "
           f"(records kept: {', '.join(f'{k} {n}' for k, n in kept.items())} of {iters} calls); "
@@ -1700,14 +1730,14 @@ def fwd_walk_split(c, kernel, tag: str, iters: int, card: str) -> None:
 
 
 def fwd_walk_sweep(c, kernel, tag: str, card: str) -> None:
-    """Phase 8: K10 or K14 (`c`) under each plan that fits the device
-    (fwd_plans; plan_sweep, 1e-4 abs). attention_scan.FWD_STEP_COST is
-    read from these times (the resident layout where it fits)."""
+    """Phase 8: K10, K14, K12 or K4 (`c`) under each plan that fits the
+    device (fwd_plans; plan_sweep, 1e-4 abs). attention_scan.FWD_STEP_COST
+    is read from these times (the resident layout where it fits)."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
     b, l, s_dim, a, st, fm, f = fwd_case_dims(c)
     plan = attention_scan.fwd_plan_on(kernel, b, l, s_dim, a, st, fm, f, c.args[0].device)
-    plan_sweep(c, kernel, tag, card, FWD_SCANS[c.name], "fwd_plan_on",
+    plan_sweep(c, kernel, tag, card, FWD_SCANS[c.name][0], "fwd_plan_on",
                fwd_plans(kernel, b, l, s_dim, a, st, fm, f), plan,
                lambda run: f"C={run.cluster} R={run.rows} W_cx "
                            f"{'resident' if run.resident else 'streamed'}",
@@ -2112,10 +2142,10 @@ def tree_timing() -> dict:
     shape, b=1 and 8; the flagship's
     serving p50 and device time of one request (exact=False, b=1 and 8);
     of each teacher-forced decoder scan, forward and backward (K4, K5,
-    K10-K15), at its recipe's training shape (B=16; K5, K10, K11 and
-    K13-K15 at B=128 too), and the device time of K5, K10, K11, K14 and
-    K15 (every device op of a call); and the p50 train step of each
-    trained configuration at B=16 and 128."""
+    K10-K15), at its recipe's training shape at B=16 and 128, and the
+    device time of K4, K5, K10-K12, K14 and K15 (every device op of a
+    call); and the p50 train step of each trained configuration at B=16
+    and 128."""
     from seq2seq_attention_asr_tpu_torch import interop
     from seq2seq_attention_asr_tpu_torch.models import registry
     from seq2seq_attention_asr_tpu_torch.train import experiment
@@ -2399,9 +2429,8 @@ def main(parent=None) -> int:
     for b in (TRAIN_B, BIG_B):
         k6_plan_sweep(kernels["bigru_scan2_bwd"], b, card)
     fwd_walk_timing(kernels, errs, card)
-    # K5, K10, K11, K13, K14 and K15 at B=128: parity, the device time by
-    # stage and, for K5, K10, K11, K14 and K15, a second call and the walk
-    # under each plan.
+    # K4, K5 and K10-K15 at B=128: parity, the device time by stage and,
+    # for all but K13, a second call and the walk under each plan.
     big = train_batch(BIG_B, SEED + 3)
     big_cases = train_cases(interop.to_torch(train_params, "cuda"),
                             experiment.timit_chorowski_normnll_colnorm().build_model().cfg, big,

@@ -1,8 +1,8 @@
 // One attention decoder step for K rows of one batch row (the math of
 // attention_scan.py _step_core :91), in pieces shared by
-// the beam steps (attention_step.cu, K hypotheses) and the teacher-forced
-// scans (attention_scan.cu and attention_scan_loc_lstm.cu, K = 1, forward
-// and the backward's recompute), with the location term (attend_loc) and
+// the beam steps (attention_step.cu, K hypotheses) and the recompute of
+// the location-aware GRU scan's backward K13 (attention_scan_loc_lstm.cu,
+// K = 1), with the location term (attend_loc) and
 // the LSTM cell (lstm_preacts, lstm_cell) of the location-aware / LSTM
 // decoders, and the GRU cell's backward (gru_cell_bwd) of the
 // location-aware GRU scan's backward kernel K13:

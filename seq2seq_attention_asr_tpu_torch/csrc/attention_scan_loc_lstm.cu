@@ -1,23 +1,21 @@
-// Teacher-forced attention decoder scans with the location term or the
-// LSTM cell, each a forward and a backward kernel, and the backward of
-// the content-only GRU decoder's scan:
+// Teacher-forced attention decoder scans, each a forward and a backward
+// kernel:
 //
 //   <LSTM, location>  K10 loc_lstm_fwd_kernel<R>, K11 loc_lstm_bwd_kernel<R>;
 //                     entry points attention_decode_scan_loc_lstm_{fwd,bwd}
-//   <GRU, location>   K12 scan_loc_gru_fwd_kernel, K13 scan_loc_gru_bwd_kernel;
+//   <GRU, location>   K12 loc_gru_fwd_kernel<R>, K13 scan_loc_gru_bwd_kernel;
 //                     entry points attention_decode_scan_loc_{fwd,bwd}
 //   <LSTM, content>   K14 scan_lstm_fwd_kernel<R>, K15 scan_lstm_bwd_kernel<R>;
 //                     entry points attention_decode_scan_lstm_{fwd,bwd}
-//   <GRU, content>    K5 content_gru_walk_kernel<R>; entry point
-//                     attention_decode_scan_bwd (its forward, K4, is
-//                     attention_scan.cu's)
+//   <GRU, content>    K4 content_gru_fwd_kernel<R>, K5 content_gru_walk_kernel<R>;
+//                     entry points attention_decode_scan_{fwd,bwd}
 //
-// K12 and K13 have one-block bodies of their own (scan_fwd, scan_bwd);
-// K10 and K14 share a pre-pass and a forward walk on a thread-block
-// cluster (decoder_fwd_walk<R, kLstm, kLoc>), and K11, K15 and K5 a
-// pre-pass and a backward walk on one (decoder_walk<R, kLstm, kLoc>).
-// Each instance's kernels are thin __global__ functions of their own, so
-// that a profiler trace names which instance ran.
+// The four forwards share a pre-pass (fwd_prepass<kLstm, kStage>) and a
+// forward walk on a thread-block cluster (decoder_fwd_walk<R, kLstm,
+// kLoc>); K11, K15 and K5 share a pre-pass and a backward walk on one
+// (decoder_walk<R, kLstm, kLoc>); K13 has a one-block body of its own
+// (scan_bwd). Each instance's kernels are thin __global__ functions of
+// their own, so that a profiler trace names which instance ran.
 //
 // They replace the Pallas kernels of
 // seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py, whose forwards
@@ -30,65 +28,73 @@
 //            _bwd_kernel_loc :710;
 //   K14/K15  attention_decode_scan_lstm :1226, _fwd_kernel_lstm :189,
 //            _bwd_kernel_lstm :577;
-//   K5       attention_decode_scan :1156, _bwd_kernel :376;
+//   K4/K5    attention_decode_scan :1156, _fwd_kernel :165, _bwd_kernel :376;
 // with _location_term :62, _step_core :91 and _bwd_core :419. Plain
 // PyTorch twins: ops/cuda/attention_scan.py attention_decode_scan_{loc_lstm,
-// loc,lstm}_plain and their _bwd_plain, and attention_decode_scan_bwd_plain.
+// loc,lstm}_plain and their _bwd_plain, and attention_decode_scan_plain
+// and attention_decode_scan_bwd_plain.
 //
-// K12 and K13: the T steps are a chain, and every step reads the step's
-// weights from L2: at the flagship's widths the GRU's w_zr and w_h,
-// dec_in, c_in and Ws, about 2.6 MB. One block per batch row keeps the
-// state and every intermediate of a step in shared memory and runs the
-// step from the pieces the beam step K8 uses (attention_common.cuh:
-// attend_loc, which forms the location features per encoder position and
-// never stores UF; context; decoder_cell). A step's time is one SM's L2
-// read rate over those bytes.
-//
-// K10 and K14 run in two stages (launch_fwd_walk below):
-//   1. a pre-pass off the chain (lstm_fwd_prepass_kernel<0, 1>: tiled
-//      products, cluster_walk.cuh tile_product). Teacher forcing gives
-//      every step's yin in advance, and the decoder input and the gates
-//      are linear in c, so the step's gate pre-activations are
-//        s_prev @ w_h + P[n] + c @ W_cx,
-//        P    = ([c_b | yin] @ dec_w + dec_b) @ w_x + b   (B*T, 4St)
-//        W_cx = c_w @ dec_w[:St] @ w_x                    (A, 4St)
-//      which takes c_w, dec_w and w_x off the chain (the products are
-//      reassociated: the rounding differs from the plain version's by
-//      about 1e-7 of a gate). Stage 0 forms [c_b | yin] @ dec_w + dec_b
-//      and c_w @ dec_w[:St], and w_h^T; stage 1 multiplies them by w_x;
+// The forwards (K10, K12, K14, K4) run in two stages (launch_fwd_walk
+// below):
+//   1. a pre-pass off the chain (lstm_fwd_prepass_kernel<0, 1> or
+//      gru_fwd_prepass_kernel<0, 1>: tiled products, cluster_walk.cuh
+//      tile_product). Teacher forcing gives every step's yin in advance,
+//      and the decoder input r = [c @ c_w + c_b | yin] @ dec_w + dec_b is
+//      linear in c, so each gate's input part r @ W_x is
+//        P[n] + c @ W_cx,
+//        P    = ([c_b | yin] @ dec_w + dec_b) @ W_x (+ b)   (B*T, G St)
+//        W_cx = c_w @ dec_w[:St] @ W_x                      (A, G St)
+//      with the LSTM's W_x = w_x (G = 4 gates: i, f, g, o) or the GRU's
+//      W_x = [w_zr[St:] | w_h[St:]] (G = 3: the update and reset gates
+//      and the candidate), which takes c_w, dec_w and W_x off the chain
+//      (the products are reassociated: the rounding differs from the
+//      plain version's by about 1e-7 of a gate). Stage 0 forms [c_b |
+//      yin] @ dec_w + dec_b and c_w @ dec_w[:St], and the s_prev
+//      products' weights transposed; stage 1 multiplies them by W_x;
 //   2. the walk on thread-block clusters of C blocks (16 or 8), each
 //      cluster taking R batch rows (plan: ops/cuda/attention_scan.py
 //      fwd_plan). Block k owns state units [k St / C, (k+1) St / C) with
-//      their four gate columns of w_h and W_cx and their rows of ws_w,
-//      annotation columns [k A / C, ...) of the output c, and encoder
-//      positions [k L / C, ...). A step:
+//      their G gate columns of the s_prev products and of W_cx and their
+//      rows of ws_w, annotation columns [k A / C, ...) of the output c,
+//      and encoder positions [k L / C, ...). A step:
 //        ws = ws_b + the blocks' partials s_prev[own] @ ws_w[own, :]  [E1]
 //        the energies on its positions (with the location term, the
 //        features from alpha_prev over the filter's window); their
 //        local max m_k, sum and context partial sum_l exp(e_l - m_k) h_l,
 //        pushed with (location term) the energies in a peer's window  [E2]
-//        while E2 flies: s_prev @ w_h + P on its units' gate columns;
-//        then M = max m_k, z = sum_k exp(m_k - M) sum_k, c and alpha on
-//        its positions (and window) in rank order, the masked softmax of
-//        ops/masking.py (NEG_INF on padding, exp times the mask, z
-//        clamped at 1e-30: a row with every position masked gets alpha =
-//        0 and c = 0; an empty or all-masked block adds nothing);
-//        + c @ W_cx, the LSTM cell on its units (mem never leaves the
-//        block); s, mem, its columns of c and alpha written out;
+//        while E2 flies: s_prev @ w_h + P on the LSTM's gate columns of
+//        its units, or s_prev @ w_zr[:St] + P on the GRU's update and
+//        reset columns; then M = max m_k, z = sum_k exp(m_k - M) sum_k,
+//        c and alpha on its positions (and window) in rank order, the
+//        masked softmax of ops/masking.py (NEG_INF on padding, exp times
+//        the mask, z clamped at 1e-30: a row with every position masked
+//        gets alpha = 0 and c = 0; an empty or all-masked block adds
+//        nothing); + c @ W_cx on every gate column of its units;
+//        the LSTM: the cell on its units (mem never leaves the block);
+//        the GRU: the update gate z and the reset gate rg on its units,
+//        rg s_prev pushed                                             [E3]
+//        (the candidate's product reads every unit of it), then the
+//        candidate tanh(P + c @ W_cx + (rg s_prev) @ w_h[:St]) and s =
+//        (1 - z) s_prev + z cand on its units;
+//        s (and mem), its columns of c and alpha written out;
 //        s[own] and its partial s[own] @ ws_w[own, :] pushed          [E1]
 //      At each [E] the block copies what it formed into every peer's
 //      shared memory (a bulk copy of a row's share where St is a
 //      multiple of 4, else st.async a value; always bulk for the S- and
 //      A-long partials, whose slots are whole 16-byte groups), counted on
-//      the peer's mbarrier, and waits on its own. Two exchanges a step;
-//      sums over blocks in rank order, no atomics: two calls give the
-//      same bits. The W_cx slice stays in shared memory where the plan's
-//      block holds it ("resident"), else both products stream their rows
-//      from L2 (w_h^T and W_cx^T, made in the pre-pass in unit order:
-//      a block's gate columns are one run of rows). Nothing in a block's
-//      shared memory grows with L beyond ceil(L / C) positions and the
-//      filter's window. What bounds a step: the two exchanges' round
-//      trips and c @ W_cx, the one product between E2 and the cell.
+//      the peer's mbarrier, and waits on its own. Two exchanges a step
+//      for the LSTM, three for the GRU, whose reset gate acts on s_prev
+//      before the candidate's product (a gather of St / C floats a block,
+//      where partial products would move St); sums over blocks in rank
+//      order, no atomics: two calls give the same bits. The W_cx slice
+//      stays in shared memory where the plan's block holds it
+//      ("resident"), else the products stream their rows from L2 (the
+//      s_prev products' weights transposed and W_cx^T, made in the
+//      pre-pass in unit order: a block's gate columns are one run of
+//      rows). Nothing in a block's shared memory grows with L beyond
+//      ceil(L / C) positions and the filter's window. What bounds a step:
+//      the exchanges' round trips and the products on the chain after the
+//      softmax, c @ W_cx (and the GRU's candidate product after E3).
 //
 // K13 walks t = T-1..0 in one block per row. It recomputes the step from
 // s_prev and alpha_prev, the saved sequences shifted by one and zero at
@@ -170,14 +176,19 @@
 // memory: five a step for the LSTM, six for the GRU, whose reset gate's
 // cotangent needs w_h^T's output before w_zr^T can start.
 //
-// The source builds three libraries (ops/cuda/attention_scan.py), so that
+// The source builds four libraries (ops/cuda/attention_scan.py), so that
 // nvcc compiles the walks' instances in processes of their own, side by
-// side: K10's and K14's with LSTM_FWD_ONLY defined, K5's alone with
-// CONTENT_GRU_BWD_ONLY defined, and K11-K13's and K15's.
+// side: K10's and K14's with LSTM_FWD_ONLY defined, K12's and K4's with
+// GRU_FWD_ONLY, K5's alone with CONTENT_GRU_BWD_ONLY, and K11's, K13's and
+// K15's.
 
 #include "attention_common.cuh"
 #include "cluster_walk.cuh"
 #include "reduce_atb.cuh"
+
+#if defined(LSTM_FWD_ONLY) || defined(GRU_FWD_ONLY)
+#define FWD_WALK_BUILD  // one of the forward walk's two libraries
+#endif
 
 namespace {
 
@@ -229,7 +240,7 @@ __host__ __device__ LocShared carve_loc(Carver& c, const Dims& d) {
   return s;
 }
 
-// The buffers of one step of the GRU that K12 and K13 share.
+// The buffers of one step of K13's GRU.
 __host__ __device__ StepBufs carve_step(Carver& c, const Dims& d) {
   const int St = d.St;
   StepBufs m{};
@@ -259,74 +270,6 @@ __device__ void load_constants(const Weights& w, const float* mask, const StepBu
     for (int i = threadIdx.x; i < d.FM; i += kThreads) loc.cb[i] = w.bconv[i];
   }
 }
-
-// ---------------------------------------------------------------------------
-// K12: the location-aware GRU decoder's forward, one block per batch row.
-// (K10's and K14's, the LSTM's, are the forward walk further down.)
-
-struct FwdArgs {
-  const float *vh, *h, *mask, *yin;
-  Weights w;
-  float *s_seq, *c_seq, *alpha_seq, *mem_seq;  // mem_seq: LSTM only
-  Dims d;
-};
-
-struct FwdShared {
-  StepBufs m;
-  LocShared loc;
-  float* feat;
-};
-
-__host__ __device__ FwdShared carve_fwd(float* sm, const Dims& d, size_t* floats) {
-  Carver c{sm, 0};
-  FwdShared s{};
-  s.m = carve_step(c, d);
-  s.loc = carve_loc<true>(c, d);
-  s.feat = c.take((size_t)kWarps * d.FM);
-  s.m.scratch = c.take(kThreads * 4);
-  *floats = c.off;
-  return s;
-}
-
-__device__ __forceinline__ void scan_fwd(float* sm, const FwdArgs& a) {
-  const Dims& d = a.d;
-  const int b = blockIdx.x, St = d.St, A = d.A, L = d.L, pad = d.F / 2;
-  size_t floats;
-  const FwdShared s = carve_fwd(sm, d, &floats);
-  const StepBufs& m = s.m;
-  const StepWeights w = a.w.step();
-  const float* vhb = a.vh + (size_t)b * L * d.S;
-  const float* hb = a.h + (size_t)b * L * A;
-
-  load_constants<true>(a.w, a.mask, m, s.loc, d, b);
-  for (int j = threadIdx.x; j < St; j += kThreads) m.sp[j] = m.sr[j] = 0.f;
-  for (int t = 0; t < d.T; ++t) {
-    const size_t n = (size_t)b * d.T + t;
-    for (int j = threadIdx.x; j < St; j += kThreads) m.rin[St + j] = a.yin[n * St + j];
-    __syncthreads();
-    attend_loc(w, m, LocBufs{s.loc.ap, s.loc.u, s.loc.cw, s.loc.cb, s.feat, d.F, d.FM}, vhb, 1, L,
-               d.S, St);
-    context(m, hb, 1, L, A, St);
-    decoder_cell(w, m, 1, A, St);
-    for (int j = threadIdx.x; j < St; j += kThreads) {
-      const float v = m.xo[j];
-      a.s_seq[n * St + j] = v;
-      m.sp[j] = m.sr[j] = v;
-    }
-    for (int j = threadIdx.x; j < A; j += kThreads) a.c_seq[n * A + j] = m.xo[St + j];
-    for (int l = threadIdx.x; l < L; l += kThreads) {
-      a.alpha_seq[n * L + l] = m.al[l];
-      s.loc.ap[pad + l] = m.al[l];  // the next step's alpha_prev
-    }
-  }
-}
-
-#if !defined(CONTENT_GRU_BWD_ONLY) && !defined(LSTM_FWD_ONLY)
-__global__ void __launch_bounds__(kThreads, 1) scan_loc_gru_fwd_kernel(const FwdArgs a) {
-  extern __shared__ float sm[];
-  scan_fwd(sm, a);
-}
-#endif
 
 // ---------------------------------------------------------------------------
 // K11, K13, K15: the backward.
@@ -752,7 +695,7 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
   }
 }
 
-#if !defined(CONTENT_GRU_BWD_ONLY) && !defined(LSTM_FWD_ONLY)
+#if !defined(CONTENT_GRU_BWD_ONLY) && !defined(FWD_WALK_BUILD)
 __global__ void __launch_bounds__(kThreads, 1) scan_loc_gru_bwd_kernel(const BwdArgs a) {
   extern __shared__ float sm[];
   scan_bwd(sm, a);
@@ -767,8 +710,10 @@ constexpr int kMaxWalkCluster = 16;  // a non-portable cluster size on Hopper
 constexpr int kBarsLstm = 5, kBarsGru = 6;
 template <bool kLstm>
 constexpr int kBars = kLstm ? kBarsLstm : kBarsGru;
-// The cell's gathered gate cotangents of a row, in units of St: the
-// LSTM's dgates (4), the GRU's da_cand and da_zr (1 + 2).
+// The cell's gate columns a unit: the LSTM's 4 (i, f, g, o), the GRU's 3
+// (update, reset, candidate). The backward walk gathers their cotangents
+// (the LSTM's dgates, the GRU's da_cand and da_zr), the forward walk's
+// products form them.
 template <bool kLstm>
 constexpr int kGates = kLstm ? 4 : 3;
 
@@ -1661,105 +1606,138 @@ __global__ void __launch_bounds__(kTileThreads) gru_decoder_prepass_kernel(const
   decoder_prepass<false, kStage>(a);
 }
 
-#ifdef LSTM_FWD_ONLY
+#ifdef FWD_WALK_BUILD
 // ---------------------------------------------------------------------------
-// K10, K14: the LSTM decoder forwards, a pre-pass and a walk on
-// thread-block clusters (the file's head gives the step).
+// K10, K14 (the LSTM) and K12, K4 (the GRU): the decoder forwards, a
+// pre-pass and a walk on thread-block clusters (the file's head gives the
+// step).
+
+struct FwdArgs {
+  const float *vh, *h, *mask, *yin;
+  Weights w;
+  float *s_seq, *c_seq, *alpha_seq, *mem_seq;  // mem_seq: LSTM only
+  Dims d;
+};
 
 // The pre-pass's outputs, carved from the caller's scratch in this order,
-// each 16-byte aligned: Z, (B*T + A) rows of St ([c_b | yin] @ dec_w +
-// dec_b for the B*T steps, then c_w @ dec_w[:St]); P, B*T rows of 4St
-// (Z's first B*T rows @ w_x + b); W_cx^T, 4St rows of A (Z's last A rows
-// @ w_x, transposed); w_h^T, 4St rows of St. P's columns and the rows of
-// W_cx^T and w_h^T are in unit order, the gates (i, f, g, o) of unit u at
-// 4u..4u+3, so that a block's units are one run of each.
+// each 16-byte aligned, G = kGates<kLstm>: Z, (B*T + A) rows of St ([c_b |
+// yin] @ dec_w + dec_b for the B*T steps, then c_w @ dec_w[:St]); P, B*T
+// rows of G St (Z's first B*T rows @ W_x, + b for the LSTM); W_cx^T, G St
+// rows of A (Z's last A rows @ W_x, transposed); the s_prev products'
+// weights transposed, G St rows of St: the LSTM's w_h^T, or the GRU's
+// w_zr[:St]^T (2 St rows) then w_h[:St]^T (St rows). P's columns and the
+// rows of W_cx^T are in unit order, the G gates of unit u at G u..G u + G
+// - 1, and so are the LSTM's w_h^T and the GRU's w_zr[:St]^T (the update
+// and reset gates of unit u at rows 2u, 2u + 1), so that a block's units
+// are one run of each.
 struct FwdScratch {
   float *z, *p, *wcx, *wh;
 };
 
+template <bool kLstm>
 __host__ __device__ FwdScratch carve_fwd_scratch(float* base, const Dims& d, size_t* floats) {
   Carver c{base, 0};
-  const long long rows = (long long)d.B * d.T, St = d.St;
+  const long long rows = (long long)d.B * d.T, St = d.St, G = kGates<kLstm>;
   FwdScratch x{};
   x.z = take4(c, (rows + d.A) * St);
-  x.p = take4(c, rows * 4 * St);
-  x.wcx = take4(c, 4 * St * d.A);
-  x.wh = take4(c, 4 * St * St);
+  x.p = take4(c, rows * G * St);
+  x.wcx = take4(c, G * St * d.A);
+  x.wh = take4(c, G * St * St);
   *floats = c.off;
   return x;
 }
 
-// The scratch's floats, as carve_fwd_scratch lays it out;
+// The scratch's floats, as carve_fwd_scratch lays it out for `gates`
+// gate columns a unit (4: the LSTM, 3: the GRU);
 // ops/cuda/attention_scan.py (fwd_scratch_floats) computes the same.
-long long fwd_scratch_floats(long long B, long long T, long long A, long long St) {
-  return r4((B * T + A) * St) + r4(4 * B * T * St) + r4(4 * St * A) + r4(4 * St * St);
+long long fwd_scratch_floats(long long B, long long T, long long A, long long St,
+                             long long gates) {
+  return r4((B * T + A) * St) + r4(gates * B * T * St) + r4(gates * St * A) +
+         r4(gates * St * St);
 }
 
 // The exchanges of a forward step, an mbarrier each: s_prev with the
-// blocks' ws partials, and the softmax's shares.
-constexpr int kBarsFwd = 2;
+// blocks' ws partials (E1), the softmax's shares (E2), and the GRU's
+// reset gate times s_prev (E3).
+constexpr int kBarsFwdLstm = 2, kBarsFwdGru = 3;
+template <bool kLstm>
+constexpr int kBarsFwd = kLstm ? kBarsFwdLstm : kBarsFwdGru;
+
+// n or m, whichever is larger.
+__host__ __device__ constexpr long long lmax(long long n, long long m) { return n > m ? n : m; }
 
 // Shared memory of one block of the forward walk, in floats, for R batch
 // rows on clusters of C blocks, loc 1 with the location term (else 0 and
-// FM = F = 0), resident 1 where the block holds its rows of W_cx^T.
-// carve_fwd_walk lays it out, each buffer 16-byte aligned; the plan in
-// ops/cuda/attention_scan.py (fwd_smem_bytes) computes the same.
+// FM = F = 0), resident 1 where the block holds its rows of W_cx^T, lstm 1
+// for the LSTM cell (else 0: the GRU). carve_fwd_walk lays it out, each
+// buffer 16-byte aligned; the plan in ops/cuda/attention_scan.py
+// (fwd_smem_bytes) computes the same.
 long long fwd_smem_floats(long long R, long long C, long long L, long long S, long long A,
                           long long St, long long FM, long long F, long long loc,
-                          long long resident) {
-  return r4(2 * kBarsFwd) + 2 * r4(R * St) + r4(C * R * r4(S)) + r4(R * r4(S)) +
-         r4(C * R * r4(A + 2)) + r4(R * r4(A)) + r4(R * (C + 2)) +
-         3 * r4(4 * R * cspan(St, C)) + r4(R * cspan(St, C)) + 2 * r4(R * cdiv(L, C)) + r4(S) +
-         r4(cspan(St, C) * S) + resident * r4(4 * cspan(St, C) * A) +
-         (1 - loc) * r4(R * cdiv(L, C)) +
+                          long long resident, long long lstm) {
+  return r4(2 * (lstm * kBarsFwdLstm + (1 - lstm) * kBarsFwdGru)) + 2 * r4(R * St) +
+         r4(C * R * r4(S)) + r4(R * lmax(r4(S), (1 - lstm) * St)) + r4(C * R * r4(A + 2)) +
+         r4(R * r4(A)) + r4(R * (C + 2)) + 3 * r4((3 + lstm) * R * cspan(St, C)) +
+         lstm * r4(R * cspan(St, C)) + 2 * r4(R * cdiv(L, C)) + r4(S) + r4(cspan(St, C) * S) +
+         resident * r4((3 + lstm) * cspan(St, C) * A) + (1 - loc) * r4(R * cdiv(L, C)) +
          loc * (3 * r4(R * (cdiv(L, C) + F - 1)) + r4(FM * S) + r4(F * FM) + r4(FM) +
                 r4(kWarps * FM));
 }
 
 struct FwdWalkShared {
-  unsigned long long* bars;  // [kBarsFwd]: E1 (s and the ws partials), E2 (the softmax's shares)
+  unsigned long long* bars;  // [kBarsFwd]: E1 (s and the ws partials), E2 (the softmax's
+                             // shares), E3 (the GRU's rg s_prev)
   float* sg;     // two [R][St]: s gathered from every block, step t's in buffer t & 1
   float* wsp;    // [C][R][Sp]  the blocks' partials of s_prev @ ws_w
-  float* ws;     // [R][Sp]     s_prev @ ws_w + ws_b
+  float* ws;     // [R][Sp]     s_prev @ ws_w + ws_b (the GRU's rs shares its floats)
   float* st;     // [C][R][Ap]  the blocks' shares: context partial [A], local max, local sum
   float* c;      // [R][Aq]     the context
   float* fz;     // [R][C + 2]  the blocks' scales exp(m_k - M), then max(z, 1e-30), then M
-  float* g;      // [R][4Stc]   the gate pre-activations of the block's units, in unit order
-  float* pq;     // two [R][4Stc]: P of the block's units, staged a step ahead
-  float* mem;    // [R][Stc]    the cell state of the block's units
+  float* g;      // [R][G Stc]  the gate pre-activations of the block's units, in unit order
+                 //             (the GRU's update gate z in place of its first, once formed)
+  float* pq;     // two [R][G Stc]: P of the block's units, staged a step ahead
+  float* mem;    // [R][Stc]    the LSTM's cell state of the block's units
+  float* rs;     // [R][St]     the GRU's rg s_prev gathered from every block (E3), in ws's
+                 //             floats: ws is last read in the energies, before the block's
+                 //             E2 push, which every peer's E3 push follows; and written
+                 //             again after the block's E3 wait
   float *e, *p;  // [R][Pc]     the energies (NEG_INF where masked), exp(e - m_k)
   float* mw;     // [R][Pw]     the mask on the window (location term), or [R][Pc] on the positions
   float *ap, *eh;  // [R][Pw]   alpha_prev on the window, 0 off [0, L); the peers' energies there
   float* we;     // [S]         w_e
   float* wsw;    // [Stc][S]    the block's units' rows of ws_w
-  float* wcx;    // [4Stc][A]   the block's rows of W_cx^T (resident plans only)
+  float* wcx;    // [G Stc][A]  the block's rows of W_cx^T (resident plans only)
   float *u, *cw, *cb, *feat;  // U [FM][S], taps [F][FM], bias [FM], a warp's features [kWarps][FM]
   long long sgs, pqs;         // the second buffer of sg, of pq, is this many floats on
 };
 
-template <bool kLoc>
+template <bool kLstm, bool kLoc>
 __host__ __device__ FwdWalkShared carve_fwd_walk(float* sm, const Dims& d, int C, int R,
                                                  int resident, size_t* floats) {
   Carver c{sm, 0};
   const long long Stc = cspan(d.St, C), Pc = cdiv(d.L, C), Sp = r4(d.S), Pw = Pc + d.F - 1;
+  const long long G = kGates<kLstm>;
   FwdWalkShared s{};
-  s.bars = reinterpret_cast<unsigned long long*>(take4(c, 2 * kBarsFwd));
+  s.bars = reinterpret_cast<unsigned long long*>(take4(c, 2 * kBarsFwd<kLstm>));
   s.sgs = r4((long long)R * d.St);
   s.sg = take4(c, 2 * s.sgs);
   s.wsp = take4(c, C * R * Sp);
-  s.ws = take4(c, R * Sp);
+  s.ws = take4(c, R * (kLstm ? Sp : lmax(Sp, d.St)));
   s.st = take4(c, C * R * r4(d.A + 2));
   s.c = take4(c, R * r4(d.A));
   s.fz = take4(c, (long long)R * (C + 2));
-  s.g = take4(c, 4 * R * Stc);
-  s.pqs = r4(4 * R * Stc);
+  s.g = take4(c, G * R * Stc);
+  s.pqs = r4(G * R * Stc);
   s.pq = take4(c, 2 * s.pqs);
-  s.mem = take4(c, R * Stc);
+  if (kLstm)
+    s.mem = take4(c, R * Stc);
+  else
+    s.rs = s.ws;
   s.e = take4(c, R * Pc);
   s.p = take4(c, R * Pc);
   s.we = take4(c, d.S);
   s.wsw = take4(c, Stc * d.S);
-  if (resident) s.wcx = take4(c, 4 * Stc * d.A);
+  if (resident) s.wcx = take4(c, G * Stc * d.A);
   if (kLoc) {
     s.mw = take4(c, R * Pw);
     s.ap = take4(c, R * Pw);
@@ -1777,13 +1755,19 @@ __host__ __device__ FwdWalkShared carve_fwd_walk(float* sm, const Dims& d, int C
 
 // rows_dot<R, false, true> with kRows rows of w a warp at once (rows i,
 // i + kWarps, ..., i + (kRows - 1) kWarps), every load of them issued
-// before any is used. The forward walk streams its slices of w_h^T and
-// W_cx^T from L2 every step, and a pass over a warp's rows costs about one
-// round trip to L2: more rows a pass, fewer passes. The sums are
-// rows_dot's, in the same order. A row past n reads row n - 1 again and
-// is not emitted.
+// before any is used. The forward walk streams its slices of the s_prev
+// products' weights and W_cx^T from L2 every step, and a pass over a
+// warp's rows costs about one round trip to L2: more rows a pass, fewer
+// passes. The sums are rows_dot's, in the same order. A row past n reads
+// row n - 1 again and is not emitted.
 template <int R>
 constexpr int kL2Rows = R <= 4 ? 4 : 2;
+
+// Score units a lane of the forward walk's energies pass takes at once:
+// their vh loads issued together, and with the location term their sums
+// over the feature maps as independent chains. The sums are in the order
+// of one unit at a time.
+constexpr int kEnergyCols = 8;
 
 template <int R, class Emit>
 __device__ __forceinline__ void rows_dot_l2(const float* w, int ldw, int n, const float* v,
@@ -1837,32 +1821,38 @@ __device__ __forceinline__ void rows_dot_l2(const float* w, int ldw, int n, cons
   }
 }
 
-// The forward walk of K10 (kLoc) or K14 for the R batch rows of this
-// block's cluster (group blockIdx.x / C), after the pre-pass; x holds the
-// pre-pass's outputs. Single buffers suffice for what E1's partials and
-// E2 carry, and two for the gathered s, by causality: a peer pushes
-// step t + 1's E2 only after its E1 wait of step t + 1, which needs this
-// block's E1 push of step t, made after this block has read E2's shares
-// of step t and summed E1's partials of step t; and it pushes E1 of step
-// t + 1 only after its E2 wait of step t + 1, which needs this block's E2
-// push of step t + 1, made after the ws sum of step t + 1 (s_prev of step
-// t + 1, read while E2 flies, is in the other buffer). For the same
-// reasons thread 0 arms an mbarrier's next phase as soon as it has seen
-// one complete, and a bulk copy's source is read before the block writes
-// it again. Rows past B have zero inputs and write nothing.
+// The forward walk of K10 (kLstm, kLoc), K14 (kLstm), K12 (kLoc) or K4
+// for the R batch rows of this block's cluster (group blockIdx.x / C),
+// after the pre-pass; x holds the pre-pass's outputs. Single buffers
+// suffice for what E1's partials, E2 and E3 carry, and two for the
+// gathered s, by causality. A block pushes step t + 1's E2 only after its
+// E1 wait of step t + 1, which needs every peer's E1 push of step t, each
+// made after that peer had read E2's shares (and E3's rg s_prev) of step t
+// and summed E1's partials of step t. It pushes E1 of step t + 1 only
+// after its E2 wait of step t + 1, which needs every peer's E2 push of
+// step t + 1, made after that peer's ws sum of step t + 1; s_prev of step
+// t + 1, which the peer reads until its update of step t + 1, is in the
+// other buffer. It pushes E3 of step t + 1 only after its E2 wait of step
+// t + 1, which needs every peer's E2 push of step t + 1, made after that
+// peer had read E3's rg s_prev of step t in its candidate product. For the
+// same reasons thread 0 arms an mbarrier's next phase as soon as it has
+// seen one complete (no byte of the next phase can arrive before), and a
+// bulk copy's source is read before the block writes it again (the peers'
+// waits for those bytes precede the pushes that let the block go on).
+// Rows past B have zero inputs, stay zero and write nothing.
 template <int R, bool kLstm, bool kLoc>
 __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, const FwdScratch& x,
                                                  int resident) {
-  static_assert(kLstm, "the GRU forwards are K12's scan_fwd and K4's attention_scan.cu");
+  constexpr int kG = kGates<kLstm>;
   cg::cluster_group cluster = cg::this_cluster();
   const Dims& d = a.d;
   const WalkCtx c(d, (int)cluster.num_blocks(), (int)cluster.block_rank(), R);
   const int C = c.C, k = c.k, b0 = c.b0, nrows = c.nrows, Stc = c.Stc, Pc = c.Pc, Sp = c.Sp;
   const Span &un = c.un, &ac = c.ac, &pos = c.pos;
-  const int T = d.T, L = d.L, S = d.S, A = d.A, St = d.St, St4 = 4 * St, FM = d.FM, F = d.F;
-  // The block's gate rows (4 a unit) and their stride; the stride of a
+  const int T = d.T, L = d.L, S = d.S, A = d.A, St = d.St, Sg = kG * St, FM = d.FM, F = d.F;
+  // The block's gate rows (kG a unit) and their stride; the stride of a
   // row's softmax shares and of c.
-  const int G = 4 * un.n, Gc = 4 * Stc, Ap = (int)r4(A + 2), Aq = (int)r4(A);
+  const int G = kG * un.n, Gc = kG * Stc, Ap = (int)r4(A + 2), Aq = (int)r4(A);
   // The window: alpha_prev's positions that the block's features read
   // (its own, [pad, pad + pos.n) in it), or without the location term its
   // own positions; nwin of them are needed.
@@ -1870,15 +1860,16 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
   const int nwin = kLoc ? (pos.n > 0 ? pos.n + F - 1 : 0) : pos.n;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   size_t floats;
-  const FwdWalkShared sh = carve_fwd_walk<kLoc>(sm, d, C, R, resident, &floats);
+  const FwdWalkShared sh = carve_fwd_walk<kLstm, kLoc>(sm, d, C, R, resident, &floats);
 
   for (int i = tid; i < S; i += kThreads) sh.we[i] = a.w.w_e[i];
   for (int i = tid; i < un.n * S; i += kThreads) sh.wsw[i] = a.w.ws_w[(size_t)un.lo * S + i];
   if (resident)
-    for (int i = tid; i < G * A; i += kThreads) sh.wcx[i] = x.wcx[(size_t)4 * un.lo * A + i];
+    for (int i = tid; i < G * A; i += kThreads) sh.wcx[i] = x.wcx[(size_t)kG * un.lo * A + i];
   for (int i = tid; i < R * St; i += kThreads) sh.sg[sh.sgs + i] = 0.f;  // s_prev of step 0
   for (int i = tid; i < C * R * Sp; i += kThreads) sh.wsp[i] = 0.f;   // its ws partials
-  for (int i = tid; i < R * Stc; i += kThreads) sh.mem[i] = 0.f;
+  if (kLstm)
+    for (int i = tid; i < R * Stc; i += kThreads) sh.mem[i] = 0.f;
   for (int i = tid; i < R * Pc; i += kThreads) sh.e[i] = kNegInf;
   for (int idx = tid; idx < R * Pw; idx += kThreads) {
     const int r = idx / Pw, i = idx - r * Pw, l = wlo + i;
@@ -1897,20 +1888,26 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
   if (kLoc && pos.n > 0) halo = min(wlo + nwin, L) - max(wlo, 0) - pos.n;
   const unsigned tx1 = 4u * R * (St - un.n) + 4u * R * Sp * (C - 1);
   const unsigned tx2 = 4u * R * Ap * (C - 1) + 4u * R * halo;
+  const unsigned tx3 = 4u * R * (St - un.n);
   if (tid == 0) {
-    for (int i = 0; i < kBarsFwd; ++i) mbar_init(&sh.bars[i]);
+    for (int i = 0; i < kBarsFwd<kLstm>; ++i) mbar_init(&sh.bars[i]);
     mbar_init_fence();
     if (T > 1) mbar_expect(&sh.bars[0], tx1);
     mbar_expect(&sh.bars[1], tx2);
+    if (!kLstm) mbar_expect(&sh.bars[2], tx3);
   }
-  // P of the block's units of step t into staging buffer i.
+  // P of the block's units of step t into staging buffer i, 16 bytes a
+  // copy where every run is whole 16-byte groups (always for the LSTM's
+  // four gates a unit; for the GRU's three where the units come in groups
+  // of 4).
+  const bool vec_p = kLstm || c.bulk;
   const auto stage = [&](int t, int i) {
-    stage_async<R>(sh.pq + i * sh.pqs, Gc, x.p + ((size_t)b0 * T + t) * St4 + 4 * un.lo,
-                   (size_t)T * St4, G, nrows, true);
+    stage_async<R>(sh.pq + i * sh.pqs, Gc, x.p + ((size_t)b0 * T + t) * Sg + kG * un.lo,
+                   (size_t)T * Sg, G, nrows, vec_p);
   };
   stage(0, 0);
-  // The products' rows: St floats (w_h^T) and A floats (W_cx^T), carved
-  // 16-byte aligned.
+  // The products' rows: St floats (the s_prev products) and A floats
+  // (W_cx^T), carved 16-byte aligned.
   const bool vec_h = St % 4 == 0, vec_c = A % 4 == 0;
   cluster.sync();  // every block's mbarriers are armed before any push into it
 
@@ -1944,25 +1941,39 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
       const int r = pr / pos.n, pp = pr - r * pos.n;
       const float* vr = a.vh + ((size_t)(b0 + r) * L + pos.lo + pp) * S;
       const float* wsr = sh.ws + r * Sp;
-      float acc = 0.f;
+      const float* f = sh.feat + warp * FM;
       if constexpr (kLoc) {
-        float* f = sh.feat + warp * FM;
         for (int qq = lane; qq < FM; qq += 32) {
           float v = 0.f;
           for (int j = 0; j < F; ++j) v = fmaf(sh.ap[r * Pw + pp + j], sh.cw[j * FM + qq], v);
-          f[qq] = v + sh.cb[qq];
+          sh.feat[warp * FM + qq] = v + sh.cb[qq];
         }
         __syncwarp();
-        for (int sc = lane; sc < S; sc += 32) {
-          float uf = 0.f;
-          for (int qq = 0; qq < FM; ++qq) uf = fmaf(f[qq], sh.u[qq * S + sc], uf);
-          acc = fmaf(fast_tanh(__ldg(vr + sc) + wsr[sc] + uf), sh.we[sc], acc);
-        }
-        __syncwarp();  // f is rewritten for the warp's next position
-      } else {
-        for (int sc = lane; sc < S; sc += 32)
-          acc = fmaf(fast_tanh(__ldg(vr + sc) + wsr[sc]), sh.we[sc], acc);
       }
+      float acc = 0.f;
+      for (int sc0 = lane; sc0 < S; sc0 += 32 * kEnergyCols) {
+        float z[kEnergyCols], uf[kEnergyCols];
+#pragma unroll
+        for (int x = 0; x < kEnergyCols; ++x) {
+          const int sc = sc0 + 32 * x;
+          z[x] = sc < S ? __ldg(vr + sc) + wsr[sc] : 0.f;
+          uf[x] = 0.f;
+        }
+        if constexpr (kLoc) {
+          for (int qq = 0; qq < FM; ++qq) {
+            const float fq = f[qq], *uq = sh.u + qq * S + sc0;
+#pragma unroll
+            for (int x = 0; x < kEnergyCols; ++x)
+              if (sc0 + 32 * x < S) uf[x] = fmaf(fq, uq[32 * x], uf[x]);
+          }
+        }
+#pragma unroll
+        for (int x = 0; x < kEnergyCols; ++x) {
+          const int sc = sc0 + 32 * x;
+          if (sc < S) acc = fmaf(fast_tanh(kLoc ? z[x] + uf[x] : z[x]), sh.we[sc], acc);
+        }
+      }
+      if (kLoc) __syncwarp();  // f is rewritten for the warp's next position
       acc = warp_sum(acc);
       if (lane == 0) sh.e[r * Pc + pp] = sh.mw[r * Pw + pad + pp] > 0.f ? acc : kNegInf;
     }
@@ -2019,14 +2030,30 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
           st_async(cluster_map(sh.eh + r * Pw + xx - wj, j), sh.e[r * Pc + xx - pos.lo], bar);
         }
       }
-    // While E2 is on its way: s_prev @ w_h + P on the block's gate columns.
-    rows_dot_l2<R>(x.wh + (size_t)4 * un.lo * St, St, G, sp, St, St,
-                   [y = sh.g, add = q, Gc](int i, int r, float v) {
-                     y[r * Gc + i] = v + add[r * Gc + i];
-                   }, vec_h);
+    // While E2 is on its way: s_prev's product + P on the block's gate
+    // columns: the LSTM's s_prev @ w_h on every one; the GRU's s_prev @
+    // w_zr[:St] on its update and reset columns (row i of the block's
+    // w_zr^T is unit i / 2's gate i % 2, column 3 (i / 2) + i % 2), and P
+    // alone on its candidate column.
+    if constexpr (kLstm) {
+      rows_dot_l2<R>(x.wh + (size_t)4 * un.lo * St, St, G, sp, St, St,
+                     [y = sh.g, add = q, Gc](int i, int r, float v) {
+                       y[r * Gc + i] = v + add[r * Gc + i];
+                     }, vec_h);
+    } else {
+      rows_dot_l2<R>(x.wh + (size_t)2 * un.lo * St, St, 2 * un.n, sp, St, St,
+                     [y = sh.g, add = q, Gc](int i, int r, float v) {
+                       const int j = i + (i >> 1);
+                       y[r * Gc + j] = v + add[r * Gc + j];
+                     }, vec_h);
+      for (int idx = tid; idx < R * un.n; idx += kThreads) {
+        const int r = idx / un.n, j = r * Gc + 3 * (idx - r * un.n) + 2;
+        sh.g[j] = q[j];
+      }
+    }
     walk_wait(&sh.bars[1], t & 1);
     if (tid == 0 && t + 1 < T) mbar_expect(&sh.bars[1], tx2);
-    // [phase] w_h, E2 exchange
+    // [phase] s_prev product, E2 exchange
     // The softmax of the row, a warp a row: M = max m_k, each block's
     // scale exp(m_k - M), z = sum_k z_k exp(m_k - M) in rank order.
     if (warp < R) {
@@ -2074,27 +2101,63 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
     if (resident)
       rows_dot<R>(sh.wcx, A, G, sh.c, Aq, A, add_cx);
     else
-      rows_dot_l2<R>(x.wcx + (size_t)4 * un.lo * A, A, G, sh.c, Aq, A, add_cx, vec_c);
+      rows_dot_l2<R>(x.wcx + (size_t)kG * un.lo * A, A, G, sh.c, Aq, A, add_cx, vec_c);
     __syncthreads();
     // [phase] c W_cx
-    // The LSTM cell on the block's units (gate order i, f, g, o).
-    for (int idx = tid; idx < R * un.n; idx += kThreads) {
-      const int r = idx / un.n, u = idx - r * un.n;
-      const float* gr = sh.g + r * Gc + 4 * u;
-      const float ig = sigmoid(gr[0]), fg = sigmoid(gr[1]), gg = tanhf(gr[2]);
-      const float og = sigmoid(gr[3]);
-      const float mv = fg * sh.mem[r * Stc + u] + ig * gg;
-      const float sv = og * tanhf(mv);
-      sh.mem[r * Stc + u] = mv;
-      sn[r * St + un.lo + u] = sv;
-      if (r < nrows) {
-        const size_t o = (n0 + (size_t)r * T) * St + un.lo + u;
-        a.s_seq[o] = sv;
-        a.mem_seq[o] = mv;
+    if constexpr (kLstm) {
+      // The LSTM cell on the block's units (gate order i, f, g, o).
+      for (int idx = tid; idx < R * un.n; idx += kThreads) {
+        const int r = idx / un.n, u = idx - r * un.n;
+        const float* gr = sh.g + r * Gc + 4 * u;
+        const float ig = sigmoid(gr[0]), fg = sigmoid(gr[1]), gg = tanhf(gr[2]);
+        const float og = sigmoid(gr[3]);
+        const float mv = fg * sh.mem[r * Stc + u] + ig * gg;
+        const float sv = og * tanhf(mv);
+        sh.mem[r * Stc + u] = mv;
+        sn[r * St + un.lo + u] = sv;
+        if (r < nrows) {
+          const size_t o = (n0 + (size_t)r * T) * St + un.lo + u;
+          a.s_seq[o] = sv;
+          a.mem_seq[o] = mv;
+        }
       }
+      __syncthreads();
+      // [phase] cell
+    } else {
+      // The GRU's gates on the block's units: z in place of its
+      // pre-activation, and rg s_prev into the E3 buffer.
+      for (int idx = tid; idx < R * un.n; idx += kThreads) {
+        const int r = idx / un.n, u = idx - r * un.n, o = r * St + un.lo + u;
+        float* gr = sh.g + r * Gc + 3 * u;
+        gr[0] = sigmoid(gr[0]);
+        sh.rs[o] = sigmoid(gr[1]) * sp[o];
+      }
+      async_fence();
+      __syncthreads();
+      // [phase] gates
+      // E3: the block's rg s_prev into every peer.
+      push<R>(sh.rs, St, un.lo, 1, 0, un.n, &sh.bars[2], C, k, c.bulk);
+      walk_wait(&sh.bars[2], t & 1);
+      if (tid == 0 && t + 1 < T) mbar_expect(&sh.bars[2], tx3);
+      // [phase] E3 exchange
+      // The candidate's pre-activation: + (rg s_prev) @ w_h[:St] on the
+      // block's candidate columns.
+      rows_dot_l2<R>(x.wh + (size_t)(2 * St + un.lo) * St, St, un.n, sh.rs, St, St,
+                     [y = sh.g, Gc](int i, int r, float v) { y[r * Gc + 3 * i + 2] += v; },
+                     vec_h);
+      __syncthreads();
+      // [phase] candidate
+      // s = (1 - z) s_prev + z tanh(the candidate's pre-activation).
+      for (int idx = tid; idx < R * un.n; idx += kThreads) {
+        const int r = idx / un.n, u = idx - r * un.n, o = r * St + un.lo + u;
+        const float* gr = sh.g + r * Gc + 3 * u;
+        const float z = gr[0], sv = (1.f - z) * sp[o] + z * tanhf(gr[2]);
+        sn[o] = sv;
+        if (r < nrows) a.s_seq[(n0 + (size_t)r * T) * St + un.lo + u] = sv;
+      }
+      __syncthreads();
+      // [phase] update
     }
-    __syncthreads();
-    // [phase] cell
     if (t + 1 < T) {
       // E1: the block's s and its partial s[own] @ ws_w[own, :], a thread
       // per (row, score unit), into every peer.
@@ -2116,6 +2179,7 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
   cluster.sync();  // no block leaves while its shared memory may still be a peer's target
 }
 
+#ifdef LSTM_FWD_ONLY
 template <int R>
 __global__ void __launch_bounds__(kThreads, 1)
     loc_lstm_fwd_kernel(const FwdArgs a, const FwdScratch x, int resident) {
@@ -2129,29 +2193,54 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) float sm[];
   decoder_fwd_walk<R, true, false>(sm, a, x, resident);
 }
+#else
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+    loc_gru_fwd_kernel(const FwdArgs a, const FwdScratch x, int resident) {
+  extern __shared__ __align__(16) float sm[];
+  decoder_fwd_walk<R, false, true>(sm, a, x, resident);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+    content_gru_fwd_kernel(const FwdArgs a, const FwdScratch x, int resident) {
+  extern __shared__ __align__(16) float sm[];
+  decoder_fwd_walk<R, false, false>(sm, a, x, resident);
+}
+#endif
 
 // The pre-pass over the B*T (row, step) pairs and the A rows of c_w, one
-// 64 x 64 output tile a block. Stage 0: Z = [c_b | yin] @ dec_w + dec_b
-// for the pairs and c_w @ dec_w[:St] for c_w's rows; the extra row of
-// blocks (blockIdx.y past Z's tiles) writes w_h^T in unit order. Stage 1:
-// P = Z @ w_x + b for the pairs, W_cx^T = (Z @ w_x)^T for c_w's rows, in
-// unit order. Each stage is a launch of its own, after the one it reads.
-template <int kStage>
-__global__ void __launch_bounds__(kTileThreads)
-    lstm_fwd_prepass_kernel(const FwdArgs a, const FwdScratch x) {
+// 64 x 64 output tile a block, Sg = G St. Stage 0: Z = [c_b | yin] @ dec_w
+// + dec_b for the pairs and c_w @ dec_w[:St] for c_w's rows; the extra row
+// of blocks (blockIdx.y past Z's tiles) writes the s_prev products'
+// weights transposed (FwdScratch gives their order), from Ws = w_h (the
+// LSTM) or [w_zr[:St] | w_h[:St]] (the GRU), St x Sg. Stage 1: P = Z @ W_x
+// (+ b for the LSTM) for the pairs, W_cx^T = (Z @ W_x)^T for c_w's rows,
+// in unit order, W_x = w_x (the LSTM) or [w_zr[St:] | w_h[St:]] (the
+// GRU), St x Sg. Each stage is a launch of its own, after the one it
+// reads.
+template <bool kLstm, int kStage>
+__device__ __forceinline__ void fwd_prepass(const FwdArgs& a, const FwdScratch& x) {
+  constexpr int kG = kGates<kLstm>;
   const Dims& d = a.d;
   const Weights& w = a.w;
-  const int St = d.St, St4 = 4 * St, A = d.A, rows = d.B * d.T, all = rows + A;
+  const int St = d.St, St2 = 2 * St, Sg = kG * St, A = d.A, rows = d.B * d.T, all = rows + A;
   const int i0 = blockIdx.x * kTile, j0 = blockIdx.y * kTile;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float acc[4][4];
   if constexpr (kStage == 0) {
     if ((int)blockIdx.y == (St + kTile - 1) / kTile) {
-      const size_t n = (size_t)St * St4;
+      const size_t n = (size_t)St * Sg;
       for (size_t e = (size_t)blockIdx.x * kTileThreads + threadIdx.x; e < n;
            e += (size_t)gridDim.x * kTileThreads) {
-        const int kk = (int)(e / St4), j = (int)(e - (size_t)kk * St4), gi = j / St;
-        x.wh[(size_t)(4 * (j - gi * St) + gi) * St + kk] = w.w_h[e];
+        const int kk = (int)(e / Sg), j = (int)(e - (size_t)kk * Sg), gi = j / St;
+        const int u = j - gi * St;
+        if constexpr (kLstm)
+          x.wh[(size_t)(4 * u + gi) * St + kk] = w.w_h[e];
+        else if (gi < 2)
+          x.wh[(size_t)(2 * u + gi) * St + kk] = w.w_zr[(size_t)kk * St2 + j];
+        else
+          x.wh[(size_t)(St2 + u) * St + kk] = w.w_h[(size_t)kk * St + u];
       }
       return;
     }
@@ -2173,20 +2262,38 @@ __global__ void __launch_bounds__(kTileThreads)
   } else {
     tile_product(
         acc, [&](int n, int kk) { return n < all ? x.z[(size_t)n * St + kk] : 0.f; },
-        [&](int kk, int j) { return j < St4 ? w.w_x[(size_t)kk * St4 + j] : 0.f; }, i0, j0, St);
+        [&](int kk, int j) -> float {
+          if (j >= Sg) return 0.f;
+          if constexpr (kLstm) return w.w_x[(size_t)kk * Sg + j];
+          return j < St2 ? w.w_zr[(size_t)(St + kk) * St2 + j]
+                         : w.w_h[(size_t)(St + kk) * St + j - St2];
+        },
+        i0, j0, St);
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
         const int n = i0 + 4 * ty + r, j = j0 + 4 * tx + cc, gi = j / St;
-        const int col = 4 * (j - gi * St) + gi;
-        if (n >= all || j >= St4) continue;
+        const int col = kG * (j - gi * St) + gi;
+        if (n >= all || j >= Sg) continue;
         if (n < rows)
-          x.p[(size_t)n * St4 + col] = acc[r][cc] + w.b[j];
+          x.p[(size_t)n * Sg + col] = acc[r][cc] + (kLstm ? w.b[j] : 0.f);
         else
           x.wcx[(size_t)col * A + n - rows] = acc[r][cc];
       }
   }
+}
+
+template <int kStage>
+__global__ void __launch_bounds__(kTileThreads)
+    lstm_fwd_prepass_kernel(const FwdArgs a, const FwdScratch x) {
+  fwd_prepass<true, kStage>(a, x);
+}
+
+template <int kStage>
+__global__ void __launch_bounds__(kTileThreads)
+    gru_fwd_prepass_kernel(const FwdArgs a, const FwdScratch x) {
+  fwd_prepass<false, kStage>(a, x);
 }
 
 #endif
@@ -2211,64 +2318,66 @@ bool valid(const Dims& d) {
          (!kLoc || (d.FM >= 1 && d.F >= 1));
 }
 
-#if !defined(CONTENT_GRU_BWD_ONLY) && !defined(LSTM_FWD_ONLY)
-// K12: one block per batch row.
-int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
-  if (!valid<true>(a.d)) return (int)cudaErrorInvalidValue;
-  size_t floats;
-  carve_fwd(nullptr, a.d, &floats);
-  const size_t bytes = floats * sizeof(float);
-  cudaError_t err = set_smem(scan_loc_gru_fwd_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  scan_loc_gru_fwd_kernel<<<a.d.B, kThreads, bytes, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-#endif
-
-#ifdef LSTM_FWD_ONLY
+#ifdef FWD_WALK_BUILD
 using FwdKernel = void (*)(const FwdArgs, const FwdScratch, int);
 
-// The forward walk instance for R batch rows a cluster: K10's (kLoc) or
-// K14's.
-template <bool kLoc>
+// The forward walk instance for R batch rows a cluster: K10's (kLstm,
+// kLoc), K14's (kLstm), K12's (kLoc) or K4's.
+template <bool kLstm, bool kLoc>
 FwdKernel fwd_walk_kernel(int R) {
+#ifdef LSTM_FWD_ONLY
+  static_assert(kLstm, "this build holds the LSTM's forwards");
   if constexpr (kLoc)
     return R == 1 ? loc_lstm_fwd_kernel<1> : R == 2 ? loc_lstm_fwd_kernel<2>
          : R == 4 ? loc_lstm_fwd_kernel<4> : R == 8 ? loc_lstm_fwd_kernel<8> : nullptr;
   else
     return R == 1 ? scan_lstm_fwd_kernel<1> : R == 2 ? scan_lstm_fwd_kernel<2>
          : R == 4 ? scan_lstm_fwd_kernel<4> : R == 8 ? scan_lstm_fwd_kernel<8> : nullptr;
+#else
+  static_assert(!kLstm, "this build holds the GRU's forwards");
+  if constexpr (kLoc)
+    return R == 1 ? loc_gru_fwd_kernel<1> : R == 2 ? loc_gru_fwd_kernel<2>
+         : R == 4 ? loc_gru_fwd_kernel<4> : R == 8 ? loc_gru_fwd_kernel<8> : nullptr;
+  else
+    return R == 1 ? content_gru_fwd_kernel<1> : R == 2 ? content_gru_fwd_kernel<2>
+         : R == 4 ? content_gru_fwd_kernel<4> : R == 8 ? content_gru_fwd_kernel<8> : nullptr;
+#endif
 }
 
-// K10 and K14: the pre-pass (two launches: Z and w_h^T, then P and
-// W_cx^T), then the walk on clusters of `cluster` blocks, `rows` batch
-// rows a cluster, holding W_cx's slice in shared memory where `resident`.
-template <bool kLoc>
+// K10, K14, K12 and K4: the pre-pass (two launches: Z and the s_prev
+// products' weights transposed, then P and W_cx^T), then the walk on
+// clusters of `cluster` blocks, `rows` batch rows a cluster, holding W_cx's
+// slice in shared memory where `resident`.
+template <bool kLstm, bool kLoc>
 int launch_fwd_walk(const FwdArgs& a, float* scratch, int cluster, int rows, int resident,
                     cudaStream_t stream) {
   const Dims& d = a.d;
-  const auto walk = fwd_walk_kernel<kLoc>(rows);
+  const auto walk = fwd_walk_kernel<kLstm, kLoc>(rows);
   if (!valid<kLoc>(d) || walk == nullptr || cluster < 1 || cluster > kMaxWalkCluster ||
       (resident != 0 && resident != 1))
     return (int)cudaErrorInvalidValue;
   size_t floats, xfloats;
-  carve_fwd_walk<kLoc>(nullptr, d, cluster, rows, resident, &floats);
+  carve_fwd_walk<kLstm, kLoc>(nullptr, d, cluster, rows, resident, &floats);
   if ((long long)floats !=
-      fwd_smem_floats(rows, cluster, d.L, d.S, d.A, d.St, d.FM, d.F, kLoc, resident))
+      fwd_smem_floats(rows, cluster, d.L, d.S, d.A, d.St, d.FM, d.F, kLoc, resident, kLstm))
     return (int)cudaErrorInvalidValue;  // layout and count disagree
-  const FwdScratch x = carve_fwd_scratch(scratch, d, &xfloats);
-  if ((long long)xfloats != fwd_scratch_floats(d.B, d.T, d.A, d.St))
+  const FwdScratch x = carve_fwd_scratch<kLstm>(scratch, d, &xfloats);
+  if ((long long)xfloats != fwd_scratch_floats(d.B, d.T, d.A, d.St, kGates<kLstm>))
     return (int)cudaErrorInvalidValue;
   const int tiles = (d.B * d.T + d.A + kTile - 1) / kTile;
-  const dim3 z_wh(tiles, (d.St + kTile - 1) / kTile + 1);
-  const dim3 p_wcx(tiles, (4 * d.St + kTile - 1) / kTile);
-  lstm_fwd_prepass_kernel<0><<<z_wh, kTileThreads, 0, stream>>>(a, x);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  lstm_fwd_prepass_kernel<1><<<p_wcx, kTileThreads, 0, stream>>>(a, x);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(walk, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  const dim3 grid[] = {dim3(tiles, (d.St + kTile - 1) / kTile + 1),
+                       dim3(tiles, (kGates<kLstm> * d.St + kTile - 1) / kTile)};
+  void (*stages[2])(const FwdArgs, const FwdScratch);
+  if constexpr (kLstm)
+    stages[0] = lstm_fwd_prepass_kernel<0>, stages[1] = lstm_fwd_prepass_kernel<1>;
+  else
+    stages[0] = gru_fwd_prepass_kernel<0>, stages[1] = gru_fwd_prepass_kernel<1>;
+  for (int i = 0; i < 2; ++i) {
+    stages[i]<<<grid[i], kTileThreads, 0, stream>>>(a, x);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(walk, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
   const int groups = (d.B + rows - 1) / rows;
   return (int)launch_cluster(walk, dim3(cluster * groups), cluster, floats * sizeof(float),
@@ -2276,10 +2385,10 @@ int launch_fwd_walk(const FwdArgs& a, float* scratch, int cluster, int rows, int
 }
 
 // As walk_limits, for the forward walk.
-template <bool kLoc>
+template <bool kLstm, bool kLoc>
 int fwd_limits(int cluster, int* smem_limit, int* clusters) {
   if (cluster < 1 || cluster > kMaxWalkCluster) return (int)cudaErrorInvalidValue;
-  const auto walk = fwd_walk_kernel<kLoc>(8);
+  const auto walk = fwd_walk_kernel<kLstm, kLoc>(8);
   cudaError_t err = cudaFuncSetAttribute(walk, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
   return (int)cluster_limits(walk, cluster, smem_limit, clusters);
@@ -2315,7 +2424,7 @@ cudaError_t reduce_partials(const Stash& st, const Grads& g, const Dims& d, int 
   return launch_atb(batch, stream);
 }
 
-#if !defined(CONTENT_GRU_BWD_ONLY) && !defined(LSTM_FWD_ONLY)
+#if !defined(CONTENT_GRU_BWD_ONLY) && !defined(FWD_WALK_BUILD)
 // K13: the backward kernel, then the weight gradients over the B*T steps
 // (s_prev = s_seq shifted by one) and dU, dwconv and dbconv as the sums
 // of the B rows' partials.
@@ -2457,9 +2566,9 @@ int walk_limits(int cluster, int* smem_limit, int* clusters) {
 // dmem_seq) as NULL where there is no cotangent; those of K11, K15 and K5
 // take the walk's plan, `cluster` blocks a cluster and `rows` batch rows
 // a cluster (1, 2, 4 or 8), from ops/cuda/attention_scan.py scan_plan,
-// and those of K10 and K14 the forward walk's, with `resident` (W_cx's
-// slice in shared memory), from fwd_plan, and a scratch of
-// fwd_scratch_floats floats.
+// and the forwards (K10, K14, K12, K4) the forward walk's, with
+// `resident` (W_cx's slice in shared memory), from fwd_plan, and a
+// scratch of fwd_scratch_floats floats.
 
 #if defined(LSTM_FWD_ONLY)
 extern "C" int attention_decode_scan_loc_lstm_fwd(
@@ -2473,12 +2582,12 @@ extern "C" int attention_decode_scan_loc_lstm_fwd(
                   Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h, w_x, b, wconv,
                           bconv, u},
                   s_seq, c_seq, alpha_seq, mem_seq, Dims{B, T, L, S, A, St, FM, F}};
-  return launch_fwd_walk<true>(a, scratch, cluster, rows, resident, stream);
+  return launch_fwd_walk<true, true>(a, scratch, cluster, rows, resident, stream);
 }
 
 extern "C" int attention_decode_scan_loc_lstm_fwd_limits(int cluster, int* smem_limit,
                                                          int* clusters) {
-  return fwd_limits<true>(cluster, smem_limit, clusters);
+  return fwd_limits<true, true>(cluster, smem_limit, clusters);
 }
 
 extern "C" int attention_decode_scan_lstm_fwd(
@@ -2491,11 +2600,47 @@ extern "C" int attention_decode_scan_lstm_fwd(
                   Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h, w_x, b, nullptr,
                           nullptr, nullptr},
                   s_seq, c_seq, alpha_seq, mem_seq, Dims{B, T, L, S, A, St, 0, 0}};
-  return launch_fwd_walk<false>(a, scratch, cluster, rows, resident, stream);
+  return launch_fwd_walk<true, false>(a, scratch, cluster, rows, resident, stream);
 }
 
 extern "C" int attention_decode_scan_lstm_fwd_limits(int cluster, int* smem_limit, int* clusters) {
-  return fwd_limits<false>(cluster, smem_limit, clusters);
+  return fwd_limits<true, false>(cluster, smem_limit, clusters);
+}
+
+#elif defined(GRU_FWD_ONLY)
+extern "C" int attention_decode_scan_loc_fwd(
+    const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
+    const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
+    const float* dec_b, const float* w_zr, const float* w_h, const float* wconv,
+    const float* bconv, const float* u, float* s_seq, float* c_seq, float* alpha_seq,
+    float* scratch, int B, int T, int L, int S, int A, int St, int FM, int F, int cluster,
+    int rows, int resident, cudaStream_t stream) {
+  const FwdArgs a{vh, h, mask, yin,
+                  Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_zr, w_h, nullptr, nullptr,
+                          wconv, bconv, u},
+                  s_seq, c_seq, alpha_seq, nullptr, Dims{B, T, L, S, A, St, FM, F}};
+  return launch_fwd_walk<false, true>(a, scratch, cluster, rows, resident, stream);
+}
+
+extern "C" int attention_decode_scan_loc_fwd_limits(int cluster, int* smem_limit, int* clusters) {
+  return fwd_limits<false, true>(cluster, smem_limit, clusters);
+}
+
+extern "C" int attention_decode_scan_fwd(
+    const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
+    const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
+    const float* dec_b, const float* w_zr, const float* w_h, float* s_seq, float* c_seq,
+    float* alpha_seq, float* scratch, int B, int T, int L, int S, int A, int St, int cluster,
+    int rows, int resident, cudaStream_t stream) {
+  const FwdArgs a{vh, h, mask, yin,
+                  Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_zr, w_h, nullptr, nullptr,
+                          nullptr, nullptr, nullptr},
+                  s_seq, c_seq, alpha_seq, nullptr, Dims{B, T, L, S, A, St, 0, 0}};
+  return launch_fwd_walk<false, false>(a, scratch, cluster, rows, resident, stream);
+}
+
+extern "C" int attention_decode_scan_fwd_limits(int cluster, int* smem_limit, int* clusters) {
+  return fwd_limits<false, false>(cluster, smem_limit, clusters);
 }
 
 #elif !defined(CONTENT_GRU_BWD_ONLY)
@@ -2523,19 +2668,6 @@ extern "C" int attention_decode_scan_loc_lstm_bwd(
   const Grads g{dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, nullptr, dw_h, dw_x, db,
                 dwconv, dbconv, du};
   return launch_walk_bwd<true, true>(a, g, scratch, cluster, rows, stream);
-}
-
-extern "C" int attention_decode_scan_loc_fwd(
-    const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
-    const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
-    const float* dec_b, const float* w_zr, const float* w_h, const float* wconv,
-    const float* bconv, const float* u, float* s_seq, float* c_seq, float* alpha_seq, int B,
-    int T, int L, int S, int A, int St, int FM, int F, cudaStream_t stream) {
-  const FwdArgs a{vh, h, mask, yin,
-                  Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_zr, w_h, nullptr, nullptr,
-                          wconv, bconv, u},
-                  s_seq, c_seq, alpha_seq, nullptr, Dims{B, T, L, S, A, St, FM, F}};
-  return launch_fwd(a, stream);
 }
 
 extern "C" int attention_decode_scan_loc_bwd(

@@ -10,11 +10,12 @@ Replaces the Pallas kernel ``attention_decode_scan`` for the content-only
 GRU decoder (seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py:1156):
 its forward (pallas_call :355 in ``_run_fwd`` :290, body ``_fwd_kernel``
 :165 with ``_step_core`` :91) and its backward (pallas_call :851 in
-``_run_bwd`` :800, body ``_bwd_kernel`` :376 / ``_bwd_core`` :419). The
-forward is ``csrc/attention_scan.cu``; the backward is the <GRU, content>
-instance of the decoder backwards' pre-pass, cluster walk and reduction
-in ``csrc/attention_scan_loc_lstm.cu``, on ``scan_plan_on``'s plan as
-K11's and K15's. ``attention_decode_scan_plain`` and
+``_run_bwd`` :800, body ``_bwd_kernel`` :376 / ``_bwd_core`` :419). Both
+are the <GRU, content> instances of the decoder scans' walks in
+``csrc/attention_scan_loc_lstm.cu``: the forward the pre-pass and
+forward cluster walk, on ``fwd_plan_on``'s plan as K10's, K12's and
+K14's; the backward the pre-pass, cluster walk and reduction, on
+``scan_plan_on``'s plan as K11's and K15's. ``attention_decode_scan_plain`` and
 ``attention_decode_scan_bwd_plain`` below are the same functions in
 plain PyTorch; the latter follows ``_run_bwd_xla`` (:1047) step by step,
 except that it takes each step's alpha from the saved alpha sequence.
@@ -41,11 +42,14 @@ import torch
 from ..masking import masked_softmax
 from . import build
 
+# K4 and K12, the GRU's forwards, are built from the decoder scans' source
+# into a library of their own (the forward walk's GRU instances), and K5
+# into another, beside K10's and K14's and the rest's.
 KERNEL_FWD = build.Kernel(
-    "attention_decode_scan_fwd", "attention_scan.cu", "attention_decode_scan_fwd",
-    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "attention_decode_scan_fwd", "attention_scan_loc_lstm.cu", "attention_decode_scan_fwd",
+    [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    defines=("GRU_FWD_ONLY",),
 )
-# K5 is built from the decoder scans' source alone, beside K10-K15.
 KERNEL_BWD = build.Kernel(
     "attention_decode_scan_bwd", "attention_scan_loc_lstm.cu", "attention_decode_scan_bwd",
     [ctypes.c_void_p] * 32 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
@@ -144,21 +148,6 @@ def attention_decode_scan_bwd_plain(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, 
     return (dvh, dh, dyin, *dw)
 
 
-def _dims(vh, h, yin):
-    b, l, s_dim = vh.shape
-    return b, yin.shape[1], l, s_dim, h.shape[2], yin.shape[2]
-
-
-def _check_inputs(vh, h, enc_mask, yin, weights):
-    b, t_len, l, s_dim, a_dim, st = _dims(vh, h, yin)
-    dev = vh.device
-    shapes = [(b, l, s_dim), (b, l, a_dim), (b, l), (b, t_len, st), (st, s_dim), (s_dim,),
-              (s_dim,), (a_dim, st), (st,), (2 * st, st), (st,), (2 * st, 2 * st), (2 * st, st)]
-    names = ("vh", "h", "enc_mask", "yin") + WEIGHTS
-    for name, t, shape in zip(names, (vh, h, enc_mask, yin, *weights), shapes):
-        build.check(name, t, shape, dev)
-
-
 def attention_decode_scan(vh, h, enc_mask, yin, *weights):
     """vh (B,L,S) projected annotations; h (B,L,A); enc_mask (B,L); yin
     (B,T,St) = y_prev @ y_in.w + y_in.b; weights ws_w (St,S), ws_b (S,),
@@ -166,22 +155,12 @@ def attention_decode_scan(vh, h, enc_mask, yin, *weights):
     gru_wzr (2St,2St), gru_wh (2St,St). Returns (s_seq (B,T,St), c_seq
     (B,T,A), alpha_seq (B,T,L)).
 
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain version; CUDA tensors the kernel (K4), on
+    fwd_plan_on's plan; it raises RuntimeError where no cluster fits the
+    device."""
     if build.on_cpu(vh, h, enc_mask, yin, *weights):
         return attention_decode_scan_plain(vh, h, enc_mask, yin, *weights)
-    _check_inputs(vh, h, enc_mask, yin, weights)
-    b, t_len, l, s_dim, a_dim, st = _dims(vh, h, yin)
-    f32 = dict(device=vh.device, dtype=torch.float32)
-    s_seq = torch.empty((b, t_len, st), **f32)
-    c_seq = torch.empty((b, t_len, a_dim), **f32)
-    alpha_seq = torch.empty((b, t_len, l), **f32)
-    if b * t_len == 0:
-        return s_seq, c_seq, alpha_seq
-    KERNEL_FWD.launch(
-        *[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, s_seq, c_seq, alpha_seq)],
-        b, t_len, l, s_dim, a_dim, st, build.stream_of(vh),
-    )
-    return s_seq, c_seq, alpha_seq
+    return _scan(KERNEL_FWD, False, vh, h, enc_mask, yin, weights)
 
 
 def attention_decode_scan_bwd(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b,
@@ -250,13 +229,14 @@ class AttentionDecodeScan(torch.autograd.Function):
 #
 # The LSTM's w_h, w_x and b are the port's parameter leaves; the JAX
 # package's concat([w_h, w_x]) is never built. The LSTM scans also return
-# the cell-state sequence mem, which their backward reads. The LSTM
-# forwards (K10, K14) run a pre-pass that folds c_in and dec_in into the
-# gates (``lstm_fold_plain``), then a walk on thread-block clusters on
-# ``fwd_plan_on``'s plan; K12 runs one block per batch row.
+# the cell-state sequence mem, which their backward reads. The forwards
+# (K10, K12, K14, and K4 above) run a pre-pass that folds c_in and dec_in
+# into the gates (``lstm_fold_plain``, ``gru_fold_plain``), then a walk on
+# thread-block clusters on ``fwd_plan_on``'s plan.
 
 # K10 and K14 are built from the decoder scans' source into a library of
-# their own (the forward walk's instances), beside K11-K13's and K15's.
+# their own (the forward walk's LSTM instances), and K12 with K4 into
+# another (its GRU instances), beside K11's, K13's and K15's.
 KERNEL_LOC_LSTM_FWD = build.Kernel(
     "attention_decode_scan_loc_lstm_fwd", "attention_scan_loc_lstm.cu",
     "attention_decode_scan_loc_lstm_fwd",
@@ -270,7 +250,8 @@ KERNEL_LOC_LSTM_BWD = build.Kernel(
 )
 KERNEL_LOC_FWD = build.Kernel(
     "attention_decode_scan_loc_fwd", "attention_scan_loc_lstm.cu", "attention_decode_scan_loc_fwd",
-    [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 20 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    defines=("GRU_FWD_ONLY",),
 )
 KERNEL_LOC_BWD = build.Kernel(
     "attention_decode_scan_loc_bwd", "attention_scan_loc_lstm.cu", "attention_decode_scan_loc_bwd",
@@ -312,9 +293,27 @@ def lstm_fold_plain(yin, c_w, c_b, dec_w, dec_b, w_x, b):
     c_w @ dec_w[:St] @ w_x (A, 4St), both known before the first step.
     Returns (P, W_cx), gate-major as w_x (the kernel stores them unit by
     unit)."""
+    p, w_cx = _fold(yin, c_w, c_b, dec_w, dec_b, w_x)
+    return p + b, w_cx
+
+
+def gru_fold_plain(yin, c_w, c_b, dec_w, dec_b, gru_wzr, gru_wh):
+    """The GRU forwards' pre-pass in plain PyTorch: the gates'
+    pre-activations [s_prev | r] @ w_zr and the candidate's [rg s_prev |
+    r] @ w_h take r through W_x = [w_zr[St:] | w_h[St:]], and r @ W_x is
+    P[:, t] + c @ W_cx with P = ([c_b | yin] @ dec_w + dec_b) @ W_x (B, T,
+    3St) and W_cx = c_w @ dec_w[:St] @ W_x (A, 3St). Returns (P, W_cx),
+    their columns the update gate's, the reset gate's and the candidate's
+    (the kernel stores them unit by unit)."""
+    st = dec_w.shape[1]
+    return _fold(yin, c_w, c_b, dec_w, dec_b, torch.cat([gru_wzr[st:], gru_wh[st:]], dim=1))
+
+
+def _fold(yin, c_w, c_b, dec_w, dec_b, w_x):
+    """(([c_b | yin] @ dec_w + dec_b) @ w_x, c_w @ dec_w[:St] @ w_x)."""
     st = dec_w.shape[1]
     zy = torch.cat([c_b.expand(yin.shape[:-1] + c_b.shape), yin], dim=-1) @ dec_w + dec_b
-    return zy @ w_x + b, (c_w @ dec_w[:st]) @ w_x
+    return zy @ w_x, (c_w @ dec_w[:st]) @ w_x
 
 
 def _split(weights, lstm: bool):
@@ -523,9 +522,9 @@ def _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm: bool):
 
 
 def _scan(kernel, lstm: bool, vh, h, enc_mask, yin, weights):
-    """The forward wrapper of K10, K12 and K14: the plain version on CPU
-    tensors, the kernel on CUDA tensors (K10 and K14 on fwd_plan_on's
-    plan, with a scratch of fwd_scratch_floats)."""
+    """The forward wrapper of K10, K12, K14 and K4: the plain version on
+    CPU tensors, the kernel on CUDA tensors, on fwd_plan_on's plan with a
+    scratch of fwd_scratch_floats."""
     if build.on_cpu(vh, h, enc_mask, yin, *weights):
         return _scan_plain(vh, h, enc_mask, yin, weights, lstm)
     _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm)
@@ -535,12 +534,9 @@ def _scan(kernel, lstm: bool, vh, h, enc_mask, yin, weights):
     outs = tuple(torch.empty(shape, **f32) for shape in shapes[:4 if lstm else 3])
     if b * t_len == 0:
         return outs
-    if not lstm:
-        kernel.launch(*[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *outs)],
-                      b, t_len, l, s_dim, a_dim, st, *loc, build.stream_of(vh))
-        return outs
     plan = fwd_plan_on(kernel, b, l, s_dim, a_dim, st, *(loc or (0, 0)), vh.device)
-    scratch = torch.empty(fwd_scratch_floats(b, t_len, a_dim, st), **f32)
+    scratch = torch.empty(fwd_scratch_floats(b, t_len, a_dim, st, FWD_CELL[kernel.symbol]),
+                          **f32)
     kernel.launch(*[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *outs, scratch)],
                   b, t_len, l, s_dim, a_dim, st, *loc, *plan.args(), build.stream_of(vh))
     return outs
@@ -684,7 +680,7 @@ _LIMITS: Dict[Tuple[str, int], Tuple[int, Dict[int, int]]] = {}
 def scan_limits(kernel, device: torch.device) -> Tuple[int, Dict[int, int]]:
     """(opt-in shared memory of a block, {C: resident clusters of C
     blocks}) of `kernel`'s walk (K5, K11 or K15, or the forward walk of
-    K10 or K14) on `device`, from its
+    K10, K12, K14 or K4) on `device`, from its
     ``<symbol>_limits`` C helper; asked once per kernel and device. A
     cluster size the device refuses counts 0 clusters."""
     index = device.index if device.index is not None else torch.cuda.current_device()
@@ -715,64 +711,85 @@ def scan_plan_on(kernel, b: int, l: int, s_dim: int, a_dim: int, st: int, fm: in
     return scan_plan(b, smem, smem_limit, resident, STEP_COST[cell])
 
 
-# --- The plan of the LSTM decoder forwards' cluster walk (K10, K14) ------------------------
+# --- The plan of the decoder forwards' cluster walk (K10, K12, K14, K4) -------------------
 #
-# K10 and K14 walk the steps of R batch rows on a cluster of C blocks
+# The forwards walk the steps of R batch rows on a cluster of C blocks
 # (csrc/attention_scan_loc_lstm.cu, decoder_fwd_walk), as the backwards do,
-# with two exchanges a step. The plan (C, R) is chosen as ``scan_plan``
-# chooses the backwards', from the forward's own shared memory and step
-# costs; a block holds its slice of W_cx (4 ceil(St / C) rows of A floats)
-# in shared memory where that still fits ("resident"), else it streams the
-# slice from L2 each step, as it always does w_h's.
+# with two exchanges a step for the LSTM and three for the GRU. The plan
+# (C, R) is chosen as ``scan_plan`` chooses the backwards', from the
+# forward's own shared memory and step costs of its cell; a block holds its
+# slice of W_cx (G ceil(St / C) rows of A floats, G = 4 gates for the LSTM,
+# 3 for the GRU) in shared memory where that still fits ("resident"), else
+# it streams the slice from L2 each step, as it always does the s_prev
+# products' weights.
 
-FWD_BARS = 2  # the mbarriers of a forward step's exchanges (csrc: kBarsFwd)
+# The mbarriers of a forward step's exchanges, by cell (csrc: kBarsFwdLstm,
+# kBarsFwdGru), and the gate columns of a unit (csrc: kGates).
+FWD_BARS = {"lstm": 2, "gru": 3}
+FWD_GATES = {"lstm": 4, "gru": 3}
 FWD_WARPS = 16  # warps of a block (csrc: kThreads / 32), a feature buffer each
-# A step of the forward walk and wave, in us, by (C, R), on an NVIDIA H100
-# 80GB HBM3 at 700.00 W (chip_smoke.py phase 8's sweeps): K10's walk at the
-# conv+BiLSTM recipe's shape (L' = 16, T = 56) on the plan's layout (W_cx
-# resident where it fits), the mean of B = 16 and 128 (K14's steps are
-# 0.7-0.9 of these, in the same order). R = 8 fits no block on clusters of
-# 16 at the recipe's widths: its cost is R = 4's doubled.
-FWD_STEP_COST = {(16, 1): 16.8, (16, 2): 18.3, (16, 4): 22.1, (16, 8): 44.2,
-                 (8, 1): 20.5, (8, 2): 21.7, (8, 4): 26.7, (8, 8): 40.5}
+# The forward walk's cell, by the C entry point of its forward.
+FWD_CELL = {"attention_decode_scan_loc_lstm_fwd": "lstm", "attention_decode_scan_lstm_fwd": "lstm",
+            "attention_decode_scan_loc_fwd": "gru", "attention_decode_scan_fwd": "gru"}
+# A step of the forward walk and wave, in us, by cell and (C, R), on an
+# NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 8's sweeps, on the
+# plan's layout: W_cx resident where it fits): for the LSTM, K10's walk at
+# the conv+BiLSTM recipe's shape (L' = 16, T = 56), the mean of B = 16 and
+# 128 (K14's steps are 0.7-0.9 of these, in the same order); R = 8 fits no
+# block on clusters of 16 at the recipe's widths: its cost is R = 4's
+# doubled. For the GRU, K12's walk at flagship_loc's shape (L = 144, T =
+# 56), the mean of B = 16 and 128 (K4's steps are 0.7-0.9 of these, in the
+# same order); R = 4 on clusters of 8 fits K4's block but not K12's: K12's
+# R = 2 times K4's ratio of the two (1.52); the other (C, R) fit no block
+# at the flagship's widths and cost their R / 2's doubled.
+FWD_STEP_COST = {
+    "lstm": {(16, 1): 16.8, (16, 2): 18.3, (16, 4): 22.1, (16, 8): 44.2,
+             (8, 1): 20.5, (8, 2): 21.7, (8, 4): 26.7, (8, 8): 40.5},
+    "gru": {(16, 1): 19.2, (16, 2): 27.6, (16, 4): 55.2, (16, 8): 110.4,
+            (8, 1): 22.3, (8, 2): 30.2, (8, 4): 45.8, (8, 8): 91.6},
+}
 
 
 def fwd_smem_bytes(rows: int, cluster: int, l: int, s_dim: int, a_dim: int, st: int,
-                   fm: int = 0, f: int = 0, resident: bool = False) -> int:
-    """Shared memory of one block of the forward walk (fm = f = 0 without
-    the location term), as csrc/attention_scan_loc_lstm.cu's
-    fwd_smem_floats counts it, every buffer a whole number of 16-byte
-    groups: the step's mbarriers; s gathered from every block, two
-    buffers (R rows of St); the blocks' ws partials (C x R x S) and ws;
-    the blocks' softmax shares (C x R rows of A + 2: the context partial,
-    the local max and sum) and c; each row's scales of the blocks and its
-    max and normaliser (C + 2); the gates of the block's units and two
-    buffers of their staged P (R rows of 4 ceil(St/C) each), the cell
-    state; the energies and their exponentials on its ceil(L/C)
-    positions; w_e; its units' rows of ws_w; where resident its rows of
-    W_cx^T (4 ceil(St/C) x A); the mask on its positions, or with the
-    location term the mask, alpha_prev and the peers' energies on the
-    filter's window (ceil(L/C) + F - 1 positions), U, the filter and a
-    feature buffer a warp."""
-    r, c, loc = rows, cluster, int(fm > 0)
-    stc, pc, sp = _cspan(st, c), _cdiv(l, c), _r4(s_dim)
-    floats = (_r4(2 * FWD_BARS) + 2 * _r4(r * st) + _r4(c * r * sp) + _r4(r * sp)
-              + _r4(c * r * _r4(a_dim + 2)) + _r4(r * _r4(a_dim)) + _r4(r * (c + 2))
-              + 3 * _r4(4 * r * stc) + _r4(r * stc) + 2 * _r4(r * pc) + _r4(s_dim)
-              + _r4(stc * s_dim) + int(resident) * _r4(4 * stc * a_dim)
-              + (1 - loc) * _r4(r * pc)
+                   fm: int = 0, f: int = 0, resident: bool = False, cell: str = "lstm") -> int:
+    """Shared memory of one block of the forward walk of `cell` ("lstm" or
+    "gru"; fm = f = 0 without the location term), as
+    csrc/attention_scan_loc_lstm.cu's fwd_smem_floats counts it, every
+    buffer a whole number of 16-byte groups, G = FWD_GATES[cell]: the
+    step's mbarriers; s gathered from every block, two buffers (R rows of
+    St); the blocks' ws partials (C x R x S) and ws; the blocks' softmax
+    shares (C x R rows of A + 2: the context partial, the local max and
+    sum) and c; each row's scales of the blocks and its max and normaliser
+    (C + 2); the gates of the block's units and two buffers of their
+    staged P (R rows of G ceil(St/C) each); the LSTM's cell state (R rows
+    of ceil(St/C)); the GRU's gathered rg s_prev (R rows of St) takes ws's
+    floats (R rows of the larger of S and St); the energies and their
+    exponentials on its ceil(L/C) positions; w_e; its
+    units' rows of ws_w; where resident its rows of W_cx^T (G ceil(St/C) x
+    A); the mask on its positions, or with the location term the mask,
+    alpha_prev and the peers' energies on the filter's window (ceil(L/C) +
+    F - 1 positions), U, the filter and a feature buffer a warp."""
+    r, c, loc, lstm = rows, cluster, int(fm > 0), int(cell == "lstm")
+    stc, pc, sp, g = _cspan(st, c), _cdiv(l, c), _r4(s_dim), FWD_GATES[cell]
+    floats = (_r4(2 * FWD_BARS[cell]) + 2 * _r4(r * st) + _r4(c * r * sp)
+              + _r4(r * max(sp, (1 - lstm) * st)) + _r4(c * r * _r4(a_dim + 2))
+              + _r4(r * _r4(a_dim)) + _r4(r * (c + 2)) + 3 * _r4(g * r * stc)
+              + lstm * _r4(r * stc) + 2 * _r4(r * pc) + _r4(s_dim) + _r4(stc * s_dim)
+              + int(resident) * _r4(g * stc * a_dim) + (1 - loc) * _r4(r * pc)
               + loc * (3 * _r4(r * (pc + f - 1)) + _r4(fm * s_dim) + _r4(f * fm) + _r4(fm)
                        + _r4(FWD_WARPS * fm)))
     return 4 * floats
 
 
-def fwd_scratch_floats(b: int, t_len: int, a_dim: int, st: int) -> int:
-    """Floats of the forwards' global scratch (``carve_fwd_scratch``): the
-    pre-pass's [c_b | yin] @ dec_w + dec_b and c_w @ dec_w[:St] ((B*T + A)
-    rows of St), P (B*T rows of 4St), W_cx^T (4St rows of A) and w_h^T
-    (4St rows of St)."""
-    return (_r4((b * t_len + a_dim) * st) + _r4(4 * b * t_len * st) + _r4(4 * st * a_dim)
-            + _r4(4 * st * st))
+def fwd_scratch_floats(b: int, t_len: int, a_dim: int, st: int, cell: str = "lstm") -> int:
+    """Floats of the forwards' global scratch (``carve_fwd_scratch``), G =
+    FWD_GATES[cell]: the pre-pass's [c_b | yin] @ dec_w + dec_b and c_w @
+    dec_w[:St] ((B*T + A) rows of St), P (B*T rows of G St), W_cx^T (G St
+    rows of A) and the s_prev products' weights transposed (G St rows of
+    St)."""
+    g = FWD_GATES[cell]
+    return (_r4((b * t_len + a_dim) * st) + _r4(g * b * t_len * st) + _r4(g * st * a_dim)
+            + _r4(g * st * st))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -789,26 +806,29 @@ class FwdPlan:
 
 def fwd_plan(b: int, l: int, s_dim: int, a_dim: int, st: int, fm: int, f: int,
              smem_limit: int, resident: Dict[int, int],
-             cost: Dict[Tuple[int, int], float] = None) -> FwdPlan:
-    """The forward walk's plan for b batch rows at these widths, on a device
-    whose blocks take at most `smem_limit` bytes and that holds
-    `resident[C]` clusters of C blocks at once: of the (C, R) whose
+             cost: Dict[Tuple[int, int], float] = None, cell: str = "lstm") -> FwdPlan:
+    """The forward walk's plan for b batch rows of `cell` at these widths,
+    on a device whose blocks take at most `smem_limit` bytes and that
+    holds `resident[C]` clusters of C blocks at once: of the (C, R) whose
     streamed layout fits, ``scan_plan``'s choice by `cost` (default
-    FWD_STEP_COST); W_cx's slice resident where that layout fits too.
-    RuntimeError when no cluster fits."""
-    smem = {(c, r): fwd_smem_bytes(r, c, l, s_dim, a_dim, st, fm, f)
+    FWD_STEP_COST[cell]); W_cx's slice resident where that layout fits
+    too. RuntimeError when no cluster fits."""
+    smem = {(c, r): fwd_smem_bytes(r, c, l, s_dim, a_dim, st, fm, f, cell=cell)
             for c in WALK_CLUSTERS for r in WALK_ROWS}
-    plan = scan_plan(b, smem, smem_limit, resident, cost or FWD_STEP_COST,
-                     "LSTM decoder scan forward")
-    held = fwd_smem_bytes(plan.rows, plan.cluster, l, s_dim, a_dim, st, fm, f, True) <= smem_limit
+    plan = scan_plan(b, smem, smem_limit, resident, cost or FWD_STEP_COST[cell],
+                     "decoder scan forward")
+    held = fwd_smem_bytes(plan.rows, plan.cluster, l, s_dim, a_dim, st, fm, f, True,
+                          cell) <= smem_limit
     return FwdPlan(plan.cluster, plan.rows, held, plan.waves)
 
 
 def fwd_plan_on(kernel, b: int, l: int, s_dim: int, a_dim: int, st: int, fm: int, f: int,
                 device: torch.device) -> FwdPlan:
-    """The plan `kernel`'s wrapper (K10 or K14) runs for these shapes on
-    `device`."""
-    return fwd_plan(b, l, s_dim, a_dim, st, fm, f, *scan_limits(kernel, device))
+    """The plan `kernel`'s wrapper (K10, K12, K14 or K4) runs for these
+    shapes on `device`: its walk's cell's (FWD_CELL) shared memory and
+    step costs."""
+    return fwd_plan(b, l, s_dim, a_dim, st, fm, f, *scan_limits(kernel, device),
+                    cell=FWD_CELL[kernel.symbol])
 
 
 def _scan_bwd(kernel, lstm: bool, n_weights: int, vh, h, enc_mask, yin, args):
@@ -872,7 +892,8 @@ def attention_decode_scan_loc(vh, h, enc_mask, yin, *weights):
     ws_b, w_e, c_w, c_b, dec_w, dec_b, gru_wzr (2St,2St), gru_wh (2St,St),
     wconv, bconv, u. Returns (s_seq, c_seq, alpha_seq).
 
-    CPU tensors take the plain version; CUDA tensors the kernel (K12)."""
+    CPU tensors take the plain version; CUDA tensors the kernel (K12), on
+    fwd_plan_on's plan as K10's wrapper."""
     return _scan(KERNEL_LOC_FWD, False, vh, h, enc_mask, yin, weights)
 
 

@@ -845,15 +845,38 @@ def test_lstm_scan_forwards_refuse_without_a_cluster(card, monkeypatch):
         assert kernel.launches == before
 
 
+def test_gru_scan_forwards_refuse_without_a_cluster(card, monkeypatch):
+    """Where the device holds no cluster of 16 or 8 blocks of K12's or
+    K4's walk, a CUDA call raises; it never takes the plain path."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    gen = torch.Generator().manual_seed(8)
+    vh, h, mask, yin, weights = _decoder_case(card, gen, 2, 7, 3, 17, 12, 9, "gru", 4, 5)
+    calls = {attention_scan.KERNEL_LOC_FWD: lambda: attention_scan.
+             attention_decode_scan_loc(vh, h, mask, yin, *weights),
+             attention_scan.KERNEL_FWD: lambda: attention_scan.
+             attention_decode_scan(vh, h, mask, yin, *weights[:9])}
+    smem_limit, _ = attention_scan.scan_limits(attention_scan.KERNEL_LOC_FWD, card)
+    monkeypatch.setattr(attention_scan, "scan_limits",
+                        lambda kernel, device: (smem_limit, {16: 0, 8: 0}))
+    for kernel, call in calls.items():
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="no cluster"):
+            call()
+        assert kernel.launches == before
+
+
 def test_lstm_scan_plan_on_the_card(card):
     """The card holds clusters of 16 and of 8 blocks of K11's, K15's and
-    K5's walks, and of K10's and K14's, at full shared memory, as
-    LSTM_PLANS, GRU_SCAN_CASES and tests/test_torch_fwd_plan.py assume."""
+    K5's walks, and of K10's, K14's, K12's and K4's, at full shared
+    memory, as LSTM_PLANS, GRU_SCAN_CASES and tests/test_torch_fwd_plan.py
+    assume."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
     for kernel in (attention_scan.KERNEL_LOC_LSTM_BWD, attention_scan.KERNEL_LSTM_BWD,
                    attention_scan.KERNEL_BWD, attention_scan.KERNEL_LOC_LSTM_FWD,
-                   attention_scan.KERNEL_LSTM_FWD):
+                   attention_scan.KERNEL_LSTM_FWD, attention_scan.KERNEL_LOC_FWD,
+                   attention_scan.KERNEL_FWD):
         smem_limit, resident = attention_scan.scan_limits(kernel, card)
         assert smem_limit == 232448 and resident == {16: 7, 8: 15}, (kernel.name, resident)
 
@@ -900,8 +923,8 @@ def test_conv_bilstm_train_step_on_the_card_matches_the_cpu(card):
 
 
 def _decoder_case(card, gen, b, l, t, s, a, st, cell, fm=0, f=0):
-    """Decoder-scan inputs for the location-aware GRU (fm > 0) or the
-    content-only LSTM (fm = 0): ragged encoder lengths, weights at the
+    """Decoder-scan inputs for the GRU ("gru": with the location term where
+    fm > 0) or the LSTM ("lstm"): ragged encoder lengths, weights at the
     scale of torch's default init."""
     lens = torch.randint(1, l + 1, (b,), generator=gen).cuda()
     lens[0] = l
@@ -920,14 +943,19 @@ def _decoder_case(card, gen, b, l, t, s, a, st, cell, fm=0, f=0):
 
 def _decoder_scans(cell):
     """(forward, backward, their plain versions, the two kernels) of the
-    location-aware GRU scan (K12, K13) or the content-only LSTM scan
-    (K14, K15)."""
+    location-aware GRU scan ("gru": K12, K13), the content-only GRU scan
+    ("content_gru": K4, K5) or the content-only LSTM scan ("lstm": K14,
+    K15)."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan as a
 
     if cell == "gru":
         return (a.attention_decode_scan_loc, a.attention_decode_scan_loc_bwd,
                 a.attention_decode_scan_loc_plain, a.attention_decode_scan_loc_bwd_plain,
                 a.KERNEL_LOC_FWD, a.KERNEL_LOC_BWD)
+    if cell == "content_gru":
+        return (a.attention_decode_scan, a.attention_decode_scan_bwd,
+                a.attention_decode_scan_plain, a.attention_decode_scan_bwd_plain,
+                a.KERNEL_FWD, a.KERNEL_BWD)
     return (a.attention_decode_scan_lstm, a.attention_decode_scan_lstm_bwd,
             a.attention_decode_scan_lstm_plain, a.attention_decode_scan_lstm_bwd_plain,
             a.KERNEL_LSTM_FWD, a.KERNEL_LSTM_BWD)
@@ -942,7 +970,11 @@ def _decoder_scans(cell):
 # batch, at B=128 and at B=1, and at small odd widths, on the plan of
 # LOC_LSTM_SCAN_CASES ("plan" where none is given): L' = 1, L' = 3 < C,
 # L' = 37 not a multiple of C, S above 512 threads, a part-filled last row
-# group.
+# group; then the content-only GRU (K4, K5) at the flagship's training
+# shape at B = 1, 16 and 128, and at small odd widths: L = 13 < C with St =
+# 9 and A = 12 (not multiples of 4), L = 37 not a multiple of C at B = 5.
+# The GRU forwards (K12, K4) run on their cluster walk under every plan
+# that fits the card.
 DECODER_SCAN_CASES = [
     ("gru", 16, 144, 56, (512, 512, 256, 16, 10)), ("gru", 3, 13, 5, (17, 12, 9, 3, 4)),
     ("gru", 5, 40, 9, (40, 24, 33, 4, 5)), ("lstm", 16, 16, 56, (150, 256, 400, 0, 0)),
@@ -955,43 +987,89 @@ DECODER_SCAN_CASES = [
     ("lstm", 4, 37, 9, (64, 40, 33, 0, 0), (16, 8)), ("lstm", 3, 20, 6, (600, 24, 33, 0, 0)),
     ("lstm", 5, 16, 9, (150, 256, 400, 0, 0), (8, 4)),
     ("lstm", 5, 37, 4, (17, 12, 9, 0, 0), (8, 1)),
+    ("content_gru", 1, 144, 56, (512, 512, 256, 0, 0)),
+    ("content_gru", 16, 144, 56, (512, 512, 256, 0, 0)),
+    ("content_gru", 128, 144, 56, (512, 512, 256, 0, 0)),
+    ("content_gru", 3, 13, 5, (17, 12, 9, 0, 0)), ("content_gru", 5, 37, 9, (64, 40, 33, 0, 0)),
 ]
+
+
+def _fwd_on_every_plan(monkeypatch, fwd, fwd_plain, kernel, args, dims):
+    """The GRU forward `fwd` (K12 or K4) under each plan that fits the card,
+    forced in place of fwd_plan_on's, then on the wrapper's own, on `args`
+    with the last row's every position masked: against the plain version
+    (1e-4 abs), one launch a call, two calls with the same bits, and alpha
+    and c exactly 0 on that row."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    vh, h, mask, yin, weights = args
+    mask = mask.clone()
+    mask[-1] = 0
+    want = fwd_plain(vh, h, mask, yin, *weights)
+    smem_limit, resident = attention_scan.scan_limits(kernel, vh.device)
+    runs = [attention_scan.FwdPlan(c, r, held)
+            for c in attention_scan.WALK_CLUSTERS for r in attention_scan.WALK_ROWS
+            for held in (False, True)
+            if resident[c] >= 1 and attention_scan.fwd_smem_bytes(
+                r, c, *dims, held, "gru") <= smem_limit]
+    assert len(runs) >= 4, runs
+    default = attention_scan.fwd_plan_on
+    for run in runs + [None]:
+        monkeypatch.setattr(attention_scan, "fwd_plan_on",
+                            default if run is None else lambda *_, run=run: run)
+        before = kernel.launches
+        got, again = fwd(vh, h, mask, yin, *weights), fwd(vh, h, mask, yin, *weights)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2, run
+        assert _max_err(got, want) <= TOL, (run, _max_err(got, want))
+        for x, y in zip(got, again):
+            assert torch.equal(x, y), run
+        assert not got[1][-1].any() and not got[2][-1].any(), run
+    monkeypatch.setattr(attention_scan, "fwd_plan_on", default)
 
 
 @pytest.mark.parametrize("case", range(len(DECODER_SCAN_CASES)))
 def test_decoder_scan_kernels(card, monkeypatch, case):
-    """K12 or K14 against its plain version (1e-4 abs), then K13 or K15
-    with cotangents on every output, and with none on alpha (and mem),
-    against its plain version; K15 on its plan, each backward twice with
-    the same bits, and once more on the sequences K14 saved."""
+    """K12, K4 or K14 against its plain version (1e-4 abs), K12 and K4
+    also under every plan (_fwd_on_every_plan); then K13, K5 or K15 with
+    cotangents on every output, and with none on alpha (and mem; zeros for
+    K5, whose wrapper takes every one), against its plain version; K5 and
+    K15 on their plan, each backward twice with the same bits; and each
+    backward once more on the sequences its forward saved."""
     cell, b, l, t, (s, a, st, fm, f), *run = DECODER_SCAN_CASES[case]
     fwd, bwd, fwd_plain, bwd_plain, k_fwd, k_bwd = _decoder_scans(cell)
     gen = torch.Generator().manual_seed(b * 31 + l)
-    vh, h, mask, yin, weights = _decoder_case(card, gen, b, l, t, s, a, st, cell, fm, f)
+    kind = "lstm" if cell == "lstm" else "gru"
+    vh, h, mask, yin, weights = _decoder_case(card, gen, b, l, t, s, a, st, kind, fm, f)
+    if cell != "lstm":
+        _fwd_on_every_plan(monkeypatch, fwd, fwd_plain, k_fwd, (vh, h, mask, yin, weights),
+                           (l, s, a, st, fm, f))
     n_fwd, n_bwd = k_fwd.launches, k_bwd.launches
     got = fwd(vh, h, mask, yin, *weights)
     want = fwd_plain(vh, h, mask, yin, *weights)
     torch.cuda.synchronize()
     assert k_fwd.launches == n_fwd + 1
-    assert len(got) == len(want) == (3 if cell == "gru" else 4)
+    assert len(got) == len(want) == (4 if cell == "lstm" else 3)
     assert _max_err(got, want) <= TOL
     widths = (st, a, l, st)[:len(want)]
+    walk = cell != "gru"  # K5 and K15 walk on clusters, K13 in one block a row
+    plan = "plan"
     if cell == "lstm":
         plan = _walk_plan(card, monkeypatch, k_bwd, b, l, s, a, st, fm, f,
                           run[0] if run else "plan")
     for partial in (False, True):
         cot = [_rand(gen, b, t, n) for n in widths]
         if partial:
-            cot[2:] = [None] * (len(cot) - 2)
+            none = torch.zeros_like if cell == "content_gru" else lambda x: None
+            cot[2:] = [none(x) for x in cot[2:]]
         args = (vh, h, mask, yin, *weights, *want, *cot)
-        got_b = _bwd_twice(bwd, args, plan, "K15") if cell == "lstm" else bwd(*args)
+        got_b = _bwd_twice(bwd, args, plan, cell) if walk else bwd(*args)
         want_b = bwd_plain(*args)
         torch.cuda.synchronize()
         _bwd_close(got_b, want_b, f"{cell} scan bwd")
-    if cell == "lstm":
-        args = (vh, h, mask, yin, *weights, *got, *cot)
-        _bwd_close(bwd(*args), bwd_plain(*args), "lstm scan bwd on K14's sequences")
-    assert k_bwd.launches == n_bwd + (5 if cell == "lstm" else 2)
+    args = (vh, h, mask, yin, *weights, *got, *cot)
+    _bwd_close(bwd(*args), bwd_plain(*args), f"{cell} scan bwd on its forward's sequences")
+    assert k_bwd.launches == n_bwd + (5 if walk else 3)
 
 
 @pytest.mark.parametrize("kind", ["loc", "loc_lstm", "lstm"])
@@ -1023,22 +1101,23 @@ def test_loc_scan_backwards_are_bitwise_deterministic(card, kind):
 
 
 def test_decoder_scans_refuse_what_does_not_fit(card):
-    """K12 and K13 keep a row's step in one block's shared memory (232,448
-    bytes on an H100): at the flagship's widths with 16 maps and filter 10
-    K13 takes 19,401 + 38 L floats (L <= 1018) and K12 15,033 + 3 L (L <=
-    14359). K11 and K15 keep ceil(L / C) positions a block: at one batch
-    row (C = 16, R = 1) and the conv+BiLSTM recipe's widths, K11 fits L' <=
-    18640 and K15 L' <= 137856, and K5 at the flagship's widths L <= 120448
-    (walk_smem_bytes; tests/test_torch_scan_plan.py pins them); so do K10
-    and K14, which fit L' <= 136960 and 243008 (fwd_smem_bytes;
-    tests/test_torch_fwd_plan.py). The largest L runs, one more is refused
-    (K5, K10, K11, K14, K15: by the plan, before a launch) and not
-    counted."""
+    """K13 keeps a row's step in one block's shared memory (232,448 bytes
+    on an H100): at the flagship's widths with 16 maps and filter 10 it
+    takes 19,401 + 38 L floats (L <= 1018). K11 and K15 keep ceil(L / C)
+    positions a block: at one batch row (C = 16, R = 1) and the
+    conv+BiLSTM recipe's widths, K11 fits L' <= 18640 and K15 L' <= 137856,
+    and K5 at the flagship's widths L <= 120448 (walk_smem_bytes;
+    tests/test_torch_scan_plan.py pins them); so do the forwards: K10 and
+    K14 fit L' <= 136960 and 243008, K12 and K4 at the flagship's widths L
+    <= 72304 and 166656 (fwd_smem_bytes; tests/test_torch_fwd_plan.py).
+    The largest L runs, one more is refused (all but K13: by the plan,
+    before a launch) and not counted."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
     flagship, conv_bilstm = (512, 512, 256), (150, 256, 400)
     for cell, dims, fm, f, kernel, l_max in (("gru", flagship, 16, 10, "bwd", 1018),
-                                            ("gru", flagship, 16, 10, "fwd", 14359),
+                                            ("gru", flagship, 16, 10, "fwd", 72304),
+                                            ("content_gru", flagship, 0, 0, "fwd", 166656),
                                             ("lstm", conv_bilstm, 0, 0, "bwd", 137856),
                                             ("loc_lstm", conv_bilstm, 16, 5, "bwd", 18640),
                                             ("lstm", conv_bilstm, 0, 0, "fwd", 243008),
@@ -1053,7 +1132,9 @@ def test_decoder_scans_refuse_what_does_not_fit(card):
         elif cell == "content_gru":
             fwd, bwd = (attention_scan.attention_decode_scan,
                         attention_scan.attention_decode_scan_bwd)
-            fwd_plain, k = attention_scan.attention_decode_scan_plain, attention_scan.KERNEL_BWD
+            fwd_plain, k = (attention_scan.attention_decode_scan_plain,
+                            attention_scan.KERNEL_BWD if kernel == "bwd"
+                            else attention_scan.KERNEL_FWD)
         else:
             fwd, bwd, fwd_plain, _, k_fwd, k_bwd = _decoder_scans(cell)
             k = k_bwd if kernel == "bwd" else k_fwd

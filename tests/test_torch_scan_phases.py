@@ -231,17 +231,20 @@ def test_gru_mode_instruments_the_walk_k5_runs():
     assert names.index("w_h^T, da_zr exchange") == 2
 
 
-# The forward walk's phases (K10, K14).
+# The forward walk's phases (K10, K14, K12, K4): the LSTM-only "cell" reads
+# 0 cycles in a GRU walk, and the GRU-only "gates", "E3 exchange",
+# "candidate" and "update" in an LSTM walk.
 FWD_WALK_PHASES = ["staging wait", "E1 exchange", "ws, energies", "softmax shares",
-                   "w_h, E2 exchange", "combine", "c W_cx", "cell", "ws_w, E1 push"]
+                   "s_prev product, E2 exchange", "combine", "c W_cx", "cell", "gates",
+                   "E3 exchange", "candidate", "update", "ws_w, E1 push"]
 
 
 def test_instrument_lstm_fwd_reads_the_clock_after_every_wait():
-    """The LSTM decoder forwards' walk (K10 and K14, --lstm-fwd): a cycle
-    read after the staging wait's block barrier, after each exchange's
-    wait, after each block barrier between and after the last push, by
-    thread 0 of block 0, the clock started once, before the step loop;
-    outside the walk's body only the probe is added."""
+    """The decoder forwards' walk (K10 and K14, --lstm-fwd; K12 and K4,
+    --gru-dec-fwd): a cycle read after the staging wait's block barrier,
+    after each exchange's wait, after each block barrier between and after
+    the last push, by thread 0 of block 0, the clock started once, before
+    the step loop; outside the walk's body only the probe is added."""
     tool = _tool()
     src = SOURCE.read_text()
     text, names = tool.instrument_fwd_walk(src)
@@ -257,10 +260,12 @@ def test_instrument_lstm_fwd_reads_the_clock_after_every_wait():
     marked = [i for i, line in enumerate(lines) if "// [phase]" in line]
     before = [[x.strip() for x in lines[:i] if x.strip() and not x.strip().startswith("//")][-1]
               for i in marked]
-    waits = [f"if (tid == 0 && t + 1 < T) mbar_expect(&sh.bars[{k}], tx{k + 1});" for k in (0, 1)]
+    waits = [f"if (tid == 0 && t + 1 < T) mbar_expect(&sh.bars[{k}], tx{k + 1});"
+             for k in (0, 1, 2)]
     assert before == [
         "if (t + 1 < T) stage(t + 1, (t + 1) & 1);", "}", "__syncthreads();",
         "__syncthreads();", waits[1], "__syncthreads();", "__syncthreads();",
+        "__syncthreads();", "__syncthreads();", waits[2], "__syncthreads();",
         "__syncthreads();", "}"]
     assert waits[0] in lines[marked[1] - 2]
     head, rest = src.split(tool.FWD_WALK_SIG, 1)
@@ -292,3 +297,36 @@ def test_lstm_fwd_mode_instruments_the_walk_k10_and_k14_run():
         body, tail = rest.split("\n}\n", 1)
         tool.instrument_fwd_walk(head + tool.FWD_WALK_SIG + re.sub(r"// \[phase\] .*", "", body)
                                  + "\n}\n" + tail)
+
+
+def test_gru_dec_fwd_mode_instruments_the_walk_k12_and_k4_run():
+    """--gru-dec-fwd times K12 and K4: their entry points and limits
+    helpers are in the instrumented source, their walk kernels are the
+    GRU instances of decoder_fwd_walk there, and the GRU-only phases (the
+    gates, the E3 exchange, the candidate's product, the update) sit in
+    the branch of the walk that only the GRU compiles, after c @ W_cx and
+    before the E1 push, where the LSTM's cell sits in the other."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    tool = _tool()
+    entries, walks = tool.MODES["gru_dec_fwd"]
+    assert "gru_dec_fwd" in tool.FWD_MODES
+    src = SOURCE.read_text()
+    for entry, walk, loc, name in zip(entries, walks, ("true", "false"), ("K12", "K4")):
+        assert tool.ENTRY[entry][0] == name
+        kernel = getattr(attention_scan, tool.ENTRY[entry][1])
+        assert (kernel.symbol, kernel.source, kernel.defines) == (entry, tool.SOURCE,
+                                                                  ("GRU_FWD_ONLY",))
+        assert re.search(r"__global__ void __launch_bounds__\(kThreads, 1\)\n    " + walk +
+                         r"\(const FwdArgs a, const FwdScratch x, int resident\) \{\n.*\n"
+                         r"  decoder_fwd_walk<R, false, " + loc + r">\(sm, a, x, resident\);", src)
+        assert f'extern "C" int {entry}(' in src and f'extern "C" int {entry}_limits(' in src
+    body = src.split(tool.FWD_WALK_SIG, 1)[1].split("\n}\n", 1)[0]
+    branch = body.index("if constexpr (kLstm) {", body.index("// [phase] c W_cx"))
+    cell = body.index("// [phase] cell", branch)
+    gru = body.index("} else {", cell)
+    phases = [body.index(f"// [phase] {p}") for p in ("gates", "E3 exchange", "candidate",
+                                                     "update", "ws_w, E1 push")]
+    assert branch < cell < gru < phases[0] < phases[1] < phases[2] < phases[3] < phases[4]
+    text, names = tool.instrument_fwd_walk(src)
+    assert names == FWD_WALK_PHASES

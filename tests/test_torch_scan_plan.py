@@ -213,26 +213,29 @@ def test_the_gru_walk_lays_out_what_the_plan_counts(shape, c, r):
 
 
 def _libraries():
-    """The entry points of each of the source's three builds, by the macro
-    that selects it (None for K11-K13's and K15's), from the source's
+    """The entry points of each of the source's four builds, by the macro
+    that selects it (None for K11's, K13's and K15's), from the source's
     #if / #elif / #else around its entry points."""
     src = scan.KERNEL_BWD.source.read_text()
     entries = src[src.index('extern "C"'):]
     head = src[:src.index('extern "C"')].rstrip()
     assert head.endswith("#if defined(LSTM_FWD_ONLY)")
-    fwd, rest = entries.split("\n#elif !defined(CONTENT_GRU_BWD_ONLY)\n")
+    lstm_fwd, rest = entries.split("\n#elif defined(GRU_FWD_ONLY)\n")
+    gru_fwd, rest = rest.split("\n#elif !defined(CONTENT_GRU_BWD_ONLY)\n")
     others, k5 = rest.split("\n#else\n")
     assert src.rstrip().endswith("#endif")
     names = lambda text: set(re.findall(r'extern "C" int (\w+)\(', text))
-    return {"LSTM_FWD_ONLY": names(fwd), "CONTENT_GRU_BWD_ONLY": names(k5), None: names(others)}
+    return {"LSTM_FWD_ONLY": names(lstm_fwd), "GRU_FWD_ONLY": names(gru_fwd),
+            "CONTENT_GRU_BWD_ONLY": names(k5), None: names(others)}
 
 
 def test_k5_builds_a_library_of_its_own():
-    """K5 shares its source with K10-K15 but builds with CONTENT_GRU_BWD_ONLY
-    defined into a library of its own, which nvcc compiles beside the
-    others: that build holds K5's two entry points and no other; K10's and
-    K14's build (LSTM_FWD_ONLY) their four, and the default build every
-    other entry point."""
+    """K5 shares its source with K4 and K10-K15 but builds with
+    CONTENT_GRU_BWD_ONLY defined into a library of its own, which nvcc
+    compiles beside the others: that build holds K5's two entry points and
+    no other; K10's and K14's build (LSTM_FWD_ONLY) their four, K12's and
+    K4's (GRU_FWD_ONLY) theirs, and the default build every other entry
+    point."""
     assert scan.KERNEL_BWD.source == scan.KERNEL_LSTM_BWD.source
     assert scan.KERNEL_BWD.library_path() != scan.KERNEL_LSTM_BWD.library_path()
     assert "-DCONTENT_GRU_BWD_ONLY" in scan.KERNEL_BWD.flags
@@ -241,18 +244,35 @@ def test_k5_builds_a_library_of_its_own():
     assert libs["CONTENT_GRU_BWD_ONLY"] == {"attention_decode_scan_bwd_limits",
                                             "attention_decode_scan_bwd"}
     walks = (scan.KERNEL_LOC_LSTM_BWD, scan.KERNEL_LSTM_BWD)
-    want = {k.symbol for k in (scan.KERNEL_LOC_FWD, scan.KERNEL_LOC_BWD, *walks)}
+    want = {k.symbol for k in (scan.KERNEL_LOC_BWD, *walks)}
     want |= {k.symbol + "_limits" for k in walks}
     assert libs[None] == want
 
 
 def test_k10_and_k14_build_a_library_of_their_own():
-    """K10 and K14 (the forward walk's eight instances and its pre-pass)
-    build with LSTM_FWD_ONLY defined into one library of their own, beside
-    K5's and the rest's; it holds their entry points and limits helpers
-    and no other."""
+    """K10 and K14 (the forward walk's eight LSTM instances and its
+    pre-pass) build with LSTM_FWD_ONLY defined into one library of their
+    own, beside K5's, K12's and K4's and the rest's; it holds their entry
+    points and limits helpers and no other."""
     fwds = (scan.KERNEL_LOC_LSTM_FWD, scan.KERNEL_LSTM_FWD)
     assert all(k.defines == ("LSTM_FWD_ONLY",) for k in fwds)
     assert fwds[0].library_path() == fwds[1].library_path()
-    assert len({k.library_path() for k in (fwds[0], scan.KERNEL_BWD, scan.KERNEL_LSTM_BWD)}) == 3
+    assert len({k.library_path() for k in (fwds[0], scan.KERNEL_BWD, scan.KERNEL_LSTM_BWD,
+                                           scan.KERNEL_FWD)}) == 4
     assert _libraries()["LSTM_FWD_ONLY"] == {k.symbol + x for k in fwds for x in ("", "_limits")}
+
+
+def test_k12_and_k4_build_a_library_of_their_own():
+    """K12 and K4 (the forward walk's eight GRU instances and its
+    pre-pass) build from the same source with GRU_FWD_ONLY defined into
+    one library of their own, beside K10's and K14's, K5's and the rest's;
+    it holds their entry points and limits helpers and no other, and the
+    walk's cell of each is the GRU."""
+    fwds = (scan.KERNEL_LOC_FWD, scan.KERNEL_FWD)
+    assert all(k.defines == ("GRU_FWD_ONLY",) for k in fwds)
+    assert all(k.source == scan.KERNEL_BWD.source for k in fwds)
+    assert fwds[0].library_path() == fwds[1].library_path()
+    assert fwds[0].library_path() not in {k.library_path() for k in (
+        scan.KERNEL_LOC_LSTM_FWD, scan.KERNEL_BWD, scan.KERNEL_LSTM_BWD)}
+    assert _libraries()["GRU_FWD_ONLY"] == {k.symbol + x for k in fwds for x in ("", "_limits")}
+    assert {scan.FWD_CELL[k.symbol] for k in fwds} == {"gru"}

@@ -1,11 +1,13 @@
 """Where a step of the decoder-scan backwards K5, K11, K13 and K15, of the
-LSTM decoder forwards K10 and K14, of the flagship's beam step K2, or of
-the forward GRU walk behind K1, K16 and K18, goes, on the card.
+LSTM decoder forwards K10 and K14, of the GRU decoder forwards K12 and
+K4, of the flagship's beam step K2, or of the forward GRU walk behind K1,
+K16 and K18, goes, on the card.
 
     python3 tools/scan_phases.py [SOURCE ...]
     python3 tools/scan_phases.py --lstm-bwd [SOURCE ...]
     python3 tools/scan_phases.py --gru-bwd [SOURCE ...]
     python3 tools/scan_phases.py --lstm-fwd [SOURCE ...]
+    python3 tools/scan_phases.py --gru-dec-fwd [SOURCE ...]
     python3 tools/scan_phases.py --k2 [SOURCE ...]
     python3 tools/scan_phases.py --gru-fwd [HEADER ...]
 
@@ -43,9 +45,16 @@ K10 and K14 at the conv+BiLSTM recipe's training shape at B=16 and 128
 on chip_smoke.py's cases: the plan each ran (C, R, W_cx resident or
 streamed), the cycles a step of block 0 of cluster 0 by phase (the wait
 for the staged P, exchange 1, ws and the energies, the softmax's shares,
-w_h with exchange 2, the combine, c @ W_cx, the cell, the ws partial
-with exchange 1's push), the time per call (CUDA events over 5 calls)
-and the max abs error against the plain version (1e-4).
+s_prev @ w_h with exchange 2, the combine, c @ W_cx, the cell, the ws
+partial with exchange 1's push; a phase of the other cell's, which the
+walk does not run, is left out), the time per call (CUDA events over 5
+calls) and the max abs error against the plain version (1e-4). With
+--gru-dec-fwd it does the same for the walk's GRU instances, K12 and K4,
+at the flagship recipe's training shape (L = 144, T = 56) with and
+without the location term (flagship_loc's and the flagship's cases) at
+B=16 and 128; their step has s_prev @ w_zr[:St] with exchange 2, and
+after c @ W_cx the gates, exchange 3 (rg s_prev), the candidate's product
+and the update in place of the cell.
 
 With --k2 it does the same for attention_step_kernel of
 csrc/attention_step.cu (or each SOURCE), whose markers follow the
@@ -115,6 +124,8 @@ STEP_CALL = re.compile(r"^  ([\w.]+)(?:<\w+>)?\((.*)\);$")
 ENTRY = {"attention_decode_scan_loc_bwd": ("K13", "KERNEL_LOC_BWD"),
          "attention_decode_scan_loc_lstm_fwd": ("K10", "KERNEL_LOC_LSTM_FWD"),
          "attention_decode_scan_lstm_fwd": ("K14", "KERNEL_LSTM_FWD"),
+         "attention_decode_scan_loc_fwd": ("K12", "KERNEL_LOC_FWD"),
+         "attention_decode_scan_fwd": ("K4", "KERNEL_FWD"),
          "attention_decode_scan_loc_lstm_bwd": ("K11", "KERNEL_LOC_LSTM_BWD"),
          "attention_decode_scan_lstm_bwd": ("K15", "KERNEL_LSTM_BWD"),
          "attention_decode_scan_bwd": ("K5", "KERNEL_BWD")}
@@ -125,7 +136,11 @@ MODES = {"k13": (("attention_decode_scan_loc_bwd",), ("scan_loc_gru_bwd",)),
                   ("loc_lstm_bwd_kernel", "scan_lstm_bwd_kernel")),
          "gru": (("attention_decode_scan_bwd",), ("content_gru_walk_kernel",)),
          "lstm_fwd": (("attention_decode_scan_loc_lstm_fwd", "attention_decode_scan_lstm_fwd"),
-                      ("loc_lstm_fwd_kernel", "scan_lstm_fwd_kernel"))}
+                      ("loc_lstm_fwd_kernel", "scan_lstm_fwd_kernel")),
+         "gru_dec_fwd": (("attention_decode_scan_loc_fwd", "attention_decode_scan_fwd"),
+                         ("loc_gru_fwd_kernel", "content_gru_fwd_kernel"))}
+# The modes on decoder_fwd_walk.
+FWD_MODES = ("lstm_fwd", "gru_dec_fwd")
 WALK_SIG = "__device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {"
 WALK_LOOP = "  for (int s = 0; s < T; ++s) {"
 FWD_WALK_SIG = ("__device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, "
@@ -243,8 +258,8 @@ def instrument_walk(src: str, sig: str = WALK_SIG, loop: str = WALK_LOOP,
 
 
 def instrument_fwd_walk(src: str):
-    """instrument_walk for decoder_fwd_walk, the forward walk of K10 and
-    K14."""
+    """instrument_walk for decoder_fwd_walk, the forward walk of K10, K14,
+    K12 and K4."""
     return instrument_walk(src, FWD_WALK_SIG, FWD_WALK_LOOP, "decoder_fwd_walk")
 
 
@@ -259,7 +274,8 @@ def cases(mode: str):
     """chip_smoke.py's cases of `mode` at B=16 and 128: K13 at
     flagship_loc's training shape ("k13"), K11 and K15 ("lstm") or K10
     and K14 ("lstm_fwd") at the conv+BiLSTM recipe's, with and without
-    the location term, or K5 at the flagship recipe's ("gru")."""
+    the location term, K5 at the flagship recipe's ("gru"), or K12 and K4
+    at flagship_loc's and the flagship recipe's ("gru_dec_fwd")."""
     import chip_smoke as smoke
     from seq2seq_attention_asr_tpu_torch import interop
     from seq2seq_attention_asr_tpu_torch.train import experiment
@@ -270,7 +286,10 @@ def cases(mode: str):
             (smoke.conv_bilstm_content, smoke.cbc_train_cases))
     recipes = {"lstm": lstm, "lstm_fwd": lstm,
                "k13": ((smoke.flagship_loc, smoke.loc_train_cases),),
-               "gru": ((experiment.timit_chorowski_normnll_colnorm, smoke.train_cases),)}[mode]
+               "gru": ((experiment.timit_chorowski_normnll_colnorm, smoke.train_cases),),
+               "gru_dec_fwd": ((smoke.flagship_loc, smoke.loc_train_cases),
+                               (experiment.timit_chorowski_normnll_colnorm, smoke.train_cases))
+               }[mode]
     names = MODES[mode][0]
     for recipe, make in recipes:
         exp = recipe()
@@ -286,7 +305,8 @@ def cases(mode: str):
 def main(sources, mode: str = "k13") -> int:
     """The default mode ("k13": K13's scan_bwd), the --lstm-bwd ("lstm":
     K11 and K15) or --gru-bwd ("gru": K5) mode, on decoder_walk, or the
-    --lstm-fwd mode ("lstm_fwd": K10 and K14), on decoder_fwd_walk."""
+    --lstm-fwd ("lstm_fwd": K10 and K14) or --gru-dec-fwd ("gru_dec_fwd":
+    K12 and K4) mode, on decoder_fwd_walk."""
     if not torch.cuda.is_available():
         print("scan_phases: no CUDA device is available", file=sys.stderr)
         return 1
@@ -295,8 +315,9 @@ def main(sources, mode: str = "k13") -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     entries, walks = MODES[mode]
     for src in map(pathlib.Path, sources):
-        text, names = {"k13": instrument, "lstm_fwd": instrument_fwd_walk}.get(
-            mode, instrument_walk)(src.read_text())
+        text, names = {"k13": instrument, "lstm_fwd": instrument_fwd_walk,
+                       "gru_dec_fwd": instrument_fwd_walk}.get(mode, instrument_walk)(
+            src.read_text())
         headers = {h.name: h.read_text() for h in sorted(src.parent.glob("*.cuh"))}
         digest = hashlib.sha1((text + "".join(headers.values())).encode()).hexdigest()[:12]
         copy = build.BUILD_DIR / "phases" / digest
@@ -332,10 +353,12 @@ def main(sources, mode: str = "k13") -> int:
             setattr(attention_scan, attr, ks[name])
             plan = ""
             try:
-                fm, f = ((c.args[14].shape[1], c.args[14].shape[0]) if name in ("K10", "K11")
-                         else (0, 0))
+                # wconv (F, FM) after vh, h, mask, yin and the 7 step and 3
+                # (LSTM) or 2 (GRU) cell weights.
+                wconv = {"K10": 14, "K11": 14, "K12": 13}.get(name)
+                fm, f = (c.args[wconv].shape[1], c.args[wconv].shape[0]) if wconv else (0, 0)
                 dims = (b, l, vh.shape[2], c.args[1].shape[2], yin.shape[2], fm, f, vh.device)
-                if mode == "lstm_fwd":
+                if mode in FWD_MODES:
                     run = attention_scan.fwd_plan_on(ks[name], *dims)
                     plan = (f" (plan C={run.cluster} R={run.rows} W_cx "
                             f"{'resident' if run.resident else 'streamed'}, {run.waves} waves)")
@@ -348,7 +371,7 @@ def main(sources, mode: str = "k13") -> int:
                     torch.cuda.synchronize()
                     # The forward's tolerance, 1e-4 abs, as an excess over it; the
                     # backward's, max|got - plain| <= 5e-4 max|plain| + 5e-5.
-                    fwd = mode == "lstm_fwd"
+                    fwd = mode in FWD_MODES
                     excess = max(float((g - w).abs().max()) - (1e-4 - 5e-5 if fwd else
                                                                5e-4 * float(w.abs().max()))
                                  for g, w in zip(got, want))
@@ -545,4 +568,6 @@ if __name__ == "__main__":
         sys.exit(main(sys.argv[2:] or [str(SOURCE)], "gru"))
     if sys.argv[1:2] == ["--lstm-fwd"]:
         sys.exit(main(sys.argv[2:] or [str(SOURCE)], "lstm_fwd"))
+    if sys.argv[1:2] == ["--gru-dec-fwd"]:
+        sys.exit(main(sys.argv[2:] or [str(SOURCE)], "gru_dec_fwd"))
     sys.exit(main(sys.argv[1:] or [str(SOURCE)]))

@@ -24,12 +24,13 @@ Phases, each fatal when it fails:
      filter 5), the flagship's widths with location-aware attention
      (GRU, filter 10, 16 feature maps, maxout readout) and the recipe's
      widths without the location term (LSTM), batch 1 and 8 (1e-4 abs);
-     and K8's content-only GRU instance on K2's inputs; K2 (which runs a
-     batch row on a thread-block cluster, each block taking 1/C of the
-     encoder positions) also at L < C, L not a multiple of C, a batch row
-     with every position masked (alpha and c exactly 0), K = 1 and 8,
+     and K8's content-only GRU instance on K2's inputs; K2 and K8 (which
+     run a batch row on a thread-block cluster, each block taking 1/C of
+     the encoder positions) also at L < C, L not a multiple of C, a batch
+     row with every position masked (alpha and c exactly 0), K = 1 and 8,
      B = 16 and K = 8 with L = 1500, each with two calls bitwise equal
-     and one launch a call; K9 and K11 (the
+     and one launch a call, K8 in its four instances under each cluster
+     size the card holds (K8_EDGES); K9 and K11 (the
      backward tolerance; K10, K11, K14 and K15 also twice, the two calls
      bitwise equal, one launch each) and K10 (1e-4 abs) at the conv+BiLSTM recipe's
      training shape, B = 16, 144 frames (L' = 16), T = 56, on the conv
@@ -95,7 +96,9 @@ Phases, each fatal when it fails:
      cuDNN's bidirectional LSTM backward on the same shapes (the device
      time of every op that autograd.grad on its output starts); K2
      beside K8's instance on K2's inputs, and K2's plan (cluster size,
-     waves) at b = 1 and 8 with its time on each cluster size that fits;
+     waves) at b = 1 and 8 with its time on each cluster size that fits,
+     and K8's at the conv+BiLSTM serving shape and the flagship_loc
+     widths (its <LSTM, location> and <GRU, location> instances);
      for the cluster-walk backwards
      (K6, K9, K17, K19) the device time by stage (gate pre-pass, walk,
      reduction), the walk's time per step and the plan it ran (cluster
@@ -147,7 +150,9 @@ its own in the order DIR, this, this, DIR: the time per call and the
 device time of the forward GRU walk's kernels K1, K16 and K18 at B = 1,
 L = 132 and B = 16 and 128, L = 144, of the flagship's beam step K2 and of K8's two instances on
 the flagship's widths at b = 1 and 8, the flagship's serving p50 and device time of
-one request at b = 1 and 8, the time per call of each teacher-forced
+one request at b = 1 and 8, the same for K8's <LSTM, location> instance at
+the conv+BiLSTM serving shape and for that recipe's requests, the time per
+call of each teacher-forced
 decoder scan (K4, K5, K10-K15) at its recipe's training shape at B = 16
 and 128 and the device time of K4, K5, K10-K12, K14 and K15, and
 the p50 train step of each of the four trained configurations at B = 16
@@ -207,6 +212,11 @@ CBC_STEP_LAUNCHES = {"bilstm_scan": 1, "bilstm_scan_bwd": 1, "attention_decode_s
                      "attention_decode_scan_lstm_bwd": 1}
 SERVE_L = 132  # encoder frames of the 3.5 s PCM: 110, padded to 112, plus 2 x 10 pad frames
 CB_PAD_LEN = 130  # encoder frames of the 3.5 s PCM: 110, padded to 112, plus 2 x 10 pad frames
+CB_SERVE_L = 14  # the conv+BiLSTM encoder's frames of that PCM: 130 through three pools of 2
+# K8's device kernel by trace name: a substring of cluster_step_loc_lstm_kernel's name and of
+# the single-block kernel's before it (attention_step_loc_lstm_kernel), so that --parent
+# traces either.
+K8_SYMBOLS = ("step_loc_lstm_kernel",)
 # Tried in turn on the CPU for the conv+BiLSTM eos request, smallest
 # first: with seed 0, 0.02 ends 2 of 8 best hypotheses on eos while the
 # beam runs on to max_steps for the others; 0.06 and up end all of them.
@@ -630,7 +640,7 @@ def cases(params, cfg, loc_dec, b: int, gen: torch.Generator):
     # K8's content-only GRU instance on K2's inputs (the wrapper routes
     # this configuration to K2), to set the two kernels side by side.
     k8_gru = Case(
-        "fused_attention_step_loc_lstm", ("attention_step_loc_lstm_kernel",),
+        "fused_attention_step_loc_lstm", K8_SYMBOLS,
         lambda *args: _step_outputs(k8_direct(*args)), k2.plain, step_args, k2.flops, k2.nbytes,
         label="fused_attention_step_loc_lstm[gru]",
     )
@@ -847,6 +857,106 @@ def k8_direct(params, cfg, state, y_prev, vh, h, enc_mask):
     return attention_step._step_k8(params, cfg, state, yin, vh, h, enc_mask)
 
 
+# K8's edge shapes (phase 3), as K2's: (B, K, L, a batch row with every
+# position masked or None). Each batch row runs on a cluster of C blocks,
+# each taking 1/C of the encoder positions: L < C, L not a multiple of C,
+# K = 1 and 8, and B = 16, K = 8, L = 1500, each under every cluster size.
+K8_EDGES = [(2, BEAM_K, 3, None), (3, BEAM_K, 37, 1), (8, 1, CB_SERVE_L, 7),
+            (8, 8, CB_SERVE_L, None), (16, 8, 1500, None)]
+
+
+def k8_plans(acfg, b, k, l):
+    """Every plan K8 can take at this shape on the card: each cluster size
+    the card holds whose shared memory fits, in the waves it needs."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step as step
+
+    lstm, fm = acfg.cell == "lstm", acfg.feature_maps
+    f = acfg.filt_size if fm else 0
+    dev = torch.device("cuda")
+    smem_limit, resident = step.step_loc_lstm_limits(dev, lstm, fm > 0)
+    dense = step.k8_dense(step.k8_layers(acfg))
+    return [step.StepPlan(c, -(-b // resident[c])) for c in step.CLUSTERS
+            if resident[c] >= 1 and step.step_loc_lstm_smem_bytes(
+                k, l, acfg.score_depth, acfg.annotation_depth, acfg.state_depth, fm, f, c, lstm,
+                dense) <= smem_limit]
+
+
+def k8_edge_phase(decoders, kernel, gen) -> float:
+    """K8's four instances (`decoders`: {variant: (decoder weights,
+    config)}, the content-only GRU through k8_direct) at K8_EDGES under
+    every plan that fits: parity with the plain version (TOL, the LSTM's
+    cell state too), alpha and c exactly 0 on a row with no valid
+    position, two calls bitwise equal, one launch a call. Returns the
+    largest max abs error."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    worst, default = 0.0, attention_step.step_loc_lstm_plan_on
+    try:
+        for variant, (dec, acfg) in decoders.items():
+            call = k8_direct if variant == "gru" else attention_step.fused_attention_step
+            for b, k, l, dead in K8_EDGES:
+                dec_, acfg_, state, y, vh, h, mask = k2_inputs(dec, acfg, b, k, l, gen, dead)
+                mem = torch.randn(state[1].shape, generator=gen).cuda() * 0.3
+                state = (state[0], state[1], mem)
+                args = (dec_, acfg_, state, y, vh, h, mask)
+                with torch.no_grad():
+                    want = _step_outputs(attention_step.fused_attention_step_plain(*args))
+                line = []
+                for plan in k8_plans(acfg, b, k, l):
+                    attention_step.step_loc_lstm_plan_on = lambda *_, p=plan: p
+                    before = kernel.launches
+                    with torch.no_grad():
+                        got, again = _step_outputs(call(*args)), _step_outputs(call(*args))
+                    torch.cuda.synchronize()
+                    err = max_err(got, want)
+                    finite = all(bool(torch.isfinite(g).all()) for g in got)
+                    same = all(torch.equal(g, w) for g, w in zip(got, again))
+                    zero = dead is None or not (got[0][dead].any() or got[1][dead].any())
+                    launches = kernel.launches - before
+                    if not (err <= TOL and finite and same and zero and launches == 2):
+                        raise SystemExit(f"fused_attention_step_loc_lstm[{variant}] B={b} K={k} "
+                                         f"L={l} on {plan} fails on the card: err {err:.3e}, "
+                                         f"finite {finite}, repeat {same}, masked row 0 {zero}, "
+                                         f"{launches} launches for 2 calls")
+                    worst = max(worst, err)
+                    line.append(f"C={plan.cluster} in {plan.waves} wave(s) {err:.3e}")
+                print(f"parity fused_attention_step_loc_lstm[{variant}] B={b} K={k} L={l}"
+                      f"{'' if dead is None else f' (row {dead} fully masked: alpha and c 0)'}, "
+                      f"two calls bitwise equal and one launch a call under each plan, "
+                      f"max_abs_err (tol {TOL}): " + "; ".join(line))
+    finally:
+        attention_step.step_loc_lstm_plan_on = default
+    return worst
+
+
+def k8_plan_sweep(c, card: str) -> None:
+    """Phase 8: K8's plan at its case `c`'s shape, and its device time on
+    each cluster size that fits the device."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    dec, acfg, state, _, vh = c.args[:5]
+    b, k, l = vh.shape[0], state[1].shape[1], vh.shape[1]
+    dev = torch.device("cuda")
+    fm = acfg.feature_maps
+    plan = attention_step.step_loc_lstm_plan_on(
+        b, k, l, acfg.score_depth, acfg.annotation_depth, acfg.state_depth, fm,
+        acfg.filt_size if fm else 0, acfg.cell == "lstm",
+        attention_step.k8_dense(attention_step.k8_layers(acfg)), dev)
+    smem_limit, resident = attention_step.step_loc_lstm_limits(dev, acfg.cell == "lstm", fm > 0)
+    times, default = {}, attention_step.step_loc_lstm_plan_on
+    try:
+        for p in k8_plans(acfg, b, k, l):
+            attention_step.step_loc_lstm_plan_on = lambda *_, p=p: p
+            with torch.no_grad():
+                times[p.cluster] = device_ms(lambda: c.kernel(*c.args), c.symbols, 200)
+    finally:
+        attention_step.step_loc_lstm_plan_on = default
+    print(f"plan {c.label} B={b} K={k} L={l}: clusters of {plan.cluster} in {plan.waves} "
+          f"wave(s) (resident clusters {resident}, {smem_limit} B of shared memory a block); "
+          f"device ms by cluster size: "
+          + ", ".join(f"C={cl} {ms:.4f}" for cl, ms in times.items()) + f" ({card})")
+
+
 def step_case(variant, dec, acfg, h, valid, gen):
     """K8 at a beam step of K = BEAM_K hypotheses on annotations h (B, L,
     A) with mask `valid`, for the decoder `dec` of config `acfg`."""
@@ -883,7 +993,7 @@ def step_case(variant, dec, acfg, h, valid, gen):
     state_floats = BEAM_K * (2 * st + (st if lstm else 0) + (l if fm else 0))  # yin, s, mem, alpha
     out_floats = BEAM_K * (l + a + st + v + (st if lstm else 0))
     return Case(
-        "fused_attention_step_loc_lstm", ("attention_step_loc_lstm_kernel",),
+        "fused_attention_step_loc_lstm", K8_SYMBOLS,
         lambda *args: _step_outputs(attention_step.fused_attention_step(*args)),
         lambda *args: _step_outputs(attention_step.fused_attention_step_plain(*args)),
         (dec, acfg, state, y, vh, h, valid),
@@ -2139,8 +2249,10 @@ def tree_timing() -> dict:
     records) and the device time (profiler) of the forward GRU walk's
     kernels K1, K16 and K18 at FWD_WALK_SHAPES, of the flagship's beam step
     K2 and of K8's two instances on the flagship's widths at the serving
-    shape, b=1 and 8; the flagship's
-    serving p50 and device time of one request (exact=False, b=1 and 8);
+    shape, b=1 and 8, and of K8's <LSTM, location> instance at the
+    conv+BiLSTM serving shape; the flagship's and the conv+BiLSTM
+    recipe's serving p50 and device time of one request (exact=False, b=1
+    and 8);
     of each teacher-forced decoder scan, forward and backward (K4, K5,
     K10-K15), at its recipe's training shape at B=16 and 128, and the
     device time of K4, K5, K10-K12, K14 and K15 (every device op of a
@@ -2169,13 +2281,36 @@ def tree_timing() -> dict:
                     out[f"{c.label} B={b} ms per call"] = time_ms(lambda: c.kernel(*c.args), 200)
                     out[f"{c.label} B={b} device ms"] = device_ms(lambda: c.kernel(*c.args),
                                                                   c.symbols, 200)
-    pcms, _, mean, std = serve_setup()
+    pcms, feats, mean, std = serve_setup()
     kw = dict(eos_id=EOS_ID, mean=mean, std=std, beam_k=BEAM_K)
     served = serve_timing("chorowski", model, params, pcms, kw, [(False, 1), (False, 8)], "")
     for (_, b), (p50, busy) in served.items():
         out[f"chorowski serve b={b} p50 ms"] = p50
         out[f"chorowski serve b={b} device ms a request"] = busy
     del params
+    # The conv+BiLSTM recipe: K8's <LSTM, location> instance at its serving
+    # shape, and its requests.
+    cb_exp = experiment.timit_conv_bilstm()
+    cb_model = cb_exp.build_model()
+    cb_params = interop.to_torch(
+        cb_exp.init_params(torch.Generator().manual_seed(SEED), device="cpu"), "cuda")
+    noloc_dec = registry.build("conv_bilstm", feature_maps=0).init(
+        torch.Generator().manual_seed(SEED))["decoder"]
+    norm = ((feats - torch.from_numpy(mean)) / torch.from_numpy(std)).cuda()
+    for b in (1, 8):
+        cb_cases, _ = conv_bilstm_cases(cb_params, cb_model.cfg, noloc_dec, norm[:b], gen)
+        c = next(c for c in cb_cases if c.label == MAIN_LABEL["fused_attention_step_loc_lstm"])
+        with torch.no_grad():
+            out[f"{c.label} conv_bilstm B={b} ms per call"] = time_ms(lambda: c.kernel(*c.args),
+                                                                     200)
+            out[f"{c.label} conv_bilstm B={b} device ms"] = device_ms(lambda: c.kernel(*c.args),
+                                                                      c.symbols, 200)
+    served = serve_timing("conv_bilstm", cb_model, cb_params, pcms, kw, [(False, 1), (False, 8)],
+                          "")
+    for (_, b), (p50, busy) in served.items():
+        out[f"conv_bilstm serve b={b} p50 ms"] = p50
+        out[f"conv_bilstm serve b={b} device ms a request"] = busy
+    del cb_params
     for recipe, make_cases, label in (
             (experiment.timit_chorowski_normnll_colnorm, train_cases, "chorowski"),
             (experiment.timit_conv_bilstm, cb_train_cases, "conv_bilstm"),
@@ -2246,7 +2381,7 @@ def main(parent=None) -> int:
                                    attention_scan.KERNEL_LSTM_BWD, gru_scan.KERNEL_GRU,
                                    gru_scan.KERNEL_GRU_BWD, gru_scan.KERNEL_BI,
                                    gru_scan.KERNEL_BI_BWD)}
-    t0 = time.perf_counter()
+    started = t0 = time.perf_counter()
     build.build_all(kernels.values())
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(kernels)} kernels")
     for k in kernels.values():
@@ -2321,6 +2456,17 @@ def main(parent=None) -> int:
                 check_repeat(c, kernels[c.name], got, shape_tag(b))
     errs["fused_attention_step"] = max(errs["fused_attention_step"], k2_edge_phase(
         params["decoder"], cfg.attention_config(), kernels["fused_attention_step"], gen))
+    k8_decoders = {"lstm+loc": (cb_params["decoder"], cb_model.cfg.attention_config()),
+                   "gru+loc": (loc_dec, dataclasses.replace(cfg.attention_config(),
+                                                            feature_maps=16, filt_size=10)),
+                   "lstm": (noloc_dec, dataclasses.replace(cb_model.cfg.attention_config(),
+                                                           feature_maps=0)),
+                   "gru": (params["decoder"], cfg.attention_config())}
+    t0 = time.perf_counter()
+    errs["fused_attention_step_loc_lstm"] = max(
+        errs["fused_attention_step_loc_lstm"],
+        k8_edge_phase(k8_decoders, kernels["fused_attention_step_loc_lstm"], gen))
+    print(f"K8's edges took {time.perf_counter() - t0:.1f} s")
     for name, err in fwd_edge_phase(kernels, gen).items():
         errs[name] = max(errs[name], err)
 
@@ -2461,6 +2607,12 @@ def main(parent=None) -> int:
     del big_cases
     for b in (1, 8):
         k2_plan_sweep(next(c for c in all_cases[b] if c.label == "fused_attention_step"), card)
+    t0 = time.perf_counter()
+    for variant in ("lstm+loc", "gru+loc"):
+        for b in (1, 8):
+            k8_plan_sweep(next(c for c in all_cases[b]
+                               if c.label == f"fused_attention_step_loc_lstm[{variant}]"), card)
+    print(f"K8's plan sweep took {time.perf_counter() - t0:.1f} s")
     for b in (1, 8):
         k2_ms, k8_ms = timing[("fused_attention_step", b)][0], \
             timing[("fused_attention_step_loc_lstm[gru]", b)][0]
@@ -2512,6 +2664,7 @@ def main(parent=None) -> int:
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library.get((name, key)),
         })
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s wall, the build included")
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -496,7 +496,7 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
     __syncthreads();
     // [phase] load
     // Recompute ws, r and the cell (the GRU's gates, candidate and rhr);
-    // and the location features, as attend_loc forms them.
+    // and the location features, as the forward forms them.
     matvec<kNone>(w.ws_w, w.ws_b, St, S, m.sp, St, m.ws, S, 1, m.scratch);
     decoder_cell(w, m, 1, A, St);
     // [phase] recompute
@@ -556,7 +556,7 @@ __device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
     __syncthreads();
     // [phase] softmax
     // The energies: dz = de w_e (1 - tanh(z)^2), a thread per score unit,
-    // z recomputed as attend_loc forms it, the loads of kLocRows
+    // z recomputed as the forward forms it, the loads of kLocRows
     // positions issued together. The step's dz also goes to the row's
     // scratch, and dU += feat^T dz.
     for (int sc = tid; sc < S; sc += kThreads) {

@@ -68,10 +68,12 @@ struct Args {
   int B, K, L, S, A, St, M, W, V;
 };
 
-// Block r's share [lo, lo + n) of n_all items over C blocks.
+// Block r's share [lo, lo + n) of n_all items over C blocks, in whole
+// groups of g items (g divides n_all).
 struct Span {
   int lo, n;
-  __device__ Span(int n_all, int C, int r) : lo(n_all * r / C), n(n_all * (r + 1) / C - lo) {}
+  __device__ Span(int n_all, int C, int r, int g = 1)
+      : lo(g * (n_all / g * r / C)), n(g * (n_all / g * (r + 1) / C) - lo) {}
 };
 
 // Columns [lo0, lo0 + n0), then [lo1, lo1 + n1), of an input-major weight.
@@ -541,182 +543,609 @@ extern "C" int fused_attention_step(
 // Templated on the cell (GRU or LSTM) and on the location term.
 //
 // What bounds it: as K2, a chain of dependent matrix-vector products
-// whose weights come from L2 every step (about 7.4 MB at the conv+BiLSTM
-// recipe: dec_in 800x400, the LSTM's gates 2 x 400x1600), read once per
-// block for all K hypotheses. The location term adds K*L*S*FM
-// multiply-adds; UF is never stored: each warp forms the K x FM
-// features of its encoder position and adds them through U (in shared
-// memory) inside the energy loop. Intermediates live in shared memory;
-// the cell's and the readout's buffers share one region.
+// whose weights come from L2 every step, about 7.4 MB at the conv+BiLSTM
+// recipe (dec_in 800x400, the LSTM's w_h and w_x 400x1600 each). So it
+// takes K2's split: each batch row runs on a cluster of C blocks (16 or
+// 8, from the wrapper's plan), and block r
+//   - reads its share of every weight's columns, for all K hypotheses at
+//     once: S / C of ws, its St / C state units' columns of c_in, dec_in
+//     and the cell (the LSTM's four gates, the GRU's update and reset
+//     gates and candidate), and its share of each readout layer but the
+//     last (maxout in whole groups of its window); shares of a width that
+//     4 divides are whole groups of 4, so that 16-byte loads stay aligned;
+//   - pushes what it forms into every block's shared memory through
+//     distributed shared memory (DSMEM), and the cluster meets at a
+//     barrier before the values are read (six barriers a step for the
+//     LSTM and seven for the GRU, and one for each readout layer but the
+//     last);
+//   - takes encoder positions [r L / C, (r + 1) L / C): their energies,
+//     with the location term formed from alpha_prev's window around them
+//     (the F - 1 halo comes from global memory: alpha_prev is an input),
+//     the softmax's local max and exp-sum, and the context's partial sums
+//     over them, combined in every block as K2 combines them.
+// The products on s_prev and yin, which need no exchange (s_prev @ w_h or
+// @ w_zr[:St], yin @ dec_w[St:]), and the GRU's r @ w_h[St:], run while a
+// cluster barrier completes. Block 0 alone takes the last readout layer
+// and the log_softmax. Fixed-order sums, no atomics: two calls give the
+// same bits. No shared buffer grows with the full L.
 
 namespace {
 
 constexpr int kMaxLayers = 4;  // readout layers after dropout is dropped
 enum LayerKind { kLinear = 0, kMaxout = 1, kRelu = 2 };
+// Score units a lane of the location term's energies takes at once: their
+// sums over the feature maps are independent chains.
+constexpr int kLocCols = 4;
 
+// The readout as its dense layers (linear or maxout), each followed by a
+// relu or not; relu_in: a relu on concat(s_new, c) before the first.
 struct Readout {
-  int n;
+  int n, relu_in;
   int kind[kMaxLayers];
-  int out[kMaxLayers];  // output width (maxout: groups)
-  int win[kMaxLayers];  // maxout window
+  int out[kMaxLayers];   // output width (maxout: groups)
+  int win[kMaxLayers];   // maxout window (linear: 1)
+  int relu[kMaxLayers];  // a relu follows
   const float* w[kMaxLayers];
   const float* b[kMaxLayers];
 };
 
-struct Args2 {
+// The group a share of n items is cut in: 4 where 4 divides n, else 1.
+__host__ __device__ constexpr int quad(int n) { return n % 4 ? 1 : 4; }
+
+// n rounded up to whole 16-byte groups of floats.
+__host__ __device__ constexpr long long r4(long long n) { return (n + 3) / 4 * 4; }
+
+// The largest share of n items over C blocks, in groups of quad(n).
+__host__ __device__ constexpr long long cspan(long long n, long long C) {
+  return n % 4 ? cdiv(n, C) : 4 * cdiv(n / 4, C);
+}
+
+// Shared memory of one block of K8's step, in floats, on clusters of C
+// blocks (lstm 1 for the LSTM cell, loc 1 with the location term, else 0
+// and FM = F = 0); maxw, maxpre and cols are readout_dims'. Each buffer
+// is 16-byte aligned. The plan in ops/cuda/attention_step.py
+// (step_loc_lstm_smem_bytes) computes the same.
+long long step_loc_lstm_smem_floats(long long K, long long L, long long S, long long A,
+                                    long long St, long long FM, long long F, long long C,
+                                    long long lstm, long long loc, long long maxw,
+                                    long long maxpre, long long cols) {
+  return r4(K * S) + r4(S) + 2 * r4(2 * K * St) + (1 - lstm) * r4(K * St) + r4(K * (St + A)) +
+         2 * r4(K * maxw) + r4(cdiv(L, C)) + r4(K * cdiv(L, C)) + r4(C * K * cdiv(A, C)) +
+         r4(2 * C * K) + r4(C * K) + r4(K) +
+         r4(K * std::max((2 + 2 * lstm) * cspan(St, C), maxpre)) +
+         (1 + lstm) * r4(K * cspan(St, C)) + r4(cspan(S, C)) + 2 * r4(cspan(St, C)) +
+         lstm * r4(4 * cspan(St, C)) +
+         loc * (r4(K * (cdiv(L, C) + F - 1)) + r4(FM * S) + r4(F * FM) + r4(FM) +
+                r4(kWarps * FM)) +
+         r4(kWarps * K * std::min(128LL, std::max(std::max(cspan(S, C), 2 * cspan(St, C)), cols)));
+}
+
+// The readout's sizes on clusters of C blocks: the widest layer output
+// (maxw), the most maxout pre-activations a block holds (maxpre) and the
+// most columns a block's share of a layer's product takes (cols); a layer
+// but the last is split over the blocks, the last is block 0's alone.
+struct ReadoutDims {
+  long long maxw, maxpre, cols;
+};
+
+ReadoutDims readout_dims(const Readout& ro, long long C) {
+  ReadoutDims d{0, 0, 0};
+  for (int i = 0; i < ro.n; ++i) {
+    const long long out = ro.out[i], win = ro.win[i];
+    const long long share =
+        i == ro.n - 1 ? out : (ro.kind[i] == kMaxout ? cdiv(out, C) : cspan(out, C));
+    d.maxw = std::max(d.maxw, out);
+    d.cols = std::max(d.cols, share * win);
+    if (ro.kind[i] == kMaxout) d.maxpre = std::max(d.maxpre, share * win);
+  }
+  return d;
+}
+
+struct Args8 {
   const float *vh, *h, *mask, *yin, *sprev;
   const float *ws_w, *ws_b, *w_e, *c_w, *c_b, *dec_w, *dec_b, *cw1, *cw2, *cw3;
   const float *memprev, *aprev, *conv_w, *conv_b, *u;
   float *alpha, *c, *s, *mem, *logp;
   int B, K, L, S, A, St, V, FM, F, PL;
-  int region, maxw;  // floats per row of the cell/readout region; widest readout layer
+  int maxw, maxpre;
   Readout ro;
 };
 
-template <bool kLstm, bool kLoc>
-__global__ void __launch_bounds__(kThreads, 1) attention_step_loc_lstm_kernel(const Args2 a) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.x;
-  const int K = a.K, L = a.L, S = a.S, A = a.A, St = a.St, V = a.V, FM = a.FM, F = a.F;
-  const int St2 = 2 * St, XO = St + A, LP = L + F - 1;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  float* sp = sm;                            // [K][St]    s_prev
-  float* sr = sp + K * St;                   // [K][2St]   s_prev | r
-  float* ws = sr + K * St2;                  // [K][S]     s_prev @ Ws + b
-  float* al = ws + K * S;                    // [K][L]     energies, then alpha
-  float* xo = al + K * L;                    // [K][St+A]  s_new | c
-  float* reg = xo + K * XO;                  // K * region: rin/zr, rhr, cand or rin/gates; then the readout
-  float* mem = reg + K * a.region;           // [K][St]    LSTM cell state
-  float* ap = mem + (kLstm ? K * St : 0);    // [K][L+F-1] alpha_prev, zero-padded
-  float* we = ap + (kLoc ? K * LP : 0);      // [S]
-  float* msk = we + S;                       // [L]
-  float* u = msk + L;                        // [FM][S]
-  float* cw = u + (kLoc ? FM * S : 0);       // [F][FM]
-  float* cb = cw + (kLoc ? F * FM : 0);      // [FM]
-  float* feat = cb + (kLoc ? FM : 0);        // [kWarps][K][FM]
-  float* scratch = feat + (kLoc ? kWarps * K * FM : 0);  // [kThreads * 4 * K]
-
-  const size_t row = (size_t)b * K;
-  for (int i = tid; i < K * St; i += kThreads) {
-    const int k = i / St, j = i % St;
-    const float v = a.sprev[(row + k) * St + j];
-    sp[i] = v;
-    sr[k * St2 + j] = v;
-    reg[k * St2 + St + j] = a.yin[(row + k) * St + j];  // rin[:, St:]
-    if (kLstm) mem[i] = a.memprev[(row + k) * St + j];
-  }
-  for (int i = tid; i < S; i += kThreads) we[i] = a.w_e[i];
-  for (int i = tid; i < L; i += kThreads) msk[i] = a.mask[(size_t)b * L + i];
-  if (kLoc) {
-    for (int i = tid; i < K * LP; i += kThreads) {
-      const int k = i / LP, p = i % LP - a.PL;
-      ap[i] = p >= 0 && p < L ? a.aprev[(row + k) * L + p] : 0.f;
+// e[k * Lc + p] = w_e . tanh(vh[p] + ws[k] + feat_k(p) @ U) for this
+// block's n positions: a warp per (position, hypothesis) pair, and P =
+// kWarps / (n K) warps (at least 1) to a pair, each taking every P-th
+// group of 32 score units, kLocCols groups a lane at once. A warp forms
+// its hypothesis's FM features of its position from alpha_prev's window
+// (ap: [K][Pw], the block's position p reading ap[k][p + j] for the F
+// taps j) and adds them through U inside the energy loop; UF is never
+// stored. The P warps' sums meet in `part` ([kWarps]) and are added in
+// their order. Ends with a block barrier.
+__device__ void energies_loc(const float* vhb, const float* ws, const float* we, const float* ap,
+                             int Pw, const float* u, const float* cw, const float* cb,
+                             float* feat, float* part, float* e, int n, int Lc, int K, int S,
+                             int FM, int F) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int pairs = n * K, P = pairs > 0 ? max(1, kWarps / pairs) : 1;
+  float* f = feat + warp * FM;
+  for (int task = warp; task < pairs * P; task += kWarps) {
+    const int pk = task / P, q0 = task - pk * P, p = pk / K, k = pk - p * K;
+    for (int q = lane; q < FM; q += 32) {
+      const float* x = ap + k * Pw + p;
+      float v = 0.f;
+      for (int j = 0; j < F; ++j) v = fmaf(x[j], cw[j * FM + q], v);
+      f[q] = v + cb[q];
     }
-    for (int i = tid; i < FM * S; i += kThreads) u[i] = a.u[i];
-    for (int i = tid; i < F * FM; i += kThreads) cw[i] = a.conv_w[i];
-    for (int i = tid; i < FM; i += kThreads) cb[i] = a.conv_b[i];
+    __syncwarp();
+    const float *vr = vhb + (size_t)p * S, *wk = ws + k * S;
+    float acc = 0.f;
+#pragma unroll 1
+    for (int g0 = q0; 32 * g0 < S; g0 += P * kLocCols) {
+      float z[kLocCols], uf[kLocCols];
+      int sx[kLocCols];  // the lane's score unit in each group, S past the end
+#pragma unroll
+      for (int x = 0; x < kLocCols; ++x) {
+        const int s = 32 * (g0 + P * x) + lane;
+        sx[x] = min(s, S);
+        z[x] = s < S ? __ldg(vr + s) + wk[s] : 0.f;
+        uf[x] = 0.f;
+      }
+#pragma unroll 4
+      for (int q = 0; q < FM; ++q) {
+        const float fq = f[q];
+#pragma unroll
+        for (int x = 0; x < kLocCols; ++x)
+          if (sx[x] < S) uf[x] = fmaf(fq, u[q * S + sx[x]], uf[x]);
+      }
+#pragma unroll
+      for (int x = 0; x < kLocCols; ++x)
+        if (sx[x] < S) acc = fmaf(fast_tanh(z[x] + uf[x]), we[sx[x]], acc);
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      if (P == 1)
+        e[k * Lc + p] = acc;
+      else
+        part[task] = acc;
+    }
+    __syncwarp();  // f is rewritten for the warp's next pair
   }
   __syncthreads();
-
-  const StepWeights w{a.ws_w, a.ws_b, a.c_w, a.c_b, a.dec_w, a.dec_b, a.cw1, a.cw2};
-  // GRU: rin and zr share [K][2St], then rhr [K][2St], cand [K][St].
-  const StepBufs bufs{sp, ws, al, reg, sr, reg, reg + K * St2, xo, reg + 2 * K * St2,
-                      we, msk, scratch};
-  const float* vhb = a.vh + (size_t)b * L * S;
-  if constexpr (kLoc)
-    attend_loc(w, bufs, LocBufs{ap, u, cw, cb, feat, F, FM}, vhb, K, L, S, St);
-  else
-    attend(w, bufs, vhb, K, L, S, St);
-  context(bufs, a.h + (size_t)b * L * A, K, L, A, St);
-  if constexpr (kLstm)
-    lstm_cell(w, bufs, a.cw1, a.cw2, a.cw3, reg, mem, K, A, St);
-  else
-    decoder_cell(w, bufs, K, A, St);
-
-  for (int i = tid; i < K * St; i += kThreads) {
-    const int k = i / St, j = i % St;
-    a.s[(row + k) * St + j] = xo[k * XO + j];
-    if (kLstm) a.mem[(row + k) * St + j] = mem[i];
-  }
-  for (int i = tid; i < K * A; i += kThreads) {
-    const int k = i / A, j = i % A;
-    a.c[(row + k) * A + j] = xo[k * XO + St + j];
-  }
-  for (int i = tid; i < K * L; i += kThreads) a.alpha[row * L + i] = al[i];
-
-  // Readout on concat(s_new, c): two ping-pong buffers, and the maxout
-  // pre-activations after them.
-  float* buf[2] = {reg, reg + K * a.maxw};
-  float* pre = reg + 2 * K * a.maxw;
-  const float* x = xo;
-  int xs = XO, width = XO, next = 0;
-  for (int li = 0; li < a.ro.n; ++li) {
-    float* y = buf[next];
-    const int out = a.ro.out[li];
-    if (a.ro.kind[li] == kLinear) {
-      matvec<kNone>(a.ro.w[li], a.ro.b[li], width, out, x, xs, y, out, K, scratch);
-    } else if (a.ro.kind[li] == kMaxout) {
-      const int win = a.ro.win[li];
-      matvec<kNone>(a.ro.w[li], a.ro.b[li], width, out * win, x, xs, pre, out * win, K, scratch);
-      for (int i = tid; i < K * out; i += kThreads) {
-        const int k = i / out, g = i % out;
-        const float* grp = pre + (k * out + g) * win;
-        float mx = grp[0];
-        for (int q = 1; q < win; ++q) mx = fmaxf(mx, grp[q]);
-        y[i] = mx;
-      }
-      __syncthreads();
-    } else {  // relu, out == width
-      for (int i = tid; i < K * width; i += kThreads) {
-        const int k = i / width, j = i % width;
-        y[i] = fmaxf(x[k * xs + j], 0.f);
-      }
-      __syncthreads();
+  if (P > 1) {
+    for (int i = threadIdx.x; i < pairs; i += kThreads) {
+      const int p = i / K, k = i - p * K;
+      float v = 0.f;
+      for (int q = 0; q < P; ++q) v += part[i * P + q];
+      e[k * Lc + p] = v;
     }
-    x = y;
-    xs = width = out;
-    next ^= 1;
-  }
-  if (warp < K) {  // f32 log_softmax, a warp per row
-    const float* z = x + warp * xs;
-    float m = -INFINITY;
-    for (int j = lane; j < V; j += 32) m = fmaxf(m, z[j]);
-    m = warp_max(m);
-    float t = 0.f;
-    for (int j = lane; j < V; j += 32) t += expf(z[j] - m);
-    const float lse = logf(warp_sum(t));
-    for (int j = lane; j < V; j += 32) a.logp[(row + warp) * V + j] = z[j] - m - lse;
+    __syncthreads();
   }
 }
 
 template <bool kLstm, bool kLoc>
-cudaError_t launch2(const Args2& a, cudaStream_t stream) {
-  const int LP = a.L + a.F - 1;
-  const size_t floats =
-      (size_t)a.K * (3 * a.St + a.S + a.L + a.St + a.A + a.region + 4 * kThreads) + a.S + a.L +
-      (kLstm ? (size_t)a.K * a.St : 0) +
-      (kLoc ? (size_t)a.K * LP + (size_t)a.FM * a.S + a.F * a.FM + a.FM + kWarps * a.K * a.FM : 0);
-  const size_t bytes = floats * sizeof(float);
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+__global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(const Args8 a) {
+  extern __shared__ __align__(16) float sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;
+  const int K = a.K, L = a.L, S = a.S, A = a.A, St = a.St, FM = a.FM, F = a.F;
+  const int St2 = 2 * St, XO = St + A, Lc = cdiv(L, C), Ac = cdiv(A, C);
+  // Gate pre-activations a unit: the LSTM's four, the GRU's update and reset.
+  constexpr int G = kLstm ? 4 : 2;
+  const int Stc = (int)cspan(St, C), Pw = Lc + F - 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Span pos(L, C, r), sc(S, C, r, quad(S)), un(St, C, r, quad(St)), ac(A, C, r);
+
+  // As step_loc_lstm_smem_floats counts, each buffer 16-byte aligned.
+  float* next = sm;
+  const auto take = [&](long long n) {
+    float* p = next;
+    next += r4(n);
+    return p;
+  };
+  // Gathered: every block holds the whole of these, each block writing its share.
+  float* ws = take(K * S);        // [K][S]     s_prev @ Ws + b
+  float* we = take(S);            // [S]
+  float* sr = take(K * St2);      // [K][2St]   s_prev | r
+  float* rin = take(K * St2);     // [K][2St]   c_in(c) | yin
+  float* rs = kLstm ? nullptr : take(K * St);  // [K][St] reset gate * s_prev
+  float* xo = take(K * XO);       // [K][St+A]  s_new | c
+  float* y0 = take(K * a.maxw);   // [K][maxw]  readout layer outputs, by turns
+  float* y1 = take(K * a.maxw);
+  // This block's positions, and what the cluster exchanges about them.
+  float* msk = take(Lc);           // [Lc]
+  float* e = take(K * Lc);         // [K][Lc]       energies, then exp(e - local max)
+  float* part = take(C * K * Ac);  // [C][K][Ac]    context partials of this block's columns
+  float* stat = take(2 * C * K);   // [C][K][2]     each block's (max, exp-sum)
+  float* scale = take(C * K);      // [C][K]        exp(block max - max)
+  float* zsum = take(K);           // [K]           the clamped exp-sum
+  // This block's units: gate pre-activations [K][G][Stc] (then the maxout
+  // pre-activations), the LSTM's cell state, a product's half formed early
+  // (yin @ dec_w[St:], then the GRU's r @ w_h[St:]), and bias columns.
+  float* gl = take(K * max(G * Stc, a.maxpre));
+  float* mem = kLstm ? take(K * Stc) : nullptr;
+  float* pre = take(K * Stc);
+  float* bws = take(cspan(S, C));
+  float* bc = take(Stc);
+  float* bdec = take(Stc);
+  float* bg = kLstm ? take(4 * Stc) : nullptr;
+  float *ap = nullptr, *u = nullptr, *cw = nullptr, *cb = nullptr, *feat = nullptr;
+  if (kLoc) {
+    ap = take(K * Pw);           // [K][Pw]      alpha_prev on the positions' window, 0 off [0, L)
+    u = take(FM * S);            // [FM][S]
+    cw = take(F * FM);           // [F][FM]      conv taps
+    cb = take(FM);               // [FM]         conv bias
+    feat = take(kWarps * FM);    // [kWarps][FM]  a (position, hypothesis)'s features, per warp
+  }
+  float* scratch = next;
+  const auto gi = [&](int k, int g, int j) { return (k * G + g) * Stc + j; };
+
+  cluster_arrive();  // no block writes into another before every block has started
+  // The step's inputs and this block's columns of biases, by asynchronous
+  // copies: one round trip.
+  const size_t row = (size_t)b * K;
+  for (int i = tid; i < K * St; i += kThreads) {
+    const int k = i / St, j = i - k * St;
+    copy_async(sr + k * St2 + j, a.sprev + (row + k) * St + j);
+    copy_async(rin + k * St2 + St + j, a.yin + (row + k) * St + j);
+  }
+  for (int i = tid; i < S; i += kThreads) copy_async(we + i, a.w_e + i);
+  for (int i = tid; i < pos.n; i += kThreads)
+    copy_async(msk + i, a.mask + (size_t)b * L + pos.lo + i);
+  for (int i = tid; i < sc.n; i += kThreads) copy_async(bws + i, a.ws_b + sc.lo + i);
+  for (int i = tid; i < un.n; i += kThreads) {
+    copy_async(bc + i, a.c_b + un.lo + i);
+    copy_async(bdec + i, a.dec_b + un.lo + i);
+  }
+  if (kLstm) {
+    for (int i = tid; i < 4 * un.n; i += kThreads) {
+      const int g = i / un.n, j = i - g * un.n;
+      copy_async(bg + g * Stc + j, a.cw3 + g * St + un.lo + j);
+    }
+    for (int i = tid; i < K * un.n; i += kThreads) {
+      const int k = i / un.n, j = i - k * un.n;
+      copy_async(mem + k * Stc + j, a.memprev + (row + k) * St + un.lo + j);
+    }
+  }
+  if (kLoc) {
+    // The positions' window of alpha_prev: the reference pads F / 2 on
+    // the left (a.PL), so position l's features read l - PL .. l - PL + F - 1.
+    const int nwin = pos.n > 0 ? pos.n + F - 1 : 0;
+    for (int i = tid; i < K * nwin; i += kThreads) {
+      const int k = i / nwin, x = i - k * nwin, l = pos.lo - a.PL + x;
+      if (l >= 0 && l < L)
+        copy_async(ap + k * Pw + x, a.aprev + (row + k) * L + l);
+      else
+        ap[k * Pw + x] = 0.f;
+    }
+    for (int i = tid; i < FM * S; i += kThreads) copy_async(u + i, a.u + i);
+    for (int i = tid; i < F * FM; i += kThreads) copy_async(cw + i, a.conv_w + i);
+    for (int i = tid; i < FM; i += kThreads) copy_async(cb + i, a.conv_b + i);
+  }
+  copy_async_wait();
+  __syncthreads();
+  cluster_wait();
+  // [phase] load
+
+  // ws = s_prev @ Ws + b, this block's S / C columns, into every block.
+  slice_product(a.ws_w, S, St, sr, St2, K, Cols{sc.lo, sc.n, 0, 0}, scratch,
+                [&](int k, int jj, int col, float v) {
+                  v += bws[jj];
+                  for (int p = 0; p < C; ++p) cluster.map_shared_rank(ws, p)[k * S + col] = v;
+                });
+  cluster_arrive();
+  // While the exchange completes: s_prev's products on the block's gate
+  // columns, the LSTM's s_prev @ w_h + b on its four gates (in two passes
+  // of two), the GRU's s_prev @ w_zr[:St] on its update and reset gates.
+  if constexpr (kLstm) {
+    for (int g0 = 0; g0 < 4; g0 += 2)
+      slice_product(a.cw1, 4 * St, St, sr, St2, K,
+                    Cols{g0 * St + un.lo, un.n, (g0 + 1) * St + un.lo, un.n}, scratch,
+                    [&](int k, int jj, int, float v) {
+                      const int g = g0 + (jj >= un.n), j = jj - (jj >= un.n) * un.n;
+                      gl[gi(k, g, j)] = v + bg[g * Stc + j];
+                    });
+  } else {
+    slice_product(a.cw1, St2, St, sr, St2, K, Cols{un.lo, un.n, St + un.lo, un.n}, scratch,
+                  [&](int k, int jj, int, float v) {
+                    const int g = jj >= un.n;
+                    gl[gi(k, g, jj - g * un.n)] = v;
+                  });
+  }
+  cluster_wait();
+  // [phase] ws, s_prev product
+
+  const float* vhb = a.vh + ((size_t)b * L + pos.lo) * S;
+  if constexpr (kLoc)
+    energies_loc(vhb, ws, we, ap, Pw, u, cw, cb, feat, scratch, e, pos.n, Lc, K, S, FM, F);
+  else if ((S & 3) == 0 && (reinterpret_cast<size_t>(a.vh) & 15) == 0)
+    energies<4>(vhb, ws, we, e, pos.n, Lc, K, S);
+  else
+    energies<1>(vhb, ws, we, e, pos.n, Lc, K, S);
+  // [phase] energies
+
+  // The masked softmax over this block's positions (ops/masking.py:
+  // NEG_INF on padding, the exponentials times the mask), a warp per
+  // hypothesis: its max and exp-sum go to every block.
+  if (warp < K) {
+    float* ek = e + warp * Lc;
+    float mx = kNegInf;
+    for (int p = lane; p < pos.n; p += 32) mx = fmaxf(mx, msk[p] > 0.f ? ek[p] : kNegInf);
+    mx = warp_max(mx);
+    float z = 0.f;
+    for (int p = lane; p < pos.n; p += 32) {
+      const float v = msk[p] > 0.f ? expf(ek[p] - mx) : 0.f;
+      ek[p] = v;
+      z += v;
+    }
+    z = warp_sum(z);
+    if (lane < C) {
+      float* st = cluster.map_shared_rank(stat, lane) + (r * K + warp) * 2;
+      st[0] = mx;
+      st[1] = z;
+    }
+  }
+  __syncthreads();
+  // The context's partial sums over this block's positions, each column
+  // into the block that owns it.
+  const float* hb = a.h + ((size_t)b * L + pos.lo) * A;
+  for (int j = tid; j < A; j += kThreads) {
+    float acc[kMaxK];
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) acc[k] = 0.f;
+    float hv = pos.n > 0 ? __ldg(hb + j) : 0.f;
+#pragma unroll 1
+    for (int p = 0; p < pos.n; ++p) {
+      const float hn = p + 1 < pos.n ? __ldg(hb + (size_t)(p + 1) * A + j) : 0.f;
+#pragma unroll
+      for (int k = 0; k < kMaxK; ++k)
+        if (k < K) acc[k] = fmaf(e[k * Lc + p], hv, acc[k]);
+      hv = hn;
+    }
+    const int owner = ((j + 1) * C - 1) / A;
+    float* dst = cluster.map_shared_rank(part, owner) + r * K * Ac + (j - A * owner / C);
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k)
+      if (k < K) dst[k * Ac] = acc[k];
+  }
+  cluster_arrive();
+  // While the exchange completes: yin's half of dec_in on the block's units.
+  slice_product(a.dec_w + (size_t)St * St, St, St, rin + St, St2, K, Cols{un.lo, un.n, 0, 0},
+                scratch, [&](int k, int jj, int, float v) { pre[k * Stc + jj] = v; });
+  cluster_wait();
+  // [phase] softmax, context partials, yin product
+
+  // Every block, a warp per hypothesis and a lane per block: the max over
+  // blocks, each block's exp(max_r - max), and the clamped exp-sum (a row
+  // with no valid position gets alpha 0).
+  if (warp < K) {
+    const float m = lane < C ? stat[(lane * K + warp) * 2] : kNegInf, mx = warp_max(m);
+    const float f = lane < C ? expf(m - mx) : 0.f;
+    if (lane < C) scale[lane * K + warp] = f;
+    const float z = warp_sum(lane < C ? f * stat[(lane * K + warp) * 2 + 1] : 0.f);
+    if (lane == 0) zsum[warp] = fmaxf(z, 1e-30f);
+  }
+  __syncthreads();
+  for (int i = tid; i < K * pos.n; i += kThreads) {
+    const int k = i / pos.n, p = i % pos.n;
+    a.alpha[(row + k) * L + pos.lo + p] = e[k * Lc + p] * scale[r * K + k] / zsum[k];
+  }
+  // This block's context columns: the C partials in rank order, into every block.
+  for (int i = tid; i < K * ac.n; i += kThreads) {
+    const int k = i / ac.n, jl = i % ac.n;
+    float sum = 0.f;
+    for (int p = 0; p < C; ++p) sum = fmaf(scale[p * K + k], part[(p * K + k) * Ac + jl], sum);
+    const float v = sum / zsum[k];
+    const int j = St + ac.lo + jl;
+    for (int p = 0; p < C; ++p) cluster.map_shared_rank(xo, p)[k * XO + j] = v;
+    a.c[(row + k) * A + ac.lo + jl] = v;
+  }
+  cluster.sync();
+  // [phase] context
+
+  // r = dec_in(concat(c_in(c), yin)): this block's state units of c_in,
+  // into every block; then of dec_in, c_in's half added to yin's.
+  slice_product(a.c_w, St, A, xo + St, XO, K, Cols{un.lo, un.n, 0, 0}, scratch,
+                [&](int k, int jj, int col, float v) {
+                  v += bc[jj];
+                  for (int p = 0; p < C; ++p) cluster.map_shared_rank(rin, p)[k * St2 + col] = v;
+                });
+  cluster.sync();
+  // [phase] c_in
+  slice_product(a.dec_w, St, St, rin, St2, K, Cols{un.lo, un.n, 0, 0}, scratch,
+                [&](int k, int jj, int col, float v) {
+                  v += pre[k * Stc + jj] + bdec[jj];
+                  for (int p = 0; p < C; ++p)
+                    cluster.map_shared_rank(sr, p)[k * St2 + St + col] = v;
+                });
+  cluster.sync();
+  // [phase] dec_in
+
+  if constexpr (kLstm) {
+    // The gates: + r @ w_x on the block's gate columns; then the LSTM
+    // cell on its units (gate order in, forget, cell, out), s_new into
+    // every block.
+    for (int g0 = 0; g0 < 4; g0 += 2)
+      slice_product(a.cw2, 4 * St, St, sr + St, St2, K,
+                    Cols{g0 * St + un.lo, un.n, (g0 + 1) * St + un.lo, un.n}, scratch,
+                    [&](int k, int jj, int, float v) {
+                      const int g = g0 + (jj >= un.n);
+                      gl[gi(k, g, jj - (jj >= un.n) * un.n)] += v;
+                    });
+    for (int i = tid; i < K * un.n; i += kThreads) {
+      const int k = i / un.n, j = i - k * un.n;
+      const float ig = activate<kSigmoid>(gl[gi(k, 0, j)]);
+      const float fg = activate<kSigmoid>(gl[gi(k, 1, j)]);
+      const float gg = tanhf(gl[gi(k, 2, j)]);
+      const float og = activate<kSigmoid>(gl[gi(k, 3, j)]);
+      const float cv = fg * mem[k * Stc + j] + ig * gg;
+      const float sn = og * tanhf(cv);
+      const size_t o = (row + k) * St + un.lo + j;
+      a.mem[o] = cv;
+      a.s[o] = sn;
+      for (int p = 0; p < C; ++p) cluster.map_shared_rank(xo, p)[k * XO + un.lo + j] = sn;
+    }
+    cluster.sync();
+    // [phase] cell
+  } else {
+    // The gates: + r @ w_zr[St:] on the block's update and reset columns;
+    // the update gate stays here, reset gate * s_prev goes to every block.
+    slice_product(a.cw1 + (size_t)St * St2, St2, St, sr + St, St2, K,
+                  Cols{un.lo, un.n, St + un.lo, un.n}, scratch,
+                  [&](int k, int jj, int col, float v) {
+                    const int g = jj >= un.n, j = jj - g * un.n;
+                    const float gv = activate<kSigmoid>(gl[gi(k, g, j)] + v);
+                    if (g == 0) {
+                      gl[gi(k, 0, j)] = gv;
+                    } else {
+                      const int uu = col - St;
+                      const float x = gv * sr[k * St2 + uu];
+                      for (int p = 0; p < C; ++p) cluster.map_shared_rank(rs, p)[k * St + uu] = x;
+                    }
+                  });
+    cluster_arrive();
+    // While the exchange completes: r's half of the candidate, r @ w_h[St:].
+    slice_product(a.cw2 + (size_t)St * St, St, St, sr + St, St2, K, Cols{un.lo, un.n, 0, 0},
+                  scratch, [&](int k, int jj, int, float v) { pre[k * Stc + jj] = v; });
+    cluster_wait();
+    // [phase] gates, r candidate product
+    // The candidate and s_new for this block's units, into every block.
+    slice_product(a.cw2, St, St, rs, St, K, Cols{un.lo, un.n, 0, 0}, scratch,
+                  [&](int k, int jj, int col, float v) {
+                    const float zg = gl[gi(k, 0, jj)], sp = sr[k * St2 + col];
+                    const float sn = (1.f - zg) * sp + zg * activate<kTanh>(v + pre[k * Stc + jj]);
+                    for (int p = 0; p < C; ++p) cluster.map_shared_rank(xo, p)[k * XO + col] = sn;
+                    a.s[(row + k) * St + col] = sn;
+                  });
+    cluster.sync();
+    // [phase] candidate
+  }
+
+  // Readout on concat(s_new, c). Each layer but the last: this block's
+  // share of its columns (maxout: whole groups of its window, their
+  // maxima), relu applied before the push, into every block, or into
+  // block 0 alone where the next layer is the last.
+  const Readout& ro = a.ro;
+  if (ro.relu_in) {
+    for (int i = tid; i < K * XO; i += kThreads) xo[i] = fmaxf(xo[i], 0.f);
+    __syncthreads();
+  }
+  const float* x = xo;
+  int width = XO;
+  for (int li = 0; li + 1 < ro.n; ++li) {
+    float* y = li & 1 ? y1 : y0;
+    const int out = ro.out[li], win = ro.win[li], ldw = out * win, to = li + 2 < ro.n ? C : 1;
+    const bool relu = ro.relu[li];
+    const float* bias = ro.b[li];
+    if (ro.kind[li] == kLinear) {
+      const Span oc(out, C, r, quad(out));
+      slice_product(ro.w[li], ldw, width, x, width, K, Cols{oc.lo, oc.n, 0, 0}, scratch,
+                    [&](int k, int, int col, float v) {
+                      v += __ldg(bias + col);
+                      if (relu) v = fmaxf(v, 0.f);
+                      for (int p = 0; p < to; ++p) cluster.map_shared_rank(y, p)[k * out + col] = v;
+                    });
+    } else {
+      const Span gr(out, C, r);
+      const int n = gr.n * win;
+      slice_product(ro.w[li], ldw, width, x, width, K, Cols{gr.lo * win, n, 0, 0}, scratch,
+                    [&](int k, int jj, int col, float v) {
+                      gl[k * n + jj] = v + __ldg(bias + col);
+                    });
+      for (int i = tid; i < K * gr.n; i += kThreads) {
+        const int k = i / gr.n, g = i % gr.n;
+        const float* grp = gl + k * n + g * win;
+        float m = grp[0];
+        for (int t = 1; t < win; ++t) m = fmaxf(m, grp[t]);
+        if (relu) m = fmaxf(m, 0.f);
+        for (int p = 0; p < to; ++p) cluster.map_shared_rank(y, p)[k * out + gr.lo + g] = m;
+      }
+    }
+    cluster.sync();
+    // [phase] readout layer
+    x = y;
+    width = out;
+  }
+  if (r != 0) return;
+
+  // Block 0: the last layer and the f32 log_softmax, a warp per hypothesis.
+  const int li = ro.n - 1, out = ro.out[li], win = ro.win[li];
+  const bool relu = ro.relu[li];
+  const float* bias = ro.b[li];
+  float* y = li & 1 ? y1 : y0;
+  if (ro.kind[li] == kLinear) {
+    slice_product(ro.w[li], out, width, x, width, K, Cols{0, out, 0, 0}, scratch,
+                  [&](int k, int, int col, float v) {
+                    v += __ldg(bias + col);
+                    y[k * out + col] = relu ? fmaxf(v, 0.f) : v;
+                  });
+  } else {
+    slice_product(ro.w[li], out * win, width, x, width, K, Cols{0, out * win, 0, 0}, scratch,
+                  [&](int k, int jj, int col, float v) {
+                    gl[k * out * win + jj] = v + __ldg(bias + col);
+                  });
+    for (int i = tid; i < K * out; i += kThreads) {
+      const int k = i / out, g = i % out;
+      const float* grp = gl + (k * out + g) * win;
+      float m = grp[0];
+      for (int t = 1; t < win; ++t) m = fmaxf(m, grp[t]);
+      y[i] = relu ? fmaxf(m, 0.f) : m;
+    }
+    __syncthreads();
+  }
+  if (warp < K) {
+    const float* z = y + warp * out;
+    float m = -INFINITY;
+    for (int j = lane; j < out; j += 32) m = fmaxf(m, z[j]);
+    m = warp_max(m);
+    float t = 0.f;
+    for (int j = lane; j < out; j += 32) t += expf(z[j] - m);
+    const float lse = logf(warp_sum(t));
+    for (int j = lane; j < out; j += 32) a.logp[(row + warp) * out + j] = z[j] - m - lse;
+  }
+  // [phase] last layer, log_softmax
+}
+
+template <bool kLstm, bool kLoc>
+cudaError_t step_loc_lstm_limits(int cluster, int* smem_limit, int* clusters) {
+  cudaError_t err = cudaFuncSetAttribute(cluster_step_loc_lstm_kernel<kLstm, kLoc>,
+                                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
-  if (bytes > (size_t)limit) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(attention_step_loc_lstm_kernel<kLstm, kLoc>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  return cluster_limits(cluster_step_loc_lstm_kernel<kLstm, kLoc>, cluster, smem_limit, clusters);
+}
+
+template <bool kLstm, bool kLoc>
+cudaError_t launch_step_loc_lstm(const Args8& a, int cluster, size_t bytes, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(cluster_step_loc_lstm_kernel<kLstm, kLoc>,
+                                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
-  attention_step_loc_lstm_kernel<kLstm, kLoc><<<a.B, kThreads, bytes, stream>>>(a);
-  return cudaGetLastError();
+  return launch_cluster(cluster_step_loc_lstm_kernel<kLstm, kLoc>, dim3(a.B * cluster), cluster,
+                        bytes, stream, a);
 }
 
 }  // namespace
 
+// Device limits of K8's cluster launch for the instance (lstm, loc): the
+// opt-in shared memory of a block and how many clusters of `cluster`
+// blocks (8, or 16: a non-portable size) can be resident at once. The
+// plan in ops/cuda/attention_step.py takes C from them.
+extern "C" int fused_attention_step_loc_lstm_limits(int lstm, int loc, int cluster,
+                                                    int* smem_limit, int* clusters) {
+  if (cluster < 1 || cluster > kMaxStepCluster) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (lstm)
+    err = loc ? step_loc_lstm_limits<true, true>(cluster, smem_limit, clusters)
+              : step_loc_lstm_limits<true, false>(cluster, smem_limit, clusters);
+  else
+    err = loc ? step_loc_lstm_limits<false, true>(cluster, smem_limit, clusters)
+              : step_loc_lstm_limits<false, false>(cluster, smem_limit, clusters);
+  return (int)err;
+}
+
 // cw1, cw2, cw3: the GRU's w_zr and w_h (cw3 NULL), or the LSTM's w_h,
 // w_x and gate bias. memprev (LSTM) and aprev, conv_w, conv_b, u
 // (location term) are NULL where the instance has no use for them; so
-// are ro_w[i] and ro_b[i] of a relu layer.
+// are ro_w[i] and ro_b[i] of a relu layer. `cluster`: C, the blocks of a
+// batch row's cluster (the wrapper's plan).
 extern "C" int fused_attention_step_loc_lstm(
     const float* vh, const float* h, const float* mask, const float* yin, const float* sprev,
     const float* ws_w, const float* ws_b, const float* w_e, const float* c_w, const float* c_b,
@@ -726,35 +1155,53 @@ extern "C" int fused_attention_step_loc_lstm(
     float* alpha, float* c, float* s, float* mem, float* logp, int n_layers, const int* kinds,
     const int* outs, const int* wins, const float* const* ro_w, const float* const* ro_b,
     int lstm, int loc, int B, int K, int L, int S, int A, int St, int V, int FM, int F,
-    cudaStream_t stream) {
+    int cluster, cudaStream_t stream) {
   if (B < 1 || K < 1 || K > kMaxK || L < 1 || n_layers < 1 || n_layers > kMaxLayers ||
-      (loc && (FM < 1 || F < 1)))
+      cluster < 1 || cluster > kMaxStepCluster || (loc && (FM < 1 || F < 1)))
     return (int)cudaErrorInvalidValue;
   // The reference's padding (Attention.lua:77-85): (f-1)/2 on the left
   // for an odd filter, f/2 for an even one; both equal f / 2.
-  Args2 a{vh,      h,     mask,   yin,    sprev, ws_w,  ws_b, w_e, c_w, c_b, dec_w, dec_b,
+  Args8 a{vh,      h,     mask,   yin,    sprev, ws_w,  ws_b, w_e, c_w, c_b, dec_w, dec_b,
           cw1,     cw2,   cw3,    memprev, aprev, conv_w, conv_b, u, alpha, c, s, mem, logp,
-          B,       K,     L,      S,      A,     St,    V,    loc ? FM : 0, loc ? F : 1,
+          B,       K,     L,      S,      A,     St,    V,    loc ? FM : 0, loc ? F : 0,
           loc ? F / 2 : 0, 0, 0, {}};
-  int width = St + A, maxw = 0, max_pre = 0;
-  a.ro.n = n_layers;
+  // The dense layers, each relu folded into the layer before it.
+  int width = St + A;
   for (int i = 0; i < n_layers; ++i) {
-    a.ro.kind[i] = kinds[i];
-    a.ro.out[i] = kinds[i] == kRelu ? width : outs[i];
-    a.ro.win[i] = kinds[i] == kMaxout ? wins[i] : 1;
-    a.ro.w[i] = ro_w[i];
-    a.ro.b[i] = ro_b[i];
-    if (kinds[i] == kMaxout) max_pre = std::max(max_pre, a.ro.out[i] * a.ro.win[i]);
-    width = a.ro.out[i];
-    maxw = std::max(maxw, width);
+    if (kinds[i] == kRelu) {
+      if (a.ro.n == 0)
+        a.ro.relu_in = 1;
+      else
+        a.ro.relu[a.ro.n - 1] = 1;
+      continue;
+    }
+    const int d = a.ro.n++, win = kinds[i] == kMaxout ? wins[i] : 1;
+    if ((kinds[i] != kLinear && kinds[i] != kMaxout) || outs[i] < 1 || win < 1)
+      return (int)cudaErrorInvalidValue;
+    a.ro.kind[d] = kinds[i];
+    a.ro.out[d] = width = outs[i];
+    a.ro.win[d] = win;
+    a.ro.w[d] = ro_w[i];
+    a.ro.b[d] = ro_b[i];
   }
-  if (width != V) return (int)cudaErrorInvalidValue;
-  a.maxw = maxw;
-  a.region = std::max(lstm ? 4 * St : 5 * St, 2 * maxw + max_pre);
-  cudaError_t err;
+  if (a.ro.n == 0 || width != V) return (int)cudaErrorInvalidValue;
+  const ReadoutDims d = readout_dims(a.ro, cluster);
+  a.maxw = (int)d.maxw;
+  a.maxpre = (int)d.maxpre;
+  const size_t bytes = step_loc_lstm_smem_floats(K, L, S, A, St, a.FM, a.F, cluster, lstm ? 1 : 0,
+                                                 loc ? 1 : 0, d.maxw, d.maxpre, d.cols) *
+                       sizeof(float);
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
   if (lstm)
-    err = loc ? launch2<true, true>(a, stream) : launch2<true, false>(a, stream);
+    err = loc ? launch_step_loc_lstm<true, true>(a, cluster, bytes, stream)
+              : launch_step_loc_lstm<true, false>(a, cluster, bytes, stream);
   else
-    err = loc ? launch2<false, true>(a, stream) : launch2<false, false>(a, stream);
+    err = loc ? launch_step_loc_lstm<false, true>(a, cluster, bytes, stream)
+              : launch_step_loc_lstm<false, false>(a, cluster, bytes, stream);
   return (int)err;
 }

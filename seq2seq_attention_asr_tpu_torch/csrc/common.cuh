@@ -45,15 +45,14 @@ __device__ __forceinline__ float fast_tanh(float x) {
   return 1.f - __fdividef(2.f, 1.f + __expf(2.f * x));
 }
 
-// y[k*ys + j] = act(sum_i x[k*xs + i] * w[i*out + j] + bias[j]) for k < K, j < out;
-// with kAccum, y's old value is added inside act (y = act(y + x @ w + bias)).
+// y[k*ys + j] = act(sum_i x[k*xs + i] * w[i*out + j] + bias[j]) for k < K, j < out.
 // w is read once for all K rows, VW consecutive columns per load
 // (16-byte loads when VW = 4). Latency, not L2 bandwidth, limits one
 // block's weight stream, so when there are fewer column groups than
 // threads the input range is split over kThreads / (out / VW) thread
 // groups, which keeps more loads in flight; their partial sums meet in
 // `scratch` (kThreads * 4 * K floats). Ends with a block barrier.
-template <int act, int VW, bool kAccum>
+template <int act, int VW>
 __device__ void matvec_vw(const float* __restrict__ w, const float* __restrict__ bias, int in,
                           int out, const float* x, int xs, float* y, int ys, int K,
                           float* scratch) {
@@ -94,8 +93,7 @@ __device__ void matvec_vw(const float* __restrict__ w, const float* __restrict__
           for (int v = 0; v < VW; ++v) {
             const int j = VW * jq + v;
             if (parts == 1)
-              y[k * ys + j] = activate<act>(acc[k][v] + (bias ? bias[j] : 0.f) +
-                                            (kAccum ? y[k * ys + j] : 0.f));
+              y[k * ys + j] = activate<act>(acc[k][v] + (bias ? bias[j] : 0.f));
             else
               scratch[(p * K + k) * out + j] = acc[k][v];
           }
@@ -109,19 +107,19 @@ __device__ void matvec_vw(const float* __restrict__ w, const float* __restrict__
     const int k = idx / out, j = idx % out;
     float sum = 0.f;
     for (int r = 0; r < parts; ++r) sum += scratch[(r * K + k) * out + j];
-    y[k * ys + j] = activate<act>(sum + (bias ? bias[j] : 0.f) + (kAccum ? y[k * ys + j] : 0.f));
+    y[k * ys + j] = activate<act>(sum + (bias ? bias[j] : 0.f));
   }
   __syncthreads();
 }
 
-template <int act, bool kAccum = false>
+template <int act>
 __device__ void matvec(const float* __restrict__ w, const float* __restrict__ bias, int in,
                        int out, const float* x, int xs, float* y, int ys, int K,
                        float* scratch) {
   if ((out & 3) == 0 && (reinterpret_cast<size_t>(w) & 15) == 0)
-    matvec_vw<act, 4, kAccum>(w, bias, in, out, x, xs, y, ys, K, scratch);
+    matvec_vw<act, 4>(w, bias, in, out, x, xs, y, ys, K, scratch);
   else
-    matvec_vw<act, 1, kAccum>(w, bias, in, out, x, xs, y, ys, K, scratch);
+    matvec_vw<act, 1>(w, bias, in, out, x, xs, y, ys, K, scratch);
 }
 
 // y[k*ys + i] = sum_j w[i*out + j] * v[k*vs + j] for k < K, i < in: the

@@ -3,17 +3,16 @@
 K2 replaces the Pallas kernel ``fused_attention_step``
 (seq2seq_attention_asr_tpu/ops/pallas/attention_step.py:371, body
 ``_kernel`` :85 with the readout fused by ``_apply_readout_fused`` :40)
-for the content-only GRU decoder with the maxout -> linear readout. It
-runs each batch row on a thread-block cluster of C blocks, C from
-``step_plan``: each block streams 1/C of the step's weight columns and
-1/C of the encoder positions. K8
+for the content-only GRU decoder with the maxout -> linear readout. K8
 replaces its location-aware and LSTM branches (``_kernel_loc`` :116,
 the LSTM branch of ``_kernel``), with the readout given as a layer list
-(linear, maxout, relu; dropout is the identity in eval mode). Both are
-C entry points of ``csrc/attention_step.cu``; ``fused_attention_step``
-routes a configuration to one of them, and ``fused_attention_step_plain``
-below is the same function in plain PyTorch, built from
-ops/attention.py.
+(linear, maxout, relu; dropout is the identity in eval mode). Both run
+each batch row on a thread-block cluster of C blocks, C from
+``step_plan``: each block streams 1/C of the step's weight columns and
+takes 1/C of the encoder positions. Both are C entry points of
+``csrc/attention_step.cu``; ``fused_attention_step`` routes a
+configuration to one of them, and ``fused_attention_step_plain`` below
+is the same function in plain PyTorch, built from ops/attention.py.
 
 Public layout is the JAX one, (B, K, ...); the kernels read vh and h
 once per batch row for all K hypotheses.
@@ -36,11 +35,11 @@ KERNEL = build.Kernel(
 )
 KERNEL_LOC_LSTM = build.Kernel(
     "fused_attention_step_loc_lstm", "attention_step.cu", "fused_attention_step_loc_lstm",
-    [ctypes.c_void_p] * 25 + [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+    [ctypes.c_void_p] * 25 + [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
     + [ctypes.c_void_p],
 )
 MAX_K = 8  # hypotheses per kernel block (csrc/attention_step.cu)
-CLUSTERS = (16, 8)  # K2's cluster sizes, largest first; 16 is a non-portable size
+CLUSTERS = (16, 8)  # K2's and K8's cluster sizes, largest first; 16 is a non-portable size
 WARPS = 16  # warps of a block (csrc/common.cuh: kThreads / 32)
 MAX_LAYERS = 4  # readout layers K8 takes, dropout dropped
 LAYER_KINDS = {"linear": 0, "maxout": 1, "relu": 2}
@@ -48,6 +47,17 @@ LAYER_KINDS = {"linear": 0, "maxout": 1, "relu": 2}
 
 def _cdiv(n: int, d: int) -> int:
     return -(-n // d)
+
+
+def _r4(n: int) -> int:
+    """n rounded up to whole 16-byte groups of floats."""
+    return _cdiv(n, 4) * 4
+
+
+def _cspan(n: int, c: int) -> int:
+    """The largest share of n items over c blocks, in groups of 4 where 4
+    divides n (csrc/attention_step.cu: cspan)."""
+    return _cdiv(n, c) if n % 4 else 4 * _cdiv(n // 4, c)
 
 
 def step_smem_bytes(k: int, l: int, s: int, a: int, st: int, m: int, w: int, v: int,
@@ -75,7 +85,7 @@ class StepPlan:
 
 def step_plan(b: int, smem: Dict[int, int], smem_limit: int,
               resident: Dict[int, int]) -> StepPlan:
-    """K2's plan for b batch rows: `smem[C]` bytes a block needs on
+    """K2's or K8's plan for b batch rows: `smem[C]` bytes a block needs on
     clusters of C, `smem_limit` the device's opt-in bytes a block, and
     `resident[C]` the clusters of C blocks the device holds at once.
     The largest C of CLUSTERS whose b clusters fit one wave; else the
@@ -94,27 +104,36 @@ def step_plan(b: int, smem: Dict[int, int], smem_limit: int,
     return StepPlan(c, _cdiv(b, resident[c]))
 
 
-_LIMITS: Dict[int, Tuple[int, Dict[int, int]]] = {}
+_LIMITS: Dict[tuple, Tuple[int, Dict[int, int]]] = {}
+
+
+def _device_limits(device: torch.device, key: tuple, kernel: build.Kernel, symbol: str,
+                   lead: tuple = ()):
+    """(opt-in shared memory of a block, {C: resident clusters of C
+    blocks}) from the C helper `symbol` of `kernel`'s library (called
+    with the ints `lead`, C and two outputs), asked once per device and
+    `key`: binding the helper reads the sources, so it is bound on the
+    first ask only. A cluster size the device refuses counts 0 clusters."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if (index, key) not in _LIMITS:
+        out = ctypes.POINTER(ctypes.c_int)
+        helper = kernel.helper(symbol, [ctypes.c_int] * (len(lead) + 1) + [out, out])
+        smem, resident = 0, {}
+        with torch.cuda.device(index):
+            for c in CLUSTERS:
+                limit, n = ctypes.c_int(0), ctypes.c_int(0)
+                rc = helper(*lead, c, ctypes.byref(limit), ctypes.byref(n))
+                resident[c] = n.value if rc == 0 else 0
+                smem = max(smem, limit.value)
+        _LIMITS[(index, key)] = (smem, resident)
+    return _LIMITS[(index, key)]
 
 
 def step_limits(device: torch.device) -> Tuple[int, Dict[int, int]]:
     """(opt-in shared memory of a block, {C: resident clusters of C
     blocks}) of K2 on `device`, from the ``fused_attention_step_limits``
-    C helper; asked once per device. A cluster size the device refuses
-    counts 0 clusters."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _LIMITS:
-        out = ctypes.POINTER(ctypes.c_int)
-        fn = KERNEL.helper("fused_attention_step_limits", [ctypes.c_int, out, out])
-        smem, resident = 0, {}
-        with torch.cuda.device(index):
-            for c in CLUSTERS:
-                limit, n = ctypes.c_int(0), ctypes.c_int(0)
-                rc = fn(c, ctypes.byref(limit), ctypes.byref(n))
-                resident[c] = n.value if rc == 0 else 0
-                smem = max(smem, limit.value)
-        _LIMITS[index] = (smem, resident)
-    return _LIMITS[index]
+    C helper."""
+    return _device_limits(device, ("k2",), KERNEL, "fused_attention_step_limits")
 
 
 def step_plan_on(b: int, k: int, l: int, s: int, a: int, st: int, m: int, w: int, v: int,
@@ -125,9 +144,94 @@ def step_plan_on(b: int, k: int, l: int, s: int, a: int, st: int, m: int, w: int
     return step_plan(b, smem, smem_limit, resident)
 
 
+def readout_dims(dense, c: int) -> Tuple[int, int, int]:
+    """K8's readout on clusters of c blocks, from its dense layers
+    [(kind, out, win)] (LAYER_KINDS' linear or maxout; relu folded
+    away): the widest layer output, the most maxout pre-activations a
+    block holds and the most columns a block's share of a layer's
+    product takes. Every layer but the last is split over the blocks
+    (maxout in whole groups), the last is block 0's alone
+    (csrc/attention_step.cu: readout_dims)."""
+    maxw = maxpre = cols = 0
+    for i, (kind, out, win) in enumerate(dense):
+        maxout = kind == LAYER_KINDS["maxout"]
+        share = out if i == len(dense) - 1 else (_cdiv(out, c) if maxout else _cspan(out, c))
+        maxw, cols = max(maxw, out), max(cols, share * win)
+        if maxout:
+            maxpre = max(maxpre, share * win)
+    return maxw, maxpre, cols
+
+
+def step_loc_lstm_smem_bytes(k: int, l: int, s: int, a: int, st: int, fm: int, f: int, c: int,
+                             lstm: bool, dense) -> int:
+    """Shared memory of one block of K8 on clusters of c blocks, as
+    csrc/attention_step.cu's step_loc_lstm_smem_floats lays it out (fm =
+    f = 0 without the location term; `dense` the readout's dense layers,
+    as readout_dims takes them), each buffer rounded up to 16 bytes: the
+    gathered vectors (ws, w_e, s_prev | r, c_in | yin, the GRU's reset
+    gate * s_prev, s_new | c, two readout layer outputs), the block's
+    ceil(L / c) positions' mask and energies, the context partials and
+    softmax statistics the cluster exchanges, its units' gate
+    pre-activations (or a maxout layer's), the LSTM's cell state, a
+    product's early half, its bias columns; with the location term
+    alpha_prev on the positions and their F - 1 halo, U, the taps, the
+    bias and a warp's features of one hypothesis; the products' warp
+    partials."""
+    maxw, maxpre, cols = readout_dims(dense, c)
+    loc, lstm = int(fm > 0), int(lstm)
+    stc, lc = _cspan(st, c), _cdiv(l, c)
+    floats = (_r4(k * s) + _r4(s) + 2 * _r4(2 * k * st) + (1 - lstm) * _r4(k * st)
+              + _r4(k * (st + a)) + 2 * _r4(k * maxw) + _r4(lc) + _r4(k * lc)
+              + _r4(c * k * _cdiv(a, c)) + _r4(2 * c * k) + _r4(c * k) + _r4(k)
+              + _r4(k * max((2 + 2 * lstm) * stc, maxpre)) + (1 + lstm) * _r4(k * stc)
+              + _r4(_cspan(s, c)) + 2 * _r4(stc) + lstm * _r4(4 * stc)
+              + loc * (_r4(k * (lc + f - 1)) + _r4(fm * s) + _r4(f * fm) + _r4(fm)
+                       + _r4(WARPS * fm))
+              + _r4(WARPS * k * min(128, max(_cspan(s, c), 2 * stc, cols))))
+    return 4 * floats
+
+
+def step_loc_lstm_limits(device: torch.device, lstm: bool,
+                         loc: bool) -> Tuple[int, Dict[int, int]]:
+    """step_limits for K8's instance (lstm, loc), from the
+    ``fused_attention_step_loc_lstm_limits`` C helper."""
+    return _device_limits(device, ("k8", bool(lstm), bool(loc)), KERNEL_LOC_LSTM,
+                          "fused_attention_step_loc_lstm_limits", (int(lstm), int(loc)))
+
+
+def step_loc_lstm_plan_on(b: int, k: int, l: int, s: int, a: int, st: int, fm: int, f: int,
+                          lstm: bool, dense, device: torch.device) -> StepPlan:
+    """The plan K8's wrapper runs for these shapes on `device` (fm = f =
+    0 without the location term)."""
+    smem_limit, resident = step_loc_lstm_limits(device, lstm, fm > 0)
+    smem = {c: step_loc_lstm_smem_bytes(k, l, s, a, st, fm, f, c, lstm, dense) for c in CLUSTERS}
+    return step_plan(b, smem, smem_limit, resident)
+
+
 def _readout_layers(params, cfg):
     """The readout without its dropout layers (the identity in eval mode)."""
     return [(p, s) for p, s in zip(params["readout"], cfg.readout) if s[0] != "dropout"]
+
+
+def k8_layers(cfg):
+    """K8's readout layers, dropout dropped, as (kind, out, win) in
+    LAYER_KINDS' codes: a maxout layer's groups and window, a linear
+    layer's width and 1, a relu its input's width and 1."""
+    width, layers = cfg.state_depth + cfg.annotation_depth, []
+    for spec in cfg.readout:
+        if spec[0] == "dropout":
+            continue
+        out, win = (width, 1) if spec[0] == "relu" else (spec[1], spec[2] if spec[0] == "maxout"
+                                                          else 1)
+        layers.append((LAYER_KINDS[spec[0]], out, win))
+        width = out
+    return layers
+
+
+def k8_dense(layers):
+    """The dense (linear and maxout) layers of k8_layers' list, each
+    relu folded into the layer before it: what K8's plan counts."""
+    return [layer for layer in layers if layer[0] != LAYER_KINDS["relu"]]
 
 
 def uses_k2(cfg) -> bool:
@@ -164,9 +268,8 @@ def fused_attention_step(params, cfg, state, y_prev, vh, h, enc_mask):
     through, the LSTM's new mem is its cell state.
     CPU tensors take the plain version; CUDA tensors kernel K2 (the
     content-only GRU decoder with the maxout -> linear readout) or K8
-    (every other decoder). K2 raises RuntimeError where no cluster plan
-    fits the device, K8 on a shape whose buffers do not fit in one
-    block's shared memory."""
+    (every other decoder). Both raise RuntimeError where no cluster plan
+    fits the device."""
     attention.check_ported(cfg)
     alpha_prev, s_prev, mem = state
     if build.on_cpu(alpha_prev, s_prev, mem, y_prev, vh, h, enc_mask):
@@ -258,20 +361,19 @@ def _step_k8(params, cfg, state, yin, vh, h, enc_mask):
     if not 1 <= len(layers) <= MAX_LAYERS:
         raise ValueError(f"fused_attention_step: {len(layers)} readout layers, K8 takes 1 to "
                          f"{MAX_LAYERS}")
-    ro_args, kinds, outs, wins, width = [], [], [], [], st + a_dim
-    for i, (p, spec) in enumerate(layers):
-        kinds.append(LAYER_KINDS[spec[0]])
-        if spec[0] == "relu":
-            out, win = width, 1
-        else:
-            out, win = spec[1], spec[2] if spec[0] == "maxout" else 1
-        outs.append(out)
-        wins.append(win)
+    spec = k8_layers(cfg)
+    ro_args, width = [], st + a_dim
+    for i, ((p, _), (_, out, win)) in enumerate(zip(layers, spec)):
         ro_args += [(f"readout[{i}].w", p.get("w"), (width, out * win)),
                     (f"readout[{i}].b", p.get("b"), (out * win,))]
         width = out
     if width != v:
         raise ValueError(f"fused_attention_step: the readout ends at width {width}, not {v}")
+    dense = k8_dense(spec)
+    if not dense:
+        raise ValueError("fused_attention_step: the readout has no linear or maxout layer; K8 "
+                         "takes at least one")
+    kinds, outs, wins = zip(*spec)
     # In the C entry point's order; absent tensors (the GRU's mem and gate
     # bias, the location term without it, a relu layer's weights) pass NULL.
     ins = _step_args(params, vh, h, enc_mask, yin, s_prev) + cell_args + state_args + loc_args
@@ -279,6 +381,8 @@ def _step_k8(params, cfg, state, yin, vh, h, enc_mask):
         if t is not None:
             build.check(name, t, shape, dev)
     ptr = lambda t: None if t is None else build.ptr(t).value
+    plan = step_loc_lstm_plan_on(b, k, l, s_dim, a_dim, st, fm if loc else 0, f if loc else 0,
+                                 lstm, dense, dev)
     alpha, c, s, logp = _outputs(b, k, l, a_dim, st, v, dev)
     mem_new = torch.empty((b, k, st), device=dev, dtype=torch.float32) if lstm else mem
     n = len(layers)
@@ -288,6 +392,7 @@ def _step_k8(params, cfg, state, yin, vh, h, enc_mask):
         n, (ctypes.c_int * n)(*kinds), (ctypes.c_int * n)(*outs), (ctypes.c_int * n)(*wins),
         (ctypes.c_void_p * n)(*[ptr(t) for _, t, _ in ro_args[0::2]]),
         (ctypes.c_void_p * n)(*[ptr(t) for _, t, _ in ro_args[1::2]]),
-        int(lstm), int(loc), b, k, l, s_dim, a_dim, st, v, fm, f, build.stream_of(vh),
+        int(lstm), int(loc), b, k, l, s_dim, a_dim, st, v, fm, f, plan.cluster,
+        build.stream_of(vh),
     )
     return (alpha, s, mem_new), {"s": s, "c": c, "alpha": alpha, "logp": logp}

@@ -506,12 +506,11 @@ LOC_LSTM_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", range(len(LOC_LSTM_CASES)))
-@pytest.mark.parametrize("b,k,l", [(1, 5, 14), (8, 5, 14), (3, 8, 37), (1, 8, 144)])
-def test_fused_attention_step_loc_lstm_kernel(card, case, b, k, l):
+def _k8_case(card, case, b, k, l, dead=None):
+    """K8's configuration LOC_LSTM_CASES[case] and its inputs at (B, K, L),
+    encoder lengths ragged; every position of batch row `dead` masked."""
     from seq2seq_attention_asr_tpu_torch import interop
     from seq2seq_attention_asr_tpu_torch.ops import attention
-    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
 
     cell, fm, f, (s_dim, st, a, v), ro = LOC_LSTM_CASES[case]
     cfg = attention.AttentionConfig(score_depth=s_dim, state_depth=st, annotation_depth=a,
@@ -521,47 +520,107 @@ def test_fused_attention_step_loc_lstm_kernel(card, case, b, k, l):
     params = interop.to_torch(attention.attention_init(gen, cfg), card)
     lens = torch.randint(1, l + 1, (b,), generator=gen).cuda()
     mask = (torch.arange(l, device=card)[None] < lens[:, None]).float()
+    if dead is not None:
+        mask[dead] = 0.0
     h = _rand(gen, b, l, a)
     vh = attention.precompute_vh(params, h).contiguous()
     state = (torch.softmax(_rand(gen, b, k, l), -1), _rand(gen, b, k, st, scale=0.3),
              _rand(gen, b, k, st, scale=0.3))
     y = torch.nn.functional.one_hot(torch.randint(0, v, (b, k), generator=gen), v).float().cuda()
-    k2, k8 = attention_step.KERNEL.launches, attention_step.KERNEL_LOC_LSTM.launches
-    (ga, gs, gm), got = attention_step.fused_attention_step(params, cfg, state, y, vh, h, mask)
+    return params, cfg, (state, y, vh, h, mask)
+
+
+def _k8_plans(card, cfg, b, k, l):
+    """Every plan K8 can take at this shape on the card: each cluster size
+    the card holds whose shared memory fits, in the waves it needs."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step as step
+
+    lstm, fm, f = cfg.cell == "lstm", cfg.feature_maps, cfg.filt_size if cfg.feature_maps else 0
+    smem_limit, resident = step.step_loc_lstm_limits(card, lstm, fm > 0)
+    dense = step.k8_dense(step.k8_layers(cfg))
+    return [step.StepPlan(c, -(-b // resident[c])) for c in step.CLUSTERS
+            if resident[c] >= 1 and step.step_loc_lstm_smem_bytes(
+                k, l, cfg.score_depth, cfg.annotation_depth, cfg.state_depth, fm, f, c, lstm,
+                dense) <= smem_limit]
+
+
+# K8 runs a batch row on a cluster of 16 or 8 blocks, as K2 does: the
+# serving shapes (L' = 14), K = 8 at L = 37 and 144, and K2's edges: L < C,
+# L not a multiple of C with a row whose every position is masked, K = 1
+# with a masked row, and B = 16, K = 8, L = 1500; each under every cluster
+# size the card holds.
+@pytest.mark.parametrize("case", range(len(LOC_LSTM_CASES)))
+@pytest.mark.parametrize("b,k,l,dead", [(1, 5, 14, None), (8, 5, 14, None), (3, 8, 37, None),
+                                        (1, 8, 144, None), (2, 5, 3, None), (3, 5, 37, 1),
+                                        (8, 1, 14, 7), (16, 8, 1500, None)])
+def test_fused_attention_step_loc_lstm_kernel(card, monkeypatch, case, b, k, l, dead):
+    """K8 against its plain version within TOL under each cluster size,
+    one launch a call, a second call bitwise equal (fixed-order sums), and
+    alpha and c exactly 0 on a row with no valid position."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    params, cfg, (state, y, vh, h, mask) = _k8_case(card, case, b, k, l, dead)
     (_, _, wm), want = attention_step.fused_attention_step_plain(params, cfg, state, y, vh, h,
                                                                  mask)
-    torch.cuda.synchronize()
-    assert attention_step.KERNEL_LOC_LSTM.launches == k8 + 1
-    assert attention_step.KERNEL.launches == k2
-    for key in ("alpha", "c", "s", "logp"):
-        assert _max_err([got[key]], [want[key]]) <= TOL, key
-    assert _max_err([gm], [wm]) <= TOL
-    assert (gm is state[2]) == (cell == "gru")
+    plans = _k8_plans(card, cfg, b, k, l)
+    assert len(plans) == len(attention_step.CLUSTERS), plans
+    for plan in plans:
+        monkeypatch.setattr(attention_step, "step_loc_lstm_plan_on", lambda *_, p=plan: p)
+        k2, k8 = attention_step.KERNEL.launches, attention_step.KERNEL_LOC_LSTM.launches
+        (ga, gs, gm), got = attention_step.fused_attention_step(params, cfg, state, y, vh, h,
+                                                                mask)
+        torch.cuda.synchronize()
+        assert attention_step.KERNEL_LOC_LSTM.launches == k8 + 1
+        assert attention_step.KERNEL.launches == k2
+        for key in ("alpha", "c", "s", "logp"):
+            assert _max_err([got[key]], [want[key]]) <= TOL, (plan, key)
+        assert _max_err([gm], [wm]) <= TOL, plan
+        assert (gm is state[2]) == (cfg.cell == "gru")
+        if dead is not None:
+            assert not got["alpha"][dead].any() and not got["c"][dead].any(), plan
+        (_, _, gm2), again = attention_step.fused_attention_step(params, cfg, state, y, vh, h,
+                                                                 mask)
+        torch.cuda.synchronize()
+        assert attention_step.KERNEL_LOC_LSTM.launches == k8 + 2
+        for key in ("alpha", "c", "s", "logp"):
+            assert torch.equal(got[key], again[key]), (plan, key)
+        assert torch.equal(gm, gm2), plan
+
+
+# K8 keeps a block's ceil(L / C) positions in shared memory, 17 floats
+# each at K = 8 with the location term: at the conv+BiLSTM
+# recipe's widths one batch row fits L' up to this many positions, on
+# clusters of 16 (step_loc_lstm_smem_bytes; tests/test_torch_step_plan_loc_lstm.py).
+K8_CAP = 20736
 
 
 def test_fused_attention_step_loc_lstm_refuses_what_does_not_fit(card):
-    """K8's shared memory holds K <= 8 hypotheses at both widths up to a
-    few hundred encoder positions; a longer one is refused at launch."""
-    from seq2seq_attention_asr_tpu_torch import interop
-    from seq2seq_attention_asr_tpu_torch.ops import attention
-    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+    """At the conv+BiLSTM recipe's widths and K = 8, K8 serves one batch
+    row up to L' = K8_CAP on the card (the count's cap under the card's
+    shared memory), and a CUDA call one position longer raises before any
+    launch; it never takes the plain path."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step as step
 
-    cell, fm, f, (s_dim, st, a, v), ro = LOC_LSTM_CASES[0]
-    cfg = attention.AttentionConfig(score_depth=s_dim, state_depth=st, annotation_depth=a,
-                                    output_depth=v, readout=ro, feature_maps=fm, filt_size=f,
-                                    cell=cell)
-    gen = torch.Generator().manual_seed(0)
-    params = interop.to_torch(attention.attention_init(gen, cfg), card)
-    b, k, l = 1, 8, 4000
-    h = _rand(gen, b, l, a)
-    state = (torch.softmax(_rand(gen, b, k, l), -1), _rand(gen, b, k, st), _rand(gen, b, k, st))
-    y = torch.zeros(b, k, v, device=card)
-    before = attention_step.KERNEL_LOC_LSTM.launches
-    with pytest.raises(RuntimeError):
-        attention_step.fused_attention_step(params, cfg, state, y,
-                                            attention.precompute_vh(params, h).contiguous(), h,
-                                            torch.ones(b, l, device=card))
-    assert attention_step.KERNEL_LOC_LSTM.launches == before
+    params, cfg, _ = _k8_case(card, 0, 1, 8, 14)
+    dense = step.k8_dense(step.k8_layers(cfg))
+    smem_limit, resident = step.step_loc_lstm_limits(card, True, True)
+    fits = lambda l: any(resident[c] >= 1 and step.step_loc_lstm_smem_bytes(
+        8, l, 150, 256, 400, 16, 5, c, True, dense) <= smem_limit for c in step.CLUSTERS)
+    assert fits(K8_CAP) and not fits(K8_CAP + 1), smem_limit
+    for l in (K8_CAP, K8_CAP + 1):
+        _, _, (state, y, vh, h, mask) = _k8_case(card, 0, 1, 8, l)
+        before = step.KERNEL_LOC_LSTM.launches
+        if l == K8_CAP:
+            _, got = step.fused_attention_step(params, cfg, state, y, vh, h, mask)
+            _, want = step.fused_attention_step_plain(params, cfg, state, y, vh, h, mask)
+            torch.cuda.synchronize()
+            assert step.KERNEL_LOC_LSTM.launches == before + 1
+            for key in ("alpha", "c", "s", "logp"):
+                assert _max_err([got[key]], [want[key]]) <= TOL, key
+            continue
+        with pytest.raises(RuntimeError, match="no cluster"):
+            step.fused_attention_step(params, cfg, state, y, vh, h, mask)
+        assert step.KERNEL_LOC_LSTM.launches == before
 
 
 def test_beam_search_ties_on_the_card_match_the_cpu(card):

@@ -75,7 +75,9 @@ def test_instrument_k2_reads_the_clock_after_every_cluster_barrier():
             before = [x.strip() for x in lines[:i] if x.strip()][-1]
             assert before in ("cluster.sync();", "cluster_wait();", "__syncthreads();") or \
                 before.startswith("energies<") or "// [phase]" not in "".join(lines[i + 1:]), before
-    assert text.count("cluster.sync();") == src.count("cluster.sync();") == 8
+    # K2's eight cluster barriers (K8's kernel in the same source has its own).
+    assert _k2_body(text).count("cluster.sync();") == _k2_body(src).count("cluster.sync();") == 8
+    assert text.count("cluster.sync();") == src.count("cluster.sync();")
     # Outside the kernel's body, only the probe is added.
     head, rest = src.split("attention_step_kernel(const Args a) {", 1)
     assert text.replace(tool.PROBE + "\n", "", 1).startswith(head)
@@ -330,3 +332,60 @@ def test_gru_dec_fwd_mode_instruments_the_walk_k12_and_k4_run():
     assert branch < cell < gru < phases[0] < phases[1] < phases[2] < phases[3] < phases[4]
     text, names = tool.instrument_fwd_walk(src)
     assert names == FWD_WALK_PHASES
+
+
+# K8's step (cluster_step_loc_lstm_kernel): the LSTM's "cell" reads 0
+# cycles in a GRU instance, and the GRU's "gates, r candidate product" and
+# "candidate" in an LSTM one; "readout layer" adds up over the layers but
+# the last.
+K8_PHASES = ["load", "ws, s_prev product", "energies", "softmax, context partials, yin product",
+             "context", "c_in", "dec_in", "cell", "gates, r candidate product", "candidate",
+             "readout layer", "last layer, log_softmax"]
+
+
+def _k8_body(text, tool):
+    return text.split(tool.K8_SIG, 1)[1].split("\n}\n", 1)[0]
+
+
+def test_instrument_k8_reads_the_clock_after_every_cluster_barrier():
+    """K8's step (--k8): a cycle read by thread 0 of block 0 at each
+    marker, each after a barrier of the cluster (or the block's last
+    work), the clock started once at the top of the body; K2's kernel and
+    the rest of the source are left as they are but for the probe."""
+    tool = _tool()
+    src = K2_SOURCE.read_text()
+    text, names = tool.instrument_k8(src)
+    assert names == K8_PHASES
+    body = _k8_body(text, tool)
+    assert "// [phase]" not in body
+    reads = re.findall(r"blockIdx.x == 0\) \{ const long long c_ = clock64\(\); "
+                       r"g_phase_cycles\[(\d+)\] \+= c_ - phase_t0_", body)
+    assert [int(i) for i in reads] == list(range(len(K8_PHASES)))
+    assert body.startswith("\n  long long phase_t0_ = clock64();")
+    assert body.count("long long phase_t0_ = clock64();") == 1
+    lines = _k8_body(src, tool).split("\n")
+    marked = [i for i, line in enumerate(lines) if "// [phase]" in line]
+    before = [[x.strip() for x in lines[:i] if x.strip() and not x.strip().startswith("//")][-1]
+              for i in marked]
+    assert before[:-1] == ["cluster_wait();", "cluster_wait();", "energies<1>(vhb, ws, we, e, "
+                           "pos.n, Lc, K, S);", "cluster_wait();", "cluster.sync();",
+                           "cluster.sync();", "cluster.sync();", "cluster.sync();",
+                           "cluster_wait();", "cluster.sync();", "cluster.sync();"]
+    # K2's kernel keeps its markers as comments; only the probe is added.
+    head, rest = src.split(tool.K8_SIG, 1)
+    assert text.replace(tool.PROBE + "\n", "", 1).startswith(head)
+    assert text.index(tool.PROBE) < text.index("namespace {")
+    assert text.endswith(rest.split("\n}\n", 1)[1])
+    assert tool.instrument_k2(src)[1] == K2_PHASES
+    for a, b in ("{}", "()"):
+        assert text.count(a) - text.count(b) == src.count(a) - src.count(b)
+
+
+def test_instrument_k8_refuses_a_kernel_without_markers():
+    tool = _tool()
+    src = K2_SOURCE.read_text()
+    head, rest = src.split(tool.K8_SIG, 1)
+    body, tail = rest.split("\n}\n", 1)
+    with pytest.raises(ValueError, match="no // \\[phase\\] markers in cluster_step_loc_lstm"):
+        tool.instrument_k8(head + tool.K8_SIG + re.sub(r"// \[phase\] .*", "", body) + "\n}\n"
+                           + tail)

@@ -1,6 +1,6 @@
 """Where a step of the decoder-scan backwards K5, K11, K13 and K15, of the
 LSTM decoder forwards K10 and K14, of the GRU decoder forwards K12 and
-K4, of the flagship's beam step K2, or of the forward GRU walk behind K1,
+K4, of the beam steps K2 and K8, or of the forward GRU walk behind K1,
 K16 and K18, goes, on the card.
 
     python3 tools/scan_phases.py [SOURCE ...]
@@ -9,6 +9,7 @@ K16 and K18, goes, on the card.
     python3 tools/scan_phases.py --lstm-fwd [SOURCE ...]
     python3 tools/scan_phases.py --gru-dec-fwd [SOURCE ...]
     python3 tools/scan_phases.py --k2 [SOURCE ...]
+    python3 tools/scan_phases.py --k8 [SOURCE ...]
     python3 tools/scan_phases.py --gru-fwd [HEADER ...]
 
 Nsight Compute does not run on every machine, so this measures the walk
@@ -67,6 +68,16 @@ cluster, gets one after each top-level statement that ends in a block
 barrier (STEP_BARRIERS), named by its call, and is called without the
 cluster size its C entry point does not take.
 
+With --k8 it does the same for cluster_step_loc_lstm_kernel, K8's
+cluster step in the same source (or each SOURCE), whose markers follow
+the step's cluster barriers (a phase inside the readout's layer loop
+adds up over its layers), and runs its <LSTM, location> instance at the
+conv+BiLSTM serving shape at b=1 (chip_smoke.py's case: the recipe's
+weights, L' = 14, K = 5): the plan it ran, the cycles of one step of
+block 0 of cluster 0 by phase (a phase of the GRU's, which the instance
+does not run, is left out), the time per call (CUDA events over 20
+calls) and the parity with the plain version (1e-4 abs).
+
 With --gru-fwd it instruments gru_walk_fwd of csrc/gru_walk.cuh (or of
 each HEADER, a variant with the other headers and bigru_scan2.cu beside
 it), whose markers follow the step's block barriers and its waits for
@@ -113,6 +124,7 @@ extern "C" int read_phase_cycles(unsigned long long* out, int reset) {
 MARK = re.compile(r"^(\s*)// \[phase\] (.+)$", re.M)
 K2_SOURCE = build.CSRC_DIR / "attention_step.cu"
 K2_SIG = "attention_step_kernel(const Args a) {"
+K8_SIG = "cluster_step_loc_lstm_kernel(const Args8 a) {"
 # Calls that end in a barrier of the whole block (or cluster), at the top
 # level of a beam-step kernel's body: a marker after each times what came
 # before it.
@@ -202,6 +214,22 @@ def instrument_k2(src: str):
     body = MARK.sub(lambda m: _clock_read(next(counter), m.group(1)), body)
     head = head.replace("namespace {", PROBE + "\nnamespace {", 1)
     return (head + K2_SIG + "\n  long long phase_t0_ = clock64();" + body + "\n}\n" + tail,
+            names)
+
+
+def instrument_k8(src: str):
+    """The source with a cycle read by thread 0 of block 0 at each phase
+    marker of cluster_step_loc_lstm_kernel (K8), the clock started at the
+    top of its body, and the phases' names in order."""
+    head, rest = src.split(K8_SIG, 1)
+    body, tail = rest.split("\n}\n", 1)
+    names = [n for _, n in MARK.findall(body)]
+    if not names:
+        raise ValueError("no // [phase] markers in cluster_step_loc_lstm_kernel")
+    counter = iter(range(len(names)))
+    body = MARK.sub(lambda m: _clock_read(next(counter), m.group(1)), body)
+    head = head.replace("namespace {", PROBE + "\nnamespace {", 1)
+    return (head + K8_SIG + "\n  long long phase_t0_ = clock64();" + body + "\n}\n" + tail,
             names)
 
 
@@ -487,6 +515,98 @@ def main_k2(sources) -> int:
     return 0
 
 
+def k8_case():
+    """chip_smoke.py's K8 case on the conv+BiLSTM recipe's decoder at the
+    serving shape, b=1: the BiLSTM's output of 3.5 s of PCM (L' = 14), K
+    = 5, the recipe's seeded weights."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.models import registry
+    from seq2seq_attention_asr_tpu_torch.train import experiment
+
+    import chip_smoke as smoke
+
+    _, feats, mean, std = smoke.serve_setup()
+    norm = ((feats - torch.from_numpy(mean)) / torch.from_numpy(std)).cuda()
+    exp = experiment.timit_conv_bilstm()
+    params = interop.to_torch(
+        exp.init_params(torch.Generator().manual_seed(smoke.SEED), device="cpu"), "cuda")
+    noloc = registry.build("conv_bilstm", feature_maps=0).init(
+        torch.Generator().manual_seed(smoke.SEED))["decoder"]
+    cases, _ = smoke.conv_bilstm_cases(params, exp.build_model().cfg, noloc, norm[:1],
+                                       torch.Generator().manual_seed(smoke.SEED + 1))
+    return next(c for c in cases if c.label == "fused_attention_step_loc_lstm[lstm+loc]")
+
+
+def main_k8(sources) -> int:
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    if not torch.cuda.is_available():
+        print("scan_phases: no CUDA device is available", file=sys.stderr)
+        return 1
+    card = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = {}
+    for src in map(pathlib.Path, sources):
+        text, names = instrument_k8(src.read_text())
+        headers = {h.name: h.read_text() for h in sorted(src.parent.glob("*.cuh"))}
+        digest = hashlib.sha1((text + "".join(headers.values())).encode()).hexdigest()[:12]
+        copy = build.BUILD_DIR / "phases" / digest
+        copy.mkdir(parents=True, exist_ok=True)
+        for name, header in headers.items():
+            (copy / name).write_text(header)
+        out = copy / f"{src.stem}_{digest}.cu"
+        out.write_text(text)
+        kernels[src] = (names, build.Kernel("K8 phases", str(out), "fused_attention_step_loc_lstm",
+                                            attention_step.KERNEL_LOC_LSTM.argtypes))
+    t0 = time.perf_counter()
+    build.build_all(k for _, k in kernels.values())
+    print(f"scan_phases: built {len(kernels)} copies in {time.perf_counter() - t0:.1f} s ({card})")
+    c = k8_case()
+    dec, acfg, state, _, vh = c.args[:5]
+    b, k, l = vh.shape[0], state[1].shape[1], vh.shape[1]
+    with torch.no_grad():
+        want = c.plain(*c.args)
+    default = attention_step.KERNEL_LOC_LSTM
+    for src, (names, kern) in kernels.items():
+        for line in kern.build_log.splitlines():
+            if "spill" in line or "registers" in line:
+                print(f"scan_phases {src} K8: {line.split(':', 1)[-1].strip()}")
+        attention_step.KERNEL_LOC_LSTM = kern
+        try:
+            plan = attention_step.step_loc_lstm_plan_on(
+                b, k, l, acfg.score_depth, acfg.annotation_depth, acfg.state_depth,
+                acfg.feature_maps, acfg.filt_size, True,
+                attention_step.k8_dense(attention_step.k8_layers(acfg)), vh.device)
+            read = kern.helper("read_phase_cycles", [ctypes.c_void_p, ctypes.c_int])
+            with torch.no_grad():
+                got = c.kernel(*c.args)
+                torch.cuda.synchronize()
+                err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                cycles = (ctypes.c_ulonglong * 32)()
+                read(cycles, 1)
+                c.kernel(*c.args)
+                torch.cuda.synchronize()
+                read(cycles, 1)
+                start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                for _ in range(20):
+                    c.kernel(*c.args)
+                stop.record()
+                torch.cuda.synchronize()
+        finally:
+            attention_step.KERNEL_LOC_LSTM = default
+        # The GRU's phases never run in the LSTM instance: left out.
+        ran = [(p, n) for p, n in zip(names, cycles[:len(names)]) if n]
+        print(f"scan_phases {src} K8 <LSTM, location> B={b} K={k} L={l} (plan C={plan.cluster}, "
+              f"{plan.waves} wave(s)): {start.elapsed_time(stop) / 20:.4f} ms per call, max abs "
+              f"err {err:.3e} ({'ok' if err <= 1e-4 else 'FAILS'}); cycles of the step in block "
+              f"0: {sum(n for _, n in ran)} = " + ", ".join(f"{p} {n}" for p, n in ran)
+              + f" ({card})")
+        if err > 1e-4:
+            return 1
+    return 0
+
+
 def main_gru_fwd(headers) -> int:
     from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan, walk
 
@@ -562,6 +682,8 @@ if __name__ == "__main__":
         sys.exit(main_gru_fwd(sys.argv[2:] or [str(GRU_FWD_SOURCE)]))
     if sys.argv[1:2] == ["--k2"]:
         sys.exit(main_k2(sys.argv[2:] or [str(K2_SOURCE)]))
+    if sys.argv[1:2] == ["--k8"]:
+        sys.exit(main_k8(sys.argv[2:] or [str(K2_SOURCE)]))
     if sys.argv[1:2] == ["--lstm-bwd"]:
         sys.exit(main(sys.argv[2:] or [str(SOURCE)], "lstm"))
     if sys.argv[1:2] == ["--gru-bwd"]:

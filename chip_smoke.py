@@ -105,10 +105,14 @@ Phases, each fatal when it fails:
      size, rows per cluster, weights resident or streamed), and K6's walk
      at B = 16 and 128 under each row count the plan can take; for the
      forward GRU walk (K1, K16, K18) at B = 1, L = 132 and B = 16 and 128,
-     L = 144 (seeded random inputs, H = 256) the parity, the device time,
-     the walk's time per step and the plan it ran (cluster size, rows per
-     cluster, resident or streamed, clusters and waves), and K1 at B = 16
-     and 128 under each row count the plan can take; for K13 at B = 16
+     L = 144 (seeded random inputs, H = 256) and the forward LSTM walk
+     (K7) at B = 1 and 8, L' = 14 and B = 16 and 128, L' = 16 (seeded
+     random inputs, nonzero initial states, H = 128) the parity, the
+     device time, the walk's time per step and the plan it ran (cluster
+     size, rows per cluster, resident or streamed, clusters and waves),
+     and K1 at B = 16 and 128 and K7 at each of its shapes under each row
+     count the plan can take (the sweeps that walk.STEP_COST is read
+     from); for K13 at B = 16
      and 128 (parity at B = 128 too) the device time by stage (the walk,
      the reduction over the steps, the sum of the rows' location-term
      partials), the walk's time a step and the scratch bytes; for K5 at
@@ -148,7 +152,9 @@ also times another checkout of the repo (DIR, e.g. the parent commit's
 port unpacked by `git archive`) beside this one, each in a process of
 its own in the order DIR, this, this, DIR: the time per call and the
 device time of the forward GRU walk's kernels K1, K16 and K18 at B = 1,
-L = 132 and B = 16 and 128, L = 144, of the flagship's beam step K2 and of K8's two instances on
+L = 132 and B = 16 and 128, L = 144, of the forward LSTM walk K7 at B = 1
+and 8, L' = 14 and B = 16 and 128, L' = 16, of the flagship's beam step
+K2 and of K8's two instances on
 the flagship's widths at b = 1 and 8, the flagship's serving p50 and device time of
 one request at b = 1 and 8, the same for K8's <LSTM, location> instance at
 the conv+BiLSTM serving shape and for that recipe's requests, the time per
@@ -213,6 +219,7 @@ CBC_STEP_LAUNCHES = {"bilstm_scan": 1, "bilstm_scan_bwd": 1, "attention_decode_s
 SERVE_L = 132  # encoder frames of the 3.5 s PCM: 110, padded to 112, plus 2 x 10 pad frames
 CB_PAD_LEN = 130  # encoder frames of the 3.5 s PCM: 110, padded to 112, plus 2 x 10 pad frames
 CB_SERVE_L = 14  # the conv+BiLSTM encoder's frames of that PCM: 130 through three pools of 2
+CB_TRAIN_L = 16  # the conv+BiLSTM encoder's frames of a TRAIN_L-frame batch
 # K8's device kernel by trace name: a substring of cluster_step_loc_lstm_kernel's name and of
 # the single-block kernel's before it (attention_step_loc_lstm_kernel), so that --parent
 # traces either.
@@ -255,14 +262,21 @@ ENC_LAUNCHES = {"bigru_layer": {"bigru_scan2": 3, "bigru_scan2_bwd": 3},
 ENC_KERNELS = ("bigru_scan2_bwd_kernel", "bigru_scan2_kernel", "gru1_walk_fwd_kernel",
                "gru1_walk_bwd_kernel", "gru2_stacked_fwd_kernel", "gru2_stacked_bwd_kernel",
                "gru_gates_kernel", "atb_kernel")
-# The forward GRU walk's kernels (K1, K16, K18; csrc/gru_walk.cuh): each
-# one's trace symbol and directions, and the shapes phase 8 and --parent
-# time them at: (B, L) of serving one utterance and of the two training
-# batches, at the flagship encoder's width.
-FWD_WALKS = {"bigru_scan2": ("bigru_scan2_kernel", 2), "gru_scan": ("gru1_walk_fwd_kernel", 1),
-             "bigru_scan": ("gru2_stacked_fwd_kernel", 2)}
+# The forward walks' kernels: the GRU's (K1, K16, K18; csrc/gru_walk.cuh)
+# and the LSTM's (K7; csrc/bilstm_scan.cu). Each one's trace symbol,
+# directions and plan cell (ops/cuda/walk.py), and the shapes phase 8 and
+# --parent time them at: (B, L) of serving one utterance and of the two
+# training batches at the flagship encoder's width (the GRU's), and of
+# serving one and eight utterances and of the two training batches at the
+# conv+BiLSTM recipe's (K7's).
+FWD_WALKS = {"bigru_scan2": ("bigru_scan2_kernel", 2, "gru_fwd"),
+             "gru_scan": ("gru1_walk_fwd_kernel", 1, "gru_fwd"),
+             "bigru_scan": ("gru2_stacked_fwd_kernel", 2, "gru_fwd"),
+             "bilstm_scan": ("bilstm_scan_kernel", 2, "lstm_fwd")}
 FWD_WALK_SHAPES = ((1, SERVE_L), (TRAIN_B, TRAIN_L), (BIG_B, TRAIN_L))
 FWD_WALK_H = 256
+LSTM_WALK_SHAPES = ((1, CB_SERVE_L), (8, CB_SERVE_L), (TRAIN_B, CB_TRAIN_L), (BIG_B, CB_TRAIN_L))
+LSTM_WALK_H = 128
 # The redesigned backward walks: each kernel's walk, its pre-pass and the
 # cell its plan is for (ops/cuda/walk.py).
 WALKS = {"bigru_scan2_bwd": ("bigru_scan2_bwd_kernel", "gru_gates_kernel", "gru"),
@@ -1910,64 +1924,103 @@ def fwd_walk_calls(b: int, l: int):
             "bigru_scan": ((x2, h02, wzr2, wh2), gru_scan.bigru_scan, gru_scan.bigru_scan_plain)}
 
 
-def fwd_walk_timing(kernels, errs: dict, card: str) -> None:
-    """Phase 8 for the forward GRU walk: K1, K16 and K18 at each of
-    FWD_WALK_SHAPES, held to their plain versions (1e-4 abs, into `errs`),
-    with the device time, the walk's time a step and the plan each ran
-    (C, R, resident or streamed, its clusters and the waves they take on
-    this card); then K1 at B=16 and 128 under each row count of
-    ops/cuda/walk.py (weights resident), each held to the plain version.
-    walk.STEP_ROWS is read from these times."""
-    from seq2seq_attention_asr_tpu_torch.ops.cuda import build, walk
+def lstm_walk_call(b: int, l: int):
+    """K7 at batch b and L steps, H = LSTM_WALK_H, on seeded random inputs
+    (weights at 1/sqrt(H), 0.5 randn initial states): (args, wrapper,
+    plain version)."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import lstm_scan
 
-    h = FWD_WALK_H
+    h, dev = LSTM_WALK_H, torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 20 + b)
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(dev)
+    args = (rnd(2, b, l, 4 * h), rnd(2, b, h, scale=0.5), rnd(2, b, h, scale=0.5),
+            rnd(2, h, 4 * h, scale=h ** -0.5))
+    return args, lstm_scan.bilstm_scan, lstm_scan.bilstm_scan_plain
+
+
+def fwd_walk_cases():
+    """(name, B, L, H, args, wrapper, plain version) of each forward walk
+    of FWD_WALKS at each of its shapes: the GRU's at FWD_WALK_SHAPES, K7's
+    at LSTM_WALK_SHAPES."""
     for b, l in FWD_WALK_SHAPES:
         for name, (args, fn, plain) in fwd_walk_calls(b, l).items():
-            symbol, directions = FWD_WALKS[name]
-            with torch.no_grad():
-                got, want = fn(*args), plain(*args)
-                torch.cuda.synchronize()
-                got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-                err = max_err(got, want)
-                print(f"parity {name} B={b} L={l} H={h} (random inputs): max_abs_err={err:.3e} "
-                      f"(tol {TOL})")
-                if err > TOL or not all(bool(torch.isfinite(g).all()) for g in got):
-                    raise SystemExit(f"{name} B={b} L={l} disagrees with its plain version")
-                errs[name] = max(errs[name], err)
-                ms = device_ms(lambda: fn(*args), (symbol,), 20 if b < BIG_B else 10)
-            smem, clusters = walk.limits(kernels[name], args[0].device)
-            plan = walk.plan(b, h, "gru_fwd", directions, smem, clusters)
-            n = directions * -(-b // plan.rows)
-            print(f"time {name} walk B={b} L={l} H={h}: {ms:.4f} ms on the device, "
-                  f"{1e3 * ms / l:.2f} us a step; plan C={plan.cluster} R={plan.rows} "
-                  f"{'resident' if plan.resident else 'streamed'}, {n} clusters in "
-                  f"{-(-n // clusters)} waves ({clusters} resident at once, {smem} bytes of shared "
-                  f"memory a block) ({card})")
-    kernel = kernels["bigru_scan2"]
-    for b in (TRAIN_B, BIG_B):
-        (xf, xb, wzr2, wh2), _, plain = fwd_walk_calls(b, TRAIN_L)["bigru_scan2"]
+            yield name, b, l, FWD_WALK_H, args, fn, plain
+    for b, l in LSTM_WALK_SHAPES:
+        yield ("bilstm_scan", b, l, LSTM_WALK_H, *lstm_walk_call(b, l))
+
+
+def rows_sweep(kernel, label: str, symbol: str, cell: str, b: int, l: int, h: int, args, plain,
+               card: str) -> None:
+    """A forward walk's kernel (inputs `args`, two outputs) at B=b, L=l
+    under each row count of ops/cuda/walk.py (C=8, weights resident),
+    each held to the plain version: the device time, the time a step, and
+    a step and wave. walk.STEP_COST[cell] is read from these times."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import build, walk
+
+    with torch.no_grad():
+        want = plain(*args)
+    outs = [torch.empty_like(w) for w in want]
+    smem, clusters = walk.limits(kernel, args[0].device)
+    line = []
+    for rows in walk.ROWS:
+        plan = walk.Plan(8, rows, True)
+        call = lambda: kernel.launch(*[build.ptr(t) for t in (*args, *outs)], b, l, h,
+                                     *plan.args(), build.stream_of(args[0]))
+        call()
+        torch.cuda.synchronize()
+        err = max_err(outs, want)
+        if err > TOL:
+            raise SystemExit(f"{label} with {plan}: disagrees with its plain version ({err:.3e})")
+        ms = device_ms(call, (symbol,), 10)
+        waves = -(-2 * -(-b // rows) // clusters)
+        line.append(f"R={rows} {ms:.4f} ms, {1e3 * ms / l:.2f} us a step in {waves} "
+                    f"waves ({1e3 * ms / l / waves:.2f} a wave)")
+    print(f"time {label} walk by rows per cluster B={b} L={l} H={h} (C=8, resident, {clusters} "
+          f"clusters at once; the plan takes R={walk.plan(b, h, cell, 2, smem, clusters).rows}): "
+          + "; ".join(line) + f" ({card})")
+
+
+def fwd_walk_timing(kernels, errs: dict, card: str) -> None:
+    """Phase 8 for the forward walks: K1, K16 and K18 at each of
+    FWD_WALK_SHAPES and K7 at each of LSTM_WALK_SHAPES, held to their plain
+    versions (1e-4 abs, into `errs`), with the device time, the walk's
+    time a step and the plan each ran (C, R, resident or streamed, its
+    clusters and the waves they take on this card); then K1 at B=16 and
+    128 and K7 at each of its shapes under each row count of
+    ops/cuda/walk.py (rows_sweep), each held to the plain version."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import walk
+
+    k7_s = 0.0
+    for name, b, l, h, args, fn, plain in fwd_walk_cases():
+        t0 = time.perf_counter()
+        symbol, directions, cell = FWD_WALKS[name]
         with torch.no_grad():
-            want = plain(xf, xb, wzr2, wh2)
-        ysf, ysb = torch.empty_like(want[0]), torch.empty_like(want[1])
-        smem, clusters = walk.limits(kernel, xf.device)
-        line = []
-        for rows in walk.ROWS:
-            plan = walk.Plan(8, rows, True)
-            call = lambda: kernel.launch(*[build.ptr(t) for t in (xf, xb, wzr2, wh2, ysf, ysb)], b,
-                                         TRAIN_L, h, *plan.args(), build.stream_of(xf))
-            call()
+            got, want = fn(*args), plain(*args)
             torch.cuda.synchronize()
-            err = max_err((ysf, ysb), want)
-            if err > TOL:
-                raise SystemExit(f"K1 with {plan}: disagrees with its plain version ({err:.3e})")
-            ms = device_ms(call, ("bigru_scan2_kernel",), 10)
-            waves = -(-2 * -(-b // rows) // clusters)
-            line.append(f"R={rows} {ms:.4f} ms, {1e3 * ms / TRAIN_L:.2f} us a step in {waves} "
-                        f"waves ({1e3 * ms / TRAIN_L / waves:.2f} a wave)")
-        print(f"time K1 walk by rows per cluster B={b} L={TRAIN_L} H={h} (C=8, resident, "
-              f"{clusters} clusters at once; the plan takes "
-              f"R={walk.plan(b, h, 'gru_fwd', 2, smem, clusters).rows}): " + "; ".join(line)
-              + f" ({card})")
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            err = max_err(got, want)
+            print(f"parity {name} B={b} L={l} H={h} (random inputs): max_abs_err={err:.3e} "
+                  f"(tol {TOL})")
+            if err > TOL or not all(bool(torch.isfinite(g).all()) for g in got):
+                raise SystemExit(f"{name} B={b} L={l} disagrees with its plain version")
+            errs[name] = max(errs[name], err)
+            ms = device_ms(lambda: fn(*args), (symbol,), 20 if b < BIG_B else 10)
+        smem, clusters = walk.limits(kernels[name], args[0].device)
+        plan = walk.plan(b, h, cell, directions, smem, clusters)
+        n = directions * -(-b // plan.rows)
+        print(f"time {name} walk B={b} L={l} H={h}: {ms:.4f} ms on the device, "
+              f"{1e3 * ms / l:.2f} us a step; plan C={plan.cluster} R={plan.rows} "
+              f"{'resident' if plan.resident else 'streamed'}, {n} clusters in "
+              f"{-(-n // clusters)} waves ({clusters} resident at once, {smem} bytes of shared "
+              f"memory a block) ({card})")
+        if name == "bilstm_scan":
+            rows_sweep(kernels[name], "K7", symbol, cell, b, l, h, args, plain, card)
+            k7_s += time.perf_counter() - t0
+    print(f"K7's walk lines took {k7_s:.1f} s")
+    for b in (TRAIN_B, BIG_B):
+        args, _, plain = fwd_walk_calls(b, TRAIN_L)["bigru_scan2"]
+        rows_sweep(kernels["bigru_scan2"], "K1", "bigru_scan2_kernel", "gru_fwd", b, TRAIN_L,
+                   FWD_WALK_H, args, plain, card)
 
 
 def flagship_loc():
@@ -2246,8 +2299,9 @@ def serve_setup():
 def tree_timing() -> dict:
     """For the port's package first on sys.path: the time per wrapper call
     (CUDA events; a fresh process's first profiler trace can drop
-    records) and the device time (profiler) of the forward GRU walk's
-    kernels K1, K16 and K18 at FWD_WALK_SHAPES, of the flagship's beam step
+    records) and the device time (profiler) of the forward walks' kernels
+    K1, K16 and K18 at FWD_WALK_SHAPES and K7 at LSTM_WALK_SHAPES, of the
+    flagship's beam step
     K2 and of K8's two instances on the flagship's widths at the serving
     shape, b=1 and 8, and of K8's <LSTM, location> instance at the
     conv+BiLSTM serving shape; the flagship's and the conv+BiLSTM
@@ -2263,12 +2317,11 @@ def tree_timing() -> dict:
     from seq2seq_attention_asr_tpu_torch.train import experiment
 
     out = {}
-    for b, l in FWD_WALK_SHAPES:
-        for name, (args, fn, _) in fwd_walk_calls(b, l).items():
-            with torch.no_grad():
-                out[f"{name} B={b} L={l} ms per call"] = time_ms(lambda: fn(*args), 20)
-                out[f"{name} B={b} L={l} device ms"] = device_ms(lambda: fn(*args),
-                                                                (FWD_WALKS[name][0],), 20)
+    for name, b, l, _, args, fn, _ in fwd_walk_cases():
+        with torch.no_grad():
+            out[f"{name} B={b} L={l} ms per call"] = time_ms(lambda: fn(*args), 20)
+            out[f"{name} B={b} L={l} device ms"] = device_ms(lambda: fn(*args),
+                                                            (FWD_WALKS[name][0],), 20)
     gen = torch.Generator().manual_seed(SEED + 1)
     model = registry.build("chorowski")
     params = model.init(torch.Generator().manual_seed(SEED), device="cuda")

@@ -1,7 +1,7 @@
 // Pieces shared by the recurrent walks that run on a thread-block cluster:
 // the GRU's forward and backward (csrc/gru_walk.cuh, kernels K1, K16, K18
-// and K6, K17, K19) and the LSTM's backward (csrc/bilstm_scan_bwd.cu,
-// kernel K9).
+// and K6, K17, K19) and the LSTM's forward and backward
+// (csrc/bilstm_scan.cu, kernel K7; csrc/bilstm_scan_bwd.cu, kernel K9).
 //
 // One cluster of C blocks runs one direction's walk for R batch rows;
 // block k owns the state units [k H / C, (k + 1) H / C) and holds the
@@ -12,7 +12,7 @@
 // forms into every block's gathered copy through distributed shared
 // memory, and waits until the peers' pushes have arrived: at a cluster
 // barrier (the backwards) or on an mbarrier that counts the bytes pushed
-// into the block (the forward).
+// into the block (the forwards).
 //
 // A backward splits into a gate pre-pass and a walk. Every step's h_prev
 // is an input of the backward, so the gates of all B*L rows come from
@@ -231,6 +231,28 @@ __device__ __forceinline__ void st_async(unsigned dst, float v, unsigned bar) {
                    dst),
                "r"(__float_as_uint(v)), "r"(bar)
                : "memory");
+}
+
+// Store block k's units [lo, lo + hs) of the R rows of `buf` (R x H,
+// every unit, in its shared memory) into the copy of every other block of
+// its cluster of C with st.async, each store counted on that block's
+// mbarrier at `bar`; consecutive threads store to consecutive addresses.
+// With fewer values than threads, the peers are dealt out over groups of
+// threads, so that more warps share the stores (at R = 1 one warp issuing
+// all 7 x 32 stores made the exchange twice as long). The caller makes
+// the block's values visible to its threads first (a block barrier).
+template <int R>
+__device__ __forceinline__ void push_units(float* buf, unsigned long long* bar, int H, int lo,
+                                           int hs, int C, int k) {
+  const int n = R * hs, groups = max(1, min(C - 1, kThreads / n));
+  for (int idx = threadIdx.x; idx < n * groups; idx += kThreads) {
+    const int g = idx / n, e = idx - g * n, r = e / hs, o = r * H + lo + e - r * hs;
+    const float v = buf[o];
+    for (int q = g; q < C - 1; q += groups) {
+      const int p = q < k ? q : q + 1;
+      st_async(cluster_map(buf + o, p), v, cluster_map(bar, p));
+    }
+  }
 }
 
 // Sum each of the R values of v over the warp, R a power of two <= 32,

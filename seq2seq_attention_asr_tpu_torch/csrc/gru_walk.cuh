@@ -136,22 +136,6 @@ __device__ void gru_walk_fwd(const GruFwdDir& a, int B, int L, int H, bool resid
     else
       rows_dot<R, true>(wg, ldg, hs, v, H, H, emit);
   };
-  // Store the block's units of `buf` (R x H, every unit) into every other
-  // block's copy, each store counted on that block's mbarrier `bar`. With
-  // fewer values than threads, the peers are dealt out over `groups` of
-  // threads, so that more warps share the stores (at R = 1 one warp
-  // issuing all 7 x 32 stores made the exchange twice as long).
-  auto push = [&](float* buf, unsigned long long* bar) {
-    const int n = R * hs, groups = max(1, min(C - 1, kThreads / n));
-    for (int idx = threadIdx.x; idx < n * groups; idx += kThreads) {
-      const int g = idx / n, e = idx - g * n, r = e / hs, o = r * H + lo + e - r * hs;
-      const float v = buf[o];
-      for (int q = g; q < C - 1; q += groups) {
-        const int p = q < k ? q : q + 1;
-        st_async(cluster_map(buf + o, p), v, cluster_map(bar, p));
-      }
-    }
-  };
   // Stage step s's x of the block's units, 16 bytes a copy where every
   // slice is 4-float aligned.
   const bool vec = H % (4 * C) == 0 && (reinterpret_cast<size_t>(a.x) & 15) == 0;
@@ -195,7 +179,7 @@ __device__ void gru_walk_fwd(const GruFwdDir& a, int B, int L, int H, bool resid
     });
     __syncthreads();
     // [phase] zr product
-    push(grh, &bars[0]);
+    push_units<R>(grh, &bars[0], H, lo, hs, C, k);
     mbar_wait(&bars[0], s & 1);
     // [phase] rh push
     if (threadIdx.x == 0 && s + 1 < L) mbar_expect(&bars[0], tx);
@@ -209,7 +193,7 @@ __device__ void gru_walk_fwd(const GruFwdDir& a, int B, int L, int H, bool resid
     });
     __syncthreads();
     // [phase] candidate product
-    push(gh, &bars[1]);
+    push_units<R>(gh, &bars[1], H, lo, hs, C, k);
     if (s + 1 < L) prefetch(s + 1);  // the other staging buffer, read last in step s - 1
     mbar_wait(&bars[1], s & 1);
     // [phase] h push

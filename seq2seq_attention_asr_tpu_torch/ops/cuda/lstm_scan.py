@@ -14,9 +14,11 @@ Both directions run in one launch over the direction-stacked input
 projections; direction 1 arrives already flipped into its scan order
 (ops/rnn.py::bilstm_layer does the flips). The forward writes the
 cell-state sequence beside the hidden states, as ``_run_fwd`` does, so
-that the backward forms the gates from the saved states: K9 runs a gate
-pre-pass over every step, then a walk on thread-block clusters whose
-plan (``walk.plan``) the wrapper computes and passes.
+that the backward forms the gates from the saved states. K7 walks the
+steps on thread-block clusters (plan cell "lstm_fwd"); K9 runs a gate
+pre-pass over every step, then a walk on thread-block clusters (cell
+"lstm"). Each wrapper computes its walk's plan (``walk.plan_on``) and
+passes it; where no cluster fits the device, it raises.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from . import build, walk
 
 KERNEL = build.Kernel(
     "bilstm_scan", "bilstm_scan.cu", "bilstm_scan_fwd",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
 KERNEL_BWD = build.Kernel(
     "bilstm_scan_bwd", "bilstm_scan_bwd.cu", "bilstm_scan_bwd",
@@ -82,9 +84,10 @@ def bilstm_scan(xproj2, h02, c02, wh2):
     cs = torch.empty_like(hs)
     if b * l == 0:
         return hs, cs
+    plan = walk.plan_on(KERNEL, b, h, "lstm_fwd", 2, dev)
     KERNEL.launch(
         build.ptr(xproj2), build.ptr(h02), build.ptr(c02), build.ptr(wh2),
-        build.ptr(hs), build.ptr(cs), b, l, h, build.stream_of(xproj2),
+        build.ptr(hs), build.ptr(cs), b, l, h, *plan.args(), build.stream_of(xproj2),
     )
     return hs, cs
 

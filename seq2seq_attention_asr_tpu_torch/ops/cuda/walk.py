@@ -1,8 +1,9 @@
 """The plan of a recurrent walk on a thread-block cluster.
 
 The GRU forward (K1, K16, K18; cell "gru_fwd") and backward (K6, K17,
-K19; cell "gru"), both in ``csrc/gru_walk.cuh``, and the LSTM backward
-(K9; cell "lstm", ``csrc/bilstm_scan_bwd.cu``) run each direction's walk
+K19; cell "gru"), both in ``csrc/gru_walk.cuh``, and the LSTM forward
+(K7; cell "lstm_fwd", ``csrc/bilstm_scan.cu``) and backward (K9; cell
+"lstm", ``csrc/bilstm_scan_bwd.cu``) run each direction's walk
 for a group of R batch rows on one cluster of C blocks; block k owns the
 state units [k H / C, (k + 1) H / C) and holds the slice of the
 recurrent weight that touches them. The plan fixes C, R and whether the
@@ -36,17 +37,24 @@ STEP_ROWS = 4
 # and wave K1's walk takes at each R, in us: 3.42, 4.10, 4.89, 6.75 and
 # 18.83 at B=16, 3.64, 4.30, 5.15, 7.07 and 19.20 at B=128, L=144, H=256
 # (chip_smoke.py phase 8 on an NVIDIA H100 80GB HBM3 at 700.00 W).
-STEP_COST = {"gru_fwd": {1: 3.5, 2: 4.2, 4: 5.0, 8: 6.9, 16: 19.0}}
+# K7's LSTM forward walk takes 2.18-2.25, 2.30-2.91, 2.75-3.34,
+# 3.29-3.85 and 12.18-12.89 us a step and wave at R = 1, 2, 4, 8, 16 (its
+# 4 x 16 sums a lane at R = 16 spill into a stack frame) over B=1 and 8,
+# L'=14 and B=16 and 128, L'=16, H=128 (chip_smoke.py phase 8 on an NVIDIA
+# H100 80GB HBM3 at 700.00 W).
+STEP_COST = {"gru_fwd": {1: 3.5, 2: 4.2, 4: 5.0, 8: 6.9, 16: 19.0},
+             "lstm_fwd": {1: 2.2, 2: 2.4, 4: 2.8, 8: 3.3, 16: 12.5}}
 # Per cell, in floats, what csrc/cluster_walk.cuh's walk_smem_bytes
 # counts: the weight slice's width a unit and the vectors gathered from
 # every unit a batch row, both in units of H (the backward's gathered
 # cotangents, one or two copies of the weight width; the forward's h and
-# r * h), the per-unit inputs staged for a step (two buffers of them) and
-# the per-unit values a step keeps across phases.
-WIDTH = {"gru": 3, "lstm": 4, "gru_fwd": 3}
-GATHERED = {"gru": 3, "lstm": 8, "gru_fwd": 2}
-STAGED = {"gru": 5, "lstm": 7, "gru_fwd": 3}
-HELD = {"gru": 3, "lstm": 2, "gru_fwd": 1}
+# r * h; the LSTM forward's two buffers of h), the per-unit inputs staged
+# for a step (two buffers of them) and the per-unit values a step keeps
+# across phases.
+WIDTH = {"gru": 3, "lstm": 4, "gru_fwd": 3, "lstm_fwd": 4}
+GATHERED = {"gru": 3, "lstm": 8, "gru_fwd": 2, "lstm_fwd": 2}
+STAGED = {"gru": 5, "lstm": 7, "gru_fwd": 3, "lstm_fwd": 4}
+HELD = {"gru": 3, "lstm": 2, "gru_fwd": 1, "lstm_fwd": 1}
 
 
 @dataclasses.dataclass(frozen=True)

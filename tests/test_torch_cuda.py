@@ -477,20 +477,72 @@ def test_train_step_on_the_card_matches_the_cpu(card):
             assert abs(got[key] - want[key]) <= 1e-4 * abs(want[key]), (key, got, want)
 
 
-@pytest.mark.parametrize("b,l,h", [(1, 14, 128), (8, 14, 128), (3, 9, 40), (5, 20, 256)])
-def test_bilstm_scan_kernel(card, b, l, h):
+# K7's cluster walk (csrc/bilstm_scan.cu, plan cell "lstm_fwd"), from
+# nonzero initial states: the serving shapes (B = 1 and 8, L' = 14), 5
+# units a block (H = 40) and 32 (H = 256), fewer units than blocks (H = 5,
+# C = 5), a part-empty last row group (B = 33 on R = 8), several waves
+# (B = 128), one step (L = 1), and slices streamed from L2 (H = 337, just
+# above the fit, in unequal slices of 42 and 43 units with 4-byte copies,
+# and the widest H).
+LSTM_FWD_CASES = [(1, 14, 128, "resident"), (8, 14, 128, "resident"), (3, 9, 40, "resident"),
+                  (5, 20, 256, "resident"), (3, 7, 5, "resident"), (33, 9, 128, "partial"),
+                  (128, 16, 128, "groups"), (5, 1, 128, "resident"), (3, 9, 337, "streamed"),
+                  (2, 5, 1024, "streamed")]
+
+
+def _lstm_fwd_case(b, l, h, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return (_rand(gen, 2, b, l, 4 * h), _rand(gen, 2, b, h, scale=0.5),
+            _rand(gen, 2, b, h, scale=0.5), _rand(gen, 2, h, 4 * h, scale=h ** -0.5))
+
+
+def _check_lstm_fwd(args):
+    """K7 on `args` against its plain version within TOL (hidden and cell
+    states), one launch a call and a second call bitwise equal."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import lstm_scan
 
-    gen = torch.Generator().manual_seed(b * 31 + h)
-    xproj2 = _rand(gen, 2, b, l, 4 * h)
-    h02, c02 = _rand(gen, 2, b, h, scale=0.5), _rand(gen, 2, b, h, scale=0.5)
-    wh2 = _rand(gen, 2, h, 4 * h, scale=h ** -0.5)
     before = lstm_scan.KERNEL.launches
-    got = lstm_scan.bilstm_scan(xproj2, h02, c02, wh2)
-    want = lstm_scan.bilstm_scan_plain(xproj2, h02, c02, wh2)
+    got = lstm_scan.bilstm_scan(*args)
+    again = lstm_scan.bilstm_scan(*args)
+    want = lstm_scan.bilstm_scan_plain(*args)
     torch.cuda.synchronize()
-    assert lstm_scan.KERNEL.launches == before + 1
+    assert lstm_scan.KERNEL.launches == before + 2
     assert _max_err(got, want) <= TOL
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("b,l,h,regime", LSTM_FWD_CASES)
+def test_bilstm_scan_kernel(card, b, l, h, regime):
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import lstm_scan, walk
+
+    _check_regime(lstm_scan.KERNEL, b, h, "lstm_fwd", 2, regime, card)
+    assert walk.plan_on(lstm_scan.KERNEL, b, h, "lstm_fwd", 2, card).cluster == min(8, h)
+    _check_lstm_fwd(_lstm_fwd_case(b, l, h, b * 31 + h))
+
+
+@pytest.mark.parametrize("b", [16, 128])
+@pytest.mark.parametrize("rows", [1, 2, 4, 8, 16])
+def test_bilstm_scan_forward_on_every_plan(card, monkeypatch, b, rows):
+    """K7 at the conv+BiLSTM recipe's training shape (L' = 16, H = 128)
+    under each row count its walk takes, forced in place of the plan's."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import walk
+
+    monkeypatch.setattr(walk, "plan_on", lambda *_: walk.Plan(8, rows, True))
+    _check_lstm_fwd(_lstm_fwd_case(b, 16, 128, b + rows))
+
+
+def test_bilstm_scan_forward_refuses_without_a_cluster(card, monkeypatch):
+    """Where the device holds no cluster of 8 blocks of K7's walk, a CUDA
+    call raises; it never takes the plain path."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import lstm_scan, walk
+
+    args = _lstm_fwd_case(2, 5, 16, 4)
+    monkeypatch.setattr(walk, "_LIMITS", {})
+    monkeypatch.setattr(lstm_scan.KERNEL, "helper", lambda symbol, argtypes: lambda *args: 0)
+    before = lstm_scan.KERNEL.launches
+    with pytest.raises(RuntimeError, match="no cluster"):
+        lstm_scan.bilstm_scan(*args)
+    assert lstm_scan.KERNEL.launches == before
 
 
 # (cell, feature_maps, filt_size, (S, St, A, V), readout): the conv+BiLSTM

@@ -149,6 +149,57 @@ def test_instrument_gru_fwd_refuses_a_walk_without_markers():
         _tool().instrument_gru_fwd(re.sub(r"// \[phase\] .*", "", GRU_WALK.read_text()))
 
 
+LSTM_ENC = ROOT / "seq2seq_attention_asr_tpu_torch" / "csrc" / "bilstm_scan.cu"
+LSTM_ENC_PHASES = [("before the walk", False), ("gates and cell", True),
+                   ("push and wait", True)]
+
+
+def _lstm_enc_body(text, tool):
+    return text.split(tool.LSTM_ENC_SIG, 1)[1].split("\n}\n", 1)[0]
+
+
+def test_instrument_lstm_enc_fwd_reads_the_clock_after_every_wait():
+    """K7's walk (--lstm-enc-fwd): a cycle read by thread 0 of block 0 of
+    direction 0 at each marker, the clock started once at the top of the
+    body; the prologue's marker follows its block barrier and is read
+    once a call, the step's follow its block barrier and its wait for the
+    peers' h and are read every step. Outside the kernel's body only the
+    probe is added."""
+    tool = _tool()
+    src = LSTM_ENC.read_text()
+    text, marks = tool.instrument_lstm_enc_fwd(src)
+    assert marks == LSTM_ENC_PHASES
+    body = _lstm_enc_body(text, tool)
+    assert "// [phase]" not in body
+    reads = re.findall(r"blockIdx.x == 0 && blockIdx.y == 0\) \{ const long long c_ = "
+                       r"clock64\(\); g_phase_cycles\[(\d+)\] \+= c_ - phase_t0_", body)
+    assert [int(i) for i in reads] == list(range(len(LSTM_ENC_PHASES)))
+    assert body.startswith("\n  long long phase_t0_ = clock64();")
+    assert body.count("long long phase_t0_ = clock64();") == 1
+    lines = _lstm_enc_body(src, tool).split("\n")
+    marked = [i for i, line in enumerate(lines) if "// [phase]" in line]
+    before = [[x.strip() for x in lines[:i] if x.strip() and not x.strip().startswith("//")][-1]
+              for i in marked]
+    assert before == ["__syncthreads();", "__syncthreads();", "}"]
+    wait = [x.strip() for x in lines[:marked[2]] if "mbar_wait(" in x]
+    assert wait == ["mbar_wait(bar, (s >> 1) & 1);"]
+    head, rest = src.split(tool.LSTM_ENC_SIG, 1)
+    assert text.replace(tool.PROBE + "\n", "", 1).startswith(head)
+    assert text.index(tool.PROBE) < text.index("namespace {")
+    assert text.endswith(rest.split("\n}\n", 1)[1])
+    for a, b in ("{}", "()"):
+        assert text.count(a) - text.count(b) == src.count(a) - src.count(b)
+
+
+def test_instrument_lstm_enc_fwd_refuses_a_walk_without_markers():
+    tool = _tool()
+    with pytest.raises(ValueError, match="no // \\[phase\\] markers in bilstm_scan_kernel"):
+        tool.instrument_lstm_enc_fwd(re.sub(r"// \[phase\] .*", "", LSTM_ENC.read_text()))
+    src = LSTM_ENC.read_text().replace(tool.LSTM_ENC_LOOP, "  while (true) {")
+    with pytest.raises(ValueError, match="no single step loop"):
+        tool.instrument_lstm_enc_fwd(src)
+
+
 # The walk's phases: the GRU-only "w_h^T, da_zr exchange" reads 0 cycles
 # in an LSTM walk, and the location term's "dfeat" next to nothing
 # without it.

@@ -1,6 +1,7 @@
 """The plan of the cluster walks of the recurrences (ops/cuda/walk.py):
-the GRU forward (K1, K16, K18), the GRU backward (K6, K17, K19) and the
-LSTM backward (K9), pinned at the recipes' shapes on the H100's numbers:
+the GRU forward (K1, K16, K18), the GRU backward (K6, K17, K19), the
+LSTM forward (K7) and the LSTM backward (K9), pinned at the recipes'
+shapes on the H100's numbers:
 232,448 bytes of opt-in shared memory a block and 15 resident clusters of
 8 blocks, as cudaOccupancyMaxActiveClusters gives them on an H100 80GB
 HBM3. The plan is a plain function, so this runs on the CPU."""
@@ -65,11 +66,12 @@ def test_a_streamed_plan_takes_fewer_rows_until_it_fits():
 def test_the_kernels_lay_out_what_the_plan_counts():
     """csrc's walk_smem_bytes calls carry the same per-cell counts as
     walk.py, so the plan's fit is the kernel's: the backward GRU walk's
-    (gru_walk_smem_bytes), the forward's (gru_fwd_smem_bytes) and the
-    LSTM's."""
+    (gru_walk_smem_bytes), the forward's (gru_fwd_smem_bytes), the LSTM
+    backward's and the LSTM forward's (lstm_fwd_smem_bytes)."""
     for cell, path, fn in (("gru", "gru_walk.cuh", "gru_walk_smem_bytes"),
                            ("gru_fwd", "gru_walk.cuh", "gru_fwd_smem_bytes"),
-                           ("lstm", "bilstm_scan_bwd.cu", "lstm_walk_smem_bytes")):
+                           ("lstm", "bilstm_scan_bwd.cu", "lstm_walk_smem_bytes"),
+                           ("lstm_fwd", "bilstm_scan.cu", "lstm_fwd_smem_bytes")):
         m = re.search(fn + r"\(const WalkPlan& p, int H\) \{\n  return walk_smem_bytes\(p, H, "
                       r"(\d) \* H, (\d) \* H, (\d), (\d)\);", (CSRC / path).read_text())
         assert m, (path, fn)
@@ -149,3 +151,62 @@ def test_forward_rows_take_the_fewest_measured_step_costs(b, clusters, direction
     so the plan never takes R = 16: B=16 on one cluster at a time takes
     R=8 in 4 waves (27.6) over R=16 in 2 (38.0)."""
     assert walk.plan(b, 256, "gru_fwd", directions, SMEM_FWD, clusters).rows == rows
+
+
+# The LSTM forward walk (K7, cell "lstm_fwd"), two directions, at the
+# conv+BiLSTM recipe's batches and H = 128, and at the widths of the card
+# tests. Its kernel, like the GRU forward's, holds two mbarriers in static
+# shared memory. H = 336 is the widest resident state at R = 1 (its 42
+# units' four gate columns take 225.8 KB), H = 1024 streams.
+@pytest.mark.parametrize("b,h,want", [
+    (1, 128, walk.Plan(8, 1, True)),      # serving one utterance: 2 clusters
+    (8, 128, walk.Plan(8, 2, True)),      # serving eight: 8 clusters in one wave
+    (16, 128, walk.Plan(8, 4, True)),     # the recipe's training batch: 8 clusters
+    (128, 128, walk.Plan(8, 8, True)),    # B=128: 32 clusters in 3 waves
+    (33, 128, walk.Plan(8, 8, True)),     # a part-empty last row group
+    (3, 5, walk.Plan(5, 1, True)),        # fewer units than blocks: C = H
+    (3, 40, walk.Plan(8, 1, True)),       # 5 units a block
+    (3, 336, walk.Plan(8, 1, True)),
+    (3, 337, walk.Plan(8, 1, False)),     # just above the fit: streamed
+    (16, 1024, walk.Plan(8, 4, False)),   # the widest state
+    (1, 1024, walk.Plan(8, 1, False)),
+])
+def test_lstm_forward_plan_at_the_recipes_shapes(b, h, want):
+    assert walk.plan(b, h, "lstm_fwd", 2, SMEM_FWD, CLUSTERS) == want
+
+
+def test_lstm_forward_smem_bytes_at_the_recipes_width():
+    """H = 128, C = 8: the 16 units' four gate columns of W_h (32 KiB),
+    two buffers of the gathered h (R x H each), two buffers of the four
+    staged gate inputs and c per unit; streamed at H = MAX_H, R = 16 still
+    fits."""
+    assert walk.smem_bytes("lstm_fwd", 128, 8, 1, True) == 4 * (16 * 512 + 2 * 128 + 9 * 16)
+    assert walk.smem_bytes("lstm_fwd", 128, 8, 16, True) == 58368
+    assert walk.smem_bytes("lstm_fwd", 128, 8, 16, False) == 58368 - 4 * 16 * 512
+    fits = lambda h, r: walk.smem_bytes("lstm_fwd", h, 8, r, True) <= SMEM_FWD
+    assert fits(336, 1) and not fits(337, 1)
+    assert fits(328, 4) and not fits(329, 4)
+    assert walk.smem_bytes("lstm_fwd", 1024, 8, 16, False) <= SMEM_FWD
+
+
+@pytest.mark.parametrize("b,clusters,rows", [
+    (1, 15, 1), (8, 15, 2), (16, 15, 4), (128, 15, 8), (256, 15, 8), (16, 2, 8), (16, 1, 8),
+    (8, 4, 4)])
+def test_lstm_forward_rows_take_the_fewest_measured_step_costs(b, clusters, rows):
+    """The LSTM forward's waves * STEP_COST["lstm_fwd"][R]: the smallest R
+    that fits one wave where one does (B=8: R=2, 8 clusters), R=8 in 3
+    waves at B=128; never R = 16, whose step (its 4 x 16 sums a lane spill
+    into a stack frame) costs 3.8 times the one at R = 8."""
+    assert walk.plan(b, 128, "lstm_fwd", 2, SMEM_FWD, clusters).rows == rows
+
+
+def test_the_lstm_forward_sizes_its_launch_by_its_cell():
+    """bilstm_scan.cu sizes K7's shared memory with lstm_fwd_smem_bytes,
+    launches its walk on clusters and keeps no one-block body; its wrapper
+    asks walk.py for the "lstm_fwd" plan of two directions."""
+    src = (CSRC / "bilstm_scan.cu").read_text()
+    entry = src.split('extern "C" int bilstm_scan_fwd(', 1)[1]
+    assert "lstm_fwd_smem_bytes(plan, H)" in entry and "launch_cluster(" in entry
+    assert "matvec" not in src and "kRows" not in src
+    wrapper = (CSRC.parent / "ops" / "cuda" / "lstm_scan.py").read_text()
+    assert 'walk.plan_on(KERNEL, b, h, "lstm_fwd", 2, dev)' in wrapper

@@ -1,7 +1,7 @@
 """Where a step of the decoder-scan backwards K5, K11, K13 and K15, of the
 LSTM decoder forwards K10 and K14, of the GRU decoder forwards K12 and
-K4, of the beam steps K2 and K8, or of the forward GRU walk behind K1,
-K16 and K18, goes, on the card.
+K4, of the beam steps K2 and K8, of the forward GRU walk behind K1,
+K16 and K18, or of the forward LSTM walk K7, goes, on the card.
 
     python3 tools/scan_phases.py [SOURCE ...]
     python3 tools/scan_phases.py --lstm-bwd [SOURCE ...]
@@ -11,6 +11,7 @@ K16 and K18, goes, on the card.
     python3 tools/scan_phases.py --k2 [SOURCE ...]
     python3 tools/scan_phases.py --k8 [SOURCE ...]
     python3 tools/scan_phases.py --gru-fwd [HEADER ...]
+    python3 tools/scan_phases.py --lstm-enc-fwd [SOURCE ...]
 
 Nsight Compute does not run on every machine, so this measures the walk
 from inside: it copies csrc/attention_scan_loc_lstm.cu (or each SOURCE
@@ -89,6 +90,17 @@ of block 0 of cluster 0 of direction 0 by phase (the wait for the staged
 x, the gate products, the r * h push and the wait for the peers', the
 candidate product, the h push and its wait), the time per call (CUDA
 events over 20 calls) and the parity with the plain version (1e-4 abs).
+
+With --lstm-enc-fwd it instruments bilstm_scan_kernel, K7's walk in
+csrc/bilstm_scan.cu (or in each SOURCE, a variant with the headers
+beside it), whose markers follow the prologue's block barrier and, in
+the step, the block barrier after the gate products and the cell and
+the wait for the peers' h. It runs K7 on seeded random inputs at the
+conv+BiLSTM recipe's width (H = 128) at B = 1 and 8, L' = 14 (serving)
+and B = 16 and 128, L' = 16 (training): the plan it ran, the cycles of
+block 0 of cluster 0 of direction 0 before the walk (once a call) and a
+step by phase, the time per call (CUDA events over 20 calls) and the
+parity with the plain version (1e-4 abs).
 """
 
 from __future__ import annotations
@@ -185,8 +197,8 @@ def instrument(src: str):
         [n for _, n in names]
 
 
-def _clock_read(i: int, indent: str) -> str:
-    return (f"{indent}if (threadIdx.x == 0 && blockIdx.x == 0) {{ const long long c_ = "
+def _clock_read(i: int, indent: str, block: str = "blockIdx.x == 0") -> str:
+    return (f"{indent}if (threadIdx.x == 0 && {block}) {{ const long long c_ = "
             f"clock64(); g_phase_cycles[{i}] += c_ - phase_t0_; phase_t0_ = c_; }}")
 
 
@@ -289,6 +301,36 @@ def instrument_fwd_walk(src: str):
     """instrument_walk for decoder_fwd_walk, the forward walk of K10, K14,
     K12 and K4."""
     return instrument_walk(src, FWD_WALK_SIG, FWD_WALK_LOOP, "decoder_fwd_walk")
+
+
+LSTM_ENC_SOURCE = build.CSRC_DIR / "bilstm_scan.cu"
+LSTM_ENC_SIG = "bilstm_scan_kernel(const LstmFwd a, int resident) {"
+LSTM_ENC_LOOP = "  for (int s = 0; s < L; ++s) {"
+# K7's shapes in the conv+BiLSTM recipe's paths, (B, L'): serving one and
+# eight utterances of 3.5 s, and the training batches of 144 frames.
+LSTM_ENC_SHAPES = ((1, 14), (8, 14), (16, 16), (128, 16))
+
+
+def instrument_lstm_enc_fwd(src: str):
+    """The source with a cycle read by thread 0 of block 0 of direction 0
+    at each phase marker of bilstm_scan_kernel (K7's walk), the clock
+    started at the top of its body, and the phases' names in order, each
+    with whether it lies in the step loop (read every step) or before it
+    (read once a call)."""
+    head, rest = src.split(LSTM_ENC_SIG, 1)
+    body, tail = rest.split("\n}\n", 1)
+    if body.count(LSTM_ENC_LOOP) != 1:
+        raise ValueError("bilstm_scan_kernel has no single step loop")
+    loop_at = body.index(LSTM_ENC_LOOP)
+    marks = [(m.group(2), m.start() > loop_at) for m in MARK.finditer(body)]
+    if not marks:
+        raise ValueError("no // [phase] markers in bilstm_scan_kernel")
+    counter = iter(range(len(marks)))
+    body = MARK.sub(lambda m: _clock_read(next(counter), m.group(1),
+                                          "blockIdx.x == 0 && blockIdx.y == 0"), body)
+    head = head.replace("namespace {", PROBE + "\nnamespace {", 1)
+    return (head + LSTM_ENC_SIG + "\n  long long phase_t0_ = clock64();" + body + "\n}\n" + tail,
+            marks)
 
 
 def _card() -> str:
@@ -677,7 +719,79 @@ def main_gru_fwd(headers) -> int:
     return 0
 
 
+def main_lstm_enc_fwd(sources) -> int:
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import lstm_scan, walk
+
+    if not torch.cuda.is_available():
+        print("scan_phases: no CUDA device is available", file=sys.stderr)
+        return 1
+    card = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = {}
+    for src in map(pathlib.Path, sources):
+        text, marks = instrument_lstm_enc_fwd(src.read_text())
+        headers = {h.name: h.read_text() for h in sorted(src.parent.glob("*.cuh"))}
+        digest = hashlib.sha1((text + "".join(headers.values())).encode()).hexdigest()[:12]
+        copy = build.BUILD_DIR / "phases" / digest
+        copy.mkdir(parents=True, exist_ok=True)
+        for name, header in headers.items():
+            (copy / name).write_text(header)
+        out = copy / f"{src.stem}_{digest}.cu"
+        out.write_text(text)
+        kernels[src] = (marks, build.Kernel("K7 phases", str(out), "bilstm_scan_fwd",
+                                            lstm_scan.KERNEL.argtypes))
+    t0 = time.perf_counter()
+    build.build_all(k for _, k in kernels.values())
+    print(f"scan_phases: built {len(kernels)} copies in {time.perf_counter() - t0:.1f} s ({card})")
+    h, dev = 128, torch.device("cuda")
+    default = lstm_scan.KERNEL
+    for b, l in LSTM_ENC_SHAPES:
+        gen = torch.Generator().manual_seed(b * 1000 + l)
+        rnd = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen) * scale).to(dev)
+        args = (rnd(2, b, l, 4 * h), rnd(2, b, h, scale=0.5), rnd(2, b, h, scale=0.5),
+                rnd(2, h, 4 * h, scale=h ** -0.5))
+        want = lstm_scan.bilstm_scan_plain(*args)
+        for src, (marks, k) in kernels.items():
+            for line in k.build_log.splitlines():
+                if b == 1 and ("spill" in line or "registers" in line):
+                    print(f"scan_phases {src} K7: {line.split(':', 1)[-1].strip()}")
+            plan = walk.plan_on(k, b, h, "lstm_fwd", 2, dev)
+            lstm_scan.KERNEL = k
+            try:
+                read = k.helper("read_phase_cycles", [ctypes.c_void_p, ctypes.c_int])
+                got = lstm_scan.bilstm_scan(*args)
+                torch.cuda.synchronize()
+                err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                cycles = (ctypes.c_ulonglong * 32)()
+                read(cycles, 1)
+                lstm_scan.bilstm_scan(*args)
+                torch.cuda.synchronize()
+                read(cycles, 1)
+                start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                for _ in range(20):
+                    lstm_scan.bilstm_scan(*args)
+                stop.record()
+                torch.cuda.synchronize()
+            finally:
+                lstm_scan.KERNEL = default
+            once = [(p, n) for (p, looped), n in zip(marks, cycles) if not looped]
+            step = [(p, n / l) for (p, looped), n in zip(marks, cycles) if looped]
+            print(f"scan_phases {src} K7 B={b} L={l} H={h} (plan C={plan.cluster} R={plan.rows} "
+                  f"{'resident' if plan.resident else 'streamed'}): "
+                  f"{start.elapsed_time(stop) / 20:.4f} ms per call, max abs err {err:.3e} "
+                  f"({'ok' if err <= 1e-4 else 'FAILS'}); cycles of block 0 before the walk: "
+                  + (", ".join(f"{p} {n}" for p, n in once) or "not marked")
+                  + f"; a step: {sum(n for _, n in step):.0f} = "
+                  + ", ".join(f"{p} {n:.0f}" for p, n in step) + f" ({card})")
+            if err > 1e-4:
+                return 1
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--lstm-enc-fwd"]:
+        sys.exit(main_lstm_enc_fwd(sys.argv[2:] or [str(LSTM_ENC_SOURCE)]))
     if sys.argv[1:2] == ["--gru-fwd"]:
         sys.exit(main_gru_fwd(sys.argv[2:] or [str(GRU_FWD_SOURCE)]))
     if sys.argv[1:2] == ["--k2"]:

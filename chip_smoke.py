@@ -14,7 +14,8 @@ Phases, each fatal when it fails:
   2. build the nineteen kernels from csrc/ (one nvcc per source, in parallel);
   3. hold each kernel to its plain PyTorch version through its public
      wrapper: K1-K3 at the flagship's serving shapes, batch 1 and 8 (max
-     abs error 1e-4); K4 (1e-4 abs) and K5, K6 (max|got - plain| <= 5e-4
+     abs error 1e-4; K3 also twice, the two calls bitwise equal, one
+     launch each); K4 (1e-4 abs) and K5, K6 (max|got - plain| <= 5e-4
      * max|plain| + 5e-5 for each output; K4 and K5 also twice, the two
      calls bitwise equal, one launch each) at the training shape, B = 16,
      L = 144, T = 56, encoder lengths ragged in 96-144 and label lengths
@@ -131,7 +132,10 @@ Phases, each fatal when it fails:
      bytes, and the walk under each plan that fits, each held to the plain
      version and run twice (the sweeps that attention_scan.FWD_STEP_COST's
      LSTM table is read from); the same for K12 at flagship_loc's and K4 at
-     the flagship's training shape (its GRU table);
+     the flagship's training shape (its GRU table); K3's device time at
+     b = 8 beside b = 1 with its block size, and the device time of a
+     served exact=False b = 1 request's front end by device op (K3, the
+     reflect pad, the PyTorch ops of features.assemble);
   9. the p50 request latency over 10 requests of each model, and the
      device idle share: 1 - (device time of one request) / p50; the p50
      train step of each recipe over 10
@@ -151,7 +155,8 @@ It exits nonzero without a card, and imports nothing of the JAX package.
 also times another checkout of the repo (DIR, e.g. the parent commit's
 port unpacked by `git archive`) beside this one, each in a process of
 its own in the order DIR, this, this, DIR: the time per call and the
-device time of the forward GRU walk's kernels K1, K16 and K18 at B = 1,
+device time of K3 on the 3.5 s bucket at b = 1 and 8, of the forward GRU
+walk's kernels K1, K16 and K18 at B = 1,
 L = 132 and B = 16 and 128, L = 144, of the forward LSTM walk K7 at B = 1
 and 8, L' = 14 and B = 16 and 128, L' = 16, of the flagship's beam step
 K2 and of K8's two instances on
@@ -175,6 +180,7 @@ import inspect
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -578,10 +584,10 @@ class Case:
 
 
 def cases(params, cfg, loc_dec, b: int, gen: torch.Generator):
-    """K1-K3 at the flagship's serving shapes, and K8 on the flagship's
+    """K1 and K2 at the flagship's serving shapes, and K8 on the flagship's
     widths with location-aware attention (decoder weights `loc_dec`)."""
     from seq2seq_attention_asr_tpu_torch.ops import attention, cells
-    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step, gru_scan, logmel
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step, gru_scan
 
     dev = torch.device("cuda")
     n_frames = 1 + int(PCM_SECONDS * SR) // 512
@@ -635,22 +641,6 @@ def cases(params, cfg, loc_dec, b: int, gen: torch.Generator):
                     + b * BEAM_K * (l_enc + a + st + v)) + w_bytes,
     )
 
-    # K3 on a bucket of 3.5 s utterances, reflect-padded as logmel_fused does.
-    n_samp = l_pad * 512 - 1
-    y_pcm = rnd(b, n_samp) * 0.1
-    yp = torch.nn.functional.pad(y_pcm[:, None], (1024, 1024), mode="reflect")[:, 0].contiguous()
-    _, melw, lo, hi = logmel._consts(SR, str(dev))
-    taps = int((hi - lo).sum())  # the kernel reads each filter's [lo, hi) only
-    frames = 1 + (yp.shape[1] - 2048) // 512
-    fft = 2.5 * 2048 * math.log2(2048)  # real-input FFT
-    k3 = Case(
-        "stft_logmel_power", ("stft_logmel_kernel",),
-        lambda yp_: logmel.stft_logmel_power(yp_, SR),
-        lambda yp_: logmel.stft_logmel_power_plain(yp_, SR),
-        (yp,),
-        flops=b * frames * (fft + 3 * 1025 + 2 * int((melw != 0).sum()) + 1025 + 2 * 128),
-        nbytes=4 * (yp.numel() + 2048 + taps + lo.numel() + hi.numel() + b * frames * 129),
-    )
     # K8's content-only GRU instance on K2's inputs (the wrapper routes
     # this configuration to K2), to set the two kernels side by side.
     k8_gru = Case(
@@ -659,7 +649,42 @@ def cases(params, cfg, loc_dec, b: int, gen: torch.Generator):
         label="fused_attention_step_loc_lstm[gru]",
     )
     loc_cfg = dataclasses.replace(acfg, feature_maps=16, filt_size=10)
-    return [k1, k2, k3, k8_gru, step_case("gru+loc", loc_dec, loc_cfg, h, valid, gen)]
+    return [k1, k2, k8_gru, step_case("gru+loc", loc_dec, loc_cfg, h, valid, gen)]
+
+
+def k3_case(b: int, gen: torch.Generator):
+    """K3 at the serving shape: b rows of the 3.5 s bucket (k3_input)."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import logmel
+
+    yp = k3_input(b, gen)
+    taps = int((logmel._consts(SR, str(yp.device)).melw != 0).sum())
+    frames = 1 + (yp.shape[1] - 2048) // 512
+    fft = 2.5 * 2048 * math.log2(2048)  # real-input FFT
+    return Case(
+        "stft_logmel_power", ("stft_logmel_kernel",),
+        lambda yp_: logmel.stft_logmel_power(yp_, SR),
+        lambda yp_: logmel.stft_logmel_power_plain(yp_, SR),
+        (yp,),
+        flops=b * frames * (fft + 3 * 1025 + 2 * taps + 1025 + 2 * 128),
+        # The PCM, the window, the filters' nonzero taps and their bin
+        # ranges read once; dB and energy written.
+        nbytes=4 * (yp.numel() + 2048 + taps + 2 * logmel.N_MELS + b * frames * 129),
+    )
+
+
+def k3_threads(src: str) -> int:
+    """The block size of a K3 source (its kThreads)."""
+    return int(re.search(r"constexpr int kThreads = (\d+);", src).group(1))
+
+
+def k3_input(b: int, gen: torch.Generator) -> torch.Tensor:
+    """K3's input at the serving shape: b rows of 3.5 s of seeded noise
+    (0.1 rms) in the bucket of 112 frames, reflect-padded as logmel_fused
+    does: (b, 112 * 512 - 1 + 2048) on the card."""
+    n_frames = 1 + int(PCM_SECONDS * SR) // 512
+    n_samp = -(-n_frames // 16) * 16 * 512 - 1
+    y = torch.randn(b, n_samp, generator=gen).cuda() * 0.1
+    return torch.nn.functional.pad(y[:, None], (1024, 1024), mode="reflect")[:, 0].contiguous()
 
 
 # K2's edge shapes on the flagship decoder (phase 3): (B, K, L, a batch
@@ -2287,6 +2312,45 @@ def serve_timing(label, model, params, pcms, kw, runs, card) -> dict:
 MAIN_LABEL = {"fused_attention_step_loc_lstm": "fused_attention_step_loc_lstm[lstm+loc]"}
 
 
+def front_end_ops(pcm, mean, std, card: str) -> None:
+    """Phase 8: the device time of a served exact=False b=1 request's front
+    end (features.logmel_device on the PCM packed into its 112-frame
+    bucket, as serve.Transcriber calls it), by device op: K3, the reflect
+    pad and the PyTorch ops of features.assemble (profiler, 50 calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from seq2seq_attention_asr_tpu_torch import serve
+    from seq2seq_attention_asr_tpu_torch.data import features
+
+    t0 = time.perf_counter()
+    n_frames = features.frames_for_samples(len(pcm))
+    x, _, _ = serve.pack_bucket([pcm], [0], [n_frames], -(-n_frames // 16) * 16)
+    y = torch.from_numpy(x).cuda()
+    kw = dict(device="cuda", dtype=torch.float32)
+    mean_t, std_t = torch.as_tensor(mean, **kw), torch.as_tensor(std, **kw)
+    call = lambda: features.logmel_device(y, SR, mean=mean_t, std=std_t)
+    iters = 50
+    with torch.no_grad():
+        call()
+        torch.cuda.synchronize()
+        with traced([ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+    by_op = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_op.get(e.name, (0, 0.0))
+            by_op[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    total = sum(us for _, us in by_op.values()) / iters / 1e3
+    ops = sum(n for n, _ in by_op.values()) / iters
+    print(f"time front end of a served exact=False b=1 request: {total:.4f} ms on the device in "
+          f"{ops:.0f} device ops a call, traced in {time.perf_counter() - t0:.2f} s ({card}); "
+          "by op: " + "; ".join(
+              f"{name[:70]} x{n / iters:.0f} {us / iters / 1e3:.4f} ms"
+              for name, (n, us) in sorted(by_op.items(), key=lambda kv: -kv[1][1])))
+
+
 def serve_setup():
     """The test PCM (8 utterances), its features, and their mean and std."""
     from seq2seq_attention_asr_tpu_torch.data import features
@@ -2310,10 +2374,11 @@ def tree_timing() -> dict:
     of each teacher-forced decoder scan, forward and backward (K4, K5,
     K10-K15), at its recipe's training shape at B=16 and 128, and the
     device time of K4, K5, K10-K12, K14 and K15 (every device op of a
-    call); and the p50 train step of each trained configuration at B=16
-    and 128."""
+    call); the p50 train step of each trained configuration at B=16
+    and 128; and K3 on the 3.5 s bucket at b=1 and 8."""
     from seq2seq_attention_asr_tpu_torch import interop
     from seq2seq_attention_asr_tpu_torch.models import registry
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import logmel
     from seq2seq_attention_asr_tpu_torch.train import experiment
 
     out = {}
@@ -2384,6 +2449,13 @@ def tree_timing() -> dict:
         for b in (TRAIN_B, BIG_B):
             out[f"{label} step B={b} p50 ms"] = statistics.median(timed_steps(recipe, params_cpu,
                                                                             b)[0])
+    for b in (1, 8):
+        yp = k3_input(b, torch.Generator().manual_seed(SEED + 4))
+        call = lambda: logmel.stft_logmel_power(yp, SR)
+        with torch.no_grad():
+            out[f"stft_logmel_power B={b} ms per call"] = time_ms(call, 200)
+            out[f"stft_logmel_power B={b} device ms"] = device_ms(call, ("stft_logmel_kernel",),
+                                                                  200)
     return out
 
 
@@ -2479,7 +2551,7 @@ def main(parent=None) -> int:
     for b in (1, 8):
         cb_cases, with_proj[b] = conv_bilstm_cases(cb_params, cb_model.cfg, noloc_dec,
                                                    norm_feats[:b], gen)
-        all_cases[b] = cases(params, cfg, loc_dec, b, gen) + cb_cases
+        all_cases[b] = cases(params, cfg, loc_dec, b, gen) + [k3_case(b, gen)] + cb_cases
     recipe = experiment.timit_chorowski_normnll_colnorm()
     all_cases["train"] = train_cases(interop.to_torch(train_params, "cuda"),
                                      recipe.build_model().cfg, train_batch(TRAIN_B, SEED + 3), gen)
@@ -2505,7 +2577,8 @@ def main(parent=None) -> int:
                 want = c.plain(*c.args)
             torch.cuda.synchronize()
             errs[c.name] = max(errs[c.name], c.check(got, want, shape_tag(b)))
-            if c.name in FWD_WALKS or c.name in WALK_BWDS or c.name in FWD_SCANS:
+            if c.name in FWD_WALKS or c.name in WALK_BWDS or c.name in FWD_SCANS or \
+                    c.name == "stft_logmel_power":
                 check_repeat(c, kernels[c.name], got, shape_tag(b))
     errs["fused_attention_step"] = max(errs["fused_attention_step"], k2_edge_phase(
         params["decoder"], cfg.attention_config(), kernels["fused_attention_step"], gen))
@@ -2671,6 +2744,11 @@ def main(parent=None) -> int:
             timing[("fused_attention_step_loc_lstm[gru]", b)][0]
         print(f"time K2 and K8's content-only GRU instance on K2's inputs B={b}: K2 {k2_ms:.4f} "
               f"ms, K8 {k8_ms:.4f} ms on the device, K8 / K2 = {k8_ms / k2_ms:.3f} ({card})")
+    k3_ms = [timing[("stft_logmel_power", b)][0] for b in (1, 8)]
+    threads = k3_threads(logmel.KERNEL.source.read_text())
+    print(f"time stft_logmel_power on the 3.5 s bucket (112 frames a row), blocks of {threads} "
+          f"threads: b=1 {k3_ms[0]:.4f} ms, b=8 {k3_ms[1]:.4f} ms on the device ({card})")
+    front_end_ops(pcms[0], mean, std, card)
     for name, why in NO_LIBRARY.items():
         print(f"library null for {name}: {why}")
     print("the recurrences' bounds ignore the dependency chain of their steps; every time is "

@@ -187,20 +187,41 @@ def test_gru_forward_walks_refuse_without_a_cluster(card, monkeypatch):
         assert kernel.launches == before
 
 
-@pytest.mark.parametrize("b,n", [(1, 8191), (3, 57343)])
-def test_stft_logmel_power_kernel(card, b, n):
+def _check_stft_logmel(yp):
+    """K3 on the padded PCM `yp` against its plain version within TOL,
+    one launch a call, and a second call bitwise equal."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import logmel
 
+    before = logmel.KERNEL.launches
+    got = logmel.stft_logmel_power(yp, 16000)
+    torch.cuda.synchronize()
+    assert logmel.KERNEL.launches == before + 1
+    frames = 1 + (yp.shape[1] - 2048) // 512
+    assert got[0].shape == (yp.shape[0], frames, 128) and got[1].shape == (yp.shape[0], frames)
+    assert _max_err(got, logmel.stft_logmel_power_plain(yp, 16000)) <= TOL
+    again = logmel.stft_logmel_power(yp, 16000)
+    torch.cuda.synchronize()
+    assert logmel.KERNEL.launches == before + 2
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+# (rows, PCM samples a row): a short utterance, the 3.5 s bucket at b = 3
+# and 8 (odd rows start off an 8-byte boundary), and 60 s (1,876 frames).
+@pytest.mark.parametrize("b,n", [(1, 8191), (3, 57343), (8, 57343), (1, 60 * 16000)])
+def test_stft_logmel_power_kernel(card, b, n):
     gen = torch.Generator().manual_seed(n)
     t = torch.arange(n) / 16000.0
     y = (0.3 * torch.sin(2 * np.pi * 440 * t) + 0.05 * torch.randn(b, n, generator=gen)).cuda()
     yp = torch.nn.functional.pad(y[:, None], (1024, 1024), mode="reflect")[:, 0].contiguous()
-    before = logmel.KERNEL.launches
-    got = logmel.stft_logmel_power(yp, 16000)
-    want = logmel.stft_logmel_power_plain(yp, 16000)
-    torch.cuda.synchronize()
-    assert logmel.KERNEL.launches == before + 1
-    assert _max_err(got, want) <= TOL
+    _check_stft_logmel(yp)
+
+
+# Padded input given directly, one frame a row: 2 rows, and 65,536 rows
+# (more than a grid's y extent; 512 MB on the card).
+@pytest.mark.parametrize("b", [2, 65536])
+def test_stft_logmel_power_kernel_on_single_frames(card, b):
+    gen = torch.Generator().manual_seed(b)
+    _check_stft_logmel((0.1 * torch.randn(b, 2048, generator=gen)).cuda())
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):

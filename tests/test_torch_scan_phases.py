@@ -440,3 +440,82 @@ def test_instrument_k8_refuses_a_kernel_without_markers():
     with pytest.raises(ValueError, match="no // \\[phase\\] markers in cluster_step_loc_lstm"):
         tool.instrument_k8(head + tool.K8_SIG + re.sub(r"// \[phase\] .*", "", body) + "\n}\n"
                            + tail)
+
+
+K3_SOURCE = ROOT / "seq2seq_attention_asr_tpu_torch" / "csrc" / "logmel.cu"
+K3_PHASES = ["loads, pass 1", "passes 2, 3", "split, power, energy", "mel chunks",
+             "filters, store"]
+
+
+def _k3_body(text):
+    return _tool()._k3_body(text)[1]
+
+
+def test_instrument_k3_reads_the_clock_after_every_barrier():
+    """K3 (--k3): a cycle read by thread 0 of block 0 at each marker, the
+    clock started once at the top of the body; each marker but the last
+    follows a block barrier, and the copy adds one before the last, so
+    that it reads the block's slowest thread. Outside the kernel's body
+    only the probe is added."""
+    tool = _tool()
+    src = K3_SOURCE.read_text()
+    text, names = tool.instrument_k3(src)
+    assert names == K3_PHASES
+    body = _k3_body(text)
+    assert "// [phase]" not in body
+    reads = re.findall(r"blockIdx.x == 0 && blockIdx.y == 0\) \{ const long long c_ = "
+                       r"clock64\(\); g_phase_cycles\[(\d+)\] \+= c_ - phase_t0_", body)
+    assert [int(i) for i in reads] == list(range(len(K3_PHASES)))
+    assert body.startswith("\n  long long phase_t0_ = clock64();")
+    assert body.count("long long phase_t0_ = clock64();") == 1
+    lines = _k3_body(src).split("\n")
+    marked = [i for i, line in enumerate(lines) if "// [phase]" in line]
+    before = [[x.strip() for x in lines[:i] if x.strip() and not x.strip().startswith("//")][-1]
+              for i in marked]
+    assert before[:-1] == ["__syncthreads();"] * (len(K3_PHASES) - 1)
+    assert body.count("__syncthreads();") == _k3_body(src).count("__syncthreads();") + 1
+    last = body.split("\n")[-1]
+    assert "g_phase_cycles[4]" in last and body.split("\n")[-2].strip() == "__syncthreads();"
+    head, _, tail = tool._k3_body(src)
+    assert head.endswith("int S, int nframes, int nchunks) {") and tail.startswith("\n}\n")
+    assert text.replace(tool.PROBE + "\n", "", 1).startswith(head)
+    assert text.index(tool.PROBE) < text.index("namespace {")
+    assert text.endswith(tail)
+
+
+def test_instrument_k3_refuses_a_kernel_without_markers():
+    head, body, tail = _tool()._k3_body(K3_SOURCE.read_text())
+    with pytest.raises(ValueError, match="no // \\[phase\\] markers in stft_logmel_kernel"):
+        _tool().instrument_k3(head + re.sub(r"// \[phase\] .*", "", body) + tail)
+
+
+def test_floor_k3_empties_the_kernels_body_only():
+    tool = _tool()
+    src = K3_SOURCE.read_text()
+    floor = tool.floor_k3(src)
+    assert _k3_body(floor).strip() == ""
+    head, body, tail = tool._k3_body(src)
+    assert body.strip() and floor == head + tail
+    assert 'extern "C" int stft_logmel_power(' in tail
+
+
+def test_k3_argtypes_read_the_entry_points_parameters():
+    import ctypes
+
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import logmel
+
+    names, types = _tool().k3_argtypes(K3_SOURCE.read_text())
+    assert names == ["yp", "window", "fft_tw", "split_tw", "taps", "tap_start", "mel_first",
+                     "lm", "energy", "B", "S", "nframes", "nfreq", "nchunks", "stream"]
+    assert types == logmel.KERNEL.argtypes
+    assert all(t is ctypes.c_void_p or t is ctypes.c_int for t in types)
+
+
+def test_k3_block_size_is_read_from_the_source():
+    """chip_smoke.py and --k3 print K3's block size from its source's
+    kThreads, the size its entry point launches."""
+    import chip_smoke
+
+    src = K3_SOURCE.read_text()
+    assert chip_smoke.k3_threads(src) == 128
+    assert "<<<(unsigned)frames, kThreads, 0, stream>>>" in src

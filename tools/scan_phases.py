@@ -1,7 +1,8 @@
 """Where a step of the decoder-scan backwards K5, K11, K13 and K15, of the
 LSTM decoder forwards K10 and K14, of the GRU decoder forwards K12 and
 K4, of the beam steps K2 and K8, of the forward GRU walk behind K1,
-K16 and K18, or of the forward LSTM walk K7, goes, on the card.
+K16 and K18, of the forward LSTM walk K7, or of the log-mel front end K3,
+goes, on the card.
 
     python3 tools/scan_phases.py [SOURCE ...]
     python3 tools/scan_phases.py --lstm-bwd [SOURCE ...]
@@ -12,6 +13,7 @@ K16 and K18, or of the forward LSTM walk K7, goes, on the card.
     python3 tools/scan_phases.py --k8 [SOURCE ...]
     python3 tools/scan_phases.py --gru-fwd [HEADER ...]
     python3 tools/scan_phases.py --lstm-enc-fwd [SOURCE ...]
+    python3 tools/scan_phases.py --k3 [SOURCE ...]
 
 Nsight Compute does not run on every machine, so this measures the walk
 from inside: it copies csrc/attention_scan_loc_lstm.cu (or each SOURCE
@@ -101,6 +103,21 @@ and B = 16 and 128, L' = 16 (training): the plan it ran, the cycles of
 block 0 of cluster 0 of direction 0 before the walk (once a call) and a
 step by phase, the time per call (CUDA events over 20 calls) and the
 parity with the plain version (1e-4 abs).
+
+With --k3 it instruments stft_logmel_kernel, K3's body in
+csrc/logmel.cu (or in each SOURCE, a variant of it), whose markers follow
+its block barriers (the copy adds a block barrier before the last
+marker, so that the last phase ends with the block's slowest thread).
+It builds three copies of each source: as it is, instrumented, and with
+an empty body (the floor: a launch of the same grid and block that does
+nothing), and calls each through the source's own C entry point, whose
+argument list it reads from the source and fills from
+ops/cuda/logmel.py's _consts by parameter name. It runs them on chip_smoke.py's input, the 3.5 s
+bucket (112 frames a row) at b = 1 and 8: the block size, the device
+time of the kernel and of the floor (profiler, 200 calls), the time per
+call (CUDA events over 200 calls), the cycles of block 0 by phase
+(thread 0's clock, from the top of the body) and the parity with the
+plain version (1e-4 abs).
 """
 
 from __future__ import annotations
@@ -789,7 +806,146 @@ def main_lstm_enc_fwd(sources) -> int:
     return 0
 
 
+K3_SOURCE = build.CSRC_DIR / "logmel.cu"
+K3_KERNEL = "stft_logmel_kernel("
+K3_ENTRY = re.compile(r'extern "C" int stft_logmel_power\((.*?)\)\s*\{', re.S)
+# K3's batches on the 3.5 s bucket (chip_smoke.k3_input): one and eight
+# utterances.
+K3_BATCHES = (1, 8)
+
+
+def _k3_body(src: str):
+    """(head, body, tail) of stft_logmel_kernel's definition: the body
+    runs from its opening brace to the first line that is a lone "}"."""
+    at = src.index(K3_KERNEL)
+    start = src.index(") {\n", at) + 3
+    end = src.index("\n}\n", start)
+    return src[:start], src[start:end], src[end:]
+
+
+def instrument_k3(src: str):
+    """The source with a cycle read by thread 0 of block 0 at each phase
+    marker of stft_logmel_kernel (a block barrier added before the last),
+    the clock started at the top of its body, and the phases' names in
+    order."""
+    head, body, tail = _k3_body(src)
+    if not MARK.search(body):
+        raise ValueError("no // [phase] markers in stft_logmel_kernel")
+    # The last phase ends when the block's last thread is done.
+    last = list(MARK.finditer(body))[-1]
+    body = body[:last.start()] + f"{last.group(1)}__syncthreads();\n" + body[last.start():]
+    names = [n for _, n in MARK.findall(body)]
+    counter = iter(range(len(names)))
+    body = MARK.sub(lambda m: _clock_read(next(counter), m.group(1),
+                                          "blockIdx.x == 0 && blockIdx.y == 0"), body)
+    head = head.replace("namespace {", PROBE + "\nnamespace {", 1)
+    return head + "\n  long long phase_t0_ = clock64();" + body + tail, names
+
+
+def floor_k3(src: str) -> str:
+    """The source with stft_logmel_kernel's body emptied: its launch costs
+    the least any body can."""
+    head, _, tail = _k3_body(src)
+    return head + tail
+
+
+def k3_argtypes(src: str):
+    """The parameter names of the source's C entry point and their ctypes
+    (a pointer or the stream: c_void_p; else c_int)."""
+    params = [p.strip() for p in K3_ENTRY.search(src).group(1).split(",")]
+    names = [re.findall(r"\w+", p)[-1] for p in params]
+    types = [ctypes.c_void_p if "*" in p or "cudaStream_t" in p else ctypes.c_int for p in params]
+    return names, types
+
+
+def k3_tables(sr: int, device):
+    """The tables of ops/cuda/logmel.py's _consts that K3's entry point
+    takes, by parameter name."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import logmel
+
+    c = logmel._consts(sr, str(device))
+    return {"window": c.window, "fft_tw": c.fft_tw, "split_tw": c.split_tw, "taps": c.taps,
+            "tap_start": c.tap_start, "mel_first": c.mel_first, "nchunks": c.nchunks}
+
+
+def main_k3(sources) -> int:
+    import chip_smoke as smoke
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import logmel
+
+    if not torch.cuda.is_available():
+        print("scan_phases: no CUDA device is available", file=sys.stderr)
+        return 1
+    card = _card()
+    kernels = {}
+    for src in map(pathlib.Path, sources):
+        raw = src.read_text()
+        text, names = instrument_k3(raw)
+        params, argtypes = k3_argtypes(raw)
+        digest = hashlib.sha1(raw.encode()).hexdigest()[:12]
+        copy = build.BUILD_DIR / "phases" / digest
+        copy.mkdir(parents=True, exist_ok=True)
+        built = {}
+        for kind, body in (("as is", raw), ("phases", text), ("floor", floor_k3(raw))):
+            out = copy / f"{src.stem}_{kind.replace(' ', '_')}_{digest}.cu"
+            out.write_text(body)
+            built[kind] = build.Kernel(f"K3 {kind}", str(out), "stft_logmel_power", argtypes)
+        kernels[src] = (names, params, smoke.k3_threads(raw), built)
+    t0 = time.perf_counter()
+    build.build_all(k for *_, ks in kernels.values() for k in ks.values())
+    print(f"scan_phases: built {len(kernels)} sources, 3 copies each, in "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    dev = torch.device("cuda")
+    tables = k3_tables(smoke.SR, dev)
+    stream = build.stream_of(tables["window"])
+    for b in K3_BATCHES:
+        yp = smoke.k3_input(b, torch.Generator().manual_seed(smoke.SEED + 1))
+        s = yp.shape[1]
+        frames = 1 + (s - logmel.N_FFT) // logmel.HOP
+        want = logmel.stft_logmel_power_plain(yp, smoke.SR)
+        lm = torch.empty(b, frames, logmel.N_MELS, device=dev)
+        energy = torch.empty(b, frames, device=dev)
+        named = dict(tables, yp=yp, lm=lm, energy=energy, B=b, S=s, nframes=frames,
+                     nfreq=logmel.NFREQ, stream=stream)
+        for src, (names, params, threads, ks) in kernels.items():
+            if b == K3_BATCHES[0]:
+                for line in ks["as is"].build_log.splitlines():
+                    if "spill" in line or "registers" in line:
+                        print(f"scan_phases {src} K3: {line.split(':', 1)[-1].strip()}")
+            args = [build.ptr(named[p]) if torch.is_tensor(named[p]) else named[p] for p in params]
+            calls = {kind: (lambda k=k: k.launch(*args)) for kind, k in ks.items()}
+            err = 0.0
+            for kind in ("as is", "phases"):
+                lm.fill_(float("nan"))
+                energy.fill_(float("nan"))
+                calls[kind]()
+                torch.cuda.synchronize()
+                for g, w in zip((lm, energy), want):
+                    e = float((g - w).abs().max())
+                    err = max(err, e if e == e else float("inf"))  # NaN: a frame not written
+            read = ks["phases"].helper("read_phase_cycles", [ctypes.c_void_p, ctypes.c_int])
+            cycles = (ctypes.c_ulonglong * 32)()
+            read(cycles, 1)
+            calls["phases"]()
+            torch.cuda.synchronize()
+            read(cycles, 1)
+            ms = {kind: smoke.device_ms(calls[kind], ("stft_logmel_kernel",), 200)
+                  for kind in ("as is", "floor")}
+            call_ms = smoke.time_ms(calls["as is"], 200)
+            phases = list(zip(names, cycles[:len(names)]))
+            print(f"scan_phases {src} K3 B={b} frames={frames} block {threads} threads: kernel "
+                  f"{ms['as is']:.4f} ms on the device ({call_ms:.4f} ms per call), floor "
+                  f"{ms['floor']:.4f} ms, max abs err {err:.3e} "
+                  f"({'ok' if err <= smoke.TOL else 'FAILS'}); cycles of block 0: "
+                  f"{sum(n for _, n in phases)} = " + ", ".join(f"{p} {n}" for p, n in phases)
+                  + f" ({card})")
+            if err > smoke.TOL:
+                return 1
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--k3"]:
+        sys.exit(main_k3(sys.argv[2:] or [str(K3_SOURCE)]))
     if sys.argv[1:2] == ["--lstm-enc-fwd"]:
         sys.exit(main_lstm_enc_fwd(sys.argv[2:] or [str(LSTM_ENC_SOURCE)]))
     if sys.argv[1:2] == ["--gru-fwd"]:

@@ -5,7 +5,8 @@ TIMIT model, and training of each with the other decoder (the flagship
 with location-aware attention, the conv+BiLSTM model without it), and
 the flagship's encoder by two more BiGRU paths (one GRU layer per
 direction, and the direction-stacked scan), through their nineteen CUDA
-kernels.
+kernels; then the trainer: the committed checkpoint's held-out beam PER,
+an epoch loop with checkpoints and resume, and greedy decode.
 
     python3 chip_smoke.py
 
@@ -145,7 +146,27 @@ Phases, each fatal when it fails:
      configurations; the encoder's forward and backward by each path of
      phase 7 at B = 16 and 128, its device time, time per call and device
      time by kernel;
- 10. one {"kernels": [...]} JSON line, the card line, and the last line
+ 10. the trainer (Trainer, the port's training entry point): (i) the
+     committed flagship-shape checkpoint (runs/timit_shape_ckpt/full/
+     params.npz) scored by Trainer.evaluate on the held-out split of
+     timit_shaped(4000, 192) built on the host and staged on the card as
+     the trainer stages it (batch 32, the train split's 3 length buckets,
+     beam K=5, the 61->39 fold), TF32 off: its beam PER within 0.002 of
+     the port's CPU value (HELD_OUT_PER_CPU), launches of K1, K2 and K4
+     only, the evaluation's wall time and (a second, profiled run, the
+     same PER) its device time; (ii) Trainer.fit of the flagship recipe at
+     full width, 2 epochs of timit_shaped(64, 16) at batch 16 into a
+     scratch save_dir: the loss finite and falling, valid_per logged,
+     ckpt_latest, the best-metric checkpoints and log.jsonl written, K1,
+     K2 and K4-K6 launched and no other kernel, then a second Trainer
+     that resumes the first's state bit for bit and runs epoch 3 only;
+     (iii) greedy decode (K=1) against its plain version (the same call
+     on the CPU): the flagship decoder (K2) on the checkpoint's encoding
+     of the first held-out batch and the conv+BiLSTM decoder (K8) on its
+     recipe's encoding of the serving PCM, with the seeded weights and
+     with the eos bias raised; equal tokens and lengths, one launch a
+     step; and the phase's wall seconds;
+ 11. one {"kernels": [...]} JSON line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
 It exits nonzero without a card, and imports nothing of the JAX package.
@@ -179,6 +200,7 @@ import dataclasses
 import inspect
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -222,6 +244,21 @@ LOC_STEP_LAUNCHES = {"bigru_scan2": 3, "bigru_scan2_bwd": 3, "attention_decode_s
                      "attention_decode_scan_loc_bwd": 1}
 CBC_STEP_LAUNCHES = {"bilstm_scan": 1, "bilstm_scan_bwd": 1, "attention_decode_scan_lstm_fwd": 1,
                      "attention_decode_scan_lstm_bwd": 1}
+# Phase 10, the trainer. The committed flagship-shape checkpoint's
+# parameters (tools/ckpt_to_npz.py) and its held-out beam PER on the
+# host-built valid split of timit_shaped(4000, 192, noise=0.35, seed=1),
+# batched at 32 over the train split's 3 length buckets and cached from
+# one shuffle with seed 1, as the port's Trainer.evaluate gives it on the
+# CPU (tests/test_torch_quality.py, equal to the JAX package's there).
+HELD_OUT_NPZ = pathlib.Path(__file__).resolve().parent / "runs" / "timit_shape_ckpt" / "full" / \
+    "params.npz"
+HELD_OUT_PER_CPU = 0.10673786888100345
+HELD_OUT_PER_TOL = 2e-3  # card vs CPU: a few of 192 utterances may take another near-tie
+HELD_OUT = dict(n_train=4000, n_valid=192, noise=0.35, seed=1, batch=32, buckets=3)
+FIT = dict(n_train=64, n_valid=16, batch=16, epochs=2)  # Trainer.fit, then a resumed 3rd epoch
+GREEDY_EOS_BIAS = 0.06  # with seed 0, ends 6 of 8 conv+BiLSTM greedy rows on eos before the cap
+FIT_KERNELS = ("bigru_scan2", "fused_attention_step", "attention_decode_scan_fwd",
+               "attention_decode_scan_bwd", "bigru_scan2_bwd")  # K1, K2, K4, K5, K6
 SERVE_L = 132  # encoder frames of the 3.5 s PCM: 110, padded to 112, plus 2 x 10 pad frames
 CB_PAD_LEN = 130  # encoder frames of the 3.5 s PCM: 110, padded to 112, plus 2 x 10 pad frames
 CB_SERVE_L = 14  # the conv+BiLSTM encoder's frames of that PCM: 130 through three pools of 2
@@ -2307,6 +2344,201 @@ def serve_timing(label, model, params, pcms, kw, runs, card) -> dict:
     return out
 
 
+def held_out_split(device: str):
+    """The held-out split as the trainer sees it: (valid, batcher, vocab)."""
+    from seq2seq_attention_asr_tpu_torch.data import batching, synthetic
+
+    h = HELD_OUT
+    train, valid, vocab = synthetic.timit_shaped(h["n_train"], h["n_valid"], noise=h["noise"],
+                                                 seed=h["seed"])
+    base = batching.BucketedBatcher.from_dataset(train, h["batch"], n_buckets=h["buckets"])
+    return valid, batching.CachedDeviceBatcher(base, seed=h["seed"], device=device), vocab
+
+
+def counted(kernels, fn):
+    """fn() with every launch count zeroed just before it; (its result, the
+    counts just after it)."""
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: k.launches for n, k in kernels.items()}
+
+
+def check_counts(tag: str, counts: dict, launched, exact=None) -> None:
+    """Every kernel in `launched` ran (`exact`: {name: count} pins some),
+    every other kernel did not."""
+    bad = [n for n, c in counts.items() if (c > 0) != (n in launched)]
+    bad += [n for n, c in (exact or {}).items() if counts[n] != c]
+    if bad:
+        raise SystemExit(f"{tag}: launch counts {counts}, wrong for {bad}")
+
+
+def held_out_phase(kernels, card: str):
+    """Phase 10 (i): the committed checkpoint's held-out beam PER on the
+    card, through Trainer.evaluate, within HELD_OUT_PER_TOL of the port's
+    CPU value; the evaluation's wall time and (a second, profiled run) its
+    device time. Returns the model, its parameters on the card and the split."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from seq2seq_attention_asr_tpu_torch.models import registry
+    from seq2seq_attention_asr_tpu_torch.train import checkpoint, experiment, optim, trainer
+
+    t0 = time.perf_counter()
+    valid, batcher, vocab = held_out_split("cuda")
+    params = checkpoint.load_params_npz(str(HELD_OUT_NPZ), "cuda")
+    print(f"held-out: {len(valid)} utterances staged on the card, params.npz "
+          f"({HELD_OUT_NPZ.stat().st_size} bytes) loaded, {time.perf_counter() - t0:.1f} s wall")
+    kw = dict(experiment.timit_chorowski_normnll_colnorm().model_kwargs, dropout=0.5)
+    tcfg = trainer.TrainConfig(batch_size=HELD_OUT["batch"], normalize_nll=True, beam_k=BEAM_K,
+                               seed=HELD_OUT["seed"])
+    model = registry.build("chorowski", **kw)
+    tr = trainer.Trainer(model, optim.OptimConfig(), tcfg, vocab=vocab, device="cuda")
+    tr.init(params)
+    t0 = time.perf_counter()
+    row, counts = counted(kernels, lambda: tr.evaluate(valid, batcher))
+    wall = time.perf_counter() - t0
+    per = row["valid_per"]
+    print(f"held-out beam PER on the card {per!r} (the port on the CPU {HELD_OUT_PER_CPU!r}, "
+          f"tol {HELD_OUT_PER_TOL}; TPU run 0.1049), valid_nll {row['valid_nll']:.6f}, "
+          f"valid_accuracy {row['valid_accuracy']:.6f}; launches {counts}")
+    check_counts("held-out evaluate", counts,
+                 ("bigru_scan2", "attention_decode_scan_fwd", "fused_attention_step"))
+    if not abs(per - HELD_OUT_PER_CPU) <= HELD_OUT_PER_TOL:
+        raise SystemExit(f"held-out PER {per} on the card, {HELD_OUT_PER_CPU} on the CPU")
+    with traced([ProfilerActivity.CUDA]) as prof:
+        again = tr.evaluate(valid, batcher)["valid_per"]
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    print(f"time held-out evaluate ({len(valid)} utterances, {HELD_OUT['batch']} a batch, "
+          f"K={BEAM_K}): {1e3 * wall:.1f} ms wall; device busy {busy:.1f} ms in "
+          f"{len(events)} device ops (a second, profiled run, PER {again!r}), idle share "
+          f"{1 - busy / (1e3 * wall):.4f} ({card})")
+    if again != per:
+        raise SystemExit(f"held-out: a second evaluation gave PER {again}, the first {per}")
+    return model, params, valid, batcher
+
+
+def fit_phase(kernels, card: str) -> None:
+    """Phase 10 (ii): Trainer.fit of the flagship recipe at full width on a
+    small TIMIT-shaped corpus with a scratch save_dir: the loss finite and
+    falling, valid_per logged, ckpt_latest and log.jsonl written, and a
+    second Trainer resuming for a third epoch from the first's state."""
+    import tempfile
+
+    from seq2seq_attention_asr_tpu_torch import tree
+    from seq2seq_attention_asr_tpu_torch.data import batching, synthetic
+    from seq2seq_attention_asr_tpu_torch.train import checkpoint, experiment, trainer
+
+    f = FIT
+    train, valid, vocab = synthetic.timit_shaped(f["n_train"], f["n_valid"], seed=SEED)
+    exp = experiment.timit_chorowski_normnll_colnorm()
+    tcfg = dataclasses.replace(exp.train, num_epochs=f["epochs"], batch_size=f["batch"])
+    params = exp.init_params(torch.Generator().manual_seed(SEED), device="cuda")
+    batcher = batching.CachedDeviceBatcher(
+        batching.BucketedBatcher.from_dataset(train, f["batch"], n_buckets=3), seed=SEED,
+        device="cuda")
+    with tempfile.TemporaryDirectory() as save_dir:
+        tr = trainer.Trainer(exp.build_model(), exp.optim, tcfg, vocab=vocab, save_dir=save_dir,
+                             device="cuda")
+        tr.init(params)
+        t0 = time.perf_counter()
+        rows, counts = counted(kernels, lambda: list(tr.fit(train, valid, batcher)))
+        for r in rows:
+            print(f"fit epoch {r['epoch']}: " + ", ".join(
+                f"{k} {r[k]:.6f}" for k in ("train_loss", "train_accuracy", "grad_norm",
+                                            "valid_nll", "valid_accuracy", "valid_per")))
+        print(f"fit: {f['epochs']} epochs of {f['n_train']} utterances at batch {f['batch']} "
+              f"with evaluation, {time.perf_counter() - t0:.1f} s wall; launches {counts}")
+        check_counts("fit", counts, FIT_KERNELS)
+        losses = [r["train_loss"] for r in rows]
+        if not (len(rows) == f["epochs"] and np.isfinite(losses).all()
+                and losses[-1] < losses[0] and all("valid_per" in r for r in rows)):
+            raise SystemExit(f"fit: rows {rows}")
+        files = sorted(os.listdir(save_dir))
+        print(f"fit: {save_dir} holds {files}")
+        if not {"ckpt_latest", "log.jsonl", "ckpt_best_valid_PER"} <= set(files) or \
+                len(trainer.MetricLog.load(os.path.join(save_dir, "log.jsonl"))) != f["epochs"]:
+            raise SystemExit("fit: the checkpoint or the log is missing")
+        saved = checkpoint.load(os.path.join(save_dir, "ckpt_latest"), device="cuda")
+        tr2 = trainer.Trainer(exp.build_model(), exp.optim,
+                              dataclasses.replace(tcfg, num_epochs=f["epochs"] + 1),
+                              vocab=vocab, save_dir=save_dir, device="cuda")
+        tr2.init(exp.init_params(torch.Generator().manual_seed(SEED + 1), device="cuda"))
+        if not tr2.resume() or tr2.epoch != f["epochs"] or tr2.best != saved["best"] or not all(
+                torch.equal(a, b) for a, b in zip(tree.leaves(list(tr2.state[:2])),
+                                                  tree.leaves(list(saved["state"][:2])))):
+            raise SystemExit("fit: the resumed Trainer differs from the checkpoint")
+        rows2, counts = counted(kernels, lambda: list(tr2.fit(train, valid, batcher,
+                                                              resume=True)))
+        print(f"fit resumed: epochs {[r['epoch'] for r in rows2]}, train_loss "
+              f"{rows2[0]['train_loss']:.6f}; launches {counts}")
+        check_counts("fit resumed", counts, FIT_KERNELS)
+        if [r["epoch"] for r in rows2] != [f["epochs"] + 1]:
+            raise SystemExit("fit: the resumed Trainer did not run exactly one more epoch")
+
+
+def greedy_phase(kernels, held_out, cb_model, cb_params, cb_feats) -> None:
+    """Phase 10 (iii): greedy decode (K=1) on the card against its plain
+    version (the same call on the CPU): the flagship decoder through K2 on
+    the checkpoint's encoding of the first held-out batch, the conv+BiLSTM
+    decoder through K8 on its recipe's encoding of the serving PCM, with
+    seeded weights and with the eos bias raised by GREEDY_EOS_BIAS; equal
+    tokens and lengths, one launch a step, and rows ending on eos in all
+    but the seeded conv+BiLSTM run."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.decode import greedy
+
+    model, params, valid, batcher = held_out
+    b = next(batcher.batches(valid))
+    with torch.no_grad():
+        h, h_len = model.encode(params, b.x, b.x_len)
+    runs = [("chorowski", "K2", "fused_attention_step", model, params["decoder"], h, h_len,
+             b.y[torch.arange(len(b.y_len)), torch.from_numpy(b.y_len - 1).long().cuda()])]
+    lens = torch.full((cb_feats.shape[0],), cb_feats.shape[1], dtype=torch.long, device="cuda")
+    cb_weights = {"random": cb_params, f"eos+{GREEDY_EOS_BIAS}": with_eos_bias(cb_params,
+                                                                             GREEDY_EOS_BIAS)}
+    for name, weights in cb_weights.items():
+        with torch.no_grad():
+            ch, ch_len = cb_model.encode(weights, cb_feats, lens)
+        runs.append((f"conv_bilstm {name}", "K8", "fused_attention_step_loc_lstm", cb_model,
+                     weights["decoder"], ch, ch_len, EOS_ID))
+    for label, kname, kernel, m, dec, enc, enc_len, eos in runs:
+        res, counts = counted(kernels, lambda: greedy.greedy_decode(
+            dec, m.attention_cfg, enc, enc_len, eos, max_steps=enc_len,
+            max_steps_cap=enc.shape[1], device="cuda"))
+        ref = greedy.greedy_decode(interop.to_torch(dec, "cpu"), m.attention_cfg, enc.cpu(),
+                                   enc_len.cpu(), eos.cpu() if torch.is_tensor(eos) else eos,
+                                   max_steps=enc_len.cpu(), max_steps_cap=enc.shape[1],
+                                   device="cpu")
+        steps = int(ref.lengths.max())
+        same = torch.equal(res.tokens.cpu(), ref.tokens) and torch.equal(res.lengths.cpu(),
+                                                                         ref.lengths)
+        on_eos = int((ref.lengths < enc_len.cpu()).sum())
+        gap = float((res.logprob.cpu() - ref.logprob).abs().max())
+        print(f"greedy {label} B={enc.shape[0]} L={enc.shape[1]} ({kname}, K=1): tokens and "
+              f"lengths equal to the plain version: {same}, {steps} steps, {on_eos} rows ended "
+              f"on eos, max logprob gap {gap:.3e}; launches {counts}")
+        check_counts(f"greedy {label}", counts, (kernel,), {kernel: steps})
+        if not same:
+            raise SystemExit(f"greedy {label}: the card disagrees with the plain version")
+        if not on_eos and label != "conv_bilstm random":
+            raise SystemExit(f"greedy {label}: no row ended on eos")
+
+
+def trainer_phase(kernels, cb_model, cb_params, cb_feats, card: str) -> float:
+    """Phase 10: the held-out PER, Trainer.fit with resume, greedy decode.
+    Returns its wall seconds."""
+    t0 = time.perf_counter()
+    held_out = held_out_phase(kernels, card)
+    fit_phase(kernels, card)
+    greedy_phase(kernels, held_out, cb_model, cb_params, cb_feats)
+    took = time.perf_counter() - t0
+    print(f"trainer phase: {took:.1f} s wall ({card})")
+    return took
+
+
 # The instance of each kernel whose numbers stand in the {"kernels"} line:
 # the one on its main path, at batch 1 (serving) or the training shape.
 MAIN_LABEL = {"fused_attention_step_loc_lstm": "fused_attention_step_loc_lstm[lstm+loc]"}
@@ -2770,6 +3002,10 @@ def main(parent=None) -> int:
             train_timing(recipe, weights_cpu, b, card, step_kernels, label)
     for b in (TRAIN_B, BIG_B):
         encoder_timing(train_params["encoder"], b, card)
+
+    # Phase 10: the trainer: the committed checkpoint's held-out PER,
+    # Trainer.fit with checkpoints and resume, greedy decode on K2 and K8.
+    trainer_phase(kernels, cb_model, cb_params, norm_feats[:8], card)
     if parent:
         compare_trees(parent, card)
 

@@ -196,7 +196,8 @@ def decode_teacher_forced(params: Params, cfg: AttentionConfig, h: torch.Tensor,
     AttentionDecodeScanLSTM (K14, K15) for the content-only LSTM and
     AttentionDecodeScanLocLSTM (K10, K11) for the location-aware LSTM;
     the readout runs once over the stacked (s, c). Returns logprobs (B, T,
-    V), alpha (B, T, L) and penalty (B, T), all zeros: the penalty is not
+    V), alpha (B, T, L), the decoder states s (B, T, St) and contexts c
+    (B, T, A), and penalty (B, T), all zeros: the penalty is not
     ported."""
     check_scan_ported(cfg, train=train)
     enc_mask = length_mask(enc_lengths, h.shape[1], h.dtype)
@@ -220,5 +221,7 @@ def decode_teacher_forced(params: Params, cfg: AttentionConfig, h: torch.Tensor,
     return {
         "logprobs": apply_readout(params, cfg, s_seq, c_seq, train=train),
         "alpha": alpha_seq,
+        "s": s_seq,
+        "c": c_seq,
         "penalty": torch.zeros_like(dec_mask),
     }

@@ -4,7 +4,9 @@ runs/timit_shape_ckpt/full/ckpt_best_valid_PER is the chorowski_dropout
 model at recipe widths, trained on the synthetic TIMIT-shaped corpus.
 Loaded through the JAX package's checkpoint reader and converted with
 ``interop``, it must encode like the JAX model (within 1e-5) and give
-identical K=5 beam tokens on held-out utterances of that corpus.
+identical K=5 beam tokens on held-out utterances of that corpus. Its
+parameters, converted by tools/ckpt_to_npz.py into the tracked
+params.npz that the card reads, must equal the checkpoint's bit for bit.
 """
 
 import os
@@ -22,9 +24,11 @@ from seq2seq_attention_asr_tpu.train import checkpoint
 from seq2seq_attention_asr_tpu_torch import interop
 from seq2seq_attention_asr_tpu_torch.decode import beam
 from seq2seq_attention_asr_tpu_torch.models import registry
+from seq2seq_attention_asr_tpu_torch.train import checkpoint as port_checkpoint
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "runs", "timit_shape_ckpt", "full",
                     "ckpt_best_valid_PER")
+NPZ = os.path.join(os.path.dirname(CKPT), "params.npz")
 EOS = 61  # the corpus's <EOS>, the last of its 62 outputs
 
 
@@ -60,3 +64,39 @@ def test_checkpoint_encodes_and_decodes_like_jax(case):
     # The trained model ends its hypotheses with eos well before the cap.
     ends = got.tokens.numpy()[np.arange(len(lens)), got.lengths.numpy() - 1]
     assert np.all(ends == EOS) and np.all(got.lengths.numpy() < lens)
+
+
+def test_params_npz_equals_the_checkpoint(case, tmp_path):
+    """Every leaf of params.npz equals the orbax checkpoint's, bit for bit,
+    as float32; load_params_npz gives the tree interop.to_torch gives
+    (the readout's dropout entry an empty dict); tools/ckpt_to_npz.py
+    writes the same file again."""
+    import sys
+
+    _, _, params, _, _ = case
+    want = dict(jax.tree_util.tree_leaves_with_path(params))
+    with np.load(NPZ) as z:
+        got = {k: z[k] for k in z.files}
+    names = {"/".join(str(getattr(p, "key", getattr(p, "idx", None))) for p in path): leaf
+             for path, leaf in want.items()}
+    assert sorted(got) == sorted(names)
+    for k, leaf in names.items():
+        assert got[k].dtype == np.float32 and leaf.dtype == np.float32
+        np.testing.assert_array_equal(got[k], leaf, err_msg=k)
+    loaded = port_checkpoint.load_params_npz(NPZ, "cpu")
+    ref = interop.to_torch(params, "cpu")
+    assert jax.tree.structure(interop.to_numpy(loaded)) == jax.tree.structure(
+        interop.to_numpy(ref))
+    assert loaded["decoder"]["readout"][0] == {}
+    for a, b in zip(jax.tree.leaves(interop.to_numpy(loaded)),
+                    jax.tree.leaves(interop.to_numpy(ref))):
+        np.testing.assert_array_equal(a, b)
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+    try:
+        import ckpt_to_npz
+    finally:
+        sys.path.pop(0)
+    out = str(tmp_path / "params.npz")
+    assert ckpt_to_npz.main(["--ckpt", CKPT, "--out", out]) == 0
+    with open(out, "rb") as f, open(NPZ, "rb") as g:
+        assert f.read() == g.read()

@@ -26,7 +26,9 @@ def test_port_files_are_found():
     names = {p.name for p in PORT_FILES}
     assert {"serve.py", "beam.py", "features.py", "chip_smoke.py", "gru_scan.py",
             "attention_scan.py", "trainer.py", "optim.py", "initializers.py", "experiment.py",
-            "loss.py", "tree.py", "lstm_scan.py", "conv.py", "conv_bilstm.py"} <= names
+            "loss.py", "tree.py", "lstm_scan.py", "conv.py", "conv_bilstm.py", "metrics.py",
+            "batching.py", "synthetic.py", "timit.py", "greedy.py", "checkpoint.py",
+            "debug.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

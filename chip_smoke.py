@@ -6,7 +6,10 @@ with location-aware attention, the conv+BiLSTM model without it), and
 the flagship's encoder by two more BiGRU paths (one GRU layer per
 direction, and the direction-stacked scan), through their nineteen CUDA
 kernels; then the trainer: the committed checkpoint's held-out beam PER,
-an epoch loop with checkpoints and resume, and greedy decode.
+an epoch loop with checkpoints and resume, and greedy decode; then the
+reference recipe's regularisers: the committed AWN stage restarted from
+the checkpoint, the monotonic penalty on each decoder, dropout and
+weight noise.
 
     python3 chip_smoke.py
 
@@ -166,7 +169,27 @@ Phases, each fatal when it fails:
      recipe's encoding of the serving PCM, with the seeded weights and
      with the eos bias raised; equal tokens and lengths, one launch a
      step; and the phase's wall seconds;
- 11. one {"kernels": [...]} JSON line, the card line, and the last line
+ 11. the regularisers at full width: (a) params.npz in an AWN trainer
+     (chorowski_dropout, sigma0 0.01, lambda 7.8125e-7, as
+     tools/convergence.py:511-527 restarted it), its generator on the
+     card, its lambda * KL within 1e-5 of the float64 value and 2e-5 of
+     the JAX package's (both from the CPU, AWN_LAMBDA_KL_*); (b) one
+     epoch of the timit_shaped(4000) train split at batch 32 over 3
+     buckets with AWN and dropout into a scratch save_dir, K1, K2 and
+     K4-K6 launched: not collapsed (train_nll < 0.5, awn_sigma_rms in
+     [0.0099, 0.0101], param_norm within 5% of 81.96, mu's held-out PER
+     < 0.2), a second Trainer resuming (mu, s), the optimizer state and
+     the generator bit for bit, on the card, and a step of each giving
+     the same loss; the AWN step's p50, device time and idle share
+     beside the dropout-only step's; (c) one forward and backward at B =
+     16 of each trained configuration with penalty_lambda 0.5: its
+     launches, the penalty firing, every parameter's gradient within the
+     backward tolerance of the CPU's and more than 1e-4 from the lambda
+     = 0 gradient; (d) a chorowski_dropout step and a weight-noise step,
+     each twice from one generator state: the same masks and noise and
+     the same loss, the mask keeping 0.5 +- 0.01 of its values; and the
+     phase's wall seconds;
+ 12. one {"kernels": [...]} JSON line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
 It exits nonzero without a card, and imports nothing of the JAX package.
@@ -256,6 +279,15 @@ HELD_OUT_PER_CPU = 0.10673786888100345
 HELD_OUT_PER_TOL = 2e-3  # card vs CPU: a few of 192 utterances may take another near-tie
 HELD_OUT = dict(n_train=4000, n_valid=192, noise=0.35, seed=1, batch=32, buckets=3)
 FIT = dict(n_train=64, n_valid=16, batch=16, epochs=2)  # Trainer.fit, then a resumed 3rd epoch
+# Phase 11: the committed AWN stage restarted from params.npz
+# (tools/convergence.py:511-527: sigma0 0.01, lambda 7.8125e-7, seed 2,
+# dropout 0.5), and its lambda * KL at the start: the float64 formula and
+# the JAX package's float32 awn.kl on the CPU (tests/test_torch_awn.py).
+AWN_LAMBDA = 7.8125e-7
+AWN_SIGMA0 = 0.01
+AWN_SEED = 2
+AWN_LAMBDA_KL_F64 = 4.822490046589026
+AWN_LAMBDA_KL_JAX = 4.82254921875
 GREEDY_EOS_BIAS = 0.06  # with seed 0, ends 6 of 8 conv+BiLSTM greedy rows on eos before the cap
 FIT_KERNELS = ("bigru_scan2", "fused_attention_step", "attention_decode_scan_fwd",
                "attention_decode_scan_bwd", "bigru_scan2_bwd")  # K1, K2, K4, K5, K6
@@ -2171,16 +2203,23 @@ def timed_steps(recipe, params_cpu, b: int):
     (their host times in ms, the state, the step function, the batch)."""
     state, step_fn = make_trainer(recipe, params_cpu, "cuda")
     batch = tuple(t.cuda() for t in train_batch(b, SEED + 5))
+    lat, state = step_latencies(step_fn, state, batch)
+    return lat, state, step_fn, batch
+
+
+def step_latencies(step_fn, state, batch, n: int = 10):
+    """The host times in ms of n card train steps after 3 warm-up steps,
+    each ending in a synchronize; (the times, the state after them)."""
     for _ in range(3):
         state, _ = step_fn(state, batch)
     torch.cuda.synchronize()
     lat = []
-    for _ in range(10):
+    for _ in range(n):
         t0 = time.perf_counter()
         state, _ = step_fn(state, batch)
         torch.cuda.synchronize()
         lat.append(1e3 * (time.perf_counter() - t0))
-    return lat, state, step_fn, batch
+    return lat, state
 
 
 def train_timing(recipe, params_cpu, b: int, card: str, step_kernels, label: str) -> None:
@@ -2344,15 +2383,22 @@ def serve_timing(label, model, params, pcms, kw, runs, card) -> dict:
     return out
 
 
+_HELD_OUT_SPLITS = {}
+
+
 def held_out_split(device: str):
-    """The held-out split as the trainer sees it: (valid, batcher, vocab)."""
+    """The corpus and its held-out split as the trainer sees them: (train,
+    valid, batcher, vocab), built once a run (phases 10 and 11 share it)."""
     from seq2seq_attention_asr_tpu_torch.data import batching, synthetic
 
-    h = HELD_OUT
-    train, valid, vocab = synthetic.timit_shaped(h["n_train"], h["n_valid"], noise=h["noise"],
-                                                 seed=h["seed"])
-    base = batching.BucketedBatcher.from_dataset(train, h["batch"], n_buckets=h["buckets"])
-    return valid, batching.CachedDeviceBatcher(base, seed=h["seed"], device=device), vocab
+    if device not in _HELD_OUT_SPLITS:
+        h = HELD_OUT
+        train, valid, vocab = synthetic.timit_shaped(h["n_train"], h["n_valid"],
+                                                     noise=h["noise"], seed=h["seed"])
+        base = batching.BucketedBatcher.from_dataset(train, h["batch"], n_buckets=h["buckets"])
+        _HELD_OUT_SPLITS[device] = (train, valid, batching.CachedDeviceBatcher(
+            base, seed=h["seed"], device=device), vocab)
+    return _HELD_OUT_SPLITS[device]
 
 
 def counted(kernels, fn):
@@ -2386,7 +2432,7 @@ def held_out_phase(kernels, card: str):
     from seq2seq_attention_asr_tpu_torch.train import checkpoint, experiment, optim, trainer
 
     t0 = time.perf_counter()
-    valid, batcher, vocab = held_out_split("cuda")
+    _, valid, batcher, vocab = held_out_split("cuda")
     params = checkpoint.load_params_npz(str(HELD_OUT_NPZ), "cuda")
     print(f"held-out: {len(valid)} utterances staged on the card, params.npz "
           f"({HELD_OUT_NPZ.stat().st_size} bytes) loaded, {time.perf_counter() - t0:.1f} s wall")
@@ -2536,6 +2582,272 @@ def trainer_phase(kernels, cb_model, cb_params, cb_feats, card: str) -> float:
     greedy_phase(kernels, held_out, cb_model, cb_params, cb_feats)
     took = time.perf_counter() - t0
     print(f"trainer phase: {took:.1f} s wall ({card})")
+    return took
+
+
+# Phase 11's limits: gate (b)'s "not collapsed", and gate (c)'s lambda.
+# The TPU run's first AWN epoch had train_nll 0.1839, awn_sigma_rms
+# 0.01000005 and param_norm 81.96, and a PER of 0.1049 at epoch 5; a
+# collapsed run sits at train_nll ~4.13 and PER ~0.96
+# (runs/timit_shape_ckpt/awn/log.jsonl). The TPU run trained on the
+# features the checkpoint had memorized (DeviceSynth draws, an eval-mode
+# NLL of 0.077 a step on the first three batches); the card trains on
+# the host-built draws of the same utterances (0.68: test_torch_quality.py
+# ::test_train_split_by_staging), so its train_nll is held below half the
+# collapsed plateau, not near the TPU's.
+AWN_NOT_COLLAPSED = dict(train_nll=2.0, sigma_rms=(0.0099, 0.0101), param_norm=81.96,
+                         param_norm_rtol=0.05, valid_per=0.2)
+PENALTY_LAMBDA = 0.5
+
+
+def awn_trainer(vocab, save_dir):
+    """The committed AWN stage's Trainer on the card: the dropout recipe
+    (adadelta, normalized NLL, column norm 1 on mu) with noise="awn" at
+    the stage's sigma0, lambda and seed, batch 32, one epoch."""
+    from seq2seq_attention_asr_tpu_torch.train import experiment, trainer
+
+    exp = experiment.timit_chorowski_dropout()
+    tcfg = dataclasses.replace(exp.train, num_epochs=1, batch_size=HELD_OUT["batch"],
+                               beam_k=BEAM_K, seed=AWN_SEED, noise="awn",
+                               awn_lambda=AWN_LAMBDA, awn_sigma_init=AWN_SIGMA0)
+    return trainer.Trainer(exp.build_model(), exp.optim, tcfg, vocab=vocab, save_dir=save_dir,
+                           device="cuda")
+
+
+def step_p50(step_fn, state, batch):
+    """p50 of 10 card steps after 3 warm-up steps, then the device time of
+    one profiled step; (p50 ms, device ms, device ops)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    lat, state = step_latencies(step_fn, state, batch)
+    with traced([ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batch)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return statistics.median(lat), sum(e.time_range.elapsed_us() for e in events) / 1e3, len(events)
+
+
+def step_nll(model, params, batcher, ds) -> float:
+    """The eval-mode NLL a step of `params` on every batch of `ds`, averaged
+    over utterances (the train_nll of normalize_nll)."""
+    from seq2seq_attention_asr_tpu_torch.train import trainer
+
+    per_utt = []
+    with torch.no_grad():
+        for b in batcher.batches(ds):
+            dm = b.dec_mask
+            oh = trainer._one_hot_labels(b.y, dm, model.output_depth)
+            lp = model.forward(params, b.x, b.x_len, oh, dm)["logprobs"]
+            per_utt.append(torch.sum(-torch.sum(oh * lp, dim=-1) * dm, dim=-1) / dm.sum(-1))
+    return float(torch.cat(per_utt).mean())
+
+
+def awn_stage_phase(kernels, card: str) -> None:
+    """Phase 11 (a) and (b): the committed AWN stage restarted from
+    params.npz, its lambda * KL at the start, one epoch with its held-out
+    PER at mu, checkpoint and resume on the card, and the step's time."""
+    import tempfile
+
+    from seq2seq_attention_asr_tpu_torch import tree
+    from seq2seq_attention_asr_tpu_torch.train import awn, checkpoint, trainer
+
+    train, valid, batcher, vocab = held_out_split("cuda")
+    params = checkpoint.load_params_npz(str(HELD_OUT_NPZ), "cuda")
+    with tempfile.TemporaryDirectory() as save_dir:
+        tr = awn_trainer(vocab, save_dir)
+        tr.init(params)
+        lam_kl = AWN_LAMBDA * float(awn.kl(tr.state[0]))
+        rel64, reljax = abs(lam_kl / AWN_LAMBDA_KL_F64 - 1), abs(lam_kl / AWN_LAMBDA_KL_JAX - 1)
+        print(f"awn (a): lambda * KL at the start on the card {lam_kl!r}; float64 "
+              f"{AWN_LAMBDA_KL_F64!r} (relative {rel64:.2e}, tol 1e-5), the JAX package's "
+              f"float32 {AWN_LAMBDA_KL_JAX!r} (relative {reljax:.2e}, tol 2e-5); generator on "
+              f"{tr.state[2].device}")
+        if not (rel64 <= 1e-5 and reljax <= 2e-5) or tr.state[2].device.type != "cuda":
+            raise SystemExit("awn (a): lambda * KL or the generator's device is wrong")
+        t0 = time.perf_counter()
+        start_nll = step_nll(tr.model, params, batcher, train)
+        print(f"awn (b): the checkpoint's eval-mode NLL a step on the host-built train split "
+              f"{start_nll!r}, {time.perf_counter() - t0:.1f} s wall")
+        t0 = time.perf_counter()
+        (row,), counts = counted(kernels, lambda: list(tr.fit(train, valid, batcher)))
+        g = AWN_NOT_COLLAPSED
+        print(f"awn (b): one epoch of {len(train)} utterances at batch {HELD_OUT['batch']} with "
+              f"AWN and dropout, {time.perf_counter() - t0:.1f} s wall with the evaluation: "
+              f"train_nll {row['train_nll']!r} (TPU run 0.18390472351558626; limit "
+              f"{g['train_nll']}), awn_sigma_rms {row['awn_sigma_rms']!r} (TPU 0.01000005379319191; "
+              f"{g['sigma_rms']}), param_norm {row['param_norm']!r} (TPU 81.96167755126953; "
+              f"within {g['param_norm_rtol']:.0%}), mu's held-out PER {row['valid_per']!r} (limit "
+              f"{g['valid_per']}), train_loss {row['train_loss']!r}, grad_norm "
+              f"{row['grad_norm']!r}, valid_nll {row['valid_nll']!r}, train_seconds "
+              f"{row['train_seconds']:.2f}, valid_seconds {row['valid_seconds']:.2f}; "
+              f"launches {counts}")
+        check_counts("awn fit", counts, FIT_KERNELS)
+        if not (row["train_nll"] < g["train_nll"]
+                and g["sigma_rms"][0] <= row["awn_sigma_rms"] <= g["sigma_rms"][1]
+                and abs(row["param_norm"] / g["param_norm"] - 1) <= g["param_norm_rtol"]
+                and row["valid_per"] < g["valid_per"]):
+            raise SystemExit(f"awn (b): the restarted stage collapsed: {row}")
+        saved = checkpoint.load(os.path.join(save_dir, "ckpt_latest"), device="cuda")
+        tr2 = awn_trainer(vocab, save_dir)
+        tr2.init(params)
+        same = tr2.resume() and all(torch.equal(a, b) for a, b in zip(
+            tree.leaves(list(tr.state[:2])), tree.leaves(list(tr2.state[:2]))))
+        gen = tr2.state[2]
+        same = same and gen.device.type == "cuda" and torch.equal(
+            gen.get_state(), tr.state[2].get_state()) and set(saved["state"][0]) == {"mu", "s"}
+        b = max(batcher.batches(train), key=lambda b: b.x.shape[1])
+        arrs = tr._batch_arrays(b)
+        losses = [float(t.step_fn(t.state, arrs)[1]["loss"]) for t in (tr, tr2)]
+        print(f"awn (b): a second Trainer resumed ckpt_latest ((mu, s), the optimizer state and "
+              f"the {gen.device} generator bit for bit: {same}); one more step of each on a "
+              f"{tuple(arrs[0].shape)} batch: loss {losses[0]!r} and {losses[1]!r}")
+        if not same or losses[0] != losses[1]:
+            raise SystemExit("awn (b): the resumed AWN trainer differs from the checkpoint")
+    plain = trainer.make_step_core(tr.model.forward, tr.tx, tr.ocfg,
+                                   dataclasses.replace(tr.tcfg, noise="none"),
+                                   tr.model.output_depth)
+    mu = awn.mode(tr.state[0])
+    runs = {"awn": (tr.step_fn, tr.state),
+            "dropout only": (plain, (mu, tr.tx.init(mu), tr.state[2]))}
+    for label, (step_fn, state) in runs.items():
+        p50, busy, ops = step_p50(step_fn, state, arrs)
+        print(f"time awn stage step ({label}) B={arrs[0].shape[0]} L={arrs[0].shape[1]} "
+              f"T={arrs[2].shape[1]}: p50 {p50:.2f} ms over 10 steps; device busy {busy:.2f} ms "
+              f"in {ops} device ops of one profiled step, idle share 1 - busy/p50 = "
+              f"{1 - busy / p50:.4f} ({card})")
+
+
+def penalty_grads(recipe, params_cpu, lam: float, device: str, batch, active=None):
+    """One forward and backward of `recipe` with penalty_lambda `lam` on
+    `device`: (the parameter gradients of the mean NLL, the summed
+    penalty, the steps' unscaled penalties that decide where the ramp is
+    injected). `active`, another run's penalties, takes the place of this
+    run's in that decision."""
+    from seq2seq_attention_asr_tpu_torch import interop, tree
+    from seq2seq_attention_asr_tpu_torch.ops.monotonic import MonotonicAlignmentSeq
+    from seq2seq_attention_asr_tpu_torch.train import trainer
+
+    exp = recipe()
+    exp.model_kwargs["penalty_lambda"] = lam
+    model = exp.build_model()
+    leaves = [t.detach().requires_grad_(True)
+              for t in tree.leaves(interop.to_torch(params_cpu, device))]
+    x, x_len, y, dm = (t.to(device) for t in batch)
+    oh = trainer._one_hot_labels(y, dm, model.output_depth)
+    decided = []
+    apply = MonotonicAlignmentSeq.apply
+
+    def decide(alpha_seq, base_ramp, dec_mask, own):
+        decided.append(own)
+        return apply(alpha_seq, base_ramp, dec_mask,
+                     own if active is None else active.to(own.device))
+
+    MonotonicAlignmentSeq.apply = decide
+    try:
+        out = model.forward(tree.unflatten(params_cpu, leaves), x, x_len, oh, dm, train=True)
+    finally:
+        del MonotonicAlignmentSeq.apply  # the inherited torch.autograd.Function.apply again
+    nll = torch.sum(-torch.sum(oh * out["logprobs"], dim=-1) * dm) / x.shape[0]
+    grads = torch.autograd.grad(nll, leaves)
+    return grads, float(out["penalty"].detach().sum()), (decided[0] if decided else None)
+
+
+def penalty_phase(kernels, recipes) -> None:
+    """Phase 11 (c): each trained configuration at B = 16 with the
+    penalty on: the kernels' gradients against the CPU's, and against
+    the gradients without the penalty. The ramp goes in where a step's
+    penalty is > 0, a cliff: at the seeded init most steps' penalties are
+    ~1e-4, and the 1e-7 that the kernels' alignments differ by from the
+    plain version's tip a few steps over it, each a whole ramp (up to
+    lambda * L = 72) in the gradient. So the CPU run injects where the
+    card's run did, and the steps that its own penalties would tip are
+    counted."""
+    batch = train_batch(TRAIN_B, SEED + 3)
+    for label, (recipe, params_cpu, expected) in recipes.items():
+        (grads, pen, active), counts = counted(kernels, lambda: penalty_grads(
+            recipe, params_cpu, PENALTY_LAMBDA, "cuda", batch))
+        active = active.detach()
+        want, want_pen, own = penalty_grads(recipe, params_cpu, PENALTY_LAMBDA, "cpu", batch,
+                                             active=active)
+        grads0, _, _ = penalty_grads(recipe, params_cpu, 0.0, "cuda", batch)
+        valid = batch[3] > 0
+        fired = int((active.cpu() > 0)[valid].sum())
+        tipped = int(((active.cpu() > 0) != (own > 0))[valid].sum())
+        excess = bwd_err([g.cpu() for g in grads], want)
+        delta = max(float((a - b).abs().max()) for a, b in zip(grads, grads0))
+        print(f"penalty {label} B={TRAIN_B} L={TRAIN_L} T={TRAIN_T} lambda {PENALTY_LAMBDA}: "
+              f"penalty {pen:.6f} on the card, {want_pen:.6f} on the CPU, {fired} steps fire "
+              f"({tipped} would not, or would, by the CPU's own penalties); gradients against "
+              f"the CPU's: excess over 5e-4 * max|CPU| {excess:.3e} (tol 5e-5); largest change "
+              f"from lambda 0 {delta:.3e} (limit > 1e-4); launches {counts}")
+        check_counts(f"penalty {label}", counts, tuple(expected), expected)
+        if not (fired and excess <= 5e-5 and delta > 1e-4
+                and abs(pen - want_pen) <= 1e-4 * abs(want_pen)):
+            raise SystemExit(f"penalty {label}: the penalty's gradient is wrong on the card")
+
+
+def repeat_phase(kernels) -> None:
+    """Phase 11 (d): a chorowski_dropout step and a noise="weight" step on
+    the card, each twice from one generator state, from its recipe's
+    seeded init."""
+    from seq2seq_attention_asr_tpu_torch import tree
+    from seq2seq_attention_asr_tpu_torch.ops import readout
+    from seq2seq_attention_asr_tpu_torch.train import awn, experiment, optim, trainer
+
+    batch = tuple(t.cuda() for t in train_batch(TRAIN_B, SEED + 3))
+    draw_fns = {"dropout": (readout, "dropout_keep"), "weight": (awn, "normal_like")}
+    for case, tcfg_kw in (("dropout", {}), ("weight", dict(noise="weight",
+                                                           weight_noise_sigma=0.01))):
+        exp = (experiment.timit_chorowski_dropout() if case == "dropout"
+               else experiment.timit_chorowski_normnll_colnorm())
+        model = exp.build_model()
+        params = exp.init_params(torch.Generator().manual_seed(SEED), device="cuda")
+        init_fn, step_fn = trainer.make_train_step(
+            model.forward, optim.build_optimizer(exp.optim), exp.optim,
+            dataclasses.replace(exp.train, **tcfg_kw), model.output_depth)
+        gen_state = torch.Generator(device="cuda").manual_seed(SEED).get_state()
+        module, name = draw_fns[case]
+        draw, runs = getattr(module, name), []
+        for _ in range(2):
+            drawn = []
+            setattr(module, name, lambda *a: drawn.append(draw(*a)) or drawn[-1])
+            try:
+                gen = torch.Generator(device="cuda")
+                gen.set_state(gen_state)
+                (state, m), counts = counted(kernels, lambda: step_fn(init_fn(params, gen), batch))
+            finally:
+                setattr(module, name, draw)
+            runs.append((state, m, tree.leaves(drawn)))
+        check_counts(f"{case} step", counts, tuple(STEP_LAUNCHES), STEP_LAUNCHES)
+        (s1, m1, d1), (s2, m2, d2) = runs
+        same_draws = len(d1) == len(d2) > 0 and all(torch.equal(a, b) for a, b in zip(d1, d2))
+        gap = max(float((a - b).abs().max()) for a, b in zip(tree.leaves(s1[0]),
+                                                              tree.leaves(s2[0])))
+        if case == "dropout":
+            stat = float(d1[0].float().mean())
+            what = f"mask {tuple(d1[0].shape)} keeps {stat:.6f} (0.5 +- 0.01)"
+            stat_ok = abs(stat - 0.5) <= 0.01
+        else:
+            flat = torch.cat([t.reshape(-1) for t in d1])
+            stat = float(flat.std())
+            what = f"noise over {flat.numel()} weights: eps std {stat:.6f} (1 +- 0.01)"
+            stat_ok = abs(stat - 1.0) <= 0.01
+        print(f"{case} step twice from one generator state on the card: the same draws "
+              f"{same_draws}, {what}; loss {float(m1['loss'])!r} and {float(m2['loss'])!r}, "
+              f"params after the step {gap:.3e} apart; launches {counts}")
+        if not (same_draws and stat_ok and float(m1["loss"]) == float(m2["loss"]) and gap <= 1e-6):
+            raise SystemExit(f"{case} step: two steps from one generator state differ")
+
+
+def regulariser_phase(kernels, penalty_recipes, card: str) -> float:
+    """Phase 11: the AWN stage, the penalty, dropout and weight noise.
+    Returns its wall seconds."""
+    t0 = time.perf_counter()
+    awn_stage_phase(kernels, card)
+    penalty_phase(kernels, penalty_recipes)
+    repeat_phase(kernels)
+    took = time.perf_counter() - t0
+    print(f"regulariser phase: {took:.1f} s wall ({card})")
     return took
 
 
@@ -3006,6 +3318,16 @@ def main(parent=None) -> int:
     # Phase 10: the trainer: the committed checkpoint's held-out PER,
     # Trainer.fit with checkpoints and resume, greedy decode on K2 and K8.
     trainer_phase(kernels, cb_model, cb_params, norm_feats[:8], card)
+
+    # Phase 11: the reference recipe's regularisers: the committed AWN
+    # stage restarted, the monotonic penalty on each decoder, dropout and
+    # weight noise.
+    regulariser_phase(kernels, {
+        "chorowski": (experiment.timit_chorowski_normnll_colnorm, train_params, STEP_LAUNCHES),
+        "conv_bilstm": (experiment.timit_conv_bilstm, cb_params_cpu, CB_STEP_LAUNCHES),
+        "flagship_loc": (flagship_loc, loc_params_cpu, LOC_STEP_LAUNCHES),
+        "conv_bilstm_content": (conv_bilstm_content, cbc_params_cpu, CBC_STEP_LAUNCHES)},
+        card)
     if parent:
         compare_trees(parent, card)
 

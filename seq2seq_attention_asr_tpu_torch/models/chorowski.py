@@ -5,13 +5,15 @@ Flagship widths are the TIMIT recipe's (train/experiment.py:69-95 of
 the JAX package): 123 -> 256 per direction (annotations 512), score
 depth 512, state 256, maxout(64, window 7) -> 62 phones.
 ``forward`` is the training forward: encode, then the teacher-forced
-decoder scan.
+decoder scan. ``dropout`` > 0 puts a dropout layer at the readout's
+input (model_chorowski_baseline_dropout.lua; registry name
+"chorowski_dropout").
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -30,11 +32,11 @@ class ChorowskiConfig:
     state_depth: int = 256
     mlp_depth: int = 64
     output_depth: int = 62
-    dropout: float = 0.0  # a readout layer: the identity in eval mode, refused in train mode
+    dropout: float = 0.0  # a readout layer at the input of the maxout: the identity in eval mode
     # Attention options, with the JAX package's names. Serving and
     # training take feature_maps > 0 (training then runs the
-    # location-aware GRU scan, kernels K12 and K13); training refuses
-    # mono_align with penalty_lambda > 0.
+    # location-aware GRU scan, kernels K12 and K13), and training the
+    # monotonic penalty (mono_align with penalty_lambda > 0).
     feature_maps: int = 0
     filt_size: int = 10
     mono_align: bool = True
@@ -85,9 +87,12 @@ def encode(params: Params, cfg: ChorowskiConfig, x: torch.Tensor, lengths: torch
 
 def forward(params: Params, cfg: ChorowskiConfig, x: torch.Tensor, x_lengths: torch.Tensor,
             labels_onehot: torch.Tensor, dec_mask: torch.Tensor, *,
+            generator: Optional[torch.Generator] = None,
             train: bool = False) -> Dict[str, torch.Tensor]:
     """Encode, then teacher-forced decode (model_chorowski_baseline.lua:
-    73-75). Returns logprobs (B, T, V), alpha (B, T, L), penalty (B, T)."""
+    73-75); train-mode dropout draws from `generator`. Returns logprobs
+    (B, T, V), alpha (B, T, L), penalty (B, T)."""
     h = encode(params, cfg, x, x_lengths)
     return attention.decode_teacher_forced(params["decoder"], cfg.attention_config(), h,
-                                           x_lengths, labels_onehot, dec_mask, train=train)
+                                           x_lengths, labels_onehot, dec_mask,
+                                           generator=generator, train=train)

@@ -16,7 +16,7 @@ LSTM decoder scan (kernels K14 and K15).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -97,9 +97,13 @@ def encode(params: Params, cfg: ConvBiLSTMConfig, x: torch.Tensor, lengths: torc
 
 
 def forward(params: Params, cfg: ConvBiLSTMConfig, x: torch.Tensor, x_lengths: torch.Tensor,
-            labels_onehot: torch.Tensor, dec_mask: torch.Tensor, *, train: bool = False):
+            labels_onehot: torch.Tensor, dec_mask: torch.Tensor, *,
+            generator: Optional[torch.Generator] = None, train: bool = False):
     """encode, then the teacher-forced decoder over the annotations'
-    lengths: dict(logprobs (B, T, V), alpha (B, T, L'), penalty (B, T))."""
+    lengths (the penalty's ramp too): dict(logprobs (B, T, V), alpha (B,
+    T, L'), penalty (B, T)). The recipe's readout has no dropout layer;
+    `generator` is passed on for one that has."""
     h, enc_lengths = encode(params, cfg, x, x_lengths)
     return attention.decode_teacher_forced(params["decoder"], cfg.attention_config(), h,
-                                           enc_lengths, labels_onehot, dec_mask, train=train)
+                                           enc_lengths, labels_onehot, dec_mask,
+                                           generator=generator, train=train)

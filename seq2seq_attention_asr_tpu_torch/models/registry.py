@@ -2,7 +2,7 @@
 families ported so far:
 
   init(generator, device) -> params
-  forward(params, x, x_len, labels_onehot, dec_mask, *, train)
+  forward(params, x, x_len, labels_onehot, dec_mask, *, generator, train)
       -> dict(logprobs, alpha, penalty)
   encode(params, x, x_len) -> (annotations, annotation_lengths)
   attention_cfg  (for decoding)
@@ -31,8 +31,13 @@ class Model:
 
 
 def build(name: str, **overrides) -> Model:
-    """name: chorowski | conv_bilstm. Overrides are fields of the
-    family's config dataclass."""
+    """name: chorowski | chorowski_dropout | conv_bilstm. Overrides are
+    fields of the family's config dataclass; chorowski_dropout is
+    chorowski with dropout defaulting to 0.5
+    (model_chorowski_baseline_dropout.lua)."""
+    if name == "chorowski_dropout":
+        overrides.setdefault("dropout", 0.5)
+        name = "chorowski"
     if name == "chorowski":
         cfg = chorowski.ChorowskiConfig(**overrides)
         return Model(

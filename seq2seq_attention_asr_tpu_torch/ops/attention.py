@@ -16,13 +16,15 @@ and the readout decoder_mlp(concat(s, c)) -> log-probs. Training runs
 the teacher-forced scan (``decode_teacher_forced``), one pair of kernels
 for each decoder: the content-only GRU (K4 and K5), the location-aware
 LSTM (K10 and K11), the location-aware GRU (K12 and K13) and the
-content-only LSTM (K14 and K15).
+content-only LSTM (K14 and K15). With mono_align and penalty_lambda > 0
+the monotonic alignment penalty (ops/monotonic.py) is reported per step
+and its ramp injected into the alignments' gradient.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +33,8 @@ from . import cells, readout
 from .cells import torch_linear_init
 from .cuda import attention_scan
 from .masking import length_mask, masked_softmax
+from .monotonic import (MonotonicAlignment, MonotonicAlignmentSeq, make_ramp,
+                        monotonic_penalty_value)
 
 Params = Dict[str, Any]
 
@@ -40,8 +44,8 @@ class AttentionConfig:
     """The decoder's widths, readout and attention options, with the JAX
     package's names. LSTM peepholes are not ported and are refused.
     The teacher-forced scan takes either cell with or without the
-    location term (feature_maps > 0); in training it refuses the
-    monotonic penalty (mono_align and penalty_lambda > 0)."""
+    location term (feature_maps > 0), and the monotonic penalty
+    (mono_align and penalty_lambda > 0)."""
 
     score_depth: int
     state_depth: int
@@ -63,16 +67,6 @@ def check_ported(cfg: AttentionConfig) -> None:
         raise ValueError(f"unknown decoder cell {cfg.cell!r}")
     if cfg.cell == "lstm" and cfg.peepholes:
         raise NotImplementedError("LSTM peepholes are not ported")
-
-
-def check_scan_ported(cfg: AttentionConfig, train: bool = False) -> None:
-    """Raise NotImplementedError for what the teacher-forced scan cannot
-    compute yet: LSTM peepholes (check_ported), and in training the
-    monotonic penalty, which acts on training only."""
-    check_ported(cfg)
-    if train and cfg.mono_align and cfg.penalty_lambda > 0.0:
-        raise NotImplementedError("the monotonic alignment penalty (penalty_lambda > 0) is not "
-                                  "ported yet")
 
 
 def attention_init(generator: torch.Generator, cfg: AttentionConfig) -> Params:
@@ -155,12 +149,22 @@ def _cell_step(params: Params, cfg: AttentionConfig, r, s, mem):
     return cells.lstm_step(params["cell"], r, (s, mem))
 
 
-def attention_step(params: Params, cfg: AttentionConfig, state, y_prev, vh, h, enc_mask):
+def attention_step(params: Params, cfg: AttentionConfig, state, y_prev, vh, h, enc_mask,
+                   ramp=None, unit_ramp=None):
     """One decoder step. state = (alpha_prev, s_prev, mem_prev); y_prev
-    one-hot (B, V). Returns the new state and {s, c, alpha}."""
+    one-hot (B, V). ramp: the lambda-scaled injection ramp (None: no
+    injection); unit_ramp: the lambda-free ramp of the penalty value
+    (None: a zero penalty). Returns the new state and {s, c, alpha,
+    penalty}, penalty (B,) scaled by penalty_lambda."""
     check_ported(cfg)
     alpha_prev, s_prev, mem = state
     alpha = attention_weights(params, cfg, s_prev, alpha_prev, vh, enc_mask)
+    if unit_ramp is not None:
+        penalty = monotonic_penalty_value(alpha, alpha_prev, unit_ramp)
+    else:
+        penalty = torch.zeros(alpha.shape[0], dtype=alpha.dtype, device=alpha.device)
+    if cfg.mono_align and ramp is not None:
+        alpha = MonotonicAlignment.apply(alpha, alpha_prev, ramp, penalty.detach())
     c = torch.einsum("bl,bld->bd", alpha, h)
     r = readout.linear_apply(
         params["dec_in"],
@@ -170,19 +174,23 @@ def attention_step(params: Params, cfg: AttentionConfig, state, y_prev, vh, h, e
         ),
     )
     s, mem = _cell_step(params, cfg, r, s_prev, mem)
-    return (alpha, s, mem), {"s": s, "c": c, "alpha": alpha}
+    return (alpha, s, mem), {"s": s, "c": c, "alpha": alpha,
+                             "penalty": cfg.penalty_lambda * penalty}
 
 
 def apply_readout(params: Params, cfg: AttentionConfig, s: torch.Tensor, c: torch.Tensor,
-                  *, train: bool = False) -> torch.Tensor:
-    """decoder_mlp(concat(s, c)) -> log-probs, on any batch shape."""
+                  *, generator: Optional[torch.Generator] = None,
+                  train: bool = False) -> torch.Tensor:
+    """decoder_mlp(concat(s, c)) -> log-probs, on any batch shape; a
+    train-mode dropout layer draws from `generator`."""
     return readout.stack_apply(params["readout"], cfg.readout, torch.cat([s, c], dim=-1),
-                               train=train)
+                               generator=generator, train=train)
 
 
 def decode_teacher_forced(params: Params, cfg: AttentionConfig, h: torch.Tensor,
                           enc_lengths: torch.Tensor, labels_onehot: torch.Tensor,
-                          dec_mask: torch.Tensor, *, train: bool = False) -> Dict[str, torch.Tensor]:
+                          dec_mask: torch.Tensor, *, generator: Optional[torch.Generator] = None,
+                          train: bool = False) -> Dict[str, torch.Tensor]:
     """Teacher-forced decode over all T output steps, the fused branch of
     the JAX package's decode_teacher_forced (ops/attention.py:320-434).
 
@@ -195,11 +203,20 @@ def decode_teacher_forced(params: Params, cfg: AttentionConfig, h: torch.Tensor,
     AttentionDecodeScanLoc (K12, K13) for the location-aware GRU,
     AttentionDecodeScanLSTM (K14, K15) for the content-only LSTM and
     AttentionDecodeScanLocLSTM (K10, K11) for the location-aware LSTM;
-    the readout runs once over the stacked (s, c). Returns logprobs (B, T,
-    V), alpha (B, T, L), the decoder states s (B, T, St) and contexts c
-    (B, T, A), and penalty (B, T), all zeros: the penalty is not
-    ported."""
-    check_scan_ported(cfg, train=train)
+    the readout runs once over the stacked (s, c), its train-mode dropout
+    drawn from `generator`. Returns logprobs (B, T, V), alpha (B, T, L),
+    the decoder states s (B, T, St) and contexts c (B, T, A), and penalty
+    (B, T).
+
+    With mono_align and penalty_lambda > 0 (ops/attention.py:389-426 of
+    the JAX package), every step's penalty value comes from the scan's
+    alpha_seq against the ramp of the annotation lengths, the reported
+    penalty is lambda * value * dec_mask, and alpha_seq passes through
+    MonotonicAlignmentSeq, coupled into s_seq by a term of value zero:
+    the loss reads logprobs only, and without the coupling autograd would
+    never call that backward. The scan's alpha cotangent is then exactly
+    the ramp injection. Otherwise penalty is zeros."""
+    check_ported(cfg)
     enc_mask = length_mask(enc_lengths, h.shape[1], h.dtype)
     vh = precompute_vh(params, h)
     y_prev = torch.cat([torch.zeros_like(labels_onehot[:, :1]), labels_onehot[:, :-1]], dim=1)
@@ -218,10 +235,21 @@ def decode_teacher_forced(params: Params, cfg: AttentionConfig, h: torch.Tensor,
     else:
         scan = attention_scan.AttentionDecodeScanLoc if loc else attention_scan.AttentionDecodeScan
         s_seq, c_seq, alpha_seq = scan.apply(*common, cell["w_zr"], cell["w_h"], *loc)
+    if cfg.mono_align and cfg.penalty_lambda > 0.0:
+        unit_ramp = make_ramp(enc_lengths, h.shape[1], 1.0, torch.float32)
+        a32 = alpha_seq.float()
+        ap32 = torch.cat([torch.zeros_like(a32[:, :1]), a32[:, :-1]], dim=1)
+        pen_unit = torch.clamp(torch.einsum("btl,bl->bt", a32 - ap32, unit_ramp), min=0.0)
+        alpha_seq = MonotonicAlignmentSeq.apply(alpha_seq, cfg.penalty_lambda * unit_ramp,
+                                                dec_mask.float(), pen_unit.detach())
+        s_seq = s_seq + (0.0 * torch.sum(alpha_seq, dim=-1, keepdim=True)).to(s_seq.dtype)
+        penalty = (cfg.penalty_lambda * pen_unit * dec_mask).to(dec_mask.dtype)
+    else:
+        penalty = torch.zeros_like(dec_mask)
     return {
-        "logprobs": apply_readout(params, cfg, s_seq, c_seq, train=train),
+        "logprobs": apply_readout(params, cfg, s_seq, c_seq, generator=generator, train=train),
         "alpha": alpha_seq,
         "s": s_seq,
         "c": c_seq,
-        "penalty": torch.zeros_like(dec_mask),
+        "penalty": penalty,
     }

@@ -3,13 +3,15 @@
 
 Maxout follows the reference (Maxout.lua:14-19): Linear(in -> out*win)
 then a max over each consecutive `win`-wide group of outputs. A dropout
-layer is the identity in eval mode; train-mode dropout is not ported
-yet and is refused.
+layer is the identity in eval mode; in train mode it keeps each value
+with probability 1 - rate, drawn by ``dropout_keep`` from the caller's
+generator, and scales the kept values by 1 / (1 - rate)
+(seq2seq_attention_asr_tpu/ops/readout.py:95-101).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,10 +58,19 @@ def stack_init(generator: torch.Generator, dim_in: int, specs: Sequence[LayerSpe
     return params
 
 
+def dropout_keep(generator: torch.Generator, shape, rate: float, device) -> torch.Tensor:
+    """A dropout layer's keep-mask: uniform < 1 - rate, as
+    jax.random.bernoulli(key, 1 - rate, shape) draws it. It reads only the
+    generator, which lies on `device`."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
 def stack_apply(params: List[Params], specs: Sequence[LayerSpec], x: torch.Tensor,
-                *, train: bool = False) -> torch.Tensor:
+                *, generator: Optional[torch.Generator] = None,
+                train: bool = False) -> torch.Tensor:
     """Apply the stack, then log_softmax in float32. In train mode a
-    dropout layer with rate > 0 raises NotImplementedError."""
+    dropout layer with rate > 0 draws its mask from `generator` (on x's
+    device) and raises ValueError without one."""
     for p, spec in zip(params, specs):
         kind = spec[0]
         if kind == "linear":
@@ -69,5 +80,8 @@ def stack_apply(params: List[Params], specs: Sequence[LayerSpec], x: torch.Tenso
         elif kind == "relu":
             x = torch.relu(x)
         elif kind == "dropout" and train and spec[1] > 0.0:
-            raise NotImplementedError("train-mode dropout is not ported yet")
+            if generator is None:
+                raise ValueError("dropout in train mode needs a generator")
+            keep = dropout_keep(generator, x.shape, spec[1], x.device)
+            x = torch.where(keep, x / (1.0 - spec[1]), 0.0)
     return torch.log_softmax(x.float(), dim=-1)

@@ -3,10 +3,11 @@
 kwargs, a TrainConfig and an OptimConfig, the initialization the recipe
 asks for, where its data and run directory are, and `run_cli`, the
 command line of the recipe scripts. The port has the canonical TIMIT
-recipe, the conv+BiLSTM TIMIT recipe (both also with the attention's
-location term switched on or off through
-``exp.model_kwargs["feature_maps"]``) and the scriptchecker smoke
-recipe; the others come with their model families."""
+recipe, its dropout variant, the conv+BiLSTM TIMIT recipe (both
+families also with the attention's location term switched on or off
+through ``exp.model_kwargs["feature_maps"]``) and the scriptchecker
+smoke recipe; the others come with their model families. Adaptive or
+fixed weight noise is a TrainConfig field (``noise``) of any recipe."""
 
 from __future__ import annotations
 
@@ -87,6 +88,15 @@ def timit_chorowski_normnll_colnorm(data_path: Optional[str] = None,
         save_dir=save_dir,
         orthogonalize=True,
     )
+
+
+def timit_chorowski_dropout(**kw) -> Experiment:
+    """model_chorowski_baseline_dropout.lua: the canonical recipe with
+    dropout 0.5 at the readout's input."""
+    exp = timit_chorowski_normnll_colnorm(**kw)
+    exp.name = "exp_chorowski_dropout"
+    exp.model_kwargs["dropout"] = 0.5
+    return exp
 
 
 def timit_conv_bilstm(data_path: Optional[str] = None,

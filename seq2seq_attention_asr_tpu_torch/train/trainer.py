@@ -1,12 +1,17 @@
 """Training and evaluation loop (seq2seq_attention_asr_tpu/train/trainer.py).
 
-The train state is (params, opt_state, generator). A step computes the
-loss of a padded batch (x, x_len, y, dec_mask), its gradient through
-autograd (the kernels' backward passes on the card), one optimizer
-update and, when the recipe asks for it, the column-norm projection
-after the update. The generator is the step's source of randomness; no
-part of the ported recipe draws from it yet (train-mode dropout and
-AWN/weight noise, which would, are refused).
+The train state is (train_params, opt_state, generator): train_params
+is the model's parameter tree, or under adaptive weight noise
+(noise="awn") the dict {"mu", "s"} of train/awn.py, which the optimizer
+updates as one tree. A step computes the loss of a padded batch (x,
+x_len, y, dec_mask), its gradient through autograd (the kernels'
+backward passes on the card), one optimizer update and, when the recipe
+asks for it, the column-norm projection after the update (of mu alone
+under AWN). The generator lies on the parameters' device and is the
+step's one source of randomness: first the weight noise (AWN's or the
+fixed-sigma one of noise="weight"), then the readout's dropout masks.
+The JAX package splits its key three ways a step instead; the draws
+cannot match its bits.
 
 Loss semantics (timit.lua:262-295): the loss is the MEAN over real rows
 (rows with any unmasked decoder step) of the per-utterance NLL.
@@ -48,7 +53,7 @@ from ..decode import beam as beam_lib
 from ..decode import metrics as metrics_lib
 from ..ops import attention as attention_ops
 from ..utils import debug
-from . import checkpoint, optim
+from . import awn, checkpoint, optim
 from .loss import token_accuracy
 
 
@@ -58,7 +63,12 @@ class TrainConfig:
     batch_size: int = 16
     normalize_nll: bool = False  # opt.normalizeNLL
     normalize_grad: bool = False  # opt.normalizeGrad (grad /= T)
-    noise: str = "none"  # "none"; "awn" and "weight" are not ported yet
+    noise: str = "none"  # "none" | "awn" | "weight" (opt.adaweightnoise / weightnoise)
+    # opt.adalambda: the KL's weight, ~1/num_train_samples (Graves 2011);
+    # the reference's default is 1 (AdaptiveWeightNoise.lua:18).
+    awn_lambda: float = 1.0
+    awn_sigma_init: float = 0.075
+    weight_noise_sigma: float = 0.0
     beam_k: int = 5  # opt.K
     max_samples: Optional[int] = None  # opt.maxnumsamples
     eval_len_factor: float = 1.0  # beam maxseqlen = factor * L (2.0 for librispeech)
@@ -69,9 +79,7 @@ class TrainConfig:
 
 
 def _check_noise(tcfg: TrainConfig) -> None:
-    if tcfg.noise in ("awn", "weight"):
-        raise NotImplementedError(f"noise={tcfg.noise!r} is not ported yet")
-    if tcfg.noise != "none":
+    if tcfg.noise not in ("none", "awn", "weight"):
         raise ValueError(f"unknown noise {tcfg.noise!r}")
 
 
@@ -81,11 +89,14 @@ def _one_hot_labels(y: torch.Tensor, dec_mask: torch.Tensor, v: int) -> torch.Te
 
 
 def make_init_fn(tx: optim.Transform, tcfg: TrainConfig):
-    """(params, generator) -> the train state (params, opt_state, generator)."""
+    """(params, generator) -> the train state (train_params, opt_state,
+    generator); train_params is awn.init(params, awn_sigma_init) under
+    noise="awn", else params."""
     _check_noise(tcfg)
 
     def init_fn(params, generator: torch.Generator):
-        return (params, tx.init(params), generator)
+        train_params = awn.init(params, tcfg.awn_sigma_init) if tcfg.noise == "awn" else params
+        return (train_params, tx.init(train_params), generator)
 
     return init_fn
 
@@ -94,23 +105,40 @@ def make_step_core(forward_fn: Callable[..., Dict[str, torch.Tensor]], tx: optim
                    ocfg: optim.OptimConfig, tcfg: TrainConfig, output_depth: int):
     """step_fn(state, batch) -> (state, metrics); batch = (x, x_len, y,
     dec_mask). forward_fn(params, x, x_len, labels_onehot, dec_mask, *,
-    train) -> dict(logprobs, alpha, penalty). Metrics are 0-d tensors on
-    the batch's device: loss (the report), nll, grad_norm, param_norm
-    (global norms, the latter after the update), correct, total,
-    penalty."""
+    generator, train) -> dict(logprobs, alpha, penalty). Metrics are 0-d
+    tensors on the batch's device: loss (the report), nll, grad_norm,
+    param_norm (global norms, the latter after the update), correct,
+    total, penalty, and under AWN awn_sigma_rms.
+
+    Under AWN the forward runs at a sample w = mu + sigma * eps that is a
+    leaf of its own; awn.grads turns dNLL/dw into the gradients of (mu,
+    s), which the optimizer takes as one tree (grad_norm is theirs); the
+    reported loss is the nll plus lambda * KL of the state before the
+    update, param_norm is |mu|, and awn_sigma_rms the rms of sigma after
+    the update (trainer.py:147-230 of the JAX package). Under
+    noise="weight" the gradient at theta + sigma * eps updates theta."""
     _check_noise(tcfg)
+    use_awn = tcfg.noise == "awn"
 
     def rowmean(v, row):
         return torch.sum(v * row) / torch.clamp(torch.sum(row), min=1.0)
 
     def step_fn(state, batch):
-        params, opt_state, generator = state
+        train_params, opt_state, generator = state
         x, x_len, y, dec_mask = batch
         onehot = _one_hot_labels(y, dec_mask, output_depth)
+        with torch.no_grad():
+            if use_awn:
+                params = awn.sample(generator, train_params)
+            elif tcfg.noise == "weight":
+                params = awn.weight_noise_sample(generator, train_params,
+                                                 tcfg.weight_noise_sigma)
+            else:
+                params = train_params
         leaves = [t.detach().requires_grad_(True) for t in tree.leaves(params)]
         live = tree.unflatten(params, leaves)
         with torch.enable_grad():
-            out = forward_fn(live, x, x_len, onehot, dec_mask, train=True)
+            out = forward_fn(live, x, x_len, onehot, dec_mask, generator=generator, train=True)
             per_utt = torch.sum(-torch.sum(onehot * out["logprobs"], dim=-1) * dec_mask, dim=-1)
             steps = torch.sum(dec_mask, dim=-1)
             lens = torch.clamp(steps, min=1.0)
@@ -120,22 +148,32 @@ def make_step_core(forward_fn: Callable[..., Dict[str, torch.Tensor]], tx: optim
         with torch.no_grad():
             loss = rowmean(per_utt / lens if tcfg.normalize_nll else per_utt, row)
             logprobs = out["logprobs"].detach()
+            loss_report = loss
+            if use_awn:
+                loss_report = loss + tcfg.awn_lambda * awn.kl(train_params)
+                grads = awn.grads(train_params, grads, tcfg.awn_lambda)
             gnorm = tree.global_norm(grads)
-            updates, opt_state = tx.update(grads, opt_state, params)
-            params = optim.apply_updates(params, updates)
-            if ocfg.colnorm:
-                params = optim.colnorm_project(params, ocfg.colnorm_maxval)
+            updates, opt_state = tx.update(grads, opt_state, train_params)
+            train_params = optim.apply_updates(train_params, updates)
+            if ocfg.colnorm and use_awn:
+                train_params = {"mu": optim.colnorm_project(train_params["mu"],
+                                                            ocfg.colnorm_maxval),
+                                "s": train_params["s"]}
+            elif ocfg.colnorm:
+                train_params = optim.colnorm_project(train_params, ocfg.colnorm_maxval)
             correct, total = token_accuracy(logprobs, y, dec_mask)
             metrics = {
-                "loss": loss,
+                "loss": loss_report,
                 "nll": loss,
                 "grad_norm": gnorm,
-                "param_norm": tree.global_norm(params),
+                "param_norm": tree.global_norm(eval_params(tcfg, train_params)),
                 "correct": correct,
                 "total": total,
                 "penalty": torch.sum(out["penalty"].detach()),
             }
-        return (params, opt_state, generator), metrics
+            if use_awn:
+                metrics["awn_sigma_rms"] = awn.sigma_rms(train_params)
+        return (train_params, opt_state, generator), metrics
 
     return step_fn
 
@@ -164,10 +202,9 @@ def make_eval_step(forward_fn: Callable[..., Dict[str, torch.Tensor]], output_de
 
 
 def eval_params(tcfg: TrainConfig, train_params):
-    """The weights evaluation uses: the params themselves (AWN's mode, mu,
-    comes with the AWN port)."""
-    _check_noise(tcfg)
-    return train_params
+    """The weights evaluation uses: AWN's mode, mu, under noise="awn",
+    else the params themselves (timit.lua:375-379)."""
+    return awn.mode(train_params) if tcfg.noise == "awn" else train_params
 
 
 def make_decode_step(encode_fn: Callable, attention_cfg, beam_k: int, len_factor: float = 1.0,
@@ -267,9 +304,10 @@ class Trainer:
 
     def init(self, params):
         """The train state from `params` (numpy arrays or tensors), moved to
-        the trainer's device; the generator is seeded with tcfg.seed."""
+        the trainer's device; the generator, on that device, is seeded with
+        tcfg.seed."""
         self.state = self.init_fn(interop.to_torch(params, self.device),
-                                  torch.Generator().manual_seed(self.tcfg.seed))
+                                  torch.Generator(device=self.device).manual_seed(self.tcfg.seed))
         return self.state
 
     def _ckpt_path(self, tag: str) -> str:
@@ -331,7 +369,7 @@ class Trainer:
         t0 = time.time()
         n_batches, n_samples = self._train_pass(ds, batcher, epoch, agg)
         dt = time.time() - t0
-        return {
+        row = {
             "epoch": epoch,
             "train_loss": agg["loss"] / max(n_batches, 1),
             "train_nll": agg["nll"] / max(n_batches, 1),
@@ -341,10 +379,17 @@ class Trainer:
             "train_seconds": dt,
             "train_samples_per_s": n_samples / max(dt, 1e-9),
         }
+        # Under AWN, the last batch's sigma rms and |mu|: the posterior's
+        # drift (mu draining, sigma inflating) shows here before the PER.
+        for k in ("awn_sigma_rms", "param_norm"):
+            if k in agg:
+                row[k] = agg[k]
+        return row
 
     def _train_pass(self, ds, batcher, epoch: int, agg) -> Tuple[int, int]:
         agg_dev = None  # device-side running sums
         n_batches = n_samples = 0
+        m = {}
         for batch in batcher.batches(ds, shuffle=True, seed=self.tcfg.seed + epoch,
                                      max_samples=self.tcfg.max_samples):
             self.state, m = self.step_fn(self.state, self._batch_arrays(batch))
@@ -358,6 +403,9 @@ class Trainer:
                 if self.tcfg.nan_debug and not math.isfinite(agg["loss"]):
                     self._tripwire(f"by epoch {epoch} batch {n_batches}", batch)
         self._drain(agg, agg_dev)
+        if "awn_sigma_rms" in m:
+            agg["awn_sigma_rms"] = float(m["awn_sigma_rms"])
+            agg["param_norm"] = float(m["param_norm"])
         if self.tcfg.nan_debug and not math.isfinite(agg["loss"]):
             self._tripwire(f"in epoch {epoch}")
         return n_batches, n_samples

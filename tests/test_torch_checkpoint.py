@@ -43,7 +43,7 @@ def case():
     for j, xi in enumerate(xs):
         x[j, : len(xi)] = xi
     lens = np.array([len(xi) for xi in xs], np.int32)
-    return jmodel, registry.build("chorowski", dropout=0.5), params, x, lens
+    return jmodel, registry.build("chorowski_dropout"), params, x, lens
 
 
 def test_checkpoint_encodes_and_decodes_like_jax(case):

@@ -28,7 +28,7 @@ def test_port_files_are_found():
             "attention_scan.py", "trainer.py", "optim.py", "initializers.py", "experiment.py",
             "loss.py", "tree.py", "lstm_scan.py", "conv.py", "conv_bilstm.py", "metrics.py",
             "batching.py", "synthetic.py", "timit.py", "greedy.py", "checkpoint.py",
-            "debug.py"} <= names
+            "debug.py", "monotonic.py", "awn.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -262,19 +262,26 @@ def test_loc_lstm_scan_missing_cotangents_count_as_zeros():
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
-def test_teacher_forced_scan_refuses_the_active_penalty():
-    """Of the teacher-forced scan's options only the monotonic penalty is
-    refused, and only in training: it would otherwise train without its
-    gradient."""
+def test_teacher_forced_scan_takes_the_active_penalty():
+    """The monotonic penalty trains on every decoder: in train mode the
+    scan gives eval mode's outputs and penalty, and a gradient that
+    reaches the weights (tests/test_torch_monotonic.py holds it to JAX's)."""
     for cell, fm in (("gru", 0), ("gru", 4), ("lstm", 0), ("lstm", 4)):
         _, cfg = configs(cell, fm)
         cfg = dataclasses.replace(cfg, mono_align=True, penalty_lambda=0.5)
         params = attention.attention_init(torch.Generator().manual_seed(0), cfg)
-        args = (params, cfg, torch.zeros(2, 5, 24), torch.tensor([5, 3]), torch.zeros(2, 3, 6),
+        h = torch.randn(2, 5, 24, generator=torch.Generator().manual_seed(1))
+        args = (cfg, h, torch.tensor([5, 3]), torch.eye(6)[None, :3].expand(2, 3, 6),
                 torch.ones(2, 3))
-        assert attention.decode_teacher_forced(*args, train=False)["logprobs"].shape == (2, 3, 6)
-        with pytest.raises(NotImplementedError):
-            attention.decode_teacher_forced(*args, train=True)
+        with torch.no_grad():
+            ev = attention.decode_teacher_forced(params, *args)
+        live = jax.tree.map(lambda t: t.clone().requires_grad_(True), params)
+        tr = attention.decode_teacher_forced(live, *args, train=True)
+        for key in ("logprobs", "alpha", "penalty"):
+            torch.testing.assert_close(tr[key].detach(), ev[key], rtol=0, atol=0)
+        assert tr["penalty"].shape == (2, 3)
+        grads = torch.autograd.grad(tr["logprobs"].sum(), jax.tree.leaves(live))
+        assert all(torch.isfinite(g).all() for g in grads)
 
 
 def test_peepholes_are_refused():

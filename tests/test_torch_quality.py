@@ -95,8 +95,8 @@ def trainers(staged):
                                dump_predictions=True)
     return (jtrainer.Trainer(jregistry.build("chorowski_dropout", **DIMS), joptim.OptimConfig(),
                              jtcfg, vocab=vocab),
-            trainer.Trainer(registry.build("chorowski", **DIMS), optim.OptimConfig(), tcfg,
-                            vocab=timit.Vocab.standard(), device="cpu"))
+            trainer.Trainer(registry.build("chorowski_dropout", **DIMS), optim.OptimConfig(),
+                            tcfg, vocab=timit.Vocab.standard(), device="cpu"))
 
 
 def evaluate_both(trainers, params, port_params, batches):
@@ -196,3 +196,62 @@ def test_awn_mu_per(staged, trainers):
     for split in ("synth", "host"):
         want, got = evaluate_both(trainers, mu, interop.to_torch(mu, "cpu"), batches[split])
         check_agreement(want, got, f"AWN mu, {split} split")
+
+
+@pytest.mark.slow
+def test_train_split_by_staging(params):
+    """The checkpoint on the first three train batches of each staging:
+    its eval-mode NLL a step (averaged over utterances, the train_nll of
+    normalize_nll) and the global norm of the gradient of the mean
+    per-utterance NLL; the JAX package's on both stagings, the port's on
+    the host-built one. The checkpoint was trained on the DeviceSynth
+    draws; chip_smoke.py's restart of the AWN stage trains on the
+    host-built draws of the same utterances."""
+    import jax.numpy as jnp
+    import optax
+    import torch
+
+    from seq2seq_attention_asr_tpu_torch import tree
+
+    train, _, _ = jsynthetic.timit_shaped(4000, 192, noise=NOISE, seed=SEED)
+    base = lambda: jbatching.BucketedBatcher.from_dataset(train, BATCH, n_buckets=BUCKETS)
+    stagings = {
+        "synth": jbatching.CachedDeviceBatcher(base(), seed=SEED, synth=jbatching.DeviceSynth(
+            jsynthetic.prototype_table(61, 123, SEED), noise=NOISE, seed=SEED)),
+        "host": batching.CachedDeviceBatcher(batching.BucketedBatcher.from_dataset(
+            train, BATCH, n_buckets=BUCKETS), seed=SEED, device="cpu")}
+    jparams, tparams = params
+    jmodel, model = jregistry.build("chorowski_dropout", **DIMS), registry.build(
+        "chorowski_dropout", **DIMS)
+
+    def jstats(p, x, xl, y, dm):
+        oh = jax.nn.one_hot(y, 62) * dm[..., None]
+        per = -(oh * jmodel.forward(p, x, xl, oh, dm)["logprobs"]).sum(-1).sum(-1)
+        return jnp.mean(per), jnp.mean(per / dm.sum(-1))
+
+    jgrad = jax.jit(jax.value_and_grad(jstats, has_aux=True))
+    got = {}
+    for name, batcher in stagings.items():
+        rows = []
+        for i, b in enumerate(batcher.batches(train)):
+            if i == 3:
+                break
+            arrs = [np.asarray(a) for a in (b.x, b.x_len, b.y, b.dec_mask)]
+            (_, nll), g = jgrad(jparams, *map(jnp.asarray, arrs))
+            rows.append((float(nll), float(optax.global_norm(g))))
+            if name == "host":
+                leaves = [t.detach().requires_grad_(True) for t in tree.leaves(tparams)]
+                x, xl, y, dm = map(torch.from_numpy, arrs)
+                oh = torch.nn.functional.one_hot(y.long(), 62).float() * dm[..., None]
+                lp = model.forward(tree.unflatten(tparams, leaves), x, xl, oh, dm)["logprobs"]
+                per = -(oh * lp).sum(-1).sum(-1)
+                gn = float(tree.global_norm(torch.autograd.grad(per.mean(), leaves)))
+                np.testing.assert_allclose(float((per / dm.sum(-1)).mean().detach()), rows[-1][0],
+                                           rtol=1e-4)
+                np.testing.assert_allclose(gn, rows[-1][1], rtol=1e-3)
+            print(f"train split, {name} staging, batch {i} {b.x.shape}: NLL a step "
+                  f"{rows[-1][0]!r}, gradient norm {rows[-1][1]!r}")
+        got[name] = np.mean(rows, axis=0)
+        print(f"train split, {name} staging, first three batches: mean NLL a step "
+              f"{got[name][0]!r}, mean gradient norm {got[name][1]!r}")
+    assert got["synth"][0] < got["host"][0] / 3

@@ -277,42 +277,25 @@ def test_init_params_applies_the_recipe_on_the_cpu():
 
 
 # --- what the slice does not port is refused -----------------------------------------------
+# (dropout, the monotonic penalty, AWN and weight noise train: tests/test_torch_dropout.py,
+# test_torch_monotonic.py and test_torch_awn.py)
 
 
-def _forward(model, train):
-    params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    x, lens, y, dm = _batch(2, 5, 3, 7, 0, [5, 3], [3, 2], feat=10)
-    oh = torch.nn.functional.one_hot(torch.from_numpy(y).long(), 7).float()
-    return model.forward(params, *map(torch.from_numpy, (x, lens)), oh, torch.from_numpy(dm),
-                         train=train)
-
-
-@pytest.mark.parametrize("case", ["awn", "weight", "dropout", "penalty", "lstm"])
+@pytest.mark.parametrize("case", ["lstm"])
 def test_unported_configurations_are_refused(case):
-    if case in ("awn", "weight"):
+    # The LSTM decoder with peepholes: its weights are not made, and the
+    # teacher-forced scan refuses it.
+    cfg = attention.AttentionConfig(score_depth=4, state_depth=4, annotation_depth=4,
+                                    output_depth=3, cell="lstm")
+    params = attention.attention_init(torch.Generator().manual_seed(0), cfg)
+    peep = dataclasses.replace(cfg, peepholes=True)
+    for train in (False, True):
         with pytest.raises(NotImplementedError):
-            trainer.make_train_step(None, optim.build_optimizer(optim.OptimConfig()),
-                                    optim.OptimConfig(), trainer.TrainConfig(noise=case), 7)
-    elif case in ("dropout", "penalty"):
-        kw = dict(dropout=0.5) if case == "dropout" else dict(penalty_lambda=0.5)
-        model = registry.build("chorowski", **SMALL, **kw)
-        assert _forward(model, train=False)["logprobs"].shape == (2, 3, 7)
-        with pytest.raises(NotImplementedError):
-            _forward(model, train=True)
-    else:
-        # The LSTM decoder with peepholes: its weights are not made, and
-        # the teacher-forced scan refuses it.
-        cfg = attention.AttentionConfig(score_depth=4, state_depth=4, annotation_depth=4,
-                                        output_depth=3, cell="lstm")
-        params = attention.attention_init(torch.Generator().manual_seed(0), cfg)
-        peep = dataclasses.replace(cfg, peepholes=True)
-        for train in (False, True):
-            with pytest.raises(NotImplementedError):
-                attention.decode_teacher_forced(params, peep, torch.zeros(1, 2, 4),
-                                                torch.tensor([2]), torch.zeros(1, 1, 3),
-                                                torch.ones(1, 1), train=train)
-        with pytest.raises(NotImplementedError):
-            attention.attention_init(torch.Generator().manual_seed(0), peep)
+            attention.decode_teacher_forced(params, peep, torch.zeros(1, 2, 4),
+                                            torch.tensor([2]), torch.zeros(1, 1, 3),
+                                            torch.ones(1, 1), train=train)
+    with pytest.raises(NotImplementedError):
+        attention.attention_init(torch.Generator().manual_seed(0), peep)
 
 
 def test_chorowski_forward_is_encode_then_decode():

@@ -52,13 +52,12 @@ def jax_params(name, kw, seed=0):
 def test_train_config_matches_jax():
     got = {f.name: f.default for f in dataclasses.fields(trainer.TrainConfig)}
     want = {f.name: f.default for f in dataclasses.fields(jtrainer.TrainConfig)}
-    # the port has no feeder thread, and no AWN or weight noise yet
-    for name in ("prefetch", "awn_lambda", "awn_sigma_init", "weight_noise_sigma"):
-        want.pop(name)
+    # the port has no feeder thread
+    want.pop("prefetch")
     assert got == want
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         trainer.Trainer(registry.build("chorowski", **SMALL), optim.OptimConfig(),
-                        trainer.TrainConfig(noise="awn"), device="cpu")
+                        trainer.TrainConfig(noise="gauss"), device="cpu")
     with pytest.raises(NotImplementedError):
         trainer.Trainer(registry.build("chorowski", **SMALL), optim.OptimConfig(),
                         trainer.TrainConfig(), device="cpu", mesh=object())
@@ -130,6 +129,113 @@ class Fixed:
 
     def batches(self, ds, **kw):
         return iter(self._batches)
+
+
+def test_awn_dropout_fit_matches_jax(corpus, tmp_path, one_thread, monkeypatch):
+    """Two epochs of the AWN stage (the dropout recipe, noise="awn") at
+    small widths from the same weights on the same batches, with JAX's
+    draws: the same rows, the last batch's awn_sigma_rms and param_norm
+    among them, the evaluation at mu."""
+    from test_torch_dropout import JaxDraws
+
+    (train, valid, vocab), (jtrain, jvalid, jvocab) = corpus
+    exp = experiment.timit_chorowski_dropout()
+    exp.model_kwargs.update(SMALL)
+    noise = dict(noise="awn", awn_lambda=1e-3, awn_sigma_init=0.02)
+    tcfg = dataclasses.replace(exp.train, num_epochs=2, batch_size=4, beam_k=3, **noise)
+    jtcfg = jtrainer.TrainConfig(num_epochs=2, batch_size=4, beam_k=3, normalize_nll=True,
+                                 prefetch=0, **noise)
+    jocfg = joptim.OptimConfig(**dataclasses.asdict(exp.optim))
+    params = jax_params("chorowski_dropout", exp.model_kwargs)
+
+    jtr = jtrainer.Trainer(jregistry.build("chorowski", **exp.model_kwargs), jocfg, jtcfg,
+                           vocab=jvocab)
+    jtr.init(params)
+    want = list(jtr.fit(jtrain, jvalid, jbatching.BucketedBatcher.from_dataset(jtrain, 4, 2)))
+    tr = trainer.Trainer(exp.build_model(), exp.optim, tcfg, vocab=vocab, device="cpu")
+    tr.init(params)
+    draws = JaxDraws(tcfg.seed)
+    draws.install(monkeypatch)
+    step = tr.step_fn
+
+    def drawn_step(state, batch):
+        draws.next_step()
+        return step(state, batch)
+
+    tr.step_fn = drawn_step
+    got = list(tr.fit(train, valid, batching.BucketedBatcher.from_dataset(train, 4, 2)))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert set(g) == set(w) and "awn_sigma_rms" in g
+        for k in ("train_loss", "train_nll", "train_accuracy", "grad_norm", "valid_nll",
+                  "awn_sigma_rms", "param_norm"):
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-4, err_msg=k)
+        for k in ("epoch", "penalty", "valid_accuracy", "valid_per"):
+            assert g[k] == w[k], k
+    assert tr.best == jtr.best
+    assert got[-1]["train_loss"] > got[-1]["train_nll"]
+
+
+def test_awn_dropout_trainer_resumes_its_state_and_generator(tmp_path):
+    """An AWN trainer with dropout: its checkpoint holds (mu, s), the
+    optimizer state over both and the generator, on the trainer's device;
+    one epoch, then a resumed second, ends where two epochs straight do,
+    bit for bit."""
+    ds = _toy_dataset()
+    exp = _toy_recipe(tmp_path)
+    exp.model_kwargs["dropout"] = 0.5
+    tcfg = dataclasses.replace(exp.train, noise="awn", awn_lambda=0.01, awn_sigma_init=0.05)
+    batcher = batching.BucketedBatcher.from_dataset(ds, 2, n_buckets=1)
+    params = exp.init_params(torch.Generator().manual_seed(0), device="cpu")
+
+    def make(save_dir, epochs):
+        tr = trainer.Trainer(exp.build_model(), exp.optim,
+                             dataclasses.replace(tcfg, num_epochs=epochs), save_dir=save_dir,
+                             device="cpu")
+        tr.init(params)
+        return tr
+
+    straight = make(str(tmp_path / "a"), 2)
+    list(straight.fit(ds, ds, batcher, decode_every=0))
+    assert straight.state[2].device.type == "cpu" and set(straight.state[0]) == {"mu", "s"}
+    list(make(str(tmp_path / "b"), 1).fit(ds, ds, batcher, decode_every=0))
+    saved = checkpoint.load(str(tmp_path / "b" / "ckpt_latest"), device="cpu")
+    assert set(saved["state"][0]) == {"mu", "s"} and set(saved["state"][1][0]) == {"var", "acc"}
+    assert set(saved["state"][1][0]["var"]) == {"mu", "s"}
+    resumed = make(str(tmp_path / "b"), 2)
+    rows = list(resumed.fit(ds, ds, batcher, resume=True, decode_every=0))
+    assert [r["epoch"] for r in rows] == [2]
+    for a, b in zip(tree.leaves(list(straight.state[:2])), tree.leaves(list(resumed.state[:2]))):
+        assert torch.equal(a, b)
+    assert torch.equal(straight.state[2].get_state(), resumed.state[2].get_state())
+
+
+def test_run_cli_trains_the_awn_stage(tmp_path):
+    """run_cli with an experiment that asks for AWN and dropout: the
+    trainer's state is (mu, s), and the epoch rows carry awn_sigma_rms."""
+    pytest.importorskip("h5py")
+    root = str(tmp_path / "TIMIT")
+    _make_corpus(root, {"TRAIN": ["MAAA0", "MBBB0"], "TEST": ["MCCC0"]})
+    train, valid, _, _, _, _ = jtimit.build_datasets(root, feature_fn=jfeatures.logmel_np, pad=2)
+    data = str(tmp_path / "data")
+    os.makedirs(data)
+    jtimit.save_hdf5(train, os.path.join(data, "train.h5"))
+    jtimit.save_hdf5(valid, os.path.join(data, "valid.h5"))
+
+    def awn_stage(save_dir=None):
+        exp = experiment.scriptchecker(save_dir=save_dir)
+        exp.model_kwargs["dropout"] = 0.5
+        exp.train = dataclasses.replace(exp.train, noise="awn", awn_lambda=1e-3,
+                                        awn_sigma_init=0.01)
+        return exp
+
+    save = str(tmp_path / "run")
+    tr = experiment.run_cli(awn_stage, "scriptchecker",
+                            ["--cpu", "--data", data, "--save", save, "--decode-every", "0"])
+    assert tr.epoch == 2 and set(tr.state[0]) == {"mu", "s"}
+    rows = trainer.MetricLog.load(os.path.join(save, "log.jsonl"))
+    assert all(0.0099 < r["awn_sigma_rms"] < 0.0101 and np.isfinite(r["train_loss"])
+               for r in rows)
 
 
 def test_attention_and_prediction_dumps_match_jax(corpus, tmp_path):

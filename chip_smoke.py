@@ -9,13 +9,15 @@ kernels; then the trainer: the committed checkpoint's held-out beam PER,
 an epoch loop with checkpoints and resume, and greedy decode; then the
 reference recipe's regularisers: the committed AWN stage restarted from
 the checkpoint, the monotonic penalty on each decoder, dropout and
-weight noise.
+weight noise; then the flagship's bf16 evaluation through the bf16
+entries of K1, K2 and K4.
 
     python3 chip_smoke.py
 
 Phases, each fatal when it fails:
   1. the card's name and power limit (nvidia-smi);
-  2. build the nineteen kernels from csrc/ (one nvcc per source, in parallel);
+  2. build the nineteen kernels and the bf16 entries of K1, K2 and K4 from
+     csrc/ (one nvcc per library, in parallel);
   3. hold each kernel to its plain PyTorch version through its public
      wrapper: K1-K3 at the flagship's serving shapes, batch 1 and 8 (max
      abs error 1e-4; K3 also twice, the two calls bitwise equal, one
@@ -189,7 +191,28 @@ Phases, each fatal when it fails:
      each twice from one generator state: the same masks and noise and
      the same loss, the mask keeping 0.5 +- 0.01 of its values; and the
      phase's wall seconds;
- 12. one {"kernels": [...]} JSON line, the card line, and the last line
+ 12. the bf16 operating point (compute_dtype="bfloat16") of the flagship's
+     evaluation path, bf16 products outside the kernels summing in
+     float32 under PyTorch's default flags: (a) the bf16 entries of K1
+     and K4 at B = 16, L = 144, T = 56 and of K2 at B = 16, K = 5 and b
+     = 1, L = 132, each also at B = 1, L = 131 and on the held-out
+     split's longest evaluation batch (B = 32), on the committed
+     checkpoint's weights in bf16, against their exact plain twins
+     element by element (BF16_ULPS) and by the ground-truth rule against
+     the plain bf16 versions at the JAX kernels' rounding points (each
+     output's relative L2 distance from the float32 plain version's on
+     the upcast inputs at most 2 x the plain bf16 version's + 0.02),
+     with the max abs error; (b) params.npz as a bf16 model through
+     Trainer.evaluate on the held-out split, launching the three bf16
+     entries and no other kernel: its beam PER within 0.005 of the
+     port's CPU bf16 value (HELD_OUT_PER_CPU_BF16) and within 0.01 of
+     the float32 one; (c) each bf16 entry's device time beside its
+     float32 kernel's on the upcast inputs, its plain twin's time and
+     bound (bf16 bytes, operations at the bf16 tensor-core peak), and
+     one B = 32 evaluation batch (the eval step and the beam) in bf16
+     beside float32, wall and device time; (d) a bf16 train step
+     raising NotImplementedError; and the phase's wall seconds;
+ 13. one {"kernels": [...]} JSON line, the card line, and the last line
      {"ok": true, "device": {...}}.
 
 It exits nonzero without a card, and imports nothing of the JAX package.
@@ -248,9 +271,13 @@ PAD_FRAMES = 10  # zero frames at both ends, as the TIMIT pipeline adds
 TOL = 1e-4  # kernel vs plain version, max abs error
 SCORE_TOL = 5e-3  # card vs CPU beam scores (sums of ~130 log-probs)
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet): float32
-# outside the tensor cores, and HBM3 bandwidth. The kernels compute in
-# float32 on the CUDA cores.
+# outside the tensor cores, bf16 on the tensor cores (dense), and HBM3
+# bandwidth. A bound counts a function's operations at the rate of its
+# inputs' type: float32 for the float32 kernels, bf16 for the bf16
+# entries (their products are bf16 x bf16 summed in float32, which the
+# tensor cores run at the bf16 rate), whatever units the kernel uses.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # Training: the padded TIMIT shapes (L frames, T labels), the recipe's
 # batch, and the larger batch the train step is also timed at.
@@ -508,16 +535,16 @@ TRACE_PAD_S = 0.02
 
 
 @contextlib.contextmanager
-def traced(activities):
-    """A profiler trace of the block, with TRACE_PAD_S of host pause at
+def traced(activities, pad: float = TRACE_PAD_S):
+    """A profiler trace of the block, with `pad` seconds of host pause at
     each end; the block's device work is synchronised before it closes."""
     from torch.profiler import profile
 
     with profile(activities=activities) as prof:
-        time.sleep(TRACE_PAD_S)
+        time.sleep(pad)
         yield prof
         torch.cuda.synchronize()
-        time.sleep(TRACE_PAD_S)
+        time.sleep(pad)
 
 
 def device_ms(fn, symbols, iters: int) -> float:
@@ -528,7 +555,12 @@ def device_ms(fn, symbols, iters: int) -> float:
     call starts when `symbols` is None, without the host's time between
     launches. A trace that kept fewer than nine tenths of the launches (or,
     for `symbols` None, no device record: nan after three) is taken again,
-    at most twice."""
+    at most twice, with ten times the host pause at its ends each time
+    (late in a long run, a trace at TRACE_PAD_S kept 6 of 10 K1 launches
+    three times over); after three, the mean is over the launches the
+    third kept if it kept at least half of each symbol's (late in a long
+    run, K1's bf16 entry kept 6 of 10 at every pause), else the run
+    stops."""
     return sum(device_parts(fn, symbols, iters).values())
 
 
@@ -541,7 +573,8 @@ def device_parts(fn, symbols, iters: int) -> dict:
     fn()
     torch.cuda.synchronize()
     for attempt in range(3):
-        with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                    TRACE_PAD_S * 10 ** attempt) as prof:
             for _ in range(iters):
                 fn()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -550,7 +583,7 @@ def device_parts(fn, symbols, iters: int) -> dict:
                 return {None: sum(e.time_range.elapsed_us() for e in events) / iters / 1e3}
             print(f"device_ms: trace {attempt + 1} kept no device record")
             continue
-        ms, short = {}, []
+        ms, short, half = {}, [], True
         for symbol in dict.fromkeys(symbols):
             per_call = symbols.count(symbol)
             durs = [e.time_range.elapsed_us() for e in events if symbol in e.name]
@@ -559,20 +592,25 @@ def device_parts(fn, symbols, iters: int) -> dict:
                                  f"{iters * per_call}")
             if len(durs) < 0.9 * iters * per_call:
                 short.append(f"{len(durs)} launches of {symbol}, expected {iters * per_call}")
-                continue
+                half = half and len(durs) >= 0.5 * iters * per_call
             # The mean is over the records the trace kept.
-            ms[symbol] = per_call * sum(durs) / len(durs) / 1e3
+            ms[symbol] = per_call * sum(durs) / max(len(durs), 1) / 1e3
         if not short:
             return ms
         print(f"device_ms: trace {attempt + 1} kept {'; '.join(short)}")
     if symbols is None:
         return {None: float("nan")}
+    if half:
+        print("device_ms: the mean over the launches trace 3 kept (each record's duration is "
+              "whole; the lost ones are absent, not cut)")
+        return ms
     raise SystemExit(f"profiler saw {'; '.join(short)} in each of 3 traces")
 
 
-def bound(flops: float, nbytes: float):
-    """Least time on this card for the work: (ms, "operations"|"bytes")."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
+    """Least time on this card for the work, its operations at
+    `peak_flops`: (ms, "operations"|"bytes")."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -2851,6 +2889,342 @@ def regulariser_phase(kernels, penalty_recipes, card: str) -> float:
     return took
 
 
+# Phase 12: the bf16 operating point (compute_dtype="bfloat16") of the
+# flagship's evaluation path: K1, K4 and K2 through their bf16 entries.
+# Each is held to its exact plain twin (the entry's own rounding points
+# in plain PyTorch: bigru_scan2_plain, gru_folded_scan_plain,
+# fused_attention_step_plain), element by element, within BF16_ULPS bf16
+# ulps at max(|twin|, 1), and on fewer elements than the float32 result
+# rounded at its outputs (BF16_ROUNDED_SHARE); and by the ground-truth
+# rule: each output's relative L2 distance from the float32 plain
+# version's on the same bf16-valued inputs, upcast, at most 2 x the plain
+# bf16 version's at the JAX kernel's rounding points + 0.02 (the rule the
+# CPU tests hold the plain versions to against the JAX package). The
+# held-out PER of the committed checkpoint as a bf16 model: the port's on
+# the CPU (tests/test_torch_bf16.py -m slow; the JAX package's XLA path
+# there gives 0.10548065162836319).
+HELD_OUT_PER_CPU_BF16 = 0.10682398127180333
+HELD_OUT_PER_BF16_TOL = 0.005  # card vs CPU, bf16
+HELD_OUT_PER_BF16_F32_TOL = 0.01  # bf16 vs the float32 PER (HELD_OUT_PER_CPU)
+# Each bf16 entry's kernel by name, and the float32 kernel it is an
+# instance of (its source, the TPU kernel it replaces, why no library call).
+BF16_OF = {"bigru_scan2_bf16": "bigru_scan2", "attention_decode_scan_fwd_bf16":
+           "attention_decode_scan_fwd", "fused_attention_step_bf16": "fused_attention_step"}
+# Their device kernels by trace name (K2's bf16 instance is the template
+# attention_step_kernel<ArgsT<bf16>>: timed alone, it is its only launch).
+BF16_SYMBOLS = {"bigru_scan2_bf16": ("bigru_scan2_bf16_kernel",),
+                "attention_decode_scan_fwd_bf16": ("gru_fwd_prepass_bf16_kernel",) * 2
+                + ("content_gru_fwd_bf16_kernel",),
+                "fused_attention_step_bf16": ("attention_step_kernel",)}
+F32_SYMBOLS = {"bigru_scan2_bf16": ("bigru_scan2_kernel",),
+               "attention_decode_scan_fwd_bf16": GRU_FWD_PREPASS + ("content_gru_fwd_kernel",),
+               "fused_attention_step_bf16": ("attention_step_kernel",)}
+BF16_ODD_L = 131  # the edge shapes: one batch row, an odd encoder length
+# Kernel vs exact twin, each element, in bf16 ulps at max(|twin|, 1). The
+# kernels sum in another order than the twins, which flips a rounding now
+# and then; K4's recurrence carries a flipped operand over its 56-64 steps
+# (at most 0.5, 2.4 and 18.5 ulps on the card for K1, K2 and K4, and a K4
+# twin that skips the operand roundings lands 59-65 ulps from its own on
+# the CPU; PERF.md §6).
+BF16_ULPS = {"bigru_scan2_bf16": 2, "attention_decode_scan_fwd_bf16": 32,
+             "fused_attention_step_bf16": 4}
+# The rounding check: a kernel that skipped the bf16 rounding points would
+# be the float32 result rounded at its outputs, and would differ from the
+# twin on as many elements as that does; the kernel must differ on at most
+# this share of them, on each output where that result differs on at
+# least BF16_ROUNDED_MIN of the elements (K2's alpha and c come before
+# its first rounding point, on bf16 inputs).
+BF16_ROUNDED_SHARE = 0.75
+BF16_ROUNDED_MIN = 0.01
+
+
+def rel_dist(got, truth) -> float:
+    t = truth.float()
+    return float((got.float() - t).norm()) / max(float(t.norm()), 1e-6)
+
+
+def bf16_ulps(got, twin):
+    """(the largest distance of an element of `got` from `twin` in bf16 ulps
+    at max(|twin|, 1), the share of elements that differ)."""
+    g, w = got.float(), twin.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1.0))) - 7)
+    d = (g - w).abs()
+    return float((d / ulp).max()) if d.numel() else 0.0, float((d != 0).float().mean())
+
+
+def bf16_check(name, tag, got, twin, plain, truth) -> float:
+    """The bf16 kernel's outputs `got` against its exact twin's: each
+    element within BF16_ULPS[name] ulps, and differing on at most
+    BF16_ROUNDED_SHARE of the share of elements on which the float32
+    `truth`, rounded to the output's type, differs from the twin (where
+    that share is BF16_ROUNDED_MIN or more); and by the ground-truth rule
+    against the plain bf16 version's (`plain`, the JAX kernel's rounding
+    points). Exits when one fails or an output is not finite. Returns the
+    max abs error against the twin."""
+    err = max_err([g.float() for g in got], [w.float() for w in twin])
+    for i, (g, w, p, t) in enumerate(zip(got, twin, plain, truth)):
+        kd, pd = rel_dist(g, t), rel_dist(p, t)
+        ulps, differ = bf16_ulps(g, w)
+        _, unrounded = bf16_ulps(t.to(g.dtype), w)
+        finite = bool(torch.isfinite(g.float()).all())
+        print(f"parity {name} {tag} output {i}: {ulps:.3f} ulps from the exact twin at most "
+              f"(<= {BF16_ULPS[name]}), {differ:.4f} of the elements differ (the float32 result "
+              f"rounded at the output: {unrounded:.4f}); rel L2 from the f32 truth, kernel "
+              f"{kd:.3e}, plain bf16 {pd:.3e} (kernel <= 2 x plain + 0.02), dtype {g.dtype}, "
+              f"finite={finite}")
+        if not finite or g.dtype != w.dtype or not ulps <= BF16_ULPS[name]:
+            raise SystemExit(f"{name} {tag}: the bf16 kernel is not its exact twin")
+        if unrounded >= BF16_ROUNDED_MIN and not differ <= BF16_ROUNDED_SHARE * unrounded:
+            raise SystemExit(f"{name} {tag}: the bf16 kernel differs from its twin about as "
+                             f"often as the float32 result rounded at its output does")
+        if not kd <= 2.0 * pd + 0.02:
+            raise SystemExit(f"{name} {tag}: the bf16 kernel fails the ground-truth rule")
+    print(f"parity {name} {tag}: max_abs_err={err:.3e} against the exact plain twin")
+    return err
+
+
+def bf16_cases(p16, cfg, gen, eval_batch):
+    """The bf16 entries' inputs, bf16 on the card, from the committed
+    checkpoint's weights in bf16 (p16): {name: [(tag, args, flops,
+    nbytes)]}, the first of each at the shapes phase 12 times: K1 on the
+    first encoder layer and K4 on the encoder's output of a B = 16, L =
+    144, T = 56 batch, K2 at B = 16, K = 5 on that output and at b = 1, L
+    = 132; then the edges, B = 1 at an odd L; then `eval_batch` (x, x_len,
+    y, dec_mask), a held-out evaluation batch (B = 32) as the bf16
+    model's evaluation gives it to the three."""
+    from seq2seq_attention_asr_tpu_torch.models import chorowski
+    from seq2seq_attention_asr_tpu_torch.ops import attention, cells, readout
+    from seq2seq_attention_asr_tpu_torch.ops.masking import length_mask
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    enc, dec = p16["encoder"]["bigru1"], p16["decoder"]
+    hd = enc["fwd"]["w_zr"].shape[1] // 2
+    wzr2 = torch.stack([enc["fwd"]["w_zr"][:hd], enc["bwd"]["w_zr"][:hd]]).contiguous()
+    wh2 = torch.stack([enc["fwd"]["w_h"][:hd], enc["bwd"]["w_h"][:hd]]).contiguous()
+    weights = (dec["ws"]["w"], dec["ws"]["b"], dec["w_e"], dec["c_in"]["w"], dec["c_in"]["b"],
+               dec["dec_in"]["w"], dec["dec_in"]["b"], dec["cell"]["w_zr"], dec["cell"]["w_h"])
+    acfg = cfg.attention_config()
+    a, s_dim, st, v = acfg.annotation_depth, acfg.score_depth, acfg.state_depth, acfg.output_depth
+    read = list(weights) + [t for layer in dec["readout"] for t in layer.values()]
+    mvs = (st * s_dim + a * st + 2 * st * st + 4 * st * st + 2 * st * st
+           + dec["readout"][-2]["w"].numel() + cfg.mlp_depth * v)
+    w_elems = sum(t.numel() for t in weights)
+    out = {name: [] for name in BF16_OF}
+    ex = eval_batch[0]
+    for tag, batch in ((f"B={TRAIN_B} L={TRAIN_L} T={TRAIN_T}", train_batch(TRAIN_B, SEED + 5)),
+                       (f"B=1 L={BF16_ODD_L} T=23", train_batch(1, SEED + 6)),
+                       (f"held-out B={ex.shape[0]} L={ex.shape[1]} T={eval_batch[2].shape[1]}",
+                        eval_batch)):
+        x, x_len, y, dec_mask = (t.to(dev) for t in batch)
+        if x.shape[0] == 1:  # the edge: an odd length, 23 labels
+            x, x_len, y, dec_mask = x[:, :BF16_ODD_L], x_len.clamp(max=BF16_ODD_L), y[:, :23], \
+                dec_mask[:, :23]
+        b, l = x.shape[:2]
+        t_len = y.shape[1]
+        mask = length_mask(x_len, l, bf)
+        x16 = (x * mask[:, :, None].float()).to(bf)
+        xf = cells.gru_input_proj(enc["fwd"], x16).contiguous()
+        xb = cells.gru_input_proj(enc["bwd"], x16).contiguous()
+        out["bigru_scan2_bf16"].append((
+            tag, (xf, xb, wzr2, wh2), 2 * b * l * (6 * hd * hd + 12 * hd),
+            2 * (2 * b * l * 3 * hd + 2 * 3 * hd * hd + 2 * b * l * hd)))
+        with torch.no_grad():
+            h = chorowski.encode(p16, cfg, x16, x_len).contiguous()
+            vh = attention.precompute_vh(dec, h).contiguous()
+            onehot = torch.nn.functional.one_hot(y.long(), v).to(bf) * dec_mask[..., None].to(bf)
+            y_prev = torch.cat([torch.zeros_like(onehot[:, :1]), onehot[:, :-1]], dim=1)
+            yin = readout.linear_apply(dec["y_in"], y_prev).contiguous()
+        steps = b * t_len
+        step_mv = st * s_dim + a * st + 2 * st * st + 4 * st * st + 2 * st * st
+        out["attention_decode_scan_fwd_bf16"].append((
+            tag, (vh, h, mask, yin, *weights),
+            steps * (4 * l * s_dim + 2 * l * a + 2 * step_mv + 5 * l + 10 * st),
+            2 * (b * l * (s_dim + a + 1) + steps * st + w_elems + steps * (st + a + l))))
+        k2_shapes = [(h, vh, mask)]
+        if b == TRAIN_B:  # and b = 1 at the serving length
+            x1 = torch.randn(1, SERVE_L, cfg.input_frame_size, generator=gen).to(dev).to(bf)
+            with torch.no_grad():
+                h1 = chorowski.encode(p16, cfg, x1, torch.tensor([SERVE_L], device=dev))
+            k2_shapes.append((h1.contiguous(), attention.precompute_vh(dec, h1).contiguous(),
+                              torch.ones(1, SERVE_L, device=dev, dtype=bf)))
+        for hh, vv, mm in k2_shapes:
+            bb, ll = hh.shape[:2]
+            s0 = (torch.randn(bb, BEAM_K, st, generator=gen) * 0.3).to(dev).to(bf)
+            yk = torch.nn.functional.one_hot(torch.randint(0, v, (bb, BEAM_K), generator=gen),
+                                             v).to(dev).to(bf)
+            state = (torch.zeros(bb, BEAM_K, ll, device=dev, dtype=bf), s0, torch.zeros_like(s0))
+            out["fused_attention_step_bf16"].append((
+                ("held-out " if tag.startswith("held-out") else "") + f"B={bb} K={BEAM_K} L={ll}",
+                (dec, acfg, state, yk, vv, hh, mm),
+                bb * BEAM_K * (4 * ll * s_dim + 2 * ll * a + 2 * mvs),
+                2 * (bb * ll * (s_dim + a + 1) + 2 * bb * BEAM_K * st + sum(t.numel() for t in read)
+                     + bb * BEAM_K * (ll + a + st)) + 4 * bb * BEAM_K * v))
+    return out
+
+
+def bf16_calls(name):
+    """(kernel call, its exact plain twin, the plain bf16 version at the
+    JAX kernel's rounding points) of a bf16 entry, each returning a tuple
+    of tensors. Only K4's twin and plain version differ: its entry folds
+    c_in and dec_in into the gates, so it does not round cc or r."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan, attention_step, gru_scan
+
+    if name == "bigru_scan2_bf16":
+        return gru_scan.bigru_scan2, gru_scan.bigru_scan2_plain, gru_scan.bigru_scan2_plain
+    if name == "attention_decode_scan_fwd_bf16":
+        return (attention_scan.attention_decode_scan, attention_scan.gru_folded_scan_plain,
+                attention_scan.attention_decode_scan_plain)
+    plain = lambda *args: _step_outputs(attention_step.fused_attention_step_plain(*args))
+    return (lambda *args: _step_outputs(attention_step.fused_attention_step(*args)), plain,
+            plain)
+
+
+def upcast(args):
+    """The f32 twin of a bf16 call's arguments: every bf16 tensor, in a
+    parameter tree or the beam's state too, widened."""
+    from seq2seq_attention_asr_tpu_torch import tree
+
+    return tree.tree_map(lambda a: a.float() if isinstance(a, torch.Tensor) and
+                         a.dtype == torch.bfloat16 else a, list(args))
+
+
+def eval_batch_ms(tr, params, batch, card: str, label: str):
+    """One evaluation batch through `tr` (teacher-forced eval step, then
+    the beam): p50 of 5 wall times and the device time of one."""
+    arrs, _, eos = tr._prepare_batch(batch, with_eos=True)
+    x, x_len = arrs[:2]
+    cap = int(math.ceil(tr.tcfg.eval_len_factor * x.shape[1]))
+
+    def run():
+        tr.eval_fn(params, arrs)
+        return tr.decode_fn(params, x, x_len, eos, max_steps_cap=cap)
+
+    run()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    busy = device_ms(run, None, 1)
+    wall = statistics.median(walls)
+    print(f"time evaluation batch {label} (B={x.shape[0]}, L={x.shape[1]}, K={BEAM_K}): p50 "
+          f"{wall:.3f} ms wall, {busy:.4f} ms on the device, idle share "
+          f"{1 - busy / wall:.4f} ({card})")
+    return wall, busy
+
+
+def bf16_phase(kernels, card: str) -> list:
+    """Phase 12: (a) K1, K4 and K2 in bf16 against their plain bf16 versions
+    at bf16_cases' shapes; (b) the committed checkpoint as a bf16 model
+    through Trainer.evaluate on the card, launching the bf16 entries only:
+    its held-out beam PER within HELD_OUT_PER_BF16_TOL of the port's CPU
+    value and within HELD_OUT_PER_BF16_F32_TOL of the float32 PER; (c) each
+    entry's device time beside its float32 kernel's on the upcast inputs,
+    and one B = 32 evaluation batch in bf16 beside float32; (d) a bf16
+    train step raising NotImplementedError. Returns the bf16 entries'
+    {"kernels"} rows."""
+    from seq2seq_attention_asr_tpu_torch.models import chorowski, registry
+    from seq2seq_attention_asr_tpu_torch.train import checkpoint, experiment, optim, trainer
+
+    t0 = time.perf_counter()
+    bf = torch.bfloat16
+    params = checkpoint.load_params_npz(str(HELD_OUT_NPZ), "cuda")
+    kw = dict(experiment.timit_chorowski_normnll_colnorm().model_kwargs, dropout=0.5)
+    model16 = registry.build("chorowski", compute_dtype="bfloat16", **kw)
+    p16 = chorowski.cast_float32(params, bf)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    _, valid, batcher, vocab = held_out_split("cuda")
+    tcfg = trainer.TrainConfig(batch_size=HELD_OUT["batch"], normalize_nll=True, beam_k=BEAM_K,
+                               seed=HELD_OUT["seed"])
+    tr16 = trainer.Trainer(model16, optim.OptimConfig(), tcfg, vocab=vocab, device="cuda")
+    tr16.init(params)
+    batches = list(batcher.batches(valid, shuffle=False))
+    longest = max(batches, key=lambda b: b.x.shape[1])  # the evaluation's longest bucket
+    cases_ = bf16_cases(p16, model16.cfg, gen, tr16._prepare_batch(longest)[0])
+
+    # (a) parity, and (c) the times at each entry's first shape.
+    rows = {}
+    for name, cs in cases_.items():
+        kernel_call, twin_call, plain_call = bf16_calls(name)
+        errs = []
+        for i, (tag, args, flops, nbytes) in enumerate(cs):
+            with torch.no_grad():
+                got = kernel_call(*args)
+                twin = twin_call(*args)
+                plain = plain_call(*args)
+                truth = plain_call(*upcast(args))
+            torch.cuda.synchronize()
+            errs.append(bf16_check(name, tag, got, twin, plain, truth))
+            if i:
+                continue
+            up = upcast(args)
+            with torch.no_grad():
+                ms = device_ms(lambda: kernel_call(*args), BF16_SYMBOLS[name], 10)
+                f32_ms = device_ms(lambda: kernel_call(*up), F32_SYMBOLS[name], 10)
+                plain_ms = time_ms(lambda: twin_call(*args), 2, warmup=1)
+            b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            print(f"time {name} {tag}: bf16 kernel {ms:.4f} ms on the device, float32 kernel "
+                  f"{f32_ms:.4f} ms on the upcast inputs, plain twin {plain_ms:.4f} ms per call, "
+                  f"bound {b_ms:.4f} ms ({b_by}: {flops:.3e} flop at the bf16 peak, "
+                  f"{nbytes:.3e} B in bf16), library null ({NO_LIBRARY[BF16_OF[name]]}) ({card})")
+            rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        rows[name]["max_abs_err"] = max(errs)
+
+    # (b) the held-out PER of the bf16 model, the bf16 entries only, under
+    # PyTorch's default allow_bf16_reduced_precision_reduction (True):
+    # the model's bf16 products sum in float32 whatever the flag says.
+    matmul = torch.backends.cuda.matmul
+    flag = matmul.allow_bf16_reduced_precision_reduction
+    t1 = time.perf_counter()
+    row, counts = counted(kernels, lambda: tr16.evaluate(valid, batcher))
+    wall = time.perf_counter() - t1
+    if not flag or matmul.allow_bf16_reduced_precision_reduction != flag:
+        raise SystemExit(f"allow_bf16_reduced_precision_reduction {flag} before the bf16 "
+                         f"evaluation, {matmul.allow_bf16_reduced_precision_reduction} after: "
+                         f"expected PyTorch's default, True, and kept")
+    per = row["valid_per"]
+    print(f"held-out beam PER, bf16 model, on the card {per!r} (the port on the CPU, bf16, "
+          f"{HELD_OUT_PER_CPU_BF16!r}, tol {HELD_OUT_PER_BF16_TOL}; float32 {HELD_OUT_PER_CPU!r}, "
+          f"tol {HELD_OUT_PER_BF16_F32_TOL}), valid_nll {row['valid_nll']:.6f}, valid_accuracy "
+          f"{row['valid_accuracy']:.6f}, {1e3 * wall:.1f} ms wall; launches {counts}")
+    check_counts("held-out evaluate bf16", counts, tuple(BF16_OF))
+    if not abs(per - HELD_OUT_PER_CPU_BF16) <= HELD_OUT_PER_BF16_TOL:
+        raise SystemExit(f"held-out bf16 PER {per} on the card, {HELD_OUT_PER_CPU_BF16} on the CPU")
+    if not abs(per - HELD_OUT_PER_CPU) <= HELD_OUT_PER_BF16_F32_TOL:
+        raise SystemExit(f"held-out bf16 PER {per}, float32 {HELD_OUT_PER_CPU}")
+    for name in BF16_OF:
+        rows[name]["launches"] = counts[name]
+
+    # (c) one B = 32 evaluation batch, bf16 beside float32.
+    tr32 = trainer.Trainer(registry.build("chorowski", **kw), optim.OptimConfig(), tcfg,
+                           vocab=vocab, device="cuda")
+    batch = batches[0]
+    with torch.no_grad():
+        eval_batch_ms(tr32, params, batch, card, "float32")
+        eval_batch_ms(tr16, params, batch, card, "bf16")
+
+    # (d) a bf16 train step raises.
+    ocfg = optim.OptimConfig()
+    tx = optim.build_optimizer(ocfg)
+    step = trainer.make_step_core(model16.forward, tx, ocfg, tcfg, model16.output_depth)
+    arrs = tuple(a[:2] for a in tr16._prepare_batch(batch)[0])
+    try:
+        step((params, tx.init(params), torch.Generator(device="cuda").manual_seed(1)), arrs)
+    except NotImplementedError as e:
+        print(f"bf16 train step on the card: NotImplementedError ({e})")
+    else:
+        raise SystemExit("a bf16 train step ran: it must raise until K5 and K6 have bf16 "
+                         "instances")
+    print(f"bf16 phase: {time.perf_counter() - t0:.1f} s wall ({card})")
+    return [{"name": name, "route": "cuda", "source": SOURCES[BF16_OF[name]],
+             "replaces": REPLACES[BF16_OF[name]], "launches": r["launches"],
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
+            for name, r in rows.items()]
+
+
 # The instance of each kernel whose numbers stand in the {"kernels"} line:
 # the one on its main path, at batch 1 (serving) or the training shape.
 MAIN_LABEL = {"fused_attention_step_loc_lstm": "fused_attention_step_loc_lstm[lstm+loc]"}
@@ -3049,7 +3423,8 @@ def main(parent=None) -> int:
                                    attention_scan.KERNEL_LSTM_FWD,
                                    attention_scan.KERNEL_LSTM_BWD, gru_scan.KERNEL_GRU,
                                    gru_scan.KERNEL_GRU_BWD, gru_scan.KERNEL_BI,
-                                   gru_scan.KERNEL_BI_BWD)}
+                                   gru_scan.KERNEL_BI_BWD, gru_scan.KERNEL_BF16,
+                                   attention_scan.KERNEL_FWD_BF16, attention_step.KERNEL_BF16)}
     started = t0 = time.perf_counter()
     build.build_all(kernels.values())
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(kernels)} kernels")
@@ -3328,13 +3703,19 @@ def main(parent=None) -> int:
         "flagship_loc": (flagship_loc, loc_params_cpu, LOC_STEP_LAUNCHES),
         "conv_bilstm_content": (conv_bilstm_content, cbc_params_cpu, CBC_STEP_LAUNCHES)},
         card)
+
+    # Phase 12: the bf16 operating point of the flagship's evaluation path.
+    bf16_rows = bf16_phase(kernels, card)
     if parent:
         compare_trees(parent, card)
 
     # Each kernel's numbers at batch 1 (serving) or its training shape,
-    # and its launches in the run of its main path.
+    # and its launches in the run of its main path; the bf16 entries'
+    # from phase 12.
     report = []
     for name in kernels:
+        if name in BF16_OF:
+            continue
         label = MAIN_LABEL.get(name, name)
         key = next(k for k in (1, "train", "cbtrain", "loctrain", "cbctrain", "enc")
                    if (label, k) in timing)
@@ -3353,6 +3734,7 @@ def main(parent=None) -> int:
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library.get((name, key)),
         })
+    report += bf16_rows
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s wall, the build included")
     print(json.dumps({"kernels": report}))
     print(card)

@@ -8,7 +8,10 @@
 //   <LSTM, content>   K14 scan_lstm_fwd_kernel<R>, K15 scan_lstm_bwd_kernel<R>;
 //                     entry points attention_decode_scan_lstm_{fwd,bwd}
 //   <GRU, content>    K4 content_gru_fwd_kernel<R>, K5 content_gru_walk_kernel<R>;
-//                     entry points attention_decode_scan_{fwd,bwd}
+//                     entry points attention_decode_scan_{fwd,bwd}; K4's bf16
+//                     entry attention_decode_scan_fwd_bf16 (gru_fwd_prepass_bf16_kernel,
+//                     content_gru_fwd_bf16_kernel<R>: decoder_fwd_walk says where
+//                     it rounds)
 //
 // The four forwards share a pre-pass (fwd_prepass<kLstm, kStage>) and a
 // forward walk on a thread-block cluster (decoder_fwd_walk<R, kLstm,
@@ -194,15 +197,17 @@ namespace {
 
 // The cell's weights are the GRU's w_zr (2St, 2St) and w_h (2St, St), or
 // the LSTM's w_h, w_x (St, 4St) and b (4St); the location term's are null
-// without it.
-struct Weights {
-  const float *ws_w, *ws_b, *w_e, *c_w, *c_b, *dec_w, *dec_b;
-  const float *w_zr, *w_h, *w_x, *b;
-  const float *wconv, *bconv, *u;
+// without it. T is their IO type: float, or bf16 for K4's bf16 entry.
+template <class T>
+struct WeightsT {
+  const T *ws_w, *ws_b, *w_e, *c_w, *c_b, *dec_w, *dec_b;
+  const T *w_zr, *w_h, *w_x, *b;
+  const T *wconv, *bconv, *u;
   __host__ __device__ StepWeights step() const {
     return StepWeights{ws_w, ws_b, c_w, c_b, dec_w, dec_b, w_zr, w_h};
   }
 };
+using Weights = WeightsT<float>;
 
 struct Dims {
   int B, T, L, S, A, St, FM, F;  // FM = F = 0 without the location term
@@ -1612,12 +1617,17 @@ __global__ void __launch_bounds__(kTileThreads) gru_decoder_prepass_kernel(const
 // pre-pass and a walk on thread-block clusters (the file's head gives the
 // step).
 
-struct FwdArgs {
-  const float *vh, *h, *mask, *yin;
-  Weights w;
-  float *s_seq, *c_seq, *alpha_seq, *mem_seq;  // mem_seq: LSTM only
+// T is the IO type of every input and output: float, or bf16 for K4's
+// bf16 entry (the content-only GRU only). The pre-pass's tables and the
+// walk's shared buffers are float either way.
+template <class T>
+struct FwdArgsT {
+  const T *vh, *h, *mask, *yin;
+  WeightsT<T> w;
+  T *s_seq, *c_seq, *alpha_seq, *mem_seq;  // mem_seq: LSTM only
   Dims d;
 };
+using FwdArgs = FwdArgsT<float>;
 
 // The pre-pass's outputs, carved from the caller's scratch in this order,
 // each 16-byte aligned, G = kGates<kLstm>: Z, (B*T + A) rows of St ([c_b |
@@ -1769,10 +1779,11 @@ constexpr int kL2Rows = R <= 4 ? 4 : 2;
 // of one unit at a time.
 constexpr int kEnergyCols = 8;
 
-template <int R, class Emit>
+template <int R, bool kRoundV = false, class Emit>
 __device__ __forceinline__ void rows_dot_l2(const float* w, int ldw, int n, const float* v,
                                             int ldv, int m, Emit emit, bool vec) {
   constexpr int kRows = kL2Rows<R>;
+  const auto vin = [](float y) { return kRoundV ? round_to<bf16>(y) : y; };
   const int lane = threadIdx.x & 31;
   for (int i = threadIdx.x >> 5; i < n; i += kRows * kWarps) {
     const float* wr[kRows];
@@ -1791,7 +1802,8 @@ __device__ __forceinline__ void rows_dot_l2(const float* w, int ldw, int n, cons
         for (int q = 0; q < kRows; ++q) x[q] = __ldg(reinterpret_cast<const float4*>(wr[q] + j));
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float4 y = *reinterpret_cast<const float4*>(v + r * ldv + j);
+          float4 y = *reinterpret_cast<const float4*>(v + r * ldv + j);
+          y = make_float4(vin(y.x), vin(y.y), vin(y.z), vin(y.w));
 #pragma unroll
           for (int q = 0; q < kRows; ++q)
             s[q][r] = fmaf(x[q].w, y.w, fmaf(x[q].z, y.z, fmaf(x[q].y, y.y, fmaf(x[q].x, y.x,
@@ -1806,7 +1818,7 @@ __device__ __forceinline__ void rows_dot_l2(const float* w, int ldw, int n, cons
         for (int q = 0; q < kRows; ++q) x[q] = __ldg(wr[q] + j);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float y = v[r * ldv + j];
+          const float y = vin(v[r * ldv + j]);
 #pragma unroll
           for (int q = 0; q < kRows; ++q) s[q][r] = fmaf(x[q], y, s[q][r]);
         }
@@ -1840,9 +1852,18 @@ __device__ __forceinline__ void rows_dot_l2(const float* w, int ldw, int n, cons
 // bulk copy's source is read before the block writes it again (the peers'
 // waits for those bytes precede the pushes that let the block go on).
 // Rows past B have zero inputs, stay zero and write nothing.
-template <int R, bool kLstm, bool kLoc>
-__device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, const FwdScratch& x,
-                                                 int resident) {
+//
+// With bf16 IO (IO, K4's bf16 entry), as the JAX kernel with bf16 inputs:
+// every input loads widened to float, every output stores rounded; the
+// energies, the softmax, c and the s carry are float; each product reads
+// its operand rounded to bf16: s_prev in E1's ws partials and the s_prev
+// products, c (rounded where it is formed) in c @ W_cx, and rg s_prev
+// (rounded where it is formed) in the candidate's product. The pre-pass's
+// fold never forms cc or r, so they are not rounded (ops/cuda/
+// attention_scan.py).
+template <int R, bool kLstm, bool kLoc, class IO = float>
+__device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgsT<IO>& a,
+                                                 const FwdScratch& x, int resident) {
   constexpr int kG = kGates<kLstm>;
   cg::cluster_group cluster = cg::this_cluster();
   const Dims& d = a.d;
@@ -1862,8 +1883,8 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
   size_t floats;
   const FwdWalkShared sh = carve_fwd_walk<kLstm, kLoc>(sm, d, C, R, resident, &floats);
 
-  for (int i = tid; i < S; i += kThreads) sh.we[i] = a.w.w_e[i];
-  for (int i = tid; i < un.n * S; i += kThreads) sh.wsw[i] = a.w.ws_w[(size_t)un.lo * S + i];
+  for (int i = tid; i < S; i += kThreads) sh.we[i] = to_f(a.w.w_e[i]);
+  for (int i = tid; i < un.n * S; i += kThreads) sh.wsw[i] = to_f(a.w.ws_w[(size_t)un.lo * S + i]);
   if (resident)
     for (int i = tid; i < G * A; i += kThreads) sh.wcx[i] = x.wcx[(size_t)kG * un.lo * A + i];
   for (int i = tid; i < R * St; i += kThreads) sh.sg[sh.sgs + i] = 0.f;  // s_prev of step 0
@@ -1874,13 +1895,13 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
   for (int idx = tid; idx < R * Pw; idx += kThreads) {
     const int r = idx / Pw, i = idx - r * Pw, l = wlo + i;
     const bool in = r < nrows && l >= 0 && l < L && (kLoc || i < pos.n);
-    sh.mw[idx] = in ? a.mask[(size_t)(b0 + r) * L + l] : 0.f;
+    sh.mw[idx] = in ? to_f(a.mask[(size_t)(b0 + r) * L + l]) : 0.f;
     if (kLoc) sh.ap[idx] = 0.f;  // alpha_prev of step 0
   }
   if (kLoc) {
-    for (int i = tid; i < FM * S; i += kThreads) sh.u[i] = a.w.u[i];
-    for (int i = tid; i < F * FM; i += kThreads) sh.cw[i] = a.w.wconv[i];
-    for (int i = tid; i < FM; i += kThreads) sh.cb[i] = a.w.bconv[i];
+    for (int i = tid; i < FM * S; i += kThreads) sh.u[i] = to_f(a.w.u[i]);
+    for (int i = tid; i < F * FM; i += kThreads) sh.cw[i] = to_f(a.w.wconv[i]);
+    for (int i = tid; i < FM; i += kThreads) sh.cb[i] = to_f(a.w.bconv[i]);
   }
   // The bytes the peers push into this block a step, by exchange: with
   // the location term, the energies of the window's other positions.
@@ -1931,7 +1952,7 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
       const int r = idx / S, sc = idx - r * S;
       float v = 0.f;
       for (int j = 0; j < C; ++j) v += sh.wsp[(j * R + r) * Sp + sc];
-      sh.ws[r * Sp + sc] = v + a.w.ws_b[sc];
+      sh.ws[r * Sp + sc] = v + to_f(a.w.ws_b[sc]);
     }
     __syncthreads();
     // The energies on the block's positions, a warp per (row, position):
@@ -1939,7 +1960,7 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
     // over the filter's window; NEG_INF where masked.
     for (int pr = warp; pr < nrows * pos.n; pr += kWarps) {
       const int r = pr / pos.n, pp = pr - r * pos.n;
-      const float* vr = a.vh + ((size_t)(b0 + r) * L + pos.lo + pp) * S;
+      const IO* vr = a.vh + ((size_t)(b0 + r) * L + pos.lo + pp) * S;
       const float* wsr = sh.ws + r * Sp;
       const float* f = sh.feat + warp * FM;
       if constexpr (kLoc) {
@@ -1956,7 +1977,7 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
 #pragma unroll
         for (int x = 0; x < kEnergyCols; ++x) {
           const int sc = sc0 + 32 * x;
-          z[x] = sc < S ? __ldg(vr + sc) + wsr[sc] : 0.f;
+          z[x] = sc < S ? ldg_f(vr + sc) + wsr[sc] : 0.f;
           uf[x] = 0.f;
         }
         if constexpr (kLoc) {
@@ -2004,9 +2025,9 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
       const int r = idx / A, j = idx - r * A;
       float v = 0.f;
       if (r < nrows) {
-        const float* hr = a.h + ((size_t)(b0 + r) * L + pos.lo) * A + j;
+        const IO* hr = a.h + ((size_t)(b0 + r) * L + pos.lo) * A + j;
         for (int pp = 0; pp < pos.n; ++pp)
-          v = fmaf(sh.p[r * Pc + pp], __ldg(hr + (size_t)pp * A), v);
+          v = fmaf(sh.p[r * Pc + pp], ldg_f(hr + (size_t)pp * A), v);
       }
       sh.st[(k * R + r) * Ap + j] = v;
     }
@@ -2036,12 +2057,12 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
     // w_zr^T is unit i / 2's gate i % 2, column 3 (i / 2) + i % 2), and P
     // alone on its candidate column.
     if constexpr (kLstm) {
-      rows_dot_l2<R>(x.wh + (size_t)4 * un.lo * St, St, G, sp, St, St,
+      rows_dot_l2<R, kIsBf16<IO>>(x.wh + (size_t)4 * un.lo * St, St, G, sp, St, St,
                      [y = sh.g, add = q, Gc](int i, int r, float v) {
                        y[r * Gc + i] = v + add[r * Gc + i];
                      }, vec_h);
     } else {
-      rows_dot_l2<R>(x.wh + (size_t)2 * un.lo * St, St, 2 * un.n, sp, St, St,
+      rows_dot_l2<R, kIsBf16<IO>>(x.wh + (size_t)2 * un.lo * St, St, 2 * un.n, sp, St, St,
                      [y = sh.g, add = q, Gc](int i, int r, float v) {
                        const int j = i + (i >> 1);
                        y[r * Gc + j] = v + add[r * Gc + j];
@@ -2080,8 +2101,9 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
       float v = 0.f;
       for (int kk = 0; kk < C; ++kk) v = fmaf(f[kk], sh.st[(kk * R + r) * Ap + j], v);
       v /= f[C];
-      sh.c[r * Aq + j] = v;
-      if (r < nrows && j >= ac.lo && j < ac.lo + ac.n) a.c_seq[(n0 + (size_t)r * T) * A + j] = v;
+      sh.c[r * Aq + j] = round_to<IO>(v);
+      if (r < nrows && j >= ac.lo && j < ac.lo + ac.n)
+        st_f(a.c_seq + (n0 + (size_t)r * T) * A + j, v);
     }
     for (int idx = tid; idx < R * Pw; idx += kThreads) {
       const int r = idx / Pw, i = idx - r * Pw, pp = i - pad;
@@ -2091,7 +2113,7 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
         const float* f = sh.fz + r * (C + 2);
         al = expf((own ? sh.e[r * Pc + pp] : sh.eh[idx]) - f[C + 1]) / f[C];
       }
-      if (own && r < nrows) a.alpha_seq[(n0 + (size_t)r * T) * L + pos.lo + pp] = al;
+      if (own && r < nrows) st_f(a.alpha_seq + (n0 + (size_t)r * T) * L + pos.lo + pp, al);
       if (kLoc) sh.ap[idx] = al;
     }
     __syncthreads();
@@ -2117,8 +2139,8 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
         sn[r * St + un.lo + u] = sv;
         if (r < nrows) {
           const size_t o = (n0 + (size_t)r * T) * St + un.lo + u;
-          a.s_seq[o] = sv;
-          a.mem_seq[o] = mv;
+          st_f(a.s_seq + o, sv);
+          st_f(a.mem_seq + o, mv);
         }
       }
       __syncthreads();
@@ -2130,7 +2152,7 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
         const int r = idx / un.n, u = idx - r * un.n, o = r * St + un.lo + u;
         float* gr = sh.g + r * Gc + 3 * u;
         gr[0] = sigmoid(gr[0]);
-        sh.rs[o] = sigmoid(gr[1]) * sp[o];
+        sh.rs[o] = round_to<IO>(sigmoid(gr[1]) * sp[o]);
       }
       async_fence();
       __syncthreads();
@@ -2153,7 +2175,7 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
         const float* gr = sh.g + r * Gc + 3 * u;
         const float z = gr[0], sv = (1.f - z) * sp[o] + z * tanhf(gr[2]);
         sn[o] = sv;
-        if (r < nrows) a.s_seq[(n0 + (size_t)r * T) * St + un.lo + u] = sv;
+        if (r < nrows) st_f(a.s_seq + (n0 + (size_t)r * T) * St + un.lo + u, sv);
       }
       __syncthreads();
       // [phase] update
@@ -2165,7 +2187,7 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, co
         const int r = idx / S, sc = idx - r * S;
         const float* sr = sn + r * St + un.lo;
         float v = 0.f;
-        for (int u = 0; u < un.n; ++u) v = fmaf(sr[u], sh.wsw[u * S + sc], v);
+        for (int u = 0; u < un.n; ++u) v = fmaf(round_to<IO>(sr[u]), sh.wsw[u * S + sc], v);
         sh.wsp[(k * R + r) * Sp + sc] = v;
       }
       async_fence();
@@ -2207,6 +2229,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) float sm[];
   decoder_fwd_walk<R, false, false>(sm, a, x, resident);
 }
+
+// K4's bf16 entry.
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+    content_gru_fwd_bf16_kernel(const FwdArgsT<bf16> a, const FwdScratch x, int resident) {
+  extern __shared__ __align__(16) float sm[];
+  decoder_fwd_walk<R, false, false, bf16>(sm, a, x, resident);
+}
 #endif
 
 // The pre-pass over the B*T (row, step) pairs and the A rows of c_w, one
@@ -2218,12 +2248,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 // (+ b for the LSTM) for the pairs, W_cx^T = (Z @ W_x)^T for c_w's rows,
 // in unit order, W_x = w_x (the LSTM) or [w_zr[St:] | w_h[St:]] (the
 // GRU), St x Sg. Each stage is a launch of its own, after the one it
-// reads.
-template <bool kLstm, int kStage>
-__device__ __forceinline__ void fwd_prepass(const FwdArgs& a, const FwdScratch& x) {
+// reads. With bf16 IO (T) the inputs load widened and the tables are
+// float, as with float IO.
+template <bool kLstm, int kStage, class T = float>
+__device__ __forceinline__ void fwd_prepass(const FwdArgsT<T>& a, const FwdScratch& x) {
   constexpr int kG = kGates<kLstm>;
   const Dims& d = a.d;
-  const Weights& w = a.w;
+  const WeightsT<T>& w = a.w;
   const int St = d.St, St2 = 2 * St, Sg = kG * St, A = d.A, rows = d.B * d.T, all = rows + A;
   const int i0 = blockIdx.x * kTile, j0 = blockIdx.y * kTile;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -2236,37 +2267,38 @@ __device__ __forceinline__ void fwd_prepass(const FwdArgs& a, const FwdScratch& 
         const int kk = (int)(e / Sg), j = (int)(e - (size_t)kk * Sg), gi = j / St;
         const int u = j - gi * St;
         if constexpr (kLstm)
-          x.wh[(size_t)(4 * u + gi) * St + kk] = w.w_h[e];
+          x.wh[(size_t)(4 * u + gi) * St + kk] = to_f(w.w_h[e]);
         else if (gi < 2)
-          x.wh[(size_t)(2 * u + gi) * St + kk] = w.w_zr[(size_t)kk * St2 + j];
+          x.wh[(size_t)(2 * u + gi) * St + kk] = to_f(w.w_zr[(size_t)kk * St2 + j]);
         else
-          x.wh[(size_t)(St2 + u) * St + kk] = w.w_h[(size_t)kk * St + u];
+          x.wh[(size_t)(St2 + u) * St + kk] = to_f(w.w_h[(size_t)kk * St + u]);
       }
       return;
     }
     tile_product(
         acc,
         [&](int n, int kk) -> float {
-          if (n < rows) return kk < St ? w.c_b[kk] : a.yin[(size_t)n * St + kk - St];
-          return n < all && kk < St ? w.c_w[(size_t)(n - rows) * St + kk] : 0.f;
+          if (n < rows) return to_f(kk < St ? w.c_b[kk] : a.yin[(size_t)n * St + kk - St]);
+          return n < all && kk < St ? to_f(w.c_w[(size_t)(n - rows) * St + kk]) : 0.f;
         },
-        [&](int kk, int j) { return j < St ? w.dec_w[(size_t)kk * St + j] : 0.f; }, i0, j0,
-        2 * St);
+        [&](int kk, int j) { return j < St ? to_f(w.dec_w[(size_t)kk * St + j]) : 0.f; }, i0,
+        j0, 2 * St);
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
         const int n = i0 + 4 * ty + r, j = j0 + 4 * tx + cc;
-        if (n < all && j < St) x.z[(size_t)n * St + j] = acc[r][cc] + (n < rows ? w.dec_b[j] : 0.f);
+        if (n < all && j < St)
+          x.z[(size_t)n * St + j] = acc[r][cc] + (n < rows ? to_f(w.dec_b[j]) : 0.f);
       }
   } else {
     tile_product(
         acc, [&](int n, int kk) { return n < all ? x.z[(size_t)n * St + kk] : 0.f; },
         [&](int kk, int j) -> float {
           if (j >= Sg) return 0.f;
-          if constexpr (kLstm) return w.w_x[(size_t)kk * Sg + j];
-          return j < St2 ? w.w_zr[(size_t)(St + kk) * St2 + j]
-                         : w.w_h[(size_t)(St + kk) * St + j - St2];
+          if constexpr (kLstm) return to_f(w.w_x[(size_t)kk * Sg + j]);
+          return to_f(j < St2 ? w.w_zr[(size_t)(St + kk) * St2 + j]
+                              : w.w_h[(size_t)(St + kk) * St + j - St2]);
         },
         i0, j0, St);
 #pragma unroll
@@ -2277,7 +2309,7 @@ __device__ __forceinline__ void fwd_prepass(const FwdArgs& a, const FwdScratch& 
         const int col = kG * (j - gi * St) + gi;
         if (n >= all || j >= Sg) continue;
         if (n < rows)
-          x.p[(size_t)n * Sg + col] = acc[r][cc] + (kLstm ? w.b[j] : 0.f);
+          x.p[(size_t)n * Sg + col] = acc[r][cc] + (kLstm ? to_f(w.b[j]) : 0.f);
         else
           x.wcx[(size_t)col * A + n - rows] = acc[r][cc];
       }
@@ -2294,6 +2326,12 @@ template <int kStage>
 __global__ void __launch_bounds__(kTileThreads)
     gru_fwd_prepass_kernel(const FwdArgs a, const FwdScratch x) {
   fwd_prepass<false, kStage>(a, x);
+}
+
+template <int kStage>
+__global__ void __launch_bounds__(kTileThreads)
+    gru_fwd_prepass_bf16_kernel(const FwdArgsT<bf16> a, const FwdScratch x) {
+  fwd_prepass<false, kStage, bf16>(a, x);
 }
 
 #endif
@@ -2319,12 +2357,15 @@ bool valid(const Dims& d) {
 }
 
 #ifdef FWD_WALK_BUILD
-using FwdKernel = void (*)(const FwdArgs, const FwdScratch, int);
+template <class T>
+using FwdKernel = void (*)(const FwdArgsT<T>, const FwdScratch, int);
 
 // The forward walk instance for R batch rows a cluster: K10's (kLstm,
-// kLoc), K14's (kLstm), K12's (kLoc) or K4's.
-template <bool kLstm, bool kLoc>
-FwdKernel fwd_walk_kernel(int R) {
+// kLoc), K14's (kLstm), K12's (kLoc) or K4's, and with bf16 IO K4's bf16
+// entry's.
+template <bool kLstm, bool kLoc, class T = float>
+FwdKernel<T> fwd_walk_kernel(int R) {
+  static_assert(!kIsBf16<T> || (!kLstm && !kLoc), "bf16 IO: the content-only GRU only");
 #ifdef LSTM_FWD_ONLY
   static_assert(kLstm, "this build holds the LSTM's forwards");
   if constexpr (kLoc)
@@ -2335,7 +2376,11 @@ FwdKernel fwd_walk_kernel(int R) {
          : R == 4 ? scan_lstm_fwd_kernel<4> : R == 8 ? scan_lstm_fwd_kernel<8> : nullptr;
 #else
   static_assert(!kLstm, "this build holds the GRU's forwards");
-  if constexpr (kLoc)
+  if constexpr (kIsBf16<T>)
+    return R == 1 ? content_gru_fwd_bf16_kernel<1> : R == 2 ? content_gru_fwd_bf16_kernel<2>
+         : R == 4 ? content_gru_fwd_bf16_kernel<4> : R == 8 ? content_gru_fwd_bf16_kernel<8>
+         : nullptr;
+  else if constexpr (kLoc)
     return R == 1 ? loc_gru_fwd_kernel<1> : R == 2 ? loc_gru_fwd_kernel<2>
          : R == 4 ? loc_gru_fwd_kernel<4> : R == 8 ? loc_gru_fwd_kernel<8> : nullptr;
   else
@@ -2348,11 +2393,11 @@ FwdKernel fwd_walk_kernel(int R) {
 // products' weights transposed, then P and W_cx^T), then the walk on
 // clusters of `cluster` blocks, `rows` batch rows a cluster, holding W_cx's
 // slice in shared memory where `resident`.
-template <bool kLstm, bool kLoc>
-int launch_fwd_walk(const FwdArgs& a, float* scratch, int cluster, int rows, int resident,
+template <bool kLstm, bool kLoc, class T = float>
+int launch_fwd_walk(const FwdArgsT<T>& a, float* scratch, int cluster, int rows, int resident,
                     cudaStream_t stream) {
   const Dims& d = a.d;
-  const auto walk = fwd_walk_kernel<kLstm, kLoc>(rows);
+  const auto walk = fwd_walk_kernel<kLstm, kLoc, T>(rows);
   if (!valid<kLoc>(d) || walk == nullptr || cluster < 1 || cluster > kMaxWalkCluster ||
       (resident != 0 && resident != 1))
     return (int)cudaErrorInvalidValue;
@@ -2367,8 +2412,10 @@ int launch_fwd_walk(const FwdArgs& a, float* scratch, int cluster, int rows, int
   const int tiles = (d.B * d.T + d.A + kTile - 1) / kTile;
   const dim3 grid[] = {dim3(tiles, (d.St + kTile - 1) / kTile + 1),
                        dim3(tiles, (kGates<kLstm> * d.St + kTile - 1) / kTile)};
-  void (*stages[2])(const FwdArgs, const FwdScratch);
-  if constexpr (kLstm)
+  void (*stages[2])(const FwdArgsT<T>, const FwdScratch);
+  if constexpr (kIsBf16<T>)
+    stages[0] = gru_fwd_prepass_bf16_kernel<0>, stages[1] = gru_fwd_prepass_bf16_kernel<1>;
+  else if constexpr (kLstm)
     stages[0] = lstm_fwd_prepass_kernel<0>, stages[1] = lstm_fwd_prepass_kernel<1>;
   else
     stages[0] = gru_fwd_prepass_kernel<0>, stages[1] = gru_fwd_prepass_kernel<1>;
@@ -2385,10 +2432,10 @@ int launch_fwd_walk(const FwdArgs& a, float* scratch, int cluster, int rows, int
 }
 
 // As walk_limits, for the forward walk.
-template <bool kLstm, bool kLoc>
+template <bool kLstm, bool kLoc, class T = float>
 int fwd_limits(int cluster, int* smem_limit, int* clusters) {
   if (cluster < 1 || cluster > kMaxWalkCluster) return (int)cudaErrorInvalidValue;
-  const auto walk = fwd_walk_kernel<kLstm, kLoc>(8);
+  const auto walk = fwd_walk_kernel<kLstm, kLoc, T>(8);
   cudaError_t err = cudaFuncSetAttribute(walk, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
   return (int)cluster_limits(walk, cluster, smem_limit, clusters);
@@ -2641,6 +2688,26 @@ extern "C" int attention_decode_scan_fwd(
 
 extern "C" int attention_decode_scan_fwd_limits(int cluster, int* smem_limit, int* clusters) {
   return fwd_limits<false, false>(cluster, smem_limit, clusters);
+}
+
+// K4's bf16 entry: attention_decode_scan_fwd with every input and output
+// bf16 (the scratch float).
+extern "C" int attention_decode_scan_fwd_bf16(
+    const bf16* vh, const bf16* h, const bf16* mask, const bf16* yin, const bf16* ws_w,
+    const bf16* ws_b, const bf16* w_e, const bf16* c_w, const bf16* c_b, const bf16* dec_w,
+    const bf16* dec_b, const bf16* w_zr, const bf16* w_h, bf16* s_seq, bf16* c_seq,
+    bf16* alpha_seq, float* scratch, int B, int T, int L, int S, int A, int St, int cluster,
+    int rows, int resident, cudaStream_t stream) {
+  const FwdArgsT<bf16> a{vh, h, mask, yin,
+                         WeightsT<bf16>{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_zr, w_h,
+                                        nullptr, nullptr, nullptr, nullptr, nullptr},
+                         s_seq, c_seq, alpha_seq, nullptr, Dims{B, T, L, S, A, St, 0, 0}};
+  return launch_fwd_walk<false, false, bf16>(a, scratch, cluster, rows, resident, stream);
+}
+
+extern "C" int attention_decode_scan_fwd_bf16_limits(int cluster, int* smem_limit,
+                                                     int* clusters) {
+  return fwd_limits<false, false, bf16>(cluster, smem_limit, clusters);
 }
 
 #elif !defined(CONTENT_GRU_BWD_ONLY)

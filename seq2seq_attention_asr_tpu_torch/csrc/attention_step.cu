@@ -30,6 +30,12 @@
 // order: no atomics, two calls give the same bits. Eight cluster
 // barriers a step. The elementwise GRU math runs on each block's own
 // state units; block 0 alone takes the linear layer and the log_softmax.
+//
+// fused_attention_step_bf16 is K2's bf16 entry, for a bf16 model's beam:
+// the same kernel with bf16 inputs and alpha, c and s in bf16, logp
+// float, rounding where the JAX kernel rounds with bf16 inputs
+// (attention_step_kernel says where). Plain PyTorch twin:
+// ops/cuda/attention_step.py::_k2_plain_bf16.
 
 #include <math.h>
 
@@ -60,13 +66,19 @@ long long step_smem_floats(long long K, long long L, long long S, long long A, l
                                                std::max(cdiv(M, C) * W, V)));
 }
 
-struct Args {
-  const float *vh, *h, *mask, *yin, *sprev;
-  const float *ws_w, *ws_b, *w_e, *c_w, *c_b, *dec_w, *dec_b, *w_zr, *w_h;
-  const float *mo_w, *mo_b, *lin_w, *lin_b;
-  float *alpha, *c, *s, *logp;
+// K2's arguments; T is the IO type of every array but logp: float, or bf16
+// for the bf16 entry.
+template <class T>
+struct ArgsT {
+  using Io = T;
+  const T *vh, *h, *mask, *yin, *sprev;
+  const T *ws_w, *ws_b, *w_e, *c_w, *c_b, *dec_w, *dec_b, *w_zr, *w_h;
+  const T *mo_w, *mo_b, *lin_w, *lin_b;
+  T *alpha, *c, *s;
+  float* logp;
   int B, K, L, S, A, St, M, W, V;
 };
+using Args = ArgsT<float>;
 
 // Block r's share [lo, lo + n) of n_all items over C blocks, in whole
 // groups of g items (g divides n_all).
@@ -90,9 +102,10 @@ struct Cols {
 // K, KM >= K: a shuffle under a K guard costs a divergence-safe
 // sequence), and go to scratch[(warp K + k) VW qc + j]. KM = 5 (the
 // beam's K) spares the K = 8 instance's idle rows. Not inlined: one copy
-// serves all seven products of the step.
-template <int VW, int KM>
-__device__ __noinline__ void slice_partials(const float* __restrict__ w, int ldw, int in,
+// serves all seven products of the step. A bf16 w (TW) is widened as it
+// is read.
+template <int VW, int KM, class TW>
+__device__ __noinline__ void slice_partials(const TW* __restrict__ w, int ldw, int in,
                                             const float* x, int xs, int K, const Cols cs,
                                             int q0, int qc, float* scratch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nc = qc * VW;
@@ -106,7 +119,7 @@ __device__ __noinline__ void slice_partials(const float* __restrict__ w, int ldw
     for (int v = 0; v < VW; ++v) acc[k][v] = 0.f;
   if (quad < qc) {
     const int jj = VW * (q0 + quad), step = kWarps * G;
-    const float* wc = w + (jj < cs.n0 ? cs.lo0 + jj : cs.lo1 + jj - cs.n0);
+    const TW* wc = w + (jj < cs.n0 ? cs.lo0 + jj : cs.lo1 + jj - cs.n0);
 #pragma unroll 1
     for (int i0 = warp * G + g; i0 < in; i0 += kBatch * step) {
       float wv[kBatch][VW];
@@ -114,11 +127,10 @@ __device__ __noinline__ void slice_partials(const float* __restrict__ w, int ldw
       for (int t = 0; t < kBatch; ++t) {
         const int i = i0 + t * step;
         if constexpr (VW == 4) {
-          const float4 u = i < in ? __ldg(reinterpret_cast<const float4*>(wc + (size_t)i * ldw))
-                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+          const float4 u = i < in ? ldg_f4(wc + (size_t)i * ldw) : make_float4(0.f, 0.f, 0.f, 0.f);
           wv[t][0] = u.x, wv[t][1] = u.y, wv[t][2] = u.z, wv[t][3] = u.w;
         } else {
-          wv[t][0] = i < in ? __ldg(wc + (size_t)i * ldw) : 0.f;
+          wv[t][0] = i < in ? ldg_f(wc + (size_t)i * ldw) : 0.f;
         }
       }
 #pragma unroll
@@ -158,8 +170,8 @@ __device__ __noinline__ void slice_partials(const float* __restrict__ w, int ldw
 // columns at a time: slice_partials, then the kWarps warps' partials
 // (`scratch`: kWarps * K * min(n0 + n1, 32 VW) floats) summed in warp
 // order. Starts after the caller's barrier; ends with a block barrier.
-template <int VW, class Emit>
-__device__ void slice_product_vw(const float* __restrict__ w, int ldw, int in, const float* x,
+template <int VW, class TW, class Emit>
+__device__ void slice_product_vw(const TW* __restrict__ w, int ldw, int in, const float* x,
                                  int xs, int K, const Cols& cs, float* scratch, Emit emit) {
   const int q = (cs.n0 + cs.n1) / VW;
   for (int q0 = 0; q0 < q; q0 += 32) {
@@ -181,26 +193,26 @@ __device__ void slice_product_vw(const float* __restrict__ w, int ldw, int in, c
   }
 }
 
-template <class Emit>
-__device__ void slice_product(const float* w, int ldw, int in, const float* x, int xs, int K,
+template <class TW, class Emit>
+__device__ void slice_product(const TW* w, int ldw, int in, const float* x, int xs, int K,
                               const Cols& cs, float* scratch, Emit emit) {
   const bool vec = ((ldw | cs.lo0 | cs.n0 | cs.lo1 | cs.n1) & 3) == 0 &&
-                   (reinterpret_cast<size_t>(w) & 15) == 0;
+                   (reinterpret_cast<size_t>(w) & (4 * sizeof(TW) - 1)) == 0;
   if (vec)
     slice_product_vw<4>(w, ldw, in, x, xs, K, cs, scratch, emit);
   else
     slice_product_vw<1>(w, ldw, in, x, xs, K, cs, scratch, emit);
 }
 
-// VW floats of x from i (16 bytes when VW = 4), zeros from n on.
-template <int VW>
-__device__ __forceinline__ void load_vw(float (&v)[VW], const float* x, int i, int n) {
+// VW values of x from i, widened (one 16-byte load of float, or 8-byte
+// of bf16, when VW = 4), zeros from n on.
+template <int VW, class TX>
+__device__ __forceinline__ void load_vw(float (&v)[VW], const TX* x, int i, int n) {
   if constexpr (VW == 4) {
-    const float4 u = i < n ? __ldg(reinterpret_cast<const float4*>(x + i))
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 u = i < n ? ldg_f4(x + i) : make_float4(0.f, 0.f, 0.f, 0.f);
     v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
   } else {
-    v[0] = i < n ? __ldg(x + i) : 0.f;
+    v[0] = i < n ? ldg_f(x + i) : 0.f;
   }
 }
 
@@ -218,16 +230,17 @@ __device__ __forceinline__ void lds_vw(float (&v)[VW], const float* x) {
 // e[k * Lc + p] = w_e . tanh(vh[p] + ws[k]) for this block's n positions,
 // a warp a position, lanes over VW consecutive scores (16-byte loads of
 // vh, ws and w_e when VW = 4: all S of them aligned), vh's row read once
-// for all K hypotheses. Ends with a block barrier.
-template <int VW>
-__device__ void energies(const float* vhb, const float* ws, const float* we, float* e, int n,
+// for all K hypotheses (bf16 vh, TV, widened as it is read). Ends with a
+// block barrier.
+template <int VW, class TV>
+__device__ void energies(const TV* vhb, const float* ws, const float* we, float* e, int n,
                          int Lc, int K, int S) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int p = warp; p < n; p += kWarps) {
     float acc[kMaxK];
 #pragma unroll
     for (int k = 0; k < kMaxK; ++k) acc[k] = 0.f;
-    const float* vr = vhb + (size_t)p * S;
+    const TV* vr = vhb + (size_t)p * S;
     // One iteration's vh loads are in flight while the previous one's
     // tanh run: a short loop body that the instruction cache keeps.
     float cur[VW], nxt[VW];
@@ -258,7 +271,20 @@ __device__ void energies(const float* vhb, const float* ws, const float* we, flo
   __syncthreads();
 }
 
+// K2's step. With bf16 IO (T), as the JAX kernel with bf16 inputs: the
+// inputs load widened and alpha, c and s store rounded; the energies, the
+// softmax, c and the cell's math are float; each product's operand is
+// rounded to bf16 where it is formed: c (in s_new | c, which the readout
+// reads too) before c_in, c_in(c) + b before dec_in, r before the gates
+// and the candidate, reset gate * s_prev before the candidate, s_new (in
+// s_new | c) before maxout (s_prev arrives in bf16). Each readout layer
+// rounds its product, then its bias add; the log-softmax is float.
+// The kernel is a template on its arguments' type (Args is ArgsT<float> or
+// ArgsT<bf16>), so that both entries run this one body; a profiler names
+// both attention_step_kernel.
+template <class Args>
 __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args a) {
+  using T = typename Args::Io;
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
@@ -297,23 +323,28 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
 
   cluster_arrive();  // no block writes into another before every block has started
   // The step's inputs and this block's bias columns, by asynchronous
-  // copies: one round trip.
+  // copies: one round trip (bf16 IO: loads widened).
+  const auto load = [](float* dst, const T* src) {
+    if constexpr (kIsBf16<T>)
+      *dst = to_f(*src);
+    else
+      copy_async(dst, src);
+  };
   const size_t row = (size_t)b * K;
   for (int i = tid; i < K * St; i += kThreads) {
     const int k = i / St, j = i % St;
-    copy_async(sr + k * St2 + j, a.sprev + (row + k) * St + j);
-    copy_async(rin + k * St2 + St + j, a.yin + (row + k) * St + j);
+    load(sr + k * St2 + j, a.sprev + (row + k) * St + j);
+    load(rin + k * St2 + St + j, a.yin + (row + k) * St + j);
   }
-  for (int i = tid; i < S; i += kThreads) copy_async(we + i, a.w_e + i);
-  for (int i = tid; i < pos.n; i += kThreads)
-    copy_async(msk + i, a.mask + (size_t)b * L + pos.lo + i);
-  for (int i = tid; i < sc.n; i += kThreads) copy_async(bws + i, a.ws_b + sc.lo + i);
+  for (int i = tid; i < S; i += kThreads) load(we + i, a.w_e + i);
+  for (int i = tid; i < pos.n; i += kThreads) load(msk + i, a.mask + (size_t)b * L + pos.lo + i);
+  for (int i = tid; i < sc.n; i += kThreads) load(bws + i, a.ws_b + sc.lo + i);
   for (int i = tid; i < un.n; i += kThreads) {
-    copy_async(bc + i, a.c_b + un.lo + i);
-    copy_async(bdec + i, a.dec_b + un.lo + i);
+    load(bc + i, a.c_b + un.lo + i);
+    load(bdec + i, a.dec_b + un.lo + i);
   }
-  for (int i = tid; i < gr.n * W; i += kThreads) copy_async(bmo + i, a.mo_b + gr.lo * W + i);
-  for (int i = tid; i < (r == 0 ? V : 0); i += kThreads) copy_async(blin + i, a.lin_b + i);
+  for (int i = tid; i < gr.n * W; i += kThreads) load(bmo + i, a.mo_b + gr.lo * W + i);
+  for (int i = tid; i < (r == 0 ? V : 0); i += kThreads) load(blin + i, a.lin_b + i);
   copy_async_wait();
   __syncthreads();
   cluster_wait();
@@ -328,8 +359,8 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
   cluster.sync();
   // [phase] ws
 
-  const float* vhb = a.vh + ((size_t)b * L + pos.lo) * S;
-  if ((S & 3) == 0 && (reinterpret_cast<size_t>(a.vh) & 15) == 0)
+  const T* vhb = a.vh + ((size_t)b * L + pos.lo) * S;
+  if ((S & 3) == 0 && (reinterpret_cast<size_t>(a.vh) & (4 * sizeof(T) - 1)) == 0)
     energies<4>(vhb, ws, we, e, pos.n, Lc, K, S);
   else
     energies<1>(vhb, ws, we, e, pos.n, Lc, K, S);
@@ -359,15 +390,15 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
   __syncthreads();
   // The context's partial sums over this block's positions, each column
   // into the block that owns it.
-  const float* hb = a.h + ((size_t)b * L + pos.lo) * A;
+  const T* hb = a.h + ((size_t)b * L + pos.lo) * A;
   for (int j = tid; j < A; j += kThreads) {
     float acc[kMaxK];
 #pragma unroll
     for (int k = 0; k < kMaxK; ++k) acc[k] = 0.f;
-    float hv = pos.n > 0 ? __ldg(hb + j) : 0.f;
+    float hv = pos.n > 0 ? ldg_f(hb + j) : 0.f;
 #pragma unroll 1
     for (int p = 0; p < pos.n; ++p) {
-      const float hn = p + 1 < pos.n ? __ldg(hb + (size_t)(p + 1) * A + j) : 0.f;
+      const float hn = p + 1 < pos.n ? ldg_f(hb + (size_t)(p + 1) * A + j) : 0.f;
 #pragma unroll
       for (int k = 0; k < kMaxK; ++k)
         if (k < K) acc[k] = fmaf(e[k * Lc + p], hv, acc[k]);
@@ -398,17 +429,17 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
   __syncthreads();
   for (int i = tid; i < K * pos.n; i += kThreads) {
     const int k = i / pos.n, p = i % pos.n;
-    a.alpha[(row + k) * L + pos.lo + p] = e[k * Lc + p] * scale[r * K + k] / zsum[k];
+    st_f(a.alpha + (row + k) * L + pos.lo + p, e[k * Lc + p] * scale[r * K + k] / zsum[k]);
   }
   // This block's context columns: the C partials in rank order, into every block.
   for (int i = tid; i < K * ac.n; i += kThreads) {
     const int k = i / ac.n, jl = i % ac.n;
     float sum = 0.f;
     for (int p = 0; p < C; ++p) sum = fmaf(scale[p * K + k], part[(p * K + k) * Ac + jl], sum);
-    const float v = sum / zsum[k];
+    const float v = sum / zsum[k], vr = round_to<T>(v);
     const int j = St + ac.lo + jl;
-    for (int p = 0; p < C; ++p) cluster.map_shared_rank(xo, p)[k * XO + j] = v;
-    a.c[(row + k) * A + ac.lo + jl] = v;
+    for (int p = 0; p < C; ++p) cluster.map_shared_rank(xo, p)[k * XO + j] = vr;
+    st_f(a.c + (row + k) * A + ac.lo + jl, v);
   }
   cluster.sync();
   // [phase] context
@@ -416,14 +447,14 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
   // r = dec_in(concat(c_in(c), yin)): this block's state units of each.
   slice_product(a.c_w, St, A, xo + St, XO, K, Cols{un.lo, un.n, 0, 0}, scratch,
                 [&](int k, int jj, int col, float v) {
-                  v += bc[jj];
+                  v = round_to<T>(v + bc[jj]);
                   for (int p = 0; p < C; ++p) cluster.map_shared_rank(rin, p)[k * St2 + col] = v;
                 });
   cluster.sync();
   // [phase] c_in
   slice_product(a.dec_w, St, St2, rin, St2, K, Cols{un.lo, un.n, 0, 0}, scratch,
                 [&](int k, int jj, int col, float v) {
-                  v += bdec[jj];
+                  v = round_to<T>(v + bdec[jj]);
                   for (int p = 0; p < C; ++p) {
                     cluster.map_shared_rank(sr, p)[k * St2 + St + col] = v;
                     cluster.map_shared_rank(rhr, p)[k * St2 + St + col] = v;
@@ -441,7 +472,7 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
                     gz[k * un.n + jj] = g;
                   } else {
                     const int u = col - St;
-                    const float rs = g * sr[k * St2 + u];
+                    const float rs = round_to<T>(g * sr[k * St2 + u]);
                     for (int p = 0; p < C; ++p) cluster.map_shared_rank(rhr, p)[k * St2 + u] = rs;
                   }
                 });
@@ -452,8 +483,9 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
                 [&](int k, int jj, int col, float v) {
                   const float zg = gz[k * un.n + jj], sp = sr[k * St2 + col];
                   const float sn = (1.f - zg) * sp + zg * activate<kTanh>(v);
-                  for (int p = 0; p < C; ++p) cluster.map_shared_rank(xo, p)[k * XO + col] = sn;
-                  a.s[(row + k) * St + col] = sn;
+                  const float snr = round_to<T>(sn);
+                  for (int p = 0; p < C; ++p) cluster.map_shared_rank(xo, p)[k * XO + col] = snr;
+                  st_f(a.s + (row + k) * St + col, sn);
                 });
   cluster.sync();
   // [phase] candidate
@@ -462,7 +494,9 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
   // their maxima into block 0.
   const int nmo = gr.n * W;
   slice_product(a.mo_w, M * W, XO, xo, XO, K, Cols{gr.lo * W, nmo, 0, 0}, scratch,
-                [&](int k, int jj, int, float v) { gz[k * nmo + jj] = v + bmo[jj]; });
+                [&](int k, int jj, int, float v) {
+                  gz[k * nmo + jj] = round_to<T>(round_to<T>(v) + bmo[jj]);
+                });
   for (int i = tid; i < K * gr.n; i += kThreads) {
     const int k = i / gr.n, g = i % gr.n;
     const float* grp = gz + k * nmo + g * W;
@@ -476,7 +510,9 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
 
   // Block 0: linear and the f32 log_softmax, a warp per hypothesis.
   slice_product(a.lin_w, V, M, mo, M, K, Cols{0, V, 0, 0}, scratch,
-                [&](int k, int, int col, float v) { lg[k * V + col] = v + blin[col]; });
+                [&](int k, int, int col, float v) {
+                  lg[k * V + col] = round_to<T>(round_to<T>(v) + blin[col]);
+                });
   if (warp < K) {
     const float* x = lg + warp * V;
     float m = -INFINITY;
@@ -490,6 +526,27 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
   // [phase] linear, log_softmax
 }
 
+// K2 on clusters of `cluster` blocks, a batch row a cluster.
+template <class T>
+int launch_step(const ArgsT<T>& a, int cluster, cudaStream_t stream) {
+  if (a.B < 1 || a.K < 1 || a.K > kMaxK || a.L < 1 || a.W < 1 || cluster < 1 ||
+      cluster > kMaxStepCluster)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes =
+      step_smem_floats(a.K, a.L, a.S, a.A, a.St, a.M, a.W, a.V, cluster) * sizeof(float);
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attention_step_kernel<ArgsT<T>>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
+  return (int)launch_cluster(attention_step_kernel<ArgsT<T>>, dim3(a.B * cluster), cluster,
+                             bytes, stream, a);
+}
+
 }  // namespace
 
 // Device limits of K2's cluster launch: the opt-in shared memory of a
@@ -499,9 +556,9 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
 extern "C" int fused_attention_step_limits(int cluster, int* smem_limit, int* clusters) {
   if (cluster < 1 || cluster > kMaxStepCluster) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_step_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      attention_step_kernel<Args>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
-  return (int)cluster_limits(attention_step_kernel, cluster, smem_limit, clusters);
+  return (int)cluster_limits(attention_step_kernel<Args>, cluster, smem_limit, clusters);
 }
 
 // `cluster`: C, the blocks of a batch row's cluster (the wrapper's plan).
@@ -512,23 +569,25 @@ extern "C" int fused_attention_step(
     const float* mo_w, const float* mo_b, const float* lin_w, const float* lin_b,
     float* alpha, float* c, float* s, float* logp, int B, int K, int L, int S, int A, int St,
     int M, int W, int V, int cluster, cudaStream_t stream) {
-  if (B < 1 || K < 1 || K > kMaxK || L < 1 || W < 1 || cluster < 1 ||
-      cluster > kMaxStepCluster)
-    return (int)cudaErrorInvalidValue;
-  const size_t bytes = step_smem_floats(K, L, S, A, St, M, W, V, cluster) * sizeof(float);
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attention_step_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return (int)err;
-  if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
   const Args a{vh,    h,     mask,  yin,   sprev, ws_w, ws_b, w_e, c_w, c_b, dec_w,
                dec_b, w_zr,  w_h,   mo_w,  mo_b,  lin_w, lin_b, alpha, c, s, logp,
                B,     K,     L,     S,     A,     St,   M,    W,   V};
-  return (int)launch_cluster(attention_step_kernel, dim3(B * cluster), cluster, bytes, stream, a);
+  return launch_step(a, cluster, stream);
+}
+
+// K2's bf16 entry: fused_attention_step with every array bf16 but logp,
+// on fused_attention_step_limits' plan (the same block and shared memory).
+extern "C" int fused_attention_step_bf16(
+    const bf16* vh, const bf16* h, const bf16* mask, const bf16* yin, const bf16* sprev,
+    const bf16* ws_w, const bf16* ws_b, const bf16* w_e, const bf16* c_w, const bf16* c_b,
+    const bf16* dec_w, const bf16* dec_b, const bf16* w_zr, const bf16* w_h,
+    const bf16* mo_w, const bf16* mo_b, const bf16* lin_w, const bf16* lin_b,
+    bf16* alpha, bf16* c, bf16* s, float* logp, int B, int K, int L, int S, int A, int St,
+    int M, int W, int V, int cluster, cudaStream_t stream) {
+  const ArgsT<bf16> a{vh,    h,     mask,  yin,   sprev, ws_w, ws_b, w_e, c_w, c_b, dec_w,
+                      dec_b, w_zr,  w_h,   mo_w,  mo_b,  lin_w, lin_b, alpha, c, s, logp,
+                      B,     K,     L,     S,     A,     St,   M,    W,   V};
+  return launch_step(a, cluster, stream);
 }
 
 // ---------------------------------------------------------------------------

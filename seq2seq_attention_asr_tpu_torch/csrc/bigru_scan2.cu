@@ -11,6 +11,11 @@
 // steps with the weight slices resident in its blocks' shared memory
 // (csrc/gru_walk.cuh gives the step and what bounds it). The plan (C, R,
 // resident) comes from the caller (ops/cuda/walk.py).
+//
+// bigru_scan2_fwd_bf16 is the bf16 entry (bigru_scan2_bf16_kernel): the
+// same walk with bf16 inputs and outputs, as _bi2_fwd_kernel runs with
+// bf16 inputs (gru_walk.cuh says where it rounds). Plain PyTorch twin:
+// ops/cuda/gru_scan.py::bigru_scan2_plain_bf16.
 
 #include "gru_walk.cuh"
 
@@ -20,6 +25,25 @@ template <int R>
 __global__ void __launch_bounds__(kThreads, 1) bigru_scan2_kernel(const GruFwd g, int resident) {
   extern __shared__ float smem[];
   gru_walk_fwd<R>(g.d[blockIdx.y], g.B, g.L, g.H, resident != 0, smem);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+    bigru_scan2_bf16_kernel(const GruFwdT<bf16> g, int resident) {
+  extern __shared__ float smem[];
+  gru_walk_fwd<R, bf16>(g.d[blockIdx.y], g.B, g.L, g.H, resident != 0, smem);
+}
+
+template <class T>
+int bigru_scan2_run(const T* xf, const T* xb, const T* wzr2, const T* wh2, T* ysf, T* ysb,
+                    int B, int L, int H, const WalkPlan& plan,
+                    void (*walk)(const GruFwdT<T>, int), cudaStream_t stream) {
+  if (B < 1 || L < 1 || H < 1 || H > 1024) return (int)cudaErrorInvalidValue;
+  GruFwdT<T> g{};
+  g.d[0] = GruFwdDirT<T>{xf, nullptr, wzr2, wh2, ysf, 0};
+  g.d[1] = GruFwdDirT<T>{xb, nullptr, wzr2 + (size_t)H * 2 * H, wh2 + (size_t)H * H, ysb, 1};
+  g.B = B, g.L = L, g.H = H;
+  return (int)run_gru_fwd(g, 2, plan, walk, stream);
 }
 
 }  // namespace
@@ -35,11 +59,17 @@ extern "C" int bigru_scan2_fwd_limits(int cluster, int* smem_limit, int* cluster
 extern "C" int bigru_scan2_fwd(const float* xf, const float* xb, const float* wzr2,
                                const float* wh2, float* ysf, float* ysb, int B, int L, int H,
                                int cluster, int rows, int resident, cudaStream_t stream) {
-  if (B < 1 || L < 1 || H < 1 || H > 1024) return (int)cudaErrorInvalidValue;
-  GruFwd g{};
-  g.d[0] = GruFwdDir{xf, nullptr, wzr2, wh2, ysf, 0};
-  g.d[1] = GruFwdDir{xb, nullptr, wzr2 + (size_t)H * 2 * H, wh2 + (size_t)H * H, ysb, 1};
-  g.B = B, g.L = L, g.H = H;
-  return (int)run_gru_fwd(g, 2, WalkPlan{cluster, rows, resident},
-                          GRU_WALK_INSTANCE(bigru_scan2_kernel, rows), stream);
+  return bigru_scan2_run(xf, xb, wzr2, wh2, ysf, ysb, B, L, H,
+                         WalkPlan{cluster, rows, resident},
+                         GRU_WALK_INSTANCE(bigru_scan2_kernel, rows), stream);
+}
+
+// bigru_scan2_fwd with every array bf16, on bigru_scan2_fwd_limits' plan
+// (the walk's shared memory is the same).
+extern "C" int bigru_scan2_fwd_bf16(const bf16* xf, const bf16* xb, const bf16* wzr2,
+                                    const bf16* wh2, bf16* ysf, bf16* ysb, int B, int L, int H,
+                                    int cluster, int rows, int resident, cudaStream_t stream) {
+  return bigru_scan2_run(xf, xb, wzr2, wh2, ysf, ysb, B, L, H,
+                         WalkPlan{cluster, rows, resident},
+                         GRU_WALK_INSTANCE(bigru_scan2_bf16_kernel, rows), stream);
 }

@@ -161,6 +161,17 @@ __device__ void stage_async(float* dst, int ldd, const float* src, size_t lds, i
   }
 }
 
+// As stage_async, from a bf16 source: plain loads widened to float, which
+// have landed by the caller's next block barrier.
+template <int R>
+__device__ void stage_async(float* dst, int ldd, const bf16* src, size_t lds, int n, int nrows,
+                            bool) {
+  for (int idx = threadIdx.x; idx < R * n; idx += kThreads) {
+    const int r = idx / n, i = idx - r * n;
+    dst[r * ldd + i] = src == nullptr || r >= nrows ? 0.f : ldg_f(src + r * lds + i);
+  }
+}
+
 // A cluster barrier in two halves (barrier.cluster): arrive releases this
 // thread's earlier writes, wait returns once every thread of the cluster
 // has arrived and acquires theirs. Work between the two overlaps the
@@ -289,16 +300,21 @@ __device__ __forceinline__ float reduce_rows(float (&v)[R], int& row) {
 // lane taking 4 consecutive floats of each row with 16-byte loads where
 // `vec` (m, ldw, ldv, w and v 16-byte aligned). A warp takes two rows at
 // once, i and i + kWarps, so that each load of v feeds two products. No
-// barrier.
-template <int R, bool kColumns = false, bool kGlobal = false, class Emit>
-__device__ __forceinline__ void rows_dot(const float* w, int ldw, int n, const float* v, int ldv,
+// barrier. A bf16 w (TW; kColumns only) is widened as it is read; with
+// kRoundV each value of v is rounded to bf16 as it is read (a bf16
+// entry's operand rounding: v itself stays float).
+template <int R, bool kColumns = false, bool kGlobal = false, bool kRoundV = false, class TW,
+          class Emit>
+__device__ __forceinline__ void rows_dot(const TW* w, int ldw, int n, const float* v, int ldv,
                                          int m, Emit emit, bool vec = false) {
   static_assert(!(kColumns && kGlobal), "kGlobal reads rows");
+  static_assert(!kIsBf16<TW> || kColumns, "a bf16 w is read by columns");
+  static_assert(!(kRoundV && kGlobal), "kGlobal reads v unrounded");
   const int lane = threadIdx.x & 31;
   for (int i = threadIdx.x >> 5; i < n; i += 2 * kWarps) {
     const int i2 = i + kWarps < n ? i + kWarps : i;  // a lone last row is summed twice
-    const float* wa = kColumns ? w + i : w + (size_t)i * ldw;
-    const float* wb = kColumns ? w + i2 : w + (size_t)i2 * ldw;
+    const TW* wa = kColumns ? w + i : w + (size_t)i * ldw;
+    const TW* wb = kColumns ? w + i2 : w + (size_t)i2 * ldw;
     float sa[R], sb[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) sa[r] = sb[r] = 0.f;
@@ -306,8 +322,8 @@ __device__ __forceinline__ void rows_dot(const float* w, int ldw, int n, const f
       if (vec) {
 #pragma unroll 4
         for (int j = 4 * lane; j < m; j += 128) {
-          const float4 xa = __ldg(reinterpret_cast<const float4*>(wa + j));
-          const float4 xb = __ldg(reinterpret_cast<const float4*>(wb + j));
+          const float4 xa = ldg_f4(wa + j);
+          const float4 xb = ldg_f4(wb + j);
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             const float4 x = *reinterpret_cast<const float4*>(v + r * ldv + j);
@@ -318,7 +334,7 @@ __device__ __forceinline__ void rows_dot(const float* w, int ldw, int n, const f
       } else {
 #pragma unroll 4
         for (int j = lane; j < m; j += 32) {
-          const float xa = __ldg(wa + j), xb = __ldg(wb + j);
+          const float xa = ldg_f(wa + j), xb = ldg_f(wb + j);
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             const float x = v[r * ldv + j];
@@ -332,13 +348,13 @@ __device__ __forceinline__ void rows_dot(const float* w, int ldw, int n, const f
       for (int j = lane; j < m; j += 32) {
         float xa, xb;
         if constexpr (kColumns) {
-          xa = wa[(size_t)j * ldw], xb = wb[(size_t)j * ldw];
+          xa = to_f(wa[(size_t)j * ldw]), xb = to_f(wb[(size_t)j * ldw]);
         } else {
-          xa = wa[j], xb = wb[j];
+          xa = to_f(wa[j]), xb = to_f(wb[j]);
         }
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float x = v[r * ldv + j];
+          const float x = kRoundV ? round_to<bf16>(v[r * ldv + j]) : v[r * ldv + j];
           sa[r] = fmaf(xa, x, sa[r]);
           sb[r] = fmaf(xb, x, sb[r]);
         }

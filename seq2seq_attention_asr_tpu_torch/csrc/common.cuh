@@ -1,7 +1,8 @@
 // Device helpers shared by the kernels that stream input-major weights
 // through one block of kThreads threads: warp reductions, activations,
-// and the two matrix-vector products of a recurrence step, x @ W
-// (matvec) and v @ W^T (matvec_t), for a few rows at once.
+// the two matrix-vector products of a recurrence step, x @ W (matvec)
+// and v @ W^T (matvec_t), for a few rows at once, and the IO of the
+// bf16 entries.
 //
 // Weights are input-major (in, out) in global memory, read from L2 for
 // every step (a step's weights do not fit in one SM); vectors are in
@@ -9,9 +10,48 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// The bf16 entries' IO: a bf16 value loads widened to float (exactly) and
+// a float stores rounded to the nearest even bf16; the math stays float.
+// The float overloads are the plain loads and store, so that a float
+// instance of a kernel templated on its IO type T is the code it was.
+using bf16 = __nv_bfloat16;
+template <class T>
+constexpr bool kIsBf16 = false;
+template <>
+constexpr bool kIsBf16<bf16> = true;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f(const bf16* p) {
+  return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+// Four consecutive values from read-only global memory: 16 bytes of
+// float (p 16-byte aligned) or 8 of bf16 (p 8-byte aligned).
+__device__ __forceinline__ float4 ldg_f4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldg_f4(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ void st_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_f(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+// v rounded to T's precision, as a float: where a bf16 entry rounds a
+// product's operand (the identity for float).
+template <class T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (kIsBf16<T>)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  else
+    return v;
+}
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;

@@ -48,20 +48,25 @@
 
 namespace {
 
-// One direction of a GRU forward.
-struct GruFwdDir {
-  const float* x;   // (B, L, 3H) input projections
-  const float* h0;  // (B, H) the initial state, or null for zeros
-  const float* wzr; // (H, 2H)
-  const float* wh;  // (H, H)
-  float* ys;        // (B, L, H)
-  int reverse;      // step s reads and writes t = L-1-s, else t = s
+// One direction of a GRU forward, its arrays of IO type T (float, or
+// bf16 for K1's bf16 entry).
+template <class T>
+struct GruFwdDirT {
+  const T* x;    // (B, L, 3H) input projections
+  const T* h0;   // (B, H) the initial state, or null for zeros
+  const T* wzr;  // (H, 2H)
+  const T* wh;   // (H, H)
+  T* ys;         // (B, L, H)
+  int reverse;   // step s reads and writes t = L-1-s, else t = s
 };
+using GruFwdDir = GruFwdDirT<float>;
 
-struct GruFwd {
-  GruFwdDir d[2];
+template <class T>
+struct GruFwdT {
+  GruFwdDirT<T> d[2];
   int B, L, H;
 };
+using GruFwd = GruFwdT<float>;
 
 // Shared memory of the forward walk: the weight slices (3H floats a
 // unit), the gathered h and r * h (R x 2H), two buffers of three staged
@@ -95,8 +100,14 @@ size_t gru_fwd_smem_bytes(const WalkPlan& p, int H) {
 // h = 0, as their staged x is 0. A zero x row and h = 0 give h' = 0
 // exactly, so a zero-padded tail holds h at 0. `smem` holds
 // gru_fwd_smem_bytes.
-template <int R>
-__device__ void gru_walk_fwd(const GruFwdDir& a, int B, int L, int H, bool resident,
+//
+// With bf16 IO (T), as the JAX kernel with bf16 inputs: x, h0 and the
+// weights load widened to float (the slices stay float in shared memory,
+// so the plan is the float walk's), the products read their operands h
+// and r * h rounded to bf16 while h and r * h stay float (h is the
+// carry), and ys stores rounded.
+template <int R, class T = float>
+__device__ void gru_walk_fwd(const GruFwdDirT<T>& a, int B, int L, int H, bool resident,
                              float* smem) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), k = (int)cluster.block_rank();
@@ -115,26 +126,26 @@ __device__ void gru_walk_fwd(const GruFwdDir& a, int B, int L, int H, bool resid
 
   if (resident)
     for (int j = threadIdx.x; j < H; j += kThreads) {
-      const float* wzr = a.wzr + (size_t)j * H2 + lo;
-      const float* wh = a.wh + (size_t)j * H + lo;
+      const T* wzr = a.wzr + (size_t)j * H2 + lo;
+      const T* wh = a.wh + (size_t)j * H + lo;
 #pragma unroll 4
       for (int i = 0; i < hs; ++i) {
-        w_z[i * H + j] = __ldg(wzr + i);
-        w_r[i * H + j] = __ldg(wzr + H + i);
-        w_c[i * H + j] = __ldg(wh + i);
+        w_z[i * H + j] = ldg_f(wzr + i);
+        w_r[i * H + j] = ldg_f(wzr + H + i);
+        w_c[i * H + j] = ldg_f(wh + i);
       }
     }
   for (int i = threadIdx.x; i < R * H; i += kThreads)
-    gh[i] = a.h0 != nullptr && i / H < nrows ? a.h0[(size_t)b0 * H + i] : 0.f;
+    gh[i] = a.h0 != nullptr && i / H < nrows ? to_f(a.h0[(size_t)b0 * H + i]) : 0.f;
 
   // The block's units of the product v @ W (v: R x H, gathered), as
   // rows_dot's rows: the transposed slice in shared memory, or the
   // columns of W from L2 (`wg`, row stride ldg).
-  auto product = [&](const float* ws, const float* wg, int ldg, const float* v, auto emit) {
+  auto product = [&](const float* ws, const T* wg, int ldg, const float* v, auto emit) {
     if (resident)
-      rows_dot<R>(ws, H, hs, v, H, H, emit);
+      rows_dot<R, false, false, kIsBf16<T>>(ws, H, hs, v, H, H, emit);
     else
-      rows_dot<R, true>(wg, ldg, hs, v, H, H, emit);
+      rows_dot<R, true, false, kIsBf16<T>>(wg, ldg, hs, v, H, H, emit);
   };
   // Stage step s's x of the block's units, 16 bytes a copy where every
   // slice is 4-float aligned.
@@ -142,7 +153,7 @@ __device__ void gru_walk_fwd(const GruFwdDir& a, int B, int L, int H, bool resid
   auto prefetch = [&](int s) {
     const int t = a.reverse ? L - 1 - s : s;
     float* q = stg + (s & 1) * 3 * RM;
-    const float* x = a.x + ((size_t)b0 * L + t) * H3 + lo;
+    const T* x = a.x + ((size_t)b0 * L + t) * H3 + lo;
     stage_async<R>(q, hm, x, lx, hs, nrows, vec);
     stage_async<R>(q + RM, hm, x + H, lx, hs, nrows, vec);
     stage_async<R>(q + 2 * RM, hm, x + H2, lx, hs, nrows, vec);
@@ -183,13 +194,13 @@ __device__ void gru_walk_fwd(const GruFwdDir& a, int B, int L, int H, bool resid
     mbar_wait(&bars[0], s & 1);
     // [phase] rh push
     if (threadIdx.x == 0 && s + 1 < L) mbar_expect(&bars[0], tx);
-    float* ys = a.ys + ((size_t)b0 * L + t) * H + lo;  // batch row r at ys + r * lh
+    T* ys = a.ys + ((size_t)b0 * L + t) * H + lo;  // batch row r at ys + r * lh
     product(w_c, a.wh + lo, H, grh, [&](int i, int r, float v) {
       const int o = r * H + lo + i;
       const float zg = z[r * hm + i];
       const float hn = (1.f - zg) * gh[o] + zg * tanhf(v + xc[r * hm + i]);
       gh[o] = hn;
-      if (r < nrows) ys[r * lh + i] = hn;
+      if (r < nrows) st_f(ys + r * lh + i, hn);
     });
     __syncthreads();
     // [phase] candidate product
@@ -204,8 +215,9 @@ __device__ void gru_walk_fwd(const GruFwdDir& a, int B, int L, int H, bool resid
 
 // Run a GRU forward of D directions: `walk` on clusters of p.cluster
 // blocks, ceil(B / p.rows) clusters per direction.
-cudaError_t run_gru_fwd(const GruFwd& g, int D, const WalkPlan& p,
-                        void (*walk)(const GruFwd, int), cudaStream_t stream) {
+template <class T>
+cudaError_t run_gru_fwd(const GruFwdT<T>& g, int D, const WalkPlan& p,
+                        void (*walk)(const GruFwdT<T>, int), cudaStream_t stream) {
   const size_t smem = gru_fwd_smem_bytes(p, g.H);
   cudaError_t err = check_plan(p, g.H, smem);
   if (err != cudaSuccess) return err;

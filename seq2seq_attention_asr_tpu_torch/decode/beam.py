@@ -23,7 +23,9 @@ each pick's parent, the history keeps one packed (token, parent) row
 per step, and the tokens are recovered once at the end by walking the
 parent pointers on the device. The loop ends when every sample's pool
 is full or the longest max_steps is reached, which costs one host read
-per step.
+per step. A bf16 model's beam (h and the params in bf16) carries its
+state (alpha, s, mem) in bf16 between steps, through K2's bf16 entry,
+and its scores in float32, as the JAX package's does.
 """
 
 from __future__ import annotations

@@ -7,17 +7,26 @@ depth 512, state 256, maxout(64, window 7) -> 62 phones.
 ``forward`` is the training forward: encode, then the teacher-forced
 decoder scan. ``dropout`` > 0 puts a dropout layer at the readout's
 input (model_chorowski_baseline_dropout.lua; registry name
-"chorowski_dropout").
+"chorowski_dropout"). ``compute_dtype="bfloat16"`` is the JAX package's
+mixed-precision operating point: ``forward`` casts the float32 params
+and its inputs to bf16 (float32 masters, as the JAX package's
+``forward`` does); the kernels take bf16 IO and product operands and
+keep accumulation, carries and the softmax in float32, and the
+log-softmax is float32. ``encode`` casts nothing, so serving stays
+float32. bf16 evaluation runs (K1, K2 and K4 in bf16); bf16 training
+raises NotImplementedError (ROADMAP Queue A item 5b).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
 
-from .. import interop
+from .. import interop, tree
 from ..ops import attention, rnn
 
 Params = Dict[str, Any]
@@ -41,6 +50,12 @@ class ChorowskiConfig:
     filt_size: int = 10
     mono_align: bool = True
     penalty_lambda: float = 0.0
+    compute_dtype: str = "float32"  # or "bfloat16"
+
+    def __post_init__(self):
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}: the port takes 'float32' "
+                             f"or 'bfloat16'")
 
     @property
     def annotation_depth(self) -> int:
@@ -60,6 +75,34 @@ class ChorowskiConfig:
             mono_align=self.mono_align,
             penalty_lambda=self.penalty_lambda,
         )
+
+
+def cast_float32(tree_or_tensor, dtype: torch.dtype):
+    """Every float32 leaf of a tensor or a parameter tree cast to `dtype`,
+    other leaves as they are (chorowski.py:120-126 of the JAX package)."""
+    if dtype == torch.float32:
+        return tree_or_tensor
+    return tree.tree_map(lambda a: a.to(dtype) if a.dtype == torch.float32 else a, tree_or_tensor)
+
+
+@contextlib.contextmanager
+def float32_sums(dtype: torch.dtype):
+    """For bf16: cuBLAS's bf16 products (the input projections, vh, yin,
+    the teacher-forced readout) sum in float32, as the JAX package's bf16
+    dots do, whatever torch.backends.cuda.matmul.
+    allow_bf16_reduced_precision_reduction says (PyTorch's default, True,
+    lets cuBLAS reduce in bf16); the flag is restored on exit. Nothing
+    for other types."""
+    if dtype != torch.bfloat16:
+        yield
+        return
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
 
 
 def init(cfg: ChorowskiConfig, generator: torch.Generator, device="cuda") -> Params:
@@ -91,8 +134,16 @@ def forward(params: Params, cfg: ChorowskiConfig, x: torch.Tensor, x_lengths: to
             train: bool = False) -> Dict[str, torch.Tensor]:
     """Encode, then teacher-forced decode (model_chorowski_baseline.lua:
     73-75); train-mode dropout draws from `generator`. Returns logprobs
-    (B, T, V), alpha (B, T, L), penalty (B, T)."""
-    h = encode(params, cfg, x, x_lengths)
-    return attention.decode_teacher_forced(params["decoder"], cfg.attention_config(), h,
-                                           x_lengths, labels_onehot, dec_mask,
-                                           generator=generator, train=train)
+    (B, T, V), alpha (B, T, L), penalty (B, T). Under
+    compute_dtype="bfloat16" the float32 params, x, labels_onehot and
+    dec_mask are cast to bf16 first, and the bf16 products sum in
+    float32 (float32_sums); gradients reach the float32 masters through
+    the casts."""
+    dt = getattr(torch, cfg.compute_dtype)
+    params, x, labels_onehot, dec_mask = (cast_float32(a, dt)
+                                          for a in (params, x, labels_onehot, dec_mask))
+    with float32_sums(dt):
+        h = encode(params, cfg, x, x_lengths)
+        return attention.decode_teacher_forced(params["decoder"], cfg.attention_config(), h,
+                                               x_lengths, labels_onehot, dec_mask,
+                                               generator=generator, train=train)

@@ -40,6 +40,16 @@ class ConvBiLSTMConfig:
     penalty_lambda: float = 0.0
     mono_align: bool = True
     peepholes: bool = False  # refused: the port has no LSTM peepholes
+    compute_dtype: str = "float32"  # "bfloat16" is refused (ROADMAP Queue A item 5c)
+
+    def __post_init__(self):
+        if self.compute_dtype == "bfloat16":
+            raise NotImplementedError(
+                "conv_bilstm in bfloat16 needs bf16 instances of K7-K11, K14, K15 and K8: "
+                "ROADMAP Queue A item 5c")
+        if self.compute_dtype != "float32":
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}: the port takes 'float32' "
+                             f"or 'bfloat16'")
 
     @property
     def annotation_depth(self) -> int:

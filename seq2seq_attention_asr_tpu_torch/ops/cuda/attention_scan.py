@@ -29,6 +29,20 @@ One step, from the zero state s_0 = 0:
   s     = GRU(r, s_prev), bias-free, r gate before the candidate product
 
 Weights are the port's parameter leaves: biases and w_e are 1-D.
+
+K4 has a bf16 entry (``KERNEL_FWD_BF16``): every input bfloat16, the
+outputs bfloat16 (``_run_fwd`` gives them vh's type). The JAX kernel
+with bf16 inputs (``_step_core`` with ``dt`` = bf16) keeps the energies,
+the softmax, c and the s carry in float32 and rounds each product's
+operand to bf16: s_prev before ws, c before c_in, [cc | yin] before
+dec_in, [s_prev | r] before the gates and [rg s_prev | r] before the
+candidate. The plain versions round there too (``rnd``). The bf16
+entry's pre-pass folds c_in and dec_in into the gates as the float32
+one does, its tables in float32 from the widened weights, so it rounds
+s_prev, c and rg s_prev and not cc or r, which it never forms
+(ROADMAP, "Differences that are deliberate"); ``gru_folded_scan_plain``
+is its plain twin as it computes. K5, and the other
+decoders' scans, have no bf16 instance yet: they refuse bf16.
 """
 
 from __future__ import annotations
@@ -55,35 +69,55 @@ KERNEL_BWD = build.Kernel(
     [ctypes.c_void_p] * 32 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     defines=("CONTENT_GRU_BWD_ONLY",),
 )
+KERNEL_FWD_BF16 = build.Kernel(
+    "attention_decode_scan_fwd_bf16", "attention_scan_loc_lstm.cu",
+    "attention_decode_scan_fwd_bf16",
+    [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    defines=("GRU_FWD_ONLY",),
+)
 WEIGHTS = ("ws_w", "ws_b", "w_e", "c_w", "c_b", "dec_w", "dec_b", "gru_wzr", "gru_wh")
 
 
+def _same(x):
+    return x
+
+
 def _step_core(vh, h, enc_mask, yin_t, s_prev, ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b,
-               gru_wzr, gru_wh):
-    """One decoder step (_step_core for the GRU cell): (alpha, c, s_new)."""
+               gru_wzr, gru_wh, rnd=_same):
+    """One decoder step (_step_core for the GRU cell): (alpha, c, s_new).
+    `rnd` rounds each product's operand where the JAX kernel rounds it to
+    its IO type (build.round_bf16 for bf16, on float32 tensors; the
+    identity for float32)."""
     st = dec_w.shape[1]
-    ws = s_prev @ ws_w + ws_b
+    ws = rnd(s_prev) @ ws_w + ws_b
     e = torch.tanh(vh + ws[:, None, :]) @ w_e
     alpha = masked_softmax(e, enc_mask)
     c = torch.einsum("bl,bla->ba", alpha, h)
-    r = torch.cat([c @ c_w + c_b, yin_t], dim=-1) @ dec_w + dec_b
-    zr = torch.sigmoid(torch.cat([s_prev, r], dim=-1) @ gru_wzr)
+    r = rnd(torch.cat([rnd(c) @ c_w + c_b, yin_t], dim=-1)) @ dec_w + dec_b
+    zr = torch.sigmoid(rnd(torch.cat([s_prev, r], dim=-1)) @ gru_wzr)
     zg, rg = zr[:, :st], zr[:, st:]
-    cand = torch.tanh(torch.cat([rg * s_prev, r], dim=-1) @ gru_wh)
+    cand = torch.tanh(rnd(torch.cat([rg * s_prev, r], dim=-1)) @ gru_wh)
     return alpha, c, (1.0 - zg) * s_prev + zg * cand
 
 
 def attention_decode_scan_plain(vh, h, enc_mask, yin, *weights):
-    """Plain PyTorch twin of K4: _step_core looped over the T steps."""
+    """Plain PyTorch twin of K4: _step_core looped over the T steps. On
+    bfloat16 inputs the twin of its bf16 entry: the inputs widened to
+    float32, s carried in float32, the products' operands rounded as the
+    JAX kernel rounds them, the outputs rounded to bf16."""
+    dt, rnd = vh.dtype, _same
+    if dt == torch.bfloat16:
+        vh, h, enc_mask, yin, *weights = (t.float() for t in (vh, h, enc_mask, yin, *weights))
+        rnd = build.round_bf16
     b, t_len, st = yin.shape
     s = yin.new_zeros((b, st))
     s_seq, c_seq, alpha_seq = [], [], []
     for t in range(t_len):
-        alpha, c, s = _step_core(vh, h, enc_mask, yin[:, t], s, *weights)
+        alpha, c, s = _step_core(vh, h, enc_mask, yin[:, t], s, *weights, rnd=rnd)
         s_seq.append(s)
         c_seq.append(c)
         alpha_seq.append(alpha)
-    return tuple(torch.stack(x, dim=1) for x in (s_seq, c_seq, alpha_seq))
+    return tuple(torch.stack(x, dim=1).to(dt) for x in (s_seq, c_seq, alpha_seq))
 
 
 def attention_decode_scan_bwd_plain(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b, dec_w,
@@ -157,10 +191,12 @@ def attention_decode_scan(vh, h, enc_mask, yin, *weights):
 
     CPU tensors take the plain version; CUDA tensors the kernel (K4), on
     fwd_plan_on's plan; it raises RuntimeError where no cluster fits the
-    device."""
+    device. All float32, or all bfloat16 (the bf16 entry; outputs in
+    bf16)."""
     if build.on_cpu(vh, h, enc_mask, yin, *weights):
         return attention_decode_scan_plain(vh, h, enc_mask, yin, *weights)
-    return _scan(KERNEL_FWD, False, vh, h, enc_mask, yin, weights)
+    kernel = KERNEL_FWD_BF16 if vh.dtype == torch.bfloat16 else KERNEL_FWD
+    return _scan(kernel, False, vh, h, enc_mask, yin, weights)
 
 
 def attention_decode_scan_bwd(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b,
@@ -186,7 +222,8 @@ class AttentionDecodeScan(torch.autograd.Function):
     (the plain versions on CPU tensors). Saves s_seq, c_seq and alpha_seq
     (the JAX VJP, :1185-1189, saves s and c and recomputes alpha);
     enc_mask gets no gradient, and a missing cotangent of c_seq or
-    alpha_seq counts as zeros."""
+    alpha_seq counts as zeros. The gradient of a bf16 scan is refused:
+    K5 has no bf16 instance yet."""
 
     @staticmethod
     def forward(ctx, vh, h, enc_mask, yin, *weights):
@@ -197,6 +234,8 @@ class AttentionDecodeScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ds_seq, dc_seq, dalpha_seq):
         vh, h, enc_mask, yin, *rest = ctx.saved_tensors
+        if vh.dtype == torch.bfloat16:
+            raise NotImplementedError(build.BF16_TRAINING)
         dvh, dh, dyin, *dw = attention_decode_scan_bwd(
             vh, h, enc_mask, yin, *rest,
             ds_seq.contiguous(), dc_seq.contiguous(), dalpha_seq.contiguous())
@@ -304,9 +343,45 @@ def gru_fold_plain(yin, c_w, c_b, dec_w, dec_b, gru_wzr, gru_wh):
     P[:, t] + c @ W_cx with P = ([c_b | yin] @ dec_w + dec_b) @ W_x (B, T,
     3St) and W_cx = c_w @ dec_w[:St] @ W_x (A, 3St). Returns (P, W_cx),
     their columns the update gate's, the reset gate's and the candidate's
-    (the kernel stores them unit by unit)."""
+    (the kernel stores them unit by unit). bf16 inputs are widened to
+    float32 first, as the bf16 entry's pre-pass widens them: its tables
+    are float32."""
+    yin, c_w, c_b, dec_w, dec_b, gru_wzr, gru_wh = (
+        t.float() for t in (yin, c_w, c_b, dec_w, dec_b, gru_wzr, gru_wh))
     st = dec_w.shape[1]
     return _fold(yin, c_w, c_b, dec_w, dec_b, torch.cat([gru_wzr[st:], gru_wh[st:]], dim=1))
+
+
+def gru_folded_scan_plain(vh, h, enc_mask, yin, *weights):
+    """Plain twin of K4 as its entries compute it: gru_fold_plain's P and
+    W_cx, then each step's update and reset gates sigmoid(s_prev @
+    w_zr[:St] + x[:, :2St]) and candidate tanh((rg s_prev) @ w_h[:St] +
+    x[:, 2St:]) with x = P[:, t] + c @ W_cx. The float32 entry's sums in
+    exact arithmetic; on bfloat16 inputs the bf16 entry's: s carried in
+    float32, s_prev rounded to bf16 before ws_w and w_zr[:St], c before
+    W_cx, rg s_prev before w_h[:St], the outputs bf16. cc and r, which
+    the fold never forms, are not rounded, where the JAX kernel's rounding
+    points (attention_decode_scan_plain) round them."""
+    dt, rnd = vh.dtype, _same
+    if dt == torch.bfloat16:
+        vh, h, enc_mask, yin, *weights = (t.float() for t in (vh, h, enc_mask, yin, *weights))
+        rnd = build.round_bf16
+    ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, gru_wzr, gru_wh = weights
+    p, w_cx = gru_fold_plain(yin, c_w, c_b, dec_w, dec_b, gru_wzr, gru_wh)
+    b, t_len, st = yin.shape
+    s = yin.new_zeros((b, st))
+    outs = ([], [], [])
+    for t in range(t_len):
+        sr = rnd(s)
+        alpha = masked_softmax(torch.tanh(vh + (sr @ ws_w + ws_b)[:, None, :]) @ w_e, enc_mask)
+        c = torch.einsum("bl,bla->ba", alpha, h)
+        x = p[:, t] + rnd(c) @ w_cx
+        zr = torch.sigmoid(sr @ gru_wzr[:st] + x[:, :2 * st])
+        zg, rg = zr[:, :st], zr[:, st:]
+        s = (1.0 - zg) * s + zg * torch.tanh(rnd(rg * s) @ gru_wh[:st] + x[:, 2 * st:])
+        for seq, v in zip(outs, (s, c, alpha)):
+            seq.append(v)
+    return tuple(torch.stack(x, dim=1).to(dt) for x in outs)
 
 
 def _fold(yin, c_w, c_b, dec_w, dec_b, w_x):
@@ -504,7 +579,7 @@ def _scan_dims(vh, h, yin, weights, lstm: bool):
     return (b, yin.shape[1], l, s_dim, h.shape[2], yin.shape[2]), loc
 
 
-def _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm: bool):
+def _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm: bool, dtype=torch.float32):
     (b, t_len, l, s_dim, a_dim, st), loc = _scan_dims(vh, h, yin, weights, lstm)
     shapes = [(b, l, s_dim), (b, l, a_dim), (b, l), (b, t_len, st), (st, s_dim), (s_dim,),
               (s_dim,), (a_dim, st), (st,), (2 * st, st), (st,)]
@@ -518,20 +593,25 @@ def _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm: bool):
     if len(weights) != len(names) - 4:
         raise ValueError(f"{len(weights)} weights, expected {len(names) - 4}")
     for name, t, shape in zip(names, (vh, h, enc_mask, yin, *weights), shapes):
-        build.check(name, t, shape, vh.device)
+        build.check(name, t, shape, vh.device, dtype)
 
 
 def _scan(kernel, lstm: bool, vh, h, enc_mask, yin, weights):
-    """The forward wrapper of K10, K12, K14 and K4: the plain version on
-    CPU tensors, the kernel on CUDA tensors, on fwd_plan_on's plan with a
-    scratch of fwd_scratch_floats."""
+    """The forward wrapper of K10, K12, K14 and K4 (and K4's bf16 entry):
+    the plain version on CPU tensors, the kernel on CUDA tensors, on
+    fwd_plan_on's plan with a scratch of fwd_scratch_floats. Only K4 has
+    a bf16 entry: the others refuse bfloat16 inputs on either device."""
+    dt = torch.bfloat16 if kernel is KERNEL_FWD_BF16 else torch.float32
+    if vh.dtype == torch.bfloat16 and dt != torch.bfloat16:
+        raise TypeError(f"{kernel.name}: {build.BF16_OTHER_DECODERS}")
     if build.on_cpu(vh, h, enc_mask, yin, *weights):
         return _scan_plain(vh, h, enc_mask, yin, weights, lstm)
-    _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm)
+    _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm, dt)
     (b, t_len, l, s_dim, a_dim, st), loc = _scan_dims(vh, h, yin, weights, lstm)
     f32 = dict(device=vh.device, dtype=torch.float32)
     shapes = [(b, t_len, st), (b, t_len, a_dim), (b, t_len, l), (b, t_len, st)]
-    outs = tuple(torch.empty(shape, **f32) for shape in shapes[:4 if lstm else 3])
+    outs = tuple(torch.empty(shape, device=vh.device, dtype=dt)
+                 for shape in shapes[:4 if lstm else 3])
     if b * t_len == 0:
         return outs
     plan = fwd_plan_on(kernel, b, l, s_dim, a_dim, st, *(loc or (0, 0)), vh.device)
@@ -730,7 +810,8 @@ FWD_GATES = {"lstm": 4, "gru": 3}
 FWD_WARPS = 16  # warps of a block (csrc: kThreads / 32), a feature buffer each
 # The forward walk's cell, by the C entry point of its forward.
 FWD_CELL = {"attention_decode_scan_loc_lstm_fwd": "lstm", "attention_decode_scan_lstm_fwd": "lstm",
-            "attention_decode_scan_loc_fwd": "gru", "attention_decode_scan_fwd": "gru"}
+            "attention_decode_scan_loc_fwd": "gru", "attention_decode_scan_fwd": "gru",
+            "attention_decode_scan_fwd_bf16": "gru"}
 # A step of the forward walk and wave, in us, by cell and (C, R), on an
 # NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 8's sweeps, on the
 # plan's layout: W_cx resident where it fits): for the LSTM, K10's walk at

@@ -16,6 +16,15 @@ is the same function in plain PyTorch, built from ops/attention.py.
 
 Public layout is the JAX one, (B, K, ...); the kernels read vh and h
 once per batch row for all K hypotheses.
+
+K2 has a bf16 entry (``KERNEL_BF16``) for the bf16 model's beam: every
+input bfloat16, alpha, c and s out in bf16 (the beam's state is bf16
+between steps), logp float32. As the JAX kernel with bf16 inputs, it
+keeps the energies, the softmax, c and the cell's math in float32 and
+rounds each product's operand to bf16 (``attention_scan._step_core``
+names where); the readout takes round([s | c]), rounds each layer's
+product and then its bias add (``_readout_bf16``), and only the
+log-softmax is float32. K8 has no bf16 instance yet and refuses bf16.
 """
 
 from __future__ import annotations
@@ -27,10 +36,14 @@ from typing import Dict, Tuple
 import torch
 
 from .. import attention
-from . import build
+from . import attention_scan, build
 
 KERNEL = build.Kernel(
     "fused_attention_step", "attention_step.cu", "fused_attention_step",
+    [ctypes.c_void_p] * 22 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+)
+KERNEL_BF16 = build.Kernel(
+    "fused_attention_step_bf16", "attention_step.cu", "fused_attention_step_bf16",
     [ctypes.c_void_p] * 22 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
 )
 KERNEL_LOC_LSTM = build.Kernel(
@@ -138,7 +151,8 @@ def step_limits(device: torch.device) -> Tuple[int, Dict[int, int]]:
 
 def step_plan_on(b: int, k: int, l: int, s: int, a: int, st: int, m: int, w: int, v: int,
                  device: torch.device) -> StepPlan:
-    """The plan K2's wrapper runs for these shapes on `device`."""
+    """The plan K2's wrapper runs for these shapes on `device`, for either
+    entry (the bf16 one's block and shared memory are the float one's)."""
     smem_limit, resident = step_limits(device)
     smem = {c: step_smem_bytes(k, l, s, a, st, m, w, v, c) for c in CLUSTERS}
     return step_plan(b, smem, smem_limit, resident)
@@ -243,7 +257,10 @@ def uses_k2(cfg) -> bool:
 
 def fused_attention_step_plain(params, cfg, state, y_prev, vh, h, enc_mask):
     """Plain PyTorch twin: ops/attention.attention_step over the
-    flattened (B*K) batch, then the readout."""
+    flattened (B*K) batch, then the readout; on bfloat16 inputs (K2's
+    configurations only) ``_k2_plain_bf16``."""
+    if vh.dtype == torch.bfloat16:
+        return _k2_plain_bf16(params, cfg, state, y_prev, vh, h, enc_mask)
     alpha_prev, s_prev, mem = state
     b, k = s_prev.shape[:2]
     flat = lambda a: a.reshape((b * k,) + a.shape[2:])
@@ -259,6 +276,53 @@ def fused_attention_step_plain(params, cfg, state, y_prev, vh, h, enc_mask):
     return (res["alpha"], res["s"], unflat(mem_new)), res
 
 
+def _yin(params, y_prev):
+    """y_prev (B, K, V) @ y_in.w + y_in.b -> (B, K, St), in y_prev's type
+    (for bf16, the product and the bias add each round to bf16)."""
+    b, k, v = y_prev.shape
+    return (y_prev.reshape(b * k, v) @ params["y_in"]["w"] + params["y_in"]["b"]).reshape(b, k, -1)
+
+
+def _readout_bf16(params, cfg, x):
+    """The readout of K2's bf16 entry (``_apply_readout_fused`` with dt =
+    bf16) on x = round([s | c]) in float32: each linear or maxout layer
+    rounds its product to bf16, then its bias add (maxout takes the max
+    of such values over its window), a relu acts as it is, dropout is
+    the identity; the log-softmax is float32."""
+    for p, spec in _readout_layers(params, cfg):
+        if spec[0] in ("linear", "maxout"):
+            x = build.round_bf16(build.round_bf16(x @ p["w"].float()) + p["b"].float())
+            if spec[0] == "maxout":
+                x = torch.amax(x.reshape(x.shape[:-1] + (spec[1], spec[2])), dim=-1)
+        elif spec[0] == "relu":
+            x = torch.relu(x)
+    return torch.log_softmax(x, dim=-1)
+
+
+def _k2_plain_bf16(params, cfg, state, y_prev, vh, h, enc_mask):
+    """Plain twin of K2's bf16 entry (``_kernel`` with bf16 inputs): yin
+    as the wrapper forms it, then attention_scan._step_core on the inputs
+    widened to float32 with the bf16 roundings, over the flattened (B*K)
+    batch; alpha, c and s rounded to bf16, logp from _readout_bf16. mem
+    passes through."""
+    _, s_prev, mem = state
+    b, k, st = s_prev.shape
+    f = lambda a: a.float()
+    per_hyp = lambda a: f(a)[:, None].expand((b, k) + a.shape[1:]).reshape((b * k,) + a.shape[1:])
+    dec = params
+    weights = (dec["ws"]["w"], dec["ws"]["b"], dec["w_e"], dec["c_in"]["w"], dec["c_in"]["b"],
+               dec["dec_in"]["w"], dec["dec_in"]["b"], dec["cell"]["w_zr"], dec["cell"]["w_h"])
+    alpha, c, s = attention_scan._step_core(
+        per_hyp(vh), per_hyp(h), per_hyp(enc_mask), f(_yin(params, y_prev)).reshape(b * k, st),
+        f(s_prev).reshape(b * k, st), *map(f, weights), rnd=build.round_bf16)
+    logp = _readout_bf16(params, cfg, build.round_bf16(torch.cat([s, c], dim=-1)))
+    unflat = lambda a: a.reshape((b, k) + a.shape[1:])
+    res = {"s": unflat(s), "c": unflat(c), "alpha": unflat(alpha)}
+    res = {key: val.to(torch.bfloat16) for key, val in res.items()}
+    res["logp"] = unflat(logp)
+    return (res["alpha"], res["s"], mem), res
+
+
 def fused_attention_step(params, cfg, state, y_prev, vh, h, enc_mask):
     """One decoder step over a (B, K) hypothesis grid, readout included.
 
@@ -269,16 +333,18 @@ def fused_attention_step(params, cfg, state, y_prev, vh, h, enc_mask):
     CPU tensors take the plain version; CUDA tensors kernel K2 (the
     content-only GRU decoder with the maxout -> linear readout) or K8
     (every other decoder). Both raise RuntimeError where no cluster plan
-    fits the device."""
+    fits the device. bfloat16 inputs (the bf16 model's beam) take K2's
+    bf16 entry, or its plain twin; K8's configurations refuse them."""
     attention.check_ported(cfg)
     alpha_prev, s_prev, mem = state
+    if vh.dtype == torch.bfloat16 and not uses_k2(cfg):
+        raise TypeError(f"fused_attention_step: {build.BF16_OTHER_DECODERS}")
     if build.on_cpu(alpha_prev, s_prev, mem, y_prev, vh, h, enc_mask):
         return fused_attention_step_plain(params, cfg, state, y_prev, vh, h, enc_mask)
     b, k, st = s_prev.shape
     if not 1 <= k <= MAX_K:
         raise ValueError(f"fused_attention_step: K={k} not in [1, {MAX_K}]")
-    v = cfg.output_depth
-    yin = (y_prev.reshape(b * k, v) @ params["y_in"]["w"] + params["y_in"]["b"]).reshape(b, k, st)
+    yin = _yin(params, y_prev)
     if uses_k2(cfg):
         return _step_k2(params, cfg, state, yin, vh, h, enc_mask)
     return _step_k8(params, cfg, state, yin, vh, h, enc_mask)
@@ -299,17 +365,19 @@ def _step_args(params, vh, h, enc_mask, yin, s_prev):
     ]
 
 
-def _outputs(b, k, l, a_dim, st, v, dev):
-    f32 = dict(device=dev, dtype=torch.float32)
-    return (torch.empty((b, k, l), **f32), torch.empty((b, k, a_dim), **f32),
-            torch.empty((b, k, st), **f32), torch.empty((b, k, v), **f32))
+def _outputs(b, k, l, a_dim, st, v, dev, dtype=torch.float32):
+    """alpha, c and s in `dtype`, logp in float32."""
+    io = dict(device=dev, dtype=dtype)
+    return (torch.empty((b, k, l), **io), torch.empty((b, k, a_dim), **io),
+            torch.empty((b, k, st), **io), torch.empty((b, k, v), device=dev, dtype=torch.float32))
 
 
 def _step_k2(params, cfg, state, yin, vh, h, enc_mask):
     _, s_prev, mem = state
     b, k, st = s_prev.shape
     _, l, s_dim = vh.shape
-    a_dim, v, dev = h.shape[2], cfg.output_depth, vh.device
+    a_dim, v, dev, dt = h.shape[2], cfg.output_depth, vh.device, build.io_dtype(vh)
+    kernel = KERNEL_BF16 if dt == torch.bfloat16 else KERNEL
     (mo, mo_spec), (lin, _) = _readout_layers(params, cfg)
     m, win = mo_spec[1], mo_spec[2]
     args = _step_args(params, vh, h, enc_mask, yin, s_prev) + [
@@ -319,10 +387,10 @@ def _step_k2(params, cfg, state, yin, vh, h, enc_mask):
         ("linear.w", lin["w"], (m, v)), ("linear.b", lin["b"], (v,)),
     ]
     for name, t, shape in args:
-        build.check(name, t, shape, dev)
+        build.check(name, t, shape, dev, dt)
     plan = step_plan_on(b, k, l, s_dim, a_dim, st, m, win, v, dev)
-    alpha, c, s, logp = _outputs(b, k, l, a_dim, st, v, dev)
-    KERNEL.launch(
+    alpha, c, s, logp = _outputs(b, k, l, a_dim, st, v, dev, dt)
+    kernel.launch(
         *[build.ptr(t) for _, t, _ in args],
         build.ptr(alpha), build.ptr(c), build.ptr(s), build.ptr(logp),
         b, k, l, s_dim, a_dim, st, m, win, v, plan.cluster, build.stream_of(vh),

@@ -149,16 +149,37 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def check(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
-    """What a kernel takes: float32, contiguous, on its device, of `shape`."""
+def check(name: str, t: torch.Tensor, shape, device: torch.device,
+          dtype: torch.dtype = torch.float32) -> None:
+    """What a kernel's entry point takes: `dtype` (float32, or bfloat16
+    for the bf16 entries), contiguous, on its device, of `shape`."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def io_dtype(t: torch.Tensor) -> torch.dtype:
+    """The IO type of the entry a wrapper launches for input `t`: the
+    bf16 entry's for bfloat16, else the float32 entry's, whose check
+    refuses every other type."""
+    return torch.bfloat16 if t.dtype == torch.bfloat16 else torch.float32
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (to nearest even) and widened back: where a
+    bf16 entry rounds a product's operand, the plain versions round."""
+    return x.to(torch.bfloat16).float()
+
+
+# Where the bf16 operating point stops (ROADMAP Queue A items 5b and 5c).
+BF16_TRAINING = "bf16 training needs bf16 instances of K5 and K6: ROADMAP Queue A item 5b"
+BF16_OTHER_DECODERS = ("bf16 runs the flagship's content-only GRU decoder only; the others need "
+                       "bf16 instances of K7-K15 and K8: ROADMAP Queue A item 5c")
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

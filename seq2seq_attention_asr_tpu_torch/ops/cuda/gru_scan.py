@@ -22,6 +22,13 @@
   same kernels with one direction. CUDA sources ``csrc/gru_scan.cu`` and
   ``csrc/gru_scan_bwd.cu``.
 
+K1 has a bf16 entry too (``KERNEL_BF16``, the same walk with a bf16 IO
+type): the JAX kernel with bf16 inputs (``dt`` = bf16 in
+``_bi2_fwd_kernel``) rounds the products' operands h and r * h to bf16,
+accumulates in float32, carries h in float32 and rounds each output at
+its store. K6 has none yet: ``BiGRUScan2`` refuses the gradient of a
+bf16 scan.
+
 Every kernel's plain version (``*_plain``) sits beside its wrapper; all
 the kernels share the walks of ``csrc/gru_walk.cuh``, which run on
 thread-block clusters whose plan (``walk.plan``: cell "gru_fwd" for the
@@ -46,6 +53,10 @@ KERNEL_BWD = build.Kernel(
     "bigru_scan2_bwd", "bigru_scan2_bwd.cu", "bigru_scan2_bwd",
     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
+KERNEL_BF16 = build.Kernel(
+    "bigru_scan2_bf16", "bigru_scan2.cu", "bigru_scan2_fwd_bf16",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+)
 _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 KERNEL_GRU = build.Kernel("gru_scan", "gru_scan.cu", "gru_scan_fwd", _FWD_ARGS)
@@ -56,7 +67,10 @@ MAX_H = 1024  # every kernel here refuses wider states (csrc/gru_walk.cuh's call
 
 
 def bigru_scan2_plain(xf, xb, wzr2, wh2):
-    """Plain PyTorch twin: a Python loop over time, both directions."""
+    """Plain PyTorch twin: a Python loop over time, both directions (on
+    bfloat16 inputs, bigru_scan2_plain_bf16)."""
+    if xf.dtype == torch.bfloat16:
+        return bigru_scan2_plain_bf16(xf, xb, wzr2, wh2)
     b, l, _ = xf.shape
     h = wh2.shape[2]
     pf = {"w_zr": wzr2[0], "w_h": wh2[0]}
@@ -74,6 +88,28 @@ def bigru_scan2_plain(xf, xb, wzr2, wh2):
     return ysf, ysb
 
 
+def bigru_scan2_plain_bf16(xf, xb, wzr2, wh2):
+    """Plain twin of K1's bf16 entry (``_bi2_fwd_kernel`` with bf16
+    inputs): the inputs widened to float32, h carried in float32, the
+    products' operands h and r * h rounded to bf16 where the products
+    read them, and each output rounded to bf16."""
+    b, l, _ = xf.shape
+    h = wh2.shape[2]
+    xs = (xf.float(), xb.float())
+    ws = [(wzr2[d].float(), wh2[d].float()) for d in range(2)]
+    hs = [xs[0].new_zeros((b, h)) for _ in range(2)]
+    ys = [xs[0].new_empty((b, l, h)) for _ in range(2)]
+    for s in range(l):
+        for d, t in ((0, s), (1, l - 1 - s)):
+            x, (wzr, wh) = xs[d][:, t], ws[d]
+            zr = torch.sigmoid(build.round_bf16(hs[d]) @ wzr + x[:, : 2 * h])
+            z, r = zr[:, :h], zr[:, h:]
+            c = torch.tanh(build.round_bf16(r * hs[d]) @ wh + x[:, 2 * h:])
+            hs[d] = (1.0 - z) * hs[d] + z * c
+            ys[d][:, t] = hs[d]
+    return ys[0].to(torch.bfloat16), ys[1].to(torch.bfloat16)
+
+
 def _hidden(x, name: str) -> int:
     h3 = x.shape[-1]
     h = h3 // 3
@@ -87,23 +123,28 @@ def bigru_scan2(xf, xb, wzr2, wh2):
     and backward directions (zero-padded tails); wzr2 (2, H, 2H) and
     wh2 (2, H, H) the recurrent halves of the kernels. Returns (ysf,
     ysb), each (B, L, H) in natural time order; zero initial states.
+    All float32, or all bfloat16 (outputs in bf16).
 
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain version; CUDA tensors the kernel (float32
+    or bf16 entry, by the inputs' type)."""
     if build.on_cpu(xf, xb, wzr2, wh2):
         return bigru_scan2_plain(xf, xb, wzr2, wh2)
+    dt = build.io_dtype(xf)
+    kernel = KERNEL_BF16 if dt == torch.bfloat16 else KERNEL
     b, l, _ = xf.shape
-    h = _hidden(xf, KERNEL.name)
+    h = _hidden(xf, kernel.name)
     dev = xf.device
-    build.check("xf", xf, (b, l, 3 * h), dev)
-    build.check("xb", xb, (b, l, 3 * h), dev)
-    build.check("wzr2", wzr2, (2, h, 2 * h), dev)
-    build.check("wh2", wh2, (2, h, h), dev)
-    ysf = torch.empty((b, l, h), device=dev, dtype=torch.float32)
+    build.check("xf", xf, (b, l, 3 * h), dev, dt)
+    build.check("xb", xb, (b, l, 3 * h), dev, dt)
+    build.check("wzr2", wzr2, (2, h, 2 * h), dev, dt)
+    build.check("wh2", wh2, (2, h, h), dev, dt)
+    ysf = torch.empty((b, l, h), device=dev, dtype=dt)
     ysb = torch.empty_like(ysf)
     if b * l == 0:
         return ysf, ysb
+    # The bf16 entry's walk keeps its slices in float: the float walk's plan.
     plan = walk.plan_on(KERNEL, b, h, "gru_fwd", 2, dev)
-    KERNEL.launch(
+    kernel.launch(
         build.ptr(xf), build.ptr(xb), build.ptr(wzr2), build.ptr(wh2),
         build.ptr(ysf), build.ptr(ysb), b, l, h, *plan.args(), build.stream_of(xf),
     )
@@ -179,7 +220,8 @@ def bigru_scan2_bwd(xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb):
 
 class BiGRUScan2(torch.autograd.Function):
     """bigru_scan2 with its gradient: K1 forward, K6 backward (the plain
-    versions on CPU tensors)."""
+    versions on CPU tensors). The gradient of a bf16 scan is refused:
+    K6 has no bf16 instance yet."""
 
     @staticmethod
     def forward(ctx, xf, xb, wzr2, wh2):
@@ -189,6 +231,8 @@ class BiGRUScan2(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dysf, dysb):
+        if ctx.saved_tensors[0].dtype == torch.bfloat16:
+            raise NotImplementedError(build.BF16_TRAINING)
         return bigru_scan2_bwd(*ctx.saved_tensors, dysf.contiguous(), dysb.contiguous())
 
 

@@ -30,7 +30,8 @@ def bigru_layer(params: Params, x: torch.Tensor, lengths: Optional[torch.Tensor]
     are zeroed past each row's length: the bias-free GRU then holds
     h = 0 through the padding, which lets the backward direction scan
     the natural-order array; valid positions equal a per-row reverse
-    scan, padding is exactly 0.
+    scan, padding is exactly 0. bf16 params and input (a bf16 model's)
+    run in bf16 throughout, K1 through its bf16 entry, and give bf16.
     """
     h_dim = params["fwd"]["w_zr"].shape[1] // 2
     if lengths is not None:

@@ -51,6 +51,7 @@ from .. import interop, resolve_device, tree
 from ..data import batching
 from ..decode import beam as beam_lib
 from ..decode import metrics as metrics_lib
+from ..models.chorowski import cast_float32, float32_sums
 from ..ops import attention as attention_ops
 from ..utils import debug
 from . import awn, checkpoint, optim
@@ -208,21 +209,28 @@ def eval_params(tcfg: TrainConfig, train_params):
 
 
 def make_decode_step(encode_fn: Callable, attention_cfg, beam_k: int, len_factor: float = 1.0,
-                     device="cuda"):
+                     device="cuda", compute_dtype: str = "float32"):
     """Beam-search decode over a batch: encode, then search with a
     per-sample budget of min(len_factor * h_len, max_steps_cap) steps
     after the first. encode_fn(params, x, x_len) -> (annotations,
     annotation_lengths); eos_id (B,) is each sample's final target token
-    (timit.lua:398)."""
+    (timit.lua:398). Under compute_dtype="bfloat16" the float32 params
+    and x are cast to bf16 first (trainer.py:266-300 of the JAX
+    package): the encoder and the beam step run their bf16 kernels, the
+    bf16 products outside them sum in float32 (chorowski.float32_sums),
+    the scores stay float32."""
     dev = resolve_device(device)
+    dt = getattr(torch, compute_dtype)
 
     @torch.no_grad()
     def decode_fn(params, x, x_len, eos_id, max_steps_cap: int) -> beam_lib.BeamResult:
-        h, h_len = encode_fn(params, x, x_len)
-        max_steps = torch.clamp((len_factor * h_len.float()).long(), max=max_steps_cap)
-        return beam_lib.beam_search(params["decoder"], attention_cfg, h, h_len, eos_id,
-                                    k=beam_k, max_steps=max_steps, max_steps_cap=max_steps_cap,
-                                    device=dev)
+        params, x = cast_float32(params, dt), cast_float32(x, dt)
+        with float32_sums(dt):
+            h, h_len = encode_fn(params, x, x_len)
+            max_steps = torch.clamp((len_factor * h_len.float()).long(), max=max_steps_cap)
+            return beam_lib.beam_search(params["decoder"], attention_cfg, h, h_len, eos_id,
+                                        k=beam_k, max_steps=max_steps,
+                                        max_steps_cap=max_steps_cap, device=dev)
 
     return decode_fn
 
@@ -298,7 +306,9 @@ class Trainer:
         self.eval_fn = make_eval_step(self.model.forward, self.model.output_depth)
         self.decode_fn = make_decode_step(self.model.encode, self.model.attention_cfg,
                                           self.tcfg.beam_k, self.tcfg.eval_len_factor,
-                                          device=self.device)
+                                          device=self.device,
+                                          compute_dtype=getattr(self.model.cfg, "compute_dtype",
+                                                                "float32"))
 
     # -- state management ---------------------------------------------------
 

@@ -1443,3 +1443,150 @@ def test_encoder_paths_on_the_card_match_bigru_layer(card, path):
     assert float((out - want)[valid].abs().max()) <= TOL
     assert not out[~valid].any()
     _bwd_close(grads, want_grads, path)
+
+
+# The bf16 entries of K1, K4 and K2 (a compute_dtype="bfloat16" model's
+# evaluation): each held to its exact plain twin element by element within
+# chip_smoke.BF16_ULPS bf16 ulps (at max(|twin|, 1)), and by the
+# ground-truth rule to the plain bf16 version at the JAX kernel's rounding
+# points: each output's relative L2 distance from the float32 plain
+# version on the upcast inputs at most 2 x the plain version's + 0.02
+# (K4's twin folds c_in and dec_in into the gates as its entry does, so it
+# does not round cc or r; K1's and K2's twin is the plain version); bf16
+# out (K2's logp float32), one launch a call, a second call bitwise equal.
+def _to_bf16(tree):
+    from seq2seq_attention_asr_tpu_torch import tree as tree_lib
+
+    return tree_lib.tree_map(lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 else t,
+                             tree)
+
+
+def _upcast(tree):
+    from seq2seq_attention_asr_tpu_torch import tree as tree_lib
+
+    return tree_lib.tree_map(lambda t: t.float() if isinstance(t, torch.Tensor) and
+                             t.dtype == torch.bfloat16 else t, tree)
+
+
+def _bf16_close(name, got, twin, plain, truth):
+    import chip_smoke
+
+    rel = lambda g, t: float((g.float() - t.float()).norm()) / max(float(t.float().norm()), 1e-6)
+    for i, (g, w, p, t) in enumerate(zip(got, twin, plain, truth)):
+        assert g.dtype == w.dtype and bool(torch.isfinite(g.float()).all()), i
+        ulps, _ = chip_smoke.bf16_ulps(g, w)
+        assert ulps <= chip_smoke.BF16_ULPS[name], (i, ulps)
+        assert rel(g, t) <= 2.0 * rel(p, t) + 0.02, (i, rel(g, t), rel(p, t))
+
+
+def _bf16_twice(kernel, call, args):
+    """call(*args) twice: one launch each, the same bits; the first result."""
+    before = kernel.launches
+    got = call(*args)
+    again = call(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    return got
+
+
+# K1: one row at an odd length, the flagship's batch, a part-empty last
+# row group, fewer units than blocks, and slices streamed from L2 (the
+# bf16 weights read by columns there).
+@pytest.mark.parametrize("b,l,h", [(1, 131, 256), (16, 144, 256), (33, 20, 256), (2, 6, 5),
+                                   (3, 9, 400), (4, 11, 1024)])
+def test_bigru_scan2_bf16_entry(card, b, l, h):
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan
+
+    gen = torch.Generator().manual_seed(b * 1000 + h)
+    lens = torch.randint(1, l + 1, (b,), generator=gen).cuda()
+    valid = (torch.arange(l, device=card)[None] < lens[:, None]).float()[:, :, None]
+    args = _to_bf16([_rand(gen, b, l, 3 * h) * valid, _rand(gen, b, l, 3 * h) * valid,
+                     _rand(gen, 2, h, 2 * h, scale=h ** -0.5), _rand(gen, 2, h, h, scale=h ** -0.5)])
+    got = _bf16_twice(gru_scan.KERNEL_BF16, gru_scan.bigru_scan2, args)
+    plain = gru_scan.bigru_scan2_plain(*args)
+    _bf16_close("bigru_scan2_bf16", got, plain, plain, gru_scan.bigru_scan2_plain(*_upcast(args)))
+    assert not (got[1].float() * (1 - valid)).any()  # the backward direction holds 0 on padding
+
+
+# K4: small widths (St = 8), St and S not multiples of 4 (the exchanges
+# store a value at a time), and the flagship's training shape.
+@pytest.mark.parametrize("b,l,t,dims", [(3, 13, 5, (16, 24, 8)), (4, 37, 9, (17, 12, 9)),
+                                        (16, 144, 56, (512, 512, 256))])
+def test_attention_decode_scan_bf16_entry(card, b, l, t, dims):
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    gen = torch.Generator().manual_seed(b * 13 + l)
+    vh, h, mask, yin, weights = _scan_case(card, gen, b, l, t, *dims)
+    args = _to_bf16([vh, h, mask, yin, *weights])
+    got = _bf16_twice(attention_scan.KERNEL_FWD_BF16, attention_scan.attention_decode_scan, args)
+    _bf16_close("attention_decode_scan_fwd_bf16", got, attention_scan.gru_folded_scan_plain(*args),
+                attention_scan.attention_decode_scan_plain(*args),
+                attention_scan.attention_decode_scan_plain(*_upcast(args)))
+
+
+# K2: K = 1 at small widths, L not a multiple of C, a row with every
+# position masked (alpha and c exactly 0), and L = 1500 at K = 8.
+@pytest.mark.parametrize("b,k,l,dims,dead", [
+    (1, 1, 8, (16, 16, 24, 6, 8, 3), None),
+    (3, 5, 37, (16, 12, 20, 7, 4, 2), None),
+    (8, 8, 132, FLAGSHIP_STEP, 7),
+    (1, 8, 1500, FLAGSHIP_STEP, None),
+])
+def test_fused_attention_step_bf16_entry(card, b, k, l, dims, dead):
+    from seq2seq_attention_asr_tpu_torch.ops import attention
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    params, cfg, (state, y, _, h, mask) = _k2_case(card, b, k, l, dims, dead)
+    params, state, y, h, mask = _to_bf16([params, list(state), y, h, mask])
+    args = (params, cfg, state, y, attention.precompute_vh(params, h).contiguous(), h, mask)
+    step = lambda *a: _outputs(attention_step.fused_attention_step(*a))
+    got = _bf16_twice(attention_step.KERNEL_BF16, step, args)
+    plain = _outputs(attention_step.fused_attention_step_plain(*args))
+    _bf16_close("fused_attention_step_bf16", got, plain, plain,
+                _outputs(attention_step.fused_attention_step_plain(*_upcast(args))))
+    assert got[3].dtype == torch.float32
+    if dead is not None:
+        assert not got[0][dead].float().any() and not got[1][dead].float().any()
+
+
+def _outputs(res):
+    _, out = res
+    return out["alpha"], out["c"], out["s"], out["logp"]
+
+
+def test_bf16_evaluation_sums_in_float32_under_either_flag(card):
+    """The committed checkpoint as a bf16 model through Trainer.evaluate on
+    the first held-out batch: the same PER, NLL and accuracy under
+    PyTorch's default allow_bf16_reduced_precision_reduction (True) as
+    with it off (the model's bf16 products sum in float32 either way), and
+    the flag as the caller left it afterwards."""
+    import chip_smoke
+    from seq2seq_attention_asr_tpu_torch.models import registry
+    from seq2seq_attention_asr_tpu_torch.train import checkpoint, experiment, optim, trainer
+
+    _, valid, batcher, vocab = chip_smoke.held_out_split("cuda")
+    first = next(iter(batcher.batches(valid, shuffle=False)))
+
+    class First:
+        def batches(self, ds, **kw):
+            return iter([first])
+
+    kw = dict(experiment.timit_chorowski_normnll_colnorm().model_kwargs, dropout=0.5)
+    tcfg = trainer.TrainConfig(batch_size=32, normalize_nll=True, beam_k=5, seed=1)
+    tr = trainer.Trainer(registry.build("chorowski", compute_dtype="bfloat16", **kw),
+                         optim.OptimConfig(), tcfg, vocab=vocab, device="cuda")
+    tr.init(checkpoint.load_params_npz(str(chip_smoke.HELD_OUT_NPZ), "cuda"))
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    rows = {}
+    try:
+        for flag in (True, False):
+            matmul.allow_bf16_reduced_precision_reduction = flag
+            rows[flag] = tr.evaluate(valid, First())
+            assert matmul.allow_bf16_reduced_precision_reduction == flag
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
+    for key in ("valid_per", "valid_nll", "valid_accuracy"):
+        assert rows[True][key] == rows[False][key], key
+    assert rows[True]["valid_per"] < 0.25

@@ -184,8 +184,8 @@ MODES = {"k13": (("attention_decode_scan_loc_bwd",), ("scan_loc_gru_bwd",)),
 FWD_MODES = ("lstm_fwd", "gru_dec_fwd")
 WALK_SIG = "__device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {"
 WALK_LOOP = "  for (int s = 0; s < T; ++s) {"
-FWD_WALK_SIG = ("__device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgs& a, "
-                "const FwdScratch& x,\n                                                 int "
+FWD_WALK_SIG = ("__device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgsT<IO>& "
+                "a,\n                                                 const FwdScratch& x, int "
                 "resident) {")
 FWD_WALK_LOOP = "  for (int t = 0; t < T; ++t) {"
 
@@ -263,7 +263,7 @@ def instrument_k8(src: str):
 
 
 GRU_FWD_SOURCE = build.CSRC_DIR / "gru_walk.cuh"
-GRU_FWD_SIG = ("__device__ void gru_walk_fwd(const GruFwdDir& a, int B, int L, int H, "
+GRU_FWD_SIG = ("__device__ void gru_walk_fwd(const GruFwdDirT<T>& a, int B, int L, int H, "
                "bool resident,\n                             float* smem) {")
 GRU_FWD_LOOP = "  for (int s = 0; s < L; ++s) {"
 # K1's shapes in the flagship's paths: (B, L).

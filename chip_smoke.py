@@ -10,7 +10,10 @@ an epoch loop with checkpoints and resume, and greedy decode; then the
 reference recipe's regularisers: the committed AWN stage restarted from
 the checkpoint, the monotonic penalty on each decoder, dropout and
 weight noise; then the flagship's bf16 evaluation through the bf16
-entries of K1, K2 and K4.
+entries of K1, K2 and K4; then the LibriSpeech recipes (the VGG model,
+the character and word Chorowski recipes, the chunked out-of-core
+epoch, the stacked front end) and K2 with a word vocabulary spread over
+its cluster.
 
     python3 chip_smoke.py
 
@@ -212,8 +215,38 @@ Phases, each fatal when it fails:
      one B = 32 evaluation batch (the eval step and the beam) in bf16
      beside float32, wall and device time; (d) a bf16 train step
      raising NotImplementedError; and the phase's wall seconds;
- 13. one {"kernels": [...]} JSON line, the card line, and the last line
-     {"ok": true, "device": {...}}.
+ 13. the LibriSpeech recipes at full width, TF32 off: (a) K2 with the
+     vocabulary spread over its cluster at V = 34,000 (the word recipe's
+     train-clean-100 vocabulary), K = 5 and 8, B = 16, L = 1,094 (35 s)
+     with a fully masked row, against its plain version (1e-4 abs), two
+     calls bitwise equal, one launch a call, its plan and device time; at
+     b = 1 at its cap on clusters of 16 for K = 5 and 8
+     (attention_step.step_vocab_cap of the card's shared memory) and the
+     refusal one above it; the bf16 entry at V = 34,000 against its
+     exact twin (BF16_ULPS) and by the ground-truth rule; (b) K8's <GRU,
+     content> instance with VGG's four-layer readout (maxout -> linear ->
+     maxout -> linear, 30 characters) at b = 1 and 8 and B = 16, K = 5,
+     L' = 543, against its plain version, twice, with its plan and its
+     device time at B = 16; (c) librispeech_vgg and librispeech_chorowski
+     and (e) librispeech_chorowski_words (V = 34,000), orthogonal init
+     from the seed: 3 card steps on a B = 16 batch (lengths ragged in
+     375-1,094 frames, labels in 180-512 characters or 32-96 words) with
+     pinned launch counts (VGG: K4 and K5 once; the Chorowski recipes:
+     K1 and K6 3x, K4 and K5 once) and the loss falling, one step of a
+     B = 2, L = 400, T = 64 batch on the card and on the CPU within 1e-3,
+     and the p50 of 10 steps with its device time and idle share; (d)
+     Trainer.fit(chunked=...) of librispeech_vgg, one epoch over two
+     in-memory chunks of 16 such utterances loaded one at a time in the
+     epoch seed's order, then the beam CER on 8 short utterances (80-200
+     frames, so that a batch's beam of up to 2 L steps stays short):
+     only K4, K5 and K8 launched; (e) the word recipe's beam on 4 short
+     utterances (K = 5, V = 34,000): K1 3x, K2 once a step, nothing else;
+     (f) the stacked front end (logmel_stacked, (B, 3, L, 40)) through K3
+     against the CPU's plain version, one K3 launch; and the phase's wall
+     seconds;
+ 14. one {"kernels": [...]} JSON line (K2 also at V = 34,000 with its
+     plan, its launches the word beam's), the card line, and the last
+     line {"ok": true, "device": {...}}.
 
 It exits nonzero without a card, and imports nothing of the JAX package.
 
@@ -3225,6 +3258,419 @@ def bf16_phase(kernels, card: str) -> list:
             for name, r in rows.items()]
 
 
+# Phase 13: the LibriSpeech recipes (train/experiment.py:106-179 of the
+# JAX package) at full width. Their longest segments are ~35 s: 1,094
+# frames at 32 ms a frame (VGG's encoder halves them, less 4); a batch's
+# lengths are ragged in 375-1,094 frames (12-35 s). The word recipe's
+# output layer is the word vocabulary: ~34k words over train-clean-100.
+LS_B = 16
+LS_L = 1094
+LS_MIN_L = 375
+WORDS_V = 34000
+LS_CHARS = 30  # a character vocabulary: 26 letters, space, apostrophe, <eos> and one more
+
+
+def k2_step_case(dec, acfg, b: int, k: int, l: int, gen, dead=None):
+    """K2 at a beam step of (B, K, L) on the decoder `dec` (its V the
+    config's output_depth): a Case whose bound counts the step's inputs,
+    outputs and weights once."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    args = k2_inputs(dec, acfg, b, k, l, gen, dead)
+    a, s_dim, st, v = acfg.annotation_depth, acfg.score_depth, acfg.state_depth, acfg.output_depth
+    ro = dec["readout"]
+    weights = [dec["ws"]["w"], dec["ws"]["b"], dec["w_e"], dec["c_in"]["w"], dec["c_in"]["b"],
+               dec["dec_in"]["w"], dec["dec_in"]["b"], dec["cell"]["w_zr"], dec["cell"]["w_h"],
+               *[t for layer in ro for t in layer.values()]]
+    mvs = (st * s_dim + a * st + 2 * st * st + 4 * st * st + 2 * st * st + ro[-2]["w"].numel()
+           + ro[-1]["w"].numel())
+    esize = args[4].element_size()
+    return Case(
+        "fused_attention_step", ("attention_step_kernel",),
+        lambda *xs: _step_outputs(attention_step.fused_attention_step(*xs)),
+        lambda *xs: _step_outputs(attention_step.fused_attention_step_plain(*xs)), args,
+        flops=b * k * (4 * l * s_dim + 2 * l * a + 2 * mvs + 3 * v),
+        nbytes=esize * (b * l * (s_dim + a + 1) + 2 * b * k * st + b * k * (l + a + st)
+                        + sum(t.numel() for t in weights)) + 4 * b * k * v,
+        label=f"fused_attention_step[V={v}]")
+
+
+def words_decoder(v: int, gen):
+    """The flagship's decoder with a V-word output layer: (weights on the
+    card, its attention config)."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.models import registry
+    from seq2seq_attention_asr_tpu_torch.ops import attention
+
+    acfg = registry.build("chorowski", output_depth=v).cfg.attention_config()
+    return interop.to_torch(attention.attention_init(gen, acfg), "cuda"), acfg
+
+
+def checked_twice(c, kernel, tag: str) -> float:
+    """Case `c` against its plain version (Case.check), then a second call
+    bitwise equal and one launch of `kernel` a call (check_repeat);
+    returns the max abs error."""
+    with torch.no_grad():
+        got = c.kernel(*c.args)
+        want = c.plain(*c.args)
+    torch.cuda.synchronize()
+    err = c.check(got, want, tag)
+    check_repeat(c, kernel, got, tag)
+    return err
+
+
+def k2_words_phase(kernels, card: str) -> dict:
+    """Phase 13 (a): K2 with the vocabulary spread over its cluster. At V =
+    WORDS_V, K = 5 and 8, B = LS_B, L = LS_L (a fully masked row) against
+    the plain version, twice, with its plan; at b = 1, L = LS_L its cap on
+    clusters of 16 at K = 5 and 8, from the card's shared memory, and the
+    refusal one above it; the bf16 entry at V = WORDS_V against its exact
+    twin. Returns the float32 K = 5 case's numbers for the kernels line.
+    The cap is the largest V up to which every vocabulary fits
+    (attention_step.step_vocab_cap)."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 13)
+    kernel = kernels["fused_attention_step"]
+    smem_limit, resident = attention_step.step_limits(dev)
+    dec, acfg = words_decoder(WORDS_V, gen)
+    row = None
+    for k in (BEAM_K, 8):
+        c = k2_step_case(dec, acfg, LS_B, k, LS_L, gen, dead=3)
+        tag = f"B={LS_B} K={k} L={LS_L} V={WORDS_V}"
+        err = checked_twice(c, kernel, tag)
+        plan = attention_step.step_plan_on(LS_B, k, LS_L, 512, 512, 256, 64, 7, WORDS_V, dev)
+        with torch.no_grad():
+            ms = device_ms(lambda: c.kernel(*c.args), c.symbols, 20)
+            plain_ms = time_ms(lambda: c.plain(*c.args), 3)
+        b_ms, b_by = bound(c.flops, c.nbytes)
+        print(f"time {c.label} {tag}: kernel {ms:.4f} ms on the device, plain {plain_ms:.4f} ms "
+              f"per call, bound {b_ms:.4f} ms ({b_by}), on clusters of {plan.cluster} in "
+              f"{plan.waves} wave(s) (resident {resident}, {smem_limit} B a block) ({card})")
+        if k == BEAM_K:
+            row = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       plan=plan)
+    del dec
+    for k in (BEAM_K, 8):
+        cap = attention_step.step_vocab_cap(k, LS_L, 512, 512, 256, 64, 7, 16, smem_limit)
+        dec, acfg = words_decoder(cap, gen)
+        c = k2_step_case(dec, acfg, 1, k, LS_L, gen)
+        checked_twice(c, kernel, f"b=1 K={k} L={LS_L} V={cap} (the cap on clusters of 16)")
+        dec_over, acfg_over = words_decoder(cap + 1, gen)
+        over = k2_inputs(dec_over, acfg_over, 1, k, LS_L, gen)
+        try:
+            attention_step.fused_attention_step(*over)
+        except RuntimeError as e:
+            print(f"refuse fused_attention_step b=1 K={k} L={LS_L} V={cap + 1}: {e}")
+        else:
+            raise SystemExit(f"fused_attention_step took V={cap + 1} at K={k}, over its cap")
+        del dec, dec_over, over
+    from seq2seq_attention_asr_tpu_torch import tree
+
+    dec, acfg = words_decoder(WORDS_V, gen)
+    c = k2_step_case(dec, acfg, LS_B, BEAM_K, LS_L, gen)
+    bf16_args = tree.tree_map(lambda a: a.to(torch.bfloat16) if isinstance(a, torch.Tensor)
+                              and a.dtype == torch.float32 else a, list(c.args))
+    kbf = kernels["fused_attention_step_bf16"]
+    before = kbf.launches
+    with torch.no_grad():
+        got = c.kernel(*bf16_args)
+        again = c.kernel(*bf16_args)
+        twin = c.plain(*bf16_args)
+        truth = c.plain(*upcast(bf16_args))
+    torch.cuda.synchronize()
+    tag = f"B={LS_B} K={BEAM_K} L={LS_L} V={WORDS_V}"
+    bf16_check("fused_attention_step_bf16", tag, got, twin, twin, truth)
+    if kbf.launches - before != 2 or not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise SystemExit(f"fused_attention_step_bf16 {tag}: two calls differ or launch more")
+    with torch.no_grad():
+        ms = device_ms(lambda: c.kernel(*bf16_args), c.symbols, 20)
+    print(f"time fused_attention_step_bf16 {tag}: kernel {ms:.4f} ms on the device ({card})")
+    return row
+
+
+# The LibriSpeech train batch: B = LS_B, lengths ragged in LS_MIN_L..LS_L
+# (the first row at LS_L), characters ragged in 180..LS_T (~15 a second)
+# and words in 32..LS_WORDS_T; the CPU's step a batch of LS_CPU_B rows of
+# at most LS_CPU_L frames and LS_CPU_T labels, the same recipe.
+LS_T = 512
+LS_WORDS_T = 96
+LS_CPU_B, LS_CPU_L, LS_CPU_T = 2, 400, 64
+# The chunked epoch (d): two chunks of LS_B utterances as the train batch
+# draws them, and a valid split of 8 short ones (80-200 frames), so that
+# a batch's beam of up to 2 L steps stays short.
+LS_VALID = dict(n=8, min_l=80, max_l=200, t=40)
+LS_VGG_LAUNCHES = {"attention_decode_scan_fwd": 1, "attention_decode_scan_bwd": 1}
+
+
+def ls_batch(b: int, l: int, t: int, v: int, seed: int, stacked: bool, min_l=LS_MIN_L,
+             min_t=180):
+    """A padded LibriSpeech batch (x, x_len, y, dec_mask) on the CPU: seeded
+    features ((B, L, 40, 3) stacked, else (B, L, 123)), lengths ragged in
+    min_l..l and labels in min_t..t, the first row at full length."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, l, *((40, 3) if stacked else (123,))).astype(np.float32)
+    x_len = rng.randint(min(min_l, l), l + 1, b)
+    labels = rng.randint(min(min_t, t), t + 1, b)
+    x_len[0], labels[0] = l, t
+    x *= (np.arange(l)[None, :] < x_len[:, None]).reshape((b, l) + (1,) * (x.ndim - 2))
+    y = rng.randint(0, v, (b, t))
+    dec_mask = (np.arange(t)[None] < labels[:, None]).astype(np.float32)
+    return tuple(torch.from_numpy(a) for a in (x, x_len.astype(np.int64), y, dec_mask))
+
+
+def ls_recipes():
+    """(label, recipe function, output depth, stacked input, the kernels a
+    train step launches) of the three LibriSpeech recipes."""
+    from seq2seq_attention_asr_tpu_torch.train import experiment
+
+    return [("librispeech_vgg", lambda: experiment.librispeech_vgg(LS_CHARS), LS_CHARS, True,
+             LS_VGG_LAUNCHES),
+            ("librispeech_chorowski", lambda: experiment.librispeech_chorowski(LS_CHARS),
+             LS_CHARS, False, STEP_LAUNCHES),
+            ("librispeech_chorowski_words",
+             lambda: experiment.librispeech_chorowski_words(WORDS_V), WORDS_V, False,
+             STEP_LAUNCHES)]
+
+
+def k8_vgg_phase(kernels, card: str) -> float:
+    """Phase 13 (b): K8's <GRU, content> instance with VGG's four-layer
+    readout (maxout -> linear -> maxout -> linear, the recipe's widths and
+    LS_CHARS outputs) at b = 1 and 8 and B = LS_B, K = 5, on VGG's
+    encoder length for LS_L frames: against its plain version (TOL), two
+    calls bitwise equal, one launch a call, with its plan; its device
+    time at B = LS_B. Returns the largest max abs error."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.models import vgg
+    from seq2seq_attention_asr_tpu_torch.ops import attention
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    cfg = vgg.VGGConfig(output_depth=LS_CHARS)
+    acfg = cfg.attention_config()
+    dec = interop.to_torch(attention.attention_init(gen, acfg), "cuda")
+    lv = int(vgg.encode_lengths(cfg, torch.tensor(LS_L)))
+    kernel, worst = kernels["fused_attention_step_loc_lstm"], 0.0
+    if attention_step.uses_k2(acfg):
+        raise SystemExit("the VGG readout went to K2")
+    dense = attention_step.k8_dense(attention_step.k8_layers(acfg))
+    for b, dead in ((1, None), (8, 5), (LS_B, 3)):
+        c = Case("fused_attention_step_loc_lstm", K8_SYMBOLS,
+                 lambda *xs: _step_outputs(attention_step.fused_attention_step(*xs)),
+                 lambda *xs: _step_outputs(attention_step.fused_attention_step_plain(*xs)),
+                 k2_inputs(dec, acfg, b, BEAM_K, lv, gen, dead), 0, 0,
+                 label="fused_attention_step_loc_lstm[vgg]")
+        plan = attention_step.step_loc_lstm_plan_on(b, BEAM_K, lv, 512, 512, 256, 0, 0, False,
+                                                    dense, torch.device("cuda"))
+        tag = f"B={b} K={BEAM_K} L'={lv} V={LS_CHARS}, on clusters of {plan.cluster} in " \
+              f"{plan.waves} wave(s)"
+        worst = max(worst, checked_twice(c, kernel, tag))
+    with torch.no_grad():
+        ms = device_ms(lambda: c.kernel(*c.args), c.symbols, 50)
+        plain_ms = time_ms(lambda: c.plain(*c.args), 5)
+    print(f"time fused_attention_step_loc_lstm[vgg] B={LS_B} K={BEAM_K} L'={lv}: kernel {ms:.4f} "
+          f"ms on the device, plain {plain_ms:.4f} ms per call ({card})")
+    return worst
+
+
+def ls_train_phase(kernels, card: str) -> dict:
+    """Phase 13 (c) and (e): for each LibriSpeech recipe at full width
+    (orthogonal init from the seed), 3 card steps on one B = LS_B batch
+    (lengths ragged in LS_MIN_L..LS_L, TF32 off) with the launch counts
+    zeroed before each and pinned after it, the loss finite and falling;
+    one step on the card and on the CPU of a LS_CPU_B-row batch, within
+    TRAIN_RTOL; the p50 of 10 card steps, its device time and idle share.
+    Returns {label: the first card step's launch counts}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    launches = {}
+    for label, recipe, v, stacked, expected in ls_recipes():
+        t0 = time.perf_counter()
+        exp = recipe()
+        params_cpu = exp.init_params(torch.Generator().manual_seed(SEED), device="cpu")
+        t = LS_WORDS_T if v == WORDS_V else LS_T
+        batch = tuple(a.cuda() for a in ls_batch(LS_B, LS_L, t, v, SEED + 15, stacked,
+                                                 min_t=32 if v == WORDS_V else 180))
+        state, step_fn = make_trainer(recipe, params_cpu, "cuda")
+        want = dict.fromkeys(kernels, 0)
+        want.update(expected)
+        losses = []
+        for i in range(3):
+            (state, m), counts = counted(kernels, lambda: step_fn(state, batch))
+            losses.append(float(m["loss"]))
+            if counts != want:
+                raise SystemExit(f"train {label} step {i + 1}: launch counts {counts}, expected "
+                                 f"{want}")
+            launches.setdefault(label, counts)
+        print(f"train {label} B={LS_B} L={LS_L} T={t} V={v}: card losses {losses}, launches "
+              f"{launches[label]}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise SystemExit(f"train {label}: the loss did not fall over 3 card steps")
+        small = ls_batch(LS_CPU_B, LS_CPU_L, LS_CPU_T, v, SEED + 16, stacked, min_t=16)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            st, fn = make_trainer(recipe, params_cpu, dev)
+            _, m = fn(st, tuple(a.to(dev) for a in small))
+            runs[dev] = {k: float(val) for k, val in m.items()}
+        rel = {k: abs(runs["cuda"][k] - runs["cpu"][k]) / abs(runs["cpu"][k])
+               for k in ("loss", "nll", "grad_norm", "param_norm")}
+        print(f"train {label} B={LS_CPU_B} L={LS_CPU_L} T={LS_CPU_T}: card {runs['cuda']}, CPU "
+              f"{runs['cpu']}, relative differences {rel} (tol {TRAIN_RTOL})")
+        if not all(np.isfinite(val) for val in runs["cuda"].values()) or \
+                max(rel.values()) > TRAIN_RTOL:
+            raise SystemExit(f"train {label}: the card's step disagrees with the CPU's")
+        lat, state = step_latencies(step_fn, state, batch)
+        with traced([ProfilerActivity.CUDA]) as prof:
+            state, _ = step_fn(state, batch)
+        p50 = statistics.median(lat)
+        dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+        idle = f"{1 - busy / p50:.4f}" if dev_events else "not measured"
+        audio_s = float(batch[1].sum()) * HOP / SR
+        print(f"time train {label} step B={LS_B} L={LS_L} T={t}: p50 {p50:.2f} ms (min "
+              f"{min(lat):.2f}, max {max(lat):.2f}) over 10 steps, {audio_s / (p50 / 1e3):.1f} "
+              f"audio s/s ({audio_s:.1f} s of audio a step), device busy {busy:.2f} ms in "
+              f"{len(dev_events)} device ops, idle share {idle}; {time.perf_counter() - t0:.1f} "
+              f"s wall for the recipe ({card})")
+        del state, step_fn, batch
+    return launches
+
+
+def ls_dataset(n: int, seed: int, min_l: int, max_l: int, t: int, v: int, stacked: bool,
+               prefix: str):
+    """n seeded utterances of the LibriSpeech shapes as a Dataset: (L, 40, 3)
+    stacked features or (L, 123), L in min_l..max_l, t // 2..t labels."""
+    from seq2seq_attention_asr_tpu_torch.data import timit
+
+    rng = np.random.RandomState(seed)
+    lens, labels = rng.randint(min_l, max_l + 1, n), rng.randint(t // 2, t + 1, n)
+    shape = (40, 3) if stacked else (123,)
+    return timit.Dataset(uids=[f"{prefix}{i}" for i in range(n)],
+                         x=[rng.randn(li, *shape).astype(np.float32) for li in lens],
+                         y=[rng.randint(0, v, ti).astype(np.int32) for ti in labels], y39=None,
+                         start=[np.zeros(0)] * n, finish=[np.zeros(0)] * n)
+
+
+def ls_fit_phase(kernels, card: str) -> None:
+    """Phase 13 (d): Trainer.fit(chunked=...) of librispeech_vgg at full
+    width, one epoch over two in-memory chunks of LS_B utterances each
+    (lengths in LS_MIN_L..LS_L) in the order the epoch's seed draws,
+    one resident at a time, then the beam CER on LS_VALID's short split:
+    the chunks loaded in that order, K4, K5 and K8 launched and no other
+    kernel, the train NLL finite and the CER logged."""
+    import tempfile
+
+    from seq2seq_attention_asr_tpu_torch.data import batching
+    from seq2seq_attention_asr_tpu_torch.train import experiment, trainer
+
+    t0 = time.perf_counter()
+    exp = experiment.librispeech_vgg(LS_CHARS)
+    tcfg = dataclasses.replace(exp.train, num_epochs=1)
+    chunks = [ls_dataset(LS_B, SEED + 17 + c, LS_MIN_L, LS_L, LS_T, LS_CHARS, True, f"c{c}_")
+              for c in range(2)]
+    valid = ls_dataset(LS_VALID["n"], SEED + 19, LS_VALID["min_l"], LS_VALID["max_l"],
+                       LS_VALID["t"], LS_CHARS, True, "v")
+    loaded = []
+    load_chunk = lambda i: loaded.append(i) or chunks[i]
+    batcher_fn = lambda ds: batching.BucketedBatcher.from_dataset(ds, tcfg.batch_size, 2)
+    with tempfile.TemporaryDirectory() as save:
+        tr = trainer.Trainer(exp.build_model(), exp.optim, tcfg, save_dir=save, device="cuda")
+        tr.init(exp.init_params(torch.Generator().manual_seed(SEED), device="cuda"))
+        rows, counts = counted(kernels, lambda: list(tr.fit(
+            None, valid, batching.BucketedBatcher.from_dataset(valid, tcfg.batch_size, 2),
+            chunked=(load_chunk, 2, batcher_fn))))
+        saved = sorted(os.listdir(save))
+    order = list(np.random.RandomState(tcfg.seed + 1).permutation(2))
+    row = rows[-1]
+    print(f"fit librispeech_vgg chunked: chunks loaded {loaded} (the epoch's order {order}), row "
+          f"{ {k: row[k] for k in ('train_nll', 'valid_nll', 'valid_per', 'train_seconds')} }, "
+          f"launches {counts}, saved {saved}; {time.perf_counter() - t0:.1f} s wall ({card})")
+    check_counts("fit librispeech_vgg chunked", counts,
+                 ("attention_decode_scan_fwd", "attention_decode_scan_bwd",
+                  "fused_attention_step_loc_lstm"))
+    if loaded != order or not np.isfinite(row["train_nll"]) or "valid_per" not in row:
+        raise SystemExit("fit librispeech_vgg chunked: wrong chunk order, or no finite row")
+
+
+def ls_words_beam_phase(kernels, card: str) -> int:
+    """Phase 13 (e), the beam: one batch of 4 short utterances (80-200
+    frames) through the word recipe's beam (K = 5, V = WORDS_V, up to 2 L
+    steps), with the recipe's weights: K1 three times (the encoder) and K2
+    once a beam step, no other kernel; scores finite, tokens in the
+    vocabulary. Returns K2's launches."""
+    from seq2seq_attention_asr_tpu_torch.train import experiment, trainer
+
+    exp = experiment.librispeech_chorowski_words(WORDS_V)
+    model = exp.build_model()
+    params = exp.init_params(torch.Generator().manual_seed(SEED), device="cuda")
+    x, x_len, _, _ = (a.cuda() for a in ls_batch(4, LS_VALID["max_l"], 8, WORDS_V, SEED + 20,
+                                                  False, min_l=LS_VALID["min_l"], min_t=4))
+    decode_fn = trainer.make_decode_step(model.encode, model.attention_cfg, exp.train.beam_k,
+                                         exp.train.eval_len_factor, "cuda")
+    cap = int(math.ceil(exp.train.eval_len_factor * x.shape[1]))
+    eos = torch.full((4,), WORDS_V - 1, device="cuda")
+    t0 = time.perf_counter()
+    res, counts = counted(kernels, lambda: decode_fn(params, x, x_len, eos, max_steps_cap=cap))
+    took = time.perf_counter() - t0
+    tokens = res.tokens
+    print(f"beam librispeech_chorowski_words B=4 L={x.shape[1]} K={exp.train.beam_k} V={WORDS_V}: "
+          f"lengths {res.lengths.tolist()}, scores {res.scores.tolist()}, launches {counts}, "
+          f"{took:.2f} s wall ({card})")
+    check_counts("beam librispeech_chorowski_words", counts, ("bigru_scan2", "fused_attention_step"),
+                 {"bigru_scan2": 3})
+    if not (bool(torch.isfinite(res.scores).all()) and int(tokens.min()) >= 0
+            and int(tokens.max()) < WORDS_V):
+        raise SystemExit("beam librispeech_chorowski_words: scores not finite or tokens out of "
+                         "the vocabulary")
+    return counts["fused_attention_step"]
+
+
+def stacked_front_end_phase(kernels, card: str) -> None:
+    """Phase 13 (f): the VGG recipe's stacked front end (logmel_stacked)
+    through K3 on the card against the same call on the CPU (K3's plain
+    version): one K3 launch, (B, 3, L, 40), dB within TOL and the deltas
+    and delta-deltas within 20 and 400 times that; and its device time."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import logmel
+
+    pcm = torch.stack([torch.from_numpy(p) for p in make_pcm(2, SEED + 21)])
+    got, counts = counted(kernels, lambda: logmel.logmel_stacked(pcm.cuda(), SR))
+    want = logmel.logmel_stacked(pcm, SR)
+    errs = [float((got[:, c].cpu() - want[:, c]).abs().max()) for c in range(3)]
+    print(f"parity logmel_stacked B=2 {tuple(got.shape)}: max abs err by channel {errs} (tol "
+          f"{TOL} x 1, 20, 400), launches {counts['stft_logmel_power']}")
+    check_counts("logmel_stacked", counts, ("stft_logmel_power",), {"stft_logmel_power": 1})
+    if not all(e <= TOL * s for e, s in zip(errs, (1, 20, 400))):
+        raise SystemExit("logmel_stacked: the card's stacked features disagree with the CPU's")
+    with torch.no_grad():
+        ms = device_ms(lambda: logmel.logmel_stacked(pcm.cuda(), SR), None, 20)
+    print(f"time logmel_stacked B=2: {ms:.4f} ms on the device, every op ({card})")
+
+
+def librispeech_phase(kernels, errs: dict, card: str) -> dict:
+    """Phase 13: the LibriSpeech recipes. K8's error with VGG's readout
+    joins its row's in `errs`. Returns the kernels line's row of K2 at the
+    word vocabulary, with its plan (its launches: the word beam's)."""
+    t0 = time.perf_counter()
+    k2 = k2_words_phase(kernels, card)
+    errs["fused_attention_step_loc_lstm"] = max(errs["fused_attention_step_loc_lstm"],
+                                                k8_vgg_phase(kernels, card))
+    ls_train_phase(kernels, card)
+    ls_fit_phase(kernels, card)
+    words_launches = ls_words_beam_phase(kernels, card)
+    stacked_front_end_phase(kernels, card)
+    print(f"librispeech phase: {time.perf_counter() - t0:.1f} s wall ({card})")
+    plan = k2["plan"]
+    return {"name": f"fused_attention_step[V={WORDS_V}]", "route": "cuda",
+            "source": SOURCES["fused_attention_step"],
+            "replaces": REPLACES["fused_attention_step"],
+            "plan": {"cluster": plan.cluster, "waves": plan.waves, "B": LS_B, "K": BEAM_K,
+                     "L": LS_L}, "launches": words_launches, "max_abs_err": k2["err"], "ms": k2["ms"],
+            "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+            "library_ms": None}
+
+
 # The instance of each kernel whose numbers stand in the {"kernels"} line:
 # the one on its main path, at batch 1 (serving) or the training shape.
 MAIN_LABEL = {"fused_attention_step_loc_lstm": "fused_attention_step_loc_lstm[lstm+loc]"}
@@ -3706,6 +4152,9 @@ def main(parent=None) -> int:
 
     # Phase 12: the bf16 operating point of the flagship's evaluation path.
     bf16_rows = bf16_phase(kernels, card)
+
+    # Phase 13: the LibriSpeech recipes, and K2 at a word vocabulary.
+    words_row = librispeech_phase(kernels, errs, card)
     if parent:
         compare_trees(parent, card)
 
@@ -3734,7 +4183,7 @@ def main(parent=None) -> int:
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library.get((name, key)),
         })
-    report += bf16_rows
+    report += bf16_rows + [words_row]
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s wall, the build included")
     print(json.dumps({"kernels": report}))
     print(card)

@@ -27,9 +27,14 @@
 //     positions are read, and no shared buffer grows with the full L.
 // A product is warps over input rows and lanes over the slice's columns
 // (16-byte loads where aligned), its warps' partials summed in a fixed
-// order: no atomics, two calls give the same bits. Eight cluster
+// order: no atomics, two calls give the same bits. Nine cluster
 // barriers a step. The elementwise GRU math runs on each block's own
-// state units; block 0 alone takes the linear layer and the log_softmax.
+// state units. Every block holds the maxout layer's outputs and takes
+// its V / C columns of the linear layer (a word vocabulary of tens of
+// thousands fits no one block): the log_softmax's max and exp-sum meet
+// across the cluster, two floats a hypothesis a block, and each block
+// writes its columns of logp. The block's logits take the place of the
+// step's gathered vectors, dead by then.
 //
 // fused_attention_step_bf16 is K2's bf16 entry, for a bf16 model's beam:
 // the same kernel with bf16 inputs and alpha, c and s in bf16, logp
@@ -55,15 +60,25 @@ __host__ __device__ constexpr T cdiv(T n, T d) {
   return (n + d - 1) / d;
 }
 
+// The group a share of n items is cut in: 4 where 4 divides n, else 1.
+__host__ __device__ constexpr int quad(int n) { return n % 4 ? 1 : 4; }
+
+// The largest share of n items over C blocks, in groups of quad(n).
+__host__ __device__ constexpr long long cspan(long long n, long long C) {
+  return n % 4 ? cdiv(n, C) : 4 * cdiv(n / 4, C);
+}
+
 // Shared memory of one block of K2's step, in floats; the plan in
-// ops/cuda/attention_step.py (step_smem_bytes) computes the same.
+// ops/cuda/attention_step.py (step_smem_bytes) computes the same. The
+// block's logits, K cspan(V, C), take the place of the step's gathered
+// vectors, which are dead by the readout's last layer.
 long long step_smem_floats(long long K, long long L, long long S, long long A, long long St,
                            long long M, long long W, long long V, long long C) {
-  return K * (7 * St + S + A + M + V) + S + cdiv(L, C) * (K + 1) + C * K * (cdiv(A, C) + 3) +
-         K + K * std::max(2 * cdiv(St, C), cdiv(M, C) * W) + cdiv(S, C) + 2 * cdiv(St, C) +
-         cdiv(M, C) * W + V +
+  return std::max(K * (7 * St + S + A) + S, K * cspan(V, C)) + K * M + cdiv(L, C) * (K + 1) +
+         C * K * (cdiv(A, C) + 3) + K + K * std::max(2 * cdiv(St, C), cdiv(M, C) * W) +
+         cdiv(S, C) + 2 * cdiv(St, C) + cdiv(M, C) * W +
          kWarps * K * std::min(128LL, std::max(std::max(cdiv(S, C), 2 * cdiv(St, C)),
-                                               std::max(cdiv(M, C) * W, V)));
+                                               std::max(cdiv(M, C) * W, cspan(V, C))));
 }
 
 // K2's arguments; T is the IO type of every array but logp: float, or bf16
@@ -293,7 +308,8 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
   const int St2 = 2 * St, XO = St + A, Lc = cdiv(L, C), Ac = cdiv(A, C);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const Span pos(L, C, r), sc(S, C, r), un(St, C, r), ac(A, C, r), gr(M, C, r);
-  const int Stc = cdiv(St, C);
+  const Span vs(V, C, r, quad(V));
+  const int Stc = cdiv(St, C), Vc = (int)cspan(V, C);
 
   // Gathered: every block holds the whole of these, each block writing its
   // slice. ws and w_e first: 16-byte aligned where S is a multiple of 4.
@@ -303,10 +319,12 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
   float* rin = sr + K * St2;     // [K][2St]   c_in(c) | yin
   float* rhr = rin + K * St2;    // [K][2St]   reset gate * s_prev | r
   float* xo = rhr + K * St2;     // [K][St+A]  s_new | c
-  float* mo = xo + K * XO;       // [K][M]     maxout (block 0's)
-  float* lg = mo + K * M;        // [K][V]     logits (block 0's)
+  // The block's logits, its Vc columns of the linear layer, over the
+  // buffers above: none is read after the maxout layer.
+  float* lg = sm;                // [K][Vc]
+  float* mo = sm + max(K * (St2 * 3 + XO + S) + S, K * Vc);  // [K][M] maxout
   // This block's positions, and what the cluster exchanges about them.
-  float* msk = lg + K * V;       // [Lc]
+  float* msk = mo + K * M;       // [Lc]
   float* e = msk + Lc;           // [K][Lc]       energies, then exp(e - local max)
   float* part = e + K * Lc;      // [C][K][Ac]    context partials of this block's columns
   float* stat = part + C * K * Ac;  // [C][K][2]  each block's (max, exp-sum)
@@ -318,8 +336,7 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
   float* bc = bws + cdiv(S, C);                 // c_in
   float* bdec = bc + Stc;                       // dec_in
   float* bmo = bdec + Stc;                      // maxout
-  float* blin = bmo + Mc * W;                   // linear (block 0)
-  float* scratch = blin + V;
+  float* scratch = bmo + Mc * W;
 
   cluster_arrive();  // no block writes into another before every block has started
   // The step's inputs and this block's bias columns, by asynchronous
@@ -344,7 +361,6 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
     load(bdec + i, a.dec_b + un.lo + i);
   }
   for (int i = tid; i < gr.n * W; i += kThreads) load(bmo + i, a.mo_b + gr.lo * W + i);
-  for (int i = tid; i < (r == 0 ? V : 0); i += kThreads) load(blin + i, a.lin_b + i);
   copy_async_wait();
   __syncthreads();
   cluster_wait();
@@ -491,7 +507,7 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
   // [phase] candidate
 
   // Readout: this block's maxout groups (whole windows of W columns),
-  // their maxima into block 0.
+  // their maxima into every block.
   const int nmo = gr.n * W;
   slice_product(a.mo_w, M * W, XO, xo, XO, K, Cols{gr.lo * W, nmo, 0, 0}, scratch,
                 [&](int k, int jj, int, float v) {
@@ -502,28 +518,48 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
     const float* grp = gz + k * nmo + g * W;
     float m = grp[0];
     for (int t = 1; t < W; ++t) m = fmaxf(m, grp[t]);
-    cluster.map_shared_rank(mo, 0)[k * M + gr.lo + g] = m;
+    for (int p = 0; p < C; ++p) cluster.map_shared_rank(mo, p)[k * M + gr.lo + g] = m;
   }
   cluster.sync();
   // [phase] maxout
-  if (r != 0) return;
 
-  // Block 0: linear and the f32 log_softmax, a warp per hypothesis.
-  slice_product(a.lin_w, V, M, mo, M, K, Cols{0, V, 0, 0}, scratch,
-                [&](int k, int, int col, float v) {
-                  lg[k * V + col] = round_to<T>(round_to<T>(v) + blin[col]);
+  // The linear layer's columns vs of this block (whole groups of 4 where
+  // 4 divides V), then the f32 log_softmax, a warp per hypothesis: the
+  // block's max and exp-sum over its columns go to every block, and each
+  // block writes its columns of logp against the row's max and sum.
+  slice_product(a.lin_w, V, M, mo, M, K, Cols{vs.lo, vs.n, 0, 0}, scratch,
+                [&](int k, int jj, int col, float v) {
+                  lg[k * Vc + jj] = round_to<T>(round_to<T>(v) + ldg_f(a.lin_b + col));
                 });
+  const float* x = lg + warp * Vc;
+  float m = -INFINITY;
   if (warp < K) {
-    const float* x = lg + warp * V;
-    float m = -INFINITY;
-    for (int j = lane; j < V; j += 32) m = fmaxf(m, x[j]);
+    for (int j = lane; j < vs.n; j += 32) m = fmaxf(m, x[j]);
     m = warp_max(m);
     float z = 0.f;
-    for (int j = lane; j < V; j += 32) z += expf(x[j] - m);
-    const float lse = logf(warp_sum(z));
-    for (int j = lane; j < V; j += 32) a.logp[(row + warp) * V + j] = x[j] - m - lse;
+    for (int j = lane; j < vs.n; j += 32) z += expf(x[j] - m);
+    z = warp_sum(z);
+    if (lane < C) {
+      float* st = cluster.map_shared_rank(stat, lane) + (r * K + warp) * 2;
+      st[0] = m;
+      st[1] = z;
+    }
   }
-  // [phase] linear, log_softmax
+  cluster.sync();
+  // [phase] linear
+  if (warp < K) {
+    m = -INFINITY;
+    for (int p = 0; p < C; ++p) m = fmaxf(m, stat[(p * K + warp) * 2]);
+    float z = 0.f;
+    for (int p = 0; p < C; ++p) {
+      const float* st = stat + (p * K + warp) * 2;
+      if (st[1] > 0.f) z = fmaf(expf(st[0] - m), st[1], z);
+    }
+    const float lse = logf(z);
+    float* out = a.logp + (row + warp) * V + vs.lo;
+    for (int j = lane; j < vs.n; j += 32) out[j] = x[j] - m - lse;
+  }
+  // [phase] log_softmax
 }
 
 // K2 on clusters of `cluster` blocks, a batch row a cluster.
@@ -648,16 +684,8 @@ struct Readout {
   const float* b[kMaxLayers];
 };
 
-// The group a share of n items is cut in: 4 where 4 divides n, else 1.
-__host__ __device__ constexpr int quad(int n) { return n % 4 ? 1 : 4; }
-
 // n rounded up to whole 16-byte groups of floats.
 __host__ __device__ constexpr long long r4(long long n) { return (n + 3) / 4 * 4; }
-
-// The largest share of n items over C blocks, in groups of quad(n).
-__host__ __device__ constexpr long long cspan(long long n, long long C) {
-  return n % 4 ? cdiv(n, C) : 4 * cdiv(n / 4, C);
-}
 
 // Shared memory of one block of K8's step, in floats, on clusters of C
 // blocks (lstm 1 for the LSTM cell, loc 1 with the location term, else 0

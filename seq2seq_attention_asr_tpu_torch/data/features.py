@@ -1,14 +1,18 @@
-"""On-device log-mel front end (seq2seq_attention_asr_tpu/data/features.py).
+"""Log-mel front end (seq2seq_attention_asr_tpu/data/features.py): the
+on-device batched path, and the numpy offline path of the stacked
+features and the corpus normalization.
 
 Numerics follow the reference's offline extractor
-(preprocess_timit.py:196-209, Python-2-era librosa): centered STFT with
+(preprocess_timit.py:196-225, Python-2-era librosa): centered STFT with
 n_fft 2048, hop 512 and a periodic Hann window, power spectrum, 128
 slaney mel filters of which the first ``nfreqs`` are kept,
 ``10*log10(max(amin, S))`` clipped at max - 80 dB per utterance, an RMS
-energy column, and width-9 deltas and delta-deltas -> (B, L, 123).
+energy column, and width-9 deltas and delta-deltas -> (B, L, 123); or
+the channel stack logmel | delta | delta-delta, (3, L, nfreqs), of the
+VGG recipe.
 
-The constants and the filterbank are this package's own copies of the
-JAX package's numpy code.
+The constants, the filterbank and the numpy functions are this
+package's own copies of the JAX package's numpy code.
 """
 
 from __future__ import annotations
@@ -70,6 +74,77 @@ def hann_window(n_fft: int = N_FFT) -> np.ndarray:
 def frames_for_samples(n_samples: int, hop: int = HOP) -> int:
     """Number of centered-STFT frames for an n_samples signal."""
     return 1 + n_samples // hop
+
+
+def stft_np(y: np.ndarray, n_fft: int = N_FFT, hop: int = HOP) -> np.ndarray:
+    """Centered STFT -> (1 + n_fft//2, n_frames) complex."""
+    pad = n_fft // 2
+    y = np.pad(y, pad, mode="reflect")
+    n_frames = 1 + (len(y) - n_fft) // hop
+    window = np.hanning(n_fft + 1)[:-1]  # periodic hann (scipy/librosa)
+    idx = np.arange(n_fft)[None, :] + hop * np.arange(n_frames)[:, None]
+    return np.fft.rfft(y[idx] * window[None, :], n=n_fft, axis=1).T
+
+
+def power_to_db(S: np.ndarray, amin: float = AMIN, top_db: float = TOP_DB) -> np.ndarray:
+    """librosa.core.logamplitude with ref=1.0, clipped at max - top_db."""
+    log_spec = 10.0 * np.log10(np.maximum(amin, S))
+    if top_db is not None:
+        log_spec = np.maximum(log_spec, log_spec.max() - top_db)
+    return log_spec
+
+
+def delta_np(data: np.ndarray, width: int = 9, order: int = 1, axis: int = -1) -> np.ndarray:
+    """Old-librosa delta: delta[i] = sum_m m * x[i + m] for m in [-h, h], h =
+    width // 2, edge-padded, unnormalized; order 2 applies it twice."""
+    half = width // 2
+    kernel = np.arange(-half, half + 1, dtype=np.float64)
+    out = data.astype(np.float64)
+    for _ in range(order):
+        pad = [(0, 0)] * out.ndim
+        pad[axis] = (half, half)
+        padded = np.pad(out, pad, mode="edge")
+        out = np.apply_along_axis(lambda m: np.correlate(m, kernel, mode="valid"), axis, padded)
+    return out
+
+
+def logmel_stacked_np(y: np.ndarray, sr: int, n_fft: int = N_FFT, hop: int = HOP,
+                      nfreqs: int = 40, n_mels: int = 128) -> np.ndarray:
+    """(3, L, nfreqs): log-mel, delta and delta-delta stacked as channels
+    (preprocess_timit.py:211-225), the VGG recipe's input."""
+    S = np.abs(stft_np(y, n_fft, hop)) ** 2
+    lm = power_to_db(mel_filterbank(sr, n_fft, n_mels) @ S)[:nfreqs]
+    d1 = delta_np(lm, order=1)
+    d2 = delta_np(lm, order=2)
+    return np.stack([lm.T, d1.T, d2.T], axis=0)
+
+
+def normalize_corpus(train_feats, *other_splits, pad: int = 10):
+    """Train-set mean and std normalization, then `pad` zero frames at both
+    ends (preprocess_timit.py:261-314). Splits are lists of (L_i, D)
+    arrays, or of (3, L_i, D) channel stacks (statistics over the frames
+    of each channel and bin). Returns (each split normalized..., mean,
+    std)."""
+    stacked = train_feats[0].ndim == 3
+    axis = 1 if stacked else 0
+    cat = np.concatenate(train_feats, axis=axis)
+    mean = cat.mean(axis=axis, keepdims=True)
+    std = cat.std(axis=axis, keepdims=True)
+
+    def norm(split):
+        out = []
+        for f in split:
+            g = (f - mean) / std
+            if stacked:
+                z = np.zeros((f.shape[0], pad, f.shape[2]))
+                g = np.concatenate([z, g, z], axis=1)
+            else:
+                z = np.zeros((pad, f.shape[1]))
+                g = np.vstack([z, g, z])
+            out.append(g)
+        return out
+
+    return (norm(train_feats), *(norm(s) for s in other_splits), mean, std)
 
 
 def delta_batched(x: torch.Tensor, width: int = 9, n_frames=None) -> torch.Tensor:

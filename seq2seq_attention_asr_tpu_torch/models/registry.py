@@ -1,5 +1,5 @@
 """Model facade (seq2seq_attention_asr_tpu/models/registry.py), for the
-families ported so far:
+three families:
 
   init(generator, device) -> params
   forward(params, x, x_len, labels_onehot, dec_mask, *, generator, train)
@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
-from . import chorowski, conv_bilstm
+from . import chorowski, conv_bilstm, vgg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,10 +31,10 @@ class Model:
 
 
 def build(name: str, **overrides) -> Model:
-    """name: chorowski | chorowski_dropout | conv_bilstm. Overrides are
-    fields of the family's config dataclass; chorowski_dropout is
-    chorowski with dropout defaulting to 0.5
-    (model_chorowski_baseline_dropout.lua)."""
+    """name: chorowski | chorowski_dropout | conv_bilstm | vgg. Overrides
+    are fields of the family's config dataclass (e.g. output_depth=30 for
+    a LibriSpeech character vocabulary); chorowski_dropout is chorowski
+    with dropout defaulting to 0.5 (model_chorowski_baseline_dropout.lua)."""
     if name == "chorowski_dropout":
         overrides.setdefault("dropout", 0.5)
         name = "chorowski"
@@ -59,4 +59,14 @@ def build(name: str, **overrides) -> Model:
             encode=lambda p, x, xl: conv_bilstm.encode(p, cfg, x, xl),
             attention_cfg=cfg.attention_config(),
         )
-    raise ValueError(f"unknown or not yet ported model {name!r}")
+    if name == "vgg":
+        cfg = vgg.VGGConfig(**overrides)
+        return Model(
+            name=name,
+            cfg=cfg,
+            init=lambda generator, device="cuda": vgg.init(cfg, generator, device),
+            forward=lambda p, x, xl, oh, dm, **kw: vgg.forward(p, cfg, x, xl, oh, dm, **kw),
+            encode=lambda p, x, xl: vgg.encode(p, cfg, x, xl),
+            attention_cfg=cfg.attention_config(),
+        )
+    raise ValueError(f"unknown model {name!r}")

@@ -78,16 +78,34 @@ def step_smem_bytes(k: int, l: int, s: int, a: int, st: int, m: int, w: int, v: 
     """Shared memory of one block of K2 on clusters of c blocks, as
     csrc/attention_step.cu's step_smem_floats lays it out (K hypotheses,
     L positions, score S, annotation A, state St, maxout M groups of W,
-    V outputs): the gathered vectors (s_prev | r, ws, c_in | yin,
-    reset * s_prev | r, s_new | c, maxout, logits), w_e, the block's
-    ceil(L / c) positions' mask and energies, the context partials and
-    softmax statistics the cluster exchanges, the local gates, the
-    block's bias columns, and the products' warp partials."""
-    floats = (k * (7 * st + s + a + m + v) + s + _cdiv(l, c) * (k + 1)
+    V outputs): the gathered vectors (ws, w_e, s_prev | r, c_in | yin,
+    reset * s_prev | r, s_new | c), over which the block's logits (its
+    cspan(V, c) columns) lie at the readout's end, the maxout outputs,
+    the block's ceil(L / c) positions' mask and energies, the context
+    partials and softmax statistics the cluster exchanges, the local
+    gates, the block's bias columns, and the products' warp partials."""
+    vc = _cspan(v, c)
+    floats = (max(k * (7 * st + s + a) + s, k * vc) + k * m + _cdiv(l, c) * (k + 1)
               + c * k * (_cdiv(a, c) + 3) + k + k * max(2 * _cdiv(st, c), _cdiv(m, c) * w)
-              + _cdiv(s, c) + 2 * _cdiv(st, c) + _cdiv(m, c) * w + v
-              + WARPS * k * min(128, max(_cdiv(s, c), 2 * _cdiv(st, c), _cdiv(m, c) * w, v)))
+              + _cdiv(s, c) + 2 * _cdiv(st, c) + _cdiv(m, c) * w
+              + WARPS * k * min(128, max(_cdiv(s, c), 2 * _cdiv(st, c), _cdiv(m, c) * w, vc)))
     return 4 * floats
+
+
+def step_vocab_cap(k: int, l: int, s: int, a: int, st: int, m: int, w: int, c: int,
+                   smem_limit: int) -> int:
+    """The largest V such that K2's block on clusters of c blocks fits
+    `smem_limit` bytes for every vocabulary of V outputs or fewer (0 when
+    none does). A block takes cspan(V, c) columns, which can shrink as V
+    grows past a multiple of 4, so V and the multiple of 4 below it are
+    both checked."""
+    fits = lambda v: all(step_smem_bytes(k, l, s, a, st, m, w, u, c) <= smem_limit
+                         for u in (v, max(4 * (v // 4), 1)))
+    lo, hi = 0, 1 << 26
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
 
 
 @dataclasses.dataclass(frozen=True)

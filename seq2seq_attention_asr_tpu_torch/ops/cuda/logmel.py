@@ -2,7 +2,9 @@
 
 Replaces the Pallas kernel ``stft_logmel_power``
 (seq2seq_attention_asr_tpu/ops/pallas/logmel.py:119, body ``_kernel``
-:69) and its wrapper ``logmel_pallas`` (:157). The CUDA source is
+:69) and its wrappers ``logmel_pallas`` (:157) and
+``logmel_stacked_pallas`` (:175, the VGG recipe's channel-stacked
+features: ``logmel_stacked`` here). The CUDA source is
 ``csrc/logmel.cu``; ``stft_logmel_power_plain`` below is the same
 function in plain PyTorch.
 
@@ -149,3 +151,22 @@ def logmel_fused(y: torch.Tensor, sr: int = 16000, nfreqs: int = 40, mean=None, 
     yp = F.pad(y.float()[:, None], (pad, pad), mode="reflect")[:, 0].contiguous()
     lm, energy = stft_logmel_power(yp, sr)
     return features.assemble(lm, energy, nfreqs, mean, std)
+
+
+def logmel_stacked(y: torch.Tensor, sr: int = 16000, nfreqs: int = 40) -> torch.Tensor:
+    """(B, N) PCM -> (B, 3, L, nfreqs): log-mel, delta and delta-delta
+    stacked as channels, through the fused kernel (the twin of the JAX
+    package's logmel_stacked_pallas, logmel.py:175). The top_db clip takes
+    each row's peak over all its frames, padding included, as the JAX
+    function does; the slice and the deltas are plain PyTorch. The VGG
+    encoder takes (B, L, nfreqs, 3): the caller moves the channel axis
+    last."""
+    pad = N_FFT // 2
+    if y.shape[1] <= pad:
+        raise ValueError(f"logmel: {y.shape[1]} samples, reflect padding needs more than {pad}")
+    yp = F.pad(y.float()[:, None], (pad, pad), mode="reflect")[:, 0].contiguous()
+    lm, _ = stft_logmel_power(yp, sr)
+    peak = torch.amax(lm, dim=(1, 2), keepdim=True)
+    lm = torch.maximum(lm, peak - features.TOP_DB)[..., :nfreqs]
+    d1 = features.delta_batched(lm)
+    return torch.stack([lm, d1, features.delta_batched(d1)], dim=1)

@@ -2,12 +2,15 @@
 (seq2seq_attention_asr_tpu/train/experiment.py): a model choice with its
 kwargs, a TrainConfig and an OptimConfig, the initialization the recipe
 asks for, where its data and run directory are, and `run_cli`, the
-command line of the recipe scripts. The port has the canonical TIMIT
-recipe, its dropout variant, the conv+BiLSTM TIMIT recipe (both
-families also with the attention's location term switched on or off
-through ``exp.model_kwargs["feature_maps"]``) and the scriptchecker
-smoke recipe; the others come with their model families. Adaptive or
-fixed weight noise is a TrainConfig field (``noise``) of any recipe."""
+command line of the recipe scripts. The port has every recipe of the
+JAX package: the canonical TIMIT recipe, its dropout variant, the
+conv+BiLSTM TIMIT recipe (both families also with the attention's
+location term switched on or off through
+``exp.model_kwargs["feature_maps"]``), the three LibriSpeech recipes
+(character and word Chorowski, VGG; trained from a chunked data
+directory by the out-of-core epoch) and the scriptchecker smoke recipe.
+Adaptive or fixed weight noise is a TrainConfig field (``noise``) of any
+recipe."""
 
 from __future__ import annotations
 
@@ -99,6 +102,29 @@ def timit_chorowski_dropout(**kw) -> Experiment:
     return exp
 
 
+def librispeech_chorowski(num_chars: int, data_path: Optional[str] = None,
+                          save_dir: Optional[str] = None) -> Experiment:
+    """librispeech/model_chorowski_baseline.lua: the canonical recipe's
+    architecture with num_chars outputs, CER evaluation with a beam of up
+    to 2 L steps (eval_len_factor 2, librispeech/train.lua:251-252)."""
+    exp = timit_chorowski_normnll_colnorm(data_path=data_path, save_dir=save_dir)
+    exp.name = "exp_librispeech_chorowski"
+    exp.model_kwargs["output_depth"] = num_chars
+    exp.train = dataclasses.replace(exp.train, eval_len_factor=2.0)
+    return exp
+
+
+def librispeech_chorowski_words(num_words: int, data_path: Optional[str] = None,
+                                save_dir: Optional[str] = None) -> Experiment:
+    """The word-target LibriSpeech recipe (opt.labelset = 'words',
+    librispeech/train.lua:28, utils_librispeech.lua:49-66): the character
+    recipe with the output layer sized to the word vocabulary, scored by
+    WER (the edit distance over word ids)."""
+    exp = librispeech_chorowski(num_chars=num_words, data_path=data_path, save_dir=save_dir)
+    exp.name = "exp_librispeech_chorowski_words"
+    return exp
+
+
 def timit_conv_bilstm(data_path: Optional[str] = None,
                       save_dir: Optional[str] = None) -> Experiment:
     """The reference's inline TIMIT conv+BiLSTM model (timit/timit.lua:
@@ -116,6 +142,29 @@ def timit_conv_bilstm(data_path: Optional[str] = None,
         ),
         train=TrainConfig(num_epochs=100, batch_size=16, normalize_nll=True, beam_k=5),
         optim=OptimConfig(rho=0.95, eps=1e-8, maxnorm=1e20),
+        data_path=data_path,
+        save_dir=save_dir,
+        orthogonalize=True,
+    )
+
+
+def librispeech_vgg(num_chars: int, data_path: Optional[str] = None,
+                    save_dir: Optional[str] = None) -> Experiment:
+    """librispeech/model_vgg.lua: the VGG conv encoder on 3-channel stacked
+    log-mel (40 bins), annotations of 512 (:63), the two-layer maxout
+    readout (:74-82); adadelta(0.95, 1e-8) with the column-norm
+    constraint, normalized NLL, orthogonal init, batch 16, 100 epochs,
+    beam K=5 over up to 2 L steps."""
+    return Experiment(
+        name="exp_librispeech_vgg",
+        model="vgg",
+        model_kwargs=dict(
+            input_frame_size=40, output_frame_size=512, score_depth=512, filt_size=10,
+            feature_maps=0, state_depth=256, mlp_depth=64, output_depth=num_chars,
+        ),
+        train=TrainConfig(num_epochs=100, batch_size=16, normalize_nll=True, beam_k=5,
+                          eval_len_factor=2.0),
+        optim=OptimConfig(rho=0.95, eps=1e-8, colnorm=True, colnorm_maxval=1.0),
         data_path=data_path,
         save_dir=save_dir,
         orthogonalize=True,
@@ -149,12 +198,20 @@ def run_cli(make_experiment, dataset: str, argv=None, source_file: Optional[str]
     (exp_logmel7_chorowski_normNLL_colnorm.lua:42-50).
 
     dataset: "timit" or "scriptchecker" (train.h5 and valid.h5 under
-    --data). make_experiment is called with data_path=... and save_dir=...
-    ("timit") or save_dir=... ("scriptchecker"). The run is on the card
-    unless --cpu is given. Returns the Trainer after its last epoch."""
+    --data), or "librispeech" (the chunked directory of the JAX package's
+    tools/preprocess_librispeech.py: meta.txt, the train.db manifest of
+    train chunks, valid.h5). make_experiment is called with data_path=...
+    and save_dir=... ("timit"), save_dir=... ("scriptchecker"), or the
+    output depth first ("librispeech": meta.txt's numwords where its
+    labelset_words is set, else numchars). LibriSpeech trains on one
+    chunk at a time in a shuffled order each epoch (Trainer.fit's
+    chunked epoch), or in memory when there is a single chunk. The run is
+    on the card unless --cpu is given. Returns the Trainer after its last
+    epoch."""
     import argparse
 
     from ..data import batching
+    from ..data import librispeech as ls
     from ..data import timit as timit_data
     from .trainer import Trainer
 
@@ -176,6 +233,7 @@ def run_cli(make_experiment, dataset: str, argv=None, source_file: Optional[str]
     device = "cpu" if args.cpu else "cuda"
 
     vocab = None
+    chunked = None
     if dataset == "timit":
         exp = make_experiment(data_path=args.data, save_dir=args.save)
         train_ds = timit_data.load_hdf5(os.path.join(args.data, "train.h5"))
@@ -192,8 +250,21 @@ def run_cli(make_experiment, dataset: str, argv=None, source_file: Optional[str]
         if train_ds.y39 is not None:
             vocab = timit_data.Vocab.standard()
     elif dataset == "librispeech":
-        raise NotImplementedError("LibriSpeech (its reader, its recipes and the chunked epoch) "
-                                  "is not ported yet (ROADMAP Queue A items 7 and 8)")
+        meta = ls.load_meta(args.data)
+        # the output depth follows the labelset the chunks were built with
+        # (meta.txt numchars or numwords, utils_librispeech.lua:38-46)
+        exp = make_experiment(meta["numwords"] if meta.get("labelset_words", 0)
+                              else meta["numchars"], data_path=args.data, save_dir=args.save)
+        # Out of core: one chunk resident at a time, in a shuffled order
+        # each epoch (librispeech/train.lua:82-103).
+        chunk_paths = ls.load_manifest(args.data)
+        load_chunk = lambda i: timit_data.load_hdf5(chunk_paths[i])
+        train_ds = load_chunk(0)  # the frame size, and a single chunk's training set
+        if len(chunk_paths) > 1:
+            chunked = (load_chunk, len(chunk_paths),
+                       lambda ds: batching.BucketedBatcher.from_dataset(
+                           ds, batch_size=exp.train.batch_size))
+        valid_ds = timit_data.load_hdf5(os.path.join(args.data, "valid.h5"))
     else:
         raise ValueError(dataset)
 
@@ -203,8 +274,10 @@ def run_cli(make_experiment, dataset: str, argv=None, source_file: Optional[str]
         exp.train = dataclasses.replace(exp.train, batch_size=args.batch_size)
     if args.max_samples:
         exp.train = dataclasses.replace(exp.train, max_samples=args.max_samples)
-    frame_size = int(train_ds.x[0].shape[-1])
-    exp.model_kwargs["input_frame_size"] = frame_size
+    # the frame size: the last axis of flat (L, D) features, the frequency
+    # axis of channel-stacked (L, freq, C) ones (the VGG recipe's NHWC input)
+    x0 = train_ds.x[0]
+    exp.model_kwargs["input_frame_size"] = int(x0.shape[-2] if x0.ndim == 3 else x0.shape[-1])
     exp.archive(source_file)
 
     params = exp.init_params(torch.Generator().manual_seed(exp.train.seed), device=device)
@@ -215,7 +288,7 @@ def run_cli(make_experiment, dataset: str, argv=None, source_file: Optional[str]
     keys = ("epoch", "train_nll", "train_accuracy", "valid_nll", "valid_accuracy", "valid_per",
             "train_seconds", "train_samples_per_s")
     for row in tr.fit(train_ds, valid_ds, batcher, resume=args.resume,
-                      decode_every=args.decode_every):
+                      decode_every=args.decode_every, chunked=chunked):
         print("  ".join(f"{k}={row[k]:.4f}" if isinstance(row.get(k), float)
                         else f"{k}={row.get(k)}" for k in keys if k in row), flush=True)
     return tr

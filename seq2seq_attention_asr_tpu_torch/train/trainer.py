@@ -25,10 +25,10 @@ SYNC_EVERY batches (the NaN tripwire fires at those reads), teacher-
 forced valid NLL and accuracy, beam-search PER (61->39 fold with a
 vocab, else the error rate on the raw ids), a JSONL metric log,
 checkpoints of the latest state and of the best accuracy and PER,
-resume, optimizer resets by epoch and restore on NaN. Everything runs on
-the trainer's device, the card unless it is asked for the CPU. The JAX
-package's mesh (dp x sp) trainer and its out-of-core chunked epoch are
-not ported.
+resume, optimizer resets by epoch and restore on NaN, and the
+out-of-core epoch over chunks of the training set (LibriSpeech). Everything
+runs on the trainer's device, the card unless it is asked for the CPU.
+The JAX package's mesh (dp x sp) trainer is not ported.
 """
 
 from __future__ import annotations
@@ -378,7 +378,28 @@ class Trainer:
         agg = {k: 0.0 for k in self._AGG_KEYS}
         t0 = time.time()
         n_batches, n_samples = self._train_pass(ds, batcher, epoch, agg)
-        dt = time.time() - t0
+        return self._train_row(agg, n_batches, n_samples, time.time() - t0, epoch)
+
+    def train_epoch_chunked(self, load_chunk, n_chunks: int, batcher_fn,
+                            epoch: int) -> Dict[str, float]:
+        """The out-of-core epoch: the train chunks in an order drawn from
+        RandomState(seed + epoch), one resident at a time (the reference's
+        chunked LibriSpeech loop, librispeech/train.lua:82-103).
+        load_chunk(i) -> Dataset; batcher_fn(ds) -> a batcher for it. The
+        k-th chunk's pass shuffles its batches as epoch epoch * 1000 + k
+        would."""
+        agg = {k: 0.0 for k in self._AGG_KEYS}
+        t0 = time.time()
+        nb = ns = 0
+        order = np.random.RandomState(self.tcfg.seed + epoch).permutation(n_chunks)
+        for k, ci in enumerate(order):
+            ds = load_chunk(int(ci))
+            b, s = self._train_pass(ds, batcher_fn(ds), epoch * 1000 + k, agg)
+            nb += b
+            ns += s
+        return self._train_row(agg, nb, ns, time.time() - t0, epoch)
+
+    def _train_row(self, agg, n_batches: int, n_samples: int, dt: float, epoch: int):
         row = {
             "epoch": epoch,
             "train_loss": agg["loss"] / max(n_batches, 1),
@@ -544,10 +565,11 @@ class Trainer:
         stops at the NaN tripwire; "restore" rolls back to ckpt_latest
         with a reshuffled epoch seed and goes on, up to max_nan_restores
         times. ckpt_every: epochs between "latest" checkpoints (the last
-        epoch always saves); best-metric checkpoints always save."""
-        if chunked is not None:
-            raise NotImplementedError("the out-of-core chunked epoch is not ported yet "
-                                      "(ROADMAP Queue A item 7)")
+        epoch always saves); best-metric checkpoints always save.
+
+        chunked: a (load_chunk, n_chunks, batcher_fn) triple for the
+        out-of-core epoch (train_epoch_chunked); `train_ds` is ignored
+        then, and `batcher` serves the validation pass only."""
         if resume:
             self.resume()
         nan_restores = 0
@@ -560,7 +582,10 @@ class Trainer:
                 self._build(self.optim_resets[epoch])
                 self.state = (train_params, self.tx.init(train_params), gen)
             try:
-                row = self.train_epoch(train_ds, batcher, epoch)
+                if chunked is not None:
+                    row = self.train_epoch_chunked(*chunked, epoch)
+                else:
+                    row = self.train_epoch(train_ds, batcher, epoch)
             except debug.NonFiniteError as e:
                 recoverable = (on_nan == "restore" and nan_restores < max_nan_restores
                                and self.save_dir is not None)

@@ -103,9 +103,11 @@ def _k2_case(card, b, k, l, dims, dead=None):
 
 
 # K2 runs a batch row on a cluster of 16 or 8 blocks, each taking 1/C of
-# the encoder positions: L < C, L not a multiple of C, a row with every
-# position masked, K = 1 and 8, B = 16 (more clusters of 16 than one
-# wave holds), and L = 1500 at K = 8, beyond one block's shared memory.
+# the encoder positions and of the outputs: L < C, L not a multiple of C,
+# a row with every position masked, K = 1 and 8, B = 16 (more clusters of
+# 16 than one wave holds), L = 1500 at K = 8, beyond one block's shared
+# memory, fewer outputs than blocks (6), and word vocabularies (V =
+# 34,000 over 35 s at K = 5 and 8; V = 4,001, no multiple of 4).
 @pytest.mark.parametrize("b,k,l,dims,dead", [
     (1, 1, 8, (16, 16, 24, 6, 8, 3), None),
     (3, 5, 37, (16, 12, 20, 7, 4, 2), None),
@@ -117,6 +119,9 @@ def _k2_case(card, b, k, l, dims, dead=None):
     (8, 8, 132, FLAGSHIP_STEP, 7),
     (16, 5, 132, FLAGSHIP_STEP, None),
     (1, 8, 1500, FLAGSHIP_STEP, None),
+    (16, 5, 1094, FLAGSHIP_STEP[:3] + (34000,) + FLAGSHIP_STEP[4:], 3),
+    (16, 8, 1094, FLAGSHIP_STEP[:3] + (34000,) + FLAGSHIP_STEP[4:], None),
+    (3, 5, 37, (16, 12, 20, 4001, 4, 2), 2),
 ])
 def test_fused_attention_step_kernel(card, b, k, l, dims, dead):
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step

@@ -51,7 +51,7 @@ def test_instrument_refuses_a_source_without_markers():
 
 K2_SOURCE = ROOT / "seq2seq_attention_asr_tpu_torch" / "csrc" / "attention_step.cu"
 K2_PHASES = ["load", "ws", "energies", "softmax, context partials", "context", "c_in", "dec_in",
-             "gates", "candidate", "maxout", "linear, log_softmax"]
+             "gates", "candidate", "maxout", "linear", "log_softmax"]
 
 
 def _k2_body(text):
@@ -75,8 +75,8 @@ def test_instrument_k2_reads_the_clock_after_every_cluster_barrier():
             before = [x.strip() for x in lines[:i] if x.strip()][-1]
             assert before in ("cluster.sync();", "cluster_wait();", "__syncthreads();") or \
                 before.startswith("energies<") or "// [phase]" not in "".join(lines[i + 1:]), before
-    # K2's eight cluster barriers (K8's kernel in the same source has its own).
-    assert _k2_body(text).count("cluster.sync();") == _k2_body(src).count("cluster.sync();") == 8
+    # K2's nine cluster barriers (K8's kernel in the same source has its own).
+    assert _k2_body(text).count("cluster.sync();") == _k2_body(src).count("cluster.sync();") == 9
     assert text.count("cluster.sync();") == src.count("cluster.sync();")
     # Outside the kernel's body, only the probe is added.
     head, rest = src.split("attention_step_kernel(const Args a) {", 1)

@@ -199,3 +199,34 @@ def test_limits_helpers_take_the_cluster_size():
     names its instance (lstm, loc)."""
     assert _c_argtypes("fused_attention_step_limits") == ["c_int", "c_void_p", "c_void_p"]
     assert _c_argtypes("fused_attention_step_loc_lstm_limits") == ["c_int"] * 3 + ["c_void_p"] * 2
+
+
+# The VGG recipe's decoder (model_vgg.lua): content-only GRU, annotations
+# of 512, maxout 64 x 7 -> linear 64 -> maxout 64 x 7 -> linear V, on the
+# encoder's 543 positions for 1,094 frames (35 s).
+VGG = (512, 512, 256, 0, 0, False, (("maxout", 64, 7), ("linear", 64), ("maxout", 64, 7),
+                                    ("linear", 30)))
+# The largest V K8 takes with that readout: its last layer is block 0's
+# alone, and two readout outputs of K x V floats are gathered in every
+# block; (K, C) -> V.
+VGG_V_CAPS = {(5, 16): 3124, (5, 8): 3085, (8, 16): 968, (8, 8): 933}
+
+
+def _vgg_smem(v, k, c, l=543):
+    return step.step_loc_lstm_smem_bytes(k, l, 512, 512, 256, 0, 0, c, False,
+                                         [(MAXOUT, 64, 7), (LIN, 64, 1), (MAXOUT, 64, 7),
+                                          (LIN, v, 1)])
+
+
+@pytest.mark.parametrize("k,c", sorted(VGG_V_CAPS))
+def test_the_vgg_readout_fits_and_its_vocabulary_cap(k, c):
+    """K8 with VGG's four dense layers: the maxout layers split over the
+    blocks in whole groups, the linear 64 in groups of 4, the last whole
+    in block 0; a character vocabulary (30) is far under the cap."""
+    assert step.k8_dense(step.k8_layers(_cfg(VGG, 30))) == [(MAXOUT, 64, 7), (LIN, 64, 1),
+                                                            (MAXOUT, 64, 7), (LIN, 30, 1)]
+    assert step.readout_dims(_dense(VGG), c) == (64, 28 if c == 16 else 56, 30 if c == 16 else 56)
+    cap = VGG_V_CAPS[(k, c)]
+    assert _vgg_smem(cap, k, c) <= SMEM < _vgg_smem(cap + 1, k, c)
+    assert _vgg_smem(30, k, c) == smem(VGG, k, 543, c) < _vgg_smem(cap, k, c)
+    assert plan(VGG, 16, l=543, k=k) == step.StepPlan(8, 2)

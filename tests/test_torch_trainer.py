@@ -463,7 +463,8 @@ def test_scriptchecker_end_to_end(tmp_path):
         with pytest.raises(NotImplementedError):
             experiment.run_cli(experiment.scriptchecker, "scriptchecker",
                                ["--cpu", "--data", data] + argv)
-    with pytest.raises(NotImplementedError):
+    # a TIMIT directory is no LibriSpeech one: it has no meta.txt
+    with pytest.raises(FileNotFoundError, match="meta.txt"):
         experiment.run_cli(experiment.scriptchecker, "librispeech", ["--cpu", "--data", data])
 
 

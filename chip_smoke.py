@@ -10,7 +10,8 @@ an epoch loop with checkpoints and resume, and greedy decode; then the
 reference recipe's regularisers: the committed AWN stage restarted from
 the checkpoint, the monotonic penalty on each decoder, dropout and
 weight noise; then the flagship's bf16 evaluation through the bf16
-entries of K1, K2 and K4; then the LibriSpeech recipes (the VGG model,
+entries of K1, K2 and K4, and that of conv+BiLSTM, flagship_loc and
+VGG through those of K7, K10, K12 and K8; then the LibriSpeech recipes (the VGG model,
 the character and word Chorowski recipes, the chunked out-of-core
 epoch, the stacked front end) and K2 with a word vocabulary spread over
 its cluster.
@@ -19,8 +20,8 @@ its cluster.
 
 Phases, each fatal when it fails:
   1. the card's name and power limit (nvidia-smi);
-  2. build the nineteen kernels and the bf16 entries of K1, K2 and K4 from
-     csrc/ (one nvcc per library, in parallel);
+  2. build the nineteen kernels and the bf16 entries of K1, K2, K4, K7,
+     K8, K10 and K12 from csrc/ (one nvcc per library, in parallel);
   3. hold each kernel to its plain PyTorch version through its public
      wrapper: K1-K3 at the flagship's serving shapes, batch 1 and 8 (max
      abs error 1e-4; K3 also twice, the two calls bitwise equal, one
@@ -214,7 +215,19 @@ Phases, each fatal when it fails:
      bound (bf16 bytes, operations at the bf16 tensor-core peak), and
      one B = 32 evaluation batch (the eval step and the beam) in bf16
      beside float32, wall and device time; (d) a bf16 train step
-     raising NotImplementedError; and the phase's wall seconds;
+     raising NotImplementedError; and the phase's wall seconds; then
+     (12 b) conv+BiLSTM, flagship_loc and VGG as bf16 models
+     (bf16_models_phase), from each recipe's seeded init: the bf16
+     entries of K7, K10, K12 and K8 (its <LSTM, location>, <GRU,
+     location> and <GRU, content> instances) held as above at a B = 16
+     batch's shapes and at each evaluation batch's, with their times
+     beside the float32 kernels' and cuDNN's bf16 LSTM beside K7; each
+     configuration's Trainer.evaluate on one evaluation batch (the
+     held-out split's first 32, or 16 for flagship_loc; LS_VALID's 8 for
+     VGG) on the card under PyTorch's default flags, unchanged after,
+     launching its bf16 entries only (K8 once a beam step), against the
+     same evaluation on the CPU (PER within 0.02, NLL within 1e-3
+     relative); and its bf16 train step raising NotImplementedError;
  13. the LibriSpeech recipes at full width, TF32 off: (a) K2 with the
      vocabulary spread over its cluster at V = 34,000 (the word recipe's
      train-clean-100 vocabulary), K = 5 and 8, B = 16, L = 1,094 (35 s)
@@ -2952,6 +2965,20 @@ BF16_SYMBOLS = {"bigru_scan2_bf16": ("bigru_scan2_bf16_kernel",),
 F32_SYMBOLS = {"bigru_scan2_bf16": ("bigru_scan2_kernel",),
                "attention_decode_scan_fwd_bf16": GRU_FWD_PREPASS + ("content_gru_fwd_kernel",),
                "fused_attention_step_bf16": ("attention_step_kernel",)}
+# Phase 12 (b)'s entries (BF16_MODEL_OF): K7's, K10's, K12's and K8's (K8's
+# bf16 instances are the template cluster_step_loc_lstm_kernel<..., bf16>).
+BF16_SYMBOLS.update({
+    "bilstm_scan_bf16": ("bilstm_scan_bf16_kernel",),
+    "attention_decode_scan_loc_lstm_fwd_bf16": ("lstm_fwd_prepass_bf16_kernel",) * 2
+    + ("loc_lstm_fwd_bf16_kernel",),
+    "attention_decode_scan_loc_fwd_bf16": ("gru_fwd_prepass_bf16_kernel",) * 2
+    + ("loc_gru_fwd_bf16_kernel",),
+    "fused_attention_step_loc_lstm_bf16": K8_SYMBOLS})
+F32_SYMBOLS.update({
+    "bilstm_scan_bf16": ("bilstm_scan_kernel",),
+    "attention_decode_scan_loc_lstm_fwd_bf16": FWD_PREPASS + ("loc_lstm_fwd_kernel",),
+    "attention_decode_scan_loc_fwd_bf16": GRU_FWD_PREPASS + ("loc_gru_fwd_kernel",),
+    "fused_attention_step_loc_lstm_bf16": K8_SYMBOLS})
 BF16_ODD_L = 131  # the edge shapes: one batch row, an odd encoder length
 # Kernel vs exact twin, each element, in bf16 ulps at max(|twin|, 1). The
 # kernels sum in another order than the twins, which flips a rounding now
@@ -2960,7 +2987,12 @@ BF16_ODD_L = 131  # the edge shapes: one batch row, an odd encoder length
 # twin that skips the operand roundings lands 59-65 ulps from its own on
 # the CPU; PERF.md §6).
 BF16_ULPS = {"bigru_scan2_bf16": 2, "attention_decode_scan_fwd_bf16": 32,
-             "fused_attention_step_bf16": 4}
+             "fused_attention_step_bf16": 4,
+             # K7's bf16 entry stores float32 and rounds nothing: the float32
+             # kernels' TOL (1e-4 at 1.0), in bf16 ulps. K10's and K12's carry
+             # their flips over the steps as K4's do; K8 is one step, as K2.
+             "bilstm_scan_bf16": TOL / 2 ** -7, "attention_decode_scan_loc_lstm_fwd_bf16": 32,
+             "attention_decode_scan_loc_fwd_bf16": 32, "fused_attention_step_loc_lstm_bf16": 4}
 # The rounding check: a kernel that skipped the bf16 rounding points would
 # be the float32 result rounded at its outputs, and would differ from the
 # twin on as many elements as that does; the kernel must differ on at most
@@ -3019,7 +3051,7 @@ def bf16_check(name, tag, got, twin, plain, truth) -> float:
 def bf16_cases(p16, cfg, gen, eval_batch):
     """The bf16 entries' inputs, bf16 on the card, from the committed
     checkpoint's weights in bf16 (p16): {name: [(tag, args, flops,
-    nbytes)]}, the first of each at the shapes phase 12 times: K1 on the
+    nbytes, library)]} (library None: no PyTorch call computes theirs), the first of each at the shapes phase 12 times: K1 on the
     first encoder layer and K4 on the encoder's output of a B = 16, L =
     144, T = 56 batch, K2 at B = 16, K = 5 on that output and at b = 1, L
     = 132; then the edges, B = 1 at an odd L; then `eval_batch` (x, x_len,
@@ -3060,7 +3092,7 @@ def bf16_cases(p16, cfg, gen, eval_batch):
         xb = cells.gru_input_proj(enc["bwd"], x16).contiguous()
         out["bigru_scan2_bf16"].append((
             tag, (xf, xb, wzr2, wh2), 2 * b * l * (6 * hd * hd + 12 * hd),
-            2 * (2 * b * l * 3 * hd + 2 * 3 * hd * hd + 2 * b * l * hd)))
+            2 * (2 * b * l * 3 * hd + 2 * 3 * hd * hd + 2 * b * l * hd), None))
         with torch.no_grad():
             h = chorowski.encode(p16, cfg, x16, x_len).contiguous()
             vh = attention.precompute_vh(dec, h).contiguous()
@@ -3072,7 +3104,7 @@ def bf16_cases(p16, cfg, gen, eval_batch):
         out["attention_decode_scan_fwd_bf16"].append((
             tag, (vh, h, mask, yin, *weights),
             steps * (4 * l * s_dim + 2 * l * a + 2 * step_mv + 5 * l + 10 * st),
-            2 * (b * l * (s_dim + a + 1) + steps * st + w_elems + steps * (st + a + l))))
+            2 * (b * l * (s_dim + a + 1) + steps * st + w_elems + steps * (st + a + l)), None))
         k2_shapes = [(h, vh, mask)]
         if b == TRAIN_B:  # and b = 1 at the serving length
             x1 = torch.randn(1, SERVE_L, cfg.input_frame_size, generator=gen).to(dev).to(bf)
@@ -3091,22 +3123,32 @@ def bf16_cases(p16, cfg, gen, eval_batch):
                 (dec, acfg, state, yk, vv, hh, mm),
                 bb * BEAM_K * (4 * ll * s_dim + 2 * ll * a + 2 * mvs),
                 2 * (bb * ll * (s_dim + a + 1) + 2 * bb * BEAM_K * st + sum(t.numel() for t in read)
-                     + bb * BEAM_K * (ll + a + st)) + 4 * bb * BEAM_K * v))
+                     + bb * BEAM_K * (ll + a + st)) + 4 * bb * BEAM_K * v, None))
     return out
 
 
 def bf16_calls(name):
     """(kernel call, its exact plain twin, the plain bf16 version at the
     JAX kernel's rounding points) of a bf16 entry, each returning a tuple
-    of tensors. Only K4's twin and plain version differ: its entry folds
-    c_in and dec_in into the gates, so it does not round cc or r."""
-    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan, attention_step, gru_scan
+    of tensors. Only K4's, K10's and K12's twin and plain version differ:
+    their entries fold c_in and dec_in into the gates, so they do not
+    round cc or r."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import (attention_scan, attention_step,
+                                                          gru_scan, lstm_scan)
 
     if name == "bigru_scan2_bf16":
         return gru_scan.bigru_scan2, gru_scan.bigru_scan2_plain, gru_scan.bigru_scan2_plain
+    if name == "bilstm_scan_bf16":
+        return lstm_scan.bilstm_scan, lstm_scan.bilstm_scan_plain, lstm_scan.bilstm_scan_plain
     if name == "attention_decode_scan_fwd_bf16":
         return (attention_scan.attention_decode_scan, attention_scan.gru_folded_scan_plain,
                 attention_scan.attention_decode_scan_plain)
+    if name in ("attention_decode_scan_loc_lstm_fwd_bf16", "attention_decode_scan_loc_fwd_bf16"):
+        lstm = name == "attention_decode_scan_loc_lstm_fwd_bf16"
+        fwd = (attention_scan.attention_decode_scan_loc_lstm if lstm
+               else attention_scan.attention_decode_scan_loc)
+        return (fwd, lambda *a: attention_scan.folded_scan_plain(*a[:4], a[4:], lstm),
+                lambda *a: attention_scan._scan_plain(*a[:4], a[4:], lstm))
     plain = lambda *args: _step_outputs(attention_step.fused_attention_step_plain(*args))
     return (lambda *args: _step_outputs(attention_step.fused_attention_step(*args)), plain,
             plain)
@@ -3119,6 +3161,63 @@ def upcast(args):
 
     return tree.tree_map(lambda a: a.float() if isinstance(a, torch.Tensor) and
                          a.dtype == torch.bfloat16 else a, list(args))
+
+
+def f32_kernel_of(name: str) -> str:
+    """The float32 kernel a bf16 entry is an instance of."""
+    return BF16_OF.get(name) or BF16_MODEL_OF[name]
+
+
+def bf16_parity_rows(cases_, card: str) -> dict:
+    """Phase 12's (a) and (c) for the bf16 entries of `cases_` ({name:
+    [(tag, args, flops, nbytes, library)]}): each case held to the entry's
+    exact twin and to the plain bf16 version (bf16_check); at each
+    entry's first case its device time beside its float32 kernel's on
+    the upcast inputs, its twin's time, its bound at the bf16 peak and,
+    where `library` is a call, that call's device time. Returns {name:
+    its {"kernels"} numbers but the launches}."""
+    rows = {}
+    for name, cs in cases_.items():
+        kernel_call, twin_call, plain_call = bf16_calls(name)
+        errs = []
+        for i, (tag, args, flops, nbytes, library) in enumerate(cs):
+            with torch.no_grad():
+                got = kernel_call(*args)
+                twin = twin_call(*args)
+                plain = plain_call(*args)
+                truth = plain_call(*upcast(args))
+            torch.cuda.synchronize()
+            errs.append(bf16_check(name, tag, got, twin, plain, truth))
+            if i:
+                continue
+            up = upcast(args)
+            with torch.no_grad():
+                ms = device_ms(lambda: kernel_call(*args), BF16_SYMBOLS[name], 10)
+                f32_ms = device_ms(lambda: kernel_call(*up), F32_SYMBOLS[name], 10)
+                plain_ms = time_ms(lambda: twin_call(*args), 2, warmup=1)
+                lib_ms = None if library is None else device_ms(library, None, 10)
+            b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            lib = (f"null ({NO_LIBRARY.get(f32_kernel_of(name), 'cuDNN refused bf16')})"
+                   if library is None else f"{lib_ms:.4f} ms (cuDNN's bidirectional "
+                   f"torch.nn.LSTM in bf16, the input projection included)")
+            print(f"time {name} {tag}: bf16 kernel {ms:.4f} ms on the device, float32 kernel "
+                  f"{f32_ms:.4f} ms on the upcast inputs, plain twin {plain_ms:.4f} ms per call, "
+                  f"bound {b_ms:.4f} ms ({b_by}: {flops:.3e} flop at the bf16 peak, "
+                  f"{nbytes:.3e} B in bf16), library {lib} ({card})")
+            rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=lib_ms)
+        rows[name]["max_abs_err"] = max(errs)
+    return rows
+
+
+def bf16_kernel_rows(rows: dict) -> list:
+    """The {"kernels"} line's rows of bf16 entries from bf16_parity_rows'
+    numbers and their launches."""
+    return [{"name": name, "route": "cuda", "source": SOURCES[f32_kernel_of(name)],
+             "replaces": REPLACES[f32_kernel_of(name)], "launches": r["launches"],
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": r["library_ms"]} for name, r in rows.items()]
 
 
 def eval_batch_ms(tr, params, batch, card: str, label: str):
@@ -3178,32 +3277,7 @@ def bf16_phase(kernels, card: str) -> list:
     cases_ = bf16_cases(p16, model16.cfg, gen, tr16._prepare_batch(longest)[0])
 
     # (a) parity, and (c) the times at each entry's first shape.
-    rows = {}
-    for name, cs in cases_.items():
-        kernel_call, twin_call, plain_call = bf16_calls(name)
-        errs = []
-        for i, (tag, args, flops, nbytes) in enumerate(cs):
-            with torch.no_grad():
-                got = kernel_call(*args)
-                twin = twin_call(*args)
-                plain = plain_call(*args)
-                truth = plain_call(*upcast(args))
-            torch.cuda.synchronize()
-            errs.append(bf16_check(name, tag, got, twin, plain, truth))
-            if i:
-                continue
-            up = upcast(args)
-            with torch.no_grad():
-                ms = device_ms(lambda: kernel_call(*args), BF16_SYMBOLS[name], 10)
-                f32_ms = device_ms(lambda: kernel_call(*up), F32_SYMBOLS[name], 10)
-                plain_ms = time_ms(lambda: twin_call(*args), 2, warmup=1)
-            b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-            print(f"time {name} {tag}: bf16 kernel {ms:.4f} ms on the device, float32 kernel "
-                  f"{f32_ms:.4f} ms on the upcast inputs, plain twin {plain_ms:.4f} ms per call, "
-                  f"bound {b_ms:.4f} ms ({b_by}: {flops:.3e} flop at the bf16 peak, "
-                  f"{nbytes:.3e} B in bf16), library null ({NO_LIBRARY[BF16_OF[name]]}) ({card})")
-            rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        rows[name]["max_abs_err"] = max(errs)
+    rows = bf16_parity_rows(cases_, card)
 
     # (b) the held-out PER of the bf16 model, the bf16 entries only, under
     # PyTorch's default allow_bf16_reduced_precision_reduction (True):
@@ -3251,11 +3325,7 @@ def bf16_phase(kernels, card: str) -> list:
         raise SystemExit("a bf16 train step ran: it must raise until K5 and K6 have bf16 "
                          "instances")
     print(f"bf16 phase: {time.perf_counter() - t0:.1f} s wall ({card})")
-    return [{"name": name, "route": "cuda", "source": SOURCES[BF16_OF[name]],
-             "replaces": REPLACES[BF16_OF[name]], "launches": r["launches"],
-             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
-            for name, r in rows.items()]
+    return bf16_kernel_rows(rows)
 
 
 # Phase 13: the LibriSpeech recipes (train/experiment.py:106-179 of the
@@ -3671,6 +3741,338 @@ def librispeech_phase(kernels, errs: dict, card: str) -> dict:
             "library_ms": None}
 
 
+# Phase 12 (b): the bf16 evaluation path of three more configurations,
+# conv_bilstm, flagship_loc (the flagship recipe with 16 feature maps)
+# and vgg: K7, K10, K12 and K8 through their bf16 entries (the JAX
+# kernels' rounding points: their sources' heads), each held as K1, K4
+# and K2 are above; then each configuration's bf16 Trainer.evaluate on
+# the card, under PyTorch's default flags, launching the bf16 entries
+# only, against the same evaluation on the CPU (the plain bf16 versions
+# at the JAX kernels' rounding points). The weights are each recipe's
+# seeded init: no trained checkpoint exists for these three, so their
+# beams are the untrained models'. The CPU's PER and NLL are taken in the
+# same run (BF16_EVAL_PER_TOL, BF16_EVAL_NLL_RTOL: on the CPU, these
+# batches evaluated with the entries' exact twins in place of the plain
+# versions gave the same PER and NLLs 1e-7 to 1e-5 apart).
+BF16_MODEL_OF = {"bilstm_scan_bf16": "bilstm_scan",
+                 "attention_decode_scan_loc_lstm_fwd_bf16": "attention_decode_scan_loc_lstm_fwd",
+                 "attention_decode_scan_loc_fwd_bf16": "attention_decode_scan_loc_fwd",
+                 "fused_attention_step_loc_lstm_bf16": "fused_attention_step_loc_lstm"}
+BF16_EVAL_PER_TOL = 0.02  # card vs CPU, bf16, untrained weights
+BF16_EVAL_NLL_RTOL = 1e-3
+# The utterances of each configuration's evaluation: the held-out split's
+# first batch (flagship_loc's first 16: its untrained beam runs to the
+# cap, which costs the CPU ~0.5 s an utterance), and LS_VALID's split.
+BF16_EVAL_N = {"conv_bilstm": 32, "flagship_loc": 16, "vgg": LS_VALID["n"]}
+
+
+def bf16_recipes():
+    """(label, recipe, the bf16 entries one evaluation batch launches
+    besides K8 once a beam step: {name: launches}) of the three
+    configurations, their model_kwargs in bf16."""
+    from seq2seq_attention_asr_tpu_torch.train import experiment
+
+    out = []
+    for label, exp, launches in (
+            ("conv_bilstm", experiment.timit_conv_bilstm(),
+             {"bilstm_scan_bf16": 2, "attention_decode_scan_loc_lstm_fwd_bf16": 1}),
+            ("flagship_loc", flagship_loc(),
+             {"bigru_scan2_bf16": 6, "attention_decode_scan_loc_fwd_bf16": 1}),
+            ("vgg", experiment.librispeech_vgg(LS_CHARS), {"attention_decode_scan_fwd_bf16": 1})):
+        exp.model_kwargs["compute_dtype"] = "bfloat16"
+        out.append((label, exp, launches))
+    return out
+
+
+def bf16_eval_batch(label: str):
+    """The configuration's evaluation batch (a DeviceBatch on the card;
+    the trainer moves it where it runs) and its vocabulary."""
+    from seq2seq_attention_asr_tpu_torch.data import batching
+
+    n = BF16_EVAL_N[label]
+    if label == "vgg":
+        ds = ls_dataset(n, SEED + 26, LS_VALID["min_l"], LS_VALID["max_l"], LS_VALID["t"],
+                        LS_CHARS, True, "v")
+        base = batching.BucketedBatcher.from_dataset(ds, n, n_buckets=1)
+        return next(iter(batching.CachedDeviceBatcher(base, device="cuda").batches(ds))), None
+    _, valid, batcher, vocab = held_out_split("cuda")
+    b = next(iter(batcher.batches(valid, shuffle=False)))
+    return dataclasses.replace(b, x=b.x[:n], x_len=b.x_len[:n], y=b.y[:n],
+                               dec_mask=b.dec_mask[:n], y_len=b.y_len[:n],
+                               y39=None if b.y39 is None else b.y39[:n], uids=b.uids[:n]), vocab
+
+
+def _bf16_scan_args(dec16, h16, x_len, y, dec_mask, v, lstm):
+    """A location-aware decoder scan's arguments in bf16 as the bf16
+    model's forward forms them (vh, the mask, yin from the labels), and
+    its cost: (args, flops, bytes at 2 a value)."""
+    from seq2seq_attention_asr_tpu_torch.models.chorowski import float32_sums
+    from seq2seq_attention_asr_tpu_torch.ops import attention, readout
+    from seq2seq_attention_asr_tpu_torch.ops.masking import length_mask
+
+    bf = torch.bfloat16
+    b, l, a = h16.shape
+    with torch.no_grad(), float32_sums(bf):
+        vh = attention.precompute_vh(dec16, h16).contiguous()
+        mask = length_mask(x_len, l, bf)
+        onehot = torch.nn.functional.one_hot(y.long(), v).to(bf) * dec_mask[..., None].to(bf)
+        y_prev = torch.cat([torch.zeros_like(onehot[:, :1]), onehot[:, :-1]], dim=1)
+        yin = readout.linear_apply(dec16["y_in"], y_prev).contiguous()
+    cell = dec16["cell"]
+    weights = (dec16["ws"]["w"], dec16["ws"]["b"], dec16["w_e"], dec16["c_in"]["w"],
+               dec16["c_in"]["b"], dec16["dec_in"]["w"], dec16["dec_in"]["b"])
+    weights += (cell["w_h"], cell["w_x"], cell["b"]) if lstm else (cell["w_zr"], cell["w_h"])
+    weights += (dec16["loc_conv"]["w"][:, 0, :], dec16["loc_conv"]["b"], dec16["u"])
+    s_dim, st, t_len = vh.shape[2], yin.shape[2], yin.shape[1]
+    fm, f = dec16["u"].shape[0], dec16["loc_conv"]["w"].shape[0]
+    steps = b * t_len
+    # As decoder_scan_cases counts the float32 forward's work.
+    step_mv = st * s_dim + a * st + 2 * st * st + (8 * st * st if lstm else 6 * st * st)
+    flops = steps * (4 * l * s_dim + 2 * l * fm * f + 2 * l * s_dim * fm + 2 * l * a
+                     + 2 * step_mv + 5 * l + 10 * st)
+    values = (b * l * (s_dim + a + 1) + steps * st + sum(w.numel() for w in weights)
+              + steps * ((2 if lstm else 1) * st + a + l))
+    return (vh, h16, mask, yin, *weights), flops, 2 * values
+
+
+def _bf16_step_args(dec16, acfg, h16, x_len, gen):
+    """K8's arguments at a beam step of K = BEAM_K on the bf16 annotations
+    h16, the state in bf16, and its cost: (args, flops, bytes: bf16 but
+    logp's float32)."""
+    from seq2seq_attention_asr_tpu_torch.ops.masking import length_mask
+
+    case = step_case("bf16", upcast([dec16])[0], acfg, h16.float(), length_mask(x_len,
+                                                                               h16.shape[1]), gen)
+    b, v = h16.shape[0], acfg.output_depth
+    return tuple(bf16_tree(case.args)), case.flops, case.nbytes // 2 + 2 * b * BEAM_K * v
+
+
+def bf16_tree(args):
+    """Every float32 tensor of `args` (parameter trees and the beam's state
+    too) in bf16."""
+    from seq2seq_attention_asr_tpu_torch import tree
+
+    return tree.tree_map(lambda a: a.to(torch.bfloat16) if isinstance(a, torch.Tensor) and
+                         a.dtype == torch.float32 else a, list(args))
+
+
+def bf16_model_cases(models, gen):
+    """The four entries' inputs at the shapes of their configurations'
+    paths, bf16 on the card: {name: [(tag, args, flops, nbytes, library)]},
+    the first of each at a training batch's shape (B = 16, 144 frames; the
+    VGG step at B = 16 on LibriSpeech's short split), then the evaluation
+    batch's. `models`: {label: (bf16 model, its params on the card)}.
+    library: cuDNN's bf16 LSTM on K7's input, where it computes K7's
+    function with the input projection (a yardstick), else None."""
+    from seq2seq_attention_asr_tpu_torch.models import conv_bilstm
+    from seq2seq_attention_asr_tpu_torch.models.chorowski import cast_float32, float32_sums
+    from seq2seq_attention_asr_tpu_torch.ops import cells, conv
+    from seq2seq_attention_asr_tpu_torch.ops.masking import flip_sequences
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    out = {name: [] for name in BF16_MODEL_OF}
+    batches = {label: [(f"B={TRAIN_B} {TRAIN_L} frames T={TRAIN_T}",
+                        tuple(t.to(dev) for t in train_batch(TRAIN_B, SEED + 26)))]
+               for label in ("conv_bilstm", "flagship_loc")}
+    batches["vgg"] = [(f"B={TRAIN_B} L={LS_VALID['max_l']} T={LS_VALID['t']}",
+                       tuple(t.to(dev) for t in ls_batch(TRAIN_B, LS_VALID["max_l"],
+                                                         LS_VALID["t"], LS_CHARS, SEED + 26,
+                                                         True, LS_VALID["min_l"], 20)))]
+    for label in batches:
+        eb, _ = bf16_eval_batch(label)
+        batches[label].append((f"evaluation B={eb.x.shape[0]} L={eb.x.shape[1]}",
+                               (eb.x, eb.x_len, eb.y, eb.dec_mask)))
+    for label, cases_ in batches.items():
+        model, params = models[label]
+        p16 = cast_float32(params, bf)
+        cfg, acfg = model.cfg, model.attention_cfg
+        for tag, (x, x_len, y, dec_mask) in cases_:
+            with torch.no_grad(), float32_sums(bf):
+                h16, h_len = model.encode(p16, cast_float32(x, bf), x_len)
+                h16 = h16.contiguous()
+            if label == "conv_bilstm":
+                enc = p16["encoder"]
+                with torch.no_grad(), float32_sums(bf):
+                    hc = cast_float32(x, bf)
+                    for name in ("conv1", "conv2", "conv3"):
+                        hc = conv.temporal_max_pool(torch.relu(conv.temporal_conv(enc[name], hc)),
+                                                    2)
+                    lens = conv_bilstm.encode_lengths(cfg, x_len)
+                    p = enc["bilstm"]
+                    xproj2 = torch.stack([cells.lstm_input_proj(p["fwd"], hc),
+                                          cells.lstm_input_proj(p["bwd"],
+                                                                flip_sequences(hc, lens))])
+                b, l, hd = hc.shape[0], hc.shape[1], p["fwd"]["w_h"].shape[0]
+                z2 = torch.zeros((2, b, hd), device=dev)
+                wh2 = torch.stack([p["fwd"]["w_h"], p["bwd"]["w_h"]]).contiguous()
+                lstm = cudnn_lstm(upcast([params["encoder"]["bilstm"]])[0], dev).to(bf)
+                library = lambda lstm=lstm, hc=hc: lstm(hc)[0]
+                try:
+                    with torch.no_grad():
+                        library()
+                except RuntimeError as e:
+                    print(f"cuDNN's LSTM refused bf16 inputs ({e}): K7's library call is null")
+                    library = None
+                # As conv_bilstm_cases counts K7's work; xproj2 and wh2 in
+                # bf16, the states float32.
+                out["bilstm_scan_bf16"].append((
+                    tag, (xproj2.contiguous(), z2, z2, wh2),
+                    2 * b * l * (8 * hd * hd + 30 * hd),
+                    2 * (2 * b * l * 4 * hd + 2 * hd * 4 * hd) + 4 * (4 * b * hd + 4 * b * l * hd),
+                    library))
+            if label in ("conv_bilstm", "flagship_loc"):
+                lstm_dec = label == "conv_bilstm"
+                name = ("attention_decode_scan_loc_lstm_fwd_bf16" if lstm_dec
+                        else "attention_decode_scan_loc_fwd_bf16")
+                args, flops, nbytes = _bf16_scan_args(p16["decoder"], h16, h_len, y, dec_mask,
+                                                      acfg.output_depth, lstm_dec)
+                out[name].append((tag, args, flops, nbytes, None))
+            args, flops, nbytes = _bf16_step_args(p16["decoder"], acfg, h16, h_len, gen)
+            out["fused_attention_step_loc_lstm_bf16"].append((f"{label} {tag}", args, flops,
+                                                              nbytes, None))
+    return out
+
+
+class OneBatch:
+    """A batcher that yields one batch, whatever the dataset."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def batches(self, ds, **kw):
+        return iter([self.batch])
+
+
+def counted_steps(fn):
+    """fn() with the beam's step calls counted: (its result, the calls)."""
+    from seq2seq_attention_asr_tpu_torch.decode import beam
+
+    step, calls = beam.fused_attention_step, []
+
+    def counting(*args):
+        calls.append(1)
+        return step(*args)
+
+    beam.fused_attention_step = counting
+    try:
+        return fn(), len(calls)
+    finally:
+        beam.fused_attention_step = step
+
+
+def default_flags():
+    """PyTorch's defaults of the flags a bf16 evaluation could be changed
+    by: TF32 for cuBLAS off, for cuDNN on, cuBLAS's reduced-precision bf16
+    reduction on."""
+    return {"matmul.allow_tf32": False, "cudnn.allow_tf32": True,
+            "matmul.allow_bf16_reduced_precision_reduction": True}
+
+
+def read_flags():
+    m, c = torch.backends.cuda.matmul, torch.backends.cudnn
+    return {"matmul.allow_tf32": m.allow_tf32, "cudnn.allow_tf32": c.allow_tf32,
+            "matmul.allow_bf16_reduced_precision_reduction":
+                m.allow_bf16_reduced_precision_reduction}
+
+
+def set_flags(flags):
+    m, c = torch.backends.cuda.matmul, torch.backends.cudnn
+    m.allow_tf32 = flags["matmul.allow_tf32"]
+    c.allow_tf32 = flags["cudnn.allow_tf32"]
+    m.allow_bf16_reduced_precision_reduction = flags[
+        "matmul.allow_bf16_reduced_precision_reduction"]
+
+
+def bf16_models_phase(kernels, card: str) -> list:
+    """Phase 12 (b): (a) K7, K10, K12 and K8 in bf16 against their exact
+    twins and the plain bf16 versions at bf16_model_cases' shapes; (b)
+    each configuration's bf16 Trainer.evaluate on its evaluation batch on
+    the card under PyTorch's default flags (unchanged after), launching
+    only its bf16 entries, exactly as many times as the batch and the
+    beam's steps call for, with PER within BF16_EVAL_PER_TOL and NLL
+    within BF16_EVAL_NLL_RTOL of the CPU's; (c) each entry's device time
+    beside its float32 kernel's on the upcast inputs; (d) a bf16 train
+    step of each raising NotImplementedError. Returns the four entries'
+    {"kernels"} rows."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.train import optim, trainer
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 26)
+    recipes = bf16_recipes()
+    models, cpu_params = {}, {}
+    for label, exp, _ in recipes:
+        cpu_params[label] = exp.init_params(torch.Generator().manual_seed(SEED), device="cpu")
+        models[label] = (exp.build_model(), interop.to_torch(cpu_params[label], "cuda"))
+    cases_ = bf16_model_cases(models, gen)
+
+    # (a) parity, and (c) the times at each entry's first shape.
+    rows = bf16_parity_rows(cases_, card)
+    for r in rows.values():
+        r["launches"] = 0
+
+    # (b) each configuration's bf16 evaluation, the card's under PyTorch's
+    # default flags, then the CPU's.
+    main_flags = read_flags()
+    tcfg_kw = dict(batch_size=32, beam_k=BEAM_K, seed=1)
+    for label, exp, launches in recipes:
+        model, params = models[label]
+        batch, vocab = bf16_eval_batch(label)
+        tcfg = dataclasses.replace(exp.train, **tcfg_kw)
+        runs = {}
+        for device, p in (("cuda", params), ("cpu", cpu_params[label])):
+            tr = trainer.Trainer(model, optim.OptimConfig(), tcfg, vocab=vocab, device=device)
+            tr.state = (p, None, None)
+            fixed = OneBatch(batch)
+            t1 = time.perf_counter()
+            if device == "cuda":
+                set_flags(default_flags())
+                try:
+                    (row, steps), counts = counted(kernels, lambda: counted_steps(
+                        lambda: tr.evaluate(None, fixed)))
+                    after = read_flags()
+                finally:
+                    set_flags(main_flags)
+                if after != default_flags():
+                    raise SystemExit(f"{label} bf16 evaluation changed the flags: {after}")
+                exact = dict(launches, fused_attention_step_loc_lstm_bf16=steps)
+                check_counts(f"{label} evaluate bf16", counts, tuple(exact), exact)
+                rows["fused_attention_step_loc_lstm_bf16"]["launches"] += steps
+                for name in launches:
+                    if name in rows:
+                        rows[name]["launches"] += launches[name]
+            else:
+                row, steps = counted_steps(lambda: tr.evaluate(None, fixed))
+            runs[device] = (row, steps, time.perf_counter() - t1)
+        (card_row, card_steps, card_s), (cpu_row, cpu_steps, cpu_s) = runs["cuda"], runs["cpu"]
+        dper = abs(card_row["valid_per"] - cpu_row["valid_per"])
+        dnll = abs(card_row["valid_nll"] - cpu_row["valid_nll"]) / abs(cpu_row["valid_nll"])
+        print(f"{label} bf16 evaluation ({BF16_EVAL_N[label]} utterances, K={BEAM_K}, seeded "
+              f"weights): PER card {card_row['valid_per']!r}, CPU {cpu_row['valid_per']!r} (tol "
+              f"{BF16_EVAL_PER_TOL}); NLL card {card_row['valid_nll']!r}, CPU "
+              f"{cpu_row['valid_nll']!r} (rel {dnll:.2e}, tol {BF16_EVAL_NLL_RTOL}); accuracy card "
+              f"{card_row['valid_accuracy']!r}, CPU {cpu_row['valid_accuracy']!r}; beam steps card "
+              f"{card_steps}, CPU {cpu_steps}; wall card {1e3 * card_s:.1f} ms, CPU "
+              f"{1e3 * cpu_s:.1f} ms; PyTorch's default flags, unchanged after ({card})")
+        if not (dper <= BF16_EVAL_PER_TOL and dnll <= BF16_EVAL_NLL_RTOL):
+            raise SystemExit(f"{label}: the card's bf16 evaluation is not the CPU's")
+
+        # (d) a bf16 train step raises where it reaches a backward kernel.
+        ocfg = optim.OptimConfig()
+        tx = optim.build_optimizer(ocfg)
+        step = trainer.make_step_core(model.forward, tx, ocfg, tcfg, model.output_depth)
+        tr = trainer.Trainer(model, ocfg, tcfg, vocab=vocab, device="cuda")
+        arrs = tuple(a[:2] for a in tr._prepare_batch(batch)[0])
+        try:
+            step((params, tx.init(params), torch.Generator(device="cuda").manual_seed(1)), arrs)
+        except NotImplementedError as e:
+            print(f"{label} bf16 train step on the card: NotImplementedError ({e})")
+        else:
+            raise SystemExit(f"a {label} bf16 train step ran: it must raise")
+    print(f"bf16 models phase: {time.perf_counter() - t0:.1f} s wall ({card})")
+    return bf16_kernel_rows(rows)
+
+
 # The instance of each kernel whose numbers stand in the {"kernels"} line:
 # the one on its main path, at batch 1 (serving) or the training shape.
 MAIN_LABEL = {"fused_attention_step_loc_lstm": "fused_attention_step_loc_lstm[lstm+loc]"}
@@ -3870,7 +4272,10 @@ def main(parent=None) -> int:
                                    attention_scan.KERNEL_LSTM_BWD, gru_scan.KERNEL_GRU,
                                    gru_scan.KERNEL_GRU_BWD, gru_scan.KERNEL_BI,
                                    gru_scan.KERNEL_BI_BWD, gru_scan.KERNEL_BF16,
-                                   attention_scan.KERNEL_FWD_BF16, attention_step.KERNEL_BF16)}
+                                   attention_scan.KERNEL_FWD_BF16, attention_step.KERNEL_BF16,
+                                   lstm_scan.KERNEL_BF16, attention_scan.KERNEL_LOC_LSTM_FWD_BF16,
+                                   attention_scan.KERNEL_LOC_FWD_BF16,
+                                   attention_step.KERNEL_LOC_LSTM_BF16)}
     started = t0 = time.perf_counter()
     build.build_all(kernels.values())
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(kernels)} kernels")
@@ -4150,8 +4555,9 @@ def main(parent=None) -> int:
         "conv_bilstm_content": (conv_bilstm_content, cbc_params_cpu, CBC_STEP_LAUNCHES)},
         card)
 
-    # Phase 12: the bf16 operating point of the flagship's evaluation path.
-    bf16_rows = bf16_phase(kernels, card)
+    # Phase 12: the bf16 operating point of the flagship's evaluation path,
+    # then (b) of conv_bilstm's, flagship_loc's and vgg's.
+    bf16_rows = bf16_phase(kernels, card) + bf16_models_phase(kernels, card)
 
     # Phase 13: the LibriSpeech recipes, and K2 at a word vocabulary.
     words_row = librispeech_phase(kernels, errs, card)
@@ -4163,7 +4569,7 @@ def main(parent=None) -> int:
     # from phase 12.
     report = []
     for name in kernels:
-        if name in BF16_OF:
+        if name in BF16_OF or name in BF16_MODEL_OF:
             continue
         label = MAIN_LABEL.get(name, name)
         key = next(k for k in (1, "train", "cbtrain", "loctrain", "cbctrain", "enc")

@@ -2,16 +2,20 @@
 // kernel:
 //
 //   <LSTM, location>  K10 loc_lstm_fwd_kernel<R>, K11 loc_lstm_bwd_kernel<R>;
-//                     entry points attention_decode_scan_loc_lstm_{fwd,bwd}
+//                     entry points attention_decode_scan_loc_lstm_{fwd,bwd}; K10's
+//                     bf16 entry attention_decode_scan_loc_lstm_fwd_bf16
+//                     (lstm_fwd_prepass_bf16_kernel, loc_lstm_fwd_bf16_kernel<R>)
 //   <GRU, location>   K12 loc_gru_fwd_kernel<R>, K13 scan_loc_gru_bwd_kernel;
-//                     entry points attention_decode_scan_loc_{fwd,bwd}
+//                     entry points attention_decode_scan_loc_{fwd,bwd}; K12's bf16
+//                     entry attention_decode_scan_loc_fwd_bf16
+//                     (gru_fwd_prepass_bf16_kernel, loc_gru_fwd_bf16_kernel<R>)
 //   <LSTM, content>   K14 scan_lstm_fwd_kernel<R>, K15 scan_lstm_bwd_kernel<R>;
 //                     entry points attention_decode_scan_lstm_{fwd,bwd}
 //   <GRU, content>    K4 content_gru_fwd_kernel<R>, K5 content_gru_walk_kernel<R>;
 //                     entry points attention_decode_scan_{fwd,bwd}; K4's bf16
 //                     entry attention_decode_scan_fwd_bf16 (gru_fwd_prepass_bf16_kernel,
-//                     content_gru_fwd_bf16_kernel<R>: decoder_fwd_walk says where
-//                     it rounds)
+//                     content_gru_fwd_bf16_kernel<R>); decoder_fwd_walk says
+//                     where the bf16 entries round
 //
 // The four forwards share a pre-pass (fwd_prepass<kLstm, kStage>) and a
 // forward walk on a thread-block cluster (decoder_fwd_walk<R, kLstm,
@@ -197,7 +201,8 @@ namespace {
 
 // The cell's weights are the GRU's w_zr (2St, 2St) and w_h (2St, St), or
 // the LSTM's w_h, w_x (St, 4St) and b (4St); the location term's are null
-// without it. T is their IO type: float, or bf16 for K4's bf16 entry.
+// without it. T is their IO type: float, or bf16 for the bf16 entries of
+// K4, K10 and K12.
 template <class T>
 struct WeightsT {
   const T *ws_w, *ws_b, *w_e, *c_w, *c_b, *dec_w, *dec_b;
@@ -1617,9 +1622,9 @@ __global__ void __launch_bounds__(kTileThreads) gru_decoder_prepass_kernel(const
 // pre-pass and a walk on thread-block clusters (the file's head gives the
 // step).
 
-// T is the IO type of every input and output: float, or bf16 for K4's
-// bf16 entry (the content-only GRU only). The pre-pass's tables and the
-// walk's shared buffers are float either way.
+// T is the IO type of every input and output: float, or bf16 for the bf16
+// entries of K4, K10 and K12 (every instance but the content-only LSTM's).
+// The pre-pass's tables and the walk's shared buffers are float either way.
 template <class T>
 struct FwdArgsT {
   const T *vh, *h, *mask, *yin;
@@ -1853,13 +1858,15 @@ __device__ __forceinline__ void rows_dot_l2(const float* w, int ldw, int n, cons
 // waits for those bytes precede the pushes that let the block go on).
 // Rows past B have zero inputs, stay zero and write nothing.
 //
-// With bf16 IO (IO, K4's bf16 entry), as the JAX kernel with bf16 inputs:
-// every input loads widened to float, every output stores rounded; the
-// energies, the softmax, c and the s carry are float; each product reads
-// its operand rounded to bf16: s_prev in E1's ws partials and the s_prev
-// products, c (rounded where it is formed) in c @ W_cx, and rg s_prev
-// (rounded where it is formed) in the candidate's product. The pre-pass's
-// fold never forms cc or r, so they are not rounded (ops/cuda/
+// With bf16 IO (IO, the bf16 entries of K4, K10 and K12), as the JAX
+// kernels with bf16 inputs: every input loads widened to float, every
+// output stores rounded; the energies, the softmax, c and the s, mem and
+// alpha carries are float; each product reads its operand rounded to
+// bf16: s_prev in E1's ws partials and the s_prev products, the location
+// term's features (rounded where they are formed) in their product with
+// U, c (rounded where it is formed) in c @ W_cx, and rg s_prev (rounded
+// where it is formed) in the candidate's product. The pre-pass's fold
+// never forms cc or r, so they are not rounded (ops/cuda/
 // attention_scan.py).
 template <int R, bool kLstm, bool kLoc, class IO = float>
 __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgsT<IO>& a,
@@ -1967,7 +1974,7 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgsT<IO>& 
         for (int qq = lane; qq < FM; qq += 32) {
           float v = 0.f;
           for (int j = 0; j < F; ++j) v = fmaf(sh.ap[r * Pw + pp + j], sh.cw[j * FM + qq], v);
-          sh.feat[warp * FM + qq] = v + sh.cb[qq];
+          sh.feat[warp * FM + qq] = round_to<IO>(v + sh.cb[qq]);
         }
         __syncwarp();
       }
@@ -2215,6 +2222,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) float sm[];
   decoder_fwd_walk<R, true, false>(sm, a, x, resident);
 }
+
+// K10's bf16 entry.
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+    loc_lstm_fwd_bf16_kernel(const FwdArgsT<bf16> a, const FwdScratch x, int resident) {
+  extern __shared__ __align__(16) float sm[];
+  decoder_fwd_walk<R, true, true, bf16>(sm, a, x, resident);
+}
 #else
 template <int R>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -2236,6 +2251,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     content_gru_fwd_bf16_kernel(const FwdArgsT<bf16> a, const FwdScratch x, int resident) {
   extern __shared__ __align__(16) float sm[];
   decoder_fwd_walk<R, false, false, bf16>(sm, a, x, resident);
+}
+
+// K12's bf16 entry.
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+    loc_gru_fwd_bf16_kernel(const FwdArgsT<bf16> a, const FwdScratch x, int resident) {
+  extern __shared__ __align__(16) float sm[];
+  decoder_fwd_walk<R, false, true, bf16>(sm, a, x, resident);
 }
 #endif
 
@@ -2334,6 +2357,12 @@ __global__ void __launch_bounds__(kTileThreads)
   fwd_prepass<false, kStage, bf16>(a, x);
 }
 
+template <int kStage>
+__global__ void __launch_bounds__(kTileThreads)
+    lstm_fwd_prepass_bf16_kernel(const FwdArgsT<bf16> a, const FwdScratch x) {
+  fwd_prepass<true, kStage, bf16>(a, x);
+}
+
 #endif
 
 // ---------------------------------------------------------------------------
@@ -2361,14 +2390,18 @@ template <class T>
 using FwdKernel = void (*)(const FwdArgsT<T>, const FwdScratch, int);
 
 // The forward walk instance for R batch rows a cluster: K10's (kLstm,
-// kLoc), K14's (kLstm), K12's (kLoc) or K4's, and with bf16 IO K4's bf16
-// entry's.
+// kLoc), K14's (kLstm), K12's (kLoc) or K4's, and with bf16 IO the bf16
+// entries' of K10, K12 and K4.
 template <bool kLstm, bool kLoc, class T = float>
 FwdKernel<T> fwd_walk_kernel(int R) {
-  static_assert(!kIsBf16<T> || (!kLstm && !kLoc), "bf16 IO: the content-only GRU only");
+  static_assert(!kIsBf16<T> || kLoc || !kLstm, "bf16 IO: no content-only LSTM instance");
 #ifdef LSTM_FWD_ONLY
   static_assert(kLstm, "this build holds the LSTM's forwards");
-  if constexpr (kLoc)
+  if constexpr (kIsBf16<T>)
+    return R == 1 ? loc_lstm_fwd_bf16_kernel<1> : R == 2 ? loc_lstm_fwd_bf16_kernel<2>
+         : R == 4 ? loc_lstm_fwd_bf16_kernel<4> : R == 8 ? loc_lstm_fwd_bf16_kernel<8>
+         : nullptr;
+  else if constexpr (kLoc)
     return R == 1 ? loc_lstm_fwd_kernel<1> : R == 2 ? loc_lstm_fwd_kernel<2>
          : R == 4 ? loc_lstm_fwd_kernel<4> : R == 8 ? loc_lstm_fwd_kernel<8> : nullptr;
   else
@@ -2376,7 +2409,11 @@ FwdKernel<T> fwd_walk_kernel(int R) {
          : R == 4 ? scan_lstm_fwd_kernel<4> : R == 8 ? scan_lstm_fwd_kernel<8> : nullptr;
 #else
   static_assert(!kLstm, "this build holds the GRU's forwards");
-  if constexpr (kIsBf16<T>)
+  if constexpr (kIsBf16<T> && kLoc)
+    return R == 1 ? loc_gru_fwd_bf16_kernel<1> : R == 2 ? loc_gru_fwd_bf16_kernel<2>
+         : R == 4 ? loc_gru_fwd_bf16_kernel<4> : R == 8 ? loc_gru_fwd_bf16_kernel<8>
+         : nullptr;
+  else if constexpr (kIsBf16<T>)
     return R == 1 ? content_gru_fwd_bf16_kernel<1> : R == 2 ? content_gru_fwd_bf16_kernel<2>
          : R == 4 ? content_gru_fwd_bf16_kernel<4> : R == 8 ? content_gru_fwd_bf16_kernel<8>
          : nullptr;
@@ -2413,7 +2450,9 @@ int launch_fwd_walk(const FwdArgsT<T>& a, float* scratch, int cluster, int rows,
   const dim3 grid[] = {dim3(tiles, (d.St + kTile - 1) / kTile + 1),
                        dim3(tiles, (kGates<kLstm> * d.St + kTile - 1) / kTile)};
   void (*stages[2])(const FwdArgsT<T>, const FwdScratch);
-  if constexpr (kIsBf16<T>)
+  if constexpr (kIsBf16<T> && kLstm)
+    stages[0] = lstm_fwd_prepass_bf16_kernel<0>, stages[1] = lstm_fwd_prepass_bf16_kernel<1>;
+  else if constexpr (kIsBf16<T>)
     stages[0] = gru_fwd_prepass_bf16_kernel<0>, stages[1] = gru_fwd_prepass_bf16_kernel<1>;
   else if constexpr (kLstm)
     stages[0] = lstm_fwd_prepass_kernel<0>, stages[1] = lstm_fwd_prepass_kernel<1>;
@@ -2654,6 +2693,27 @@ extern "C" int attention_decode_scan_lstm_fwd_limits(int cluster, int* smem_limi
   return fwd_limits<true, false>(cluster, smem_limit, clusters);
 }
 
+// K10's bf16 entry: attention_decode_scan_loc_lstm_fwd with every input and
+// output bf16 (the scratch float).
+extern "C" int attention_decode_scan_loc_lstm_fwd_bf16(
+    const bf16* vh, const bf16* h, const bf16* mask, const bf16* yin, const bf16* ws_w,
+    const bf16* ws_b, const bf16* w_e, const bf16* c_w, const bf16* c_b, const bf16* dec_w,
+    const bf16* dec_b, const bf16* w_h, const bf16* w_x, const bf16* b, const bf16* wconv,
+    const bf16* bconv, const bf16* u, bf16* s_seq, bf16* c_seq, bf16* alpha_seq, bf16* mem_seq,
+    float* scratch, int B, int T, int L, int S, int A, int St, int FM, int F, int cluster,
+    int rows, int resident, cudaStream_t stream) {
+  const FwdArgsT<bf16> a{vh, h, mask, yin,
+                         WeightsT<bf16>{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h,
+                                        w_x, b, wconv, bconv, u},
+                         s_seq, c_seq, alpha_seq, mem_seq, Dims{B, T, L, S, A, St, FM, F}};
+  return launch_fwd_walk<true, true, bf16>(a, scratch, cluster, rows, resident, stream);
+}
+
+extern "C" int attention_decode_scan_loc_lstm_fwd_bf16_limits(int cluster, int* smem_limit,
+                                                              int* clusters) {
+  return fwd_limits<true, true, bf16>(cluster, smem_limit, clusters);
+}
+
 #elif defined(GRU_FWD_ONLY)
 extern "C" int attention_decode_scan_loc_fwd(
     const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
@@ -2708,6 +2768,27 @@ extern "C" int attention_decode_scan_fwd_bf16(
 extern "C" int attention_decode_scan_fwd_bf16_limits(int cluster, int* smem_limit,
                                                      int* clusters) {
   return fwd_limits<false, false, bf16>(cluster, smem_limit, clusters);
+}
+
+// K12's bf16 entry: attention_decode_scan_loc_fwd with every input and
+// output bf16 (the scratch float).
+extern "C" int attention_decode_scan_loc_fwd_bf16(
+    const bf16* vh, const bf16* h, const bf16* mask, const bf16* yin, const bf16* ws_w,
+    const bf16* ws_b, const bf16* w_e, const bf16* c_w, const bf16* c_b, const bf16* dec_w,
+    const bf16* dec_b, const bf16* w_zr, const bf16* w_h, const bf16* wconv,
+    const bf16* bconv, const bf16* u, bf16* s_seq, bf16* c_seq, bf16* alpha_seq,
+    float* scratch, int B, int T, int L, int S, int A, int St, int FM, int F, int cluster,
+    int rows, int resident, cudaStream_t stream) {
+  const FwdArgsT<bf16> a{vh, h, mask, yin,
+                         WeightsT<bf16>{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_zr, w_h,
+                                        nullptr, nullptr, wconv, bconv, u},
+                         s_seq, c_seq, alpha_seq, nullptr, Dims{B, T, L, S, A, St, FM, F}};
+  return launch_fwd_walk<false, true, bf16>(a, scratch, cluster, rows, resident, stream);
+}
+
+extern "C" int attention_decode_scan_loc_fwd_bf16_limits(int cluster, int* smem_limit,
+                                                         int* clusters) {
+  return fwd_limits<false, true, bf16>(cluster, smem_limit, clusters);
 }
 
 #elif !defined(CONTENT_GRU_BWD_ONLY)

@@ -663,6 +663,14 @@ extern "C" int fused_attention_step_bf16(
 // cluster barrier completes. Block 0 alone takes the last readout layer
 // and the log_softmax. Fixed-order sums, no atomics: two calls give the
 // same bits. No shared buffer grows with the full L.
+//
+// fused_attention_step_loc_lstm_bf16 is K8's bf16 entry, for a bf16
+// model's beam (<LSTM, location>, <GRU, location> and <GRU, content>; not
+// the content-only LSTM): the same kernel with bf16 inputs, alpha, c, s
+// and mem in bf16 and logp float, on the float instance's plan, rounding
+// where the JAX kernel rounds with bf16 inputs
+// (cluster_step_loc_lstm_kernel says where). Plain PyTorch twin:
+// ops/cuda/attention_step.py::_plain_bf16.
 
 namespace {
 
@@ -673,15 +681,17 @@ enum LayerKind { kLinear = 0, kMaxout = 1, kRelu = 2 };
 constexpr int kLocCols = 4;
 
 // The readout as its dense layers (linear or maxout), each followed by a
-// relu or not; relu_in: a relu on concat(s_new, c) before the first.
-struct Readout {
+// relu or not; relu_in: a relu on concat(s_new, c) before the first. T is
+// the weights' IO type.
+template <class T>
+struct ReadoutT {
   int n, relu_in;
   int kind[kMaxLayers];
   int out[kMaxLayers];   // output width (maxout: groups)
   int win[kMaxLayers];   // maxout window (linear: 1)
   int relu[kMaxLayers];  // a relu follows
-  const float* w[kMaxLayers];
-  const float* b[kMaxLayers];
+  const T* w[kMaxLayers];
+  const T* b[kMaxLayers];
 };
 
 // n rounded up to whole 16-byte groups of floats.
@@ -715,7 +725,8 @@ struct ReadoutDims {
   long long maxw, maxpre, cols;
 };
 
-ReadoutDims readout_dims(const Readout& ro, long long C) {
+template <class T>
+ReadoutDims readout_dims(const ReadoutT<T>& ro, long long C) {
   ReadoutDims d{0, 0, 0};
   for (int i = 0; i < ro.n; ++i) {
     const long long out = ro.out[i], win = ro.win[i];
@@ -728,14 +739,19 @@ ReadoutDims readout_dims(const Readout& ro, long long C) {
   return d;
 }
 
-struct Args8 {
-  const float *vh, *h, *mask, *yin, *sprev;
-  const float *ws_w, *ws_b, *w_e, *c_w, *c_b, *dec_w, *dec_b, *cw1, *cw2, *cw3;
-  const float *memprev, *aprev, *conv_w, *conv_b, *u;
-  float *alpha, *c, *s, *mem, *logp;
+// K8's arguments; T is the IO type of every array but logp: float, or bf16
+// for the bf16 entry.
+template <class T>
+struct Args8T {
+  using Io = T;
+  const T *vh, *h, *mask, *yin, *sprev;
+  const T *ws_w, *ws_b, *w_e, *c_w, *c_b, *dec_w, *dec_b, *cw1, *cw2, *cw3;
+  const T *memprev, *aprev, *conv_w, *conv_b, *u;
+  T *alpha, *c, *s, *mem;
+  float* logp;
   int B, K, L, S, A, St, V, FM, F, PL;
   int maxw, maxpre;
-  Readout ro;
+  ReadoutT<T> ro;
 };
 
 // e[k * Lc + p] = w_e . tanh(vh[p] + ws[k] + feat_k(p) @ U) for this
@@ -746,8 +762,11 @@ struct Args8 {
 // (ap: [K][Pw], the block's position p reading ap[k][p + j] for the F
 // taps j) and adds them through U inside the energy loop; UF is never
 // stored. The P warps' sums meet in `part` ([kWarps]) and are added in
-// their order. Ends with a block barrier.
-__device__ void energies_loc(const float* vhb, const float* ws, const float* we, const float* ap,
+// their order. Ends with a block barrier. A bf16 vh (TV) is widened as it
+// is read, and the features are rounded to bf16 where they are formed
+// (the JAX kernel's rounding of the features before U).
+template <class TV>
+__device__ void energies_loc(const TV* vhb, const float* ws, const float* we, const float* ap,
                              int Pw, const float* u, const float* cw, const float* cb,
                              float* feat, float* part, float* e, int n, int Lc, int K, int S,
                              int FM, int F) {
@@ -760,10 +779,11 @@ __device__ void energies_loc(const float* vhb, const float* ws, const float* we,
       const float* x = ap + k * Pw + p;
       float v = 0.f;
       for (int j = 0; j < F; ++j) v = fmaf(x[j], cw[j * FM + q], v);
-      f[q] = v + cb[q];
+      f[q] = round_to<TV>(v + cb[q]);
     }
     __syncwarp();
-    const float *vr = vhb + (size_t)p * S, *wk = ws + k * S;
+    const TV* vr = vhb + (size_t)p * S;
+    const float* wk = ws + k * S;
     float acc = 0.f;
 #pragma unroll 1
     for (int g0 = q0; 32 * g0 < S; g0 += P * kLocCols) {
@@ -773,7 +793,7 @@ __device__ void energies_loc(const float* vhb, const float* ws, const float* we,
       for (int x = 0; x < kLocCols; ++x) {
         const int s = 32 * (g0 + P * x) + lane;
         sx[x] = min(s, S);
-        z[x] = s < S ? __ldg(vr + s) + wk[s] : 0.f;
+        z[x] = s < S ? ldg_f(vr + s) + wk[s] : 0.f;
         uf[x] = 0.f;
       }
 #pragma unroll 4
@@ -808,8 +828,20 @@ __device__ void energies_loc(const float* vhb, const float* ws, const float* we,
   }
 }
 
-template <bool kLstm, bool kLoc>
-__global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(const Args8 a) {
+// K8's step. With bf16 IO (T), as the JAX kernel with bf16 inputs: the
+// inputs and the state (s_prev, mem_prev, alpha_prev) load widened, and
+// alpha, c, s and mem store rounded; the energies, the softmax, c and the
+// cell's math are float; each product's operand is rounded to bf16 where
+// it is formed: the location term's features before U (energies_loc), c
+// (in s_new | c, which the readout reads too) before c_in, c_in(c) + b
+// before dec_in (yin arrives in bf16), r before the gates (and the GRU's
+// candidate), reset gate * s_prev before the candidate, s_new (in s_new |
+// c) before the readout. Each readout layer rounds its product, then its
+// bias add; the log-softmax is float. The kernel is a template on the IO
+// type, so that both entries run this one body; a profiler names both
+// cluster_step_loc_lstm_kernel.
+template <bool kLstm, bool kLoc, class T>
+__global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(const Args8T<T> a) {
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
@@ -868,29 +900,34 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
 
   cluster_arrive();  // no block writes into another before every block has started
   // The step's inputs and this block's columns of biases, by asynchronous
-  // copies: one round trip.
+  // copies: one round trip (bf16 IO: loads widened).
+  const auto load = [](float* dst, const T* src) {
+    if constexpr (kIsBf16<T>)
+      *dst = to_f(*src);
+    else
+      copy_async(dst, src);
+  };
   const size_t row = (size_t)b * K;
   for (int i = tid; i < K * St; i += kThreads) {
     const int k = i / St, j = i - k * St;
-    copy_async(sr + k * St2 + j, a.sprev + (row + k) * St + j);
-    copy_async(rin + k * St2 + St + j, a.yin + (row + k) * St + j);
+    load(sr + k * St2 + j, a.sprev + (row + k) * St + j);
+    load(rin + k * St2 + St + j, a.yin + (row + k) * St + j);
   }
-  for (int i = tid; i < S; i += kThreads) copy_async(we + i, a.w_e + i);
-  for (int i = tid; i < pos.n; i += kThreads)
-    copy_async(msk + i, a.mask + (size_t)b * L + pos.lo + i);
-  for (int i = tid; i < sc.n; i += kThreads) copy_async(bws + i, a.ws_b + sc.lo + i);
+  for (int i = tid; i < S; i += kThreads) load(we + i, a.w_e + i);
+  for (int i = tid; i < pos.n; i += kThreads) load(msk + i, a.mask + (size_t)b * L + pos.lo + i);
+  for (int i = tid; i < sc.n; i += kThreads) load(bws + i, a.ws_b + sc.lo + i);
   for (int i = tid; i < un.n; i += kThreads) {
-    copy_async(bc + i, a.c_b + un.lo + i);
-    copy_async(bdec + i, a.dec_b + un.lo + i);
+    load(bc + i, a.c_b + un.lo + i);
+    load(bdec + i, a.dec_b + un.lo + i);
   }
   if (kLstm) {
     for (int i = tid; i < 4 * un.n; i += kThreads) {
       const int g = i / un.n, j = i - g * un.n;
-      copy_async(bg + g * Stc + j, a.cw3 + g * St + un.lo + j);
+      load(bg + g * Stc + j, a.cw3 + g * St + un.lo + j);
     }
     for (int i = tid; i < K * un.n; i += kThreads) {
       const int k = i / un.n, j = i - k * un.n;
-      copy_async(mem + k * Stc + j, a.memprev + (row + k) * St + un.lo + j);
+      load(mem + k * Stc + j, a.memprev + (row + k) * St + un.lo + j);
     }
   }
   if (kLoc) {
@@ -900,13 +937,13 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
     for (int i = tid; i < K * nwin; i += kThreads) {
       const int k = i / nwin, x = i - k * nwin, l = pos.lo - a.PL + x;
       if (l >= 0 && l < L)
-        copy_async(ap + k * Pw + x, a.aprev + (row + k) * L + l);
+        load(ap + k * Pw + x, a.aprev + (row + k) * L + l);
       else
         ap[k * Pw + x] = 0.f;
     }
-    for (int i = tid; i < FM * S; i += kThreads) copy_async(u + i, a.u + i);
-    for (int i = tid; i < F * FM; i += kThreads) copy_async(cw + i, a.conv_w + i);
-    for (int i = tid; i < FM; i += kThreads) copy_async(cb + i, a.conv_b + i);
+    for (int i = tid; i < FM * S; i += kThreads) load(u + i, a.u + i);
+    for (int i = tid; i < F * FM; i += kThreads) load(cw + i, a.conv_w + i);
+    for (int i = tid; i < FM; i += kThreads) load(cb + i, a.conv_b + i);
   }
   copy_async_wait();
   __syncthreads();
@@ -941,10 +978,10 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
   cluster_wait();
   // [phase] ws, s_prev product
 
-  const float* vhb = a.vh + ((size_t)b * L + pos.lo) * S;
+  const T* vhb = a.vh + ((size_t)b * L + pos.lo) * S;
   if constexpr (kLoc)
     energies_loc(vhb, ws, we, ap, Pw, u, cw, cb, feat, scratch, e, pos.n, Lc, K, S, FM, F);
-  else if ((S & 3) == 0 && (reinterpret_cast<size_t>(a.vh) & 15) == 0)
+  else if ((S & 3) == 0 && (reinterpret_cast<size_t>(a.vh) & (4 * sizeof(T) - 1)) == 0)
     energies<4>(vhb, ws, we, e, pos.n, Lc, K, S);
   else
     energies<1>(vhb, ws, we, e, pos.n, Lc, K, S);
@@ -974,15 +1011,15 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
   __syncthreads();
   // The context's partial sums over this block's positions, each column
   // into the block that owns it.
-  const float* hb = a.h + ((size_t)b * L + pos.lo) * A;
+  const T* hb = a.h + ((size_t)b * L + pos.lo) * A;
   for (int j = tid; j < A; j += kThreads) {
     float acc[kMaxK];
 #pragma unroll
     for (int k = 0; k < kMaxK; ++k) acc[k] = 0.f;
-    float hv = pos.n > 0 ? __ldg(hb + j) : 0.f;
+    float hv = pos.n > 0 ? ldg_f(hb + j) : 0.f;
 #pragma unroll 1
     for (int p = 0; p < pos.n; ++p) {
-      const float hn = p + 1 < pos.n ? __ldg(hb + (size_t)(p + 1) * A + j) : 0.f;
+      const float hn = p + 1 < pos.n ? ldg_f(hb + (size_t)(p + 1) * A + j) : 0.f;
 #pragma unroll
       for (int k = 0; k < kMaxK; ++k)
         if (k < K) acc[k] = fmaf(e[k * Lc + p], hv, acc[k]);
@@ -1014,17 +1051,17 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
   __syncthreads();
   for (int i = tid; i < K * pos.n; i += kThreads) {
     const int k = i / pos.n, p = i % pos.n;
-    a.alpha[(row + k) * L + pos.lo + p] = e[k * Lc + p] * scale[r * K + k] / zsum[k];
+    st_f(a.alpha + (row + k) * L + pos.lo + p, e[k * Lc + p] * scale[r * K + k] / zsum[k]);
   }
   // This block's context columns: the C partials in rank order, into every block.
   for (int i = tid; i < K * ac.n; i += kThreads) {
     const int k = i / ac.n, jl = i % ac.n;
     float sum = 0.f;
     for (int p = 0; p < C; ++p) sum = fmaf(scale[p * K + k], part[(p * K + k) * Ac + jl], sum);
-    const float v = sum / zsum[k];
+    const float v = sum / zsum[k], vr = round_to<T>(v);
     const int j = St + ac.lo + jl;
-    for (int p = 0; p < C; ++p) cluster.map_shared_rank(xo, p)[k * XO + j] = v;
-    a.c[(row + k) * A + ac.lo + jl] = v;
+    for (int p = 0; p < C; ++p) cluster.map_shared_rank(xo, p)[k * XO + j] = vr;
+    st_f(a.c + (row + k) * A + ac.lo + jl, v);
   }
   cluster.sync();
   // [phase] context
@@ -1033,14 +1070,14 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
   // into every block; then of dec_in, c_in's half added to yin's.
   slice_product(a.c_w, St, A, xo + St, XO, K, Cols{un.lo, un.n, 0, 0}, scratch,
                 [&](int k, int jj, int col, float v) {
-                  v += bc[jj];
+                  v = round_to<T>(v + bc[jj]);
                   for (int p = 0; p < C; ++p) cluster.map_shared_rank(rin, p)[k * St2 + col] = v;
                 });
   cluster.sync();
   // [phase] c_in
   slice_product(a.dec_w, St, St, rin, St2, K, Cols{un.lo, un.n, 0, 0}, scratch,
                 [&](int k, int jj, int col, float v) {
-                  v += pre[k * Stc + jj] + bdec[jj];
+                  v = round_to<T>(v + pre[k * Stc + jj] + bdec[jj]);
                   for (int p = 0; p < C; ++p)
                     cluster.map_shared_rank(sr, p)[k * St2 + St + col] = v;
                 });
@@ -1067,9 +1104,10 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
       const float cv = fg * mem[k * Stc + j] + ig * gg;
       const float sn = og * tanhf(cv);
       const size_t o = (row + k) * St + un.lo + j;
-      a.mem[o] = cv;
-      a.s[o] = sn;
-      for (int p = 0; p < C; ++p) cluster.map_shared_rank(xo, p)[k * XO + un.lo + j] = sn;
+      st_f(a.mem + o, cv);
+      st_f(a.s + o, sn);
+      const float snr = round_to<T>(sn);
+      for (int p = 0; p < C; ++p) cluster.map_shared_rank(xo, p)[k * XO + un.lo + j] = snr;
     }
     cluster.sync();
     // [phase] cell
@@ -1085,7 +1123,7 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
                       gl[gi(k, 0, j)] = gv;
                     } else {
                       const int uu = col - St;
-                      const float x = gv * sr[k * St2 + uu];
+                      const float x = round_to<T>(gv * sr[k * St2 + uu]);
                       for (int p = 0; p < C; ++p) cluster.map_shared_rank(rs, p)[k * St + uu] = x;
                     }
                   });
@@ -1100,8 +1138,9 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
                   [&](int k, int jj, int col, float v) {
                     const float zg = gl[gi(k, 0, jj)], sp = sr[k * St2 + col];
                     const float sn = (1.f - zg) * sp + zg * activate<kTanh>(v + pre[k * Stc + jj]);
-                    for (int p = 0; p < C; ++p) cluster.map_shared_rank(xo, p)[k * XO + col] = sn;
-                    a.s[(row + k) * St + col] = sn;
+                    const float snr = round_to<T>(sn);
+                    for (int p = 0; p < C; ++p) cluster.map_shared_rank(xo, p)[k * XO + col] = snr;
+                    st_f(a.s + (row + k) * St + col, sn);
                   });
     cluster.sync();
     // [phase] candidate
@@ -1111,7 +1150,7 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
   // share of its columns (maxout: whole groups of its window, their
   // maxima), relu applied before the push, into every block, or into
   // block 0 alone where the next layer is the last.
-  const Readout& ro = a.ro;
+  const ReadoutT<T>& ro = a.ro;
   if (ro.relu_in) {
     for (int i = tid; i < K * XO; i += kThreads) xo[i] = fmaxf(xo[i], 0.f);
     __syncthreads();
@@ -1122,12 +1161,12 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
     float* y = li & 1 ? y1 : y0;
     const int out = ro.out[li], win = ro.win[li], ldw = out * win, to = li + 2 < ro.n ? C : 1;
     const bool relu = ro.relu[li];
-    const float* bias = ro.b[li];
+    const T* bias = ro.b[li];
     if (ro.kind[li] == kLinear) {
       const Span oc(out, C, r, quad(out));
       slice_product(ro.w[li], ldw, width, x, width, K, Cols{oc.lo, oc.n, 0, 0}, scratch,
                     [&](int k, int, int col, float v) {
-                      v += __ldg(bias + col);
+                      v = round_to<T>(round_to<T>(v) + ldg_f(bias + col));
                       if (relu) v = fmaxf(v, 0.f);
                       for (int p = 0; p < to; ++p) cluster.map_shared_rank(y, p)[k * out + col] = v;
                     });
@@ -1136,7 +1175,7 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
       const int n = gr.n * win;
       slice_product(ro.w[li], ldw, width, x, width, K, Cols{gr.lo * win, n, 0, 0}, scratch,
                     [&](int k, int jj, int col, float v) {
-                      gl[k * n + jj] = v + __ldg(bias + col);
+                      gl[k * n + jj] = round_to<T>(round_to<T>(v) + ldg_f(bias + col));
                     });
       for (int i = tid; i < K * gr.n; i += kThreads) {
         const int k = i / gr.n, g = i % gr.n;
@@ -1157,18 +1196,18 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
   // Block 0: the last layer and the f32 log_softmax, a warp per hypothesis.
   const int li = ro.n - 1, out = ro.out[li], win = ro.win[li];
   const bool relu = ro.relu[li];
-  const float* bias = ro.b[li];
+  const T* bias = ro.b[li];
   float* y = li & 1 ? y1 : y0;
   if (ro.kind[li] == kLinear) {
     slice_product(ro.w[li], out, width, x, width, K, Cols{0, out, 0, 0}, scratch,
                   [&](int k, int, int col, float v) {
-                    v += __ldg(bias + col);
+                    v = round_to<T>(round_to<T>(v) + ldg_f(bias + col));
                     y[k * out + col] = relu ? fmaxf(v, 0.f) : v;
                   });
   } else {
     slice_product(ro.w[li], out * win, width, x, width, K, Cols{0, out * win, 0, 0}, scratch,
                   [&](int k, int jj, int col, float v) {
-                    gl[k * out * win + jj] = v + __ldg(bias + col);
+                    gl[k * out * win + jj] = round_to<T>(round_to<T>(v) + ldg_f(bias + col));
                   });
     for (int i = tid; i < K * out; i += kThreads) {
       const int k = i / out, g = i % out;
@@ -1194,19 +1233,77 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
 
 template <bool kLstm, bool kLoc>
 cudaError_t step_loc_lstm_limits(int cluster, int* smem_limit, int* clusters) {
-  cudaError_t err = cudaFuncSetAttribute(cluster_step_loc_lstm_kernel<kLstm, kLoc>,
-                                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  const auto kernel = cluster_step_loc_lstm_kernel<kLstm, kLoc, float>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
-  return cluster_limits(cluster_step_loc_lstm_kernel<kLstm, kLoc>, cluster, smem_limit, clusters);
+  return cluster_limits(kernel, cluster, smem_limit, clusters);
 }
 
-template <bool kLstm, bool kLoc>
-cudaError_t launch_step_loc_lstm(const Args8& a, int cluster, size_t bytes, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(cluster_step_loc_lstm_kernel<kLstm, kLoc>,
-                                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+template <bool kLstm, bool kLoc, class T>
+cudaError_t launch_step_loc_lstm(const Args8T<T>& a, int cluster, size_t bytes,
+                                 cudaStream_t stream) {
+  const auto kernel = cluster_step_loc_lstm_kernel<kLstm, kLoc, T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
-  return launch_cluster(cluster_step_loc_lstm_kernel<kLstm, kLoc>, dim3(a.B * cluster), cluster,
-                        bytes, stream, a);
+  return launch_cluster(kernel, dim3(a.B * cluster), cluster, bytes, stream, a);
+}
+
+// K8 on clusters of `cluster` blocks, a batch row a cluster; the readout's
+// n_layers layers (kinds, outs, wins; ro_w and ro_b their weights).
+template <class T>
+int step_loc_lstm_run(Args8T<T> a, int n_layers, const int* kinds, const int* outs,
+                      const int* wins, const T* const* ro_w, const T* const* ro_b, int lstm,
+                      int loc, int cluster, cudaStream_t stream) {
+  if (a.B < 1 || a.K < 1 || a.K > kMaxK || a.L < 1 || n_layers < 1 || n_layers > kMaxLayers ||
+      cluster < 1 || cluster > kMaxStepCluster || (loc && (a.FM < 1 || a.F < 1)) ||
+      (kIsBf16<T> && lstm && !loc))  // no bf16 content-only LSTM instance
+    return (int)cudaErrorInvalidValue;
+  // The dense layers, each relu folded into the layer before it.
+  int width = a.St + a.A;
+  for (int i = 0; i < n_layers; ++i) {
+    if (kinds[i] == kRelu) {
+      if (a.ro.n == 0)
+        a.ro.relu_in = 1;
+      else
+        a.ro.relu[a.ro.n - 1] = 1;
+      continue;
+    }
+    const int d = a.ro.n++, win = kinds[i] == kMaxout ? wins[i] : 1;
+    if ((kinds[i] != kLinear && kinds[i] != kMaxout) || outs[i] < 1 || win < 1)
+      return (int)cudaErrorInvalidValue;
+    a.ro.kind[d] = kinds[i];
+    a.ro.out[d] = width = outs[i];
+    a.ro.win[d] = win;
+    a.ro.w[d] = ro_w[i];
+    a.ro.b[d] = ro_b[i];
+  }
+  if (a.ro.n == 0 || width != a.V) return (int)cudaErrorInvalidValue;
+  const ReadoutDims d = readout_dims(a.ro, cluster);
+  a.maxw = (int)d.maxw;
+  a.maxpre = (int)d.maxpre;
+  const size_t bytes = step_loc_lstm_smem_floats(a.K, a.L, a.S, a.A, a.St, a.FM, a.F, cluster,
+                                                 lstm ? 1 : 0, loc ? 1 : 0, d.maxw, d.maxpre,
+                                                 d.cols) *
+                       sizeof(float);
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
+  if (lstm) {
+    if constexpr (kIsBf16<T>)
+      err = launch_step_loc_lstm<true, true>(a, cluster, bytes, stream);
+    else
+      err = loc ? launch_step_loc_lstm<true, true>(a, cluster, bytes, stream)
+                : launch_step_loc_lstm<true, false>(a, cluster, bytes, stream);
+  } else {
+    err = loc ? launch_step_loc_lstm<false, true>(a, cluster, bytes, stream)
+              : launch_step_loc_lstm<false, false>(a, cluster, bytes, stream);
+  }
+  return (int)err;
 }
 
 }  // namespace
@@ -1243,52 +1340,32 @@ extern "C" int fused_attention_step_loc_lstm(
     const int* outs, const int* wins, const float* const* ro_w, const float* const* ro_b,
     int lstm, int loc, int B, int K, int L, int S, int A, int St, int V, int FM, int F,
     int cluster, cudaStream_t stream) {
-  if (B < 1 || K < 1 || K > kMaxK || L < 1 || n_layers < 1 || n_layers > kMaxLayers ||
-      cluster < 1 || cluster > kMaxStepCluster || (loc && (FM < 1 || F < 1)))
-    return (int)cudaErrorInvalidValue;
   // The reference's padding (Attention.lua:77-85): (f-1)/2 on the left
   // for an odd filter, f/2 for an even one; both equal f / 2.
-  Args8 a{vh,      h,     mask,   yin,    sprev, ws_w,  ws_b, w_e, c_w, c_b, dec_w, dec_b,
-          cw1,     cw2,   cw3,    memprev, aprev, conv_w, conv_b, u, alpha, c, s, mem, logp,
-          B,       K,     L,      S,      A,     St,    V,    loc ? FM : 0, loc ? F : 0,
-          loc ? F / 2 : 0, 0, 0, {}};
-  // The dense layers, each relu folded into the layer before it.
-  int width = St + A;
-  for (int i = 0; i < n_layers; ++i) {
-    if (kinds[i] == kRelu) {
-      if (a.ro.n == 0)
-        a.ro.relu_in = 1;
-      else
-        a.ro.relu[a.ro.n - 1] = 1;
-      continue;
-    }
-    const int d = a.ro.n++, win = kinds[i] == kMaxout ? wins[i] : 1;
-    if ((kinds[i] != kLinear && kinds[i] != kMaxout) || outs[i] < 1 || win < 1)
-      return (int)cudaErrorInvalidValue;
-    a.ro.kind[d] = kinds[i];
-    a.ro.out[d] = width = outs[i];
-    a.ro.win[d] = win;
-    a.ro.w[d] = ro_w[i];
-    a.ro.b[d] = ro_b[i];
-  }
-  if (a.ro.n == 0 || width != V) return (int)cudaErrorInvalidValue;
-  const ReadoutDims d = readout_dims(a.ro, cluster);
-  a.maxw = (int)d.maxw;
-  a.maxpre = (int)d.maxpre;
-  const size_t bytes = step_loc_lstm_smem_floats(K, L, S, A, St, a.FM, a.F, cluster, lstm ? 1 : 0,
-                                                 loc ? 1 : 0, d.maxw, d.maxpre, d.cols) *
-                       sizeof(float);
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
-  if (lstm)
-    err = loc ? launch_step_loc_lstm<true, true>(a, cluster, bytes, stream)
-              : launch_step_loc_lstm<true, false>(a, cluster, bytes, stream);
-  else
-    err = loc ? launch_step_loc_lstm<false, true>(a, cluster, bytes, stream)
-              : launch_step_loc_lstm<false, false>(a, cluster, bytes, stream);
-  return (int)err;
+  const Args8T<float> a{vh,      h,     mask,   yin,    sprev, ws_w,  ws_b, w_e, c_w, c_b,
+                        dec_w,   dec_b, cw1,    cw2,    cw3,   memprev, aprev, conv_w, conv_b,
+                        u,       alpha, c,      s,      mem,   logp,  B,    K,   L,   S,   A,
+                        St,      V,     loc ? FM : 0,   loc ? F : 0,   loc ? F / 2 : 0, 0, 0, {}};
+  return step_loc_lstm_run(a, n_layers, kinds, outs, wins, ro_w, ro_b, lstm, loc, cluster,
+                           stream);
+}
+
+// K8's bf16 entry: fused_attention_step_loc_lstm with every array bf16 but
+// logp, on fused_attention_step_loc_lstm_limits' plan (the same block and
+// shared memory); the content-only LSTM (lstm without loc) is refused.
+extern "C" int fused_attention_step_loc_lstm_bf16(
+    const bf16* vh, const bf16* h, const bf16* mask, const bf16* yin, const bf16* sprev,
+    const bf16* ws_w, const bf16* ws_b, const bf16* w_e, const bf16* c_w, const bf16* c_b,
+    const bf16* dec_w, const bf16* dec_b, const bf16* cw1, const bf16* cw2, const bf16* cw3,
+    const bf16* memprev, const bf16* aprev, const bf16* conv_w, const bf16* conv_b,
+    const bf16* u, bf16* alpha, bf16* c, bf16* s, bf16* mem, float* logp, int n_layers,
+    const int* kinds, const int* outs, const int* wins, const bf16* const* ro_w,
+    const bf16* const* ro_b, int lstm, int loc, int B, int K, int L, int S, int A, int St, int V,
+    int FM, int F, int cluster, cudaStream_t stream) {
+  const Args8T<bf16> a{vh,      h,     mask,   yin,    sprev, ws_w,  ws_b, w_e, c_w, c_b,
+                       dec_w,   dec_b, cw1,    cw2,    cw3,   memprev, aprev, conv_w, conv_b,
+                       u,       alpha, c,      s,      mem,   logp,  B,    K,   L,   S,   A,
+                       St,      V,     loc ? FM : 0,   loc ? F : 0,   loc ? F / 2 : 0, 0, 0, {}};
+  return step_loc_lstm_run(a, n_layers, kinds, outs, wins, ro_w, ro_b, lstm, loc, cluster,
+                           stream);
 }

@@ -34,20 +34,34 @@
 // At B = 1, L' = 14, H = 128: 2.25 us a step, 0.0315 ms; B = 16, L' = 16
 // (R = 4): 2.83 us, 0.0453 ms; B = 128 (R = 8, 32 clusters in 3 waves):
 // 0.158 ms (chip_smoke.py phase 8 on an NVIDIA H100 80GB HBM3 at 700.00 W).
+//
+// bilstm_scan_fwd_bf16 is K7's bf16 entry (bilstm_scan_bf16_kernel): the
+// same walk with bf16 projections and weights, as _fwd_kernel runs with
+// bf16 xproj and w_h and float32 h0 and c0: it widens each value as it
+// loads it (the slices stay float in shared memory, so the plan is the
+// float walk's), carries h and c in float and stores both outputs in
+// float, as the JAX kernel's scratch and outputs are (lstm_scan.py:
+// 119-126): h @ W_h multiplies the unrounded h by the widened weights, so
+// the entry rounds nothing. Plain PyTorch twin: ops/cuda/lstm_scan.py::
+// bilstm_scan_plain on the widened inputs.
 
 #include "cluster_walk.cuh"
 
 namespace {
 
-struct LstmFwd {
-  const float* xproj2;  // (2, B, L, 4H)
+// The walk's arrays; T is the IO type of the projections and the weights
+// (float, or bf16 for the bf16 entry), the states float either way.
+template <class T>
+struct LstmFwdT {
+  const T* xproj2;      // (2, B, L, 4H)
   const float* h02;     // (2, B, H)
   const float* c02;     // (2, B, H)
-  const float* wh2;     // (2, H, 4H)
+  const T* wh2;         // (2, H, 4H)
   float* hs2;           // (2, B, L, H)
   float* cs2;           // (2, B, L, H)
   int B, L, H;
 };
+using LstmFwd = LstmFwdT<float>;
 
 // Shared memory of the walk: the weight slices (4H floats a unit), two
 // buffers of the gathered h (R x H each), two buffers of the four staged
@@ -62,11 +76,12 @@ size_t lstm_fwd_smem_bytes(const WalkPlan& p, int H) {
 // cell(i, r, sums) on lane r' < R for its row r. The warp reads unit i's
 // four gate rows of the transposed slice (`w`, [4][hs][H]) where
 // kResident, else its four columns of W_h from L2 (`w` at the unit's
-// gate-0 column, row stride 4H); the gathered h `v` is R x H. Reading the
-// four gates of a unit in one pass leaves each unit's cell on one lane,
-// with no block barrier between the products and the cell.
-template <int R, bool kResident, class Cell>
-__device__ __forceinline__ void unit_gates(const float* w, int H, int hs, const float* v,
+// gate-0 column, row stride 4H; a bf16 w, TW, widened as it is read); the
+// gathered h `v` is R x H. Reading the four gates of a unit in one pass
+// leaves each unit's cell on one lane, with no block barrier between the
+// products and the cell.
+template <int R, bool kResident, class TW, class Cell>
+__device__ __forceinline__ void unit_gates(const TW* w, int H, int hs, const float* v,
                                            Cell cell) {
   const int lane = threadIdx.x & 31;
   for (int i = threadIdx.x >> 5; i < hs; i += kWarps) {
@@ -79,8 +94,12 @@ __device__ __forceinline__ void unit_gates(const float* w, int H, int hs, const 
     for (int j = lane; j < H; j += 32) {
       float x[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        x[q] = kResident ? w[(q * hs + i) * H + j] : __ldg(w + (size_t)j * 4 * H + q * H + i);
+      for (int q = 0; q < 4; ++q) {
+        if constexpr (kResident)
+          x[q] = w[(q * hs + i) * H + j];
+        else
+          x[q] = ldg_f(w + (size_t)j * 4 * H + q * H + i);
+      }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float y = v[r * H + j];
@@ -116,10 +135,10 @@ __device__ __forceinline__ void unit_gates(const float* w, int H, int hs, const 
 // nothing. The step's one block barrier also makes step s+1's staged
 // xproj (copies started in step s-1) visible. Rows past B stage x = 0
 // from h = c = 0, which gives gates 1/2, 1/2, 0, 1/2 and c = h = 0
-// exactly, so nothing leaks into a valid row.
-template <int R>
-__global__ void __launch_bounds__(kThreads, 1) bilstm_scan_kernel(const LstmFwd a, int resident) {
-  extern __shared__ float smem[];
+// exactly, so nothing leaks into a valid row. With bf16 IO (T) the
+// projections and the weights load widened; the rest is the float walk.
+template <int R, class T>
+__device__ __forceinline__ void bilstm_walk(const LstmFwdT<T>& a, int resident, float* smem) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), k = (int)cluster.block_rank();
   const int H = a.H, L = a.L, H4 = 4 * H;
@@ -154,41 +173,62 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_scan_kernel(const LstmFwd 
         reinterpret_cast<size_t>(a.h02) | reinterpret_cast<size_t>(a.c02)) & 15) == 0;
   auto prefetch = [&](int s) {
     float* q = stg + (s & 1) * 4 * RM;
-    const float* x = a.xproj2 + (row0 * L + s) * H4 + lo;
+    const T* x = a.xproj2 + (row0 * L + s) * H4 + lo;
     for (int gate = 0; gate < 4; ++gate)
       stage_async<R>(q + gate * RM, hm, x + gate * H, l4, hs, nrows, vec);
   };
   prefetch(0);
   stage_async<R>(gath, H, a.h02 + row0 * H, H, H, nrows, vec);
   stage_async<R>(cst, hm, a.c02 + row0 * H + lo, H, hs, nrows, vec);
-  const float* w = a.wh2 + (size_t)blockIdx.y * H * H4 + lo;  // the units' columns of gate 0
+  const T* w = a.wh2 + (size_t)blockIdx.y * H * H4 + lo;  // the units' columns of gate 0
   if (resident) {
-    // Consecutive threads take consecutive input rows j, each wu units of
-    // a gate (two 16-byte loads, a whole 32-byte sector, where it can), so
-    // the stores into the transposed slice fall on consecutive banks; a
-    // thread's loads are in flight at once (past the end, a slot repeats
-    // the last one).
-    const int wu = !vec ? 1 : hs % 8 == 0 ? 8 : 4, nq = hs / wu, n = H * 4 * nq;
-    for (int base = threadIdx.x; base < n; base += 2 * kThreads) {
-      float4 x[2][2];
-      float* dst[2];
+    if constexpr (kIsBf16<T>) {
+      // bf16: a value a load, widened, kWide loads of a thread in flight
+      // at once; consecutive threads take consecutive input rows j, as
+      // below (past the end, a slot repeats the last value).
+      constexpr int kWide = 8;
+      const int n = H * 4 * hs;
+      for (int base = threadIdx.x; base < n; base += kWide * kThreads) {
+        float v[kWide];
+        int dst[kWide];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int idx = min(base + u * kThreads, n - 1), j = idx % H, qi = idx / H;
-        const int gate = qi / nq, i = (qi - gate * nq) * wu;
-        const float* src = w + (size_t)j * H4 + gate * H + i;
-        dst[u] = w_s + (gate * hs + i) * H + j;
-        x[u][0] = vec ? __ldg(reinterpret_cast<const float4*>(src))
-                      : make_float4(__ldg(src), 0.f, 0.f, 0.f);
-        if (wu == 8) x[u][1] = __ldg(reinterpret_cast<const float4*>(src + 4));
+        for (int u = 0; u < kWide; ++u) {
+          const int idx = min(base + u * kThreads, n - 1), j = idx % H, qi = idx / H;
+          const int gate = qi / hs, i = qi - gate * hs;
+          dst[u] = (gate * hs + i) * H + j;
+          v[u] = ldg_f(w + (size_t)j * H4 + gate * H + i);
+        }
+#pragma unroll
+        for (int u = 0; u < kWide; ++u) w_s[dst[u]] = v[u];
       }
+    } else {
+      // Consecutive threads take consecutive input rows j, each wu units
+      // of a gate (two 16-byte loads, a whole 32-byte sector, where it
+      // can), so the stores into the transposed slice fall on consecutive
+      // banks; a thread's loads are in flight at once (past the end, a
+      // slot repeats the last one).
+      const int wu = !vec ? 1 : hs % 8 == 0 ? 8 : 4, nq = hs / wu, n = H * 4 * nq;
+      for (int base = threadIdx.x; base < n; base += 2 * kThreads) {
+        float4 x[2][2];
+        float* dst[2];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        float* d = dst[u];
-        d[0] = x[u][0].x;
-        if (wu >= 4) d[H] = x[u][0].y, d[2 * H] = x[u][0].z, d[3 * H] = x[u][0].w;
-        if (wu == 8)
-          d[4 * H] = x[u][1].x, d[5 * H] = x[u][1].y, d[6 * H] = x[u][1].z, d[7 * H] = x[u][1].w;
+        for (int u = 0; u < 2; ++u) {
+          const int idx = min(base + u * kThreads, n - 1), j = idx % H, qi = idx / H;
+          const int gate = qi / nq, i = (qi - gate * nq) * wu;
+          const float* src = w + (size_t)j * H4 + gate * H + i;
+          dst[u] = w_s + (gate * hs + i) * H + j;
+          x[u][0] = vec ? __ldg(reinterpret_cast<const float4*>(src))
+                        : make_float4(__ldg(src), 0.f, 0.f, 0.f);
+          if (wu == 8) x[u][1] = __ldg(reinterpret_cast<const float4*>(src + 4));
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float* d = dst[u];
+          d[0] = x[u][0].x;
+          if (wu >= 4) d[H] = x[u][0].y, d[2 * H] = x[u][0].z, d[3 * H] = x[u][0].w;
+          if (wu == 8)
+            d[4 * H] = x[u][1].x, d[5 * H] = x[u][1].y, d[6 * H] = x[u][1].z, d[7 * H] = x[u][1].w;
+        }
       }
     }
   }
@@ -227,15 +267,67 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_scan_kernel(const LstmFwd 
     // [phase] gates and cell
     if (s == 0) cluster_wait();  // every block's mbarriers are armed before any push into it
     if (s + 1 < L) {
-      if (s + 2 < L) prefetch(s + 2);  // into step s's staging buffer, read last above
+      // Step s+2's xproj into step s's staging buffer, read last above:
+      // the copies start before the push; bf16's plain loads (which wait
+      // for their data) after it, so that they wait beside the peers' h.
+      if (!kIsBf16<T> && s + 2 < L) prefetch(s + 2);
       unsigned long long* bar = &bars[(s + 1) & 1];
       push_units<R>(hn, bar, H, lo, hs, C, k);
+      if (kIsBf16<T> && s + 2 < L) prefetch(s + 2);
       mbar_wait(bar, (s >> 1) & 1);
       if (threadIdx.x == 0 && s + 3 < L) mbar_expect(bar, tx);
     }
     // [phase] push and wait
   }
   cluster.sync();  // no block leaves before the cluster's last pushes have landed
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1) bilstm_scan_kernel(const LstmFwd a, int resident) {
+  extern __shared__ float smem[];
+  bilstm_walk<R>(a, resident, smem);
+}
+
+// K7's bf16 entry.
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+    bilstm_scan_bf16_kernel(const LstmFwdT<bf16> a, int resident) {
+  extern __shared__ float smem[];
+  bilstm_walk<R>(a, resident, smem);
+}
+
+template <class T>
+using LstmWalk = void (*)(const LstmFwdT<T>, int);
+
+// The walk's instance for `rows` batch rows a cluster (R = 16 where rows
+// is none of 1, 2, 4 and 8).
+template <class T>
+LstmWalk<T> lstm_walk_instance(int rows) {
+  if constexpr (kIsBf16<T>)
+    return rows == 1   ? bilstm_scan_bf16_kernel<1>
+           : rows == 2 ? bilstm_scan_bf16_kernel<2>
+           : rows == 4 ? bilstm_scan_bf16_kernel<4>
+           : rows == 8 ? bilstm_scan_bf16_kernel<8>
+                       : bilstm_scan_bf16_kernel<16>;
+  else
+    return rows == 1   ? bilstm_scan_kernel<1>
+           : rows == 2 ? bilstm_scan_kernel<2>
+           : rows == 4 ? bilstm_scan_kernel<4>
+           : rows == 8 ? bilstm_scan_kernel<8>
+                       : bilstm_scan_kernel<16>;
+}
+
+template <class T>
+int bilstm_scan_run(const LstmFwdT<T>& a, int cluster, int rows, int resident,
+                    cudaStream_t stream) {
+  if (a.B < 1 || a.L < 1 || a.H < 1 || a.H > 1024) return (int)cudaErrorInvalidValue;
+  const WalkPlan plan{cluster, rows, resident};
+  const size_t smem = lstm_fwd_smem_bytes(plan, a.H);
+  cudaError_t err = check_plan(plan, a.H, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int groups = (a.B + rows - 1) / rows;
+  return (int)launch_cluster(lstm_walk_instance<T>(rows), dim3(cluster * groups, 2), cluster,
+                             smem, stream, a, resident);
 }
 
 }  // namespace
@@ -251,17 +343,16 @@ extern "C" int bilstm_scan_fwd_limits(int cluster, int* smem_limit, int* cluster
 extern "C" int bilstm_scan_fwd(const float* xproj2, const float* h02, const float* c02,
                                const float* wh2, float* hs2, float* cs2, int B, int L, int H,
                                int cluster, int rows, int resident, cudaStream_t stream) {
-  if (B < 1 || L < 1 || H < 1 || H > 1024) return (int)cudaErrorInvalidValue;
-  const WalkPlan plan{cluster, rows, resident};
-  const size_t smem = lstm_fwd_smem_bytes(plan, H);
-  cudaError_t err = check_plan(plan, H, smem);
-  if (err != cudaSuccess) return (int)err;
-  const auto walk = rows == 1   ? bilstm_scan_kernel<1>
-                    : rows == 2 ? bilstm_scan_kernel<2>
-                    : rows == 4 ? bilstm_scan_kernel<4>
-                    : rows == 8 ? bilstm_scan_kernel<8>
-                                : bilstm_scan_kernel<16>;
-  const LstmFwd a{xproj2, h02, c02, wh2, hs2, cs2, B, L, H};
-  const int groups = (B + rows - 1) / rows;
-  return (int)launch_cluster(walk, dim3(cluster * groups, 2), cluster, smem, stream, a, resident);
+  return bilstm_scan_run(LstmFwd{xproj2, h02, c02, wh2, hs2, cs2, B, L, H}, cluster, rows,
+                         resident, stream);
+}
+
+// K7's bf16 entry: bilstm_scan_fwd with bf16 xproj2 and wh2 (h02, c02 and
+// the outputs float), on bilstm_scan_fwd_limits' plan (the walk's shared
+// memory is the same).
+extern "C" int bilstm_scan_fwd_bf16(const bf16* xproj2, const float* h02, const float* c02,
+                                    const bf16* wh2, float* hs2, float* cs2, int B, int L, int H,
+                                    int cluster, int rows, int resident, cudaStream_t stream) {
+  return bilstm_scan_run(LstmFwdT<bf16>{xproj2, h02, c02, wh2, hs2, cs2, B, L, H}, cluster, rows,
+                         resident, stream);
 }

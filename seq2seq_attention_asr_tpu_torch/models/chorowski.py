@@ -13,8 +13,10 @@ and its inputs to bf16 (float32 masters, as the JAX package's
 ``forward`` does); the kernels take bf16 IO and product operands and
 keep accumulation, carries and the softmax in float32, and the
 log-softmax is float32. ``encode`` casts nothing, so serving stays
-float32. bf16 evaluation runs (K1, K2 and K4 in bf16); bf16 training
-raises NotImplementedError (ROADMAP Queue A item 5b).
+float32. bf16 evaluation runs (K1, K2 and K4 in bf16; with
+feature_maps > 0, "flagship_loc", K1, K12 and K8's <GRU, location>
+instance); bf16 training raises NotImplementedError (ROADMAP Queue A
+item 5b, and for flagship_loc item 5c's training part).
 """
 
 from __future__ import annotations

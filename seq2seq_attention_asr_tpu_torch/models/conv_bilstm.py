@@ -10,7 +10,15 @@ state 400, and the readout linear(656 -> 124) -> ReLU -> linear(-> 62)
 BiLSTM's backward is kernel K9 and whose conv stack autograd
 differentiates, then the teacher-forced location-aware LSTM decoder
 scan (kernels K10 and K11), or with feature_maps = 0 the content-only
-LSTM decoder scan (kernels K14 and K15).
+LSTM decoder scan (kernels K14 and K15). ``compute_dtype="bfloat16"`` is
+the JAX package's mixed-precision operating point, as for the flagship
+(models/chorowski.py): ``forward`` casts the float32 params and its
+inputs to bf16, and bf16 evaluation runs K7, K10 and K8's <LSTM,
+location> instance through their bf16 entries; a bf16 gradient raises
+NotImplementedError where it reaches a backward kernel (ROADMAP Queue A
+item 5c, training part), and with feature_maps = 0 (the content-only
+LSTM decoder) bf16 is refused (item 5c, second part). ``encode`` casts
+nothing, so serving stays float32.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ import torch
 
 from .. import interop
 from ..ops import attention, conv, rnn
+from ..ops.cuda import build
+from .chorowski import cast_float32, float32_sums
 
 Params = Dict[str, Any]
 
@@ -40,14 +50,12 @@ class ConvBiLSTMConfig:
     penalty_lambda: float = 0.0
     mono_align: bool = True
     peepholes: bool = False  # refused: the port has no LSTM peepholes
-    compute_dtype: str = "float32"  # "bfloat16" is refused (ROADMAP Queue A item 5c)
+    compute_dtype: str = "float32"  # or "bfloat16" (evaluation; not feature_maps = 0)
 
     def __post_init__(self):
-        if self.compute_dtype == "bfloat16":
-            raise NotImplementedError(
-                "conv_bilstm in bfloat16 needs bf16 instances of K7-K11, K14, K15 and K8: "
-                "ROADMAP Queue A item 5c")
-        if self.compute_dtype != "float32":
+        if self.compute_dtype == "bfloat16" and self.feature_maps == 0:
+            raise NotImplementedError(f"conv_bilstm_content: {build.BF16_CONTENT_LSTM}")
+        if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}: the port takes 'float32' "
                              f"or 'bfloat16'")
 
@@ -112,8 +120,15 @@ def forward(params: Params, cfg: ConvBiLSTMConfig, x: torch.Tensor, x_lengths: t
     """encode, then the teacher-forced decoder over the annotations'
     lengths (the penalty's ramp too): dict(logprobs (B, T, V), alpha (B,
     T, L'), penalty (B, T)). The recipe's readout has no dropout layer;
-    `generator` is passed on for one that has."""
-    h, enc_lengths = encode(params, cfg, x, x_lengths)
-    return attention.decode_teacher_forced(params["decoder"], cfg.attention_config(), h,
-                                           enc_lengths, labels_onehot, dec_mask,
-                                           generator=generator, train=train)
+    `generator` is passed on for one that has. Under
+    compute_dtype="bfloat16" the float32 params, x, labels_onehot and
+    dec_mask are cast to bf16 first and the bf16 products sum in float32,
+    as chorowski.forward does."""
+    dt = getattr(torch, cfg.compute_dtype)
+    params, x, labels_onehot, dec_mask = (cast_float32(a, dt)
+                                          for a in (params, x, labels_onehot, dec_mask))
+    with float32_sums(dt):
+        h, enc_lengths = encode(params, cfg, x, x_lengths)
+        return attention.decode_teacher_forced(params["decoder"], cfg.attention_config(), h,
+                                               enc_lengths, labels_onehot, dec_mask,
+                                               generator=generator, train=train)

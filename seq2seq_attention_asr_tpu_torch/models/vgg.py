@@ -10,8 +10,9 @@ floor((floor((freq - 4) / 2) - 4) / 2). Then the height collapse to (B,
 L', freq' * 128), frequency-major and channel-minor as the JAX
 package's reshape of NHWC, and a 4-layer MLP 128 freq' -> 2048 -> 2048
 -> 2048 -> output_frame_size, each layer with a ReLU. The convolutions
-are cuDNN's (``ops/conv.py``: TF32 unless turned off) and the MLP
-PyTorch matmuls, as the JAX package computes both outside any kernel.
+are cuDNN's (``ops/conv.py``: full float32 on float32 inputs, whatever
+``torch.backends.cudnn.allow_tf32`` says) and the MLP PyTorch matmuls,
+as the JAX package computes both outside any kernel.
 
 Decoder (model_vgg.lua:58-93): content attention (feature_maps=0 in
 the recipe) with a GRU cell on annotations of output_frame_size (no
@@ -19,8 +20,13 @@ x2, :63), and a two-layer maxout readout maxout(64, 7) -> linear(64)
 -> maxout(64, 7) -> linear(V) (:74-82). Training runs kernels K4 and
 K5 (the content-only GRU decoder scan); the beam runs K8's <GRU,
 content> instance, which takes this four-layer readout.
-``compute_dtype="bfloat16"`` raises NotImplementedError: K8 has no bf16
-instance and no backward kernel a bf16 entry (ROADMAP Queue A item 5c).
+``compute_dtype="bfloat16"`` is the JAX package's mixed-precision
+operating point, as for the flagship (models/chorowski.py): ``forward``
+casts the float32 params and its inputs to bf16; the convolutions run
+in bf16 on cuDNN, and bf16 evaluation runs K4 and K8's <GRU, content>
+instance through their bf16 entries; a bf16 gradient raises
+NotImplementedError where it reaches K5 (ROADMAP Queue A items 5b and
+5c, training part). ``encode`` casts nothing, so serving stays float32.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 
 from .. import interop
 from ..ops import attention, conv, readout
+from .chorowski import cast_float32, float32_sums
 
 Params = Dict[str, Any]
 
@@ -48,14 +55,10 @@ class VGGConfig:
     output_depth: int = 62
     penalty_lambda: float = 0.0
     mono_align: bool = True
-    compute_dtype: str = "float32"  # "bfloat16" is refused (ROADMAP Queue A item 5c)
+    compute_dtype: str = "float32"  # or "bfloat16" (evaluation)
 
     def __post_init__(self):
-        if self.compute_dtype == "bfloat16":
-            raise NotImplementedError(
-                "vgg in bfloat16 needs a bf16 instance of K8 and bf16 entries of the backward "
-                "kernels: ROADMAP Queue A item 5c")
-        if self.compute_dtype != "float32":
+        if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}: the port takes 'float32' "
                              f"or 'bfloat16'")
 
@@ -134,8 +137,14 @@ def forward(params: Params, cfg: VGGConfig, x: torch.Tensor, x_lengths: torch.Te
     """encode, then the teacher-forced decoder over the annotations'
     lengths: dict(logprobs (B, T, V), alpha (B, T, L'), penalty (B, T)).
     The recipe's readout has no dropout layer; `generator` is passed on
-    for one that has."""
-    h, enc_lengths = encode(params, cfg, x, x_lengths)
-    return attention.decode_teacher_forced(params["decoder"], cfg.attention_config(), h,
-                                           enc_lengths, labels_onehot, dec_mask,
-                                           generator=generator, train=train)
+    for one that has. Under compute_dtype="bfloat16" the float32 params,
+    x, labels_onehot and dec_mask are cast to bf16 first and the bf16
+    products sum in float32, as chorowski.forward does."""
+    dt = getattr(torch, cfg.compute_dtype)
+    params, x, labels_onehot, dec_mask = (cast_float32(a, dt)
+                                          for a in (params, x, labels_onehot, dec_mask))
+    with float32_sums(dt):
+        h, enc_lengths = encode(params, cfg, x, x_lengths)
+        return attention.decode_teacher_forced(params["decoder"], cfg.attention_config(), h,
+                                               enc_lengths, labels_onehot, dec_mask,
+                                               generator=generator, train=train)

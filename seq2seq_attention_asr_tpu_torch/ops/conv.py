@@ -9,13 +9,20 @@ temporal conv, HWIO for the spatial one on NHWC inputs (H is time, W
 frequency), so parameter trees carry across as they are. The temporal
 convolution is k shifted matrix products, which run in full float32 on
 the card. The spatial one is ``F.conv2d`` (NCHW, OIHW: the layouts are
-permuted where it is called), which cuDNN runs in TF32 on float32
-inputs unless ``torch.backends.cudnn.allow_tf32`` is off; float32
-parity with the JAX package needs it off.
+permuted where it is called). cuDNN would run a float32 one in TF32
+under PyTorch's default ``torch.backends.cudnn.allow_tf32`` (True), so
+``spatial_conv_nchw`` turns the flag off around a float32 convolution
+and around its gradient's, and gives the caller's value back after
+each (``float32_convs``, ``_Float32Conv``): float32 convolutions are
+full float32 whatever the flag says, as the JAX package's are. A bf16
+one (a bf16 model's) leaves the flag alone: cuDNN sums it in float32
+and rounds the output to bf16, and the bias is added after, in bf16, as
+the JAX package's ``conv_general_dilated`` then ``+ b`` round.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -66,15 +73,57 @@ def spatial_conv_init(generator: torch.Generator, c_in: int, c_out: int, kh: int
             "b": torch_linear_init(generator, fan_in, (c_out,))}
 
 
+@contextlib.contextmanager
+def float32_convs(dtype: torch.dtype):
+    """For float32: cuDNN's convolutions in full float32, whatever
+    torch.backends.cudnn.allow_tf32 says (PyTorch's default, True, lets
+    cuDNN take TF32); the flag is restored on exit, also when the body
+    raises. Nothing for other types."""
+    if dtype != torch.float32:
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = before
+
+
+class _Float32Conv(torch.autograd.Function):
+    """F.conv2d(x, w, b), stride 1, VALID, on float32, its forward and its
+    backward each under float32_convs: autograd runs the backward after
+    the forward's context has closed."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        with float32_convs(x.dtype):
+            return F.conv2d(x, w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        with float32_convs(dy.dtype):
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                dy, x, w, [w.shape[0]], [1, 1], [0, 0], [1, 1], False, [0, 0], 1,
+                list(ctx.needs_input_grad))
+        return dx, dw, db
+
+
 def spatial_conv_nchw(params: Params, x: torch.Tensor) -> torch.Tensor:
     """spatial_conv on NCHW: (B, C_in, H, W) -> (B, C_out, H', W'), H' = H -
-    kh + 1 and W' = W - kw + 1 (clamped at 0)."""
+    kh + 1 and W' = W - kw + 1 (clamped at 0). float32 without TF32; bf16
+    with the bias added after the convolution's rounding."""
     w = params["w"]
     kh, kw, _, c_out = w.shape
     b, _, hh, ww = x.shape
     if hh < kh or ww < kw:
         return x.new_zeros((b, c_out, max(hh - kh + 1, 0), max(ww - kw + 1, 0)))
-    return F.conv2d(x, w.permute(3, 2, 0, 1), params["b"])
+    if x.dtype == torch.bfloat16:
+        return F.conv2d(x, w.permute(3, 2, 0, 1)) + params["b"][:, None, None]
+    return _Float32Conv.apply(x, w.permute(3, 2, 0, 1), params["b"])
 
 
 def spatial_max_pool_nchw(x: torch.Tensor, kh: int, kw: int, sh: int, sw: int) -> torch.Tensor:

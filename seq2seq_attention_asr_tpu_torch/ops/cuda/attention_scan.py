@@ -36,13 +36,16 @@ with bf16 inputs (``_step_core`` with ``dt`` = bf16) keeps the energies,
 the softmax, c and the s carry in float32 and rounds each product's
 operand to bf16: s_prev before ws, c before c_in, [cc | yin] before
 dec_in, [s_prev | r] before the gates and [rg s_prev | r] before the
-candidate. The plain versions round there too (``rnd``). The bf16
-entry's pre-pass folds c_in and dec_in into the gates as the float32
-one does, its tables in float32 from the widened weights, so it rounds
-s_prev, c and rg s_prev and not cc or r, which it never forms
-(ROADMAP, "Differences that are deliberate"); ``gru_folded_scan_plain``
-is its plain twin as it computes. K5, and the other
-decoders' scans, have no bf16 instance yet: they refuse bf16.
+candidate. The plain versions round there too (``step_plain``'s
+``rnd``). The bf16 entry's pre-pass folds c_in and dec_in into the
+gates as the float32 one does, its tables in float32 from the widened
+weights, so it rounds s_prev, c and rg s_prev and not cc or r, which it
+never forms (ROADMAP, "Differences that are deliberate");
+``gru_folded_scan_plain`` is its plain twin as it computes. K10 and
+K12, the location-aware decoders' forwards, have bf16 entries of the
+same kind at the end of this module. K5, the other backwards, and K14
+have no bf16 instance yet: a bf16 gradient raises NotImplementedError,
+a bf16 K14 TypeError.
 """
 
 from __future__ import annotations
@@ -82,42 +85,13 @@ def _same(x):
     return x
 
 
-def _step_core(vh, h, enc_mask, yin_t, s_prev, ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b,
-               gru_wzr, gru_wh, rnd=_same):
-    """One decoder step (_step_core for the GRU cell): (alpha, c, s_new).
-    `rnd` rounds each product's operand where the JAX kernel rounds it to
-    its IO type (build.round_bf16 for bf16, on float32 tensors; the
-    identity for float32)."""
-    st = dec_w.shape[1]
-    ws = rnd(s_prev) @ ws_w + ws_b
-    e = torch.tanh(vh + ws[:, None, :]) @ w_e
-    alpha = masked_softmax(e, enc_mask)
-    c = torch.einsum("bl,bla->ba", alpha, h)
-    r = rnd(torch.cat([rnd(c) @ c_w + c_b, yin_t], dim=-1)) @ dec_w + dec_b
-    zr = torch.sigmoid(rnd(torch.cat([s_prev, r], dim=-1)) @ gru_wzr)
-    zg, rg = zr[:, :st], zr[:, st:]
-    cand = torch.tanh(rnd(torch.cat([rg * s_prev, r], dim=-1)) @ gru_wh)
-    return alpha, c, (1.0 - zg) * s_prev + zg * cand
-
-
 def attention_decode_scan_plain(vh, h, enc_mask, yin, *weights):
-    """Plain PyTorch twin of K4: _step_core looped over the T steps. On
-    bfloat16 inputs the twin of its bf16 entry: the inputs widened to
-    float32, s carried in float32, the products' operands rounded as the
-    JAX kernel rounds them, the outputs rounded to bf16."""
-    dt, rnd = vh.dtype, _same
-    if dt == torch.bfloat16:
-        vh, h, enc_mask, yin, *weights = (t.float() for t in (vh, h, enc_mask, yin, *weights))
-        rnd = build.round_bf16
-    b, t_len, st = yin.shape
-    s = yin.new_zeros((b, st))
-    s_seq, c_seq, alpha_seq = [], [], []
-    for t in range(t_len):
-        alpha, c, s = _step_core(vh, h, enc_mask, yin[:, t], s, *weights, rnd=rnd)
-        s_seq.append(s)
-        c_seq.append(c)
-        alpha_seq.append(alpha)
-    return tuple(torch.stack(x, dim=1).to(dt) for x in (s_seq, c_seq, alpha_seq))
+    """Plain PyTorch twin of K4: the GRU decoder's step (step_plain)
+    looped over the T steps. On bfloat16 inputs the twin of its bf16
+    entry's JAX kernel: the inputs widened to float32, s carried in
+    float32, the products' operands rounded as the JAX kernel rounds them,
+    the outputs rounded to bf16."""
+    return _scan_plain(vh, h, enc_mask, yin, weights, lstm=False)
 
 
 def attention_decode_scan_bwd_plain(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b, dec_w,
@@ -193,10 +167,7 @@ def attention_decode_scan(vh, h, enc_mask, yin, *weights):
     fwd_plan_on's plan; it raises RuntimeError where no cluster fits the
     device. All float32, or all bfloat16 (the bf16 entry; outputs in
     bf16)."""
-    if build.on_cpu(vh, h, enc_mask, yin, *weights):
-        return attention_decode_scan_plain(vh, h, enc_mask, yin, *weights)
-    kernel = KERNEL_FWD_BF16 if vh.dtype == torch.bfloat16 else KERNEL_FWD
-    return _scan(kernel, False, vh, h, enc_mask, yin, weights)
+    return _scan(KERNEL_FWD, KERNEL_FWD_BF16, False, vh, h, enc_mask, yin, weights)
 
 
 def attention_decode_scan_bwd(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b,
@@ -272,6 +243,21 @@ class AttentionDecodeScan(torch.autograd.Function):
 # (K10, K12, K14, and K4 above) run a pre-pass that folds c_in and dec_in
 # into the gates (``lstm_fold_plain``, ``gru_fold_plain``), then a walk on
 # thread-block clusters on ``fwd_plan_on``'s plan.
+#
+# K10 and K12 have bf16 entries (``KERNEL_LOC_LSTM_FWD_BF16``,
+# ``KERNEL_LOC_FWD_BF16``): every input bfloat16, the outputs bfloat16.
+# The JAX kernels with bf16 inputs (``_fwd_kernel_loc_lstm`` and
+# ``_fwd_kernel_loc`` with ``dt`` = bf16) keep the energies, the
+# softmax, c and the s, mem and alpha carries in float32 and round five
+# operands in ``_step_core``: s_prev before ws_w; c before c_w; [cc |
+# yin] before dec_w; [s_prev | r] before the LSTM's gates or the GRU's
+# update and reset gates; [rg s_prev | r] before the GRU's candidate;
+# and in ``_location_term`` the features before u (the convolution runs
+# in float32 on the float32 alpha carry). ``_scan_plain`` rounds there
+# on bf16 inputs. The entries fold c_in and dec_in into the gates as K4's
+# do, so they round s_prev, the features, c and rg s_prev, and not cc or
+# r, which they never form; ``folded_scan_plain`` is their plain twin as
+# they compute (ROADMAP, "Differences that are deliberate").
 
 # K10 and K14 are built from the decoder scans' source into a library of
 # their own (the forward walk's LSTM instances), and K12 with K4 into
@@ -307,6 +293,19 @@ KERNEL_LSTM_BWD = build.Kernel(
     "attention_decode_scan_lstm_bwd",
     [ctypes.c_void_p] * 36 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 )
+# K10's and K12's bf16 entries, in their float32 kernels' libraries.
+KERNEL_LOC_LSTM_FWD_BF16 = build.Kernel(
+    "attention_decode_scan_loc_lstm_fwd_bf16", "attention_scan_loc_lstm.cu",
+    "attention_decode_scan_loc_lstm_fwd_bf16",
+    [ctypes.c_void_p] * 22 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    defines=("LSTM_FWD_ONLY",),
+)
+KERNEL_LOC_FWD_BF16 = build.Kernel(
+    "attention_decode_scan_loc_fwd_bf16", "attention_scan_loc_lstm.cu",
+    "attention_decode_scan_loc_fwd_bf16",
+    [ctypes.c_void_p] * 20 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    defines=("GRU_FWD_ONLY",),
+)
 _COMMON = WEIGHTS[:7]
 _LOC = ("wconv", "bconv", "u")
 WEIGHTS_LOC_LSTM = _COMMON + ("w_h", "w_x", "b") + _LOC
@@ -331,7 +330,9 @@ def lstm_fold_plain(yin, c_w, c_b, dec_w, dec_b, w_x, b):
     P = ([c_b | yin] @ dec_w + dec_b) @ w_x + b (B, T, 4St) and W_cx =
     c_w @ dec_w[:St] @ w_x (A, 4St), both known before the first step.
     Returns (P, W_cx), gate-major as w_x (the kernel stores them unit by
-    unit)."""
+    unit). bf16 inputs are widened to float32 first, as the bf16 entry's
+    pre-pass widens them: its tables are float32."""
+    yin, c_w, c_b, dec_w, dec_b, w_x, b = map(build.widen, (yin, c_w, c_b, dec_w, dec_b, w_x, b))
     p, w_cx = _fold(yin, c_w, c_b, dec_w, dec_b, w_x)
     return p + b, w_cx
 
@@ -353,35 +354,11 @@ def gru_fold_plain(yin, c_w, c_b, dec_w, dec_b, gru_wzr, gru_wh):
 
 
 def gru_folded_scan_plain(vh, h, enc_mask, yin, *weights):
-    """Plain twin of K4 as its entries compute it: gru_fold_plain's P and
-    W_cx, then each step's update and reset gates sigmoid(s_prev @
-    w_zr[:St] + x[:, :2St]) and candidate tanh((rg s_prev) @ w_h[:St] +
-    x[:, 2St:]) with x = P[:, t] + c @ W_cx. The float32 entry's sums in
-    exact arithmetic; on bfloat16 inputs the bf16 entry's: s carried in
-    float32, s_prev rounded to bf16 before ws_w and w_zr[:St], c before
-    W_cx, rg s_prev before w_h[:St], the outputs bf16. cc and r, which
-    the fold never forms, are not rounded, where the JAX kernel's rounding
-    points (attention_decode_scan_plain) round them."""
-    dt, rnd = vh.dtype, _same
-    if dt == torch.bfloat16:
-        vh, h, enc_mask, yin, *weights = (t.float() for t in (vh, h, enc_mask, yin, *weights))
-        rnd = build.round_bf16
-    ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, gru_wzr, gru_wh = weights
-    p, w_cx = gru_fold_plain(yin, c_w, c_b, dec_w, dec_b, gru_wzr, gru_wh)
-    b, t_len, st = yin.shape
-    s = yin.new_zeros((b, st))
-    outs = ([], [], [])
-    for t in range(t_len):
-        sr = rnd(s)
-        alpha = masked_softmax(torch.tanh(vh + (sr @ ws_w + ws_b)[:, None, :]) @ w_e, enc_mask)
-        c = torch.einsum("bl,bla->ba", alpha, h)
-        x = p[:, t] + rnd(c) @ w_cx
-        zr = torch.sigmoid(sr @ gru_wzr[:st] + x[:, :2 * st])
-        zg, rg = zr[:, :st], zr[:, st:]
-        s = (1.0 - zg) * s + zg * torch.tanh(rnd(rg * s) @ gru_wh[:st] + x[:, 2 * st:])
-        for seq, v in zip(outs, (s, c, alpha)):
-            seq.append(v)
-    return tuple(torch.stack(x, dim=1).to(dt) for x in outs)
+    """Plain twin of K4 as its entries compute it: folded_scan_plain for
+    the content-only GRU (on bfloat16 inputs, its bf16 entry's: s_prev
+    rounded before ws_w and w_zr[:St], c before W_cx, rg s_prev before
+    w_h[:St]; not cc or r)."""
+    return folded_scan_plain(vh, h, enc_mask, yin, weights, lstm=False)
 
 
 def _fold(yin, c_w, c_b, dec_w, dec_b, w_x):
@@ -398,36 +375,103 @@ def _split(weights, lstm: bool):
     return weights[:7], weights[7:7 + n_cell], weights[7 + n_cell:]
 
 
+def _io(vh, h, enc_mask, yin, weights):
+    """(the inputs widened to float32 where they are bfloat16, their type,
+    the operand rounding of that type: build.round_bf16 for bf16, else
+    the identity)."""
+    dt = vh.dtype
+    if dt != torch.bfloat16:
+        return (vh, h, enc_mask, yin, weights), dt, _same
+    vh, h, enc_mask, yin, *weights = (t.float() for t in (vh, h, enc_mask, yin, *weights))
+    return (vh, h, enc_mask, yin, tuple(weights)), dt, build.round_bf16
+
+
 def _scan_plain(vh, h, enc_mask, yin, weights, lstm: bool):
-    """The step above looped over the T steps: (s_seq, c_seq, alpha_seq),
-    and mem_seq for the LSTM."""
-    (ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b), cell_w, loc_w = _split(weights, lstm)
+    """step_plain looped over the T steps: (s_seq, c_seq, alpha_seq), and
+    mem_seq for the LSTM. On bfloat16 inputs the plain bf16 version at
+    the JAX kernels' rounding points (the section's head names them): the
+    inputs widened, the carries float32, the outputs bf16."""
+    (vh, h, enc_mask, yin, weights), dt, rnd = _io(vh, h, enc_mask, yin, weights)
     bsz, t_len, st = yin.shape
     s = yin.new_zeros((bsz, st))
     mem = torch.zeros_like(s)
     alpha = vh.new_zeros(vh.shape[:2])
     outs = ([], [], [], [])
     for t in range(t_len):
-        z = vh + (s @ ws_w + ws_b)[:, None, :]
+        alpha, c, s, mem = step_plain(vh, h, enc_mask, yin[:, t], s, mem, alpha, weights, lstm,
+                                      rnd)
+        for seq, v in zip(outs, (s, c, alpha, mem)):
+            seq.append(v)
+    return tuple(torch.stack(x, dim=1).to(dt) for x in outs[:4 if lstm else 3])
+
+
+def step_plain(vh, h, enc_mask, yin_t, s, mem, alpha_prev, weights, lstm: bool, rnd=_same):
+    """One step of any of the four decoders, on float32 tensors: (alpha,
+    c, s, mem), mem passing through the GRU. `rnd` rounds each product's
+    operand where the JAX kernels round it to their IO type
+    (build.round_bf16 for bf16; the identity for float32)."""
+    (ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b), cell_w, loc_w = _split(weights, lstm)
+    st = yin_t.shape[-1]
+    z = vh + (rnd(s) @ ws_w + ws_b)[:, None, :]
+    if loc_w:
+        z = z + rnd(_loc_features(alpha_prev, loc_w[0], loc_w[1])) @ loc_w[2]
+    alpha = masked_softmax(torch.tanh(z) @ w_e, enc_mask)
+    c = torch.einsum("bl,bla->ba", alpha, h)
+    r = rnd(torch.cat([rnd(c) @ c_w + c_b, yin_t], dim=-1)) @ dec_w + dec_b
+    if lstm:
+        w_h, w_x, b = cell_w
+        g_in, g_forget, g_cell, g_out = (rnd(s) @ w_h + rnd(r) @ w_x + b).chunk(4, dim=-1)
+        mem = torch.sigmoid(g_forget) * mem + torch.sigmoid(g_in) * torch.tanh(g_cell)
+        return alpha, c, torch.sigmoid(g_out) * torch.tanh(mem), mem
+    gru_wzr, gru_wh = cell_w
+    zr = torch.sigmoid(rnd(torch.cat([s, r], dim=-1)) @ gru_wzr)
+    zg, rg = zr[:, :st], zr[:, st:]
+    cand = torch.tanh(rnd(torch.cat([rg * s, r], dim=-1)) @ gru_wh)
+    return alpha, c, (1.0 - zg) * s + zg * cand, mem
+
+
+def folded_scan_plain(vh, h, enc_mask, yin, weights, lstm: bool):
+    """Plain twin of the forwards K10, K12, K14 and K4 as their entries
+    compute them: the pre-pass's P and W_cx (lstm_fold_plain,
+    gru_fold_plain), then each step's gate pre-activations s_prev @ w_h +
+    x for the LSTM, or sigmoid(s_prev @ w_zr[:St] + x[:, :2St]) and the
+    candidate tanh((rg s_prev) @ w_h[:St] + x[:, 2St:]) for the GRU, with
+    x = P[:, t] + c @ W_cx; the location term's features from the alpha
+    carry through u. The float32 entries' sums in exact arithmetic; on
+    bfloat16 inputs the bf16 entries': the carries float32, s_prev
+    rounded to bf16 before ws_w and the s_prev products, the features
+    before u, c before W_cx, rg s_prev before w_h[:St], the outputs bf16.
+    cc and r, which the fold never forms, are not rounded, where the JAX
+    kernels' rounding points (_scan_plain) round them."""
+    (vh, h, enc_mask, yin, weights), dt, rnd = _io(vh, h, enc_mask, yin, weights)
+    (ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b), cell_w, loc_w = _split(weights, lstm)
+    fold = lstm_fold_plain if lstm else gru_fold_plain
+    p, w_cx = fold(yin, c_w, c_b, dec_w, dec_b, *(cell_w[1:] if lstm else cell_w))
+    bsz, t_len, st = yin.shape
+    s = yin.new_zeros((bsz, st))
+    mem = torch.zeros_like(s)
+    alpha = vh.new_zeros(vh.shape[:2])
+    outs = ([], [], [], [])
+    for t in range(t_len):
+        sr = rnd(s)
+        z = vh + (sr @ ws_w + ws_b)[:, None, :]
         if loc_w:
-            z = z + _loc_features(alpha, loc_w[0], loc_w[1]) @ loc_w[2]
+            z = z + rnd(_loc_features(alpha, loc_w[0], loc_w[1])) @ loc_w[2]
         alpha = masked_softmax(torch.tanh(z) @ w_e, enc_mask)
         c = torch.einsum("bl,bla->ba", alpha, h)
-        r = torch.cat([c @ c_w + c_b, yin[:, t]], dim=-1) @ dec_w + dec_b
+        x = p[:, t] + rnd(c) @ w_cx
         if lstm:
-            w_h, w_x, b = cell_w
-            g_in, g_forget, g_cell, g_out = (s @ w_h + r @ w_x + b).chunk(4, dim=-1)
+            g_in, g_forget, g_cell, g_out = (sr @ cell_w[0] + x).chunk(4, dim=-1)
             mem = torch.sigmoid(g_forget) * mem + torch.sigmoid(g_in) * torch.tanh(g_cell)
             s = torch.sigmoid(g_out) * torch.tanh(mem)
         else:
             gru_wzr, gru_wh = cell_w
-            zr = torch.sigmoid(torch.cat([s, r], dim=-1) @ gru_wzr)
+            zr = torch.sigmoid(sr @ gru_wzr[:st] + x[:, :2 * st])
             zg, rg = zr[:, :st], zr[:, st:]
-            cand = torch.tanh(torch.cat([rg * s, r], dim=-1) @ gru_wh)
-            s = (1.0 - zg) * s + zg * cand
+            s = (1.0 - zg) * s + zg * torch.tanh(rnd(rg * s) @ gru_wh[:st] + x[:, 2 * st:])
         for seq, v in zip(outs, (s, c, alpha, mem)):
             seq.append(v)
-    return tuple(torch.stack(x, dim=1) for x in outs[:4 if lstm else 3])
+    return tuple(torch.stack(x, dim=1).to(dt) for x in outs[:4 if lstm else 3])
 
 
 def _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm: bool):
@@ -596,16 +640,20 @@ def _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm: bool, dtype=torch.fl
         build.check(name, t, shape, vh.device, dtype)
 
 
-def _scan(kernel, lstm: bool, vh, h, enc_mask, yin, weights):
-    """The forward wrapper of K10, K12, K14 and K4 (and K4's bf16 entry):
-    the plain version on CPU tensors, the kernel on CUDA tensors, on
-    fwd_plan_on's plan with a scratch of fwd_scratch_floats. Only K4 has
-    a bf16 entry: the others refuse bfloat16 inputs on either device."""
-    dt = torch.bfloat16 if kernel is KERNEL_FWD_BF16 else torch.float32
-    if vh.dtype == torch.bfloat16 and dt != torch.bfloat16:
-        raise TypeError(f"{kernel.name}: {build.BF16_OTHER_DECODERS}")
+def _scan(kernel, kernel_bf16, lstm: bool, vh, h, enc_mask, yin, weights):
+    """The forward wrapper of K10, K12, K14 and K4: the plain version
+    (_scan_plain) on CPU tensors, the kernel on CUDA tensors, on
+    fwd_plan_on's plan with a scratch of fwd_scratch_floats; on bfloat16
+    inputs the plain bf16 version or the bf16 entry (`kernel_bf16`). K14
+    has no bf16 entry (None): it refuses bfloat16 inputs on either
+    device."""
+    if vh.dtype == torch.bfloat16:
+        if kernel_bf16 is None:
+            raise TypeError(f"{kernel.name}: {build.BF16_CONTENT_LSTM}")
+        kernel = kernel_bf16
     if build.on_cpu(vh, h, enc_mask, yin, *weights):
         return _scan_plain(vh, h, enc_mask, yin, weights, lstm)
+    dt = build.io_dtype(vh)
     _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm, dt)
     (b, t_len, l, s_dim, a_dim, st), loc = _scan_dims(vh, h, yin, weights, lstm)
     f32 = dict(device=vh.device, dtype=torch.float32)
@@ -811,7 +859,9 @@ FWD_WARPS = 16  # warps of a block (csrc: kThreads / 32), a feature buffer each
 # The forward walk's cell, by the C entry point of its forward.
 FWD_CELL = {"attention_decode_scan_loc_lstm_fwd": "lstm", "attention_decode_scan_lstm_fwd": "lstm",
             "attention_decode_scan_loc_fwd": "gru", "attention_decode_scan_fwd": "gru",
-            "attention_decode_scan_fwd_bf16": "gru"}
+            "attention_decode_scan_fwd_bf16": "gru",
+            "attention_decode_scan_loc_lstm_fwd_bf16": "lstm",
+            "attention_decode_scan_loc_fwd_bf16": "gru"}
 # A step of the forward walk and wave, in us, by cell and (C, R), on an
 # NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 8's sweeps, on the
 # plan's layout: W_cx resident where it fits): for the LSTM, K10's walk at
@@ -964,8 +1014,10 @@ def attention_decode_scan_loc_lstm(vh, h, enc_mask, yin, *weights):
 
     CPU tensors take the plain version; CUDA tensors the kernel (K10), on
     fwd_plan_on's plan; it raises RuntimeError where no cluster fits the
-    device."""
-    return _scan(KERNEL_LOC_LSTM_FWD, True, vh, h, enc_mask, yin, weights)
+    device. All float32, or all bfloat16 (the bf16 entry; outputs in
+    bf16)."""
+    return _scan(KERNEL_LOC_LSTM_FWD, KERNEL_LOC_LSTM_FWD_BF16, True, vh, h, enc_mask, yin,
+                 weights)
 
 
 def attention_decode_scan_loc(vh, h, enc_mask, yin, *weights):
@@ -974,8 +1026,8 @@ def attention_decode_scan_loc(vh, h, enc_mask, yin, *weights):
     wconv, bconv, u. Returns (s_seq, c_seq, alpha_seq).
 
     CPU tensors take the plain version; CUDA tensors the kernel (K12), on
-    fwd_plan_on's plan as K10's wrapper."""
-    return _scan(KERNEL_LOC_FWD, False, vh, h, enc_mask, yin, weights)
+    fwd_plan_on's plan as K10's wrapper. All float32, or all bfloat16."""
+    return _scan(KERNEL_LOC_FWD, KERNEL_LOC_FWD_BF16, False, vh, h, enc_mask, yin, weights)
 
 
 def attention_decode_scan_lstm(vh, h, enc_mask, yin, *weights):
@@ -984,8 +1036,9 @@ def attention_decode_scan_lstm(vh, h, enc_mask, yin, *weights):
     (s_seq, c_seq, alpha_seq, mem_seq).
 
     CPU tensors take the plain version; CUDA tensors the kernel (K14), on
-    fwd_plan_on's plan as K10's wrapper."""
-    return _scan(KERNEL_LSTM_FWD, True, vh, h, enc_mask, yin, weights)
+    fwd_plan_on's plan as K10's wrapper. float32 only: bfloat16 inputs
+    raise TypeError (ROADMAP Queue A item 5c, second part)."""
+    return _scan(KERNEL_LSTM_FWD, None, True, vh, h, enc_mask, yin, weights)
 
 
 def attention_decode_scan_loc_lstm_bwd(vh, h, enc_mask, yin, *args):
@@ -1034,6 +1087,8 @@ def _forward(ctx, scan, args):
 
 def _backward(ctx, scan_bwd, cots):
     vh, h, enc_mask, yin, *rest = ctx.saved_tensors
+    if vh.dtype == torch.bfloat16:
+        raise NotImplementedError(build.BF16_TRAINING)
     cots = [None if c is None else c.contiguous() for c in cots]
     dvh, dh, dyin, *dw = scan_bwd(vh, h, enc_mask, yin, *rest, *cots)
     return (dvh, dh, None, dyin, *dw)
@@ -1045,7 +1100,8 @@ class AttentionDecodeScanLocLSTM(torch.autograd.Function):
     sequences, as the JAX VJP does (:1308-1326). enc_mask gets no
     gradient; a missing cotangent (mem_seq's always, on the training
     path, and alpha_seq's unless the loss reads alpha) reaches the
-    backward as None and counts as zeros."""
+    backward as None and counts as zeros. The gradient of a bf16 scan is
+    refused: K11 has no bf16 instance yet."""
 
     @staticmethod
     def forward(ctx, vh, h, enc_mask, yin, *weights):
@@ -1060,7 +1116,8 @@ class AttentionDecodeScanLoc(torch.autograd.Function):
     """attention_decode_scan_loc with its gradient: K12 forward, K13
     backward (the plain versions on CPU tensors). Saves s_seq, c_seq and
     alpha_seq, as the JAX VJP does (:1001-1017); enc_mask gets no
-    gradient, and a missing cotangent counts as zeros."""
+    gradient, and a missing cotangent counts as zeros. The gradient of a
+    bf16 scan is refused: K13 has no bf16 instance yet."""
 
     @staticmethod
     def forward(ctx, vh, h, enc_mask, yin, *weights):

@@ -21,10 +21,22 @@ K2 has a bf16 entry (``KERNEL_BF16``) for the bf16 model's beam: every
 input bfloat16, alpha, c and s out in bf16 (the beam's state is bf16
 between steps), logp float32. As the JAX kernel with bf16 inputs, it
 keeps the energies, the softmax, c and the cell's math in float32 and
-rounds each product's operand to bf16 (``attention_scan._step_core``
+rounds each product's operand to bf16 (``attention_scan.step_plain``
 names where); the readout takes round([s | c]), rounds each layer's
 product and then its bias add (``_readout_bf16``), and only the
-log-softmax is float32. K8 has no bf16 instance yet and refuses bf16.
+log-softmax is float32. K8 has a bf16 entry too (``KERNEL_LOC_LSTM_BF16``),
+for the <LSTM, location>, <GRU, location> and <GRU, content> instances
+(conv_bilstm's, flagship_loc's and vgg's beams): the beam's state (alpha,
+s, mem) arrives bf16 and is widened, alpha, c, s and mem store in bf16,
+logp in float32, and it rounds where the JAX kernel with bf16 inputs
+rounds (``_kernel_loc`` and the LSTM branch of ``_kernel``): the location
+term's features before u, c before c_in, [cc | yin] before dec_in, r
+before the gates (and the GRU's candidate), the GRU's rg s_prev before
+its candidate, and the readout as K2's. It forms every one of those
+operands (it folds nothing), so ``_plain_bf16`` is both its plain twin
+and the plain version at the JAX kernel's rounding points. The
+content-only LSTM decoder (conv_bilstm_content) has no bf16 instance
+yet and refuses bf16.
 """
 
 from __future__ import annotations
@@ -48,6 +60,11 @@ KERNEL_BF16 = build.Kernel(
 )
 KERNEL_LOC_LSTM = build.Kernel(
     "fused_attention_step_loc_lstm", "attention_step.cu", "fused_attention_step_loc_lstm",
+    [ctypes.c_void_p] * 25 + [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
+    + [ctypes.c_void_p],
+)
+KERNEL_LOC_LSTM_BF16 = build.Kernel(
+    "fused_attention_step_loc_lstm_bf16", "attention_step.cu", "fused_attention_step_loc_lstm_bf16",
     [ctypes.c_void_p] * 25 + [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
     + [ctypes.c_void_p],
 )
@@ -275,10 +292,10 @@ def uses_k2(cfg) -> bool:
 
 def fused_attention_step_plain(params, cfg, state, y_prev, vh, h, enc_mask):
     """Plain PyTorch twin: ops/attention.attention_step over the
-    flattened (B*K) batch, then the readout; on bfloat16 inputs (K2's
-    configurations only) ``_k2_plain_bf16``."""
+    flattened (B*K) batch, then the readout; on bfloat16 inputs
+    ``_plain_bf16``."""
     if vh.dtype == torch.bfloat16:
-        return _k2_plain_bf16(params, cfg, state, y_prev, vh, h, enc_mask)
+        return _plain_bf16(params, cfg, state, y_prev, vh, h, enc_mask)
     alpha_prev, s_prev, mem = state
     b, k = s_prev.shape[:2]
     flat = lambda a: a.reshape((b * k,) + a.shape[2:])
@@ -302,7 +319,7 @@ def _yin(params, y_prev):
 
 
 def _readout_bf16(params, cfg, x):
-    """The readout of K2's bf16 entry (``_apply_readout_fused`` with dt =
+    """The readout of the bf16 entries (``_apply_readout_fused`` with dt =
     bf16) on x = round([s | c]) in float32: each linear or maxout layer
     rounds its product to bf16, then its bias add (maxout takes the max
     of such values over its window), a relu acts as it is, dropout is
@@ -317,28 +334,34 @@ def _readout_bf16(params, cfg, x):
     return torch.log_softmax(x, dim=-1)
 
 
-def _k2_plain_bf16(params, cfg, state, y_prev, vh, h, enc_mask):
-    """Plain twin of K2's bf16 entry (``_kernel`` with bf16 inputs): yin
-    as the wrapper forms it, then attention_scan._step_core on the inputs
-    widened to float32 with the bf16 roundings, over the flattened (B*K)
-    batch; alpha, c and s rounded to bf16, logp from _readout_bf16. mem
-    passes through."""
-    _, s_prev, mem = state
+def _plain_bf16(params, cfg, state, y_prev, vh, h, enc_mask):
+    """Plain twin of K2's and K8's bf16 entries (``_kernel`` and
+    ``_kernel_loc`` with bf16 inputs): yin as the wrapper forms it, then
+    attention_scan.step_plain on the inputs and the state widened to
+    float32 with the bf16 roundings, over the flattened (B*K) batch;
+    alpha, c, s (and the LSTM's mem) rounded to bf16, logp from
+    _readout_bf16. The GRU's mem passes through."""
+    alpha_prev, s_prev, mem = state
     b, k, st = s_prev.shape
     f = lambda a: a.float()
+    flat = lambda a: f(a).reshape((b * k,) + a.shape[2:])
     per_hyp = lambda a: f(a)[:, None].expand((b, k) + a.shape[1:]).reshape((b * k,) + a.shape[1:])
-    dec = params
-    weights = (dec["ws"]["w"], dec["ws"]["b"], dec["w_e"], dec["c_in"]["w"], dec["c_in"]["b"],
-               dec["dec_in"]["w"], dec["dec_in"]["b"], dec["cell"]["w_zr"], dec["cell"]["w_h"])
-    alpha, c, s = attention_scan._step_core(
-        per_hyp(vh), per_hyp(h), per_hyp(enc_mask), f(_yin(params, y_prev)).reshape(b * k, st),
-        f(s_prev).reshape(b * k, st), *map(f, weights), rnd=build.round_bf16)
+    lstm = cfg.cell == "lstm"
+    cell = params["cell"]
+    weights = [params["ws"]["w"], params["ws"]["b"], params["w_e"], params["c_in"]["w"],
+               params["c_in"]["b"], params["dec_in"]["w"], params["dec_in"]["b"]]
+    weights += [cell["w_h"], cell["w_x"], cell["b"]] if lstm else [cell["w_zr"], cell["w_h"]]
+    if cfg.feature_maps > 0:
+        weights += [params["loc_conv"]["w"][:, 0, :], params["loc_conv"]["b"], params["u"]]
+    alpha, c, s, mem_new = attention_scan.step_plain(
+        per_hyp(vh), per_hyp(h), per_hyp(enc_mask), flat(_yin(params, y_prev)), flat(s_prev),
+        flat(mem), flat(alpha_prev), tuple(map(f, weights)), lstm, build.round_bf16)
     logp = _readout_bf16(params, cfg, build.round_bf16(torch.cat([s, c], dim=-1)))
     unflat = lambda a: a.reshape((b, k) + a.shape[1:])
     res = {"s": unflat(s), "c": unflat(c), "alpha": unflat(alpha)}
     res = {key: val.to(torch.bfloat16) for key, val in res.items()}
     res["logp"] = unflat(logp)
-    return (res["alpha"], res["s"], mem), res
+    return (res["alpha"], res["s"], unflat(mem_new).to(torch.bfloat16) if lstm else mem), res
 
 
 def fused_attention_step(params, cfg, state, y_prev, vh, h, enc_mask):
@@ -351,12 +374,13 @@ def fused_attention_step(params, cfg, state, y_prev, vh, h, enc_mask):
     CPU tensors take the plain version; CUDA tensors kernel K2 (the
     content-only GRU decoder with the maxout -> linear readout) or K8
     (every other decoder). Both raise RuntimeError where no cluster plan
-    fits the device. bfloat16 inputs (the bf16 model's beam) take K2's
-    bf16 entry, or its plain twin; K8's configurations refuse them."""
+    fits the device. bfloat16 inputs (a bf16 model's beam) take K2's or
+    K8's bf16 entry, or their plain twin; the content-only LSTM decoder
+    refuses them."""
     attention.check_ported(cfg)
     alpha_prev, s_prev, mem = state
-    if vh.dtype == torch.bfloat16 and not uses_k2(cfg):
-        raise TypeError(f"fused_attention_step: {build.BF16_OTHER_DECODERS}")
+    if vh.dtype == torch.bfloat16 and cfg.cell == "lstm" and cfg.feature_maps == 0:
+        raise TypeError(f"fused_attention_step: {build.BF16_CONTENT_LSTM}")
     if build.on_cpu(alpha_prev, s_prev, mem, y_prev, vh, h, enc_mask):
         return fused_attention_step_plain(params, cfg, state, y_prev, vh, h, enc_mask)
     b, k, st = s_prev.shape
@@ -420,7 +444,8 @@ def _step_k8(params, cfg, state, yin, vh, h, enc_mask):
     alpha_prev, s_prev, mem = state
     b, k, st = s_prev.shape
     _, l, s_dim = vh.shape
-    a_dim, v, dev = h.shape[2], cfg.output_depth, vh.device
+    a_dim, v, dev, dt = h.shape[2], cfg.output_depth, vh.device, build.io_dtype(vh)
+    kernel = KERNEL_LOC_LSTM_BF16 if dt == torch.bfloat16 else KERNEL_LOC_LSTM
     lstm, loc = cfg.cell == "lstm", cfg.feature_maps > 0
     fm, f = cfg.feature_maps, cfg.filt_size
     cell = params["cell"]
@@ -465,14 +490,15 @@ def _step_k8(params, cfg, state, yin, vh, h, enc_mask):
     ins = _step_args(params, vh, h, enc_mask, yin, s_prev) + cell_args + state_args + loc_args
     for name, t, shape in ins + ro_args:
         if t is not None:
-            build.check(name, t, shape, dev)
+            build.check(name, t, shape, dev, dt)
     ptr = lambda t: None if t is None else build.ptr(t).value
+    # The bf16 entry's block and shared memory are the float one's: its plan.
     plan = step_loc_lstm_plan_on(b, k, l, s_dim, a_dim, st, fm if loc else 0, f if loc else 0,
                                  lstm, dense, dev)
-    alpha, c, s, logp = _outputs(b, k, l, a_dim, st, v, dev)
-    mem_new = torch.empty((b, k, st), device=dev, dtype=torch.float32) if lstm else mem
+    alpha, c, s, logp = _outputs(b, k, l, a_dim, st, v, dev, dt)
+    mem_new = torch.empty((b, k, st), device=dev, dtype=dt) if lstm else mem
     n = len(layers)
-    KERNEL_LOC_LSTM.launch(
+    kernel.launch(
         *[ptr(t) for _, t, _ in ins],
         ptr(alpha), ptr(c), ptr(s), ptr(mem_new) if lstm else None, ptr(logp),
         n, (ctypes.c_int * n)(*kinds), (ctypes.c_int * n)(*outs), (ctypes.c_int * n)(*wins),

@@ -170,6 +170,12 @@ def io_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.bfloat16 if t.dtype == torch.bfloat16 else torch.float32
 
 
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """x widened to float32 where it is bfloat16 (exactly), else x as it
+    is: where a plain version takes a bf16 entry's inputs."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
     """x rounded to bfloat16 (to nearest even) and widened back: where a
     bf16 entry rounds a product's operand, the plain versions round."""
@@ -177,9 +183,12 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 # Where the bf16 operating point stops (ROADMAP Queue A items 5b and 5c).
-BF16_TRAINING = "bf16 training needs bf16 instances of K5 and K6: ROADMAP Queue A item 5b"
-BF16_OTHER_DECODERS = ("bf16 runs the flagship's content-only GRU decoder only; the others need "
-                       "bf16 instances of K7-K15 and K8: ROADMAP Queue A item 5c")
+BF16_TRAINING = ("bf16 training needs bf16 instances of the backward kernels: K5 and K6 (ROADMAP "
+                 "Queue A item 5b), then K9, K11 and K13 for conv_bilstm, flagship_loc and vgg "
+                 "(ROADMAP Queue A item 5c, training part)")
+BF16_CONTENT_LSTM = ("bf16 runs no content-only LSTM decoder (conv_bilstm_content) yet: it needs "
+                     "bf16 instances of K14 and K8 <LSTM, content>: ROADMAP Queue A item 5c, "
+                     "second part")
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

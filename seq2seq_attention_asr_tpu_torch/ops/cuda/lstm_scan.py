@@ -19,6 +19,19 @@ steps on thread-block clusters (plan cell "lstm_fwd"); K9 runs a gate
 pre-pass over every step, then a walk on thread-block clusters (cell
 "lstm"). Each wrapper computes its walk's plan (``walk.plan_on``) and
 passes it; where no cluster fits the device, it raises.
+
+K7 has a bf16 entry (``KERNEL_BF16``, the same walk with a bf16 IO type
+for xproj2 and wh2): the JAX kernel with bf16 inputs (``_fwd_kernel``
+with bf16 xproj and w_h, float32 h0 and c0, ops/rnn.py:235 of the JAX
+package) carries h and c in float32 and stores both outputs in float32
+(:119-126), so ``jnp.dot(h, w_h)`` multiplies the unrounded float32 h by
+the widened bf16 weights: it rounds nothing. ``bilstm_layer`` then casts
+the outputs to the input's type (ops/rnn.py:243-247 of the JAX
+package). The entry widens xproj2 and wh2 as it loads them and runs the
+float32 walk's plan; its plain twin, and the plain version at the JAX
+kernel's rounding points, is ``bilstm_scan_plain`` on the widened
+inputs. K9 has no bf16 instance: ``BiLSTMScan`` refuses the gradient of
+a bf16 scan (ROADMAP Queue A item 5c, training part).
 """
 
 from __future__ import annotations
@@ -37,12 +50,19 @@ KERNEL_BWD = build.Kernel(
     "bilstm_scan_bwd", "bilstm_scan_bwd.cu", "bilstm_scan_bwd",
     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
+KERNEL_BF16 = build.Kernel(
+    "bilstm_scan_bf16", "bilstm_scan.cu", "bilstm_scan_fwd_bf16",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+)
 MAX_H = 1024  # csrc/bilstm_scan.cu and csrc/bilstm_scan_bwd.cu refuse wider states
 
 
 def bilstm_scan_plain(xproj2, h02, c02, wh2):
     """Plain PyTorch twin: a Python loop over time of the gate math of
-    cells.lstm_step_preproj, both directions stacked."""
+    cells.lstm_step_preproj, both directions stacked. bf16 xproj2 and
+    wh2 (K7's bf16 entry) are widened first; the states and the outputs
+    are float32 either way."""
+    xproj2, wh2 = build.widen(xproj2), build.widen(wh2)
     _, b, l, h4 = xproj2.shape
     h_dim = h4 // 4
     h, c = h02, c02
@@ -70,22 +90,28 @@ def bilstm_scan(xproj2, h02, c02, wh2):
     in its scan order; h02, c02 (2, B, H) initial states; wh2 (2, H, 4H)
     recurrent weights. Returns (hidden states, cell states), each
     (2, B, L, H) float32, direction 1 in scan order. No peepholes.
+    xproj2 and wh2 float32, or both bfloat16 (the bf16 entry); h02 and
+    c02 float32 either way, as the JAX package passes them.
 
     CPU tensors take the plain version; CUDA tensors the kernel."""
     if build.on_cpu(xproj2, h02, c02, wh2):
         return bilstm_scan_plain(xproj2, h02, c02, wh2)
     _, b, l, _ = xproj2.shape
     h = _hidden(xproj2)
-    dev = xproj2.device
-    for name, t, shape in (("xproj2", xproj2, (2, b, l, 4 * h)), ("h02", h02, (2, b, h)),
-                           ("c02", c02, (2, b, h)), ("wh2", wh2, (2, h, 4 * h))):
-        build.check(name, t, shape, dev)
+    dev, dt = xproj2.device, build.io_dtype(xproj2)
+    kernel = KERNEL_BF16 if dt == torch.bfloat16 else KERNEL
+    for name, t, shape, t_dt in (("xproj2", xproj2, (2, b, l, 4 * h), dt),
+                                 ("h02", h02, (2, b, h), torch.float32),
+                                 ("c02", c02, (2, b, h), torch.float32),
+                                 ("wh2", wh2, (2, h, 4 * h), dt)):
+        build.check(name, t, shape, dev, t_dt)
     hs = torch.empty((2, b, l, h), device=dev, dtype=torch.float32)
     cs = torch.empty_like(hs)
     if b * l == 0:
         return hs, cs
+    # The bf16 entry's walk keeps its slices in float: the float walk's plan.
     plan = walk.plan_on(KERNEL, b, h, "lstm_fwd", 2, dev)
-    KERNEL.launch(
+    kernel.launch(
         build.ptr(xproj2), build.ptr(h02), build.ptr(c02), build.ptr(wh2),
         build.ptr(hs), build.ptr(cs), b, l, h, *plan.args(), build.stream_of(xproj2),
     )
@@ -157,7 +183,8 @@ class BiLSTMScan(torch.autograd.Function):
     """bilstm_scan with its gradient: K7 forward, K9 backward (the plain
     versions on CPU tensors). Returns the hidden states; saves them with
     the cell states, and the backward shifts both by one step with the
-    initial state in front, as the JAX VJP does (``_vjp_bwd`` :194)."""
+    initial state in front, as the JAX VJP does (``_vjp_bwd`` :194). The
+    gradient of a bf16 scan is refused: K9 has no bf16 instance yet."""
 
     @staticmethod
     def forward(ctx, xproj2, h02, c02, wh2):
@@ -168,6 +195,8 @@ class BiLSTMScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dhs):
         xproj2, h02, c02, wh2, hs, cs = ctx.saved_tensors
+        if xproj2.dtype == torch.bfloat16:
+            raise NotImplementedError(build.BF16_TRAINING)
         h_prev2 = torch.cat([h02[:, :, None], hs[:, :, :-1]], dim=2)
         c_prev2 = torch.cat([c02[:, :, None], cs[:, :, :-1]], dim=2)
         return bilstm_scan_bwd(xproj2, h_prev2, c_prev2, dhs.contiguous(), wh2)

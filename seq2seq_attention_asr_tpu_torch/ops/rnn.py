@@ -113,13 +113,16 @@ def bilstm_layer(params: Params, x: torch.Tensor, lengths: Optional[torch.Tensor
     backward outputs back. The flips are gathers and the projections
     matmuls, which autograd differentiates. The outputs are not masked:
     the forward direction runs on into the padding, as in the JAX
-    package."""
+    package. bf16 params and input (a bf16 model's) project in bf16 and
+    scan through K7's bf16 entry from float32 zero states, as the JAX
+    package's fused branch does (ops/rnn.py:235); the scan's float32
+    outputs are cast to the input's type, as there (:243-247)."""
     if "w_peep" in params["fwd"] or "w_peep" in params["bwd"]:
         raise NotImplementedError("LSTM peepholes are not ported")
     h_dim = params["fwd"]["w_h"].shape[0]
     xproj2 = torch.stack([cells.lstm_input_proj(params["fwd"], x),
                           cells.lstm_input_proj(params["bwd"], _flip(x, lengths))])
-    zeros = x.new_zeros((2, x.shape[0], h_dim))
+    zeros = x.new_zeros((2, x.shape[0], h_dim), dtype=torch.float32)
     wh2 = torch.stack([params["fwd"]["w_h"], params["bwd"]["w_h"]])
     hs = lstm_scan.BiLSTMScan.apply(xproj2.contiguous(), zeros, zeros, wh2.contiguous())
-    return torch.cat([hs[0], _flip(hs[1], lengths)], dim=-1)
+    return torch.cat([hs[0], _flip(hs[1], lengths)], dim=-1).to(x.dtype)

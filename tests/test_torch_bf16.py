@@ -29,7 +29,6 @@ port's plain bf16 versions follow the kernels. Bars:
     JAX_PLATFORMS=cpu python -m pytest -m slow tests/test_torch_bf16.py -s
 """
 
-import dataclasses
 import pathlib
 
 import jax
@@ -367,13 +366,15 @@ def test_decode_step_bf16_casts_like_jax(held_out):
 
 
 def test_bf16_training_and_other_decoders_refuse():
-    """A bf16 train step and bf16 conv_bilstm raise NotImplementedError
-    naming their ROADMAP items; a bad compute_dtype raises ValueError; the
-    location-aware decoder's scan and K8's step refuse bf16 inputs."""
+    """A bf16 train step and bf16 conv_bilstm_content raise
+    NotImplementedError naming their ROADMAP items; a bad compute_dtype
+    raises ValueError; the content-only LSTM decoder's scan and K8's
+    step on it refuse bf16 inputs (the location-aware decoders take
+    them: tests/test_torch_bf16_models.py)."""
     with pytest.raises(ValueError):
         registry.build("chorowski", compute_dtype="float16")
     with pytest.raises(NotImplementedError, match="5c"):
-        registry.build("conv_bilstm", compute_dtype="bfloat16")
+        registry.build("conv_bilstm", compute_dtype="bfloat16", feature_maps=0)
     with pytest.raises(ValueError):
         registry.build("conv_bilstm", compute_dtype="float64")
     m = registry.build("chorowski", compute_dtype="bfloat16", **SMALL)
@@ -384,13 +385,10 @@ def test_bf16_training_and_other_decoders_refuse():
     with pytest.raises(NotImplementedError, match="5b"):
         tr.step_fn(tr.state, (torch.from_numpy(x), torch.from_numpy(x_len), y,
                               torch.from_numpy(dm)))
-    loc = registry.build("chorowski", compute_dtype="bfloat16", **dict(SMALL, feature_maps=4))
-    lp = loc.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(TypeError, match="5c"):
-        loc.forward(lp, torch.from_numpy(x), torch.from_numpy(x_len), torch.from_numpy(oh),
-                    torch.from_numpy(dm))
-    lcfg = dataclasses.replace(CFG, feature_maps=4)
-    ldec = jax.tree.map(lambda t: t.to(BF16), lp["decoder"])
+    lcfg = attention.AttentionConfig(score_depth=24, state_depth=16, annotation_depth=32,
+                                     output_depth=7, readout=(("linear", 7),), cell="lstm")
+    ldec = jax.tree.map(lambda t: t.to(BF16),
+                        attention.attention_init(torch.Generator().manual_seed(0), lcfg))
     b, k, l = 2, 3, 5
     state = tuple(torch.zeros(b, k, n, dtype=BF16) for n in (l, 16, 16))
     h = torch.zeros(b, l, 32, dtype=BF16)
@@ -398,6 +396,14 @@ def test_bf16_training_and_other_decoders_refuse():
         attention_step.fused_attention_step(ldec, lcfg, state, torch.zeros(b, k, 7, dtype=BF16),
                                             torch.zeros(b, l, 24, dtype=BF16), h,
                                             torch.ones(b, l, dtype=BF16))
+    c = ldec["cell"]
+    weights = (ldec["ws"]["w"], ldec["ws"]["b"], ldec["w_e"], ldec["c_in"]["w"],
+               ldec["c_in"]["b"], ldec["dec_in"]["w"], ldec["dec_in"]["b"], c["w_h"], c["w_x"],
+               c["b"])
+    with pytest.raises(TypeError, match="5c"):
+        attention_scan.attention_decode_scan_lstm(torch.zeros(b, l, 24, dtype=BF16), h,
+                                                  torch.ones(b, l, dtype=BF16),
+                                                  torch.zeros(b, 4, 16, dtype=BF16), *weights)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

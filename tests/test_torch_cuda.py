@@ -573,14 +573,17 @@ def test_bilstm_scan_forward_refuses_without_a_cluster(card, monkeypatch):
 
 # (cell, feature_maps, filt_size, (S, St, A, V), readout): the conv+BiLSTM
 # recipe's decoder, the flagship's widths with location-aware attention
-# (an even filter), the recipe without the location term, and small odd
-# widths of each.
+# (an even filter), the recipe without the location term, small odd
+# widths of each, and VGG's decoder with its four-layer readout over a
+# character vocabulary.
 LOC_LSTM_CASES = [
     ("lstm", 16, 5, (150, 400, 256, 62), (("linear", 124), ("relu",), ("linear", 62))),
     ("gru", 16, 10, (512, 256, 512, 62), (("dropout", 0.5), ("maxout", 64, 7), ("linear", 62))),
     ("lstm", 0, 5, (150, 400, 256, 62), (("linear", 124), ("relu",), ("linear", 62))),
     ("lstm", 3, 4, (13, 10, 18, 7), (("maxout", 5, 3), ("relu",), ("linear", 7))),
     ("gru", 0, 5, (16, 12, 20, 6), (("linear", 9), ("relu",), ("linear", 6))),
+    ("gru", 0, 10, (512, 256, 512, 30), (("maxout", 64, 7), ("linear", 64), ("maxout", 64, 7),
+                                          ("linear", 30))),
 ]
 
 
@@ -1558,6 +1561,128 @@ def test_fused_attention_step_bf16_entry(card, b, k, l, dims, dead):
 def _outputs(res):
     _, out = res
     return out["alpha"], out["c"], out["s"], out["logp"]
+
+
+# The bf16 entries of K7, K10, K12 and K8 (the bf16 evaluation of
+# conv_bilstm, flagship_loc and vgg), held as K1's, K4's and K2's are
+# above. K7's outputs are float32 (the JAX kernel's are) and it rounds
+# nothing: its twin is the plain version on the widened inputs. K10's
+# and K12's twin folds c_in and dec_in into the gates as their entries
+# do (folded_scan_plain); K8 forms every operand, so its twin is its
+# plain bf16 version.
+@pytest.mark.parametrize("b,l,h", [(1, 14, 128), (16, 16, 128), (33, 9, 128), (3, 7, 5),
+                                   (3, 9, 337)])
+def test_bilstm_scan_bf16_entry(card, b, l, h):
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import lstm_scan
+
+    xproj2, h02, c02, wh2 = _lstm_fwd_case(b, l, h, b * 31 + h)
+    args = (xproj2.to(torch.bfloat16), h02, c02, wh2.to(torch.bfloat16))
+    got = _bf16_twice(lstm_scan.KERNEL_BF16, lstm_scan.bilstm_scan, args)
+    plain = lstm_scan.bilstm_scan_plain(*args)
+    assert got[0].dtype == got[1].dtype == torch.float32
+    _bf16_close("bilstm_scan_bf16", got, plain, plain, plain)
+
+
+# (cell, B, L, T, (S, A, St, FM, F)): the conv+BiLSTM recipe's decoder at
+# its training shape, B = 1 and small odd widths with an even filter;
+# flagship_loc's at its training shape and at small odd widths.
+LOC_BF16_CASES = [("lstm", 16, 16, 56, (150, 256, 400, 16, 5)),
+                  ("lstm", 1, 16, 56, (150, 256, 400, 16, 5)),
+                  ("lstm", 3, 13, 5, (17, 12, 9, 3, 4)),
+                  ("gru", 16, 144, 56, (512, 512, 256, 16, 10)),
+                  ("gru", 3, 13, 5, (17, 12, 9, 3, 4)), ("gru", 5, 40, 9, (40, 24, 33, 4, 5))]
+
+
+@pytest.mark.parametrize("case", range(len(LOC_BF16_CASES)))
+def test_loc_decoder_scan_bf16_entries(card, case):
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    cell, b, l, t, (s, a, st, fm, f) = LOC_BF16_CASES[case]
+    lstm = cell == "lstm"
+    gen = torch.Generator().manual_seed(b * 17 + l)
+    vh, h, mask, yin, weights = _decoder_case(card, gen, b, l, t, s, a, st, cell, fm, f)
+    args = _to_bf16([vh, h, mask, yin, *weights])
+    name = ("attention_decode_scan_loc_lstm_fwd_bf16" if lstm
+            else "attention_decode_scan_loc_fwd_bf16")
+    kernel = (attention_scan.KERNEL_LOC_LSTM_FWD_BF16 if lstm
+              else attention_scan.KERNEL_LOC_FWD_BF16)
+    fwd = (attention_scan.attention_decode_scan_loc_lstm if lstm
+           else attention_scan.attention_decode_scan_loc)
+    got = _bf16_twice(kernel, fwd, args)
+    plain = lambda *x: attention_scan._scan_plain(*x[:4], tuple(x[4:]), lstm)
+    _bf16_close(name, got, attention_scan.folded_scan_plain(*args[:4], tuple(args[4:]), lstm),
+                plain(*args), plain(*_upcast(args)))
+
+
+# K8's three bf16 instances (LOC_LSTM_CASES 0, 1 and 5: <LSTM, location>,
+# <GRU, location>, <GRU, content> with VGG's readout) at the serving
+# shapes, K = 8 at L = 37, a row with every position masked, and B = 32
+# at L = 144, K = 5 (an evaluation batch).
+@pytest.mark.parametrize("case", [0, 1, 5])
+@pytest.mark.parametrize("b,k,l,dead", [(1, 5, 14, None), (8, 5, 14, None), (3, 8, 37, 1),
+                                        (32, 5, 144, None)])
+def test_fused_attention_step_loc_lstm_bf16_entry(card, case, b, k, l, dead):
+    from seq2seq_attention_asr_tpu_torch.ops import attention
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    params, cfg, (state, y, _, h, mask) = _k8_case(card, case, b, k, l, dead)
+    params, state, y, h, mask = _to_bf16([params, list(state), y, h, mask])
+    args = (params, cfg, state, y, attention.precompute_vh(params, h).contiguous(), h, mask)
+    step = lambda *a: _k8_bf16_outputs(attention_step.fused_attention_step(*a))
+    got = _bf16_twice(attention_step.KERNEL_LOC_LSTM_BF16, step, args)
+    plain = _k8_bf16_outputs(attention_step.fused_attention_step_plain(*args))
+    _bf16_close("fused_attention_step_loc_lstm_bf16", got, plain, plain,
+                _k8_bf16_outputs(attention_step.fused_attention_step_plain(*_upcast(args))))
+    assert got[3].dtype == torch.float32 and got[4].dtype == torch.bfloat16
+    if dead is not None:
+        assert not got[0][dead].float().any() and not got[1][dead].float().any()
+
+
+def _k8_bf16_outputs(res):
+    """alpha, c, s, logp and the new mem (the LSTM's cell state, the GRU's
+    mem passed through)."""
+    (_, _, mem), out = res
+    return out["alpha"], out["c"], out["s"], out["logp"], mem
+
+
+def test_vgg_float32_forward_is_full_float32_under_default_flags(card):
+    """A float32 VGG forward under PyTorch's default
+    torch.backends.cudnn.allow_tf32 (True) is bitwise the one with it off
+    (ops/conv.py keeps float32 convolutions out of TF32), its gradients
+    within 1e-5 relative L2 of them (cuDNN's weight-gradient algorithms
+    may sum in another order from call to call; TF32 would put them
+    ~1e-3 apart), and the flag is as the caller set it after each."""
+    from seq2seq_attention_asr_tpu_torch import tree
+    from seq2seq_attention_asr_tpu_torch.models import registry
+
+    model = registry.build("vgg", output_depth=30)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    b, l, t = 4, 120, 12
+    x = _rand(gen, b, l, 40, 3)
+    x_len = torch.tensor([120, 100, 80, 64], device=card)
+    oh = torch.nn.functional.one_hot(torch.randint(0, 30, (b, t), generator=gen), 30).float().cuda()
+    dm = torch.ones(b, t, device=card)
+    leaves = tree.leaves(params)
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32
+    runs = {}
+    try:
+        for flag in (True, False):
+            cudnn.allow_tf32 = flag
+            with torch.enable_grad():
+                p = tree.tree_map(lambda a: a.detach().requires_grad_(), params)
+                out = model.forward(p, x, x_len, oh, dm)
+                grads = torch.autograd.grad(out["logprobs"].sum(), tree.leaves(p))
+            torch.cuda.synchronize()
+            assert cudnn.allow_tf32 == flag
+            runs[flag] = [out["logprobs"].detach(), *grads]
+    finally:
+        cudnn.allow_tf32 = before
+    assert len(runs[True]) == len(leaves) + 1
+    assert torch.equal(runs[True][0], runs[False][0])
+    for i, (got, want) in enumerate(zip(runs[True][1:], runs[False][1:])):
+        assert float((got - want).norm()) <= 1e-5 * float(want.norm()), i
 
 
 def test_bf16_evaluation_sums_in_float32_under_either_flag(card):

@@ -193,7 +193,7 @@ def test_instrument_lstm_enc_fwd_reads_the_clock_after_every_wait():
 
 def test_instrument_lstm_enc_fwd_refuses_a_walk_without_markers():
     tool = _tool()
-    with pytest.raises(ValueError, match="no // \\[phase\\] markers in bilstm_scan_kernel"):
+    with pytest.raises(ValueError, match="no // \\[phase\\] markers in bilstm_walk"):
         tool.instrument_lstm_enc_fwd(re.sub(r"// \[phase\] .*", "", LSTM_ENC.read_text()))
     src = LSTM_ENC.read_text().replace(tool.LSTM_ENC_LOOP, "  while (true) {")
     with pytest.raises(ValueError, match="no single step loop"):

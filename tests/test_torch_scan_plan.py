@@ -250,25 +250,25 @@ def test_k5_builds_a_library_of_its_own():
 
 
 def test_k10_and_k14_build_a_library_of_their_own():
-    """K10 and K14 (the forward walk's eight LSTM instances and its
-    pre-pass) build with LSTM_FWD_ONLY defined into one library of their
-    own, beside K5's, K12's and K4's and the rest's; it holds their entry
-    points and limits helpers and no other."""
-    fwds = (scan.KERNEL_LOC_LSTM_FWD, scan.KERNEL_LSTM_FWD)
+    """K10 and K14 (the forward walk's LSTM instances and its pre-pass,
+    K10's bf16 entry among them) build with LSTM_FWD_ONLY defined into one
+    library of their own, beside K5's, K12's and K4's and the rest's; it
+    holds their entry points and limits helpers and no other."""
+    fwds = (scan.KERNEL_LOC_LSTM_FWD, scan.KERNEL_LSTM_FWD, scan.KERNEL_LOC_LSTM_FWD_BF16)
     assert all(k.defines == ("LSTM_FWD_ONLY",) for k in fwds)
-    assert fwds[0].library_path() == fwds[1].library_path()
+    assert len({k.library_path() for k in fwds}) == 1
     assert len({k.library_path() for k in (fwds[0], scan.KERNEL_BWD, scan.KERNEL_LSTM_BWD,
                                            scan.KERNEL_FWD)}) == 4
     assert _libraries()["LSTM_FWD_ONLY"] == {k.symbol + x for k in fwds for x in ("", "_limits")}
 
 
 def test_k12_and_k4_build_a_library_of_their_own():
-    """K12 and K4 (the forward walk's GRU instances and its pre-pass, K4's
-    bf16 entry among them) build from the same source with GRU_FWD_ONLY
-    defined into one library of their own, beside K10's and K14's, K5's
-    and the rest's; it holds their entry points and limits helpers and no
-    other, and the walk's cell of each is the GRU."""
-    fwds = (scan.KERNEL_LOC_FWD, scan.KERNEL_FWD, scan.KERNEL_FWD_BF16)
+    """K12 and K4 (the forward walk's GRU instances and its pre-pass, the
+    bf16 entries of K4 and K12 among them) build from the same source with
+    GRU_FWD_ONLY defined into one library of their own, beside K10's and
+    K14's, K5's and the rest's; it holds their entry points and limits
+    helpers and no other, and the walk's cell of each is the GRU."""
+    fwds = (scan.KERNEL_LOC_FWD, scan.KERNEL_FWD, scan.KERNEL_FWD_BF16, scan.KERNEL_LOC_FWD_BF16)
     assert all(k.defines == ("GRU_FWD_ONLY",) for k in fwds)
     assert all(k.source == scan.KERNEL_BWD.source for k in fwds)
     assert len({k.library_path() for k in fwds}) == 1

@@ -105,8 +105,9 @@ def test_config_and_init_have_the_jax_tree(models):
     got = interop.to_numpy(pmodel.init(torch.Generator().manual_seed(1), device="cpu"))
     assert jax.tree.structure(got) == jax.tree.structure(params)
     assert [a.shape for a in jax.tree.leaves(got)] == [a.shape for a in jax.tree.leaves(params)]
-    with pytest.raises(NotImplementedError, match="5c"):
-        registry.build("vgg", compute_dtype="bfloat16")
+    assert registry.build("vgg", compute_dtype="bfloat16").cfg.compute_dtype == "bfloat16"
+    with pytest.raises(ValueError):
+        registry.build("vgg", compute_dtype="float16")
 
 
 def _batch(seed, b=6, l=30):

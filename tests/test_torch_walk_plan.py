@@ -202,11 +202,15 @@ def test_lstm_forward_rows_take_the_fewest_measured_step_costs(b, clusters, rows
 
 def test_the_lstm_forward_sizes_its_launch_by_its_cell():
     """bilstm_scan.cu sizes K7's shared memory with lstm_fwd_smem_bytes,
-    launches its walk on clusters and keeps no one-block body; its wrapper
-    asks walk.py for the "lstm_fwd" plan of two directions."""
+    launches its walk on clusters and keeps no one-block body, for both
+    of its entries (float32 and bf16); its wrapper asks walk.py for the
+    "lstm_fwd" plan of two directions for both."""
     src = (CSRC / "bilstm_scan.cu").read_text()
-    entry = src.split('extern "C" int bilstm_scan_fwd(', 1)[1]
-    assert "lstm_fwd_smem_bytes(plan, H)" in entry and "launch_cluster(" in entry
+    run = src.split("int bilstm_scan_run(", 1)[1].split("\n}\n", 1)[0]
+    assert "lstm_fwd_smem_bytes(plan, a.H)" in run and "launch_cluster(" in run
+    for entry in ("bilstm_scan_fwd(", "bilstm_scan_fwd_bf16("):
+        body = src.split(f'extern "C" int {entry}', 1)[1].split("\n}\n", 1)[0]
+        assert "return bilstm_scan_run(" in body
     assert "matvec" not in src and "kRows" not in src
     wrapper = (CSRC.parent / "ops" / "cuda" / "lstm_scan.py").read_text()
     assert 'walk.plan_on(KERNEL, b, h, "lstm_fwd", 2, dev)' in wrapper

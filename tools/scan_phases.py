@@ -93,7 +93,7 @@ x, the gate products, the r * h push and the wait for the peers', the
 candidate product, the h push and its wait), the time per call (CUDA
 events over 20 calls) and the parity with the plain version (1e-4 abs).
 
-With --lstm-enc-fwd it instruments bilstm_scan_kernel, K7's walk in
+With --lstm-enc-fwd it instruments bilstm_walk, K7's walk in
 csrc/bilstm_scan.cu (or in each SOURCE, a variant with the headers
 beside it), whose markers follow the prologue's block barrier and, in
 the step, the block barrier after the gate products and the cell and
@@ -153,7 +153,7 @@ extern "C" int read_phase_cycles(unsigned long long* out, int reset) {
 MARK = re.compile(r"^(\s*)// \[phase\] (.+)$", re.M)
 K2_SOURCE = build.CSRC_DIR / "attention_step.cu"
 K2_SIG = "attention_step_kernel(const Args a) {"
-K8_SIG = "cluster_step_loc_lstm_kernel(const Args8 a) {"
+K8_SIG = "cluster_step_loc_lstm_kernel(const Args8T<T> a) {"
 # Calls that end in a barrier of the whole block (or cluster), at the top
 # level of a beam-step kernel's body: a marker after each times what came
 # before it.
@@ -321,7 +321,7 @@ def instrument_fwd_walk(src: str):
 
 
 LSTM_ENC_SOURCE = build.CSRC_DIR / "bilstm_scan.cu"
-LSTM_ENC_SIG = "bilstm_scan_kernel(const LstmFwd a, int resident) {"
+LSTM_ENC_SIG = "bilstm_walk(const LstmFwdT<T>& a, int resident, float* smem) {"
 LSTM_ENC_LOOP = "  for (int s = 0; s < L; ++s) {"
 # K7's shapes in the conv+BiLSTM recipe's paths, (B, L'): serving one and
 # eight utterances of 3.5 s, and the training batches of 144 frames.
@@ -330,18 +330,18 @@ LSTM_ENC_SHAPES = ((1, 14), (8, 14), (16, 16), (128, 16))
 
 def instrument_lstm_enc_fwd(src: str):
     """The source with a cycle read by thread 0 of block 0 of direction 0
-    at each phase marker of bilstm_scan_kernel (K7's walk), the clock
+    at each phase marker of bilstm_walk (K7's walk, both entries), the clock
     started at the top of its body, and the phases' names in order, each
     with whether it lies in the step loop (read every step) or before it
     (read once a call)."""
     head, rest = src.split(LSTM_ENC_SIG, 1)
     body, tail = rest.split("\n}\n", 1)
     if body.count(LSTM_ENC_LOOP) != 1:
-        raise ValueError("bilstm_scan_kernel has no single step loop")
+        raise ValueError("bilstm_walk has no single step loop")
     loop_at = body.index(LSTM_ENC_LOOP)
     marks = [(m.group(2), m.start() > loop_at) for m in MARK.finditer(body)]
     if not marks:
-        raise ValueError("no // [phase] markers in bilstm_scan_kernel")
+        raise ValueError("no // [phase] markers in bilstm_walk")
     counter = iter(range(len(marks)))
     body = MARK.sub(lambda m: _clock_read(next(counter), m.group(1),
                                           "blockIdx.x == 0 && blockIdx.y == 0"), body)

@@ -10,8 +10,9 @@ an epoch loop with checkpoints and resume, and greedy decode; then the
 reference recipe's regularisers: the committed AWN stage restarted from
 the checkpoint, the monotonic penalty on each decoder, dropout and
 weight noise; then the flagship's bf16 evaluation through the bf16
-entries of K1, K2 and K4, and that of conv+BiLSTM, flagship_loc and
-VGG through those of K7, K10, K12 and K8; then the LibriSpeech recipes (the VGG model,
+entries of K1, K2 and K4, and that of conv+BiLSTM, flagship_loc, VGG
+and conv_bilstm_content through those of K7, K10, K12, K14 and K8; then
+the LibriSpeech recipes (the VGG model,
 the character and word Chorowski recipes, the chunked out-of-core
 epoch, the stacked front end) and K2 with a word vocabulary spread over
 its cluster.
@@ -21,7 +22,7 @@ its cluster.
 Phases, each fatal when it fails:
   1. the card's name and power limit (nvidia-smi);
   2. build the nineteen kernels and the bf16 entries of K1, K2, K4, K7,
-     K8, K10 and K12 from csrc/ (one nvcc per library, in parallel);
+     K8, K10, K12 and K14 from csrc/ (one nvcc per library, in parallel);
   3. hold each kernel to its plain PyTorch version through its public
      wrapper: K1-K3 at the flagship's serving shapes, batch 1 and 8 (max
      abs error 1e-4; K3 also twice, the two calls bitwise equal, one
@@ -90,8 +91,11 @@ Phases, each fatal when it fails:
      one launch each of K7, K9, K10 and K11 per step and none of K1-K6,
      K8; then for flagship_loc (the first recipe with
      model_kwargs["feature_maps"] = 16), 3 / 3 / 1 / 1 launches of K1 /
-     K6 / K12 / K13; and for conv_bilstm_content (the second with
-     model_kwargs["feature_maps"] = 0), one each of K7, K9, K14 and K15;
+     K6 / K12 / K13, and one flagship_loc step at B = 2, L = 2,048 frames
+     (past the 1,018 that K13's one-block body took), on the card and on
+     the CPU within rtol 1e-3; and for conv_bilstm_content (the second
+     with model_kwargs["feature_maps"] = 0), one each of K7, K9, K14 and
+     K15;
   7. the flagship encoder (three BiGRU layers, the recipe's weights) on
      the training batch, forward and the gradient of sum(out * cot) for
      every encoder weight and the input, by three paths: bigru_layer (K1,
@@ -123,11 +127,8 @@ Phases, each fatal when it fails:
      size, rows per cluster, resident or streamed, clusters and waves),
      and K1 at B = 16 and 128 and K7 at each of its shapes under each row
      count the plan can take (the sweeps that walk.STEP_COST is read
-     from); for K13 at B = 16
-     and 128 (parity at B = 128 too) the device time by stage (the walk,
-     the reduction over the steps, the sum of the rows' location-term
-     partials), the walk's time a step and the scratch bytes; for K5 at
-     the flagship's training shape and K11 and K15 at the conv+BiLSTM
+     from); for K5 at the flagship's training shape, K13 at
+     flagship_loc's and K11 and K15 at the conv+BiLSTM
      recipe's, at B = 16 and 128 (parity, a second call bitwise equal
      and one launch a call at B = 128 too) the device time by stage (the
      recompute pre-pass, the walk on thread-block clusters, the reduction
@@ -216,15 +217,15 @@ Phases, each fatal when it fails:
      one B = 32 evaluation batch (the eval step and the beam) in bf16
      beside float32, wall and device time; (d) a bf16 train step
      raising NotImplementedError; and the phase's wall seconds; then
-     (12 b) conv+BiLSTM, flagship_loc and VGG as bf16 models
-     (bf16_models_phase), from each recipe's seeded init: the bf16
-     entries of K7, K10, K12 and K8 (its <LSTM, location>, <GRU,
-     location> and <GRU, content> instances) held as above at a B = 16
-     batch's shapes and at each evaluation batch's, with their times
-     beside the float32 kernels' and cuDNN's bf16 LSTM beside K7; each
-     configuration's Trainer.evaluate on one evaluation batch (the
-     held-out split's first 32, or 16 for flagship_loc; LS_VALID's 8 for
-     VGG) on the card under PyTorch's default flags, unchanged after,
+     (12 b) conv+BiLSTM, flagship_loc, VGG and conv_bilstm_content as
+     bf16 models (bf16_models_phase), from each recipe's seeded init: the
+     bf16 entries of K7, K10, K12, K14 and K8 (its <LSTM, location>, <GRU,
+     location>, <GRU, content> and <LSTM, content> instances) held as
+     above at a B = 16 batch's shapes and at each evaluation batch's, each
+     also twice with the same bits, with their times beside the float32
+     kernels' and cuDNN's bf16 LSTM beside K7; each configuration's
+     Trainer.evaluate on one evaluation batch (the held-out split's first
+     32, or 16 for flagship_loc; LS_VALID's 8 for VGG) on the card under PyTorch's default flags, unchanged after,
      launching its bf16 entries only (K8 once a beam step), against the
      same evaluation on the CPU (PER within 0.02, NLL within 1e-3
      relative); and its bf16 train step raising NotImplementedError;
@@ -393,8 +394,8 @@ CB_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "bilstm_scan_k
                    "loc_lstm_fwd_kernel", "lstm_fwd_prepass_kernel", "loc_lstm_bwd_kernel",
                    "lstm_decoder_prepass_kernel", "atb_kernel")
 LOC_STEP_KERNELS = ("bigru_scan2_bwd_kernel", "gru_gates_kernel", "bigru_scan2_kernel",
-                    "gru_fwd_prepass_kernel", "loc_gru_fwd_kernel", "scan_loc_gru_bwd_kernel",
-                    "atb_kernel")
+                    "gru_fwd_prepass_kernel", "loc_gru_fwd_kernel", "gru_decoder_prepass_kernel",
+                    "loc_gru_bwd_kernel", "atb_kernel")
 CBC_STEP_KERNELS = ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "bilstm_scan_kernel",
                     "scan_lstm_fwd_kernel", "lstm_fwd_prepass_kernel", "scan_lstm_bwd_kernel",
                     "lstm_decoder_prepass_kernel", "atb_kernel")
@@ -432,18 +433,16 @@ WALKS = {"bigru_scan2_bwd": ("bigru_scan2_bwd_kernel", "gru_gates_kernel", "gru"
          "bigru_scan_bwd": ("gru2_stacked_bwd_kernel", "gru_gates_kernel", "gru"),
          "bilstm_scan_bwd": ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "lstm")}
 GRU_GATES = ("gru_gates_kernel", "gru_gates_kernel")  # two pre-pass launches a call
-# The location-aware GRU decoder scan's backward (K13): each call runs its
-# walk, then atb_kernel over the steps, then atb_kernel over the B rows'
-# location-term partials.
-LOC_BWDS = ("attention_decode_scan_loc_bwd",)
-# The decoder scans' backwards on thread-block clusters (K5, K11, K15):
-# each call runs the recompute pre-pass (four launches for the GRU, three
-# for the LSTM), the walk, then atb_kernel over the steps and atb_kernel
-# over the walk's partials. Each one's walk and pre-pass by trace name.
+# The decoder scans' backwards on thread-block clusters (K5, K11, K13,
+# K15): each call runs the recompute pre-pass (four launches for the GRU,
+# three for the LSTM), the walk, then atb_kernel over the steps and
+# atb_kernel over the walk's partials. Each one's walk and pre-pass by
+# trace name.
 PREPASS = ("lstm_decoder_prepass_kernel",) * 3
 GRU_PREPASS = ("gru_decoder_prepass_kernel",) * 4
 WALK_BWDS = {"attention_decode_scan_bwd": ("content_gru_walk_kernel", GRU_PREPASS),
              "attention_decode_scan_loc_lstm_bwd": ("loc_lstm_bwd_kernel", PREPASS),
+             "attention_decode_scan_loc_bwd": ("loc_gru_bwd_kernel", GRU_PREPASS),
              "attention_decode_scan_lstm_bwd": ("scan_lstm_bwd_kernel", PREPASS)}
 # The decoder forwards on thread-block clusters (K10, K14, K12, K4): each
 # call runs the pre-pass (two launches) and the walk. Each one's walk and
@@ -1487,7 +1486,7 @@ DECODER_SCANS = {
                  PREPASS + ("loc_lstm_bwd_kernel", "atb_kernel", "atb_kernel")),
     "loc": ("attention_decode_scan_loc_fwd", GRU_FWD_PREPASS + ("loc_gru_fwd_kernel",),
             "attention_decode_scan_loc_bwd",
-            ("scan_loc_gru_bwd_kernel", "atb_kernel", "atb_kernel")),
+            GRU_PREPASS + ("loc_gru_bwd_kernel", "atb_kernel", "atb_kernel")),
     "lstm": ("attention_decode_scan_lstm_fwd", FWD_PREPASS + ("scan_lstm_fwd_kernel",),
              "attention_decode_scan_lstm_bwd",
              PREPASS + ("scan_lstm_bwd_kernel", "atb_kernel", "atb_kernel")),
@@ -1847,44 +1846,20 @@ def _stage_times(c, order, iters: int):
     return ms, {k: len(v) for k, v in stages.items()}
 
 
-def loc_split(c, tag: str, iters: int, card: str) -> None:
-    """Phase 8 for K13 (`c`, a case of LOC_BWDS): the device time by stage
-    over `iters` traced calls (the walk, the reduction over the steps, the
-    sum of the rows' location-term partials), the walk's time a step, and
-    the scratch the call takes (attention_scan.stash_floats)."""
-    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
-
-    ms, kept = _stage_times(c, ((c.symbols[0], "walk"), ("atb_kernel", "steps"),
-                                ("atb_kernel", "loc")), iters)
-    vh, yin = c.args[0], c.args[3]
-    b, l, s_dim = vh.shape
-    t_len, st = yin.shape[1], yin.shape[2]
-    # decoder_scan_cases' order: vh, h, mask, yin, the step's 7 weights,
-    # the GRU's 2, then wconv, bconv, U.
-    wconv, bconv, u = c.args[13:16]
-    f, fm = wconv.shape
-    if tuple(bconv.shape) != (fm,) or tuple(u.shape) != (fm, s_dim):
-        raise SystemExit(f"loc_split: {c.label}'s location-term weights are not where expected")
-    floats = attention_scan.stash_floats(False, b, t_len, l, s_dim, st, fm, f)
-    print(f"time {c.label} {tag} by stage: walk {ms['walk']:.4f} ms "
-          f"({1e3 * ms['walk'] / t_len:.2f} us a step over {t_len} steps), the steps' reduction "
-          f"{ms['steps']:.4f} ms, the location term's row sums {ms['loc']:.4f} ms (records kept: "
-          f"{', '.join(f'{k} {n}' for k, n in kept.items())} of {iters}); scratch "
-          f"{floats} floats ({4 * floats / 1e6:.1f} MB) ({card})")
-
-
 def walk_case_dims(c):
-    """(B, L, S, A, St, FM, F) of a case of WALK_BWDS (K5, K11 or K15)."""
+    """(B, L, S, A, St, FM, F) of a case of WALK_BWDS (K5, K11, K13 or K15)."""
     vh, h, yin = c.args[0], c.args[1], c.args[3]
     b, l, s_dim = vh.shape
     fm, f = 0, 0
     if c.name == "attention_decode_scan_loc_lstm_bwd":
         f, fm = c.args[14].shape  # after vh, h, mask, yin, the 7 step and 3 cell weights
+    elif c.name == "attention_decode_scan_loc_bwd":
+        f, fm = c.args[13].shape  # after vh, h, mask, yin, the 7 step and 2 cell weights
     return b, l, s_dim, h.shape[2], yin.shape[2], fm, f
 
 
 def decoder_walk_split(c, kernel, tag: str, iters: int, card: str) -> None:
-    """Phase 8 for K5, K11 and K15 (`c`, a case of WALK_BWDS): the device
+    """Phase 8 for K5, K11, K13 and K15 (`c`, a case of WALK_BWDS): the device
     time by stage over `iters` traced calls (the recompute pre-pass, the
     walk, the reduction over the steps, the one over the walk's partials),
     the walk's time a step, the plan it ran and the scratch the call
@@ -1973,7 +1948,7 @@ def plan_sweep(c, kernel, tag: str, card: str, walk_sym: str, attr: str, runs, p
 
 
 def decoder_walk_sweep(c, kernel, tag: str, card: str) -> None:
-    """Phase 8: K5, K11 or K15 (`c`) under each (C, R) the walk can take
+    """Phase 8: K5, K11, K13 or K15 (`c`) under each (C, R) the walk can take
     that fits the device (plan_sweep, the backward tolerance).
     attention_scan.STEP_COST is read from these times."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
@@ -2280,6 +2255,45 @@ def train_phase(kernels, recipe, params_cpu, expected, label: str):
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise SystemExit(f"train {label}: the loss did not fall")
     return first_counts
+
+
+# Phase 6's long flagship_loc step: two utterances of up to 2,048 frames
+# (66 s), past the L = 1,018 that K13's one-block body took.
+LONG_B, LONG_L = 2, 2048
+
+
+def loc_long_step(kernels, params_cpu) -> None:
+    """Phase 6: one flagship_loc train step at B = LONG_B, L = LONG_L (the
+    second row 300 frames shorter, labels of TRAIN_T and 40), on the card
+    with LOC_STEP_LAUNCHES' launches and no other kernel, and on the CPU:
+    loss, nll, grad_norm and param_norm within TRAIN_RTOL."""
+    rng = np.random.RandomState(SEED + 27)
+    x = rng.randn(LONG_B, LONG_L, 123).astype(np.float32)
+    x_len = np.array([LONG_L, LONG_L - 300])
+    y = rng.randint(0, 62, (LONG_B, TRAIN_T))
+    dec_mask = (np.arange(TRAIN_T)[None] < np.array([TRAIN_T, 40])[:, None]).astype(np.float32)
+    batch = tuple(torch.from_numpy(a) for a in (x, x_len, y, dec_mask))
+    want = dict.fromkeys(kernels, 0)
+    want.update(LOC_STEP_LAUNCHES)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        state, step_fn = make_trainer(flagship_loc, params_cpu, dev)
+        b = tuple(t.to(dev) for t in batch)
+        t0 = time.perf_counter()
+        (_, m), counts = counted(kernels, lambda: step_fn(state, b))
+        runs[dev] = {k: float(v) for k, v in m.items()}
+        print(f"train flagship_loc step B={LONG_B} L={LONG_L} T={TRAIN_T} on {dev}: {runs[dev]}, "
+              f"{time.perf_counter() - t0:.1f} s wall" + (f"; launches {counts}" if dev == "cuda"
+                                                          else ""))
+        if dev == "cuda" and counts != want:
+            raise SystemExit(f"train flagship_loc step L={LONG_L}: launch counts {counts}, "
+                             f"expected {want}")
+    rel = {k: abs(runs["cuda"][k] - runs["cpu"][k]) / abs(runs["cpu"][k])
+           for k in ("loss", "nll", "grad_norm", "param_norm")}
+    print(f"train flagship_loc step B={LONG_B} L={LONG_L}: relative differences card vs CPU "
+          f"{ {k: f'{v:.2e}' for k, v in rel.items()} } (tol {TRAIN_RTOL})")
+    if not all(np.isfinite(v) for v in runs["cuda"].values()) or max(rel.values()) > TRAIN_RTOL:
+        raise SystemExit(f"train flagship_loc step L={LONG_L}: the card disagrees with the CPU")
 
 
 def timed_steps(recipe, params_cpu, b: int):
@@ -2965,7 +2979,7 @@ BF16_SYMBOLS = {"bigru_scan2_bf16": ("bigru_scan2_bf16_kernel",),
 F32_SYMBOLS = {"bigru_scan2_bf16": ("bigru_scan2_kernel",),
                "attention_decode_scan_fwd_bf16": GRU_FWD_PREPASS + ("content_gru_fwd_kernel",),
                "fused_attention_step_bf16": ("attention_step_kernel",)}
-# Phase 12 (b)'s entries (BF16_MODEL_OF): K7's, K10's, K12's and K8's (K8's
+# Phase 12 (b)'s entries (BF16_MODEL_OF): K7's, K10's, K12's, K14's and K8's (K8's
 # bf16 instances are the template cluster_step_loc_lstm_kernel<..., bf16>).
 BF16_SYMBOLS.update({
     "bilstm_scan_bf16": ("bilstm_scan_bf16_kernel",),
@@ -2973,11 +2987,14 @@ BF16_SYMBOLS.update({
     + ("loc_lstm_fwd_bf16_kernel",),
     "attention_decode_scan_loc_fwd_bf16": ("gru_fwd_prepass_bf16_kernel",) * 2
     + ("loc_gru_fwd_bf16_kernel",),
+    "attention_decode_scan_lstm_fwd_bf16": ("lstm_fwd_prepass_bf16_kernel",) * 2
+    + ("scan_lstm_fwd_bf16_kernel",),
     "fused_attention_step_loc_lstm_bf16": K8_SYMBOLS})
 F32_SYMBOLS.update({
     "bilstm_scan_bf16": ("bilstm_scan_kernel",),
     "attention_decode_scan_loc_lstm_fwd_bf16": FWD_PREPASS + ("loc_lstm_fwd_kernel",),
     "attention_decode_scan_loc_fwd_bf16": GRU_FWD_PREPASS + ("loc_gru_fwd_kernel",),
+    "attention_decode_scan_lstm_fwd_bf16": FWD_PREPASS + ("scan_lstm_fwd_kernel",),
     "fused_attention_step_loc_lstm_bf16": K8_SYMBOLS})
 BF16_ODD_L = 131  # the edge shapes: one batch row, an odd encoder length
 # Kernel vs exact twin, each element, in bf16 ulps at max(|twin|, 1). The
@@ -2989,10 +3006,11 @@ BF16_ODD_L = 131  # the edge shapes: one batch row, an odd encoder length
 BF16_ULPS = {"bigru_scan2_bf16": 2, "attention_decode_scan_fwd_bf16": 32,
              "fused_attention_step_bf16": 4,
              # K7's bf16 entry stores float32 and rounds nothing: the float32
-             # kernels' TOL (1e-4 at 1.0), in bf16 ulps. K10's and K12's carry
-             # their flips over the steps as K4's do; K8 is one step, as K2.
+             # kernels' TOL (1e-4 at 1.0), in bf16 ulps. K10's, K12's and K14's
+             # carry their flips over the steps as K4's do; K8 is one step, as K2.
              "bilstm_scan_bf16": TOL / 2 ** -7, "attention_decode_scan_loc_lstm_fwd_bf16": 32,
-             "attention_decode_scan_loc_fwd_bf16": 32, "fused_attention_step_loc_lstm_bf16": 4}
+             "attention_decode_scan_loc_fwd_bf16": 32, "attention_decode_scan_lstm_fwd_bf16": 32,
+             "fused_attention_step_loc_lstm_bf16": 4}
 # The rounding check: a kernel that skipped the bf16 rounding points would
 # be the float32 result rounded at its outputs, and would differ from the
 # twin on as many elements as that does; the kernel must differ on at most
@@ -3130,9 +3148,9 @@ def bf16_cases(p16, cfg, gen, eval_batch):
 def bf16_calls(name):
     """(kernel call, its exact plain twin, the plain bf16 version at the
     JAX kernel's rounding points) of a bf16 entry, each returning a tuple
-    of tensors. Only K4's, K10's and K12's twin and plain version differ:
-    their entries fold c_in and dec_in into the gates, so they do not
-    round cc or r."""
+    of tensors. Only K4's, K10's, K12's and K14's twin and plain version
+    differ: their entries fold c_in and dec_in into the gates, so they do
+    not round cc or r."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import (attention_scan, attention_step,
                                                           gru_scan, lstm_scan)
 
@@ -3143,10 +3161,10 @@ def bf16_calls(name):
     if name == "attention_decode_scan_fwd_bf16":
         return (attention_scan.attention_decode_scan, attention_scan.gru_folded_scan_plain,
                 attention_scan.attention_decode_scan_plain)
-    if name in ("attention_decode_scan_loc_lstm_fwd_bf16", "attention_decode_scan_loc_fwd_bf16"):
-        lstm = name == "attention_decode_scan_loc_lstm_fwd_bf16"
-        fwd = (attention_scan.attention_decode_scan_loc_lstm if lstm
-               else attention_scan.attention_decode_scan_loc)
+    if name in ("attention_decode_scan_loc_lstm_fwd_bf16", "attention_decode_scan_loc_fwd_bf16",
+                "attention_decode_scan_lstm_fwd_bf16"):
+        lstm = name != "attention_decode_scan_loc_fwd_bf16"
+        fwd = getattr(attention_scan, name[:-len("_fwd_bf16")])
         return (fwd, lambda *a: attention_scan.folded_scan_plain(*a[:4], a[4:], lstm),
                 lambda *a: attention_scan._scan_plain(*a[:4], a[4:], lstm))
     plain = lambda *args: _step_outputs(attention_step.fused_attention_step_plain(*args))
@@ -3170,12 +3188,14 @@ def f32_kernel_of(name: str) -> str:
 
 def bf16_parity_rows(cases_, card: str) -> dict:
     """Phase 12's (a) and (c) for the bf16 entries of `cases_` ({name:
-    [(tag, args, flops, nbytes, library)]}): each case held to the entry's
-    exact twin and to the plain bf16 version (bf16_check); at each
-    entry's first case its device time beside its float32 kernel's on
-    the upcast inputs, its twin's time, its bound at the bf16 peak and,
-    where `library` is a call, that call's device time. Returns {name:
-    its {"kernels"} numbers but the launches}."""
+    [(tag, args, flops, nbytes, library)]}): each case run twice with the
+    same bits and held to the entry's exact twin and to the plain bf16
+    version (bf16_check); at each entry's first case, and at each other
+    case of a B = TRAIN_B training batch (K8's instances after its
+    first), its device time beside its float32 kernel's on the upcast
+    inputs, its twin's time, its bound at the bf16 peak and, where
+    `library` is a call, that call's device time. Returns {name: its
+    {"kernels"} numbers (its first case's) but the launches}."""
     rows = {}
     for name, cs in cases_.items():
         kernel_call, twin_call, plain_call = bf16_calls(name)
@@ -3183,12 +3203,15 @@ def bf16_parity_rows(cases_, card: str) -> dict:
         for i, (tag, args, flops, nbytes, library) in enumerate(cs):
             with torch.no_grad():
                 got = kernel_call(*args)
+                again = kernel_call(*args)
                 twin = twin_call(*args)
                 plain = plain_call(*args)
                 truth = plain_call(*upcast(args))
             torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise SystemExit(f"{name} {tag}: two calls of the bf16 kernel disagree")
             errs.append(bf16_check(name, tag, got, twin, plain, truth))
-            if i:
+            if i and (f"B={TRAIN_B} " not in tag or "evaluation" in tag or "held-out" in tag):
                 continue
             up = upcast(args)
             with torch.no_grad():
@@ -3204,8 +3227,8 @@ def bf16_parity_rows(cases_, card: str) -> dict:
                   f"{f32_ms:.4f} ms on the upcast inputs, plain twin {plain_ms:.4f} ms per call, "
                   f"bound {b_ms:.4f} ms ({b_by}: {flops:.3e} flop at the bf16 peak, "
                   f"{nbytes:.3e} B in bf16), library {lib} ({card})")
-            rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                              library_ms=lib_ms)
+            rows.setdefault(name, dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                       library_ms=lib_ms))
         rows[name]["max_abs_err"] = max(errs)
     return rows
 
@@ -3741,15 +3764,16 @@ def librispeech_phase(kernels, errs: dict, card: str) -> dict:
             "library_ms": None}
 
 
-# Phase 12 (b): the bf16 evaluation path of three more configurations,
-# conv_bilstm, flagship_loc (the flagship recipe with 16 feature maps)
-# and vgg: K7, K10, K12 and K8 through their bf16 entries (the JAX
+# Phase 12 (b): the bf16 evaluation path of four more configurations,
+# conv_bilstm, flagship_loc (the flagship recipe with 16 feature maps),
+# vgg and conv_bilstm_content (the conv+BiLSTM recipe without the
+# location term): K7, K10, K12, K14 and K8 through their bf16 entries (the JAX
 # kernels' rounding points: their sources' heads), each held as K1, K4
 # and K2 are above; then each configuration's bf16 Trainer.evaluate on
 # the card, under PyTorch's default flags, launching the bf16 entries
 # only, against the same evaluation on the CPU (the plain bf16 versions
 # at the JAX kernels' rounding points). The weights are each recipe's
-# seeded init: no trained checkpoint exists for these three, so their
+# seeded init: no trained checkpoint exists for these four, so their
 # beams are the untrained models'. The CPU's PER and NLL are taken in the
 # same run (BF16_EVAL_PER_TOL, BF16_EVAL_NLL_RTOL: on the CPU, these
 # batches evaluated with the entries' exact twins in place of the plain
@@ -3757,18 +3781,20 @@ def librispeech_phase(kernels, errs: dict, card: str) -> dict:
 BF16_MODEL_OF = {"bilstm_scan_bf16": "bilstm_scan",
                  "attention_decode_scan_loc_lstm_fwd_bf16": "attention_decode_scan_loc_lstm_fwd",
                  "attention_decode_scan_loc_fwd_bf16": "attention_decode_scan_loc_fwd",
+                 "attention_decode_scan_lstm_fwd_bf16": "attention_decode_scan_lstm_fwd",
                  "fused_attention_step_loc_lstm_bf16": "fused_attention_step_loc_lstm"}
 BF16_EVAL_PER_TOL = 0.02  # card vs CPU, bf16, untrained weights
 BF16_EVAL_NLL_RTOL = 1e-3
 # The utterances of each configuration's evaluation: the held-out split's
 # first batch (flagship_loc's first 16: its untrained beam runs to the
 # cap, which costs the CPU ~0.5 s an utterance), and LS_VALID's split.
-BF16_EVAL_N = {"conv_bilstm": 32, "flagship_loc": 16, "vgg": LS_VALID["n"]}
+BF16_EVAL_N = {"conv_bilstm": 32, "flagship_loc": 16, "vgg": LS_VALID["n"],
+               "conv_bilstm_content": 32}
 
 
 def bf16_recipes():
     """(label, recipe, the bf16 entries one evaluation batch launches
-    besides K8 once a beam step: {name: launches}) of the three
+    besides K8 once a beam step: {name: launches}) of the four
     configurations, their model_kwargs in bf16."""
     from seq2seq_attention_asr_tpu_torch.train import experiment
 
@@ -3778,7 +3804,9 @@ def bf16_recipes():
              {"bilstm_scan_bf16": 2, "attention_decode_scan_loc_lstm_fwd_bf16": 1}),
             ("flagship_loc", flagship_loc(),
              {"bigru_scan2_bf16": 6, "attention_decode_scan_loc_fwd_bf16": 1}),
-            ("vgg", experiment.librispeech_vgg(LS_CHARS), {"attention_decode_scan_fwd_bf16": 1})):
+            ("vgg", experiment.librispeech_vgg(LS_CHARS), {"attention_decode_scan_fwd_bf16": 1}),
+            ("conv_bilstm_content", conv_bilstm_content(),
+             {"bilstm_scan_bf16": 2, "attention_decode_scan_lstm_fwd_bf16": 1})):
         exp.model_kwargs["compute_dtype"] = "bfloat16"
         out.append((label, exp, launches))
     return out
@@ -3803,9 +3831,10 @@ def bf16_eval_batch(label: str):
 
 
 def _bf16_scan_args(dec16, h16, x_len, y, dec_mask, v, lstm):
-    """A location-aware decoder scan's arguments in bf16 as the bf16
-    model's forward forms them (vh, the mask, yin from the labels), and
-    its cost: (args, flops, bytes at 2 a value)."""
+    """A decoder scan's arguments in bf16 as the bf16 model's forward forms
+    them (vh, the mask, yin from the labels), the location term's weights
+    where the decoder has them, and its cost: (args, flops, bytes at 2 a
+    value)."""
     from seq2seq_attention_asr_tpu_torch.models.chorowski import float32_sums
     from seq2seq_attention_asr_tpu_torch.ops import attention, readout
     from seq2seq_attention_asr_tpu_torch.ops.masking import length_mask
@@ -3822,9 +3851,11 @@ def _bf16_scan_args(dec16, h16, x_len, y, dec_mask, v, lstm):
     weights = (dec16["ws"]["w"], dec16["ws"]["b"], dec16["w_e"], dec16["c_in"]["w"],
                dec16["c_in"]["b"], dec16["dec_in"]["w"], dec16["dec_in"]["b"])
     weights += (cell["w_h"], cell["w_x"], cell["b"]) if lstm else (cell["w_zr"], cell["w_h"])
-    weights += (dec16["loc_conv"]["w"][:, 0, :], dec16["loc_conv"]["b"], dec16["u"])
+    fm, f = 0, 0
+    if "u" in dec16:
+        weights += (dec16["loc_conv"]["w"][:, 0, :], dec16["loc_conv"]["b"], dec16["u"])
+        fm, f = dec16["u"].shape[0], dec16["loc_conv"]["w"].shape[0]
     s_dim, st, t_len = vh.shape[2], yin.shape[2], yin.shape[1]
-    fm, f = dec16["u"].shape[0], dec16["loc_conv"]["w"].shape[0]
     steps = b * t_len
     # As decoder_scan_cases counts the float32 forward's work.
     step_mv = st * s_dim + a * st + 2 * st * st + (8 * st * st if lstm else 6 * st * st)
@@ -3857,7 +3888,7 @@ def bf16_tree(args):
 
 
 def bf16_model_cases(models, gen):
-    """The four entries' inputs at the shapes of their configurations'
+    """The five entries' inputs at the shapes of their configurations'
     paths, bf16 on the card: {name: [(tag, args, flops, nbytes, library)]},
     the first of each at a training batch's shape (B = 16, 144 frames; the
     VGG step at B = 16 on LibriSpeech's short split), then the evaluation
@@ -3873,7 +3904,7 @@ def bf16_model_cases(models, gen):
     out = {name: [] for name in BF16_MODEL_OF}
     batches = {label: [(f"B={TRAIN_B} {TRAIN_L} frames T={TRAIN_T}",
                         tuple(t.to(dev) for t in train_batch(TRAIN_B, SEED + 26)))]
-               for label in ("conv_bilstm", "flagship_loc")}
+               for label in ("conv_bilstm", "flagship_loc", "conv_bilstm_content")}
     batches["vgg"] = [(f"B={TRAIN_B} L={LS_VALID['max_l']} T={LS_VALID['t']}",
                        tuple(t.to(dev) for t in ls_batch(TRAIN_B, LS_VALID["max_l"],
                                                          LS_VALID["t"], LS_CHARS, SEED + 26,
@@ -3920,10 +3951,11 @@ def bf16_model_cases(models, gen):
                     2 * b * l * (8 * hd * hd + 30 * hd),
                     2 * (2 * b * l * 4 * hd + 2 * hd * 4 * hd) + 4 * (4 * b * hd + 4 * b * l * hd),
                     library))
-            if label in ("conv_bilstm", "flagship_loc"):
-                lstm_dec = label == "conv_bilstm"
-                name = ("attention_decode_scan_loc_lstm_fwd_bf16" if lstm_dec
-                        else "attention_decode_scan_loc_fwd_bf16")
+            if label != "vgg":
+                lstm_dec = label != "flagship_loc"
+                name = {"conv_bilstm": "attention_decode_scan_loc_lstm_fwd_bf16",
+                        "flagship_loc": "attention_decode_scan_loc_fwd_bf16",
+                        "conv_bilstm_content": "attention_decode_scan_lstm_fwd_bf16"}[label]
                 args, flops, nbytes = _bf16_scan_args(p16["decoder"], h16, h_len, y, dec_mask,
                                                       acfg.output_depth, lstm_dec)
                 out[name].append((tag, args, flops, nbytes, None))
@@ -3984,15 +4016,16 @@ def set_flags(flags):
 
 
 def bf16_models_phase(kernels, card: str) -> list:
-    """Phase 12 (b): (a) K7, K10, K12 and K8 in bf16 against their exact
-    twins and the plain bf16 versions at bf16_model_cases' shapes; (b)
+    """Phase 12 (b): (a) K7, K10, K12, K14 and K8 in bf16 against their
+    exact twins and the plain bf16 versions at bf16_model_cases' shapes,
+    each twice with the same bits; (b)
     each configuration's bf16 Trainer.evaluate on its evaluation batch on
     the card under PyTorch's default flags (unchanged after), launching
     only its bf16 entries, exactly as many times as the batch and the
     beam's steps call for, with PER within BF16_EVAL_PER_TOL and NLL
     within BF16_EVAL_NLL_RTOL of the CPU's; (c) each entry's device time
     beside its float32 kernel's on the upcast inputs; (d) a bf16 train
-    step of each raising NotImplementedError. Returns the four entries'
+    step of each raising NotImplementedError. Returns the five entries'
     {"kernels"} rows."""
     from seq2seq_attention_asr_tpu_torch import interop
     from seq2seq_attention_asr_tpu_torch.train import optim, trainer
@@ -4275,6 +4308,7 @@ def main(parent=None) -> int:
                                    attention_scan.KERNEL_FWD_BF16, attention_step.KERNEL_BF16,
                                    lstm_scan.KERNEL_BF16, attention_scan.KERNEL_LOC_LSTM_FWD_BF16,
                                    attention_scan.KERNEL_LOC_FWD_BF16,
+                                   attention_scan.KERNEL_LSTM_FWD_BF16,
                                    attention_step.KERNEL_LOC_LSTM_BF16)}
     started = t0 = time.perf_counter()
     build.build_all(kernels.values())
@@ -4406,6 +4440,7 @@ def main(parent=None) -> int:
                                     CB_STEP_LAUNCHES, "conv_bilstm")
     loc_train_launches = train_phase(kernels, flagship_loc, loc_params_cpu, LOC_STEP_LAUNCHES,
                                      "flagship_loc")
+    loc_long_step(kernels, loc_params_cpu)
     cbc_train_launches = train_phase(kernels, conv_bilstm_content, cbc_params_cpu,
                                      CBC_STEP_LAUNCHES, "conv_bilstm_content")
 
@@ -4443,8 +4478,6 @@ def main(parent=None) -> int:
                 library[(c.name, b)] = lib_ms
             if c.name in WALKS:
                 walk_split(c, kernels[c.name], tag, n, card)
-            if c.name in LOC_BWDS:
-                loc_split(c, tag, n, card)
             if c.name in WALK_BWDS:
                 decoder_walk_split(c, kernels[c.name], tag, n, card)
                 decoder_walk_sweep(c, kernels[c.name], tag, card)
@@ -4471,8 +4504,8 @@ def main(parent=None) -> int:
     for b in (TRAIN_B, BIG_B):
         k6_plan_sweep(kernels["bigru_scan2_bwd"], b, card)
     fwd_walk_timing(kernels, errs, card)
-    # K4, K5 and K10-K15 at B=128: parity, the device time by stage and,
-    # for all but K13, a second call and the walk under each plan.
+    # K4, K5 and K10-K15 at B=128: parity, a second call, the device time
+    # by stage and the walk under each plan.
     big = train_batch(BIG_B, SEED + 3)
     big_cases = train_cases(interop.to_torch(train_params, "cuda"),
                             experiment.timit_chorowski_normnll_colnorm().build_model().cfg, big,
@@ -4483,16 +4516,14 @@ def main(parent=None) -> int:
     big_cases += cbc_train_cases(interop.to_torch(cbc_params_cpu, "cuda"),
                                  conv_bilstm_content().build_model().cfg, big, gen)
     for c in big_cases:
-        if c.name in LOC_BWDS or c.name in WALK_BWDS or c.name in FWD_SCANS:
+        if c.name in WALK_BWDS or c.name in FWD_SCANS:
             tag = f"B={BIG_B} L={TRAIN_L} T={TRAIN_T}"
             with torch.no_grad():
                 got = c.kernel(*c.args)
                 want = c.plain(*c.args)
             torch.cuda.synchronize()
             errs[c.name] = max(errs[c.name], c.check(got, want, tag))
-            if c.name in LOC_BWDS:
-                loc_split(c, tag, 10, card)
-            elif c.name in FWD_SCANS:
+            if c.name in FWD_SCANS:
                 check_repeat(c, kernels[c.name], got, tag)
                 fwd_walk_split(c, kernels[c.name], tag, 10, card)
                 fwd_walk_sweep(c, kernels[c.name], tag, card)
@@ -4556,7 +4587,7 @@ def main(parent=None) -> int:
         card)
 
     # Phase 12: the bf16 operating point of the flagship's evaluation path,
-    # then (b) of conv_bilstm's, flagship_loc's and vgg's.
+    # then (b) of conv_bilstm's, flagship_loc's, vgg's and conv_bilstm_content's.
     bf16_rows = bf16_phase(kernels, card) + bf16_models_phase(kernels, card)
 
     # Phase 13: the LibriSpeech recipes, and K2 at a word vocabulary.

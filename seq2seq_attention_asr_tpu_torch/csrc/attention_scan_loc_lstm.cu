@@ -5,12 +5,14 @@
 //                     entry points attention_decode_scan_loc_lstm_{fwd,bwd}; K10's
 //                     bf16 entry attention_decode_scan_loc_lstm_fwd_bf16
 //                     (lstm_fwd_prepass_bf16_kernel, loc_lstm_fwd_bf16_kernel<R>)
-//   <GRU, location>   K12 loc_gru_fwd_kernel<R>, K13 scan_loc_gru_bwd_kernel;
+//   <GRU, location>   K12 loc_gru_fwd_kernel<R>, K13 loc_gru_bwd_kernel<R>;
 //                     entry points attention_decode_scan_loc_{fwd,bwd}; K12's bf16
 //                     entry attention_decode_scan_loc_fwd_bf16
 //                     (gru_fwd_prepass_bf16_kernel, loc_gru_fwd_bf16_kernel<R>)
 //   <LSTM, content>   K14 scan_lstm_fwd_kernel<R>, K15 scan_lstm_bwd_kernel<R>;
-//                     entry points attention_decode_scan_lstm_{fwd,bwd}
+//                     entry points attention_decode_scan_lstm_{fwd,bwd}; K14's bf16
+//                     entry attention_decode_scan_lstm_fwd_bf16
+//                     (lstm_fwd_prepass_bf16_kernel, scan_lstm_fwd_bf16_kernel<R>)
 //   <GRU, content>    K4 content_gru_fwd_kernel<R>, K5 content_gru_walk_kernel<R>;
 //                     entry points attention_decode_scan_{fwd,bwd}; K4's bf16
 //                     entry attention_decode_scan_fwd_bf16 (gru_fwd_prepass_bf16_kernel,
@@ -19,10 +21,10 @@
 //
 // The four forwards share a pre-pass (fwd_prepass<kLstm, kStage>) and a
 // forward walk on a thread-block cluster (decoder_fwd_walk<R, kLstm,
-// kLoc>); K11, K15 and K5 share a pre-pass and a backward walk on one
-// (decoder_walk<R, kLstm, kLoc>); K13 has a one-block body of its own
-// (scan_bwd). Each instance's kernels are thin __global__ functions of
-// their own, so that a profiler trace names which instance ran.
+// kLoc>); the four backwards K11, K13, K15 and K5 share a pre-pass and a
+// backward walk on one (decoder_walk<R, kLstm, kLoc>). Each instance's
+// kernels are thin __global__ functions of their own, so that a profiler
+// trace names which instance ran.
 //
 // They replace the Pallas kernels of
 // seq2seq_attention_asr_tpu/ops/pallas/attention_scan.py, whose forwards
@@ -103,31 +105,7 @@
 //      the exchanges' round trips and the products on the chain after the
 //      softmax, c @ W_cx (and the GRU's candidate product after E3).
 //
-// K13 walks t = T-1..0 in one block per row. It recomputes the step from
-// s_prev and alpha_prev, the saved sequences shifted by one and zero at
-// step 0, and the saved c, and takes alpha itself from the saved alpha
-// sequence, so it runs no softmax; then it backprops the GRU cell
-// (gru_cell_bwd), the decoder-input MLP, the context, the masked softmax,
-// the energies and the location term, whose input alpha_prev is the
-// previous step's output: that cotangent is carried
-// into step t-1. ds is carried in shared memory. dvh and dh are summed
-// over the steps in global memory, each row's slice by its own block.
-// The weight gradients of the step's products are sums of outer products
-// over the B*T steps: the walk writes each step's operands and cotangents
-// to a stash, and reduce_atb.cuh forms the products and the bias sums
-// afterwards, deterministically, in one launch. The location term's
-// weight gradients, dU, dwconv and dbconv, are sums over the B*T*L (step,
-// encoder position) pairs; as the TPU kernel does (_bwd_kernel_loc
-// :779-791), each block sums its own row's T*L pairs in the walk: dU in
-// the energies pass by the thread that forms dz(l, sc), in registers over
-// the step's L positions, where FM is at most kLocQ and a multiple of 4,
-// else in a pass of its own; dwconv and dbconv from the step's dfeat. A
-// second reduce_atb.cuh launch sums the B rows' partials in a fixed
-// order. What bounds K13's walk: about half of a step is the recompute
-// and the cell's transposed products, which read the step's weights from
-// L2; most of the rest is the energies and dfeat passes.
-//
-// K11, K15 and K5 run in three stages (launch_walk_bwd below):
+// K11, K13, K15 and K5 run in three stages (launch_walk_bwd below):
 //   1. a recompute pre-pass off the chain (lstm_decoder_prepass_kernel,
 //      gru_decoder_prepass_kernel): every step's s_prev, c and alpha_prev
 //      are saved sequences, so ws, cc, r = [cc | yin] @ dec_w + dec_b and
@@ -169,7 +147,12 @@
 //      softmax's sum sum_l alpha dalpha = c . dc + sum_l alpha
 //      (dalpha_seq + carry), c being the saved context; the last the
 //      blocks' S-long dws partials and the dfeat rows within F - 1
-//      positions of a peer's, whose alpha_prev cotangent reads them.
+//      positions of a peer's, whose alpha_prev cotangent reads them: the
+//      features of position l read alpha_prev at l - F/2 .. l + F - 1 -
+//      F/2 (the reference's padding, F/2 on the left for an odd and an
+//      even filter alike), so a block's halo reaches F - 1 - F/2
+//      positions before its own and F/2 after, past its neighbours where
+//      they hold fewer positions.
 //      Sums over blocks are in rank order, no atomics: two calls give
 //      the same bits. The location term's dU, dwconv and dbconv and dw_e
 //      are summed over the block's rows, positions and steps in its
@@ -189,7 +172,7 @@
 // GRU_FWD_ONLY, K5's alone with CONTENT_GRU_BWD_ONLY, and K11's, K13's and
 // K15's.
 
-#include "attention_common.cuh"
+#include "common.cuh"
 #include "cluster_walk.cuh"
 #include "reduce_atb.cuh"
 
@@ -202,15 +185,12 @@ namespace {
 // The cell's weights are the GRU's w_zr (2St, 2St) and w_h (2St, St), or
 // the LSTM's w_h, w_x (St, 4St) and b (4St); the location term's are null
 // without it. T is their IO type: float, or bf16 for the bf16 entries of
-// K4, K10 and K12.
+// K4, K10, K12 and K14.
 template <class T>
 struct WeightsT {
   const T *ws_w, *ws_b, *w_e, *c_w, *c_b, *dec_w, *dec_b;
   const T *w_zr, *w_h, *w_x, *b;
   const T *wconv, *bconv, *u;
-  __host__ __device__ StepWeights step() const {
-    return StepWeights{ws_w, ws_b, c_w, c_b, dec_w, dec_b, w_zr, w_h};
-  }
 };
 using Weights = WeightsT<float>;
 
@@ -230,83 +210,31 @@ struct Carver {
   }
 };
 
-// Feature maps whose location-term sums one thread keeps in registers.
+// Feature maps whose dfeat sums a warp forms at a time (dfeat_of).
 constexpr int kLocQ = 16;
 
-// The location term's constants and buffers (kLoc only).
-struct LocShared {
-  float *ap, *u, *cw, *cb;  // alpha_prev zero-padded [L+F-1]; U [FM][S]; taps [F][FM]; bias [FM]
-};
-
-template <bool kLoc>
-__host__ __device__ LocShared carve_loc(Carver& c, const Dims& d) {
-  LocShared s{};
-  if (kLoc) {
-    s.ap = c.take(d.L + d.F - 1);
-    s.u = c.take((size_t)d.FM * d.S);
-    s.cw = c.take((size_t)d.F * d.FM);
-    s.cb = c.take(d.FM);
-  }
-  return s;
-}
-
-// The buffers of one step of K13's GRU.
-__host__ __device__ StepBufs carve_step(Carver& c, const Dims& d) {
-  const int St = d.St;
-  StepBufs m{};
-  m.sp = c.take(St);
-  m.ws = c.take(d.S);
-  m.al = c.take(d.L);
-  m.rin = c.take(2 * St);
-  m.sr = c.take(2 * St);
-  m.xo = c.take(St + d.A);
-  m.we = c.take(d.S);
-  m.msk = c.take(d.L);
-  m.zr = c.take(2 * St);
-  m.rhr = c.take(2 * St);
-  m.cand = c.take(St);
-  return m;
-}
-
-template <bool kLoc>
-__device__ void load_constants(const Weights& w, const float* mask, const StepBufs& m,
-                               const LocShared& loc, const Dims& d, int b) {
-  for (int i = threadIdx.x; i < d.S; i += kThreads) m.we[i] = w.w_e[i];
-  for (int i = threadIdx.x; i < d.L; i += kThreads) m.msk[i] = mask[(size_t)b * d.L + i];
-  if (kLoc) {
-    for (int i = threadIdx.x; i < d.L + d.F - 1; i += kThreads) loc.ap[i] = 0.f;
-    for (int i = threadIdx.x; i < d.FM * d.S; i += kThreads) loc.u[i] = w.u[i];
-    for (int i = threadIdx.x; i < d.F * d.FM; i += kThreads) loc.cw[i] = w.wconv[i];
-    for (int i = threadIdx.x; i < d.FM; i += kThreads) loc.cb[i] = w.bconv[i];
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K11, K13, K15: the backward.
+// K11, K13, K15, K5: the backward.
 
 // Per-step operands and cotangents the weight-gradient reductions read,
 // carved from the caller's scratch in this order: (B*T) rows of rr (2St);
 // for the LSTM r (St); for the GRU sr and cand_in (2St each); then dws
-// (S; for the walks the pre-pass's ws until the walk writes dws over it),
-// dcc (St), dr (St); for the LSTM dgates (4St; the pre-pass's gate
-// pre-activations until the walk writes dgates over them), for the GRU
-// da_zr (2St) and da_cand (St) (for K5 the pre-pass's gates and
-// candidate until the walk writes their cotangents over them), and for
-// K13 the step's w_e partial (S); then, with the location term, B rows
-// of the step's dz (L*S, rewritten every step). Then the partial sums:
-// for K13, per batch row, of dU (FM*S) and of dwconv and dbconv ((F + 1)
-// * FM); for the walks (K11, K15, K5), per block of the walk (`partials`
-// rows), of dw_e (S) and, with the location term, of dU and of dwconv
-// and dbconv.
+// (S; the pre-pass's ws until the walk writes dws over it), dcc (St), dr
+// (St); for the LSTM dgates (4St; the pre-pass's gate pre-activations
+// until the walk writes dgates over them), for the GRU da_zr (2St) and
+// da_cand (St) (the pre-pass's gates and candidate until the walk writes
+// their cotangents over them); then, with the location term, B rows of
+// the step's dz (L*S, rewritten every step). Then the partial sums, per
+// block of the walk (`partials` rows), of dw_e (S) and, with the location
+// term, of dU (FM*S) and of dwconv and dbconv ((F + 1) * FM).
 struct Stash {
-  float *rr, *r, *sr, *cand_in, *dws, *dcc, *dr, *dg, *da_zr, *da_cand, *dwe;
+  float *rr, *r, *sr, *cand_in, *dws, *dcc, *dr, *dg, *da_zr, *da_cand;
   float *dz, *pwe, *pu, *pconv;
 };
 
 template <bool kLstm, bool kLoc>
 Stash carve_stash(float* p, const Dims& d, int partials) {
-  const size_t rows = (size_t)d.B * d.T, St = d.St, S = d.S;
-  const bool walk = kLstm || !kLoc;  // every instance but K13 runs the cluster walk
+  const size_t rows = (size_t)d.B * d.T, St = d.St, S = d.S, n = (size_t)partials;
   Carver c{p, 0};
   Stash s{};
   s.rr = c.take(rows * 2 * St);
@@ -325,10 +253,8 @@ Stash carve_stash(float* p, const Dims& d, int partials) {
     s.da_zr = c.take(rows * 2 * St);
     s.da_cand = c.take(rows * St);
   }
-  if (!walk) s.dwe = c.take(rows * S);
   if (kLoc) s.dz = c.take((size_t)d.B * d.L * S);
-  const size_t n = walk ? (size_t)partials : (size_t)d.B;
-  if (walk) s.pwe = c.take(n * S);
+  s.pwe = c.take(n * S);
   if (kLoc) {
     s.pu = c.take(n * d.FM * S);
     s.pconv = c.take(n * (d.F + 1) * d.FM);
@@ -346,12 +272,9 @@ struct BwdArgs {
   Dims d;
 };
 
-// p[i], or 0 where the cotangent p is absent.
-__device__ __forceinline__ float cot(const float* p, size_t i) { return p ? p[i] : 0.f; }
-
-// Positions (the context's dh and the energies pass) and score units (the
-// dfeat pass) whose global loads a thread issues together, ahead of the
-// arithmetic that uses them.
+// Positions (the energies pass) and score units (the dfeat pass) whose
+// global loads a thread issues together, ahead of the arithmetic that
+// uses them.
 constexpr int kLocRows = 4, kLocCols = 8;
 
 // One stage of warp_sum16: v[0..2W) becomes v[0..W), the half that the
@@ -404,313 +327,6 @@ __device__ __forceinline__ void dfeat_of(const float* dz, const float* u, int S,
     if (!(lane & 1) && q < FM) dfeat[q] = v;
   }
 }
-
-// ---------------------------------------------------------------------------
-// K13: the location-aware GRU decoder's backward, one block per batch row.
-
-struct BwdShared {
-  StepBufs m;  // sp, ws, al (alpha), rin (cc | yin), sr (s_prev | r), xo (c at [St:]), we, msk,
-               // zr, rhr, cand
-  LocShared loc;
-  GruGrads g;
-  float *dsp, *dr;              // [St]   the cell's part of ds_prev; dr
-  float *drr, *tmp;             // [2St]  dr @ dec_w^T; [St] dws @ ws_w^T
-  float *carry_s;               // [St]   ds carried to the previous step
-  float *dc;                    // [A]
-  float *dal, *de;              // [L]
-  float *dws;                   // [S]
-  float *feat, *dfeat;          // [L][FM]
-  float *dal_carry;             // [L]    the cotangent of this step's alpha from step t+1
-  float *red;                   // [kWarps]
-};
-
-__host__ __device__ BwdShared carve_bwd(float* sm, const Dims& d, size_t* floats) {
-  Carver c{sm, 0};
-  const int St = d.St;
-  BwdShared s{};
-  // feat first, 16-byte aligned: with FM a multiple of 4 the energies
-  // pass reads a position's maps as float4s.
-  s.feat = c.take((size_t)d.L * d.FM);
-  s.m = carve_step(c, d);
-  s.g.ds = c.take(St);
-  s.g.da_cand = c.take(St);
-  s.g.dcin = c.take(2 * St);
-  s.g.da_zr = c.take(2 * St);
-  s.g.dsr = c.take(2 * St);
-  s.dsp = c.take(St);
-  s.dr = c.take(St);
-  s.drr = c.take(2 * St);
-  s.tmp = c.take(St);
-  s.carry_s = c.take(St);
-  s.dc = c.take(d.A);
-  s.dal = c.take(d.L);
-  s.de = c.take(d.L);
-  s.dws = c.take(d.S);
-  s.loc = carve_loc<true>(c, d);
-  s.dfeat = c.take((size_t)d.L * d.FM);
-  s.dal_carry = c.take(d.L);
-  s.red = c.take(kWarps);
-  s.m.scratch = c.take(kThreads * 4);
-  *floats = c.off;
-  return s;
-}
-
-// Where the walk sums dU, from the shapes alone: with FM <= kLocQ and a
-// multiple of 4, in the energies pass, in the registers of the thread
-// that forms dz(l, sc) over the step's L positions; else in a pass of
-// its own, kLocQ maps at a time; either way into the row's partial, read
-// and written once a step.
-__device__ __forceinline__ bool du_inline(const Dims& d) {
-  return d.FM <= kLocQ && d.FM % 4 == 0;
-}
-
-__device__ __forceinline__ void scan_bwd(float* sm, const BwdArgs& a) {
-  const Dims& d = a.d;
-  const int b = blockIdx.x, St = d.St, St2 = 2 * St, A = d.A, L = d.L, S = d.S;
-  const int FM = d.FM, F = d.F, pad = F / 2;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  size_t floats;
-  const BwdShared s = carve_bwd(sm, d, &floats);
-  const StepBufs& m = s.m;
-  const StepWeights w = a.w.step();
-  const float* vhb = a.vh + (size_t)b * L * S;
-  const float* hb = a.h + (size_t)b * L * A;
-  float* dvhb = a.dvh + (size_t)b * L * S;
-  float* dhb = a.dh + (size_t)b * L * A;
-
-  load_constants<true>(a.w, a.mask, m, s.loc, d, b);
-  for (int j = tid; j < St; j += kThreads) s.carry_s[j] = 0.f;
-  // The location term's weight gradients over this row's pairs, in the
-  // row's partials pu (dU) and pconv (dwconv, dbconv).
-  const bool du_in = du_inline(d);
-  const int n_conv = (F + 1) * FM;
-  float* dzb = a.st.dz + (size_t)b * L * S;
-  float* pub = a.st.pu + (size_t)b * FM * S;
-  float* pcb = a.st.pconv + (size_t)b * n_conv;
-  for (int l = tid; l < L; l += kThreads) s.dal_carry[l] = 0.f;
-  for (int t = d.T - 1; t >= 0; --t) {
-    const size_t n = (size_t)b * d.T + t;
-    const bool last = t == d.T - 1;  // the first step of the walk writes dvh and dh
-    // The step's saved state: s_prev and alpha_prev (zero at step 0), c
-    // and alpha.
-    for (int j = tid; j < St; j += kThreads) {
-      const float v = t > 0 ? a.s_seq[(n - 1) * St + j] : 0.f;
-      m.sp[j] = m.sr[j] = v;
-      m.rin[St + j] = a.yin[n * St + j];
-    }
-    for (int j = tid; j < A; j += kThreads) m.xo[St + j] = a.c_seq[n * A + j];
-    for (int l = tid; l < L; l += kThreads) {
-      m.al[l] = a.alpha_seq[n * L + l];
-      s.loc.ap[pad + l] = t > 0 ? a.alpha_seq[(n - 1) * L + l] : 0.f;
-    }
-    __syncthreads();
-    // [phase] load
-    // Recompute ws, r and the cell (the GRU's gates, candidate and rhr);
-    // and the location features, as the forward forms them.
-    matvec<kNone>(w.ws_w, w.ws_b, St, S, m.sp, St, m.ws, S, 1, m.scratch);
-    decoder_cell(w, m, 1, A, St);
-    // [phase] recompute
-    for (int i = tid; i < L * FM; i += kThreads) {
-      const int l = i / FM, q = i % FM;
-      float f = 0.f;
-      for (int j = 0; j < F; ++j) f = fmaf(s.loc.ap[l + j], s.loc.cw[j * FM + q], f);
-      s.feat[i] = f + s.loc.cb[q];
-    }
-    gru_cell_bwd(a.w.w_zr, a.w.w_h, m, a.ds_seq ? a.ds_seq + n * St : nullptr, s.carry_s, s.g,
-                 s.dsp, s.dr, St);
-    // [phase] cell
-    // The decoder-input MLP.
-    matvec_t<1>(w.dec_w, St2, St, s.dr, 0, s.drr, 0);
-    __syncthreads();
-    // [phase] dec_w^T
-    for (int j = tid; j < St; j += kThreads) a.dyin[n * St + j] = s.drr[St + j];
-    matvec_t<1>(w.c_w, A, St, s.drr, 0, s.dc, 0);
-    __syncthreads();
-    for (int j = tid; j < A; j += kThreads) s.dc[j] += cot(a.dc_seq, n * A + j);
-    __syncthreads();
-    // [phase] c_w^T
-
-    // The context: dalpha = h dc + dalpha_seq + the carry from step t+1,
-    // dh += alpha dc^T.
-    for (int l = warp; l < L; l += kWarps) {
-      const float* hr = hb + (size_t)l * A;
-      float acc = 0.f;
-      for (int j = lane; j < A; j += 32) acc = fmaf(s.dc[j], hr[j], acc);
-      acc = warp_sum(acc);
-      if (lane == 0) s.dal[l] = acc + cot(a.dalpha_seq, n * L + l) + s.dal_carry[l];
-    }
-    // dh, the loads of kLocRows positions issued together.
-    for (int j = tid; j < A; j += kThreads) {
-      const float dcj = s.dc[j];
-      for (int l0 = 0; l0 < L; l0 += kLocRows) {
-        float o[kLocRows];
-#pragma unroll
-        for (int r = 0; r < kLocRows; ++r)
-          o[r] = l0 + r < L && !last ? dhb[(size_t)(l0 + r) * A + j] : 0.f;
-#pragma unroll
-        for (int r = 0; r < kLocRows; ++r) {
-          const int l = l0 + r;
-          if (l >= L) break;
-          const float v = m.al[l] * dcj;
-          dhb[(size_t)l * A + j] = last ? v : o[r] + v;
-        }
-      }
-    }
-    __syncthreads();
-    // [phase] context
-    // The masked softmax.
-    float part = 0.f;
-    for (int l = tid; l < L; l += kThreads) part += s.dal[l] * m.al[l];
-    const float dot = block_sum(part, s.red);
-    for (int l = tid; l < L; l += kThreads) s.de[l] = m.al[l] * (s.dal[l] - dot);
-    __syncthreads();
-    // [phase] softmax
-    // The energies: dz = de w_e (1 - tanh(z)^2), a thread per score unit,
-    // z recomputed as the forward forms it, the loads of kLocRows
-    // positions issued together. The step's dz also goes to the row's
-    // scratch, and dU += feat^T dz.
-    for (int sc = tid; sc < S; sc += kThreads) {
-      const float wsv = m.ws[sc], wev = m.we[sc];
-      float ur[kLocQ], du[kLocQ];  // U[:, sc] and dU[:, sc], where dU is summed here
-      if (du_in)
-#pragma unroll
-        for (int q = 0; q < kLocQ; ++q) {
-          ur[q] = q < FM ? s.loc.u[q * S + sc] : 0.f;
-          du[q] = q < FM && !last ? pub[(size_t)q * S + sc] : 0.f;
-        }
-      float gws = 0.f, gwe = 0.f;
-      for (int l0 = 0; l0 < L; l0 += kLocRows) {
-        float vv[kLocRows], dv[kLocRows];
-#pragma unroll
-        for (int r = 0; r < kLocRows; ++r) {
-          const size_t i = (size_t)(l0 + r) * S + sc;
-          vv[r] = l0 + r < L ? vhb[i] : 0.f;
-          dv[r] = l0 + r < L && !last ? dvhb[i] : 0.f;
-        }
-#pragma unroll
-        for (int r = 0; r < kLocRows; ++r) {
-          const int l = l0 + r;
-          if (l >= L) break;
-          float z = vv[r] + wsv;
-          const float4* f4 = reinterpret_cast<const float4*>(s.feat + l * FM);
-          float uf = 0.f;
-          if (du_in) {
-#pragma unroll
-            for (int q = 0; q < kLocQ; q += 4) {
-              if (q >= FM) break;
-              const float4 f = f4[q / 4];
-              uf = fmaf(f.x, ur[q], uf);
-              uf = fmaf(f.y, ur[q + 1], uf);
-              uf = fmaf(f.z, ur[q + 2], uf);
-              uf = fmaf(f.w, ur[q + 3], uf);
-            }
-          } else {
-            for (int q = 0; q < FM; ++q) uf = fmaf(s.feat[l * FM + q], s.loc.u[q * S + sc], uf);
-          }
-          z += uf;
-          const float av = fast_tanh(z);
-          const float dz = s.de[l] * wev * (1.f - av * av);
-          const size_t i = (size_t)l * S + sc;
-          dvhb[i] = last ? dz : dv[r] + dz;
-          dzb[i] = dz;
-          if (du_in)
-#pragma unroll
-            for (int q = 0; q < kLocQ; q += 4) {
-              if (q >= FM) break;
-              const float4 f = f4[q / 4];
-              du[q] = fmaf(f.x, dz, du[q]);
-              du[q + 1] = fmaf(f.y, dz, du[q + 1]);
-              du[q + 2] = fmaf(f.z, dz, du[q + 2]);
-              du[q + 3] = fmaf(f.w, dz, du[q + 3]);
-            }
-          gws += dz;
-          gwe = fmaf(av, s.de[l], gwe);
-        }
-      }
-      s.dws[sc] = gws;
-      a.st.dwe[n * S + sc] = gwe;
-      if (du_in) {
-#pragma unroll
-        for (int q = 0; q < kLocQ; ++q)
-          if (q < FM) pub[(size_t)q * S + sc] = du[q];
-      } else {
-        // dU[:, sc], kLocQ maps at a time, from the dz this thread has
-        // just written.
-        for (int q0 = 0; q0 < FM; q0 += kLocQ) {
-          float acc[kLocQ];
-#pragma unroll
-          for (int k = 0; k < kLocQ; ++k)
-            acc[k] = last || q0 + k >= FM ? 0.f : pub[(size_t)(q0 + k) * S + sc];
-          for (int l = 0; l < L; ++l) {
-            const float z = dzb[(size_t)l * S + sc];
-#pragma unroll
-            for (int k = 0; k < kLocQ; ++k)
-              if (q0 + k < FM) acc[k] = fmaf(s.feat[l * FM + q0 + k], z, acc[k]);
-          }
-#pragma unroll
-          for (int k = 0; k < kLocQ; ++k)
-            if (q0 + k < FM) pub[(size_t)(q0 + k) * S + sc] = acc[k];
-        }
-      }
-    }
-    __syncthreads();
-    // [phase] energies
-    // dfeat = dz @ U^T: a warp per position.
-    for (int l = warp; l < L; l += kWarps) dfeat_of(dzb + (size_t)l * S, s.loc.u, S, FM,
-                                                    s.dfeat + l * FM, lane);
-    __syncthreads();
-    // [phase] dfeat
-    // The cotangent of alpha_prev, for step t-1: alpha_prev[k] enters
-    // feat[l] through tap j = k + pad - l. A warp per k, its lanes along
-    // the taps' (j, q): the rows of dfeat it reads are adjacent.
-    for (int k = warp; k < L; k += kWarps) {
-      float acc = 0.f;
-      for (int i = lane; i < F * FM; i += 32) {
-        const int j = i / FM, l = k + pad - j;
-        if (l >= 0 && l < L) acc = fmaf(s.dfeat[l * FM + i - j * FM], s.loc.cw[i], acc);
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) s.dal_carry[k] = acc;
-    }
-    // dwconv[j][q] += sum_l ap[l + j] dfeat[l][q] and dbconv[q] +=
-    // sum_l dfeat[l][q]: a thread per entry.
-    for (int i = tid; i < n_conv; i += kThreads) {
-      float v = 0.f;
-      if (i < F * FM) {
-        const int j = i / FM, q = i - j * FM;
-        for (int l = 0; l < L; ++l) v = fmaf(s.loc.ap[l + j], s.dfeat[l * FM + q], v);
-      } else {
-        for (int l = 0; l < L; ++l) v += s.dfeat[l * FM + i - F * FM];
-      }
-      pcb[i] = last ? v : pcb[i] + v;
-    }
-    matvec_t<1>(w.ws_w, St, S, s.dws, 0, s.tmp, 0);
-    __syncthreads();
-    // [phase] carry, conv, ws_w^T
-    for (int j = tid; j < St; j += kThreads) {
-      s.carry_s[j] = s.dsp[j] + s.tmp[j];
-      a.st.dcc[n * St + j] = s.drr[j];
-      a.st.dr[n * St + j] = s.dr[j];
-      a.st.da_cand[n * St + j] = s.g.da_cand[j];
-    }
-    for (int j = tid; j < St2; j += kThreads) {
-      a.st.rr[n * St2 + j] = m.rin[j];
-      a.st.sr[n * St2 + j] = m.sr[j];
-      a.st.cand_in[n * St2 + j] = m.rhr[j];
-      a.st.da_zr[n * St2 + j] = s.g.da_zr[j];
-    }
-    for (int sc = tid; sc < S; sc += kThreads) a.st.dws[n * S + sc] = s.dws[sc];
-    __syncthreads();
-    // [phase] stash
-  }
-}
-
-#if !defined(CONTENT_GRU_BWD_ONLY) && !defined(FWD_WALK_BUILD)
-__global__ void __launch_bounds__(kThreads, 1) scan_loc_gru_bwd_kernel(const BwdArgs a) {
-  extern __shared__ float sm[];
-  scan_bwd(sm, a);
-}
-#endif
 
 // ---------------------------------------------------------------------------
 // K11, K15, K5: the decoder backwards on thread-block clusters.
@@ -1015,15 +631,31 @@ __device__ __forceinline__ void stage_step(const BwdArgs& a, const WalkCtx& c, c
 // thread per score unit, z = vh + ws (+ feat U), the loads of kLocRows
 // positions issued together; dvh (`last`: the walk's first step writes
 // it), the block's partial of dws, dw_e's sum, and with the location term
-// dU's sum and dz into the scratch, which the dfeat pass reads.
-template <int R, bool kLoc>
+// dU's sum and dz into the scratch, which the dfeat pass reads. With
+// kRegs, where FM is at most kLocQ and a multiple of 4, the thread keeps
+// U[:, sc] and this step's dU[:, sc] in registers over the block's rows
+// and positions and adds the latter to dU's sum once (else it reads U and
+// updates the sum in shared memory at every position). K13 takes it: at
+// flagship_loc's L a block holds 9 to 18 positions a row, and on an H100
+// tools/scan_phases.py read its walk's step 25% shorter so (the
+// energies' cycles 58% fewer); K11's blocks hold 1 or 2 (L' = 16), where
+// the 32 registers cost more in the rest of its step than they save.
+template <int R, bool kLoc, bool kRegs>
 __device__ __forceinline__ void walk_energies(const BwdArgs& a, const WalkCtx& c,
                                            const WalkShared& sh, const Staged& q, bool last) {
   const int L = a.d.L, S = a.d.S, FM = a.d.FM, Pc = c.Pc, Sp = c.Sp;
   const Span& pos = c.pos;
+  const bool du_in = kLoc && kRegs && FM <= kLocQ && FM % 4 == 0;
   for (int sc = threadIdx.x; sc < S; sc += kThreads) {
     const float wev = sh.we[sc];
     float gwe = 0.f;
+    float ur[kLocQ], du[kLocQ];  // U[:, sc] and this step's dU[:, sc], where du_in
+    if (du_in)
+#pragma unroll
+      for (int qq = 0; qq < kLocQ; ++qq) {
+        ur[qq] = qq < FM ? sh.u[qq * S + sc] : 0.f;
+        du[qq] = 0.f;
+      }
     for (int r = 0; r < c.nrows; ++r) {
       const float wsv = q.ws[r * Sp + sc];
       const size_t base = ((size_t)(c.b0 + r) * L + pos.lo) * S + sc;
@@ -1042,9 +674,24 @@ __device__ __forceinline__ void walk_energies(const BwdArgs& a, const WalkCtx& c
           if (p >= pos.n) break;
           float z = vv[x] + wsv;
           const float* f = sh.feat + (r * Pc + p) * FM;
+          // The position's features as float4s (its row starts on a
+          // 16-byte boundary where FM is a multiple of 4).
+          const float4* f4 = reinterpret_cast<const float4*>(f);
           if (kLoc) {
             float uf = 0.f;
-            for (int qq = 0; qq < FM; ++qq) uf = fmaf(f[qq], sh.u[qq * S + sc], uf);
+            if (du_in) {
+#pragma unroll
+              for (int qq = 0; qq < kLocQ; qq += 4) {
+                if (qq >= FM) break;
+                const float4 fv = f4[qq / 4];
+                uf = fmaf(fv.x, ur[qq], uf);
+                uf = fmaf(fv.y, ur[qq + 1], uf);
+                uf = fmaf(fv.z, ur[qq + 2], uf);
+                uf = fmaf(fv.w, ur[qq + 3], uf);
+              }
+            } else {
+              for (int qq = 0; qq < FM; ++qq) uf = fmaf(f[qq], sh.u[qq * S + sc], uf);
+            }
             z += uf;
           }
           const float av = fast_tanh(z), de = sh.de[r * Pc + p];
@@ -1053,8 +700,20 @@ __device__ __forceinline__ void walk_energies(const BwdArgs& a, const WalkCtx& c
           a.dvh[i] = last ? dz : dv[x] + dz;
           if (kLoc) {
             a.st.dz[i] = dz;
-            for (int qq = 0; qq < FM; ++qq)
-              sh.pu[qq * S + sc] = fmaf(f[qq], dz, sh.pu[qq * S + sc]);
+            if (du_in) {
+#pragma unroll
+              for (int qq = 0; qq < kLocQ; qq += 4) {
+                if (qq >= FM) break;
+                const float4 fv = f4[qq / 4];
+                du[qq] = fmaf(fv.x, dz, du[qq]);
+                du[qq + 1] = fmaf(fv.y, dz, du[qq + 1]);
+                du[qq + 2] = fmaf(fv.z, dz, du[qq + 2]);
+                du[qq + 3] = fmaf(fv.w, dz, du[qq + 3]);
+              }
+            } else {
+              for (int qq = 0; qq < FM; ++qq)
+                sh.pu[qq * S + sc] = fmaf(f[qq], dz, sh.pu[qq * S + sc]);
+            }
           }
           gws += dz;
           gwe = fmaf(av, de, gwe);
@@ -1063,6 +722,10 @@ __device__ __forceinline__ void walk_energies(const BwdArgs& a, const WalkCtx& c
       sh.dwsp[(c.k * R + r) * Sp + sc] = gws;
     }
     sh.we_acc[sc] += gwe;
+    if (du_in)
+#pragma unroll
+      for (int qq = 0; qq < kLocQ; ++qq)
+        if (qq < FM) sh.pu[qq * S + sc] += du[qq];
   }
 }
 
@@ -1079,8 +742,8 @@ __device__ __forceinline__ void walk_dfeat(const BwdArgs& a, const WalkCtx& c,
   }
 }
 
-// The walk of K11 (kLstm, kLoc), K15 (kLstm) or K5 (the GRU) for the R
-// batch rows of this block's cluster (group blockIdx.x / C), after the
+// The walk of K11 (kLstm, kLoc), K15 (kLstm), K13 (kLoc) or K5 (the GRU)
+// for the R batch rows of this block's cluster (group blockIdx.x / C), after the
 // pre-pass; the file's head gives the step. Single buffers suffice for
 // what the exchanges carry, by causality: a peer pushes a step's first
 // exchange only after it has passed that step's last (the dws partials)
@@ -1094,7 +757,6 @@ __device__ __forceinline__ void walk_dfeat(const BwdArgs& a, const WalkCtx& c,
 // inputs, stay zero and write nothing.
 template <int R, bool kLstm, bool kLoc>
 __device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {
-  static_assert(kLstm || !kLoc, "the location-aware GRU's backward is K13's scan_bwd");
   // The exchanges after the cell's: dr, dcc, dc (with the softmax's
   // shares), the dws partials (with the dfeat halo).
   constexpr int eDr = kLstm ? 1 : 2, eDcc = eDr + 1, eDc = eDr + 2, eDws = eDr + 3;
@@ -1384,7 +1046,7 @@ __device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {
     }
     __syncthreads();
     // [phase] context
-    walk_energies<R, kLoc>(a, c, sh, q, last);
+    walk_energies<R, kLoc, !kLstm>(a, c, sh, q, last);
     async_fence();
     __syncthreads();
     // [phase] energies
@@ -1497,6 +1159,12 @@ template <int R>
 __global__ void __launch_bounds__(kThreads, 1) scan_lstm_bwd_kernel(const BwdArgs a) {
   extern __shared__ __align__(16) float sm[];
   decoder_walk<R, true, false>(sm, a);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1) loc_gru_bwd_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  decoder_walk<R, false, true>(sm, a);
 }
 
 template <int R>
@@ -1623,7 +1291,7 @@ __global__ void __launch_bounds__(kTileThreads) gru_decoder_prepass_kernel(const
 // step).
 
 // T is the IO type of every input and output: float, or bf16 for the bf16
-// entries of K4, K10 and K12 (every instance but the content-only LSTM's).
+// entries of K4, K10, K12 and K14.
 // The pre-pass's tables and the walk's shared buffers are float either way.
 template <class T>
 struct FwdArgsT {
@@ -1858,7 +1526,7 @@ __device__ __forceinline__ void rows_dot_l2(const float* w, int ldw, int n, cons
 // waits for those bytes precede the pushes that let the block go on).
 // Rows past B have zero inputs, stay zero and write nothing.
 //
-// With bf16 IO (IO, the bf16 entries of K4, K10 and K12), as the JAX
+// With bf16 IO (IO, the bf16 entries of K4, K10, K12 and K14), as the JAX
 // kernels with bf16 inputs: every input loads widened to float, every
 // output stores rounded; the energies, the softmax, c and the s, mem and
 // alpha carries are float; each product reads its operand rounded to
@@ -2230,6 +1898,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) float sm[];
   decoder_fwd_walk<R, true, true, bf16>(sm, a, x, resident);
 }
+
+// K14's bf16 entry.
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+    scan_lstm_fwd_bf16_kernel(const FwdArgsT<bf16> a, const FwdScratch x, int resident) {
+  extern __shared__ __align__(16) float sm[];
+  decoder_fwd_walk<R, true, false, bf16>(sm, a, x, resident);
+}
 #else
 template <int R>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -2368,17 +2044,6 @@ __global__ void __launch_bounds__(kTileThreads)
 // ---------------------------------------------------------------------------
 // Host side.
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (bytes > (size_t)limit) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <bool kLoc>
 bool valid(const Dims& d) {
   return d.B >= 1 && d.T >= 1 && d.L >= 1 && d.S >= 1 && d.A >= 1 && d.St >= 1 &&
@@ -2390,16 +2055,19 @@ template <class T>
 using FwdKernel = void (*)(const FwdArgsT<T>, const FwdScratch, int);
 
 // The forward walk instance for R batch rows a cluster: K10's (kLstm,
-// kLoc), K14's (kLstm), K12's (kLoc) or K4's, and with bf16 IO the bf16
-// entries' of K10, K12 and K4.
+// kLoc), K14's (kLstm), K12's (kLoc) or K4's, and with bf16 IO their bf16
+// entries'.
 template <bool kLstm, bool kLoc, class T = float>
 FwdKernel<T> fwd_walk_kernel(int R) {
-  static_assert(!kIsBf16<T> || kLoc || !kLstm, "bf16 IO: no content-only LSTM instance");
 #ifdef LSTM_FWD_ONLY
   static_assert(kLstm, "this build holds the LSTM's forwards");
-  if constexpr (kIsBf16<T>)
+  if constexpr (kIsBf16<T> && kLoc)
     return R == 1 ? loc_lstm_fwd_bf16_kernel<1> : R == 2 ? loc_lstm_fwd_bf16_kernel<2>
          : R == 4 ? loc_lstm_fwd_bf16_kernel<4> : R == 8 ? loc_lstm_fwd_bf16_kernel<8>
+         : nullptr;
+  else if constexpr (kIsBf16<T>)
+    return R == 1 ? scan_lstm_fwd_bf16_kernel<1> : R == 2 ? scan_lstm_fwd_bf16_kernel<2>
+         : R == 4 ? scan_lstm_fwd_bf16_kernel<4> : R == 8 ? scan_lstm_fwd_bf16_kernel<8>
          : nullptr;
   else if constexpr (kLoc)
     return R == 1 ? loc_lstm_fwd_kernel<1> : R == 2 ? loc_lstm_fwd_kernel<2>
@@ -2510,45 +2178,10 @@ cudaError_t reduce_partials(const Stash& st, const Grads& g, const Dims& d, int 
   return launch_atb(batch, stream);
 }
 
-#if !defined(CONTENT_GRU_BWD_ONLY) && !defined(FWD_WALK_BUILD)
-// K13: the backward kernel, then the weight gradients over the B*T steps
-// (s_prev = s_seq shifted by one) and dU, dwconv and dbconv as the sums
-// of the B rows' partials.
-int launch_gru_bwd(BwdArgs a, const Grads& g, float* scratch, cudaStream_t stream) {
-  const Dims& d = a.d;
-  if (!valid<true>(d)) return (int)cudaErrorInvalidValue;
-  size_t floats;
-  carve_bwd(nullptr, d, &floats);
-  const size_t bytes = floats * sizeof(float);
-  cudaError_t err = set_smem(scan_loc_gru_bwd_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  a.st = carve_stash<false, true>(scratch, d, 0);
-  scan_loc_gru_bwd_kernel<<<d.B, kThreads, bytes, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const Stash& st = a.st;
-  const int St = d.St, St2 = 2 * St, S = d.S, A = d.A;
-  AtbBatch steps{};
-  steps.count = 6;
-  steps.rows = d.B * d.T;
-  steps.period = d.T;
-  steps.p[0] = AtbProblem{a.s_seq, St, -1, st.dws, S, g.dws_w, g.dws_b, St, S};
-  steps.p[1] = AtbProblem{a.c_seq, A, 0, st.dcc, St, g.dc_w, g.dc_b, A, St};
-  steps.p[2] = AtbProblem{st.rr, St2, 0, st.dr, St, g.ddec_w, g.ddec_b, St2, St};
-  steps.p[3] = AtbProblem{st.sr, St2, 0, st.da_zr, St2, g.dw_zr, nullptr, St2, St2};
-  steps.p[4] = AtbProblem{st.cand_in, St2, 0, st.da_cand, St, g.dw_h, nullptr, St2, St};
-  steps.p[5] = AtbProblem{nullptr, 0, 0, st.dwe, S, nullptr, g.dw_e, 0, S};
-  err = launch_atb(steps, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)reduce_partials(st, g, d, d.B, true, stream);
-}
-#endif
-
 using BwdKernel = void (*)(const BwdArgs);
 
 // The walk instance for R batch rows a cluster: K11's (kLstm, kLoc),
-// K15's (kLstm) or K5's.
+// K15's (kLstm), K13's (kLoc) or K5's.
 template <bool kLstm, bool kLoc>
 BwdKernel walk_kernel(int R) {
   if constexpr (kLstm && kLoc)
@@ -2557,6 +2190,9 @@ BwdKernel walk_kernel(int R) {
   else if constexpr (kLstm)
     return R == 1 ? scan_lstm_bwd_kernel<1> : R == 2 ? scan_lstm_bwd_kernel<2>
          : R == 4 ? scan_lstm_bwd_kernel<4> : R == 8 ? scan_lstm_bwd_kernel<8> : nullptr;
+  else if constexpr (kLoc)
+    return R == 1 ? loc_gru_bwd_kernel<1> : R == 2 ? loc_gru_bwd_kernel<2>
+         : R == 4 ? loc_gru_bwd_kernel<4> : R == 8 ? loc_gru_bwd_kernel<8> : nullptr;
   else
     return R == 1 ? content_gru_walk_kernel<1> : R == 2 ? content_gru_walk_kernel<2>
          : R == 4 ? content_gru_walk_kernel<4> : R == 8 ? content_gru_walk_kernel<8> : nullptr;
@@ -2588,7 +2224,7 @@ cudaError_t launch_prepass(const BwdArgs& a, cudaStream_t stream) {
   return cudaSuccess;
 }
 
-// K11, K15 and K5: the pre-pass, the walk on clusters of `cluster`
+// K11, K13, K15 and K5: the pre-pass, the walk on clusters of `cluster`
 // blocks, `rows` batch rows a cluster, then the weight gradients over the
 // B*T steps and over the blocks' partials.
 template <bool kLstm, bool kLoc>
@@ -2648,13 +2284,13 @@ int walk_limits(int cluster, int* smem_limit, int* clusters) {
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// Entry points. The backward ones take ds_seq, dc_seq, dalpha_seq (and
-// dmem_seq) as NULL where there is no cotangent; those of K11, K15 and K5
-// take the walk's plan, `cluster` blocks a cluster and `rows` batch rows
-// a cluster (1, 2, 4 or 8), from ops/cuda/attention_scan.py scan_plan,
-// and the forwards (K10, K14, K12, K4) the forward walk's, with
-// `resident` (W_cx's slice in shared memory), from fwd_plan, and a
-// scratch of fwd_scratch_floats floats.
+// Entry points. The backward ones (K11, K13, K15, K5) take ds_seq,
+// dc_seq, dalpha_seq (and dmem_seq) as NULL where there is no cotangent,
+// and the walk's plan, `cluster` blocks a cluster and `rows` batch rows a
+// cluster (1, 2, 4 or 8), from ops/cuda/attention_scan.py scan_plan; the
+// forwards (K10, K14, K12, K4) the forward walk's, with `resident` (W_cx's
+// slice in shared memory), from fwd_plan, and a scratch of
+// fwd_scratch_floats floats.
 
 #if defined(LSTM_FWD_ONLY)
 extern "C" int attention_decode_scan_loc_lstm_fwd(
@@ -2712,6 +2348,26 @@ extern "C" int attention_decode_scan_loc_lstm_fwd_bf16(
 extern "C" int attention_decode_scan_loc_lstm_fwd_bf16_limits(int cluster, int* smem_limit,
                                                               int* clusters) {
   return fwd_limits<true, true, bf16>(cluster, smem_limit, clusters);
+}
+
+// K14's bf16 entry: attention_decode_scan_lstm_fwd with every input and
+// output bf16 (the scratch float).
+extern "C" int attention_decode_scan_lstm_fwd_bf16(
+    const bf16* vh, const bf16* h, const bf16* mask, const bf16* yin, const bf16* ws_w,
+    const bf16* ws_b, const bf16* w_e, const bf16* c_w, const bf16* c_b, const bf16* dec_w,
+    const bf16* dec_b, const bf16* w_h, const bf16* w_x, const bf16* b, bf16* s_seq,
+    bf16* c_seq, bf16* alpha_seq, bf16* mem_seq, float* scratch, int B, int T, int L, int S,
+    int A, int St, int cluster, int rows, int resident, cudaStream_t stream) {
+  const FwdArgsT<bf16> a{vh, h, mask, yin,
+                         WeightsT<bf16>{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h,
+                                        w_x, b, nullptr, nullptr, nullptr},
+                         s_seq, c_seq, alpha_seq, mem_seq, Dims{B, T, L, S, A, St, 0, 0}};
+  return launch_fwd_walk<true, false, bf16>(a, scratch, cluster, rows, resident, stream);
+}
+
+extern "C" int attention_decode_scan_lstm_fwd_bf16_limits(int cluster, int* smem_limit,
+                                                          int* clusters) {
+  return fwd_limits<true, false, bf16>(cluster, smem_limit, clusters);
 }
 
 #elif defined(GRU_FWD_ONLY)
@@ -2818,6 +2474,10 @@ extern "C" int attention_decode_scan_loc_lstm_bwd(
   return launch_walk_bwd<true, true>(a, g, scratch, cluster, rows, stream);
 }
 
+extern "C" int attention_decode_scan_loc_bwd_limits(int cluster, int* smem_limit, int* clusters) {
+  return walk_limits<false, true>(cluster, smem_limit, clusters);
+}
+
 extern "C" int attention_decode_scan_loc_bwd(
     const float* vh, const float* h, const float* mask, const float* yin, const float* ws_w,
     const float* ws_b, const float* w_e, const float* c_w, const float* c_b, const float* dec_w,
@@ -2827,7 +2487,7 @@ extern "C" int attention_decode_scan_loc_bwd(
     float* dvh, float* dh, float* dyin, float* dws_w, float* dws_b, float* dw_e, float* dc_w,
     float* dc_b, float* ddec_w, float* ddec_b, float* dw_zr, float* dw_h, float* dwconv,
     float* dbconv, float* du, float* scratch, int B, int T, int L, int S, int A, int St, int FM,
-    int F, cudaStream_t stream) {
+    int F, int cluster, int rows, cudaStream_t stream) {
   const BwdArgs a{vh, h, mask, yin,
                   Weights{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_zr, w_h, nullptr, nullptr,
                           wconv, bconv, u},
@@ -2835,7 +2495,7 @@ extern "C" int attention_decode_scan_loc_bwd(
                   dvh, dh, dyin, Stash{}, Dims{B, T, L, S, A, St, FM, F}};
   const Grads g{dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dw_zr, dw_h, nullptr, nullptr,
                 dwconv, dbconv, du};
-  return launch_gru_bwd(a, g, scratch, stream);
+  return launch_walk_bwd<false, true>(a, g, scratch, cluster, rows, stream);
 }
 
 extern "C" int attention_decode_scan_lstm_bwd_limits(int cluster, int* smem_limit, int* clusters) {

@@ -46,7 +46,7 @@
 
 #include <algorithm>
 
-#include "attention_common.cuh"
+#include "common.cuh"
 #include "cluster_walk.cuh"
 
 namespace {
@@ -665,10 +665,9 @@ extern "C" int fused_attention_step_bf16(
 // same bits. No shared buffer grows with the full L.
 //
 // fused_attention_step_loc_lstm_bf16 is K8's bf16 entry, for a bf16
-// model's beam (<LSTM, location>, <GRU, location> and <GRU, content>; not
-// the content-only LSTM): the same kernel with bf16 inputs, alpha, c, s
-// and mem in bf16 and logp float, on the float instance's plan, rounding
-// where the JAX kernel rounds with bf16 inputs
+// model's beam (each of its four instances): the same kernel with bf16
+// inputs, alpha, c, s and mem in bf16 and logp float, on the float
+// instance's plan, rounding where the JAX kernel rounds with bf16 inputs
 // (cluster_step_loc_lstm_kernel says where). Plain PyTorch twin:
 // ops/cuda/attention_step.py::_plain_bf16.
 
@@ -1257,8 +1256,7 @@ int step_loc_lstm_run(Args8T<T> a, int n_layers, const int* kinds, const int* ou
                       const int* wins, const T* const* ro_w, const T* const* ro_b, int lstm,
                       int loc, int cluster, cudaStream_t stream) {
   if (a.B < 1 || a.K < 1 || a.K > kMaxK || a.L < 1 || n_layers < 1 || n_layers > kMaxLayers ||
-      cluster < 1 || cluster > kMaxStepCluster || (loc && (a.FM < 1 || a.F < 1)) ||
-      (kIsBf16<T> && lstm && !loc))  // no bf16 content-only LSTM instance
+      cluster < 1 || cluster > kMaxStepCluster || (loc && (a.FM < 1 || a.F < 1)))
     return (int)cudaErrorInvalidValue;
   // The dense layers, each relu folded into the layer before it.
   int width = a.St + a.A;
@@ -1294,11 +1292,8 @@ int step_loc_lstm_run(Args8T<T> a, int n_layers, const int* kinds, const int* ou
   if (err != cudaSuccess) return (int)err;
   if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
   if (lstm) {
-    if constexpr (kIsBf16<T>)
-      err = launch_step_loc_lstm<true, true>(a, cluster, bytes, stream);
-    else
-      err = loc ? launch_step_loc_lstm<true, true>(a, cluster, bytes, stream)
-                : launch_step_loc_lstm<true, false>(a, cluster, bytes, stream);
+    err = loc ? launch_step_loc_lstm<true, true>(a, cluster, bytes, stream)
+              : launch_step_loc_lstm<true, false>(a, cluster, bytes, stream);
   } else {
     err = loc ? launch_step_loc_lstm<false, true>(a, cluster, bytes, stream)
               : launch_step_loc_lstm<false, false>(a, cluster, bytes, stream);
@@ -1352,7 +1347,7 @@ extern "C" int fused_attention_step_loc_lstm(
 
 // K8's bf16 entry: fused_attention_step_loc_lstm with every array bf16 but
 // logp, on fused_attention_step_loc_lstm_limits' plan (the same block and
-// shared memory); the content-only LSTM (lstm without loc) is refused.
+// shared memory).
 extern "C" int fused_attention_step_loc_lstm_bf16(
     const bf16* vh, const bf16* h, const bf16* mask, const bf16* yin, const bf16* sprev,
     const bf16* ws_w, const bf16* ws_b, const bf16* w_e, const bf16* c_w, const bf16* c_b,

@@ -14,11 +14,11 @@ LSTM decoder scan (kernels K14 and K15). ``compute_dtype="bfloat16"`` is
 the JAX package's mixed-precision operating point, as for the flagship
 (models/chorowski.py): ``forward`` casts the float32 params and its
 inputs to bf16, and bf16 evaluation runs K7, K10 and K8's <LSTM,
-location> instance through their bf16 entries; a bf16 gradient raises
+location> instance through their bf16 entries, or with feature_maps = 0
+K7, K14 and K8's <LSTM, content> instance; a bf16 gradient raises
 NotImplementedError where it reaches a backward kernel (ROADMAP Queue A
-item 5c, training part), and with feature_maps = 0 (the content-only
-LSTM decoder) bf16 is refused (item 5c, second part). ``encode`` casts
-nothing, so serving stays float32.
+item 5c, training part). ``encode`` casts nothing, so serving stays
+float32.
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ import torch
 
 from .. import interop
 from ..ops import attention, conv, rnn
-from ..ops.cuda import build
 from .chorowski import cast_float32, float32_sums
 
 Params = Dict[str, Any]
@@ -50,11 +49,9 @@ class ConvBiLSTMConfig:
     penalty_lambda: float = 0.0
     mono_align: bool = True
     peepholes: bool = False  # refused: the port has no LSTM peepholes
-    compute_dtype: str = "float32"  # or "bfloat16" (evaluation; not feature_maps = 0)
+    compute_dtype: str = "float32"  # or "bfloat16" (evaluation)
 
     def __post_init__(self):
-        if self.compute_dtype == "bfloat16" and self.feature_maps == 0:
-            raise NotImplementedError(f"conv_bilstm_content: {build.BF16_CONTENT_LSTM}")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}: the port takes 'float32' "
                              f"or 'bfloat16'")

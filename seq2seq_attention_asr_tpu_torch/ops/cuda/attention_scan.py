@@ -41,11 +41,10 @@ candidate. The plain versions round there too (``step_plain``'s
 gates as the float32 one does, its tables in float32 from the widened
 weights, so it rounds s_prev, c and rg s_prev and not cc or r, which it
 never forms (ROADMAP, "Differences that are deliberate");
-``gru_folded_scan_plain`` is its plain twin as it computes. K10 and
-K12, the location-aware decoders' forwards, have bf16 entries of the
-same kind at the end of this module. K5, the other backwards, and K14
-have no bf16 instance yet: a bf16 gradient raises NotImplementedError,
-a bf16 K14 TypeError.
+``gru_folded_scan_plain`` is its plain twin as it computes. K10, K12 and
+K14, the other decoders' forwards, have bf16 entries of the same kind at
+the end of this module. K5 and the other backwards have no bf16 instance
+yet: a bf16 gradient raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -244,19 +243,22 @@ class AttentionDecodeScan(torch.autograd.Function):
 # into the gates (``lstm_fold_plain``, ``gru_fold_plain``), then a walk on
 # thread-block clusters on ``fwd_plan_on``'s plan.
 #
-# K10 and K12 have bf16 entries (``KERNEL_LOC_LSTM_FWD_BF16``,
-# ``KERNEL_LOC_FWD_BF16``): every input bfloat16, the outputs bfloat16.
-# The JAX kernels with bf16 inputs (``_fwd_kernel_loc_lstm`` and
-# ``_fwd_kernel_loc`` with ``dt`` = bf16) keep the energies, the
-# softmax, c and the s, mem and alpha carries in float32 and round five
-# operands in ``_step_core``: s_prev before ws_w; c before c_w; [cc |
-# yin] before dec_w; [s_prev | r] before the LSTM's gates or the GRU's
-# update and reset gates; [rg s_prev | r] before the GRU's candidate;
-# and in ``_location_term`` the features before u (the convolution runs
-# in float32 on the float32 alpha carry). ``_scan_plain`` rounds there
-# on bf16 inputs. The entries fold c_in and dec_in into the gates as K4's
-# do, so they round s_prev, the features, c and rg s_prev, and not cc or
-# r, which they never form; ``folded_scan_plain`` is their plain twin as
+# K10, K12 and K14 have bf16 entries (``KERNEL_LOC_LSTM_FWD_BF16``,
+# ``KERNEL_LOC_FWD_BF16``, ``KERNEL_LSTM_FWD_BF16``): every input bfloat16,
+# the outputs bfloat16 (mem_seq too: ``_run_fwd`` gives every output
+# vh's type). The JAX kernels with bf16 inputs (``_fwd_kernel_loc_lstm``,
+# ``_fwd_kernel_loc`` and ``_fwd_kernel_lstm`` with ``dt`` = bf16) keep
+# the energies, the softmax, c and the s, mem and alpha carries in
+# float32 and round operands in ``_step_core``: s_prev before ws_w; c
+# before c_w; [cc | yin] before dec_w; [s_prev | r] before the LSTM's
+# gates or the GRU's update and reset gates; [rg s_prev | r] before the
+# GRU's candidate; and, with the location term, in ``_location_term``
+# the features before u (the convolution runs in float32 on the float32
+# alpha carry): five points for K10 and K12, four for K14 (the LSTM
+# without the location term). ``_scan_plain`` rounds there on bf16
+# inputs. The entries fold c_in and dec_in into the gates as K4's do, so
+# they round s_prev, the features, c and rg s_prev, and not cc or r,
+# which they never form; ``folded_scan_plain`` is their plain twin as
 # they compute (ROADMAP, "Differences that are deliberate").
 
 # K10 and K14 are built from the decoder scans' source into a library of
@@ -280,7 +282,7 @@ KERNEL_LOC_FWD = build.Kernel(
 )
 KERNEL_LOC_BWD = build.Kernel(
     "attention_decode_scan_loc_bwd", "attention_scan_loc_lstm.cu", "attention_decode_scan_loc_bwd",
-    [ctypes.c_void_p] * 38 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 38 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
 )
 KERNEL_LSTM_FWD = build.Kernel(
     "attention_decode_scan_lstm_fwd", "attention_scan_loc_lstm.cu",
@@ -293,7 +295,7 @@ KERNEL_LSTM_BWD = build.Kernel(
     "attention_decode_scan_lstm_bwd",
     [ctypes.c_void_p] * 36 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 )
-# K10's and K12's bf16 entries, in their float32 kernels' libraries.
+# K10's, K12's and K14's bf16 entries, in their float32 kernels' libraries.
 KERNEL_LOC_LSTM_FWD_BF16 = build.Kernel(
     "attention_decode_scan_loc_lstm_fwd_bf16", "attention_scan_loc_lstm.cu",
     "attention_decode_scan_loc_lstm_fwd_bf16",
@@ -305,6 +307,12 @@ KERNEL_LOC_FWD_BF16 = build.Kernel(
     "attention_decode_scan_loc_fwd_bf16",
     [ctypes.c_void_p] * 20 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
     defines=("GRU_FWD_ONLY",),
+)
+KERNEL_LSTM_FWD_BF16 = build.Kernel(
+    "attention_decode_scan_lstm_fwd_bf16", "attention_scan_loc_lstm.cu",
+    "attention_decode_scan_lstm_fwd_bf16",
+    [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    defines=("LSTM_FWD_ONLY",),
 )
 _COMMON = WEIGHTS[:7]
 _LOC = ("wconv", "bconv", "u")
@@ -644,12 +652,8 @@ def _scan(kernel, kernel_bf16, lstm: bool, vh, h, enc_mask, yin, weights):
     """The forward wrapper of K10, K12, K14 and K4: the plain version
     (_scan_plain) on CPU tensors, the kernel on CUDA tensors, on
     fwd_plan_on's plan with a scratch of fwd_scratch_floats; on bfloat16
-    inputs the plain bf16 version or the bf16 entry (`kernel_bf16`). K14
-    has no bf16 entry (None): it refuses bfloat16 inputs on either
-    device."""
+    inputs the plain bf16 version or the bf16 entry (`kernel_bf16`)."""
     if vh.dtype == torch.bfloat16:
-        if kernel_bf16 is None:
-            raise TypeError(f"{kernel.name}: {build.BF16_CONTENT_LSTM}")
         kernel = kernel_bf16
     if build.on_cpu(vh, h, enc_mask, yin, *weights):
         return _scan_plain(vh, h, enc_mask, yin, weights, lstm)
@@ -675,25 +679,21 @@ def stash_floats(lstm: bool, b: int, t_len: int, l: int, s_dim: int, st: int, fm
     """Floats of the stash of K5, K11, K13 and K15 (``carve_stash``): (B*T)
     rows of rr (2St), for the LSTM r (St), for the GRU sr and cand_in (2St
     each), dws (S), dcc and dr (St each), for the LSTM dgates (4St), for
-    the GRU da_zr (2St) and da_cand (St), and for K13 (the GRU with the
-    location term, fm > 0) the per-step w_e partial (S); then, with the
-    location term, B rows of the step's dz (L*S, which every step
-    rewrites); then the partial sums: for K13, B rows of dU (FM*S) and of
-    dwconv and dbconv ((F + 1) * FM); for the cluster walks (K5, K11,
-    K15), `partials` rows (one per block of the walk: ScanPlan.partials)
-    of dw_e (S) and, with the location term, of dU and of dwconv and
-    dbconv. Neither the location term's share nor the partials grow with
-    T: the walks sum them over the steps themselves."""
-    if not lstm and fm:  # K13
-        return b * t_len * (11 * st + 2 * s_dim) + b * l * s_dim + b * (fm * s_dim + (f + 1) * fm)
+    the GRU da_zr (2St) and da_cand (St); then, with the location term
+    (fm > 0), B rows of the step's dz (L*S, which every step rewrites);
+    then `partials` rows (one per block of the walk: ScanPlan.partials)
+    of the partial sums of dw_e (S) and, with the location term, of dU
+    (FM*S) and of dwconv and dbconv ((F + 1) * FM). Neither the location
+    term's share nor the partials grow with T: the walk sums them over the
+    steps itself."""
     cell = 9 * st if lstm else 11 * st
     return (b * t_len * (cell + s_dim) + (b * l * s_dim if fm else 0)
             + partials * (s_dim + (fm * s_dim + (f + 1) * fm if fm else 0)))
 
 
-# --- The plan of the decoder backwards' cluster walk (K5, K11, K15) ------------------------
+# --- The plan of the decoder backwards' cluster walk (K5, K11, K13, K15) -------------------
 #
-# K5, K11 and K15 walk the steps of R batch rows on a thread-block cluster of
+# K5, K11, K13 and K15 walk the steps of R batch rows on a thread-block cluster of
 # C blocks (csrc/attention_scan_loc_lstm.cu, decoder_walk). The plan (C, R) is
 # a plain function of the shapes, of the cell, and of two numbers of the
 # device, which ``scan_limits`` asks the kernel's library for: the opt-in
@@ -706,19 +706,28 @@ WALK_ROWS = (1, 2, 4, 8)  # the walk's instances
 WALK_BARS = {"lstm": 5, "gru": 6}
 # The walk's cell, by the C entry point of its backward.
 WALK_CELL = {"attention_decode_scan_bwd": "gru", "attention_decode_scan_loc_lstm_bwd": "lstm",
-             "attention_decode_scan_lstm_bwd": "lstm"}
+             "attention_decode_scan_lstm_bwd": "lstm", "attention_decode_scan_loc_bwd": "gru"}
+# The row of STEP_COST a walk's plan reads, by the C entry point of its
+# backward where it is not its cell's: K13's, the GRU with the location
+# term.
+WALK_COST = {"attention_decode_scan_loc_bwd": "gru_loc"}
 # A step of the walk and wave, in us, by cell and (C, R), on an NVIDIA H100
 # 80GB HBM3 at 700.00 W (chip_smoke.py phase 8's sweeps): for the LSTM,
 # K11's walk at the conv+BiLSTM recipe's shape (L' = 16, T = 56) under each
 # plan, the mean of B = 16 and 128 (K15's steps are 0.65-0.75 of these, in
 # the same order); for the GRU, K5's at the flagship's (L = 144, T = 56),
 # the mean of B = 16 and 128. R = 8 fits no block of K5 at the flagship's
-# widths: its cost is R = 4's doubled.
+# widths: its cost is R = 4's doubled. For the GRU with the location term,
+# K13's at flagship_loc's (L = 144, T = 56, 16 maps of filter 10), the
+# mean of B = 16 and 128; R = 4 and 8 on clusters of 16 and R = 8 on
+# clusters of 8 fit no block there: each costs its R / 2's doubled.
 STEP_COST = {
     "lstm": {(16, 1): 33.5, (16, 2): 38.4, (16, 4): 45.8, (16, 8): 65.3,
              (8, 1): 38.4, (8, 2): 47.2, (8, 4): 61.2, (8, 8): 89.4},
     "gru": {(16, 1): 20.3, (16, 2): 28.4, (16, 4): 46.2, (16, 8): 92.4,
             (8, 1): 23.6, (8, 2): 36.3, (8, 4): 57.6, (8, 8): 115.2},
+    "gru_loc": {(16, 1): 39.6, (16, 2): 65.1, (16, 4): 130.2, (16, 8): 260.4,
+                (8, 1): 50.0, (8, 2): 90.9, (8, 4): 133.1, (8, 8): 266.2},
 }
 
 
@@ -807,7 +816,7 @@ _LIMITS: Dict[Tuple[str, int], Tuple[int, Dict[int, int]]] = {}
 
 def scan_limits(kernel, device: torch.device) -> Tuple[int, Dict[int, int]]:
     """(opt-in shared memory of a block, {C: resident clusters of C
-    blocks}) of `kernel`'s walk (K5, K11 or K15, or the forward walk of
+    blocks}) of `kernel`'s walk (K5, K11, K13 or K15, or the forward walk of
     K10, K12, K14 or K4) on `device`, from its
     ``<symbol>_limits`` C helper; asked once per kernel and device. A
     cluster size the device refuses counts 0 clusters."""
@@ -829,14 +838,15 @@ def scan_limits(kernel, device: torch.device) -> Tuple[int, Dict[int, int]]:
 
 def scan_plan_on(kernel, b: int, l: int, s_dim: int, a_dim: int, st: int, fm: int, f: int,
                  device: torch.device) -> ScanPlan:
-    """The plan `kernel`'s wrapper (K5, K11 or K15) runs for these shapes
-    on `device`: its walk's cell's (WALK_CELL) shared memory and step
-    costs."""
+    """The plan `kernel`'s wrapper (K5, K11, K13 or K15) runs for these
+    shapes on `device`: its walk's cell's (WALK_CELL) shared memory and
+    its step costs (STEP_COST's row WALK_COST names, else its cell's)."""
     cell = WALK_CELL[kernel.symbol]
     smem_limit, resident = scan_limits(kernel, device)
     smem = {(c, r): walk_smem_bytes(cell, r, c, l, s_dim, a_dim, st, fm, f)
             for c in WALK_CLUSTERS for r in WALK_ROWS}
-    return scan_plan(b, smem, smem_limit, resident, STEP_COST[cell])
+    return scan_plan(b, smem, smem_limit, resident,
+                     STEP_COST[WALK_COST.get(kernel.symbol, cell)])
 
 
 # --- The plan of the decoder forwards' cluster walk (K10, K12, K14, K4) -------------------
@@ -861,7 +871,8 @@ FWD_CELL = {"attention_decode_scan_loc_lstm_fwd": "lstm", "attention_decode_scan
             "attention_decode_scan_loc_fwd": "gru", "attention_decode_scan_fwd": "gru",
             "attention_decode_scan_fwd_bf16": "gru",
             "attention_decode_scan_loc_lstm_fwd_bf16": "lstm",
-            "attention_decode_scan_loc_fwd_bf16": "gru"}
+            "attention_decode_scan_loc_fwd_bf16": "gru",
+            "attention_decode_scan_lstm_fwd_bf16": "lstm"}
 # A step of the forward walk and wave, in us, by cell and (C, R), on an
 # NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 8's sweeps, on the
 # plan's layout: W_cx resident where it fits): for the LSTM, K10's walk at
@@ -965,8 +976,7 @@ def fwd_plan_on(kernel, b: int, l: int, s_dim: int, a_dim: int, st: int, fm: int
 def _scan_bwd(kernel, lstm: bool, n_weights: int, vh, h, enc_mask, yin, args):
     """The backward wrapper of K5, K11, K13 and K15: args are the weights,
     the saved output sequences and their cotangents (each None where there
-    is none: it counts as zeros). The cluster walks (K5, K11, K15) run
-    scan_plan_on's plan."""
+    is none: it counts as zeros). Each walks on scan_plan_on's plan."""
     n_out = 4 if lstm else 3
     weights = args[:n_weights]
     saved = args[n_weights:n_weights + n_out]
@@ -990,17 +1000,14 @@ def _scan_bwd(kernel, lstm: bool, n_weights: int, vh, h, enc_mask, yin, args):
     grads += [torch.empty(w.shape, **f32) for w in weights]
     if bsz * t_len == 0:
         return tuple(g.zero_() for g in grads)
-    plan_args, partials = (), 0
-    if kernel.symbol in WALK_CELL:
-        plan = scan_plan_on(kernel, bsz, l, s_dim, a_dim, st, *(loc or (0, 0)), dev)
-        plan_args, partials = (plan.cluster, plan.rows), plan.partials(bsz)
+    plan = scan_plan_on(kernel, bsz, l, s_dim, a_dim, st, *(loc or (0, 0)), dev)
     scratch = torch.empty(stash_floats(lstm, bsz, t_len, l, s_dim, st, *(loc or (0, 0)),
-                                       partials), **f32)
+                                       plan.partials(bsz)), **f32)
     kernel.launch(
         *[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *saved)],
         *[None if t is None else build.ptr(t) for t in cots],
         *[build.ptr(t) for t in (*grads, scratch)],
-        bsz, t_len, l, s_dim, a_dim, st, *loc, *plan_args, build.stream_of(vh),
+        bsz, t_len, l, s_dim, a_dim, st, *loc, plan.cluster, plan.rows, build.stream_of(vh),
     )
     return tuple(grads)
 
@@ -1036,9 +1043,8 @@ def attention_decode_scan_lstm(vh, h, enc_mask, yin, *weights):
     (s_seq, c_seq, alpha_seq, mem_seq).
 
     CPU tensors take the plain version; CUDA tensors the kernel (K14), on
-    fwd_plan_on's plan as K10's wrapper. float32 only: bfloat16 inputs
-    raise TypeError (ROADMAP Queue A item 5c, second part)."""
-    return _scan(KERNEL_LSTM_FWD, None, True, vh, h, enc_mask, yin, weights)
+    fwd_plan_on's plan as K10's wrapper. All float32, or all bfloat16."""
+    return _scan(KERNEL_LSTM_FWD, KERNEL_LSTM_FWD_BF16, True, vh, h, enc_mask, yin, weights)
 
 
 def attention_decode_scan_loc_lstm_bwd(vh, h, enc_mask, yin, *args):
@@ -1060,7 +1066,8 @@ def attention_decode_scan_loc_bwd(vh, h, enc_mask, yin, *args):
     None): (dvh, dh, dyin, dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b,
     dgru_wzr, dgru_wh, dwconv, dbconv, du).
 
-    CPU tensors take the plain version; CUDA tensors the kernel (K13)."""
+    CPU tensors take the plain version; CUDA tensors the kernel (K13), on
+    scan_plan_on's plan as K11's wrapper."""
     return _scan_bwd(KERNEL_LOC_BWD, False, 12, vh, h, enc_mask, yin, args)
 
 
@@ -1133,7 +1140,8 @@ class AttentionDecodeScanLSTM(torch.autograd.Function):
     backward (the plain versions on CPU tensors). Saves the four output
     sequences (the JAX VJP, :1246-1262, saves s, c and mem, and
     recomputes alpha); enc_mask gets no gradient, and a missing cotangent
-    counts as zeros."""
+    counts as zeros. The gradient of a bf16 scan is refused: K15 has no
+    bf16 instance yet."""
 
     @staticmethod
     def forward(ctx, vh, h, enc_mask, yin, *weights):

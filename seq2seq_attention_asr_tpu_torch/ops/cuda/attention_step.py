@@ -25,8 +25,9 @@ rounds each product's operand to bf16 (``attention_scan.step_plain``
 names where); the readout takes round([s | c]), rounds each layer's
 product and then its bias add (``_readout_bf16``), and only the
 log-softmax is float32. K8 has a bf16 entry too (``KERNEL_LOC_LSTM_BF16``),
-for the <LSTM, location>, <GRU, location> and <GRU, content> instances
-(conv_bilstm's, flagship_loc's and vgg's beams): the beam's state (alpha,
+for its four instances, <LSTM, location>, <GRU, location>, <GRU,
+content> and <LSTM, content> (conv_bilstm's, flagship_loc's, vgg's and
+conv_bilstm_content's beams): the beam's state (alpha,
 s, mem) arrives bf16 and is widened, alpha, c, s and mem store in bf16,
 logp in float32, and it rounds where the JAX kernel with bf16 inputs
 rounds (``_kernel_loc`` and the LSTM branch of ``_kernel``): the location
@@ -34,9 +35,7 @@ term's features before u, c before c_in, [cc | yin] before dec_in, r
 before the gates (and the GRU's candidate), the GRU's rg s_prev before
 its candidate, and the readout as K2's. It forms every one of those
 operands (it folds nothing), so ``_plain_bf16`` is both its plain twin
-and the plain version at the JAX kernel's rounding points. The
-content-only LSTM decoder (conv_bilstm_content) has no bf16 instance
-yet and refuses bf16.
+and the plain version at the JAX kernel's rounding points.
 """
 
 from __future__ import annotations
@@ -375,12 +374,9 @@ def fused_attention_step(params, cfg, state, y_prev, vh, h, enc_mask):
     content-only GRU decoder with the maxout -> linear readout) or K8
     (every other decoder). Both raise RuntimeError where no cluster plan
     fits the device. bfloat16 inputs (a bf16 model's beam) take K2's or
-    K8's bf16 entry, or their plain twin; the content-only LSTM decoder
-    refuses them."""
+    K8's bf16 entry, or their plain twin."""
     attention.check_ported(cfg)
     alpha_prev, s_prev, mem = state
-    if vh.dtype == torch.bfloat16 and cfg.cell == "lstm" and cfg.feature_maps == 0:
-        raise TypeError(f"fused_attention_step: {build.BF16_CONTENT_LSTM}")
     if build.on_cpu(alpha_prev, s_prev, mem, y_prev, vh, h, enc_mask):
         return fused_attention_step_plain(params, cfg, state, y_prev, vh, h, enc_mask)
     b, k, st = s_prev.shape

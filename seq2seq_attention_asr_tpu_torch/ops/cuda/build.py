@@ -184,11 +184,8 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
 
 # Where the bf16 operating point stops (ROADMAP Queue A items 5b and 5c).
 BF16_TRAINING = ("bf16 training needs bf16 instances of the backward kernels: K5 and K6 (ROADMAP "
-                 "Queue A item 5b), then K9, K11 and K13 for conv_bilstm, flagship_loc and vgg "
-                 "(ROADMAP Queue A item 5c, training part)")
-BF16_CONTENT_LSTM = ("bf16 runs no content-only LSTM decoder (conv_bilstm_content) yet: it needs "
-                     "bf16 instances of K14 and K8 <LSTM, content>: ROADMAP Queue A item 5c, "
-                     "second part")
+                 "Queue A item 5b), then K9, K11, K13 and K15 for conv_bilstm, flagship_loc, vgg "
+                 "and conv_bilstm_content (ROADMAP Queue A item 5c, training part)")
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

@@ -1,14 +1,16 @@
 """The bf16 operating point (compute_dtype="bfloat16") of the evaluation
 paths of conv+BiLSTM, flagship_loc (the flagship recipe with
-feature_maps=16) and VGG against the JAX package, on the CPU.
+feature_maps=16), VGG and conv_bilstm_content (the conv+BiLSTM recipe
+with feature_maps=0) against the JAX package, on the CPU.
 
-The kernels these paths reach in bf16: K7 (the BiLSTM forward), K10 and
-K12 (the location-aware decoders' scans) and K8's <LSTM, location>,
-<GRU, location> and <GRU, content> instances (the beam step, the last
-with VGG's four-layer readout). Their plain bf16 versions round where the
-JAX kernels with bf16 inputs round; K10's and K12's entries fold c_in
-and dec_in into the gates, so their exact twins (folded_scan_plain)
-round fewer operands. Bars, as tests/test_torch_bf16.py sets them for the
+The kernels these paths reach in bf16: K7 (the BiLSTM forward), K10, K12
+and K14 (the location-aware decoders' scans and the content-only LSTM
+decoder's) and K8's <LSTM, location>, <GRU, location>, <GRU, content>
+(with VGG's four-layer readout) and <LSTM, content> instances (the beam
+step). Their plain bf16 versions round where the JAX kernels with bf16
+inputs round; K10's, K12's and K14's entries fold c_in and dec_in into
+the gates, so their exact twins (folded_scan_plain) round fewer
+operands. Bars, as tests/test_torch_bf16.py sets them for the
 flagship:
 
   - the plain bf16 versions against the Pallas kernels in interpret mode
@@ -66,8 +68,11 @@ MODELS = {
                                        filt_size=5)),
     "vgg": ("vgg", dict(input_frame_size=20, output_frame_size=16, score_depth=12,
                         state_depth=12, mlp_depth=8, output_depth=8)),
+    "conv_bilstm_content": ("conv_bilstm", dict(input_frame_size=16, hidden_frame_size=16,
+                                                output_frame_size=8, score_depth=12,
+                                                feature_maps=0, state_depth=16, output_depth=8)),
 }
-# Their decoders (K8's three bf16 instances), as the JAX and the port configs.
+# Their decoders (K8's four bf16 instances), as the JAX and the port configs.
 DECODERS = {
     "lstm_loc": dict(score_depth=12, state_depth=16, annotation_depth=16, output_depth=8,
                      readout=(("linear", 16), ("relu",), ("linear", 8)), feature_maps=4,
@@ -78,7 +83,12 @@ DECODERS = {
     "gru_vgg": dict(score_depth=12, state_depth=12, annotation_depth=16, output_depth=8,
                     readout=(("maxout", 8, 7), ("linear", 8), ("maxout", 8, 7), ("linear", 8)),
                     feature_maps=0, filt_size=10, cell="gru"),
+    "lstm_content": dict(score_depth=12, state_depth=16, annotation_depth=16, output_depth=8,
+                         readout=(("linear", 16), ("relu",), ("linear", 8)), feature_maps=0,
+                         filt_size=5, cell="lstm"),
 }
+# The decoder scans with a bf16 entry: K10, K12 and K14, by their decoder.
+SCANS = {"K10": "lstm_loc", "K12": "gru_loc", "K14": "lstm_content"}
 
 
 def bf16_np(a):
@@ -164,10 +174,12 @@ def test_bilstm_layer_bf16_casts_like_jax():
     close(got, want, ATOL_KERNEL)
 
 
-def _loc_scan_inputs(lstm, seed):
-    """K10's (lstm) or K12's inputs at B = L = 16, T = 6, bf16-valued:
-    (vh, h, mask, yin), the port's weights, and the JAX kernel's."""
-    name = "lstm_loc" if lstm else "gru_loc"
+def _scan_inputs(kernel, seed):
+    """K10's, K12's or K14's (a key of SCANS) inputs at B = L = 16, T = 6,
+    bf16-valued: (vh, h, mask, yin), the port's weights, and the JAX
+    kernel's."""
+    name = SCANS[kernel]
+    lstm, has_loc = DECODERS[name]["cell"] == "lstm", DECODERS[name]["feature_maps"] > 0
     p = bf16_decoder(name, seed)
     a_dim, s_dim, st = (DECODERS[name][k] for k in ("annotation_depth", "score_depth",
                                                     "state_depth"))
@@ -180,7 +192,7 @@ def _loc_scan_inputs(lstm, seed):
     c = p["cell"]
     common = [p["ws"]["w"], p["ws"]["b"], p["w_e"], p["c_in"]["w"], p["c_in"]["b"],
               p["dec_in"]["w"], p["dec_in"]["b"]]
-    loc = [p["loc_conv"]["w"][:, 0, :], p["loc_conv"]["b"], p["u"]]
+    loc = [p["loc_conv"]["w"][:, 0, :], p["loc_conv"]["b"], p["u"]] if has_loc else []
     cell = [c["w_h"], c["w_x"], c["b"]] if lstm else [c["w_zr"], c["w_h"]]
     jcell = [np.concatenate([c["w_h"], c["w_x"]], 0), c["b"]] if lstm else cell
     two_d = lambda w: w[None] if w.ndim == 1 else w
@@ -188,14 +200,18 @@ def _loc_scan_inputs(lstm, seed):
     return (vh, h, mask, yin), tuple(common + cell + loc), jw
 
 
-@pytest.mark.parametrize("lstm", [True, False], ids=["K10", "K12"])
-def test_loc_scan_bf16_matches_pallas(lstm):
-    """K10's and K12's plain bf16 versions against
-    attention_decode_scan_loc_lstm and _loc in interpret mode."""
-    ins, weights, jw = _loc_scan_inputs(lstm, 1)
-    jfn = jscan.attention_decode_scan_loc_lstm if lstm else jscan.attention_decode_scan_loc
-    fn = (attention_scan.attention_decode_scan_loc_lstm if lstm
-          else attention_scan.attention_decode_scan_loc)
+# Each scan's JAX kernel and the port's wrapper, by name.
+SCAN_FNS = {"K10": "attention_decode_scan_loc_lstm", "K12": "attention_decode_scan_loc",
+            "K14": "attention_decode_scan_lstm"}
+
+
+@pytest.mark.parametrize("kernel", list(SCANS))
+def test_loc_scan_bf16_matches_pallas(kernel):
+    """K10's, K12's and K14's plain bf16 versions against
+    attention_decode_scan_loc_lstm, _loc and _lstm in interpret mode."""
+    ins, weights, jw = _scan_inputs(kernel, 1)
+    lstm = DECODERS[SCANS[kernel]]["cell"] == "lstm"
+    jfn, fn = getattr(jscan, SCAN_FNS[kernel]), getattr(attention_scan, SCAN_FNS[kernel])
     want = jfn(*map(to_j, ins), *map(to_j, jw), 16, True)
     got = fn(*map(to_t, ins), *map(to_t, weights))
     truth = fn(*(to_t(a, torch.float32) for a in (*ins, *weights)))
@@ -204,24 +220,24 @@ def test_loc_scan_bf16_matches_pallas(lstm):
     for g, w, t, name in zip(got, want, truth, names):
         assert g.dtype == BF16 and w.dtype == jnp.bfloat16
         close(g, w, ATOL_KERNEL)
-        ground_truth_rule(t, g, w, f"{'K10' if lstm else 'K12'} {name}")
+        ground_truth_rule(t, g, w, f"{kernel} {name}")
 
 
-@pytest.mark.parametrize("lstm", [True, False], ids=["K10", "K12"])
-def test_folded_twins_round_where_the_bf16_entries_round(lstm):
-    """folded_scan_plain, the twin of K10's and K12's entries as they
-    compute (the fold, then s_prev, the features, c and rg s_prev
+@pytest.mark.parametrize("kernel", list(SCANS))
+def test_folded_twins_round_where_the_bf16_entries_round(kernel):
+    """folded_scan_plain, the twin of K10's, K12's and K14's entries as
+    they compute (the fold, then s_prev, the features, c and rg s_prev
     rounded): on float32 inputs the plain scan; on bf16 inputs bf16 out,
     no farther from the float32 truth than the ground-truth rule lets the
     Pallas kernel in interpret mode be, and apart from the float32 result
     rounded at its outputs."""
-    ins, weights, jw = _loc_scan_inputs(lstm, 4)
+    ins, weights, jw = _scan_inputs(kernel, 4)
+    lstm = DECODERS[SCANS[kernel]]["cell"] == "lstm"
     f32 = [to_t(a, torch.float32) for a in (*ins, *weights)]
     truth = attention_scan._scan_plain(*f32[:4], tuple(f32[4:]), lstm)
     for g, w in zip(attention_scan.folded_scan_plain(*f32[:4], tuple(f32[4:]), lstm), truth):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
-    jfn = jscan.attention_decode_scan_loc_lstm if lstm else jscan.attention_decode_scan_loc
-    want = jfn(*map(to_j, ins), *map(to_j, jw), 16, True)
+    want = getattr(jscan, SCAN_FNS[kernel])(*map(to_j, ins), *map(to_j, jw), 16, True)
     got = attention_scan.folded_scan_plain(*map(to_t, ins), tuple(map(to_t, weights)), lstm)
     for g, w, t, name in zip(got, want, truth, ("s", "c", "alpha", "mem")):
         assert g.dtype == BF16
@@ -232,7 +248,7 @@ def test_folded_twins_round_where_the_bf16_entries_round(lstm):
 def test_lstm_fold_bf16_widens_exactly():
     """The bf16 entries' pre-pass tables are the float32 fold of the
     widened weights, for the LSTM as for the GRU."""
-    ins, weights, _ = _loc_scan_inputs(True, 2)
+    ins, weights, _ = _scan_inputs("K10", 2)
     args = (ins[3], *weights[3:7], *weights[8:10])
     got = attention_scan.lstm_fold_plain(*map(to_t, args))
     want = attention_scan.lstm_fold_plain(*(to_t(a, torch.float32) for a in args))
@@ -303,7 +319,8 @@ def _forward_batch(name, seed):
     stacked frames of 20 bins, flagship_loc's 16."""
     rng = np.random.RandomState(seed)
     b, t, v = 16, 5, 8
-    shape = {"conv_bilstm": (142, 16), "flagship_loc": (16, 16), "vgg": (40, 20, 3)}[name]
+    shape = {"conv_bilstm": (142, 16), "flagship_loc": (16, 16), "vgg": (40, 20, 3),
+             "conv_bilstm_content": (142, 16)}[name]
     x = rng.randn(b, *shape).astype(np.float32)
     x_len = np.array([shape[0], shape[0] - 5] * 8, np.int32)
     y = rng.randint(0, v, (b, t))
@@ -338,17 +355,18 @@ def test_forward_bf16_matches_jax_and_float32(name):
 @pytest.mark.parametrize("name", list(DECODERS))
 def test_beam_search_bf16_matches_jax_pallas(name):
     """bf16 encoder states through K8's plain bf16 version against JAX's
-    beam on its Pallas step kernel: float32 scores."""
+    beam on its Pallas step kernel: float32 scores; K = 3, and for the
+    content-only LSTM (conv_bilstm_content's decoder) the recipes' K = 5."""
     params = bf16_decoder(name, 4)
     rng = np.random.RandomState(5)
-    b, l = 16, 16
+    b, l, k = 16, 16, 5 if name == "lstm_content" else 3
     h = bf16_np(rng.randn(b, l, DECODERS[name]["annotation_depth"]) * 0.5)
     lens = np.array([16, 9, 12, 5] * 4)
     want = jbeam.beam_search(jax.tree.map(to_j, params), jcfg_of(name), to_j(h),
-                             jnp.asarray(lens), eos_id=2, k=3, max_steps=jnp.asarray(lens),
+                             jnp.asarray(lens), eos_id=2, k=k, max_steps=jnp.asarray(lens),
                              max_steps_cap=l, backend="pallas")
     got = beam.beam_search(tree.tree_map(to_t, params), cfg_of(name), to_t(h),
-                           torch.from_numpy(lens), 2, k=3, max_steps=torch.from_numpy(lens),
+                           torch.from_numpy(lens), 2, k=k, max_steps=torch.from_numpy(lens),
                            max_steps_cap=l, device="cpu")
     assert got.scores.dtype == torch.float32
     agree = float(np.mean(got.tokens.numpy() == np.asarray(want.tokens)))
@@ -369,7 +387,7 @@ def _eval_batches(name, seed):
     the configuration's input width, one batch as the trainer stages it
     (VGG's frames as 20 bins of 3 channels)."""
     feat_dim, frames = {"conv_bilstm": (16, (8, 12)), "flagship_loc": (16, (3, 7)),
-                        "vgg": (60, (4, 8))}[name]
+                        "vgg": (60, (4, 8)), "conv_bilstm_content": (16, (8, 12))}[name]
     ds, _, _ = synthetic.make_corpus(16, n_phones=7, feat_dim=feat_dim, min_len=3, max_len=8,
                                      frames_per_phone=frames, seed=seed)
     if name == "vgg":
@@ -405,11 +423,12 @@ def test_evaluate_bf16_matches_jax(name):
 
 
 def test_bf16_training_and_the_content_lstm_refuse():
-    """A bf16 gradient of each of the three models raises
+    """A bf16 gradient of each of the four models, conv_bilstm_content's
+    (the content-only LSTM decoder, feature_maps = 0) among them, raises
     NotImplementedError naming item 5c's training part where it reaches a
-    backward kernel; bf16 conv_bilstm_content (feature_maps = 0) raises
-    naming item 5c's second part, and the content-only LSTM's scan (K14)
-    and K8's <LSTM, content> step refuse bf16 inputs."""
+    backward kernel; its bf16 evaluation path, the content-only LSTM's
+    scan (K14) and K8's <LSTM, content> step, takes bf16 inputs and gives
+    bf16 outputs."""
     for name in MODELS:
         m16, _ = _port_models(name)
         params = tree.tree_map(lambda a: a.requires_grad_(),
@@ -418,8 +437,8 @@ def test_bf16_training_and_the_content_lstm_refuse():
         out = m16.forward(params, x, x_len, oh, dm)
         with pytest.raises(NotImplementedError, match="5c, training part"):
             out["logprobs"].sum().backward()
-    with pytest.raises(NotImplementedError, match="5c, second part"):
-        registry.build("conv_bilstm", compute_dtype="bfloat16", feature_maps=0)
+    assert registry.build("conv_bilstm", compute_dtype="bfloat16",
+                          feature_maps=0).cfg.compute_dtype == "bfloat16"
     cfg = attention.AttentionConfig(score_depth=12, state_depth=16, annotation_depth=16,
                                     output_depth=8, readout=(("linear", 8),), cell="lstm")
     dec = tree.tree_map(lambda t: t.to(BF16),
@@ -427,14 +446,15 @@ def test_bf16_training_and_the_content_lstm_refuse():
     b, k, l = 2, 3, 5
     state = tuple(torch.zeros(b, k, n, dtype=BF16) for n in (l, 16, 16))
     h = torch.zeros(b, l, 16, dtype=BF16)
-    with pytest.raises(TypeError, match="5c, second part"):
-        attention_step.fused_attention_step(dec, cfg, state, torch.zeros(b, k, 8, dtype=BF16),
-                                            torch.zeros(b, l, 12, dtype=BF16), h,
-                                            torch.ones(b, l, dtype=BF16))
+    (_, s_new, mem), out = attention_step.fused_attention_step(
+        dec, cfg, state, torch.zeros(b, k, 8, dtype=BF16), torch.zeros(b, l, 12, dtype=BF16), h,
+        torch.ones(b, l, dtype=BF16))
+    assert s_new.dtype == mem.dtype == out["c"].dtype == BF16
+    assert out["logp"].dtype == torch.float32
     c = dec["cell"]
     weights = (dec["ws"]["w"], dec["ws"]["b"], dec["w_e"], dec["c_in"]["w"], dec["c_in"]["b"],
                dec["dec_in"]["w"], dec["dec_in"]["b"], c["w_h"], c["w_x"], c["b"])
-    with pytest.raises(TypeError, match="5c, second part"):
-        attention_scan.attention_decode_scan_lstm(torch.zeros(b, l, 12, dtype=BF16), h,
-                                                  torch.ones(b, l, dtype=BF16),
-                                                  torch.zeros(b, 4, 16, dtype=BF16), *weights)
+    seqs = attention_scan.attention_decode_scan_lstm(torch.zeros(b, l, 12, dtype=BF16), h,
+                                                     torch.ones(b, l, dtype=BF16),
+                                                     torch.zeros(b, 4, 16, dtype=BF16), *weights)
+    assert len(seqs) == 4 and all(x.dtype == BF16 for x in seqs)

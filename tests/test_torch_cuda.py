@@ -1105,7 +1105,13 @@ def _decoder_scans(cell):
 # the flagship's training shape (filter 10) at its batch, at B=128 and at
 # B=1, and at small odd widths with filters 4 and 5; then the ways the
 # walk sums the location term's weight gradients, as in
-# LOC_LSTM_SCAN_CASES (S above 512; FM 16 with F 32; FM 20 with F 31); the
+# LOC_LSTM_SCAN_CASES (S above 512; FM 16 with F 32; FM 20 with F 31); and
+# on forced plans: the flagship's widths with filter 10 on clusters of 16
+# (9 positions a block, a halo of 9) and of 8 with a part-filled last row
+# group, L = 40 on clusters of 16 (2 or 3 positions a block: the dfeat
+# halo reaches past the nearest neighbours), L = 9 < C with filter 10 and
+# FM = 3 (empty blocks; the halo stored a value at a time), and an odd
+# filter at L = 37 not a multiple of C; the
 # content-only LSTM at the conv+BiLSTM recipe's training shape at its
 # batch, at B=128 and at B=1, and at small odd widths, on the plan of
 # LOC_LSTM_SCAN_CASES ("plan" where none is given): L' = 1, L' = 3 < C,
@@ -1122,6 +1128,11 @@ DECODER_SCAN_CASES = [
     ("gru", 128, 144, 56, (512, 512, 256, 16, 10)), ("gru", 1, 144, 56, (512, 512, 256, 16, 10)),
     ("gru", 3, 20, 6, (600, 24, 33, 4, 5)), ("gru", 2, 40, 5, (64, 24, 33, 16, 32)),
     ("gru", 2, 40, 5, (40, 24, 33, 20, 31)),
+    ("gru", 5, 144, 9, (512, 512, 256, 16, 10), (16, 2)),
+    ("gru", 5, 144, 9, (512, 512, 256, 16, 10), (8, 4)),
+    ("gru", 3, 40, 6, (64, 24, 36, 16, 10), (16, 1)),
+    ("gru", 2, 9, 4, (17, 12, 9, 3, 10), (16, 1)),
+    ("gru", 5, 37, 5, (40, 24, 33, 4, 5), (8, 2)),
     ("lstm", 128, 16, 56, (150, 256, 400, 0, 0)), ("lstm", 1, 16, 56, (150, 256, 400, 0, 0)),
     ("lstm", 2, 1, 7, (17, 12, 9, 0, 0)), ("lstm", 3, 3, 6, (40, 24, 33, 0, 0), (8, 2)),
     ("lstm", 4, 37, 9, (64, 40, 33, 0, 0), (16, 8)), ("lstm", 3, 20, 6, (600, 24, 33, 0, 0)),
@@ -1173,9 +1184,10 @@ def test_decoder_scan_kernels(card, monkeypatch, case):
     """K12, K4 or K14 against its plain version (1e-4 abs), K12 and K4
     also under every plan (_fwd_on_every_plan); then K13, K5 or K15 with
     cotangents on every output, and with none on alpha (and mem; zeros for
-    K5, whose wrapper takes every one), against its plain version; K5 and
-    K15 on their plan, each backward twice with the same bits; and each
-    backward once more on the sequences its forward saved."""
+    K5, whose wrapper takes every one), against its plain version, on
+    their plan (K15's the one LSTM_PLANS gives, or a case's forced one),
+    each backward twice with the same bits; and each backward once more on
+    the sequences its forward saved."""
     cell, b, l, t, (s, a, st, fm, f), *run = DECODER_SCAN_CASES[case]
     fwd, bwd, fwd_plain, bwd_plain, k_fwd, k_bwd = _decoder_scans(cell)
     gen = torch.Generator().manual_seed(b * 31 + l)
@@ -1192,9 +1204,8 @@ def test_decoder_scan_kernels(card, monkeypatch, case):
     assert len(got) == len(want) == (4 if cell == "lstm" else 3)
     assert _max_err(got, want) <= TOL
     widths = (st, a, l, st)[:len(want)]
-    walk = cell != "gru"  # K5 and K15 walk on clusters, K13 in one block a row
     plan = "plan"
-    if cell == "lstm":
+    if cell == "lstm" or run:
         plan = _walk_plan(card, monkeypatch, k_bwd, b, l, s, a, st, fm, f,
                           run[0] if run else "plan")
     for partial in (False, True):
@@ -1203,13 +1214,13 @@ def test_decoder_scan_kernels(card, monkeypatch, case):
             none = torch.zeros_like if cell == "content_gru" else lambda x: None
             cot[2:] = [none(x) for x in cot[2:]]
         args = (vh, h, mask, yin, *weights, *want, *cot)
-        got_b = _bwd_twice(bwd, args, plan, cell) if walk else bwd(*args)
+        got_b = _bwd_twice(bwd, args, plan, cell)
         want_b = bwd_plain(*args)
         torch.cuda.synchronize()
         _bwd_close(got_b, want_b, f"{cell} scan bwd")
     args = (vh, h, mask, yin, *weights, *got, *cot)
     _bwd_close(bwd(*args), bwd_plain(*args), f"{cell} scan bwd on its forward's sequences")
-    assert k_bwd.launches == n_bwd + (5 if walk else 3)
+    assert k_bwd.launches == n_bwd + 5
 
 
 @pytest.mark.parametrize("kind", ["loc", "loc_lstm", "lstm"])
@@ -1241,21 +1252,20 @@ def test_loc_scan_backwards_are_bitwise_deterministic(card, kind):
 
 
 def test_decoder_scans_refuse_what_does_not_fit(card):
-    """K13 keeps a row's step in one block's shared memory (232,448 bytes
-    on an H100): at the flagship's widths with 16 maps and filter 10 it
-    takes 19,401 + 38 L floats (L <= 1018). K11 and K15 keep ceil(L / C)
-    positions a block: at one batch row (C = 16, R = 1) and the
-    conv+BiLSTM recipe's widths, K11 fits L' <= 18640 and K15 L' <= 137856,
-    and K5 at the flagship's widths L <= 120448 (walk_smem_bytes;
+    """The backward walks keep ceil(L / C) positions a block (232,448
+    bytes of shared memory on an H100): at one batch row (C = 16, R = 1)
+    and the conv+BiLSTM recipe's widths, K11 fits L' <= 18640 and K15 L'
+    <= 137856, and at the flagship's widths K5 L <= 120448 and K13 (16
+    maps, filter 10) L <= 11312 (walk_smem_bytes;
     tests/test_torch_scan_plan.py pins them); so do the forwards: K10 and
     K14 fit L' <= 136960 and 243008, K12 and K4 at the flagship's widths L
     <= 72304 and 166656 (fwd_smem_bytes; tests/test_torch_fwd_plan.py).
-    The largest L runs, one more is refused (all but K13: by the plan,
-    before a launch) and not counted."""
+    The largest L runs, one more is refused by the plan, before a launch,
+    and not counted."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
     flagship, conv_bilstm = (512, 512, 256), (150, 256, 400)
-    for cell, dims, fm, f, kernel, l_max in (("gru", flagship, 16, 10, "bwd", 1018),
+    for cell, dims, fm, f, kernel, l_max in (("gru", flagship, 16, 10, "bwd", 11312),
                                             ("gru", flagship, 16, 10, "fwd", 72304),
                                             ("content_gru", flagship, 0, 0, "fwd", 166656),
                                             ("lstm", conv_bilstm, 0, 0, "bwd", 137856),
@@ -1563,13 +1573,13 @@ def _outputs(res):
     return out["alpha"], out["c"], out["s"], out["logp"]
 
 
-# The bf16 entries of K7, K10, K12 and K8 (the bf16 evaluation of
-# conv_bilstm, flagship_loc and vgg), held as K1's, K4's and K2's are
-# above. K7's outputs are float32 (the JAX kernel's are) and it rounds
-# nothing: its twin is the plain version on the widened inputs. K10's
-# and K12's twin folds c_in and dec_in into the gates as their entries
-# do (folded_scan_plain); K8 forms every operand, so its twin is its
-# plain bf16 version.
+# The bf16 entries of K7, K10, K12, K14 and K8 (the bf16 evaluation of
+# conv_bilstm, flagship_loc, vgg and conv_bilstm_content), held as K1's,
+# K4's and K2's are above. K7's outputs are float32 (the JAX kernel's
+# are) and it rounds nothing: its twin is the plain version on the
+# widened inputs. K10's, K12's and K14's twin folds c_in and dec_in into
+# the gates as their entries do (folded_scan_plain); K8 forms every
+# operand, so its twin is its plain bf16 version.
 @pytest.mark.parametrize("b,l,h", [(1, 14, 128), (16, 16, 128), (33, 9, 128), (3, 7, 5),
                                    (3, 9, 337)])
 def test_bilstm_scan_bf16_entry(card, b, l, h):
@@ -1585,16 +1595,31 @@ def test_bilstm_scan_bf16_entry(card, b, l, h):
 
 # (cell, B, L, T, (S, A, St, FM, F)): the conv+BiLSTM recipe's decoder at
 # its training shape, B = 1 and small odd widths with an even filter;
-# flagship_loc's at its training shape and at small odd widths.
+# flagship_loc's at its training shape and at small odd widths; then
+# conv_bilstm_content's (the LSTM without the location term, K14) at the
+# recipe's training shape, B = 1, L' < C at small odd widths and a
+# part-filled last row group.
 LOC_BF16_CASES = [("lstm", 16, 16, 56, (150, 256, 400, 16, 5)),
                   ("lstm", 1, 16, 56, (150, 256, 400, 16, 5)),
                   ("lstm", 3, 13, 5, (17, 12, 9, 3, 4)),
                   ("gru", 16, 144, 56, (512, 512, 256, 16, 10)),
-                  ("gru", 3, 13, 5, (17, 12, 9, 3, 4)), ("gru", 5, 40, 9, (40, 24, 33, 4, 5))]
+                  ("gru", 3, 13, 5, (17, 12, 9, 3, 4)), ("gru", 5, 40, 9, (40, 24, 33, 4, 5)),
+                  ("lstm", 16, 16, 56, (150, 256, 400, 0, 0)),
+                  ("lstm", 1, 16, 56, (150, 256, 400, 0, 0)),
+                  ("lstm", 3, 13, 5, (17, 12, 9, 0, 0)), ("lstm", 5, 37, 9, (64, 40, 33, 0, 0))]
+# Each decoder's bf16 entry: (name, Kernel attribute, wrapper), by (cell,
+# location term).
+SCAN_BF16 = {("lstm", True): ("attention_decode_scan_loc_lstm_fwd_bf16",
+                              "KERNEL_LOC_LSTM_FWD_BF16", "attention_decode_scan_loc_lstm"),
+             ("gru", True): ("attention_decode_scan_loc_fwd_bf16", "KERNEL_LOC_FWD_BF16",
+                             "attention_decode_scan_loc"),
+             ("lstm", False): ("attention_decode_scan_lstm_fwd_bf16", "KERNEL_LSTM_FWD_BF16",
+                               "attention_decode_scan_lstm")}
 
 
 @pytest.mark.parametrize("case", range(len(LOC_BF16_CASES)))
 def test_loc_decoder_scan_bf16_entries(card, case):
+    """The bf16 entries of K10, K12 and K14 (LOC_BF16_CASES)."""
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
 
     cell, b, l, t, (s, a, st, fm, f) = LOC_BF16_CASES[case]
@@ -1602,23 +1627,19 @@ def test_loc_decoder_scan_bf16_entries(card, case):
     gen = torch.Generator().manual_seed(b * 17 + l)
     vh, h, mask, yin, weights = _decoder_case(card, gen, b, l, t, s, a, st, cell, fm, f)
     args = _to_bf16([vh, h, mask, yin, *weights])
-    name = ("attention_decode_scan_loc_lstm_fwd_bf16" if lstm
-            else "attention_decode_scan_loc_fwd_bf16")
-    kernel = (attention_scan.KERNEL_LOC_LSTM_FWD_BF16 if lstm
-              else attention_scan.KERNEL_LOC_FWD_BF16)
-    fwd = (attention_scan.attention_decode_scan_loc_lstm if lstm
-           else attention_scan.attention_decode_scan_loc)
+    name, kernel, fwd = SCAN_BF16[(cell, fm > 0)]
+    kernel, fwd = getattr(attention_scan, kernel), getattr(attention_scan, fwd)
     got = _bf16_twice(kernel, fwd, args)
     plain = lambda *x: attention_scan._scan_plain(*x[:4], tuple(x[4:]), lstm)
     _bf16_close(name, got, attention_scan.folded_scan_plain(*args[:4], tuple(args[4:]), lstm),
                 plain(*args), plain(*_upcast(args)))
 
 
-# K8's three bf16 instances (LOC_LSTM_CASES 0, 1 and 5: <LSTM, location>,
-# <GRU, location>, <GRU, content> with VGG's readout) at the serving
-# shapes, K = 8 at L = 37, a row with every position masked, and B = 32
-# at L = 144, K = 5 (an evaluation batch).
-@pytest.mark.parametrize("case", [0, 1, 5])
+# K8's four bf16 instances (LOC_LSTM_CASES 0, 1, 5 and 2: <LSTM,
+# location>, <GRU, location>, <GRU, content> with VGG's readout, <LSTM,
+# content>) at the serving shapes, K = 8 at L = 37, a row with every
+# position masked, and B = 32 at L = 144, K = 5 (an evaluation batch).
+@pytest.mark.parametrize("case", [0, 1, 5, 2])
 @pytest.mark.parametrize("b,k,l,dead", [(1, 5, 14, None), (8, 5, 14, None), (3, 8, 37, 1),
                                         (32, 5, 144, None)])
 def test_fused_attention_step_loc_lstm_bf16_entry(card, case, b, k, l, dead):

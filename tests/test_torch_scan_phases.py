@@ -1,7 +1,7 @@
-"""tools/scan_phases.py rewrites the decoder-scan backward's source: a
-read of the SM's cycle counter at each `// [phase]` comment of scan_bwd.
-These hold that rewrite to the source as it stands, on the CPU (the
-copy is built and run only on the card)."""
+"""tools/scan_phases.py rewrites the kernels' sources: a read of the SM's
+cycle counter at each `// [phase]` comment of the walk or step a mode
+times. These hold that rewrite to the sources as they stand, on the CPU
+(the copy is built and run only on the card)."""
 
 import importlib.util
 import pathlib
@@ -11,8 +11,6 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SOURCE = ROOT / "seq2seq_attention_asr_tpu_torch" / "csrc" / "attention_scan_loc_lstm.cu"
-PHASES = ["load", "recompute", "cell", "dec_w^T", "c_w^T", "context", "softmax", "energies",
-          "dfeat", "carry, conv, ws_w^T", "stash"]
 
 
 def _tool():
@@ -23,30 +21,47 @@ def _tool():
 
 
 def test_instrument_reads_the_clock_at_every_phase_of_scan_bwd():
+    """The default mode times K13, which walks on decoder_walk<R, false,
+    true> (the source has no one-block scan_bwd): its entry point and
+    limits helper are in the instrumented source, its walk kernel is that
+    instance, and the mode's rewrite reads the clock at every phase marker
+    of the walk (the GRU's w_h^T phase and the location term's dfeat
+    phase among them) and nowhere else; K13 shares the walk with K5's
+    --gru-bwd mode."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
     tool = _tool()
+    (entry,), (walk,) = tool.MODES["k13"]
+    name, attr = tool.ENTRY[entry]
+    kernel = getattr(attention_scan, attr)
+    assert (name, kernel.symbol, kernel.source) == ("K13", entry, tool.SOURCE)
     src = SOURCE.read_text()
-    text, names = tool.instrument(src)
-    assert names == PHASES
+    assert re.search(r"__global__ void __launch_bounds__\(kThreads, 1\) " + walk +
+                     r"\(const BwdArgs a\) \{\n.*\n  decoder_walk<R, false, true>\(sm, a\);", src)
+    assert f'extern "C" int {entry}(' in src and f'extern "C" int {entry}_limits(' in src
+    assert not re.search(r"\bscan_bwd\(", src) and "carve_bwd" not in src
+    text, names = tool.instrument_mode("k13", src)
+    assert (text, names) == tool.instrument_walk(src)
+    assert names == WALK_PHASES
     assert len(names) <= 32  # g_phase_cycles' length
-    sig = "scan_bwd(float* sm, const BwdArgs& a) {"
-    # Every marker of scan_bwd's body is read (lstm_walk keeps its own).
-    assert "// [phase]" not in text.split(sig, 1)[1].split("\n}\n", 1)[0]
+    assert {"w_h^T, da_zr exchange", "dfeat"} <= set(names)
     reads = re.findall(r"g_phase_cycles\[(\d+)\] \+= c_ - phase_t0_", text)
-    assert [int(i) for i in reads] == list(range(len(PHASES)))
+    assert [int(i) for i in reads] == list(range(len(names)))
     assert text.count("long long phase_t0_ = clock64();") == 1
     for a, b in ("{}", "()"):
         assert text.count(a) - text.count(b) == src.count(a) - src.count(b)
-    # Outside scan_bwd's body, only the probe is added, before the
-    # anonymous namespace.
-    head, rest = src.split(sig, 1)
-    assert text.replace(tool.PROBE + "\n", "", 1).startswith(head)
-    assert text.index(tool.PROBE) < text.index("namespace {")
-    assert text.endswith(rest.split("\n}\n", 1)[1])
 
 
 def test_instrument_refuses_a_source_without_markers():
-    with pytest.raises(ValueError, match="no // \\[phase\\] markers"):
-        _tool().instrument(re.sub(r"// \[phase\] .*", "", SOURCE.read_text()))
+    """The default mode (K13) refuses a source whose decoder_walk has no
+    phase markers."""
+    tool = _tool()
+    src = SOURCE.read_text()
+    head, rest = src.split(tool.WALK_SIG, 1)
+    body, tail = rest.split("\n}\n", 1)
+    stripped = head + tool.WALK_SIG + re.sub(r"// \[phase\] .*", "", body) + "\n}\n" + tail
+    with pytest.raises(ValueError, match="no // \\[phase\\] markers in decoder_walk"):
+        tool.instrument_mode("k13", stripped)
 
 
 K2_SOURCE = ROOT / "seq2seq_attention_asr_tpu_torch" / "csrc" / "attention_step.cu"

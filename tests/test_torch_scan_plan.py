@@ -1,9 +1,10 @@
 """The plan of the decoder scans' backward walk, K11 and K15 (the LSTM
-cell) and K5 (the GRU) (ops/cuda/attention_scan.py scan_plan): the
-cluster size C and the batch rows R of a cluster, and the shared memory
-of a block, pinned at the conv+BiLSTM recipe's widths and at the
-flagship's. The plan is a plain function of the shapes, the cell and two
-numbers of the device, so this runs on the CPU."""
+cell) and K5 and K13 (the GRU, K13 with the location term)
+(ops/cuda/attention_scan.py scan_plan): the cluster size C and the batch
+rows R of a cluster, and the shared memory of a block, pinned at the
+conv+BiLSTM recipe's widths and at the flagship's, with and without the
+location term. The plan is a plain function of the shapes, the cell and
+two numbers of the device, so this runs on the CPU."""
 
 import pathlib
 import re
@@ -21,8 +22,10 @@ RESIDENT = {16: 7, 8: 15}  # clusters of 16 and of 8 blocks an H100 holds at ful
 L, S, A, ST = 16, 150, 256, 400
 LOC, CONTENT = (16, 5), (0, 0)
 # The flagship's decoder at its training shape (K5): L = 144 frames, score
-# 512, annotation 512 (the BiGRU's two directions of 256), state 256.
+# 512, annotation 512 (the BiGRU's two directions of 256), state 256; with
+# the location term (flagship_loc, K13) 16 maps of filter 10.
 FL, FS, FA, FST = 144, 512, 512, 256
+FLOC = (16, 10)
 
 
 def smem_table(l=L, loc=LOC, s=S, a=A, st=ST, cell="lstm"):
@@ -37,6 +40,13 @@ def plan(b, resident=RESIDENT, smem_limit=SMEM, loc=LOC, l=L):
 def gru_plan(b, resident=RESIDENT, smem_limit=SMEM, l=FL):
     return scan.scan_plan(b, smem_table(l, CONTENT, FS, FA, FST, "gru"), smem_limit, resident,
                           scan.STEP_COST["gru"])
+
+
+def loc_gru_plan(b, resident=RESIDENT, smem_limit=SMEM, l=FL):
+    """K13's plan: the GRU walk's shared memory with the location term,
+    and its own step costs."""
+    cost = scan.STEP_COST[scan.WALK_COST[scan.KERNEL_LOC_BWD.symbol]]
+    return scan.scan_plan(b, smem_table(l, FLOC, FS, FA, FST, "gru"), smem_limit, resident, cost)
 
 
 @pytest.mark.parametrize("loc", [LOC, CONTENT])
@@ -170,6 +180,63 @@ def test_the_longest_flagship_encoder_output():
         gru_plan(1, l=l_max + 1)
 
 
+@pytest.mark.parametrize("b,resident,want", [
+    (16, RESIDENT, scan.ScanPlan(8, 2, 1)),    # the recipe's batch: 8 clusters of 8
+    (128, RESIDENT, scan.ScanPlan(8, 4, 3)),   # R = 4 on clusters of 8 at most: 32 in 3 waves
+    (1, RESIDENT, scan.ScanPlan(16, 1, 1)),
+    (16, {16: 0, 8: 15}, scan.ScanPlan(8, 2, 1)),
+])
+def test_loc_gru_plan_at_the_flagship_loc_batches(b, resident, want):
+    """K13's plan at flagship_loc's widths, from its own step costs."""
+    assert loc_gru_plan(b, resident) == want
+
+
+def test_loc_gru_smem_bytes_at_flagship_loc():
+    """K13 at flagship_loc's widths, every (C, R): U and the block's dU
+    sum (FM x S = 8,192 floats each, 64 KB together) sit in every block
+    beside K5's buffers, so R = 4 no longer fits on clusters of 16 and R
+    = 8 on neither size."""
+    table = smem_table(FL, FLOC, FS, FA, FST, "gru")
+    assert table == {
+        (16, 1): 120816, (16, 2): 170416, (16, 4): 269648, (16, 8): 468208,
+        (8, 1): 107216, (8, 2): 143248, (8, 4): 215376, (8, 8): 359664}
+    content = smem_table(FL, CONTENT, FS, FA, FST, "gru")
+    assert all(table[key] - content[key] >= 2 * 4 * 16 * FS for key in table)
+    assert {key for key, n in table.items() if n <= SMEM} == {(16, 1), (16, 2), (8, 1), (8, 2),
+                                                              (8, 4)}
+
+
+def test_the_longest_flagship_loc_encoder_output():
+    """K13 at one batch row (C = 16, R = 1) fits L <= 11312 frames (about
+    6 min at 32 ms a frame), ceil(L / 16) = 707 positions a block: of a
+    block's 232,448 bytes (58,112 floats), the buffers that do not grow
+    with L take about 29,844 floats (U and the dU sum 16,384 of them, the
+    blocks' dws partials 8,192), and each position 40 more (alpha, its
+    cotangent and alpha_prev staged twice, the carry, de, and 16 maps of
+    features and of dfeat): 707 positions fit, 708 do not. The one-block
+    body it replaces refused L above 1018. The card test runs the cap and
+    sees L + 1 refused, by the plan, before a launch."""
+    l_max = 11312
+    assert loc_gru_plan(1, l=l_max) == scan.ScanPlan(16, 1, 1)
+    assert scan.walk_smem_bytes("gru", 1, 16, l_max, FS, FA, FST, *FLOC) <= SMEM
+    assert scan.walk_smem_bytes("gru", 1, 16, l_max + 1, FS, FA, FST, *FLOC) > SMEM
+    with pytest.raises(RuntimeError):
+        loc_gru_plan(1, l=l_max + 1)
+
+
+@pytest.mark.parametrize("c", scan.WALK_CLUSTERS)
+@pytest.mark.parametrize("r", scan.WALK_ROWS)
+def test_no_loc_gru_buffer_grows_with_the_full_length(c, r):
+    """As for the other walks: lengths with the same ceil(L / C) take the
+    same bytes; each further position of a block adds 40 floats a row
+    (alpha, its cotangent and alpha_prev staged twice, the carry, de, and
+    16 maps of features and of dfeat)."""
+    smem = lambda l: scan.walk_smem_bytes("gru", r, c, l, FS, FA, FST, *FLOC)
+    for p in (1, 2, 5, 40):
+        assert smem(c * (p - 1) + 1) == smem(c * p)
+    assert (smem(c * 400) - smem(c * 200)) / 200 == pytest.approx(4 * 40 * r, rel=0.01)
+
+
 def _c_smem_floats():
     """csrc/attention_scan_loc_lstm.cu's walk_smem_floats as a Python
     function, from its source, its per-cell mbarrier counts kBarsLstm and
@@ -200,16 +267,19 @@ def test_the_kernel_lays_out_what_the_plan_counts(shape, c, r):
         scan.walk_smem_bytes("lstm", r, c, l, s, a, st, fm, f)
 
 
-# The GRU walk (K5) has no location term.
+# The GRU walk: K5 without the location term, then K13 with it (filters
+# of 10, even, and 5 and 31, odd).
 @pytest.mark.parametrize("shape", [
     (FL, FS, FA, FST), (L, S, A, ST), (3, 17, 12, 9), (37, 64, 40, 33), (1, 600, 24, 33),
-    (120448, FS, FA, FST), (37, 64, 42, 36), (5, 7, 5, 3)])
+    (120448, FS, FA, FST), (37, 64, 42, 36), (5, 7, 5, 3), (FL, FS, FA, FST, *FLOC),
+    (11312, FS, FA, FST, *FLOC), (13, 17, 12, 9, 3, 4), (40, 24, 33, 36, 4, 5),
+    (40, 40, 24, 33, 20, 31)])
 @pytest.mark.parametrize("c", scan.WALK_CLUSTERS)
 @pytest.mark.parametrize("r", scan.WALK_ROWS)
 def test_the_gru_walk_lays_out_what_the_plan_counts(shape, c, r):
-    l, s, a, st = shape
-    assert 4 * _c_smem_floats()(r, c, l, s, a, st, 0, 0, 0, 0) == \
-        scan.walk_smem_bytes("gru", r, c, l, s, a, st)
+    l, s, a, st, fm, f = (*shape, 0, 0)[:6]
+    assert 4 * _c_smem_floats()(r, c, l, s, a, st, fm, f, int(fm > 0), 0) == \
+        scan.walk_smem_bytes("gru", r, c, l, s, a, st, fm, f)
 
 
 def _libraries():
@@ -243,18 +313,19 @@ def test_k5_builds_a_library_of_its_own():
     libs = _libraries()
     assert libs["CONTENT_GRU_BWD_ONLY"] == {"attention_decode_scan_bwd_limits",
                                             "attention_decode_scan_bwd"}
-    walks = (scan.KERNEL_LOC_LSTM_BWD, scan.KERNEL_LSTM_BWD)
-    want = {k.symbol for k in (scan.KERNEL_LOC_BWD, *walks)}
-    want |= {k.symbol + "_limits" for k in walks}
-    assert libs[None] == want
+    walks = (scan.KERNEL_LOC_LSTM_BWD, scan.KERNEL_LSTM_BWD, scan.KERNEL_LOC_BWD)
+    assert libs[None] == {k.symbol + x for k in walks for x in ("", "_limits")}
+    assert {scan.WALK_CELL[k.symbol] for k in walks} == {"lstm", "gru"}
 
 
 def test_k10_and_k14_build_a_library_of_their_own():
     """K10 and K14 (the forward walk's LSTM instances and its pre-pass,
-    K10's bf16 entry among them) build with LSTM_FWD_ONLY defined into one
-    library of their own, beside K5's, K12's and K4's and the rest's; it
-    holds their entry points and limits helpers and no other."""
-    fwds = (scan.KERNEL_LOC_LSTM_FWD, scan.KERNEL_LSTM_FWD, scan.KERNEL_LOC_LSTM_FWD_BF16)
+    the bf16 entries of K10 and K14 among them) build with LSTM_FWD_ONLY
+    defined into one library of their own, beside K5's, K12's and K4's and
+    the rest's; it holds their entry points and limits helpers and no
+    other."""
+    fwds = (scan.KERNEL_LOC_LSTM_FWD, scan.KERNEL_LSTM_FWD, scan.KERNEL_LOC_LSTM_FWD_BF16,
+            scan.KERNEL_LSTM_FWD_BF16)
     assert all(k.defines == ("LSTM_FWD_ONLY",) for k in fwds)
     assert len({k.library_path() for k in fwds}) == 1
     assert len({k.library_path() for k in (fwds[0], scan.KERNEL_BWD, scan.KERNEL_LSTM_BWD,

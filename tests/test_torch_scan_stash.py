@@ -1,12 +1,11 @@
 """The global scratch of the decoder-scan backwards K5, K11, K13 and K15
 (ops/cuda/attention_scan.py::stash_floats, the host's copy of the
-kernels' carve_stash), pinned at the recipes' training shapes. The walks
-sum the location term's weight gradients themselves, so that term's
-scratch is a per-row dz of L*S floats and partial sums (for K13 a row's,
-for K11 a block's of the cluster walk, with dw_e's, as for K5 and K15):
-it does not grow with the number of steps T. Plain arithmetic, so this
-runs on the CPU; the last test holds stash_floats to carve_stash's
-source."""
+kernels' carve_stash), pinned at the recipes' training shapes. The walk
+sums the location term's weight gradients itself, so that term's scratch
+is a per-row dz of L*S floats and a block's partial sums (with dw_e's,
+which every walk sums so): it does not grow with the number of steps T.
+Plain arithmetic, so this runs on the CPU; the last test holds
+stash_floats to carve_stash's source."""
 
 import pathlib
 import re
@@ -19,8 +18,8 @@ SOURCE = (pathlib.Path(__file__).resolve().parents[1] / "seq2seq_attention_asr_t
           / "csrc" / "attention_scan_loc_lstm.cu")
 # (lstm, T, L, S, St, FM, F): flagship_loc (the flagship recipe with 16
 # feature maps of filter 10, K13) at B=16 and 128, and the conv+BiLSTM
-# recipe (K11: 144 frames give L'=16) at B=16 on the walk's plan there,
-# 4 clusters of 16 blocks (64 rows of partials).
+# recipe (K11: 144 frames give L'=16) at B=16, each on 4 clusters of 16
+# blocks a batch of 16 (64 rows of partials).
 FLAGSHIP_LOC = (False, 56, 144, 512, 256, 16, 10)
 CONV_BILSTM = (True, 56, 16, 150, 400, 16, 5)
 # The flagship recipe itself (K5: the GRU without the location term).
@@ -28,21 +27,15 @@ FLAGSHIP = (False, 56, 144, 512, 256, 0, 0)
 RECIPE_PLAN = ScanPlan(16, 4)
 
 
-def _walks(lstm, fm):
-    """Whether the scan's backward is a cluster walk (K5, K11, K15): every
-    one but K13's."""
-    return lstm or not fm
-
-
 def _floats(shape, b, t_len=None):
     lstm, t, l, s_dim, st, fm, f = shape
-    partials = RECIPE_PLAN.partials(b) if _walks(lstm, fm) else 0
-    return stash_floats(lstm, b, t_len or t, l, s_dim, st, fm, f, partials)
+    return stash_floats(lstm, b, t_len or t, l, s_dim, st, fm, f, RECIPE_PLAN.partials(b))
 
 
 @pytest.mark.parametrize("shape,b,want", [
-    (FLAGSHIP_LOC, 16, 4_754_176),    # 19.0 MB
-    (FLAGSHIP_LOC, 128, 38_033_408),  # 152.1 MB
+    (FLAGSHIP_LOC, 16, 4_729_856),    # 18.9 MB: 64 rows of partials, no per-step dw_e rows
+                                      # (was 4,754,176 with them and B rows of partials)
+    (FLAGSHIP_LOC, 128, 37_838_848),  # 151.4 MB: 512 rows of partials (was 38,033,408)
     (CONV_BILSTM, 16, 3_567_744),     # 14.3 MB: no per-step dw_e rows, 64 rows of partials
     (FLAGSHIP, 16, 3_014_656),        # 12.1 MB: K5 on 4 clusters of 16 (was 3,440,640 with
                                       # per-step dw_e rows)
@@ -58,18 +51,15 @@ def test_stash_at_the_recipes_shapes(shape, b, want):
 def test_location_share_does_not_grow_with_the_steps(shape, b):
     """Twice the steps add only the per-step stash of the content-only
     scan; the location term's share is B * L*S of dz and the partials of
-    dU, dwconv and dbconv: B rows of them for K13, a row per block of the
-    walk for K11."""
+    dU, dwconv and dbconv, a row per block of the walk, for K13 as for
+    K11."""
     lstm, t, l, s_dim, st, fm, f = shape
-    partials = RECIPE_PLAN.partials(b) if lstm else 0
-    # The per-step stash without the location term: K15's for K11; for K13
-    # K5's and the rows of the step's w_e partial, which K13 keeps (K5 sums
-    # dw_e in its walk, into the partials, here none).
-    content = lambda t_len: (stash_floats(lstm, b, t_len, l, s_dim, st, partials=partials)
-                             + (0 if lstm else b * t_len * s_dim))
+    partials = RECIPE_PLAN.partials(b)
+    # The stash without the location term: K15's for K11, K5's for K13.
+    content = lambda t_len: stash_floats(lstm, b, t_len, l, s_dim, st, partials=partials)
     for t_len in (1, t, 2 * t):
         assert _floats(shape, b, t_len) - content(t_len) == (
-            b * l * s_dim + (partials if lstm else b) * (fm * s_dim + (f + 1) * fm))
+            b * l * s_dim + partials * (fm * s_dim + (f + 1) * fm))
 
 
 def _carve_stash_floats(lstm, loc, B, T, L, S, St, FM, F, partials):
@@ -95,12 +85,8 @@ def _carve_stash_floats(lstm, loc, B, T, L, S, St, FM, F, partials):
             depth += 1
         elif m := re.fullmatch(r"if \((!?)(\w+)\) " + take, line):
             py.append(f"{pad}if {'not ' * bool(m.group(1))}{m.group(2)}: total += {m.group(3)}")
-        elif m := re.fullmatch(r"const bool (\w+) = (\w+) \|\| !(\w+);", line):
-            py.append(f"{pad}{m.group(1)} = {m.group(2)} or not {m.group(3)}")
         elif m := re.fullmatch(take, line):
             py.append(f"{pad}total += {m.group(1)}")
-        elif m := re.fullmatch(r"const size_t (\w+) = (\w+) \? (\w+) : (\w+);", line):
-            py.append(f"{pad}{m.group(1)} = {m.group(3)} if {m.group(2)} else {m.group(4)}")
         elif m := re.fullmatch(r"const size_t (.*);", line):
             py += [f"{pad}{decl.strip()}" for decl in m.group(1).split(",")]
         else:
@@ -116,10 +102,8 @@ def _carve_stash_floats(lstm, loc, B, T, L, S, St, FM, F, partials):
     (128, 56, 144, 512, 256, 16, 10, 128),
     (1, 1, 1, 1, 1, 1, 1, 8)])
 def test_stash_floats_is_what_carve_stash_takes(lstm, loc, b, t_len, l, s_dim, st, fm, f, partials):
-    """Every instance: K11 (LSTM, location), K13 (GRU, location), K15
-    (LSTM) and K5 (GRU); the walks' with `partials` rows of partial sums,
-    K13's with B."""
+    """Every instance of the walk, with `partials` rows of partial sums:
+    K11 (LSTM, location), K13 (GRU, location), K15 (LSTM) and K5 (GRU)."""
     fm, f = (fm, f) if loc else (0, 0)
     want = _carve_stash_floats(lstm, loc, b, t_len, l, s_dim, st, fm, f, partials)
-    got = stash_floats(lstm, b, t_len, l, s_dim, st, fm, f, partials if _walks(lstm, fm) else 0)
-    assert got == want
+    assert stash_floats(lstm, b, t_len, l, s_dim, st, fm, f, partials) == want

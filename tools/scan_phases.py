@@ -18,29 +18,25 @@ goes, on the card.
 Nsight Compute does not run on every machine, so this measures the walk
 from inside: it copies csrc/attention_scan_loc_lstm.cu (or each SOURCE
 given, a variant of it, with the headers beside it), turns every
-``// [phase] name`` comment of scan_bwd into a read of the SM's cycle
-counter by thread 0 of block 0 (each marker follows a block barrier, so
-the difference between two reads is the time of the phase between
-them), builds the copy, and runs K13 at flagship_loc's training shape,
-at B=16 and 128, on chip_smoke.py's cases (the recipe's seeded weights,
-its training batch, random cotangents). It prints the cycles a step of
-each phase, the time per call (CUDA events over 5 calls), and each
-call's parity with the plain version (the backward tolerance). The
-counter adds two instructions of one thread a phase. Exits nonzero
-without a card.
+``// [phase] name`` comment of decoder_walk, the cluster walk of the
+decoder backwards K11, K13, K15 and K5, into a read of the SM's cycle
+counter by thread 0 of block 0 (each marker follows one of the step's
+block barriers or its waits for the peers' pushes, so the difference
+between two reads is the time of the phase between them), builds the
+copy, and runs K13 at flagship_loc's training shape, at B=16 and 128,
+on chip_smoke.py's cases (the recipe's seeded weights, its training
+batch, random cotangents). It prints the plan each ran, the cycles a
+step of block 0 of cluster 0 by phase (the wait for the staged inputs,
+then each exchange with the work before it; a phase of the other
+cell's, which the walk does not run, is left out), the time per call
+(CUDA events over 5 calls), and each call's parity with the plain
+version (the backward tolerance). The counter adds two instructions of
+one thread a phase. Exits nonzero without a card.
 
-With --lstm-bwd it instruments decoder_walk, the cluster walk of K11,
-K15 and K5 in the same source (or each SOURCE), whose markers follow the
-step's block barriers and its waits for the peers' pushes, and runs K11
-and K15 at the conv+BiLSTM recipe's training shape (with and without the
-location term) at B=16 and 128 on chip_smoke.py's cases: the plan each
-ran, the cycles a step of block 0 of cluster 0 by phase (the wait for
-the staged inputs, then each exchange with the work before it; a phase
-of the other cell's, which the walk does not run, is left out), the
-time per call (CUDA events over 5 calls) and the parity (the backward
-tolerance). With --gru-bwd it does the same for the GRU instance of the
-walk, K5, at the flagship recipe's training shape (L = 144, T = 56) at
-B=16 and 128.
+With --lstm-bwd it does the same for K11 and K15 at the conv+BiLSTM
+recipe's training shape (with and without the location term), and with
+--gru-bwd for K5 at the flagship recipe's training shape (L = 144, T =
+56), at B=16 and 128.
 
 With --lstm-fwd it instruments decoder_fwd_walk, the forward walk of
 K10 and K14 in the same source (or each SOURCE), whose markers follow
@@ -172,7 +168,7 @@ ENTRY = {"attention_decode_scan_loc_bwd": ("K13", "KERNEL_LOC_BWD"),
          "attention_decode_scan_bwd": ("K5", "KERNEL_BWD")}
 # The mode's entry points, by chip_smoke.py's case name, and the trace
 # names of its instrumented kernels (for ptxas's spill lines).
-MODES = {"k13": (("attention_decode_scan_loc_bwd",), ("scan_loc_gru_bwd",)),
+MODES = {"k13": (("attention_decode_scan_loc_bwd",), ("loc_gru_bwd_kernel",)),
          "lstm": (("attention_decode_scan_loc_lstm_bwd", "attention_decode_scan_lstm_bwd"),
                   ("loc_lstm_bwd_kernel", "scan_lstm_bwd_kernel")),
          "gru": (("attention_decode_scan_bwd",), ("content_gru_walk_kernel",)),
@@ -188,30 +184,6 @@ FWD_WALK_SIG = ("__device__ __forceinline__ void decoder_fwd_walk(float* sm, con
                 "a,\n                                                 const FwdScratch& x, int "
                 "resident) {")
 FWD_WALK_LOOP = "  for (int t = 0; t < T; ++t) {"
-
-
-def instrument(src: str):
-    """The source with a cycle read at each phase marker of scan_bwd, and
-    the phases' names in order."""
-    head, body = src.split("scan_bwd(float* sm, const BwdArgs& a) {", 1)
-    body, tail = body.split("\n}\n", 1)
-    names = MARK.findall(body)
-    if not names:
-        raise ValueError("no // [phase] markers in scan_bwd")
-    counter = iter(range(len(names)))
-
-    def read(m):
-        i = next(counter)
-        return (f"{m.group(1)}if (threadIdx.x == 0 && blockIdx.x == 0) {{ const long long c_ = "
-                f"clock64(); g_phase_cycles[{i}] += c_ - phase_t0_; phase_t0_ = c_; }}")
-
-    body = MARK.sub(read, body)
-    body = body.replace("  for (int t = d.T - 1; t >= 0; --t) {",
-                        "  long long phase_t0_ = clock64();\n"
-                        "  for (int t = d.T - 1; t >= 0; --t) {", 1)
-    head = head.replace("namespace {", PROBE + "\nnamespace {", 1)
-    return head + "scan_bwd(float* sm, const BwdArgs& a) {" + body + "\n}\n" + tail, \
-        [n for _, n in names]
 
 
 def _clock_read(i: int, indent: str, block: str = "blockIdx.x == 0") -> str:
@@ -320,6 +292,14 @@ def instrument_fwd_walk(src: str):
     return instrument_walk(src, FWD_WALK_SIG, FWD_WALK_LOOP, "decoder_fwd_walk")
 
 
+def instrument_mode(mode: str, src: str):
+    """The instrumented source of `mode` (a key of MODES) and its phases'
+    names: decoder_fwd_walk's for the forwards' modes, decoder_walk's for
+    the backwards' (K13's, the default, and --lstm-bwd's and
+    --gru-bwd's)."""
+    return (instrument_fwd_walk if mode in FWD_MODES else instrument_walk)(src)
+
+
 LSTM_ENC_SOURCE = build.CSRC_DIR / "bilstm_scan.cu"
 LSTM_ENC_SIG = "bilstm_walk(const LstmFwdT<T>& a, int resident, float* smem) {"
 LSTM_ENC_LOOP = "  for (int s = 0; s < L; ++s) {"
@@ -390,10 +370,10 @@ def cases(mode: str):
 
 
 def main(sources, mode: str = "k13") -> int:
-    """The default mode ("k13": K13's scan_bwd), the --lstm-bwd ("lstm":
-    K11 and K15) or --gru-bwd ("gru": K5) mode, on decoder_walk, or the
-    --lstm-fwd ("lstm_fwd": K10 and K14) or --gru-dec-fwd ("gru_dec_fwd":
-    K12 and K4) mode, on decoder_fwd_walk."""
+    """The default mode ("k13": K13), the --lstm-bwd ("lstm": K11 and K15)
+    or --gru-bwd ("gru": K5) mode, on decoder_walk, or the --lstm-fwd
+    ("lstm_fwd": K10 and K14) or --gru-dec-fwd ("gru_dec_fwd": K12 and K4)
+    mode, on decoder_fwd_walk."""
     if not torch.cuda.is_available():
         print("scan_phases: no CUDA device is available", file=sys.stderr)
         return 1
@@ -402,9 +382,7 @@ def main(sources, mode: str = "k13") -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     entries, walks = MODES[mode]
     for src in map(pathlib.Path, sources):
-        text, names = {"k13": instrument, "lstm_fwd": instrument_fwd_walk,
-                       "gru_dec_fwd": instrument_fwd_walk}.get(mode, instrument_walk)(
-            src.read_text())
+        text, names = instrument_mode(mode, src.read_text())
         headers = {h.name: h.read_text() for h in sorted(src.parent.glob("*.cuh"))}
         digest = hashlib.sha1((text + "".join(headers.values())).encode()).hexdigest()[:12]
         copy = build.BUILD_DIR / "phases" / digest
@@ -442,14 +420,14 @@ def main(sources, mode: str = "k13") -> int:
             try:
                 # wconv (F, FM) after vh, h, mask, yin and the 7 step and 3
                 # (LSTM) or 2 (GRU) cell weights.
-                wconv = {"K10": 14, "K11": 14, "K12": 13}.get(name)
+                wconv = {"K10": 14, "K11": 14, "K12": 13, "K13": 13}.get(name)
                 fm, f = (c.args[wconv].shape[1], c.args[wconv].shape[0]) if wconv else (0, 0)
                 dims = (b, l, vh.shape[2], c.args[1].shape[2], yin.shape[2], fm, f, vh.device)
                 if mode in FWD_MODES:
                     run = attention_scan.fwd_plan_on(ks[name], *dims)
                     plan = (f" (plan C={run.cluster} R={run.rows} W_cx "
                             f"{'resident' if run.resident else 'streamed'}, {run.waves} waves)")
-                elif mode != "k13":
+                else:
                     run = attention_scan.scan_plan_on(ks[name], *dims)
                     plan = f" (plan C={run.cluster} R={run.rows}, {run.waves} waves)"
                 read = ks[name].helper("read_phase_cycles", [ctypes.c_void_p, ctypes.c_int])
@@ -476,8 +454,7 @@ def main(sources, mode: str = "k13") -> int:
             finally:
                 setattr(attention_scan, attr, default)
             # The walk's phases of the other cell never run: left out.
-            ran = [(p, n / t) for p, n in zip(names, cycles[:len(names)])
-                   if n or mode == "k13"]
+            ran = [(p, n / t) for p, n in zip(names, cycles[:len(names)]) if n]
             print(f"scan_phases {src} {name} B={b} L={l} T={t}{plan}: "
                   f"{start.elapsed_time(stop) / 5:.4f} ms per call, parity excess {excess:.3e} "
                   f"({'ok' if excess <= 5e-5 else 'FAILS'}); cycles a step of block 0: "

@@ -11,7 +11,8 @@ reference recipe's regularisers: the committed AWN stage restarted from
 the checkpoint, the monotonic penalty on each decoder, dropout and
 weight noise; then the flagship's bf16 evaluation through the bf16
 entries of K1, K2 and K4, and that of conv+BiLSTM, flagship_loc, VGG
-and conv_bilstm_content through those of K7, K10, K12, K14 and K8; then
+and conv_bilstm_content through those of K7, K10, K12, K14 and K8, and
+the bf16 training of the flagship and VGG through those of K6 and K5; then
 the LibriSpeech recipes (the VGG model,
 the character and word Chorowski recipes, the chunked out-of-core
 epoch, the stacked front end) and K2 with a word vocabulary spread over
@@ -21,8 +22,8 @@ its cluster.
 
 Phases, each fatal when it fails:
   1. the card's name and power limit (nvidia-smi);
-  2. build the nineteen kernels and the bf16 entries of K1, K2, K4, K7,
-     K8, K10, K12 and K14 from csrc/ (one nvcc per library, in parallel);
+  2. build the nineteen kernels and the bf16 entries of K1, K2, K4-K8,
+     K10, K12 and K14 from csrc/ (one nvcc per library, in parallel);
   3. hold each kernel to its plain PyTorch version through its public
      wrapper: K1-K3 at the flagship's serving shapes, batch 1 and 8 (max
      abs error 1e-4; K3 also twice, the two calls bitwise equal, one
@@ -215,8 +216,8 @@ Phases, each fatal when it fails:
      float32 kernel's on the upcast inputs, its plain twin's time and
      bound (bf16 bytes, operations at the bf16 tensor-core peak), and
      one B = 32 evaluation batch (the eval step and the beam) in bf16
-     beside float32, wall and device time; (d) a bf16 train step
-     raising NotImplementedError; and the phase's wall seconds; then
+     beside float32, wall and device time; and the phase's wall seconds;
+     then
      (12 b) conv+BiLSTM, flagship_loc, VGG and conv_bilstm_content as
      bf16 models (bf16_models_phase), from each recipe's seeded init: the
      bf16 entries of K7, K10, K12, K14 and K8 (its <LSTM, location>, <GRU,
@@ -228,7 +229,26 @@ Phases, each fatal when it fails:
      32, or 16 for flagship_loc; LS_VALID's 8 for VGG) on the card under PyTorch's default flags, unchanged after,
      launching its bf16 entries only (K8 once a beam step), against the
      same evaluation on the CPU (PER within 0.02, NLL within 1e-3
-     relative); and its bf16 train step raising NotImplementedError;
+     relative); and the bf16 train step of conv_bilstm, flagship_loc and
+     conv_bilstm_content raising NotImplementedError that names item
+     5c's training part; then (12 c) bf16 training (bf16_train_phase):
+     the bf16 entries of K6 and K5 at B = 16 and 128, L = 144, T = 56 on
+     the recipe's weights in bf16, against their exact twins
+     (BF16_ULPS), the plain bf16 versions by the ground-truth rule and
+     twice with the same bits, with their device times beside the
+     float32 kernels' and their bounds; the flagship's bf16 train step
+     at B = 16 and 128 launching only the bf16 entries of K1, K6, K4 and
+     K5, its loss within 1e-3 of the CPU's bf16 step on the same batch,
+     each gradient leaf by the ground-truth rule against the card's
+     float32 step (the CPU's bf16 gradient the reference), the same bits
+     under either value of allow_bf16_reduced_precision_reduction, the
+     loss falling over 10 steps, and its p50, audio s/s and idle share;
+     one Trainer.fit epoch of chorowski_dropout in bf16 and one in
+     float32, each from params.npz on the host-built split with the same
+     batches and masks, the bf16 held-out beam PER within 0.01 of the
+     float32 one's; VGG's bf16 step at B = 16 (phase 13's lengths)
+     against its float32 step by the ground-truth rule (the CPU's bf16
+     step the reference), loss within 1e-3 of the CPU's;
  13. the LibriSpeech recipes at full width, TF32 off: (a) K2 with the
      vocabulary spread over its cluster at V = 34,000 (the word recipe's
      train-clean-100 vocabulary), K = 5 and 8, B = 16, L = 1,094 (35 s)
@@ -3019,6 +3039,41 @@ BF16_ULPS = {"bigru_scan2_bf16": 2, "attention_decode_scan_fwd_bf16": 32,
 # its first rounding point, on bf16 inputs).
 BF16_ROUNDED_SHARE = 0.75
 BF16_ROUNDED_MIN = 0.01
+# Phase 12 (c): bf16 training of the flagship and of VGG through the bf16
+# entries of K6 and K5 (BF16_TRAIN_OF), with K1's and K4's (K4's writing
+# the float32 alpha and c the backward reads). The two entries are held to
+# their exact twins (K6's: bigru_scan2_bwd_plain_bf16, which rounds where
+# the entry rounds; K5's: attention_decode_scan_bwd_twin_bf16, the plain
+# bf16 version with the softmax's sum formed as the entry forms it) within
+# BF16_ULPS, and to the plain bf16 versions at the JAX kernels' rounding
+# points by the ground-truth rule, at B = 16 and 128, L = 144, T = 56.
+# Their BF16_ULPS are K4's (32): each walks a recurrence whose carry takes
+# an operand that another summation order may round the other way, over
+# 144 (K6) or 56 (K5) steps, as K4's forward does over 56.
+BF16_TRAIN_OF = {"bigru_scan2_bwd_bf16": "bigru_scan2_bwd",
+                 "attention_decode_scan_bwd_bf16": "attention_decode_scan_bwd"}
+BF16_SYMBOLS.update({
+    "bigru_scan2_bwd_bf16": ("bigru_scan2_bwd_bf16_kernel",) + GRU_GATES + ("atb_kernel",),
+    "attention_decode_scan_bwd_bf16": ("content_gru_walk_bf16_kernel",)
+    + ("gru_decoder_prepass_bf16_kernel",) * 4 + ("atb_kernel",) * 2
+    + ("round_to_bf16_kernel",) * 2})
+F32_SYMBOLS.update({
+    "bigru_scan2_bwd_bf16": ("bigru_scan2_bwd_kernel",) + GRU_GATES + ("atb_kernel",),
+    "attention_decode_scan_bwd_bf16": ("content_gru_walk_kernel",) + GRU_PREPASS
+    + ("atb_kernel",) * 2})
+BF16_ULPS.update({"bigru_scan2_bwd_bf16": 32, "attention_decode_scan_bwd_bf16": 32})
+# The bf16 flagship train step's launches: the bf16 entries of K1, K6, K4
+# and K5, nothing else; VGG's: K4's and K5's.
+BF16_STEP_LAUNCHES = {"bigru_scan2_bf16": 3, "bigru_scan2_bwd_bf16": 3,
+                      "attention_decode_scan_fwd_bf16": 1, "attention_decode_scan_bwd_bf16": 1}
+BF16_VGG_LAUNCHES = {"attention_decode_scan_fwd_bf16": 1, "attention_decode_scan_bwd_bf16": 1}
+BF16_STEP_KERNELS = ("bigru_scan2_bwd_bf16_kernel", "gru_gates_kernel", "bigru_scan2_bf16_kernel",
+                     "gru_fwd_prepass_bf16_kernel", "content_gru_fwd_bf16_kernel",
+                     "gru_decoder_prepass_bf16_kernel", "content_gru_walk_bf16_kernel",
+                     "round_to_bf16_kernel", "atb_kernel")
+BF16_STEP_RTOL = 1e-3  # the card's bf16 step's loss against the CPU's on the same batch
+BF16_FIT_PER_TOL = 0.01  # the bf16 epoch's held-out PER against the float32 epoch's
+BF16_FIT_SEED = 3
 
 
 def rel_dist(got, truth) -> float:
@@ -3156,6 +3211,15 @@ def bf16_calls(name):
 
     if name == "bigru_scan2_bf16":
         return gru_scan.bigru_scan2, gru_scan.bigru_scan2_plain, gru_scan.bigru_scan2_plain
+    if name == "bigru_scan2_bwd_bf16":  # its plain bf16 version is its exact twin
+        return (gru_scan.bigru_scan2_bwd, gru_scan.bigru_scan2_bwd_plain,
+                gru_scan.bigru_scan2_bwd_plain)
+    if name == "attention_decode_scan_bwd_bf16":  # its last argument is c32
+        return (lambda *a: attention_scan.attention_decode_scan_bwd(*a[:-1], c32=a[-1]),
+                attention_scan.attention_decode_scan_bwd_twin_bf16,
+                lambda *a: (attention_scan.attention_decode_scan_bwd_plain_bf16
+                            if a[0].dtype == torch.bfloat16 else
+                            attention_scan.attention_decode_scan_bwd_plain)(*a[:-1]))
     if name == "bilstm_scan_bf16":
         return lstm_scan.bilstm_scan, lstm_scan.bilstm_scan_plain, lstm_scan.bilstm_scan_plain
     if name == "attention_decode_scan_fwd_bf16":
@@ -3183,7 +3247,7 @@ def upcast(args):
 
 def f32_kernel_of(name: str) -> str:
     """The float32 kernel a bf16 entry is an instance of."""
-    return BF16_OF.get(name) or BF16_MODEL_OF[name]
+    return BF16_OF.get(name) or BF16_TRAIN_OF.get(name) or BF16_MODEL_OF[name]
 
 
 def bf16_parity_rows(cases_, card: str) -> dict:
@@ -3277,9 +3341,9 @@ def bf16_phase(kernels, card: str) -> list:
     its held-out beam PER within HELD_OUT_PER_BF16_TOL of the port's CPU
     value and within HELD_OUT_PER_BF16_F32_TOL of the float32 PER; (c) each
     entry's device time beside its float32 kernel's on the upcast inputs,
-    and one B = 32 evaluation batch in bf16 beside float32; (d) a bf16
-    train step raising NotImplementedError. Returns the bf16 entries'
-    {"kernels"} rows."""
+    and one B = 32 evaluation batch in bf16 beside float32 (its bf16
+    training is phase 12 (c)'s). Returns the bf16 entries' {"kernels"}
+    rows."""
     from seq2seq_attention_asr_tpu_torch.models import chorowski, registry
     from seq2seq_attention_asr_tpu_torch.train import checkpoint, experiment, optim, trainer
 
@@ -3335,18 +3399,6 @@ def bf16_phase(kernels, card: str) -> list:
         eval_batch_ms(tr32, params, batch, card, "float32")
         eval_batch_ms(tr16, params, batch, card, "bf16")
 
-    # (d) a bf16 train step raises.
-    ocfg = optim.OptimConfig()
-    tx = optim.build_optimizer(ocfg)
-    step = trainer.make_step_core(model16.forward, tx, ocfg, tcfg, model16.output_depth)
-    arrs = tuple(a[:2] for a in tr16._prepare_batch(batch)[0])
-    try:
-        step((params, tx.init(params), torch.Generator(device="cuda").manual_seed(1)), arrs)
-    except NotImplementedError as e:
-        print(f"bf16 train step on the card: NotImplementedError ({e})")
-    else:
-        raise SystemExit("a bf16 train step ran: it must raise until K5 and K6 have bf16 "
-                         "instances")
     print(f"bf16 phase: {time.perf_counter() - t0:.1f} s wall ({card})")
     return bf16_kernel_rows(rows)
 
@@ -4025,8 +4077,9 @@ def bf16_models_phase(kernels, card: str) -> list:
     beam's steps call for, with PER within BF16_EVAL_PER_TOL and NLL
     within BF16_EVAL_NLL_RTOL of the CPU's; (c) each entry's device time
     beside its float32 kernel's on the upcast inputs; (d) a bf16 train
-    step of each raising NotImplementedError. Returns the five entries'
-    {"kernels"} rows."""
+    step of conv_bilstm, flagship_loc and conv_bilstm_content raising
+    NotImplementedError that names item 5c's training part (VGG's trains:
+    phase 12 (c)). Returns the five entries' {"kernels"} rows."""
     from seq2seq_attention_asr_tpu_torch import interop
     from seq2seq_attention_asr_tpu_torch.train import optim, trainer
 
@@ -4090,7 +4143,10 @@ def bf16_models_phase(kernels, card: str) -> list:
         if not (dper <= BF16_EVAL_PER_TOL and dnll <= BF16_EVAL_NLL_RTOL):
             raise SystemExit(f"{label}: the card's bf16 evaluation is not the CPU's")
 
-        # (d) a bf16 train step raises where it reaches a backward kernel.
+        # (d) a bf16 train step raises where it reaches a backward kernel
+        # without a bf16 entry.
+        if label == "vgg":
+            continue
         ocfg = optim.OptimConfig()
         tx = optim.build_optimizer(ocfg)
         step = trainer.make_step_core(model.forward, tx, ocfg, tcfg, model.output_depth)
@@ -4100,9 +4156,304 @@ def bf16_models_phase(kernels, card: str) -> list:
             step((params, tx.init(params), torch.Generator(device="cuda").manual_seed(1)), arrs)
         except NotImplementedError as e:
             print(f"{label} bf16 train step on the card: NotImplementedError ({e})")
+            if "5c, training part" not in str(e):
+                raise SystemExit(f"{label}: the refusal does not name item 5c's training part")
         else:
             raise SystemExit(f"a {label} bf16 train step ran: it must raise")
     print(f"bf16 models phase: {time.perf_counter() - t0:.1f} s wall ({card})")
+    return bf16_kernel_rows(rows)
+
+
+def bf16_train_cases(p16, cfg, gen):
+    """The inputs of K6's and K5's bf16 entries as the bf16 flagship's
+    train step gives them, on the card: {name: [(tag, args, flops,
+    nbytes, None)]} at B = TRAIN_B and BIG_B, L = TRAIN_L, T = TRAIN_T,
+    from the recipe's weights in bf16 (p16): K6 on the first encoder
+    layer (its projections, K1's bf16 outputs and a random cotangent zero
+    on the padding), K5 on the encoder's output (K4's bf16 outputs with
+    its float32 alpha and c, random cotangents); K5's last argument is
+    c32. No PyTorch call computes either function (library null)."""
+    from seq2seq_attention_asr_tpu_torch.models import chorowski
+    from seq2seq_attention_asr_tpu_torch.ops import attention, cells, readout
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan, gru_scan
+    from seq2seq_attention_asr_tpu_torch.ops.masking import length_mask
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    enc, dec = p16["encoder"]["bigru1"], p16["decoder"]
+    hd = enc["fwd"]["w_zr"].shape[1] // 2
+    wzr2 = torch.stack([enc["fwd"]["w_zr"][:hd], enc["bwd"]["w_zr"][:hd]]).contiguous()
+    wh2 = torch.stack([enc["fwd"]["w_h"][:hd], enc["bwd"]["w_h"][:hd]]).contiguous()
+    weights = (dec["ws"]["w"], dec["ws"]["b"], dec["w_e"], dec["c_in"]["w"], dec["c_in"]["b"],
+               dec["dec_in"]["w"], dec["dec_in"]["b"], dec["cell"]["w_zr"], dec["cell"]["w_h"])
+    acfg = cfg.attention_config()
+    a, s_dim, st, v = acfg.annotation_depth, acfg.score_depth, acfg.state_depth, acfg.output_depth
+    w_elems = sum(t.numel() for t in weights)
+    rnd = lambda *shape: (torch.randn(*shape, generator=gen) * 0.1).to(dev)
+    out = {name: [] for name in BF16_TRAIN_OF}
+    for b in (TRAIN_B, BIG_B):
+        x, x_len, y, dec_mask = (t.to(dev) for t in train_batch(b, SEED + 7))
+        l, t_len = x.shape[1], y.shape[1]
+        tag = f"B={b} L={l} T={t_len}"
+        mask = length_mask(x_len, l, bf)
+        x16 = (x * mask[:, :, None].float()).to(bf)
+        with torch.no_grad():
+            xf = cells.gru_input_proj(enc["fwd"], x16).contiguous()
+            xb = cells.gru_input_proj(enc["bwd"], x16).contiguous()
+            ysf, ysb = gru_scan.bigru_scan2(xf, xb, wzr2, wh2)
+        valid = mask[:, :, None]
+        dys = [(rnd(b, l, hd) * valid.float()).to(bf) for _ in range(2)]
+        # Per direction and (row, step): the six products (zr, c, drh, the
+        # carry's, dWzr, dWh: 9 H^2 multiply-adds) and ~30 H elementwise.
+        out["bigru_scan2_bwd_bf16"].append((
+            tag, (xf, xb, wzr2, wh2, ysf, ysb, *dys), 2 * b * l * (18 * hd * hd + 30 * hd),
+            2 * (2 * (2 * b * l * 3 * hd + 2 * b * l * hd) + 2 * 2 * 3 * hd * hd), None))
+        with torch.no_grad():
+            h = chorowski.encode(p16, cfg, x16, x_len).contiguous()
+            vh = attention.precompute_vh(dec, h).contiguous()
+            onehot = torch.nn.functional.one_hot(y.long(), v).to(bf) * dec_mask[..., None].to(bf)
+            y_prev = torch.cat([torch.zeros_like(onehot[:, :1]), onehot[:, :-1]], dim=1)
+            yin = readout.linear_apply(dec["y_in"], y_prev).contiguous()
+            (s_seq, c_seq, _), (alpha32, c32) = attention_scan.attention_decode_scan_train(
+                vh, h, mask, yin, *weights)
+        cots = [rnd(b, t_len, n).to(bf) for n in (st, a, l)]
+        steps = b * t_len
+        # A (row, step): the recompute's and the backward's products and the
+        # weight gradients' (3 St S + 3 A St + 26 St^2 multiply-adds), the
+        # context's dalpha and dh (2 L A) and the energies (~5 L S).
+        out["attention_decode_scan_bwd_bf16"].append((
+            tag, (vh, h, mask, yin, *weights, s_seq, c_seq, alpha32, *cots, c32),
+            steps * (2 * (3 * st * s_dim + 3 * a * st + 26 * st * st + 2 * l * a) + 5 * l * s_dim),
+            2 * (2 * b * l * (s_dim + a) + b * l + 2 * steps * st + 2 * w_elems
+                 + steps * (2 * st + 2 * a + l)) + 4 * steps * (l + a), None))
+    return out
+
+
+def grads_of_step(model, params, batch, tcfg, ocfg, seed: int):
+    """(the metrics, the gradients the optimizer receives) of one train step
+    of `model` from `params`: a transform that records them (as its state)
+    and updates nothing stands in for the optimizer."""
+    from seq2seq_attention_asr_tpu_torch import tree
+    from seq2seq_attention_asr_tpu_torch.train import optim, trainer
+
+    tx = optim.Transform(lambda p: tree.tree_map(torch.zeros_like, p),
+                         lambda g, s, p=None: (tree.tree_map(torch.zeros_like, g), g))
+    step = trainer.make_step_core(model.forward, tx, ocfg, tcfg, model.output_depth)
+    dev = next(iter(tree.leaves(params))).device
+    state, m = step((params, tx.init(params), torch.Generator(device=dev).manual_seed(seed)),
+                    batch)
+    return {k: float(v) for k, v in m.items()}, state[1]
+
+
+def ground_truth_leaves(label, got, ref, truth) -> float:
+    """Each leaf of the card's bf16 gradient `got`: finite, float32 (the
+    masters'), and within the ground-truth rule of the float32 gradient
+    `truth` against the reference bf16 gradient `ref` (rel L2 <= 2 x ref's
+    + 0.02). Returns the largest rel L2 of got. Exits on a failure."""
+    from seq2seq_attention_asr_tpu_torch import tree
+
+    worst = (0.0, 0.0, "")
+    for i, (g, r, t) in enumerate(zip(tree.leaves(got), tree.leaves(ref), tree.leaves(truth))):
+        kd, rd = rel_dist(g, t), rel_dist(r.to(g.device), t)
+        worst = max(worst, (kd, rd, str(i)))
+        if g.dtype != torch.float32 or not bool(torch.isfinite(g).all()):
+            raise SystemExit(f"{label}: gradient leaf {i} is not a finite float32 gradient")
+        if not kd <= 2.0 * rd + 0.02:
+            raise SystemExit(f"{label}: gradient leaf {i} fails the ground-truth rule: card bf16 "
+                             f"{kd:.3e}, reference bf16 {rd:.3e} from the float32 gradient")
+    print(f"{label}: every one of {len(tree.leaves(got))} gradient leaves within the ground-truth "
+          f"rule of the float32 step's (largest rel L2: card bf16 {worst[0]:.3e}, reference bf16 "
+          f"{worst[1]:.3e}, leaf {worst[2]})")
+    return worst[0]
+
+
+def bf16_flagship_steps(kernels, train_params, card: str) -> dict:
+    """Phase 12 (c), the flagship's bf16 train step (the recipe
+    timit_chorowski_normnll_colnorm, its orthogonal init from the seed) at
+    B = TRAIN_B and BIG_B: its launches (BF16_STEP_LAUNCHES, nothing else);
+    its loss within BF16_STEP_RTOL of the CPU's bf16 step on the same
+    batch; each gradient leaf by the ground-truth rule against the card's
+    float32 step, the CPU's bf16 gradient the reference; under either
+    value of allow_bf16_reduced_precision_reduction the same bits, the
+    flag restored; the loss falling over 10 optimizer steps; p50, audio
+    s/s and the idle share (train_timing). Returns the launches of one
+    step at TRAIN_B."""
+    from seq2seq_attention_asr_tpu_torch import interop, tree
+    from seq2seq_attention_asr_tpu_torch.train import experiment
+
+    def recipe16():
+        exp = experiment.timit_chorowski_normnll_colnorm()
+        exp.model_kwargs["compute_dtype"] = "bfloat16"
+        return exp
+
+    exp16, exp32 = recipe16(), experiment.timit_chorowski_normnll_colnorm()
+    m16, m32 = exp16.build_model(), exp32.build_model()
+    params = interop.to_torch(train_params, "cuda")
+    matmul = torch.backends.cuda.matmul
+    launches = None
+    for b in (TRAIN_B, BIG_B):
+        batch = tuple(t.cuda() for t in train_batch(b, SEED + 3))
+        runs = {}
+        for flag in (True, False):
+            before = matmul.allow_bf16_reduced_precision_reduction
+            matmul.allow_bf16_reduced_precision_reduction = flag
+            try:
+                runs[flag], counts = counted(kernels, lambda: grads_of_step(
+                    m16, params, batch, exp16.train, exp16.optim, SEED))
+                after = matmul.allow_bf16_reduced_precision_reduction
+            finally:
+                matmul.allow_bf16_reduced_precision_reduction = before
+            print(f"bf16 flagship step B={b} (allow_bf16_reduced_precision_reduction {flag}, "
+                  f"{after} after): loss {runs[flag][0]['loss']!r}, grad_norm "
+                  f"{runs[flag][0]['grad_norm']!r}; launches {counts}")
+            check_counts(f"bf16 flagship step B={b}", counts, tuple(BF16_STEP_LAUNCHES),
+                         BF16_STEP_LAUNCHES)
+            if after != flag:
+                raise SystemExit("the bf16 step did not restore the caller's flag")
+            launches = launches or counts
+        same = runs[True][0] == runs[False][0] and all(torch.equal(x, y) for x, y in zip(
+            tree.leaves(runs[True][1]), tree.leaves(runs[False][1])))
+        print(f"bf16 flagship step B={b}: the same bits under either flag: {same}")
+        if not same:
+            raise SystemExit("the bf16 step's gradient depends on PyTorch's reduced-precision "
+                             "flag: its products do not all sum in float32")
+        metrics, grads = runs[False]
+        t0 = time.perf_counter()
+        cpu_metrics, cpu_grads = grads_of_step(m16, interop.to_torch(train_params, "cpu"),
+                                               tuple(t.cpu() for t in batch), exp16.train,
+                                               exp16.optim, SEED)
+        cpu_s = time.perf_counter() - t0
+        f32_metrics, truth = grads_of_step(m32, params, batch, exp32.train, exp32.optim, SEED)
+        rel = abs(metrics["loss"] - cpu_metrics["loss"]) / abs(cpu_metrics["loss"])
+        print(f"bf16 flagship step B={b}: loss card {metrics['loss']!r}, CPU (plain bf16 "
+              f"versions) {cpu_metrics['loss']!r}, relative {rel:.2e} (tol {BF16_STEP_RTOL}; the "
+              f"CPU step took {cpu_s:.1f} s); the float32 step's loss on the card "
+              f"{f32_metrics['loss']!r}")
+        if not rel <= BF16_STEP_RTOL:
+            raise SystemExit(f"bf16 flagship step B={b}: the card's loss is not the CPU's")
+        ground_truth_leaves(f"bf16 flagship step B={b}", grads, cpu_grads, truth)
+    # 10 optimizer steps on one batch: the loss falls.
+    state, step_fn = make_trainer(recipe16, train_params, "cuda")
+    batch = tuple(t.cuda() for t in train_batch(TRAIN_B, SEED + 3))
+    losses = []
+    for _ in range(10):
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+    print(f"bf16 flagship: loss over 10 card steps on one batch {[round(v, 6) for v in losses]}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise SystemExit("bf16 flagship: the loss did not fall")
+    for b in (TRAIN_B, BIG_B):
+        train_timing(recipe16, train_params, b, card, BF16_STEP_KERNELS, "chorowski bf16")
+    return launches
+
+
+def bf16_fit_phase(kernels, card: str) -> dict:
+    """Phase 12 (c), one Trainer.fit epoch of the chorowski_dropout recipe
+    in bf16 and in float32, each restarted from params.npz, on the
+    host-built held-out split (batch 32 over 3 buckets, as phase 10), the
+    same batches and the same dropout masks (one generator seed): each
+    epoch's held-out beam PER, the bf16 one within BF16_FIT_PER_TOL of
+    the float32 one; the bf16 epoch launching the bf16 entries only.
+    Returns its launches."""
+    import tempfile
+
+    from seq2seq_attention_asr_tpu_torch.train import checkpoint, experiment, trainer
+
+    train, valid, batcher, vocab = held_out_split("cuda")
+    rows, launched = {}, None
+    for dt in ("float32", "bfloat16"):
+        params = checkpoint.load_params_npz(str(HELD_OUT_NPZ), "cuda")
+        exp = experiment.timit_chorowski_dropout()
+        exp.model_kwargs["compute_dtype"] = dt
+        tcfg = dataclasses.replace(exp.train, num_epochs=1, batch_size=HELD_OUT["batch"],
+                                   beam_k=BEAM_K, seed=BF16_FIT_SEED)
+        with tempfile.TemporaryDirectory() as save_dir:
+            tr = trainer.Trainer(exp.build_model(), exp.optim, tcfg, vocab=vocab,
+                                 save_dir=save_dir, device="cuda")
+            tr.init(params)
+            t0 = time.perf_counter()
+            (row,), counts = counted(kernels, lambda: list(tr.fit(train, valid, batcher)))
+        rows[dt] = row
+        print(f"bf16 fit: one {dt} epoch of chorowski_dropout from params.npz ({len(train)} "
+              f"utterances, batch {HELD_OUT['batch']}, seed {BF16_FIT_SEED}): "
+              f"{time.perf_counter() - t0:.1f} s wall with the evaluation; train_nll "
+              f"{row['train_nll']!r}, train_loss {row['train_loss']!r}, grad_norm "
+              f"{row['grad_norm']!r}, held-out beam PER {row['valid_per']!r}, valid_nll "
+              f"{row['valid_nll']!r}, train_seconds {row['train_seconds']:.2f}, valid_seconds "
+              f"{row['valid_seconds']:.2f}; launches {counts} ({card})")
+        if dt == "bfloat16":
+            check_counts("bf16 fit", counts,
+                         tuple(BF16_STEP_LAUNCHES) + ("fused_attention_step_bf16",))
+            launched = counts
+    gap = abs(rows["bfloat16"]["valid_per"] - rows["float32"]["valid_per"])
+    print(f"bf16 fit: held-out PER bf16 {rows['bfloat16']['valid_per']!r}, float32 "
+          f"{rows['float32']['valid_per']!r}, gap {gap:.4f} (tol {BF16_FIT_PER_TOL})")
+    if not (np.isfinite(rows["bfloat16"]["train_nll"]) and gap <= BF16_FIT_PER_TOL):
+        raise SystemExit("bf16 fit: the bf16 epoch's held-out PER is not the float32 one's")
+    return launched
+
+
+def bf16_vgg_step(kernels, card: str) -> None:
+    """Phase 12 (c), VGG's bf16 train step (librispeech_vgg, orthogonal init
+    from the seed) at B = LS_B on a phase-13 batch (lengths ragged in
+    375-1,094 frames, labels in 180-512 characters): K4's and K5's bf16
+    entries only, and each gradient leaf by the ground-truth rule against
+    the card's float32 step, with the CPU's bf16 step on the same batch as
+    the reference; the loss within BF16_STEP_RTOL of the CPU's."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.train import experiment
+
+    exps = {dt: experiment.librispeech_vgg(LS_CHARS) for dt in ("float32", "bfloat16")}
+    exps["bfloat16"].model_kwargs["compute_dtype"] = "bfloat16"
+    params_cpu = exps["float32"].init_params(torch.Generator().manual_seed(SEED), device="cpu")
+    batch = ls_batch(LS_B, LS_L, LS_T, LS_CHARS, SEED + 13, True)
+    out = {}
+    for dt, exp in exps.items():
+        model = exp.build_model()
+        for dev in ("cuda", "cpu") if dt == "bfloat16" else ("cuda",):
+            t0 = time.perf_counter()
+            (m, g), counts = counted(kernels, lambda: grads_of_step(
+                model, interop.to_torch(params_cpu, dev), tuple(t.to(dev) for t in batch),
+                exp.train, exp.optim, SEED))
+            out[(dt, dev)] = (m, g)
+            print(f"bf16 vgg step ({dt} on {dev}, B={LS_B}, L={LS_L}, T={LS_T}): loss "
+                  f"{m['loss']!r}, grad_norm {m['grad_norm']!r}, {time.perf_counter() - t0:.1f} s "
+                  f"wall; launches {counts}")
+            if dt == "bfloat16" and dev == "cuda":
+                check_counts("bf16 vgg step", counts, tuple(BF16_VGG_LAUNCHES), BF16_VGG_LAUNCHES)
+    (card_m, card_g), (cpu_m, cpu_g) = out[("bfloat16", "cuda")], out[("bfloat16", "cpu")]
+    rel = abs(card_m["loss"] - cpu_m["loss"]) / abs(cpu_m["loss"])
+    print(f"bf16 vgg step: loss card {card_m['loss']!r}, CPU {cpu_m['loss']!r}, relative "
+          f"{rel:.2e} (tol {BF16_STEP_RTOL}); float32 on the card "
+          f"{out[('float32', 'cuda')][0]['loss']!r}")
+    if not rel <= BF16_STEP_RTOL:
+        raise SystemExit("bf16 vgg step: the card's loss is not the CPU's")
+    ground_truth_leaves("bf16 vgg step", card_g, cpu_g, out[("float32", "cuda")][1])
+
+
+def bf16_train_phase(kernels, train_params, card: str) -> list:
+    """Phase 12 (c): bf16 training. (a) K6's and K5's bf16 entries against
+    their exact twins and the plain bf16 versions (bf16_parity_rows) at
+    bf16_train_cases' shapes, twice with the same bits, with their device
+    times beside the float32 kernels' and their bounds; (b) the flagship's
+    bf16 step (bf16_flagship_steps); (c) a bf16 and a float32 epoch
+    (bf16_fit_phase); (d) VGG's bf16 step (bf16_vgg_step). Returns the two
+    entries' {"kernels"} rows, their launches the flagship step's."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.models import chorowski
+    from seq2seq_attention_asr_tpu_torch.train import experiment
+
+    t0 = time.perf_counter()
+    exp = experiment.timit_chorowski_normnll_colnorm()
+    p16 = chorowski.cast_float32(interop.to_torch(train_params, "cuda"), torch.bfloat16)
+    cases_ = bf16_train_cases(p16, exp.build_model().cfg, torch.Generator().manual_seed(SEED + 28))
+    rows = bf16_parity_rows(cases_, card)
+    del cases_
+    launches = bf16_flagship_steps(kernels, train_params, card)
+    for name in rows:
+        rows[name]["launches"] = launches[name]
+    bf16_fit_phase(kernels, card)
+    bf16_vgg_step(kernels, card)
+    print(f"bf16 train phase: {time.perf_counter() - t0:.1f} s wall ({card})")
     return bf16_kernel_rows(rows)
 
 
@@ -4309,7 +4660,8 @@ def main(parent=None) -> int:
                                    lstm_scan.KERNEL_BF16, attention_scan.KERNEL_LOC_LSTM_FWD_BF16,
                                    attention_scan.KERNEL_LOC_FWD_BF16,
                                    attention_scan.KERNEL_LSTM_FWD_BF16,
-                                   attention_step.KERNEL_LOC_LSTM_BF16)}
+                                   attention_step.KERNEL_LOC_LSTM_BF16,
+                                   gru_scan.KERNEL_BWD_BF16, attention_scan.KERNEL_BWD_BF16)}
     started = t0 = time.perf_counter()
     build.build_all(kernels.values())
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(kernels)} kernels")
@@ -4589,6 +4941,8 @@ def main(parent=None) -> int:
     # Phase 12: the bf16 operating point of the flagship's evaluation path,
     # then (b) of conv_bilstm's, flagship_loc's, vgg's and conv_bilstm_content's.
     bf16_rows = bf16_phase(kernels, card) + bf16_models_phase(kernels, card)
+    # (c) bf16 training of the flagship and of VGG (K5's and K6's bf16 entries).
+    bf16_rows += bf16_train_phase(kernels, train_params, card)
 
     # Phase 13: the LibriSpeech recipes, and K2 at a word vocabulary.
     words_row = librispeech_phase(kernels, errs, card)
@@ -4600,7 +4954,7 @@ def main(parent=None) -> int:
     # from phase 12.
     report = []
     for name in kernels:
-        if name in BF16_OF or name in BF16_MODEL_OF:
+        if name in BF16_OF or name in BF16_MODEL_OF or name in BF16_TRAIN_OF:
             continue
         label = MAIN_LABEL.get(name, name)
         key = next(k for k in (1, "train", "cbtrain", "loctrain", "cbctrain", "enc")

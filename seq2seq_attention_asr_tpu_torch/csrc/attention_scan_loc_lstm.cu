@@ -17,7 +17,10 @@
 //                     entry points attention_decode_scan_{fwd,bwd}; K4's bf16
 //                     entry attention_decode_scan_fwd_bf16 (gru_fwd_prepass_bf16_kernel,
 //                     content_gru_fwd_bf16_kernel<R>); decoder_fwd_walk says
-//                     where the bf16 entries round
+//                     where the bf16 entries round; K5's bf16 entry
+//                     attention_decode_scan_bwd_bf16 (gru_decoder_prepass_bf16_kernel,
+//                     content_gru_walk_bf16_kernel<R>, round_to_bf16_kernel);
+//                     decoder_walk says where it rounds
 //
 // The four forwards share a pre-pass (fwd_prepass<kLstm, kStage>) and a
 // forward walk on a thread-block cluster (decoder_fwd_walk<R, kLstm,
@@ -166,11 +169,11 @@
 // memory: five a step for the LSTM, six for the GRU, whose reset gate's
 // cotangent needs w_h^T's output before w_zr^T can start.
 //
-// The source builds four libraries (ops/cuda/attention_scan.py), so that
+// The source builds five libraries (ops/cuda/attention_scan.py), so that
 // nvcc compiles the walks' instances in processes of their own, side by
 // side: K10's and K14's with LSTM_FWD_ONLY defined, K12's and K4's with
-// GRU_FWD_ONLY, K5's alone with CONTENT_GRU_BWD_ONLY, and K11's, K13's and
-// K15's.
+// GRU_FWD_ONLY, K5's alone with CONTENT_GRU_BWD_ONLY, K5's bf16 entry
+// with CONTENT_GRU_BWD_BF16, and K11's, K13's and K15's.
 
 #include "common.cuh"
 #include "cluster_walk.cuh"
@@ -262,15 +265,27 @@ Stash carve_stash(float* p, const Dims& d, int partials) {
   return s;
 }
 
-struct BwdArgs {
-  const float *vh, *h, *mask, *yin;
-  Weights w;
-  const float *s_seq, *c_seq, *alpha_seq, *mem_seq;       // mem_seq: LSTM only
-  const float *ds_seq, *dc_seq, *dalpha_seq, *dmem_seq;  // each may be null: zeros
-  float *dvh, *dh, *dyin;
+// T is the IO type of the inputs, dyin and the weight gradients: float,
+// or bf16 for K5's bf16 entry, whose alpha is the forward's float32 alpha
+// and whose dvh and dh are float32 sums that the entry rounds at the end.
+template <class T>
+struct BwdArgsT {
+  const T *vh, *h, *mask, *yin;
+  WeightsT<T> w;
+  const T *s_seq, *c_seq;
+  const float* alpha_seq;
+  const T* mem_seq;                                  // LSTM only
+  const T *ds_seq, *dc_seq, *dalpha_seq, *dmem_seq;  // each may be null: zeros
+  float *dvh, *dh;
+  T* dyin;
   Stash st;
   Dims d;
+  // The context the softmax's sum reads (bf16: the forward's float32 c;
+  // c_seq is rounded): sum_l alpha dalpha = c . dc + sum_l alpha
+  // (dalpha_seq + carry) holds for the float32 c only.
+  const float* c_dot = nullptr;
 };
+using BwdArgs = BwdArgsT<float>;
 
 // Positions (the energies pass) and score units (the dfeat pass) whose
 // global loads a thread issues together, ahead of the arithmetic that
@@ -583,9 +598,9 @@ struct WalkCtx {
 // q by asynchronous copies (zeros for absent cotangents, rows past B and
 // alpha_prev outside [0, L) or at t = 0). The cell's: the LSTM's gate
 // pre-activations and mem_prev, or the GRU's gates, candidate and s_prev.
-template <int R, bool kLstm, bool kLoc>
-__device__ __forceinline__ void stage_step(const BwdArgs& a, const WalkCtx& c, const Staged& q,
-                                           int t) {
+template <int R, bool kLstm, bool kLoc, class IO>
+__device__ __forceinline__ void stage_step(const BwdArgsT<IO>& a, const WalkCtx& c,
+                                           const Staged& q, int t) {
   const Dims& d = a.d;
   const int T = d.T, L = d.L, S = d.S, A = d.A, St = d.St, St2 = 2 * St, St4 = 4 * St;
   const size_t n0 = (size_t)c.b0 * T + t;  // (row b0, step t)
@@ -602,7 +617,7 @@ __device__ __forceinline__ void stage_step(const BwdArgs& a, const WalkCtx& c, c
     stage_async<R>(q.g + 2 * R * c.Stc, c.Stc, a.st.da_cand + n0 * St + un.lo, rs, un.n,
                    c.nrows, false);
   }
-  const float* prev = kLstm ? a.mem_seq : a.s_seq;
+  const IO* prev = kLstm ? a.mem_seq : a.s_seq;
   stage_async<R>(q.mp, c.Stc, t > 0 ? prev + (n0 - 1) * St + un.lo : nullptr, rs, un.n,
                  c.nrows, false);
   stage_async<R>(q.dsq, c.Stc, a.ds_seq ? a.ds_seq + n0 * St + un.lo : nullptr, rs, un.n,
@@ -616,7 +631,10 @@ __device__ __forceinline__ void stage_step(const BwdArgs& a, const WalkCtx& c, c
                  (size_t)T * L, pos.n, c.nrows, false);
   stage_async<R>(q.dcq, c.Ac, a.dc_seq ? a.dc_seq + n0 * A + ac.lo : nullptr, (size_t)T * A,
                  ac.n, c.nrows, false);
-  stage_async<R>(q.cq, c.Ac, a.c_seq + n0 * A + ac.lo, (size_t)T * A, ac.n, c.nrows, false);
+  if constexpr (kIsBf16<IO>)
+    stage_async<R>(q.cq, c.Ac, a.c_dot + n0 * A + ac.lo, (size_t)T * A, ac.n, c.nrows, false);
+  else
+    stage_async<R>(q.cq, c.Ac, a.c_seq + n0 * A + ac.lo, (size_t)T * A, ac.n, c.nrows, false);
   if (kLoc)
     for (int idx = threadIdx.x; idx < R * c.Pw; idx += kThreads) {
       const int r = idx / c.Pw, i = idx - r * c.Pw, p = pos.lo - c.pad + i;
@@ -640,8 +658,8 @@ __device__ __forceinline__ void stage_step(const BwdArgs& a, const WalkCtx& c, c
 // tools/scan_phases.py read its walk's step 25% shorter so (the
 // energies' cycles 58% fewer); K11's blocks hold 1 or 2 (L' = 16), where
 // the 32 registers cost more in the rest of its step than they save.
-template <int R, bool kLoc, bool kRegs>
-__device__ __forceinline__ void walk_energies(const BwdArgs& a, const WalkCtx& c,
+template <int R, bool kLoc, bool kRegs, class IO>
+__device__ __forceinline__ void walk_energies(const BwdArgsT<IO>& a, const WalkCtx& c,
                                            const WalkShared& sh, const Staged& q, bool last) {
   const int L = a.d.L, S = a.d.S, FM = a.d.FM, Pc = c.Pc, Sp = c.Sp;
   const Span& pos = c.pos;
@@ -665,7 +683,7 @@ __device__ __forceinline__ void walk_energies(const BwdArgs& a, const WalkCtx& c
 #pragma unroll
         for (int x = 0; x < kLocRows; ++x) {
           const size_t i = base + (size_t)(p0 + x) * S;
-          vv[x] = p0 + x < pos.n ? a.vh[i] : 0.f;
+          vv[x] = p0 + x < pos.n ? to_f(a.vh[i]) : 0.f;
           dv[x] = p0 + x < pos.n && !last ? a.dvh[i] : 0.f;
         }
 #pragma unroll
@@ -731,8 +749,8 @@ __device__ __forceinline__ void walk_energies(const BwdArgs& a, const WalkCtx& c
 
 // dfeat = dz U^T on the block's positions, a warp each, into the halo
 // buffer's rows of the block's own positions.
-template <int R>
-__device__ __forceinline__ void walk_dfeat(const BwdArgs& a, const WalkCtx& c,
+template <int R, class IO>
+__device__ __forceinline__ void walk_dfeat(const BwdArgsT<IO>& a, const WalkCtx& c,
                                            const WalkShared& sh) {
   const int L = a.d.L, S = a.d.S, FM = a.d.FM, n = c.pos.n;
   for (int pr = threadIdx.x >> 5; pr < c.nrows * n; pr += kWarps) {
@@ -755,8 +773,20 @@ __device__ __forceinline__ void walk_dfeat(const BwdArgs& a, const WalkCtx& c,
 // next phase as soon as it has seen one complete, and a bulk copy's
 // source is read before the block writes it again. Rows past B have zero
 // inputs, stay zero and write nothing.
-template <int R, bool kLstm, bool kLoc>
-__device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {
+//
+// With bf16 IO (K5's bf16 entry; the content-only GRU only), as _bwd_core
+// with bf16 inputs (attention_scan.py:419-576): the inputs and weights
+// load widened, and the cotangents that JAX reads only as the operands of
+// products are rounded to bf16 where they are formed: da_cand and
+// [da_z | da_r] (in the gathered rows and the stash), and dr, dcc and dws
+// in the gathered rows the products read, while the stash keeps dr, dcc
+// and dws in float32 for the bias sums (reduce_atb.cuh rounds them as
+// operands). alpha is the forward's float32 alpha, and the softmax's sum
+// reads the forward's float32 c (BwdArgsT::c_dot). dalpha, dh, de, dz,
+// dvh, the carries and dw_e stay float32.
+template <int R, bool kLstm, bool kLoc, class IO = float>
+__device__ __forceinline__ void decoder_walk(float* sm, const BwdArgsT<IO>& a) {
+  static_assert(!kIsBf16<IO> || (!kLstm && !kLoc), "the bf16 walk is the content-only GRU's");
   // The exchanges after the cell's: dr, dcc, dc (with the softmax's
   // shares), the dws partials (with the dfeat halo).
   constexpr int eDr = kLstm ? 1 : 2, eDcc = eDr + 1, eDc = eDr + 2, eDws = eDr + 3;
@@ -775,7 +805,7 @@ __device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {
   const WalkShared sh = carve_walk<kLstm, kLoc>(sm, d, C, R, &floats);
 
   for (int i = tid; i < S; i += kThreads) {
-    sh.we[i] = a.w.w_e[i];
+    sh.we[i] = to_f(a.w.w_e[i]);
     sh.we_acc[i] = 0.f;
   }
   for (int i = tid; i < C * R * Sp; i += kThreads) sh.dwsp[i] = 0.f;
@@ -786,11 +816,11 @@ __device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {
   for (int i = tid; i < R * Pc; i += kThreads) sh.dalc[i] = 0.f;
   if (kLoc) {
     for (int i = tid; i < FM * S; i += kThreads) {
-      sh.u[i] = a.w.u[i];
+      sh.u[i] = to_f(a.w.u[i]);
       sh.pu[i] = 0.f;
     }
-    for (int i = tid; i < F * FM; i += kThreads) sh.cw[i] = a.w.wconv[i];
-    for (int i = tid; i < FM; i += kThreads) sh.cb[i] = a.w.bconv[i];
+    for (int i = tid; i < F * FM; i += kThreads) sh.cw[i] = to_f(a.w.wconv[i]);
+    for (int i = tid; i < FM; i += kThreads) sh.cb[i] = to_f(a.w.bconv[i]);
     for (int i = tid; i < n_conv; i += kThreads) sh.pconv[i] = 0.f;
     // The halo's positions outside [0, L) stay 0.
     for (int i = tid; i < R * Pw * FM; i += kThreads) sh.dfh[i] = 0.f;
@@ -863,7 +893,7 @@ __device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {
       for (int idx = tid; idx < R * un.n; idx += kThreads) {
         const int r = idx / un.n, i = idx - r * un.n, o = r * Stc + i;
         const float zg = q.g[o], cv = q.g[2 * R * Stc + o];
-        const float dac = (q.dsq[o] + sh.carry_s[o]) * zg * (1.f - cv * cv);
+        const float dac = round_to<IO>((q.dsq[o] + sh.carry_s[o]) * zg * (1.f - cv * cv));
         sh.gdg[r * Stg + un.lo + i] = dac;
         if (r < nrows) a.st.da_cand[(n0 + (size_t)r * T) * St + un.lo + i] = dac;
       }
@@ -912,8 +942,8 @@ __device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {
         const int r = idx / un.n, i = idx - r * un.n, o = r * Stc + i;
         const float zg = q.g[o], rg = q.g[R * Stc + o], cv = q.g[2 * R * Stc + o];
         const float sv = q.mp[o], ds = q.dsq[o] + sh.carry_s[o];
-        const float dz = ds * (cv - sv) * zg * (1.f - zg);
-        const float drg = sh.dcs[o] * sv * rg * (1.f - rg);
+        const float dz = round_to<IO>(ds * (cv - sv) * zg * (1.f - zg));
+        const float drg = round_to<IO>(sh.dcs[o] * sv * rg * (1.f - rg));
         float* gd = sh.gdg + r * Stg + St + un.lo + i;
         gd[0] = dz;
         gd[St] = drg;
@@ -944,7 +974,7 @@ __device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {
                                [y = sh.gdr + un.lo, z = a.st.dr + n0 * St + un.lo, add = sh.dcr,
                                 St, Stc, rs, nrows](int i, int r, float v) {
                                  const float dr = add[r * Stc + i] + v;
-                                 y[r * St + i] = dr;
+                                 y[r * St + i] = round_to<IO>(dr);
                                  if (r < nrows) z[r * rs + i] = dr;
                                }, vec_zr);
       async_fence();
@@ -967,7 +997,7 @@ __device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {
     rows_dot<R, false, true>(a.w.dec_w + (size_t)un.lo * St, St, un.n, sh.gdr, St, St,
                              [y = sh.gdcc + un.lo, z = a.st.dcc + n0 * St + un.lo, St, rs,
                               nrows](int i, int r, float v) {
-                               y[r * St + i] = v;
+                               y[r * St + i] = round_to<IO>(v);
                                if (r < nrows) z[r * rs + i] = v;
                              }, vec_dec);
     async_fence();
@@ -975,7 +1005,7 @@ __device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {
     push<R>(sh.gdcc, St, un.lo, 1, 0, un.n, &sh.bars[eDcc], C, k, c.bulk);
     rows_dot<R, false, true>(a.w.dec_w + (size_t)(St + un.lo) * St, St, un.n, sh.gdr, St, St,
                              [z = a.dyin + n0 * St + un.lo, rs, nrows](int i, int r, float v) {
-                               if (r < nrows) z[r * rs + i] = v;
+                               if (r < nrows) st_f(z + r * rs + i, v);
                              }, vec_dec);
     walk_wait(&sh.bars[eDcc], s & 1);
     if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[eDcc], tx[eDcc]);
@@ -1013,7 +1043,7 @@ __device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {
     for (int pr = warp; pr < nrows * pos.n; pr += kWarps) {
       const int r = pr / pos.n, p = pr - r * pos.n;
       const size_t row = ((size_t)(b0 + r) * L + pos.lo + p) * A;
-      const float* hr = a.h + row;
+      const IO* hr = a.h + row;
       float* dhr = a.dh + row;
       const float* dc = sh.gdc + r * A;
       const float al = q.al[r * Pc + p];
@@ -1023,7 +1053,7 @@ __device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {
 #pragma unroll
         for (int x = 0; x < kWalkCols; ++x) {
           const int j = j0 + 32 * x;
-          hv[x] = j < A ? hr[j] : 0.f;
+          hv[x] = j < A ? to_f(hr[j]) : 0.f;
           o[x] = j < A && !last ? dhr[j] : 0.f;
         }
 #pragma unroll
@@ -1114,7 +1144,7 @@ __device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {
       const int r = idx / S, sc = idx - r * S;
       float v = 0.f;
       for (int j = 0; j < C; ++j) v += sh.dwsp[(j * R + r) * Sp + sc];
-      sh.dws[r * Sp + sc] = v;
+      sh.dws[r * Sp + sc] = round_to<IO>(v);  // the stash keeps it unrounded
       if (r < nrows && sc >= sp.lo && sc < sp.lo + sp.n)
         a.st.dws[(n0 + (size_t)r * T) * S + sc] = v;
     }
@@ -1173,6 +1203,13 @@ __global__ void __launch_bounds__(kThreads, 1) content_gru_walk_kernel(const Bwd
   decoder_walk<R, false, false>(sm, a);
 }
 
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+    content_gru_walk_bf16_kernel(const BwdArgsT<bf16> a) {
+  extern __shared__ __align__(16) float sm[];
+  decoder_walk<R, false, false, bf16>(sm, a);
+}
+
 // The recompute pre-pass over every (row, step) n, one 64 x 64 output
 // tile a block. Stage 0: cc = c @ c_w + c_b into rr[:, :St], yin into
 // rr[:, St:] (blockIdx.y below ceil(St / 64)), and ws = s_prev @ ws_w +
@@ -1185,16 +1222,18 @@ __global__ void __launch_bounds__(kThreads, 1) content_gru_walk_kernel(const Bwd
 // candidate tanh(cand_in @ w_h) into the da_cand rows. Each stage is a
 // launch of its own, after the one it reads, and an instance of its own
 // (tile_product's static shared memory, 17 KB a call site, stays under
-// 48 KB).
-template <bool kLstm, int kStage>
-__device__ __forceinline__ void decoder_prepass(const BwdArgs& a) {
+// 48 KB). With bf16 IO (K5's bf16 entry) the stash's product operands hold
+// the values JAX rounds: rr (cc rounded; yin is bf16), sr's and cand_in's
+// r and cand_in's rg s_prev; ws and the gates stay float32.
+template <bool kLstm, int kStage, class IO = float>
+__device__ __forceinline__ void decoder_prepass(const BwdArgsT<IO>& a) {
   const Dims& d = a.d;
-  const Weights& w = a.w;
+  const WeightsT<IO>& w = a.w;
   const Stash& st = a.st;
   const int St = d.St, St2 = 2 * St, St4 = 4 * St, S = d.S, A = d.A, T = d.T;
   const int rows = d.B * T, i0 = blockIdx.x * kTile, ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   auto sprev = [&](int n, int kk) -> float {
-    return n < rows && n % T > 0 ? a.s_seq[(size_t)(n - 1) * St + kk] : 0.f;
+    return n < rows && n % T > 0 ? to_f(a.s_seq[(size_t)(n - 1) * St + kk]) : 0.f;
   };
   // out(n, j) for the tile's rows n < rows and columns j < N.
   auto store = [&](const float (&acc)[4][4], int j0, int N, auto out) {
@@ -1211,31 +1250,34 @@ __device__ __forceinline__ void decoder_prepass(const BwdArgs& a) {
   if constexpr (kStage == 0) {
     if ((int)blockIdx.y < cc_tiles) {
       tile_product(
-          acc, [&](int n, int kk) { return n < rows ? a.c_seq[(size_t)n * A + kk] : 0.f; },
-          [&](int kk, int j) { return j < St ? w.c_w[(size_t)kk * St + j] : 0.f; }, i0, j0, A);
+          acc, [&](int n, int kk) { return n < rows ? to_f(a.c_seq[(size_t)n * A + kk]) : 0.f; },
+          [&](int kk, int j) { return j < St ? to_f(w.c_w[(size_t)kk * St + j]) : 0.f; }, i0, j0,
+          A);
       store(acc, j0, St, [&](int n, int j, float v) {
-        st.rr[(size_t)n * St2 + j] = v + w.c_b[j];
-        st.rr[(size_t)n * St2 + St + j] = a.yin[(size_t)n * St + j];
+        st.rr[(size_t)n * St2 + j] = round_to<IO>(v + to_f(w.c_b[j]));
+        st.rr[(size_t)n * St2 + St + j] = to_f(a.yin[(size_t)n * St + j]);
       });
     } else {
       const int js = j0 - cc_tiles * kTile;
       tile_product(acc, sprev,
-                   [&](int kk, int j) { return j < S ? w.ws_w[(size_t)kk * S + j] : 0.f; }, i0,
-                   js, St);
-      store(acc, js, S, [&](int n, int j, float v) { st.dws[(size_t)n * S + j] = v + w.ws_b[j]; });
+                   [&](int kk, int j) { return j < S ? to_f(w.ws_w[(size_t)kk * S + j]) : 0.f; },
+                   i0, js, St);
+      store(acc, js, S,
+            [&](int n, int j, float v) { st.dws[(size_t)n * S + j] = v + to_f(w.ws_b[j]); });
     }
   } else if constexpr (kStage == 1) {
     tile_product(
         acc, [&](int n, int kk) { return n < rows ? st.rr[(size_t)n * St2 + kk] : 0.f; },
-        [&](int kk, int j) { return j < St ? w.dec_w[(size_t)kk * St + j] : 0.f; }, i0, j0, St2);
+        [&](int kk, int j) { return j < St ? to_f(w.dec_w[(size_t)kk * St + j]) : 0.f; }, i0, j0,
+        St2);
     if constexpr (kLstm) {
       store(acc, j0, St,
-            [&](int n, int j, float v) { st.r[(size_t)n * St + j] = v + w.dec_b[j]; });
+            [&](int n, int j, float v) { st.r[(size_t)n * St + j] = v + to_f(w.dec_b[j]); });
     } else {
       store(acc, j0, St, [&](int n, int j, float v) {
         const size_t o = (size_t)n * St2 + j;
         st.sr[o] = sprev(n, j);
-        st.sr[o + St] = st.cand_in[o + St] = v + w.dec_b[j];
+        st.sr[o + St] = st.cand_in[o + St] = round_to<IO>(v + to_f(w.dec_b[j]));
       });
     }
   } else if constexpr (kLstm) {
@@ -1245,16 +1287,17 @@ __device__ __forceinline__ void decoder_prepass(const BwdArgs& a) {
           return kk < St ? sprev(n, kk) : n < rows ? st.r[(size_t)n * St + kk - St] : 0.f;
         },
         [&](int kk, int j) {
-          return j >= St4 ? 0.f : kk < St ? w.w_h[(size_t)kk * St4 + j]
-                                          : w.w_x[(size_t)(kk - St) * St4 + j];
+          return j >= St4 ? 0.f : kk < St ? to_f(w.w_h[(size_t)kk * St4 + j])
+                                          : to_f(w.w_x[(size_t)(kk - St) * St4 + j]);
         },
         i0, j0, St2);
-    store(acc, j0, St4, [&](int n, int j, float v) { st.dg[(size_t)n * St4 + j] = v + w.b[j]; });
+    store(acc, j0, St4,
+          [&](int n, int j, float v) { st.dg[(size_t)n * St4 + j] = v + to_f(w.b[j]); });
   } else if constexpr (kStage == 2) {
     tile_product(
         acc, [&](int n, int kk) { return n < rows ? st.sr[(size_t)n * St2 + kk] : 0.f; },
-        [&](int kk, int j) { return j < St2 ? w.w_zr[(size_t)kk * St2 + j] : 0.f; }, i0, j0,
-        St2);
+        [&](int kk, int j) { return j < St2 ? to_f(w.w_zr[(size_t)kk * St2 + j]) : 0.f; }, i0,
+        j0, St2);
     store(acc, j0, St2,
           [&](int n, int j, float v) { st.da_zr[(size_t)n * St2 + j] = activate<kSigmoid>(v); });
   } else {
@@ -1262,11 +1305,11 @@ __device__ __forceinline__ void decoder_prepass(const BwdArgs& a) {
     auto cand_in = [&](int n, int kk) -> float {
       if (n >= rows) return 0.f;
       const size_t o = (size_t)n * St2;
-      return kk < St ? st.da_zr[o + St + kk] * sprev(n, kk) : st.sr[o + kk];
+      return kk < St ? round_to<IO>(st.da_zr[o + St + kk] * sprev(n, kk)) : st.sr[o + kk];
     };
     tile_product(acc, cand_in,
-                 [&](int kk, int j) { return j < St ? w.w_h[(size_t)kk * St + j] : 0.f; }, i0,
-                 j0, St2);
+                 [&](int kk, int j) { return j < St ? to_f(w.w_h[(size_t)kk * St + j]) : 0.f; },
+                 i0, j0, St2);
     store(acc, j0, St, [&](int n, int j, float v) {
       st.cand_in[(size_t)n * St2 + j] = cand_in(n, j);
       st.da_cand[(size_t)n * St + j] = activate<kTanh>(v);
@@ -1284,6 +1327,12 @@ __global__ void __launch_bounds__(kTileThreads) gru_decoder_prepass_kernel(const
   decoder_prepass<false, kStage>(a);
 }
 
+template <int kStage>
+__global__ void __launch_bounds__(kTileThreads)
+    gru_decoder_prepass_bf16_kernel(const BwdArgsT<bf16> a) {
+  decoder_prepass<false, kStage, bf16>(a);
+}
+
 #ifdef FWD_WALK_BUILD
 // ---------------------------------------------------------------------------
 // K10, K14 (the LSTM) and K12, K4 (the GRU): the decoder forwards, a
@@ -1299,6 +1348,9 @@ struct FwdArgsT {
   WeightsT<T> w;
   T *s_seq, *c_seq, *alpha_seq, *mem_seq;  // mem_seq: LSTM only
   Dims d;
+  // bf16 entries: where not null, alpha and c also stored unrounded, for
+  // the bf16 backward (K5's bf16 entry reads them).
+  float *alpha32 = nullptr, *c32 = nullptr;
 };
 using FwdArgs = FwdArgsT<float>;
 
@@ -1777,8 +1829,10 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgsT<IO>& 
       for (int kk = 0; kk < C; ++kk) v = fmaf(f[kk], sh.st[(kk * R + r) * Ap + j], v);
       v /= f[C];
       sh.c[r * Aq + j] = round_to<IO>(v);
-      if (r < nrows && j >= ac.lo && j < ac.lo + ac.n)
+      if (r < nrows && j >= ac.lo && j < ac.lo + ac.n) {
         st_f(a.c_seq + (n0 + (size_t)r * T) * A + j, v);
+        if (kIsBf16<IO> && a.c32) a.c32[(n0 + (size_t)r * T) * A + j] = v;
+      }
     }
     for (int idx = tid; idx < R * Pw; idx += kThreads) {
       const int r = idx / Pw, i = idx - r * Pw, pp = i - pad;
@@ -1788,7 +1842,10 @@ __device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgsT<IO>& 
         const float* f = sh.fz + r * (C + 2);
         al = expf((own ? sh.e[r * Pc + pp] : sh.eh[idx]) - f[C + 1]) / f[C];
       }
-      if (own && r < nrows) st_f(a.alpha_seq + (n0 + (size_t)r * T) * L + pos.lo + pp, al);
+      if (own && r < nrows) {
+        st_f(a.alpha_seq + (n0 + (size_t)r * T) * L + pos.lo + pp, al);
+        if (kIsBf16<IO> && a.alpha32) a.alpha32[(n0 + (size_t)r * T) * L + pos.lo + pp] = al;
+      }
       if (kLoc) sh.ap[idx] = al;
     }
     __syncthreads();
@@ -2151,22 +2208,27 @@ int fwd_limits(int cluster, int* smem_limit, int* clusters) {
 
 // The weight gradients; the cell's are the GRU's dw_zr and dw_h, or the
 // LSTM's dw_h, dw_x and db.
-struct Grads {
-  float *dws_w, *dws_b, *dw_e, *dc_w, *dc_b, *ddec_w, *ddec_b;
-  float *dw_zr, *dw_h, *dw_x, *db;
-  float *dwconv, *dbconv, *du;
+template <class T>
+struct GradsT {
+  T *dws_w, *dws_b, *dw_e, *dc_w, *dc_b, *ddec_w, *ddec_b;
+  T *dw_zr, *dw_h, *dw_x, *db;
+  T *dwconv, *dbconv, *du;
 };
+using Grads = GradsT<float>;
 
 // The location term's weight gradients as column sums of `rows` rows of
 // partials, in a fixed order: dU from pu, dwconv and dbconv from pconv;
-// and first, where pwe is given, dw_e.
-cudaError_t reduce_partials(const Stash& st, const Grads& g, const Dims& d, int rows, bool loc,
-                            cudaStream_t stream) {
+// and first, where pwe is given, dw_e (bf16 where T is).
+template <class T>
+cudaError_t reduce_partials(const Stash& st, const GradsT<T>& g, const Dims& d, int rows,
+                            bool loc, cudaStream_t stream) {
   const int FM = d.FM, F = d.F, n_conv = (F + 1) * FM, S = d.S;
   AtbBatch batch{};
   batch.rows = rows;
   batch.period = 1;
-  if (st.pwe) batch.p[batch.count++] = AtbProblem{nullptr, 0, 0, st.pwe, S, nullptr, g.dw_e, 0, S};
+  if (st.pwe)
+    batch.p[batch.count++] =
+        AtbProblem{nullptr, 0, 0, st.pwe, S, nullptr, g.dw_e, 0, S, kIsBf16<T> ? kAtbC16 : 0};
   if (loc) {
     batch.p[batch.count++] =
         AtbProblem{nullptr, 0, 0, st.pu, FM * S, nullptr, g.du, 0, FM * S};
@@ -2178,13 +2240,19 @@ cudaError_t reduce_partials(const Stash& st, const Grads& g, const Dims& d, int 
   return launch_atb(batch, stream);
 }
 
-using BwdKernel = void (*)(const BwdArgs);
+template <class IO>
+using BwdKernelT = void (*)(const BwdArgsT<IO>);
+using BwdKernel = BwdKernelT<float>;
 
 // The walk instance for R batch rows a cluster: K11's (kLstm, kLoc),
-// K15's (kLstm), K13's (kLoc) or K5's.
-template <bool kLstm, bool kLoc>
-BwdKernel walk_kernel(int R) {
-  if constexpr (kLstm && kLoc)
+// K15's (kLstm), K13's (kLoc) or K5's (bf16 IO: K5's bf16 entry's).
+template <bool kLstm, bool kLoc, class IO = float>
+BwdKernelT<IO> walk_kernel(int R) {
+  if constexpr (kIsBf16<IO>)
+    return R == 1 ? content_gru_walk_bf16_kernel<1> : R == 2 ? content_gru_walk_bf16_kernel<2>
+         : R == 4 ? content_gru_walk_bf16_kernel<4> : R == 8 ? content_gru_walk_bf16_kernel<8>
+                  : nullptr;
+  else if constexpr (kLstm && kLoc)
     return R == 1 ? loc_lstm_bwd_kernel<1> : R == 2 ? loc_lstm_bwd_kernel<2>
          : R == 4 ? loc_lstm_bwd_kernel<4> : R == 8 ? loc_lstm_bwd_kernel<8> : nullptr;
   else if constexpr (kLstm)
@@ -2201,14 +2269,17 @@ BwdKernel walk_kernel(int R) {
 // The pre-pass: 64-row tiles of the B*T rows by 64-column tiles of
 // [cc | ws], of r, then of the LSTM's gates, or of the GRU's gates and
 // of its candidate.
-template <bool kLstm>
-cudaError_t launch_prepass(const BwdArgs& a, cudaStream_t stream) {
+template <bool kLstm, class IO = float>
+cudaError_t launch_prepass(const BwdArgsT<IO>& a, cudaStream_t stream) {
   const Dims& d = a.d;
   const int tiles = (d.B * d.T + kTile - 1) / kTile, cc_tiles = (d.St + kTile - 1) / kTile;
   const dim3 cc_ws(tiles, cc_tiles + (d.S + kTile - 1) / kTile), r(tiles, cc_tiles);
   const dim3 gates(tiles, ((kLstm ? 4 : 2) * d.St + kTile - 1) / kTile);
-  BwdKernel stages[4];
-  if constexpr (kLstm) {
+  BwdKernelT<IO> stages[4];
+  if constexpr (kIsBf16<IO>) {
+    stages[0] = gru_decoder_prepass_bf16_kernel<0>, stages[1] = gru_decoder_prepass_bf16_kernel<1>;
+    stages[2] = gru_decoder_prepass_bf16_kernel<2>, stages[3] = gru_decoder_prepass_bf16_kernel<3>;
+  } else if constexpr (kLstm) {
     stages[0] = lstm_decoder_prepass_kernel<0>, stages[1] = lstm_decoder_prepass_kernel<1>;
     stages[2] = lstm_decoder_prepass_kernel<2>;
   } else {
@@ -2226,12 +2297,14 @@ cudaError_t launch_prepass(const BwdArgs& a, cudaStream_t stream) {
 
 // K11, K13, K15 and K5: the pre-pass, the walk on clusters of `cluster`
 // blocks, `rows` batch rows a cluster, then the weight gradients over the
-// B*T steps and over the blocks' partials.
-template <bool kLstm, bool kLoc>
-int launch_walk_bwd(BwdArgs a, const Grads& g, float* scratch, int cluster, int rows,
+// B*T steps and over the blocks' partials. With bf16 IO (K5's bf16 entry)
+// the reductions widen the bf16 s_seq and c_seq, round every product's
+// operand to bf16, sum in float32 and round each gradient once.
+template <bool kLstm, bool kLoc, class IO = float>
+int launch_walk_bwd(BwdArgsT<IO> a, const GradsT<IO>& g, float* scratch, int cluster, int rows,
                     cudaStream_t stream) {
   const Dims& d = a.d;
-  const auto walk = walk_kernel<kLstm, kLoc>(rows);
+  const auto walk = walk_kernel<kLstm, kLoc, IO>(rows);
   if (!valid<kLoc>(d) || walk == nullptr || cluster < 1 || cluster > kMaxWalkCluster)
     return (int)cudaErrorInvalidValue;
   size_t floats;
@@ -2250,21 +2323,23 @@ int launch_walk_bwd(BwdArgs a, const Grads& g, float* scratch, int cluster, int 
 
   const Stash& st = a.st;
   const int St = d.St, St2 = 2 * St, St4 = 4 * St, S = d.S, A = d.A;
+  // bf16: the gradients are bf16, and so are s_seq and c_seq (the stash is float).
+  const int out = kIsBf16<IO> ? kAtbC16 : 0, seq = kIsBf16<IO> ? kAtbA16 | kAtbC16 : 0;
   AtbBatch steps{};
   steps.count = 5;
   steps.rows = d.B * d.T;
   steps.period = d.T;
-  steps.p[0] = AtbProblem{a.s_seq, St, -1, st.dws, S, g.dws_w, g.dws_b, St, S};
-  steps.p[1] = AtbProblem{a.c_seq, A, 0, st.dcc, St, g.dc_w, g.dc_b, A, St};
-  steps.p[2] = AtbProblem{st.rr, St2, 0, st.dr, St, g.ddec_w, g.ddec_b, St2, St};
+  steps.p[0] = AtbProblem{a.s_seq, St, -1, st.dws, S, g.dws_w, g.dws_b, St, S, seq};
+  steps.p[1] = AtbProblem{a.c_seq, A, 0, st.dcc, St, g.dc_w, g.dc_b, A, St, seq};
+  steps.p[2] = AtbProblem{st.rr, St2, 0, st.dr, St, g.ddec_w, g.ddec_b, St2, St, out};
   if (kLstm) {
-    steps.p[3] = AtbProblem{a.s_seq, St, -1, st.dg, St4, g.dw_h, g.db, St, St4};
-    steps.p[4] = AtbProblem{st.r, St, 0, st.dg, St4, g.dw_x, nullptr, St, St4};
+    steps.p[3] = AtbProblem{a.s_seq, St, -1, st.dg, St4, g.dw_h, g.db, St, St4, seq};
+    steps.p[4] = AtbProblem{st.r, St, 0, st.dg, St4, g.dw_x, nullptr, St, St4, out};
   } else {
-    steps.p[3] = AtbProblem{st.sr, St2, 0, st.da_zr, St2, g.dw_zr, nullptr, St2, St2};
-    steps.p[4] = AtbProblem{st.cand_in, St2, 0, st.da_cand, St, g.dw_h, nullptr, St2, St};
+    steps.p[3] = AtbProblem{st.sr, St2, 0, st.da_zr, St2, g.dw_zr, nullptr, St2, St2, out};
+    steps.p[4] = AtbProblem{st.cand_in, St2, 0, st.da_cand, St, g.dw_h, nullptr, St2, St, out};
   }
-  err = launch_atb(steps, stream);
+  err = launch_atb(steps, stream, kIsBf16<IO>);
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_partials(st, g, d, groups * cluster, kLoc, stream);
 }
@@ -2272,13 +2347,29 @@ int launch_walk_bwd(BwdArgs a, const Grads& g, float* scratch, int cluster, int 
 // The opt-in shared memory of a block of the walk and the clusters of
 // `cluster` blocks (8, or 16: a non-portable size) of it that can be
 // resident at once when each block takes that much.
-template <bool kLstm, bool kLoc>
+template <bool kLstm, bool kLoc, class IO = float>
 int walk_limits(int cluster, int* smem_limit, int* clusters) {
   if (cluster < 1 || cluster > kMaxWalkCluster) return (int)cudaErrorInvalidValue;
-  const auto walk = walk_kernel<kLstm, kLoc>(8);
+  const auto walk = walk_kernel<kLstm, kLoc, IO>(8);
   cudaError_t err = cudaFuncSetAttribute(walk, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
   return (int)cluster_limits(walk, cluster, smem_limit, clusters);
+}
+
+// dst = src rounded to bf16, n values: where K5's bf16 entry rounds its
+// float32 sums dvh and dh once, after the walk.
+__global__ void __launch_bounds__(256) round_to_bf16_kernel(const float* src, bf16* dst,
+                                                            size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    st_f(dst + i, src[i]);
+}
+
+cudaError_t round_to_bf16(const float* src, bf16* dst, size_t n, cudaStream_t stream) {
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  if (n == 0) return cudaSuccess;
+  round_to_bf16_kernel<<<blocks, 256, 0, stream>>>(src, dst, n);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -2407,17 +2498,19 @@ extern "C" int attention_decode_scan_fwd_limits(int cluster, int* smem_limit, in
 }
 
 // K4's bf16 entry: attention_decode_scan_fwd with every input and output
-// bf16 (the scratch float).
+// bf16 (the scratch float); alpha32 and c32, where not null, take alpha
+// and c in float32 too (B, T, L and B, T, A), for the bf16 backward.
 extern "C" int attention_decode_scan_fwd_bf16(
     const bf16* vh, const bf16* h, const bf16* mask, const bf16* yin, const bf16* ws_w,
     const bf16* ws_b, const bf16* w_e, const bf16* c_w, const bf16* c_b, const bf16* dec_w,
     const bf16* dec_b, const bf16* w_zr, const bf16* w_h, bf16* s_seq, bf16* c_seq,
-    bf16* alpha_seq, float* scratch, int B, int T, int L, int S, int A, int St, int cluster,
-    int rows, int resident, cudaStream_t stream) {
+    bf16* alpha_seq, float* alpha32, float* c32, float* scratch, int B, int T, int L, int S,
+    int A, int St, int cluster, int rows, int resident, cudaStream_t stream) {
   const FwdArgsT<bf16> a{vh, h, mask, yin,
                          WeightsT<bf16>{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_zr, w_h,
                                         nullptr, nullptr, nullptr, nullptr, nullptr},
-                         s_seq, c_seq, alpha_seq, nullptr, Dims{B, T, L, S, A, St, 0, 0}};
+                         s_seq, c_seq, alpha_seq, nullptr, Dims{B, T, L, S, A, St, 0, 0},
+                         alpha32, c32};
   return launch_fwd_walk<false, false, bf16>(a, scratch, cluster, rows, resident, stream);
 }
 
@@ -2445,6 +2538,42 @@ extern "C" int attention_decode_scan_loc_fwd_bf16(
 extern "C" int attention_decode_scan_loc_fwd_bf16_limits(int cluster, int* smem_limit,
                                                          int* clusters) {
   return fwd_limits<false, true, bf16>(cluster, smem_limit, clusters);
+}
+
+#elif defined(CONTENT_GRU_BWD_BF16)
+extern "C" int attention_decode_scan_bwd_bf16_limits(int cluster, int* smem_limit,
+                                                     int* clusters) {
+  return walk_limits<false, false, bf16>(cluster, smem_limit, clusters);
+}
+
+// K5's bf16 entry: attention_decode_scan_bwd with every input and output
+// bf16, except alpha32 and c32, the forward's alpha and c in float32
+// (K4's bf16 entry writes them), and three float32 scratch arrays: dvh32
+// (B, L, S) and dh32 (B, L, A), the walk's sums, which the entry rounds
+// into dvh and dh once the walk is done, and the stash (scratch).
+extern "C" int attention_decode_scan_bwd_bf16(
+    const bf16* vh, const bf16* h, const bf16* mask, const bf16* yin, const bf16* ws_w,
+    const bf16* ws_b, const bf16* w_e, const bf16* c_w, const bf16* c_b, const bf16* dec_w,
+    const bf16* dec_b, const bf16* w_zr, const bf16* w_h, const bf16* s_seq, const bf16* c_seq,
+    const float* alpha32, const float* c32, const bf16* ds_seq, const bf16* dc_seq,
+    const bf16* dalpha_seq, bf16* dvh, bf16* dh, bf16* dyin, bf16* dws_w, bf16* dws_b,
+    bf16* dw_e, bf16* dc_w, bf16* dc_b, bf16* ddec_w, bf16* ddec_b, bf16* dw_zr, bf16* dw_h,
+    float* dvh32, float* dh32, float* scratch, int B, int T, int L, int S, int A, int St,
+    int cluster, int rows, cudaStream_t stream) {
+  if (alpha32 == nullptr || c32 == nullptr || dvh32 == nullptr || dh32 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const BwdArgsT<bf16> a{vh, h, mask, yin,
+                         WeightsT<bf16>{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_zr, w_h,
+                                        nullptr, nullptr, nullptr, nullptr, nullptr},
+                         s_seq, c_seq, alpha32, nullptr, ds_seq, dc_seq, dalpha_seq, nullptr,
+                         dvh32, dh32, dyin, Stash{}, Dims{B, T, L, S, A, St, 0, 0}, c32};
+  const GradsT<bf16> g{dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dw_zr, dw_h, nullptr,
+                       nullptr, nullptr, nullptr, nullptr};
+  const int err = launch_walk_bwd<false, false, bf16>(a, g, scratch, cluster, rows, stream);
+  if (err != 0) return err;
+  const cudaError_t e = round_to_bf16(dvh32, dvh, (size_t)B * L * S, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)round_to_bf16(dh32, dh, (size_t)B * L * A, stream);
 }
 
 #elif !defined(CONTENT_GRU_BWD_ONLY)

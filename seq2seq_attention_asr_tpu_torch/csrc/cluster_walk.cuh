@@ -300,15 +300,14 @@ __device__ __forceinline__ float reduce_rows(float (&v)[R], int& row) {
 // lane taking 4 consecutive floats of each row with 16-byte loads where
 // `vec` (m, ldw, ldv, w and v 16-byte aligned). A warp takes two rows at
 // once, i and i + kWarps, so that each load of v feeds two products. No
-// barrier. A bf16 w (TW; kColumns only) is widened as it is read; with
-// kRoundV each value of v is rounded to bf16 as it is read (a bf16
-// entry's operand rounding: v itself stays float).
+// barrier. A bf16 w (TW) is widened as it is read; with kRoundV each
+// value of v is rounded to bf16 as it is read (a bf16 entry's operand
+// rounding: v itself stays float).
 template <int R, bool kColumns = false, bool kGlobal = false, bool kRoundV = false, class TW,
           class Emit>
 __device__ __forceinline__ void rows_dot(const TW* w, int ldw, int n, const float* v, int ldv,
                                          int m, Emit emit, bool vec = false) {
   static_assert(!(kColumns && kGlobal), "kGlobal reads rows");
-  static_assert(!kIsBf16<TW> || kColumns, "a bf16 w is read by columns");
   static_assert(!(kRoundV && kGlobal), "kGlobal reads v unrounded");
   const int lane = threadIdx.x & 31;
   for (int i = threadIdx.x >> 5; i < n; i += 2 * kWarps) {

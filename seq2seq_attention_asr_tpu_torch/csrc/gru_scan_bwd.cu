@@ -52,7 +52,8 @@ int run(const float* xproj, const float* hprev, const float* dys, const float* w
                        wh + (size_t)d * H * H,   hprev + d * rows * H,
                        dys + d * rows * H,       dxproj + d * rows * 3 * H,
                        rh + d * rows * H,        dh0 + (size_t)d * B * H,
-                       0,                        1};
+                       0,                        1,
+                       dxproj + d * rows * 3 * H};  // the pre-pass's gates in dx
   g.B = B, g.L = L, g.H = H;
   cudaError_t err =
       D == 1 ? run_gru_bwd(g, 1, plan, GRU_WALK_INSTANCE(gru1_walk_bwd_kernel, plan.rows), stream)

@@ -227,23 +227,30 @@ cudaError_t run_gru_fwd(const GruFwdT<T>& g, int D, const WalkPlan& p,
                         p.resident);
 }
 
-// One direction of a GRU backward.
-struct GruBwdDir {
-  const float* x;     // (B, L, 3H) input projections
-  const float* wzr;   // (H, 2H)
-  const float* wh;    // (H, H)
-  const float* hsrc;  // (B, L, H): step t's h_prev is hsrc[t + shift], 0 outside [0, L)
-  const float* dys;   // (B, L, H) the outputs' cotangent
-  float* dx;          // (B, L, 3H): the pre-pass's z | r | c, then da_z | da_r | da_c
-  float* rho;         // (B, L, H): r * h_prev, for the reduction of dWh
-  float* dh0;         // (B, H), the carry after the last step, or null
-  int shift, down;    // down: the walk runs t = L-1..0, else t = 0..L-1
+// One direction of a GRU backward, its arrays of IO type T (float, or
+// bf16 for K6's bf16 entry).
+template <class T>
+struct GruBwdDirT {
+  const T* x;     // (B, L, 3H) input projections
+  const T* wzr;   // (H, 2H)
+  const T* wh;    // (H, H)
+  const T* hsrc;  // (B, L, H): step t's h_prev is hsrc[t + shift], 0 outside [0, L)
+  const T* dys;   // (B, L, H) the outputs' cotangent
+  T* dx;          // (B, L, 3H): da_z | da_r | da_c
+  T* rho;         // (B, L, H): r * h_prev (bf16: rounded), for the reduction of dWh
+  float* dh0;     // (B, H), the carry after the last step, or null
+  int shift, down;  // down: the walk runs t = L-1..0, else t = 0..L-1
+  float* gates;   // (B, L, 3H): the pre-pass's z | r | c, float32; the float entries
+                  // pass dx, whose rows the walk then overwrites with their cotangents
 };
+using GruBwdDir = GruBwdDirT<float>;
 
-struct GruBwd {
-  GruBwdDir d[2];
+template <class T>
+struct GruBwdT {
+  GruBwdDirT<T> d[2];
   int B, L, H;
 };
+using GruBwd = GruBwdT<float>;
 
 // Shared memory of the backward walk: the weight slices (3H floats a
 // row), the gathered [da_z | da_r | da_c] (R x 3H), two buffers of five
@@ -254,50 +261,55 @@ size_t gru_walk_smem_bytes(const WalkPlan& p, int H) {
 
 // The gate pre-pass over every (row, step) n of direction blockIdx.y, one
 // 64 x 64 output tile a block. Stage 0: zr = sigmoid(h_prev @ Wzr +
-// x[:2H]) into dx[:, :2H] and rho = r * h_prev; stage 1 (a second launch,
-// after stage 0): c = tanh(rho @ Wh + x[2H:]) into dx[:, 2H:].
-__global__ void __launch_bounds__(kTileThreads) gru_gates_kernel(const GruBwd g, int stage) {
-  const GruBwdDir& a = g.d[blockIdx.y];
+// x[:2H]) into gates[:, :2H] and rho = r * h_prev; stage 1 (a second
+// launch, after stage 0): c = tanh(rho @ Wh + x[2H:]) into gates[:, 2H:].
+// With bf16 IO (T) the gates stay float32 and rho is rounded to bf16 (the
+// product's operand, rh.astype(dt) of the JAX kernel).
+template <class T>
+__global__ void __launch_bounds__(kTileThreads) gru_gates_kernel(const GruBwdT<T> g, int stage) {
+  const GruBwdDirT<T>& a = g.d[blockIdx.y];
   const int H = g.H, L = g.L, H3 = 3 * H, rows = g.B * g.L;
   const int i0 = blockIdx.x * kTile, j0 = blockIdx.z * kTile;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   auto hprev = [&](int n, int k) -> float {
     const int tp = n % L + a.shift;
-    return tp >= 0 && tp < L ? a.hsrc[(size_t)(n + a.shift) * H + k] : 0.f;
+    return tp >= 0 && tp < L ? to_f(a.hsrc[(size_t)(n + a.shift) * H + k]) : 0.f;
   };
   float acc[4][4];
   if (stage == 0) {
     tile_product(
         acc, [&](int n, int k) { return n < rows ? hprev(n, k) : 0.f; },
-        [&](int k, int j) { return j < 2 * H ? a.wzr[(size_t)k * 2 * H + j] : 0.f; }, i0, j0, H);
+        [&](int k, int j) { return j < 2 * H ? to_f(a.wzr[(size_t)k * 2 * H + j]) : 0.f; }, i0,
+        j0, H);
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int n = i0 + 4 * ty + r, j = j0 + 4 * tx + c;
         if (n >= rows || j >= 2 * H) continue;
-        const float gv = activate<kSigmoid>(acc[r][c] + a.x[(size_t)n * H3 + j]);
-        a.dx[(size_t)n * H3 + j] = gv;
-        if (j >= H) a.rho[(size_t)n * H + j - H] = gv * hprev(n, j - H);
+        const float gv = activate<kSigmoid>(acc[r][c] + to_f(a.x[(size_t)n * H3 + j]));
+        a.gates[(size_t)n * H3 + j] = gv;
+        if (j >= H) st_f(a.rho + (size_t)n * H + j - H, gv * hprev(n, j - H));
       }
   } else {
     tile_product(
-        acc, [&](int n, int k) { return n < rows ? a.rho[(size_t)n * H + k] : 0.f; },
-        [&](int k, int j) { return j < H ? a.wh[(size_t)k * H + j] : 0.f; }, i0, j0, H);
+        acc, [&](int n, int k) { return n < rows ? to_f(a.rho[(size_t)n * H + k]) : 0.f; },
+        [&](int k, int j) { return j < H ? to_f(a.wh[(size_t)k * H + j]) : 0.f; }, i0, j0, H);
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int n = i0 + 4 * ty + r, j = j0 + 4 * tx + c;
         if (n < rows && j < H)
-          a.dx[(size_t)n * H3 + 2 * H + j] = tanhf(acc[r][c] + a.x[(size_t)n * H3 + 2 * H + j]);
+          a.gates[(size_t)n * H3 + 2 * H + j] =
+              tanhf(acc[r][c] + to_f(a.x[(size_t)n * H3 + 2 * H + j]));
       }
   }
 }
 
 // The backward walk of direction `a` for the R batch rows of this block's
 // cluster (group blockIdx.x / C), after the pre-pass. Each step t, from
-// the gates the pre-pass left in dx[t]:
+// the gates the pre-pass left in gates[t]:
 //
 //   dh = dys[t] + carry;  da_c = dh z (1 - c^2)          [push, barrier]
 //   drh = da_c @ Wh^T;  da_z = dh (c - h_prev) z (1 - z);
@@ -314,8 +326,16 @@ __global__ void __launch_bounds__(kTileThreads) gru_gates_kernel(const GruBwd g,
 // t; likewise for da_z | da_r and the first barrier of step t+1.
 // The weight gradients are not summed here: reduce_atb.cuh forms them from
 // dx, the h_prev sequence and rho. `smem` holds gru_walk_smem_bytes.
-template <int R>
-__device__ void gru_walk_bwd(const GruBwdDir& a, int B, int L, int H, bool resident,
+//
+// With bf16 IO (T), as _bi2_bwd_kernel with bf16 inputs: h_prev, dys, x
+// and the weights load widened (the slices stay float in shared memory,
+// so the plan is the float walk's), da_c and [da_z | da_r] are rounded to
+// bf16 where they are formed, since the JAX kernel reads them only as the
+// operands of products (drh, the carry's product, dx and the weight
+// gradients), and dx stores them; the carry and the gate math stay
+// float32.
+template <int R, class T = float>
+__device__ void gru_walk_bwd(const GruBwdDirT<T>& a, int B, int L, int H, bool resident,
                              float* smem) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), k = (int)cluster.block_rank();
@@ -332,25 +352,31 @@ __device__ void gru_walk_bwd(const GruBwdDir& a, int B, int L, int H, bool resid
   float* drh = dh + RM;                          // [R][hm]
   float* carry = drh + RM;                       // [R][hm]
 
-  const float* wzr = a.wzr + (size_t)lo * H2;
-  const float* wh = a.wh + (size_t)lo * H;
+  const T* wzr = a.wzr + (size_t)lo * H2;
+  const T* wh = a.wh + (size_t)lo * H;
   if (resident) {
-    for (int i = threadIdx.x; i < hs * H2; i += kThreads) w_zr[i] = __ldg(wzr + i);
-    for (int i = threadIdx.x; i < hs * H; i += kThreads) w_h[i] = __ldg(wh + i);
-    wzr = w_zr;
-    wh = w_h;
+    for (int i = threadIdx.x; i < hs * H2; i += kThreads) w_zr[i] = ldg_f(wzr + i);
+    for (int i = threadIdx.x; i < hs * H; i += kThreads) w_h[i] = ldg_f(wh + i);
   }
+  // The block's rows of W (ws in shared memory where resident, else wg in
+  // L2) times the gathered v: rows_dot's rows.
+  auto product = [&](const float* ws, const T* wg, int ldw, const float* v, int m, auto emit) {
+    if (resident)
+      rows_dot<R>(ws, ldw, hs, v, H3, m, emit);
+    else
+      rows_dot<R>(wg, ldw, hs, v, H3, m, emit);
+  };
   for (int i = threadIdx.x; i < RM; i += kThreads) carry[i] = 0.f;
 
   // Stage step s's z, r, c, h_prev and dys of the block's units, 16 bytes
   // a copy where every slice is 4-float aligned.
   const bool vec = H % (4 * C) == 0 &&
-                   ((reinterpret_cast<size_t>(a.dx) | reinterpret_cast<size_t>(a.hsrc) |
+                   ((reinterpret_cast<size_t>(a.gates) | reinterpret_cast<size_t>(a.hsrc) |
                      reinterpret_cast<size_t>(a.dys)) & 15) == 0;
   auto prefetch = [&](int s) {
     const int t = a.down ? L - 1 - s : s, tp = t + a.shift;
     float* q = stg + (s & 1) * 5 * RM;
-    const float* x = a.dx + ((size_t)b0 * L + t) * H3 + lo;
+    const float* x = a.gates + ((size_t)b0 * L + t) * H3 + lo;
     stage_async<R>(q, hm, x, lx, hs, nrows, vec);
     stage_async<R>(q + RM, hm, x + H, lx, hs, nrows, vec);
     stage_async<R>(q + 2 * RM, hm, x + H2, lx, hs, nrows, vec);
@@ -368,37 +394,37 @@ __device__ void gru_walk_bwd(const GruBwdDir& a, int B, int L, int H, bool resid
     __syncthreads();
     const float* q = stg + (s & 1) * 5 * RM;
     const float *z = q, *rg = q + RM, *c = q + 2 * RM, *hp = q + 3 * RM, *dy = q + 4 * RM;
-    float* dx = a.dx + ((size_t)b0 * L + t) * H3 + lo;  // batch row r at dx + r * lx
+    T* dx = a.dx + ((size_t)b0 * L + t) * H3 + lo;  // batch row r at dx + r * lx
     for (int idx = threadIdx.x; idx < R * hs; idx += kThreads) {
       const int r = idx / hs, i = idx - r * hs, o = r * hm + i;
       const float dhv = dy[o] + carry[o];
       dh[o] = dhv;
-      const float dac = dhv * z[o] * (1.f - c[o] * c[o]);
+      const float dac = round_to<T>(dhv * z[o] * (1.f - c[o] * c[o]));
       for (int p = 0; p < C; ++p) cluster.map_shared_rank(gath, p)[r * H3 + H2 + lo + i] = dac;
-      if (r < nrows) dx[r * lx + H2 + i] = dac;
+      if (r < nrows) st_f(dx + r * lx + H2 + i, dac);
     }
     cluster.sync();
-    rows_dot<R>(wh, H, hs, gath + H2, H3, H, [&](int i, int r, float v) { drh[r * hm + i] = v; });
+    product(w_h, wh, H, gath + H2, H, [&](int i, int r, float v) { drh[r * hm + i] = v; });
     __syncthreads();
     for (int idx = threadIdx.x; idx < R * hs; idx += kThreads) {
       const int r = idx / hs, i = idx - r * hs, o = r * hm + i;
       const float zg = z[o], rv = rg[o], h = hp[o];
-      const float daz = dh[o] * (c[o] - h) * zg * (1.f - zg);
-      const float dar = drh[o] * h * rv * (1.f - rv);
+      const float daz = round_to<T>(dh[o] * (c[o] - h) * zg * (1.f - zg));
+      const float dar = round_to<T>(drh[o] * h * rv * (1.f - rv));
       for (int p = 0; p < C; ++p) {
         float* gp = cluster.map_shared_rank(gath, p) + r * H3 + lo + i;
         gp[0] = daz;
         gp[H] = dar;
       }
       if (r < nrows) {
-        dx[r * lx + i] = daz;
-        dx[r * lx + H + i] = dar;
+        st_f(dx + r * lx + i, daz);
+        st_f(dx + r * lx + H + i, dar);
       }
     }
     cluster_arrive();
     if (s + 1 < L) prefetch(s + 1);  // the other staging buffer, read last in step s - 1
     cluster_wait();
-    rows_dot<R>(wzr, H2, hs, gath, H3, H2, [&](int i, int r, float v) {
+    product(w_zr, wzr, H2, gath, H2, [&](int i, int r, float v) {
       const int o = r * hm + i;
       carry[o] = drh[o] * rg[o] + v + dh[o] * (1.f - z[o]);
     });
@@ -425,8 +451,9 @@ __device__ void gru_walk_bwd(const GruBwdDir& a, int B, int L, int H, bool resid
 // Run a GRU backward of D directions without the weight gradients: the
 // two pre-pass launches, then `walk` on clusters of p.cluster blocks,
 // ceil(B / p.rows) clusters per direction.
-cudaError_t run_gru_bwd(const GruBwd& g, int D, const WalkPlan& p,
-                        void (*walk)(const GruBwd, int), cudaStream_t stream) {
+template <class T>
+cudaError_t run_gru_bwd(const GruBwdT<T>& g, int D, const WalkPlan& p,
+                        void (*walk)(const GruBwdT<T>, int), cudaStream_t stream) {
   const size_t smem = gru_walk_smem_bytes(p, g.H);
   cudaError_t err = check_plan(p, g.H, smem);
   if (err != cudaSuccess) return err;
@@ -434,9 +461,9 @@ cudaError_t run_gru_bwd(const GruBwd& g, int D, const WalkPlan& p,
   const int tiles = (g.B * g.L + kTile - 1) / kTile;
   const dim3 zr_tiles(tiles, D, (2 * g.H + kTile - 1) / kTile);
   const dim3 c_tiles(tiles, D, (g.H + kTile - 1) / kTile);
-  gru_gates_kernel<<<zr_tiles, kTileThreads, 0, stream>>>(g, 0);
+  gru_gates_kernel<T><<<zr_tiles, kTileThreads, 0, stream>>>(g, 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  gru_gates_kernel<<<c_tiles, kTileThreads, 0, stream>>>(g, 1);
+  gru_gates_kernel<T><<<c_tiles, kTileThreads, 0, stream>>>(g, 1);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int groups = (g.B + p.rows - 1) / p.rows;
   return launch_cluster(walk, dim3(p.cluster * groups, D), p.cluster, smem, stream, g,

@@ -23,10 +23,10 @@ content> instance, which takes this four-layer readout.
 ``compute_dtype="bfloat16"`` is the JAX package's mixed-precision
 operating point, as for the flagship (models/chorowski.py): ``forward``
 casts the float32 params and its inputs to bf16; the convolutions run
-in bf16 on cuDNN, and bf16 evaluation runs K4 and K8's <GRU, content>
-instance through their bf16 entries; a bf16 gradient raises
-NotImplementedError where it reaches K5 (ROADMAP Queue A items 5b and
-5c, training part). ``encode`` casts nothing, so serving stays float32.
+in bf16 on cuDNN, bf16 evaluation runs K4 and K8's <GRU, content>
+instance through their bf16 entries, and bf16 training K4's and K5's
+(the convolutions' backward is cuDNN's, in bf16, as the JAX package
+leaves them to XLA). ``encode`` casts nothing, so serving stays float32.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ class VGGConfig:
     output_depth: int = 62
     penalty_lambda: float = 0.0
     mono_align: bool = True
-    compute_dtype: str = "float32"  # or "bfloat16" (evaluation)
+    compute_dtype: str = "float32"  # or "bfloat16"
 
     def __post_init__(self):
         if self.compute_dtype not in ("float32", "bfloat16"):

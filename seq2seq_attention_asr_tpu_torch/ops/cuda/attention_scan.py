@@ -43,8 +43,25 @@ weights, so it rounds s_prev, c and rg s_prev and not cc or r, which it
 never forms (ROADMAP, "Differences that are deliberate");
 ``gru_folded_scan_plain`` is its plain twin as it computes. K10, K12 and
 K14, the other decoders' forwards, have bf16 entries of the same kind at
-the end of this module. K5 and the other backwards have no bf16 instance
-yet: a bf16 gradient raises NotImplementedError.
+the end of this module.
+
+K5 has a bf16 entry too (``KERNEL_BWD_BF16``): the JAX backward with bf16
+inputs (``_bwd_core`` with ``dt`` = bf16, :419-576) recomputes the step
+with the forward's rounding points, rounds the cotangents da_cand, [da_z |
+da_r], dr, dcc and dws before their transposed products and the weight
+gradients' products, keeps dalpha, dh, de, dz, dvh, dw_e and the bias
+sums in float32, and casts each output once to its primal's type.
+``attention_decode_scan_bwd_plain_bf16`` is that function in plain
+PyTorch. Two points are the port's own. The backward reads alpha from
+the forward instead of recomputing it (ROADMAP, "Differences that are
+deliberate"), so under bf16 the forward keeps a float32 copy of alpha
+(K4's bf16 entry writes it beside its bf16 output) and the backward never
+reads the rounded alpha_seq. The entry forms the softmax's sum_l alpha
+dalpha as c . dc + sum_l alpha (dalpha_seq + carry), which needs the
+float32 c: the forward keeps that too. ``attention_decode_scan_bwd_twin_bf16``
+is the plain version that forms the sum that way, the entry's exact
+twin. The other backwards (K11, K13, K15) have no bf16 instance yet: a
+bf16 gradient of their scans raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -74,8 +91,15 @@ KERNEL_BWD = build.Kernel(
 KERNEL_FWD_BF16 = build.Kernel(
     "attention_decode_scan_fwd_bf16", "attention_scan_loc_lstm.cu",
     "attention_decode_scan_fwd_bf16",
-    [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     defines=("GRU_FWD_ONLY",),
+)
+# K5's bf16 entry, a library of its own, built beside K5's.
+KERNEL_BWD_BF16 = build.Kernel(
+    "attention_decode_scan_bwd_bf16", "attention_scan_loc_lstm.cu",
+    "attention_decode_scan_bwd_bf16",
+    [ctypes.c_void_p] * 35 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    defines=("CONTENT_GRU_BWD_BF16",),
 )
 WEIGHTS = ("ws_w", "ws_b", "w_e", "c_w", "c_b", "dec_w", "dec_b", "gru_wzr", "gru_wh")
 
@@ -171,45 +195,106 @@ def attention_decode_scan(vh, h, enc_mask, yin, *weights):
 
 def attention_decode_scan_bwd(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b,
                               gru_wzr, gru_wh, s_seq, c_seq, alpha_seq, ds_seq, dc_seq,
-                              dalpha_seq):
+                              dalpha_seq, c32=None):
     """Cotangents of attention_decode_scan's differentiable inputs given
     its inputs, the saved (s_seq, c_seq, alpha_seq) and their cotangents:
     (dvh, dh, dyin, dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b,
-    dgru_wzr, dgru_wh).
+    dgru_wzr, dgru_wh). All float32; or all bfloat16 (the bf16 entry,
+    cotangents in bf16) except alpha_seq and c32, the forward's alpha and
+    c in float32 (attention_decode_scan_train), which a bf16 backward
+    needs: it never reads the rounded alpha or c where JAX keeps float32.
 
-    CPU tensors take the plain version; CUDA tensors the kernel (K5), on
-    scan_plan_on's plan; it raises RuntimeError where no cluster fits the
-    device."""
+    CPU tensors take the plain version (on bf16,
+    attention_decode_scan_bwd_plain_bf16); CUDA tensors the kernel (K5, or
+    its bf16 entry), on scan_plan_on's plan; it raises RuntimeError where
+    no cluster fits the device."""
     weights = (ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, gru_wzr, gru_wh)
     saved = (s_seq, c_seq, alpha_seq, ds_seq, dc_seq, dalpha_seq)
+    if vh.dtype == torch.bfloat16:
+        if c32 is None or alpha_seq.dtype != torch.float32:
+            raise ValueError("a bf16 backward takes the forward's float32 alpha and c "
+                             "(attention_decode_scan_train)")
+        if build.on_cpu(vh, h, enc_mask, yin, *weights, *saved, c32):
+            return attention_decode_scan_bwd_plain_bf16(vh, h, enc_mask, yin, *weights, *saved)
+        return _scan_bwd_bf16(vh, h, enc_mask, yin, weights, saved, c32)
     if build.on_cpu(vh, h, enc_mask, yin, *weights, *saved):
         return attention_decode_scan_bwd_plain(vh, h, enc_mask, yin, *weights, *saved)
     return _scan_bwd(KERNEL_BWD, False, len(weights), vh, h, enc_mask, yin, (*weights, *saved))
 
 
+def attention_decode_scan_train(vh, h, enc_mask, yin, *weights):
+    """attention_decode_scan for the gradient: (s_seq, c_seq, alpha_seq)
+    and, on bf16 inputs, the float32 alpha and c that the bf16 backward
+    reads ((alpha32, c32); None on float32 inputs, whose outputs are
+    float32 already). CPU tensors take the plain version; CUDA tensors K4
+    or its bf16 entry, which writes alpha32 and c32 beside its bf16
+    outputs."""
+    if vh.dtype != torch.bfloat16:
+        return attention_decode_scan(vh, h, enc_mask, yin, *weights), None
+    if build.on_cpu(vh, h, enc_mask, yin, *weights):
+        return _scan_plain(vh, h, enc_mask, yin, weights, lstm=False, f32=True)
+    return _scan(KERNEL_FWD, KERNEL_FWD_BF16, False, vh, h, enc_mask, yin, weights, f32=True)
+
+
 class AttentionDecodeScan(torch.autograd.Function):
     """attention_decode_scan with its gradient: K4 forward, K5 backward
-    (the plain versions on CPU tensors). Saves s_seq, c_seq and alpha_seq
-    (the JAX VJP, :1185-1189, saves s and c and recomputes alpha);
+    (the plain versions on CPU tensors), each in float32 or through its
+    bf16 entry. Saves s_seq, c_seq and alpha_seq (the JAX VJP,
+    :1185-1189, saves s and c and recomputes alpha), under bf16 the
+    forward's float32 alpha and c in place of the rounded alpha_seq;
     enc_mask gets no gradient, and a missing cotangent of c_seq or
-    alpha_seq counts as zeros. The gradient of a bf16 scan is refused:
-    K5 has no bf16 instance yet."""
+    alpha_seq counts as zeros."""
 
     @staticmethod
     def forward(ctx, vh, h, enc_mask, yin, *weights):
-        s_seq, c_seq, alpha_seq = attention_decode_scan(vh, h, enc_mask, yin, *weights)
-        ctx.save_for_backward(vh, h, enc_mask, yin, *weights, s_seq, c_seq, alpha_seq)
+        (s_seq, c_seq, alpha_seq), f32 = attention_decode_scan_train(vh, h, enc_mask, yin,
+                                                                     *weights)
+        alpha_saved, c32 = f32 if f32 is not None else (alpha_seq, None)
+        ctx.save_for_backward(vh, h, enc_mask, yin, *weights, s_seq, c_seq, alpha_saved, c32)
         return s_seq, c_seq, alpha_seq
 
     @staticmethod
     def backward(ctx, ds_seq, dc_seq, dalpha_seq):
-        vh, h, enc_mask, yin, *rest = ctx.saved_tensors
-        if vh.dtype == torch.bfloat16:
-            raise NotImplementedError(build.BF16_TRAINING)
+        vh, h, enc_mask, yin, *rest, c32 = ctx.saved_tensors
         dvh, dh, dyin, *dw = attention_decode_scan_bwd(
             vh, h, enc_mask, yin, *rest,
-            ds_seq.contiguous(), dc_seq.contiguous(), dalpha_seq.contiguous())
+            ds_seq.contiguous(), dc_seq.contiguous(), dalpha_seq.contiguous(), c32=c32)
         return (dvh, dh, None, dyin, *dw)
+
+
+def attention_decode_scan_bwd_plain_bf16(vh, h, enc_mask, yin, *args):
+    """Plain bf16 twin of K5 at the JAX kernel's rounding points
+    (``_bwd_core`` with bf16 inputs, attention_scan.py:419-576 of the JAX
+    package): args are the 9 weights, (s_seq, c_seq, alpha32) and
+    (ds_seq, dc_seq, dalpha_seq), all bf16 but alpha32, the forward's
+    float32 alpha. The inputs widen to float32; the recompute rounds s_prev
+    and c (bf16 already), [cc | yin], [s_prev | r] and [rg s_prev | r]
+    before their products; da_cand, [da_z | da_r], dr, dcc and dws are
+    rounded before their transposed products and the weight gradients'
+    products; dalpha, dh, de, dz, dvh, dw_e, the bias sums and the
+    carries stay float32, and the softmax's sum is sum_l alpha dalpha as
+    JAX forms it. Every output is summed in float32 and cast once to
+    bf16."""
+    return _bwd_plain_bf16(vh, h, enc_mask, yin, args, None)
+
+
+def attention_decode_scan_bwd_twin_bf16(vh, h, enc_mask, yin, *args):
+    """K5's bf16 entry as it computes it: attention_decode_scan_bwd_plain_bf16
+    with one more argument after the cotangents, c32 (the forward's float32
+    c), and the softmax's sum formed as c32 . dc + sum_l alpha (dalpha_seq
+    + carry), as the entry forms it (exact arithmetic gives JAX's sum)."""
+    return _bwd_plain_bf16(vh, h, enc_mask, yin, args[:15], args[15])
+
+
+def _bwd_plain_bf16(vh, h, enc_mask, yin, args, c_dot):
+    weights, (s_seq, c_seq, alpha32), cots = args[:9], args[9:12], args[12:15]
+    if alpha32.dtype != torch.float32:
+        raise TypeError("the bf16 backward reads the forward's float32 alpha")
+    (vh, h, enc_mask, yin, weights), _, rnd = _io(vh, h, enc_mask, yin, weights)
+    cots = [None if t is None else t.float() for t in cots]
+    grads = _scan_bwd_plain(vh, h, enc_mask, yin, weights, (s_seq.float(), c_seq.float(), alpha32),
+                            cots, lstm=False, rnd=rnd, c_dot=c_dot)
+    return tuple(g.to(torch.bfloat16) for g in grads)
 
 
 # --- The location-aware and LSTM decoder scans (kernels K10-K15) -------------------------
@@ -394,11 +479,12 @@ def _io(vh, h, enc_mask, yin, weights):
     return (vh, h, enc_mask, yin, tuple(weights)), dt, build.round_bf16
 
 
-def _scan_plain(vh, h, enc_mask, yin, weights, lstm: bool):
+def _scan_plain(vh, h, enc_mask, yin, weights, lstm: bool, f32: bool = False):
     """step_plain looped over the T steps: (s_seq, c_seq, alpha_seq), and
     mem_seq for the LSTM. On bfloat16 inputs the plain bf16 version at
     the JAX kernels' rounding points (the section's head names them): the
-    inputs widened, the carries float32, the outputs bf16."""
+    inputs widened, the carries float32, the outputs bf16; with `f32`,
+    (outputs, (alpha, c) in float32)."""
     (vh, h, enc_mask, yin, weights), dt, rnd = _io(vh, h, enc_mask, yin, weights)
     bsz, t_len, st = yin.shape
     s = yin.new_zeros((bsz, st))
@@ -410,7 +496,9 @@ def _scan_plain(vh, h, enc_mask, yin, weights, lstm: bool):
                                       rnd)
         for seq, v in zip(outs, (s, c, alpha, mem)):
             seq.append(v)
-    return tuple(torch.stack(x, dim=1).to(dt) for x in outs[:4 if lstm else 3])
+    seqs = tuple(torch.stack(x, dim=1) for x in outs[:4 if lstm else 3])
+    rounded = tuple(x.to(dt) for x in seqs)
+    return (rounded, (seqs[2], seqs[1])) if f32 else rounded
 
 
 def step_plain(vh, h, enc_mask, yin_t, s, mem, alpha_prev, weights, lstm: bool, rnd=_same):
@@ -482,7 +570,8 @@ def folded_scan_plain(vh, h, enc_mask, yin, weights, lstm: bool):
     return tuple(torch.stack(x, dim=1).to(dt) for x in outs[:4 if lstm else 3])
 
 
-def _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm: bool):
+def _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm: bool, rnd=_same,
+                    c_dot=None):
     """The backward of _scan_plain, step for step as the kernels walk: a
     reverse-time loop that recomputes each step's energies, decoder input
     and cell from the saved s, mem and alpha (shifted by one, zero at
@@ -491,7 +580,15 @@ def _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm: bool):
     input) to the step before. The GRU follows ``_run_bwd_xla`` (:1047).
     saved is (s_seq, c_seq, alpha_seq[, mem_seq]) and cots their
     cotangents, each None where there is none: it counts as zeros.
-    Returns (dvh, dh, dyin, then the gradient of each weight)."""
+    Returns (dvh, dh, dyin, then the gradient of each weight). For the
+    content-only GRU, `rnd` rounds each product's operand where
+    ``_bwd_core`` with bf16 inputs rounds it (build.round_bf16: the
+    recompute's operands as step_plain rounds them, and the cotangents
+    da_cand, [da_z | da_r], dr, dcc and dws before their products); the
+    other decoders' bf16 backwards are not ported (ROADMAP Queue A item
+    5c). With `c_dot` (the forward's float32 context), the softmax's
+    sum_l alpha dalpha is formed as the kernels form it, c_dot . dc +
+    sum_l alpha (dalpha_seq + carry)."""
     (ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b), cell_w, loc_w = _split(weights, lstm)
     s_seq, c_seq, alpha_seq = saved[:3]
     ds_seq, dc_seq, dalpha_seq = cots[:3]
@@ -508,15 +605,15 @@ def _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm: bool):
         prev = (lambda seq: seq[:, t - 1]) if t > 0 else (lambda seq: torch.zeros_like(seq[:, 0]))
         s_prev, alpha_prev = prev(s_seq), prev(alpha_seq)
         alpha, c_saved = alpha_seq[:, t], c_seq[:, t]
-        ws = s_prev @ ws_w + ws_b
+        ws = rnd(s_prev) @ ws_w + ws_b
         z = vh + ws[:, None, :]
         if loc_w:
             wconv, bconv, u = loc_w
             feat = _loc_features(alpha_prev, wconv, bconv)
             z = z + feat @ u
         a = torch.tanh(z)
-        cc = c_saved @ c_w + c_b
-        rr = torch.cat([cc, yin[:, t]], dim=-1)
+        cc = rnd(c_saved) @ c_w + c_b
+        rr = rnd(torch.cat([cc, yin[:, t]], dim=-1))
         r = rr @ dec_w + dec_b
         ds = cot(ds_seq, t, ds_carry) + ds_carry
 
@@ -536,36 +633,43 @@ def _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm: bool):
             cell_steps = (s_prev.T @ dgates, r.T @ dgates, dgates.sum(0))
         else:
             gru_wzr, gru_wh = cell_w
-            sr = torch.cat([s_prev, r], dim=-1)
+            sr = rnd(torch.cat([s_prev, r], dim=-1))
             zr = torch.sigmoid(sr @ gru_wzr)
             zg, rg = zr[:, :st], zr[:, st:]
-            cand_in = torch.cat([rg * s_prev, r], dim=-1)
+            cand_in = rnd(torch.cat([rg * s_prev, r], dim=-1))
             cand = torch.tanh(cand_in @ gru_wh)
             dzg = ds * (cand - s_prev)
-            da_cand = ds * zg * (1.0 - cand * cand)
+            da_cand = rnd(ds * zg * (1.0 - cand * cand))
             dcand_in = da_cand @ gru_wh.T
             drgs, dr = dcand_in[:, :st], dcand_in[:, st:]
-            da_zr = torch.cat([dzg * zg * (1.0 - zg), drgs * s_prev * rg * (1.0 - rg)], dim=-1)
+            da_zr = rnd(torch.cat([dzg * zg * (1.0 - zg), drgs * s_prev * rg * (1.0 - rg)],
+                                  dim=-1))
             dsr = da_zr @ gru_wzr.T
             ds_prev = dsr[:, :st] + drgs * rg + ds * (1.0 - zg)
             dr = dr + dsr[:, st:]
             cell_steps = (sr.T @ da_zr, cand_in.T @ da_cand)
 
         # The decoder-input MLP and the context.
-        drr = dr @ dec_w.T
+        drr = rnd(dr) @ dec_w.T
         dcc = drr[:, :st]
         dyin[:, t] = drr[:, st:]
-        dc = dcc @ c_w.T + cot(dc_seq, t, c_saved)
-        dalpha = torch.einsum("ba,bla->bl", dc, h) + cot(dalpha_seq, t, alpha) + dal_carry
+        dc = rnd(dcc) @ c_w.T + cot(dc_seq, t, c_saved)
+        dal_in = cot(dalpha_seq, t, alpha) + dal_carry
+        dalpha = torch.einsum("ba,bla->bl", dc, h) + dal_in
         dh += alpha[:, :, None] * dc[:, None, :]
         # The masked softmax and the energies.
-        de = alpha * (dalpha - torch.sum(dalpha * alpha, dim=-1, keepdim=True))
+        if c_dot is None:
+            dot = torch.sum(dalpha * alpha, dim=-1, keepdim=True)
+        else:
+            dot = (torch.sum(c_dot[:, t] * dc, dim=-1)
+                   + torch.sum(alpha * dal_in, dim=-1))[:, None]
+        de = alpha * (dalpha - dot)
         dz = de[:, :, None] * w_e * (1.0 - a * a)
         dvh += dz
         dws = torch.sum(dz, dim=1)
-        ds_carry = ds_prev + dws @ ws_w.T
-        steps = [s_prev.T @ dws, dws.sum(0), torch.einsum("bls,bl->s", a, de),
-                 c_saved.T @ dcc, dcc.sum(0), rr.T @ dr, dr.sum(0), *cell_steps]
+        ds_carry = ds_prev + rnd(dws) @ ws_w.T
+        steps = [rnd(s_prev).T @ rnd(dws), dws.sum(0), torch.einsum("bls,bl->s", a, de),
+                 rnd(c_saved).T @ rnd(dcc), dcc.sum(0), rr.T @ rnd(dr), dr.sum(0), *cell_steps]
         if loc_w:
             # The location term: UF = feat @ u, feat = conv(alpha_prev) + bconv.
             f = wconv.shape[0]
@@ -648,30 +752,36 @@ def _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm: bool, dtype=torch.fl
         build.check(name, t, shape, vh.device, dtype)
 
 
-def _scan(kernel, kernel_bf16, lstm: bool, vh, h, enc_mask, yin, weights):
+def _scan(kernel, kernel_bf16, lstm: bool, vh, h, enc_mask, yin, weights, f32: bool = False):
     """The forward wrapper of K10, K12, K14 and K4: the plain version
     (_scan_plain) on CPU tensors, the kernel on CUDA tensors, on
     fwd_plan_on's plan with a scratch of fwd_scratch_floats; on bfloat16
-    inputs the plain bf16 version or the bf16 entry (`kernel_bf16`)."""
+    inputs the plain bf16 version or the bf16 entry (`kernel_bf16`). With
+    `f32` (K4's bf16 entry only), (outputs, (alpha, c) in float32)."""
     if vh.dtype == torch.bfloat16:
         kernel = kernel_bf16
     if build.on_cpu(vh, h, enc_mask, yin, *weights):
-        return _scan_plain(vh, h, enc_mask, yin, weights, lstm)
+        return _scan_plain(vh, h, enc_mask, yin, weights, lstm, f32)
     dt = build.io_dtype(vh)
     _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm, dt)
     (b, t_len, l, s_dim, a_dim, st), loc = _scan_dims(vh, h, yin, weights, lstm)
-    f32 = dict(device=vh.device, dtype=torch.float32)
+    f32_ = dict(device=vh.device, dtype=torch.float32)
     shapes = [(b, t_len, st), (b, t_len, a_dim), (b, t_len, l), (b, t_len, st)]
     outs = tuple(torch.empty(shape, device=vh.device, dtype=dt)
                  for shape in shapes[:4 if lstm else 3])
+    # K4's bf16 entry takes two more pointers, alpha and c in float32 (f32), else null.
+    wide = (torch.empty(shapes[2], **f32_), torch.empty(shapes[1], **f32_)) if f32 else None
+    extra = (([build.ptr(t) for t in wide] if f32 else [None, None])
+             if kernel is KERNEL_FWD_BF16 else [])
     if b * t_len == 0:
-        return outs
+        return (outs, wide) if f32 else outs
     plan = fwd_plan_on(kernel, b, l, s_dim, a_dim, st, *(loc or (0, 0)), vh.device)
     scratch = torch.empty(fwd_scratch_floats(b, t_len, a_dim, st, FWD_CELL[kernel.symbol]),
-                          **f32)
-    kernel.launch(*[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *outs, scratch)],
+                          **f32_)
+    kernel.launch(*[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *outs)],
+                  *extra, build.ptr(scratch),
                   b, t_len, l, s_dim, a_dim, st, *loc, *plan.args(), build.stream_of(vh))
-    return outs
+    return (outs, wide) if f32 else outs
 
 
 def stash_floats(lstm: bool, b: int, t_len: int, l: int, s_dim: int, st: int, fm: int = 0,
@@ -706,7 +816,8 @@ WALK_ROWS = (1, 2, 4, 8)  # the walk's instances
 WALK_BARS = {"lstm": 5, "gru": 6}
 # The walk's cell, by the C entry point of its backward.
 WALK_CELL = {"attention_decode_scan_bwd": "gru", "attention_decode_scan_loc_lstm_bwd": "lstm",
-             "attention_decode_scan_lstm_bwd": "lstm", "attention_decode_scan_loc_bwd": "gru"}
+             "attention_decode_scan_lstm_bwd": "lstm", "attention_decode_scan_loc_bwd": "gru",
+             "attention_decode_scan_bwd_bf16": "gru"}
 # The row of STEP_COST a walk's plan reads, by the C entry point of its
 # backward where it is not its cell's: K13's, the GRU with the location
 # term.
@@ -1008,6 +1119,40 @@ def _scan_bwd(kernel, lstm: bool, n_weights: int, vh, h, enc_mask, yin, args):
         *[None if t is None else build.ptr(t) for t in cots],
         *[build.ptr(t) for t in (*grads, scratch)],
         bsz, t_len, l, s_dim, a_dim, st, *loc, plan.cluster, plan.rows, build.stream_of(vh),
+    )
+    return tuple(grads)
+
+
+def _scan_bwd_bf16(vh, h, enc_mask, yin, weights, saved, c32):
+    """The wrapper of K5's bf16 entry: every input bf16 but alpha (saved[2])
+    and c32, the forward's float32 alpha and c; a missing cotangent counts
+    as zeros. The walk's shared memory is the float walk's, so the plan is
+    scan_plan_on's for K5's cell, from the bf16 entry's own limits."""
+    s_seq, c_seq, alpha32, *cots = saved
+    bf16, dev = torch.bfloat16, vh.device
+    _check_scan_inputs(vh, h, enc_mask, yin, weights, False, bf16)
+    (bsz, t_len, l, s_dim, a_dim, st), _ = _scan_dims(vh, h, yin, weights, False)
+    shapes = {"s_seq": (bsz, t_len, st), "c_seq": (bsz, t_len, a_dim),
+              "alpha32": (bsz, t_len, l), "c32": (bsz, t_len, a_dim),
+              "ds_seq": (bsz, t_len, st), "dc_seq": (bsz, t_len, a_dim),
+              "dalpha_seq": (bsz, t_len, l)}
+    for (name, shape), t in zip(shapes.items(), (s_seq, c_seq, alpha32, c32, *cots)):
+        if t is not None:
+            build.check(name, t, shape, dev, torch.float32 if name in ("alpha32", "c32") else bf16)
+    f32 = dict(device=dev, dtype=torch.float32)
+    grads = [torch.empty_like(vh), torch.empty_like(h), torch.empty_like(yin)]
+    grads += [torch.empty(w.shape, device=dev, dtype=bf16) for w in weights]
+    if bsz * t_len == 0:
+        return tuple(g.zero_() for g in grads)
+    plan = scan_plan_on(KERNEL_BWD_BF16, bsz, l, s_dim, a_dim, st, 0, 0, dev)
+    sums = [torch.empty(vh.shape, **f32), torch.empty(h.shape, **f32)]  # dvh, dh in float32
+    scratch = torch.empty(stash_floats(False, bsz, t_len, l, s_dim, st, 0, 0,
+                                       plan.partials(bsz)), **f32)
+    KERNEL_BWD_BF16.launch(
+        *[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, s_seq, c_seq, alpha32, c32)],
+        *[None if t is None else build.ptr(t) for t in cots],
+        *[build.ptr(t) for t in (*grads, *sums, scratch)],
+        bsz, t_len, l, s_dim, a_dim, st, plan.cluster, plan.rows, build.stream_of(vh),
     )
     return tuple(grads)
 

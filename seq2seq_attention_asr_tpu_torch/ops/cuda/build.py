@@ -182,10 +182,11 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-# Where the bf16 operating point stops (ROADMAP Queue A items 5b and 5c).
-BF16_TRAINING = ("bf16 training needs bf16 instances of the backward kernels: K5 and K6 (ROADMAP "
-                 "Queue A item 5b), then K9, K11, K13 and K15 for conv_bilstm, flagship_loc, vgg "
-                 "and conv_bilstm_content (ROADMAP Queue A item 5c, training part)")
+# Where the bf16 operating point stops (ROADMAP Queue A item 5c, training
+# part): the backwards with no bf16 entry refuse a bf16 gradient.
+BF16_TRAINING = ("bf16 training of conv_bilstm, conv_bilstm_content and flagship_loc needs bf16 "
+                 "instances of the backward kernels K9, K11, K13 and K15 (ROADMAP Queue A item "
+                 "5c, training part)")
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

@@ -22,12 +22,14 @@
   same kernels with one direction. CUDA sources ``csrc/gru_scan.cu`` and
   ``csrc/gru_scan_bwd.cu``.
 
-K1 has a bf16 entry too (``KERNEL_BF16``, the same walk with a bf16 IO
-type): the JAX kernel with bf16 inputs (``dt`` = bf16 in
-``_bi2_fwd_kernel``) rounds the products' operands h and r * h to bf16,
-accumulates in float32, carries h in float32 and rounds each output at
-its store. K6 has none yet: ``BiGRUScan2`` refuses the gradient of a
-bf16 scan.
+K1 and K6 have bf16 entries too (``KERNEL_BF16``, ``KERNEL_BWD_BF16``:
+the same walks with a bf16 IO type). The JAX kernels with bf16 inputs
+(``dt`` = bf16 in ``_bi2_fwd_kernel`` and ``_bi2_bwd_kernel``) round the
+products' operands to bf16, accumulate in float32, keep the carries and
+the gate math in float32 and round each output once, at its store: the
+forward rounds h and r * h; the backward rounds r * h_prev, da_c and
+[da_z | da_r], and stores dx and the weight gradients in bf16
+(``bigru_scan2_bwd_plain_bf16`` says where).
 
 Every kernel's plain version (``*_plain``) sits beside its wrapper; all
 the kernels share the walks of ``csrc/gru_walk.cuh``, which run on
@@ -56,6 +58,10 @@ KERNEL_BWD = build.Kernel(
 KERNEL_BF16 = build.Kernel(
     "bigru_scan2_bf16", "bigru_scan2.cu", "bigru_scan2_fwd_bf16",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+)
+KERNEL_BWD_BF16 = build.Kernel(
+    "bigru_scan2_bwd_bf16", "bigru_scan2_bwd.cu", "bigru_scan2_bwd_bf16",
+    [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
 _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -157,7 +163,33 @@ def bigru_scan2_bwd_plain(xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb):
     does. Direction 0 ran forward in time, so its backward walks t =
     L-1..0 with h_prev = ysf[t-1]; direction 1 ran backward, so its
     backward walks t = 0..L-1 with h_prev = ysb[t+1]; h_prev is 0 where
-    that index leaves [0, L)."""
+    that index leaves [0, L). On bfloat16 inputs,
+    bigru_scan2_bwd_plain_bf16."""
+    if xf.dtype == torch.bfloat16:
+        return bigru_scan2_bwd_plain_bf16(xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb)
+    return _bwd_plain(xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb)
+
+
+def bigru_scan2_bwd_plain_bf16(xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb):
+    """Plain twin of K6's bf16 entry, at the rounding points of
+    ``_bi2_bwd_kernel`` with bf16 inputs (gru_scan.py:567-649 of the JAX
+    package): every input widened to float32 (h_prev is the bf16 output
+    it is); the recompute rounds r * h_prev before its product with Wh;
+    da_c is rounded before ``da_c @ Wh^T`` and [da_z | da_r] before its
+    product with Wzr^T, and dx is exactly those rounded values; the
+    carries and the gate math stay float32; dWzr = sum h_prev^T
+    round(da_zr) and dWh = sum round(r h_prev)^T round(da_c) are summed
+    in float32 and rounded once. The entry rounds at the same points (it
+    is this function's exact twin up to the order of its sums)."""
+    wide = [t.float() for t in (xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb)]
+    dxf, dxb, dwzr2, dwh2 = _bwd_plain(*wide, rnd=build.round_bf16)
+    return tuple(t.to(torch.bfloat16) for t in (dxf, dxb, dwzr2, dwh2))
+
+
+def _bwd_plain(xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb, rnd=lambda x: x):
+    """K6's backward on float32 tensors, `rnd` rounding each product's
+    operand that the JAX kernel rounds to its IO type (the identity for
+    float32)."""
     b, l, _ = xf.shape
     h = wh2.shape[2]
     zero = xf.new_zeros((b, h))
@@ -171,14 +203,14 @@ def bigru_scan2_bwd_plain(xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb):
             h_prev = ys[:, t + prev] if 0 <= t + prev < l else zero
             zr = torch.sigmoid(h_prev @ wzr2[d] + x[:, t, : 2 * h])
             z, r = zr[:, :h], zr[:, h:]
-            rh = r * h_prev
+            rh = rnd(r * h_prev)
             c = torch.tanh(rh @ wh2[d] + x[:, t, 2 * h:])
             dh = dys[:, t] + carry
             dz = dh * (c - h_prev)
-            da_c = dh * z * (1.0 - c * c)
+            da_c = rnd(dh * z * (1.0 - c * c))
             drh = da_c @ wh2[d].T
             dr = drh * h_prev
-            da_zr = torch.cat([dz * z * (1.0 - z), dr * r * (1.0 - r)], dim=-1)
+            da_zr = rnd(torch.cat([dz * z * (1.0 - z), dr * r * (1.0 - r)], dim=-1))
             carry = drh * r + da_zr @ wzr2[d].T + dh * (1.0 - z)
             dxs[d][:, t, : 2 * h] = da_zr
             dxs[d][:, t, 2 * h:] = da_c
@@ -189,30 +221,34 @@ def bigru_scan2_bwd_plain(xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb):
 
 def bigru_scan2_bwd(xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb):
     """Cotangents of bigru_scan2's inputs given its inputs, its outputs
-    (ysf, ysb) and their cotangents: (dxf, dxb, dwzr2, dwh2).
+    (ysf, ysb) and their cotangents: (dxf, dxb, dwzr2, dwh2). All float32,
+    or all bfloat16 (the bf16 entry; cotangents in bf16).
 
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain version; CUDA tensors the kernel (float32
+    or bf16 entry, by the inputs' type)."""
     args = (xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb)
     if build.on_cpu(*args):
         return bigru_scan2_bwd_plain(*args)
+    dt = build.io_dtype(xf)
+    kernel = KERNEL_BWD_BF16 if dt == torch.bfloat16 else KERNEL_BWD
     b, l, _ = xf.shape
-    h = _hidden(xf, KERNEL_BWD.name)
+    h = _hidden(xf, kernel.name)
     dev = xf.device
     shapes = [(b, l, 3 * h)] * 2 + [(2, h, 2 * h), (2, h, h)] + [(b, l, h)] * 4
     for name, t, shape in zip(("xf", "xb", "wzr2", "wh2", "ysf", "ysb", "dysf", "dysb"),
                               args, shapes):
-        build.check(name, t, shape, dev)
-    dxf = torch.empty((b, l, 3 * h), device=dev, dtype=torch.float32)
-    dxb = torch.empty_like(dxf)
-    dwzr2 = torch.empty((2, h, 2 * h), device=dev, dtype=torch.float32)
-    dwh2 = torch.empty((2, h, h), device=dev, dtype=torch.float32)
-    rh = torch.empty((2, b, l, h), device=dev, dtype=torch.float32)  # r * h_prev, per step
+        build.check(name, t, shape, dev, dt)
+    new = lambda *shape, dtype=dt: torch.empty(shape, device=dev, dtype=dtype)
+    dxf, dxb, dwzr2, dwh2 = new(b, l, 3 * h), new(b, l, 3 * h), new(2, h, 2 * h), new(2, h, h)
     if b * l == 0:
         return dxf, dxb, dwzr2.zero_(), dwh2.zero_()
+    rh = new(2, b, l, h)  # r * h_prev, per step (bf16: rounded)
+    # The bf16 entry keeps the pre-pass's gates in float32 beside its bf16 dx.
+    gates = [new(2, b, l, 3 * h, dtype=torch.float32)] if dt == torch.bfloat16 else []
+    # The bf16 entry's walk keeps its slices in float: the float walk's plan.
     plan = walk.plan_on(KERNEL_BWD, b, h, "gru", 2, dev)
-    KERNEL_BWD.launch(
-        *[build.ptr(t) for t in args],
-        build.ptr(dxf), build.ptr(dxb), build.ptr(dwzr2), build.ptr(dwh2), build.ptr(rh),
+    kernel.launch(
+        *[build.ptr(t) for t in (*args, dxf, dxb, dwzr2, dwh2, rh, *gates)],
         b, l, h, *plan.args(), build.stream_of(xf),
     )
     return dxf, dxb, dwzr2, dwh2
@@ -220,8 +256,7 @@ def bigru_scan2_bwd(xf, xb, wzr2, wh2, ysf, ysb, dysf, dysb):
 
 class BiGRUScan2(torch.autograd.Function):
     """bigru_scan2 with its gradient: K1 forward, K6 backward (the plain
-    versions on CPU tensors). The gradient of a bf16 scan is refused:
-    K6 has no bf16 instance yet."""
+    versions on CPU tensors), each in float32 or through its bf16 entry."""
 
     @staticmethod
     def forward(ctx, xf, xb, wzr2, wh2):
@@ -231,8 +266,6 @@ class BiGRUScan2(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dysf, dysb):
-        if ctx.saved_tensors[0].dtype == torch.bfloat16:
-            raise NotImplementedError(build.BF16_TRAINING)
         return bigru_scan2_bwd(*ctx.saved_tensors, dysf.contiguous(), dysb.contiguous())
 
 

@@ -31,7 +31,9 @@ def bigru_layer(params: Params, x: torch.Tensor, lengths: Optional[torch.Tensor]
     h = 0 through the padding, which lets the backward direction scan
     the natural-order array; valid positions equal a per-row reverse
     scan, padding is exactly 0. bf16 params and input (a bf16 model's)
-    run in bf16 throughout, K1 through its bf16 entry, and give bf16.
+    run in bf16 throughout, K1 and, for the gradient, K6 through their
+    bf16 entries, and give bf16; the gradient reaches float32 masters
+    through the caller's casts.
     """
     h_dim = params["fwd"]["w_zr"].shape[1] // 2
     if lengths is not None:

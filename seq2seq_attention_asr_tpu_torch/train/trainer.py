@@ -138,7 +138,13 @@ def make_step_core(forward_fn: Callable[..., Dict[str, torch.Tensor]], tx: optim
                 params = train_params
         leaves = [t.detach().requires_grad_(True) for t in tree.leaves(params)]
         live = tree.unflatten(params, leaves)
-        with torch.enable_grad():
+        # The gradient runs after the forward has left its float32_sums,
+        # so a bf16 model's backward products would sum in bf16 under
+        # PyTorch's default flag: the step keeps the flag off for the
+        # forward and the gradient alike (the JAX package sums every bf16
+        # dot in float32), and restores the caller's. No float32 product
+        # reads the flag.
+        with torch.enable_grad(), float32_sums(torch.bfloat16):
             out = forward_fn(live, x, x_len, onehot, dec_mask, generator=generator, train=True)
             per_utt = torch.sum(-torch.sum(onehot * out["logprobs"], dim=-1) * dec_mask, dim=-1)
             steps = torch.sum(dec_mask, dim=-1)

@@ -1741,3 +1741,158 @@ def test_bf16_evaluation_sums_in_float32_under_either_flag(card):
     for key in ("valid_per", "valid_nll", "valid_accuracy"):
         assert rows[True][key] == rows[False][key], key
     assert rows[True]["valid_per"] < 0.25
+
+
+# K6's bf16 entry: one row at an odd length, the flagship's batch, a
+# part-empty last row group, fewer units than blocks, and slices streamed
+# from L2 (the bf16 weights read by rows there). Its twin is its plain
+# bf16 version, which rounds where the entry rounds.
+@pytest.mark.parametrize("b,l,h", [(1, 131, 256), (16, 144, 256), (33, 20, 256), (2, 6, 5),
+                                   (3, 9, 400), (4, 11, 1024)])
+def test_bigru_scan2_bwd_bf16_entry(card, b, l, h):
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan
+
+    gen = torch.Generator().manual_seed(b * 1000 + h + 7)
+    lens = torch.randint(1, l + 1, (b,), generator=gen).cuda()
+    valid = (torch.arange(l, device=card)[None] < lens[:, None]).float()[:, :, None]
+    ins = _to_bf16([_rand(gen, b, l, 3 * h) * valid, _rand(gen, b, l, 3 * h) * valid,
+                    _rand(gen, 2, h, 2 * h, scale=h ** -0.5), _rand(gen, 2, h, h, scale=h ** -0.5)])
+    ys = gru_scan.bigru_scan2(*ins)
+    dys = _to_bf16([_rand(gen, b, l, h, scale=0.1) * valid for _ in range(2)])
+    args = [*ins, *ys, *dys]
+    got = _bf16_twice(gru_scan.KERNEL_BWD_BF16, gru_scan.bigru_scan2_bwd, args)
+    plain = gru_scan.bigru_scan2_bwd_plain(*args)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    _bf16_close("bigru_scan2_bwd_bf16", got, plain, plain,
+                gru_scan.bigru_scan2_bwd_plain(*_upcast(args)))
+
+
+def _k5_bf16_args(card, gen, b, l, t, dims):
+    """K5's bf16 entry's arguments: bf16 scan inputs, K4's bf16 outputs
+    with its float32 alpha and c (c32 last), random bf16 cotangents."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    s, a, st = dims
+    vh, h, mask, yin, weights = _scan_case(card, gen, b, l, t, s, a, st)
+    ins = _to_bf16([vh, h, mask, yin, *weights])
+    (s_seq, c_seq, _), (alpha32, c32) = attention_scan.attention_decode_scan_train(*ins)
+    cots = _to_bf16([_rand(gen, b, t, n, scale=0.1) for n in (st, a, l)])
+    return [*ins, s_seq, c_seq, alpha32, *cots, c32]
+
+
+# K5's bf16 entry: small widths, St and S not multiples of 4 (the
+# exchanges store a value at a time), and the flagship's training shape;
+# its twin forms the softmax's sum as the entry does, from the float32 c.
+@pytest.mark.parametrize("b,l,t,dims", [(3, 13, 5, (16, 24, 8)), (4, 37, 9, (17, 12, 9)),
+                                        (16, 144, 56, (512, 512, 256))])
+def test_attention_decode_scan_bwd_bf16_entry(card, b, l, t, dims):
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    args = _k5_bf16_args(card, torch.Generator().manual_seed(b * 13 + l + 5), b, l, t, dims)
+    got = _bf16_twice(attention_scan.KERNEL_BWD_BF16,
+                      lambda *a: attention_scan.attention_decode_scan_bwd(*a[:-1], c32=a[-1]),
+                      args)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    _bf16_close("attention_decode_scan_bwd_bf16", got,
+                attention_scan.attention_decode_scan_bwd_twin_bf16(*args),
+                attention_scan.attention_decode_scan_bwd_plain_bf16(*args[:-1]),
+                attention_scan.attention_decode_scan_bwd_plain(*_upcast(args[:-1])))
+    with pytest.raises(ValueError, match="float32 alpha"):
+        attention_scan.attention_decode_scan_bwd(*args[:-1])  # no c32: refused, no fallback
+
+
+def test_bf16_train_step_sums_in_float32_under_either_flag(card):
+    """A bf16 flagship train step at small widths on the card: the bf16
+    entries of K1, K6, K4 and K5 only (3, 3, 1, 1 launches), the same
+    metrics and gradients bit for bit under either value of
+    allow_bf16_reduced_precision_reduction, and the caller's flag
+    restored; the float32 masters get float32 gradients."""
+    from seq2seq_attention_asr_tpu_torch import tree
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan, attention_step, gru_scan
+    from seq2seq_attention_asr_tpu_torch.train import experiment, optim, trainer
+
+    exp = experiment.timit_chorowski_normnll_colnorm()
+    exp.model_kwargs.update(hidden_frame_size=32, output_frame_size=32, score_depth=48,
+                            state_depth=32, mlp_depth=16, compute_dtype="bfloat16")
+    model = exp.build_model()
+    params = exp.init_params(torch.Generator().manual_seed(0), device="cuda")
+    gen = torch.Generator().manual_seed(3)
+    b, l, t = 8, 40, 12
+    x = _rand(gen, b, l, 123)
+    x_len = torch.tensor([40, 31, 40, 17, 25, 40, 9, 33], device=card)
+    y = torch.randint(0, 62, (b, t), generator=gen).cuda()
+    dec_mask = (torch.arange(t)[None] < torch.tensor([12, 7, 12, 3, 9, 12, 2, 11])[:, None])
+    batch = (x, x_len, y, dec_mask.float().cuda())
+    tx = optim.Transform(lambda p: tree.tree_map(torch.zeros_like, p),
+                         lambda g, s, p=None: (tree.tree_map(torch.zeros_like, g), g))
+    step = trainer.make_step_core(model.forward, tx, exp.optim, exp.train, model.output_depth)
+    kernels = (gru_scan.KERNEL_BF16, gru_scan.KERNEL_BWD_BF16, attention_scan.KERNEL_FWD_BF16,
+               attention_scan.KERNEL_BWD_BF16, gru_scan.KERNEL, gru_scan.KERNEL_BWD,
+               attention_scan.KERNEL_FWD, attention_scan.KERNEL_BWD, attention_step.KERNEL_BF16)
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    runs = {}
+    try:
+        for flag in (True, False):
+            matmul.allow_bf16_reduced_precision_reduction = flag
+            counts = [k.launches for k in kernels]
+            state, m = step((params, tx.init(params), torch.Generator(device="cuda")), batch)
+            torch.cuda.synchronize()
+            assert [k.launches - c for k, c in zip(kernels, counts)] == [3, 3, 1, 1, 0, 0, 0, 0, 0]
+            assert matmul.allow_bf16_reduced_precision_reduction is flag
+            runs[flag] = (float(m["loss"]), tree.leaves(state[1]))
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
+    assert runs[True][0] == runs[False][0]
+    assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in runs[True][1])
+    assert all(torch.equal(a, b) for a, b in zip(runs[True][1], runs[False][1]))
+
+
+def _f32_backward_digests(device="cuda"):
+    """sha1 of the float32 outputs of K6, K5, K17 and K9 (each with its
+    reduce_atb.cuh reduction) on seeded inputs: the bf16 operand path must
+    leave them bit for bit as they were (F32_BACKWARD_DIGESTS). Only the
+    public wrappers are called, so the same function digests another
+    checkout's kernels."""
+    import hashlib
+
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan, gru_scan, lstm_scan
+
+    gen = torch.Generator().manual_seed(28)
+    r = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen) * scale).to(device)
+    b, l, h = 5, 33, 256
+    k6 = gru_scan.bigru_scan2_bwd(r(b, l, 3 * h), r(b, l, 3 * h), r(2, h, 2 * h, scale=h ** -0.5),
+                                  r(2, h, h, scale=h ** -0.5), r(b, l, h, scale=0.5),
+                                  r(b, l, h, scale=0.5), r(b, l, h), r(b, l, h))
+    bb, ll, t, s, a, st = 4, 37, 9, 24, 32, 16
+    u = lambda *shape: r(*shape, scale=shape[0] ** -0.5)
+    k5 = attention_scan.attention_decode_scan_bwd(
+        r(bb, ll, s), r(bb, ll, a, scale=0.5), torch.ones(bb, ll, device=device),
+        r(bb, t, st, scale=0.5), u(st, s), u(st, s)[0], u(s, s)[0], u(a, st), u(a, st)[0],
+        u(2 * st, st), u(2 * st, st)[0], u(2 * st, 2 * st), u(2 * st, st),
+        r(bb, t, st, scale=0.5), r(bb, t, a, scale=0.5),
+        torch.softmax(r(bb, t, ll), dim=-1).contiguous(), r(bb, t, st, scale=0.1),
+        r(bb, t, a, scale=0.1), r(bb, t, ll, scale=0.1))
+    k17 = gru_scan.gru_scan_bwd(r(b, l, 3 * h), r(b, l, h, scale=0.5), r(b, l, h),
+                                r(h, 2 * h, scale=h ** -0.5), r(h, h, scale=h ** -0.5))
+    hh = 128
+    k9 = lstm_scan.bilstm_scan_bwd(r(2, b, l, 4 * hh), r(2, b, l, hh, scale=0.5),
+                                   r(2, b, l, hh, scale=0.5), r(2, b, l, hh),
+                                   r(2, hh, 4 * hh, scale=hh ** -0.5))
+    return {name: hashlib.sha1(b"".join(o.detach().cpu().numpy().tobytes() for o in outs))
+            .hexdigest()[:16] for name, outs in (("K6", k6), ("K5", k5), ("K17", k17), ("K9", k9))}
+
+
+# The digests of the commit before the bf16 operand path, on an NVIDIA
+# H100 80GB HBM3 (the commit with it gave the same, and the same bits for
+# K4-K6 and K9-K19 and K4's bf16 entry at chip_smoke.py's training shapes,
+# B = 16 and 128).
+F32_BACKWARD_DIGESTS = {"K6": "5f9b7f0048f1a90b", "K5": "bd63f6fab1c2cac9",
+                        "K17": "f6d7f7c90e32486f", "K9": "7c18395daf24dbda"}
+
+
+def test_float32_backwards_are_bit_for_bit_as_before(card):
+    """K6's, K5's, K17's and K9's float32 results (their reductions
+    included) are the bits the kernels gave before the bf16 operand path
+    of reduce_atb.cuh and the bf16 instances of the walks existed."""
+    assert _f32_backward_digests() == F32_BACKWARD_DIGESTS

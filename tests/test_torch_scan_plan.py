@@ -283,7 +283,7 @@ def test_the_gru_walk_lays_out_what_the_plan_counts(shape, c, r):
 
 
 def _libraries():
-    """The entry points of each of the source's four builds, by the macro
+    """The entry points of each of the source's five builds, by the macro
     that selects it (None for K11's, K13's and K15's), from the source's
     #if / #elif / #else around its entry points."""
     src = scan.KERNEL_BWD.source.read_text()
@@ -291,12 +291,27 @@ def _libraries():
     head = src[:src.index('extern "C"')].rstrip()
     assert head.endswith("#if defined(LSTM_FWD_ONLY)")
     lstm_fwd, rest = entries.split("\n#elif defined(GRU_FWD_ONLY)\n")
-    gru_fwd, rest = rest.split("\n#elif !defined(CONTENT_GRU_BWD_ONLY)\n")
+    gru_fwd, rest = rest.split("\n#elif defined(CONTENT_GRU_BWD_BF16)\n")
+    k5_bf16, rest = rest.split("\n#elif !defined(CONTENT_GRU_BWD_ONLY)\n")
     others, k5 = rest.split("\n#else\n")
     assert src.rstrip().endswith("#endif")
     names = lambda text: set(re.findall(r'extern "C" int (\w+)\(', text))
     return {"LSTM_FWD_ONLY": names(lstm_fwd), "GRU_FWD_ONLY": names(gru_fwd),
-            "CONTENT_GRU_BWD_ONLY": names(k5), None: names(others)}
+            "CONTENT_GRU_BWD_BF16": names(k5_bf16), "CONTENT_GRU_BWD_ONLY": names(k5),
+            None: names(others)}
+
+
+def test_k5s_bf16_entry_builds_a_library_of_its_own():
+    """K5's bf16 entry builds from the same source with
+    CONTENT_GRU_BWD_BF16 defined into a library of its own, beside K5's
+    and the others: that build holds its entry point and limits helper and
+    no other, and its walk's cell is K5's (the GRU)."""
+    k = scan.KERNEL_BWD_BF16
+    assert k.source == scan.KERNEL_BWD.source and k.defines == ("CONTENT_GRU_BWD_BF16",)
+    assert k.library_path() not in {x.library_path() for x in (
+        scan.KERNEL_BWD, scan.KERNEL_FWD, scan.KERNEL_LOC_LSTM_FWD, scan.KERNEL_LSTM_BWD)}
+    assert _libraries()["CONTENT_GRU_BWD_BF16"] == {k.symbol, k.symbol + "_limits"}
+    assert scan.WALK_CELL[k.symbol] == scan.WALK_CELL[scan.KERNEL_BWD.symbol] == "gru"
 
 
 def test_k5_builds_a_library_of_its_own():

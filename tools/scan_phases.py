@@ -178,7 +178,7 @@ MODES = {"k13": (("attention_decode_scan_loc_bwd",), ("loc_gru_bwd_kernel",)),
                          ("loc_gru_fwd_kernel", "content_gru_fwd_kernel"))}
 # The modes on decoder_fwd_walk.
 FWD_MODES = ("lstm_fwd", "gru_dec_fwd")
-WALK_SIG = "__device__ __forceinline__ void decoder_walk(float* sm, const BwdArgs& a) {"
+WALK_SIG = "__device__ __forceinline__ void decoder_walk(float* sm, const BwdArgsT<IO>& a) {"
 WALK_LOOP = "  for (int s = 0; s < T; ++s) {"
 FWD_WALK_SIG = ("__device__ __forceinline__ void decoder_fwd_walk(float* sm, const FwdArgsT<IO>& "
                 "a,\n                                                 const FwdScratch& x, int "

@@ -1241,9 +1241,10 @@ def cudnn_bilstm(p, x):
 def cudnn_bilstm_bwd(p, x, dy):
     """cuDNN's backward of its bidirectional LSTM with the weights of `p`
     on x (B, L, I), given the output's cotangent dy (B, L, 2H), as a call:
-    autograd.grad of the output for the input and every weight. Besides
-    what K9 computes it forms dx and the input weights' gradient."""
-    lstm = cudnn_lstm(p, x.device)
+    autograd.grad of the output for the input and every weight, in x's
+    type (float32 or bf16). Besides what K9 computes it forms dx and the
+    input weights' gradient."""
+    lstm = cudnn_lstm(p, x.device).to(x.dtype)
     xin = x.detach().requires_grad_(True)
     with torch.enable_grad():
         out = lstm(xin)[0]
@@ -3039,6 +3040,16 @@ BF16_ULPS = {"bigru_scan2_bf16": 2, "attention_decode_scan_fwd_bf16": 32,
 # its first rounding point, on bf16 inputs).
 BF16_ROUNDED_SHARE = 0.75
 BF16_ROUNDED_MIN = 0.01
+# The decoder backwards of phase 12 (d) carry float noise through 56 steps
+# of an LSTM or through the location term's long sums: the same rounded
+# function evaluated in float64 lands as far from the float32 twin as
+# skipping the rounding points does on some outputs (on the CPU, at B=16:
+# 94% of dbconv's elements either way, 8.5% against 16.8% of dvh's). The
+# rounding check can tell the two apart only where the float32 result
+# rounded at the output differs from the twin on at least this many times
+# the share the float64 twin does; it is made on those outputs, and at
+# least one output of each case must be one.
+BF16_NOISE_FACTOR = 2.0
 # Phase 12 (c): bf16 training of the flagship and of VGG through the bf16
 # entries of K6 and K5 (BF16_TRAIN_OF), with K1's and K4's (K4's writing
 # the float32 alpha and c the backward reads). The two entries are held to
@@ -3074,6 +3085,80 @@ BF16_STEP_KERNELS = ("bigru_scan2_bwd_bf16_kernel", "gru_gates_kernel", "bigru_s
 BF16_STEP_RTOL = 1e-3  # the card's bf16 step's loss against the CPU's on the same batch
 BF16_FIT_PER_TOL = 0.01  # the bf16 epoch's held-out PER against the float32 epoch's
 BF16_FIT_SEED = 3
+# Phase 12 (d): bf16 training of conv_bilstm, conv_bilstm_content and
+# flagship_loc through the bf16 entries of K9, K11, K15 and K13 (with K7's,
+# K10's, K14's, K12's, K1's and K6's; the forwards writing the float32
+# alpha and c the backwards read). Each is held to its exact twin (K9's:
+# bilstm_scan_bwd_plain on the widened inputs, which rounds nothing, as
+# the JAX kernel; K11's, K15's and K13's: the plain bf16 versions with the
+# softmax's sum formed as the entries form it) within BF16_ULPS, and to the
+# plain bf16 version by the ground-truth rule: K9, K11 and K15 at B = 16
+# and 128, 144 frames (L' = 16), T = 56; K13 at B = 16 and 128, L = 144,
+# T = 56.
+BF16_OTHER_TRAIN_OF = {
+    "bilstm_scan_bwd_bf16": "bilstm_scan_bwd",
+    "attention_decode_scan_loc_lstm_bwd_bf16": "attention_decode_scan_loc_lstm_bwd",
+    "attention_decode_scan_lstm_bwd_bf16": "attention_decode_scan_lstm_bwd",
+    "attention_decode_scan_loc_bwd_bf16": "attention_decode_scan_loc_bwd"}
+_ATB_ROUND = ("atb_kernel",) * 2 + ("round_to_bf16_kernel",) * 2
+BF16_SYMBOLS.update({
+    "bilstm_scan_bwd_bf16": ("bilstm_scan_bwd_bf16_kernel", "lstm_gates_bf16_kernel",
+                             "atb_kernel"),
+    "attention_decode_scan_loc_lstm_bwd_bf16": ("lstm_decoder_prepass_bf16_kernel",) * 3
+    + ("loc_lstm_bwd_bf16_kernel",) + _ATB_ROUND,
+    "attention_decode_scan_lstm_bwd_bf16": ("lstm_decoder_prepass_bf16_kernel",) * 3
+    + ("scan_lstm_bwd_bf16_kernel",) + _ATB_ROUND,
+    "attention_decode_scan_loc_bwd_bf16": ("gru_decoder_prepass_bf16_kernel",) * 4
+    + ("loc_gru_bwd_bf16_kernel",) + _ATB_ROUND})
+F32_SYMBOLS.update({
+    "bilstm_scan_bwd_bf16": ("bilstm_scan_bwd_kernel", "lstm_gates_kernel", "atb_kernel"),
+    "attention_decode_scan_loc_lstm_bwd_bf16": PREPASS + ("loc_lstm_bwd_kernel",)
+    + ("atb_kernel",) * 2,
+    "attention_decode_scan_lstm_bwd_bf16": PREPASS + ("scan_lstm_bwd_kernel",)
+    + ("atb_kernel",) * 2,
+    "attention_decode_scan_loc_bwd_bf16": GRU_PREPASS + ("loc_gru_bwd_kernel",)
+    + ("atb_kernel",) * 2})
+# K9's bf16 entry stores float32 and rounds nothing: the float32
+# backwards' 5e-4 of the output's scale (bwd_err), in bf16 ulps. The
+# decoder backwards carry their flips over the 56 steps as K5's do.
+BF16_ULPS.update({"bilstm_scan_bwd_bf16": 5e-4 / 2 ** -7,
+                  "attention_decode_scan_loc_lstm_bwd_bf16": 32,
+                  "attention_decode_scan_lstm_bwd_bf16": 32,
+                  "attention_decode_scan_loc_bwd_bf16": 32})
+# Each configuration's bf16 train step: its recipe's label, the batch it
+# is checked and timed at, its launches (the bf16 entries of its kernels,
+# nothing else) and its device kernels by trace name.
+BF16_OTHER_STEPS = {
+    "conv_bilstm": (BIG_B, {"bilstm_scan_bf16": 1, "bilstm_scan_bwd_bf16": 1,
+                            "attention_decode_scan_loc_lstm_fwd_bf16": 1,
+                            "attention_decode_scan_loc_lstm_bwd_bf16": 1},
+                    ("bilstm_scan_bwd_bf16_kernel", "lstm_gates_bf16_kernel",
+                     "bilstm_scan_bf16_kernel", "loc_lstm_fwd_bf16_kernel",
+                     "lstm_fwd_prepass_bf16_kernel", "loc_lstm_bwd_bf16_kernel",
+                     "lstm_decoder_prepass_bf16_kernel", "round_to_bf16_kernel", "atb_kernel")),
+    "conv_bilstm_content": (TRAIN_B, {"bilstm_scan_bf16": 1, "bilstm_scan_bwd_bf16": 1,
+                                      "attention_decode_scan_lstm_fwd_bf16": 1,
+                                      "attention_decode_scan_lstm_bwd_bf16": 1},
+                            ("bilstm_scan_bwd_bf16_kernel", "lstm_gates_bf16_kernel",
+                             "bilstm_scan_bf16_kernel", "scan_lstm_fwd_bf16_kernel",
+                             "lstm_fwd_prepass_bf16_kernel", "scan_lstm_bwd_bf16_kernel",
+                             "lstm_decoder_prepass_bf16_kernel", "round_to_bf16_kernel",
+                             "atb_kernel")),
+    "flagship_loc": (TRAIN_B, {"bigru_scan2_bf16": 3, "bigru_scan2_bwd_bf16": 3,
+                               "attention_decode_scan_loc_fwd_bf16": 1,
+                               "attention_decode_scan_loc_bwd_bf16": 1},
+                     ("bigru_scan2_bwd_bf16_kernel", "gru_gates_kernel",
+                      "bigru_scan2_bf16_kernel", "gru_fwd_prepass_bf16_kernel",
+                      "loc_gru_fwd_bf16_kernel", "gru_decoder_prepass_bf16_kernel",
+                      "loc_gru_bwd_bf16_kernel", "round_to_bf16_kernel", "atb_kernel")),
+}
+# Phase 12 (d)'s short fit: three Trainer.fit epochs of conv_bilstm in bf16
+# and in float32 from one seeded init on the synthetic corpus, the same
+# batches; each bf16 epoch's mean train NLL within this of the float32
+# one's (relative), and both falling.
+BF16_FIT_NLL_RTOL = 0.02
+BF16_FIT_CORPUS = dict(n_train=128, n_valid=16, n_phones=61, feat_dim=123, min_len=5, max_len=12,
+                       frames_per_phone=(8, 12), noise=0.3)
 
 
 def rel_dist(got, truth) -> float:
@@ -3090,35 +3175,69 @@ def bf16_ulps(got, twin):
     return float((d / ulp).max()) if d.numel() else 0.0, float((d != 0).float().mean())
 
 
-def bf16_check(name, tag, got, twin, plain, truth) -> float:
+def bf16_check(name, tag, got, twin, plain, truth, noise=None) -> float:
     """The bf16 kernel's outputs `got` against its exact twin's: each
     element within BF16_ULPS[name] ulps, and differing on at most
     BF16_ROUNDED_SHARE of the share of elements on which the float32
     `truth`, rounded to the output's type, differs from the twin (where
-    that share is BF16_ROUNDED_MIN or more); and by the ground-truth rule
-    against the plain bf16 version's (`plain`, the JAX kernel's rounding
-    points). Exits when one fails or an output is not finite. Returns the
-    max abs error against the twin."""
+    that share is BF16_ROUNDED_MIN or more, and, given `noise`, the twin
+    evaluated in float64, BF16_NOISE_FACTOR times the share on which that
+    differs from the twin or more; at least one output must then be
+    checked); and by the ground-truth rule against the plain bf16
+    version's (`plain`, the JAX kernel's rounding points). Exits when one
+    fails or an output is not finite. Returns the max abs error against
+    the twin."""
     err = max_err([g.float() for g in got], [w.float() for w in twin])
+    checked = 0
     for i, (g, w, p, t) in enumerate(zip(got, twin, plain, truth)):
         kd, pd = rel_dist(g, t), rel_dist(p, t)
         ulps, differ = bf16_ulps(g, w)
         _, unrounded = bf16_ulps(t.to(g.dtype), w)
+        floor = None if noise is None else bf16_ulps(noise[i].to(g.dtype), w)[1]
         finite = bool(torch.isfinite(g.float()).all())
         print(f"parity {name} {tag} output {i}: {ulps:.3f} ulps from the exact twin at most "
               f"(<= {BF16_ULPS[name]}), {differ:.4f} of the elements differ (the float32 result "
-              f"rounded at the output: {unrounded:.4f}); rel L2 from the f32 truth, kernel "
+              f"rounded at the output: {unrounded:.4f}"
+              + ("" if floor is None else f"; the float64 twin: {floor:.4f}")
+              + f"); rel L2 from the f32 truth, kernel "
               f"{kd:.3e}, plain bf16 {pd:.3e} (kernel <= 2 x plain + 0.02), dtype {g.dtype}, "
               f"finite={finite}")
         if not finite or g.dtype != w.dtype or not ulps <= BF16_ULPS[name]:
             raise SystemExit(f"{name} {tag}: the bf16 kernel is not its exact twin")
-        if unrounded >= BF16_ROUNDED_MIN and not differ <= BF16_ROUNDED_SHARE * unrounded:
-            raise SystemExit(f"{name} {tag}: the bf16 kernel differs from its twin about as "
-                             f"often as the float32 result rounded at its output does")
+        if unrounded >= BF16_ROUNDED_MIN and (floor is None
+                                              or unrounded >= BF16_NOISE_FACTOR * floor):
+            checked += 1
+            if not differ <= BF16_ROUNDED_SHARE * unrounded:
+                raise SystemExit(f"{name} {tag}: the bf16 kernel differs from its twin about as "
+                                 f"often as the float32 result rounded at its output does")
         if not kd <= 2.0 * pd + 0.02:
             raise SystemExit(f"{name} {tag}: the bf16 kernel fails the ground-truth rule")
-    print(f"parity {name} {tag}: max_abs_err={err:.3e} against the exact plain twin")
+    if noise is not None and not checked:
+        raise SystemExit(f"{name} {tag}: no output on which the rounding check can tell the "
+                         f"rounding points from float noise")
+    print(f"parity {name} {tag}: max_abs_err={err:.3e} against the exact plain twin"
+          + ("" if noise is None else f"; rounding check made on {checked} of {len(got)} outputs"))
     return err
+
+
+def float64_twin(twin_call, args):
+    """A decoder backward's exact twin evaluated in float64 (the same
+    rounding points, the arithmetic of another precision), bf16 out: how
+    far float noise alone moves the twin's outputs."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    io = attention_scan._io
+
+    def io64(vh, h, enc_mask, yin, weights):
+        vh, h, enc_mask, yin, *weights = (t.double() for t in (vh, h, enc_mask, yin, *weights))
+        return ((vh, h, enc_mask, yin, tuple(weights)), torch.bfloat16,
+                lambda x: x.to(torch.bfloat16).double())
+
+    attention_scan._io = io64
+    try:
+        return twin_call(*args)
+    finally:
+        attention_scan._io = io
 
 
 def bf16_cases(p16, cfg, gen, eval_batch):
@@ -3222,6 +3341,16 @@ def bf16_calls(name):
                             attention_scan.attention_decode_scan_bwd_plain)(*a[:-1]))
     if name == "bilstm_scan_bf16":
         return lstm_scan.bilstm_scan, lstm_scan.bilstm_scan_plain, lstm_scan.bilstm_scan_plain
+    if name == "bilstm_scan_bwd_bf16":  # its plain version, on the widened inputs, rounds nothing
+        return (lstm_scan.bilstm_scan_bwd, lstm_scan.bilstm_scan_bwd_plain,
+                lstm_scan.bilstm_scan_bwd_plain)
+    if name in BF16_OTHER_TRAIN_OF:  # K11's, K15's, K13's: the last argument is c32
+        bwd = getattr(attention_scan, name[:-len("_bf16")])
+        twin = getattr(attention_scan, name[:-len("_bf16")] + "_twin_bf16")
+        plain16 = getattr(attention_scan, name[:-len("_bf16")] + "_plain_bf16")
+        plain32 = getattr(attention_scan, name[:-len("_bf16")] + "_plain")
+        return (lambda *a: bwd(*a[:-1], c32=a[-1]), twin,
+                lambda *a: (plain16 if a[0].dtype == torch.bfloat16 else plain32)(*a[:-1]))
     if name == "attention_decode_scan_fwd_bf16":
         return (attention_scan.attention_decode_scan, attention_scan.gru_folded_scan_plain,
                 attention_scan.attention_decode_scan_plain)
@@ -3247,7 +3376,8 @@ def upcast(args):
 
 def f32_kernel_of(name: str) -> str:
     """The float32 kernel a bf16 entry is an instance of."""
-    return BF16_OF.get(name) or BF16_TRAIN_OF.get(name) or BF16_MODEL_OF[name]
+    return (BF16_OF.get(name) or BF16_TRAIN_OF.get(name) or BF16_OTHER_TRAIN_OF.get(name)
+            or BF16_MODEL_OF[name])
 
 
 def bf16_parity_rows(cases_, card: str) -> dict:
@@ -3271,10 +3401,12 @@ def bf16_parity_rows(cases_, card: str) -> dict:
                 twin = twin_call(*args)
                 plain = plain_call(*args)
                 truth = plain_call(*upcast(args))
+                noise = (float64_twin(twin_call, args) if name in BF16_OTHER_TRAIN_OF
+                         and name != "bilstm_scan_bwd_bf16" else None)
             torch.cuda.synchronize()
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 raise SystemExit(f"{name} {tag}: two calls of the bf16 kernel disagree")
-            errs.append(bf16_check(name, tag, got, twin, plain, truth))
+            errs.append(bf16_check(name, tag, got, twin, plain, truth, noise))
             if i and (f"B={TRAIN_B} " not in tag or "evaluation" in tag or "held-out" in tag):
                 continue
             up = upcast(args)
@@ -3286,7 +3418,8 @@ def bf16_parity_rows(cases_, card: str) -> dict:
             b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
             lib = (f"null ({NO_LIBRARY.get(f32_kernel_of(name), 'cuDNN refused bf16')})"
                    if library is None else f"{lib_ms:.4f} ms (cuDNN's bidirectional "
-                   f"torch.nn.LSTM in bf16, the input projection included)")
+                   f"torch.nn.LSTM in bf16{', its backward' if 'bwd' in name else ''}, the "
+                   f"input projection included)")
             print(f"time {name} {tag}: bf16 kernel {ms:.4f} ms on the device, float32 kernel "
                   f"{f32_ms:.4f} ms on the upcast inputs, plain twin {plain_ms:.4f} ms per call, "
                   f"bound {b_ms:.4f} ms ({b_by}: {flops:.3e} flop at the bf16 peak, "
@@ -4076,10 +4209,8 @@ def bf16_models_phase(kernels, card: str) -> list:
     only its bf16 entries, exactly as many times as the batch and the
     beam's steps call for, with PER within BF16_EVAL_PER_TOL and NLL
     within BF16_EVAL_NLL_RTOL of the CPU's; (c) each entry's device time
-    beside its float32 kernel's on the upcast inputs; (d) a bf16 train
-    step of conv_bilstm, flagship_loc and conv_bilstm_content raising
-    NotImplementedError that names item 5c's training part (VGG's trains:
-    phase 12 (c)). Returns the five entries' {"kernels"} rows."""
+    beside its float32 kernel's on the upcast inputs (their bf16 training:
+    phase 12 (c) and (d)). Returns the five entries' {"kernels"} rows."""
     from seq2seq_attention_asr_tpu_torch import interop
     from seq2seq_attention_asr_tpu_torch.train import optim, trainer
 
@@ -4143,23 +4274,6 @@ def bf16_models_phase(kernels, card: str) -> list:
         if not (dper <= BF16_EVAL_PER_TOL and dnll <= BF16_EVAL_NLL_RTOL):
             raise SystemExit(f"{label}: the card's bf16 evaluation is not the CPU's")
 
-        # (d) a bf16 train step raises where it reaches a backward kernel
-        # without a bf16 entry.
-        if label == "vgg":
-            continue
-        ocfg = optim.OptimConfig()
-        tx = optim.build_optimizer(ocfg)
-        step = trainer.make_step_core(model.forward, tx, ocfg, tcfg, model.output_depth)
-        tr = trainer.Trainer(model, ocfg, tcfg, vocab=vocab, device="cuda")
-        arrs = tuple(a[:2] for a in tr._prepare_batch(batch)[0])
-        try:
-            step((params, tx.init(params), torch.Generator(device="cuda").manual_seed(1)), arrs)
-        except NotImplementedError as e:
-            print(f"{label} bf16 train step on the card: NotImplementedError ({e})")
-            if "5c, training part" not in str(e):
-                raise SystemExit(f"{label}: the refusal does not name item 5c's training part")
-        else:
-            raise SystemExit(f"a {label} bf16 train step ran: it must raise")
     print(f"bf16 models phase: {time.perf_counter() - t0:.1f} s wall ({card})")
     return bf16_kernel_rows(rows)
 
@@ -4269,15 +4383,8 @@ def ground_truth_leaves(label, got, ref, truth) -> float:
 def bf16_flagship_steps(kernels, train_params, card: str) -> dict:
     """Phase 12 (c), the flagship's bf16 train step (the recipe
     timit_chorowski_normnll_colnorm, its orthogonal init from the seed) at
-    B = TRAIN_B and BIG_B: its launches (BF16_STEP_LAUNCHES, nothing else);
-    its loss within BF16_STEP_RTOL of the CPU's bf16 step on the same
-    batch; each gradient leaf by the ground-truth rule against the card's
-    float32 step, the CPU's bf16 gradient the reference; under either
-    value of allow_bf16_reduced_precision_reduction the same bits, the
-    flag restored; the loss falling over 10 optimizer steps; p50, audio
-    s/s and the idle share (train_timing). Returns the launches of one
-    step at TRAIN_B."""
-    from seq2seq_attention_asr_tpu_torch import interop, tree
+    B = TRAIN_B and BIG_B, by bf16_steps: its launches BF16_STEP_LAUNCHES
+    and nothing else. Returns the launches of one step at TRAIN_B."""
     from seq2seq_attention_asr_tpu_torch.train import experiment
 
     def recipe16():
@@ -4285,65 +4392,8 @@ def bf16_flagship_steps(kernels, train_params, card: str) -> dict:
         exp.model_kwargs["compute_dtype"] = "bfloat16"
         return exp
 
-    exp16, exp32 = recipe16(), experiment.timit_chorowski_normnll_colnorm()
-    m16, m32 = exp16.build_model(), exp32.build_model()
-    params = interop.to_torch(train_params, "cuda")
-    matmul = torch.backends.cuda.matmul
-    launches = None
-    for b in (TRAIN_B, BIG_B):
-        batch = tuple(t.cuda() for t in train_batch(b, SEED + 3))
-        runs = {}
-        for flag in (True, False):
-            before = matmul.allow_bf16_reduced_precision_reduction
-            matmul.allow_bf16_reduced_precision_reduction = flag
-            try:
-                runs[flag], counts = counted(kernels, lambda: grads_of_step(
-                    m16, params, batch, exp16.train, exp16.optim, SEED))
-                after = matmul.allow_bf16_reduced_precision_reduction
-            finally:
-                matmul.allow_bf16_reduced_precision_reduction = before
-            print(f"bf16 flagship step B={b} (allow_bf16_reduced_precision_reduction {flag}, "
-                  f"{after} after): loss {runs[flag][0]['loss']!r}, grad_norm "
-                  f"{runs[flag][0]['grad_norm']!r}; launches {counts}")
-            check_counts(f"bf16 flagship step B={b}", counts, tuple(BF16_STEP_LAUNCHES),
-                         BF16_STEP_LAUNCHES)
-            if after != flag:
-                raise SystemExit("the bf16 step did not restore the caller's flag")
-            launches = launches or counts
-        same = runs[True][0] == runs[False][0] and all(torch.equal(x, y) for x, y in zip(
-            tree.leaves(runs[True][1]), tree.leaves(runs[False][1])))
-        print(f"bf16 flagship step B={b}: the same bits under either flag: {same}")
-        if not same:
-            raise SystemExit("the bf16 step's gradient depends on PyTorch's reduced-precision "
-                             "flag: its products do not all sum in float32")
-        metrics, grads = runs[False]
-        t0 = time.perf_counter()
-        cpu_metrics, cpu_grads = grads_of_step(m16, interop.to_torch(train_params, "cpu"),
-                                               tuple(t.cpu() for t in batch), exp16.train,
-                                               exp16.optim, SEED)
-        cpu_s = time.perf_counter() - t0
-        f32_metrics, truth = grads_of_step(m32, params, batch, exp32.train, exp32.optim, SEED)
-        rel = abs(metrics["loss"] - cpu_metrics["loss"]) / abs(cpu_metrics["loss"])
-        print(f"bf16 flagship step B={b}: loss card {metrics['loss']!r}, CPU (plain bf16 "
-              f"versions) {cpu_metrics['loss']!r}, relative {rel:.2e} (tol {BF16_STEP_RTOL}; the "
-              f"CPU step took {cpu_s:.1f} s); the float32 step's loss on the card "
-              f"{f32_metrics['loss']!r}")
-        if not rel <= BF16_STEP_RTOL:
-            raise SystemExit(f"bf16 flagship step B={b}: the card's loss is not the CPU's")
-        ground_truth_leaves(f"bf16 flagship step B={b}", grads, cpu_grads, truth)
-    # 10 optimizer steps on one batch: the loss falls.
-    state, step_fn = make_trainer(recipe16, train_params, "cuda")
-    batch = tuple(t.cuda() for t in train_batch(TRAIN_B, SEED + 3))
-    losses = []
-    for _ in range(10):
-        state, m = step_fn(state, batch)
-        losses.append(float(m["loss"]))
-    print(f"bf16 flagship: loss over 10 card steps on one batch {[round(v, 6) for v in losses]}")
-    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise SystemExit("bf16 flagship: the loss did not fall")
-    for b in (TRAIN_B, BIG_B):
-        train_timing(recipe16, train_params, b, card, BF16_STEP_KERNELS, "chorowski bf16")
-    return launches
+    return bf16_steps(kernels, "flagship", recipe16, experiment.timit_chorowski_normnll_colnorm,
+                      train_params, (TRAIN_B, BIG_B), BF16_STEP_LAUNCHES, BF16_STEP_KERNELS, card)
 
 
 def bf16_fit_phase(kernels, card: str) -> dict:
@@ -4454,6 +4504,306 @@ def bf16_train_phase(kernels, train_params, card: str) -> list:
     bf16_fit_phase(kernels, card)
     bf16_vgg_step(kernels, card)
     print(f"bf16 train phase: {time.perf_counter() - t0:.1f} s wall ({card})")
+    return bf16_kernel_rows(rows)
+
+
+def _bf16_decoder_bwd_case(kind, dec16, output_depth, h16, enc_mask16, y, dec_mask, gen):
+    """The bf16 backward of the decoder scan `kind` ("loc_lstm": K11,
+    "lstm": K15, "loc": K13) on the bf16 annotations h16 of a training
+    batch, as the bf16 train step gives it: the bf16 forward's outputs
+    with its float32 alpha and c (the forward's f32 outputs), random bf16
+    cotangents on s, c and alpha, zero past each row's label length, none
+    on mem; its last argument c32. (tag, args, flops, nbytes, None): no
+    PyTorch call computes the function."""
+    from seq2seq_attention_asr_tpu_torch.ops import attention, readout
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    bf = torch.bfloat16
+    b, l, a = h16.shape
+    t_len = y.shape[1]
+    lstm, loc = kind != "loc", kind != "lstm"
+    with torch.no_grad():
+        vh = attention.precompute_vh(dec16, h16).contiguous()
+        onehot = torch.nn.functional.one_hot(y.long(), output_depth).to(bf) * \
+            dec_mask[..., None].to(bf)
+        y_prev = torch.cat([torch.zeros_like(onehot[:, :1]), onehot[:, :-1]], dim=1)
+        yin = readout.linear_apply(dec16["y_in"], y_prev).contiguous()
+    cell = dec16["cell"]
+    weights = (dec16["ws"]["w"], dec16["ws"]["b"], dec16["w_e"], dec16["c_in"]["w"],
+               dec16["c_in"]["b"], dec16["dec_in"]["w"], dec16["dec_in"]["b"])
+    weights += (cell["w_h"], cell["w_x"], cell["b"]) if lstm else (cell["w_zr"], cell["w_h"])
+    if loc:
+        weights += (dec16["loc_conv"]["w"][:, 0, :].contiguous(), dec16["loc_conv"]["b"],
+                    dec16["u"])
+    key = {"loc_lstm": "LOC_LSTM", "loc": "LOC", "lstm": "LSTM"}[kind]
+    kernels = (getattr(attention_scan, f"KERNEL_{key}_FWD"),
+               getattr(attention_scan, f"KERNEL_{key}_FWD_BF16"))
+    with torch.no_grad():
+        outs, (alpha32, c32) = attention_scan._scan(*kernels, lstm, vh, h16, enc_mask16, yin,
+                                                     weights, f32=True)
+    saved = list(outs)
+    saved[2] = alpha32
+    m = dec_mask[..., None].to(h16.device)
+    rnd = lambda *shape: (torch.randn(*shape, generator=gen).to(h16.device) * 0.1 * m).to(bf)
+    cots = [rnd(b, t_len, st) for st in (yin.shape[2], a, l)] + ([None] if lstm else [])
+    s_dim, st = vh.shape[2], yin.shape[2]
+    fm, f = (dec16["u"].shape[0], dec16["loc_conv"]["w"].shape[0]) if loc else (0, 0)
+    w_elems = sum(w.numel() for w in weights)
+    steps = b * t_len
+    step_mv = st * s_dim + a * st + 2 * st * st + (8 * st * st if lstm else 6 * st * st)
+    loc_flops = 2 * l * fm * f + 2 * l * s_dim * fm
+    # decoder_scan_cases' count of the backward's operations; its bytes:
+    # the bf16 inputs, saved sequences (s, c, mem), cotangents and outputs,
+    # and the float32 alpha and c.
+    flops = steps * (6 * step_mv + 8 * l * s_dim + 3 * loc_flops + 4 * l * a + 4 * l + 30 * st)
+    nbytes = (2 * (b * l * (s_dim + a + 1) + steps * st + w_elems  # inputs
+                   + steps * ((2 if lstm else 1) * st + a)  # s, c (and mem)
+                   + steps * (st + a + l)  # the cotangents of s, c and alpha
+                   + b * l * (s_dim + a) + steps * st + w_elems)  # dvh, dh, dyin, dW
+              + 4 * steps * (l + a))  # alpha32 and c32
+    return (f"B={b} L={l} T={t_len}", (vh, h16, enc_mask16, yin, *weights, *saved, *cots, c32),
+            flops, nbytes, None)
+
+
+def bf16_other_train_cases(params_cpu, gen):
+    """The inputs of the bf16 entries of K9, K11, K15 and K13 as the bf16
+    train steps of conv_bilstm, conv_bilstm_content and flagship_loc give
+    them, on the card, at B = TRAIN_B and BIG_B: {name: [(tag, args,
+    flops, nbytes, library)]}. K9 on conv_bilstm's BiLSTM (the bf16
+    projections of the bf16 conv stack's output, K7's bf16 entry's float32
+    states shifted as BiLSTMScan shifts them, a float32 cotangent of bf16
+    values zero past each row's length), beside cuDNN's bf16 bidirectional
+    LSTM backward; the decoders on each configuration's bf16 encoder
+    output (_bf16_decoder_bwd_case)."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.models import chorowski, conv_bilstm
+    from seq2seq_attention_asr_tpu_torch.ops import cells, conv
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import lstm_scan
+    from seq2seq_attention_asr_tpu_torch.ops.masking import flip_sequences, length_mask
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    out = {name: [] for name in BF16_OTHER_TRAIN_OF}
+    for label, exp in bf16_train_recipes().items():
+        model = exp.build_model()
+        cfg = model.cfg
+        p16 = chorowski.cast_float32(interop.to_torch(params_cpu[label], "cuda"), bf)
+        for b in (TRAIN_B, BIG_B):
+            x, x_len, y, dec_mask = (t.to(dev) for t in train_batch(b, SEED + 29))
+            with torch.no_grad(), chorowski.float32_sums(bf):
+                if label == "flagship_loc":
+                    h16 = chorowski.encode(p16, cfg, x.to(bf), x_len).contiguous()
+                    lens = x_len
+                else:
+                    enc = p16["encoder"]
+                    hc = x.to(bf)
+                    for name in ("conv1", "conv2", "conv3"):
+                        hc = conv.temporal_max_pool(torch.relu(conv.temporal_conv(enc[name], hc)),
+                                                    2)
+                    lens = conv_bilstm.encode_lengths(cfg, x_len)
+                    p = enc["bilstm"]
+                    xproj2 = torch.stack([cells.lstm_input_proj(p["fwd"], hc),
+                                          cells.lstm_input_proj(p["bwd"],
+                                                                flip_sequences(hc, lens))])
+                    xproj2 = xproj2.contiguous()
+                    hd = p["fwd"]["w_h"].shape[0]
+                    z2 = torch.zeros(2, b, hd, device=dev)
+                    wh2 = torch.stack([p["fwd"]["w_h"], p["bwd"]["w_h"]]).contiguous()
+                    hs, cs = lstm_scan.bilstm_scan(xproj2, z2, z2, wh2)
+                    h16 = torch.cat([hs[0], flip_sequences(hs[1], lens)], -1).to(bf).contiguous()
+            l = h16.shape[1]
+            enc_mask16 = length_mask(lens, l, bf)
+            if label == "conv_bilstm":
+                rows = b * l
+                m = enc_mask16.float()[None, :, :, None]
+                dys = (torch.randn(2, b, l, hd, generator=gen).to(dev) * 0.1 * m).to(bf).float()
+                h_prev = torch.cat([z2[:, :, None], hs[:, :, :-1]], dim=2)
+                c_prev = torch.cat([z2[:, :, None], cs[:, :, :-1]], dim=2)
+                out["bilstm_scan_bwd_bf16"].append((
+                    f"B={b} L'={l}", (xproj2, h_prev, c_prev, dys, wh2),
+                    # K9's operations (cb_train_cases); bf16 xproj2 and W_h, the
+                    # float32 states, cotangent and outputs.
+                    2 * rows * (24 * hd * hd + 40 * hd),
+                    2 * (2 * rows * 4 * hd + 2 * 4 * hd * hd)
+                    + 4 * (3 * 2 * rows * hd + 2 * rows * 4 * hd + 2 * 2 * b * hd
+                           + 2 * 4 * hd * hd),
+                    cudnn_bilstm_bwd(p, hc, torch.cat([dys[0], dys[1]], -1).to(bf))))
+            kind, name = {"conv_bilstm": ("loc_lstm", "attention_decode_scan_loc_lstm_bwd_bf16"),
+                          "conv_bilstm_content": ("lstm", "attention_decode_scan_lstm_bwd_bf16"),
+                          "flagship_loc": ("loc", "attention_decode_scan_loc_bwd_bf16")}[label]
+            out[name].append(_bf16_decoder_bwd_case(kind, p16["decoder"], cfg.output_depth, h16,
+                                                    enc_mask16, y, dec_mask, gen))
+    return out
+
+
+def bf16_train_recipes():
+    """The three configurations of phase 12 (d), their model_kwargs in
+    bf16: {label: experiment}."""
+    from seq2seq_attention_asr_tpu_torch.train import experiment
+
+    out = {"conv_bilstm": experiment.timit_conv_bilstm(),
+           "conv_bilstm_content": conv_bilstm_content(), "flagship_loc": flagship_loc()}
+    for exp in out.values():
+        exp.model_kwargs["compute_dtype"] = "bfloat16"
+    return out
+
+
+def bf16_steps(kernels, label: str, recipe16, recipe32, params_cpu, sizes, expected,
+               step_kernels, card: str) -> dict:
+    """The bf16 train step of `recipe16` (an experiment builder; `recipe32`
+    its float32 twin) from `params_cpu` at each batch of `sizes`: its
+    launches (`expected`, nothing else); its loss within BF16_STEP_RTOL of
+    the CPU's bf16 step on the same batch; each gradient leaf by the
+    ground-truth rule against the card's float32 step, the CPU's bf16
+    gradient the reference; under either value of
+    allow_bf16_reduced_precision_reduction the same bits, the flag
+    restored; the loss falling over 10 optimizer steps at sizes[0]; p50,
+    audio s/s and the idle share at each size (train_timing). Returns the
+    launches of one step at sizes[0]."""
+    from seq2seq_attention_asr_tpu_torch import interop, tree
+
+    exp16, exp32 = recipe16(), recipe32()
+    m16, m32 = exp16.build_model(), exp32.build_model()
+    params = interop.to_torch(params_cpu, "cuda")
+    matmul = torch.backends.cuda.matmul
+    launches = None
+    for b in sizes:
+        batch = tuple(t.cuda() for t in train_batch(b, SEED + 3))
+        runs = {}
+        for flag in (True, False):
+            before = matmul.allow_bf16_reduced_precision_reduction
+            matmul.allow_bf16_reduced_precision_reduction = flag
+            try:
+                runs[flag], counts = counted(kernels, lambda: grads_of_step(
+                    m16, params, batch, exp16.train, exp16.optim, SEED))
+                after = matmul.allow_bf16_reduced_precision_reduction
+            finally:
+                matmul.allow_bf16_reduced_precision_reduction = before
+            print(f"bf16 {label} step B={b} (allow_bf16_reduced_precision_reduction {flag}, "
+                  f"{after} after): loss {runs[flag][0]['loss']!r}, grad_norm "
+                  f"{runs[flag][0]['grad_norm']!r}; launches {counts}")
+            check_counts(f"bf16 {label} step B={b}", counts, tuple(expected), expected)
+            if after != flag:
+                raise SystemExit("the bf16 step did not restore the caller's flag")
+            launches = launches or counts
+        same = runs[True][0] == runs[False][0] and all(torch.equal(x, y) for x, y in zip(
+            tree.leaves(runs[True][1]), tree.leaves(runs[False][1])))
+        print(f"bf16 {label} step B={b}: the same bits under either flag: {same}")
+        if not same:
+            raise SystemExit(f"the bf16 {label} step's gradient depends on PyTorch's "
+                             "reduced-precision flag: its products do not all sum in float32")
+        metrics, grads = runs[False]
+        t0 = time.perf_counter()
+        cpu_metrics, cpu_grads = grads_of_step(m16, interop.to_torch(params_cpu, "cpu"),
+                                               tuple(t.cpu() for t in batch), exp16.train,
+                                               exp16.optim, SEED)
+        cpu_s = time.perf_counter() - t0
+        f32_metrics, truth = grads_of_step(m32, params, batch, exp32.train, exp32.optim, SEED)
+        rel = abs(metrics["loss"] - cpu_metrics["loss"]) / abs(cpu_metrics["loss"])
+        print(f"bf16 {label} step B={b}: loss card {metrics['loss']!r}, CPU (plain bf16 "
+              f"versions) {cpu_metrics['loss']!r}, relative {rel:.2e} (tol {BF16_STEP_RTOL}; the "
+              f"CPU step took {cpu_s:.1f} s); the float32 step's loss on the card "
+              f"{f32_metrics['loss']!r}")
+        if not rel <= BF16_STEP_RTOL:
+            raise SystemExit(f"bf16 {label} step B={b}: the card's loss is not the CPU's")
+        ground_truth_leaves(f"bf16 {label} step B={b}", grads, cpu_grads, truth)
+    # 10 optimizer steps on one batch: the loss falls.
+    state, step_fn = make_trainer(recipe16, params_cpu, "cuda")
+    batch = tuple(t.cuda() for t in train_batch(sizes[0], SEED + 3))
+    losses = []
+    for _ in range(10):
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+    print(f"bf16 {label}: loss over 10 card steps on one batch {[round(v, 6) for v in losses]}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise SystemExit(f"bf16 {label}: the loss did not fall")
+    for b in sizes:
+        train_timing(recipe16, params_cpu, b, card, step_kernels, f"{label} bf16")
+    return launches
+
+
+def bf16_conv_fit(kernels, params_cpu, card: str) -> None:
+    """Phase 12 (d)'s short fit: three Trainer.fit epochs of conv_bilstm in
+    bf16 and three in float32 from one seeded init (`params_cpu`), on the
+    port's synthetic corpus (BF16_FIT_CORPUS), the same batches (one
+    batcher seed; the recipe has no dropout), no beam decode: each bf16
+    epoch's mean train NLL within BF16_FIT_NLL_RTOL of the float32 one's,
+    both falling over the epochs, and the bf16 epochs launching the bf16
+    entries only. No convergence claim."""
+    import tempfile
+
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.data import batching, synthetic
+    from seq2seq_attention_asr_tpu_torch.train import experiment, trainer
+
+    corpus = dict(BF16_FIT_CORPUS)
+    train, valid, _ = synthetic.train_valid(corpus.pop("n_train"), corpus.pop("n_valid"),
+                                            seed=SEED, **corpus)
+    nll = {}
+    for dt in ("float32", "bfloat16"):
+        exp = experiment.timit_conv_bilstm()
+        exp.model_kwargs["compute_dtype"] = dt
+        tcfg = dataclasses.replace(exp.train, num_epochs=3, batch_size=TRAIN_B,
+                                   seed=BF16_FIT_SEED)
+        batcher = batching.CachedDeviceBatcher(
+            batching.BucketedBatcher.from_dataset(train, TRAIN_B, 2), seed=BF16_FIT_SEED,
+            device="cuda")
+        with tempfile.TemporaryDirectory() as save_dir:
+            tr = trainer.Trainer(exp.build_model(), exp.optim, tcfg, vocab=None,
+                                 save_dir=save_dir, device="cuda")
+            tr.init(interop.to_torch(params_cpu, "cuda"))
+            t0 = time.perf_counter()
+            rows, counts = counted(kernels, lambda: list(tr.fit(train, valid, batcher,
+                                                                decode_every=0)))
+        nll[dt] = [r["train_nll"] for r in rows]
+        print(f"bf16 fit conv_bilstm ({dt}, {len(train.x)} utterances, batch {TRAIN_B}, 3 "
+              f"epochs): mean train NLL by epoch {nll[dt]!r}, valid NLL "
+              f"{[r['valid_nll'] for r in rows]!r}, {time.perf_counter() - t0:.1f} s wall; "
+              f"launches {counts} ({card})")
+        if dt == "bfloat16":
+            check_counts("bf16 fit conv_bilstm", counts,
+                         tuple(BF16_OTHER_STEPS["conv_bilstm"][1]))
+    for e, (a, b) in enumerate(zip(nll["bfloat16"], nll["float32"])):
+        gap = abs(a - b) / abs(b)
+        print(f"bf16 fit conv_bilstm epoch {e + 1}: train NLL bf16 {a!r}, float32 {b!r}, "
+              f"relative {gap:.2e} (tol {BF16_FIT_NLL_RTOL})")
+        if not (np.isfinite(a) and gap <= BF16_FIT_NLL_RTOL):
+            raise SystemExit("bf16 fit conv_bilstm: the bf16 epoch's train NLL is not the "
+                             "float32 one's")
+    for dt, v in nll.items():
+        if not all(later < earlier for earlier, later in zip(v, v[1:])):
+            raise SystemExit(f"bf16 fit conv_bilstm: the {dt} train NLL did not fall: {v}")
+
+
+def bf16_other_train_phase(kernels, card: str) -> list:
+    """Phase 12 (d): bf16 training of conv_bilstm, conv_bilstm_content and
+    flagship_loc. (a) the bf16 entries of K9, K11, K15 and K13 against
+    their exact twins and the plain bf16 versions (bf16_parity_rows) at
+    bf16_other_train_cases' shapes, twice with the same bits, with their
+    device times beside the float32 kernels' and their bounds; (b) each
+    configuration's bf16 step (bf16_steps, BF16_OTHER_STEPS); (c) the
+    short conv_bilstm fit (bf16_conv_fit). Returns the four entries'
+    {"kernels"} rows, their launches from the steps."""
+    from seq2seq_attention_asr_tpu_torch.train import experiment
+
+    t0 = time.perf_counter()
+    recipes = bf16_train_recipes()
+    params_cpu = {label: exp.init_params(torch.Generator().manual_seed(SEED), device="cpu")
+                  for label, exp in recipes.items()}
+    cases_ = bf16_other_train_cases(params_cpu, torch.Generator().manual_seed(SEED + 29))
+    rows = bf16_parity_rows(cases_, card)
+    del cases_
+    for r in rows.values():
+        r["launches"] = 0
+    f32_recipes = {"conv_bilstm": experiment.timit_conv_bilstm,
+                   "conv_bilstm_content": conv_bilstm_content, "flagship_loc": flagship_loc}
+    for label, (b, expected, step_kernels) in BF16_OTHER_STEPS.items():
+        launches = bf16_steps(kernels, label, lambda label=label: bf16_train_recipes()[label],
+                              f32_recipes[label], params_cpu[label], (b,), expected,
+                              step_kernels, card)
+        for name in rows:
+            rows[name]["launches"] += launches.get(name, 0)
+    bf16_conv_fit(kernels, params_cpu["conv_bilstm"], card)
+    print(f"bf16 other train phase: {time.perf_counter() - t0:.1f} s wall ({card})")
     return bf16_kernel_rows(rows)
 
 
@@ -4661,7 +5011,11 @@ def main(parent=None) -> int:
                                    attention_scan.KERNEL_LOC_FWD_BF16,
                                    attention_scan.KERNEL_LSTM_FWD_BF16,
                                    attention_step.KERNEL_LOC_LSTM_BF16,
-                                   gru_scan.KERNEL_BWD_BF16, attention_scan.KERNEL_BWD_BF16)}
+                                   gru_scan.KERNEL_BWD_BF16, attention_scan.KERNEL_BWD_BF16,
+                                   lstm_scan.KERNEL_BWD_BF16,
+                                   attention_scan.KERNEL_LOC_LSTM_BWD_BF16,
+                                   attention_scan.KERNEL_LSTM_BWD_BF16,
+                                   attention_scan.KERNEL_LOC_BWD_BF16)}
     started = t0 = time.perf_counter()
     build.build_all(kernels.values())
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(kernels)} kernels")
@@ -4943,6 +5297,9 @@ def main(parent=None) -> int:
     bf16_rows = bf16_phase(kernels, card) + bf16_models_phase(kernels, card)
     # (c) bf16 training of the flagship and of VGG (K5's and K6's bf16 entries).
     bf16_rows += bf16_train_phase(kernels, train_params, card)
+    # (d) bf16 training of conv_bilstm, conv_bilstm_content and flagship_loc
+    # (the bf16 entries of K9, K11, K15 and K13).
+    bf16_rows += bf16_other_train_phase(kernels, card)
 
     # Phase 13: the LibriSpeech recipes, and K2 at a word vocabulary.
     words_row = librispeech_phase(kernels, errs, card)
@@ -4954,7 +5311,8 @@ def main(parent=None) -> int:
     # from phase 12.
     report = []
     for name in kernels:
-        if name in BF16_OF or name in BF16_MODEL_OF or name in BF16_TRAIN_OF:
+        if (name in BF16_OF or name in BF16_MODEL_OF or name in BF16_TRAIN_OF
+                or name in BF16_OTHER_TRAIN_OF):
             continue
         label = MAIN_LABEL.get(name, name)
         key = next(k for k in (1, "train", "cbtrain", "loctrain", "cbctrain", "enc")

@@ -4,15 +4,21 @@
 //   <LSTM, location>  K10 loc_lstm_fwd_kernel<R>, K11 loc_lstm_bwd_kernel<R>;
 //                     entry points attention_decode_scan_loc_lstm_{fwd,bwd}; K10's
 //                     bf16 entry attention_decode_scan_loc_lstm_fwd_bf16
-//                     (lstm_fwd_prepass_bf16_kernel, loc_lstm_fwd_bf16_kernel<R>)
+//                     (lstm_fwd_prepass_bf16_kernel, loc_lstm_fwd_bf16_kernel<R>),
+//                     K11's attention_decode_scan_loc_lstm_bwd_bf16
+//                     (lstm_decoder_prepass_bf16_kernel, loc_lstm_bwd_bf16_kernel<R>)
 //   <GRU, location>   K12 loc_gru_fwd_kernel<R>, K13 loc_gru_bwd_kernel<R>;
 //                     entry points attention_decode_scan_loc_{fwd,bwd}; K12's bf16
 //                     entry attention_decode_scan_loc_fwd_bf16
-//                     (gru_fwd_prepass_bf16_kernel, loc_gru_fwd_bf16_kernel<R>)
+//                     (gru_fwd_prepass_bf16_kernel, loc_gru_fwd_bf16_kernel<R>),
+//                     K13's attention_decode_scan_loc_bwd_bf16
+//                     (gru_decoder_prepass_bf16_kernel, loc_gru_bwd_bf16_kernel<R>)
 //   <LSTM, content>   K14 scan_lstm_fwd_kernel<R>, K15 scan_lstm_bwd_kernel<R>;
 //                     entry points attention_decode_scan_lstm_{fwd,bwd}; K14's bf16
 //                     entry attention_decode_scan_lstm_fwd_bf16
-//                     (lstm_fwd_prepass_bf16_kernel, scan_lstm_fwd_bf16_kernel<R>)
+//                     (lstm_fwd_prepass_bf16_kernel, scan_lstm_fwd_bf16_kernel<R>),
+//                     K15's attention_decode_scan_lstm_bwd_bf16
+//                     (lstm_decoder_prepass_bf16_kernel, scan_lstm_bwd_bf16_kernel<R>)
 //   <GRU, content>    K4 content_gru_fwd_kernel<R>, K5 content_gru_walk_kernel<R>;
 //                     entry points attention_decode_scan_{fwd,bwd}; K4's bf16
 //                     entry attention_decode_scan_fwd_bf16 (gru_fwd_prepass_bf16_kernel,
@@ -20,7 +26,7 @@
 //                     where the bf16 entries round; K5's bf16 entry
 //                     attention_decode_scan_bwd_bf16 (gru_decoder_prepass_bf16_kernel,
 //                     content_gru_walk_bf16_kernel<R>, round_to_bf16_kernel);
-//                     decoder_walk says where it rounds
+//                     decoder_walk says where the bf16 backwards round
 //
 // The four forwards share a pre-pass (fwd_prepass<kLstm, kStage>) and a
 // forward walk on a thread-block cluster (decoder_fwd_walk<R, kLstm,
@@ -169,11 +175,12 @@
 // memory: five a step for the LSTM, six for the GRU, whose reset gate's
 // cotangent needs w_h^T's output before w_zr^T can start.
 //
-// The source builds five libraries (ops/cuda/attention_scan.py), so that
+// The source builds six libraries (ops/cuda/attention_scan.py), so that
 // nvcc compiles the walks' instances in processes of their own, side by
 // side: K10's and K14's with LSTM_FWD_ONLY defined, K12's and K4's with
 // GRU_FWD_ONLY, K5's alone with CONTENT_GRU_BWD_ONLY, K5's bf16 entry
-// with CONTENT_GRU_BWD_BF16, and K11's, K13's and K15's.
+// with CONTENT_GRU_BWD_BF16, the bf16 entries of K11, K13 and K15 with
+// DECODER_BWD_BF16, and K11's, K13's and K15's.
 
 #include "common.cuh"
 #include "cluster_walk.cuh"
@@ -635,13 +642,19 @@ __device__ __forceinline__ void stage_step(const BwdArgsT<IO>& a, const WalkCtx&
     stage_async<R>(q.cq, c.Ac, a.c_dot + n0 * A + ac.lo, (size_t)T * A, ac.n, c.nrows, false);
   else
     stage_async<R>(q.cq, c.Ac, a.c_seq + n0 * A + ac.lo, (size_t)T * A, ac.n, c.nrows, false);
+  // alpha_prev: under bf16 the rounded alpha, the bf16 alpha_seq that the
+  // JAX backward reads (the forward stores exactly round(alpha32) there),
+  // by plain loads that have landed by the caller's next block barrier.
   if (kLoc)
     for (int idx = threadIdx.x; idx < R * c.Pw; idx += kThreads) {
       const int r = idx / c.Pw, i = idx - r * c.Pw, p = pos.lo - c.pad + i;
-      if (t > 0 && r < c.nrows && i < pos.n + d.F - 1 && p >= 0 && p < L)
-        copy_async(q.ap + idx, a.alpha_seq + (n0 + (size_t)r * T - 1) * L + p);
-      else
+      const float* src = a.alpha_seq + (n0 + (size_t)r * T - 1) * L + p;
+      if (!(t > 0 && r < c.nrows && i < pos.n + d.F - 1 && p >= 0 && p < L))
         q.ap[idx] = 0.f;
+      else if constexpr (kIsBf16<IO>)
+        q.ap[idx] = round_to<IO>(*src);
+      else
+        copy_async(q.ap + idx, src);
     }
 }
 
@@ -717,20 +730,23 @@ __device__ __forceinline__ void walk_energies(const BwdArgsT<IO>& a, const WalkC
           const size_t i = base + (size_t)p * S;
           a.dvh[i] = last ? dz : dv[x] + dz;
           if (kLoc) {
-            a.st.dz[i] = dz;
+            // dfeat and dU read dz as a product's operand: rounded under
+            // bf16 (the features are rounded already); dvh and dws not.
+            const float dzr = round_to<IO>(dz);
+            a.st.dz[i] = dzr;
             if (du_in) {
 #pragma unroll
               for (int qq = 0; qq < kLocQ; qq += 4) {
                 if (qq >= FM) break;
                 const float4 fv = f4[qq / 4];
-                du[qq] = fmaf(fv.x, dz, du[qq]);
-                du[qq + 1] = fmaf(fv.y, dz, du[qq + 1]);
-                du[qq + 2] = fmaf(fv.z, dz, du[qq + 2]);
-                du[qq + 3] = fmaf(fv.w, dz, du[qq + 3]);
+                du[qq] = fmaf(fv.x, dzr, du[qq]);
+                du[qq + 1] = fmaf(fv.y, dzr, du[qq + 1]);
+                du[qq + 2] = fmaf(fv.z, dzr, du[qq + 2]);
+                du[qq + 3] = fmaf(fv.w, dzr, du[qq + 3]);
               }
             } else {
               for (int qq = 0; qq < FM; ++qq)
-                sh.pu[qq * S + sc] = fmaf(f[qq], dz, sh.pu[qq * S + sc]);
+                sh.pu[qq * S + sc] = fmaf(f[qq], dzr, sh.pu[qq * S + sc]);
             }
           }
           gws += dz;
@@ -774,19 +790,27 @@ __device__ __forceinline__ void walk_dfeat(const BwdArgsT<IO>& a, const WalkCtx&
 // source is read before the block writes it again. Rows past B have zero
 // inputs, stay zero and write nothing.
 //
-// With bf16 IO (K5's bf16 entry; the content-only GRU only), as _bwd_core
-// with bf16 inputs (attention_scan.py:419-576): the inputs and weights
-// load widened, and the cotangents that JAX reads only as the operands of
-// products are rounded to bf16 where they are formed: da_cand and
-// [da_z | da_r] (in the gathered rows and the stash), and dr, dcc and dws
-// in the gathered rows the products read, while the stash keeps dr, dcc
-// and dws in float32 for the bias sums (reduce_atb.cuh rounds them as
-// operands). alpha is the forward's float32 alpha, and the softmax's sum
-// reads the forward's float32 c (BwdArgsT::c_dot). dalpha, dh, de, dz,
-// dvh, the carries and dw_e stay float32.
+// With bf16 IO (the bf16 entries of K5, K11, K13 and K15), as _bwd_core,
+// _bwd_kernel_loc_lstm and _bwd_kernel_loc with bf16 inputs
+// (attention_scan.py:419-576, :684-708, :772-798): the inputs and weights
+// load widened (mem_prev and s_prev are bf16 sequences: widened exactly,
+// not rounded again), and the cotangents that JAX reads only as the
+// operands of products are rounded to bf16 where they are formed: the
+// GRU's da_cand and [da_z | da_r] (in the gathered rows and the stash).
+// The cotangents that a product and a bias sum both read are rounded in
+// the gathered rows the walk's products read, and kept in float32 in the
+// stash, whose products reduce_atb.cuh rounds as operands while its bias
+// sums read them unrounded: dr, dcc, dws, and the LSTM's dgates (db sums
+// them unrounded, dw_h and dw_x round them). The location term's
+// features are rounded before U (and dU), and its dz is rounded where
+// dfeat and dU read it, while dvh and dws sum it unrounded; alpha_prev is
+// the rounded alpha (stage_step), the features' and dwconv's operand.
+// The step's alpha is the forward's float32 alpha, and the softmax's sum
+// reads the forward's float32 c (BwdArgsT::c_dot) with the alpha carry
+// inside it. dalpha, dh, de, dfeat, dvh, the carries, dw_e, dwconv and
+// dbconv stay float32.
 template <int R, bool kLstm, bool kLoc, class IO = float>
 __device__ __forceinline__ void decoder_walk(float* sm, const BwdArgsT<IO>& a) {
-  static_assert(!kIsBf16<IO> || (!kLstm && !kLoc), "the bf16 walk is the content-only GRU's");
   // The exchanges after the cell's: dr, dcc, dc (with the softmax's
   // shares), the dws partials (with the dfeat halo).
   constexpr int eDr = kLstm ? 1 : 2, eDcc = eDr + 1, eDc = eDr + 2, eDws = eDr + 3;
@@ -883,7 +907,7 @@ __device__ __forceinline__ void decoder_walk(float* sm, const BwdArgsT<IO>& a) {
         float* stash = a.st.dg + (n0 + (size_t)r * T) * St4 + un.lo + i;
 #pragma unroll
         for (int gi = 0; gi < 4; ++gi) {
-          gd[gi * St] = dg[gi];
+          gd[gi * St] = round_to<IO>(dg[gi]);  // the products' operand; db sums the stash's
           if (r < nrows) stash[gi * St] = dg[gi];
         }
       }
@@ -906,7 +930,7 @@ __device__ __forceinline__ void decoder_walk(float* sm, const BwdArgsT<IO>& a) {
         const int qq = idx % FM, rp = idx / FM, p = rp % pos.n, r = rp / pos.n;
         float f = 0.f;
         for (int j = 0; j < F; ++j) f = fmaf(q.ap[r * Pw + p + j], sh.cw[j * FM + qq], f);
-        sh.feat[(r * Pc + p) * FM + qq] = f + sh.cb[qq];
+        sh.feat[(r * Pc + p) * FM + qq] = round_to<IO>(f + sh.cb[qq]);  // U's operand
       }
     walk_wait(&sh.bars[0], s & 1);
     if (tid == 0 && s + 1 < T) mbar_expect(&sh.bars[0], tx[0]);
@@ -920,7 +944,7 @@ __device__ __forceinline__ void decoder_walk(float* sm, const BwdArgsT<IO>& a) {
       rows_dot<R, false, true>(a.w.w_x + (size_t)un.lo * St4, St4, un.n, sh.gdg, St4, St4,
                                [y = sh.gdr + un.lo, z = a.st.dr + n0 * St + un.lo, St, rs,
                                 nrows](int i, int r, float v) {
-                                 y[r * St + i] = v;
+                                 y[r * St + i] = round_to<IO>(v);
                                  if (r < nrows) z[r * rs + i] = v;
                                }, vec_g);
       async_fence();
@@ -1210,6 +1234,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   decoder_walk<R, false, false, bf16>(sm, a);
 }
 
+// The bf16 entries' walks of K11, K15 and K13.
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1) loc_lstm_bwd_bf16_kernel(const BwdArgsT<bf16> a) {
+  extern __shared__ __align__(16) float sm[];
+  decoder_walk<R, true, true, bf16>(sm, a);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1) scan_lstm_bwd_bf16_kernel(const BwdArgsT<bf16> a) {
+  extern __shared__ __align__(16) float sm[];
+  decoder_walk<R, true, false, bf16>(sm, a);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1) loc_gru_bwd_bf16_kernel(const BwdArgsT<bf16> a) {
+  extern __shared__ __align__(16) float sm[];
+  decoder_walk<R, false, true, bf16>(sm, a);
+}
+
 // The recompute pre-pass over every (row, step) n, one 64 x 64 output
 // tile a block. Stage 0: cc = c @ c_w + c_b into rr[:, :St], yin into
 // rr[:, St:] (blockIdx.y below ceil(St / 64)), and ws = s_prev @ ws_w +
@@ -1222,9 +1265,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 // candidate tanh(cand_in @ w_h) into the da_cand rows. Each stage is a
 // launch of its own, after the one it reads, and an instance of its own
 // (tile_product's static shared memory, 17 KB a call site, stays under
-// 48 KB). With bf16 IO (K5's bf16 entry) the stash's product operands hold
-// the values JAX rounds: rr (cc rounded; yin is bf16), sr's and cand_in's
-// r and cand_in's rg s_prev; ws and the gates stay float32.
+// 48 KB). With bf16 IO (the bf16 entries of K5, K11, K13 and K15) the
+// stash's product operands hold the values JAX rounds: rr (cc rounded;
+// yin is bf16), the LSTM's r, sr's and cand_in's r and cand_in's rg
+// s_prev; ws and the gates stay float32.
 template <bool kLstm, int kStage, class IO = float>
 __device__ __forceinline__ void decoder_prepass(const BwdArgsT<IO>& a) {
   const Dims& d = a.d;
@@ -1271,8 +1315,9 @@ __device__ __forceinline__ void decoder_prepass(const BwdArgsT<IO>& a) {
         [&](int kk, int j) { return j < St ? to_f(w.dec_w[(size_t)kk * St + j]) : 0.f; }, i0, j0,
         St2);
     if constexpr (kLstm) {
-      store(acc, j0, St,
-            [&](int n, int j, float v) { st.r[(size_t)n * St + j] = v + to_f(w.dec_b[j]); });
+      store(acc, j0, St, [&](int n, int j, float v) {
+        st.r[(size_t)n * St + j] = round_to<IO>(v + to_f(w.dec_b[j]));
+      });
     } else {
       store(acc, j0, St, [&](int n, int j, float v) {
         const size_t o = (size_t)n * St2 + j;
@@ -1331,6 +1376,12 @@ template <int kStage>
 __global__ void __launch_bounds__(kTileThreads)
     gru_decoder_prepass_bf16_kernel(const BwdArgsT<bf16> a) {
   decoder_prepass<false, kStage, bf16>(a);
+}
+
+template <int kStage>
+__global__ void __launch_bounds__(kTileThreads)
+    lstm_decoder_prepass_bf16_kernel(const BwdArgsT<bf16> a) {
+  decoder_prepass<true, kStage, bf16>(a);
 }
 
 #ifdef FWD_WALK_BUILD
@@ -2218,7 +2269,7 @@ using Grads = GradsT<float>;
 
 // The location term's weight gradients as column sums of `rows` rows of
 // partials, in a fixed order: dU from pu, dwconv and dbconv from pconv;
-// and first, where pwe is given, dw_e (bf16 where T is).
+// and first, where pwe is given, dw_e (each bf16 where T is).
 template <class T>
 cudaError_t reduce_partials(const Stash& st, const GradsT<T>& g, const Dims& d, int rows,
                             bool loc, cudaStream_t stream) {
@@ -2230,12 +2281,13 @@ cudaError_t reduce_partials(const Stash& st, const GradsT<T>& g, const Dims& d, 
     batch.p[batch.count++] =
         AtbProblem{nullptr, 0, 0, st.pwe, S, nullptr, g.dw_e, 0, S, kIsBf16<T> ? kAtbC16 : 0};
   if (loc) {
+    const int io = kIsBf16<T> ? kAtbC16 : 0;
     batch.p[batch.count++] =
-        AtbProblem{nullptr, 0, 0, st.pu, FM * S, nullptr, g.du, 0, FM * S};
+        AtbProblem{nullptr, 0, 0, st.pu, FM * S, nullptr, g.du, 0, FM * S, io};
     batch.p[batch.count++] =
-        AtbProblem{nullptr, 0, 0, st.pconv, n_conv, nullptr, g.dwconv, 0, F * FM};
+        AtbProblem{nullptr, 0, 0, st.pconv, n_conv, nullptr, g.dwconv, 0, F * FM, io};
     batch.p[batch.count++] =
-        AtbProblem{nullptr, 0, 0, st.pconv + F * FM, n_conv, nullptr, g.dbconv, 0, FM};
+        AtbProblem{nullptr, 0, 0, st.pconv + F * FM, n_conv, nullptr, g.dbconv, 0, FM, io};
   }
   return launch_atb(batch, stream);
 }
@@ -2245,10 +2297,23 @@ using BwdKernelT = void (*)(const BwdArgsT<IO>);
 using BwdKernel = BwdKernelT<float>;
 
 // The walk instance for R batch rows a cluster: K11's (kLstm, kLoc),
-// K15's (kLstm), K13's (kLoc) or K5's (bf16 IO: K5's bf16 entry's).
+// K15's (kLstm), K13's (kLoc) or K5's, and with bf16 IO their bf16
+// entries'.
 template <bool kLstm, bool kLoc, class IO = float>
 BwdKernelT<IO> walk_kernel(int R) {
-  if constexpr (kIsBf16<IO>)
+  if constexpr (kIsBf16<IO> && kLstm && kLoc)
+    return R == 1 ? loc_lstm_bwd_bf16_kernel<1> : R == 2 ? loc_lstm_bwd_bf16_kernel<2>
+         : R == 4 ? loc_lstm_bwd_bf16_kernel<4> : R == 8 ? loc_lstm_bwd_bf16_kernel<8>
+                  : nullptr;
+  else if constexpr (kIsBf16<IO> && kLstm)
+    return R == 1 ? scan_lstm_bwd_bf16_kernel<1> : R == 2 ? scan_lstm_bwd_bf16_kernel<2>
+         : R == 4 ? scan_lstm_bwd_bf16_kernel<4> : R == 8 ? scan_lstm_bwd_bf16_kernel<8>
+                  : nullptr;
+  else if constexpr (kIsBf16<IO> && kLoc)
+    return R == 1 ? loc_gru_bwd_bf16_kernel<1> : R == 2 ? loc_gru_bwd_bf16_kernel<2>
+         : R == 4 ? loc_gru_bwd_bf16_kernel<4> : R == 8 ? loc_gru_bwd_bf16_kernel<8>
+                  : nullptr;
+  else if constexpr (kIsBf16<IO>)
     return R == 1 ? content_gru_walk_bf16_kernel<1> : R == 2 ? content_gru_walk_bf16_kernel<2>
          : R == 4 ? content_gru_walk_bf16_kernel<4> : R == 8 ? content_gru_walk_bf16_kernel<8>
                   : nullptr;
@@ -2276,7 +2341,11 @@ cudaError_t launch_prepass(const BwdArgsT<IO>& a, cudaStream_t stream) {
   const dim3 cc_ws(tiles, cc_tiles + (d.S + kTile - 1) / kTile), r(tiles, cc_tiles);
   const dim3 gates(tiles, ((kLstm ? 4 : 2) * d.St + kTile - 1) / kTile);
   BwdKernelT<IO> stages[4];
-  if constexpr (kIsBf16<IO>) {
+  if constexpr (kIsBf16<IO> && kLstm) {
+    stages[0] = lstm_decoder_prepass_bf16_kernel<0>;
+    stages[1] = lstm_decoder_prepass_bf16_kernel<1>;
+    stages[2] = lstm_decoder_prepass_bf16_kernel<2>;
+  } else if constexpr (kIsBf16<IO>) {
     stages[0] = gru_decoder_prepass_bf16_kernel<0>, stages[1] = gru_decoder_prepass_bf16_kernel<1>;
     stages[2] = gru_decoder_prepass_bf16_kernel<2>, stages[3] = gru_decoder_prepass_bf16_kernel<3>;
   } else if constexpr (kLstm) {
@@ -2297,9 +2366,10 @@ cudaError_t launch_prepass(const BwdArgsT<IO>& a, cudaStream_t stream) {
 
 // K11, K13, K15 and K5: the pre-pass, the walk on clusters of `cluster`
 // blocks, `rows` batch rows a cluster, then the weight gradients over the
-// B*T steps and over the blocks' partials. With bf16 IO (K5's bf16 entry)
-// the reductions widen the bf16 s_seq and c_seq, round every product's
-// operand to bf16, sum in float32 and round each gradient once.
+// B*T steps and over the blocks' partials. With bf16 IO (the bf16 entries
+// of K5, K11, K13 and K15) the reductions widen the bf16 s_seq and c_seq,
+// round every product's operand to bf16, sum in float32 and round each
+// gradient once.
 template <bool kLstm, bool kLoc, class IO = float>
 int launch_walk_bwd(BwdArgsT<IO> a, const GradsT<IO>& g, float* scratch, int cluster, int rows,
                     cudaStream_t stream) {
@@ -2356,8 +2426,8 @@ int walk_limits(int cluster, int* smem_limit, int* clusters) {
   return (int)cluster_limits(walk, cluster, smem_limit, clusters);
 }
 
-// dst = src rounded to bf16, n values: where K5's bf16 entry rounds its
-// float32 sums dvh and dh once, after the walk.
+// dst = src rounded to bf16, n values: where the bf16 entries of K5, K11,
+// K13 and K15 round their float32 sums dvh and dh once, after the walk.
 __global__ void __launch_bounds__(256) round_to_bf16_kernel(const float* src, bf16* dst,
                                                             size_t n) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
@@ -2421,18 +2491,20 @@ extern "C" int attention_decode_scan_lstm_fwd_limits(int cluster, int* smem_limi
 }
 
 // K10's bf16 entry: attention_decode_scan_loc_lstm_fwd with every input and
-// output bf16 (the scratch float).
+// output bf16 (the scratch float); alpha32 and c32, where not null, take
+// alpha and c in float32 too (B, T, L and B, T, A), for the bf16 backward.
 extern "C" int attention_decode_scan_loc_lstm_fwd_bf16(
     const bf16* vh, const bf16* h, const bf16* mask, const bf16* yin, const bf16* ws_w,
     const bf16* ws_b, const bf16* w_e, const bf16* c_w, const bf16* c_b, const bf16* dec_w,
     const bf16* dec_b, const bf16* w_h, const bf16* w_x, const bf16* b, const bf16* wconv,
     const bf16* bconv, const bf16* u, bf16* s_seq, bf16* c_seq, bf16* alpha_seq, bf16* mem_seq,
-    float* scratch, int B, int T, int L, int S, int A, int St, int FM, int F, int cluster,
-    int rows, int resident, cudaStream_t stream) {
+    float* alpha32, float* c32, float* scratch, int B, int T, int L, int S, int A, int St,
+    int FM, int F, int cluster, int rows, int resident, cudaStream_t stream) {
   const FwdArgsT<bf16> a{vh, h, mask, yin,
                          WeightsT<bf16>{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h,
                                         w_x, b, wconv, bconv, u},
-                         s_seq, c_seq, alpha_seq, mem_seq, Dims{B, T, L, S, A, St, FM, F}};
+                         s_seq, c_seq, alpha_seq, mem_seq, Dims{B, T, L, S, A, St, FM, F},
+                         alpha32, c32};
   return launch_fwd_walk<true, true, bf16>(a, scratch, cluster, rows, resident, stream);
 }
 
@@ -2442,17 +2514,19 @@ extern "C" int attention_decode_scan_loc_lstm_fwd_bf16_limits(int cluster, int* 
 }
 
 // K14's bf16 entry: attention_decode_scan_lstm_fwd with every input and
-// output bf16 (the scratch float).
+// output bf16 (the scratch float); alpha32 and c32 as K10's bf16 entry's.
 extern "C" int attention_decode_scan_lstm_fwd_bf16(
     const bf16* vh, const bf16* h, const bf16* mask, const bf16* yin, const bf16* ws_w,
     const bf16* ws_b, const bf16* w_e, const bf16* c_w, const bf16* c_b, const bf16* dec_w,
     const bf16* dec_b, const bf16* w_h, const bf16* w_x, const bf16* b, bf16* s_seq,
-    bf16* c_seq, bf16* alpha_seq, bf16* mem_seq, float* scratch, int B, int T, int L, int S,
-    int A, int St, int cluster, int rows, int resident, cudaStream_t stream) {
+    bf16* c_seq, bf16* alpha_seq, bf16* mem_seq, float* alpha32, float* c32, float* scratch,
+    int B, int T, int L, int S, int A, int St, int cluster, int rows, int resident,
+    cudaStream_t stream) {
   const FwdArgsT<bf16> a{vh, h, mask, yin,
                          WeightsT<bf16>{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h,
                                         w_x, b, nullptr, nullptr, nullptr},
-                         s_seq, c_seq, alpha_seq, mem_seq, Dims{B, T, L, S, A, St, 0, 0}};
+                         s_seq, c_seq, alpha_seq, mem_seq, Dims{B, T, L, S, A, St, 0, 0},
+                         alpha32, c32};
   return launch_fwd_walk<true, false, bf16>(a, scratch, cluster, rows, resident, stream);
 }
 
@@ -2520,18 +2594,19 @@ extern "C" int attention_decode_scan_fwd_bf16_limits(int cluster, int* smem_limi
 }
 
 // K12's bf16 entry: attention_decode_scan_loc_fwd with every input and
-// output bf16 (the scratch float).
+// output bf16 (the scratch float); alpha32 and c32 as K4's bf16 entry's.
 extern "C" int attention_decode_scan_loc_fwd_bf16(
     const bf16* vh, const bf16* h, const bf16* mask, const bf16* yin, const bf16* ws_w,
     const bf16* ws_b, const bf16* w_e, const bf16* c_w, const bf16* c_b, const bf16* dec_w,
     const bf16* dec_b, const bf16* w_zr, const bf16* w_h, const bf16* wconv,
     const bf16* bconv, const bf16* u, bf16* s_seq, bf16* c_seq, bf16* alpha_seq,
-    float* scratch, int B, int T, int L, int S, int A, int St, int FM, int F, int cluster,
-    int rows, int resident, cudaStream_t stream) {
+    float* alpha32, float* c32, float* scratch, int B, int T, int L, int S, int A, int St,
+    int FM, int F, int cluster, int rows, int resident, cudaStream_t stream) {
   const FwdArgsT<bf16> a{vh, h, mask, yin,
                          WeightsT<bf16>{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_zr, w_h,
                                         nullptr, nullptr, wconv, bconv, u},
-                         s_seq, c_seq, alpha_seq, nullptr, Dims{B, T, L, S, A, St, FM, F}};
+                         s_seq, c_seq, alpha_seq, nullptr, Dims{B, T, L, S, A, St, FM, F},
+                         alpha32, c32};
   return launch_fwd_walk<false, true, bf16>(a, scratch, cluster, rows, resident, stream);
 }
 
@@ -2574,6 +2649,104 @@ extern "C" int attention_decode_scan_bwd_bf16(
   const cudaError_t e = round_to_bf16(dvh32, dvh, (size_t)B * L * S, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)round_to_bf16(dh32, dh, (size_t)B * L * A, stream);
+}
+
+#elif defined(DECODER_BWD_BF16)
+// The bf16 entries of K11, K15 and K13: their float entries with every
+// input and output bf16, except alpha32 and c32, the forward's alpha and
+// c in float32 (the bf16 entries of K10, K14 and K12 write them), and
+// three float32 scratch arrays, as K5's bf16 entry's: dvh32 (B, L, S) and
+// dh32 (B, L, A), the walk's sums, rounded into dvh and dh once the walk
+// is done, and the stash (scratch). The walk reads alpha_prev as
+// round(alpha32), which is the forward's bf16 alpha_seq bit for bit.
+template <bool kLstm, bool kLoc>
+int bwd_bf16(const BwdArgsT<bf16>& a, const GradsT<bf16>& g, const float* alpha32,
+             const float* c32, bf16* dvh, bf16* dh, float* scratch, int cluster, int rows,
+             cudaStream_t stream) {
+  if (alpha32 == nullptr || c32 == nullptr || a.dvh == nullptr || a.dh == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int err = launch_walk_bwd<kLstm, kLoc, bf16>(a, g, scratch, cluster, rows, stream);
+  if (err != 0) return err;
+  const Dims& d = a.d;
+  const cudaError_t e = round_to_bf16(a.dvh, dvh, (size_t)d.B * d.L * d.S, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)round_to_bf16(a.dh, dh, (size_t)d.B * d.L * d.A, stream);
+}
+
+extern "C" int attention_decode_scan_loc_lstm_bwd_bf16_limits(int cluster, int* smem_limit,
+                                                              int* clusters) {
+  return walk_limits<true, true, bf16>(cluster, smem_limit, clusters);
+}
+
+extern "C" int attention_decode_scan_loc_lstm_bwd_bf16(
+    const bf16* vh, const bf16* h, const bf16* mask, const bf16* yin, const bf16* ws_w,
+    const bf16* ws_b, const bf16* w_e, const bf16* c_w, const bf16* c_b, const bf16* dec_w,
+    const bf16* dec_b, const bf16* w_h, const bf16* w_x, const bf16* b, const bf16* wconv,
+    const bf16* bconv, const bf16* u, const bf16* s_seq, const bf16* c_seq,
+    const float* alpha32, const bf16* mem_seq, const float* c32, const bf16* ds_seq,
+    const bf16* dc_seq, const bf16* dalpha_seq, const bf16* dmem_seq, bf16* dvh, bf16* dh,
+    bf16* dyin, bf16* dws_w, bf16* dws_b, bf16* dw_e, bf16* dc_w, bf16* dc_b, bf16* ddec_w,
+    bf16* ddec_b, bf16* dw_h, bf16* dw_x, bf16* db, bf16* dwconv, bf16* dbconv, bf16* du,
+    float* dvh32, float* dh32, float* scratch, int B, int T, int L, int S, int A, int St, int FM,
+    int F, int cluster, int rows, cudaStream_t stream) {
+  const BwdArgsT<bf16> a{vh, h, mask, yin,
+                         WeightsT<bf16>{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h,
+                                        w_x, b, wconv, bconv, u},
+                         s_seq, c_seq, alpha32, mem_seq, ds_seq, dc_seq, dalpha_seq, dmem_seq,
+                         dvh32, dh32, dyin, Stash{}, Dims{B, T, L, S, A, St, FM, F}, c32};
+  const GradsT<bf16> g{dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, nullptr, dw_h, dw_x, db,
+                       dwconv, dbconv, du};
+  return bwd_bf16<true, true>(a, g, alpha32, c32, dvh, dh, scratch, cluster, rows, stream);
+}
+
+extern "C" int attention_decode_scan_lstm_bwd_bf16_limits(int cluster, int* smem_limit,
+                                                          int* clusters) {
+  return walk_limits<true, false, bf16>(cluster, smem_limit, clusters);
+}
+
+extern "C" int attention_decode_scan_lstm_bwd_bf16(
+    const bf16* vh, const bf16* h, const bf16* mask, const bf16* yin, const bf16* ws_w,
+    const bf16* ws_b, const bf16* w_e, const bf16* c_w, const bf16* c_b, const bf16* dec_w,
+    const bf16* dec_b, const bf16* w_h, const bf16* w_x, const bf16* b, const bf16* s_seq,
+    const bf16* c_seq, const float* alpha32, const bf16* mem_seq, const float* c32,
+    const bf16* ds_seq, const bf16* dc_seq, const bf16* dalpha_seq, const bf16* dmem_seq,
+    bf16* dvh, bf16* dh, bf16* dyin, bf16* dws_w, bf16* dws_b, bf16* dw_e, bf16* dc_w,
+    bf16* dc_b, bf16* ddec_w, bf16* ddec_b, bf16* dw_h, bf16* dw_x, bf16* db, float* dvh32,
+    float* dh32, float* scratch, int B, int T, int L, int S, int A, int St, int cluster, int rows,
+    cudaStream_t stream) {
+  const BwdArgsT<bf16> a{vh, h, mask, yin,
+                         WeightsT<bf16>{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, nullptr, w_h,
+                                        w_x, b, nullptr, nullptr, nullptr},
+                         s_seq, c_seq, alpha32, mem_seq, ds_seq, dc_seq, dalpha_seq, dmem_seq,
+                         dvh32, dh32, dyin, Stash{}, Dims{B, T, L, S, A, St, 0, 0}, c32};
+  const GradsT<bf16> g{dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, nullptr, dw_h, dw_x, db,
+                       nullptr, nullptr, nullptr};
+  return bwd_bf16<true, false>(a, g, alpha32, c32, dvh, dh, scratch, cluster, rows, stream);
+}
+
+extern "C" int attention_decode_scan_loc_bwd_bf16_limits(int cluster, int* smem_limit,
+                                                         int* clusters) {
+  return walk_limits<false, true, bf16>(cluster, smem_limit, clusters);
+}
+
+extern "C" int attention_decode_scan_loc_bwd_bf16(
+    const bf16* vh, const bf16* h, const bf16* mask, const bf16* yin, const bf16* ws_w,
+    const bf16* ws_b, const bf16* w_e, const bf16* c_w, const bf16* c_b, const bf16* dec_w,
+    const bf16* dec_b, const bf16* w_zr, const bf16* w_h, const bf16* wconv, const bf16* bconv,
+    const bf16* u, const bf16* s_seq, const bf16* c_seq, const float* alpha32, const float* c32,
+    const bf16* ds_seq, const bf16* dc_seq, const bf16* dalpha_seq, bf16* dvh, bf16* dh,
+    bf16* dyin, bf16* dws_w, bf16* dws_b, bf16* dw_e, bf16* dc_w, bf16* dc_b, bf16* ddec_w,
+    bf16* ddec_b, bf16* dw_zr, bf16* dw_h, bf16* dwconv, bf16* dbconv, bf16* du, float* dvh32,
+    float* dh32, float* scratch, int B, int T, int L, int S, int A, int St, int FM, int F,
+    int cluster, int rows, cudaStream_t stream) {
+  const BwdArgsT<bf16> a{vh, h, mask, yin,
+                         WeightsT<bf16>{ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, w_zr, w_h,
+                                        nullptr, nullptr, wconv, bconv, u},
+                         s_seq, c_seq, alpha32, nullptr, ds_seq, dc_seq, dalpha_seq, nullptr,
+                         dvh32, dh32, dyin, Stash{}, Dims{B, T, L, S, A, St, FM, F}, c32};
+  const GradsT<bf16> g{dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dw_zr, dw_h, nullptr,
+                       nullptr, dwconv, dbconv, du};
+  return bwd_bf16<false, true>(a, g, alpha32, c32, dvh, dh, scratch, cluster, rows, stream);
 }
 
 #elif !defined(CONTENT_GRU_BWD_ONLY)

@@ -37,18 +37,28 @@
 //   3. reduce_atb.cuh: dW_h = sum h_prev^T da over the B*L rows, tiled and
 //      deterministic (no atomics).
 // The plan (C, R, resident) comes from the caller (ops/cuda/walk.py).
+// The bf16 entry (bilstm_scan_bwd_bf16: lstm_gates_bf16_kernel,
+// bilstm_scan_bwd_bf16_kernel<R>) is the same three stages with bf16
+// xproj2 and W_h widened as they load, on the same plan: the JAX kernel
+// with bf16 inputs rounds nothing, and its outputs are float32. At B = 16,
+// L' = 16: 0.1225 ms against the float32 kernel's 0.1216 on the upcast
+// inputs (chip_smoke.py phase 12 (d), NVIDIA H100 80GB HBM3, 700.00 W).
 
 #include "cluster_walk.cuh"
 #include "reduce_atb.cuh"
 
 namespace {
 
-struct LstmBwd {
-  const float* xproj2;  // (2, B, L, 4H)
+// T is the IO type of xproj2 and wh2: float, or bf16 for the bf16 entry
+// (bilstm_scan_bwd_bf16), which widens them as it loads them; the states,
+// the cotangents and every output are float32 either way.
+template <class T>
+struct LstmBwdT {
+  const T* xproj2;      // (2, B, L, 4H)
   const float* hprev2;  // (2, B, L, H)
   const float* cprev2;  // (2, B, L, H)
   const float* dys2;    // (2, B, L, H)
-  const float* wh2;     // (2, H, 4H)
+  const T* wh2;         // (2, H, 4H)
   float* dx2;           // (2, B, L, 4H): the pre-pass's i | f | g | o, then da
   float* tc2;           // (2, B, L, H): tanh(c)
   float* dh02;          // (2, B, H)
@@ -68,18 +78,19 @@ __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)
 // The gate pre-pass over the rows n of direction blockIdx.y, one tile of
 // 64 rows by 16 units (all four gates of each) a block; thread (ty, tx)
 // holds the four gates of unit u0 + tx for rows i0 + 4 ty + r.
-__global__ void __launch_bounds__(kTileThreads) lstm_gates_kernel(const LstmBwd a) {
+template <class T>
+__device__ __forceinline__ void lstm_gates(const LstmBwdT<T>& a) {
   const int H = a.H, H4 = 4 * H, rows = a.B * a.L;
   const size_t off = (size_t)blockIdx.y * rows;
   const float* hp = a.hprev2 + off * H;
-  const float* w = a.wh2 + (size_t)blockIdx.y * H * H4;
+  const T* w = a.wh2 + (size_t)blockIdx.y * H * H4;
   const int i0 = blockIdx.x * kTile, u0 = blockIdx.z * (kTile / 4);
   float acc[4][4];
   tile_product(
       acc, [&](int n, int k) { return n < rows ? hp[(size_t)n * H + k] : 0.f; },
       [&](int k, int j) {
         const int u = u0 + j / 4;
-        return u < H ? w[(size_t)k * H4 + (j % 4) * H + u] : 0.f;
+        return u < H ? to_f(w[(size_t)k * H4 + (j % 4) * H + u]) : 0.f;
       },
       i0, 0, H);
   const int ty = threadIdx.x / 16, u = u0 + threadIdx.x % 16;
@@ -89,23 +100,30 @@ __global__ void __launch_bounds__(kTileThreads) lstm_gates_kernel(const LstmBwd 
     const int n = i0 + 4 * ty + r;
     if (n >= rows) continue;
     const size_t at = off + n;
-    const float* x = a.xproj2 + at * H4;
+    const T* x = a.xproj2 + at * H4;
     float* g = a.dx2 + at * H4;
-    const float ig = sigmoid(acc[r][0] + x[u]);
-    const float fg = sigmoid(acc[r][1] + x[H + u]);
-    const float gg = tanhf(acc[r][2] + x[2 * H + u]);
-    const float og = sigmoid(acc[r][3] + x[3 * H + u]);
+    const float ig = sigmoid(acc[r][0] + to_f(x[u]));
+    const float fg = sigmoid(acc[r][1] + to_f(x[H + u]));
+    const float gg = tanhf(acc[r][2] + to_f(x[2 * H + u]));
+    const float og = sigmoid(acc[r][3] + to_f(x[3 * H + u]));
     g[u] = ig, g[H + u] = fg, g[2 * H + u] = gg, g[3 * H + u] = og;
     a.tc2[at * H + u] = tanhf(fg * a.cprev2[at * H + u] + ig * gg);
   }
 }
 
+__global__ void __launch_bounds__(kTileThreads) lstm_gates_kernel(const LstmBwdT<float> a) {
+  lstm_gates(a);
+}
+
+// The bf16 entry's pre-pass.
+__global__ void __launch_bounds__(kTileThreads) lstm_gates_bf16_kernel(const LstmBwdT<bf16> a) {
+  lstm_gates(a);
+}
+
 // The walk of direction blockIdx.y for the R batch rows of this block's
 // cluster (group blockIdx.x / C), after the pre-pass.
-template <int R>
-__global__ void __launch_bounds__(kThreads, 1)
-bilstm_scan_bwd_kernel(const LstmBwd a, int resident) {
-  extern __shared__ float smem[];
+template <int R, class T>
+__device__ __forceinline__ void bilstm_bwd_walk(const LstmBwdT<T>& a, int resident, float* smem) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), k = (int)cluster.block_rank();
   const int H = a.H, L = a.L, H4 = 4 * H;
@@ -120,11 +138,9 @@ bilstm_scan_bwd_kernel(const LstmBwd a, int resident) {
   float* dhc = stg + 14 * RM;                    // [R][hm]  dh carried to the previous step
   float* dcc = dhc + RM;                         // [R][hm]  dc carried to the previous step
 
-  const float* w = a.wh2 + ((size_t)blockIdx.y * H + lo) * H4;
-  if (resident) {
-    for (int i = threadIdx.x; i < hs * H4; i += kThreads) w_s[i] = __ldg(w + i);
-    w = w_s;
-  }
+  const T* w = a.wh2 + ((size_t)blockIdx.y * H + lo) * H4;  // widened where it is read
+  if (resident)
+    for (int i = threadIdx.x; i < hs * H4; i += kThreads) w_s[i] = ldg_f(w + i);
   for (int i = threadIdx.x; i < RM; i += kThreads) dhc[i] = dcc[i] = 0.f;
 
   // Stage step s's i, f, g, o, tanh(c), c_prev and dys of the block's
@@ -177,7 +193,11 @@ bilstm_scan_bwd_kernel(const LstmBwd a, int resident) {
     cluster_arrive();
     if (s + 1 < L) prefetch(s + 1);  // the other staging buffer, read last in step s - 1
     cluster_wait();
-    rows_dot<R>(w, H4, hs, buf, H4, H4, [&](int i, int r, float v) { dhc[r * hm + i] = v; });
+    const auto carry = [&](int i, int r, float v) { dhc[r * hm + i] = v; };
+    if (resident)
+      rows_dot<R>(w_s, H4, hs, buf, H4, H4, carry);
+    else
+      rows_dot<R>(w, H4, hs, buf, H4, H4, carry);
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < nrows * hs; idx += kThreads) {
@@ -186,6 +206,74 @@ bilstm_scan_bwd_kernel(const LstmBwd a, int resident) {
     a.dc02[(row0 + r) * H + lo + i] = dcc[r * hm + i];
   }
   cluster.sync();  // no block leaves while its shared memory may still be a peer's target
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+bilstm_scan_bwd_kernel(const LstmBwdT<float> a, int resident) {
+  extern __shared__ float smem[];
+  bilstm_bwd_walk<R>(a, resident, smem);
+}
+
+// The bf16 entry's walk.
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+bilstm_scan_bwd_bf16_kernel(const LstmBwdT<bf16> a, int resident) {
+  extern __shared__ float smem[];
+  bilstm_bwd_walk<R>(a, resident, smem);
+}
+
+template <class T>
+using LstmBwdWalk = void (*)(const LstmBwdT<T>, int);
+
+// The walk's instance for `rows` batch rows a cluster (R = 16 where rows
+// is none of 1, 2, 4 and 8).
+template <class T>
+LstmBwdWalk<T> lstm_bwd_walk_instance(int rows) {
+  if constexpr (kIsBf16<T>)
+    return rows == 1   ? bilstm_scan_bwd_bf16_kernel<1>
+           : rows == 2 ? bilstm_scan_bwd_bf16_kernel<2>
+           : rows == 4 ? bilstm_scan_bwd_bf16_kernel<4>
+           : rows == 8 ? bilstm_scan_bwd_bf16_kernel<8>
+                       : bilstm_scan_bwd_bf16_kernel<16>;
+  else
+    return rows == 1   ? bilstm_scan_bwd_kernel<1>
+           : rows == 2 ? bilstm_scan_bwd_kernel<2>
+           : rows == 4 ? bilstm_scan_bwd_kernel<4>
+           : rows == 8 ? bilstm_scan_bwd_kernel<8>
+                       : bilstm_scan_bwd_kernel<16>;
+}
+
+template <class T>
+int bilstm_scan_bwd_run(const LstmBwdT<T>& a, float* dwh2, int cluster, int rows, int resident,
+                        cudaStream_t stream) {
+  const int B = a.B, L = a.L, H = a.H;
+  if (B < 1 || L < 1 || H < 1 || H > 1024) return (int)cudaErrorInvalidValue;
+  const WalkPlan plan{cluster, rows, resident};
+  const size_t smem = lstm_walk_smem_bytes(plan, H);
+  cudaError_t err = check_plan(plan, H, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 tiles((B * L + kTile - 1) / kTile, 2, (H + kTile / 4 - 1) / (kTile / 4));
+  if constexpr (kIsBf16<T>)
+    lstm_gates_bf16_kernel<<<tiles, kTileThreads, 0, stream>>>(a);
+  else
+    lstm_gates_kernel<<<tiles, kTileThreads, 0, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int groups = (B + rows - 1) / rows;
+  err = launch_cluster(lstm_bwd_walk_instance<T>(rows), dim3(cluster * groups, 2), cluster, smem,
+                       stream, a, resident);
+  if (err != cudaSuccess) return (int)err;
+
+  // dW_h[d] = sum over (b, t) of h_prev^T da, da being dxproj (both float).
+  const size_t n = (size_t)B * L;
+  AtbBatch batch{};
+  batch.count = 2;
+  batch.rows = (int)n;
+  batch.period = L;
+  for (int d = 0; d < 2; ++d)
+    batch.p[d] = AtbProblem{a.hprev2 + d * n * H, H, 0, a.dx2 + d * n * 4 * H, 4 * H,
+                            dwh2 + (size_t)d * H * 4 * H, nullptr, H, 4 * H};
+  return (int)launch_atb(batch, stream);
 }
 
 }  // namespace
@@ -203,32 +291,28 @@ extern "C" int bilstm_scan_bwd(const float* xproj2, const float* hprev2, const f
                                const float* dys2, const float* wh2, float* dxproj2, float* dh02,
                                float* dc02, float* dwh2, float* tc2, int B, int L, int H,
                                int cluster, int rows, int resident, cudaStream_t stream) {
-  if (B < 1 || L < 1 || H < 1 || H > 1024) return (int)cudaErrorInvalidValue;
-  const WalkPlan plan{cluster, rows, resident};
-  const size_t smem = lstm_walk_smem_bytes(plan, H);
-  cudaError_t err = check_plan(plan, H, smem);
-  if (err != cudaSuccess) return (int)err;
-  const auto walk = rows == 1   ? bilstm_scan_bwd_kernel<1>
-                    : rows == 2 ? bilstm_scan_bwd_kernel<2>
-                    : rows == 4 ? bilstm_scan_bwd_kernel<4>
-                    : rows == 8 ? bilstm_scan_bwd_kernel<8>
-                                : bilstm_scan_bwd_kernel<16>;
-  const LstmBwd a{xproj2, hprev2, cprev2, dys2, wh2, dxproj2, tc2, dh02, dc02, B, L, H};
-  const dim3 tiles((B * L + kTile - 1) / kTile, 2, (H + kTile / 4 - 1) / (kTile / 4));
-  lstm_gates_kernel<<<tiles, kTileThreads, 0, stream>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int groups = (B + rows - 1) / rows;
-  err = launch_cluster(walk, dim3(cluster * groups, 2), cluster, smem, stream, a, resident);
-  if (err != cudaSuccess) return (int)err;
+  return bilstm_scan_bwd_run(
+      LstmBwdT<float>{xproj2, hprev2, cprev2, dys2, wh2, dxproj2, tc2, dh02, dc02, B, L, H}, dwh2,
+      cluster, rows, resident, stream);
+}
 
-  // dW_h[d] = sum over (b, t) of h_prev^T da, da being dxproj.
-  const size_t n = (size_t)B * L;
-  AtbBatch batch{};
-  batch.count = 2;
-  batch.rows = (int)n;
-  batch.period = L;
-  for (int d = 0; d < 2; ++d)
-    batch.p[d] = AtbProblem{hprev2 + d * n * H, H, 0, dxproj2 + d * n * 4 * H, 4 * H,
-                            dwh2 + (size_t)d * H * 4 * H, nullptr, H, 4 * H};
-  return (int)launch_atb(batch, stream);
+extern "C" int bilstm_scan_bwd_bf16_limits(int cluster, int* smem_limit, int* clusters) {
+  return (int)cluster_limits(bilstm_scan_bwd_bf16_kernel<16>, cluster, smem_limit, clusters);
+}
+
+// K9's bf16 entry: bilstm_scan_bwd with bf16 xproj2 and wh2, widened as
+// they load (the states, dys2 and every output float32), on
+// bilstm_scan_bwd_limits' plan (the walk's shared memory is the same).
+// The JAX kernel with bf16 inputs (_bwd_kernel with bf16 xproj and w_h,
+// float32 states from its forward) rounds nothing: h_prev @ w_h and
+// da @ w_h^T multiply float32 values by the widened weights, and its
+// outputs are float32 (lstm_scan.py:161-166 of the JAX package).
+extern "C" int bilstm_scan_bwd_bf16(const bf16* xproj2, const float* hprev2, const float* cprev2,
+                                    const float* dys2, const bf16* wh2, float* dxproj2,
+                                    float* dh02, float* dc02, float* dwh2, float* tc2, int B,
+                                    int L, int H, int cluster, int rows, int resident,
+                                    cudaStream_t stream) {
+  return bilstm_scan_bwd_run(
+      LstmBwdT<bf16>{xproj2, hprev2, cprev2, dys2, wh2, dxproj2, tc2, dh02, dc02, B, L, H}, dwh2,
+      cluster, rows, resident, stream);
 }

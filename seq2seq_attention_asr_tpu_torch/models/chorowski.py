@@ -15,10 +15,9 @@ keep accumulation, carries and the softmax in float32, and the
 log-softmax is float32. ``encode`` casts nothing, so serving stays
 float32. bf16 evaluation runs (K1, K2 and K4 in bf16; with
 feature_maps > 0, "flagship_loc", K1, K12 and K8's <GRU, location>
-instance), and so does bf16 training of the content-only flagship (K1,
-K4, K5 and K6 in bf16: the train step, ``Trainer.fit``, ``run_cli``);
-flagship_loc's bf16 gradient raises NotImplementedError at K13 (ROADMAP
-Queue A item 5c, training part).
+instance), and so does bf16 training (the train step, ``Trainer.fit``,
+``run_cli``): of the content-only flagship K1, K4, K5 and K6 in bf16, of
+flagship_loc K1, K6, K12 and K13.
 """
 
 from __future__ import annotations

@@ -13,12 +13,15 @@ scan (kernels K10 and K11), or with feature_maps = 0 the content-only
 LSTM decoder scan (kernels K14 and K15). ``compute_dtype="bfloat16"`` is
 the JAX package's mixed-precision operating point, as for the flagship
 (models/chorowski.py): ``forward`` casts the float32 params and its
-inputs to bf16, and bf16 evaluation runs K7, K10 and K8's <LSTM,
-location> instance through their bf16 entries, or with feature_maps = 0
-K7, K14 and K8's <LSTM, content> instance; a bf16 gradient raises
-NotImplementedError where it reaches a backward kernel (ROADMAP Queue A
-item 5c, training part). ``encode`` casts nothing, so serving stays
-float32.
+inputs to bf16 (the float32 masters get their gradients through the
+casts), bf16 evaluation runs K7, K10 and K8's <LSTM, location> instance
+through their bf16 entries, or with feature_maps = 0 K7, K14 and K8's
+<LSTM, content> instance, and bf16 training (the train step,
+``Trainer.fit``, ``run_cli``) K7, K9, K10 and K11, or K7, K9, K14 and K15,
+through theirs. The conv stack's products, and their gradients, are
+plain bf16 matrix products that sum in float32 (``float32_sums``), as
+the JAX package leaves them to XLA. ``encode`` casts nothing, so serving
+stays float32.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ class ConvBiLSTMConfig:
     penalty_lambda: float = 0.0
     mono_align: bool = True
     peepholes: bool = False  # refused: the port has no LSTM peepholes
-    compute_dtype: str = "float32"  # or "bfloat16" (evaluation)
+    compute_dtype: str = "float32"  # or "bfloat16" (evaluation and training)
 
     def __post_init__(self):
         if self.compute_dtype not in ("float32", "bfloat16"):

@@ -60,8 +60,8 @@ reads the rounded alpha_seq. The entry forms the softmax's sum_l alpha
 dalpha as c . dc + sum_l alpha (dalpha_seq + carry), which needs the
 float32 c: the forward keeps that too. ``attention_decode_scan_bwd_twin_bf16``
 is the plain version that forms the sum that way, the entry's exact
-twin. The other backwards (K11, K13, K15) have no bf16 instance yet: a
-bf16 gradient of their scans raises NotImplementedError.
+twin. The other backwards (K11, K13, K15) have bf16 entries of the same
+kind at the end of this module.
 """
 
 from __future__ import annotations
@@ -208,18 +208,11 @@ def attention_decode_scan_bwd(vh, h, enc_mask, yin, ws_w, ws_b, w_e, c_w, c_b, d
     attention_decode_scan_bwd_plain_bf16); CUDA tensors the kernel (K5, or
     its bf16 entry), on scan_plan_on's plan; it raises RuntimeError where
     no cluster fits the device."""
-    weights = (ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, gru_wzr, gru_wh)
-    saved = (s_seq, c_seq, alpha_seq, ds_seq, dc_seq, dalpha_seq)
-    if vh.dtype == torch.bfloat16:
-        if c32 is None or alpha_seq.dtype != torch.float32:
-            raise ValueError("a bf16 backward takes the forward's float32 alpha and c "
-                             "(attention_decode_scan_train)")
-        if build.on_cpu(vh, h, enc_mask, yin, *weights, *saved, c32):
-            return attention_decode_scan_bwd_plain_bf16(vh, h, enc_mask, yin, *weights, *saved)
-        return _scan_bwd_bf16(vh, h, enc_mask, yin, weights, saved, c32)
-    if build.on_cpu(vh, h, enc_mask, yin, *weights, *saved):
-        return attention_decode_scan_bwd_plain(vh, h, enc_mask, yin, *weights, *saved)
-    return _scan_bwd(KERNEL_BWD, False, len(weights), vh, h, enc_mask, yin, (*weights, *saved))
+    args = (ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b, gru_wzr, gru_wh, s_seq, c_seq, alpha_seq,
+            ds_seq, dc_seq, dalpha_seq)
+    if vh.dtype != torch.bfloat16 and build.on_cpu(vh, h, enc_mask, yin, *args):
+        return attention_decode_scan_bwd_plain(vh, h, enc_mask, yin, *args)
+    return _scan_bwd(KERNEL_BWD, KERNEL_BWD_BF16, False, 9, vh, h, enc_mask, yin, args, c32)
 
 
 def attention_decode_scan_train(vh, h, enc_mask, yin, *weights):
@@ -275,7 +268,7 @@ def attention_decode_scan_bwd_plain_bf16(vh, h, enc_mask, yin, *args):
     carries stay float32, and the softmax's sum is sum_l alpha dalpha as
     JAX forms it. Every output is summed in float32 and cast once to
     bf16."""
-    return _bwd_plain_bf16(vh, h, enc_mask, yin, args, None)
+    return _bwd_plain_bf16(vh, h, enc_mask, yin, args, 9, lstm=False)
 
 
 def attention_decode_scan_bwd_twin_bf16(vh, h, enc_mask, yin, *args):
@@ -283,17 +276,29 @@ def attention_decode_scan_bwd_twin_bf16(vh, h, enc_mask, yin, *args):
     with one more argument after the cotangents, c32 (the forward's float32
     c), and the softmax's sum formed as c32 . dc + sum_l alpha (dalpha_seq
     + carry), as the entry forms it (exact arithmetic gives JAX's sum)."""
-    return _bwd_plain_bf16(vh, h, enc_mask, yin, args[:15], args[15])
+    return _bwd_plain_bf16(vh, h, enc_mask, yin, args, 9, lstm=False, twin=True)
 
 
-def _bwd_plain_bf16(vh, h, enc_mask, yin, args, c_dot):
-    weights, (s_seq, c_seq, alpha32), cots = args[:9], args[9:12], args[12:15]
-    if alpha32.dtype != torch.float32:
+def _bwd_plain_bf16(vh, h, enc_mask, yin, args, n_weights: int, lstm: bool, twin: bool = False,
+                    aprev=None):
+    """The plain bf16 backward of any decoder: args are its `n_weights`
+    weights, its saved sequences (s_seq, c_seq, alpha32[, mem_seq]), their
+    cotangents (each may be None) and, for the twin, c32. Inputs widen to
+    float32, _scan_bwd_plain rounds at the JAX kernels' points, and every
+    output is cast once to bf16. `aprev` (the sequence alpha_prev is read
+    from) as _scan_bwd_plain takes it."""
+    n_out = 4 if lstm else 3
+    weights = args[:n_weights]
+    saved = args[n_weights:n_weights + n_out]
+    cots = args[n_weights + n_out:n_weights + 2 * n_out]
+    c_dot = args[n_weights + 2 * n_out] if twin else None
+    if saved[2].dtype != torch.float32:
         raise TypeError("the bf16 backward reads the forward's float32 alpha")
     (vh, h, enc_mask, yin, weights), _, rnd = _io(vh, h, enc_mask, yin, weights)
+    saved = [t.float() for t in saved]
     cots = [None if t is None else t.float() for t in cots]
-    grads = _scan_bwd_plain(vh, h, enc_mask, yin, weights, (s_seq.float(), c_seq.float(), alpha32),
-                            cots, lstm=False, rnd=rnd, c_dot=c_dot)
+    grads = _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm=lstm, rnd=rnd,
+                            c_dot=c_dot, aprev=aprev)
     return tuple(g.to(torch.bfloat16) for g in grads)
 
 
@@ -344,7 +349,25 @@ def _bwd_plain_bf16(vh, h, enc_mask, yin, args, c_dot):
 # inputs. The entries fold c_in and dec_in into the gates as K4's do, so
 # they round s_prev, the features, c and rg s_prev, and not cc or r,
 # which they never form; ``folded_scan_plain`` is their plain twin as
-# they compute (ROADMAP, "Differences that are deliberate").
+# they compute (ROADMAP, "Differences that are deliberate"). For the
+# gradient they write the float32 alpha and c too, as K4's bf16 entry
+# does (``_forward``).
+#
+# K11, K13 and K15 have bf16 entries (``KERNEL_LOC_LSTM_BWD_BF16``,
+# ``KERNEL_LOC_BWD_BF16``, ``KERNEL_LSTM_BWD_BF16``), K5's bf16 entry's
+# kind: the JAX backwards with bf16 inputs (``_bwd_core``,
+# ``_bwd_kernel_loc_lstm`` :624 and ``_bwd_kernel_loc`` :710 with ``dt`` =
+# bf16) round, beyond K5's points, the LSTM's [s_prev | r] before its
+# gates and its dgates before their products (db sums them in float32;
+# mem_prev is the bf16 mem_seq, the dmem chain float32), the location
+# features before u, and dz before dfeat and du; they recompute the
+# features from the saved bf16 alpha_seq, while dfeat, dwconv, dbconv and
+# the alpha carry stay float32. ``_scan_bwd_plain`` rounds there on bf16
+# inputs (the plain bf16 versions ``attention_decode_scan_{loc_lstm,loc,
+# lstm}_bwd_plain_bf16``); the entries read the step's alpha from the
+# forward's float32 alpha and alpha_prev as its rounding, and form the
+# softmax's sum from the float32 c with the alpha carry inside, as their
+# exact twins ``..._bwd_twin_bf16`` do.
 
 # K10 and K14 are built from the decoder scans' source into a library of
 # their own (the forward walk's LSTM instances), and K12 with K4 into
@@ -380,24 +403,44 @@ KERNEL_LSTM_BWD = build.Kernel(
     "attention_decode_scan_lstm_bwd",
     [ctypes.c_void_p] * 36 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 )
-# K10's, K12's and K14's bf16 entries, in their float32 kernels' libraries.
+# K10's, K12's and K14's bf16 entries, in their float32 kernels' libraries
+# (each takes alpha32 and c32 after its outputs, as K4's does).
 KERNEL_LOC_LSTM_FWD_BF16 = build.Kernel(
     "attention_decode_scan_loc_lstm_fwd_bf16", "attention_scan_loc_lstm.cu",
     "attention_decode_scan_loc_lstm_fwd_bf16",
-    [ctypes.c_void_p] * 22 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 24 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
     defines=("LSTM_FWD_ONLY",),
 )
 KERNEL_LOC_FWD_BF16 = build.Kernel(
     "attention_decode_scan_loc_fwd_bf16", "attention_scan_loc_lstm.cu",
     "attention_decode_scan_loc_fwd_bf16",
-    [ctypes.c_void_p] * 20 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 22 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
     defines=("GRU_FWD_ONLY",),
 )
 KERNEL_LSTM_FWD_BF16 = build.Kernel(
     "attention_decode_scan_lstm_fwd_bf16", "attention_scan_loc_lstm.cu",
     "attention_decode_scan_lstm_fwd_bf16",
-    [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 21 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     defines=("LSTM_FWD_ONLY",),
+)
+# K11's, K13's and K15's bf16 entries, one library of their own.
+KERNEL_LOC_LSTM_BWD_BF16 = build.Kernel(
+    "attention_decode_scan_loc_lstm_bwd_bf16", "attention_scan_loc_lstm.cu",
+    "attention_decode_scan_loc_lstm_bwd_bf16",
+    [ctypes.c_void_p] * 45 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    defines=("DECODER_BWD_BF16",),
+)
+KERNEL_LOC_BWD_BF16 = build.Kernel(
+    "attention_decode_scan_loc_bwd_bf16", "attention_scan_loc_lstm.cu",
+    "attention_decode_scan_loc_bwd_bf16",
+    [ctypes.c_void_p] * 41 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    defines=("DECODER_BWD_BF16",),
+)
+KERNEL_LSTM_BWD_BF16 = build.Kernel(
+    "attention_decode_scan_lstm_bwd_bf16", "attention_scan_loc_lstm.cu",
+    "attention_decode_scan_lstm_bwd_bf16",
+    [ctypes.c_void_p] * 39 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    defines=("DECODER_BWD_BF16",),
 )
 _COMMON = WEIGHTS[:7]
 _LOC = ("wconv", "bconv", "u")
@@ -571,7 +614,7 @@ def folded_scan_plain(vh, h, enc_mask, yin, weights, lstm: bool):
 
 
 def _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm: bool, rnd=_same,
-                    c_dot=None):
+                    c_dot=None, aprev=None):
     """The backward of _scan_plain, step for step as the kernels walk: a
     reverse-time loop that recomputes each step's energies, decoder input
     and cell from the saved s, mem and alpha (shifted by one, zero at
@@ -580,15 +623,20 @@ def _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm: bool, rnd=
     input) to the step before. The GRU follows ``_run_bwd_xla`` (:1047).
     saved is (s_seq, c_seq, alpha_seq[, mem_seq]) and cots their
     cotangents, each None where there is none: it counts as zeros.
-    Returns (dvh, dh, dyin, then the gradient of each weight). For the
-    content-only GRU, `rnd` rounds each product's operand where
-    ``_bwd_core`` with bf16 inputs rounds it (build.round_bf16: the
-    recompute's operands as step_plain rounds them, and the cotangents
-    da_cand, [da_z | da_r], dr, dcc and dws before their products); the
-    other decoders' bf16 backwards are not ported (ROADMAP Queue A item
-    5c). With `c_dot` (the forward's float32 context), the softmax's
-    sum_l alpha dalpha is formed as the kernels form it, c_dot . dc +
-    sum_l alpha (dalpha_seq + carry)."""
+    Returns (dvh, dh, dyin, then the gradient of each weight). `rnd`
+    rounds each product's operand where ``_bwd_core``,
+    ``_bwd_kernel_loc_lstm`` and ``_bwd_kernel_loc`` with bf16 inputs round
+    it (build.round_bf16): the recompute's operands as step_plain rounds
+    them (the LSTM's [s_prev | r], the location features), and the
+    cotangents da_cand, [da_z | da_r], the LSTM's dgates, dr, dcc, dws and
+    the location term's dz before their products, while the bias sums,
+    dvh, dfeat, dwconv and the carries read them unrounded. alpha_prev,
+    the location term's input, is read from `aprev` shifted by one step,
+    by default rnd(alpha_seq): under bf16 the rounded forward alpha, the
+    bf16 alpha_seq that JAX's backward reads (the step's alpha stays
+    alpha_seq, the forward's float32 alpha). With `c_dot` (the forward's
+    float32 context), the softmax's sum_l alpha dalpha is formed as the
+    kernels form it, c_dot . dc + sum_l alpha (dalpha_seq + carry)."""
     (ws_w, ws_b, w_e, c_w, c_b, dec_w, dec_b), cell_w, loc_w = _split(weights, lstm)
     s_seq, c_seq, alpha_seq = saved[:3]
     ds_seq, dc_seq, dalpha_seq = cots[:3]
@@ -601,15 +649,16 @@ def _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm: bool, rnd=
     dvh, dh = torch.zeros_like(vh), torch.zeros_like(h)
     dyin = torch.empty_like(yin)
     dw = [torch.zeros_like(w) for w in weights]
+    aprev = rnd(alpha_seq) if aprev is None else aprev
     for t in range(t_len - 1, -1, -1):
         prev = (lambda seq: seq[:, t - 1]) if t > 0 else (lambda seq: torch.zeros_like(seq[:, 0]))
-        s_prev, alpha_prev = prev(s_seq), prev(alpha_seq)
+        s_prev, alpha_prev = prev(s_seq), prev(aprev)
         alpha, c_saved = alpha_seq[:, t], c_seq[:, t]
         ws = rnd(s_prev) @ ws_w + ws_b
         z = vh + ws[:, None, :]
         if loc_w:
             wconv, bconv, u = loc_w
-            feat = _loc_features(alpha_prev, wconv, bconv)
+            feat = rnd(_loc_features(alpha_prev, wconv, bconv))
             z = z + feat @ u
         a = torch.tanh(z)
         cc = rnd(c_saved) @ c_w + c_b
@@ -620,7 +669,8 @@ def _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm: bool, rnd=
         if lstm:
             w_h, w_x, b = cell_w
             mem_prev = prev(mem_seq)
-            g_in, g_forget, g_cell, g_out = (s_prev @ w_h + r @ w_x + b).chunk(4, dim=-1)
+            r = rnd(r)
+            g_in, g_forget, g_cell, g_out = (rnd(s_prev) @ w_h + r @ w_x + b).chunk(4, dim=-1)
             i, fg, o = torch.sigmoid(g_in), torch.sigmoid(g_forget), torch.sigmoid(g_out)
             g = torch.tanh(g_cell)
             tm = torch.tanh(fg * mem_prev + i * g)
@@ -628,9 +678,10 @@ def _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm: bool, rnd=
             dgates = torch.cat([dmem * g * i * (1.0 - i), dmem * mem_prev * fg * (1.0 - fg),
                                 dmem * i * (1.0 - g * g), ds * tm * o * (1.0 - o)], dim=-1)
             dmem_carry = dmem * fg
-            ds_prev = dgates @ w_h.T
-            dr = dgates @ w_x.T
-            cell_steps = (s_prev.T @ dgates, r.T @ dgates, dgates.sum(0))
+            dgr = rnd(dgates)
+            ds_prev = dgr @ w_h.T
+            dr = dgr @ w_x.T
+            cell_steps = (rnd(s_prev).T @ dgr, r.T @ dgr, dgates.sum(0))
         else:
             gru_wzr, gru_wh = cell_w
             sr = rnd(torch.cat([s_prev, r], dim=-1))
@@ -674,7 +725,8 @@ def _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm: bool, rnd=
             # The location term: UF = feat @ u, feat = conv(alpha_prev) + bconv.
             f = wconv.shape[0]
             pad_l, l = f // 2, alpha.shape[1]
-            dfeat = dz @ u.T
+            dzr = rnd(dz)
+            dfeat = dzr @ u.T
             ap = torch.nn.functional.pad(alpha_prev, (pad_l, f - 1 - pad_l))
             dap = torch.zeros_like(ap)
             for j in range(f):
@@ -682,7 +734,7 @@ def _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm: bool, rnd=
             dal_carry = dap[:, pad_l: pad_l + l]
             steps += [torch.stack([torch.einsum("bl,blq->q", ap[:, j: j + l], dfeat)
                                    for j in range(f)]),
-                      dfeat.sum((0, 1)), torch.einsum("blq,bls->qs", feat, dz)]
+                      dfeat.sum((0, 1)), torch.einsum("blq,bls->qs", feat, dzr)]
         for acc, step in zip(dw, steps):
             acc += step
     return (dvh, dh, dyin, *dw)
@@ -727,6 +779,49 @@ def attention_decode_scan_lstm_bwd_plain(vh, h, enc_mask, yin, *args):
     return _scan_bwd_plain(vh, h, enc_mask, yin, args[:10], args[10:14], args[14:], lstm=True)
 
 
+def attention_decode_scan_loc_lstm_bwd_plain_bf16(vh, h, enc_mask, yin, *args):
+    """Plain bf16 version of K11 at the JAX kernel's rounding points
+    (``_bwd_kernel_loc_lstm`` with bf16 inputs, the section's head names
+    them): args are the 13 weights, (s_seq, c_seq, alpha32, mem_seq) and
+    their 4 cotangents, all bf16 but alpha32, the forward's float32 alpha;
+    the softmax's sum is sum_l alpha dalpha as JAX forms it. Every output
+    bf16."""
+    return _bwd_plain_bf16(vh, h, enc_mask, yin, args, 13, lstm=True)
+
+
+def attention_decode_scan_loc_lstm_bwd_twin_bf16(vh, h, enc_mask, yin, *args):
+    """K11's bf16 entry as it computes it: the plain bf16 version with c32
+    (the forward's float32 c) after the cotangents, the softmax's sum
+    formed as c32 . dc + sum_l alpha (dalpha_seq + carry)."""
+    return _bwd_plain_bf16(vh, h, enc_mask, yin, args, 13, lstm=True, twin=True)
+
+
+def attention_decode_scan_loc_bwd_plain_bf16(vh, h, enc_mask, yin, *args):
+    """Plain bf16 version of K13 (``_bwd_kernel_loc`` with bf16 inputs):
+    args are the 12 weights, (s_seq, c_seq, alpha32) and their 3
+    cotangents, as attention_decode_scan_loc_lstm_bwd_plain_bf16's."""
+    return _bwd_plain_bf16(vh, h, enc_mask, yin, args, 12, lstm=False)
+
+
+def attention_decode_scan_loc_bwd_twin_bf16(vh, h, enc_mask, yin, *args):
+    """K13's bf16 entry as it computes it: the plain bf16 version with c32
+    after the cotangents (the softmax's sum as the entry forms it)."""
+    return _bwd_plain_bf16(vh, h, enc_mask, yin, args, 12, lstm=False, twin=True)
+
+
+def attention_decode_scan_lstm_bwd_plain_bf16(vh, h, enc_mask, yin, *args):
+    """Plain bf16 version of K15 (``_bwd_kernel_lstm`` with bf16 inputs):
+    args are the 10 weights, (s_seq, c_seq, alpha32, mem_seq) and their 4
+    cotangents, as attention_decode_scan_loc_lstm_bwd_plain_bf16's."""
+    return _bwd_plain_bf16(vh, h, enc_mask, yin, args, 10, lstm=True)
+
+
+def attention_decode_scan_lstm_bwd_twin_bf16(vh, h, enc_mask, yin, *args):
+    """K15's bf16 entry as it computes it: the plain bf16 version with c32
+    after the cotangents (the softmax's sum as the entry forms it)."""
+    return _bwd_plain_bf16(vh, h, enc_mask, yin, args, 10, lstm=True, twin=True)
+
+
 def _scan_dims(vh, h, yin, weights, lstm: bool):
     """(B, T, L, S, A, St) and, with the location term, (FM, F)."""
     b, l, s_dim = vh.shape
@@ -757,7 +852,8 @@ def _scan(kernel, kernel_bf16, lstm: bool, vh, h, enc_mask, yin, weights, f32: b
     (_scan_plain) on CPU tensors, the kernel on CUDA tensors, on
     fwd_plan_on's plan with a scratch of fwd_scratch_floats; on bfloat16
     inputs the plain bf16 version or the bf16 entry (`kernel_bf16`). With
-    `f32` (K4's bf16 entry only), (outputs, (alpha, c) in float32)."""
+    `f32` (bf16 inputs only), (outputs, (alpha, c) in float32), which the
+    bf16 backwards read."""
     if vh.dtype == torch.bfloat16:
         kernel = kernel_bf16
     if build.on_cpu(vh, h, enc_mask, yin, *weights):
@@ -769,10 +865,10 @@ def _scan(kernel, kernel_bf16, lstm: bool, vh, h, enc_mask, yin, weights, f32: b
     shapes = [(b, t_len, st), (b, t_len, a_dim), (b, t_len, l), (b, t_len, st)]
     outs = tuple(torch.empty(shape, device=vh.device, dtype=dt)
                  for shape in shapes[:4 if lstm else 3])
-    # K4's bf16 entry takes two more pointers, alpha and c in float32 (f32), else null.
+    # The bf16 entries take two more pointers, alpha and c in float32 (f32), else null.
     wide = (torch.empty(shapes[2], **f32_), torch.empty(shapes[1], **f32_)) if f32 else None
     extra = (([build.ptr(t) for t in wide] if f32 else [None, None])
-             if kernel is KERNEL_FWD_BF16 else [])
+             if dt == torch.bfloat16 else [])
     if b * t_len == 0:
         return (outs, wide) if f32 else outs
     plan = fwd_plan_on(kernel, b, l, s_dim, a_dim, st, *(loc or (0, 0)), vh.device)
@@ -817,11 +913,15 @@ WALK_BARS = {"lstm": 5, "gru": 6}
 # The walk's cell, by the C entry point of its backward.
 WALK_CELL = {"attention_decode_scan_bwd": "gru", "attention_decode_scan_loc_lstm_bwd": "lstm",
              "attention_decode_scan_lstm_bwd": "lstm", "attention_decode_scan_loc_bwd": "gru",
-             "attention_decode_scan_bwd_bf16": "gru"}
+             "attention_decode_scan_bwd_bf16": "gru",
+             "attention_decode_scan_loc_lstm_bwd_bf16": "lstm",
+             "attention_decode_scan_lstm_bwd_bf16": "lstm",
+             "attention_decode_scan_loc_bwd_bf16": "gru"}
 # The row of STEP_COST a walk's plan reads, by the C entry point of its
-# backward where it is not its cell's: K13's, the GRU with the location
-# term.
-WALK_COST = {"attention_decode_scan_loc_bwd": "gru_loc"}
+# backward where it is not its cell's: K13's (and its bf16 entry's), the
+# GRU with the location term.
+WALK_COST = {"attention_decode_scan_loc_bwd": "gru_loc",
+             "attention_decode_scan_loc_bwd_bf16": "gru_loc"}
 # A step of the walk and wave, in us, by cell and (C, R), on an NVIDIA H100
 # 80GB HBM3 at 700.00 W (chip_smoke.py phase 8's sweeps): for the LSTM,
 # K11's walk at the conv+BiLSTM recipe's shape (L' = 16, T = 56) under each
@@ -1084,10 +1184,14 @@ def fwd_plan_on(kernel, b: int, l: int, s_dim: int, a_dim: int, st: int, fm: int
                     cell=FWD_CELL[kernel.symbol])
 
 
-def _scan_bwd(kernel, lstm: bool, n_weights: int, vh, h, enc_mask, yin, args):
+def _scan_bwd(kernel, kernel_bf16, lstm: bool, n_weights: int, vh, h, enc_mask, yin, args,
+              c32=None):
     """The backward wrapper of K5, K11, K13 and K15: args are the weights,
     the saved output sequences and their cotangents (each None where there
-    is none: it counts as zeros). Each walks on scan_plan_on's plan."""
+    is none: it counts as zeros). Each walks on scan_plan_on's plan. On
+    bfloat16 inputs the plain bf16 version or the bf16 entry
+    (`kernel_bf16`), which take the saved alpha as the forward's float32
+    alpha and c32, its float32 c."""
     n_out = 4 if lstm else 3
     weights = args[:n_weights]
     saved = args[n_weights:n_weights + n_out]
@@ -1095,6 +1199,13 @@ def _scan_bwd(kernel, lstm: bool, n_weights: int, vh, h, enc_mask, yin, args):
     if len(cots) != n_out:
         raise ValueError(f"{len(args)} arguments after yin, expected {n_weights + 2 * n_out}")
     given = [t for t in cots if t is not None]
+    if vh.dtype == torch.bfloat16:
+        if c32 is None or saved[2].dtype != torch.float32:
+            raise ValueError("a bf16 backward takes the forward's float32 alpha and c "
+                             "(the forwards' f32 outputs)")
+        if build.on_cpu(vh, h, enc_mask, yin, *weights, *saved, *given, c32):
+            return _bwd_plain_bf16(vh, h, enc_mask, yin, args, n_weights, lstm)
+        return _scan_bwd_bf16(kernel_bf16, lstm, vh, h, enc_mask, yin, weights, saved, cots, c32)
     if build.on_cpu(vh, h, enc_mask, yin, *weights, *saved, *given):
         return _scan_bwd_plain(vh, h, enc_mask, yin, weights, saved, cots, lstm)
     _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm)
@@ -1123,36 +1234,37 @@ def _scan_bwd(kernel, lstm: bool, n_weights: int, vh, h, enc_mask, yin, args):
     return tuple(grads)
 
 
-def _scan_bwd_bf16(vh, h, enc_mask, yin, weights, saved, c32):
-    """The wrapper of K5's bf16 entry: every input bf16 but alpha (saved[2])
-    and c32, the forward's float32 alpha and c; a missing cotangent counts
-    as zeros. The walk's shared memory is the float walk's, so the plan is
-    scan_plan_on's for K5's cell, from the bf16 entry's own limits."""
-    s_seq, c_seq, alpha32, *cots = saved
+def _scan_bwd_bf16(kernel, lstm: bool, vh, h, enc_mask, yin, weights, saved, cots, c32):
+    """The wrapper of the bf16 entries of K5, K11, K13 and K15: every
+    input bf16 but alpha (saved[2]) and c32, the forward's float32 alpha
+    and c; a missing cotangent counts as zeros. The walk's shared memory
+    is the float walk's, so the plan is scan_plan_on's for the cell, from
+    the bf16 entry's own limits. dvh and dh are summed in float32 scratch
+    and rounded once by the entry."""
     bf16, dev = torch.bfloat16, vh.device
-    _check_scan_inputs(vh, h, enc_mask, yin, weights, False, bf16)
-    (bsz, t_len, l, s_dim, a_dim, st), _ = _scan_dims(vh, h, yin, weights, False)
-    shapes = {"s_seq": (bsz, t_len, st), "c_seq": (bsz, t_len, a_dim),
-              "alpha32": (bsz, t_len, l), "c32": (bsz, t_len, a_dim),
-              "ds_seq": (bsz, t_len, st), "dc_seq": (bsz, t_len, a_dim),
-              "dalpha_seq": (bsz, t_len, l)}
-    for (name, shape), t in zip(shapes.items(), (s_seq, c_seq, alpha32, c32, *cots)):
+    _check_scan_inputs(vh, h, enc_mask, yin, weights, lstm, bf16)
+    (bsz, t_len, l, s_dim, a_dim, st), loc = _scan_dims(vh, h, yin, weights, lstm)
+    seq_shapes = [(bsz, t_len, st), (bsz, t_len, a_dim), (bsz, t_len, l), (bsz, t_len, st)]
+    for name, t, shape in zip(("s_seq", "c_seq", "alpha32", "mem_seq"), saved, seq_shapes):
+        build.check(name, t, shape, dev, torch.float32 if name == "alpha32" else bf16)
+    build.check("c32", c32, seq_shapes[1], dev)
+    for name, t, shape in zip(("ds_seq", "dc_seq", "dalpha_seq", "dmem_seq"), cots, seq_shapes):
         if t is not None:
-            build.check(name, t, shape, dev, torch.float32 if name in ("alpha32", "c32") else bf16)
+            build.check(name, t, shape, dev, bf16)
     f32 = dict(device=dev, dtype=torch.float32)
     grads = [torch.empty_like(vh), torch.empty_like(h), torch.empty_like(yin)]
     grads += [torch.empty(w.shape, device=dev, dtype=bf16) for w in weights]
     if bsz * t_len == 0:
         return tuple(g.zero_() for g in grads)
-    plan = scan_plan_on(KERNEL_BWD_BF16, bsz, l, s_dim, a_dim, st, 0, 0, dev)
+    plan = scan_plan_on(kernel, bsz, l, s_dim, a_dim, st, *(loc or (0, 0)), dev)
     sums = [torch.empty(vh.shape, **f32), torch.empty(h.shape, **f32)]  # dvh, dh in float32
-    scratch = torch.empty(stash_floats(False, bsz, t_len, l, s_dim, st, 0, 0,
+    scratch = torch.empty(stash_floats(lstm, bsz, t_len, l, s_dim, st, *(loc or (0, 0)),
                                        plan.partials(bsz)), **f32)
-    KERNEL_BWD_BF16.launch(
-        *[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, s_seq, c_seq, alpha32, c32)],
+    kernel.launch(
+        *[build.ptr(t) for t in (vh, h, enc_mask, yin, *weights, *saved, c32)],
         *[None if t is None else build.ptr(t) for t in cots],
         *[build.ptr(t) for t in (*grads, *sums, scratch)],
-        bsz, t_len, l, s_dim, a_dim, st, plan.cluster, plan.rows, build.stream_of(vh),
+        bsz, t_len, l, s_dim, a_dim, st, *loc, plan.cluster, plan.rows, build.stream_of(vh),
     )
     return tuple(grads)
 
@@ -1192,57 +1304,70 @@ def attention_decode_scan_lstm(vh, h, enc_mask, yin, *weights):
     return _scan(KERNEL_LSTM_FWD, KERNEL_LSTM_FWD_BF16, True, vh, h, enc_mask, yin, weights)
 
 
-def attention_decode_scan_loc_lstm_bwd(vh, h, enc_mask, yin, *args):
+def attention_decode_scan_loc_lstm_bwd(vh, h, enc_mask, yin, *args, c32=None):
     """Cotangents of attention_decode_scan_loc_lstm's differentiable
     inputs given its inputs, its four outputs and their cotangents (each
     None where there is none: it counts as zeros): (dvh, dh, dyin, dws_w,
     dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b, dw_h, dw_x, db, dwconv,
-    dbconv, du).
+    dbconv, du). All float32; or all bfloat16 (the bf16 entry, cotangents
+    in bf16) except alpha_seq and c32, the forward's alpha and c in
+    float32 (the forward's f32 outputs).
 
-    CPU tensors take the plain version; CUDA tensors the kernel (K11), on
-    scan_plan_on's plan; it raises RuntimeError where no cluster fits the
-    device."""
-    return _scan_bwd(KERNEL_LOC_LSTM_BWD, True, 13, vh, h, enc_mask, yin, args)
+    CPU tensors take the plain version (on bf16,
+    attention_decode_scan_loc_lstm_bwd_plain_bf16); CUDA tensors the
+    kernel (K11, or its bf16 entry), on scan_plan_on's plan; it raises
+    RuntimeError where no cluster fits the device."""
+    return _scan_bwd(KERNEL_LOC_LSTM_BWD, KERNEL_LOC_LSTM_BWD_BF16, True, 13, vh, h, enc_mask,
+                     yin, args, c32)
 
 
-def attention_decode_scan_loc_bwd(vh, h, enc_mask, yin, *args):
+def attention_decode_scan_loc_bwd(vh, h, enc_mask, yin, *args, c32=None):
     """Cotangents of attention_decode_scan_loc's differentiable inputs
     given its inputs, its three outputs and their cotangents (each may be
     None): (dvh, dh, dyin, dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b,
-    dgru_wzr, dgru_wh, dwconv, dbconv, du).
+    dgru_wzr, dgru_wh, dwconv, dbconv, du). Float32, or bf16 as K11's
+    wrapper takes it.
 
-    CPU tensors take the plain version; CUDA tensors the kernel (K13), on
-    scan_plan_on's plan as K11's wrapper."""
-    return _scan_bwd(KERNEL_LOC_BWD, False, 12, vh, h, enc_mask, yin, args)
+    CPU tensors take the plain version; CUDA tensors the kernel (K13, or
+    its bf16 entry), on scan_plan_on's plan as K11's wrapper."""
+    return _scan_bwd(KERNEL_LOC_BWD, KERNEL_LOC_BWD_BF16, False, 12, vh, h, enc_mask, yin, args,
+                     c32)
 
 
-def attention_decode_scan_lstm_bwd(vh, h, enc_mask, yin, *args):
+def attention_decode_scan_lstm_bwd(vh, h, enc_mask, yin, *args, c32=None):
     """Cotangents of attention_decode_scan_lstm's differentiable inputs
     given its inputs, its four outputs and their cotangents (each may be
     None): (dvh, dh, dyin, dws_w, dws_b, dw_e, dc_w, dc_b, ddec_w, ddec_b,
-    dw_h, dw_x, db).
+    dw_h, dw_x, db). Float32, or bf16 as K11's wrapper takes it.
 
-    CPU tensors take the plain version; CUDA tensors the kernel (K15), on
-    scan_plan_on's plan as K11's wrapper."""
-    return _scan_bwd(KERNEL_LSTM_BWD, True, 10, vh, h, enc_mask, yin, args)
+    CPU tensors take the plain version; CUDA tensors the kernel (K15, or
+    its bf16 entry), on scan_plan_on's plan as K11's wrapper."""
+    return _scan_bwd(KERNEL_LSTM_BWD, KERNEL_LSTM_BWD_BF16, True, 10, vh, h, enc_mask, yin, args,
+                     c32)
 
 
-def _forward(ctx, scan, args):
-    """An autograd forward of one of the scans: saves the inputs and the
-    output sequences, as the JAX VJPs do, and hands a missing cotangent
-    to the backward as None."""
-    outs = scan(*args)
-    ctx.save_for_backward(*args, *outs)
+def _forward(ctx, kernels, lstm: bool, args):
+    """An autograd forward of one of the scans K10, K12 and K14 (`kernels`
+    its float32 and bf16 forwards): saves the inputs and the output
+    sequences, as the JAX VJPs do, under bf16 the forward's float32 alpha
+    in place of the rounded alpha_seq and its float32 c beside them, and
+    hands a missing cotangent to the backward as None."""
+    vh, h, enc_mask, yin, *weights = args
+    bf16 = vh.dtype == torch.bfloat16
+    res = _scan(*kernels, lstm, vh, h, enc_mask, yin, weights, f32=bf16)
+    outs, (alpha32, c32) = res if bf16 else (res, (None, None))
+    saved = list(outs)
+    if bf16:
+        saved[2] = alpha32
+    ctx.save_for_backward(*args, *saved, c32)
     ctx.set_materialize_grads(False)
     return outs
 
 
 def _backward(ctx, scan_bwd, cots):
-    vh, h, enc_mask, yin, *rest = ctx.saved_tensors
-    if vh.dtype == torch.bfloat16:
-        raise NotImplementedError(build.BF16_TRAINING)
+    vh, h, enc_mask, yin, *rest, c32 = ctx.saved_tensors
     cots = [None if c is None else c.contiguous() for c in cots]
-    dvh, dh, dyin, *dw = scan_bwd(vh, h, enc_mask, yin, *rest, *cots)
+    dvh, dh, dyin, *dw = scan_bwd(vh, h, enc_mask, yin, *rest, *cots, c32=c32)
     return (dvh, dh, None, dyin, *dw)
 
 
@@ -1252,12 +1377,14 @@ class AttentionDecodeScanLocLSTM(torch.autograd.Function):
     sequences, as the JAX VJP does (:1308-1326). enc_mask gets no
     gradient; a missing cotangent (mem_seq's always, on the training
     path, and alpha_seq's unless the loss reads alpha) reaches the
-    backward as None and counts as zeros. The gradient of a bf16 scan is
-    refused: K11 has no bf16 instance yet."""
+    backward as None and counts as zeros. Each in float32 or through its
+    bf16 entry; under bf16 the forward's float32 alpha and c are saved for
+    the backward (``_forward``)."""
 
     @staticmethod
     def forward(ctx, vh, h, enc_mask, yin, *weights):
-        return _forward(ctx, attention_decode_scan_loc_lstm, (vh, h, enc_mask, yin, *weights))
+        return _forward(ctx, (KERNEL_LOC_LSTM_FWD, KERNEL_LOC_LSTM_FWD_BF16), True,
+                        (vh, h, enc_mask, yin, *weights))
 
     @staticmethod
     def backward(ctx, *cots):
@@ -1268,12 +1395,13 @@ class AttentionDecodeScanLoc(torch.autograd.Function):
     """attention_decode_scan_loc with its gradient: K12 forward, K13
     backward (the plain versions on CPU tensors). Saves s_seq, c_seq and
     alpha_seq, as the JAX VJP does (:1001-1017); enc_mask gets no
-    gradient, and a missing cotangent counts as zeros. The gradient of a
-    bf16 scan is refused: K13 has no bf16 instance yet."""
+    gradient, and a missing cotangent counts as zeros. Each in float32 or
+    through its bf16 entry, as AttentionDecodeScanLocLSTM."""
 
     @staticmethod
     def forward(ctx, vh, h, enc_mask, yin, *weights):
-        return _forward(ctx, attention_decode_scan_loc, (vh, h, enc_mask, yin, *weights))
+        return _forward(ctx, (KERNEL_LOC_FWD, KERNEL_LOC_FWD_BF16), False,
+                        (vh, h, enc_mask, yin, *weights))
 
     @staticmethod
     def backward(ctx, *cots):
@@ -1285,12 +1413,13 @@ class AttentionDecodeScanLSTM(torch.autograd.Function):
     backward (the plain versions on CPU tensors). Saves the four output
     sequences (the JAX VJP, :1246-1262, saves s, c and mem, and
     recomputes alpha); enc_mask gets no gradient, and a missing cotangent
-    counts as zeros. The gradient of a bf16 scan is refused: K15 has no
-    bf16 instance yet."""
+    counts as zeros. Each in float32 or through its bf16 entry, as
+    AttentionDecodeScanLocLSTM."""
 
     @staticmethod
     def forward(ctx, vh, h, enc_mask, yin, *weights):
-        return _forward(ctx, attention_decode_scan_lstm, (vh, h, enc_mask, yin, *weights))
+        return _forward(ctx, (KERNEL_LSTM_FWD, KERNEL_LSTM_FWD_BF16), True,
+                        (vh, h, enc_mask, yin, *weights))
 
     @staticmethod
     def backward(ctx, *cots):

@@ -182,13 +182,6 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-# Where the bf16 operating point stops (ROADMAP Queue A item 5c, training
-# part): the backwards with no bf16 entry refuse a bf16 gradient.
-BF16_TRAINING = ("bf16 training of conv_bilstm, conv_bilstm_content and flagship_loc needs bf16 "
-                 "instances of the backward kernels K9, K11, K13 and K15 (ROADMAP Queue A item "
-                 "5c, training part)")
-
-
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (the plain version runs);
     False when every one lies on a CUDA device (the kernel runs).

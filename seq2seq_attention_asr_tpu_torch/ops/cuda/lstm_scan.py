@@ -30,8 +30,24 @@ the outputs to the input's type (ops/rnn.py:243-247 of the JAX
 package). The entry widens xproj2 and wh2 as it loads them and runs the
 float32 walk's plan; its plain twin, and the plain version at the JAX
 kernel's rounding points, is ``bilstm_scan_plain`` on the widened
-inputs. K9 has no bf16 instance: ``BiLSTMScan`` refuses the gradient of
-a bf16 scan (ROADMAP Queue A item 5c, training part).
+inputs.
+
+K9 has a bf16 entry too (``KERNEL_BWD_BF16``, the same pre-pass and walk
+with a bf16 IO type for xproj2 and wh2). The JAX kernel with bf16 inputs
+(``_bwd_kernel`` with bf16 xproj and w_h, :58-100) rounds nothing either:
+its h_prev and c_prev are the forward's float32 states, ``jnp.dot(h_prev,
+w_h)`` and ``jnp.dot(da, w_h.T)`` multiply float32 values by the widened
+weights, and its outputs dxproj and dwh are float32 (:161-166). The
+entry widens xproj2 and wh2 as it loads them, runs the float32 walk's
+plan and writes float32 dxproj2 and dwh2; its plain twin, and the plain
+version at the JAX kernel's rounding points, is ``bilstm_scan_bwd_plain``
+on the widened inputs. ``BiLSTMScan.backward`` returns those float32
+cotangents for the bf16 primals and leaves the cast to autograd, which
+rounds each once to bf16 where it hands it on. For dxproj2 that is
+where JAX rounds it too: the input projection's transposed product
+rounds its float32 cotangent to bf16 before it multiplies. JAX keeps the
+unrounded float32 dwh2 for the master's gradient, where the port rounds
+it once (ROADMAP, "Differences that are deliberate").
 """
 
 from __future__ import annotations
@@ -53,6 +69,10 @@ KERNEL_BWD = build.Kernel(
 KERNEL_BF16 = build.Kernel(
     "bilstm_scan_bf16", "bilstm_scan.cu", "bilstm_scan_fwd_bf16",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+)
+KERNEL_BWD_BF16 = build.Kernel(
+    "bilstm_scan_bwd_bf16", "bilstm_scan_bwd.cu", "bilstm_scan_bwd_bf16",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
 MAX_H = 1024  # csrc/bilstm_scan.cu and csrc/bilstm_scan_bwd.cu refuse wider states
 
@@ -122,7 +142,10 @@ def bilstm_scan_bwd_plain(xproj2, h_prev2, c_prev2, dys2, wh2):
     """Plain PyTorch twin of K9: a reverse-time loop of the gate math of
     ``_bwd_kernel``, both directions stacked, that recomputes each step
     from the previous states; then dW_h = sum h_prev^T da over (b, t),
-    as the kernel's reduction forms it."""
+    as the kernel's reduction forms it. bf16 xproj2 and wh2 (K9's bf16
+    entry) are widened first; the other inputs and every output are
+    float32 either way."""
+    xproj2, wh2 = build.widen(xproj2), build.widen(wh2)
     _, b, l, h4 = xproj2.shape
     h_dim = h4 // 4
     dh = xproj2.new_zeros((2, b, h_dim))
@@ -152,18 +175,23 @@ def bilstm_scan_bwd(xproj2, h_prev2, c_prev2, dys2, wh2):
     """Cotangents of bilstm_scan's inputs given its input projections,
     the hidden and cell states before each step (h_prev2[:, :, t] is the
     state step t starts from: h02 at t = 0), the cotangent of the hidden
-    states and the recurrent weights: (dxproj2, dh02, dc02, dwh2).
+    states and the recurrent weights: (dxproj2, dh02, dc02, dwh2), all
+    float32. xproj2 and wh2 float32, or both bfloat16 (the bf16 entry);
+    the other inputs float32 either way.
 
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain version; CUDA tensors the kernel (float32
+    or bf16 entry, by the inputs' type)."""
     args = (xproj2, h_prev2, c_prev2, dys2, wh2)
     if build.on_cpu(*args):
         return bilstm_scan_bwd_plain(*args)
     _, b, l, _ = xproj2.shape
     h = _hidden(xproj2)
-    dev = xproj2.device
+    dev, dt = xproj2.device, build.io_dtype(xproj2)
+    kernel = KERNEL_BWD_BF16 if dt == torch.bfloat16 else KERNEL_BWD
     shapes = [(2, b, l, 4 * h)] + [(2, b, l, h)] * 3 + [(2, h, 4 * h)]
-    for name, t, shape in zip(("xproj2", "h_prev2", "c_prev2", "dys2", "wh2"), args, shapes):
-        build.check(name, t, shape, dev)
+    for name, t, shape, t_dt in zip(("xproj2", "h_prev2", "c_prev2", "dys2", "wh2"), args,
+                                    shapes, (dt,) + (torch.float32,) * 3 + (dt,)):
+        build.check(name, t, shape, dev, t_dt)
     dxproj2 = torch.empty((2, b, l, 4 * h), device=dev, dtype=torch.float32)
     dh02 = torch.empty((2, b, h), device=dev, dtype=torch.float32)
     dc02 = torch.empty_like(dh02)
@@ -171,8 +199,8 @@ def bilstm_scan_bwd(xproj2, h_prev2, c_prev2, dys2, wh2):
     if b * l == 0:
         return dxproj2, dh02.zero_(), dc02.zero_(), dwh2.zero_()
     tc2 = torch.empty((2, b, l, h), device=dev, dtype=torch.float32)  # tanh(c) per step
-    plan = walk.plan_on(KERNEL_BWD, b, h, "lstm", 2, dev)
-    KERNEL_BWD.launch(
+    plan = walk.plan_on(kernel, b, h, "lstm", 2, dev)
+    kernel.launch(
         *[build.ptr(t) for t in (*args, dxproj2, dh02, dc02, dwh2, tc2)], b, l, h, *plan.args(),
         build.stream_of(xproj2),
     )
@@ -181,10 +209,12 @@ def bilstm_scan_bwd(xproj2, h_prev2, c_prev2, dys2, wh2):
 
 class BiLSTMScan(torch.autograd.Function):
     """bilstm_scan with its gradient: K7 forward, K9 backward (the plain
-    versions on CPU tensors). Returns the hidden states; saves them with
-    the cell states, and the backward shifts both by one step with the
-    initial state in front, as the JAX VJP does (``_vjp_bwd`` :194). The
-    gradient of a bf16 scan is refused: K9 has no bf16 instance yet."""
+    versions on CPU tensors), each in float32 or through its bf16 entry.
+    Returns the hidden states; saves them with the cell states, and the
+    backward shifts both by one step with the initial state in front, as
+    the JAX VJP does (``_vjp_bwd`` :194). On bf16 primals the backward
+    returns float32 dxproj2 and dwh2, as the JAX kernel gives them, and
+    autograd rounds each to bf16 as it hands it on."""
 
     @staticmethod
     def forward(ctx, xproj2, h02, c02, wh2):
@@ -195,8 +225,6 @@ class BiLSTMScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dhs):
         xproj2, h02, c02, wh2, hs, cs = ctx.saved_tensors
-        if xproj2.dtype == torch.bfloat16:
-            raise NotImplementedError(build.BF16_TRAINING)
         h_prev2 = torch.cat([h02[:, :, None], hs[:, :, :-1]], dim=2)
         c_prev2 = torch.cat([c02[:, :, None], cs[:, :, :-1]], dim=2)
         return bilstm_scan_bwd(xproj2, h_prev2, c_prev2, dhs.contiguous(), wh2)

@@ -366,14 +366,14 @@ def test_decode_step_bf16_casts_like_jax(held_out):
 
 
 def test_bf16_training_and_other_decoders_refuse():
-    """A bf16 train step of the flagship trains (K5's and K6's plain bf16
-    backwards on the CPU; tests/test_torch_bf16_train.py holds it to
-    JAX): its loss is finite and its params stay float32; flagship_loc's
-    bf16 gradient raises NotImplementedError naming item 5c's training
-    part, and a bad compute_dtype raises ValueError; bf16
-    conv_bilstm_content builds, and the content-only LSTM decoder's scan
-    (K14) and K8's step on it take bf16 inputs (every decoder does:
-    tests/test_torch_bf16_models.py holds them to JAX)."""
+    """A bf16 train step of the flagship and of flagship_loc trains (K5's
+    and K6's, and K13's, plain bf16 backwards on the CPU;
+    tests/test_torch_bf16_train.py and test_torch_bf16_train_loc_lstm.py
+    hold them to JAX): its loss is finite and its params stay float32,
+    each with a finite float32 gradient; a bad compute_dtype raises
+    ValueError; bf16 conv_bilstm_content builds, and the content-only LSTM
+    decoder's scan (K14) and K8's step on it take bf16 inputs (every
+    decoder does: tests/test_torch_bf16_models.py holds them to JAX)."""
     with pytest.raises(ValueError):
         registry.build("chorowski", compute_dtype="float16")
     assert registry.build("conv_bilstm", compute_dtype="bfloat16",
@@ -383,18 +383,19 @@ def test_bf16_training_and_other_decoders_refuse():
     x, x_len, oh, dm = _forward_batch(1)
     y = torch.from_numpy(oh.argmax(-1))
     batch = (torch.from_numpy(x), torch.from_numpy(x_len), y, torch.from_numpy(dm))
-    for kw, trains in (({}, True), ({"feature_maps": 4}, False)):
+    for kw in ({}, {"feature_maps": 4}):
         m = registry.build("chorowski", compute_dtype="bfloat16", **{**SMALL, **kw})
         tr = trainer.Trainer(m, optim.OptimConfig(), trainer.TrainConfig(batch_size=16),
                              device="cpu")
         tr.init(m.init(torch.Generator().manual_seed(0), device="cpu"))
-        if trains:
-            state, metrics = tr.step_fn(tr.state, batch)
-            assert bool(torch.isfinite(metrics["loss"]))
-            assert all(t.dtype == torch.float32 for t in jax.tree.leaves(state[0]))
-        else:
-            with pytest.raises(NotImplementedError, match="5c, training part"):
-                tr.step_fn(tr.state, batch)
+        state, metrics = tr.step_fn(tr.state, batch)
+        assert bool(torch.isfinite(metrics["loss"]))
+        assert all(t.dtype == torch.float32 for t in jax.tree.leaves(state[0]))
+        params = jax.tree.map(lambda t: t.detach().requires_grad_(), state[0])
+        out = m.forward(params, *batch[:2], torch.nn.functional.one_hot(y, 7).float(), batch[3])
+        out["logprobs"].float().sum().backward()
+        assert all(p.grad is not None and p.grad.dtype == torch.float32
+                   and bool(torch.isfinite(p.grad).all()) for p in jax.tree.leaves(params))
     lcfg = attention.AttentionConfig(score_depth=24, state_depth=16, annotation_depth=32,
                                      output_depth=7, readout=(("linear", 7),), cell="lstm")
     ldec = jax.tree.map(lambda t: t.to(BF16),

@@ -423,28 +423,24 @@ def test_evaluate_bf16_matches_jax(name):
 
 
 def test_bf16_training_and_the_content_lstm_refuse():
-    """A bf16 gradient of VGG runs (K5's plain bf16 backward and the bf16
-    convolutions; tests/test_torch_bf16_train.py holds it to JAX) and
-    reaches every float32 master as a finite float32 gradient; that of
-    each of the three others, conv_bilstm_content's (the content-only
-    LSTM decoder, feature_maps = 0) among them, raises
-    NotImplementedError naming item 5c's training part where it reaches
-    a backward kernel; conv_bilstm_content's bf16 evaluation path, the
-    content-only LSTM's scan (K14) and K8's <LSTM, content> step, takes
-    bf16 inputs and gives bf16 outputs."""
+    """A bf16 gradient of every model runs and reaches every float32
+    master as a finite float32 gradient: VGG's (K5's plain bf16 backward
+    and the bf16 convolutions; tests/test_torch_bf16_train.py holds it to
+    JAX), conv_bilstm's, flagship_loc's and conv_bilstm_content's (the
+    plain bf16 backwards of K9, K11, K13 and K15;
+    tests/test_torch_bf16_train_loc_lstm.py holds them to JAX);
+    conv_bilstm_content's bf16 evaluation path, the content-only LSTM's
+    scan (K14) and K8's <LSTM, content> step, takes bf16 inputs and gives
+    bf16 outputs."""
     for name in MODELS:
         m16, _ = _port_models(name)
         params = tree.tree_map(lambda a: a.requires_grad_(),
                                m16.init(torch.Generator().manual_seed(0), device="cpu"))
         x, x_len, oh, dm = (torch.from_numpy(a) for a in _forward_batch(name, 1))
         out = m16.forward(params, x, x_len, oh, dm)
-        if name == "vgg":
-            out["logprobs"].sum().backward()
-            assert all(p.grad is not None and p.grad.dtype == torch.float32
-                       and bool(torch.isfinite(p.grad).all()) for p in tree.leaves(params))
-            continue
-        with pytest.raises(NotImplementedError, match="5c, training part"):
-            out["logprobs"].sum().backward()
+        out["logprobs"].sum().backward()
+        assert all(p.grad is not None and p.grad.dtype == torch.float32
+                   and bool(torch.isfinite(p.grad).all()) for p in tree.leaves(params)), name
     assert registry.build("conv_bilstm", compute_dtype="bfloat16",
                           feature_maps=0).cfg.compute_dtype == "bfloat16"
     cfg = attention.AttentionConfig(score_depth=12, state_depth=16, annotation_depth=16,

@@ -1896,3 +1896,203 @@ def test_float32_backwards_are_bit_for_bit_as_before(card):
     included) are the bits the kernels gave before the bf16 operand path
     of reduce_atb.cuh and the bf16 instances of the walks existed."""
     assert _f32_backward_digests() == F32_BACKWARD_DIGESTS
+
+
+# K9's bf16 entry: one row, the conv+BiLSTM recipe's batches (L' = 16),
+# a part-empty last row group, fewer units than blocks, and slices
+# streamed from L2. It rounds nothing: its twin and its plain bf16 version
+# are bilstm_scan_bwd_plain on the widened inputs, and its outputs are
+# float32, as the JAX kernel's.
+@pytest.mark.parametrize("b,l,h", [(1, 16, 128), (16, 16, 128), (128, 16, 128), (33, 20, 128),
+                                   (2, 6, 5), (4, 11, 1024)])
+def test_bilstm_scan_bwd_bf16_entry(card, b, l, h):
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import lstm_scan
+
+    xproj2, h02, c02, wh2 = _lstm_fwd_case(b, l, h, b * 37 + h)
+    x16, w16 = xproj2.to(torch.bfloat16), wh2.to(torch.bfloat16)
+    hs, cs = lstm_scan.bilstm_scan(x16, h02, c02, w16)
+    gen = torch.Generator().manual_seed(b + h)
+    dys = _rand(gen, 2, b, l, h, scale=0.1).to(torch.bfloat16).float()
+    args = (x16, torch.cat([h02[:, :, None], hs[:, :, :-1]], 2),
+            torch.cat([c02[:, :, None], cs[:, :, :-1]], 2), dys, w16)
+    got = _bf16_twice(lstm_scan.KERNEL_BWD_BF16, lstm_scan.bilstm_scan_bwd, args)
+    plain = lstm_scan.bilstm_scan_bwd_plain(*args)
+    assert all(g.dtype == torch.float32 for g in got)
+    _bf16_close("bilstm_scan_bwd_bf16", got, plain, plain, plain)
+
+
+# The bf16 backward entries of K11, K13 and K15, by (cell, location term).
+SCAN_BWD_BF16 = {("lstm", True): ("attention_decode_scan_loc_lstm_bwd_bf16",
+                                  "KERNEL_LOC_LSTM_BWD_BF16", "attention_decode_scan_loc_lstm"),
+                 ("gru", True): ("attention_decode_scan_loc_bwd_bf16", "KERNEL_LOC_BWD_BF16",
+                                 "attention_decode_scan_loc"),
+                 ("lstm", False): ("attention_decode_scan_lstm_bwd_bf16", "KERNEL_LSTM_BWD_BF16",
+                                   "attention_decode_scan_lstm")}
+
+
+@pytest.mark.parametrize("case", range(len(LOC_BF16_CASES)))
+def test_decoder_scan_bwd_bf16_entries(card, case):
+    """The bf16 entries of K11, K13 and K15 at LOC_BF16_CASES' shapes, on
+    their forwards' bf16 outputs with the float32 alpha and c (the
+    forwards' f32 outputs) and random bf16 cotangents (the LSTM's mem too
+    where B is odd): within BF16_ULPS of the exact twin, by the
+    ground-truth rule against the plain bf16 version, bf16 out, one launch
+    a call, a second call bitwise equal; without c32 the wrapper refuses
+    (no fallback)."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan
+
+    cell, b, l, t, (s, a, st, fm, f) = LOC_BF16_CASES[case]
+    lstm = cell == "lstm"
+    gen = torch.Generator().manual_seed(b * 19 + l + 3)
+    vh, h, mask, yin, weights = _decoder_case(card, gen, b, l, t, s, a, st, cell, fm, f)
+    ins = _to_bf16([vh, h, mask, yin, *weights])
+    name, kernel, fwd = SCAN_BWD_BF16[(cell, fm > 0)]
+    fwd_kernels = (getattr(attention_scan, SCAN_BF16[(cell, fm > 0)][1][:-len("_BF16")]),
+                   getattr(attention_scan, SCAN_BF16[(cell, fm > 0)][1]))
+    outs, (alpha32, c32) = attention_scan._scan(*fwd_kernels, lstm, *ins[:4], tuple(ins[4:]),
+                                                f32=True)
+    assert all(torch.equal(o, p) for o, p in zip(outs, getattr(attention_scan, fwd)(*ins)))
+    saved = [outs[0], outs[1], alpha32, *outs[3:]]
+    cots = _to_bf16([_rand(gen, b, t, n, scale=0.1) for n in (st, a, l)])
+    cots += ([_to_bf16(_rand(gen, b, t, st, scale=0.1)) if b % 2 else None] if lstm else [])
+    args = [*ins, *saved, *cots, c32]
+    bwd = getattr(attention_scan, fwd + "_bwd")
+    got = _bf16_twice(getattr(attention_scan, kernel), lambda *x: bwd(*x[:-1], c32=x[-1]), args)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    _bf16_close(name, got, getattr(attention_scan, fwd + "_bwd_twin_bf16")(*args),
+                getattr(attention_scan, fwd + "_bwd_plain_bf16")(*args[:-1]),
+                getattr(attention_scan, fwd + "_bwd_plain")(*_upcast(args[:-1])))
+    with pytest.raises(ValueError, match="float32 alpha"):
+        bwd(*args[:-1])
+
+
+# The small-width bf16 train step of each other configuration: its
+# recipe, its model_kwargs, its input width and the bf16 entries it
+# launches (each once, K1's and K6's three times).
+OTHER_BF16_STEPS = {
+    "conv_bilstm": ("timit_conv_bilstm", dict(hidden_frame_size=64, output_frame_size=32,
+                                              score_depth=40, feature_maps=4, state_depth=48),
+                    {"bilstm_scan_bf16": 1, "bilstm_scan_bwd_bf16": 1,
+                     "attention_decode_scan_loc_lstm_fwd_bf16": 1,
+                     "attention_decode_scan_loc_lstm_bwd_bf16": 1}),
+    "conv_bilstm_content": ("timit_conv_bilstm",
+                            dict(hidden_frame_size=64, output_frame_size=32, score_depth=40,
+                                 feature_maps=0, state_depth=48),
+                            {"bilstm_scan_bf16": 1, "bilstm_scan_bwd_bf16": 1,
+                             "attention_decode_scan_lstm_fwd_bf16": 1,
+                             "attention_decode_scan_lstm_bwd_bf16": 1}),
+    "flagship_loc": ("timit_chorowski_normnll_colnorm",
+                     dict(hidden_frame_size=32, output_frame_size=32, score_depth=48,
+                          state_depth=32, mlp_depth=16, feature_maps=4, penalty_lambda=0.5),
+                     {"bigru_scan2_bf16": 3, "bigru_scan2_bwd_bf16": 3,
+                      "attention_decode_scan_loc_fwd_bf16": 1,
+                      "attention_decode_scan_loc_bwd_bf16": 1}),
+}
+
+
+@pytest.mark.parametrize("config", list(OTHER_BF16_STEPS))
+def test_other_bf16_train_steps_under_either_flag(card, config):
+    """A bf16 train step of conv_bilstm, conv_bilstm_content and
+    flagship_loc (with the monotonic penalty) at small widths on the card:
+    the bf16 entries of its kernels only, the same metrics and gradients
+    bit for bit under either value of allow_bf16_reduced_precision_reduction,
+    the caller's flag restored, and finite float32 gradients on every
+    master."""
+    from seq2seq_attention_asr_tpu_torch import tree
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import (attention_scan, attention_step,
+                                                          gru_scan, lstm_scan)
+    from seq2seq_attention_asr_tpu_torch.train import experiment, optim, trainer
+
+    recipe, kwargs, launches = OTHER_BF16_STEPS[config]
+    exp = getattr(experiment, recipe)()
+    exp.model_kwargs.update(kwargs, compute_dtype="bfloat16")
+    model = exp.build_model()
+    params = exp.init_params(torch.Generator().manual_seed(0), device="cuda")
+    gen = torch.Generator().manual_seed(5)
+    b, l, t = 8, 144, 12
+    x = _rand(gen, b, l, 123)
+    x_len = torch.tensor([144, 131, 144, 97, 120, 144, 88, 133], device=card)
+    y = torch.randint(0, 62, (b, t), generator=gen).cuda()
+    dec_mask = (torch.arange(t)[None] < torch.tensor([12, 7, 12, 3, 9, 12, 2, 11])[:, None])
+    batch = (x, x_len, y, dec_mask.float().cuda())
+    tx = optim.Transform(lambda p: tree.tree_map(torch.zeros_like, p),
+                         lambda g, s, p=None: (tree.tree_map(torch.zeros_like, g), g))
+    step = trainer.make_step_core(model.forward, tx, exp.optim, exp.train, model.output_depth)
+    kernels = {k.name: k for mod in (attention_scan, attention_step, gru_scan, lstm_scan)
+               for k in vars(mod).values() if isinstance(k, type(lstm_scan.KERNEL))}
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    runs = {}
+    try:
+        for flag in (True, False):
+            matmul.allow_bf16_reduced_precision_reduction = flag
+            counts = {n: k.launches for n, k in kernels.items()}
+            state, m = step((params, tx.init(params), torch.Generator(device="cuda")), batch)
+            torch.cuda.synchronize()
+            ran = {n: k.launches - counts[n] for n, k in kernels.items()
+                   if k.launches != counts[n]}
+            assert ran == launches
+            assert matmul.allow_bf16_reduced_precision_reduction is flag
+            runs[flag] = (float(m["loss"]), tree.leaves(state[1]))
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
+    assert runs[True][0] == runs[False][0]
+    assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in runs[True][1])
+    assert all(torch.equal(a, b) for a, b in zip(runs[True][1], runs[False][1]))
+
+
+def _decoder_digests(device="cuda"):
+    """sha1 of the outputs of the float32 decoder scans K10-K15 (each
+    backward on its forward's outputs) and of the bf16 forwards of K10,
+    K12 and K14 on seeded inputs, through the public wrappers only, so
+    that another checkout's kernels digest the same way."""
+    import hashlib
+
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan as sc
+
+    gen = torch.Generator().manual_seed(29)
+    r = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen) * scale).to(device)
+    u = lambda *shape: r(*shape, scale=shape[0] ** -0.5)
+    b, l, t, s, a, st, fm, f = 5, 37, 9, 40, 24, 16, 4, 5
+    mask = (torch.arange(l)[None] < torch.tensor([37, 20, 37, 9, 30])[:, None]).float().to(device)
+    h = r(b, l, a, scale=0.5) * mask[:, :, None]
+    vh = (h @ u(a, s)).contiguous()
+    yin = r(b, t, st, scale=0.5)
+    common = [u(st, s), u(st, s)[0], u(s, s)[0], u(a, st), u(a, st)[0], u(2 * st, st),
+              u(2 * st, st)[0]]
+    lstm_w = [u(st, 4 * st), u(st, 4 * st), u(st, 4 * st)[0]]
+    gru_w = [u(2 * st, 2 * st), u(2 * st, st)]
+    loc = [u(f, fm), u(f, fm)[0], u(fm, s)]
+    out = {}
+    for name, scan, weights in (("K10", sc.attention_decode_scan_loc_lstm, common + lstm_w + loc),
+                                ("K12", sc.attention_decode_scan_loc, common + gru_w + loc),
+                                ("K14", sc.attention_decode_scan_lstm, common + lstm_w)):
+        weights = [w.contiguous() for w in weights]
+        ins = [vh, h, mask, yin, *weights]
+        outs = scan(*ins)
+        cots = [r(*o.shape, scale=0.1) for o in outs]
+        grads = getattr(sc, scan.__name__ + "_bwd")(*ins, *outs, *cots)
+        bf = scan(*[x.to(torch.bfloat16) for x in ins])
+        for tag, res in ((name, outs), ("K1" + str(int(name[-1]) + 1), grads),
+                         (name + " bf16", bf)):
+            out[tag] = hashlib.sha1(b"".join(o.detach().float().cpu().numpy().tobytes()
+                                             for o in res)).hexdigest()[:16]
+    return out
+
+
+# The digests of the commit before the bf16 backwards of K11, K13 and K15
+# (and the float32 alpha and c of the bf16 forwards), on an NVIDIA H100
+# 80GB HBM3 (the commit with them gave the same).
+DECODER_DIGESTS = {"K10": "63622ca7e40a4333", "K11": "3b2ee8641120ef2e",
+                   "K10 bf16": "3cd2ca363f170b82", "K12": "ffa687cd63b6a90e",
+                   "K13": "3b8d2d050fab56aa", "K12 bf16": "a4919ed371e55d97",
+                   "K14": "fd5e486c3bd3b1dd", "K15": "0bed5cbf13db7bb4",
+                   "K14 bf16": "fc6121deb30477bd"}
+
+
+def test_decoder_scans_are_bit_for_bit_as_before(card):
+    """The float32 results of K10-K15 and the bf16 forwards' outputs of
+    K10, K12 and K14 are the bits the kernels gave before the bf16
+    backwards of K11, K13 and K15 existed and the bf16 forwards wrote the
+    float32 alpha and c."""
+    assert _decoder_digests() == DECODER_DIGESTS

@@ -283,7 +283,7 @@ def test_the_gru_walk_lays_out_what_the_plan_counts(shape, c, r):
 
 
 def _libraries():
-    """The entry points of each of the source's five builds, by the macro
+    """The entry points of each of the source's six builds, by the macro
     that selects it (None for K11's, K13's and K15's), from the source's
     #if / #elif / #else around its entry points."""
     src = scan.KERNEL_BWD.source.read_text()
@@ -292,13 +292,14 @@ def _libraries():
     assert head.endswith("#if defined(LSTM_FWD_ONLY)")
     lstm_fwd, rest = entries.split("\n#elif defined(GRU_FWD_ONLY)\n")
     gru_fwd, rest = rest.split("\n#elif defined(CONTENT_GRU_BWD_BF16)\n")
-    k5_bf16, rest = rest.split("\n#elif !defined(CONTENT_GRU_BWD_ONLY)\n")
+    k5_bf16, rest = rest.split("\n#elif defined(DECODER_BWD_BF16)\n")
+    bwd_bf16, rest = rest.split("\n#elif !defined(CONTENT_GRU_BWD_ONLY)\n")
     others, k5 = rest.split("\n#else\n")
     assert src.rstrip().endswith("#endif")
     names = lambda text: set(re.findall(r'extern "C" int (\w+)\(', text))
     return {"LSTM_FWD_ONLY": names(lstm_fwd), "GRU_FWD_ONLY": names(gru_fwd),
-            "CONTENT_GRU_BWD_BF16": names(k5_bf16), "CONTENT_GRU_BWD_ONLY": names(k5),
-            None: names(others)}
+            "CONTENT_GRU_BWD_BF16": names(k5_bf16), "DECODER_BWD_BF16": names(bwd_bf16),
+            "CONTENT_GRU_BWD_ONLY": names(k5), None: names(others)}
 
 
 def test_k5s_bf16_entry_builds_a_library_of_its_own():
@@ -312,6 +313,49 @@ def test_k5s_bf16_entry_builds_a_library_of_its_own():
         scan.KERNEL_BWD, scan.KERNEL_FWD, scan.KERNEL_LOC_LSTM_FWD, scan.KERNEL_LSTM_BWD)}
     assert _libraries()["CONTENT_GRU_BWD_BF16"] == {k.symbol, k.symbol + "_limits"}
     assert scan.WALK_CELL[k.symbol] == scan.WALK_CELL[scan.KERNEL_BWD.symbol] == "gru"
+
+
+def test_decoder_bf16_backwards_build_a_library_of_their_own():
+    """The bf16 entries of K11, K13 and K15 build from the same source
+    with DECODER_BWD_BF16 defined into one library of their own, beside
+    their float32 kernels' and K5's bf16 entry's: it holds their entry
+    points and limits helpers and no other; each walk's cell and cost row
+    is its float32 kernel's."""
+    bf16 = (scan.KERNEL_LOC_LSTM_BWD_BF16, scan.KERNEL_LOC_BWD_BF16, scan.KERNEL_LSTM_BWD_BF16)
+    floats = (scan.KERNEL_LOC_LSTM_BWD, scan.KERNEL_LOC_BWD, scan.KERNEL_LSTM_BWD)
+    assert all(k.defines == ("DECODER_BWD_BF16",) for k in bf16)
+    assert len({k.library_path() for k in bf16}) == 1
+    assert bf16[0].library_path() not in {k.library_path() for k in (
+        *floats, scan.KERNEL_BWD_BF16, scan.KERNEL_FWD)}
+    assert _libraries()["DECODER_BWD_BF16"] == {k.symbol + x for k in bf16
+                                                for x in ("", "_limits")}
+    for k, f in zip(bf16, floats):
+        assert k.symbol == f.symbol + "_bf16"
+        assert scan.WALK_CELL[k.symbol] == scan.WALK_CELL[f.symbol]
+        assert scan.WALK_COST.get(k.symbol) == scan.WALK_COST.get(f.symbol)
+
+
+_CTYPE = {"int": "c_int", "cudaStream_t": "c_void_p"}
+
+
+@pytest.mark.parametrize("kernel", [
+    scan.KERNEL_FWD, scan.KERNEL_BWD, scan.KERNEL_FWD_BF16, scan.KERNEL_BWD_BF16,
+    scan.KERNEL_LOC_LSTM_FWD, scan.KERNEL_LOC_LSTM_BWD, scan.KERNEL_LOC_FWD, scan.KERNEL_LOC_BWD,
+    scan.KERNEL_LSTM_FWD, scan.KERNEL_LSTM_BWD, scan.KERNEL_LOC_LSTM_FWD_BF16,
+    scan.KERNEL_LOC_FWD_BF16, scan.KERNEL_LSTM_FWD_BF16, scan.KERNEL_LOC_LSTM_BWD_BF16,
+    scan.KERNEL_LOC_BWD_BF16, scan.KERNEL_LSTM_BWD_BF16], ids=lambda k: k.symbol)
+def test_wrapper_argtypes_match_the_c_signature(kernel):
+    """Each decoder scan's wrapper binds as many pointers and ints, in the
+    same order, as its C entry point takes (the bf16 forwards' alpha32
+    and c32, the bf16 backwards' c32 and float32 sums among them)."""
+    src = kernel.source.read_text()
+    sig = re.search(r'extern "C" int ' + kernel.symbol + r"\((.*?)\) \{", src, re.S)
+    assert sig, kernel.symbol
+    want = []
+    for param in sig.group(1).split(","):
+        decl = " ".join(param.split())
+        want.append("c_void_p" if "*" in decl else _CTYPE[decl.rsplit(" ", 1)[0]])
+    assert [t.__name__ for t in kernel.argtypes] == want
 
 
 def test_k5_builds_a_library_of_its_own():

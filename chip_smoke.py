@@ -16,7 +16,8 @@ the bf16 training of the flagship and VGG through those of K6 and K5; then
 the LibriSpeech recipes (the VGG model,
 the character and word Chorowski recipes, the chunked out-of-core
 epoch, the stacked front end) and K2 with a word vocabulary spread over
-its cluster.
+its cluster; then the convergence harness (tools/convergence_torch.py)
+on the card against the CPU.
 
     python3 chip_smoke.py
 
@@ -278,7 +279,16 @@ Phases, each fatal when it fails:
      (f) the stacked front end (logmel_stacked, (B, 3, L, 40)) through K3
      against the CPU's plain version, one K3 launch; and the phase's wall
      seconds;
- 14. one {"kernels": [...]} JSON line (K2 also at V = 34,000 with its
+ 14. the convergence harness (tools/convergence_torch.py, main()): two
+     epochs of the conv+BiLSTM recipe at full width on 64 synthetic
+     utterances (16 held out) at batch 32, beam K=5 every epoch, on the
+     card with the launch counts zeroed just before and read just after
+     (K7, K9, K10, K11 and K8 launched, no other kernel), meta naming the
+     card line, and on the CPU from the same CPU-drawn init over the same
+     staged batches (--device-batches): train_loss, train_nll, grad_norm
+     and valid_nll within 1e-3 relative, the accuracies and PERs within
+     0.02; and the phase's wall seconds;
+ 15. one {"kernels": [...]} JSON line (K2 also at V = 34,000 with its
      plan, its launches the word beam's), the card line, and the last
      line {"ok": true, "device": {...}}.
 
@@ -3949,6 +3959,64 @@ def librispeech_phase(kernels, errs: dict, card: str) -> dict:
             "library_ms": None}
 
 
+
+# Phase 14: the convergence harness (tools/convergence_torch.py) at the
+# conv+BiLSTM recipe's full width on a small synthetic corpus, on the card
+# and on the CPU from the same CPU-drawn init over the same staged
+# batches; rows held by the train-step gate (the losses, the grad norm
+# and the valid NLL within TRAIN_RTOL) and the token decisions (the
+# accuracies and PERs) within CONVERGENCE_PER_TOL.
+CONVERGENCE_ARGV = ["--model", "conv_bilstm", "--train-utts", "64", "--valid-utts", "16",
+                    "--batch-size", "32", "--epochs", "2", "--decode-every", "1"]
+CONVERGENCE_PER_TOL = 0.02
+CONVERGENCE_KERNELS = ("bilstm_scan", "bilstm_scan_bwd", "attention_decode_scan_loc_lstm_fwd",
+                       "attention_decode_scan_loc_lstm_bwd",
+                       "fused_attention_step_loc_lstm")  # K7, K9, K10, K11, K8
+
+
+def convergence_phase(kernels, card: str) -> None:
+    """Phase 14: two epochs of the conv+BiLSTM recipe through the harness's
+    main() on the card (launch counts zeroed just before, read just after:
+    K7, K9, K10, K11 and K8, nothing else) and on the CPU (--cpu
+    --device-batches), the rows held to each other; its wall seconds."""
+    import importlib.util
+    import tempfile
+
+    t0 = time.perf_counter()
+    path = pathlib.Path(__file__).resolve().parent / "tools" / "convergence_torch.py"
+    spec = importlib.util.spec_from_file_location("convergence_torch", path)
+    harness = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(harness)
+    with tempfile.TemporaryDirectory() as d:
+        card_rows, counts = counted(kernels, lambda: harness.main(
+            CONVERGENCE_ARGV + ["--out", os.path.join(d, "card.json")]))
+        card_s = time.perf_counter() - t0
+        with open(os.path.join(d, "card.json")) as f:
+            meta = json.load(f)["meta"]
+        cpu_rows = harness.main(CONVERGENCE_ARGV + ["--cpu", "--device-batches",
+                                                    "--out", os.path.join(d, "cpu.json")])
+    print(f"convergence harness on the card: launches {counts}; meta backend "
+          f"{meta['backend']}, device {meta.get('device')}")
+    check_counts("convergence harness", counts, CONVERGENCE_KERNELS)
+    if meta["backend"] != "cuda" or meta.get("device") != card:
+        raise SystemExit(f"convergence harness: meta {meta}")
+    if not len(card_rows) == len(cpu_rows) == 2:
+        raise SystemExit(f"convergence harness: {len(card_rows)} card rows, {len(cpu_rows)} CPU")
+    for g, w in zip(card_rows, cpu_rows):
+        gate = {k: abs(g[k] - w[k]) / abs(w[k]) for k in ("train_loss", "train_nll",
+                                                          "grad_norm", "valid_nll")}
+        decisions = {k: abs(g[k] - w[k]) for k in ("train_accuracy", "valid_accuracy",
+                                                   "valid_per")}
+        print(f"convergence harness epoch {g['epoch']}: card " + ", ".join(
+            f"{k} {g[k]:.6f}" for k in (*gate, *decisions)) + "; CPU " + ", ".join(
+            f"{k} {w[k]:.6f}" for k in (*gate, *decisions)))
+        if g["epoch"] != w["epoch"] or max(gate.values()) > TRAIN_RTOL or \
+                max(decisions.values()) > CONVERGENCE_PER_TOL or not np.isfinite(g["valid_per"]):
+            raise SystemExit(f"convergence harness epoch {g['epoch']}: relative {gate}, "
+                             f"absolute {decisions}")
+    print(f"convergence phase: {time.perf_counter() - t0:.1f} s wall, the card's run "
+          f"{card_s:.1f} s ({card})")
+
 # Phase 12 (b): the bf16 evaluation path of four more configurations,
 # conv_bilstm, flagship_loc (the flagship recipe with 16 feature maps),
 # vgg and conv_bilstm_content (the conv+BiLSTM recipe without the
@@ -5303,6 +5371,8 @@ def main(parent=None) -> int:
 
     # Phase 13: the LibriSpeech recipes, and K2 at a word vocabulary.
     words_row = librispeech_phase(kernels, errs, card)
+    # Phase 14: the convergence harness on the card, against the CPU.
+    convergence_phase(kernels, card)
     if parent:
         compare_trees(parent, card)
 

@@ -10,7 +10,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "seq2seq_attention_asr_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "scan_phases.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "scan_phases.py",
+    ROOT / "tools" / "convergence_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "seq2seq_attention_asr_tpu")
 
 
@@ -28,7 +29,7 @@ def test_port_files_are_found():
             "attention_scan.py", "trainer.py", "optim.py", "initializers.py", "experiment.py",
             "loss.py", "tree.py", "lstm_scan.py", "conv.py", "conv_bilstm.py", "metrics.py",
             "batching.py", "synthetic.py", "timit.py", "greedy.py", "checkpoint.py",
-            "debug.py", "monotonic.py", "awn.py"} <= names
+            "debug.py", "monotonic.py", "awn.py", "convergence_torch.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -288,7 +288,30 @@ Phases, each fatal when it fails:
      staged batches (--device-batches): train_loss, train_nll, grad_norm
      and valid_nll within 1e-3 relative, the accuracies and PERs within
      0.02; and the phase's wall seconds;
- 15. one {"kernels": [...]} JSON line (K2 also at V = 34,000 with its
+ 15. (a) K8's <GRU, content> instance with VGG's readout over a word
+     vocabulary, its last layer spread over the cluster: B = 16, L' =
+     543, V = 34,000 at K = 5 and 8, against its plain version (1e-4
+     abs), twice, one launch a call, its plan and device time beside its
+     bound and the last layer's weight streamed once a row, its bf16
+     entry against its exact twin (BF16_ULPS) and by the ground-truth
+     rule; V = 3,125 at K = 5 (one past the old cap); at b = 1, K = 8 on
+     clusters of 16 its cap from the card's shared memory, and the
+     refusal one above; (b) beams of 10 and 16 hypotheses: K2 at the
+     flagship's widths and K8 at the conv+BiLSTM recipe's, B = 2, against
+     their plain versions, and a flagship Transcriber with a beam of 10
+     on 4 utterances against the CPU's tokens and scores (5e-3); (c) the
+     port's corpus readers end to end: a LibriSpeech-layout tree of 160 +
+     16 FLAC utterances (tests/flac_encoder.py, 2.5-6.4 s of seeded PCM,
+     30-60 words each from a seeded lexicon of 8,000), walked, decoded by
+     the native FLAC decoder (its count: every file once) and built into
+     stacked log-mel features with word targets (V > 3,124); the same
+     build through decode_flac_py gives the same PCM and features; one
+     epoch of Trainer.fit(chunked=...) of librispeech_vgg at full width
+     over two in-memory chunks (K4 and K5 only), then Trainer.evaluate
+     with the K = 5 beam on the 16 held-out utterances (K4 and K8 only,
+     K8 once a step), its WER from the native edit distance equal to
+     edit_distance_np's; and the phase's wall seconds;
+ 16. one {"kernels": [...]} JSON line (K2 also at V = 34,000 with its
      plan, its launches the word beam's), the card line, and the last
      line {"ok": true, "device": {...}}.
 
@@ -1096,9 +1119,10 @@ def k8_plans(acfg, b, k, l):
     dev = torch.device("cuda")
     smem_limit, resident = step.step_loc_lstm_limits(dev, lstm, fm > 0)
     dense = step.k8_dense(step.k8_layers(acfg))
-    return [step.StepPlan(c, -(-b // resident[c])) for c in step.CLUSTERS
+    groups, kg = step.hyp_groups(k)
+    return [step.StepPlan(c, -(-b * groups // resident[c])) for c in step.CLUSTERS
             if resident[c] >= 1 and step.step_loc_lstm_smem_bytes(
-                k, l, acfg.score_depth, acfg.annotation_depth, acfg.state_depth, fm, f, c, lstm,
+                kg, l, acfg.score_depth, acfg.annotation_depth, acfg.state_depth, fm, f, c, lstm,
                 dense) <= smem_limit]
 
 
@@ -4877,6 +4901,374 @@ def bf16_other_train_phase(kernels, card: str) -> list:
 
 # The instance of each kernel whose numbers stand in the {"kernels"} line:
 # the one on its main path, at batch 1 (serving) or the training shape.
+# Phase 15 (a) and (b): K8 with VGG's readout over a word vocabulary (its
+# last layer spread over the cluster), and beams of more than 8
+# hypotheses in K2 and K8 (a cluster a batch row and group).
+VGG_WORDS_L = 543  # VGG's encoder positions for LS_L frames
+VGG_OLD_CAP = 3124  # the largest V at K = 5 while block 0 alone took the last layer
+WIDE_K = (10, 16)
+WIDE_SERVE_K = 10
+
+
+def k8_step_case(dec, acfg, b: int, k: int, l: int, gen, dead=None, label=None):
+    """K8 at a beam step of (B, K, L) on the decoder `dec` (its V the
+    config's output_depth; the LSTM's cell state drawn too): a Case whose
+    bound counts the kernel's inputs (vh, h, the mask, yin and the state),
+    outputs and weights once, and the products and the energies' tanh."""
+    from seq2seq_attention_asr_tpu_torch import tree
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
+
+    dec_, acfg_, state, y, vh, h, mask = k2_inputs(dec, acfg, b, k, l, gen, dead)
+    if acfg.cell == "lstm":
+        state = (state[0], state[1], torch.randn(state[1].shape, generator=gen).cuda() * 0.3)
+    args = (dec_, acfg_, state, y, vh, h, mask)
+    a, s_dim, st, v = acfg.annotation_depth, acfg.score_depth, acfg.state_depth, acfg.output_depth
+    # the kernel's weights: all but y_in, whose product the wrapper forms
+    leaves = tree.leaves({key: val for key, val in dec.items() if key != "y_in"})
+    mvs = sum(t.numel() for t in leaves if t.dim() == 2)
+    esize = vh.element_size()
+    return Case("fused_attention_step_loc_lstm", K8_SYMBOLS,
+                lambda *xs: _step_outputs(attention_step.fused_attention_step(*xs)),
+                lambda *xs: _step_outputs(attention_step.fused_attention_step_plain(*xs)), args,
+                flops=b * k * (4 * l * s_dim + 2 * l * a + 2 * mvs + 3 * v),
+                nbytes=esize * (b * l * (s_dim + a + 1) + 3 * b * k * st + b * k * (l + a + st)
+                                + sum(t.numel() for t in leaves)) + 4 * b * k * v,
+                label=label or f"fused_attention_step_loc_lstm[V={v}]")
+
+
+def vgg_decoder(v: int, gen):
+    """VGG's decoder (content-only GRU, maxout 64 x 7 -> linear 64 ->
+    maxout 64 x 7 -> linear v): (weights on the card, its config)."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.models import vgg
+    from seq2seq_attention_asr_tpu_torch.ops import attention
+
+    acfg = vgg.VGGConfig(output_depth=v).attention_config()
+    return interop.to_torch(attention.attention_init(gen, acfg), "cuda"), acfg
+
+
+def k8_vgg_words_phase(kernels, card: str) -> dict:
+    """Phase 15 (a). Returns the float32 K = 5 case's numbers and plan."""
+    from seq2seq_attention_asr_tpu_torch import tree
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step as step
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 31)
+    kernel = kernels["fused_attention_step_loc_lstm"]
+    kbf = kernels["fused_attention_step_loc_lstm_bf16"]
+    smem_limit, resident = step.step_loc_lstm_limits(dev, False, False)
+    dec, acfg = vgg_decoder(WORDS_V, gen)
+    dense = step.k8_dense(step.k8_layers(acfg))
+    row = None
+    for k in (BEAM_K, 8):
+        c = k8_step_case(dec, acfg, LS_B, k, VGG_WORDS_L, gen, dead=3 if k == BEAM_K else None,
+                         label="fused_attention_step_loc_lstm[vgg]")
+        tag = f"B={LS_B} K={k} L'={VGG_WORDS_L} V={WORDS_V}"
+        err = checked_twice(c, kernel, tag)
+        plan = step.step_loc_lstm_plan_on(LS_B, k, VGG_WORDS_L, 512, 512, 256, 0, 0, False, dense,
+                                          dev)
+        with torch.no_grad():
+            ms = device_ms(lambda: c.kernel(*c.args), c.symbols, 20)
+            plain_ms = time_ms(lambda: c.plain(*c.args), 3)
+        b_ms, b_by = bound(c.flops, c.nbytes)
+        stream_ms = 1e3 * LS_B * 64 * WORDS_V * 4 / PEAK_BYTES_PER_S
+        print(f"time {c.label} {tag}: kernel {ms:.4f} ms on the device, plain {plain_ms:.4f} ms "
+              f"per call, bound {b_ms:.4f} ms ({b_by}: {c.flops:.3e} flop, {c.nbytes:.3e} B, "
+              f"each input once), the last layer's 64 x V weight streamed once a row "
+              f"{stream_ms:.4f} ms (bytes), on clusters of {plan.cluster} in {plan.waves} "
+              f"wave(s) (resident {resident}, {smem_limit} B a block) ({card})")
+        if k == BEAM_K:
+            row = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, plan=plan)
+        bf16_args = tree.tree_map(lambda a: a.to(torch.bfloat16) if isinstance(a, torch.Tensor)
+                                  and a.dtype == torch.float32 else a, list(c.args))
+        before = kbf.launches
+        with torch.no_grad():
+            got = c.kernel(*bf16_args)
+            again = c.kernel(*bf16_args)
+            twin = c.plain(*bf16_args)
+            truth = c.plain(*upcast(bf16_args))
+        torch.cuda.synchronize()
+        bf16_check("fused_attention_step_loc_lstm_bf16", tag, got, twin, twin, truth)
+        if kbf.launches - before != 2 or not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise SystemExit(f"fused_attention_step_loc_lstm_bf16 {tag}: two calls differ or "
+                             f"launch more")
+        with torch.no_grad():
+            bf_ms = device_ms(lambda: c.kernel(*bf16_args), c.symbols, 20)
+        logp_bytes = 4 * LS_B * k * WORDS_V  # float32 either way
+        bf_bound = bound(c.flops, (c.nbytes - logp_bytes) / 2 + logp_bytes)
+        print(f"time fused_attention_step_loc_lstm_bf16[vgg] {tag}: kernel {bf_ms:.4f} ms on the "
+              f"device, bound {bf_bound[0]:.4f} ms ({bf_bound[1]}) with bf16 inputs ({card})")
+        del c, bf16_args, got, again, twin, truth
+    del dec
+    dec, acfg = vgg_decoder(VGG_OLD_CAP + 1, gen)
+    checked_twice(k8_step_case(dec, acfg, 4, BEAM_K, VGG_WORDS_L, gen, dead=1), kernel,
+                  f"B=4 K={BEAM_K} L'={VGG_WORDS_L} V={VGG_OLD_CAP + 1} (one past the old cap)")
+    vgg_cap = lambda k, c: step.step_loc_lstm_vocab_cap(k, VGG_WORDS_L, 512, 512, 256, 0, 0, c,
+                                                        False, dense, smem_limit)
+    cap = vgg_cap(8, 16)
+    dec, acfg = vgg_decoder(cap, gen)
+    checked_twice(k8_step_case(dec, acfg, 1, 8, VGG_WORDS_L, gen), kernel,
+                  f"b=1 K=8 L'={VGG_WORDS_L} V={cap} (the cap on clusters of 16)")
+    dec_over, acfg_over = vgg_decoder(cap + 1, gen)
+    over = k2_inputs(dec_over, acfg_over, 1, 8, VGG_WORDS_L, gen)
+    before = kernel.launches
+    try:
+        step.fused_attention_step(*over)
+    except RuntimeError as e:
+        print(f"refuse fused_attention_step_loc_lstm[vgg] b=1 K=8 L'={VGG_WORDS_L} V={cap + 1}: "
+              f"{e}")
+    else:
+        raise SystemExit(f"fused_attention_step_loc_lstm took V={cap + 1} at K=8, over its cap")
+    if kernel.launches != before:
+        raise SystemExit("fused_attention_step_loc_lstm launched on a refused shape")
+    print(f"K8 with VGG's readout: V caps at L'={VGG_WORDS_L} on the card's {smem_limit} B a "
+          f"block, clusters of 16: K=5 {vgg_cap(5, 16)}, K=8 {cap}; clusters of 8: K=5 "
+          f"{vgg_cap(5, 8)}, K=8 {vgg_cap(8, 8)}; "
+          f"phase 15 (a) {time.perf_counter() - t0:.1f} s wall ({card})")
+    return row
+
+
+def wide_beam_phase(kernels, model, params, cb_dec, cb_acfg, pcms, mean, std, card: str):
+    """Phase 15 (b). Returns the largest max abs errors of K2 and K8."""
+    from seq2seq_attention_asr_tpu_torch.data import features
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step as step
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 32)
+    dev = torch.device("cuda")
+    acfg = model.cfg.attention_config()
+    errs = {"fused_attention_step": 0.0, "fused_attention_step_loc_lstm": 0.0}
+    for k in WIDE_K:
+        c = k2_step_case(params["decoder"], acfg, 2, k, SERVE_L, gen, dead=1)
+        plan = step.step_plan_on(2, k, SERVE_L, 512, 512, 256, 64, 7, acfg.output_depth, dev)
+        tag = (f"B=2 K={k} L={SERVE_L} (row 1 fully masked; {step.hyp_groups(k)[0]} groups a "
+               f"row, on clusters of {plan.cluster} in {plan.waves} wave(s))")
+        errs[c.name] = max(errs[c.name], checked_twice(c, kernels[c.name], tag))
+        c = k8_step_case(cb_dec, cb_acfg, 2, k, CB_SERVE_L, gen, dead=1,
+                         label="fused_attention_step_loc_lstm[lstm+loc]")
+        tag = f"B=2 K={k} L'={CB_SERVE_L} (row 1 fully masked)"
+        errs[c.name] = max(errs[c.name], checked_twice(c, kernels[c.name], tag))
+    max_steps = features.frames_for_samples(len(pcms[0])) + 2 * PAD_FRAMES
+    serve_requests(f"chorowski K={WIDE_SERVE_K}", model, {"random": params},
+                   [("random", False, 4)], pcms,
+                   dict(eos_id=EOS_ID, mean=mean, std=std, beam_k=WIDE_SERVE_K), kernels,
+                   lambda exact, steps: {"bigru_scan2": 3, "fused_attention_step": steps,
+                                         "stft_logmel_power": 1}, max_steps)
+    print(f"phase 15 (b) {time.perf_counter() - t0:.1f} s wall ({card})")
+    return errs
+
+
+# Phase 15 (c): the port's corpus readers, from FLAC on disk to a
+# word-vocabulary VGG epoch and its beam on the card.
+CORPUS = dict(n_train=160, n_valid=16, min_frames=80, max_frames=200, min_words=30, max_words=60,
+              lexicon=8000, workers=8)
+
+
+def corpus_speech(n: int, seed: int) -> np.ndarray:
+    """n samples of speech-like 16-bit PCM (make_pcm's harmonics under a
+    syllable envelope, plus noise), from `seed`."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(n) / SR
+    f0 = rng.uniform(90, 220) * (1 + 0.1 * np.sin(2 * np.pi * rng.uniform(0.5, 2) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / SR
+    voiced = sum(np.sin(k * phase) / k for k in range(1, 8))
+    env = 0.5 * (1 + np.sin(2 * np.pi * rng.uniform(3, 6) * t + rng.uniform(0, 6)))
+    return ((0.2 * env * voiced + 0.02 * rng.randn(n)) * 32767).astype(np.int32)
+
+
+def corpus_write_flac(job) -> None:
+    """A worker: one utterance's PCM encoded by tests/flac_encoder.py."""
+    path, n, seed = job
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+    from flac_encoder import encode_flac
+
+    with open(path, "wb") as f:
+        f.write(encode_flac(corpus_speech(n, seed), blocksize=4096))
+
+
+def corpus_decode_py(path: str):
+    """A worker: one file through the pure-Python FLAC decoder."""
+    from seq2seq_attention_asr_tpu_torch.data import flac
+
+    with open(path, "rb") as f:
+        data = f.read()
+    return flac.decode_flac_py(data)
+
+
+def corpus_tree(root: str, pool) -> list:
+    """The LibriSpeech layout under root: train/ (CORPUS n_train
+    utterances over 8 speakers) and valid/ (n_valid over 2), FLAC audio
+    of min_frames..max_frames frames and <speaker>-<chapter>.trans.txt
+    lines of min_words..max_words words drawn from a lexicon of
+    synthetic words; encoded in `pool`. Returns the FLAC paths."""
+    rng = np.random.RandomState(SEED + 33)
+    letters = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ"))
+    lexicon = set()
+    while len(lexicon) < CORPUS["lexicon"]:
+        lexicon.add("".join(rng.choice(letters, rng.randint(3, 10))))
+    lexicon = sorted(lexicon)
+    jobs = []
+    for split, n, speakers in (("train", CORPUS["n_train"], 8), ("valid", CORPUS["n_valid"], 2)):
+        per = n // speakers
+        for s in range(speakers):
+            spk, chap = f"{100 + s + (50 if split == 'valid' else 0)}", f"{1000 + s}"
+            d = os.path.join(root, split, spk, chap)
+            os.makedirs(d)
+            lines = []
+            for u in range(per):
+                uid = f"{spk}-{chap}-{u:04d}"
+                frames = rng.randint(CORPUS["min_frames"], CORPUS["max_frames"] + 1)
+                n_samples = (frames - 1) * HOP + rng.randint(0, HOP)
+                words = rng.choice(len(lexicon), rng.randint(CORPUS["min_words"],
+                                                             CORPUS["max_words"] + 1))
+                lines.append(f"{uid} " + " ".join(lexicon[w] for w in words))
+                jobs.append((os.path.join(d, uid + ".flac"), n_samples, int(rng.randint(1 << 30))))
+            with open(os.path.join(d, f"{spk}-{chap}.trans.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+    pool.map(corpus_write_flac, jobs)
+    return [p for p, _, _ in jobs]
+
+
+def corpus_phase(kernels, card: str) -> dict:
+    """Phase 15 (c). Returns the evaluation's K8 launches and V."""
+    import hashlib
+    import multiprocessing
+    import tempfile
+
+    from seq2seq_attention_asr_tpu_torch.data import batching, features, flac
+    from seq2seq_attention_asr_tpu_torch.data import librispeech as ls
+    from seq2seq_attention_asr_tpu_torch.data import timit
+    from seq2seq_attention_asr_tpu_torch.decode import metrics
+    from seq2seq_attention_asr_tpu_torch.native import build as native_build
+    from seq2seq_attention_asr_tpu_torch.native import editdist, flacdec
+    from seq2seq_attention_asr_tpu_torch.train import experiment, trainer
+
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as root, ctx.Pool(CORPUS["workers"]) as pool:
+        paths = corpus_tree(root, pool)
+        t_tree = time.perf_counter() - t0
+        roots = {"train": os.path.join(root, "train"), "valid": os.path.join(root, "valid")}
+        t1 = time.perf_counter()
+        before = flacdec.decodes
+        datasets, vocab, mean, std = ls.build_datasets(roots, feature_fn=features.logmel_stacked_np,
+                                                       pad=1, labelset="words")
+        decodes = flacdec.decodes - before
+        t_build = time.perf_counter() - t1
+        # The same walk and build through the pure-Python decoder (its
+        # decodes made in the pool, looked up by the file's bytes).
+        py = dict(zip(paths, pool.map(corpus_decode_py, paths)))
+        by_bytes, same_pcm = {}, True
+        for p in paths:
+            with open(p, "rb") as f:
+                data = f.read()
+            by_bytes[hashlib.sha1(data).hexdigest()] = py[p]
+            native, sr = flac.decode_flac(data)
+            same_pcm = same_pcm and sr == py[p][1] and np.array_equal(native, py[p][0])
+        native_decode = flac.decode_flac
+        flac.decode_flac = lambda data: by_bytes[hashlib.sha1(data).hexdigest()]
+        try:
+            py_sets, py_vocab, py_mean, py_std = ls.build_datasets(
+                roots, feature_fn=features.logmel_stacked_np, pad=1, labelset="words")
+        finally:
+            flac.decode_flac = native_decode
+    same_features = all(
+        datasets[s].uids == py_sets[s].uids
+        and all(np.array_equal(a, b) for a, b in zip(datasets[s].x, py_sets[s].x))
+        and all(np.array_equal(a, b) for a, b in zip(datasets[s].y, py_sets[s].y))
+        for s in datasets) and np.array_equal(mean, py_mean) and np.array_equal(std, py_std)
+    v = vocab.num_words
+    n_train, n_valid = len(datasets["train"]), len(datasets["valid"])
+    print(f"corpus: {n_train} train and {n_valid} valid FLAC utterances written in {t_tree:.1f} s "
+          f"({CORPUS['workers']} processes); walked, decoded and featurized in {t_build:.1f} s "
+          f"(native FLAC decodes {decodes}, native libraries built in "
+          f"{ {k: round(s, 2) for k, s in native_build.BUILD_SECONDS.items()} } s); word "
+          f"vocabulary V={v} (<eos> last: {list(vocab.wordmap)[-1] == ls.EOS}); decode_flac_py "
+          f"gives the same PCM: {same_pcm}, the same features: {same_features}")
+    if decodes != len(paths) or not (same_pcm and same_features) or v <= VGG_OLD_CAP or \
+            (n_train, n_valid) != (CORPUS["n_train"], CORPUS["n_valid"]):
+        raise SystemExit("corpus: the port's readers disagree, or the word vocabulary is small")
+    for ds in datasets.values():  # (3, L, 40) -> (L, 40, 3), NHWC as vgg.encode takes it
+        ds.x[:] = [np.ascontiguousarray(np.transpose(f, (1, 2, 0)), np.float32) for f in ds.x]
+    train, valid = datasets["train"], datasets["valid"]
+    half = n_train // 2
+    chunks = [timit.Dataset(uids=train.uids[lo:hi], x=train.x[lo:hi], y=train.y[lo:hi], y39=None,
+                            start=train.start[lo:hi], finish=train.finish[lo:hi])
+              for lo, hi in ((0, half), (half, n_train))]
+    exp = experiment.librispeech_vgg(v)
+    tcfg = dataclasses.replace(exp.train, num_epochs=1)
+    batcher_fn = lambda ds: batching.BucketedBatcher.from_dataset(ds, tcfg.batch_size, 2)
+    valid_batcher = batching.BucketedBatcher.from_dataset(valid, tcfg.batch_size, 2)
+    with tempfile.TemporaryDirectory() as save:
+        tr = trainer.Trainer(exp.build_model(), exp.optim, tcfg, save_dir=save, device="cuda")
+        tr.init(exp.init_params(torch.Generator().manual_seed(SEED), device="cuda"))
+        t2 = time.perf_counter()
+        chunked = (lambda i: chunks[i], 2, batcher_fn)
+        rows, fit_counts = counted(kernels, lambda: list(tr.fit(
+            None, valid, valid_batcher, decode_every=0, chunked=chunked)))
+        t_fit = time.perf_counter() - t2
+        check_counts("corpus fit librispeech_vgg", fit_counts,
+                     ("attention_decode_scan_fwd", "attention_decode_scan_bwd"))
+        scored = []
+        native_bed = metrics.batch_edit_distance
+
+        def both(pred, plen, targets, y_len):
+            d = native_bed(pred, plen, targets, y_len)
+            d_np = np.array([metrics.edit_distance_np(pred[i, :int(plen[i])],
+                                                      targets[i, :int(y_len[i])])
+                             for i in range(len(d))])
+            scored.append((d, d_np, np.maximum(np.asarray(y_len), 1)))
+            return d
+
+        metrics.batch_edit_distance = both
+        ed_before = editdist.calls
+        t3 = time.perf_counter()
+        try:
+            ev, ev_counts = counted(kernels, lambda: tr.evaluate(valid, valid_batcher, decode=True))
+        finally:
+            metrics.batch_edit_distance = native_bed
+        t_eval = time.perf_counter() - t3
+    wer = float(np.mean(np.concatenate([d / n for d, _, n in scored])))
+    wer_np = float(np.mean(np.concatenate([d / n for _, d, n in scored])))
+    row = rows[-1]
+    print(f"corpus fit librispeech_vgg V={v}, one epoch over 2 chunks of {half}: row "
+          f"{ {k: row[k] for k in ('train_nll', 'valid_nll', 'valid_accuracy')} }, "
+          f"launches {fit_counts}, {t_fit:.1f} s wall ({card})")
+    print(f"corpus evaluate librispeech_vgg K={tcfg.beam_k} V={v} on {n_valid} held-out "
+          f"utterances: WER {ev['valid_per']:.4f} (native edit distance {wer:.6f}, numpy "
+          f"{wer_np:.6f}; {editdist.calls - ed_before} native calls), launches {ev_counts}, "
+          f"{t_eval:.1f} s wall ({card})")
+    check_counts("corpus evaluate librispeech_vgg", ev_counts,
+                 ("attention_decode_scan_fwd", "fused_attention_step_loc_lstm"))
+    if not (all(np.array_equal(d, dn) for d, dn, _ in scored) and wer == wer_np
+            and abs(wer - ev["valid_per"]) <= 1e-12 and np.isfinite(row["train_nll"])
+            and editdist.calls - ed_before == len(scored) > 0):
+        raise SystemExit("corpus: the native WER differs from numpy's, or the run is not finite")
+    print(f"phase 15 (c) {time.perf_counter() - t0:.1f} s wall ({card})")
+    return {"launches": ev_counts["fused_attention_step_loc_lstm"], "v": v}
+
+
+def readers_and_wide_beams_phase(kernels, errs: dict, model, params, cb_dec, cb_acfg, pcms,
+                                 mean, std, card: str) -> None:
+    """Phase 15: (a) K8 over VGG's word vocabulary, (b) beams of more than 8
+    hypotheses, (c) the corpus readers to a VGG epoch and its beam."""
+    t0 = time.perf_counter()
+    vgg_row = k8_vgg_words_phase(kernels, card)
+    errs["fused_attention_step_loc_lstm"] = max(errs["fused_attention_step_loc_lstm"],
+                                                vgg_row["err"])
+    for name, err in wide_beam_phase(kernels, model, params, cb_dec, cb_acfg, pcms, mean, std,
+                                     card).items():
+        errs[name] = max(errs[name], err)
+    corpus = corpus_phase(kernels, card)
+    plan = vgg_row["plan"]
+    print(f"K8 over VGG's words: B={LS_B} K={BEAM_K} L'={VGG_WORDS_L} V={WORDS_V} kernel "
+          f"{vgg_row['ms']:.4f} ms, plain {vgg_row['plain_ms']:.4f} ms, bound "
+          f"{vgg_row['bound_ms']:.4f} ms ({vgg_row['bound_by']}), clusters of {plan.cluster} in "
+          f"{plan.waves} wave(s); the corpus beam (V={corpus['v']}) launched it "
+          f"{corpus['launches']} times; phase 15 {time.perf_counter() - t0:.1f} s wall ({card})")
+
+
 MAIN_LABEL = {"fused_attention_step_loc_lstm": "fused_attention_step_loc_lstm[lstm+loc]"}
 
 
@@ -5373,6 +5765,10 @@ def main(parent=None) -> int:
     words_row = librispeech_phase(kernels, errs, card)
     # Phase 14: the convergence harness on the card, against the CPU.
     convergence_phase(kernels, card)
+    # Phase 15: K8 over VGG's word vocabulary, beams of more than 8
+    # hypotheses, and the port's corpus readers from FLAC to a VGG epoch.
+    readers_and_wide_beams_phase(kernels, errs, model, params, cb_params["decoder"],
+                                 cb_model.cfg.attention_config(), pcms, mean, std, card)
     if parent:
         compare_trees(parent, card)
 

@@ -28,7 +28,9 @@
 // A product is warps over input rows and lanes over the slice's columns
 // (16-byte loads where aligned), its warps' partials summed in a fixed
 // order: no atomics, two calls give the same bits. Nine cluster
-// barriers a step. The elementwise GRU math runs on each block's own
+// barriers a step. A beam wider than kMaxK hypotheses is cut into
+// hyp_groups(K) balanced groups, each (batch row, group) on a cluster of
+// its own that reads the row's vh and h. The elementwise GRU math runs on each block's own
 // state units. Every block holds the maxout layer's outputs and takes
 // its V / C columns of the linear layer (a word vocabulary of tens of
 // thousands fits no one block): the log_softmax's max and exp-sum meet
@@ -92,8 +94,26 @@ struct ArgsT {
   T *alpha, *c, *s;
   float* logp;
   int B, K, L, S, A, St, M, W, V;
+  int G;  // hypothesis groups (hyp_groups), set by launch_step
 };
 using Args = ArgsT<float>;
+
+// A beam of K hypotheses in G = cdiv(K, kMaxK) balanced groups of at most
+// kMaxK (K = 10: two of 5); ops/cuda/attention_step.py::hyp_groups.
+__host__ __device__ constexpr int hyp_groups(int K) { return cdiv(K, kMaxK); }
+
+// The batch row and hypotheses of the cluster that runs this block, on
+// clusters of C blocks, one cluster a (row, group): group g of row b takes
+// hypotheses [k0, k0 + K), k0 = g Ktot / G, of the row's Ktot.
+struct HypGroup {
+  int b, k0, K;
+  __device__ HypGroup(int C, int Ktot, int G) {
+    const int cl = blockIdx.x / C, g = cl % G;
+    b = cl / G;
+    k0 = g * Ktot / G;
+    K = (g + 1) * Ktot / G - k0;
+  }
+};
 
 // Block r's share [lo, lo + n) of n_all items over C blocks, in whole
 // groups of g items (g divides n_all).
@@ -303,8 +323,9 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
-  const int b = blockIdx.x / C;
-  const int K = a.K, L = a.L, S = a.S, A = a.A, St = a.St, M = a.M, W = a.W, V = a.V;
+  const HypGroup hg(C, a.K, a.G);
+  const int b = hg.b, K = hg.K;
+  const int L = a.L, S = a.S, A = a.A, St = a.St, M = a.M, W = a.W, V = a.V;
   const int St2 = 2 * St, XO = St + A, Lc = cdiv(L, C), Ac = cdiv(A, C);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const Span pos(L, C, r), sc(S, C, r), un(St, C, r), ac(A, C, r), gr(M, C, r);
@@ -347,7 +368,7 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
     else
       copy_async(dst, src);
   };
-  const size_t row = (size_t)b * K;
+  const size_t row = (size_t)b * a.K + hg.k0;
   for (int i = tid; i < K * St; i += kThreads) {
     const int k = i / St, j = i % St;
     load(sr + k * St2 + j, a.sprev + (row + k) * St + j);
@@ -562,14 +583,16 @@ __global__ void __launch_bounds__(kThreads, 1) attention_step_kernel(const Args 
   // [phase] log_softmax
 }
 
-// K2 on clusters of `cluster` blocks, a batch row a cluster.
+// K2 on clusters of `cluster` blocks, a cluster a batch row and hypothesis
+// group, each block sized for the largest group.
 template <class T>
-int launch_step(const ArgsT<T>& a, int cluster, cudaStream_t stream) {
-  if (a.B < 1 || a.K < 1 || a.K > kMaxK || a.L < 1 || a.W < 1 || cluster < 1 ||
-      cluster > kMaxStepCluster)
+int launch_step(ArgsT<T> a, int cluster, cudaStream_t stream) {
+  if (a.B < 1 || a.K < 1 || a.L < 1 || a.W < 1 || cluster < 1 || cluster > kMaxStepCluster)
     return (int)cudaErrorInvalidValue;
+  a.G = hyp_groups(a.K);
   const size_t bytes =
-      step_smem_floats(a.K, a.L, a.S, a.A, a.St, a.M, a.W, a.V, cluster) * sizeof(float);
+      step_smem_floats(cdiv(a.K, a.G), a.L, a.S, a.A, a.St, a.M, a.W, a.V, cluster) *
+      sizeof(float);
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -579,7 +602,7 @@ int launch_step(const ArgsT<T>& a, int cluster, cudaStream_t stream) {
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
   if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
-  return (int)launch_cluster(attention_step_kernel<ArgsT<T>>, dim3(a.B * cluster), cluster,
+  return (int)launch_cluster(attention_step_kernel<ArgsT<T>>, dim3(a.B * a.G * cluster), cluster,
                              bytes, stream, a);
 }
 
@@ -640,19 +663,20 @@ extern "C" int fused_attention_step_bf16(
 // What bounds it: as K2, a chain of dependent matrix-vector products
 // whose weights come from L2 every step, about 7.4 MB at the conv+BiLSTM
 // recipe (dec_in 800x400, the LSTM's w_h and w_x 400x1600 each). So it
-// takes K2's split: each batch row runs on a cluster of C blocks (16 or
-// 8, from the wrapper's plan), and block r
-//   - reads its share of every weight's columns, for all K hypotheses at
-//     once: S / C of ws, its St / C state units' columns of c_in, dec_in
-//     and the cell (the LSTM's four gates, the GRU's update and reset
-//     gates and candidate), and its share of each readout layer but the
-//     last (maxout in whole groups of its window); shares of a width that
-//     4 divides are whole groups of 4, so that 16-byte loads stay aligned;
+// takes K2's split: each batch row (and group of at most kMaxK of its
+// hypotheses, as K2's) runs on a cluster of C blocks (16 or 8, from the
+// wrapper's plan), and block r
+//   - reads its share of every weight's columns, for all the group's
+//     hypotheses at once: S / C of ws, its St / C state units' columns of
+//     c_in, dec_in and the cell (the LSTM's four gates, the GRU's update
+//     and reset gates and candidate), and its share of each readout layer
+//     (maxout in whole groups of its window); shares of a width that 4
+//     divides are whole groups of 4, so that 16-byte loads stay aligned;
 //   - pushes what it forms into every block's shared memory through
 //     distributed shared memory (DSMEM), and the cluster meets at a
 //     barrier before the values are read (six barriers a step for the
-//     LSTM and seven for the GRU, and one for each readout layer but the
-//     last);
+//     LSTM and seven for the GRU, one for each readout layer but the
+//     last, and one for the log_softmax);
 //   - takes encoder positions [r L / C, (r + 1) L / C): their energies,
 //     with the location term formed from alpha_prev's window around them
 //     (the F - 1 halo comes from global memory: alpha_prev is an input),
@@ -660,9 +684,12 @@ extern "C" int fused_attention_step_bf16(
 //     over them, combined in every block as K2 combines them.
 // The products on s_prev and yin, which need no exchange (s_prev @ w_h or
 // @ w_zr[:St], yin @ dec_w[St:]), and the GRU's r @ w_h[St:], run while a
-// cluster barrier completes. Block 0 alone takes the last readout layer
-// and the log_softmax. Fixed-order sums, no atomics: two calls give the
-// same bits. No shared buffer grows with the full L.
+// cluster barrier completes. The readout's last layer stays split: each
+// block keeps its logits (a word vocabulary of tens of thousands fits no
+// one block), the log_softmax's max and exp-sum meet across the cluster,
+// two floats a hypothesis a block, and each block writes its outputs of
+// logp. Fixed-order sums, no atomics: two calls give the same bits. No
+// shared buffer grows with the full L or the full V.
 //
 // fused_attention_step_loc_lstm_bf16 is K8's bf16 entry, for a bf16
 // model's beam (each of its four instances): the same kernel with bf16
@@ -697,16 +724,20 @@ struct ReadoutT {
 __host__ __device__ constexpr long long r4(long long n) { return (n + 3) / 4 * 4; }
 
 // Shared memory of one block of K8's step, in floats, on clusters of C
-// blocks (lstm 1 for the LSTM cell, loc 1 with the location term, else 0
-// and FM = F = 0); maxw, maxpre and cols are readout_dims'. Each buffer
-// is 16-byte aligned. The plan in ops/cuda/attention_step.py
+// blocks for a group of K hypotheses (lstm 1 for the LSTM cell, loc 1
+// with the location term, else 0 and FM = F = 0); maxw, maxpre, cols and
+// lastw are readout_dims'. Each buffer is 16-byte aligned; the block's
+// logits of the readout's last layer (K lastw) lie over the first
+// gathered buffers, dead by then. The plan in ops/cuda/attention_step.py
 // (step_loc_lstm_smem_bytes) computes the same.
 long long step_loc_lstm_smem_floats(long long K, long long L, long long S, long long A,
                                     long long St, long long FM, long long F, long long C,
                                     long long lstm, long long loc, long long maxw,
-                                    long long maxpre, long long cols) {
-  return r4(K * S) + r4(S) + 2 * r4(2 * K * St) + (1 - lstm) * r4(K * St) + r4(K * (St + A)) +
-         2 * r4(K * maxw) + r4(cdiv(L, C)) + r4(K * cdiv(L, C)) + r4(C * K * cdiv(A, C)) +
+                                    long long maxpre, long long cols, long long lastw) {
+  return std::max(r4(K * S) + r4(S) + 2 * r4(2 * K * St) + (1 - lstm) * r4(K * St),
+                  r4(K * lastw)) +
+         r4(K * (St + A)) + 2 * r4(K * maxw) + r4(cdiv(L, C)) + r4(K * cdiv(L, C)) +
+         r4(C * K * cdiv(A, C)) +
          r4(2 * C * K) + r4(C * K) + r4(K) +
          r4(K * std::max((2 + 2 * lstm) * cspan(St, C), maxpre)) +
          (1 + lstm) * r4(K * cspan(St, C)) + r4(cspan(S, C)) + 2 * r4(cspan(St, C)) +
@@ -716,24 +747,29 @@ long long step_loc_lstm_smem_floats(long long K, long long L, long long S, long 
          r4(kWarps * K * std::min(128LL, std::max(std::max(cspan(S, C), 2 * cspan(St, C)), cols)));
 }
 
-// The readout's sizes on clusters of C blocks: the widest layer output
-// (maxw), the most maxout pre-activations a block holds (maxpre) and the
-// most columns a block's share of a layer's product takes (cols); a layer
-// but the last is split over the blocks, the last is block 0's alone.
+// The readout's sizes on clusters of C blocks: the widest output of a
+// layer but the last (maxw, 0 for one layer), the most maxout
+// pre-activations a block holds (maxpre), the most columns a block's
+// share of a layer's product takes (cols) and the most outputs a block
+// takes of the last layer (lastw). Every layer is split over the blocks
+// (maxout in whole groups, linear in groups of quad(out)); a layer but the
+// last is gathered into every block, the last stays where it is formed.
 struct ReadoutDims {
-  long long maxw, maxpre, cols;
+  long long maxw, maxpre, cols, lastw;
 };
 
 template <class T>
 ReadoutDims readout_dims(const ReadoutT<T>& ro, long long C) {
-  ReadoutDims d{0, 0, 0};
+  ReadoutDims d{0, 0, 0, 0};
   for (int i = 0; i < ro.n; ++i) {
     const long long out = ro.out[i], win = ro.win[i];
-    const long long share =
-        i == ro.n - 1 ? out : (ro.kind[i] == kMaxout ? cdiv(out, C) : cspan(out, C));
-    d.maxw = std::max(d.maxw, out);
+    const long long share = ro.kind[i] == kMaxout ? cdiv(out, C) : cspan(out, C);
     d.cols = std::max(d.cols, share * win);
     if (ro.kind[i] == kMaxout) d.maxpre = std::max(d.maxpre, share * win);
+    if (i == ro.n - 1)
+      d.lastw = share;
+    else
+      d.maxw = std::max(d.maxw, out);
   }
   return d;
 }
@@ -749,7 +785,7 @@ struct Args8T {
   T *alpha, *c, *s, *mem;
   float* logp;
   int B, K, L, S, A, St, V, FM, F, PL;
-  int maxw, maxpre;
+  int G, maxw, maxpre, lastw;  // hypothesis groups; readout_dims'
   ReadoutT<T> ro;
 };
 
@@ -844,8 +880,9 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
-  const int b = blockIdx.x / C;
-  const int K = a.K, L = a.L, S = a.S, A = a.A, St = a.St, FM = a.FM, F = a.F;
+  const HypGroup hg(C, a.K, a.G);
+  const int b = hg.b, K = hg.K;
+  const int L = a.L, S = a.S, A = a.A, St = a.St, FM = a.FM, F = a.F;
   const int St2 = 2 * St, XO = St + A, Lc = cdiv(L, C), Ac = cdiv(A, C);
   // Gate pre-activations a unit: the LSTM's four, the GRU's update and reset.
   constexpr int G = kLstm ? 4 : 2;
@@ -866,6 +903,11 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
   float* sr = take(K * St2);      // [K][2St]   s_prev | r
   float* rin = take(K * St2);     // [K][2St]   c_in(c) | yin
   float* rs = kLstm ? nullptr : take(K * St);  // [K][St] reset gate * s_prev
+  // The block's logits, its share of the readout's last layer, over the
+  // buffers above: none is read (or written by another block) after the
+  // cell.
+  float* lg = sm;                 // [K][lastw]
+  if (next - sm < r4((long long)K * a.lastw)) next = sm + r4((long long)K * a.lastw);
   float* xo = take(K * XO);       // [K][St+A]  s_new | c
   float* y0 = take(K * a.maxw);   // [K][maxw]  readout layer outputs, by turns
   float* y1 = take(K * a.maxw);
@@ -906,7 +948,7 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
     else
       copy_async(dst, src);
   };
-  const size_t row = (size_t)b * K;
+  const size_t row = (size_t)b * a.K + hg.k0;
   for (int i = tid; i < K * St; i += kThreads) {
     const int k = i / St, j = i - k * St;
     load(sr + k * St2 + j, a.sprev + (row + k) * St + j);
@@ -1145,10 +1187,11 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
     // [phase] candidate
   }
 
-  // Readout on concat(s_new, c). Each layer but the last: this block's
-  // share of its columns (maxout: whole groups of its window, their
-  // maxima), relu applied before the push, into every block, or into
-  // block 0 alone where the next layer is the last.
+  // Readout on concat(s_new, c). Each dense layer: this block's share of
+  // its columns (maxout: whole groups of its window, their maxima), relu
+  // applied; a layer but the last pushes its share into every block, the
+  // last keeps its logits here (lg), and its f32 log_softmax meets across
+  // the cluster as K2's does.
   const ReadoutT<T>& ro = a.ro;
   if (ro.relu_in) {
     for (int i = tid; i < K * XO; i += kThreads) xo[i] = fmaxf(xo[i], 0.f);
@@ -1156,18 +1199,25 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
   }
   const float* x = xo;
   int width = XO;
-  for (int li = 0; li + 1 < ro.n; ++li) {
-    float* y = li & 1 ? y1 : y0;
-    const int out = ro.out[li], win = ro.win[li], ldw = out * win, to = li + 2 < ro.n ? C : 1;
+  for (int li = 0; li < ro.n; ++li) {
+    const bool last = li + 1 == ro.n;
+    float* y = last ? lg : li & 1 ? y1 : y0;
+    const int out = ro.out[li], win = ro.win[li], ldw = out * win;
     const bool relu = ro.relu[li];
     const T* bias = ro.b[li];
+    // Output j of this block's share: into lg, or into every block's y.
+    const auto put = [&](int k, int jj, int col, float v) {
+      if (last)
+        y[k * a.lastw + jj] = v;
+      else
+        for (int p = 0; p < C; ++p) cluster.map_shared_rank(y, p)[k * out + col] = v;
+    };
     if (ro.kind[li] == kLinear) {
       const Span oc(out, C, r, quad(out));
       slice_product(ro.w[li], ldw, width, x, width, K, Cols{oc.lo, oc.n, 0, 0}, scratch,
-                    [&](int k, int, int col, float v) {
+                    [&](int k, int jj, int col, float v) {
                       v = round_to<T>(round_to<T>(v) + ldg_f(bias + col));
-                      if (relu) v = fmaxf(v, 0.f);
-                      for (int p = 0; p < to; ++p) cluster.map_shared_rank(y, p)[k * out + col] = v;
+                      put(k, jj, col, relu ? fmaxf(v, 0.f) : v);
                     });
     } else {
       const Span gr(out, C, r);
@@ -1181,53 +1231,50 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_step_loc_lstm_kernel(cons
         const float* grp = gl + k * n + g * win;
         float m = grp[0];
         for (int t = 1; t < win; ++t) m = fmaxf(m, grp[t]);
-        if (relu) m = fmaxf(m, 0.f);
-        for (int p = 0; p < to; ++p) cluster.map_shared_rank(y, p)[k * out + gr.lo + g] = m;
+        put(k, g, gr.lo + g, relu ? fmaxf(m, 0.f) : m);
       }
     }
+    if (last) break;
     cluster.sync();
     // [phase] readout layer
     x = y;
     width = out;
   }
-  if (r != 0) return;
+  __syncthreads();
 
-  // Block 0: the last layer and the f32 log_softmax, a warp per hypothesis.
-  const int li = ro.n - 1, out = ro.out[li], win = ro.win[li];
-  const bool relu = ro.relu[li];
-  const T* bias = ro.b[li];
-  float* y = li & 1 ? y1 : y0;
-  if (ro.kind[li] == kLinear) {
-    slice_product(ro.w[li], out, width, x, width, K, Cols{0, out, 0, 0}, scratch,
-                  [&](int k, int, int col, float v) {
-                    v = round_to<T>(round_to<T>(v) + ldg_f(bias + col));
-                    y[k * out + col] = relu ? fmaxf(v, 0.f) : v;
-                  });
-  } else {
-    slice_product(ro.w[li], out * win, width, x, width, K, Cols{0, out * win, 0, 0}, scratch,
-                  [&](int k, int jj, int col, float v) {
-                    gl[k * out * win + jj] = round_to<T>(round_to<T>(v) + ldg_f(bias + col));
-                  });
-    for (int i = tid; i < K * out; i += kThreads) {
-      const int k = i / out, g = i % out;
-      const float* grp = gl + (k * out + g) * win;
-      float m = grp[0];
-      for (int t = 1; t < win; ++t) m = fmaxf(m, grp[t]);
-      y[i] = relu ? fmaxf(m, 0.f) : m;
-    }
-    __syncthreads();
-  }
+  // The f32 log_softmax, a warp per hypothesis: the block's max and
+  // exp-sum over its outputs go to every block, and each block writes its
+  // outputs of logp against the row's max and sum.
+  const Span vs = ro.kind[ro.n - 1] == kLinear ? Span(a.V, C, r, quad(a.V)) : Span(a.V, C, r);
+  const float* z = lg + warp * a.lastw;
   if (warp < K) {
-    const float* z = y + warp * out;
     float m = -INFINITY;
-    for (int j = lane; j < out; j += 32) m = fmaxf(m, z[j]);
+    for (int j = lane; j < vs.n; j += 32) m = fmaxf(m, z[j]);
     m = warp_max(m);
     float t = 0.f;
-    for (int j = lane; j < out; j += 32) t += expf(z[j] - m);
-    const float lse = logf(warp_sum(t));
-    for (int j = lane; j < out; j += 32) a.logp[(row + warp) * out + j] = z[j] - m - lse;
+    for (int j = lane; j < vs.n; j += 32) t += expf(z[j] - m);
+    t = warp_sum(t);
+    if (lane < C) {
+      float* st = cluster.map_shared_rank(stat, lane) + (r * K + warp) * 2;
+      st[0] = m;
+      st[1] = t;
+    }
   }
-  // [phase] last layer, log_softmax
+  cluster.sync();
+  // [phase] last layer
+  if (warp < K) {
+    float m = -INFINITY;
+    for (int p = 0; p < C; ++p) m = fmaxf(m, stat[(p * K + warp) * 2]);
+    float t = 0.f;
+    for (int p = 0; p < C; ++p) {
+      const float* st = stat + (p * K + warp) * 2;
+      if (st[1] > 0.f) t = fmaf(expf(st[0] - m), st[1], t);
+    }
+    const float lse = logf(t);
+    float* o = a.logp + (row + warp) * a.V + vs.lo;
+    for (int j = lane; j < vs.n; j += 32) o[j] = z[j] - m - lse;
+  }
+  // [phase] log_softmax
 }
 
 template <bool kLstm, bool kLoc>
@@ -1246,16 +1293,17 @@ cudaError_t launch_step_loc_lstm(const Args8T<T>& a, int cluster, size_t bytes,
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
-  return launch_cluster(kernel, dim3(a.B * cluster), cluster, bytes, stream, a);
+  return launch_cluster(kernel, dim3(a.B * a.G * cluster), cluster, bytes, stream, a);
 }
 
-// K8 on clusters of `cluster` blocks, a batch row a cluster; the readout's
-// n_layers layers (kinds, outs, wins; ro_w and ro_b their weights).
+// K8 on clusters of `cluster` blocks, a cluster a batch row and hypothesis
+// group, each block sized for the largest group; the readout's n_layers
+// layers (kinds, outs, wins; ro_w and ro_b their weights).
 template <class T>
 int step_loc_lstm_run(Args8T<T> a, int n_layers, const int* kinds, const int* outs,
                       const int* wins, const T* const* ro_w, const T* const* ro_b, int lstm,
                       int loc, int cluster, cudaStream_t stream) {
-  if (a.B < 1 || a.K < 1 || a.K > kMaxK || a.L < 1 || n_layers < 1 || n_layers > kMaxLayers ||
+  if (a.B < 1 || a.K < 1 || a.L < 1 || n_layers < 1 || n_layers > kMaxLayers ||
       cluster < 1 || cluster > kMaxStepCluster || (loc && (a.FM < 1 || a.F < 1)))
     return (int)cudaErrorInvalidValue;
   // The dense layers, each relu folded into the layer before it.
@@ -1281,9 +1329,11 @@ int step_loc_lstm_run(Args8T<T> a, int n_layers, const int* kinds, const int* ou
   const ReadoutDims d = readout_dims(a.ro, cluster);
   a.maxw = (int)d.maxw;
   a.maxpre = (int)d.maxpre;
-  const size_t bytes = step_loc_lstm_smem_floats(a.K, a.L, a.S, a.A, a.St, a.FM, a.F, cluster,
-                                                 lstm ? 1 : 0, loc ? 1 : 0, d.maxw, d.maxpre,
-                                                 d.cols) *
+  a.lastw = (int)d.lastw;
+  a.G = hyp_groups(a.K);
+  const size_t bytes = step_loc_lstm_smem_floats(cdiv(a.K, a.G), a.L, a.S, a.A, a.St, a.FM, a.F,
+                                                 cluster, lstm ? 1 : 0, loc ? 1 : 0, d.maxw,
+                                                 d.maxpre, d.cols, d.lastw) *
                        sizeof(float);
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1340,7 +1390,7 @@ extern "C" int fused_attention_step_loc_lstm(
   const Args8T<float> a{vh,      h,     mask,   yin,    sprev, ws_w,  ws_b, w_e, c_w, c_b,
                         dec_w,   dec_b, cw1,    cw2,    cw3,   memprev, aprev, conv_w, conv_b,
                         u,       alpha, c,      s,      mem,   logp,  B,    K,   L,   S,   A,
-                        St,      V,     loc ? FM : 0,   loc ? F : 0,   loc ? F / 2 : 0, 0, 0, {}};
+                        St,      V,     loc ? FM : 0,   loc ? F : 0,   loc ? F / 2 : 0, 0, 0, 0, 0, {}};
   return step_loc_lstm_run(a, n_layers, kinds, outs, wins, ro_w, ro_b, lstm, loc, cluster,
                            stream);
 }
@@ -1360,7 +1410,7 @@ extern "C" int fused_attention_step_loc_lstm_bf16(
   const Args8T<bf16> a{vh,      h,     mask,   yin,    sprev, ws_w,  ws_b, w_e, c_w, c_b,
                        dec_w,   dec_b, cw1,    cw2,    cw3,   memprev, aprev, conv_w, conv_b,
                        u,       alpha, c,      s,      mem,   logp,  B,    K,   L,   S,   A,
-                       St,      V,     loc ? FM : 0,   loc ? F : 0,   loc ? F / 2 : 0, 0, 0, {}};
+                       St,      V,     loc ? FM : 0,   loc ? F : 0,   loc ? F / 2 : 0, 0, 0, 0, 0, {}};
   return step_loc_lstm_run(a, n_layers, kinds, outs, wins, ro_w, ro_b, lstm, loc, cluster,
                            stream);
 }

@@ -6,7 +6,8 @@ that a batch's shapes come from a small set. `Batch` carries what a
 train or eval step needs: padded features, encoder lengths, padded
 labels (61- and 39-space), the decoder mask and uids. An utterance
 longer than the last boundary is truncated to it, as in the JAX
-package.
+package. (L, D) features are packed by the port's C++ packer
+(native/packing.cpp, built at first use), stacked ones in numpy.
 
 `CachedDeviceBatcher` builds every batch once, from one shuffle, moves
 it to the device once, and each epoch yields the batches in a new order.
@@ -103,6 +104,41 @@ class BucketedBatcher:
     def _pad(self, ds, idxs: List[int], l_pad: int) -> Batch:
         t_max = max(len(ds.y[i]) for i in idxs)
         t_pad = -(-t_max // self.t_multiple) * self.t_multiple
+        if ds.x[idxs[0]].ndim != 2:
+            # channel-stacked features (L, freq, C), the VGG recipe's, go
+            # through numpy: the C++ packer copies (L, D) rows
+            return self._pad_np(ds, idxs, l_pad, t_pad)
+        return self._pad_native(ds, idxs, l_pad, t_pad)
+
+    @staticmethod
+    def _ragged(ds):
+        """Ragged (concatenated) views of ds for the native packer, built
+        once per dataset and kept on the dataset object."""
+        cached = getattr(ds, "_ragged_views", None)
+        if cached is not None:
+            return cached
+        from ..native import packing
+
+        views = (packing.RaggedFeatures(ds.x), packing.RaggedLabels(ds.y),
+                 packing.RaggedLabels(ds.y39) if ds.y39 is not None else None)
+        ds._ragged_views = views
+        return views
+
+    def _pad_native(self, ds, idxs: List[int], l_pad: int, t_pad: int) -> Batch:
+        """The C++ packer's strided copies (native/packing.cpp); the same
+        batch as _pad_np."""
+        from ..native import packing
+
+        rf, rl, rl39 = self._ragged(ds)
+        x, x_len = packing.pack_batch(rf, idxs, l_pad)
+        y, y_len = packing.pack_labels(rl, idxs, t_pad)
+        y39 = packing.pack_labels(rl39, idxs, t_pad)[0] if rl39 is not None else None
+        return Batch(x=x, x_len=x_len.astype(np.int32), y=y, y_len=y_len.astype(np.int32),
+                     y39=y39, uids=[ds.uids[i] for i in idxs])
+
+    def _pad_np(self, ds, idxs: List[int], l_pad: int, t_pad: int) -> Batch:
+        """The numpy version of _pad_native, and the path of stacked
+        features."""
         b = len(idxs)
         x = np.zeros((b, l_pad) + ds.x[idxs[0]].shape[1:], np.float32)
         y = np.zeros((b, t_pad), np.int32)

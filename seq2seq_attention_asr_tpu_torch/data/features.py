@@ -1,6 +1,7 @@
-"""Log-mel front end (seq2seq_attention_asr_tpu/data/features.py): the
-on-device batched path, and the numpy offline path of the stacked
-features and the corpus normalization.
+"""Acoustic front end (seq2seq_attention_asr_tpu/data/features.py): the
+on-device batched log-mel path, and the numpy offline path of the
+corpus readers (log-mel with energy, the stacked log-mel, the CQT
+variants, the corpus normalization and PCA).
 
 Numerics follow the reference's offline extractor
 (preprocess_timit.py:196-225, Python-2-era librosa): centered STFT with
@@ -9,15 +10,17 @@ slaney mel filters of which the first ``nfreqs`` are kept,
 ``10*log10(max(amin, S))`` clipped at max - 80 dB per utterance, an RMS
 energy column, and width-9 deltas and delta-deltas -> (B, L, 123); or
 the channel stack logmel | delta | delta-delta, (3, L, nfreqs), of the
-VGG recipe.
+VGG recipe. The CQT variants take method="pseudo" (log-spaced triangles
+on the STFT) or "exact" (direct constant-Q kernels, cqt_exact_np).
 
-The constants, the filterbank and the numpy functions are this
-package's own copies of the JAX package's numpy code.
+The constants, the filterbanks and the numpy functions are this
+package's own copies of the JAX package's numpy code, with its results.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -108,15 +111,145 @@ def delta_np(data: np.ndarray, width: int = 9, order: int = 1, axis: int = -1) -
     return out
 
 
+def rms_energy_np(S_power: np.ndarray) -> np.ndarray:
+    """Per-frame RMS from the power spectrogram (old librosa rmse)."""
+    return np.sqrt(np.mean(S_power, axis=0))
+
+
+def _power_and_db(y: np.ndarray, sr: int, n_fft: int, hop: int, nfreqs: int, n_mels: int):
+    """The power spectrogram (1 + n_fft // 2, L) and the first nfreqs
+    mel bands in dB (nfreqs, L): what logmel_np and logmel_stacked_np
+    share."""
+    S = np.abs(stft_np(y, n_fft, hop)) ** 2
+    return S, power_to_db(mel_filterbank(sr, n_fft, n_mels) @ S)[:nfreqs]
+
+
+def logmel_np(y: np.ndarray, sr: int, n_fft: int = N_FFT, hop: int = HOP, nfreqs: int = 40,
+              n_mels: int = 128) -> np.ndarray:
+    """(L, 3 (nfreqs + 1)): log-mel and RMS energy, with deltas and
+    delta-deltas (preprocess_timit.py:196-209; nfreqs 40 -> 123 dims),
+    the TIMIT and chorowski recipes' input."""
+    S, lm = _power_and_db(y, sr, n_fft, hop, nfreqs, n_mels)
+    spectr = np.vstack([lm, rms_energy_np(S)[None, :]])
+    d1 = delta_np(spectr, order=1)
+    d2 = delta_np(spectr, order=2)
+    return np.vstack([spectr, d1, d2]).T
+
+
 def logmel_stacked_np(y: np.ndarray, sr: int, n_fft: int = N_FFT, hop: int = HOP,
                       nfreqs: int = 40, n_mels: int = 128) -> np.ndarray:
     """(3, L, nfreqs): log-mel, delta and delta-delta stacked as channels
     (preprocess_timit.py:211-225), the VGG recipe's input."""
-    S = np.abs(stft_np(y, n_fft, hop)) ** 2
-    lm = power_to_db(mel_filterbank(sr, n_fft, n_mels) @ S)[:nfreqs]
+    _, lm = _power_and_db(y, sr, n_fft, hop, nfreqs, n_mels)
     d1 = delta_np(lm, order=1)
     d2 = delta_np(lm, order=2)
     return np.stack([lm.T, d1.T, d2.T], axis=0)
+
+
+@functools.lru_cache(maxsize=8)
+def pseudo_cqt_filterbank(
+    sr: int, n_fft: int = N_FFT, n_bins: int = 84, fmin: Optional[float] = None, bins_per_octave: int = 12
+) -> np.ndarray:
+    """Log-spaced triangular filterbank approximating CQT bin centers.
+
+    Documented deviation: librosa.cqt is a multirate filterbank; this
+    projects the STFT onto geometrically spaced triangles (pseudo-CQT).
+    """
+    fmin = fmin or 32.703195662574829  # C1, librosa default
+    freqs = fmin * 2.0 ** (np.arange(n_bins) / bins_per_octave)
+    edges = fmin * 2.0 ** ((np.arange(n_bins + 2) - 1) / bins_per_octave)
+    fft_freqs = np.linspace(0.0, sr / 2.0, 1 + n_fft // 2)
+    ramps = edges[:, None] - fft_freqs[None, :]
+    fdiff = np.diff(edges)
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    return weights.astype(np.float64), freqs
+
+
+def cqt_exact_np(
+    y: np.ndarray,
+    sr: int,
+    n_bins: int = 84,
+    hop: int = HOP,
+    fmin: Optional[float] = None,
+    bins_per_octave: int = 12,
+) -> np.ndarray:
+    """Exact constant-Q magnitude transform -> (n_bins, n_frames).
+
+    The mathematically exact transform librosa's multirate CQT
+    (preprocess_timit.py:228-253 calls librosa.cqt) computes
+    efficiently: per bin k, the magnitude of the correlation of the
+    (center-padded) signal with a hann-windowed complex exponential at
+    f_k whose length N_k = ceil(Q * sr / f_k), Q = 1/(2^(1/bpo) - 1) —
+    i.e. constant Q = f_k / bandwidth per bin. Kernels are L1-normalized
+    (unit window sum) so a unit-amplitude tone at f_k reads ~0.5 in
+    every bin regardless of frequency. Multirate decimation is an
+    EFFICIENCY device, not a semantics change, so the direct form is
+    the correctness reference; tests/test_data.py measures the
+    pseudo-CQT's deviation from this (large below ~bin 24 where the
+    2048-pt STFT can't resolve constant-Q bandwidths, small above).
+    """
+    fmin = fmin or 32.703195662574829  # C1, librosa default
+    q = 1.0 / (2.0 ** (1.0 / bins_per_octave) - 1.0)
+    freqs = fmin * 2.0 ** (np.arange(n_bins) / bins_per_octave)
+    n_frames = 1 + len(y) // hop
+    centers = hop * np.arange(n_frames)
+    n_max = int(np.ceil(q * sr / freqs[0]))
+    ypad = np.pad(y.astype(np.float64), n_max // 2 + 1)
+    out = np.empty((n_bins, n_frames))
+    for k, f in enumerate(freqs):
+        n_k = int(np.ceil(q * sr / f))
+        win = np.hanning(n_k)
+        t = (np.arange(n_k) - n_k / 2.0) / sr
+        kernel = win * np.exp(2j * np.pi * f * t)
+        kernel /= win.sum()
+        # frames centered at each hop position in the padded signal
+        start = centers + (n_max // 2 + 1) - n_k // 2
+        idx = start[:, None] + np.arange(n_k)[None, :]
+        out[k] = np.abs(ypad[idx] @ kernel)
+    return out
+
+
+def _cqt_parts(y: np.ndarray, sr: int, n_bins: int, hop: int, nfreqs,
+               method: str = "pseudo"):
+    """Shared CQT pipeline: spectrogram, CQT magnitudes, deltas.
+
+    method="pseudo": log-spaced triangles on the 2048-pt STFT (fast,
+    resolution-limited at low bins); "exact": direct constant-Q kernels
+    (cqt_exact_np). Both feed the same delta/energy assembly."""
+    S = np.abs(stft_np(y, N_FFT, hop)) ** 2
+    if method == "pseudo":
+        fb, _ = pseudo_cqt_filterbank(sr, N_FFT, n_bins)
+        cqt = np.sqrt(fb @ S)
+    elif method == "exact":
+        cqt = cqt_exact_np(y, sr, n_bins, hop)
+        cqt = cqt[:, : S.shape[1]]
+    else:
+        raise ValueError(f"method must be 'pseudo' or 'exact', got {method!r}")
+    if nfreqs is not None:
+        cqt = cqt[:nfreqs]
+    return S, cqt, delta_np(cqt, order=1), delta_np(cqt, order=2)
+
+
+def cqt_np(
+    y: np.ndarray, sr: int, n_bins: int = 84, hop: int = HOP,
+    nfreqs: Optional[int] = None, method: str = "pseudo",
+) -> np.ndarray:
+    """CQT variant of preprocess_timit.py:228-240: (L, 3*nb+1)."""
+    S, cqt, d1, d2 = _cqt_parts(y, sr, n_bins, hop, nfreqs, method)
+    energy = rms_energy_np(S)[None, :]
+    return np.vstack([cqt, d1, d2, energy]).T
+
+
+def cqt_stacked_np(
+    y: np.ndarray, sr: int, n_bins: int = 84, hop: int = HOP,
+    nfreqs: Optional[int] = None, method: str = "pseudo",
+) -> np.ndarray:
+    """(3, L, nb) channel-stacked CQT/delta/delta-delta — the
+    CQT_stacked dataset variant (preprocess_timit.py:241-253)."""
+    _, cqt, d1, d2 = _cqt_parts(y, sr, n_bins, hop, nfreqs, method)
+    return np.stack([cqt.T, d1.T, d2.T], axis=0)
 
 
 def normalize_corpus(train_feats, *other_splits, pad: int = 10):
@@ -241,3 +374,22 @@ def logmel_device(y: torch.Tensor, sr: int = 16000, nfreqs: int = 40, mean=None,
     from ..ops.cuda import logmel
 
     return logmel.logmel_fused(y, sr, nfreqs=nfreqs, mean=mean, std=std)
+
+
+def pca_fit(train_feats, n_components: int):
+    """Fit PCA on stacked train frames (reference preprocess_timit.py:
+    316-333 uses sklearn PCA; this is the plain SVD equivalent).
+
+    Returns (components (D, n), mean (D,)).
+    """
+    frames = np.concatenate([np.asarray(f) for f in train_feats], axis=0)
+    mu = frames.mean(axis=0)
+    centered = frames - mu
+    # economy SVD of (N, D): right singular vectors are the components
+    _, _, vt = np.linalg.svd(centered, full_matrices=False)
+    return vt[:n_components].T.astype(np.float32), mu.astype(np.float32)
+
+
+def pca_apply(feats, components: np.ndarray, mean: np.ndarray):
+    """Project each (L, D) utterance onto the fitted components."""
+    return [((np.asarray(f) - mean) @ components).astype(np.float32) for f in feats]

@@ -8,22 +8,23 @@ librispeech/preprocess.py and utils_librispeech.lua:
   - the chunked training set: N HDF5 chunk files, a `train.db` manifest
     of their paths and `meta.txt` (inputFrameSize, sample counts,
     vocabulary sizes) (:246-307), which the trainer reads one chunk at a
-    time (librispeech/train.lua:82-103, ``Trainer.fit(chunked=...)``).
-
-The corpus walk and the feature extraction (`walk_corpus`,
-`build_datasets`) need the FLAC reader and are not ported (ROADMAP
-Queue A item 8); the JAX package's tools/preprocess_librispeech.py
-writes the directory this module reads.
+    time (librispeech/train.lua:82-103, ``Trainer.fit(chunked=...)``);
+  - the corpus walk (`walk_corpus`: `<id> <TEXT>` lines of *.txt paired
+    with sibling audio, FLAC through data/flac.py) and `build_datasets`
+    (features, the train split's normalization, character or word
+    targets); tools/preprocess_librispeech_torch.py writes the chunked
+    directory from them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from . import audio, features
 from .timit import Dataset, load_hdf5, save_hdf5
 
 EOS = "<eos>"
@@ -82,6 +83,91 @@ def build_vocab(transcripts: List[str]) -> CharVocab:
     charmap[EOS] = len(charmap)
     wordmap[EOS] = len(wordmap)
     return CharVocab(charmap, wordmap)
+
+
+def walk_corpus(rootdir: str) -> List[Tuple[str, str, str]]:
+    """Returns [(utt_id, audio_path, transcription)]. Pairs
+    `<id> <TEXT>` lines in *.trans.txt / *.txt with sibling audio files
+    (.flac or converted .wav/.npy)."""
+    trans: Dict[str, str] = {}
+    audio_paths: Dict[str, str] = {}
+    for dirname, _, fnames in sorted(os.walk(rootdir)):
+        for f in sorted(fnames):
+            p = os.path.join(dirname, f)
+            if f.endswith(".txt"):
+                with open(p) as fh:
+                    for line in fh:
+                        parts = line.strip().split(None, 1)
+                        if len(parts) == 2:
+                            trans[parts[0]] = parts[1]
+            elif f.endswith((".flac", ".wav", ".WAV", ".npy")):
+                audio_paths[os.path.splitext(f)[0]] = p
+    return [
+        (uid, audio_paths[uid], txt)
+        for uid, txt in sorted(trans.items())
+        if uid in audio_paths
+    ]
+
+
+def build_datasets(
+    roots: Dict[str, str],
+    feature_fn: Callable[[np.ndarray, int], np.ndarray] = features.logmel_np,
+    pad: int = 1,
+    max_utts: Optional[int] = None,
+    vocab: Optional[CharVocab] = None,
+    labelset: str = "chars",
+) -> Tuple[Dict[str, Dataset], CharVocab, np.ndarray, np.ndarray]:
+    """roots: {"train": dir, "valid": dir, "test": dir}. Returns
+    ({split: Dataset}, vocab, mean, std). Normalization stats come from
+    the train split; pad=1 matches preprocess.py:286. labelset selects
+    character or word targets (opt.labelset, librispeech/train.lua:28 +
+    utils_librispeech.lua:49-66); the model's output_depth must then be
+    vocab.size(labelset)."""
+    walked = {k: walk_corpus(v) for k, v in roots.items()}
+    if max_utts:
+        walked = {k: v[:max_utts] for k, v in walked.items()}
+    if vocab is None:
+        vocab = build_vocab([t for split in walked.values() for _, _, t in split])
+
+    def extract(split):
+        out = []
+        for _, path, _ in split:
+            pcm, sr = audio.read_audio(path)
+            out.append(feature_fn(pcm, sr))
+        return out
+
+    names = list(walked.keys())
+    featsets = [extract(walked[n]) for n in names]
+    train_idx = names.index("train") if "train" in names else 0
+    ordered = [featsets[train_idx]] + [
+        f for i, f in enumerate(featsets) if i != train_idx
+    ]
+    normed_and_stats = features.normalize_corpus(*ordered, pad=pad)
+    mean, std = normed_and_stats[-2], normed_and_stats[-1]
+    normed = list(normed_and_stats[:-2])
+    feats = {}
+    feats[names[train_idx]] = normed[0]
+    rest = iter(normed[1:])
+    for i, n in enumerate(names):
+        if i != train_idx:
+            feats[n] = next(rest)
+
+    def mk(split, fs):
+        return Dataset(
+            uids=[uid for uid, _, _ in split],
+            x=[f.astype(np.float32) for f in fs],
+            y=[vocab.to_ids(t, labelset) for _, _, t in split],
+            y39=None,
+            start=[np.zeros(0, np.int64)] * len(split),
+            finish=[np.zeros(0, np.int64)] * len(split),
+        )
+
+    return (
+        {n: mk(walked[n], feats[n]) for n in names},
+        vocab,
+        mean,
+        std,
+    )
 
 
 def save_chunked(ds: Dataset, outdir: str, n_chunks: int = 1, prefix: str = "train") -> List[str]:

@@ -4,8 +4,9 @@ Wagner-Fischer Levenshtein distance (reference utils.lua:3-27) and the
 PER/CER aggregation of the eval loops (timit/timit.lua:397-415,
 librispeech/train.lua:247-260): the per-utterance distance divided by
 the TARGET length (its eos token included), averaged over utterances.
-Scoring is on the host, in numpy; the JAX package's native C++ scorer
-is not ported.
+Scoring is on the host, through the port's C++ scorer
+(native/editdist.cpp, built at first use); `edit_distance_np` is the
+numpy version of the same distance, for the tests and explicit callers.
 """
 
 from __future__ import annotations
@@ -36,14 +37,21 @@ def edit_distance_np(a: Sequence[int], b: Sequence[int]) -> int:
     return int(prev[-1])
 
 
+def edit_distance(a: Sequence[int], b: Sequence[int]) -> int:
+    """Levenshtein distance through the native scorer."""
+    from ..native import editdist
+
+    return editdist.edit_distance(a, b)
+
+
 def batch_edit_distance(a: np.ndarray, a_len: Sequence[int], b: np.ndarray,
                         b_len: Sequence[int]) -> np.ndarray:
     """Per-row Levenshtein distance over padded (B, M) int arrays, the
-    corpus scoring of `Evaluate` (timit/timit.lua:404-410)."""
-    a = np.asarray(a)
-    b = np.asarray(b)
-    return np.array([edit_distance_np(a[i, : int(a_len[i])], b[i, : int(b_len[i])])
-                     for i in range(a.shape[0])], dtype=np.int64)
+    corpus scoring of `Evaluate` (timit/timit.lua:404-410): one native
+    call a batch."""
+    from ..native import editdist
+
+    return editdist.batch_edit_distance(np.asarray(a), a_len, np.asarray(b), b_len)
 
 
 def error_rate(predictions: List[np.ndarray], pred_lengths: Optional[Sequence[int]],
@@ -61,5 +69,5 @@ def error_rate(predictions: List[np.ndarray], pred_lengths: Optional[Sequence[in
             p = p[: int(pred_lengths[i])]
         if target_lengths is not None:
             t = t[: int(target_lengths[i])]
-        total += edit_distance_np(p, t) / max(len(t), 1)
+        total += edit_distance(p, t) / max(len(t), 1)
     return total / max(n, 1)

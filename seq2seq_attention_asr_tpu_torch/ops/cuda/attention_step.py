@@ -7,9 +7,11 @@ for the content-only GRU decoder with the maxout -> linear readout. K8
 replaces its location-aware and LSTM branches (``_kernel_loc`` :116,
 the LSTM branch of ``_kernel``), with the readout given as a layer list
 (linear, maxout, relu; dropout is the identity in eval mode). Both run
-each batch row on a thread-block cluster of C blocks, C from
-``step_plan``: each block streams 1/C of the step's weight columns and
-takes 1/C of the encoder positions. Both are C entry points of
+each batch row (and each group of at most MAX_K of its hypotheses,
+``hyp_groups``) on a thread-block cluster of C blocks, C from
+``step_plan``: each block streams 1/C of the step's weight columns
+(K8's readout layers too, the last one's logits staying in the block)
+and takes 1/C of the encoder positions. Both are C entry points of
 ``csrc/attention_step.cu``; ``fused_attention_step`` routes a
 configuration to one of them, and ``fused_attention_step_plain`` below
 is the same function in plain PyTorch, built from ops/attention.py.
@@ -67,7 +69,7 @@ KERNEL_LOC_LSTM_BF16 = build.Kernel(
     [ctypes.c_void_p] * 25 + [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
     + [ctypes.c_void_p],
 )
-MAX_K = 8  # hypotheses per kernel block (csrc/attention_step.cu)
+MAX_K = 8  # hypotheses a cluster takes (csrc/common.cuh: kMaxK); a wider beam is cut in groups
 CLUSTERS = (16, 8)  # K2's and K8's cluster sizes, largest first; 16 is a non-portable size
 WARPS = 16  # warps of a block (csrc/common.cuh: kThreads / 32)
 MAX_LAYERS = 4  # readout layers K8 takes, dropout dropped
@@ -76,6 +78,15 @@ LAYER_KINDS = {"linear": 0, "maxout": 1, "relu": 2}
 
 def _cdiv(n: int, d: int) -> int:
     return -(-n // d)
+
+
+def hyp_groups(k: int) -> Tuple[int, int]:
+    """A beam of k hypotheses as K2 and K8 cut it: (G, the largest group),
+    G = ceil(k / MAX_K) balanced groups, group g the hypotheses [g k / G,
+    (g + 1) k / G); each (batch row, group) runs on a cluster of its own
+    (csrc/attention_step.cu: HypGroup)."""
+    g = _cdiv(k, MAX_K)
+    return g, _cdiv(k, g)
 
 
 def _r4(n: int) -> int:
@@ -108,20 +119,24 @@ def step_smem_bytes(k: int, l: int, s: int, a: int, st: int, m: int, w: int, v: 
     return 4 * floats
 
 
-def step_vocab_cap(k: int, l: int, s: int, a: int, st: int, m: int, w: int, c: int,
-                   smem_limit: int) -> int:
-    """The largest V such that K2's block on clusters of c blocks fits
-    `smem_limit` bytes for every vocabulary of V outputs or fewer (0 when
-    none does). A block takes cspan(V, c) columns, which can shrink as V
+def _vocab_cap(smem_of, smem_limit: int) -> int:
+    """The largest V such that smem_of(u) <= smem_limit for every u <= V (0
+    when none fits). A block's share of V, cspan(V, C), can shrink as V
     grows past a multiple of 4, so V and the multiple of 4 below it are
     both checked."""
-    fits = lambda v: all(step_smem_bytes(k, l, s, a, st, m, w, u, c) <= smem_limit
-                         for u in (v, max(4 * (v // 4), 1)))
+    fits = lambda v: all(smem_of(u) <= smem_limit for u in (v, max(4 * (v // 4), 1)))
     lo, hi = 0, 1 << 26
     while lo < hi:
         mid = (lo + hi + 1) // 2
         lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
     return lo
+
+
+def step_vocab_cap(k: int, l: int, s: int, a: int, st: int, m: int, w: int, c: int,
+                   smem_limit: int) -> int:
+    """The largest V such that K2's block on clusters of c blocks fits
+    `smem_limit` bytes for every vocabulary of V outputs or fewer."""
+    return _vocab_cap(lambda v: step_smem_bytes(k, l, s, a, st, m, w, v, c), smem_limit)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,12 +147,12 @@ class StepPlan:
 
 def step_plan(b: int, smem: Dict[int, int], smem_limit: int,
               resident: Dict[int, int]) -> StepPlan:
-    """K2's or K8's plan for b batch rows: `smem[C]` bytes a block needs on
-    clusters of C, `smem_limit` the device's opt-in bytes a block, and
-    `resident[C]` the clusters of C blocks the device holds at once.
-    The largest C of CLUSTERS whose b clusters fit one wave; else the
-    smallest that fits the device at all, in waves. RuntimeError when no
-    cluster fits."""
+    """K2's or K8's plan for b clusters (a cluster a batch row and
+    hypothesis group): `smem[C]` bytes a block needs on clusters of C,
+    `smem_limit` the device's opt-in bytes a block, and `resident[C]` the
+    clusters of C blocks the device holds at once. The largest C of
+    CLUSTERS whose b clusters fit one wave; else the smallest that fits
+    the device at all, in waves. RuntimeError when no cluster fits."""
     fits = [c for c in CLUSTERS if resident.get(c, 0) >= 1 and smem[c] <= smem_limit]
     if not fits:
         raise RuntimeError(
@@ -186,49 +201,61 @@ def step_limits(device: torch.device) -> Tuple[int, Dict[int, int]]:
 def step_plan_on(b: int, k: int, l: int, s: int, a: int, st: int, m: int, w: int, v: int,
                  device: torch.device) -> StepPlan:
     """The plan K2's wrapper runs for these shapes on `device`, for either
-    entry (the bf16 one's block and shared memory are the float one's)."""
+    entry (the bf16 one's block and shared memory are the float one's):
+    b times hyp_groups(k) clusters, each block sized for the largest
+    group."""
     smem_limit, resident = step_limits(device)
-    smem = {c: step_smem_bytes(k, l, s, a, st, m, w, v, c) for c in CLUSTERS}
-    return step_plan(b, smem, smem_limit, resident)
+    groups, kg = hyp_groups(k)
+    smem = {c: step_smem_bytes(kg, l, s, a, st, m, w, v, c) for c in CLUSTERS}
+    return step_plan(b * groups, smem, smem_limit, resident)
 
 
-def readout_dims(dense, c: int) -> Tuple[int, int, int]:
+def readout_dims(dense, c: int) -> Tuple[int, int, int, int]:
     """K8's readout on clusters of c blocks, from its dense layers
     [(kind, out, win)] (LAYER_KINDS' linear or maxout; relu folded
-    away): the widest layer output, the most maxout pre-activations a
-    block holds and the most columns a block's share of a layer's
-    product takes. Every layer but the last is split over the blocks
-    (maxout in whole groups), the last is block 0's alone
-    (csrc/attention_step.cu: readout_dims)."""
-    maxw = maxpre = cols = 0
+    away): the widest output of a layer but the last (0 for one layer),
+    the most maxout pre-activations a block holds, the most columns a
+    block's share of a layer's product takes, and the most outputs a
+    block takes of the last layer. Every layer is split over the blocks
+    (maxout in whole groups, linear in groups of 4 where 4 divides its
+    width); a layer but the last is gathered into every block, the last
+    stays where it is formed (csrc/attention_step.cu: readout_dims)."""
+    maxw = maxpre = cols = lastw = 0
     for i, (kind, out, win) in enumerate(dense):
         maxout = kind == LAYER_KINDS["maxout"]
-        share = out if i == len(dense) - 1 else (_cdiv(out, c) if maxout else _cspan(out, c))
-        maxw, cols = max(maxw, out), max(cols, share * win)
+        share = _cdiv(out, c) if maxout else _cspan(out, c)
+        cols = max(cols, share * win)
         if maxout:
             maxpre = max(maxpre, share * win)
-    return maxw, maxpre, cols
+        if i == len(dense) - 1:
+            lastw = share
+        else:
+            maxw = max(maxw, out)
+    return maxw, maxpre, cols, lastw
 
 
 def step_loc_lstm_smem_bytes(k: int, l: int, s: int, a: int, st: int, fm: int, f: int, c: int,
                              lstm: bool, dense) -> int:
-    """Shared memory of one block of K8 on clusters of c blocks, as
-    csrc/attention_step.cu's step_loc_lstm_smem_floats lays it out (fm =
-    f = 0 without the location term; `dense` the readout's dense layers,
-    as readout_dims takes them), each buffer rounded up to 16 bytes: the
-    gathered vectors (ws, w_e, s_prev | r, c_in | yin, the GRU's reset
-    gate * s_prev, s_new | c, two readout layer outputs), the block's
-    ceil(L / c) positions' mask and energies, the context partials and
-    softmax statistics the cluster exchanges, its units' gate
-    pre-activations (or a maxout layer's), the LSTM's cell state, a
-    product's early half, its bias columns; with the location term
+    """Shared memory of one block of K8 on clusters of c blocks, for a group
+    of k hypotheses, as csrc/attention_step.cu's step_loc_lstm_smem_floats
+    lays it out (fm = f = 0 without the location term; `dense` the
+    readout's dense layers, as readout_dims takes them), each buffer
+    rounded up to 16 bytes: the gathered vectors (ws, w_e, s_prev | r,
+    c_in | yin, the GRU's reset gate * s_prev, over which the block's
+    logits of the readout's last layer lie, dead by then; s_new | c, two
+    outputs of the readout's earlier layers), the block's ceil(L / c)
+    positions' mask and energies, the context partials and softmax
+    statistics the cluster exchanges, its units' gate pre-activations (or
+    a maxout layer's), the LSTM's cell state, a product's early half, its
+    bias columns; with the location term
     alpha_prev on the positions and their F - 1 halo, U, the taps, the
     bias and a warp's features of one hypothesis; the products' warp
     partials."""
-    maxw, maxpre, cols = readout_dims(dense, c)
+    maxw, maxpre, cols, lastw = readout_dims(dense, c)
     loc, lstm = int(fm > 0), int(lstm)
     stc, lc = _cspan(st, c), _cdiv(l, c)
-    floats = (_r4(k * s) + _r4(s) + 2 * _r4(2 * k * st) + (1 - lstm) * _r4(k * st)
+    floats = (max(_r4(k * s) + _r4(s) + 2 * _r4(2 * k * st) + (1 - lstm) * _r4(k * st),
+                  _r4(k * lastw))
               + _r4(k * (st + a)) + 2 * _r4(k * maxw) + _r4(lc) + _r4(k * lc)
               + _r4(c * k * _cdiv(a, c)) + _r4(2 * c * k) + _r4(c * k) + _r4(k)
               + _r4(k * max((2 + 2 * lstm) * stc, maxpre)) + (1 + lstm) * _r4(k * stc)
@@ -237,6 +264,18 @@ def step_loc_lstm_smem_bytes(k: int, l: int, s: int, a: int, st: int, fm: int, f
                        + _r4(WARPS * fm))
               + _r4(WARPS * k * min(128, max(_cspan(s, c), 2 * stc, cols))))
     return 4 * floats
+
+
+def step_loc_lstm_vocab_cap(k: int, l: int, s: int, a: int, st: int, fm: int, f: int, c: int,
+                            lstm: bool, dense, smem_limit: int) -> int:
+    """The largest V such that K8's block on clusters of c blocks fits
+    `smem_limit` bytes for every vocabulary of V outputs or fewer, the
+    readout's last dense layer (`dense[-1]`, a linear or maxout layer)
+    taking V outputs."""
+    kind, _, win = dense[-1]
+    return _vocab_cap(lambda v: step_loc_lstm_smem_bytes(k, l, s, a, st, fm, f, c, lstm,
+                                                         [*dense[:-1], (kind, v, win)]),
+                      smem_limit)
 
 
 def step_loc_lstm_limits(device: torch.device, lstm: bool,
@@ -250,10 +289,13 @@ def step_loc_lstm_limits(device: torch.device, lstm: bool,
 def step_loc_lstm_plan_on(b: int, k: int, l: int, s: int, a: int, st: int, fm: int, f: int,
                           lstm: bool, dense, device: torch.device) -> StepPlan:
     """The plan K8's wrapper runs for these shapes on `device` (fm = f =
-    0 without the location term)."""
+    0 without the location term): b times hyp_groups(k) clusters, each
+    block sized for the largest group."""
     smem_limit, resident = step_loc_lstm_limits(device, lstm, fm > 0)
-    smem = {c: step_loc_lstm_smem_bytes(k, l, s, a, st, fm, f, c, lstm, dense) for c in CLUSTERS}
-    return step_plan(b, smem, smem_limit, resident)
+    groups, kg = hyp_groups(k)
+    smem = {c: step_loc_lstm_smem_bytes(kg, l, s, a, st, fm, f, c, lstm, dense)
+            for c in CLUSTERS}
+    return step_plan(b * groups, smem, smem_limit, resident)
 
 
 def _readout_layers(params, cfg):
@@ -380,8 +422,8 @@ def fused_attention_step(params, cfg, state, y_prev, vh, h, enc_mask):
     if build.on_cpu(alpha_prev, s_prev, mem, y_prev, vh, h, enc_mask):
         return fused_attention_step_plain(params, cfg, state, y_prev, vh, h, enc_mask)
     b, k, st = s_prev.shape
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"fused_attention_step: K={k} not in [1, {MAX_K}]")
+    if k < 1:
+        raise ValueError(f"fused_attention_step: K={k}, the beam needs a hypothesis")
     yin = _yin(params, y_prev)
     if uses_k2(cfg):
         return _step_k2(params, cfg, state, yin, vh, h, enc_mask)

@@ -107,7 +107,9 @@ def _k2_case(card, b, k, l, dims, dead=None):
 # a row with every position masked, K = 1 and 8, B = 16 (more clusters of
 # 16 than one wave holds), L = 1500 at K = 8, beyond one block's shared
 # memory, fewer outputs than blocks (6), and word vocabularies (V =
-# 34,000 over 35 s at K = 5 and 8; V = 4,001, no multiple of 4).
+# 34,000 over 35 s at K = 5 and 8; V = 4,001, no multiple of 4); beams of
+# more than 8 hypotheses, a cluster a (row, group): K = 9 (groups of 4
+# and 5), 10 and 16.
 @pytest.mark.parametrize("b,k,l,dims,dead", [
     (1, 1, 8, (16, 16, 24, 6, 8, 3), None),
     (3, 5, 37, (16, 12, 20, 7, 4, 2), None),
@@ -122,6 +124,10 @@ def _k2_case(card, b, k, l, dims, dead=None):
     (16, 5, 1094, FLAGSHIP_STEP[:3] + (34000,) + FLAGSHIP_STEP[4:], 3),
     (16, 8, 1094, FLAGSHIP_STEP[:3] + (34000,) + FLAGSHIP_STEP[4:], None),
     (3, 5, 37, (16, 12, 20, 4001, 4, 2), 2),
+    (3, 9, 37, (16, 12, 20, 7, 4, 2), 1),
+    (2, 10, 132, FLAGSHIP_STEP, None),
+    (2, 16, 132, FLAGSHIP_STEP, 1),
+    (8, 16, 1094, FLAGSHIP_STEP[:3] + (34000,) + FLAGSHIP_STEP[4:], None),
 ])
 def test_fused_attention_step_kernel(card, b, k, l, dims, dead):
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step
@@ -277,8 +283,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
             fn(args[0], args[1].cpu(), *args[2:])
 
 
-@pytest.mark.parametrize("exact", [False, True])
-def test_transcriber_on_the_card_matches_the_cpu(card, exact):
+@pytest.mark.parametrize("exact,beam_k", [(False, 3), (True, 3), (False, 10)])
+def test_transcriber_on_the_card_matches_the_cpu(card, exact, beam_k):
+    """The flagship's Transcriber on the card gives the CPU's tokens, with
+    a beam of 3 and of 10 hypotheses (K2 on two groups of 5 a row)."""
     from seq2seq_attention_asr_tpu_torch import serve
     from seq2seq_attention_asr_tpu_torch.models import registry
     from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step, gru_scan, logmel
@@ -288,7 +296,7 @@ def test_transcriber_on_the_card_matches_the_cpu(card, exact):
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.RandomState(0)
     pcms = [(0.1 * rng.randn(n)).astype(np.float32) for n in (9000, 20000, 9500)]
-    kw = dict(eos_id=8, pad_frames=3, beam_k=3, exact=exact)
+    kw = dict(eos_id=8, pad_frames=3, beam_k=beam_k, exact=exact)
     for kern in (gru_scan.KERNEL, attention_step.KERNEL, logmel.KERNEL):
         kern.launches = 0
     got = serve.Transcriber(model, params, **kw).transcribe(pcms)
@@ -619,21 +627,24 @@ def _k8_plans(card, cfg, b, k, l):
     lstm, fm, f = cfg.cell == "lstm", cfg.feature_maps, cfg.filt_size if cfg.feature_maps else 0
     smem_limit, resident = step.step_loc_lstm_limits(card, lstm, fm > 0)
     dense = step.k8_dense(step.k8_layers(cfg))
-    return [step.StepPlan(c, -(-b // resident[c])) for c in step.CLUSTERS
+    groups, kg = step.hyp_groups(k)
+    return [step.StepPlan(c, -(-b * groups // resident[c])) for c in step.CLUSTERS
             if resident[c] >= 1 and step.step_loc_lstm_smem_bytes(
-                k, l, cfg.score_depth, cfg.annotation_depth, cfg.state_depth, fm, f, c, lstm,
+                kg, l, cfg.score_depth, cfg.annotation_depth, cfg.state_depth, fm, f, c, lstm,
                 dense) <= smem_limit]
 
 
 # K8 runs a batch row on a cluster of 16 or 8 blocks, as K2 does: the
 # serving shapes (L' = 14), K = 8 at L = 37 and 144, and K2's edges: L < C,
 # L not a multiple of C with a row whose every position is masked, K = 1
-# with a masked row, and B = 16, K = 8, L = 1500; each under every cluster
-# size the card holds.
+# with a masked row, and B = 16, K = 8, L = 1500; beams of 10 and 16
+# hypotheses (a cluster a row and group); each under every cluster size
+# the card holds.
 @pytest.mark.parametrize("case", range(len(LOC_LSTM_CASES)))
 @pytest.mark.parametrize("b,k,l,dead", [(1, 5, 14, None), (8, 5, 14, None), (3, 8, 37, None),
                                         (1, 8, 144, None), (2, 5, 3, None), (3, 5, 37, 1),
-                                        (8, 1, 14, 7), (16, 8, 1500, None)])
+                                        (8, 1, 14, 7), (16, 8, 1500, None), (2, 10, 37, None),
+                                        (2, 16, 14, 1)])
 def test_fused_attention_step_loc_lstm_kernel(card, monkeypatch, case, b, k, l, dead):
     """K8 against its plain version within TOL under each cluster size,
     one launch a call, a second call bitwise equal (fixed-order sums), and
@@ -672,7 +683,7 @@ def test_fused_attention_step_loc_lstm_kernel(card, monkeypatch, case, b, k, l, 
 # each at K = 8 with the location term: at the conv+BiLSTM
 # recipe's widths one batch row fits L' up to this many positions, on
 # clusters of 16 (step_loc_lstm_smem_bytes; tests/test_torch_step_plan_loc_lstm.py).
-K8_CAP = 20736
+K8_CAP = 21456
 
 
 def test_fused_attention_step_loc_lstm_refuses_what_does_not_fit(card):
@@ -702,6 +713,51 @@ def test_fused_attention_step_loc_lstm_refuses_what_does_not_fit(card):
         with pytest.raises(RuntimeError, match="no cluster"):
             step.fused_attention_step(params, cfg, state, y, vh, h, mask)
         assert step.KERNEL_LOC_LSTM.launches == before
+
+
+# VGG's decoder (content-only GRU, maxout 64 x 7 -> linear 64 -> maxout
+# 64 x 7 -> linear V) on its 543 encoder positions for 35 s: a LibriSpeech
+# word vocabulary at K = 5 and 8, and V = 3,125, one past the cap of the
+# layout that kept the last layer in one block.
+@pytest.mark.parametrize("b,k,v,dead", [(16, 5, 34000, 3), (16, 8, 34000, None),
+                                        (4, 5, 3125, 1), (2, 16, 34000, None)])
+def test_fused_attention_step_loc_lstm_serves_vgg_over_words(card, b, k, v, dead):
+    """K8 spreads its last readout layer over the cluster: VGG over a word
+    vocabulary runs in one launch a call, within TOL of its plain version,
+    a second call bitwise equal."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.ops import attention
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_step as step
+
+    cfg = attention.AttentionConfig(score_depth=512, state_depth=256, annotation_depth=512,
+                                    output_depth=v, readout=(("maxout", 64, 7), ("linear", 64),
+                                                             ("maxout", 64, 7), ("linear", v)))
+    gen = torch.Generator().manual_seed(v + k)
+    params = interop.to_torch(attention.attention_init(gen, cfg), card)
+    l = 543
+    lens = torch.randint(1, l + 1, (b,), generator=gen).cuda()
+    mask = (torch.arange(l, device=card)[None] < lens[:, None]).float()
+    if dead is not None:
+        mask[dead] = 0.0
+    h = _rand(gen, b, l, 512)
+    vh = attention.precompute_vh(params, h).contiguous()
+    state = (torch.softmax(_rand(gen, b, k, l), -1), _rand(gen, b, k, 256, scale=0.3),
+             _rand(gen, b, k, 256, scale=0.3))
+    y = torch.nn.functional.one_hot(torch.randint(0, v, (b, k), generator=gen), v).float().cuda()
+    args = (params, cfg, state, y, vh, h, mask)
+    assert not step.uses_k2(cfg)
+    before = step.KERNEL_LOC_LSTM.launches
+    _, got = step.fused_attention_step(*args)
+    _, want = step.fused_attention_step_plain(*args)
+    torch.cuda.synchronize()
+    assert step.KERNEL_LOC_LSTM.launches == before + 1
+    for key in ("alpha", "c", "s", "logp"):
+        assert _max_err([got[key]], [want[key]]) <= TOL, key
+    assert torch.isfinite(got["logp"]).all()
+    _, again = step.fused_attention_step(*args)
+    torch.cuda.synchronize()
+    for key in ("alpha", "c", "s", "logp"):
+        assert torch.equal(got[key], again[key]), key
 
 
 def test_beam_search_ties_on_the_card_match_the_cpu(card):

@@ -1,5 +1,6 @@
-"""The port stands on its own: no module of it, and neither chip_smoke.py
-nor tools/scan_phases.py, imports JAX or the JAX package; its entry points need a card unless
+"""The port stands on its own: no module of it, neither chip_smoke.py
+nor tools/scan_phases.py, and no tools/*_torch.py script imports JAX or
+the JAX package; its entry points need a card unless
 asked for the CPU; its kernel wrappers never fall back quietly."""
 
 import ast
@@ -9,9 +10,12 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "seq2seq_attention_asr_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "scan_phases.py",
-    ROOT / "tools" / "convergence_torch.py"]
+# The package's sources; its _build/ (git-ignored) holds build products
+# and throwaway copies, which are not the port.
+PORT_FILES = sorted(p for p in (ROOT / "seq2seq_attention_asr_tpu_torch").rglob("*.py")
+                    if "_build" not in p.relative_to(ROOT).parts) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "scan_phases.py"] + sorted(
+    (ROOT / "tools").glob("*_torch.py"))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "seq2seq_attention_asr_tpu")
 
 
@@ -29,7 +33,10 @@ def test_port_files_are_found():
             "attention_scan.py", "trainer.py", "optim.py", "initializers.py", "experiment.py",
             "loss.py", "tree.py", "lstm_scan.py", "conv.py", "conv_bilstm.py", "metrics.py",
             "batching.py", "synthetic.py", "timit.py", "greedy.py", "checkpoint.py",
-            "debug.py", "monotonic.py", "awn.py", "convergence_torch.py"} <= names
+            "debug.py", "monotonic.py", "awn.py", "convergence_torch.py", "audio.py", "flac.py",
+            "librispeech.py", "build.py", "editdist.py", "packing.py", "flacdec.py",
+            "preprocess_timit_torch.py", "preprocess_librispeech_torch.py",
+            "extract_alpha_torch.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

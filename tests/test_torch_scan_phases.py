@@ -406,7 +406,7 @@ def test_gru_dec_fwd_mode_instruments_the_walk_k12_and_k4_run():
 # the last.
 K8_PHASES = ["load", "ws, s_prev product", "energies", "softmax, context partials, yin product",
              "context", "c_in", "dec_in", "cell", "gates, r candidate product", "candidate",
-             "readout layer", "last layer, log_softmax"]
+             "readout layer", "last layer", "log_softmax"]
 
 
 def _k8_body(text, tool):
@@ -436,7 +436,8 @@ def test_instrument_k8_reads_the_clock_after_every_cluster_barrier():
     assert before[:-1] == ["cluster_wait();", "cluster_wait();", "energies<1>(vhb, ws, we, e, "
                            "pos.n, Lc, K, S);", "cluster_wait();", "cluster.sync();",
                            "cluster.sync();", "cluster.sync();", "cluster.sync();",
-                           "cluster_wait();", "cluster.sync();", "cluster.sync();"]
+                           "cluster_wait();", "cluster.sync();", "cluster.sync();",
+                           "cluster.sync();"]
     # K2's kernel keeps its markers as comments; only the probe is added.
     head, rest = src.split(tool.K8_SIG, 1)
     assert text.replace(tool.PROBE + "\n", "", 1).startswith(head)

@@ -48,41 +48,46 @@ def plan(dims, b, resident=RESIDENT, smem_limit=SMEM, k=5, l=14):
 
 
 def test_readout_layers_and_their_sizes():
-    """Dropout dropped, relu keeps its input's width; the dense layers
-    split over the blocks but the last, which block 0 takes whole."""
+    """Dropout dropped, relu keeps its input's width; every dense layer
+    splits over the blocks, the last one's outputs stay in the block that
+    forms them."""
     assert step.k8_layers(_cfg(CB)) == [(LIN, 124, 1), (RELU, 124, 1), (LIN, 62, 1)]
     assert step.k8_layers(_cfg(FLOC)) == [(MAXOUT, 64, 7), (LIN, 62, 1)]
-    # (widest output, maxout pre-activations a block holds, columns of a
-    # block's share of a product): 124 over 16 blocks is 8 (groups of 4),
-    # 64 maxout groups of 7 over 16 blocks 4 groups, over 8 blocks 8.
-    assert step.readout_dims(_dense(CB), 16) == (124, 0, 62)
-    assert step.readout_dims(_dense(CB), 8) == (124, 0, 62)
-    assert step.readout_dims(_dense(FLOC), 16) == (64, 28, 62)
-    assert step.readout_dims(_dense(FLOC), 8) == (64, 56, 62)
-    wide = [(LIN, 300, 1), (MAXOUT, 20, 3)]  # a maxout last: block 0's 60 pre-activations
-    assert step.readout_dims(wide, 16) == (300, 60, 60)
-    assert step.readout_dims([(LIN, 302, 1), (LIN, 7, 1)], 16) == (302, 0, 19)  # 302: single items
+    # (widest output of a layer but the last, maxout pre-activations a
+    # block holds, columns of a block's share of a product, outputs a
+    # block takes of the last layer): 124 over 16 blocks is 8 (groups of
+    # 4), 62 is 4 (single items), 64 maxout groups of 7 over 16 blocks 4
+    # groups, over 8 blocks 8.
+    assert step.readout_dims(_dense(CB), 16) == (124, 0, 8, 4)
+    assert step.readout_dims(_dense(CB), 8) == (124, 0, 16, 8)
+    assert step.readout_dims(_dense(FLOC), 16) == (64, 28, 28, 4)
+    assert step.readout_dims(_dense(FLOC), 8) == (64, 56, 56, 8)
+    wide = [(LIN, 300, 1), (MAXOUT, 20, 3)]  # a maxout last: a block's 2 groups of 3
+    assert step.readout_dims(wide, 16) == (300, 6, 20, 2)
+    assert step.readout_dims([(LIN, 302, 1), (LIN, 7, 1)], 16) == (302, 0, 19, 1)  # single items
+    assert step.readout_dims([(LIN, 34000, 1)], 16) == (0, 0, 2128, 2128)  # one layer: no gather
 
 
 def test_smem_bytes_at_the_recipes_widths():
     """The buffers of one block at the conv+BiLSTM serving shape (K = 5, L'
     = 14, clusters of 16: 28 state units a block, in groups of 4; 10 score
     columns; one position), each rounded up to 16 bytes."""
-    # ws, w_e, s | r, c_in | yin, s | c, two readout outputs
+    # ws, w_e, s | r, c_in | yin (the block's 5 x 4 logits lie over them),
+    # s | c, two outputs of the first readout layer
     gathered = 752 + 152 + 4000 + 4000 + 5 * 656 + 2 * 5 * 124
     positions = 4 + 8  # the mask and energies of ceil(14 / 16) = 1 position
     exchanged = 16 * 5 * 16 + 2 * 16 * 5 + 16 * 5 + 8  # context partials, (max, sum), scales, sums
     units = 5 * 4 * 28 + 5 * 28 + 5 * 28  # the four gates, the cell state, dec_in's yin half
     bias = 12 + 28 + 28 + 4 * 28  # ws, c_in, dec_in, the gates
     loc = 28 + 16 * 150 + 5 * 16 + 16 + 16 * 16  # alpha_prev's window, U, taps, bias, features
-    partials = 16 * 5 * 62  # the warps' partial sums of the widest product (the last layer's 62)
+    partials = 16 * 5 * 56  # the warps' partial sums of the widest product (the gates' 2 x 28)
     assert smem(CB, 5, 14, 16) == 4 * (gathered + positions + exchanged + units + bias + loc
-                                       + partials) == 94896
+                                       + partials) == 92976
     assert smem(CB, 5, 14, 8) == 111376
-    assert smem(CBC, 5, 14, 16) == 83776
-    assert smem(FLOC, 5, 132, 16) == 123200
+    assert smem(CBC, 5, 14, 16) == 81856
+    assert smem(FLOC, 5, 132, 16) == 113600
     assert smem(FLOC, 5, 132, 8) == 124928
-    assert smem(GRU, 5, 132, 16) == 88336
+    assert smem(GRU, 5, 132, 16) == 78736
     for dims, l in ((CB, 14), (FLOC, 132)):
         for c in step.CLUSTERS:
             assert smem(dims, 8, l, c) <= SMEM
@@ -106,13 +111,13 @@ def test_no_buffer_grows_with_the_full_length(dims, c, k):
 
 
 def test_length_cap_at_the_conv_bilstm_widths():
-    """At K = 8 one batch row fits L' = 20,736 positions on clusters of 16
+    """At K = 8 one batch row fits L' = 21,456 positions on clusters of 16
     (tests/test_torch_cuda.py's K8_CAP), and not one more on either size."""
-    assert smem(CB, 8, 20736, 16) <= SMEM < smem(CB, 8, 20737, 16)
-    assert smem(CB, 8, 20737, 8) > SMEM
+    assert smem(CB, 8, 21456, 16) <= SMEM < smem(CB, 8, 21457, 16)
+    assert smem(CB, 8, 21457, 8) > SMEM
     with pytest.raises(RuntimeError, match="no cluster of 16 or 8 blocks fits the device"):
-        plan(CB, 1, k=8, l=20737)
-    assert plan(CB, 1, k=8, l=20736) == step.StepPlan(16, 1)
+        plan(CB, 1, k=8, l=21457)
+    assert plan(CB, 1, k=8, l=21456) == step.StepPlan(16, 1)
 
 
 @pytest.mark.parametrize("dims", [CB, FLOC], ids=["cb", "floc"])
@@ -206,10 +211,13 @@ def test_limits_helpers_take_the_cluster_size():
 # encoder's 543 positions for 1,094 frames (35 s).
 VGG = (512, 512, 256, 0, 0, False, (("maxout", 64, 7), ("linear", 64), ("maxout", 64, 7),
                                     ("linear", 30)))
-# The largest V K8 takes with that readout: its last layer is block 0's
-# alone, and two readout outputs of K x V floats are gathered in every
-# block; (K, C) -> V.
-VGG_V_CAPS = {(5, 16): 3124, (5, 8): 3085, (8, 16): 968, (8, 8): 933}
+# The largest V K8 takes with that readout: every layer is split over the
+# cluster and the block's share of the last layer's logits, K cspan(V, C)
+# floats, lies over the gathered buffers; (K, C) -> V. A LibriSpeech word
+# vocabulary (34,000 over train-clean-100) fits at K = 5 and 8 on clusters
+# of 16.
+VGG_V_CAPS = {(5, 16): 128195, (5, 8): 63491, (8, 16): 58624, (8, 8): 28739}
+WORDS_V = 34000
 
 
 def _vgg_smem(v, k, c, l=543):
@@ -221,12 +229,26 @@ def _vgg_smem(v, k, c, l=543):
 @pytest.mark.parametrize("k,c", sorted(VGG_V_CAPS))
 def test_the_vgg_readout_fits_and_its_vocabulary_cap(k, c):
     """K8 with VGG's four dense layers: the maxout layers split over the
-    blocks in whole groups, the linear 64 in groups of 4, the last whole
-    in block 0; a character vocabulary (30) is far under the cap."""
+    blocks in whole groups, the linear layers in groups of 4; a character
+    vocabulary (30) is far under the cap, and every V up to the cap fits
+    (a block's share shrinks where 4 comes to divide V)."""
     assert step.k8_dense(step.k8_layers(_cfg(VGG, 30))) == [(MAXOUT, 64, 7), (LIN, 64, 1),
                                                             (MAXOUT, 64, 7), (LIN, 30, 1)]
-    assert step.readout_dims(_dense(VGG), c) == (64, 28 if c == 16 else 56, 30 if c == 16 else 56)
+    assert step.readout_dims(_dense(VGG), c) == ((64, 28, 28, 2) if c == 16 else (64, 56, 56, 4))
     cap = VGG_V_CAPS[(k, c)]
+    assert step.step_loc_lstm_vocab_cap(k, 543, 512, 512, 256, 0, 0, c, False, _dense(VGG),
+                                        SMEM) == cap
     assert _vgg_smem(cap, k, c) <= SMEM < _vgg_smem(cap + 1, k, c)
+    assert all(_vgg_smem(v, k, c) <= SMEM for v in range(cap - 64, cap + 1))
     assert _vgg_smem(30, k, c) == smem(VGG, k, 543, c) < _vgg_smem(cap, k, c)
     assert plan(VGG, 16, l=543, k=k) == step.StepPlan(8, 2)
+    assert (_vgg_smem(WORDS_V, k, c) <= SMEM) == (c == 16 or k == 5)
+
+
+@pytest.mark.parametrize("k,want", [(5, step.StepPlan(8, 2)), (8, step.StepPlan(16, 3))])
+def test_the_vgg_word_beam_plans_at_its_batch(k, want):
+    """B = 16 rows of VGG's beam at V = 34,000, L' = 543 on the H100's 7
+    and 15 resident clusters: K = 5 on clusters of 8 in two waves; K = 8
+    fits only clusters of 16, in three."""
+    smem_ = {c: _vgg_smem(WORDS_V, k, c) for c in step.CLUSTERS}
+    assert step.step_plan(16, smem_, SMEM, RESIDENT) == want

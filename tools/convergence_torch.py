@@ -114,7 +114,8 @@ def parse_args(argv=None):
     ap.add_argument("--save-dir", default=None,
                     help="Trainer checkpoint dir (and the best-PER eval export)")
     ap.add_argument("--compute-dtype", default=None,
-                    help="timit-shape mode: the model's compute dtype (e.g. bfloat16)")
+                    help="the model's compute dtype (e.g. bfloat16), in either mode; float32 "
+                         "when not given")
     ap.add_argument("--host-features", action="store_true",
                     help="accepted for the JAX harness's command lines: the port always "
                          "builds the features on the host")
@@ -200,22 +201,26 @@ def chunk_split(train, chunks: int) -> list:
 
 
 def default_model(args, v: int):
-    """(model, dims) of the default mode's recipe."""
+    """(model, dims) of the default mode's recipe; dims holds
+    --compute-dtype where it is given."""
+    dtype = {"compute_dtype": args.compute_dtype} if args.compute_dtype else {}
     if args.model == "conv_bilstm":
         dims = (dict(hidden_frame_size=64, output_frame_size=32, score_depth=64, state_depth=100)
                 if args.small else
                 dict(hidden_frame_size=256, output_frame_size=128, score_depth=150,
                      state_depth=400))
+        dims.update(dtype)
         return registry.build("conv_bilstm", input_frame_size=123, output_depth=v,
                               feature_maps=16, filt_size=5, **dims), dims
     if args.model == "vgg":
         dims = (dict(output_frame_size=64, score_depth=64, state_depth=64, mlp_depth=32)
                 if args.small else
                 dict(output_frame_size=512, score_depth=512, state_depth=256, mlp_depth=64))
+        dims.update(dtype)
         model = registry.build("vgg", input_frame_size=40, output_depth=v,
                                feature_maps=args.feature_maps, filt_size=10, **dims)
         return model, dict(dims, feature_maps=args.feature_maps)
-    dims = _dims(args.small)
+    dims = dict(_dims(args.small), **dtype)
     # content attention (feature_maps 0), GRU decoder, maxout readout
     # (exp_logmel7_chorowski_normNLL_colnorm.lua)
     return registry.build("chorowski", input_frame_size=123, output_depth=v, feature_maps=0,

@@ -17,7 +17,9 @@ the LibriSpeech recipes (the VGG model,
 the character and word Chorowski recipes, the chunked out-of-core
 epoch, the stacked front end) and K2 with a word vocabulary spread over
 its cluster; then the convergence harness (tools/convergence_torch.py)
-on the card against the CPU.
+on the card against the CPU; then the bf16 entries of K16-K19, and the
+mesh trainer of parallel/ in a world of one NCCL rank and of two gloo
+ranks that share the card.
 
     python3 chip_smoke.py
 
@@ -311,7 +313,24 @@ Phases, each fatal when it fails:
      with the K = 5 beam on the 16 held-out utterances (K4 and K8 only,
      K8 once a step), its WER from the native edit distance equal to
      edit_distance_np's; and the phase's wall seconds;
- 16. one {"kernels": [...]} JSON line (K2 also at V = 34,000 with its
+ 16. (a) the bf16 entries of K16-K19 at the flagship encoder's first
+     layer, B = 16, L = 144, H = 256, each against its exact twin
+     (BF16_ULPS) and the float32 result (the ground-truth rule), one
+     launch a call and two calls bitwise equal, with their device times;
+     the bf16 flagship encoder by one gru_layer per direction (K16, K17 6x
+     each) and by the stacked scan (K18, K19 3x each), forward and
+     backward, bf16 throughout and by the ground-truth rule: these runs'
+     launches are the entries'; (b) a one-rank NCCL group: the full-width
+     flagship Trainer(mesh=make_mesh(dp=1)), 3 steps at B = 16 and a K = 5
+     evaluation, bit for bit the meshless Trainer's with the same
+     launches; (c) two gloo ranks spawned on the card (every collective
+     staged through the host): dp = 2, the 3 steps on 8 rows each against
+     the single-rank steps (K1, K6 3x and K4, K5 once a step on each
+     rank), and sp = 2, flagship_loc's teacher-forced decode (the halo
+     crossing the shard edge) forward and gradients against K12 and K13
+     on one rank (rtol 2e-5 and 5e-4 of the largest magnitude); and the
+     phase's wall seconds;
+ 17. one {"kernels": [...]} JSON line (K2 also at V = 34,000 with its
      plan, its launches the word beam's), the card line, and the last
      line {"ok": true, "device": {...}}.
 
@@ -3107,6 +3126,13 @@ F32_SYMBOLS.update({
     "attention_decode_scan_bwd_bf16": ("content_gru_walk_kernel",) + GRU_PREPASS
     + ("atb_kernel",) * 2})
 BF16_ULPS.update({"bigru_scan2_bwd_bf16": 32, "attention_decode_scan_bwd_bf16": 32})
+# Phase 16 (a): the bf16 entries of K16-K19 (BF16_GRU_OF), K1's and K6's
+# walks in their one-direction and direction-stacked forms: the forwards
+# at K1's ulps, the backwards at K6's.
+BF16_GRU_OF = {"gru_scan_bf16": "gru_scan", "gru_scan_bwd_bf16": "gru_scan_bwd",
+               "bigru_scan_bf16": "bigru_scan", "bigru_scan_bwd_bf16": "bigru_scan_bwd"}
+BF16_ULPS.update({"gru_scan_bf16": 2, "bigru_scan_bf16": 2, "gru_scan_bwd_bf16": 32,
+                  "bigru_scan_bwd_bf16": 32})
 # The bf16 flagship train step's launches: the bf16 entries of K1, K6, K4
 # and K5, nothing else; VGG's: K4's and K5's.
 BF16_STEP_LAUNCHES = {"bigru_scan2_bf16": 3, "bigru_scan2_bwd_bf16": 3,
@@ -3364,6 +3390,19 @@ def bf16_calls(name):
 
     if name == "bigru_scan2_bf16":
         return gru_scan.bigru_scan2, gru_scan.bigru_scan2_plain, gru_scan.bigru_scan2_plain
+    if name in BF16_GRU_OF:  # the forwards' twins are their plain bf16 versions
+        tup = lambda fn: lambda *a: (fn(*a),)  # forward wrappers return one tensor
+        if name in ("gru_scan_bf16", "bigru_scan_bf16"):
+            fwd = gru_scan.gru_scan if name == "gru_scan_bf16" else gru_scan.bigru_scan
+            plain = tup(gru_scan.gru_scan_plain if name == "gru_scan_bf16"
+                        else gru_scan.bigru_scan_plain)
+            return tup(fwd), plain, plain
+        if name == "gru_scan_bwd_bf16":
+            twin = lambda *a: tuple(g[0] for g in gru_scan.bigru_scan_bwd_twin_bf16(
+                *(t[None] for t in a)))
+            return gru_scan.gru_scan_bwd, twin, gru_scan.gru_scan_bwd_plain
+        return (gru_scan.bigru_scan_bwd, gru_scan.bigru_scan_bwd_twin_bf16,
+                gru_scan.bigru_scan_bwd_plain)
     if name == "bigru_scan2_bwd_bf16":  # its plain bf16 version is its exact twin
         return (gru_scan.bigru_scan2_bwd, gru_scan.bigru_scan2_bwd_plain,
                 gru_scan.bigru_scan2_bwd_plain)
@@ -3411,7 +3450,7 @@ def upcast(args):
 def f32_kernel_of(name: str) -> str:
     """The float32 kernel a bf16 entry is an instance of."""
     return (BF16_OF.get(name) or BF16_TRAIN_OF.get(name) or BF16_OTHER_TRAIN_OF.get(name)
-            or BF16_MODEL_OF[name])
+            or BF16_GRU_OF.get(name) or BF16_MODEL_OF[name])
 
 
 def bf16_parity_rows(cases_, card: str) -> dict:
@@ -5438,6 +5477,352 @@ def compare_trees(parent: str, card: str) -> None:
               f"this tree {', '.join(f'{r[key]:.4f}' for r in runs[here])} ({card})")
 
 
+# Phase 16: the bf16 entries of K16-K19 (a), and the mesh trainer of
+# parallel/: a world of one NCCL rank (b), then two gloo ranks that share
+# the card (c). (a) holds each entry to its exact twin within BF16_ULPS and
+# to the float32 result by the ground-truth rule at the flagship encoder's
+# first layer, B = TRAIN_B, L = TRAIN_L, H = 256 (bf16_parity_rows, one
+# launch a call, two calls with the same bits), then runs the bf16 flagship
+# encoder by one gru_layer per direction (K16, K17) and by the stacked
+# scan (K18, K19), forward and backward, the launch counts zeroed just
+# before: these are the entries' launches in the kernels line. (b) holds a
+# full-width flagship Trainer(mesh=make_mesh(dp=1)) over a one-rank NCCL
+# group to the meshless Trainer from the same weights and seed: MESH_STEPS
+# steps at B = TRAIN_B and a K = BEAM_K evaluation, bit for bit, and the
+# same launches. (c) spawns two ranks (multihost.spawn, gloo: NCCL refuses
+# two ranks on one card, so every collective is staged through the host):
+# dp = 2, MESH_STEPS flagship steps of 8 rows each, against the
+# single-rank steps on the card (TRAIN_RTOL, and 1e-5 at the first step),
+# each rank launching K1, K6, K4 and K5 as a step does; sp = 2, the
+# teacher-forced decode of flagship_loc (16 feature maps, filter 10: the
+# halo crosses the shard edge) on the encoder's output at full width, L =
+# TRAIN_L, its forward and gradients against K12's and K13's on one rank.
+# Two ranks on one card measure correctness, not scaling.
+MESH_STEPS = 3
+MESH_EVAL = dict(n_train=32, n_valid=16, batch=16, seed=4)
+MESH_TIMEOUT = 300.0  # seconds for the two spawned ranks, their start included
+SP_FWD_RTOL, SP_GRAD_RTOL = 2e-5, 5e-4  # of max |single-rank result|, per output
+DP_STEP_RTOL1 = 1e-5  # the first step's metrics (tests/test_torch_train.py); TRAIN_RTOL after
+BF16_GRU_SYMBOLS = {"gru_scan_bf16": ("gru1_walk_fwd_bf16_kernel",),
+                    "bigru_scan_bf16": ("gru2_stacked_fwd_bf16_kernel",),
+                    "gru_scan_bwd_bf16": ("gru1_walk_bwd_bf16_kernel",) + GRU_GATES
+                    + ("atb_kernel",),
+                    "bigru_scan_bwd_bf16": ("gru2_stacked_bwd_bf16_kernel",) + GRU_GATES
+                    + ("atb_kernel",)}
+BF16_SYMBOLS.update(BF16_GRU_SYMBOLS)
+F32_SYMBOLS.update({"gru_scan_bf16": ("gru1_walk_fwd_kernel",),
+                    "bigru_scan_bf16": ("gru2_stacked_fwd_kernel",),
+                    "gru_scan_bwd_bf16": ("gru1_walk_bwd_kernel",) + GRU_GATES + ("atb_kernel",),
+                    "bigru_scan_bwd_bf16": ("gru2_stacked_bwd_kernel",) + GRU_GATES
+                    + ("atb_kernel",)})
+BF16_ENC_LAUNCHES = {"per_direction": {"gru_scan_bf16": 6, "gru_scan_bwd_bf16": 6},
+                     "stacked": {"bigru_scan_bf16": 3, "bigru_scan_bwd_bf16": 3}}
+
+
+def bf16_gru_cases(enc_cpu, gen):
+    """The bf16 entries' inputs on the card: the flagship encoder's first
+    layer in bf16 over the training batch (B = TRAIN_B, L = TRAIN_L),
+    projected as the stacked path projects it, nonzero bf16 initial
+    states, the backward's states from the plain bf16 forward and a bf16
+    cotangent: {name: [(tag, args, flops, nbytes, None)]}, the bounds with
+    bf16 IO."""
+    from seq2seq_attention_asr_tpu_torch import interop
+
+    enc = interop.to_torch(enc_cpu, "cuda")
+    x, lens = (t.cuda() for t in train_batch(TRAIN_B, SEED + 3)[:2])
+    c32 = gru_scan_cases(enc, x, lens, gen)
+    bf = torch.bfloat16
+    fwd = {c.name: c for c in c32}
+    xproj2, h02, wzr2, wh2 = (t.to(bf) for t in fwd["bigru_scan"].args)
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan
+
+    with torch.no_grad():
+        ys2 = gru_scan.bigru_scan_plain(xproj2, h02, wzr2, wh2)
+    h_prevs2 = torch.cat([h02[:, :, None], ys2[:, :, :-1]], dim=2).contiguous()
+    dys2 = fwd["bigru_scan_bwd"].args[2].to(bf)
+    tag = f"B={TRAIN_B} L={TRAIN_L} H={wh2.shape[-1]}"
+    half = lambda c: (c.flops, c.nbytes / 2)  # the float32 cases' bytes at 2 bytes an element
+    one = lambda *ts: tuple(t[0] for t in ts)
+    return {
+        "gru_scan_bf16": [(tag, one(xproj2, h02, wzr2, wh2), *half(fwd["gru_scan"]), None)],
+        "gru_scan_bwd_bf16": [(tag, one(xproj2, h_prevs2, dys2, wzr2, wh2),
+                               *half(fwd["gru_scan_bwd"]), None)],
+        "bigru_scan_bf16": [(tag, (xproj2, h02, wzr2, wh2), *half(fwd["bigru_scan"]), None)],
+        "bigru_scan_bwd_bf16": [(tag, (xproj2, h_prevs2, dys2, wzr2, wh2),
+                                 *half(fwd["bigru_scan_bwd"]), None)],
+    }
+
+
+def bf16_encoder_launches(kernels, enc_cpu) -> dict:
+    """(a)'s main path: the bf16 flagship encoder on the training batch by
+    one rnn.gru_layer per direction and by the stacked scan, forward and
+    backward, each run with the launch counts zeroed just before: exactly
+    BF16_ENC_LAUNCHES and no other kernel; bf16 outputs and gradients,
+    finite, and each output by the ground-truth rule against the float32
+    encoder (bigru_layer) beside the bf16 bigru_layer's (K1, K6 bf16).
+    Returns {name: launches} of the four entries."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.models.chorowski import cast_float32
+    from seq2seq_attention_asr_tpu_torch.ops.masking import length_mask
+
+    x, x_len = (t.cuda() for t in train_batch(TRAIN_B, SEED + 3)[:2])
+    enc32 = interop.to_torch(enc_cpu, "cuda")
+    enc16 = cast_float32(enc32, torch.bfloat16)
+    width = 2 * enc_cpu["bigru3"]["fwd"]["w_h"].shape[1]
+    cot = torch.randn(TRAIN_B, TRAIN_L, width, generator=torch.Generator().manual_seed(SEED + 7))
+    cot = cot.cuda()
+    valid = length_mask(x_len, TRAIN_L)[:, :, None].expand(-1, -1, width).bool()
+    truth, _ = encoder_call("bigru_layer", enc32, x, x_len, cot)()
+    k1_16, _ = encoder_call("bigru_layer", enc16, x.bfloat16(), x_len, cot.bfloat16())()
+    launches = {}
+    for path, expected in BF16_ENC_LAUNCHES.items():
+        call = encoder_call(path, enc16, x.bfloat16(), x_len, cot.bfloat16())
+        (out, grads), counts = counted(kernels, call)
+        check_counts(f"bf16 encoder {path}", counts, tuple(expected), expected)
+        launches.update(expected)
+        finite = bool(torch.isfinite(out.float()).all()) and all(
+            bool(torch.isfinite(g.float()).all()) for g in grads)
+        dtypes = {g.dtype for g in grads} | {out.dtype}
+        kd, pd = rel_dist(out[valid], truth[valid]), rel_dist(k1_16[valid], truth[valid])
+        print(f"bf16 encoder {path} B={TRAIN_B} L={TRAIN_L}: launches "
+              f"{ {n: c for n, c in counts.items() if c} }, output and {len(grads)} gradients "
+              f"in {sorted(str(d) for d in dtypes)}, finite={finite}; rel L2 from the float32 "
+              f"encoder at valid positions {kd:.3e}, the bf16 bigru_layer's {pd:.3e} "
+              f"(<= 2 x + 0.02)")
+        if not finite or dtypes != {torch.bfloat16} or not kd <= 2.0 * pd + 0.02:
+            raise SystemExit(f"bf16 encoder {path}: not finite, not bf16, or off the float32 "
+                             f"encoder")
+    return launches
+
+
+def mesh_eval_split():
+    """A small TIMIT-shaped valid split, its batcher and vocabulary."""
+    from seq2seq_attention_asr_tpu_torch.data import batching, synthetic
+
+    m = MESH_EVAL
+    train, valid, vocab = synthetic.timit_shaped(m["n_train"], m["n_valid"], seed=m["seed"])
+    return valid, batching.BucketedBatcher.from_dataset(train, m["batch"], n_buckets=1), vocab
+
+
+def mesh_trainer_run(kernels, train_params, mesh, batch, valid, batcher, vocab):
+    """MESH_STEPS flagship steps from `train_params` (Trainer, with `mesh`
+    or without), then a K = BEAM_K evaluation, each with the launch counts
+    zeroed just before: ([(metrics, counts)], (eval row, counts), the
+    train params after)."""
+    from seq2seq_attention_asr_tpu_torch import tree
+    from seq2seq_attention_asr_tpu_torch.train import experiment, trainer
+
+    exp = experiment.timit_chorowski_normnll_colnorm()
+    tr = trainer.Trainer(exp.build_model(), exp.optim, exp.train, vocab=vocab, device="cuda",
+                         mesh=mesh)
+    tr.init(train_params)
+    arrs = tuple(t.cuda() for t in batch)
+    steps = []
+    for _ in range(MESH_STEPS):
+        (tr.state, m), counts = counted(kernels, lambda: tr.step_fn(tr.state, arrs))
+        steps.append(({k: float(v) for k, v in m.items()}, counts))
+    row, counts = counted(kernels, lambda: tr.evaluate(valid, batcher))
+    row.pop("valid_seconds")
+    return steps, (row, counts), [t.cpu() for t in tree.leaves(tr.state[0])]
+
+
+def mesh_one_rank(kernels, train_params, card: str) -> None:
+    """(b): a one-rank NCCL group (a HashStore, no network), the mesh
+    trainer on it against the meshless trainer: every step's metrics and
+    the evaluation's row equal (bit for bit; where a sum were reordered,
+    within 1e-6 relative), the parameters after bit for bit, and the same
+    launches at every step and in the evaluation."""
+    import torch.distributed as dist
+
+    from seq2seq_attention_asr_tpu_torch.parallel import make_mesh
+
+    batch = train_batch(TRAIN_B, SEED + 3)
+    valid, batcher, vocab = mesh_eval_split()
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1, rank=0)
+    try:
+        mesh = make_mesh(dp=1)
+        runs = {label: mesh_trainer_run(kernels, train_params, m, batch, valid, batcher, vocab)
+                for label, m in (("meshless", None), ("mesh", mesh))}
+    finally:
+        dist.destroy_process_group()
+    (s0, e0, p0), (s1, e1, p1) = runs["meshless"], runs["mesh"]
+    worst = 0.0
+    for i, ((m0, c0), (m1, c1)) in enumerate(zip(s0, s1)):
+        rel = max(abs(m1[k] - m0[k]) / max(abs(m0[k]), 1e-30) for k in m0)
+        worst = max(worst, rel)
+        print(f"mesh dp=1 (one NCCL rank) step {i + 1}: {m1}, meshless {m0}; largest relative "
+              f"difference {rel:.3e}; launches equal: {c0 == c1} "
+              f"{ {n: c for n, c in c1.items() if c} }")
+        if set(m0) != set(m1) or rel > 1e-6 or c0 != c1:
+            raise SystemExit(f"mesh dp=1 step {i + 1} differs from the meshless step")
+    same = all(torch.equal(a, b) for a, b in zip(p0, p1))
+    erel = max(abs(e1[0][k] - e0[0][k]) / max(abs(e0[0][k]), 1e-30) for k in e0[0])
+    print(f"mesh dp=1 evaluation (K={BEAM_K}, {MESH_EVAL['n_valid']} utterances): {e1[0]}, "
+          f"meshless {e0[0]}; largest relative difference {erel:.3e}; launches equal: "
+          f"{e0[1] == e1[1]} { {n: c for n, c in e1[1].items() if c} }; parameters after "
+          f"{MESH_STEPS} steps bit for bit: {same}; the steps' largest relative difference "
+          f"{worst:.3e} ({card})")
+    if set(e0[0]) != set(e1[0]) or erel > 1e-6 or e0[1] != e1[1] or not same:
+        raise SystemExit("mesh dp=1 evaluation or parameters differ from the meshless trainer")
+
+
+def sp_decode_inputs(loc_params_cpu):
+    """flagship_loc's decoder and the encoder's output on the training
+    batch (on the card, K1), with the labels: numpy arrays."""
+    from seq2seq_attention_asr_tpu_torch import interop
+
+    model = flagship_loc().build_model()
+    params = interop.to_torch(loc_params_cpu, "cuda")
+    x, x_len, y, dec_mask = (t.cuda() for t in train_batch(TRAIN_B, SEED + 3))
+    with torch.no_grad():
+        h, h_len = model.encode(params, x, x_len)
+    onehot = torch.nn.functional.one_hot(y.long(), model.output_depth).float() * dec_mask[..., None]
+    return dict(dec=interop.to_numpy(params["decoder"]), h=h.cpu().numpy(),
+                lens=h_len.cpu().numpy(), onehot=onehot.cpu().numpy(),
+                dec_mask=dec_mask.cpu().numpy())
+
+
+def sp_decode(mesh, case):
+    """The teacher-forced decode of `case` on the card and the gradient of
+    (1 / n) sum(logprobs * onehot * dec_mask) for the decoder's weights and
+    h, n the ranks of mesh's sp group (mesh None: one rank, K12 and K13):
+    (outputs, gradients, wall seconds of the forward and backward)."""
+    from seq2seq_attention_asr_tpu_torch import interop, tree
+    from seq2seq_attention_asr_tpu_torch.ops import attention
+    from seq2seq_attention_asr_tpu_torch.parallel import seq_attention
+
+    acfg = flagship_loc().build_model().attention_cfg
+    dec = interop.to_torch(case["dec"], "cuda")
+    leaves = [t.requires_grad_(True) for t in tree.leaves(dec)]
+    h = torch.from_numpy(case["h"]).cuda().requires_grad_(True)
+    lens, onehot, dmask = (torch.from_numpy(case[k]).cuda() for k in ("lens", "onehot",
+                                                                      "dec_mask"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if mesh is None:
+        out, n = attention.decode_teacher_forced(dec, acfg, h, lens, onehot, dmask), 1
+    else:
+        out = seq_attention.sharded_decode_teacher_forced(mesh, dec, acfg, h, lens, onehot, dmask)
+        n = mesh.sp
+    loss = torch.sum(out["logprobs"] * onehot * dmask[..., None]) / n
+    grads = torch.autograd.grad(loss, leaves + [h])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = {k: out[k].detach() for k in ("logprobs", "alpha", "penalty", "s", "c")}
+    return outs, list(grads), wall
+
+
+def mesh_rank(rank, inputs):
+    """(c) on one of two gloo ranks sharing the card: the dp = 2 flagship
+    steps on this rank's rows, then the sp = 2 decode of flagship_loc.
+    Returns the step metrics, walls and launch counts, and the decode's
+    outputs (alpha over this rank's positions), gradients and walls."""
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import attention_scan, gru_scan
+    from seq2seq_attention_asr_tpu_torch.parallel import make_mesh, mesh as mesh_lib
+    from seq2seq_attention_asr_tpu_torch.train import experiment, trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = {k.name: k for k in (gru_scan.KERNEL, gru_scan.KERNEL_BWD, attention_scan.KERNEL_FWD,
+                                   attention_scan.KERNEL_BWD, attention_scan.KERNEL_LOC_FWD,
+                                   attention_scan.KERNEL_LOC_BWD)}
+    mesh = make_mesh(dp=2, device="cuda")
+    exp = experiment.timit_chorowski_normnll_colnorm()
+    tr = trainer.Trainer(exp.build_model(), exp.optim, exp.train, mesh=mesh)
+    tr.init(inputs["train_params"])
+    rows = mesh_lib.put_batch(mesh, [torch.from_numpy(a) for a in inputs["batch"]])
+    steps = []
+    for _ in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        (tr.state, m), counts = counted(kernels, lambda: tr.step_fn(tr.state, rows))
+        steps.append(({k: float(v) for k, v in m.items()}, counts, time.perf_counter() - t0))
+    sp_mesh = make_mesh(dp=1, sp=2, device="cuda")
+    (outs, grads, wall), counts = counted(kernels, lambda: sp_decode(sp_mesh, inputs["sp"]))
+    walls = [wall] + [sp_decode(sp_mesh, inputs["sp"])[2] for _ in range(2)]
+    return {"steps": steps, "rows": tuple(rows[0].shape), "sp": outs, "sp_grads": grads,
+            "sp_walls": walls, "sp_counts": counts, "device": str(torch.cuda.current_device())}
+
+
+def mesh_two_ranks(kernels, train_params, loc_params_cpu, card: str) -> None:
+    """(c): the single-rank references on the card, then the two ranks."""
+    from seq2seq_attention_asr_tpu_torch import interop
+    from seq2seq_attention_asr_tpu_torch.parallel import multihost
+    from seq2seq_attention_asr_tpu_torch.train import experiment, trainer
+
+    batch = train_batch(TRAIN_B, SEED + 3)
+    exp = experiment.timit_chorowski_normnll_colnorm()
+    tr = trainer.Trainer(exp.build_model(), exp.optim, exp.train, device="cuda")
+    tr.init(train_params)
+    arrs = tuple(t.cuda() for t in batch)
+    single = []
+    for _ in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.state, m = tr.step_fn(tr.state, arrs)
+        torch.cuda.synchronize()
+        single.append(({k: float(v) for k, v in m.items()}, time.perf_counter() - t0))
+    sp_case = sp_decode_inputs(loc_params_cpu)
+    (want, want_grads, _), counts = counted(kernels, lambda: sp_decode(None, sp_case))
+    check_counts("sp reference decode", counts,
+                 ("attention_decode_scan_loc_fwd", "attention_decode_scan_loc_bwd"))
+    single_walls = [sp_decode(None, sp_case)[2] for _ in range(3)]
+    t0 = time.perf_counter()
+    ranks = multihost.spawn(mesh_rank, 2, {"train_params": interop.to_numpy(train_params),
+                                           "batch": [t.numpy() for t in batch], "sp": sp_case},
+                            timeout=MESH_TIMEOUT)
+    took = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        for i, ((m, counts, wall), (ref, ref_wall)) in enumerate(zip(res["steps"], single)):
+            rel = {k: abs(m[k] - ref[k]) / max(abs(ref[k]), 1e-30) for k in ref}
+            tol = DP_STEP_RTOL1 if i == 0 else TRAIN_RTOL
+            launched = {n: c for n, c in counts.items() if c}
+            print(f"mesh dp=2 rank {r} (rows {res['rows']}) step {i + 1}: {m}; single-rank "
+                  f"{ref}; largest relative difference {max(rel.values()):.3e} (tol {tol}); "
+                  f"launches {launched}; {1e3 * wall:.1f} ms wall, single-rank "
+                  f"{1e3 * ref_wall:.1f} ms ({card})")
+            if set(m) != set(ref) or max(rel.values()) > tol or launched != STEP_LAUNCHES:
+                raise SystemExit(f"mesh dp=2 rank {r} step {i + 1} disagrees with the "
+                                 f"single-rank step or launches {launched}")
+    got = {k: [torch.from_numpy(res["sp"][k]) for res in ranks] for k in want}
+    got["alpha"] = [torch.cat(got["alpha"], dim=-1)] * 2  # the ranks' positions, in order
+    fwd = max(float((g - want[k].cpu()).abs().max()) / max(float(want[k].abs().max()), 1e-30)
+              for k in want for g in got[k])
+    summed = [sum(torch.from_numpy(res["sp_grads"][i]) for res in ranks)
+              for i in range(len(want_grads))]
+    grad = max(float((g - w.cpu()).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for g, w in zip(summed, want_grads))
+    counts = [{n: c for n, c in res["sp_counts"].items() if c} for res in ranks]
+    print(f"mesh sp=2 flagship_loc decode B={TRAIN_B} L={TRAIN_L} T={TRAIN_T} (2 ranks, "
+          f"{TRAIN_L // 2} positions each): forward max |diff| / max |K12| {fwd:.3e} (tol "
+          f"{SP_FWD_RTOL}), gradients (the ranks' sum) max |diff| / max |K13| {grad:.3e} (tol "
+          f"{SP_GRAD_RTOL}); launches of the ranks {counts} (the step loop: no decoder kernel); "
+          f"forward and backward {[round(1e3 * w, 1) for w in ranks[0]['sp_walls']]} ms wall "
+          f"on rank 0, K12 + K13 on one rank {[round(1e3 * w, 1) for w in single_walls]} ms "
+          f"({card})")
+    if not fwd <= SP_FWD_RTOL or not grad <= SP_GRAD_RTOL or any(counts):
+        raise SystemExit("mesh sp=2 decode disagrees with K12/K13 on one rank")
+    print(f"mesh two ranks on the card: {took:.1f} s wall, the ranks' start included; every "
+          f"collective staged through the host (gloo) ({card})")
+
+
+def mesh_phase(kernels, train_params, loc_params_cpu, card: str) -> list:
+    """Phase 16; returns the bf16 entries' {"kernels"} rows."""
+    t0 = time.perf_counter()
+    rows = bf16_parity_rows(bf16_gru_cases(train_params["encoder"],
+                                           torch.Generator().manual_seed(SEED + 16)), card)
+    for name, n in bf16_encoder_launches(kernels, train_params["encoder"]).items():
+        rows[name]["launches"] = n
+    print(f"phase 16 (a) {time.perf_counter() - t0:.1f} s wall ({card})")
+    t1 = time.perf_counter()
+    mesh_one_rank(kernels, train_params, card)
+    print(f"phase 16 (b) {time.perf_counter() - t1:.1f} s wall ({card})")
+    t1 = time.perf_counter()
+    mesh_two_ranks(kernels, train_params, loc_params_cpu, card)
+    print(f"phase 16 (c) {time.perf_counter() - t1:.1f} s wall; phase 16 "
+          f"{time.perf_counter() - t0:.1f} s wall ({card})")
+    return bf16_kernel_rows(rows)
+
+
 def main(parent=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5475,7 +5860,9 @@ def main(parent=None) -> int:
                                    lstm_scan.KERNEL_BWD_BF16,
                                    attention_scan.KERNEL_LOC_LSTM_BWD_BF16,
                                    attention_scan.KERNEL_LSTM_BWD_BF16,
-                                   attention_scan.KERNEL_LOC_BWD_BF16)}
+                                   attention_scan.KERNEL_LOC_BWD_BF16,
+                                   gru_scan.KERNEL_GRU_BF16, gru_scan.KERNEL_GRU_BWD_BF16,
+                                   gru_scan.KERNEL_BI_BF16, gru_scan.KERNEL_BI_BWD_BF16)}
     started = t0 = time.perf_counter()
     build.build_all(kernels.values())
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(kernels)} kernels")
@@ -5769,6 +6156,9 @@ def main(parent=None) -> int:
     # hypotheses, and the port's corpus readers from FLAC to a VGG epoch.
     readers_and_wide_beams_phase(kernels, errs, model, params, cb_params["decoder"],
                                  cb_model.cfg.attention_config(), pcms, mean, std, card)
+    # Phase 16: the bf16 entries of K16-K19, and the mesh trainer (dp x sp):
+    # a world of one NCCL rank, then two gloo ranks that share the card.
+    bf16_rows += mesh_phase(kernels, train_params, loc_params_cpu, card)
     if parent:
         compare_trees(parent, card)
 
@@ -5778,7 +6168,7 @@ def main(parent=None) -> int:
     report = []
     for name in kernels:
         if (name in BF16_OF or name in BF16_MODEL_OF or name in BF16_TRAIN_OF
-                or name in BF16_OTHER_TRAIN_OF):
+                or name in BF16_OTHER_TRAIN_OF or name in BF16_GRU_OF):
             continue
         label = MAIN_LABEL.get(name, name)
         key = next(k for k in (1, "train", "cbtrain", "loctrain", "cbctrain", "enc")

@@ -16,6 +16,14 @@
 // from the caller (ops/cuda/walk.py). Each has a __global__ name of its
 // own so that a profiler trace tells them apart; neither name holds, or
 // is held in, another kernel's.
+//
+// gru_scan_fwd_bf16 and bigru_scan_fwd_bf16 are their bf16 entries
+// (gru1_walk_fwd_bf16_kernel, gru2_stacked_fwd_bf16_kernel): the same
+// walk with every array bf16, as _fwd_kernel and _bi_fwd_kernel run with
+// bf16 inputs. h stays float32 (h0 widened), the products read h and
+// r * h rounded to bf16, and ys stores rounded (gru_walk.cuh). Plain
+// PyTorch twin: ops/cuda/gru_scan.py::bigru_scan_plain_bf16, which
+// rounds at the same points, the JAX kernels' own.
 
 #include "gru_walk.cuh"
 
@@ -34,20 +42,33 @@ gru2_stacked_fwd_kernel(const GruFwd g, int resident) {
   gru_walk_fwd<R>(g.d[blockIdx.y], g.B, g.L, g.H, resident != 0, smem);
 }
 
-template <int D>
-int run(const float* xproj, const float* h0, const float* wzr, const float* wh, float* ys, int B,
-        int L, int H, const WalkPlan& plan, cudaStream_t stream) {
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+gru1_walk_fwd_bf16_kernel(const GruFwdT<bf16> g, int resident) {
+  extern __shared__ float smem[];
+  gru_walk_fwd<R, bf16>(g.d[blockIdx.y], g.B, g.L, g.H, resident != 0, smem);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+gru2_stacked_fwd_bf16_kernel(const GruFwdT<bf16> g, int resident) {
+  extern __shared__ float smem[];
+  gru_walk_fwd<R, bf16>(g.d[blockIdx.y], g.B, g.L, g.H, resident != 0, smem);
+}
+
+// D directions of IO type T through `walk`.
+template <int D, class T>
+int run(const T* xproj, const T* h0, const T* wzr, const T* wh, T* ys, int B, int L, int H,
+        const WalkPlan& plan, void (*walk)(const GruFwdT<T>, int), cudaStream_t stream) {
   if (B < 1 || L < 1 || H < 1 || H > 1024) return (int)cudaErrorInvalidValue;
   const size_t rows = (size_t)B * L;
-  GruFwd g{};
+  GruFwdT<T> g{};
   for (int d = 0; d < D; ++d)
-    g.d[d] = GruFwdDir{xproj + d * rows * 3 * H, h0 + (size_t)d * B * H,
-                       wzr + (size_t)d * H * 2 * H, wh + (size_t)d * H * H, ys + d * rows * H, 0};
+    g.d[d] = GruFwdDirT<T>{xproj + d * rows * 3 * H, h0 + (size_t)d * B * H,
+                           wzr + (size_t)d * H * 2 * H, wh + (size_t)d * H * H,
+                           ys + d * rows * H, 0};
   g.B = B, g.L = L, g.H = H;
-  return (int)(D == 1 ? run_gru_fwd(g, 1, plan, GRU_WALK_INSTANCE(gru1_walk_fwd_kernel, plan.rows),
-                                    stream)
-                      : run_gru_fwd(g, 2, plan,
-                                    GRU_WALK_INSTANCE(gru2_stacked_fwd_kernel, plan.rows), stream));
+  return (int)run_gru_fwd(g, D, plan, walk, stream);
 }
 
 }  // namespace
@@ -67,12 +88,31 @@ extern "C" int bigru_scan_fwd_limits(int cluster, int* smem_limit, int* clusters
 extern "C" int gru_scan_fwd(const float* xproj, const float* h0, const float* wzr,
                             const float* wh, float* ys, int B, int L, int H, int cluster, int rows,
                             int resident, cudaStream_t stream) {
-  return run<1>(xproj, h0, wzr, wh, ys, B, L, H, WalkPlan{cluster, rows, resident}, stream);
+  return run<1>(xproj, h0, wzr, wh, ys, B, L, H, WalkPlan{cluster, rows, resident},
+                GRU_WALK_INSTANCE(gru1_walk_fwd_kernel, rows), stream);
 }
 
 // K18: the same with a leading direction axis of 2.
 extern "C" int bigru_scan_fwd(const float* xproj2, const float* h02, const float* wzr2,
                               const float* wh2, float* ys2, int B, int L, int H, int cluster,
                               int rows, int resident, cudaStream_t stream) {
-  return run<2>(xproj2, h02, wzr2, wh2, ys2, B, L, H, WalkPlan{cluster, rows, resident}, stream);
+  return run<2>(xproj2, h02, wzr2, wh2, ys2, B, L, H, WalkPlan{cluster, rows, resident},
+                GRU_WALK_INSTANCE(gru2_stacked_fwd_kernel, rows), stream);
+}
+
+// K16 with every array bf16, on gru_scan_fwd_limits' plan (the walk's
+// shared memory is the same: its slices stay float).
+extern "C" int gru_scan_fwd_bf16(const bf16* xproj, const bf16* h0, const bf16* wzr,
+                                 const bf16* wh, bf16* ys, int B, int L, int H, int cluster,
+                                 int rows, int resident, cudaStream_t stream) {
+  return run<1>(xproj, h0, wzr, wh, ys, B, L, H, WalkPlan{cluster, rows, resident},
+                GRU_WALK_INSTANCE(gru1_walk_fwd_bf16_kernel, rows), stream);
+}
+
+// K18 with every array bf16, on bigru_scan_fwd_limits' plan.
+extern "C" int bigru_scan_fwd_bf16(const bf16* xproj2, const bf16* h02, const bf16* wzr2,
+                                   const bf16* wh2, bf16* ys2, int B, int L, int H, int cluster,
+                                   int rows, int resident, cudaStream_t stream) {
+  return run<2>(xproj2, h02, wzr2, wh2, ys2, B, L, H, WalkPlan{cluster, rows, resident},
+                GRU_WALK_INSTANCE(gru2_stacked_fwd_bf16_kernel, rows), stream);
 }

@@ -49,7 +49,7 @@
 namespace {
 
 // One direction of a GRU forward, its arrays of IO type T (float, or
-// bf16 for K1's bf16 entry).
+// bf16 for the bf16 entries of K1, K16 and K18).
 template <class T>
 struct GruFwdDirT {
   const T* x;    // (B, L, 3H) input projections
@@ -228,7 +228,7 @@ cudaError_t run_gru_fwd(const GruFwdT<T>& g, int D, const WalkPlan& p,
 }
 
 // One direction of a GRU backward, its arrays of IO type T (float, or
-// bf16 for K6's bf16 entry).
+// bf16 for the bf16 entries of K6, K17 and K19).
 template <class T>
 struct GruBwdDirT {
   const T* x;     // (B, L, 3H) input projections
@@ -238,7 +238,7 @@ struct GruBwdDirT {
   const T* dys;   // (B, L, H) the outputs' cotangent
   T* dx;          // (B, L, 3H): da_z | da_r | da_c
   T* rho;         // (B, L, H): r * h_prev (bf16: rounded), for the reduction of dWh
-  float* dh0;     // (B, H), the carry after the last step, or null
+  T* dh0;         // (B, H), the carry after the last step (bf16: rounded), or null
   int shift, down;  // down: the walk runs t = L-1..0, else t = 0..L-1
   float* gates;   // (B, L, 3H): the pre-pass's z | r | c, float32; the float entries
                   // pass dx, whose rows the walk then overwrites with their cotangents
@@ -433,7 +433,7 @@ __device__ void gru_walk_bwd(const GruBwdDirT<T>& a, int B, int L, int H, bool r
   if (a.dh0 != nullptr)
     for (int idx = threadIdx.x; idx < nrows * hs; idx += kThreads) {
       const int r = idx / hs, i = idx - r * hs;
-      a.dh0[(size_t)(b0 + r) * H + lo + i] = carry[r * hm + i];
+      st_f(a.dh0 + (size_t)(b0 + r) * H + lo + i, carry[r * hm + i]);
     }
   cluster.sync();  // no block leaves while its shared memory may still be a peer's target
 }

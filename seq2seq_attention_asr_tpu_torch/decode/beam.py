@@ -26,6 +26,19 @@ is full or the longest max_steps is reached, which costs one host read
 per step. A bf16 model's beam (h and the params in bf16) carries its
 state (alpha, s, mem) in bf16 between steps, through K2's bf16 entry,
 and its scores in float32, as the JAX package's does.
+
+Under sequence sharding (``group``, the JAX package's axis_name) h is
+this rank's share of the encoder positions, the step is
+``attention.attention_step`` with the group's collectives and the
+readout (PyTorch ops on the device: the fused step kernels take
+unsharded positions, as the JAX package's fused step does,
+decode/beam.py:147 there), and the bookkeeping, the same on every rank
+of the group, is the one of the unsharded search. ``sync_group`` (the
+whole world) agrees the loop's trip count: its bound and its "any
+unfinished" test are all-reduced MAX over it every step, so that no rank
+leaves the loop while its neighbours still run the collectives of a
+step (the JAX package's MULTICHIP_r03 deadlock); a rank whose samples
+are all finished steps on with a budget of 0, its pool unchanged.
 """
 
 from __future__ import annotations
@@ -38,7 +51,8 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..ops import attention
 from ..ops.cuda.attention_step import fused_attention_step
-from ..ops.masking import NEG_INF, length_mask
+from ..ops.masking import NEG_INF
+from ..parallel import comm
 
 
 class BeamResult(NamedTuple):
@@ -57,12 +71,18 @@ def _scatter(base: torch.Tensor, dest: torch.Tensor, src: torch.Tensor) -> torch
 
 def beam_search(params, cfg: attention.AttentionConfig, h: torch.Tensor, enc_lengths: torch.Tensor,
                 eos_id, k: int = 5, max_steps: Optional[torch.Tensor] = None,
-                max_steps_cap: Optional[int] = None, device="cuda") -> BeamResult:
+                max_steps_cap: Optional[int] = None, device="cuda", group=None,
+                sync_group=None) -> BeamResult:
     """h: (B, L, A) annotations; enc_lengths (B,). max_steps: (B,)
     per-sample cap (defaults to enc_lengths); max_steps_cap bounds the
     history (defaults to the padded L). Runs on the card unless
     device="cpu"; h and params must already be there. Returns the best
-    finished hypothesis per sample."""
+    finished hypothesis per sample.
+
+    With `group`, h is this rank's share (B, L / n, A) of the positions
+    of the group's n ranks and max_steps_cap is required (the default
+    would be the local length); with `sync_group` every rank of it runs
+    the same number of steps."""
     dev = resolve_device(device)
     if h.device.type != dev.type:
         raise ValueError(f"beam_search on {dev}: h lies on {h.device}")
@@ -74,10 +94,13 @@ def beam_search(params, cfg: attention.AttentionConfig, h: torch.Tensor, enc_len
     cap = int(max_steps_cap if max_steps_cap is not None else l_pad)
     eos = torch.as_tensor(eos_id, device=dev).long().expand(b)
 
-    enc_mask = length_mask(enc_lengths, l_pad, h.dtype)
+    if group is not None and max_steps_cap is None:
+        raise ValueError("a sequence-sharded beam needs max_steps_cap")
+    pos = l_pad * comm.rank(group) + torch.arange(l_pad, device=dev)
+    enc_mask = (pos[None, :] < enc_lengths[:, None]).to(h.dtype)
     vh = attention.precompute_vh(params, h).contiguous()
     h = h.contiguous()
-    t_max = int(max_steps.max())
+    t_max = int(comm.all_reduce_max(max_steps.max(), sync_group))
     if t_max > cap:
         raise ValueError(f"max_steps {t_max} exceeds the history bound max_steps_cap={cap}")
 
@@ -100,8 +123,11 @@ def beam_search(params, cfg: attention.AttentionConfig, h: torch.Tensor, enc_len
         y_prev = F.one_hot(last, v).to(h.dtype)
         if t == 0:
             y_prev = torch.zeros_like(y_prev)
-        new_state, out = fused_attention_step(params, cfg, state, y_prev, vh, h, enc_mask)
-        logp = out["logp"]
+        if group is None:
+            new_state, out = fused_attention_step(params, cfg, state, y_prev, vh, h, enc_mask)
+            logp = out["logp"]
+        else:
+            new_state, logp = _sharded_step(params, cfg, state, y_prev, vh, h, enc_mask, group)
 
         # Expansion scores; dead hypothesis slots masked out.
         live = slots < live_count[:, None]
@@ -143,7 +169,8 @@ def beam_search(params, cfg: attention.AttentionConfig, h: torch.Tensor, enc_len
         )
         hist[t] = last * k + sel_parent
         t += 1
-        if not bool((fin_count < k).any()):
+        unfinished = (fin_count < k).any().to(torch.int32)
+        if not bool(comm.all_reduce_max(unfinished, sync_group)):
             break
 
     # Best finished hypothesis: argmax total log-prob, first write wins.
@@ -163,3 +190,18 @@ def beam_search(params, cfg: attention.AttentionConfig, h: torch.Tensor, enc_len
         slot = torch.where(active, code % k, slot)
     tokens.scatter_add_(1, bstep[:, None], btok[:, None])
     return BeamResult(tokens=tokens, lengths=lengths, scores=bscore)
+
+
+def _sharded_step(params, cfg, state, y_prev, vh, h, enc_mask, group):
+    """One step of all (B, K) hypotheses on this rank's positions:
+    attention_step with the group's collectives, then the readout; the new
+    state (B, K, ...) and the log-probs (B, K, V)."""
+    b, k = y_prev.shape[:2]
+    flat = lambda a: a.reshape((b * k,) + tuple(a.shape[2:]))
+    over_k = lambda a: flat(a[:, None].expand((b, k) + tuple(a.shape[1:])))
+    new_state, out = attention.attention_step(
+        params, cfg, tuple(flat(a) for a in state), flat(y_prev), over_k(vh), over_k(h),
+        over_k(enc_mask), group=group)
+    logp = attention.apply_readout(params, cfg, out["s"], out["c"])
+    return (tuple(a.reshape((b, k) + tuple(a.shape[1:])) for a in new_state),
+            logp.reshape(b, k, -1))

@@ -19,6 +19,17 @@ LSTM (K10 and K11), the location-aware GRU (K12 and K13) and the
 content-only LSTM (K14 and K15). With mono_align and penalty_lambda > 0
 the monotonic alignment penalty (ops/monotonic.py) is reported per step
 and its ramp injected into the alignments' gradient.
+
+Sequence sharding (the JAX package's ``axis_name``): with a process
+group ``group`` (parallel/comm.py), h, vh, the masks, alpha and the ramps
+hold this rank's share of the encoder positions, and the step reduces
+over the group where the JAX package does: the softmax's max and
+normalizer, the context c (the all-reduce of the local alpha^T h), the
+penalty's partial sums, and the location convolution's halo. Under a
+group, ``decode_teacher_forced`` runs its step loop of PyTorch ops on
+the device, with those collectives, as the JAX package's does: its
+fused Pallas scans, like the port's kernels, take unsharded positions
+only (ops/attention.py:345 there).
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import torch.nn.functional as F
 from . import cells, readout
 from .cells import torch_linear_init
 from .cuda import attention_scan
+from ..parallel import comm
 from .masking import length_mask, masked_softmax
 from .monotonic import (MonotonicAlignment, MonotonicAlignmentSeq, make_ramp,
                         monotonic_penalty_value)
@@ -122,23 +134,30 @@ def conv_pads(filt_size: int) -> Tuple[int, int]:
     return filt_size // 2, filt_size // 2 - 1
 
 
-def location_features(params: Params, cfg: AttentionConfig, alpha_prev: torch.Tensor) -> torch.Tensor:
-    """UF = (conv1d(alpha_prev) + b) @ U: (B, L) -> (B, L, score_depth)."""
+def location_features(params: Params, cfg: AttentionConfig, alpha_prev: torch.Tensor,
+                      group=None) -> torch.Tensor:
+    """UF = (conv1d(alpha_prev) + b) @ U: (B, L) -> (B, L, score_depth).
+    With `group` the positions are split over its ranks, and the filter's
+    support across a shard's edge comes from the neighbours' positions (a
+    halo exchange), zeros only at the sequence's ends."""
     w = params["loc_conv"]["w"][:, 0, :]  # (f, FM)
     l = alpha_prev.shape[1]
-    ap = F.pad(alpha_prev, conv_pads(cfg.filt_size))
+    pads = conv_pads(cfg.filt_size)
+    ap = F.pad(alpha_prev, pads) if group is None else comm.halo_exchange(alpha_prev, *pads,
+                                                                          group)
     feat = sum(ap[:, j : j + l, None] * w[j] for j in range(w.shape[0]))
     return (feat + params["loc_conv"]["b"]) @ params["u"]
 
 
 def attention_weights(params: Params, cfg: AttentionConfig, s_prev, alpha_prev, vh,
-                      enc_mask) -> torch.Tensor:
-    """alpha (B, L) for one step, with the location term when feature_maps > 0."""
+                      enc_mask, group=None) -> torch.Tensor:
+    """alpha (B, L) for one step, with the location term when
+    feature_maps > 0; with `group`, over this rank's positions."""
     ws = s_prev @ params["ws"]["w"] + params["ws"]["b"]
     z = vh + ws[:, None, :]
     if cfg.feature_maps > 0:
-        z = z + location_features(params, cfg, alpha_prev)
-    return masked_softmax(torch.tanh(z) @ params["w_e"], enc_mask)
+        z = z + location_features(params, cfg, alpha_prev, group)
+    return masked_softmax(torch.tanh(z) @ params["w_e"], enc_mask, group=group)
 
 
 def _cell_step(params: Params, cfg: AttentionConfig, r, s, mem):
@@ -150,22 +169,25 @@ def _cell_step(params: Params, cfg: AttentionConfig, r, s, mem):
 
 
 def attention_step(params: Params, cfg: AttentionConfig, state, y_prev, vh, h, enc_mask,
-                   ramp=None, unit_ramp=None):
+                   ramp=None, unit_ramp=None, group=None):
     """One decoder step. state = (alpha_prev, s_prev, mem_prev); y_prev
     one-hot (B, V). ramp: the lambda-scaled injection ramp (None: no
     injection); unit_ramp: the lambda-free ramp of the penalty value
     (None: a zero penalty). Returns the new state and {s, c, alpha,
-    penalty}, penalty (B,) scaled by penalty_lambda."""
+    penalty}, penalty (B,) scaled by penalty_lambda. With `group`, h, vh,
+    enc_mask, alpha and the ramps hold this rank's positions and c is the
+    group's all-reduce of the local alpha^T h; s, c and mem are the same
+    on every rank of the group."""
     check_ported(cfg)
     alpha_prev, s_prev, mem = state
-    alpha = attention_weights(params, cfg, s_prev, alpha_prev, vh, enc_mask)
+    alpha = attention_weights(params, cfg, s_prev, alpha_prev, vh, enc_mask, group)
     if unit_ramp is not None:
-        penalty = monotonic_penalty_value(alpha, alpha_prev, unit_ramp)
+        penalty = monotonic_penalty_value(alpha, alpha_prev, unit_ramp, group)
     else:
         penalty = torch.zeros(alpha.shape[0], dtype=alpha.dtype, device=alpha.device)
     if cfg.mono_align and ramp is not None:
         alpha = MonotonicAlignment.apply(alpha, alpha_prev, ramp, penalty.detach())
-    c = torch.einsum("bl,bld->bd", alpha, h)
+    c = comm.all_reduce_sum(torch.einsum("bl,bld->bd", alpha, h), group)
     r = readout.linear_apply(
         params["dec_in"],
         torch.cat(
@@ -179,18 +201,21 @@ def attention_step(params: Params, cfg: AttentionConfig, state, y_prev, vh, h, e
 
 
 def apply_readout(params: Params, cfg: AttentionConfig, s: torch.Tensor, c: torch.Tensor,
-                  *, generator: Optional[torch.Generator] = None,
-                  train: bool = False) -> torch.Tensor:
+                  *, generator: Optional[torch.Generator] = None, train: bool = False,
+                  rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """decoder_mlp(concat(s, c)) -> log-probs, on any batch shape; a
-    train-mode dropout layer draws from `generator`."""
+    train-mode dropout layer draws from `generator`, its mask at the
+    global batch's shape where `rows` = (offset, global rows) says which
+    rows of it s and c are (readout.stack_apply)."""
     return readout.stack_apply(params["readout"], cfg.readout, torch.cat([s, c], dim=-1),
-                               generator=generator, train=train)
+                               generator=generator, train=train, rows=rows)
 
 
 def decode_teacher_forced(params: Params, cfg: AttentionConfig, h: torch.Tensor,
                           enc_lengths: torch.Tensor, labels_onehot: torch.Tensor,
                           dec_mask: torch.Tensor, *, generator: Optional[torch.Generator] = None,
-                          train: bool = False) -> Dict[str, torch.Tensor]:
+                          train: bool = False, group=None,
+                          with_readout: bool = True) -> Dict[str, torch.Tensor]:
     """Teacher-forced decode over all T output steps, the fused branch of
     the JAX package's decode_teacher_forced (ops/attention.py:320-434).
 
@@ -215,8 +240,21 @@ def decode_teacher_forced(params: Params, cfg: AttentionConfig, h: torch.Tensor,
     MonotonicAlignmentSeq, coupled into s_seq by a term of value zero:
     the loss reads logprobs only, and without the coupling autograd would
     never call that backward. The scan's alpha cotangent is then exactly
-    the ramp injection. Otherwise penalty is zeros."""
+    the ramp injection. Otherwise penalty is zeros.
+
+    With `group` (sequence sharding; the JAX package's axis_name), h is
+    this rank's share of the positions, (B, L / n, A) for the group's n
+    ranks, the rank's positions its global ones, loc_l * rank + arange(
+    loc_l) (ops/attention.py:321-325 there), and enc_lengths global; the
+    decoder runs step_loop. with_readout=False leaves out the readout and
+    logprobs (the sharded wrapper runs it on the replicated (s, c))."""
     check_ported(cfg)
+    if group is not None:
+        out = step_loop(params, cfg, h, enc_lengths, labels_onehot, dec_mask, group)
+        if with_readout:
+            out["logprobs"] = apply_readout(params, cfg, out["s"], out["c"],
+                                            generator=generator, train=train)
+        return out
     enc_mask = length_mask(enc_lengths, h.shape[1], h.dtype)
     vh = precompute_vh(params, h)
     y_prev = torch.cat([torch.zeros_like(labels_onehot[:, :1]), labels_onehot[:, :-1]], dim=1)
@@ -246,10 +284,41 @@ def decode_teacher_forced(params: Params, cfg: AttentionConfig, h: torch.Tensor,
         penalty = (cfg.penalty_lambda * pen_unit * dec_mask).to(dec_mask.dtype)
     else:
         penalty = torch.zeros_like(dec_mask)
-    return {
-        "logprobs": apply_readout(params, cfg, s_seq, c_seq, generator=generator, train=train),
-        "alpha": alpha_seq,
-        "s": s_seq,
-        "c": c_seq,
-        "penalty": penalty,
-    }
+    out = {"alpha": alpha_seq, "s": s_seq, "c": c_seq, "penalty": penalty}
+    if with_readout:
+        out["logprobs"] = apply_readout(params, cfg, s_seq, c_seq, generator=generator,
+                                        train=train)
+    return out
+
+
+def step_loop(params: Params, cfg: AttentionConfig, h: torch.Tensor, enc_lengths: torch.Tensor,
+              labels_onehot: torch.Tensor, dec_mask: torch.Tensor, group) -> Dict[str, torch.Tensor]:
+    """The teacher-forced decode as a loop of attention_step over the T
+    steps (the JAX package's lax.scan branch, ops/attention.py:436-470),
+    on this rank's share of the positions of `group`: returns alpha (B, T,
+    L / n, this rank's positions), s (B, T, St), c (B, T, A) and penalty
+    (B, T), the last three the same on every rank of the group. With
+    mono_align and penalty_lambda > 0 each step injects its ramp, masked
+    by the step's validity, through MonotonicAlignment, and reports lambda
+    * value * dec_mask."""
+    b, loc_l = h.shape[:2]
+    pos = loc_l * comm.rank(group) + torch.arange(loc_l, device=h.device)
+    enc_mask = (pos[None, :] < enc_lengths.to(h.device)[:, None]).to(h.dtype)
+    vh = precompute_vh(params, h)
+    unit_ramp = base_ramp = None
+    if cfg.mono_align and cfg.penalty_lambda > 0.0:
+        lens = enc_lengths.to(h.device, h.dtype)[:, None]
+        unit_ramp = torch.clamp(lens - pos[None, :].to(h.dtype), min=0.0)
+        base_ramp = cfg.penalty_lambda * unit_ramp
+    y_prev = torch.cat([torch.zeros_like(labels_onehot[:, :1]), labels_onehot[:, :-1]], dim=1)
+    state = init_state(cfg, b, loc_l, device=h.device, dtype=h.dtype)
+    outs = {"s": [], "c": [], "alpha": [], "penalty": []}
+    for t in range(labels_onehot.shape[1]):
+        step_mask = dec_mask[:, t]
+        ramp = None if base_ramp is None else base_ramp * step_mask[:, None]
+        state, out = attention_step(params, cfg, state, y_prev[:, t], vh, h, enc_mask, ramp=ramp,
+                                    unit_ramp=unit_ramp, group=group)
+        out["penalty"] = out["penalty"] * step_mask
+        for k in outs:
+            outs[k].append(out[k])
+    return {k: torch.stack(v, dim=1) for k, v in outs.items()}

@@ -23,13 +23,18 @@
   ``csrc/gru_scan_bwd.cu``.
 
 K1 and K6 have bf16 entries too (``KERNEL_BF16``, ``KERNEL_BWD_BF16``:
-the same walks with a bf16 IO type). The JAX kernels with bf16 inputs
+the same walks with a bf16 IO type), and so do K16-K19
+(``KERNEL_GRU_BF16``, ``KERNEL_GRU_BWD_BF16``, ``KERNEL_BI_BF16``,
+``KERNEL_BI_BWD_BF16``), as ``_fwd_kernel``, ``_bwd_kernel``,
+``_bi_fwd_kernel`` and ``_bi_bwd_kernel`` take bf16 inputs. The JAX kernels with bf16 inputs
 (``dt`` = bf16 in ``_bi2_fwd_kernel`` and ``_bi2_bwd_kernel``) round the
 products' operands to bf16, accumulate in float32, keep the carries and
 the gate math in float32 and round each output once, at its store: the
 forward rounds h and r * h; the backward rounds r * h_prev, da_c and
 [da_z | da_r], and stores dx and the weight gradients in bf16
-(``bigru_scan2_bwd_plain_bf16`` says where).
+(``bigru_scan2_bwd_plain_bf16`` says where). K16-K19 round at the same
+points, and their backward also stores dh0 rounded and reads h_prev as
+the bf16 array it is (``bigru_scan_bwd_plain_bf16``).
 
 Every kernel's plain version (``*_plain``) sits beside its wrapper; all
 the kernels share the walks of ``csrc/gru_walk.cuh``, which run on
@@ -65,10 +70,20 @@ KERNEL_BWD_BF16 = build.Kernel(
 )
 _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BWD_BF16_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 KERNEL_GRU = build.Kernel("gru_scan", "gru_scan.cu", "gru_scan_fwd", _FWD_ARGS)
 KERNEL_GRU_BWD = build.Kernel("gru_scan_bwd", "gru_scan_bwd.cu", "gru_scan_bwd", _BWD_ARGS)
 KERNEL_BI = build.Kernel("bigru_scan", "gru_scan.cu", "bigru_scan_fwd", _FWD_ARGS)
 KERNEL_BI_BWD = build.Kernel("bigru_scan_bwd", "gru_scan_bwd.cu", "bigru_scan_bwd", _BWD_ARGS)
+# Their bf16 entries, in the same libraries; each backward takes one more
+# pointer, the gates' float32 scratch.
+KERNEL_GRU_BF16 = build.Kernel("gru_scan_bf16", "gru_scan.cu", "gru_scan_fwd_bf16", _FWD_ARGS)
+KERNEL_GRU_BWD_BF16 = build.Kernel("gru_scan_bwd_bf16", "gru_scan_bwd.cu", "gru_scan_bwd_bf16",
+                                   _BWD_BF16_ARGS)
+KERNEL_BI_BF16 = build.Kernel("bigru_scan_bf16", "gru_scan.cu", "bigru_scan_fwd_bf16",
+                              _FWD_ARGS)
+KERNEL_BI_BWD_BF16 = build.Kernel("bigru_scan_bwd_bf16", "gru_scan_bwd.cu",
+                                  "bigru_scan_bwd_bf16", _BWD_BF16_ARGS)
 MAX_H = 1024  # every kernel here refuses wider states (csrc/gru_walk.cuh's callers)
 
 
@@ -272,23 +287,45 @@ class BiGRUScan2(torch.autograd.Function):
 def bigru_scan_plain(xproj2, h02, wzr2, wh2):
     """Plain PyTorch twin of K18 (and, with one direction, of K16): a
     Python loop over time of ``_bi_fwd_kernel``'s step, the directions
-    stacked on the leading axis, each from its own initial state."""
+    stacked on the leading axis, each from its own initial state (on
+    bfloat16 inputs, bigru_scan_plain_bf16)."""
+    if xproj2.dtype == torch.bfloat16:
+        return bigru_scan_plain_bf16(xproj2, h02, wzr2, wh2)
+    return _stacked_fwd(xproj2, h02, wzr2, wh2)
+
+
+def bigru_scan_plain_bf16(xproj2, h02, wzr2, wh2):
+    """Plain bf16 version of K18 (and K16) at the rounding points of
+    ``_bi_fwd_kernel`` and ``_fwd_kernel`` with bf16 inputs: every input
+    widened to float32, h carried in float32 from h0, the products'
+    operands h and r * h rounded to bf16, ys rounded. It is also the bf16
+    entries' exact twin: they round at these points and take their
+    products step by step, as this loop does."""
+    wide = [t.float() for t in (xproj2, h02, wzr2, wh2)]
+    return _stacked_fwd(*wide, rnd=build.round_bf16).to(torch.bfloat16)
+
+
+def _stacked_fwd(xproj2, h02, wzr2, wh2, rnd=lambda x: x):
+    """K18's forward on float32 tensors, `rnd` rounding each product's
+    operand that the JAX kernel rounds to its IO type (the identity for
+    float32)."""
     d, b, l, h3 = xproj2.shape
     h = h3 // 3
     hs = h02
     ys = xproj2.new_empty((d, b, l, h))
     for t in range(l):
         x = xproj2[:, :, t]
-        zr = torch.sigmoid(torch.bmm(hs, wzr2) + x[..., : 2 * h])
+        zr = torch.sigmoid(torch.bmm(rnd(hs), wzr2) + x[..., : 2 * h])
         z, r = zr[..., :h], zr[..., h:]
-        c = torch.tanh(torch.bmm(r * hs, wh2) + x[..., 2 * h:])
+        c = torch.tanh(torch.bmm(rnd(r * hs), wh2) + x[..., 2 * h:])
         hs = (1.0 - z) * hs + z * c
         ys[:, :, t] = hs
     return ys
 
 
 def gru_scan_plain(xproj, h0, w_zr_h, w_h_h):
-    """Plain PyTorch twin of K16: ``_fwd_kernel``'s step in a loop over time."""
+    """Plain PyTorch twin of K16: ``_fwd_kernel``'s step in a loop over
+    time (on bfloat16 inputs, at its bf16 rounding points)."""
     return bigru_scan_plain(xproj[None], h0[None], w_zr_h[None], w_h_h[None])[0]
 
 
@@ -297,7 +334,67 @@ def bigru_scan_bwd_plain(xproj2, h_prevs2, dys2, wzr2, wh2):
     reverse-time loop of ``_bi_bwd_kernel``, which recomputes each step's
     gates from the state the step started from, h_prevs2[:, :, t], and
     sums the weight gradients step by step. Returns (dxproj2, dh02,
-    dwzr2, dwh2); dh02 is the carry after step 0."""
+    dwzr2, dwh2); dh02 is the carry after step 0. On bfloat16 inputs,
+    bigru_scan_bwd_plain_bf16."""
+    if xproj2.dtype == torch.bfloat16:
+        return bigru_scan_bwd_plain_bf16(xproj2, h_prevs2, dys2, wzr2, wh2)
+    return _stacked_bwd(xproj2, h_prevs2, dys2, wzr2, wh2)
+
+
+def bigru_scan_bwd_plain_bf16(xproj2, h_prevs2, dys2, wzr2, wh2):
+    """Plain bf16 version of K19 (and K17) at the rounding points of
+    ``_bi_bwd_kernel`` and ``_bwd_kernel`` with bf16 inputs
+    (gru_scan.py:71-135, :308-382 of the JAX package): every input
+    widened to float32 (h_prev is the bf16 array it is, as the JAX
+    kernels hand it to their dots); r * h_prev rounded before its product
+    with Wh and in dWh; da_c and [da_z | da_r] rounded before their
+    products, and dxproj is exactly those rounded values; the carry and
+    the gate math float32; dWzr and dWh summed step by step in float32;
+    dh0, dWzr and dWh rounded once."""
+    wide = [t.float() for t in (xproj2, h_prevs2, dys2, wzr2, wh2)]
+    return tuple(t.to(torch.bfloat16)
+                 for t in _stacked_bwd(*wide, rnd=build.round_bf16))
+
+
+def bigru_scan_bwd_twin_bf16(xproj2, h_prevs2, dys2, wzr2, wh2):
+    """The exact twin of the bf16 entries of K19 (and K17): the plain bf16
+    version's rounding points in the entries' three stages and their
+    order of sums. The gates of every (row, step) come first, from
+    products over all B*L rows (the pre-pass), then the reverse-time walk
+    of the cotangents, then dWzr = sum h_prev^T [da_z | da_r] and dWh =
+    sum rho^T da_c, each one product over all B*L rows in float32
+    (reduce_atb.cuh), rounded once."""
+    x, hp, dy, wzr, wh = (t.float() for t in (xproj2, h_prevs2, dys2, wzr2, wh2))
+    d, b, l, h3 = x.shape
+    h = h3 // 3
+    rnd = build.round_bf16
+    rows = lambda a: a.reshape(d, b * l, a.shape[-1])
+    zr = torch.sigmoid(torch.bmm(rows(hp), wzr).reshape(d, b, l, 2 * h) + x[..., : 2 * h])
+    z, r = zr[..., :h], zr[..., h:]
+    rho = rnd(r * hp)
+    c = torch.tanh(torch.bmm(rows(rho), wh).reshape(d, b, l, h) + x[..., 2 * h:])
+    carry = x.new_zeros((d, b, h))
+    dx = torch.empty_like(x)
+    wh_t, wzr_t = wh.transpose(1, 2), wzr.transpose(1, 2)
+    for t in range(l - 1, -1, -1):
+        zt, rt, ct, ht = z[:, :, t], r[:, :, t], c[:, :, t], hp[:, :, t]
+        dh = dy[:, :, t] + carry
+        da_c = rnd(dh * zt * (1.0 - ct * ct))
+        drh = torch.bmm(da_c, wh_t)
+        da_zr = rnd(torch.cat([dh * (ct - ht) * zt * (1.0 - zt), drh * ht * rt * (1.0 - rt)],
+                              dim=-1))
+        carry = drh * rt + torch.bmm(da_zr, wzr_t) + dh * (1.0 - zt)
+        dx[:, :, t, : 2 * h] = da_zr
+        dx[:, :, t, 2 * h:] = da_c
+    dwzr = torch.bmm(rows(hp).transpose(1, 2), rows(dx[..., : 2 * h]))
+    dwh = torch.bmm(rows(rho).transpose(1, 2), rows(dx[..., 2 * h:]))
+    return tuple(t.to(torch.bfloat16) for t in (dx, carry, dwzr, dwh))
+
+
+def _stacked_bwd(xproj2, h_prevs2, dys2, wzr2, wh2, rnd=lambda x: x):
+    """K19's backward on float32 tensors, `rnd` rounding each product's
+    operand that the JAX kernel rounds to its IO type (the identity for
+    float32)."""
     d, b, l, h3 = xproj2.shape
     h = h3 // 3
     carry = xproj2.new_zeros((d, b, h))
@@ -308,13 +405,13 @@ def bigru_scan_bwd_plain(xproj2, h_prevs2, dys2, wzr2, wh2):
         h_prev, x = h_prevs2[:, :, t], xproj2[:, :, t]
         zr = torch.sigmoid(torch.bmm(h_prev, wzr2) + x[..., : 2 * h])
         z, r = zr[..., :h], zr[..., h:]
-        rh = r * h_prev
+        rh = rnd(r * h_prev)
         c = torch.tanh(torch.bmm(rh, wh2) + x[..., 2 * h:])
         dh = dys2[:, :, t] + carry
-        da_c = dh * z * (1.0 - c * c)
+        da_c = rnd(dh * z * (1.0 - c * c))
         drh = torch.bmm(da_c, wh_t)
-        da_zr = torch.cat([dh * (c - h_prev) * z * (1.0 - z), drh * h_prev * r * (1.0 - r)],
-                          dim=-1)
+        da_zr = rnd(torch.cat([dh * (c - h_prev) * z * (1.0 - z), drh * h_prev * r * (1.0 - r)],
+                              dim=-1))
         carry = drh * r + torch.bmm(da_zr, wzr_t) + dh * (1.0 - z)
         dxproj2[:, :, t, : 2 * h] = da_zr
         dxproj2[:, :, t, 2 * h:] = da_c
@@ -324,7 +421,8 @@ def bigru_scan_bwd_plain(xproj2, h_prevs2, dys2, wzr2, wh2):
 
 
 def gru_scan_bwd_plain(xproj, h_prevs, dys, w_zr_h, w_h_h):
-    """Plain PyTorch twin of K17: ``_bwd_kernel``'s reverse-time loop."""
+    """Plain PyTorch twin of K17: ``_bwd_kernel``'s reverse-time loop (on
+    bfloat16 inputs, at its bf16 rounding points)."""
     return tuple(g[0] for g in bigru_scan_bwd_plain(xproj[None], h_prevs[None], dys[None],
                                                     w_zr_h[None], w_h_h[None]))
 
@@ -338,38 +436,47 @@ def _sizes(kernel, lead, xproj):
     return b, l, _hidden(xproj, kernel.name)
 
 
-def _scan_fwd(kernel, lead, xproj, h0, w_zr, w_h):
-    """Check the inputs of K16 or K18 and launch it."""
-    b, l, h = _sizes(kernel, lead, xproj)
+def _scan_fwd(kernel, kernel_bf16, lead, xproj, h0, w_zr, w_h):
+    """Check the inputs of K16 or K18 and launch its float32 entry
+    `kernel` or its bf16 entry, by xproj's type."""
+    dt = build.io_dtype(xproj)
+    entry = kernel_bf16 if dt == torch.bfloat16 else kernel
+    b, l, h = _sizes(entry, lead, xproj)
     dev = xproj.device
     for name, t, shape in (("xproj", xproj, (b, l, 3 * h)), ("h0", h0, (b, h)),
                            ("w_zr", w_zr, (h, 2 * h)), ("w_h", w_h, (h, h))):
-        build.check(name, t, (*lead, *shape), dev)
-    ys = torch.empty((*lead, b, l, h), device=dev, dtype=torch.float32)
+        build.check(name, t, (*lead, *shape), dev, dt)
+    ys = torch.empty((*lead, b, l, h), device=dev, dtype=dt)
     if b * l:
+        # The bf16 entry's walk keeps its slices in float: the float walk's plan.
         plan = walk.plan_on(kernel, b, h, "gru_fwd", lead[0] if lead else 1, dev)
-        kernel.launch(build.ptr(xproj), build.ptr(h0), build.ptr(w_zr), build.ptr(w_h),
-                      build.ptr(ys), b, l, h, *plan.args(), build.stream_of(xproj))
+        entry.launch(build.ptr(xproj), build.ptr(h0), build.ptr(w_zr), build.ptr(w_h),
+                     build.ptr(ys), b, l, h, *plan.args(), build.stream_of(xproj))
     return ys
 
 
-def _scan_bwd(kernel, lead, xproj, h_prevs, dys, w_zr, w_h):
-    """Check the inputs of K17 or K19 and launch it."""
-    b, l, h = _sizes(kernel, lead, xproj)
+def _scan_bwd(kernel, kernel_bf16, lead, xproj, h_prevs, dys, w_zr, w_h):
+    """Check the inputs of K17 or K19 and launch its float32 entry
+    `kernel` or its bf16 entry, by xproj's type."""
+    dt = build.io_dtype(xproj)
+    entry = kernel_bf16 if dt == torch.bfloat16 else kernel
+    b, l, h = _sizes(entry, lead, xproj)
     dev = xproj.device
     for name, t, shape in (("xproj", xproj, (b, l, 3 * h)), ("h_prevs", h_prevs, (b, l, h)),
                            ("dys", dys, (b, l, h)), ("w_zr", w_zr, (h, 2 * h)),
                            ("w_h", w_h, (h, h))):
-        build.check(name, t, (*lead, *shape), dev)
-    new = lambda *shape: torch.empty((*lead, *shape), device=dev, dtype=torch.float32)
+        build.check(name, t, (*lead, *shape), dev, dt)
+    new = lambda *shape, dtype=dt: torch.empty((*lead, *shape), device=dev, dtype=dtype)
     dxproj, dh0, dwzr, dwh = new(b, l, 3 * h), new(b, h), new(h, 2 * h), new(h, h)
     if b * l == 0:
         return dxproj, dh0.zero_(), dwzr.zero_(), dwh.zero_()
-    rh = new(b, l, h)  # r * h_prev per step, for the reduction of dWh
+    rh = new(b, l, h)  # r * h_prev per step (bf16: rounded), for the reduction of dWh
+    # The bf16 entry keeps the pre-pass's gates in float32 beside its bf16 dxproj.
+    gates = [new(b, l, 3 * h, dtype=torch.float32)] if dt == torch.bfloat16 else []
     plan = walk.plan_on(kernel, b, h, "gru", lead[0] if lead else 1, dev)
-    kernel.launch(*[build.ptr(t) for t in (xproj, h_prevs, dys, w_zr, w_h, dxproj, dh0, dwzr,
-                                           dwh, rh)], b, l, h, *plan.args(),
-                  build.stream_of(xproj))
+    entry.launch(*[build.ptr(t) for t in (xproj, h_prevs, dys, w_zr, w_h, dxproj, dh0, dwzr,
+                                          dwh, rh, *gates)], b, l, h, *plan.args(),
+                 build.stream_of(xproj))
     return dxproj, dh0, dwzr, dwh
 
 
@@ -378,80 +485,94 @@ def gru_scan(xproj, h0, w_zr_h, w_h_h):
     projections (cells.gru_input_proj), h0 (B, H), the recurrent halves
     w_zr_h (H, 2H) and w_h_h (H, H). Returns every state (B, L, H).
 
-    CPU tensors take the plain version; CUDA tensors kernel K16."""
+    All float32, or all bfloat16 (the bf16 entry; ys in bf16).
+
+    CPU tensors take the plain version; CUDA tensors kernel K16 (float32
+    or bf16 entry, by the inputs' type)."""
     if build.on_cpu(xproj, h0, w_zr_h, w_h_h):
         return gru_scan_plain(xproj, h0, w_zr_h, w_h_h)
-    return _scan_fwd(KERNEL_GRU, (), xproj, h0, w_zr_h, w_h_h)
+    return _scan_fwd(KERNEL_GRU, KERNEL_GRU_BF16, (), xproj, h0, w_zr_h, w_h_h)
 
 
 def gru_scan_bwd(xproj, h_prevs, dys, w_zr_h, w_h_h):
     """Cotangents of gru_scan's inputs given its input projections, the
     state each step started from (h_prevs[:, t]: h0 at t = 0, then the
     outputs), the outputs' cotangent and the recurrent weights:
-    (dxproj, dh0, dw_zr_h, dw_h_h).
+    (dxproj, dh0, dw_zr_h, dw_h_h). All float32, or all bfloat16 (the
+    bf16 entry; cotangents in bf16).
 
-    CPU tensors take the plain version; CUDA tensors kernel K17."""
+    CPU tensors take the plain version; CUDA tensors kernel K17 (float32
+    or bf16 entry, by the inputs' type)."""
     args = (xproj, h_prevs, dys, w_zr_h, w_h_h)
     if build.on_cpu(*args):
         return gru_scan_bwd_plain(*args)
-    return _scan_bwd(KERNEL_GRU_BWD, (), *args)
+    return _scan_bwd(KERNEL_GRU_BWD, KERNEL_GRU_BWD_BF16, (), *args)
 
 
 def bigru_scan(xproj2, h02, wzr2, wh2):
     """Both GRU directions over time, stacked: xproj2 (2, B, L, 3H) with
     direction 1 already flipped into its scan order, h02 (2, B, H), wzr2
     (2, H, 2H), wh2 (2, H, H). Returns every state (2, B, L, H),
-    direction 1 in scan order (the caller flips it back).
+    direction 1 in scan order (the caller flips it back). All float32, or
+    all bfloat16 (the bf16 entry).
 
-    CPU tensors take the plain version; CUDA tensors kernel K18."""
+    CPU tensors take the plain version; CUDA tensors kernel K18 (float32
+    or bf16 entry, by the inputs' type)."""
     if build.on_cpu(xproj2, h02, wzr2, wh2):
         return bigru_scan_plain(xproj2, h02, wzr2, wh2)
-    return _scan_fwd(KERNEL_BI, (2,), xproj2, h02, wzr2, wh2)
+    return _scan_fwd(KERNEL_BI, KERNEL_BI_BF16, (2,), xproj2, h02, wzr2, wh2)
 
 
 def bigru_scan_bwd(xproj2, h_prevs2, dys2, wzr2, wh2):
     """bigru_scan's cotangents, as gru_scan_bwd's with the directions
-    stacked: (dxproj2, dh02, dwzr2, dwh2).
+    stacked: (dxproj2, dh02, dwzr2, dwh2), all float32 or all bfloat16.
 
-    CPU tensors take the plain version; CUDA tensors kernel K19."""
+    CPU tensors take the plain version; CUDA tensors kernel K19 (float32
+    or bf16 entry, by the inputs' type)."""
     args = (xproj2, h_prevs2, dys2, wzr2, wh2)
     if build.on_cpu(*args):
         return bigru_scan_bwd_plain(*args)
-    return _scan_bwd(KERNEL_BI_BWD, (2,), *args)
+    return _scan_bwd(KERNEL_BI_BWD, KERNEL_BI_BWD_BF16, (2,), *args)
 
 
 class GRUScan(torch.autograd.Function):
     """gru_scan with its gradient: K16 forward, K17 backward (the plain
-    versions on CPU tensors). The backward puts h0 in front of the
+    versions on CPU tensors), each in float32 or through its bf16 entry.
+    h0 is taken in xproj's type. The backward puts h0 in front of the
     outputs for the state each step started from, as the JAX VJP does
-    (``_vjp_bwd`` :223)."""
+    (``_vjp_bwd`` :223), and returns each cotangent in its primal's
+    type."""
 
     @staticmethod
     def forward(ctx, xproj, h0, w_zr_h, w_h_h):
-        ys = gru_scan(xproj, h0, w_zr_h, w_h_h)
+        ys = gru_scan(xproj, h0.to(xproj.dtype), w_zr_h, w_h_h)
         ctx.save_for_backward(xproj, h0, w_zr_h, w_h_h, ys)
         return ys
 
     @staticmethod
     def backward(ctx, dys):
         xproj, h0, w_zr_h, w_h_h, ys = ctx.saved_tensors
-        h_prevs = torch.cat([h0[:, None], ys[:, :-1]], dim=1)
-        return gru_scan_bwd(xproj, h_prevs, dys.contiguous(), w_zr_h, w_h_h)
+        h_prevs = torch.cat([h0[:, None].to(ys.dtype), ys[:, :-1]], dim=1)
+        grads = gru_scan_bwd(xproj, h_prevs, dys.to(ys.dtype).contiguous(), w_zr_h, w_h_h)
+        return tuple(g.to(p.dtype) for g, p in zip(grads, (xproj, h0, w_zr_h, w_h_h)))
 
 
 class BiGRUScan(torch.autograd.Function):
     """bigru_scan with its gradient: K18 forward, K19 backward (the plain
-    versions on CPU tensors), the states shifted as ``_bi_vjp_bwd`` (:498)
-    shifts them."""
+    versions on CPU tensors), each in float32 or through its bf16 entry,
+    h02 taken in xproj2's type and the cotangents returned in the
+    primals' types; the states shifted as ``_bi_vjp_bwd`` (:498) shifts
+    them."""
 
     @staticmethod
     def forward(ctx, xproj2, h02, wzr2, wh2):
-        ys = bigru_scan(xproj2, h02, wzr2, wh2)
+        ys = bigru_scan(xproj2, h02.to(xproj2.dtype), wzr2, wh2)
         ctx.save_for_backward(xproj2, h02, wzr2, wh2, ys)
         return ys
 
     @staticmethod
     def backward(ctx, dys):
         xproj2, h02, wzr2, wh2, ys = ctx.saved_tensors
-        h_prevs = torch.cat([h02[:, :, None], ys[:, :, :-1]], dim=2)
-        return bigru_scan_bwd(xproj2, h_prevs, dys.contiguous(), wzr2, wh2)
+        h_prevs = torch.cat([h02[:, :, None].to(ys.dtype), ys[:, :, :-1]], dim=2)
+        grads = bigru_scan_bwd(xproj2, h_prevs, dys.to(ys.dtype).contiguous(), wzr2, wh2)
+        return tuple(g.to(p.dtype) for g, p in zip(grads, (xproj2, h02, wzr2, wh2)))

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import comm
+
 NEG_INF = -1e30
 
 
@@ -26,14 +28,25 @@ def flip_sequences(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, gather)
 
 
-def masked_softmax(e: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.Tensor:
+def masked_softmax(e: torch.Tensor, mask: torch.Tensor, dim: int = -1,
+                   group=None) -> torch.Tensor:
     """Softmax over `dim` with positions where mask == 0 forced to 0.
 
     Masked energies become NEG_INF before the max, and the exponentials
-    are multiplied by the mask, so a masked position gets exactly 0."""
+    are multiplied by the mask, so a masked position gets exactly 0.
+
+    With `group` (a process group, parallel/comm.py), `dim` is also split
+    over the group's ranks (sequence sharding): the max is the group's
+    all-reduce MAX, with no gradient (the softmax does not depend on it),
+    and the normalizer the group's differentiable all-reduce SUM; the
+    probabilities stay split."""
     keep = mask > 0
     e = torch.where(keep, e, torch.full_like(e, NEG_INF))
     m = torch.amax(e, dim=dim, keepdim=True)
+    if group is not None:
+        m = comm.all_reduce_max(m, group)
     w = torch.exp(e - m) * keep
     z = torch.sum(w, dim=dim, keepdim=True)
+    if group is not None:
+        z = comm.all_reduce_sum(z, group)
     return w / torch.clamp(z, min=1e-30)

@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import comm
+
 
 def make_ramp(lengths: torch.Tensor, max_len: int, lam, dtype=torch.float32) -> torch.Tensor:
     """lam * max(len - i, 0) per sample, 0-indexed i: (B,) -> (B, max_len).
@@ -34,10 +36,13 @@ def make_ramp(lengths: torch.Tensor, max_len: int, lam, dtype=torch.float32) -> 
 
 
 def monotonic_penalty_value(alpha: torch.Tensor, prev_alpha: torch.Tensor,
-                            unit_ramp: torch.Tensor) -> torch.Tensor:
+                            unit_ramp: torch.Tensor, group=None) -> torch.Tensor:
     """The unscaled penalty of one step, weighted-sum form: (B, L) -> (B,).
-    unit_ramp is ``make_ramp(lengths, L, 1.0)``."""
-    return torch.clamp(torch.sum(unit_ramp * (alpha - prev_alpha), dim=-1), min=0.0)
+    unit_ramp is ``make_ramp(lengths, L, 1.0)``. With `group` (the
+    encoder positions split over its ranks) the local partial sums are
+    all-reduced over it before the clamp."""
+    s = comm.all_reduce_sum(torch.sum(unit_ramp * (alpha - prev_alpha), dim=-1), group)
+    return torch.clamp(s, min=0.0)
 
 
 class MonotonicAlignmentSeq(torch.autograd.Function):

@@ -66,11 +66,15 @@ def dropout_keep(generator: torch.Generator, shape, rate: float, device) -> torc
 
 
 def stack_apply(params: List[Params], specs: Sequence[LayerSpec], x: torch.Tensor,
-                *, generator: Optional[torch.Generator] = None,
-                train: bool = False) -> torch.Tensor:
+                *, generator: Optional[torch.Generator] = None, train: bool = False,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Apply the stack, then log_softmax in float32. In train mode a
     dropout layer with rate > 0 draws its mask from `generator` (on x's
-    device) and raises ValueError without one."""
+    device) and raises ValueError without one. With rows = (offset, n),
+    x holds rows offset.. of a global batch of n rows (a dp rank's share):
+    the mask is drawn at the global batch's shape and x takes its rows, so
+    that every rank draws the same numbers and the mask does not depend on
+    the mesh, as the JAX package's readout under GSPMD draws it."""
     for p, spec in zip(params, specs):
         kind = spec[0]
         if kind == "linear":
@@ -82,6 +86,10 @@ def stack_apply(params: List[Params], specs: Sequence[LayerSpec], x: torch.Tenso
         elif kind == "dropout" and train and spec[1] > 0.0:
             if generator is None:
                 raise ValueError("dropout in train mode needs a generator")
-            keep = dropout_keep(generator, x.shape, spec[1], x.device)
+            if rows is None:
+                keep = dropout_keep(generator, x.shape, spec[1], x.device)
+            else:
+                keep = dropout_keep(generator, (rows[1],) + tuple(x.shape[1:]), spec[1],
+                                    x.device)[rows[0]:rows[0] + x.shape[0]]
             x = torch.where(keep, x / (1.0 - spec[1]), 0.0)
     return torch.log_softmax(x.float(), dim=-1)

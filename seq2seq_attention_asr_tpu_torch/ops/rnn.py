@@ -66,7 +66,10 @@ def gru_layer(params: Params, x: torch.Tensor, lengths: Optional[torch.Tensor] =
     None), scanned forward and flipped back, so output[t] is the state
     after consuming x[t..len-1]. The outputs are not masked: past a
     row's length the scan runs on into the padding, and those positions
-    are returned as the JAX package returns them."""
+    are returned as the JAX package returns them. bf16 params and input
+    run K16 and K17 through their bf16 entries (h0 taken in bf16), and
+    give a bf16 output and bf16 gradients, as the JAX package's Pallas
+    branch does."""
     h_dim = params["w_zr"].shape[1] // 2
     if reverse:
         x = _flip(x, lengths)

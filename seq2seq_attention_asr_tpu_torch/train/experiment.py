@@ -207,7 +207,14 @@ def run_cli(make_experiment, dataset: str, argv=None, source_file: Optional[str]
     chunk at a time in a shuffled order each epoch (Trainer.fit's
     chunked epoch), or in memory when there is a single chunk. The run is
     on the card unless --cpu is given. Returns the Trainer after its last
-    epoch."""
+    epoch.
+
+    --dp and --sp run the mesh trainer (parallel.make_mesh(dp=args.dp or
+    None, sp=args.sp), as the JAX package's run_cli does): under a
+    launcher (python -m torch.distributed.run --nproc-per-node N ...) the
+    world comes from the launcher's environment, NCCL on the cards or gloo
+    with --cpu; --dp 1 with no launcher is a world of one rank. Rank 0
+    alone prints the rows and writes the run's files."""
     import argparse
 
     from ..data import batching
@@ -224,13 +231,18 @@ def run_cli(make_experiment, dataset: str, argv=None, source_file: Optional[str]
     ap.add_argument("--max-samples", type=int, default=None)
     ap.add_argument("--decode-every", type=int, default=1)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (default: the card)")
-    ap.add_argument("--dp", type=int, default=0, help="not ported (ROADMAP Queue A item 9)")
-    ap.add_argument("--sp", type=int, default=1, help="not ported (ROADMAP Queue A item 9)")
+    ap.add_argument("--dp", type=int, default=0,
+                    help="data-parallel mesh axis (0 = the single-rank trainer)")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence-sharding mesh axis (the padded encoder length must divide it)")
     args = ap.parse_args(argv)
-    if args.dp or args.sp > 1:
-        raise NotImplementedError("--dp and --sp (the mesh trainer) are not ported yet "
-                                  "(ROADMAP Queue A item 9)")
     device = "cpu" if args.cpu else "cuda"
+    mesh = None
+    if args.dp or args.sp > 1:
+        from ..parallel import make_mesh
+
+        mesh = make_mesh(dp=args.dp or None, sp=args.sp, device=device)
+    chief = mesh is None or mesh.is_chief
 
     vocab = None
     chunked = None
@@ -278,17 +290,20 @@ def run_cli(make_experiment, dataset: str, argv=None, source_file: Optional[str]
     # axis of channel-stacked (L, freq, C) ones (the VGG recipe's NHWC input)
     x0 = train_ds.x[0]
     exp.model_kwargs["input_frame_size"] = int(x0.shape[-2] if x0.ndim == 3 else x0.shape[-1])
-    exp.archive(source_file)
+    if chief:
+        exp.archive(source_file)
 
     params = exp.init_params(torch.Generator().manual_seed(exp.train.seed), device=device)
     tr = Trainer(exp.build_model(), exp.optim, exp.train, vocab=vocab, save_dir=exp.save_dir,
-                 optim_resets=exp.optim_resets, device=device)
+                 optim_resets=exp.optim_resets, device=device, mesh=mesh)
     tr.init(params)
     batcher = batching.BucketedBatcher.from_dataset(train_ds, batch_size=exp.train.batch_size)
     keys = ("epoch", "train_nll", "train_accuracy", "valid_nll", "valid_accuracy", "valid_per",
             "train_seconds", "train_samples_per_s")
     for row in tr.fit(train_ds, valid_ds, batcher, resume=args.resume,
                       decode_every=args.decode_every, chunked=chunked):
+        if not chief:
+            continue
         print("  ".join(f"{k}={row[k]:.4f}" if isinstance(row.get(k), float)
                         else f"{k}={row.get(k)}" for k in keys if k in row), flush=True)
     return tr

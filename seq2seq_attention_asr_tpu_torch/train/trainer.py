@@ -28,7 +28,14 @@ checkpoints of the latest state and of the best accuracy and PER,
 resume, optimizer resets by epoch and restore on NaN, and the
 out-of-core epoch over chunks of the training set (LibriSpeech). Everything
 runs on the trainer's device, the card unless it is asked for the CPU.
-The JAX package's mesh (dp x sp) trainer is not ported.
+
+With a mesh (parallel/mesh.py: every rank of a dp x sp world runs the same
+Trainer), every rank walks the same global batches (the same batcher and
+seed), pads each to a multiple of dp with dead copies of row 0 (dec_mask
+0: no loss, metric or penalty), takes its rows and runs the steps of
+parallel/dp.py; the metrics, eval sums and beam results are the global
+batch's on every rank. Rank 0 alone writes the checkpoints, the metric
+log and the dumps, a barrier after each; resume reads on every rank.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from ..decode import beam as beam_lib
 from ..decode import metrics as metrics_lib
 from ..models.chorowski import cast_float32, float32_sums
 from ..ops import attention as attention_ops
+from ..parallel import comm
 from ..utils import debug
 from . import awn, checkpoint, optim
 from .loss import token_accuracy
@@ -103,7 +111,7 @@ def make_init_fn(tx: optim.Transform, tcfg: TrainConfig):
 
 
 def make_step_core(forward_fn: Callable[..., Dict[str, torch.Tensor]], tx: optim.Transform,
-                   ocfg: optim.OptimConfig, tcfg: TrainConfig, output_depth: int):
+                   ocfg: optim.OptimConfig, tcfg: TrainConfig, output_depth: int, mesh=None):
     """step_fn(state, batch) -> (state, metrics); batch = (x, x_len, y,
     dec_mask). forward_fn(params, x, x_len, labels_onehot, dec_mask, *,
     generator, train) -> dict(logprobs, alpha, penalty). Metrics are 0-d
@@ -117,12 +125,26 @@ def make_step_core(forward_fn: Callable[..., Dict[str, torch.Tensor]], tx: optim
     reported loss is the nll plus lambda * KL of the state before the
     update, param_norm is |mu|, and awn_sigma_rms the rms of sigma after
     the update (trainer.py:147-230 of the JAX package). Under
-    noise="weight" the gradient at theta + sigma * eps updates theta."""
+    noise="weight" the gradient at theta + sigma * eps updates theta.
+
+    With a mesh (parallel/dp.py), the batch is this rank's rows and the
+    loss stays the mean over the GLOBAL batch's real rows: each rank
+    divides the sum over its rows by the global count, summed over dp
+    before the backward, and by sp, since every rank of an sp group
+    computes the readout and the loss of the same rows; the gradients are
+    summed over the world before AWN's terms and the update, so that the
+    monotonic penalty's injection, which is not scaled by the loss, counts
+    once, and AWN's lambda * KL gradient is added once. The metrics are
+    summed over dp."""
     _check_noise(tcfg)
     use_awn = tcfg.noise == "awn"
+    dp_group = None if mesh is None else mesh.dp_group
+    dp_sum = (lambda t: t) if mesh is None else (lambda t: comm.reduce(t, group=dp_group))
 
     def rowmean(v, row):
-        return torch.sum(v * row) / torch.clamp(torch.sum(row), min=1.0)
+        """This rank's share of the mean over the global batch's real rows."""
+        n_rows = torch.sum(row) if mesh is None else dp_sum(torch.sum(row))
+        return torch.sum(v * row) / torch.clamp(n_rows, min=1.0)
 
     def step_fn(state, batch):
         train_params, opt_state, generator = state
@@ -151,9 +173,14 @@ def make_step_core(forward_fn: Callable[..., Dict[str, torch.Tensor]], tx: optim
             lens = torch.clamp(steps, min=1.0)
             row = (steps > 0).to(per_utt.dtype)  # rows of batch padding count nowhere
             loss_grad = rowmean(per_utt / lens if tcfg.normalize_grad else per_utt, row)
-            grads = tree.unflatten(params, torch.autograd.grad(loss_grad, leaves))
+            if mesh is not None and mesh.sp > 1:
+                loss_grad = loss_grad / mesh.sp
+            grads = torch.autograd.grad(loss_grad, leaves)
         with torch.no_grad():
-            loss = rowmean(per_utt / lens if tcfg.normalize_nll else per_utt, row)
+            if mesh is not None:
+                grads = _world_sum(grads, mesh.world)
+            grads = tree.unflatten(params, list(grads))
+            loss = dp_sum(rowmean(per_utt / lens if tcfg.normalize_nll else per_utt, row))
             logprobs = out["logprobs"].detach()
             loss_report = loss
             if use_awn:
@@ -174,9 +201,9 @@ def make_step_core(forward_fn: Callable[..., Dict[str, torch.Tensor]], tx: optim
                 "nll": loss,
                 "grad_norm": gnorm,
                 "param_norm": tree.global_norm(eval_params(tcfg, train_params)),
-                "correct": correct,
-                "total": total,
-                "penalty": torch.sum(out["penalty"].detach()),
+                "correct": dp_sum(correct),
+                "total": dp_sum(total),
+                "penalty": dp_sum(torch.sum(out["penalty"].detach())),
             }
             if use_awn:
                 metrics["awn_sigma_rms"] = awn.sigma_rms(train_params)
@@ -185,15 +212,25 @@ def make_step_core(forward_fn: Callable[..., Dict[str, torch.Tensor]], tx: optim
     return step_fn
 
 
+def _world_sum(grads, world):
+    """The gradients summed over the world, as one flat all-reduce."""
+    if world is None:
+        return grads
+    flat = comm.reduce(torch.cat([g.reshape(-1) for g in grads]), group=world)
+    return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
 def make_train_step(forward_fn, tx: optim.Transform, ocfg: optim.OptimConfig, tcfg: TrainConfig,
                     output_depth: int):
     """(init_fn, step_fn): see make_init_fn and make_step_core."""
     return make_init_fn(tx, tcfg), make_step_core(forward_fn, tx, ocfg, tcfg, output_depth)
 
 
-def make_eval_step(forward_fn: Callable[..., Dict[str, torch.Tensor]], output_depth: int):
+def make_eval_step(forward_fn: Callable[..., Dict[str, torch.Tensor]], output_depth: int,
+                   mesh=None):
     """Teacher-forced eval (timit.lua:384-394): summed NLL, accuracy
-    counts, and n, the number of real rows."""
+    counts, and n, the number of real rows; with a mesh, each summed over
+    dp (the global batch's)."""
 
     @torch.no_grad()
     def eval_fn(params, batch) -> Dict[str, Any]:
@@ -203,7 +240,10 @@ def make_eval_step(forward_fn: Callable[..., Dict[str, torch.Tensor]], output_de
         nll = torch.sum(-torch.sum(onehot * out["logprobs"], dim=-1) * dec_mask)
         correct, total = token_accuracy(out["logprobs"], y, dec_mask)
         n = torch.sum((torch.sum(dec_mask, dim=-1) > 0).to(torch.float32))
-        return {"nll": nll, "correct": correct, "total": total, "n": n}
+        sums = {"nll": nll, "correct": correct, "total": total, "n": n}
+        if mesh is not None:
+            sums = {k: comm.reduce(v, group=mesh.dp_group) for k, v in sums.items()}
+        return sums
 
     return eval_fn
 
@@ -275,7 +315,9 @@ class Trainer:
     (the card unless "cpu"). `vocab` (data.timit.Vocab) scores PER after
     the 61->39 fold; without it the error rate is taken on the raw ids.
     `optim_resets` maps an epoch to the OptimConfig it starts with
-    (optimConfigResets, timit.lua:496-502)."""
+    (optimConfigResets, timit.lua:496-502). `mesh` (parallel.make_mesh)
+    runs the dp x sp steps of parallel/dp.py on the mesh's device, which
+    takes the place of `device`."""
 
     # Metrics are summed on the device and read back (one sync) every
     # this many batches; the NaN tripwire fires at these reads.
@@ -287,18 +329,18 @@ class Trainer:
                  save_dir: Optional[str] = None,
                  optim_resets: Optional[Dict[int, optim.OptimConfig]] = None, device="cuda",
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("the mesh (dp x sp) trainer is not ported yet "
-                                      "(ROADMAP Queue A item 9)")
         _check_noise(tcfg)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.is_chief = mesh is None or mesh.is_chief
         self.model = model
         self.ocfg = ocfg
         self.tcfg = tcfg
         self.vocab = vocab
         self.save_dir = save_dir
         self.optim_resets = optim_resets or {}
-        self.log = MetricLog(os.path.join(save_dir, "log.jsonl") if save_dir else None)
+        self.log = MetricLog(os.path.join(save_dir, "log.jsonl")
+                             if save_dir and self.is_chief else None)
         self._build(ocfg)
         self.state = None
         self.epoch = 0
@@ -307,32 +349,56 @@ class Trainer:
     def _build(self, ocfg: optim.OptimConfig):
         self.tx = optim.build_optimizer(ocfg)
         self.init_fn = make_init_fn(self.tx, self.tcfg)
+        dtype = getattr(self.model.cfg, "compute_dtype", "float32")
+        if self.mesh is not None:
+            from ..parallel import dp
+
+            self.step_fn = dp.make_sharded_train_step(self.model, self.tx, self.tcfg, ocfg,
+                                                      self.mesh)
+            self.eval_fn = dp.make_sharded_eval_step(self.model, self.mesh)
+            self.decode_fn = dp.make_sharded_decode_step(self.model, self.mesh, self.tcfg.beam_k,
+                                                         self.tcfg.eval_len_factor,
+                                                         compute_dtype=dtype)
+            return
         self.step_fn = make_step_core(self.model.forward, self.tx, ocfg, self.tcfg,
                                       self.model.output_depth)
         self.eval_fn = make_eval_step(self.model.forward, self.model.output_depth)
         self.decode_fn = make_decode_step(self.model.encode, self.model.attention_cfg,
                                           self.tcfg.beam_k, self.tcfg.eval_len_factor,
-                                          device=self.device,
-                                          compute_dtype=getattr(self.model.cfg, "compute_dtype",
-                                                                "float32"))
+                                          device=self.device, compute_dtype=dtype)
 
     # -- state management ---------------------------------------------------
 
     def init(self, params):
         """The train state from `params` (numpy arrays or tensors), moved to
-        the trainer's device; the generator, on that device, is seeded with
-        tcfg.seed."""
-        self.state = self.init_fn(interop.to_torch(params, self.device),
+        the trainer's device (with a mesh, rank 0's, broadcast to every
+        rank); the generator, on that device, is seeded with tcfg.seed, on
+        every rank alike."""
+        params = interop.to_torch(params, self.device)
+        if self.mesh is not None:
+            from ..parallel import mesh as mesh_lib
+
+            params = mesh_lib.put_replicated(self.mesh, params)
+        self.state = self.init_fn(params,
                                   torch.Generator(device=self.device).manual_seed(self.tcfg.seed))
         return self.state
 
     def _ckpt_path(self, tag: str) -> str:
         return os.path.join(self.save_dir, f"ckpt_{tag}")
 
+    def _chief_writes(self, write) -> None:
+        """write() on rank 0 alone (every rank without a mesh), then a
+        barrier, so that no rank reads what rank 0 has not finished."""
+        if self.is_chief:
+            write()
+        if self.mesh is not None:
+            comm.barrier(self.mesh.world)
+
     def save_checkpoint(self, tag: str = "latest"):
         if self.save_dir:
-            checkpoint.save(self._ckpt_path(tag),
-                            {"state": self.state, "epoch": self.epoch, "best": self.best})
+            self._chief_writes(lambda: checkpoint.save(
+                self._ckpt_path(tag), {"state": self.state, "epoch": self.epoch,
+                                       "best": self.best}))
 
     def resume(self) -> bool:
         """Load ckpt_latest (state, epoch, best); False if there is none."""
@@ -352,7 +418,12 @@ class Trainer:
     def _prepare_batch(self, batch, with_eos: bool = False):
         """A Batch or DeviceBatch -> ((x, x_len, y, dec_mask) on the device,
         y_len, eos); eos (the final target token of each utterance,
-        timit.lua:398) is None unless with_eos."""
+        timit.lua:398) is None unless with_eos. With a mesh the batch is
+        first padded to a multiple of dp with dead copies of row 0 (its
+        dec_mask zeroed: it adds to no loss, metric or penalty, and its
+        lengths stay valid for the softmax; trainer.py:514-528 of the JAX
+        package), and the arrays and eos are this rank's rows; y_len stays
+        the global batch's real rows'."""
         if not isinstance(batch, batching.DeviceBatch):
             batch = batching.to_device(batch, self.device)
         arrs = tuple(a.to(self.device) for a in (batch.x, batch.x_len, batch.y, batch.dec_mask))
@@ -362,6 +433,19 @@ class Trainer:
             n = arrs[2].shape[0]
             rows = torch.arange(n, device=self.device)
             eos = arrs[2][rows, torch.as_tensor(y_len - 1, device=self.device).long()]
+        if self.mesh is not None:
+            from ..parallel import mesh as mesh_lib
+
+            n = arrs[0].shape[0]
+            dead = -n % self.mesh.dp
+            if dead:
+                rep = lambda a: torch.cat([a, a[:1].expand((dead,) + tuple(a.shape[1:]))])
+                x, x_len, y, dec_mask = (rep(a) for a in arrs)
+                dec_mask = torch.cat([dec_mask[:n], torch.zeros_like(dec_mask[n:])])
+                arrs = (x, x_len, y, dec_mask)
+                eos = None if eos is None else rep(eos)
+            arrs = tuple(mesh_lib.shard_batch(self.mesh, a) for a in arrs)
+            eos = None if eos is None else mesh_lib.shard_batch(self.mesh, eos)
         return arrs, y_len, eos
 
     def _batch_arrays(self, batch):
@@ -470,26 +554,28 @@ class Trainer:
             md = {k: m[k] for k in ("nll", "correct", "total", "n")}
             acc_dev = md if acc_dev is None else {k: acc_dev[k] + md[k] for k in md}
             if decode:
-                x, x_len, y, _ = arrs
+                x, x_len, _, _ = arrs
                 # The history must hold factor * L hypotheses: the
                 # LibriSpeech recipe decodes up to 2L steps
                 # (librispeech/train.lua:251-252).
                 cap = int(math.ceil(self.tcfg.eval_len_factor * x.shape[1]))
                 res = self.decode_fn(params, x, x_len, eos, max_steps_cap=cap)
-                pred = res.tokens.cpu().numpy()
-                plen = res.lengths.cpu().numpy()
+                # a mesh's results are the global batch's, dead rows last
+                n = len(y_len)
+                pred = res.tokens.cpu().numpy()[:n]
+                plen = res.lengths.cpu().numpy()[:n]
                 if self.vocab is not None and batch.y39 is not None:
                     targets = np.asarray(batch.y39)
                     pred = self.vocab.map_ids_61_to_39(pred)
                 else:
-                    targets = y.cpu().numpy()
+                    targets = torch.as_tensor(batch.y).cpu().numpy()
                 d = metrics_lib.batch_edit_distance(pred, plen, targets, y_len)
                 dists.extend((d / np.maximum(y_len, 1)).tolist())
                 if dump_pred:
-                    pred_rows.append((list(batch.uids), pred, plen, res.scores.cpu().numpy(),
-                                      targets, y_len))
+                    pred_rows.append((list(batch.uids), pred, plen,
+                                      res.scores.cpu().numpy()[:n], targets, y_len))
         if dump_pred and pred_rows:
-            self._dump_predictions(pred_rows)
+            self._chief_writes(lambda: self._dump_predictions(pred_rows))
         acc = {}
         if acc_dev is not None:
             keys = list(acc_dev)
@@ -537,15 +623,20 @@ class Trainer:
             src = cands[-1]
             self.log.append({"epoch": self.epoch, "event": "predictions_fallback", "tag": tag,
                              "source": os.path.basename(src)})
-        shutil.copyfile(src, os.path.join(self.save_dir, f"predictions_{tag}.npz"))
+        self._chief_writes(lambda: shutil.copyfile(
+            src, os.path.join(self.save_dir, f"predictions_{tag}.npz")))
 
     def _maybe_dump_attention(self, params, batch):
         """The first valid batch's alpha maps, the Ws projections of each
         step's s_{t-1} and the Vh projections of the annotations, and the
         output log-probs (timit.lua:540-550): attn_epoch{N}.npz."""
-        if not (self.tcfg.dump_attention and self.save_dir):
+        if not (self.tcfg.dump_attention and self.save_dir) or not self.is_chief:
             return
-        x, x_len, y, dec_mask = self._batch_arrays(batch)
+        if not isinstance(batch, batching.DeviceBatch):
+            batch = batching.to_device(batch, self.device)
+        # the whole batch, unsharded, on rank 0 alone
+        x, x_len, y, dec_mask = (a.to(self.device)
+                                 for a in (batch.x, batch.x_len, batch.y, batch.dec_mask))
         onehot = _one_hot_labels(y, dec_mask, self.model.output_depth)
         dec = params["decoder"]
         h, h_len = self.model.encode(params, x, x_len)

@@ -2152,3 +2152,77 @@ def test_decoder_scans_are_bit_for_bit_as_before(card):
     backwards of K11, K13 and K15 existed and the bf16 forwards wrote the
     float32 alpha and c."""
     assert _decoder_digests() == DECODER_DIGESTS
+
+
+# The bf16 entries of K16-K19: one row at an odd length, the flagship
+# encoder's training batch, a part-empty last row group, fewer units than
+# blocks, and slices streamed from L2; nonzero initial states. The
+# forwards' exact twin is their plain bf16 version; the backwards' is
+# bigru_scan_bwd_twin_bf16 (the entries' stages and sums), their plain
+# bf16 version the JAX kernels' rounding points.
+@pytest.mark.parametrize("stacked", [False, True], ids=["K16_K17", "K18_K19"])
+@pytest.mark.parametrize("b,l,h", [(1, 131, 256), (16, 144, 256), (33, 20, 256), (2, 6, 5),
+                                   (3, 9, 400)])
+def test_gru_scan_bf16_entries(card, stacked, b, l, h):
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan
+
+    gen = torch.Generator().manual_seed(b * 1000 + h + 31 * stacked)
+    lead = (2,) if stacked else ()
+    ins = _to_bf16([_rand(gen, *lead, b, l, 3 * h), _rand(gen, *lead, b, h, scale=0.5),
+                    _rand(gen, *lead, h, 2 * h, scale=h ** -0.5),
+                    _rand(gen, *lead, h, h, scale=h ** -0.5)])
+    fwd, bwd = ((gru_scan.bigru_scan, gru_scan.bigru_scan_bwd) if stacked
+                else (gru_scan.gru_scan, gru_scan.gru_scan_bwd))
+    kf, kb = ((gru_scan.KERNEL_BI_BF16, gru_scan.KERNEL_BI_BWD_BF16) if stacked
+              else (gru_scan.KERNEL_GRU_BF16, gru_scan.KERNEL_GRU_BWD_BF16))
+    ys = _bf16_twice(kf, lambda *a: (fwd(*a),), ins)
+    plain = (fwd(*[t.cpu() for t in ins]).cuda(),)
+    _bf16_close(kf.name, ys, plain, plain, (fwd(*[t.cpu().float() for t in ins]).cuda(),))
+    h0 = ins[1][..., None, :]
+    h_prevs = torch.cat([h0, ys[0][..., :-1, :]], dim=-2).contiguous()
+    args = [ins[0], h_prevs, _to_bf16(_rand(gen, *lead, b, l, h, scale=0.1)), *ins[2:]]
+    got = _bf16_twice(kb, bwd, args)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    cpu = [t.cpu() for t in args]
+    one = (lambda f: f) if stacked else (lambda f: lambda *a: tuple(
+        g[0] for g in f(*[t[None] for t in a])))
+    twin = [t.cuda() for t in one(gru_scan.bigru_scan_bwd_twin_bf16)(*cpu)]
+    plain = [t.cuda() for t in bwd(*cpu)]
+    truth = [t.cuda() for t in bwd(*[t.float() for t in cpu])]
+    _bf16_close(kb.name, got, twin, plain, truth)
+
+
+def test_bf16_gru_layer_on_the_card(card):
+    """rnn.gru_layer on a bf16 layer and bf16 CUDA tensors, reverse over
+    ragged lengths from a bf16 h0: K16's and K17's bf16 entries, one launch
+    each, a bf16 output and bf16 gradients for every input, each by the
+    ground-truth rule against the float32 layer on the same values."""
+    from seq2seq_attention_asr_tpu_torch.ops import cells, rnn
+    from seq2seq_attention_asr_tpu_torch.ops.cuda import gru_scan
+
+    gen = torch.Generator().manual_seed(9)
+    p32 = {k: v.cuda() for k, v in cells.gru_init(gen, 123, 256).items()}
+    x32, h032 = _rand(gen, 16, 144, 123), _rand(gen, 16, 256, scale=0.5)
+    lens = torch.randint(96, 145, (16,), generator=gen).cuda()
+    cot = _rand(gen, 16, 144, 256, scale=0.1).to(torch.bfloat16)
+
+    def run(p, x, h0):
+        leaves = [p["w_zr"], p["w_h"], x, h0]
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+        ys = rnn.gru_layer({"w_zr": leaves[0], "w_h": leaves[1]}, leaves[2], lens,
+                           reverse=True, h0=leaves[3])
+        return (ys.detach(), *torch.autograd.grad(ys, leaves, cot.to(ys.device, ys.dtype)))
+
+    before = (gru_scan.KERNEL_GRU_BF16.launches, gru_scan.KERNEL_GRU_BWD_BF16.launches)
+    got = run(*_to_bf16([p32, x32, h032]))
+    torch.cuda.synchronize()
+    assert (gru_scan.KERNEL_GRU_BF16.launches, gru_scan.KERNEL_GRU_BWD_BF16.launches) == (
+        before[0] + 1, before[1] + 1)
+    truth = run(*_upcast(_to_bf16([p32, x32, h032])))
+    plain = run(*[{k: v.cpu() for k, v in t.items()} if isinstance(t, dict) else t.cpu()
+                  for t in _to_bf16([p32, x32, h032])])
+    rel = lambda g, t: float((g.float() - t.float().cpu()).norm()) / max(float(t.float().norm()),
+                                                                        1e-6)
+    for i, (g, p, t) in enumerate(zip(got, plain, truth)):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g.float()).all()), i
+        assert rel(g.cpu(), t) <= 2.0 * rel(p, t) + 0.02, i

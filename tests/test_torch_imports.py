@@ -36,7 +36,11 @@ def test_port_files_are_found():
             "debug.py", "monotonic.py", "awn.py", "convergence_torch.py", "audio.py", "flac.py",
             "librispeech.py", "build.py", "editdist.py", "packing.py", "flacdec.py",
             "preprocess_timit_torch.py", "preprocess_librispeech_torch.py",
-            "extract_alpha_torch.py"} <= names
+            "extract_alpha_torch.py", "mesh.py", "multihost.py", "dp.py", "seq_attention.py",
+            "comm.py"} <= names
+    parallel = {p.name for p in PORT_FILES if p.parent.name == "parallel"}
+    assert {"__init__.py", "mesh.py", "multihost.py", "dp.py", "seq_attention.py",
+            "comm.py"} <= parallel
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -67,6 +71,16 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(ValueError):
         resolve_device("meta")
     assert resolve_device("cpu").type == "cpu"
+    # the mesh and the mesh trainer: the mesh carries the device
+    from seq2seq_attention_asr_tpu_torch.parallel import make_mesh
+    from seq2seq_attention_asr_tpu_torch.train import optim, trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        make_mesh(dp=1)
+    tr = trainer.Trainer(model, optim.OptimConfig(), trainer.TrainConfig(),
+                         mesh=make_mesh(dp=1, device="cpu"))
+    assert tr.device.type == "cpu"
 
 
 def test_kernel_wrappers_take_cpu_or_cuda_tensors_only():

@@ -58,9 +58,12 @@ def test_train_config_matches_jax():
     with pytest.raises(ValueError):
         trainer.Trainer(registry.build("chorowski", **SMALL), optim.OptimConfig(),
                         trainer.TrainConfig(noise="gauss"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        trainer.Trainer(registry.build("chorowski", **SMALL), optim.OptimConfig(),
-                        trainer.TrainConfig(), device="cpu", mesh=object())
+    # the mesh trainer: a world of one rank needs no process group
+    from seq2seq_attention_asr_tpu_torch.parallel import make_mesh
+
+    tr = trainer.Trainer(registry.build("chorowski", **SMALL), optim.OptimConfig(),
+                         trainer.TrainConfig(), mesh=make_mesh(dp=1, device="cpu"))
+    assert tr.device.type == "cpu" and tr.mesh.shape == {"dp": 1, "sp": 1} and tr.is_chief
 
 
 def test_metric_log_rows_match_jax(tmp_path):
@@ -459,8 +462,9 @@ def test_scriptchecker_end_to_end(tmp_path):
                             ["--cpu", "--data", data, "--save", save, "--resume", "--epochs", "3",
                              "--decode-every", "0"])
     assert tr.epoch == 3 and len(trainer.MetricLog.load(os.path.join(save, "log.jsonl"))) == 3
+    # a mesh larger than the world (one process, no launcher) is refused
     for argv in (["--dp", "2"], ["--sp", "2"]):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="ranks"):
             experiment.run_cli(experiment.scriptchecker, "scriptchecker",
                                ["--cpu", "--data", data] + argv)
     # a TIMIT directory is no LibriSpeech one: it has no meta.txt
